@@ -1,0 +1,69 @@
+"""Engine state carried between the JAX package and the port, as numpy.
+
+The system has no weights: what crosses is engine state. Each function
+takes dicts of numpy arrays named like the reference dataclass fields
+(``repro.core.dbs.DBSState``, ``repro.core.slots.SlotTable``, nested
+``free``/``ring`` dicts for their ``SlotRing``), so a caller can hand over
+``jax.device_get(dataclasses.asdict(state))`` and the port never sees a
+JAX array. The block bitmap is uint32 on the JAX side and int64 here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.dbs import DBSState
+from repro_torch.core.slots import SlotRing, SlotTable
+
+
+def _t(x, device) -> torch.Tensor:
+    a = np.array(x, copy=True)          # writable, contiguous, 0-d kept
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def ring_from_numpy(leaves: Dict[str, Any], device) -> SlotRing:
+    return SlotRing(**{k: _t(leaves[k], device)
+                       for k in ("ids", "head", "tail")})
+
+
+def state_from_numpy(leaves: Dict[str, Any], device) -> DBSState:
+    """A ``DBSState`` on ``device`` from the reference state's leaves."""
+    kw = {f.name: _t(leaves[f.name], device)
+          for f in dataclasses.fields(DBSState) if f.name != "free"}
+    return DBSState(free=ring_from_numpy(leaves["free"], device), **kw)
+
+
+def table_from_numpy(leaves: Dict[str, Any], device) -> SlotTable:
+    """A ``SlotTable`` on ``device`` from the reference table's leaves."""
+    kw = {f.name: _t(leaves[f.name], device)
+          for f in dataclasses.fields(SlotTable) if f.name != "ring"}
+    return SlotTable(ring=ring_from_numpy(leaves["ring"], device), **kw)
+
+
+def replicas_from_numpy(states: Sequence[Dict[str, Any]],
+                        pools: Sequence[Any], page_revs: Sequence[Any],
+                        device):
+    """Per-replica (states, pools, page_revs) tuples on ``device``."""
+    return (tuple(state_from_numpy(s, device) for s in states),
+            tuple(_t(p, device) for p in pools),
+            tuple(_t(p, device) for p in page_revs))
+
+
+def to_numpy(obj) -> Any:
+    """The inverse: a port dataclass (``DBSState``, ``SlotTable``,
+    ``SlotRing``) or tensor as numpy, named like the reference fields; the
+    bitmap comes back as uint32."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        out[f.name] = to_numpy(v)
+    if isinstance(obj, DBSState):
+        out["bitmap"] = out["bitmap"].astype(np.uint32)
+    return out

@@ -1,0 +1,117 @@
+"""The fused engine step: one controller iteration, device-resident.
+
+Port of ``repro/core/fused.py``. One step per pump performs
+
+    slot admission  ->  write_pages control-plane resolution (per replica)
+                    ->  CoW copies + payload stores, mirrored across all
+                        replicas (a REGISTERED KERNEL, kernels/dbs: the
+                        hand-written ``dbs_rw`` CUDA kernels by default)
+                    ->  watermark stamps
+                    ->  round-robin read gathers (the same kernel's read)
+                    ->  slot retirement
+
+with no host read-back inside: the slot table, every replica's
+``DBSState``, pools and watermarks stay on the device across pumps, and the
+host fetches ``(ok, reads)`` once per pump (core/backends.py).
+
+JAX donates the step's buffers; here the payload pools are updated in
+place (each CoW row is gathered before any destination row is written, by
+the routing contract of the kernels), and the small metadata tensors are
+replaced by new ones. The round-robin cursor is a host int, so the serving
+replica is picked by plain Python indexing. The tiered variants (spill
+tier) and the traced health mask (shards) land with their slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import dbs, slots
+from repro_torch.core.transport import stamp_page_rev
+from repro_torch.kernels.dbs.registry import make_kernel
+
+
+@dataclass
+class FusedBatch:
+    """Fixed-shape admitted-request batch: the raw tensors the host moves
+    in. Inert padding lanes are marked want=False."""
+    want: torch.Tensor       # (B,) bool  lane carries a real request
+    is_write: torch.Tensor   # (B,) bool  write (True) vs read (False)
+    volume: torch.Tensor     # (B,) int32
+    page: torch.Tensor       # (B,) int32
+    block: torch.Tensor      # (B,) int32 block offset within the page
+    payload: torch.Tensor    # (B, *payload) write payloads (zeros for reads)
+    queue: torch.Tensor      # (B,) int32 admission queue per lane
+    step: torch.Tensor       # ()   int32 admission step (fairness/arrival)
+
+
+def _cow_apply(pool, ops: dbs.WriteOps, payload, block_offsets, kernel: str):
+    """Data plane of a mirrored write batch — CoW extent copies + payload
+    block stores — dispatched through the kernel registry; the pool is
+    updated in place (its last row is the dump row)."""
+    return make_kernel(kernel).write(pool, ops, payload, block_offsets)
+
+
+def step_core(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
+              pools: Tuple[torch.Tensor, ...],
+              page_revs: Tuple[torch.Tensor, ...], batch: FusedBatch,
+              rr: int, *, kernel: str = "cuda"):
+    """The fused controller iteration over the healthy replicas' states,
+    pools and watermarks. Returns ``(table', states', pools', page_revs',
+    ok (B,) bool, reads (B, *payload))``."""
+    table, _ids, ok = slots.transact(table, batch.want, batch.volume,
+                                     batch.queue, batch.step)
+    wmask = ok & batch.is_write
+    bits = torch.ones((), dtype=torch.int64, device=ok.device) << \
+        batch.block.to(torch.int64)
+    out_states, out_pools, out_prs = [], [], []
+    for i, st in enumerate(states):            # mirrored write-to-all
+        st, wops = dbs.write_pages(st, batch.volume, batch.page, bits, wmask)
+        out_pools.append(_cow_apply(pools[i], wops, batch.payload,
+                                    batch.block, kernel))
+        out_prs.append(stamp_page_rev(page_revs[i], batch.volume,
+                                      batch.page, wops.ok, st.revision))
+        out_states.append(st)
+    reads = _rr_gather(out_states, out_pools, batch, rr, ok & ~batch.is_write,
+                       torch.zeros_like(batch.payload), kernel)
+    return (table, tuple(out_states), tuple(out_pools), tuple(out_prs), ok,
+            reads)
+
+
+def fused_step(table, states, pools, page_revs, batch: FusedBatch, rr: int,
+               *, kernel: str = "cuda"):
+    """One whole controller iteration (``step_core``). The pools are
+    updated in place; callers replace their references to the table,
+    states and watermarks with the returned ones."""
+    return step_core(table, states, pools, page_revs, batch, rr,
+                     kernel=kernel)
+
+
+def _rr_gather(states, pools, batch: FusedBatch, rr: int, rmask, reads,
+               kernel: str = "cuda"):
+    """Round-robin read: resolve + gather from replica ``rr % R`` (one
+    resolve and one gather per batch). Holes (ext < 0) read as zeros."""
+    i = rr % len(states)
+    ext = dbs.read_resolve(states[i], batch.volume, batch.page)
+    vals = make_kernel(kernel).read(pools[i], ext, batch.block)
+    return torch.where(rmask.reshape(rmask.shape + (1,) * (vals.dim() - 1)),
+                       vals, reads)
+
+
+def step_core_read(table: slots.SlotTable, states, pools,
+                   batch: FusedBatch, rr: int, *, kernel: str = "cuda"):
+    """``step_core`` specialised to batches with no write lanes (replica
+    state and pools are inputs only). Returns ``(table', ok, reads)``."""
+    table, _ids, ok = slots.transact(table, batch.want, batch.volume,
+                                     batch.queue, batch.step)
+    return table, ok, _rr_gather(states, pools, batch, rr,
+                                 ok & ~batch.is_write,
+                                 torch.zeros_like(batch.payload), kernel)
+
+
+def fused_step_read(table, states, pools, batch: FusedBatch, rr: int, *,
+                    kernel: str = "cuda"):
+    """``fused_step`` specialised to batches with no write lanes."""
+    return step_core_read(table, states, pools, batch, rr, kernel=kernel)

@@ -1,0 +1,142 @@
+"""``dbs_rw``: wrappers of the hand-written CUDA write and read kernels.
+
+Port of ``repro/kernels/dbs/rw_kernel.py``; the kernels live in
+``csrc/dbs_rw.cu`` (the source note there gives their bound and design).
+Each wrapper checks device, dtype, shape and contiguity, then launches the
+kernel for a tensor on a CUDA device or calls the plain version
+(kernels/dbs/ref.py) for a tensor on the CPU. A CUDA tensor gets the kernel
+or an error, never the plain version.
+
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the wrappers' calls
+of the plain version, so a run can show which path it went through.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.dbs.ref import dbs_rw_read_ref, dbs_rw_write_ref
+
+LAUNCHES: Dict[str, int] = {"dbs_rw_write": 0, "dbs_rw_read": 0}
+PLAIN_CALLS: Dict[str, int] = {"dbs_rw_write": 0, "dbs_rw_read": 0}
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _vec4(d: int, *tensors: torch.Tensor) -> int:
+    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def check_write_routing(src, dst, lane_of, n_rows: int) -> None:
+    """Raise unless a routed write batch is race-free on the GPU: every lane
+    not parked on the dump row (``n_rows - 1``) names a distinct in-range
+    ``dst``, no lane's ``src`` is another lane's ``dst``, dump lanes have
+    ``src == dst`` and no payload, and ``lane_of`` names real lanes. Reads
+    the batch back to the host: a debug check, off on the hot path."""
+    dump = n_rows - 1
+    s, t, lo = (x.cpu() for x in (src, dst, lane_of))
+    b = t.shape[0]
+    live = t != dump
+    parked = ~live
+    if bool(((t < 0) | (t >= n_rows) | (s < 0) | (s >= n_rows)).any()):
+        raise ValueError("dbs_rw_write routing: extent id out of range")
+    if bool((parked & ((s != dump) | (lo >= 0).any(1))).any()):
+        raise ValueError("dbs_rw_write routing: a dump-row lane must have "
+                         "src == dst and no payload")
+    if bool(((lo < -1) | (lo >= b)).any()):
+        raise ValueError("dbs_rw_write routing: lane_of out of range")
+    tl = t[live]
+    if tl.unique().numel() != tl.numel():
+        raise ValueError("dbs_rw_write routing: two lanes write one row")
+    other = live[None, :] & (s[:, None] == t[None, :]) & ~torch.eye(
+        b, dtype=torch.bool)
+    if bool((live[:, None] & other).any()):
+        raise ValueError("dbs_rw_write routing: a lane reads a row that "
+                         "another lane writes")
+
+
+def dbs_rw_write(pool, src, dst, lane_of, payload, *,
+                 check_routing: bool = False):
+    """pool: (E, page, D) f32, updated in place and returned; src/dst: (B,)
+    int32 extent ids; lane_of: (B, page) int32 block -> payload lane (-1
+    keeps the source block); payload: (B, D) f32.
+
+    src/dst must be pre-routed (ops.py ``_route_writes``): every live row is
+    named by exactly one lane, no lane reads a row another lane writes, and
+    inert lanes point src == dst at the dump row (the last row).
+    ``check_routing=True`` verifies that contract first (host sync)."""
+    e, page, d = pool.shape
+    b = src.shape[0]
+    dev = pool.device
+    _check("pool", pool, torch.float32, (e, page, d), dev)
+    _check("src", src, torch.int32, (b,), dev)
+    _check("dst", dst, torch.int32, (b,), dev)
+    _check("lane_of", lane_of, torch.int32, (b, page), dev)
+    _check("payload", payload, torch.float32, (b, d), dev)
+    if check_routing:
+        check_write_routing(src, dst, lane_of, e)
+    if dev.type == "cpu":
+        PLAIN_CALLS["dbs_rw_write"] += 1
+        return dbs_rw_write_ref(pool, src, dst, lane_of, payload)
+    if dev.type != "cuda":
+        raise ValueError(f"dbs_rw_write: no kernel for device {dev}")
+    from repro_torch.kernels.dbs._build import library
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dbs_rw_write(pool.data_ptr(), src.data_ptr(),
+                               dst.data_ptr(), lane_of.data_ptr(),
+                               payload.data_ptr(), b, e, page, d,
+                               _vec4(d, pool, payload), stream)
+    _raise_on(err, "dbs_rw_write")
+    LAUNCHES["dbs_rw_write"] += 1
+    return pool
+
+
+def dbs_rw_read(pool, ext, block):
+    """pool: (E, page, D) f32; ext: (B,) int32, -1 = hole (reads as zeros);
+    block: (B,) int32 block offset within the page. Returns (B, D)."""
+    e, page, d = pool.shape
+    b = ext.shape[0]
+    dev = pool.device
+    _check("pool", pool, torch.float32, (e, page, d), dev)
+    _check("ext", ext, torch.int32, (b,), dev)
+    _check("block", block, torch.int32, (b,), dev)
+    if dev.type == "cpu":
+        PLAIN_CALLS["dbs_rw_read"] += 1
+        return dbs_rw_read_ref(pool, ext, block)
+    if dev.type != "cuda":
+        raise ValueError(f"dbs_rw_read: no kernel for device {dev}")
+    from repro_torch.kernels.dbs._build import library
+    lib = library()
+    out = torch.empty((b, d), dtype=pool.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dbs_rw_read(pool.data_ptr(), ext.data_ptr(),
+                              block.data_ptr(), out.data_ptr(), b, e, page,
+                              d, _vec4(d, pool, out), stream)
+    _raise_on(err, "dbs_rw_read")
+    LAUNCHES["dbs_rw_read"] += 1
+    return out

@@ -1,0 +1,275 @@
+"""Port parity: the public block device, ``VolumeManager(backend="fused")``.
+
+1. The tests/test_blockdev.py interleaved trace against a bytearray oracle.
+2. A seeded byte trace through the JAX and the port managers: every read
+   returns the same bytes, and at the end every replica's ``DBSState``,
+   watermarks and pool are equal.
+3. ``convert`` carries a JAX engine's state into the port mid-trace, and
+   both go on identically.
+4. Device choice and unported configuration raise; the package imports
+   neither JAX nor ``repro``.
+"""
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+
+from repro.core.blockdev import VolumeManager as JManager  # noqa: E402
+from repro_torch.core import convert  # noqa: E402
+from repro_torch.core.blockdev import VolumeManager  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+BB, PB, PAGES = 8, 4, 8              # block bytes, page blocks, pages
+GEOM = dict(payload_elems=BB, page_blocks=PB, max_pages=PAGES, n_extents=64,
+            max_volumes=8, batch=16, n_replicas=3)
+
+
+def _mgr(**kw) -> VolumeManager:
+    return VolumeManager(**{"backend": "fused", "device": "cpu", **GEOM,
+                            **kw})
+
+
+def _pat(seed: int, n: int) -> bytes:
+    return bytes((seed * 37 + i) % 251 for i in range(n))
+
+
+@pytest.mark.parametrize("kernel", ["cuda", "torch", "ref"])
+def test_byte_equivalence_interleaved(kernel):
+    mgr = _mgr(kernel=kernel, n_extents=256)
+    bufs = {}
+
+    def new_vol():
+        v = mgr.create()
+        bufs[v.vid] = bytearray(mgr.capacity)
+        return v
+
+    def write(v, off, data):
+        bufs[v.vid][off:off + len(data)] = data
+        return v.pwrite(off, data)
+
+    def discard(v, off, n):
+        bufs[v.vid][off:off + n] = bytes(n)
+        return v.discard(off, n)
+
+    def check_all():
+        mgr.flush()
+        for vid, buf in bufs.items():
+            assert mgr.open(vid).read(0, mgr.capacity) == bytes(buf), vid
+
+    v1, v2 = new_vol(), new_vol()
+    pending = [write(v1, 0, _pat(1, 17)), write(v2, 5, _pat(2, 11)),
+               write(v1, 13, _pat(3, 9))]              # overlaps in flight
+    r1, e1 = v1.pread(3, 20), bytes(bufs[v1.vid][3:23])
+    pending.append(write(v1, 24, _pat(4, 48)))         # page-crossing span
+    r2, e2 = v2.pread(0, 32), bytes(bufs[v2.vid][0:32])
+    assert all(f.result() is not None for f in pending)
+    assert r1.result() == e1 and r2.result() == e2
+    check_all()
+    v1.snapshot()
+    write(v1, 2, _pat(5, 40))                          # CoW vs snapshot
+    c1 = v1.clone()
+    bufs[c1.vid] = bytearray(bufs[v1.vid])
+    write(c1, 0, _pat(6, 23))                          # child diverges
+    write(v1, 64, _pat(7, 16))                         # parent diverges
+    check_all()
+    write(v2, 32, _pat(8, 96))
+    discard(v2, 34, 3)                                 # sub-block
+    discard(v2, 40, 20)                                # partial page
+    discard(v1, 30, 70)                                # edges + full pages
+    check_all()
+    mgr.delete(v2)
+    del bufs[v2.vid]
+    v3 = new_vol()
+    write(v3, 7, _pat(9, 33))
+    check_all()
+    assert mgr.engine.backend.consistent()
+    mgr.close()
+    with pytest.raises(ValueError, match="closed"):
+        v1.pwrite(0, b"x")
+
+
+def _trace(seed, n_ops, cap):
+    """Seeded byte ops: aligned and unaligned writes, reads, discards,
+    snapshot/clone/delete, as tuples that ``_replay`` applies."""
+    rng = np.random.default_rng(seed)
+    ops = []
+    for i in range(n_ops):
+        off = int(rng.integers(0, cap - 1))
+        n = int(rng.integers(1, min(3 * BB * PB, cap - off) + 1))
+        if rng.random() < 0.5:                         # block-aligned span
+            off -= off % BB
+            n = max(BB, n - n % BB)
+            n = min(n, cap - off)
+        k = rng.random()
+        if k < 0.45:
+            ops.append(("write", off, bytes(rng.integers(0, 256, n,
+                                                         dtype=np.uint8))))
+        elif k < 0.85:
+            ops.append(("read", off, n))
+        elif k < 0.93:
+            ops.append(("discard", off, n))
+        else:
+            ops.append((("snapshot", "clone", "delete")[i % 3], 0, 0))
+    return ops
+
+
+def _replay(mgr, ops, vols, out):
+    futs = []
+    for j, (kind, off, arg) in enumerate(ops):
+        v = vols[j % len(vols)]
+        if kind == "write":
+            v.pwrite(off, arg)
+        elif kind == "read":
+            futs.append(v.pread(off, arg))
+        elif kind == "discard":
+            v.discard(off, arg)
+        elif kind == "snapshot":
+            v.snapshot()
+        elif kind == "clone":
+            c = v.clone()
+            if c is not None:
+                vols.append(c)
+        elif len(vols) > 2:                           # delete a clone
+            vols.pop().delete()
+    mgr.flush()
+    out.extend(f.result() for f in futs)
+
+
+def _replica_leaves(mgr, jax_side):
+    reps = mgr.engine.backend.replicas
+    if jax_side:
+        return [(jax.device_get(dataclasses.asdict(r.state)),
+                 np.asarray(r.page_rev), np.asarray(r.pool)) for r in reps]
+    return [(convert.to_numpy(r.state), r.page_rev.numpy(), r.pool.numpy())
+            for r in reps]
+
+
+def _assert_same_replicas(jm, tm):
+    def cmp(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                cmp(a[k], b[k], f"{path}.{k}")
+            return
+        assert np.array_equal(np.asarray(a), np.asarray(b)), path
+    for i, (a, b) in enumerate(zip(_replica_leaves(jm, True),
+                                   _replica_leaves(tm, False))):
+        cmp(a[0], b[0], f"replica {i} state")
+        assert np.array_equal(a[1], b[1]), f"replica {i} page_rev"
+        assert np.array_equal(a[2], b[2]), f"replica {i} pool"
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("jkernel,tkernel", [("pallas", "cuda"),
+                                             ("xla", "torch")])
+def test_seeded_trace_matches_jax(jkernel, tkernel, seed):
+    jm = JManager(backend="fused", kernel=jkernel, **GEOM)
+    tm = _mgr(kernel=tkernel)
+    ops = _trace(seed, 70, jm.capacity)
+    outs = ([], [])
+    for m, out in zip((jm, tm), outs):
+        vols = [m.create(), m.create()]
+        _replay(m, ops, vols, out)
+    assert outs[0] == outs[1]
+    assert len(outs[1]) > 10
+    _assert_same_replicas(jm, tm)
+    assert tm.engine.backend.consistent()
+
+
+def _adopt(tm, jm):
+    """Carry a flushed JAX manager's engine state into the port manager."""
+    jb, tb = jm.engine.impl, tm.engine.impl
+    for jr, tr in zip(jb.storage.replicas, tb.storage.replicas):
+        (tr.state,), (tr.pool,), (tr.page_rev,) = convert.replicas_from_numpy(
+            [jax.device_get(dataclasses.asdict(jr.state))],
+            [np.asarray(jr.pool)], [np.asarray(jr.page_rev)], tm.device)
+    tb.frontend.table = convert.table_from_numpy(
+        jax.device_get(dataclasses.asdict(jb.frontend.table)), tm.device)
+    tb.frontend.step = jb.frontend.step
+    tb.storage._rr = jb.storage._rr
+    for vid in jm.volumes:
+        tm.open(vid)
+
+
+def test_convert_carries_mid_trace_state():
+    ops = _trace(5, 80, PAGES * PB * BB)
+    jm = JManager(backend="fused", kernel="xla", **GEOM)
+    vols = [jm.create(), jm.create()]
+    _replay(jm, ops[:40], vols, [])
+    tm = _mgr(kernel="cuda")
+    _adopt(tm, jm)
+    _assert_same_replicas(jm, tm)
+    outs = ([], [])
+    for m, out in zip((jm, tm), outs):
+        _replay(m, ops[40:], [m.open(v.vid) for v in vols], out)
+    assert outs[0] == outs[1]
+    _assert_same_replicas(jm, tm)
+
+
+def test_default_device_is_cuda_without_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VolumeManager()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VolumeManager(backend="fused", **GEOM)
+
+
+@pytest.mark.parametrize("kw,slice_", [
+    (dict(backend="ring"), "ring slice"),
+    (dict(backend="sharded"), "shards slice"),
+    (dict(backend="slots"), "host-dispatch slice"),
+    (dict(backend="upstream"), "controller slice"),
+    (dict(n_shards=2), "shards slice"),
+    (dict(transport="simnet"), "transport slice"),
+    (dict(write_policy="quorum"), "transport slice"),
+    (dict(read_policy="latency"), "transport slice"),
+    (dict(journal="wal.log"), "durability slice"),
+    (dict(tier=8), "durability slice"),
+    (dict(null_backend=True), "benchmark slice"),
+    (dict(null_storage=True), "benchmark slice"),
+    (dict(payload_shape=(2, 4)), "serving slice"),
+])
+def test_unported_configuration_raises(kw, slice_):
+    with pytest.raises(ValueError, match=slice_):
+        _mgr(**kw)
+
+
+def test_unported_calls_raise():
+    mgr = _mgr()
+    v = mgr.create()
+    with pytest.raises(ValueError, match="compute slice"):
+        v.compute("checksum")
+    with pytest.raises(ValueError, match="out of range"):
+        from repro_torch.core import Request
+        mgr.submit(Request(req_id=0, kind="write", volume=v.vid,
+                           page=PAGES, block=0))
+    with pytest.raises(ValueError, match="comm='ring'|backend='ring'"):
+        from repro_torch.core import Request
+        mgr.submit(Request(req_id=0, kind="snapshot", volume=v.vid))
+
+
+def test_port_imports_no_jax_and_no_repro():
+    code = ("import sys, repro_torch.core.blockdev, "
+            "repro_torch.kernels.dbs._build; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
+            "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)[\s.])",
+                     re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        assert not pat.search(f.read_text()), f

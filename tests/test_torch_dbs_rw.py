@@ -1,0 +1,242 @@
+"""Port parity: the ``dbs_rw`` kernels' wrappers and the kernel registry.
+
+1. On the tests/test_dbs_rw.py geometries, held to batches that the real
+   control plane (``write_pages``) emits, the port's registry entries —
+   ``cuda`` (whose wrappers run the plain versions for CPU tensors),
+   ``torch`` and ``ref`` — leave the pool bit-identical to JAX ``pallas``
+   (interpret mode) and ``xla``; reads with holes agree too.
+2. Multidimensional payloads, the registry API, the drop-``dst<0`` rule of
+   the ``torch`` entry and the write-routing check.
+3. The CUDA kernels themselves are held against their plain versions on a
+   card by tests/test_torch_kernels_gpu.py, which imports no JAX.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import dbs as jdbs  # noqa: E402
+from repro.kernels.dbs import dbs_rw_read_pool as j_read_pool  # noqa: E402
+from repro.kernels.dbs import dbs_rw_write_pool as j_write_pool  # noqa: E402
+from repro.kernels.dbs import make_kernel as j_make_kernel  # noqa: E402
+from repro_torch.core import Engine, EngineConfig  # noqa: E402
+from repro_torch.core import dbs as tdbs  # noqa: E402
+from repro_torch.kernels.dbs import (LAUNCHES, PLAIN_CALLS,  # noqa: E402
+                                     available_kernels, dbs_rw_read,
+                                     dbs_rw_read_pool, dbs_rw_write,
+                                     dbs_rw_write_pool, make_kernel,
+                                     register_kernel, resolve_kernel_name)
+from repro_torch.kernels.dbs.registry import _REGISTRY  # noqa: E402
+
+PORT_KERNELS = ["cuda", "torch", "ref"]
+
+
+def _legal_batch(e, page, d, b, seed):
+    """A write batch from the JAX control plane (so it is write_pages-legal):
+    CoW after a snapshot and a clone (two lanes may share one CoW source),
+    in-place pages, holes, duplicate-page groups with duplicate blocks,
+    masked lanes and, on small pools, starvation. Returns numpy (pool,
+    dst, cow_src, ok, payload, blocks)."""
+    rng = np.random.default_rng(seed)
+    n_p = 6
+    bits = lambda blk: jnp.asarray(np.uint32(1) << blk.astype(np.uint32))
+    st = jdbs.make_state(e - 1, 3, n_p)
+    st, v0 = jdbs.create_volume(st)
+    pre = rng.integers(0, n_p, 4).astype(np.int32)
+    st, _ = jdbs.write_pages(st, v0, jnp.asarray(pre),
+                             bits(np.zeros(4, np.int32)))
+    st, _ = jdbs.snapshot(st, v0)
+    st, v1 = jdbs.clone(st, v0)
+    st, _ = jdbs.write_pages(st, v0, jnp.asarray(pre[:1]),
+                             bits(np.zeros(1, np.int32)))   # in place next
+    vol = rng.choice([int(v0), int(v1)], b).astype(np.int32)
+    pages = rng.integers(0, n_p, b).astype(np.int32)
+    blocks = rng.integers(0, page, b).astype(np.int32)
+    mask = rng.random(b) < 0.8
+    st, ops = jdbs.write_pages(st, jnp.asarray(vol), jnp.asarray(pages),
+                               bits(blocks), jnp.asarray(mask))
+    pool = rng.standard_normal((e, page, d)).astype(np.float32)
+    payload = rng.standard_normal((b, d)).astype(np.float32)
+    return (pool, np.array(ops.dst), np.array(ops.cow_src),
+            np.array(ops.ok), payload, blocks)
+
+
+def _jax_write(name, pool, dst, cow, ok, payload, blocks):
+    ops = jdbs.WriteOps(dst=jnp.asarray(dst), cow_src=jnp.asarray(cow),
+                        ok=jnp.asarray(ok))
+    return np.asarray(j_make_kernel(name).write(
+        jnp.asarray(pool), ops, jnp.asarray(payload), jnp.asarray(blocks)))
+
+
+def _port_write(name, pool, dst, cow, ok, payload, blocks):
+    ops = tdbs.WriteOps(dst=torch.from_numpy(dst), cow_src=torch.from_numpy(cow),
+                        ok=torch.from_numpy(ok))
+    p = torch.from_numpy(pool.copy())
+    out = make_kernel(name).write(p, ops, torch.from_numpy(payload),
+                                  torch.from_numpy(blocks))
+    assert out.data_ptr() == p.data_ptr(), "write must update the pool in place"
+    return out.numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("e,page,d,b", [(16, 4, 8, 8), (33, 8, 16, 12),
+                                         (9, 2, 4, 16)])
+@pytest.mark.parametrize("kernel", PORT_KERNELS)
+def test_write_matches_jax_on_write_pages_batches(kernel, e, page, d, b,
+                                                  seed):
+    args = _legal_batch(e, page, d, b, seed)
+    got = _port_write(kernel, *args)
+    for ref in ("pallas", "xla"):
+        assert np.array_equal(got, _jax_write(ref, *args)), ref
+
+
+@pytest.mark.parametrize("e,page,d,b", [(16, 4, 8, 8), (33, 8, 16, 20)])
+@pytest.mark.parametrize("kernel", PORT_KERNELS)
+def test_read_matches_jax_with_holes(kernel, e, page, d, b):
+    """Hole lanes (ext < 0) read as zeros, not as clamped extent 0."""
+    rng = np.random.default_rng(e)
+    pool = rng.standard_normal((e, page, d)).astype(np.float32)
+    lane = np.arange(b, dtype=np.int32)
+    ext = np.where(lane % 3 == 0, -1, (lane * 7) % e).astype(np.int32)
+    blocks = ((lane * 3) % page).astype(np.int32)
+    got = make_kernel(kernel).read(torch.from_numpy(pool),
+                                   torch.from_numpy(ext),
+                                   torch.from_numpy(blocks)).numpy()
+    for ref in ("pallas", "xla"):
+        want = np.asarray(j_make_kernel(ref).read(
+            jnp.asarray(pool), jnp.asarray(ext), jnp.asarray(blocks)))
+        assert np.array_equal(got, want), ref
+    assert not got[0].any()
+
+
+def test_rw_pool_wrappers_multidim_payload():
+    """The pool wrappers flatten/restore trailing payload dims."""
+    e, page, shape, b = 10, 4, (2, 3), 6
+    rng = np.random.default_rng(3)
+    pool = rng.standard_normal((e, page) + shape).astype(np.float32)
+    payload = rng.standard_normal((b,) + shape).astype(np.float32)
+    lane = np.arange(b, dtype=np.int32)
+    blocks = (lane % page).astype(np.int32)
+    jops = jdbs.WriteOps(dst=jnp.asarray(lane),
+                         cow_src=jnp.full((b,), -1, jnp.int32),
+                         ok=jnp.ones((b,), bool))
+    want = np.asarray(j_write_pool(jnp.asarray(pool), jops,
+                                   jnp.asarray(payload), jnp.asarray(blocks)))
+    tops = tdbs.WriteOps(dst=torch.from_numpy(lane),
+                         cow_src=torch.full((b,), -1, dtype=torch.int32),
+                         ok=torch.ones((b,), dtype=torch.bool))
+    got = dbs_rw_write_pool(torch.from_numpy(pool.copy()), tops,
+                            torch.from_numpy(payload),
+                            torch.from_numpy(blocks))
+    assert np.array_equal(got.numpy(), want)
+    ext = np.asarray([0, -1, 2, 5, -1, 3], np.int32)
+    rd = dbs_rw_read_pool(torch.from_numpy(pool), torch.from_numpy(ext),
+                          torch.from_numpy(blocks))
+    assert tuple(rd.shape) == (b,) + shape
+    assert np.array_equal(rd.numpy(), np.asarray(j_read_pool(
+        jnp.asarray(pool), jnp.asarray(ext), jnp.asarray(blocks))))
+
+
+def test_torch_entry_drops_ok_lanes_without_dst():
+    """A lane with ``ok=True, dst=-1`` writes nothing in every port entry,
+    as in JAX ``pallas`` and ``ref``. JAX ``xla`` (``apply_write_ops``,
+    which tests only ``ok``) writes it into extent 0: that divergence is
+    why tests/test_dbs_rw.py::test_write_read_property fails on the
+    reference. ``write_pages`` never emits such a lane."""
+    e, page, d, b = 12, 4, 8, 6
+    rng = np.random.default_rng(7)
+    pool = rng.standard_normal((e, page, d)).astype(np.float32)
+    payload = rng.standard_normal((b, d)).astype(np.float32)
+    dst = np.asarray([3, -1, 5, -1, 3, 7], np.int32)
+    cow = np.asarray([-1, -1, 9, -1, -1, -1], np.int32)
+    ok = np.ones(b, bool)
+    blocks = np.asarray([0, 1, 2, 3, 1, 0], np.int32)
+    args = (pool, dst, cow, ok, payload, blocks)
+    want = _jax_write("pallas", *args)
+    assert np.array_equal(want, _jax_write("ref", *args))
+    assert np.array_equal(want[0], pool[0])          # row 0 untouched
+    for name in PORT_KERNELS:
+        assert np.array_equal(_port_write(name, *args), want), name
+
+
+def test_registry_lists_resolves_and_rejects():
+    assert set(PORT_KERNELS) <= set(available_kernels())
+    assert resolve_kernel_name(EngineConfig()) == "cuda"
+    assert resolve_kernel_name(EngineConfig(kernel="torch")) == "torch"
+    with pytest.raises(ValueError, match="unknown kernel"):
+        make_kernel("nope")
+    with pytest.raises(ValueError, match="unknown kernel"):
+        Engine(EngineConfig(kernel="nope", device="cpu"))
+    with pytest.raises(ValueError):
+        register_kernel("broken", lambda *a: None)      # read= missing
+    with pytest.raises(ValueError, match="duplicate"):
+        register_kernel("torch", make_kernel("torch"))
+
+
+def test_register_custom_kernel_roundtrip():
+    base = make_kernel("torch")
+    calls = []
+
+    def write(pool, ops, payload, blocks):
+        calls.append("w")
+        return base.write(pool, ops, payload, blocks)
+
+    try:
+        register_kernel("traced", write, read=base.read)
+        eng = Engine(EngineConfig(comm="fused", kernel="traced",
+                                  payload_shape=(8,), n_extents=64,
+                                  max_pages=32, batch=8, device="cpu"))
+        vol = eng.create_volume()
+        from repro_torch.core import Request
+        eng.submit(Request(req_id=0, kind="write", volume=vol, page=0,
+                           block=0, payload=np.ones(8, np.float32)))
+        assert eng.drain() == 1
+        assert calls, "custom kernel was not dispatched"
+    finally:
+        _REGISTRY.pop("traced", None)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """The wrappers choose by the tensors' device: on the CPU they call the
+    plain version and count it, and launch nothing."""
+    LAUNCHES.update(dbs_rw_write=0, dbs_rw_read=0)
+    PLAIN_CALLS.update(dbs_rw_write=0, dbs_rw_read=0)
+    pool = torch.zeros((4, 2, 4))
+    i = torch.tensor([0, 3], dtype=torch.int32)
+    dbs_rw_write(pool, i, i, torch.full((2, 2), -1, dtype=torch.int32),
+                 torch.zeros((2, 4)))
+    dbs_rw_read(pool, i, torch.zeros(2, dtype=torch.int32))
+    assert PLAIN_CALLS == {"dbs_rw_write": 1, "dbs_rw_read": 1}
+    assert LAUNCHES == {"dbs_rw_write": 0, "dbs_rw_read": 0}
+    with pytest.raises(TypeError):
+        dbs_rw_read(pool.double(), i, i)
+    with pytest.raises(ValueError, match="contiguous"):
+        dbs_rw_read(pool.transpose(0, 1).contiguous().transpose(0, 1), i, i)
+
+
+def test_routing_check_rejects_racy_batches():
+    """``check_routing`` accepts routed write_pages batches and rejects the
+    two races the GPU would run: one row written by two lanes, and a lane
+    reading a row that another lane writes."""
+    e, page, d, b = 16, 4, 8, 8
+    pool, dst, cow, ok, payload, blocks = _legal_batch(e, page, d, b, 0)
+    ops = tdbs.WriteOps(dst=torch.from_numpy(dst), cow_src=torch.from_numpy(cow),
+                        ok=torch.from_numpy(ok))
+    dbs_rw_write_pool(torch.from_numpy(pool), ops, torch.from_numpy(payload),
+                      torch.from_numpy(blocks), check_routing=True)
+    dump = e - 1
+    t = torch.from_numpy(pool.copy())
+    pay = torch.from_numpy(payload)
+    none = torch.full((b, page), -1, dtype=torch.int32)
+    park = torch.full((b,), dump, dtype=torch.int32)
+    two_writers = park.clone()
+    two_writers[:2] = 3
+    with pytest.raises(ValueError, match="two lanes"):
+        dbs_rw_write(t, two_writers, two_writers, none, pay,
+                     check_routing=True)
+    src, dst_ = park.clone(), park.clone()
+    src[0], dst_[0] = 5, 2              # lane 0 reads row 5 ...
+    src[1], dst_[1] = 5, 5              # ... which lane 1 writes
+    with pytest.raises(ValueError, match="another lane writes"):
+        dbs_rw_write(t, src, dst_, none, pay, check_routing=True)
