@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's main paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--max-pages P]
 
 Run from the root of a checkout on a machine with an NVIDIA GPU (Hopper:
 the kernels build for sm_90a with nvcc, at first use, into
-build/torch_kernels/). ``--max-pages`` cuts the volume's size (1 GiB by
-default), the one cut a short time limit may force. Phases, one JSON line
-each; any failure raises and the script exits non-zero:
+build/torch_kernels/). ``--max-pages`` cuts the block device's volume (1 GiB
+by default), the one cut a short time limit may force. Float32 matrix
+products and convolutions run in full fp32 (TF32 off). Phases, one JSON
+line each; any failure raises and the script exits non-zero:
 
 1. env — torch/CUDA versions, the card's name and power limit.
-2. build — compile csrc/dbs_rw.cu with nvcc; build seconds.
+2. build — compile every CUDA source of the port (csrc/*.cu: dbs_rw,
+   paged_attention, flash_attention) with one nvcc each, all started
+   together; seconds per library.
 3. kernel_parity (dbs_rw_write) — at full width (pool (E+1, 32, 4096) f32,
    64 lanes), on write batches from the port's own ``write_pages`` over a
    seeded trace (in-place writes, CoW after a snapshot and a clone,
@@ -33,6 +36,39 @@ each; any failure raises and the script exits non-zero:
    in phase 3; hole lanes (zeros, no load) count one block in the bound.
 6. no_sync — one write pump's fused step under
    ``torch.cuda.set_sync_debug_mode("error")``.
+7. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
+   d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
+   weights drawn from a seeded ``torch.Generator`` on the card):
+   ``ServeEngine(kv_backend="fused", kv_replicas=2, n_slots=8,
+   max_len=2048, n_queues=2, kernel="cuda")`` with
+   ``ExecutionPlan(attn_impl="cuda", compute_dtype="float32")``, so prefill
+   runs the flash-attention kernel and decode the paged-attention kernel
+   over the block device's own extent pool (one 104 KiB block per token).
+   16 requests with seeded prompt lengths in 100-1000 and 32 new tokens
+   each (more requests than slots), then a fork check: a session forked
+   after its 4th decode step, and a second engine decoding the same two
+   streams independently, must give the same tokens (the largest logit
+   difference is printed). Checked: every request ends with 32 tokens, the
+   replicas are consistent after a flush (the same metadata revisions and
+   the same pool contents bar the dump row), no volume or extent is left
+   after the drain, both attention kernels launched and their plain
+   versions never. The inputs of a few decode steps and of one prompt's
+   local and global prefill layers are kept.
+8. kernel_parity (paged_attention, flash_attention) — each kernel against
+   its plain version on those kept full-width inputs, over the serve
+   path's own pool, within atol 1e-4 and rtol 1e-4; timed with CUDA graphs
+   as in phase 3, beside the bound (paged: live K/V pages plus q and the
+   output over 3.35 TB/s; flash: the larger of its causal flops over the
+   67 TFLOP/s fp32 rate and its bytes over 3.35 TB/s) and one PyTorch
+   yardstick labelled with what it differs in.
+9. no_sync (serving) — one call of the decode program under
+   ``torch.cuda.set_sync_debug_mode("error")``.
+10. profile (serving) — where a serving step's time goes, on the same
+   engine: eight requests fill the slots; four decode steps are timed,
+   four more run under ``torch.profiler``, then a ninth prompt's prefill
+   into the slot a finished request freed, and the write pumps that land
+   its K/V. One line per part: wall time, the device's busy time and idle
+   share, device events, and the operators that took the most time.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -40,7 +76,9 @@ last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -51,6 +89,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 KERNEL_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_rw.cu"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+SERVE_MODEL, SERVE_REQUESTS, SERVE_NEW = "gemma2-2b", 16, 32
+SERVE_PROMPT = (100, 1000)       # prompt lengths drawn in [lo, hi]
+SERVE_KEEP_STEPS = (8, 24, 40)   # decode steps whose paged calls are kept
+PROFILE_STEPS = 4                # decode steps timed, then profiled
+ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
 BLOCK, PAGE_BLOCKS, REPLICAS, BATCH = 4096, 32, 3, 64
 SEED, N_OPS = 0, 12000           # the trace; N_OPS sets the random-I/O phases
 READ_SAMPLE_EVERY, READ_SAMPLES = 128, 32
@@ -486,6 +532,446 @@ def phase_no_sync(torch, mgr):
     emit(phase="no_sync", guarded_steps=len(calls), lanes=BATCH)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: zero-copy serving at gemma2-2b's full width
+# ---------------------------------------------------------------------------
+def _serve_engine(torch, cfg, params, dev, record_logits=False):
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.serving.engine import ServeEngine
+    return ServeEngine(cfg, params, n_slots=8, max_len=2048, n_queues=2,
+                       kv_backend="fused", kv_replicas=2, kernel="cuda",
+                       plan=ExecutionPlan(attn_impl="cuda",
+                                          compute_dtype="float32"),
+                       record_logits=record_logits, device=dev)
+
+
+def phase_serve(torch, dev, smi):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import backends, dbs
+    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models import init_params
+    from repro_torch.serving import engine as serving
+    from repro_torch.serving.engine import GenRequest
+    cfg = get_config(SERVE_MODEL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = _serve_engine(torch, cfg, params, dev)
+    rng = np.random.default_rng(SEED + 2)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+
+    # instrumentation: time the prefill, the write pumps and the decode
+    # program; count fused steps; keep kernel inputs for phase 8
+    clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
+    counts = {"fused_steps": 0, "decode_steps": 0}
+    kept = {"paged": [], "flash": []}
+    inner = {"prefill": eng._prefill_one_zero, "pump": eng._pump_writes,
+             "step": eng._step_fn, "fused": backends.fused_step,
+             "paged": serving.paged_attention_pool_fwd,
+             "flash": f_ops.flash_attention_fwd}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def step_fn(*a, **k):
+        counts["decode_steps"] += 1
+        return inner["step"](*a, **k)
+
+    def fused(*a, **k):
+        counts["fused_steps"] += 1
+        return inner["fused"](*a, **k)
+
+    def paged(q, pool, table, lengths, **k):
+        if counts["decode_steps"] in SERVE_KEEP_STEPS:
+            kept["paged"].append((q.clone(), table.clone(), lengths.clone(),
+                                  dict(k)))
+        return inner["paged"](q, pool, table, lengths, **k)
+
+    def flash(q, k, v, **kw):
+        if len(kept["flash"]) < 2 and (
+                not kept["flash"] or kw["window"] != kept["flash"][0][3][
+                    "window"]):
+            kept["flash"].append((q.clone(), k.clone(), v.clone(), dict(kw)))
+        return inner["flash"](q, k, v, **kw)
+
+    eng._prefill_one_zero = timed("prefill", inner["prefill"])
+    eng._pump_writes = timed("pumps", inner["pump"])
+    eng._step_fn = timed("decode", step_fn)
+    backends.fused_step = fused
+    serving.paged_attention_pool_fwd = paged
+    f_ops.flash_attention_fwd = flash
+    for mod in (rw_kernel, pk, fk):
+        mod.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for rid, pr in enumerate(prompts):
+            eng.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
+        outs = eng.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        traffic_counts = dict(counts)
+        traffic_clock = dict(clock)
+        traffic_launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES,
+                            **fk.LAUNCHES}
+        # fork check: a session forked after its 4th decode step against a
+        # second engine decoding the same two streams independently
+        fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
+    finally:
+        backends.fused_step = inner["fused"]
+        serving.paged_attention_pool_fwd = inner["paged"]
+        f_ops.flash_attention_fwd = inner["flash"]
+        eng._prefill_one_zero = inner["prefill"]
+        eng._pump_writes = inner["pump"]
+        eng._step_fn = inner["step"]
+    launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+    plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS, **fk.PLAIN_CALLS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    bad = [rid for rid in range(SERVE_REQUESTS)
+           if len(outs.get(rid, [])) != SERVE_NEW]
+    if bad:
+        raise AssertionError(f"requests {bad} did not end with "
+                             f"{SERVE_NEW} tokens")
+    eng.volumes.flush()
+    if not eng.volumes.engine.backend.consistent():
+        raise AssertionError("the KV replicas disagree after a flush")
+    # the decode program scatters into every replica's pool in place: their
+    # contents must agree too, bar the dump row (inactive lanes scatter
+    # there in no fixed order, and nothing reads it)
+    pools = eng.volumes.device_pools()
+    if not all(torch.equal(pools[0][:-1], p[:-1]) for p in pools[1:]):
+        raise AssertionError("the KV replica pools' contents differ")
+    del pools
+    st = dbs.stats(eng.state)
+    if st["volumes"] or st["extents_used"]:
+        raise AssertionError(f"volumes or extents leaked: {st}")
+    if min(traffic_launches.values()) <= 0:
+        raise AssertionError(f"a kernel of the serve path never launched: "
+                             f"{traffic_launches}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the card: {plain}")
+    gen_tokens = SERVE_REQUESTS * SERVE_NEW
+    emit(phase="serve_path", model=SERVE_MODEL, config=dict(
+        kv_backend="fused", kv_replicas=2, n_slots=8, max_len=2048,
+        n_queues=2, kernel="cuda", attn_impl="cuda", dtype="float32",
+        page_blocks=cfg.page_blocks,
+        payload_shape=list(eng._payload_shape)),
+        requests=SERVE_REQUESTS, prompt_tokens=int(lens.sum()),
+        prompt_lengths=[int(x) for x in lens],
+        generated_tokens=gen_tokens, init_seconds=init_s,
+        run_seconds=run_s, prefill_seconds=traffic_clock["prefill"],
+        pump_seconds=traffic_clock["pumps"],
+        decode_seconds=traffic_clock["decode"],
+        decode_steps=traffic_counts["decode_steps"],
+        decode_tokens_per_s=gen_tokens / traffic_clock["decode"],
+        tokens_per_s=gen_tokens / run_s,
+        pumps=traffic_counts["fused_steps"], launches=traffic_launches,
+        launches_with_fork_check=launches, plain_calls=plain, dbs_stats=st,
+        fork=fork, max_memory_allocated=peak,
+        memory_allocated_before=held_before, card=smi)
+    return eng, kept, traffic_launches, traffic_counts
+
+
+def phase_fork_check(torch, cfg, params, dev, eng, prompt):
+    """Fork a session after its 4th decode step (both sides diverge by CoW
+    of the shared frontier page); a second engine decodes the same two
+    streams independently. Tokens must be equal; returns the largest logit
+    difference (parent, child) for the record."""
+    import numpy as np
+    from repro_torch.serving.engine import GenRequest
+    eng.record_logits = True
+    base = 1000
+    eng.submit(GenRequest(req_id=base, prompt=prompt.copy(),
+                          max_new=SERVE_NEW))
+    for _ in range(4):
+        eng.step()
+    child = eng.fork(base, base + 1, max_new=SERVE_NEW - 4)
+    if child is None:
+        raise AssertionError("fork found no free slot or volume")
+    eng.run(max_steps=4 * SERVE_NEW)
+    eng.record_logits = False
+    ref = _serve_engine(torch, cfg, params, dev, record_logits=True)
+    for rid in (0, 1):
+        ref.submit(GenRequest(req_id=rid, prompt=prompt.copy(),
+                              max_new=SERVE_NEW))
+    ref.run(max_steps=4 * SERVE_NEW)
+    par, chi = eng.live[base], eng.live[base + 1]
+    if par.out_tokens != ref.live[0].out_tokens:
+        raise AssertionError("the forked parent's tokens differ from an "
+                             "independent decode")
+    if chi.out_tokens != ref.live[1].out_tokens[:len(chi.out_tokens)]:
+        raise AssertionError("the fork's tokens differ from an independent "
+                             "decode")
+    n_c = len(chi.logit_trace)
+    d_par = float(np.abs(np.stack(par.logit_trace[4:])
+                         - np.stack(ref.live[0].logit_trace[4:])).max())
+    d_chi = float(np.abs(np.stack(chi.logit_trace)
+                         - np.stack(ref.live[1].logit_trace[4:4 + n_c])).max())
+    ref.volumes.close()
+    del ref
+    torch.cuda.empty_cache()
+    return {"tokens_equal": True, "parent_tokens": len(par.out_tokens),
+            "child_tokens": len(chi.out_tokens),
+            "max_logit_diff_parent": d_par, "max_logit_diff_child": d_chi}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the attention kernels on the serve path's kept inputs
+# ---------------------------------------------------------------------------
+def _paged_live_pages(torch, table, lengths, page, window) -> int:
+    """Pages the kernel reads: started below the length, not a hole, and
+    (with a window) reaching into it — the data-dependent work."""
+    base = torch.arange(table.shape[1], device=table.device)[None, :] * page
+    run = (base < lengths[:, None]) & (table >= 0)
+    if window:
+        run &= (base + page - 1) > (lengths[:, None] - 1 - window)
+    return int(run.sum())
+
+
+def phase_paged_kernel(torch, eng, kept):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (paged_attention_pool_fwd,
+                                                     paged_attention_pool_ref)
+    calls = kept["paged"]
+    if not calls:
+        raise AssertionError("no paged-attention inputs were kept")
+    pool = eng._pools[0]
+    _e, page, _np_, kv, d = pool.shape
+    err, n_bytes = 0.0, []
+    for q, table, lengths, kw in calls:
+        got = paged_attention_pool_fwd(q, pool, table, lengths, **kw)
+        want = paged_attention_pool_ref(q, pool, table, lengths, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL)
+        err = max(err, float((got - want).abs().max()))
+        live = _paged_live_pages(torch, table, lengths, page,
+                                 kw["window"])
+        n_bytes.append(2 * live * page * kv * d * 4 + 2 * q.numel() * 4
+                       + (table.numel() + lengths.numel()) * 4)
+    n = len(calls)
+    ms = graph_ms(torch, lambda: [paged_attention_pool_fwd(q, pool, t, ln, **k)
+                                  for q, t, ln, k in calls], n)
+    plain = graph_ms(torch, lambda: [
+        paged_attention_pool_ref(q, pool, t, ln, **k)
+        for q, t, ln, k in calls], n)
+    # yardstick: index_select gathers of the K and V planes, then SDPA with
+    # a boolean mask (holes, lengths; no logit cap, which SDPA cannot apply)
+    lib_in = []
+    for q, table, lengths, kw in calls:
+        b, h, _ = q.shape
+        p_max = table.shape[1]
+        pos = torch.arange(p_max * page, device=q.device)
+        valid = (pos[None, :] < lengths[:, None]) & (
+            table >= 0).repeat_interleave(page, dim=1)
+        idx = table.clamp(min=0).reshape(-1).long()
+        lib_in.append((q[:, :, None, :], idx, valid[:, None, None, :], b,
+                       p_max, kw["k_plane"], kw["v_plane"]))
+
+    def library():
+        for q4, idx, mask, b, p_max, kp, vp in lib_in:
+            kk = pool[:, :, kp].index_select(0, idx).reshape(
+                b, p_max * page, kv, d).transpose(1, 2)
+            vv = pool[:, :, vp].index_select(0, idx).reshape(
+                b, p_max * page, kv, d).transpose(1, 2)
+            F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask,
+                                           enable_gqa=True)
+    lib = graph_ms(torch, library, n)
+    mean_b = sum(n_bytes) / n
+    emit(phase="kernel_parity", kernel="paged_attention", calls=n,
+         pool_shape=list(pool.shape), q_shape=list(calls[0][0].shape),
+         table_shape=list(calls[0][1].shape), max_abs_err=err,
+         bytes_per_call=mean_b, tolerance=ATTN_TOL)
+    return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
+            "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib,
+            "library_call": "two index_select gathers (K and V planes) + "
+                            "scaled_dot_product_attention with a boolean "
+                            "mask, no logit cap",
+            "bytes_per_call": mean_b}
+
+
+def phase_flash_kernel(torch, kept):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    calls = kept["flash"]
+    if len(calls) < 2:
+        raise AssertionError("the local and global prefill inputs were not "
+                             "both kept")
+    err, flops, n_bytes, bounds = 0.0, [], [], []
+    for q, k, v, kw in calls:
+        got = flash_attention_fwd(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL)
+        err = max(err, float((got - want).abs().max()))
+        b, h, sq, d = q.shape
+        sk = k.shape[2]
+        qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        kp = torch.arange(sk, device=q.device)[None, :]
+        vis = kp <= qp
+        if kw["window"]:
+            vis &= kp > qp - kw["window"]
+        f = 4.0 * d * h * b * int(vis.sum())       # QK^T and PV, 2 flops/MAC
+        nb = (2 * q.numel() + k.numel() + v.numel()) * 4
+        flops.append(f)
+        n_bytes.append(nb)
+        bounds.append(max(f / FP32_FLOPS_PER_S, nb / HBM_BYTES_PER_S))
+    n = len(calls)
+    ms = graph_ms(torch, lambda: [flash_attention_fwd(q, k, v, **kw)
+                                  for q, k, v, kw in calls], n)
+    plain = graph_ms(torch, lambda: [attention_ref(q, k, v, **kw)
+                                     for q, k, v, kw in calls], n)
+    cont = [(q.contiguous(), k.contiguous(), v.contiguous())
+            for q, k, v, _ in calls]
+    lib = graph_ms(torch, lambda: [F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True) for q, k, v in cont], n)
+    f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
+    bound = sum(bounds) / n
+    emit(phase="kernel_parity", kernel="flash_attention", calls=n,
+         q_shapes=[list(c[0].shape) for c in calls],
+         windows=[c[3]["window"] for c in calls], max_abs_err=err,
+         flops_per_call=f_mean, bytes_per_call=b_mean, tolerance=ATTN_TOL)
+    return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound * 1e3,
+            "bound_by": ("operations" if f_mean / FP32_FLOPS_PER_S
+                         >= b_mean / HBM_BYTES_PER_S else "bytes"),
+            "library_ms": lib,
+            "library_call": "scaled_dot_product_attention(is_causal=True, "
+                            "enable_gqa=True), fp32, without the logit cap",
+            "flops_per_call": f_mean}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the decode program never waits on the host
+# ---------------------------------------------------------------------------
+def phase_no_sync_serve(torch, eng):
+    import numpy as np
+    from repro_torch.serving.engine import GenRequest
+    inner = eng._step_fn
+    calls = []
+
+    def guarded(*a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = inner(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        calls.append(1)
+        return out
+
+    eng._step_fn = guarded
+    try:
+        rng = np.random.default_rng(SEED + 3)
+        eng.submit(GenRequest(req_id=2000, prompt=rng.integers(
+            0, eng.cfg.vocab_size, 40), max_new=2))
+        eng.run(max_steps=8)
+    finally:
+        eng._step_fn = inner
+    if not calls or not eng.live[2000].done:
+        raise AssertionError("the guarded decode program did not run")
+    emit(phase="no_sync", path="serve_path", guarded_decode_steps=len(calls))
+
+
+# ---------------------------------------------------------------------------
+# phase 10: where a serving step's time goes
+# ---------------------------------------------------------------------------
+def _profiled(torch, name: str, fn, smi) -> None:
+    """Run ``fn`` once under ``torch.profiler`` and emit its wall time, the
+    device's busy time (the union of the kernels' intervals), its idle
+    share, the device events counted, and the operators that took the most
+    device and host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e6                                  # us -> s
+
+    def top(key, n):
+        return [{"op": e.key[:80], "calls": e.count,
+                 "self_device_ms": e.self_device_time_total / 1e3,
+                 "self_host_ms": e.self_cpu_time_total / 1e3}
+                for e in sorted(prof.key_averages(),
+                                key=lambda e: -getattr(e, key))[:n]]
+    emit(phase="profile", part=name, wall_s=wall, device_busy_s=busy,
+         device_idle_share=1.0 - busy / wall, device_events=len(spans),
+         top_device=top("self_device_time_total", 10),
+         top_host=top("self_cpu_time_total", 6), card=smi)
+
+
+def phase_profile_serve(torch, eng, smi):
+    """Eight requests fill the slots. After two warm-up steps (admission and
+    prefill ride the first), time PROFILE_STEPS decode steps, then profile
+    PROFILE_STEPS more; the shortest request ends on the last of them. Then
+    profile a ninth prompt's prefill into the slot it freed, and the write
+    pumps that land that prompt's K/V; the engine then drains."""
+    import numpy as np
+    from repro_torch.core import dbs
+    from repro_torch.serving.engine import GenRequest
+    rng = np.random.default_rng(SEED + 4)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, eng.n_slots + 1)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, n) for n in lens]
+    done_at = 2 + 2 * PROFILE_STEPS
+    for i in range(eng.n_slots):
+        eng.submit(GenRequest(req_id=3000 + i, prompt=prompts[i],
+                              max_new=done_at + (i > 0)))
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / PROFILE_STEPS
+    emit(phase="profile", part="decode, unprofiled", slots=eng.n_slots,
+         steps=PROFILE_STEPS, decode_step_s=step_s, card=smi)
+    _profiled(torch, f"decode x{PROFILE_STEPS}",
+              lambda: [eng.step() for _ in range(PROFILE_STEPS)], smi)
+    g = GenRequest(req_id=3100, prompt=prompts[-1], max_new=1)
+    eng.submit(g)
+    admitted = eng._admit()
+    if len(admitted) != 1 or admitted[0] is not g:
+        raise AssertionError("the profiled prompt found no free slot")
+    _profiled(torch, f"prefill ({len(g.prompt)} tokens, model + payload)",
+              lambda: eng._prefill_one_zero(g), smi)
+    kib = 4 * math.prod(eng._payload_shape) / 1024
+    _profiled(torch, f"write pumps ({len(g.prompt)} lanes of {kib:g} KiB)",
+              eng._pump_writes, smi)
+    eng.run(max_steps=4)
+    st = dbs.stats(eng.state)
+    if not all(r.done for r in eng.live.values()) or st["volumes"]:
+        raise AssertionError(f"the profiled requests did not drain: {st}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -500,7 +986,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if not (SRC / "repro_torch" / "kernels" / "dbs" / "csrc").is_dir():
+    if not (SRC / "repro_torch" / "kernels" / "_build.py").is_file():
         print(f"chip_smoke: the port's sources are not under {SRC}",
               file=sys.stderr)
         return 2
@@ -511,12 +997,18 @@ def main() -> int:
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          card=smi, count=torch.cuda.device_count())
 
-    from repro_torch.kernels.dbs import _build
-    _build.build(force=True)
-    emit(phase="build", seconds=_build.build_seconds, library=str(
-        _build.LIBRARY.relative_to(ROOT)),
-        ptxas=[ln.strip() for ln in _build.build_log.splitlines()
-               if "registers" in ln or "spill" in ln])
+    torch.backends.cuda.matmul.allow_tf32 = False    # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all(force=True)
+    emit(phase="build", wall_seconds=time.perf_counter() - t0,
+         seconds=_build.build_seconds, libraries=[
+             str(_build.library_path(n).relative_to(ROOT))
+             for n in _build.SOURCES],
+         ptxas={n: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+                for n, log in _build.build_log.items()})
 
     write_k = phase_write_kernel(torch, args, dev)
     mgr, launches, n_steps, reads = phase_main(torch, args, dev, smi)
@@ -524,11 +1016,26 @@ def main() -> int:
     del reads
     phase_no_sync(torch, mgr)
     mgr.close()
-    kernels = [write_k, read_k]
-    for k in kernels:
+    del mgr
+    gc.collect()             # the manager's reference cycles hold its pools
+    torch.cuda.empty_cache()
+    for k in (write_k, read_k):
         k["launches"] = launches[k["name"]]
         k["launches_per_step"] = launches[k["name"]] / n_steps
-    print(json.dumps({"kernels": kernels}))
+
+    eng, kept, serve_launches, serve_counts = phase_serve(torch, dev, smi)
+    paged_k = phase_paged_kernel(torch, eng, kept)
+    flash_k = phase_flash_kernel(torch, kept)
+    del kept
+    phase_no_sync_serve(torch, eng)
+    phase_profile_serve(torch, eng, smi)
+    for k in (paged_k, flash_k):
+        k["launches"] = serve_launches[k["name"]]
+    paged_k["launches_per_decode_step"] = (serve_launches["paged_attention"]
+                                           / serve_counts["decode_steps"])
+    write_k["launches_serve_path"] = serve_launches["dbs_rw_write"]
+    read_k["launches_serve_path"] = serve_launches["dbs_rw_read"]
+    print(json.dumps({"kernels": [write_k, read_k, paged_k, flash_k]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

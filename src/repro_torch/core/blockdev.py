@@ -25,16 +25,23 @@ flush). ``discard`` unmaps fully covered pages and zero-fills partial
 edges. Control ops (snapshot/clone/delete/unmap) flush, then dispatch on
 the host.
 
+``payload_shape=`` replaces the flat ``(payload_elems,)`` block with any
+per-block tensor: the serving engine stores one token's K/V for every
+layer in one block and drives raw ``Request``s plus the device views
+(``device_extent_map``, ``device_pools``, ``set_device_pools``), not the
+byte API, which assumes the flat layout.
+
 The manager runs on ``device`` (default ``cuda``, with no CPU fallback).
-The journal, the spill tier, ``Volume.compute`` and the device views the
-serving engine reads land with their slices.
+The journal, the spill tier and ``Volume.compute`` land with their
+slices.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.engine import Engine, EngineConfig
 from repro_torch.core.frontend import Request
@@ -177,10 +184,9 @@ class VolumeManager:
                  transport_opts: Optional[Dict[str, Any]] = None,
                  payload_shape=None, journal: Any = None, tier: Any = None,
                  device: Any = None):
-        if payload_shape is not None:
-            raise ValueError("payload_shape= (the serving engine's per-block "
-                             "tensors) lands with the serving slice")
-        self.payload_shape = (payload_elems,)
+        self.payload_shape = (tuple(payload_shape)
+                              if payload_shape is not None
+                              else (payload_elems,))
         self.engine = Engine(EngineConfig(
             comm=backend, n_shards=n_shards, n_replicas=n_replicas,
             payload_shape=self.payload_shape, page_blocks=page_blocks,
@@ -437,6 +443,37 @@ class VolumeManager:
             if b > a:
                 reqs.extend(self.pwrite(vid, a, b"\x00" * (b - a))._reqs)
         return IOFuture(self, reqs, value=nbytes)
+
+    # --------------------------------------------- device-resident KV views
+    # The zero-copy serving path (serving/engine.py) reads these: the extent
+    # map a paged-attention kernel indexes through, and the engine payload
+    # pools it treats as the KV cache. Nothing here syncs to the host.
+    def device_extent_map(self) -> torch.Tensor:
+        """Replica 0's extent map, ONE (V, P) int32 tensor on the device
+        (holes -1). The healthy replicas run identical control sequences,
+        so their maps agree."""
+        states, _pools = self.engine.backend.device_state()
+        return states[0].table
+
+    def device_pools(self) -> Tuple[torch.Tensor, ...]:
+        """The live payload pools of the healthy replicas, each
+        ``(E+1, page_blocks, *payload_shape)``: the tensors the fused step
+        updates in place, not copies, so writes into them are writes into
+        the replicas."""
+        _states, pools = self.engine.backend.device_state()
+        return tuple(pools)
+
+    def set_device_pools(self, pools) -> None:
+        """Store pools (as ``device_pools`` returned them, healthy replicas
+        in order) back into the replicas: the commit half of an external
+        step that scattered into them (the serving decode program)."""
+        storage = self.engine.backend
+        states, cur = storage.device_state()
+        for p, c in zip(pools, cur):
+            if p.shape != c.shape:
+                raise ValueError(f"pool shape {tuple(p.shape)} != "
+                                 f"{tuple(c.shape)}")
+        storage.set_device_state(states, tuple(pools))
 
     def __repr__(self):
         return (f"VolumeManager(backend={self.backend_name!r}, "

@@ -1,11 +1,17 @@
-"""Engine state carried between the JAX package and the port, as numpy.
+"""Engine state and model weights carried between the JAX package and the
+port, as numpy.
 
-The system has no weights: what crosses is engine state. Each function
-takes dicts of numpy arrays named like the reference dataclass fields
-(``repro.core.dbs.DBSState``, ``repro.core.slots.SlotTable``, nested
-``free``/``ring`` dicts for their ``SlotRing``), so a caller can hand over
+Engine state: each function takes dicts of numpy arrays named like the
+reference dataclass fields (``repro.core.dbs.DBSState``,
+``repro.core.slots.SlotTable``, nested ``free``/``ring`` dicts for their
+``SlotRing``), so a caller can hand over
 ``jax.device_get(dataclasses.asdict(state))`` and the port never sees a
 JAX array. The block bitmap is uint32 on the JAX side and int64 here.
+
+Weights: the serving engine runs a model, whose parameters the reference
+initialises from a JAX key; ``params_from_numpy`` takes that tree as numpy
+(``jax.device_get(repro.models.init_params(key, cfg))``, stacked segments
+and all) and makes the port's parameters of it.
 """
 from __future__ import annotations
 
@@ -67,3 +73,24 @@ def to_numpy(obj) -> Any:
     if isinstance(obj, DBSState):
         out["bitmap"] = out["bitmap"].astype(np.uint32)
     return out
+
+
+def params_from_numpy(cfg, tree: Any, device) -> Any:
+    """The port's model parameters from the reference's parameter tree as
+    numpy: the same nested dicts and lists, each leaf a tensor on
+    ``device``. Stacked segments stay stacked; ``models.model`` slices them
+    per layer as views. ``cfg`` is checked against the tree's layer count."""
+    if "segments" in tree:
+        from repro_torch.models.blocks import layer_schedule
+        schedule = layer_schedule(cfg)
+        if len(schedule) != len(tree["segments"]):
+            raise ValueError(f"{len(tree['segments'])} segments in the tree, "
+                             f"{len(schedule)} in {cfg.name}'s schedule")
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v) for v in x)
+        return _t(x, device)
+    return conv(tree)

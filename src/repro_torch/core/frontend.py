@@ -1,18 +1,19 @@
 """The multi-queue (ublk-style) frontend of the fused engine.
 
-Port of ``Request`` and ``MultiQueueFrontend.drain_batch`` from
+Port of ``Request`` and ``MultiQueueFrontend`` from
 ``repro/core/frontend.py``: N admission queues over a single-shard
-``RingFrontend`` (core/ring.py, the one drain protocol), whose staged numpy
-lanes cross to the device as one transfer per leaf into the ``FusedBatch``
-the fused step consumes. Admission itself happens inside the step, so no
-slot id is ever read back. The unfused ``poll_batch``/``complete`` pair,
-the upstream single-loop frontend and the sharded frontend land with their
-slices.
+``RingFrontend`` (core/ring.py, the one drain protocol). ``drain_batch``
+moves the staged numpy lanes to the device as one transfer per leaf into
+the ``FusedBatch`` the fused step consumes; admission happens inside the
+step, so no slot id is ever read back. ``poll_batch``/``complete`` admit
+and retire as device ops of their own and read the slot ids back (the
+serving engine's admission). The upstream single-loop frontend and the
+sharded frontend land with their slices.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -69,6 +70,7 @@ class MultiQueueFrontend:
         self.table = slots.make_table(n_slots, device)
         self.batch = batch
         self.device = torch.device(device)
+        self._by_slot: Dict[int, Request] = {}
 
     @property
     def step(self) -> int:
@@ -105,3 +107,42 @@ class MultiQueueFrontend:
             step=torch.from_numpy(st["step"][0:1]).to(dev).reshape(()),
         )
         return drained[0], batch
+
+    def poll_batch(self) -> Tuple[torch.Tensor, List[Request]]:
+        """Drain up to ``batch`` requests round-robin across queues and admit
+        them in ONE device op (padded to the batch size, the Messages-Array
+        idiom). Returns (slot ids of the drained requests (k,) on the
+        device, -1 where no slot was free; the admitted requests, which are
+        a prefix of the drained ones). Not-admitted requests go back to the
+        front of their queues."""
+        reqs = self.ring._drain_shard(0, self.batch)
+        dev = self.device
+        if not reqs:
+            return torch.zeros((0,), dtype=torch.int32, device=dev), []
+        n = len(reqs)
+        pad = [0] * (self.batch - n)
+        lanes = lambda xs: torch.tensor(xs + pad, dtype=torch.int32,
+                                        device=dev)
+        want = torch.arange(self.batch, device=dev) < n
+        self.table, ids, ok = slots.admit(
+            self.table, want, lanes([r.volume for r in reqs]),
+            lanes([r.req_id % self.ring.n_queues for r in reqs]),
+            torch.tensor(self.step, dtype=torch.int32, device=dev))
+        ids, ok = ids[:n], ok[:n]
+        self.step += 1
+        ids_host, ok_host = ids.tolist(), ok.tolist()
+        admitted, requeues = [], []
+        for i, r in enumerate(reqs):
+            if ok_host[i]:
+                self._by_slot[ids_host[i]] = r
+                admitted.append(r)
+            else:                       # no slot: requeue at the front
+                requeues.append(r)
+        self.ring.requeue_all(requeues)
+        return ids, admitted
+
+    def complete(self, slot_ids: torch.Tensor) -> List[Request]:
+        """Retire slots; returns the requests that held them."""
+        self.table = slots.retire(self.table, slot_ids)
+        return [self._by_slot.pop(sid) for sid in slot_ids.tolist()
+                if sid >= 0 and sid in self._by_slot]

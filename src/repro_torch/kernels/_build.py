@@ -1,0 +1,154 @@
+"""Build and load the port's CUDA sources, one shared library per source.
+
+Every ``.cu`` file of the port has a plain C interface; this module
+compiles each at first use with ``nvcc`` for ``sm_90a`` into
+``build/torch_kernels/lib<name>.so`` under the repository root, from the
+sources in this package only, and loads it with ``ctypes``. A library is
+rebuilt when its source is newer than it. ``build_all`` starts one ``nvcc``
+per source together, so a cold start waits for the slowest source, not
+their sum. ``nvcc`` failures raise. Nothing here runs at import time.
+
+Register a source in ``SOURCES`` and its C entry points in ``SIGNATURES``.
+``check_tensor`` and ``raise_on`` are the wrappers' shared launch checks.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List, Optional
+
+KERNELS = Path(__file__).resolve().parent
+BUILD_DIR = KERNELS.parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+SOURCES: Dict[str, Path] = {
+    "dbs_rw": KERNELS / "dbs" / "csrc" / "dbs_rw.cu",
+    "paged_attention": KERNELS / "paged_attention" / "csrc"
+    / "paged_attention.cu",
+    "flash_attention": KERNELS / "flash_attention" / "csrc"
+    / "flash_attention.cu",
+}
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argtypes (every entry returns its cudaError_t as an int);
+# pointers and the stream are c_void_p, or ctypes would cut them to 32 bits
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "dbs_rw": {
+        "dbs_rw_write": [_vp] * 5 + [_ci] * 5 + [_vp],
+        "dbs_rw_read": [_vp] * 4 + [_ci] * 5 + [_vp],
+    },
+    "paged_attention": {
+        # q, k, v, table, lengths, out; b, h, kv, d, dv, p_max, page,
+        # n_rows; K row, K token, V row, V token strides (elements,
+        # 64-bit); window; scale, logit_cap; stream
+        "paged_attention": [_vp] * 6 + [_ci] * 8 + [ctypes.c_int64] * 4
+        + [_ci, _cf, _cf, _vp],
+    },
+    "flash_attention": {
+        # q, k, v, out; b, h, kv, sq, sk, d; q/k/v/o strides (batch, head,
+        # seq; elements, 64-bit); causal, window; scale, logit_cap; stream
+        "flash_attention": [_vp] * 4 + [_ci] * 6 + [ctypes.c_int64] * 12
+        + [_ci, _ci, _cf, _cf, _vp],
+    },
+}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}
+build_log: Dict[str, str] = {}
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
+                       "kernels are built from source at first use")
+
+
+def _fresh(name: str) -> bool:
+    lib = library_path(name)
+    return (lib.is_file()
+            and lib.stat().st_mtime >= SOURCES[name].stat().st_mtime)
+
+
+def build_all(names: Optional[Iterable[str]] = None,
+              force: bool = False) -> Dict[str, Path]:
+    """Compile every named library (all of ``SOURCES`` by default) that is
+    missing, stale, or ``force``: one ``nvcc`` per source, all started
+    together. Records each compile's wall time in ``build_seconds`` and
+    ``nvcc``'s output (registers, shared memory, spills per kernel) in
+    ``build_log``. Raises if any compile fails."""
+    names = list(SOURCES if names is None else names)
+    todo = [n for n in names if force or not _fresh(n)]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs: List = []
+        for n in todo:
+            tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
+            procs.append((n, tmp, time.perf_counter(), subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[n])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for n, tmp, t0, proc in procs:
+            out, _ = proc.communicate()
+            build_seconds[n] = time.perf_counter() - t0
+            build_log[n] = out
+            if proc.returncode != 0:
+                failed.append(f"{n}: nvcc failed ({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, library_path(n))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return {n: library_path(n) for n in names}
+
+
+def build(name: str, force: bool = False) -> Path:
+    """Compile one library if needed (see ``build_all``)."""
+    return build_all([name], force=force)[name]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built first if needed, with
+    its entry points' argtypes set."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _ci
+        _libs[name] = lib
+    return lib
+
+
+def raise_on(err: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronise does not report it)."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def check_tensor(name: str, t, dtype, shape, device,
+                 contiguous: bool = True) -> None:
+    """Raise unless ``t`` has the dtype, shape and device a kernel takes
+    (and is contiguous, unless the kernel takes explicit strides)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,6 +1,6 @@
 // dbs_rw: the DBS write-composition and hole-masked read-gather kernels,
 // written for Hopper (sm_90a), with a plain C interface loaded by ctypes
-// (kernels/dbs/_build.py, wrappers in kernels/dbs/rw_kernel.py).
+// (kernels/_build.py, wrappers in kernels/dbs/rw_kernel.py).
 //
 // dbs_rw_write replaces the Pallas kernel repro/kernels/dbs/rw_kernel.py
 // ::dbs_rw_write (body _write_kernel). For each routed lane i, extent row

@@ -1,7 +1,8 @@
 """``dbs_rw``: wrappers of the hand-written CUDA write and read kernels.
 
 Port of ``repro/kernels/dbs/rw_kernel.py``; the kernels live in
-``csrc/dbs_rw.cu`` (the source note there gives their bound and design).
+``csrc/dbs_rw.cu`` (the source note there gives their bound and design),
+built at first use by ``kernels/_build.py``.
 Each wrapper checks device, dtype, shape and contiguity, then launches the
 kernel for a tensor on a CUDA device or calls the plain version
 (kernels/dbs/ref.py) for a tensor on the CPU. A CUDA tensor gets the kernel
@@ -16,6 +17,8 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels._build import check_tensor as _check
+from repro_torch.kernels._build import library, raise_on
 from repro_torch.kernels.dbs.ref import dbs_rw_read_ref, dbs_rw_write_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_rw_write": 0, "dbs_rw_read": 0}
@@ -28,25 +31,8 @@ def reset_counts() -> None:
             counts[k] = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _vec4(d: int, *tensors: torch.Tensor) -> int:
     return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def check_write_routing(src, dst, lane_of, n_rows: int) -> None:
@@ -102,15 +88,14 @@ def dbs_rw_write(pool, src, dst, lane_of, payload, *,
         return dbs_rw_write_ref(pool, src, dst, lane_of, payload)
     if dev.type != "cuda":
         raise ValueError(f"dbs_rw_write: no kernel for device {dev}")
-    from repro_torch.kernels.dbs._build import library
-    lib = library()
+    lib = library("dbs_rw")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dbs_rw_write(pool.data_ptr(), src.data_ptr(),
                                dst.data_ptr(), lane_of.data_ptr(),
                                payload.data_ptr(), b, e, page, d,
                                _vec4(d, pool, payload), stream)
-    _raise_on(err, "dbs_rw_write")
+    raise_on(err, "dbs_rw_write")
     LAUNCHES["dbs_rw_write"] += 1
     return pool
 
@@ -129,14 +114,13 @@ def dbs_rw_read(pool, ext, block):
         return dbs_rw_read_ref(pool, ext, block)
     if dev.type != "cuda":
         raise ValueError(f"dbs_rw_read: no kernel for device {dev}")
-    from repro_torch.kernels.dbs._build import library
-    lib = library()
+    lib = library("dbs_rw")
     out = torch.empty((b, d), dtype=pool.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dbs_rw_read(pool.data_ptr(), ext.data_ptr(),
                               block.data_ptr(), out.data_ptr(), b, e, page,
                               d, _vec4(d, pool, out), stream)
-    _raise_on(err, "dbs_rw_read")
+    raise_on(err, "dbs_rw_read")
     LAUNCHES["dbs_rw_read"] += 1
     return out

@@ -1,0 +1,75 @@
+"""``flash_attention_fwd``: wrapper of the hand-written CUDA kernel.
+
+Port of ``repro/kernels/flash_attention/kernel.py``; the kernel lives in
+``csrc/flash_attention.cu`` (the source note there gives its bound, tiles
+and design), built at first use by ``kernels/_build.py``. The TPU version
+takes block sizes and halves them until they divide the sequence; the CUDA
+kernel has fixed tiles and masks a ragged last tile, so it takes none.
+
+The wrapper checks dtype, shape and device, and that the head dimension is
+contiguous: the kernel reads q, k, v and writes the output through
+(batch, head, sequence) strides, so views of the model layout need no
+copy. It launches the kernel for tensors on a CUDA device and calls the
+plain version (ref.py) for tensors on the CPU; a CUDA tensor gets the
+kernel or an error. ``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32
+only, as the kernel computes in fp32.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import check_tensor, library, raise_on
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
+MAX_HEAD_DIM = 256                  # the kernel's per-thread output registers
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
+                        scale=None):
+    """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd) -> (B,H,Sq,hd) fp32. Any strides
+    with the last dimension contiguous; on the card the output is laid out
+    as (B,Sq,H,hd) in memory (the model layout) and returned as its
+    (B,H,Sq,hd) view."""
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    dev = q.device
+    for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, kv, sk, d)),
+                           ("v", v, (b, kv, sk, d))):
+        check_tensor(name, t, torch.float32, shape, dev, contiguous=False)
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+    if kv <= 0 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if dev.type == "cpu":
+        PLAIN_CALLS["flash_attention"] += 1
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             logit_cap=logit_cap, scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}, the kernel's limit")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    out = torch.empty((b, sq, h, d), dtype=torch.float32,
+                      device=dev).transpose(1, 2)
+    lib = library("flash_attention")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kv, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
+            int(window or 0), float(scale), float(logit_cap or 0.0), stream)
+    raise_on(err, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -1,0 +1,362 @@
+"""Transformer blocks, the layer schedule and KV-cache structures.
+
+Port of ``repro/models/blocks.py`` for global- and local-attention layers
+with a dense MLP. A model is a sequence of *segments*; each segment is
+``count`` repetitions of a static tuple of layer signatures. Prefill and
+decode walk the layers one by one and thread heterogeneous per-layer caches
+(paged DBS pools for global attention, ring buffers for sliding-window
+layers, dense caches otherwise).
+
+Caches are updated in place and returned (the reference returns new
+arrays): at full width a decode step would otherwise copy every ring cache.
+A cache entry that is a view (the serving engine's per-slot rows) writes
+through to the tensor it views.
+
+MLA, hybrid (Mamba) and RWKV token mixers and MoE MLPs raise a
+``ValueError`` naming the models slice of the port that brings them. The
+reference's activation-sharding constraint is dropped: it does nothing on
+one device.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import (ArchConfig, ATTN_GLOBAL, ATTN_HYBRID,
+                                      ATTN_LOCAL, MLP_DENSE)
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (Params, apply_mlp, dense_init,
+                                       init_mlp, rms_norm)
+
+INT32_MAX = 2 ** 31 - 1
+PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+
+
+# ---------------------------------------------------------------------------
+# layer schedule
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class LayerSig:
+    attn: str          # global | local | mla | hybrid | rwkv6
+    window: int        # 0 = full attention
+    mlp: str           # dense | moe
+
+
+@dataclass(frozen=True)
+class Segment:
+    sigs: Tuple[LayerSig, ...]
+    count: int
+    first_layer: int   # global index of the segment's first layer
+
+
+def layer_sigs(cfg: ArchConfig) -> List[LayerSig]:
+    out = []
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        window = 0
+        if kind == ATTN_LOCAL:
+            window = cfg.sliding_window
+        elif kind == ATTN_HYBRID:
+            window = 0 if i in cfg.global_layer_indices else cfg.sliding_window
+        out.append(LayerSig(kind, window, cfg.mlp_kind(i)))
+    return out
+
+
+def layer_schedule(cfg: ArchConfig) -> List[Segment]:
+    sigs = layer_sigs(cfg)
+    n = len(sigs)
+    # try a small repeating unit (gemma2: LG, gemma3: LLLLLG)
+    for u in range(1, 9):
+        reps, tail = divmod(n, u)
+        if reps < 2:
+            break
+        unit = tuple(sigs[:u])
+        if tuple(sigs) == (unit * (reps + 1))[:n]:
+            segs = [Segment(unit, reps, 0)]
+            if tail:
+                segs.append(Segment(tuple(sigs[reps * u:]), 1, reps * u))
+            return segs
+    # fallback: run-length segments (hymba, deepseek)
+    segs: List[Segment] = []
+    i = 0
+    while i < n:
+        j = i
+        while j < n and sigs[j] == sigs[i]:
+            j += 1
+        segs.append(Segment((sigs[i],), j - i, i))
+        i = j
+    return segs
+
+
+def check_ported(sig: LayerSig) -> None:
+    """Raise a ValueError naming the slice that brings an unported layer."""
+    if sig.attn not in PORTED_ATTN:
+        raise ValueError(f"{sig.attn!r} layers (MLA, hybrid and RWKV token "
+                         "mixers) land with the models slice of the port")
+    if sig.mlp != MLP_DENSE:
+        raise ValueError(f"{sig.mlp!r} MLPs land with the models slice of "
+                         "the port")
+
+
+# ---------------------------------------------------------------------------
+# per-layer parameter init
+# ---------------------------------------------------------------------------
+def init_layer(gen: torch.Generator, cfg: ArchConfig, sig: LayerSig) -> Params:
+    """One layer's parameters, drawn from ``gen`` on its device."""
+    check_ported(sig)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    dev = gen.device
+    norm_w = (lambda n: torch.zeros((n,), device=dev)) if _gemma(cfg) else (
+        lambda n: torch.ones((n,), device=dev))
+    p: Params = {"ln1": norm_w(d), "ln2": norm_w(d)}
+    p.update({
+        "q": dense_init(gen, d, cfg.n_heads * hd),
+        "k": dense_init(gen, d, cfg.n_kv_heads * hd),
+        "v": dense_init(gen, d, cfg.n_kv_heads * hd),
+        "o": dense_init(gen, cfg.n_heads * hd, d),
+    })
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), device=dev)
+        p["k_norm"] = torch.ones((hd,), device=dev)
+    if cfg.post_norms:
+        p["ln1_post"] = norm_w(d)
+        p["ln2_post"] = norm_w(d)
+    p["mlp"] = init_mlp(gen, cfg)
+    return p
+
+
+def _gemma(cfg: ArchConfig) -> bool:
+    return cfg.name.startswith("gemma")
+
+
+def _norm(cfg):
+    def f(x, w):
+        return rms_norm(x, w, cfg.norm_eps, gemma_style=_gemma(cfg))
+    return f
+
+
+# ---------------------------------------------------------------------------
+# cache structures
+# ---------------------------------------------------------------------------
+def init_layer_cache(cfg: ArchConfig, sig: LayerSig, batch: int, max_len: int,
+                     *, paged: bool, dtype=torch.bfloat16,
+                     page_owner_stride: int = 1, device=None) -> Params:
+    """Cache dict for one layer on ``device``."""
+    check_ported(sig)
+    hd = cfg.resolved_head_dim
+    page = cfg.page_blocks
+    kd = vd = hd
+    n_kv = cfg.n_kv_heads
+    z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    c: Params = {}
+    if sig.window:  # sliding-window ring buffer
+        w = min(sig.window, max_len)
+        c["ring_k"] = z((batch, w, n_kv, kd))
+        c["ring_v"] = z((batch, w, n_kv, vd))
+        c["ring_pos"] = torch.full((batch, w), INT32_MAX, dtype=torch.int32,
+                                   device=device)
+    elif paged:
+        stride = max(page_owner_stride, 1)
+        n_pages = math.ceil(max_len / page)
+        padded = math.ceil(n_pages / stride) * stride
+        # global pool: one extent per (sequence, padded page); stripe r of
+        # the extent dim holds pages p with p % stride == r.
+        n_ext = max(stride, batch * padded)
+        c["pool_k"] = z((n_ext, page, n_kv, kd))
+        c["pool_v"] = z((n_ext, page, n_kv, vd))
+        c["block_table"] = z((batch, n_pages), torch.int32)
+    else:
+        c["k"] = z((batch, max_len, n_kv, kd))
+        c["v"] = z((batch, max_len, n_kv, vd))
+    return c
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+@dataclass
+class BlockCtx:
+    """Everything a block needs besides params and the hidden state."""
+    mode: str                               # prefill | decode
+    q_pos: torch.Tensor                     # (B, Sq) absolute positions
+    k_pos: Optional[torch.Tensor] = None    # (B, Sk) for prefill
+    cache: Optional[Params] = None
+    attn_impl: str = "chunked"              # dense | chunked | cuda
+    chunk: int = 1024
+    ssm_chunk: int = 256
+    unroll: bool = False
+    paged_decode_fn: Optional[Callable] = None  # the serving engine's override
+    page_owner_stride: int = 1
+    owner_rank: int = 0
+
+
+def _project_qkv(cfg, p, h):
+    b, s, _ = h.shape
+    hd = cfg.resolved_head_dim
+    q = (h @ p["q"].to(h.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k = (h @ p["k"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (h @ p["v"].to(h.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps, gemma_style=_gemma(cfg))
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps, gemma_style=_gemma(cfg))
+    return q, k, v
+
+
+def _full_attention(cfg, sig, q, k, v, ctx, scale=None):
+    """prefill attention dispatch (q,k,v already rope'd)."""
+    kwargs = dict(window=sig.window, logit_cap=cfg.attn_logit_softcap,
+                  scale=scale)
+    if ctx.attn_impl == "dense":
+        return attn.dense_attention(q, k, v, ctx.q_pos, ctx.k_pos, **kwargs)
+    if ctx.attn_impl == "cuda":
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        return fa_ops.flash_attention(q, k, v, ctx.q_pos, ctx.k_pos, **kwargs)
+    if ctx.attn_impl == "pallas":
+        raise ValueError("attn_impl='pallas' is the TPU kernel; the port's "
+                         "hand-written flash kernel is attn_impl='cuda'")
+    if sig.window and sig.window > 0:
+        return attn.banded_attention(q, k, v, ctx.q_pos, ctx.k_pos,
+                                     window=sig.window,
+                                     logit_cap=cfg.attn_logit_softcap,
+                                     scale=scale, q_chunk=ctx.chunk,
+                                     unroll=ctx.unroll)
+    return attn.chunked_attention(q, k, v, ctx.q_pos, ctx.k_pos,
+                                  chunk=ctx.chunk, unroll=ctx.unroll, **kwargs)
+
+
+def _decode_attention(cfg, sig, p, q, k_new, v_new, ctx, cache, scale=None):
+    """Single-token decode: write the new K/V into the cache (in place) and
+    read it, for every cache kind."""
+    b = q.shape[0]
+    pos = ctx.q_pos[:, 0]                                      # (B,)
+    new_cache = dict(cache)
+    cap = cfg.attn_logit_softcap
+    rows = torch.arange(b, device=q.device)
+    if "ring_k" in cache:
+        rk, rv, rp = cache["ring_k"], cache["ring_v"], cache["ring_pos"]
+        slot = (pos % rk.shape[1]).long()
+        rk[rows, slot] = k_new[:, 0].to(rk.dtype)
+        rv[rows, slot] = v_new[:, 0].to(rv.dtype)
+        rp[rows, slot] = pos.to(rp.dtype)
+        out = attn.decode_attention(q, rk, rv, ctx.q_pos, rp,
+                                    window=sig.window, logit_cap=cap,
+                                    scale=scale)
+    elif "pool_k" in cache:
+        # write + paged read, both inside the paged fn — the serving engine
+        # overrides it to scatter into and attend over its extent pools
+        fn = ctx.paged_decode_fn or _local_paged_decode
+        out, pk, pv = fn(q, k_new, v_new, cache["pool_k"], cache["pool_v"],
+                         cache["block_table"], ctx.q_pos,
+                         window=sig.window, logit_cap=cap, scale=scale)
+        new_cache.update(pool_k=pk, pool_v=pv)
+    else:
+        kc, vc = cache["k"], cache["v"]
+        s_max = kc.shape[1]
+        kc[rows, pos.long()] = k_new[:, 0].to(kc.dtype)
+        vc[rows, pos.long()] = v_new[:, 0].to(vc.dtype)
+        k_pos = torch.arange(s_max, dtype=torch.int32,
+                             device=q.device).expand(b, s_max)
+        out = attn.decode_attention(q, kc, vc, ctx.q_pos, k_pos,
+                                    window=sig.window, logit_cap=cap,
+                                    scale=scale)
+    return out, new_cache
+
+
+def paged_write_local(pool_k, pool_v, block_table, pos, k_new, v_new,
+                      stride: int = 1, rank=0):
+    """Scatter one new token's K/V into the owner stripe's pool (local ids),
+    in place. A lane that does not own its page, or whose page is a hole,
+    rewrites the value the pool's last row already holds at its offset: the
+    reference's ``mode="drop"`` scatter at -1 lands on that row."""
+    b = pos.shape[0]
+    page = pool_k.shape[1]
+    page_idx = pos // page
+    ext = block_table[torch.arange(b, device=pos.device), page_idx.long()]
+    off = (pos % page).long()
+    owned = ((page_idx % stride) == rank) & (ext >= 0)
+    ext_w = torch.where(owned, ext, -1).long()
+    own = owned[:, None, None]
+    pool_k[ext_w, off] = torch.where(own, k_new[:, 0].to(pool_k.dtype),
+                                     pool_k[ext_w, off])
+    pool_v[ext_w, off] = torch.where(own, v_new[:, 0].to(pool_v.dtype),
+                                     pool_v[ext_w, off])
+    return pool_k, pool_v
+
+
+def _local_paged_decode(q, k_new, v_new, pool_k, pool_v, block_table, q_pos,
+                        *, window=0, logit_cap=0.0, scale=None):
+    pool_k, pool_v = paged_write_local(pool_k, pool_v, block_table,
+                                       q_pos[:, 0], k_new, v_new)
+    o, m, l = attn.paged_decode_attention(
+        q, pool_k, pool_v, block_table, q_pos, window=window,
+        logit_cap=logit_cap, scale=scale)
+    return attn.finish_partial(o, m, l).to(q.dtype), pool_k, pool_v
+
+
+def _write_prefill_cache(cfg, sig, cache, k, v, ctx):
+    """Store prefill K/V into the layer cache (ring / paged / dense), in
+    place."""
+    new_cache = dict(cache)
+    b, s = k.shape[:2]
+    if "ring_k" in cache:
+        w = cache["ring_k"].shape[1]
+        take = min(w, s)
+        # slot = pos % w, the same rule decode uses — the ring stays
+        # coherent for any prefill length.
+        slots = (ctx.k_pos[:, -take:] % w).long()              # (B, take)
+        rows = torch.arange(b, device=k.device)[:, None]
+        cache["ring_k"][rows, slots] = k[:, -take:].to(cache["ring_k"].dtype)
+        cache["ring_v"][rows, slots] = v[:, -take:].to(cache["ring_v"].dtype)
+        cache["ring_pos"][rows, slots] = ctx.k_pos[:, -take:].to(torch.int32)
+    elif "pool_k" in cache:
+        page = cache["pool_k"].shape[1]
+        n_pages = s // page
+        ext = cache["block_table"][:, :n_pages].long()         # (B,P)
+        kp = k.reshape(b, n_pages, page, *k.shape[2:])
+        vp = v.reshape(b, n_pages, page, *v.shape[2:])
+        cache["pool_k"][ext] = kp.to(cache["pool_k"].dtype)
+        cache["pool_v"][ext] = vp.to(cache["pool_v"].dtype)
+    else:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+    return new_cache
+
+
+def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
+                ctx: BlockCtx
+                ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
+    """One block. Returns (hidden, new_cache-or-None, aux_loss scalar)."""
+    check_ported(sig)
+    norm = _norm(cfg)
+    new_cache = ctx.cache
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    resid = x
+    h = norm(x, p["ln1"])
+    q, k, v = _project_qkv(cfg, p, h)
+    q = attn.apply_rope(q, ctx.q_pos, cfg.rope_theta)
+    k = attn.apply_rope(k, ctx.q_pos, cfg.rope_theta)
+
+    if ctx.mode == "decode":
+        o, new_cache = _decode_attention(cfg, sig, p, q, k, v, ctx, ctx.cache)
+    else:
+        o = _full_attention(cfg, sig, q, k, v, ctx)
+        if ctx.mode == "prefill":
+            new_cache = _write_prefill_cache(cfg, sig, ctx.cache, k, v, ctx)
+
+    b, s = o.shape[:2]
+    att_out = o.reshape(b, s, -1) @ p["o"].to(o.dtype)
+    if cfg.post_norms:
+        att_out = norm(att_out, p["ln1_post"])
+    x = resid + att_out
+
+    # ---------------- MLP ---------------------------------------------------
+    resid = x
+    h = norm(x, p["ln2"])
+    mlp_out = apply_mlp(p["mlp"], h, cfg)
+    if cfg.post_norms:
+        mlp_out = norm(mlp_out, p["ln2_post"])
+    return resid + mlp_out, new_cache, aux

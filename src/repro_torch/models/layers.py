@@ -1,0 +1,156 @@
+"""Shared layer primitives: norms, RoPE, dense MLPs, embeddings.
+
+Port of ``repro/models/layers.py`` on torch tensors. Parameters are plain
+dicts of tensors: ``init_*`` builds them, the ``apply``-style functions
+consume them. Initialisation draws from an explicit ``torch.Generator`` on
+the generator's own device, so a full-width model is made on the card
+without passing through the host. The compute dtype is the caller's
+(parameters are cast at the call site). MoE waits for the models slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# small helpers
+# ---------------------------------------------------------------------------
+def normal(gen: torch.Generator, shape, std: float = 1.0) -> torch.Tensor:
+    """Standard-normal fp32 draws on the generator's device, times std."""
+    return torch.randn(shape, generator=gen, device=gen.device) * std
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
+    return normal(gen, (d_in, d_out), 1.0 / math.sqrt(d_in))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
+             *, gemma_style: bool = False) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    w = weight.float()
+    out = x * (1.0 + w) if gemma_style else x * w
+    return out.to(dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2-style tanh logit soft-capping; no-op when cap == 0."""
+    if cap and cap > 0.0:
+        return torch.tanh(x / cap) * cap
+    return x
+
+
+def activation_fn(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu_tanh":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu_sq":
+        return lambda x: torch.square(F.relu(x))
+    raise ValueError(f"unknown activation {name!r}")
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    if theta <= 0:
+        return x
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (hd/2,)
+    angles = positions[..., :, None].float() * freqs            # (..., S, hd/2)
+    angles = angles[..., None, :]                               # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense)
+# ---------------------------------------------------------------------------
+def init_mlp(gen: torch.Generator, cfg: ArchConfig,
+             d_ff: Optional[int] = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    p = {"wi": dense_init(gen, d, f), "wo": dense_init(gen, f, d)}
+    if cfg.gated_mlp:
+        p["wg"] = dense_init(gen, d, f)
+    return p
+
+
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    act = activation_fn(cfg.activation)
+    h = x @ p["wi"].to(x.dtype)
+    h = act(h) * (x @ p["wg"].to(x.dtype)) if "wg" in p else act(h)
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embeddings / output head
+# ---------------------------------------------------------------------------
+def init_embeddings(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    k_cb = cfg.n_codebooks
+    shape = ((k_cb, cfg.vocab_size, cfg.d_model) if k_cb > 1
+             else (cfg.vocab_size, cfg.d_model))
+    p: Params = {"tokens": normal(gen, shape, 0.02)}
+    if not cfg.tie_embeddings:
+        hshape = ((k_cb, cfg.d_model, cfg.vocab_size) if k_cb > 1
+                  else (cfg.d_model, cfg.vocab_size))
+        p["lm_head"] = normal(gen, hshape, 0.02)
+    return p
+
+
+def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ArchConfig,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """tokens: (B, S) or (B, S, K) for multi-codebook archs."""
+    emb = p["tokens"].to(dtype)
+    tokens = tokens.long()
+    if cfg.n_codebooks > 1:
+        # sum the K codebook embeddings (musicgen)
+        out = 0.0
+        for k in range(cfg.n_codebooks):
+            out = out + emb[k][tokens[..., k]]
+    else:
+        out = emb[tokens]
+    if cfg.post_norms or cfg.activation == "gelu_tanh":
+        # gemma normalizes embeddings by sqrt(d_model)
+        if cfg.name.startswith("gemma"):
+            # the factor rounded to the compute dtype first, as the reference
+            # does; a Python float keeps the op free of host tensors
+            out = out * float(torch.tensor(math.sqrt(cfg.d_model),
+                                           dtype=dtype))
+    return out
+
+
+def lm_logits(p: Params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """h: (..., D) -> logits (..., V) or (..., K, V)."""
+    if cfg.tie_embeddings:
+        table = p["tokens"].to(h.dtype)
+        if cfg.n_codebooks > 1:
+            out = torch.einsum("...d,kvd->...kv", h, table)
+        else:
+            out = h @ table.T
+    else:
+        head = p["lm_head"].to(h.dtype)
+        if cfg.n_codebooks > 1:
+            out = torch.einsum("...d,kdv->...kv", h, head)
+        else:
+            out = h @ head
+    return softcap(out, cfg.final_logit_softcap)

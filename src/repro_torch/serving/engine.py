@@ -1,0 +1,470 @@
+"""ServeEngine: continuous batching with the KV cache in the DBS pools.
+
+Port of ``GenRequest`` and ``ServeEngine(kv_backend="fused")`` from
+``repro/serving/engine.py``. One running engine = one Longhorn node:
+
+- admission goes through the **multi-queue frontend** (ublk analogue),
+- live requests own **slots** in a fixed SlotTable (Messages Array); the
+  decode batch is always the full slot array, inactive lanes masked,
+- each request's KV state is a **DBS volume** of a
+  ``blockdev.VolumeManager``. The engine's payload pool *is* the KV cache:
+  one block holds one token's K/V for every paged layer
+  (``payload_shape=(n_planes, KV, hd)``, plane ``2j`` = paged layer j's
+  keys, ``2j+1`` its values); page allocation and CoW ride ordinary write
+  requests batched into ONE pump per step, and the hand-written
+  paged-attention kernel reads K/V straight out of the extent pool through
+  the volume's extent map — no staging copy of the KV cache exists,
+- **forking** a session is ``VolumeManager.clone``: prefix extents shared,
+  diverging writes CoW'd by the DBS write kernel, O(1) in context length,
+- completion retires the slot and ``VolumeManager.delete`` frees the
+  extents.
+
+The reference jit-compiles the decode program and donates the pools; here
+it runs eagerly and scatters the new token's K/V into the live replica
+pools in place. Lanes that must not write (inactive slots, holes) scatter
+into the pool's last row, the DBS dump row: that is where the reference's
+``mode="drop"`` scatter at index -1 lands too (a negative index wraps),
+and no reader takes data from it (the write kernel parks inert lanes
+there, reads resolve only allocated extents, and ``consistent()`` compares
+revisions).
+
+``kv_backend="host"`` (the copy-based baseline with ``dbs_copy``) and
+``"sharded"`` land with their slices, as does ``ServePool``. The engine
+runs on ``device`` (default ``cuda``, with no CPU fallback).
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import (ArchConfig, ATTN_MLA, ATTN_RWKV,
+                                      ExecutionPlan)
+from repro_torch.core import slots
+from repro_torch.core.blockdev import VolumeManager
+from repro_torch.core.engine import resolve_device
+from repro_torch.core.frontend import MultiQueueFrontend, Request
+from repro_torch.core.ring import OP_CLONE, ST_OK
+from repro_torch.kernels.paged_attention.kernel import paged_attention_pool_fwd
+from repro_torch.kernels.paged_attention.ref import paged_attention_pool_ref
+from repro_torch.models import blocks as B
+from repro_torch.models import model as M
+
+UNPORTED_KV_BACKENDS = {
+    "host": "the host-dispatch slice (the copy-based baseline needs "
+            "HostStateBackend and the dbs_copy kernel)",
+    "sharded": "the shards slice"}
+
+
+@dataclass
+class GenRequest:
+    req_id: int
+    prompt: np.ndarray            # (S,) int token ids
+    max_new: int = 16
+    out_tokens: List[int] = field(default_factory=list)
+    slot: int = -1
+    volume: int = -1
+    done: bool = False
+    # per-decode-step logits, recorded only when the engine was built with
+    # record_logits=True (the fork bit-identity tests)
+    logit_trace: List[np.ndarray] = field(default_factory=list)
+
+
+def _paged_layer_info(cfg: ArchConfig, sig) -> Optional[Tuple[int, int, int]]:
+    """(kd, vd, n_kv) for layers whose decode cache is paged (pool-backed),
+    mirroring ``blocks.init_layer_cache``; None for ring/recurrent layers."""
+    if sig.attn == ATTN_RWKV or sig.window:
+        return None
+    if sig.attn == ATTN_MLA:
+        m = cfg.mla
+        return m.kv_lora_rank + m.rope_head_dim, m.kv_lora_rank, 1
+    hd = cfg.resolved_head_dim
+    return hd, hd, cfg.n_kv_heads
+
+
+class ServeEngine:
+    def __init__(self, cfg: ArchConfig, params, *, n_slots: int = 4,
+                 max_len: int = 256, n_queues: int = 2,
+                 plan: Optional[ExecutionPlan] = None,
+                 kv_backend: str = "fused", kv_shards: int = 1,
+                 kv_replicas: int = 2, kernel: str = "auto",
+                 record_logits: bool = False, device=None):
+        if kv_backend in UNPORTED_KV_BACKENDS:
+            raise ValueError(f"kv_backend={kv_backend!r} lands with "
+                             f"{UNPORTED_KV_BACKENDS[kv_backend]} of the port")
+        if cfg.n_codebooks > 1:
+            raise ValueError("multi-codebook models land with the models "
+                             "slice of the port")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.plan = plan or ExecutionPlan(remat="none", attn_impl="chunked",
+                                          compute_dtype="float32")
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.kv_backend = kv_backend
+        self.record_logits = record_logits
+        page = cfg.page_blocks
+        self.n_pages = math.ceil(max_len / page)
+        dtype = getattr(torch, self.plan.compute_dtype)
+        dev = self.device
+
+        self.frontend = MultiQueueFrontend(n_queues, n_slots, batch=n_slots,
+                                           device=dev)
+        # DBS metadata: volumes = sessions; extents shared across layers
+        # (one extent row holds every layer's K/V for its page of tokens).
+        n_extents = n_slots * self.n_pages * 2 + 8   # headroom for forks/CoW
+        infos = [_paged_layer_info(cfg, s) for s in B.layer_sigs(cfg)]
+        self._paged = [(li,) + info for li, info in enumerate(infos)
+                       if info is not None]
+        if not self._paged:
+            raise ValueError("zero-copy serving needs at least one "
+                             "paged-attention layer; the copy-based "
+                             "kv_backend='host' lands with its slice")
+        kvs = {info[3] for info in self._paged}
+        if len(kvs) > 1:
+            raise ValueError(f"mixed KV head counts {sorted(kvs)} not "
+                             "supported by the pooled KV layout")
+        self._n_kv = kvs.pop()
+        self._dmax = max(max(kd, vd) for _, kd, vd, _ in self._paged)
+        n_planes = 2 * len(self._paged)
+        self._payload_shape = (n_planes, self._n_kv, self._dmax)
+        # the engine extent pool IS the KV cache: the volume manager's write
+        # requests allocate/CoW its rows, the paged-attention kernel reads
+        # them through the extent map
+        self.volumes = VolumeManager(
+            backend=kv_backend, n_shards=kv_shards,
+            n_replicas=kv_replicas, kernel=kernel,
+            n_extents=n_extents, max_volumes=2 * n_slots,
+            max_pages=self.n_pages, page_blocks=page,
+            batch=max(2 * n_slots, 16),
+            payload_shape=self._payload_shape, device=dev)
+        # ring caches for the local layers; the model-owned paged pools are
+        # never read (the paged fn reads the engine pool), so they hold one
+        # dummy extent
+        self.caches = M.init_cache(cfg, n_slots, max_len, paged=True,
+                                   dtype=dtype, device=dev)
+        self.caches = [self._shrink_pool(c) for c in self.caches]
+        # live views of the engine's KV store; refreshed after every pump
+        # that may move extents (_pump_writes)
+        self._pools = self.volumes.device_pools()
+        self._table = self.volumes.device_extent_map()
+        self._attn_cuda = kernel in ("auto", "cuda")
+        self._cow_pending: set = set()
+        self._step_fn = self._decode_program
+        self.pos = np.zeros((n_slots,), np.int32)
+        self.slot_vol = np.full((n_slots,), -1, np.int64)
+        self.live: Dict[int, GenRequest] = {}
+        self._steps = 0
+
+    @property
+    def state(self):
+        """The DBS metadata behind the session volumes (``state.table`` is
+        the paged-attention block table): replica 0's."""
+        return self.volumes.engine.backend.device_state()[0][0]
+
+    def _shrink_pool(self, cache):
+        if cache is None or "pool_k" not in cache:
+            return cache
+        c = dict(cache)
+        for key in ("pool_k", "pool_v"):
+            p = cache[key]
+            c[key] = p.new_zeros((1,) + tuple(p.shape[1:]))
+        return c
+
+    # ------------------------------------------------------------------ API
+    def submit(self, req: GenRequest) -> None:
+        self.frontend.submit(Request(req_id=req.req_id, kind="write",
+                                     volume=-1, page=0, payload=req))
+
+    def fork(self, req_id: int, new_req_id: int, max_new: int = 16
+             ) -> Optional[GenRequest]:
+        """Fork a live session: clone its DBS volume. O(1) in context
+        length — prefix extents are shared, not copied; the parent's and
+        child's next writes to the shared frontier page CoW in-kernel."""
+        src = self.live.get(req_id)
+        if src is None or src.slot < 0:
+            return None
+        child_vol = self.volumes.clone(src.volume)
+        if child_vol is None:
+            return None
+        vid = child_vol.vid
+        child = GenRequest(req_id=new_req_id,
+                           prompt=np.zeros((0,), np.int64), max_new=max_new)
+        child.out_tokens = list(src.out_tokens)
+        # claim a slot directly (fork bypasses the admission queue); the
+        # Messages Array records the op that owns the slot (ring opcode lane)
+        dev = self.device
+        i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device=dev)
+        self.frontend.table, ids, ok = slots.admit(
+            self.frontend.table, torch.ones((1,), dtype=torch.bool,
+                                            device=dev),
+            i32([vid]), i32([0]), i32(self._steps), opcodes=i32([OP_CLONE]))
+        if not bool(ok[0]):
+            self.volumes.delete(vid)
+            return None
+        child.slot = int(ids[0])
+        child.volume = vid
+        # the sliding-window layers keep their K/V in per-slot ring caches,
+        # not in the volume: the child's slot takes a copy of the parent's
+        # (bounded by the window, not the context). The reference skips
+        # this, so its forks of models with local layers read the slot's
+        # stale ring (ROADMAP queue 3).
+        for c in self.caches:
+            if c is not None and "ring_k" in c:
+                for key in ("ring_k", "ring_v", "ring_pos"):
+                    c[key][child.slot] = c[key][src.slot]
+        self.slot_vol[child.slot] = vid
+        self.pos[child.slot] = self.pos[src.slot]
+        self.live[new_req_id] = child
+        # both sides' next write to the shared frontier page must ride a
+        # write request so the in-kernel CoW un-shares it before the decode
+        # scatter touches it
+        self._cow_pending.add(req_id)
+        self._cow_pending.add(new_req_id)
+        self._table = self.volumes.device_extent_map()
+        return child
+
+    def control(self, kind: str, **kw):
+        """Replica-plane control (fail/...) on the KV store. The pools are
+        committed to the replicas first, so a control op sees every decode
+        scatter, not just the last pumped state."""
+        self.volumes.set_device_pools(self._pools)
+        out = self.volumes.engine.control(kind, **kw)
+        self._pools = self.volumes.device_pools()
+        self._table = self.volumes.device_extent_map()
+        return out
+
+    # ------------------------------------------------------- engine stepping
+    def _admit(self) -> List[GenRequest]:
+        slot_ids, reqs = self.frontend.poll_batch()
+        admitted = []
+        for sid, r in zip(slot_ids.tolist(), reqs):
+            g: GenRequest = r.payload
+            g.slot = int(sid)
+            g.volume = self.volumes.create().vid
+            self.slot_vol[g.slot] = g.volume
+            self.live[g.req_id] = g
+            admitted.append(g)
+        return admitted
+
+    # ---------------------------------------------- zero-copy KV data plane
+    def _pump_writes(self) -> None:
+        """Complete every queued write request in ONE batched pump: page
+        allocation and CoW for all lanes resolve inside the engine's fused
+        step. The pools are committed around the pump and the extent-map
+        view is refreshed after."""
+        self.volumes.set_device_pools(self._pools)
+        self.volumes.flush()
+        self._pools = self.volumes.device_pools()
+        self._table = self.volumes.device_extent_map()
+
+    def _submit_kv_write(self, vid: int, pos: int, payload=None) -> None:
+        page = self.cfg.page_blocks
+        if payload is None:
+            payload = np.zeros(self._payload_shape, np.float32)
+        self.volumes.submit(Request(
+            req_id=self.volumes._rid(vid), kind="write", volume=vid,
+            page=pos // page, block=pos % page, payload=payload))
+
+    def _decode_program(self, params, last, pos, active, bt, pools, caches):
+        """One decode step over the engine's KV pools: per paged layer,
+        scatter the new token's K/V into every replica pool at its extent
+        row (in place) and attend straight off the pool through the extent
+        map. All inputs live on the device and nothing is read back.
+        Returns (logits, next tokens, caches, pools)."""
+        caches = M.with_block_tables(caches, bt)
+        page = self.cfg.page_blocks
+        n_pages = self.n_pages
+        j = [0]
+        lanes = torch.arange(bt.shape[0], device=bt.device)
+        dmax = self._dmax
+
+        def paged_fn(q, k_new, v_new, pk, pv, bt_, q_pos, *, window=0,
+                     logit_cap=0.0, scale=None):
+            jj = j[0]
+            j[0] += 1
+            _, kd, vd, _ = self._paged[jj]
+            kp, vp = 2 * jj, 2 * jj + 1
+            p = q_pos[:, 0]
+            # an idle slot keeps its last occupant's position, which may be
+            # max_len: clamp its page (its lane writes nowhere and its
+            # output is discarded)
+            ext = bt_[lanes, (p // page).clamp(max=n_pages - 1).long()]
+            off = (p % page).long()
+            dump = pools[0].shape[0] - 1
+            extw = torch.where(active & (ext >= 0), ext, dump).long()
+            kn, vn = k_new[:, 0], v_new[:, 0]
+            if kn.shape[-1] < dmax:
+                kn = F.pad(kn, (0, dmax - kn.shape[-1]))
+            if vn.shape[-1] < dmax:
+                vn = F.pad(vn, (0, dmax - vn.shape[-1]))
+            for pool in pools:
+                pool[extw, off, kp] = kn.to(pool.dtype)
+                pool[extw, off, vp] = vn.to(pool.dtype)
+            qk = q[:, 0]                         # (B, H, hd): one token
+            if qk.shape[-1] < dmax:
+                qk = F.pad(qk, (0, dmax - qk.shape[-1]))
+            # the pool's trailing dim is padded to dmax — the kernel's
+            # default 1/sqrt(d) would use the padded dim, so pass the true
+            # head-dim scale explicitly
+            eff_scale = (float(scale) if scale is not None
+                         else 1.0 / math.sqrt(kd))
+            lengths = (p + 1).to(torch.int32)
+            attend = (paged_attention_pool_fwd if self._attn_cuda
+                      else paged_attention_pool_ref)
+            out = attend(qk.float().contiguous(), pools[0],
+                         bt_.contiguous(), lengths, k_plane=kp, v_plane=vp,
+                         window=window, logit_cap=logit_cap, scale=eff_scale)
+            out = out[..., :vd].to(q.dtype)[:, None]
+            return out, pk, pv
+
+        logits, caches = M.decode_step(params, last, pos, self.cfg,
+                                       self.plan, caches,
+                                       paged_decode_fn=paged_fn)
+        nxt = torch.argmax(logits, dim=-1)
+        return logits, nxt, caches, pools
+
+    def _prefill_one_zero(self, g: GenRequest) -> None:
+        """Prefill a prompt, then push its K/V into the engine pools as
+        ordinary write requests (one per prompt token/block): allocation
+        and payload ride the same batched pump as every other write; the
+        caller flushes once for all admitted prompts."""
+        prompt = np.asarray(g.prompt)
+        s = prompt.shape[0]
+        if s == 0:
+            return
+        dtype = getattr(torch, self.plan.compute_dtype)
+        dev = self.device
+        # single-sequence prefill with dense K/V caches for the paged layers
+        # (their content goes to the ENGINE pool, not the model's); the ring
+        # caches are the slot's rows of the batch caches, as views, so the
+        # prefill writes them in place
+        caches_one = []
+        for c in self.caches:
+            if c is None:
+                caches_one.append(None)
+            elif "pool_k" in c:
+                kd, vd = c["pool_k"].shape[-1], c["pool_v"].shape[-1]
+                n_kv = c["pool_k"].shape[2]
+                caches_one.append({
+                    "k": torch.zeros((1, s, n_kv, kd), dtype=dtype,
+                                     device=dev),
+                    "v": torch.zeros((1, s, n_kv, vd), dtype=dtype,
+                                     device=dev)})
+            else:
+                caches_one.append({k: v[g.slot:g.slot + 1]
+                                   for k, v in c.items()})
+        tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+        _logits, caches_one = M.prefill(self.params, tok, self.cfg,
+                                        self.plan, caches_one)
+        # one payload block per prompt token: every paged layer's K/V planes,
+        # assembled on the device and fetched to the host in one copy
+        pay = torch.zeros((s,) + self._payload_shape, dtype=torch.float32,
+                          device=dev)
+        for j, (li, kd, vd, _) in enumerate(self._paged):
+            pay[:, 2 * j, :, :kd] = caches_one[li]["k"][0].float()
+            pay[:, 2 * j + 1, :, :vd] = caches_one[li]["v"][0].float()
+        pay = pay.cpu().numpy()
+        for t in range(s):
+            self._submit_kv_write(g.volume, t, payload=pay[t])
+        self.pos[g.slot] = s
+
+    # ----------------------------------------------------------------- step
+    def step(self) -> List[Tuple[int, int]]:
+        """One continuous-batching iteration. Returns [(req_id, token)]."""
+        admitted = self._admit()
+        pending = False
+        for g in admitted:
+            self._prefill_one_zero(g)
+            pending = pending or np.asarray(g.prompt).shape[0] > 0
+        active = np.array([self.slot_vol[i] >= 0 and any(
+            r.slot == i and not r.done for r in self.live.values())
+            for i in range(self.n_slots)])
+        if not active.any():
+            if pending:
+                self._pump_writes()
+            return []
+        page = self.cfg.page_blocks
+        # control plane: lanes crossing a page boundary allocate their new
+        # page, freshly-forked lanes CoW their shared frontier page — all as
+        # write requests completed by ONE batched pump
+        for i in range(self.n_slots):
+            if not active[i]:
+                continue
+            g = self.live_by_slot(i)
+            if self.pos[i] % page == 0 or g.req_id in self._cow_pending:
+                self._submit_kv_write(int(self.slot_vol[i]), int(self.pos[i]))
+                self._cow_pending.discard(g.req_id)
+                pending = True
+        if pending:
+            self._pump_writes()
+        dev = self.device
+        vols = torch.as_tensor(np.where(active, self.slot_vol, 0),
+                               dtype=torch.int64, device=dev)
+        last = torch.as_tensor(
+            [(self.live_by_slot(i).out_tokens[-1]
+              if self.live_by_slot(i) and self.live_by_slot(i).out_tokens
+              else self._last_prompt_token(i)) for i in range(self.n_slots)],
+            dtype=torch.int64, device=dev)
+        pos_dev = torch.as_tensor(self.pos, device=dev)
+        active_dev = torch.as_tensor(active, device=dev)
+        # data plane: one decode program — KV scatter into the engine pools
+        # + paged attention through the extent map
+        bt = self._table[vols]
+        logits, nxt, self.caches, self._pools = self._step_fn(
+            self.params, last, pos_dev, active_dev, bt, self._pools,
+            self.caches)
+        nxt_host = nxt.cpu().numpy()
+        logits_host = logits.cpu().numpy() if self.record_logits else None
+        self.pos = self.pos + active.astype(np.int32)
+        out = []
+        self._steps += 1
+        for i in range(self.n_slots):
+            if not active[i]:
+                continue
+            g = self.live_by_slot(i)
+            g.out_tokens.append(int(nxt_host[i]))
+            if logits_host is not None:
+                g.logit_trace.append(logits_host[i].copy())
+            out.append((g.req_id, int(nxt_host[i])))
+            if len(g.out_tokens) >= g.max_new or \
+                    int(self.pos[i]) >= self.max_len:
+                self._finish(g)
+        return out
+
+    def live_by_slot(self, slot: int) -> Optional[GenRequest]:
+        for g in self.live.values():
+            if g.slot == slot and not g.done:
+                return g
+        return None
+
+    def _last_prompt_token(self, slot: int) -> int:
+        g = self.live_by_slot(slot)
+        if g is None or g.prompt.shape[0] == 0:
+            return 0
+        return int(g.prompt[-1])
+
+    def _finish(self, g: GenRequest) -> None:
+        g.done = True
+        dev = self.device
+        self.frontend.table = slots.retire(
+            self.frontend.table,
+            torch.tensor([g.slot], dtype=torch.int32, device=dev),
+            statuses=torch.tensor(ST_OK, dtype=torch.int32, device=dev))
+        self.volumes.delete(g.volume)
+        self._cow_pending.discard(g.req_id)
+        self.slot_vol[g.slot] = -1
+        g.slot = -1
+
+    def run(self, max_steps: int = 64) -> Dict[int, List[int]]:
+        for _ in range(max_steps):
+            self.step()
+            if all(g.done for g in self.live.values()) and \
+                    self.frontend.depth() == 0:
+                break
+        return {rid: g.out_tokens for rid, g in self.live.items()}

@@ -235,7 +235,7 @@ def test_default_device_is_cuda_without_fallback():
     (dict(tier=8), "durability slice"),
     (dict(null_backend=True), "benchmark slice"),
     (dict(null_storage=True), "benchmark slice"),
-    (dict(payload_shape=(2, 4)), "serving slice"),
+    (dict(storage="upstream"), "controller slice"),
 ])
 def test_unported_configuration_raises(kw, slice_):
     with pytest.raises(ValueError, match=slice_):
@@ -258,7 +258,9 @@ def test_unported_calls_raise():
 
 def test_port_imports_no_jax_and_no_repro():
     code = ("import sys, repro_torch.core.blockdev, "
-            "repro_torch.kernels.dbs._build; "
+            "repro_torch.kernels._build, repro_torch.serving.engine, "
+            "repro_torch.kernels.paged_attention, "
+            "repro_torch.kernels.flash_attention; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")

@@ -1,14 +1,20 @@
-"""The hand-written ``dbs_rw`` CUDA kernels against their plain versions.
+"""The port's hand-written CUDA kernels against their plain versions.
 
 Needs a CUDA device and ``nvcc`` (the kernels have no CPU mode), so every
 test here is marked ``gpu`` and skips without a card. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
-The write batches come from the port's own ``write_pages`` (so they keep
-the routing contract the GPU relies on): CoW after a snapshot and a clone,
-in-place pages, holes, duplicate-page groups with colliding blocks, masked
-lanes. Results must equal the plain versions bit for bit. Imports no JAX.
+``dbs_rw``: the write batches come from the port's own ``write_pages`` (so
+they keep the routing contract the GPU relies on): CoW after a snapshot and
+a clone, in-place pages, holes, duplicate-page groups with colliding
+blocks, masked lanes. Results must equal the plain versions bit for bit.
+
+``paged_attention`` and ``flash_attention``: fp32 kernels against their
+plain versions on the card within atol 1e-4 and rtol 1e-4 (the sums run in
+another order), on the parity geometries of the CPU tests and at the
+serving path's full width (gemma2-2b: 8 heads, 4 KV heads, hd 256, page
+32). Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -19,11 +25,20 @@ from repro_torch.core import dbs  # noqa: E402
 from repro_torch.kernels.dbs import (dbs_rw_read, dbs_rw_read_ref,  # noqa: E402
                                      dbs_rw_write, dbs_rw_write_ref)
 from repro_torch.kernels.dbs.ops import _route_writes  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention, flash_attention_fwd,
+    flash_attention_reference)
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_attention_fwd, paged_attention_pool_fwd, paged_attention_pool_ref,
+    paged_attention_ref)
+
+TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the dbs_rw kernels have no CPU mode")
+        pytest.skip("needs a CUDA device: the port's CUDA kernels have no "
+                    "CPU mode")
     return torch.device("cuda")
 
 
@@ -78,3 +93,87 @@ def test_cuda_kernels_match_plain_versions(n_e, page, d, b):
     got = dbs_rw_read(pool, ext, blk)
     assert torch.equal(got, dbs_rw_read_ref(pool, ext, blk))
     assert not got[0].any()
+
+
+def _paged_case(dev, b, h, kv, d, page, p_max, e, seed, n_planes=0):
+    """Pools, a block table with holes past each length and one hole BELOW
+    a length, ragged lengths (one lane of length 0: all pages masked)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    shape = (e, page, n_planes, kv, d) if n_planes else (e, page, kv, d)
+    pool = torch.randn(shape, generator=gen, device=dev)
+    table = rng.permutation(e - 1)[:b * p_max].reshape(b, p_max) + 1
+    lengths = rng.integers(1, p_max * page + 1, b)
+    lengths[0] = 0
+    lengths[-1] = p_max * page
+    for i in range(b):
+        table[i, -(-lengths[i] // page):] = -1
+    if p_max > 2:
+        table[-1, 1] = -1
+    return (q, pool, torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,d,page,p_max", [
+    (4, 4, 2, 8, 4, 5), (2, 4, 2, 64, 8, 6), (3, 8, 4, 128, 16, 4),
+    (2, 4, 1, 64, 8, 5), (1, 16, 16, 64, 32, 3), (8, 8, 4, 256, 32, 64)])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (24, 50.0), (4096, 50.0)])
+def test_paged_attention_kernel_matches_plain(b, h, kv, d, page, p_max,
+                                              window, cap):
+    """Split pools and the plane view of one engine pool; the last geometry
+    is the serving path's full width (26 planes)."""
+    dev = _cuda()
+    e = b * p_max + 3
+    q, pk, table, lengths = _paged_case(dev, b, h, kv, d, page, p_max, e, 1)
+    _, pv, _, _ = _paged_case(dev, b, h, kv, d, page, p_max, e, 2)
+    scale = 1.0 / np.sqrt(d)
+    got = paged_attention_fwd(q, pk, pv, table, lengths, window=window,
+                              logit_cap=cap, scale=scale)
+    want = paged_attention_ref(q, pk, pv, table, lengths, window=window,
+                               logit_cap=cap, scale=scale)
+    torch.testing.assert_close(got, want, **TOL)
+    if b > 1:
+        assert not got[0].any()             # length 0: zeros, not NaN
+    n_planes = 26 if d == 256 else 4
+    _, pool, _, _ = _paged_case(dev, b, h, kv, d, page, p_max, e, 3,
+                                n_planes=n_planes)
+    for kp, vp in ((0, 1), (n_planes - 2, n_planes - 1)):
+        got = paged_attention_pool_fwd(q, pool, table, lengths, k_plane=kp,
+                                       v_plane=vp, window=window,
+                                       logit_cap=cap)
+        want = paged_attention_pool_ref(q, pool, table, lengths, k_plane=kp,
+                                        v_plane=vp, window=window,
+                                        logit_cap=cap)
+        torch.testing.assert_close(got, want, **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (2, 256, 256, 4, 2, 64), (1, 512, 512, 8, 2, 128),
+    (2, 128, 128, 4, 4, 64), (1, 384, 384, 6, 1, 64), (1, 97, 97, 4, 2, 16),
+    (1, 33, 70, 4, 2, 32), (1, 550, 550, 8, 4, 256), (1, 999, 999, 8, 4, 256)])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (96, 50.0), (4096, 30.0)])
+def test_flash_attention_kernel_matches_plain(b, sq, sk, h, kv, d, window,
+                                              cap):
+    """Ragged and odd lengths (the last tiles are masked), Sq < Sk
+    (suffix alignment), MQA, and the serving prefill's full width."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + d)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev)
+    got = flash_attention_fwd(q, k, v, window=window, logit_cap=cap)
+    want = attention_ref(q, k, v, window=window, logit_cap=cap)
+    torch.testing.assert_close(got, want, **TOL)
+    # the model layout (B,S,H,hd), read and written through strides
+    qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if sq == sk:
+        got = flash_attention(qm, km, vm, window=window, logit_cap=cap)
+        want = flash_attention_reference(qm, km, vm, window=window,
+                                         logit_cap=cap)
+        assert got.is_contiguous()
+        torch.testing.assert_close(got, want, **TOL)
+    torch.cuda.synchronize()
