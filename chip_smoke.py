@@ -8,12 +8,13 @@ the kernels build for sm_90a with nvcc, at first use, into
 build/torch_kernels/). ``--max-pages`` cuts the block device's volume (1 GiB
 by default), the one cut a short time limit may force. Float32 matrix
 products and convolutions run in full fp32 (TF32 off). Phases, one JSON
-line each; any failure raises and the script exits non-zero:
+line each (``t_s``: seconds since the script started); any failure raises
+and the script exits non-zero:
 
 1. env — torch/CUDA versions, the card's name and power limit.
 2. build — compile every CUDA source of the port (csrc/*.cu: dbs_rw,
-   paged_attention, flash_attention) with one nvcc each, all started
-   together; seconds per library.
+   dbs_copy, paged_attention, flash_attention) with one nvcc each, all
+   started together; seconds per library.
 3. kernel_parity (dbs_rw_write) — at full width (pool (E+1, 32, 4096) f32,
    64 lanes), on write batches from the port's own ``write_pages`` over a
    seeded trace (in-place writes, CoW after a snapshot and a clone,
@@ -23,7 +24,12 @@ line each; any failure raises and the script exits non-zero:
    (kernel, plain version, and one PyTorch library call as a yardstick the
    port never calls), beside the bound (bytes over 3.35 TB/s, the H100 SXM
    HBM rate).
-4. main_path — ``VolumeManager(backend="fused", kernel="cuda")`` with 3
+4. kernel_parity (dbs_copy) — the same at the block device's width, on the
+   CoW batches (``cow_src``, ``dst``, ``cow_src >= 0``) of a second
+   ``write_pages`` trace whose free ring hands extent 0 to a CoW lane: live
+   copies, masked lanes with and without a dst, and a live copy into
+   extent 0; bit for bit, not timed (phase 8 times it).
+5. main_path — ``VolumeManager(backend="fused", kernel="cuda")`` with 3
    replicas, 4 KiB blocks, 32-block extent rows and a 1 GiB volume (8192
    pages): a seeded trace of 4 KiB random writes and reads, 128 KiB
    sequential spans, ~10% unaligned writes (read-modify-write), then a
@@ -31,12 +37,25 @@ line each; any failure raises and the script exits non-zero:
    partial edges) and a delete. Every read is checked against a host shadow;
    the replicas must agree; both kernels must have launched and the plain
    versions never. The read kernel's inputs of every 128th step are kept.
-5. kernel_parity (dbs_rw_read) — on the kept main-path inputs and the main
+   After the trace, the host synchronisations of a window of 64 writes and
+   64 reads are counted (sync-debug "warn").
+6. kernel_parity (dbs_rw_read) — on the kept main-path inputs and the main
    path's own replica pool: bit for bit against the plain version, timed as
    in phase 3; hole lanes (zeros, no load) count one block in the bound.
-6. no_sync — one write pump's fused step under
+7. no_sync — one write pump's fused step under
    ``torch.cuda.set_sync_debug_mode("error")``.
-7. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
+8. block_device, ladder — the ladder's columns on the same trace cut to an
+   eighth of its ops, each checked as in phase 5, once each: the fused
+   step on the hand-written kernels (``kernel="cuda"``), the fused step on
+   the ``copy`` entry (``dbs_copy`` for the CoW rows, then a torch block
+   scatter; it must launch ``dbs_copy`` and copy CoW lanes), and the
+   unfused host-dispatched engine (``backend="slots"``); then
+   ``backend="loop"`` over the first 300 ops. Ops/s, pumps and host
+   synchronisations per pump for each. The ``copy`` column keeps the
+   inputs of every 8th ``dbs_copy`` call; the kernel is held bit for bit
+   against its plain version on them over the column's own pool and timed
+   as in phase 3 (these are its ms and bound in the kernels line).
+9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
    ``ServeEngine(kv_backend="fused", kv_replicas=2, n_slots=8,
@@ -54,21 +73,38 @@ line each; any failure raises and the script exits non-zero:
    after the drain, both attention kernels launched and their plain
    versions never. The inputs of a few decode steps and of one prompt's
    local and global prefill layers are kept.
-8. kernel_parity (paged_attention, flash_attention) — each kernel against
+10. kernel_parity (paged_attention, flash_attention) — each kernel against
    its plain version on those kept full-width inputs, over the serve
    path's own pool, within atol 1e-4 and rtol 1e-4; timed with CUDA graphs
    as in phase 3, beside the bound (paged: live K/V pages plus q and the
    output over 3.35 TB/s; flash: the larger of its causal flops over the
    67 TFLOP/s fp32 rate and its bytes over 3.35 TB/s) and one PyTorch
    yardstick labelled with what it differs in.
-9. no_sync (serving) — one call of the decode program under
+11. no_sync (serving) — one call of the decode program under
    ``torch.cuda.set_sync_debug_mode("error")``.
-10. profile (serving) — where a serving step's time goes, on the same
+12. profile (serving) — where a serving step's time goes, on the same
    engine: eight requests fill the slots; four decode steps are timed,
    four more run under ``torch.profiler``, then a ninth prompt's prefill
    into the slot a finished request freed, and the write pumps that land
    its K/V. One line per part: wall time, the device's busy time and idle
    share, device events, and the operators that took the most time.
+13. serve_path (``kv_backend="host"``) — the copy-based baseline with the
+   same settings and the same 16 requests: the host backend allocates
+   pages, model-owned pools hold the K/V (1032 x 32 x 4 x 256 floats each,
+   K and V of 13 global layers), prefill runs the flash kernel, decode the
+   plain paged gather. Every request ends with 32 tokens and nothing
+   leaks; then the fork check on this backend, whose CoW launches
+   ``dbs_copy`` once per pool (26 calls), kept for phase 14; then eight
+   requests fill the slots and four decode steps run under
+   ``torch.profiler`` (a "profile" line as in phase 12).
+14. kernel_parity (dbs_copy) at the serving width (128 KiB rows), on those
+   kept calls: bit for bit, timed as in phase 3.
+15. host_vs_zero_copy — four requests, eight new tokens, on both backends:
+   logits within atol 1e-3 and rtol 1e-3, tokens equal (the largest
+   difference and the smallest top-2 margin are printed).
+16. serve_pool — ``ServePool`` of two zero-copy engines (4 slots,
+   max_len 512 each): five requests, a fork that stays on its parent's
+   shard; everything completes, no leak, replicas consistent.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -86,24 +122,34 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 SRC = ROOT / "src"
 KERNEL_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_rw.cu"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+COPY_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_copy.cu"
 SERVE_MODEL, SERVE_REQUESTS, SERVE_NEW = "gemma2-2b", 16, 32
 SERVE_PROMPT = (100, 1000)       # prompt lengths drawn in [lo, hi]
 SERVE_KEEP_STEPS = (8, 24, 40)   # decode steps whose paged calls are kept
 PROFILE_STEPS = 4                # decode steps timed, then profiled
 ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
+HOST_TOL = dict(atol=1e-3, rtol=1e-3)   # host baseline vs zero-copy logits
+TIE_MARGIN = 1e-2                # a closer top-2 step may pick either token
 BLOCK, PAGE_BLOCKS, REPLICAS, BATCH = 4096, 32, 3, 64
 SEED, N_OPS = 0, 12000           # the trace; N_OPS sets the random-I/O phases
+LADDER = [("fused", "cuda"), ("fused", "copy"), ("slots", "torch")]
+LADDER_OPS = N_OPS // 8          # the ladder's cut trace (about 6.5k ops)
+LOOP_OPS, LOOP_MAX_OPS = 600, 300
 READ_SAMPLE_EVERY, READ_SAMPLES = 128, 32
+COPY_SAMPLE_EVERY = 8            # of the copy column's dbs_copy calls
 
 
 def emit(**kw) -> None:
-    print(json.dumps(kw), flush=True)
+    """One JSON line; ``t_s`` is the script's wall time when it was
+    printed."""
+    print(json.dumps({**kw, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def smi_line() -> str:
@@ -141,13 +187,18 @@ def graph_ms(torch, fn, n_items: int, passes: int = 20) -> float:
 # phase 3: the write kernel's parity and timing at full width
 # ---------------------------------------------------------------------------
 def parity_batches(torch, dbs, route, dev, n_extents, max_pages, rng,
-                   n_batches=16):
+                   n_batches=16, hold_extent0=False):
     """Routed write batches from a seeded write_pages trace on the card:
     holes first, then (after a snapshot and a clone) a mix of CoW pages,
     in-place pages, holes, duplicate (page, block) lanes and masked lanes.
-    Returns a list of (src, dst, lane_of, payload, n_live, n_cow)."""
+    With ``hold_extent0`` the free ring hands extent 0 out last until the
+    first CoW batch, whose lane 0 is a CoW lane and takes it: a live copy
+    into extent 0 beside masked lanes with dst -1. Returns a list of
+    (*route(ops, ...), payload, n_live, n_cow)."""
     import numpy as np
     st = dbs.make_state(n_extents, 16, max_pages, device=dev)
+    if hold_extent0:
+        st.free.ids = torch.roll(st.free.ids, -1)     # extent 0 last
     st, _ = dbs.create_volume(st)
     pre, post = set(), set()           # pages of vol 0 before/after snapshot
     out = []
@@ -156,10 +207,18 @@ def parity_batches(torch, dbs, route, dev, n_extents, max_pages, rng,
         if i == 2:
             st, _ = dbs.snapshot(st, 0)
             st, _ = dbs.clone(st, 0)   # volume 1 shares every page of 0
+            if hold_extent0:           # extent 0 to the head of the ring
+                n = st.free.capacity
+                h, t = int(st.free.head) % n, (int(st.free.tail) - 1) % n
+                ids = st.free.ids.clone()
+                ids[[h, t]] = ids[[t, h]]
+                st.free.ids = ids
         vols = np.zeros(BATCH, np.int32)
         pages = rng.integers(0, max_pages, BATCH).astype(np.int32)
         if i >= 2:
             kind = rng.integers(0, 3, BATCH)          # 0 CoW, 1 in place, 2 hole
+            if hold_extent0 and i == 2:
+                kind[0] = 0
             old, new = sorted(pre), sorted(post)
             for j in range(BATCH):
                 if kind[j] == 0 and old:
@@ -168,23 +227,25 @@ def parity_batches(torch, dbs, route, dev, n_extents, max_pages, rng,
                 elif kind[j] == 1 and new:
                     pages[j] = new[rng.integers(len(new))]
         blocks = rng.integers(0, PAGE_BLOCKS, BATCH).astype(np.int64)
-        dup = rng.choice(BATCH, 8, replace=False)     # colliding lanes
+        first = 1 if hold_extent0 and i == 2 else 0   # lane 0 leads alone
+        dup = rng.choice(BATCH - first, 8, replace=False) + first
         vols[dup[4:]], pages[dup[4:]] = vols[dup[:4]], pages[dup[:4]]
         blocks[dup[6:]] = blocks[dup[4:6]] = blocks[dup[:2]]
         mask = rng.random(BATCH) < 0.9
+        mask[:first] = True
         tb = torch.from_numpy(blocks).to(dev)
         st, ops = dbs.write_pages(
             st, torch.from_numpy(vols).to(dev), torch.from_numpy(pages).to(dev),
             torch.ones((), dtype=torch.int64, device=dev) << tb,
             torch.from_numpy(mask).to(dev))
-        src, dst, lane_of = route(ops, PAGE_BLOCKS, tb, n_extents)
+        routed = route(ops, PAGE_BLOCKS, tb, n_extents)
         ok = ops.ok.cpu().numpy()
         for j in np.nonzero(ok & (vols == 0))[0]:
             (pre if i < 2 else post).add(int(pages[j]))
         n_live = int(ok.sum())
         n_cow = int((ops.cow_src >= 0).sum())
         payload = torch.rand((BATCH, BLOCK), generator=gen, device=dev)
-        out.append((src, dst, lane_of, payload, n_live, n_cow))
+        out.append((*routed, payload, n_live, n_cow))
     return out
 
 
@@ -241,7 +302,111 @@ def phase_write_kernel(torch, args, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the read kernel on the main path's own inputs
+# phase 4: the copy kernel's parity and timing at the block device's width
+# ---------------------------------------------------------------------------
+def copy_parity(torch, pool, calls, timed=True):
+    """Hold ``dbs_copy`` against ``dbs_copy_ref`` bit for bit on ``calls``
+    ((src, dst, mask) over the (E, page, D) ``pool``, applied in turn to
+    ``pool`` and a copy of it); with ``timed``, then time one pass over the
+    calls (kernel, plain version, and ``index_copy_`` of each call's live
+    source rows, gathered beforehand: the bytes the kernel moves) on
+    ``pool``. Returns the numbers per call."""
+    from repro_torch.kernels.dbs import dbs_copy, dbs_copy_bytes, dbs_copy_ref
+    _e, page, d = pool.shape
+    plain = pool.clone()
+    copied, lib_in = [], []
+    for src, dst, mask in calls:
+        dbs_copy(pool, src, dst, mask, check_routing=True)
+        dbs_copy_ref(plain, src, dst, mask)
+        live = (mask.bool() & (src >= 0) & (dst >= 0) & (src != dst)
+                ).nonzero().flatten()
+        copied.append(int(live.numel()))
+        lib_in.append((dst[live].long(), plain[src[live].long()].clone()))
+    torch.cuda.synchronize()
+    err = float((pool - plain).abs().max())
+    if not torch.equal(pool, plain):
+        raise AssertionError(f"dbs_copy differs from its plain version "
+                             f"(max abs err {err})")
+    if not timed:
+        return {"max_abs_err": err, "rows_copied": copied}
+    n = len(calls)
+    ms = graph_ms(torch, lambda: [dbs_copy(pool, s, d, m)
+                                  for s, d, m in calls], n)
+    plain_ms = graph_ms(torch, lambda: [dbs_copy_ref(plain, s, d, m)
+                                        for s, d, m in calls], n)
+    lib = graph_ms(torch, lambda: [plain.index_copy_(0, i, v)
+                                   for i, v in lib_in], n)
+    del plain, lib_in
+    mean_b = sum(dbs_copy_bytes(c, page, d, 4) for c in copied) / n
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
+            "bytes_per_call": mean_b, "rows_copied": copied}
+
+
+def phase_copy_kernel(torch, args, dev):
+    """``dbs_copy``'s parity at the block device's width (pool (E+1, 32,
+    4096) f32, 512 KiB rows) on CoW batches from the port's own
+    ``write_pages`` (``cow_src``, ``dst``, ``cow_src >= 0``): live CoW
+    lanes, hole and in-place lanes masked with their dst, masked lanes with
+    dst -1, and a live copy into extent 0. These batches copy far more rows
+    than the block device's own path does, so they are not timed: phase 8
+    times the kernel on calls kept from the ``copy`` column."""
+    import numpy as np
+    from repro_torch.core import dbs
+    rng = np.random.default_rng(SEED + 5)
+    n_e = args.n_extents
+    batches = parity_batches(
+        torch, dbs, lambda ops, *_: (ops.cow_src, ops.dst,
+                                     ops.cow_src >= 0),
+        dev, n_e, args.max_pages, rng, hold_extent0=True)
+    calls = [b[:3] for b in batches]
+    del batches
+    into0 = sum(int(((d == 0) & m).sum()) for _, d, m in calls)
+    masked_null = sum(int(((d < 0) & ~m).sum()) for _, d, m in calls)
+    if not into0 or not masked_null:
+        raise AssertionError("the copy batches hold no live copy into "
+                             "extent 0 beside masked dst -1 lanes")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    pool = torch.rand((n_e + 1, PAGE_BLOCKS, BLOCK), generator=gen,
+                      device=dev)
+    got = copy_parity(torch, pool, calls, timed=False)
+    emit(phase="kernel_parity", kernel="dbs_copy", width="block device",
+         inputs="crafted write_pages batches", pool_shape=list(pool.shape),
+         lanes=BATCH, batches=len(calls), rows_copied=got["rows_copied"],
+         live_copies_into_extent0=into0, masked_null_lanes=masked_null,
+         max_abs_err=got["max_abs_err"], equal=True)
+    del pool
+    torch.cuda.empty_cache()
+    return got["max_abs_err"]
+
+
+def phase_copy_kernel_main(torch, mgr, calls):
+    """Parity and timing of ``dbs_copy`` on the (src, dst, mask) calls kept
+    from the ``copy`` column's own run, over replica 0's pool: the load the
+    block device really gives the kernel (most write steps copy no row)."""
+    if not calls:
+        raise AssertionError("no dbs_copy inputs were kept on the block "
+                             "device")
+    pool0 = mgr.engine.backend.replicas[0].pool
+    pool = pool0.view(pool0.shape[0], PAGE_BLOCKS, -1)
+    got = copy_parity(torch, pool, calls)
+    emit(phase="kernel_parity", kernel="dbs_copy", width="block device",
+         inputs="kept from the copy column", pool_shape=list(pool.shape),
+         lanes=BATCH, calls=len(calls), rows_copied=got["rows_copied"],
+         rows_per_call=sum(got["rows_copied"]) / len(calls), equal=True)
+    return {"name": "dbs_copy", "route": "cuda", "source": COPY_SRC,
+            "replaces": "src/repro/kernels/dbs/copy_kernel.py:25",
+            "max_abs_err": got["max_abs_err"], "ms": got["ms"],
+            "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
+            "bound_by": "bytes", "library_ms": got["library_ms"],
+            "library_call": "index_copy_ of the live lanes' source rows, "
+                            "gathered beforehand",
+            "bytes_per_call": got["bytes_per_call"],
+            "rows_per_call": sum(got["rows_copied"]) / len(calls)}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the read kernel on the main path's own inputs
 # ---------------------------------------------------------------------------
 def phase_read_kernel(torch, mgr, reads):
     """Parity and timing of dbs_rw_read on the (ext, block) batches kept
@@ -285,7 +450,7 @@ def phase_read_kernel(torch, mgr, reads):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full size
+# phases 5 and 8: the block device's trace, on any backend and kernel
 # ---------------------------------------------------------------------------
 class Shadow:
     """Host shadow of every written 4 KiB block (holes read as zeros)."""
@@ -317,27 +482,62 @@ class Shadow:
             del self.blocks[key]
 
 
-def phase_main(torch, args, dev, smi):
+def count_syncs(torch, fn) -> int:
+    """Run ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    count the synchronising CUDA calls it made (device-to-host copies,
+    ``.tolist()``/``.item()``, pageable host-to-device copies, stream
+    synchronisations), one warning each."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
+               n_ops=N_OPS, max_ops=None):
+    """The block device's trace through ``VolumeManager(backend, kernel)``
+    at the main path's geometry. ``n_ops`` scales the trace (the random
+    phases, the sequential spans and the hole reads); ``max_ops`` stops it
+    early (after a settle of the reads so far). Every read is checked, the
+    replicas must agree, and the kernels of the path must have launched."""
     import numpy as np
     from repro_torch.core import slots
     from repro_torch.core.blockdev import VolumeManager
-    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
     from repro_torch.core import backends
     from repro_torch.kernels.dbs import ops
     rng = np.random.default_rng(SEED + 1)
     torch.cuda.reset_peak_memory_stats()
-    mgr = VolumeManager(
-        backend="fused", device=dev, kernel="cuda", n_replicas=REPLICAS,
-        payload_elems=BLOCK, page_blocks=PAGE_BLOCKS,
-        max_pages=args.max_pages, n_extents=args.n_extents, max_volumes=16,
-        batch=BATCH, n_slots=256, n_queues=4)
-    # count the fused steps by kind, and keep the read kernel's inputs of
-    # every READ_SAMPLE_EVERY-th step for phase 5
+    config = dict(backend=backend, kernel=kernel, n_replicas=REPLICAS,
+                  payload_elems=BLOCK, page_blocks=PAGE_BLOCKS,
+                  max_pages=args.max_pages, n_extents=args.n_extents,
+                  max_volumes=16, batch=BATCH, n_slots=256, n_queues=4)
+    mgr = VolumeManager(device=dev, **config)
+    # count pumps that did work, the fused steps by kind and the copy
+    # kernel's live lanes (summed on the device); keep the read kernel's
+    # inputs of every READ_SAMPLE_EVERY-th step for phase 6 and the copy
+    # kernel's of every COPY_SAMPLE_EVERY-th call for phase 8
     steps = {"write": 0, "read_only": 0}
-    reads = []
+    pumps = [0]
+    reads, copies = [], []
+    copy_calls = [0]
+    copied = [torch.zeros((), dtype=torch.int64, device=dev)]
+    impl = mgr.engine.impl
     inner = {"fused_step": backends.fused_step,
              "fused_step_read": backends.fused_step_read,
-             "dbs_rw_read": ops.dbs_rw_read}
+             "dbs_rw_read": ops.dbs_rw_read, "dbs_copy": ops.dbs_copy,
+             "pump": impl.pump}
+
+    def pump():
+        got = inner["pump"]()
+        pumps[0] += got > 0
+        return got
 
     def write_step(*a, **k):
         steps["write"] += 1
@@ -352,8 +552,16 @@ def phase_main(torch, args, dev, smi):
                 and len(reads) < READ_SAMPLES):
             reads.append((ext.clone(), block.clone()))
         return inner["dbs_rw_read"](pool, ext, block)
+
+    def copy(pool, src, dst, mask, **k):
+        copied[0] += mask.sum()
+        if copy_calls[0] % COPY_SAMPLE_EVERY == 0:
+            copies.append((src.clone(), dst.clone(), mask.clone()))
+        copy_calls[0] += 1
+        return inner["dbs_copy"](pool, src, dst, mask, **k)
+    impl.pump = pump
     backends.fused_step, backends.fused_step_read = write_step, read_step
-    ops.dbs_rw_read = read_kernel
+    ops.dbs_rw_read, ops.dbs_copy = read_kernel, copy
     shadow = Shadow()
     cap = mgr.capacity
     n_blocks = cap // BLOCK
@@ -393,8 +601,13 @@ def phase_main(torch, args, dev, smi):
         stats["reads_checked"] += len(checks)
         checks.clear()
 
+    class Enough(Exception):
+        """``max_ops`` reached: the trace stops here."""
+
     def random_io(vols, n_ops, hot=None):
         for _ in range(n_ops):
+            if max_ops is not None and stats["ops"] >= max_ops:
+                raise Enough
             vol = vols[rng.integers(len(vols))]
             r = rng.random()
             if hot and rng.random() < 0.7:
@@ -412,58 +625,87 @@ def phase_main(torch, args, dev, smi):
             else:
                 read(vol, ab * BLOCK, BLOCK)
 
-    n = N_OPS
-    rw_kernel.reset_counts()
+    n = n_ops
+    for mod in (rw_kernel, copy_kernel):
+        mod.reset_counts()
     t0 = time.perf_counter()
     v0 = mgr.create()
     hot = []
-    random_io([v0], n // 2, hot)                     # 4 KiB random I/O
-    page_bytes = mgr.page_bytes
-    for _ in range(128):                             # 128 KiB sequential
-        p = int(rng.integers(args.max_pages - 4))
-        for k in range(4):
-            write(v0, (p + k) * page_bytes, rand_bytes(page_bytes))
-        read(v0, p * page_bytes, 4 * page_bytes)
-    settle()
-    v0.snapshot()
-    random_io([v0], n // 6, hot)                     # CoW overwrites
-    clone = v0.clone()
-    off_clock(shadow.clone, v0.vid, clone.vid)
-    random_io([v0, clone], n // 6, hot)              # the clone diverges
-    settle()
-    for vol in (v0, clone):                          # discard: TRIM + edges
-        for _ in range(4):
+    try:
+        random_io([v0], n // 2, hot)                 # 4 KiB random I/O
+        page_bytes = mgr.page_bytes
+        for _ in range(max(1, 128 * n // N_OPS)):    # 128 KiB sequential
             p = int(rng.integers(args.max_pages - 4))
-            off = p * page_bytes + int(rng.integers(1, page_bytes))
-            nb = 2 * page_bytes + int(rng.integers(1, page_bytes))
-            vol.discard(off, nb)
-            off_clock(shadow.write, vol.vid, off, bytes(nb))
-            stats["ops"] += 1
-            read(vol, off - 100, nb + 200)
-    settle()
-    for vol in (v0, clone):                          # every written block
-        for ab in off_clock(lambda: [ab for (vid, ab) in shadow.blocks
-                                     if vid == vol.vid]):
-            read(vol, ab * BLOCK, BLOCK)
-    for _ in range(256):                             # and some holes
-        read(v0, int(rng.integers(n_blocks)) * BLOCK, BLOCK)
-    settle()
-    clone.delete()
-    off_clock(shadow.drop, clone.vid)
-    random_io([v0], n // 6, hot)
+            for k in range(4):
+                write(v0, (p + k) * page_bytes, rand_bytes(page_bytes))
+            read(v0, p * page_bytes, 4 * page_bytes)
+        settle()
+        v0.snapshot()
+        random_io([v0], n // 6, hot)                 # CoW overwrites
+        clone = v0.clone()
+        off_clock(shadow.clone, v0.vid, clone.vid)
+        random_io([v0, clone], n // 6, hot)          # the clone diverges
+        settle()
+        for vol in (v0, clone):                      # discard: TRIM + edges
+            for _ in range(4):
+                p = int(rng.integers(args.max_pages - 4))
+                off = p * page_bytes + int(rng.integers(1, page_bytes))
+                nb = 2 * page_bytes + int(rng.integers(1, page_bytes))
+                vol.discard(off, nb)
+                off_clock(shadow.write, vol.vid, off, bytes(nb))
+                stats["ops"] += 1
+                read(vol, off - 100, nb + 200)
+        settle()
+        for vol in (v0, clone):                      # every written block
+            for ab in off_clock(lambda: [ab for (vid, ab) in shadow.blocks
+                                         if vid == vol.vid]):
+                read(vol, ab * BLOCK, BLOCK)
+        for _ in range(max(8, 256 * n // N_OPS)):    # and some holes
+            read(v0, int(rng.integers(n_blocks)) * BLOCK, BLOCK)
+        settle()
+        clone.delete()
+        off_clock(shadow.drop, clone.vid)
+        random_io([v0], n // 6, hot)
+    except Enough:
+        pass
     settle()
     mgr.flush()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(rw_kernel.LAUNCHES)
-    plain = dict(rw_kernel.PLAIN_CALLS)
+    launches = {**rw_kernel.LAUNCHES, **copy_kernel.LAUNCHES}
+    plain = {**rw_kernel.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+    lanes_copied = int(copied[0])
+    work_pumps = pumps[0]
+    n_steps = steps["write"] + steps["read_only"]
+
+    # host synchronisations per pump, in a window after the trace: 64
+    # aligned 4 KiB writes and 64 reads of them
+    def window():
+        for i in range(BATCH):
+            v0.pwrite((i * 97 % n_blocks) * BLOCK, bytes([i]) * BLOCK)
+        futs = [v0.pread((i * 97 % n_blocks) * BLOCK, BLOCK)
+                for i in range(BATCH)]
+        mgr.flush()
+        if [f.result() for f in futs] != [bytes([i]) * BLOCK
+                                          for i in range(BATCH)]:
+            raise AssertionError("the sync window read wrong bytes")
+    pumps[0] = 0
+    syncs = count_syncs(torch, window)
+    window_pumps = pumps[0]
+    impl.pump = inner["pump"]
     backends.fused_step = inner["fused_step"]
     backends.fused_step_read = inner["fused_step_read"]
-    ops.dbs_rw_read = inner["dbs_rw_read"]
-    n_steps = steps["write"] + steps["read_only"]
-    if launches["dbs_rw_read"] != n_steps:
+    ops.dbs_rw_read, ops.dbs_copy = inner["dbs_rw_read"], inner["dbs_copy"]
+    need = {("fused", "cuda"): ("dbs_rw_write", "dbs_rw_read"),
+            ("fused", "copy"): ("dbs_copy",)}.get((backend, kernel), ())
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    if kernel == "cuda" and launches["dbs_rw_read"] != n_steps:
         raise AssertionError(f"{launches['dbs_rw_read']} read launches "
                              f"over {n_steps} fused steps")
+    if kernel == "copy" and lanes_copied <= 0:
+        raise AssertionError("the copy path copied no CoW lane")
     group = mgr.engine.backend
     if not group.consistent():
         raise AssertionError("replicas disagree on the metadata revision")
@@ -476,33 +718,37 @@ def phase_main(torch, args, dev, smi):
             part = rows[i:i + 1024]
             if not torch.equal(r.pool[part], group.replicas[0].pool[part]):
                 raise AssertionError("replica pools differ on mapped rows")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card: {plain}")
     if int(slots.n_active(mgr.engine.frontend.table)) != 0:
         raise AssertionError("slots leaked")
-    emit(phase="main_path", config=dict(
-        backend="fused", kernel="cuda", n_replicas=REPLICAS,
-        payload_elems=BLOCK, page_blocks=PAGE_BLOCKS,
-        max_pages=args.max_pages, n_extents=args.n_extents, max_volumes=16,
-        batch=BATCH, n_slots=256, n_queues=4),
-        volume_bytes=cap, ops=stats["ops"], rmw_writes=stats["rmw_writes"],
+    out = dict(
+        config=config, volume_bytes=cap, ops=stats["ops"],
+        rmw_writes=stats["rmw_writes"],
         reads_checked=stats["reads_checked"], bytes=stats["bytes"],
         seconds=seconds, harness_seconds=harness[0],
         ops_per_s=stats["ops"] / seconds,
         mib_per_s=stats["bytes"] / seconds / 2 ** 20,
         engine_ops_per_s=stats["ops"] / (seconds - harness[0]),
-        write_steps=steps["write"], read_only_steps=steps["read_only"],
-        ops_per_step=stats["ops"] / n_steps, launches=launches,
-        plain_calls=plain, mapped_rows=int(rows.numel()),
-        max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-        card=smi)
-    return mgr, launches, n_steps, reads
+        pumps=work_pumps, ops_per_pump=stats["ops"] / work_pumps,
+        host_syncs_per_pump=syncs / window_pumps,
+        sync_window=dict(ops=2 * BATCH, pumps=window_pumps, syncs=syncs),
+        launches=launches, plain_calls=plain,
+        mapped_rows=int(rows.numel()),
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev), card=smi)
+    if backend == "fused":
+        out.update(write_steps=steps["write"],
+                   read_only_steps=steps["read_only"],
+                   ops_per_step=stats["ops"] / n_steps)
+    if kernel == "copy":
+        out.update(cow_lanes_copied=lanes_copied)
+    emit(phase="main_path" if n_ops == N_OPS else "block_device", **out)
+    return mgr, launches, max(n_steps, 1), {"dbs_rw_read": reads,
+                                            "dbs_copy": copies}, out
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the fused step never waits on the host
+# phase 7: the fused step never waits on the host
 # ---------------------------------------------------------------------------
 def phase_no_sync(torch, mgr):
     from repro_torch.core import backends
@@ -533,13 +779,14 @@ def phase_no_sync(torch, mgr):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: zero-copy serving at gemma2-2b's full width
+# phase 9: zero-copy serving at gemma2-2b's full width
 # ---------------------------------------------------------------------------
-def _serve_engine(torch, cfg, params, dev, record_logits=False):
+def _serve_engine(torch, cfg, params, dev, record_logits=False,
+                  kv_backend="fused"):
     from repro_torch.configs.base import ExecutionPlan
     from repro_torch.serving.engine import ServeEngine
     return ServeEngine(cfg, params, n_slots=8, max_len=2048, n_queues=2,
-                       kv_backend="fused", kv_replicas=2, kernel="cuda",
+                       kv_backend=kv_backend, kv_replicas=2, kernel="cuda",
                        plan=ExecutionPlan(attn_impl="cuda",
                                           compute_dtype="float32"),
                        record_logits=record_logits, device=dev)
@@ -570,7 +817,7 @@ def phase_serve(torch, dev, smi):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
 
     # instrumentation: time the prefill, the write pumps and the decode
-    # program; count fused steps; keep kernel inputs for phase 8
+    # program; count fused steps; keep kernel inputs for phase 10
     clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
     counts = {"fused_steps": 0, "decode_steps": 0}
     kept = {"paged": [], "flash": []}
@@ -683,14 +930,15 @@ def phase_serve(torch, dev, smi):
         launches_with_fork_check=launches, plain_calls=plain, dbs_stats=st,
         fork=fork, max_memory_allocated=peak,
         memory_allocated_before=held_before, card=smi)
-    return eng, kept, traffic_launches, traffic_counts
+    return eng, kept, traffic_launches, traffic_counts, (cfg, params,
+                                                         prompts)
 
 
 def phase_fork_check(torch, cfg, params, dev, eng, prompt):
     """Fork a session after its 4th decode step (both sides diverge by CoW
-    of the shared frontier page); a second engine decodes the same two
-    streams independently. Tokens must be equal; returns the largest logit
-    difference (parent, child) for the record."""
+    of the shared frontier page); a second engine of the same backend
+    decodes the same two streams independently. Tokens must be equal;
+    returns the largest logit difference (parent, child) for the record."""
     import numpy as np
     from repro_torch.serving.engine import GenRequest
     eng.record_logits = True
@@ -704,7 +952,8 @@ def phase_fork_check(torch, cfg, params, dev, eng, prompt):
         raise AssertionError("fork found no free slot or volume")
     eng.run(max_steps=4 * SERVE_NEW)
     eng.record_logits = False
-    ref = _serve_engine(torch, cfg, params, dev, record_logits=True)
+    ref = _serve_engine(torch, cfg, params, dev, record_logits=True,
+                        kv_backend=eng.kv_backend)
     for rid in (0, 1):
         ref.submit(GenRequest(req_id=rid, prompt=prompt.copy(),
                               max_new=SERVE_NEW))
@@ -730,7 +979,7 @@ def phase_fork_check(torch, cfg, params, dev, eng, prompt):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the attention kernels on the serve path's kept inputs
+# phase 10: the attention kernels on the serve path's kept inputs
 # ---------------------------------------------------------------------------
 def _paged_live_pages(torch, table, lengths, page, window) -> int:
     """Pages the kernel reads: started below the length, not a hole, and
@@ -859,7 +1108,7 @@ def phase_flash_kernel(torch, kept):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the decode program never waits on the host
+# phase 11: the decode program never waits on the host
 # ---------------------------------------------------------------------------
 def phase_no_sync_serve(torch, eng):
     import numpy as np
@@ -891,7 +1140,7 @@ def phase_no_sync_serve(torch, eng):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: where a serving step's time goes
+# phase 12: where a serving step's time goes
 # ---------------------------------------------------------------------------
 def _profiled(torch, name: str, fn, smi) -> None:
     """Run ``fn`` once under ``torch.profiler`` and emit its wall time, the
@@ -972,6 +1221,265 @@ def phase_profile_serve(torch, eng, smi):
         raise AssertionError(f"the profiled requests did not drain: {st}")
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: the copy-based serving baseline at the same width
+# ---------------------------------------------------------------------------
+def _model_pools(eng):
+    """The copy-based baseline's model-owned KV pools (K and V of each
+    global layer)."""
+    return [c[key] for c in eng.caches if c is not None and "pool_k" in c
+            for key in ("pool_k", "pool_v")]
+
+
+def phase_serve_host(torch, dev, smi, cfg, params, prompts):
+    """``ServeEngine(kv_backend="host")`` with the zero-copy path's settings
+    and its 16 requests: the host backend allocates pages, model-owned
+    pools hold the K/V, prefill runs the flash kernel and decode the plain
+    paged gather (as the reference's baseline does). Then the fork check
+    on this backend, the phase that launches ``dbs_copy`` on the serving
+    path (one call per pool, K and V of 13 global layers, per CoW'd
+    batch); its copy inputs are kept for the kernel's parity."""
+    from repro_torch.core import dbs
+    from repro_torch.kernels.dbs import copy_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as serving
+    from repro_torch.serving.engine import GenRequest
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _serve_engine(torch, cfg, params, dev, kv_backend="host")
+    clock = {"prefill": 0.0, "alloc": 0.0, "decode": 0.0}
+    counts = {"alloc_calls": 0, "decode_steps": 0}
+    kept = []
+    inner = {"prefill": eng._prefill_one_host, "alloc": eng._alloc_pages,
+             "decode": M.decode_step, "copy": serving.dbs_copy_pool}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def alloc(*a, **k):
+        counts["alloc_calls"] += 1
+        return inner["alloc"](*a, **k)
+
+    def decode(*a, **k):
+        counts["decode_steps"] += 1
+        return inner["decode"](*a, **k)
+
+    def copy(pool, src, dst, mask, **k):
+        if len(kept) < len(_model_pools(eng)):     # one CoW'd batch
+            kept.append((pool, src.clone(), dst.clone(), mask.clone()))
+        return inner["copy"](pool, src, dst, mask, **k)
+
+    eng._prefill_one_host = timed("prefill", inner["prefill"])
+    eng._alloc_pages = timed("alloc", alloc)
+    M.decode_step = timed("decode", decode)
+    for mod in (copy_kernel, pk, fk):
+        mod.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for rid, pr in enumerate(prompts):
+            eng.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
+        outs = eng.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        traffic_counts, traffic_clock = dict(counts), dict(clock)
+        traffic = {**copy_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+        st = dbs.stats(eng.state)
+        for mod in (copy_kernel, pk, fk):
+            mod.reset_counts()
+        serving.dbs_copy_pool = copy
+        fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
+        fork_launches = {**copy_kernel.LAUNCHES, **pk.LAUNCHES,
+                         **fk.LAUNCHES}
+    finally:
+        M.decode_step = inner["decode"]
+        serving.dbs_copy_pool = inner["copy"]
+        eng._prefill_one_host = inner["prefill"]
+        eng._alloc_pages = inner["alloc"]
+    plain = {**copy_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS, **fk.PLAIN_CALLS}
+    peak = torch.cuda.max_memory_allocated(dev)
+    bad = [rid for rid in range(SERVE_REQUESTS)
+           if len(outs.get(rid, [])) != SERVE_NEW]
+    if bad:
+        raise AssertionError(f"requests {bad} did not end with "
+                             f"{SERVE_NEW} tokens")
+    if st["volumes"] or st["extents_used"]:
+        raise AssertionError(f"volumes or extents leaked: {st}")
+    # where the baseline's decode step goes: eight requests fill the
+    # slots; after admission and prefill, PROFILE_STEPS steps profiled
+    for i in range(eng.n_slots):
+        eng.submit(GenRequest(req_id=4000 + i, prompt=prompts[i],
+                              max_new=2 + PROFILE_STEPS))
+    eng.step()
+    _profiled(torch, f"host baseline decode x{PROFILE_STEPS}",
+              lambda: [eng.step() for _ in range(PROFILE_STEPS)], smi)
+    eng.run(max_steps=4)
+    st_fork = dbs.stats(eng.state)
+    if st_fork["volumes"] or st_fork["extents_used"]:
+        raise AssertionError(f"the fork check or the profile leaked: "
+                             f"{st_fork}")
+    if traffic["flash_attention"] <= 0 or traffic["paged_attention"]:
+        raise AssertionError(f"the baseline's prefill must run the flash "
+                             f"kernel and its decode the plain gather: "
+                             f"{traffic}")
+    want = len(_model_pools(eng))
+    if fork_launches["dbs_copy"] <= 0 or fork_launches["dbs_copy"] % want:
+        raise AssertionError(f"the fork's CoW launched dbs_copy "
+                             f"{fork_launches['dbs_copy']} times, not a "
+                             f"multiple of {want}")
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the card: {plain}")
+    gen_tokens = SERVE_REQUESTS * SERVE_NEW
+    emit(phase="serve_path", model=SERVE_MODEL, kv_backend="host", config=dict(
+        kv_backend="host", n_slots=8, max_len=2048, n_queues=2,
+        kernel="cuda", attn_impl="cuda", dtype="float32",
+        page_blocks=cfg.page_blocks, n_extents=eng.volumes.engine.cfg.n_extents,
+        pool_shape=list(_model_pools(eng)[0].shape),
+        pools=len(_model_pools(eng))),
+        requests=SERVE_REQUESTS, prompt_tokens=int(sum(len(p)
+                                                       for p in prompts)),
+        generated_tokens=gen_tokens, run_seconds=run_s,
+        prefill_seconds=traffic_clock["prefill"],
+        alloc_seconds=traffic_clock["alloc"],
+        decode_seconds=traffic_clock["decode"],
+        decode_steps=traffic_counts["decode_steps"],
+        alloc_calls=traffic_counts["alloc_calls"],
+        decode_tokens_per_s=gen_tokens / traffic_clock["decode"],
+        tokens_per_s=gen_tokens / run_s, launches=traffic,
+        fork_launches=fork_launches, dbs_copy_launches=(
+            traffic["dbs_copy"] + fork_launches["dbs_copy"]),
+        plain_calls=plain, dbs_stats=st, fork=fork,
+        max_memory_allocated=peak, card=smi)
+    return eng, kept, traffic["dbs_copy"], fork_launches["dbs_copy"]
+
+
+def phase_copy_kernel_serve(torch, kept):
+    """``dbs_copy`` at the serving baseline's width (pool (1032, 32, 4 *
+    256) f32, 128 KiB rows) on the copies kept from its fork check, over a
+    copy of the first kept pool."""
+    if not kept:
+        raise AssertionError("no dbs_copy inputs were kept on the serving "
+                             "baseline")
+    pool0 = kept[0][0]
+    e, page = pool0.shape[:2]
+    pool = pool0.reshape(e, page, -1).clone()
+    calls = [(s.to(torch.int32), d.to(torch.int32), m.bool())
+             for _p, s, d, m in kept]
+    got = copy_parity(torch, pool, calls)
+    emit(phase="kernel_parity", kernel="dbs_copy", width="serving baseline",
+         pool_shape=list(pool.shape), calls=len(calls),
+         lanes=int(calls[0][0].numel()), rows_copied=got["rows_copied"],
+         equal=True)
+    del pool
+    return got
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the copy-based baseline against zero-copy
+# ---------------------------------------------------------------------------
+def phase_host_vs_zero(torch, dev, cfg, params, prompts):
+    """Four requests, eight new tokens, on both backends with the logits
+    recorded: logits within HOST_TOL (the zero-copy decode attends through
+    the paged kernel over the engine pool, the baseline through the plain
+    gather over its own pools: the sums run in other orders) and tokens
+    equal. A step whose zero-copy top-2 logit margin is under TIE_MARGIN
+    may pick either token; a request's later steps are then not compared
+    (none is expected; the count is printed)."""
+    import numpy as np
+    from repro_torch.serving.engine import GenRequest
+    outs = {}
+    for kv in ("fused", "host"):
+        eng = _serve_engine(torch, cfg, params, dev, record_logits=True,
+                            kv_backend=kv)
+        for rid in range(4):
+            eng.submit(GenRequest(req_id=rid, prompt=prompts[rid],
+                                  max_new=8))
+        eng.run(max_steps=4 * 8)
+        outs[kv] = {rid: (g.out_tokens, np.stack(g.logit_trace))
+                    for rid, g in eng.live.items()}
+        if kv == "fused":
+            eng.volumes.close()
+        del eng
+        torch.cuda.empty_cache()
+    worst, margin, ties, compared = 0.0, float("inf"), 0, 0
+    for rid in range(4):
+        (zt, zl), (ht, hl) = outs["fused"][rid], outs["host"][rid]
+        for t in range(len(zt)):
+            top = np.sort(zl[t])[-2:]
+            margin = min(margin, float(top[1] - top[0]))
+            worst = max(worst, float(np.abs(hl[t] - zl[t]).max()))
+            np.testing.assert_allclose(hl[t], zl[t], **HOST_TOL)
+            compared += 1
+            if zt[t] != ht[t]:
+                if top[1] - top[0] >= TIE_MARGIN:
+                    raise AssertionError(
+                        f"request {rid} step {t}: tokens {ht[t]} (host) "
+                        f"and {zt[t]} (zero-copy) differ")
+                ties += 1
+                break
+    emit(phase="host_vs_zero_copy", requests=4, new_tokens=8,
+         steps_compared=compared, tolerance=HOST_TOL,
+         max_abs_logit_diff=worst, min_top2_margin=margin,
+         near_ties=ties, tokens_equal=ties == 0)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: ServePool, two zero-copy shards
+# ---------------------------------------------------------------------------
+def phase_serve_pool(torch, dev, smi, cfg, params, prompts):
+    """Two zero-copy ``ServeEngine`` shards (4 slots, max_len 512 each: a
+    cut of the serve path's depth) behind ``ServePool``: five requests
+    hashed across them, a fork after three steps that stays on its
+    parent's shard; everything completes, every shard leak-free and its
+    replicas consistent."""
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.core import dbs
+    from repro_torch.serving.engine import GenRequest, ServePool
+    pool = ServePool(cfg, params, n_shards=2, n_slots=4, max_len=512,
+                     n_queues=2, kv_backend="fused", kv_replicas=2,
+                     kernel="cuda", device=dev,
+                     plan=ExecutionPlan(attn_impl="cuda",
+                                        compute_dtype="float32"))
+    t0 = time.perf_counter()
+    for rid in range(5):
+        pool.submit(GenRequest(req_id=rid, prompt=prompts[rid][:200],
+                               max_new=6))
+    for _ in range(3):
+        pool.step()
+    child = pool.fork(0, 10, max_new=2)
+    if child is None or pool.shard_of(10) != pool.shard_of(0):
+        raise AssertionError("the pool's fork did not stay on its parent's "
+                             "shard")
+    outs = pool.run(max_steps=40)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if set(outs) != set(range(5)) | {10} or any(
+            len(outs[r]) != 6 for r in range(5)) or not all(
+            g.done for sh in pool.shards for g in sh.live.values()):
+        raise AssertionError(f"the pool's requests did not complete: "
+                             f"{ {r: len(v) for r, v in outs.items()} }")
+    stats = [dbs.stats(sh.state) for sh in pool.shards]
+    if any(st["volumes"] or st["extents_used"] for st in stats):
+        raise AssertionError(f"a shard leaked: {stats}")
+    for sh in pool.shards:
+        sh.volumes.flush()
+        if not sh.volumes.engine.backend.consistent():
+            raise AssertionError("a shard's KV replicas disagree")
+    emit(phase="serve_pool", shards=2, requests=5, forks=1,
+         shard_of_fork=pool.shard_of(10),
+         per_shard_requests=[len(sh.live) for sh in pool.shards],
+         seconds=seconds, dbs_stats=stats, card=smi)
+    for sh in pool.shards:
+        sh.volumes.close()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -1010,32 +1518,86 @@ def main() -> int:
                     if "registers" in ln or "spill" in ln]
                 for n, log in _build.build_log.items()})
 
+    def free():
+        gc.collect()         # the managers' reference cycles hold pools
+        torch.cuda.empty_cache()
+
     write_k = phase_write_kernel(torch, args, dev)
-    mgr, launches, n_steps, reads = phase_main(torch, args, dev, smi)
-    read_k = phase_read_kernel(torch, mgr, reads)
-    del reads
+    copy_crafted_err = phase_copy_kernel(torch, args, dev)
+    mgr, launches, n_steps, kept, _ = phase_main(torch, args, dev, smi)
+    read_k = phase_read_kernel(torch, mgr, kept["dbs_rw_read"])
+    del kept
     phase_no_sync(torch, mgr)
     mgr.close()
     del mgr
-    gc.collect()             # the manager's reference cycles hold its pools
-    torch.cuda.empty_cache()
+    free()
     for k in (write_k, read_k):
         k["launches"] = launches[k["name"]]
         k["launches_per_step"] = launches[k["name"]] / n_steps
+    # the ladder's columns on one cut trace, once each: the fused step on
+    # the hand-written kernels, the fused step on the copy entry (whose
+    # kept dbs_copy calls time the kernel), the unfused host-dispatched
+    # engine; then the per-request loop over the first few hundred ops
+    ladder = {}
+    for backend, kernel in LADDER:
+        mgr, got, steps, kept, out = phase_main(
+            torch, args, dev, smi, backend=backend, kernel=kernel,
+            n_ops=LADDER_OPS)
+        ladder[f"{backend}/{kernel}"] = out["ops_per_s"]
+        if kernel == "copy":
+            copy_k = phase_copy_kernel_main(torch, mgr, kept["dbs_copy"])
+            copy_k.update(launches=got["dbs_copy"],
+                          launches_per_step=got["dbs_copy"] / steps,
+                          crafted_max_abs_err=copy_crafted_err)
+        del kept
+        mgr.close()
+        del mgr
+        free()
+    mgr, *_, out = phase_main(torch, args, dev, smi, backend="loop",
+                              kernel="torch", n_ops=LOOP_OPS,
+                              max_ops=LOOP_MAX_OPS)
+    ladder["loop/torch"] = out["ops_per_s"]
+    mgr.close()
+    del mgr
+    free()
+    emit(phase="ladder", ops=LADDER_OPS, ops_per_s=ladder, card=smi)
 
-    eng, kept, serve_launches, serve_counts = phase_serve(torch, dev, smi)
+    eng, kept, serve_launches, serve_counts, (cfg, params, prompts) = \
+        phase_serve(torch, dev, smi)
     paged_k = phase_paged_kernel(torch, eng, kept)
     flash_k = phase_flash_kernel(torch, kept)
     del kept
     phase_no_sync_serve(torch, eng)
     phase_profile_serve(torch, eng, smi)
+    eng.volumes.close()
+    del eng
+    free()
     for k in (paged_k, flash_k):
         k["launches"] = serve_launches[k["name"]]
     paged_k["launches_per_decode_step"] = (serve_launches["paged_attention"]
                                            / serve_counts["decode_steps"])
     write_k["launches_serve_path"] = serve_launches["dbs_rw_write"]
     read_k["launches_serve_path"] = serve_launches["dbs_rw_read"]
-    print(json.dumps({"kernels": [write_k, read_k, paged_k, flash_k]}))
+
+    eng, kept, host_traffic, host_fork = phase_serve_host(
+        torch, dev, smi, cfg, params, prompts)
+    serve_copy = phase_copy_kernel_serve(torch, kept)
+    del kept
+    eng.volumes.close()
+    del eng
+    free()
+    copy_k.update(launches_serve_host_traffic=host_traffic,
+                  launches_serve_host_fork=host_fork,
+                  serve_width_ms=serve_copy["ms"],
+                  serve_width_plain_ms=serve_copy["plain_ms"],
+                  serve_width_bound_ms=serve_copy["bound_ms"],
+                  serve_width_library_ms=serve_copy["library_ms"],
+                  serve_width_max_abs_err=serve_copy["max_abs_err"],
+                  serve_width_bytes_per_call=serve_copy["bytes_per_call"])
+    phase_host_vs_zero(torch, dev, cfg, params, prompts)
+    phase_serve_pool(torch, dev, smi, cfg, params, prompts)
+    print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
+                                  flash_k]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,23 +1,35 @@
-"""The backend registry and the fused backend.
+"""The backend registry and the backends of the port.
 
-Port of the registry, ``_FrontendBackendBase`` and ``FusedBackend`` of
-``repro/core/backends.py``. A backend is a named factory ``cfg ->
-Backend``; ``Engine`` (core/engine.py) and ``VolumeManager``
-(core/blockdev.py) look the name up here. The backend protocol is
-``submit(req)``, ``pump()``, ``drain()``, ``control(kind, ...)``,
-``create_volume()``, ``depth()``, ``completed``, ``storage``, ``is_pool``
-and ``data_kinds``.
+Port of the registry and the backends of ``repro/core/backends.py``. A
+backend is a named factory ``cfg -> Backend``; ``Engine``
+(core/engine.py) and ``VolumeManager`` (core/blockdev.py) look the name up
+here. The backend protocol is ``submit(req)``, ``pump()``, ``drain()``,
+``control(kind, ...)``, ``create_volume()``, ``depth()``, ``completed``,
+``storage``, ``frontend``, ``is_pool`` and ``data_kinds``.
 
-Only ``fused`` is ported. The other names of the JAX registry raise a
-``ValueError`` naming the slice that brings them.
+| name    | class                 | submission path                        |
+| ------- | --------------------- | -------------------------------------- |
+| ``loop``  | ``HostDispatchBackend`` | one host dispatch per request        |
+| ``slots`` | ``HostDispatchBackend`` | batched slot admission, separate     |
+|           |                       | dispatches for writes, reads, retire   |
+| ``fused`` | ``FusedBackend``      | one fused step per pump                |
+| ``host``  | ``HostStateBackend``  | one request per pump on one state      |
+
+``host`` is the sequential oracle the byte-API tests compare engines
+against, and the control plane of the copy-based serving baseline
+(``alloc_pages`` returns the DBS ``WriteOps`` for an external data plane).
+The other names of the JAX registry raise a ``ValueError`` naming the
+slice that brings them.
 """
 from __future__ import annotations
 
+import collections
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import dbs
 from repro_torch.core.control import ControlDispatch
 from repro_torch.core.frontend import MultiQueueFrontend, Request
 from repro_torch.core.fused import fused_step, fused_step_read
@@ -25,10 +37,7 @@ from repro_torch.core.replication import ReplicaGroup
 from repro_torch.kernels.dbs.registry import resolve_kernel_name
 
 # backends of the JAX package that later slices of the port bring
-UNPORTED_BACKENDS = {"loop": "the host-dispatch slice",
-                     "slots": "the host-dispatch slice",
-                     "host": "the host-dispatch slice",
-                     "sharded": "the shards slice",
+UNPORTED_BACKENDS = {"sharded": "the shards slice",
                      "ring": "the ring slice",
                      "upstream": "the controller slice"}
 
@@ -156,6 +165,81 @@ class _FrontendBackendBase(ControlDispatch):
         raise NotImplementedError
 
 
+@register_backend("loop")
+@register_backend("slots")
+class HostDispatchBackend(_FrontendBackendBase):
+    """The unfused engine iteration: batched slot admission (``slots``) or
+    the per-request loop (``loop``), with separate host dispatches for
+    admission, writes, reads and completion — the ladder's ``+comm``/
+    ``+dbs`` columns and the ``+frontend`` loop baseline. Each read
+    dispatch makes one host copy of its results."""
+
+    def _lanes(self, reqs: List[Request]):
+        """The requests' (volume, page, block, mask) lanes padded to a
+        multiple of the admission batch, moved to the device in one
+        transfer."""
+        n, cap = len(reqs), self.cfg.batch
+        m = n + (-n) % cap
+        cols = np.zeros((3, m), np.int64)
+        cols[:, :n] = [[r.volume for r in reqs], [r.page for r in reqs],
+                       [r.block for r in reqs]]
+        vols, pages, blocks = torch.from_numpy(cols).to(self.device)
+        mask = torch.arange(m, device=self.device) < n
+        return vols, pages, blocks.to(torch.int32), mask
+
+    def _exec_write_batch(self, rs: List[Request]) -> None:
+        vols, pages, blocks, mask = self._lanes(rs)
+        pay = np.zeros((pages.shape[0],) + tuple(self.cfg.payload_shape),
+                       np.float32)
+        for i, r in enumerate(rs):
+            if r.payload is not None:
+                pay[i] = np.asarray(r.payload, np.float32).reshape(
+                    pay.shape[1:])
+        pay = torch.from_numpy(pay).to(self.device)
+        cap = self.cfg.batch
+        for i in range(0, pages.shape[0], cap):
+            s = slice(i, i + cap)
+            self.storage.write(vols[s], pages[s], blocks[s], pay[s],
+                               mask=mask[s])
+
+    def _exec_read_batch(self, rs: List[Request]) -> None:
+        vols, pages, blocks, _mask = self._lanes(rs)
+        cap = self.cfg.batch
+        for i in range(0, pages.shape[0], cap):
+            s = slice(i, i + cap)
+            # one host copy per dispatch, host indexing after
+            out, = fetch_to_host(self.storage.read(vols[s], pages[s],
+                                                   blocks[s]))
+            for j, r in enumerate(rs[i:i + cap]):
+                r.result = out[j]
+
+    def pump(self) -> int:
+        """One controller iteration: admit a batch, execute it against the
+        replicas (writes mirrored, reads round-robin), retire the slots.
+        Returns the number of completed requests."""
+        slot_ids, reqs = self.frontend.poll_batch()
+        if not reqs:
+            return 0
+        if self.cfg.comm == "loop":
+            for r in reqs:                 # one request at a time
+                if r.kind == "write":
+                    self._exec_write_batch([r])
+                else:
+                    self._exec_read_batch([r])
+        else:
+            writes = [r for r in reqs if r.kind == "write"]
+            reads = [r for r in reqs if r.kind == "read"]
+            if writes:
+                self._exec_write_batch(writes)
+            if reads:
+                self._exec_read_batch(reads)
+        done = self.frontend.complete(slot_ids)
+        for r in done:
+            r.status = 0
+        self.completed += len(done)
+        return len(done)
+
+
 @register_backend("fused")
 class FusedBackend(_FrontendBackendBase):
     """The single-step engine (core/fused.py): admission -> CoW writes ->
@@ -200,3 +284,119 @@ class FusedBackend(_FrontendBackendBase):
         self.frontend.ring.requeue_all(requeues)
         self.completed += done
         return done
+
+
+@register_backend("host")
+class HostStateBackend(ControlDispatch):
+    """ONE DBS state and payload pool, strictly sequential: one request per
+    pump, in submission order.
+
+    The reference oracle the byte-API tests compare engine backends
+    against, and the control plane of the copy-based serving baseline:
+    ``alloc_pages`` runs the DBS page allocation/CoW on this state and
+    returns the ``WriteOps`` (destination extents, CoW sources) for the
+    embedder's own pools (serving/engine.py, through
+    ``blockdev.VolumeManager``). ``null_storage`` holds no pool."""
+
+    is_pool = False
+    data_kinds = frozenset({"read", "write"})
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.device = torch.device(cfg.device)
+        self.frontend = None                 # no admission machinery at all
+        self.storage = None
+        self.state = dbs.make_state(cfg.n_extents, cfg.max_volumes,
+                                    cfg.max_pages, device=self.device)
+        self.pool = (None if cfg.null_storage else torch.zeros(
+            (cfg.n_extents + 1, cfg.page_blocks) + tuple(cfg.payload_shape),
+            dtype=torch.float32, device=self.device))
+        self.queue: collections.deque = collections.deque()
+        self.step = 0                        # pump tick (latency accounting)
+        self.completed = 0
+
+    def _i(self, xs) -> torch.Tensor:
+        return torch.tensor(xs, dtype=torch.int64, device=self.device)
+
+    def create_volume(self) -> int:
+        self.state, vid = dbs.create_volume(self.state)
+        return int(vid)
+
+    def submit(self, req: Request) -> None:
+        if req.kind == "compute":
+            raise ValueError("kind='compute' requests on the host backend "
+                             "land with the ring/compute slice of the port")
+        if req.kind not in self.data_kinds:
+            raise ValueError(
+                f"kind={req.kind!r} requests need backend='ring'; the host "
+                "oracle carries data ops only — use control()")
+        req.tick = self.step
+        self.queue.append(req)
+
+    def depth(self) -> int:
+        return len(self.queue)
+
+    def pump(self) -> int:
+        """Execute ONE queued request (strictly sequential: the oracle's
+        point is per-op submission-order semantics)."""
+        if not self.queue:
+            return 0
+        r = self.queue.popleft()
+        if r.kind == "write":
+            self.state, ops = dbs.write_pages(
+                self.state, r.volume, self._i([r.page]),
+                self._i([1 << r.block]),
+                torch.ones((1,), dtype=torch.bool, device=self.device))
+            if self.pool is not None:
+                pay = torch.from_numpy(np.asarray(
+                    r.payload, np.float32).reshape(
+                        (1,) + tuple(self.cfg.payload_shape)))
+                self.pool = dbs.apply_write_ops(
+                    self.pool, ops, pay.to(self.device),
+                    self._i([r.block]))
+        elif self.pool is not None:
+            ext = self.state.table[r.volume, r.page]
+            got = self.pool[ext.clamp(min=0), r.block]
+            r.result, = fetch_to_host(torch.where(ext >= 0, got, 0))
+        r.status = 0
+        r.latency = self.step - r.tick + 1
+        self.step += 1
+        self.completed += 1
+        return 1
+
+    def drain(self, max_iters: int = 1_000_000) -> int:
+        n = 0
+        for _ in range(max_iters):
+            if not self.pump():
+                break
+            n += 1
+        return n
+
+    def snapshot(self, volume: int) -> int:
+        self.state, sid = dbs.snapshot(self.state, volume)
+        return int(sid)
+
+    def clone(self, volume: int) -> int:
+        self.state, vid = dbs.clone(self.state, volume)
+        return int(vid)
+
+    def unmap(self, volume: int, pages) -> None:
+        ps = list(pages)
+        if ps:
+            self.state = dbs.unmap(self.state, volume, self._i(ps))
+
+    def delete_volume(self, volume: int) -> None:
+        self.state = dbs.delete_volume(self.state, volume)
+
+    # -- the external-data-plane hook (serving/engine.py) -------------------
+    def alloc_pages(self, vols, pages, mask=None, bits=None) -> dbs.WriteOps:
+        """Page allocation/CoW on this backend's state for an external data
+        plane: ``vols``/``pages`` (B,) device tensors (or a scalar volume),
+        ``bits`` the written blocks' bitmaps (block 0 by default, as in
+        the reference). Returns the ``WriteOps``; nothing is fetched."""
+        if bits is None:
+            bits = torch.ones(pages.shape, dtype=torch.int64,
+                              device=pages.device)
+        self.state, ops = dbs.write_pages(self.state, vols, pages, bits,
+                                          mask)
+        return ops

@@ -32,8 +32,10 @@ layer in one block and drives raw ``Request``s plus the device views
 byte API, which assumes the flat layout.
 
 The manager runs on ``device`` (default ``cuda``, with no CPU fallback).
-The journal, the spill tier and ``Volume.compute`` land with their
-slices.
+``backend="host"`` (with ``null_storage=True``: no pool) is the control
+plane of the copy-based serving baseline, which reads ``state`` and calls
+``alloc_pages``. The journal, the spill tier and ``Volume.compute`` land
+with their slices.
 """
 from __future__ import annotations
 
@@ -207,8 +209,12 @@ class VolumeManager:
         self._nq = max(1, n_queues)
         self._ns = max(1, n_shards)
         self._seq = itertools.count()
-        # the hot-path submit: the manager only mints valid data kinds
-        self._fast_submit = self.engine.frontend.submit
+        # the hot-path submit: the manager only mints valid data kinds, so
+        # aligned spans go straight to the backend's frontend (the host
+        # backend has none and queues them itself)
+        fe = self.engine.frontend
+        self._fast_submit = (fe.submit if fe is not None
+                             else self.engine.impl.submit)
         self.volumes: Dict[int, Volume] = {}
         # per-volume in-flight absolute-block sets for the hazard fence
         self._pending_w: Dict[int, set] = {}
@@ -288,7 +294,8 @@ class VolumeManager:
         if self._closed:
             return 0
         done = self.flush()
-        self.engine.backend.drain_transports()
+        if self.engine.backend is not None:
+            self.engine.backend.drain_transports()
         self._closed = True
         return done
 
@@ -307,11 +314,14 @@ class VolumeManager:
             raise ValueError("I/O on a closed VolumeManager")
 
     def stats(self) -> Dict[str, Any]:
-        from repro_torch.core import slots
-        return {"completed": self.engine.completed,
-                "queued": self.engine.depth(),
-                "backend": self.backend_name,
-                "slots_active": int(slots.n_active(self.engine.frontend.table))}
+        out = {"completed": self.engine.completed,
+               "queued": self.engine.depth(),
+               "backend": self.backend_name}
+        if self.engine.frontend is not None:
+            from repro_torch.core import slots
+            out["slots_active"] = int(slots.n_active(
+                self.engine.frontend.table))
+        return out
 
     # ------------------------------------------------------------ lifecycle
     def create(self) -> Volume:
@@ -444,14 +454,31 @@ class VolumeManager:
                 reqs.extend(self.pwrite(vid, a, b"\x00" * (b - a))._reqs)
         return IOFuture(self, reqs, value=nbytes)
 
+    # ------------------------------------- embedder control-plane passthrough
+    @property
+    def state(self):
+        """The backing ``DBSState`` (``backend="host"`` only): the control
+        plane the copy-based serving baseline reads block tables from."""
+        return self.engine.impl.state
+
+    def alloc_pages(self, vols, pages, mask=None, bits=None):
+        """Page allocation/CoW on the host backend's state; returns the DBS
+        ``WriteOps`` for an external data plane (the serving baseline's KV
+        pools). Host backend only: on the fused engine page allocation is
+        the write path (submit zero-payload writes and ``flush()``)."""
+        return self.engine.impl.alloc_pages(vols, pages, mask=mask,
+                                            bits=bits)
+
     # --------------------------------------------- device-resident KV views
     # The zero-copy serving path (serving/engine.py) reads these: the extent
     # map a paged-attention kernel indexes through, and the engine payload
     # pools it treats as the KV cache. Nothing here syncs to the host.
     def device_extent_map(self) -> torch.Tensor:
-        """Replica 0's extent map, ONE (V, P) int32 tensor on the device
-        (holes -1). The healthy replicas run identical control sequences,
-        so their maps agree."""
+        """ONE (V, P) int32 extent map on the device (holes -1): the host
+        backend's own state's, else replica 0's (the healthy replicas run
+        identical control sequences, so their maps agree)."""
+        if self.engine.backend is None:                 # host backend
+            return self.engine.impl.state.table
         states, _pools = self.engine.backend.device_state()
         return states[0].table
 

@@ -336,16 +336,41 @@ def apply_write_ops(pool: torch.Tensor, ops: WriteOps, payload: torch.Tensor,
     order in which ``index_put_`` applies duplicates is not defined on CUDA.
     """
     dump = pool.shape[0] - 1
-    page = pool.shape[1]
-    blk = block_offsets.long()
     live = ops.ok & (ops.dst >= 0)
     do_copy = live & (ops.cow_src >= 0)
     src = torch.where(do_copy, ops.cow_src, dump).long()
     dst = torch.where(do_copy, ops.dst, dump).long()
     pool[dst] = pool[src]              # every source row is gathered first
-    key = torch.where(live, ops.dst.long() * page + blk, -1)
-    later = torch.triu(key[:, None] == key[None, :], diagonal=1)
-    win = live & ~(later & live[None, :]).any(1)
+    return store_blocks(pool, ops, payload, block_offsets)
+
+
+def last_live_lane(key: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """For each lane i, the highest live lane j with ``key[j] == key[i]``,
+    or -1 where no live lane shares i's key: the lane that wins a scatter
+    index under XLA's sequential order. An (N, N) election on the device,
+    with no host sync; the scatters that use it stay deterministic where
+    ``index_put_`` leaves the order of duplicates undefined on CUDA."""
+    lanes = torch.arange(key.shape[0], device=key.device)
+    if not key.shape[0]:
+        return lanes
+    same = live[None, :] & (key[:, None] == key[None, :])
+    return torch.where(same, lanes[None, :], -1).amax(1)
+
+
+def store_blocks(pool: torch.Tensor, ops: WriteOps, payload: torch.Tensor,
+                 block_offsets: torch.Tensor) -> torch.Tensor:
+    """The payload-store half of ``apply_write_ops``, in place: each lane
+    with ``ok`` and ``dst >= 0`` stores its block; where several store the
+    same (dst, block) the highest lane wins (``last_live_lane``), and every
+    other lane writes the scratch row's own value back (see
+    ``apply_write_ops``)."""
+    dump = pool.shape[0] - 1
+    page = pool.shape[1]
+    blk = block_offsets.long()
+    live = ops.ok & (ops.dst >= 0)
+    key = ops.dst.long() * page + blk
+    lanes = torch.arange(key.shape[0], device=key.device)
+    win = live & (last_live_lane(key, live) == lanes)
     rows = torch.where(win, ops.dst, dump).long()
     keep = pool[dump, blk]
     win_b = win.reshape(win.shape + (1,) * (payload.dim() - 1))

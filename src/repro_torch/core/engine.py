@@ -41,7 +41,7 @@ class EngineConfig:
     cow: str = "auto"            # legacy data-plane axis: auto only
     kernel: str = "auto"         # a REGISTERED KERNEL (kernels/dbs
                                  # registry): auto (= cuda) | cuda | torch
-                                 # | ref
+                                 # | ref | copy
     n_shards: int = 1
     transport: str = "local"     # controller<->replica wire: local
     write_policy: str = "all"
@@ -77,7 +77,8 @@ def check_ported(cfg: EngineConfig) -> None:
          "transport_opts= lands with the transport slice"),
         (cfg.journal is not None, "journal= lands with the durability slice"),
         (cfg.tier is not None, "tier= lands with the durability slice"),
-        (cfg.null_backend or cfg.null_storage,
+        # the copy-based serving baseline's control plane holds no pool
+        (cfg.null_backend or (cfg.null_storage and cfg.comm != "host"),
          "the null_backend/null_storage layer cuts land with the benchmark "
          "slice"),
         (cfg.storage != "dbs",
@@ -94,7 +95,7 @@ def check_ported(cfg: EngineConfig) -> None:
 class Engine:
     """Thin façade over a registered backend (core/backends.py):
     ``.frontend`` is the backend's frontend and ``.backend`` its replica
-    storage."""
+    storage (both None on the host backend)."""
 
     def __init__(self, cfg: EngineConfig):
         check_ported(cfg)
@@ -107,9 +108,11 @@ class Engine:
         self.cfg = cfg
         from repro_torch.core.backends import make_backend
         self._impl = make_backend(cfg.comm, cfg)
+        # the host backend has no frontend, no replica storage and no
+        # data-plane kernel
         self.frontend = self._impl.frontend
         self.backend = self._impl.storage
-        self._kernel = self._impl._kernel
+        self._kernel = getattr(self._impl, "_kernel", None)
 
     @property
     def impl(self):

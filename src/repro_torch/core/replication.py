@@ -1,12 +1,14 @@
-"""Controller<->replica layer: the replica group behind the fused engine.
+"""Controller<->replica layer: the replica group behind the engines.
 
 Port of ``ReplicaGroup`` from ``repro/core/replication.py`` with the
-policies the fused data plane serves: every write is mirrored to all
-healthy replicas (``write_policy="all"``) and each read is served by one
-replica in round-robin order (``read_policy="rr"``), both inside the fused
-step (core/fused.py); ``engine.check_ported`` rejects the other policies.
-Control ops ride the transport to every healthy replica. The host-dispatched ``write``/``read``, the quorum/async/latency
-policies and the streamed delta ``rebuild`` land with the transport slice.
+paper's policies: every write is mirrored to all healthy replicas
+(``write_policy="all"``) and each read is served by one replica in
+round-robin order (``read_policy="rr"``). The fused step (core/fused.py)
+applies both inside the step; the host-dispatch backends call ``write``
+and ``read``, which post WRITE and READ messages over the transport.
+Control ops ride the transport to every healthy replica.
+``engine.check_ported`` rejects the other policies: quorum/async/latency
+and the streamed delta ``rebuild`` land with the transport slice.
 """
 from __future__ import annotations
 
@@ -16,9 +18,9 @@ import torch
 
 from repro_torch.core import dbs
 from repro_torch.core.transport import (MSG_CLONE, MSG_CREATE, MSG_DELETE,
-                                        MSG_QUERY_REV, MSG_SNAPSHOT,
-                                        MSG_UNMAP, Replica, WireMsg,
-                                        make_transport)
+                                        MSG_QUERY_REV, MSG_READ, MSG_SNAPSHOT,
+                                        MSG_UNMAP, MSG_WRITE, Replica,
+                                        WireMsg, make_transport)
 
 
 class ReplicaGroup:
@@ -108,6 +110,44 @@ class ReplicaGroup:
         rr = self._rr
         self._rr += 1
         return rr
+
+    # -- host-dispatched data plane (the loop/slots backends) ---------------
+    def write(self, vol, pages: torch.Tensor, block_offsets: torch.Tensor,
+              payload: torch.Tensor, mask=None) -> None:
+        """Mirror a batch of block writes to every healthy replica; the
+        write completes when every one has executed it (policy ``all``).
+        vol: scalar or (B,) volume ids; tensors on the replicas' device."""
+        dev = self.replicas[0].pool.device
+        bits = torch.ones((), dtype=torch.int64, device=dev) << \
+            block_offsets.long()
+        if mask is None:
+            mask = torch.ones(pages.shape, dtype=torch.bool, device=dev)
+        msg = WireMsg(op=MSG_WRITE, volume=vol, pages=pages,
+                      blocks=block_offsets, bits=bits, payload=payload,
+                      mask=mask)
+        for t, r in zip(self.transports, self.replicas):
+            if r.healthy:
+                t.call(msg)
+
+    def _pick_replica(self) -> int:
+        """Round-robin over the healthy set: the cursor advances once per
+        read, and a failed replica's turn passes to the next healthy one."""
+        n = len(self.replicas)
+        order = [(self._rr + i) % n for i in range(n)]
+        self._rr += 1
+        for i in order:
+            if self.replicas[i].healthy:
+                return i
+        raise RuntimeError("no healthy replica")
+
+    def read(self, vol, pages: torch.Tensor,
+             block_offsets: torch.Tensor) -> torch.Tensor:
+        """Read one block per lane from the replica the rr policy picks:
+        (B, *payload) on the device, holes as zeros. vol: scalar or
+        (B,)."""
+        i = self._pick_replica()
+        return self.transports[i].call(WireMsg(
+            op=MSG_READ, volume=vol, pages=pages, blocks=block_offsets))
 
     def drain_transports(self) -> None:
         for t in self.transports:

@@ -12,8 +12,9 @@ Port of the local part of ``repro/core/transport.py``:
 
 On the fused engine the data plane never rides messages: the controller
 threads the endpoint tensors through the step, and the transport carries
-control traffic. The ``device`` and ``simnet`` transports, the WRITE/READ
-data messages and the rebuild stream land with the transport slice.
+control traffic. The host-dispatch backends (``loop``, ``slots``) send
+their data as WRITE and READ messages. The ``device`` and ``simnet``
+transports and the rebuild stream land with the transport slice.
 """
 from __future__ import annotations
 
@@ -125,6 +126,24 @@ class Replica:
 
     def execute(self, msg: WireMsg) -> Any:
         op = msg.op
+        if op == MSG_WRITE:
+            # control-plane write, then the watermark stamp with the
+            # revision it made, then the data plane (the ``torch`` entry)
+            self.state, ops = dbs.write_pages(self.state, msg.volume,
+                                              msg.pages, msg.bits, msg.mask)
+            self.page_rev = stamp_page_rev(self.page_rev, msg.volume,
+                                           msg.pages, ops.ok,
+                                           self.state.revision)
+            self.pool = dbs.apply_write_ops(self.pool, ops, msg.payload,
+                                            msg.blocks)
+            return None
+        if op == MSG_READ:
+            # holes (never-written or unmapped pages) read as zeros: the
+            # clamped gather would otherwise return extent 0's payload
+            ext = dbs.read_resolve(self.state, msg.volume, msg.pages)
+            got = self.pool[ext.clamp(min=0).long(), msg.blocks.long()]
+            hole = (ext >= 0).reshape(ext.shape + (1,) * (got.dim() - 1))
+            return torch.where(hole, got, 0)
         if op == MSG_CREATE:
             self.state, vid = dbs.create_volume(self.state)
             return vid

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 SOURCES: Dict[str, Path] = {
     "dbs_rw": KERNELS / "dbs" / "csrc" / "dbs_rw.cu",
+    "dbs_copy": KERNELS / "dbs" / "csrc" / "dbs_copy.cu",
     "paged_attention": KERNELS / "paged_attention" / "csrc"
     / "paged_attention.cu",
     "flash_attention": KERNELS / "flash_attention" / "csrc"
@@ -41,6 +42,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "dbs_rw": {
         "dbs_rw_write": [_vp] * 5 + [_ci] * 5 + [_vp],
         "dbs_rw_read": [_vp] * 4 + [_ci] * 5 + [_vp],
+    },
+    "dbs_copy": {
+        # pool, src, dst, mask; mask_i32, n_lanes, n_rows, page, d, vec4;
+        # stream
+        "dbs_copy": [_vp] * 4 + [_ci] * 6 + [_vp],
     },
     "paged_attention": {
         # q, k, v, table, lengths, out; b, h, kv, d, dv, p_max, page,

@@ -1,0 +1,93 @@
+"""``dbs_copy``: wrapper of the hand-written CUDA CoW extent-copy kernel.
+
+Port of ``repro/kernels/dbs/copy_kernel.py``; the kernel lives in
+``csrc/dbs_copy.cu`` (the source note there gives its bound and design),
+built at first use by ``kernels/_build.py``. The wrapper checks device,
+dtype, shape and contiguity, then launches the kernel for a tensor on a
+CUDA device or calls the plain version (kernels/dbs/ref.py
+``dbs_copy_ref``) for a tensor on the CPU. A CUDA tensor gets the kernel or
+an error, never the plain version.
+
+``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the wrapper's calls
+of the plain version, so a run can show which path it went through.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import check_tensor as _check
+from repro_torch.kernels._build import library, raise_on
+from repro_torch.kernels.dbs.ref import dbs_copy_ref
+
+LAUNCHES: Dict[str, int] = {"dbs_copy": 0}
+PLAIN_CALLS: Dict[str, int] = {"dbs_copy": 0}
+MAX_LANES = 65535            # the grid's y dimension: one lane per row
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def check_copy_routing(src, dst, mask, n_rows: int) -> None:
+    """Raise unless a copy batch is race-free on the GPU: every live lane
+    names an in-range ``src`` and ``dst``, live lanes have distinct ``dst``,
+    and no live lane's ``src`` is another live lane's ``dst``. Reads the
+    batch back to the host: a debug check, off on the hot path."""
+    s, t, m = src.cpu(), dst.cpu(), mask.cpu().bool()
+    if bool((m & ((s < 0) | (s >= n_rows) | (t < 0) | (t >= n_rows)))
+            .any()):
+        raise ValueError("dbs_copy routing: a live lane's extent id is out "
+                         "of range")
+    tl = t[m]
+    if tl.unique().numel() != tl.numel():
+        raise ValueError("dbs_copy routing: two live lanes write one row")
+    other = (m[:, None] & m[None, :] & (s[:, None] == t[None, :])
+             & ~torch.eye(s.shape[0], dtype=torch.bool))
+    if bool(other.any()):
+        raise ValueError("dbs_copy routing: a live lane reads a row that "
+                         "another live lane writes")
+
+
+def dbs_copy(pool, src, dst, mask, *, check_routing: bool = False):
+    """pool: (E, page, D) f32, updated in place and returned; src/dst: (N,)
+    int32 extent ids; mask: (N,) bool or int32, nonzero = copy.
+
+    ``pool[dst[i]] = pool[src[i]]`` for every live lane (``mask[i]`` and
+    both ids in ``[0, E)``); every other lane touches nothing. Live lanes
+    must have distinct ``dst`` and read no row another live lane writes
+    (``dbs.write_pages`` guarantees both). ``check_routing=True`` verifies
+    that contract first (host sync)."""
+    e, page, d = pool.shape
+    n = src.shape[0]
+    dev = pool.device
+    _check("pool", pool, torch.float32, (e, page, d), dev)
+    _check("src", src, torch.int32, (n,), dev)
+    _check("dst", dst, torch.int32, (n,), dev)
+    if mask.dtype not in (torch.bool, torch.int32):
+        raise TypeError(f"mask: expected bool or int32, got {mask.dtype}")
+    _check("mask", mask, mask.dtype, (n,), dev)
+    if check_routing:
+        check_copy_routing(src, dst, mask, e)
+    if dev.type == "cpu":
+        PLAIN_CALLS["dbs_copy"] += 1
+        return dbs_copy_ref(pool, src, dst, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"dbs_copy: no kernel for device {dev}")
+    if n > MAX_LANES:
+        raise ValueError(f"dbs_copy: {n} lanes, at most {MAX_LANES}")
+    if n == 0:
+        return pool
+    lib = library("dbs_copy")
+    vec4 = int(d % 4 == 0 and pool.data_ptr() % 16 == 0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dbs_copy(pool.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                           mask.data_ptr(), int(mask.dtype == torch.int32),
+                           n, e, page, d, vec4, stream)
+    raise_on(err, "dbs_copy")
+    LAUNCHES["dbs_copy"] += 1
+    return pool

@@ -1,11 +1,12 @@
 """The DBS kernel family's ops surface: write routing, pool wrappers, bytes.
 
-Port of the rw half of ``repro/kernels/dbs/ops.py``: ``_route_writes``
-turns a ``dbs.WriteOps`` batch into the write kernel's one-row-per-lane
-form, ``dbs_rw_write_pool``/``dbs_rw_read_pool`` adapt an
+Port of ``repro/kernels/dbs/ops.py``: ``_route_writes`` turns a
+``dbs.WriteOps`` batch into the write kernel's one-row-per-lane form,
+``dbs_copy_pool``/``dbs_rw_write_pool``/``dbs_rw_read_pool`` adapt an
 ``(E+1, page, *payload)`` engine pool to the kernels' ``(E+1, page, D)``
-layout, and ``dbs_write_bytes``/``dbs_read_bytes`` count the bytes a batch
-semantically moves (the numerator of each kernel's bound).
+layout, and ``dbs_write_bytes``/``dbs_read_bytes``/``dbs_copy_bytes`` count
+the bytes a batch semantically moves (the numerator of each kernel's bound).
+``dbs_copy`` is the copy kernel's wrapper (copy_kernel.py).
 
 Engine pools carry one row past the allocator's range: the dump row that
 inert lanes are parked on (``ReplicaGroup`` sizes pools to n_extents+1).
@@ -14,9 +15,28 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.dbs.copy_kernel import dbs_copy
 from repro_torch.kernels.dbs.rw_kernel import dbs_rw_read, dbs_rw_write
 
 I32 = torch.int32
+
+
+def dbs_copy_pool(pool, src, dst, mask, *, check_routing: bool = False):
+    """Extent CoW copy over an (E, page, *payload) engine pool, in place:
+    the trailing payload dims are flattened to the kernel's (E, page, D)
+    view. Returns ``pool``.
+
+    The kernel skips masked lanes without touching memory, so they need no
+    routing: they keep their ids (-1 included), and no dump row or appended
+    zero row is needed. (The reference's ``scratch=`` option routes them to
+    the dump row or appends a zero row, because its kernel rewrites a masked
+    lane's destination.) Live lanes must be in range.
+    """
+    e, page = pool.shape[:2]
+    dbs_copy(pool.view(e, page, -1), src.to(I32).contiguous(),
+             dst.to(I32).contiguous(), mask.bool().contiguous(),
+             check_routing=check_routing)
+    return pool
 
 
 def _route_writes(ops, page: int, block_offsets, dump: int):
@@ -88,3 +108,10 @@ def dbs_read_bytes(n_lanes: int, block_elems: int, itemsize: int) -> int:
     """Bytes a read batch semantically moves: one block read + written out
     per lane."""
     return 2 * n_lanes * block_elems * itemsize
+
+
+def dbs_copy_bytes(n_copied: int, page_blocks: int, block_elems: int,
+                   itemsize: int) -> int:
+    """Bytes a copy batch semantically moves: each copied lane reads and
+    writes one whole extent row."""
+    return 2 * n_copied * page_blocks * block_elems * itemsize

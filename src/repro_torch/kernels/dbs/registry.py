@@ -14,10 +14,13 @@ torch     ``dbs.apply_write_ops`` + the hole-masked gather in plain torch —
           the counterpart of JAX's ``xla`` entry, but a lane with
           ``ok`` and ``dst < 0`` is dropped, as the kernels drop it
 ref       the plain row-composition versions (ref.py) on any device
+copy      the hybrid of JAX's ``copy`` entry: the hand-written ``dbs_copy``
+          CUDA kernel (copy_kernel.py) for the CoW rows, then a plain torch
+          block scatter; reads are ``torch``'s gather
 ========  ==================================================================
 
-``kernel="auto"`` resolves to ``cuda``. JAX's ``pallas`` and ``copy``
-entries have no counterpart yet: ``dbs_copy`` is still to be ported.
+``kernel="auto"`` resolves to ``cuda``, the counterpart of JAX's
+``pallas`` entry.
 """
 from __future__ import annotations
 
@@ -103,6 +106,20 @@ def _torch_read(pool, ext, block_offsets):
     return torch.where(m, got, 0)
 
 
+def _copy_write(pool, ops, payload, block_offsets):
+    """The ``copy`` hybrid: ``dbs_copy`` for the CoW rows, then the block
+    scatter of ``dbs.store_blocks``. Not-ok lanes and lanes with no
+    destination write nothing (the JAX entry clamps an ``ok, dst=-1`` lane
+    onto extent 0; ``write_pages`` never emits one), and duplicate
+    (dst, block) lanes are won by the highest lane, as in XLA's sequential
+    scatter."""
+    from repro_torch.core import dbs
+    live = ops.ok & (ops.dst >= 0)
+    _ops.dbs_copy_pool(pool, ops.cow_src, ops.dst,
+                       (ops.cow_src >= 0) & live)
+    return dbs.store_blocks(pool, ops, payload, block_offsets)
+
+
 def _ref_write(pool, ops, payload, block_offsets):
     from repro_torch.kernels.dbs.ref import dbs_rw_write_ref
     e, page = pool.shape[:2]
@@ -122,3 +139,4 @@ def _ref_read(pool, ext, block_offsets):
 register_kernel("cuda", _ops.dbs_rw_write_pool, read=_ops.dbs_rw_read_pool)
 register_kernel("torch", _torch_write, read=_torch_read)
 register_kernel("ref", _ref_write, read=_ref_read)
+register_kernel("copy", _copy_write, read=_torch_read)

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import (ArchConfig, ATTN_GLOBAL, ATTN_HYBRID,
                                       ATTN_LOCAL, MLP_DENSE)
+from repro_torch.core.dbs import last_live_lane
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (Params, apply_mlp, dense_init,
                                        init_mlp, rms_norm)
@@ -269,19 +270,28 @@ def paged_write_local(pool_k, pool_v, block_table, pos, k_new, v_new,
                       stride: int = 1, rank=0):
     """Scatter one new token's K/V into the owner stripe's pool (local ids),
     in place. A lane that does not own its page, or whose page is a hole,
-    rewrites the value the pool's last row already holds at its offset: the
-    reference's ``mode="drop"`` scatter at -1 lands on that row."""
+    targets the pool's last row at its offset (the reference's
+    ``mode="drop"`` scatter at -1 lands on that row) and stores what is
+    already there, unless an owning lane stores to that same slot: then it
+    stores that lane's value, so every duplicate index of the scatter
+    writes one value (``index_put_`` leaves their order undefined on CUDA).
+    A position past the table reads its last page, as JAX clamps the
+    gather."""
     b = pos.shape[0]
-    page = pool_k.shape[1]
+    e, page = pool_k.shape[:2]
     page_idx = pos // page
-    ext = block_table[torch.arange(b, device=pos.device), page_idx.long()]
+    lanes = torch.arange(b, device=pos.device)
+    ext = block_table[lanes, page_idx.clamp(
+        max=block_table.shape[1] - 1).long()]
     off = (pos % page).long()
     owned = ((page_idx % stride) == rank) & (ext >= 0)
-    ext_w = torch.where(owned, ext, -1).long()
-    own = owned[:, None, None]
-    pool_k[ext_w, off] = torch.where(own, k_new[:, 0].to(pool_k.dtype),
+    ext_w = torch.where(owned, ext, e - 1).long()
+    src = last_live_lane(ext_w * page + off, owned)
+    take = (src >= 0)[:, None, None]
+    src = src.clamp(min=0)
+    pool_k[ext_w, off] = torch.where(take, k_new[src, 0].to(pool_k.dtype),
                                      pool_k[ext_w, off])
-    pool_v[ext_w, off] = torch.where(own, v_new[:, 0].to(pool_v.dtype),
+    pool_v[ext_w, off] = torch.where(take, v_new[src, 0].to(pool_v.dtype),
                                      pool_v[ext_w, off])
     return pool_k, pool_v
 
@@ -312,8 +322,14 @@ def _write_prefill_cache(cfg, sig, cache, k, v, ctx):
         cache["ring_v"][rows, slots] = v[:, -take:].to(cache["ring_v"].dtype)
         cache["ring_pos"][rows, slots] = ctx.k_pos[:, -take:].to(torch.int32)
     elif "pool_k" in cache:
+        # a ragged last page is zero-padded: decode writes each position
+        # before any query reaches it
         page = cache["pool_k"].shape[1]
-        n_pages = s // page
+        n_pages = -(-s // page)
+        pad = n_pages * page - s
+        if pad:
+            k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+            v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         ext = cache["block_table"][:, :n_pages].long()         # (B,P)
         kp = k.reshape(b, n_pages, page, *k.shape[2:])
         vp = v.reshape(b, n_pages, page, *v.shape[2:])

@@ -28,9 +28,21 @@ and no reader takes data from it (the write kernel parks inert lanes
 there, reads resolve only allocated extents, and ``consistent()`` compares
 revisions).
 
-``kv_backend="host"`` (the copy-based baseline with ``dbs_copy``) and
-``"sharded"`` land with their slices, as does ``ServePool``. The engine
-runs on ``device`` (default ``cuda``, with no CPU fallback).
+``kv_backend="host"`` keeps the pre-zero-copy data path as the measured
+copy-based baseline: model-owned KV pools (one per global layer, K and V)
+driven by the host backend's ``alloc_pages``, one ``dbs_copy`` per pool on
+every CoW, prefill written through the block table and decode through the
+plain paged gather (``blocks._local_paged_decode``). Where the reference's
+baseline differs from it (ROADMAP queue 3): idle decode lanes read and
+write no volume (the reference gives them volume 0's block table, and they
+overwrite that session's position-0 K/V), and the prompt is prefilled
+unpadded with only its last page's K/V zero-padded (the reference prefills
+the padded prompt, whose pad tokens push real positions out of a window
+ring shorter than the padded prompt).
+
+``ServePool`` steps several engines as shards. ``kv_backend="sharded"``
+lands with the shards slice. The engine runs on ``device`` (default
+``cuda``, with no CPU fallback).
 """
 from __future__ import annotations
 
@@ -49,15 +61,13 @@ from repro_torch.core.blockdev import VolumeManager
 from repro_torch.core.engine import resolve_device
 from repro_torch.core.frontend import MultiQueueFrontend, Request
 from repro_torch.core.ring import OP_CLONE, ST_OK
+from repro_torch.kernels.dbs.ops import dbs_copy_pool
 from repro_torch.kernels.paged_attention.kernel import paged_attention_pool_fwd
 from repro_torch.kernels.paged_attention.ref import paged_attention_pool_ref
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
-UNPORTED_KV_BACKENDS = {
-    "host": "the host-dispatch slice (the copy-based baseline needs "
-            "HostStateBackend and the dbs_copy kernel)",
-    "sharded": "the shards slice"}
+UNPORTED_KV_BACKENDS = {"sharded": "the shards slice"}
 
 
 @dataclass
@@ -118,44 +128,57 @@ class ServeEngine:
         # DBS metadata: volumes = sessions; extents shared across layers
         # (one extent row holds every layer's K/V for its page of tokens).
         n_extents = n_slots * self.n_pages * 2 + 8   # headroom for forks/CoW
-        infos = [_paged_layer_info(cfg, s) for s in B.layer_sigs(cfg)]
-        self._paged = [(li,) + info for li, info in enumerate(infos)
-                       if info is not None]
-        if not self._paged:
-            raise ValueError("zero-copy serving needs at least one "
-                             "paged-attention layer; the copy-based "
-                             "kv_backend='host' lands with its slice")
-        kvs = {info[3] for info in self._paged}
-        if len(kvs) > 1:
-            raise ValueError(f"mixed KV head counts {sorted(kvs)} not "
-                             "supported by the pooled KV layout")
-        self._n_kv = kvs.pop()
-        self._dmax = max(max(kd, vd) for _, kd, vd, _ in self._paged)
-        n_planes = 2 * len(self._paged)
-        self._payload_shape = (n_planes, self._n_kv, self._dmax)
-        # the engine extent pool IS the KV cache: the volume manager's write
-        # requests allocate/CoW its rows, the paged-attention kernel reads
-        # them through the extent map
-        self.volumes = VolumeManager(
-            backend=kv_backend, n_shards=kv_shards,
-            n_replicas=kv_replicas, kernel=kernel,
-            n_extents=n_extents, max_volumes=2 * n_slots,
-            max_pages=self.n_pages, page_blocks=page,
-            batch=max(2 * n_slots, 16),
-            payload_shape=self._payload_shape, device=dev)
-        # ring caches for the local layers; the model-owned paged pools are
-        # never read (the paged fn reads the engine pool), so they hold one
-        # dummy extent
-        self.caches = M.init_cache(cfg, n_slots, max_len, paged=True,
-                                   dtype=dtype, device=dev)
-        self.caches = [self._shrink_pool(c) for c in self.caches]
-        # live views of the engine's KV store; refreshed after every pump
-        # that may move extents (_pump_writes)
-        self._pools = self.volumes.device_pools()
-        self._table = self.volumes.device_extent_map()
-        self._attn_cuda = kernel in ("auto", "cuda")
-        self._cow_pending: set = set()
-        self._step_fn = self._decode_program
+        self._zero_copy = kv_backend != "host"
+        if self._zero_copy:
+            infos = [_paged_layer_info(cfg, s) for s in B.layer_sigs(cfg)]
+            self._paged = [(li,) + info for li, info in enumerate(infos)
+                           if info is not None]
+            if not self._paged:
+                raise ValueError("zero-copy serving needs at least one "
+                                 "paged-attention layer; use "
+                                 "kv_backend='host'")
+            kvs = {info[3] for info in self._paged}
+            if len(kvs) > 1:
+                raise ValueError(f"mixed KV head counts {sorted(kvs)} not "
+                                 "supported by the pooled KV layout")
+            self._n_kv = kvs.pop()
+            self._dmax = max(max(kd, vd) for _, kd, vd, _ in self._paged)
+            n_planes = 2 * len(self._paged)
+            self._payload_shape = (n_planes, self._n_kv, self._dmax)
+            # the engine extent pool IS the KV cache: the volume manager's
+            # write requests allocate/CoW its rows, the paged-attention
+            # kernel reads them through the extent map
+            self.volumes = VolumeManager(
+                backend=kv_backend, n_shards=kv_shards,
+                n_replicas=kv_replicas, kernel=kernel,
+                n_extents=n_extents, max_volumes=2 * n_slots,
+                max_pages=self.n_pages, page_blocks=page,
+                batch=max(2 * n_slots, 16),
+                payload_shape=self._payload_shape, device=dev)
+            # ring caches for the local layers; the model-owned paged pools
+            # are never read (the paged fn reads the engine pool), so they
+            # hold one dummy extent
+            self.caches = M.init_cache(cfg, n_slots, max_len, paged=True,
+                                       dtype=dtype, device=dev)
+            self.caches = [self._pool_rows(c, 1) for c in self.caches]
+            # live views of the engine's KV store; refreshed after every
+            # pump that may move extents (_pump_writes)
+            self._pools = self.volumes.device_pools()
+            self._table = self.volumes.device_extent_map()
+            self._attn_cuda = kernel in ("auto", "cuda")
+            self._cow_pending: set = set()
+            self._step_fn = self._decode_program
+        else:
+            # copy-based baseline: the host backend's control plane (no
+            # pool of its own) and model-owned pools spanning its extents
+            self.volumes = VolumeManager(
+                backend="host", null_storage=True, n_extents=n_extents,
+                max_volumes=2 * n_slots, max_pages=self.n_pages,
+                page_blocks=page, payload_elems=1, device=dev)
+            self.caches = M.init_cache(cfg, n_slots, max_len, paged=True,
+                                       dtype=dtype, device=dev)
+            self.caches = [self._pool_rows(c, n_extents)
+                           for c in self.caches]
         self.pos = np.zeros((n_slots,), np.int32)
         self.slot_vol = np.full((n_slots,), -1, np.int64)
         self.live: Dict[int, GenRequest] = {}
@@ -164,16 +187,22 @@ class ServeEngine:
     @property
     def state(self):
         """The DBS metadata behind the session volumes (``state.table`` is
-        the paged-attention block table): replica 0's."""
+        the paged-attention block table): the host backend's own state on
+        the copy-based baseline, else replica 0's."""
+        if not self._zero_copy:
+            return self.volumes.state
         return self.volumes.engine.backend.device_state()[0][0]
 
-    def _shrink_pool(self, cache):
+    @staticmethod
+    def _pool_rows(cache, n_rows: int):
+        """The cache with fresh zero ``pool_k``/``pool_v`` of ``n_rows``
+        extent rows (paged layers only)."""
         if cache is None or "pool_k" not in cache:
             return cache
         c = dict(cache)
         for key in ("pool_k", "pool_v"):
             p = cache[key]
-            c[key] = p.new_zeros((1,) + tuple(p.shape[1:]))
+            c[key] = p.new_zeros((n_rows,) + tuple(p.shape[1:]))
         return c
 
     # ------------------------------------------------------------------ API
@@ -221,18 +250,22 @@ class ServeEngine:
         self.slot_vol[child.slot] = vid
         self.pos[child.slot] = self.pos[src.slot]
         self.live[new_req_id] = child
-        # both sides' next write to the shared frontier page must ride a
-        # write request so the in-kernel CoW un-shares it before the decode
-        # scatter touches it
-        self._cow_pending.add(req_id)
-        self._cow_pending.add(new_req_id)
-        self._table = self.volumes.device_extent_map()
+        if self._zero_copy:
+            # both sides' next write to the shared frontier page must ride a
+            # write request so the in-kernel CoW un-shares it before the
+            # decode scatter touches it (the baseline's every step allocates
+            # through alloc_pages, which CoWs it)
+            self._cow_pending.add(req_id)
+            self._cow_pending.add(new_req_id)
+            self._table = self.volumes.device_extent_map()
         return child
 
     def control(self, kind: str, **kw):
         """Replica-plane control (fail/...) on the KV store. The pools are
         committed to the replicas first, so a control op sees every decode
         scatter, not just the last pumped state."""
+        if not self._zero_copy:
+            return self.volumes.engine.control(kind, **kw)
         self.volumes.set_device_pools(self._pools)
         out = self.volumes.engine.control(kind, **kw)
         self._pools = self.volumes.device_pools()
@@ -374,14 +407,68 @@ class ServeEngine:
             self._submit_kv_write(g.volume, t, payload=pay[t])
         self.pos[g.slot] = s
 
+    # --------------------------------------------- copy-based KV data plane
+    def _alloc_pages(self, vols, pages, mask):
+        """Copy-based control plane: allocate/CoW through the host backend;
+        the returned WriteOps drive the model-owned KV pools, one
+        ``dbs_copy`` per pool (K and V of each paged layer) whenever a lane
+        CoWs — the copies the zero-copy path retires. Testing for a CoW is
+        the baseline's one host sync per call."""
+        ops = self.volumes.alloc_pages(vols, pages, mask=mask)
+        if bool((ops.cow_src >= 0).any()):
+            cow = ops.cow_src >= 0
+            for c in self.caches:
+                if c is not None and "pool_k" in c:
+                    for key in ("pool_k", "pool_v"):
+                        dbs_copy_pool(c[key], ops.cow_src, ops.dst, cow)
+        return ops
+
+    def _prefill_one_host(self, g: GenRequest) -> None:
+        """Allocate the prompt's pages, then prefill straight into the
+        model-owned pools through the volume's block table (the slot's ring
+        rows are views, written in place). The prompt runs unpadded; its
+        last page's K/V is zero-padded (module note)."""
+        prompt = np.asarray(g.prompt)
+        s = prompt.shape[0]
+        if s == 0:
+            return
+        dev = self.device
+        n_pages = -(-s // self.cfg.page_blocks)
+        self._alloc_pages(
+            torch.full((n_pages,), g.volume, dtype=torch.int64, device=dev),
+            torch.arange(n_pages, device=dev),
+            torch.ones((n_pages,), dtype=torch.bool, device=dev))
+        bt_row = self.state.table[g.volume][None, :]
+        caches_one = []
+        for c in self.caches:
+            if c is None:
+                caches_one.append(None)
+            elif "pool_k" in c:
+                caches_one.append({"pool_k": c["pool_k"],
+                                   "pool_v": c["pool_v"],
+                                   "block_table": bt_row})
+            else:
+                caches_one.append({k: v[g.slot:g.slot + 1]
+                                   for k, v in c.items()})
+        tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+        M.prefill(self.params, tok, self.cfg, self.plan, caches_one)
+        self.pos[g.slot] = s
+
+    def _prefill_one(self, g: GenRequest) -> None:
+        if self._zero_copy:
+            self._prefill_one_zero(g)
+        else:
+            self._prefill_one_host(g)
+
     # ----------------------------------------------------------------- step
     def step(self) -> List[Tuple[int, int]]:
         """One continuous-batching iteration. Returns [(req_id, token)]."""
         admitted = self._admit()
         pending = False
         for g in admitted:
-            self._prefill_one_zero(g)
-            pending = pending or np.asarray(g.prompt).shape[0] > 0
+            self._prefill_one(g)
+            pending = pending or (self._zero_copy
+                                  and np.asarray(g.prompt).shape[0] > 0)
         active = np.array([self.slot_vol[i] >= 0 and any(
             r.slot == i and not r.done for r in self.live.values())
             for i in range(self.n_slots)])
@@ -390,19 +477,22 @@ class ServeEngine:
                 self._pump_writes()
             return []
         page = self.cfg.page_blocks
-        # control plane: lanes crossing a page boundary allocate their new
-        # page, freshly-forked lanes CoW their shared frontier page — all as
-        # write requests completed by ONE batched pump
-        for i in range(self.n_slots):
-            if not active[i]:
-                continue
-            g = self.live_by_slot(i)
-            if self.pos[i] % page == 0 or g.req_id in self._cow_pending:
-                self._submit_kv_write(int(self.slot_vol[i]), int(self.pos[i]))
-                self._cow_pending.discard(g.req_id)
-                pending = True
-        if pending:
-            self._pump_writes()
+        if self._zero_copy:
+            # control plane: lanes crossing a page boundary allocate their
+            # new page, freshly-forked lanes CoW their shared frontier page
+            # — all as write requests completed by ONE batched pump
+            for i in range(self.n_slots):
+                if not active[i]:
+                    continue
+                g = self.live_by_slot(i)
+                if (self.pos[i] % page == 0
+                        or g.req_id in self._cow_pending):
+                    self._submit_kv_write(int(self.slot_vol[i]),
+                                          int(self.pos[i]))
+                    self._cow_pending.discard(g.req_id)
+                    pending = True
+            if pending:
+                self._pump_writes()
         dev = self.device
         vols = torch.as_tensor(np.where(active, self.slot_vol, 0),
                                dtype=torch.int64, device=dev)
@@ -413,12 +503,27 @@ class ServeEngine:
             dtype=torch.int64, device=dev)
         pos_dev = torch.as_tensor(self.pos, device=dev)
         active_dev = torch.as_tensor(active, device=dev)
-        # data plane: one decode program — KV scatter into the engine pools
-        # + paged attention through the extent map
-        bt = self._table[vols]
-        logits, nxt, self.caches, self._pools = self._step_fn(
-            self.params, last, pos_dev, active_dev, bt, self._pools,
-            self.caches)
+        if self._zero_copy:
+            # data plane: one decode program — KV scatter into the engine
+            # pools + paged attention through the extent map
+            bt = self._table[vols]
+            logits, nxt, self.caches, self._pools = self._step_fn(
+                self.params, last, pos_dev, active_dev, bt, self._pools,
+                self.caches)
+        else:
+            # every active lane allocates (or CoWs) the page it writes;
+            # an idle slot's position may be max_len, so its page is clamped
+            pages = torch.as_tensor(
+                np.minimum(self.pos // page, self.n_pages - 1),
+                dtype=torch.int64, device=dev)
+            self._alloc_pages(vols, pages, active_dev)
+            # idle lanes get an all-hole block table: they read and write
+            # no volume (module note)
+            bt = torch.where(active_dev[:, None], self.state.table[vols], -1)
+            self.caches = M.with_block_tables(self.caches, bt)
+            logits, self.caches = M.decode_step(
+                self.params, last, pos_dev, self.cfg, self.plan, self.caches)
+            nxt = torch.argmax(logits, dim=-1)
         nxt_host = nxt.cpu().numpy()
         logits_host = logits.cpu().numpy() if self.record_logits else None
         self.pos = self.pos + active.astype(np.int32)
@@ -457,7 +562,8 @@ class ServeEngine:
             torch.tensor([g.slot], dtype=torch.int32, device=dev),
             statuses=torch.tensor(ST_OK, dtype=torch.int32, device=dev))
         self.volumes.delete(g.volume)
-        self._cow_pending.discard(g.req_id)
+        if self._zero_copy:
+            self._cow_pending.discard(g.req_id)
         self.slot_vol[g.slot] = -1
         g.slot = -1
 
@@ -468,3 +574,65 @@ class ServeEngine:
                     self.frontend.depth() == 0:
                 break
         return {rid: g.out_tokens for rid, g in self.live.items()}
+
+
+class ServePool:
+    """The serve path over a pool of engine shards: S independent
+    ``ServeEngine`` nodes, requests hash-sharded by ``req_id % S``, stepped
+    together.
+
+    Each shard keeps its own slot table, DBS metadata and KV pools, so a
+    heavy tenant saturates one shard's slots without starving the others.
+    Forking stays shard-local (``dbs.clone`` shares extents only within one
+    DBS state), so a forked child lives on its parent's shard whatever its
+    req_id; ``_home`` records that routing. ``**kw`` goes to every
+    ``ServeEngine``."""
+
+    def __init__(self, cfg: ArchConfig, params, *, n_shards: int = 2, **kw):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.shards = [ServeEngine(cfg, params, **kw)
+                       for _ in range(n_shards)]
+        self._home: Dict[int, int] = {}
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    def shard_of(self, req_id: int) -> int:
+        return self._home.get(req_id, req_id % self.n_shards)
+
+    def submit(self, req: GenRequest) -> None:
+        # hash routing only: recording it in _home would let a later submit
+        # clobber a live forked child's off-hash home
+        self.shards[req.req_id % self.n_shards].submit(req)
+
+    def fork(self, req_id: int, new_req_id: int, max_new: int = 16
+             ) -> Optional[GenRequest]:
+        shard = self.shard_of(req_id)
+        child = self.shards[shard].fork(req_id, new_req_id, max_new)
+        if child is not None and shard != new_req_id % self.n_shards:
+            self._home[new_req_id] = shard       # off-hash: remember it
+        return child
+
+    def step(self) -> List[Tuple[int, int]]:
+        """One pool iteration: every shard's continuous-batching step."""
+        out: List[Tuple[int, int]] = []
+        for sh in self.shards:
+            out.extend(sh.step())
+        for rid in [r for r, s in self._home.items()
+                    if self.shards[s].live.get(r) is not None
+                    and self.shards[s].live[r].done]:
+            del self._home[rid]                  # finished forks: unpin
+        return out
+
+    def run(self, max_steps: int = 64) -> Dict[int, List[int]]:
+        for _ in range(max_steps):
+            self.step()
+            if all(all(g.done for g in sh.live.values())
+                   and sh.frontend.depth() == 0 for sh in self.shards):
+                break
+        out: Dict[int, List[int]] = {}
+        for sh in self.shards:
+            out.update({rid: g.out_tokens for rid, g in sh.live.items()})
+        return out

@@ -10,6 +10,11 @@ they keep the routing contract the GPU relies on): CoW after a snapshot and
 a clone, in-place pages, holes, duplicate-page groups with colliding
 blocks, masked lanes. Results must equal the plain versions bit for bit.
 
+``dbs_copy``: the CPU parity geometries and the two full row widths (the
+block device's 32 x 4096 floats, the serving baseline's 32 x 4 x 256), with
+live CoW lanes, masked lanes with dst -1 and a live copy into extent 0;
+bit for bit against ``dbs_copy_ref``.
+
 ``paged_attention`` and ``flash_attention``: fp32 kernels against their
 plain versions on the card within atol 1e-4 and rtol 1e-4 (the sums run in
 another order), on the parity geometries of the CPU tests and at the
@@ -22,8 +27,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import dbs  # noqa: E402
-from repro_torch.kernels.dbs import (dbs_rw_read, dbs_rw_read_ref,  # noqa: E402
-                                     dbs_rw_write, dbs_rw_write_ref)
+from repro_torch.kernels.dbs import (dbs_copy, dbs_copy_pool,  # noqa: E402
+                                     dbs_copy_ref, dbs_rw_read,
+                                     dbs_rw_read_ref, dbs_rw_write,
+                                     dbs_rw_write_ref)
+from repro_torch.kernels.dbs import copy_kernel  # noqa: E402
 from repro_torch.kernels.dbs.ops import _route_writes  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention, flash_attention_fwd,
@@ -93,6 +101,42 @@ def test_cuda_kernels_match_plain_versions(n_e, page, d, b):
     got = dbs_rw_read(pool, ext, blk)
     assert torch.equal(got, dbs_rw_read_ref(pool, ext, blk))
     assert not got[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("e,page,d,n", [
+    (16, 8, 32, 4), (8, 4, 16, 4), (16, 4, 6, 5), (256, 32, 4096, 64),
+    (1032, 32, 1024, 26)])
+@pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
+def test_dbs_copy_kernel_matches_plain(e, page, d, n, mask_dtype):
+    """Sources in the lower half, distinct destinations in the upper half,
+    ~70% live; lane 0 copies live into extent 0 and the masked lanes carry
+    dst -1. d=6 takes the scalar loop. The full widths: 512 KiB rows (the
+    block device) and 128 KiB rows (the serving baseline at gemma2-2b)."""
+    dev = _cuda()
+    rng = np.random.default_rng(e + d)
+    gen = torch.Generator(device=dev).manual_seed(e)
+    pool = torch.rand((e, page, d), generator=gen, device=dev)
+    src = rng.integers(1, e // 2, n).astype(np.int32)
+    dst = (np.arange(n) + e // 2).astype(np.int32)
+    mask = rng.random(n) < 0.7
+    mask[0], dst[0] = True, 0
+    dst[~mask] = -1
+    args = [torch.from_numpy(x).to(dev) for x in (src, dst, mask)]
+    args[2] = args[2].to(mask_dtype)
+    ref = dbs_copy_ref(pool.clone(), *args)
+    before = copy_kernel.LAUNCHES["dbs_copy"]
+    got = dbs_copy(pool, *args, check_routing=True)
+    torch.cuda.synchronize()
+    assert copy_kernel.LAUNCHES["dbs_copy"] == before + 1
+    assert got is pool and torch.equal(pool, ref)
+    assert torch.equal(pool[0], pool[int(src[0])])
+    # the pool wrapper over (E, page, KV, hd)
+    pool4 = torch.rand((e, page, 2, d), generator=gen, device=dev)
+    ref4 = dbs_copy_ref(pool4.clone().view(e, page, -1), *args)
+    dbs_copy_pool(pool4, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(pool4.view(e, page, -1), ref4)
 
 
 def _paged_case(dev, b, h, kv, d, page, p_max, e, seed, n_planes=0):

@@ -359,10 +359,10 @@ def test_device_views_are_the_live_pools(granite):
 
 def test_unported_serving_configuration_raises(granite):
     _, tc, _, tp = granite
-    for kv_backend, slice_ in (("host", "host-dispatch slice"),
-                               ("sharded", "shards slice")):
-        with pytest.raises(ValueError, match=slice_):
-            ServeEngine(tc, tp, kv_backend=kv_backend, device="cpu")
+    with pytest.raises(ValueError, match="shards slice"):
+        ServeEngine(tc, tp, kv_backend="sharded", device="cpu")
+    with pytest.raises(ValueError, match="models slice"):
+        ServeEngine(t_smoke("musicgen-large"), tp, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(tc, tp)
