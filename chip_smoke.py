@@ -13,8 +13,8 @@ and the script exits non-zero:
 
 1. env — torch/CUDA versions, the card's name and power limit.
 2. build — compile every CUDA source of the port (csrc/*.cu: dbs_rw,
-   dbs_copy, paged_attention, flash_attention) with one nvcc each, all
-   started together; seconds per library.
+   dbs_copy, paged_attention, flash_attention, rwkv6_scan) with one nvcc
+   each, all started together; seconds per library.
 3. kernel_parity (dbs_rw_write) — at full width (pool (E+1, 32, 4096) f32,
    64 lanes), on write batches from the port's own ``write_pages`` over a
    seeded trace (in-place writes, CoW after a snapshot and a clone,
@@ -105,6 +105,35 @@ and the script exits non-zero:
 16. serve_pool — ``ServePool`` of two zero-copy engines (4 slots,
    max_len 512 each): five requests, a fork that stays on its parent's
    shard; everything completes, no leak, replicas consistent.
+17. serve_path (rwkv6-3b) — RWKV-6 serving at its published widths (32
+   layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, untied
+   head; fp32 weights drawn from a seeded generator on the card, after
+   gemma2's are freed): ``ServeEngine(kv_backend="host", n_slots=8,
+   max_len=2048, n_queues=2)`` with ``ExecutionPlan(attn_impl="cuda",
+   compute_dtype="float32")``, so prefill and decode run the recurrence
+   through the ``rwkv6_scan`` kernel from each slot's carried state. 16
+   requests with seeded prompt lengths in 100-1000 (at least one of them a
+   length the reference's prefill cannot chunk, such as 513) and 32 new
+   tokens each. Checked: every request ends with 32 tokens; the kernel
+   launched once per layer per prompt and per decode step, its plain
+   version never, and ``dbs_copy`` never (there is no KV pool); no volume
+   or extent leaks; a request served in a recycled slot equals the same
+   request served alone in a fresh engine; the fork check of phase 9 (the
+   fork copies the parent's recurrent state); eight requests fill the
+   slots and four decode steps run under ``torch.profiler`` (a "profile"
+   line as in phase 12); one ``M.decode_step`` under sync-debug "error". The kernel's inputs of layer 0 of every prompt and
+   of the first layers of a few decode steps are kept.
+18. kernel_parity (rwkv6_scan) — the kernel against its chunked plain
+   version and the step-by-step oracle on those kept inputs and on crafted
+   ones (ragged and prime lengths, a carried state, hd 16 to 64), within
+   rtol 1e-4 and atol 1e-4 widened to 1e-5 of the reference's largest
+   magnitude (long prompts grow the outputs to hundreds; the measured
+   errors are printed); timed with CUDA graphs as in phase 3, per
+   decode and per prefill call, beside the bound (the larger of the
+   chunked form's flops over 67 TFLOP/s and its bytes over 3.35 TB/s). No
+   single PyTorch call computes the recurrence, so its library time is
+   null; the kernels line gives the times per launch over the serve path's
+   mix of prefill and decode launches.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -130,6 +159,16 @@ FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 COPY_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_copy.cu"
+RWKV_SRC = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
+RWKV_MODEL, RWKV_CHUNK = "rwkv6-3b", 64
+RWKV_REF_CHUNK = 256             # the reference's chunk rule (BlockCtx)
+RWKV_KEEP_LAYERS = 4             # layers kept of each kept decode step
+# rtol 1e-4 and atol 1e-4, widened to 1e-5 of the reference's largest
+# magnitude: over a long prompt with little decay the outputs grow to
+# hundreds, and fp32 rounding alone then moves an element near zero by a
+# few 1e-4 (the plain versions themselves differ from an fp64 oracle by up
+# to 3.4e-4 at 1000 tokens of magnitude 500 on a CPU)
+RWKV_RTOL, RWKV_ATOL, RWKV_ATOL_SCALE = 1e-4, 1e-4, 1e-5
 SERVE_MODEL, SERVE_REQUESTS, SERVE_NEW = "gemma2-2b", 16, 32
 SERVE_PROMPT = (100, 1000)       # prompt lengths drawn in [lo, hi]
 SERVE_KEEP_STEPS = (8, 24, 40)   # decode steps whose paged calls are kept
@@ -1480,6 +1519,305 @@ def phase_serve_pool(torch, dev, smi, cfg, params, prompts):
         sh.volumes.close()
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: RWKV-6 serving at rwkv6-3b's full width, and its kernel
+# ---------------------------------------------------------------------------
+def _reference_cannot_chunk(s: int) -> bool:
+    """The reference's prefill reshapes s tokens into s // 256 equal chunks
+    and fails unless that count divides s."""
+    n = max(1, s // RWKV_REF_CHUNK)
+    return s % n != 0
+
+
+def _serve_one(torch, eng, rid, prompt):
+    """Serve one request alone on ``eng`` with its logits recorded."""
+    from repro_torch.serving.engine import GenRequest
+    eng.record_logits = True
+    eng.submit(GenRequest(req_id=rid, prompt=prompt.copy(),
+                          max_new=SERVE_NEW))
+    eng.run(max_steps=4 * SERVE_NEW)
+    eng.record_logits = False
+    return eng.live[rid]
+
+
+def phase_serve_rwkv(torch, dev, smi):
+    """``ServeEngine(kv_backend="host")`` serving rwkv6-3b at its published
+    widths (fp32 weights from a seeded generator on the card), prefill and
+    decode through the ``rwkv6_scan`` kernel: 16 requests (more than the 8
+    slots, so slots are recycled), a fork check, a recycled-slot check
+    against a fresh engine, and one decode step under sync-debug "error".
+    Keeps the kernel's inputs from a few decode steps and from layer 0 of
+    every prompt for phase 18."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.core import dbs
+    from repro_torch.kernels.dbs import copy_kernel
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import GenRequest
+    cfg = get_config(RWKV_MODEL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = M.param_count_actual(params)
+    eng = _serve_engine(torch, cfg, params, dev, kv_backend="host")
+    rng = np.random.default_rng(SEED + 5)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    if not any(_reference_cannot_chunk(int(n)) for n in lens):
+        lens[-1] = 513          # a length the reference's prefill rejects
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+
+    clock = {"prefill": 0.0, "decode": 0.0}
+    counts = {"decode_steps": 0, "prefills": 0, "layer": 0}
+    kept = {"decode": [], "prefill": []}
+    inner = {"prefill": eng._prefill_one_host, "decode": M.decode_step,
+             "scan": rk.rwkv6_scan_fwd}
+
+    def timed(name, fn, count):
+        def run(*a, **k):
+            counts[count] += 1
+            counts["layer"] = 0
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def scan(r, k, v, logw, u, **kw):
+        layer = counts["layer"]
+        counts["layer"] += 1
+        keep = None
+        if r.shape[1] > 1 and layer == 0:
+            keep = kept["prefill"]
+        elif (r.shape[1] == 1 and layer < RWKV_KEEP_LAYERS
+              and counts["decode_steps"] in SERVE_KEEP_STEPS):
+            keep = kept["decode"]
+        if keep is not None:
+            s0 = kw.get("s0")
+            keep.append(tuple(t.clone() for t in (r, k, v, logw, u))
+                        + (None if s0 is None else s0.clone(),))
+        return inner["scan"](r, k, v, logw, u, **kw)
+
+    eng._prefill_one_host = timed("prefill", inner["prefill"], "prefills")
+    M.decode_step = timed("decode", inner["decode"], "decode_steps")
+    rk.rwkv6_scan_fwd = scan
+    for mod in (rk, copy_kernel):
+        mod.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for rid, pr in enumerate(prompts):
+            eng.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
+        outs = eng.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        traffic_counts, traffic_clock = dict(counts), dict(clock)
+        launches = dict(rk.LAUNCHES)
+        copies = dict(copy_kernel.LAUNCHES)
+    finally:
+        eng._prefill_one_host = inner["prefill"]
+        M.decode_step = inner["decode"]
+        rk.rwkv6_scan_fwd = inner["scan"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    st = dbs.stats(eng.state)
+    bad = [rid for rid in range(SERVE_REQUESTS)
+           if len(outs.get(rid, [])) != SERVE_NEW]
+    if bad:
+        raise AssertionError(f"requests {bad} did not end with "
+                             f"{SERVE_NEW} tokens")
+    if st["volumes"] or st["extents_used"]:
+        raise AssertionError(f"volumes or extents leaked: {st}")
+    want = cfg.n_layers * (traffic_counts["prefills"]
+                           + traffic_counts["decode_steps"])
+    if traffic_counts["prefills"] != SERVE_REQUESTS or \
+            launches["rwkv6_scan"] != want:
+        raise AssertionError(f"rwkv6_scan launched {launches} times, not "
+                             f"{cfg.n_layers} per prompt and per decode "
+                             f"step ({want})")
+    if any(rk.PLAIN_CALLS.values()) or copies["dbs_copy"]:
+        raise AssertionError(f"the plain scan ran ({rk.PLAIN_CALLS}) or "
+                             f"dbs_copy launched ({copies}) on the RWKV path")
+    # every slot has been recycled (and moved on by idle decode lanes): a
+    # request served there against the same request in a fresh engine
+    rid = 2000
+    recycled = _serve_one(torch, eng, rid, prompts[0])
+    fresh = _serve_engine(torch, cfg, params, dev, kv_backend="host")
+    alone = _serve_one(torch, fresh, rid, prompts[0])
+    del fresh
+    if alone.out_tokens != recycled.out_tokens:
+        raise AssertionError("a request in a recycled slot differs from the "
+                             "same request served alone")
+    recycle_diff = float(np.abs(np.stack(alone.logit_trace)
+                                - np.stack(recycled.logit_trace)).max())
+    fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
+    # where the decode step goes: eight requests fill the slots; after
+    # admission and prefill, PROFILE_STEPS steps profiled
+    for i in range(eng.n_slots):
+        eng.submit(GenRequest(req_id=4000 + i, prompt=prompts[i],
+                              max_new=2 + PROFILE_STEPS))
+    eng.step()
+    _profiled(torch, f"rwkv6-3b decode x{PROFILE_STEPS}",
+              lambda: [eng.step() for _ in range(PROFILE_STEPS)], smi)
+    eng.run(max_steps=4)
+    st_fork = dbs.stats(eng.state)
+    if st_fork["volumes"] or st_fork["extents_used"]:
+        raise AssertionError(f"the fork check or the profile leaked: "
+                             f"{st_fork}")
+    # one decode step never waits on the host
+    last = torch.zeros((eng.n_slots,), dtype=torch.int64, device=dev)
+    pos = torch.as_tensor(eng.pos, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        M.decode_step(params, last, pos, cfg, eng.plan, eng.caches)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    gen_tokens = SERVE_REQUESTS * SERVE_NEW
+    emit(phase="serve_path", model=RWKV_MODEL, kv_backend="host", config=dict(
+        kv_backend="host", n_slots=8, max_len=2048, n_queues=2,
+        attn_impl="cuda", dtype="float32", n_layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.d_model // cfg.ssm.rwkv_head_dim,
+        head_dim=cfg.ssm.rwkv_head_dim, d_ff=cfg.d_ff,
+        vocab=cfg.vocab_size, tie_embeddings=cfg.tie_embeddings),
+        params=n_params, requests=SERVE_REQUESTS,
+        prompt_tokens=int(lens.sum()),
+        prompt_lengths=[int(x) for x in lens],
+        reference_cannot_chunk=[int(x) for x in lens
+                                if _reference_cannot_chunk(int(x))],
+        generated_tokens=gen_tokens, init_seconds=init_s, run_seconds=run_s,
+        prefill_seconds=traffic_clock["prefill"],
+        decode_seconds=traffic_clock["decode"],
+        decode_steps=traffic_counts["decode_steps"],
+        decode_tokens_per_s=gen_tokens / traffic_clock["decode"],
+        tokens_per_s=gen_tokens / run_s, launches=launches,
+        launches_per_prompt=cfg.n_layers,
+        launches_per_decode_step=cfg.n_layers,
+        plain_calls=dict(rk.PLAIN_CALLS), dbs_copy_launches=copies["dbs_copy"],
+        dbs_stats=st, recycled_slot_tokens_equal=True,
+        recycled_max_logit_diff=recycle_diff, fork=fork,
+        no_sync_decode_step=True, max_memory_allocated=peak, card=smi)
+    return eng, params, kept, launches["rwkv6_scan"], traffic_counts
+
+
+def _rwkv_work(b, s, h, d, chunk, with_state):
+    """(flops, bytes) the chunked form needs for one call: per (b, h) and
+    chunk of L tokens, L hd^2 multiply-adds for the inter-chunk read
+    (L x hd by hd x hd) and as many for the state update (hd x L by
+    L x hd), hd L (L - 1) / 2 for the intra-chunk matrix, hd L (L + 1) / 2
+    for its product with v and hd L for the bonus (2 flops each; exps not
+    counted). Bytes: r, k, v, logw and y, u, the state written and, when
+    carried in, read."""
+    sq = 0
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        sq += n * n
+    macs = b * h * (2 * s * d * d + d * sq + d * s)
+    n_bytes = 4 * (5 * b * s * h * d + h * d
+                   + (2 if with_state else 1) * b * h * d * d)
+    return 2 * macs, n_bytes
+
+
+def phase_rwkv_kernel(torch, kept):
+    """``rwkv6_scan`` against both plain versions (the chunked schedule and
+    the step oracle) on the serve path's kept inputs and on crafted ones
+    (ragged and prime lengths, a carried state, the decode batch), within
+    RWKV_TOL; timed with CUDA graphs as in phase 3 on the kept decode and
+    prefill calls, beside the bound."""
+    from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_ref,
+                                                rwkv6_scan_fwd, rwkv6_scan_ref)
+    dec, pre = kept["decode"], kept["prefill"]
+    if not dec or not pre:
+        raise AssertionError("no rwkv6_scan inputs were kept")
+    dev = dec[0][0].device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    crafted = []
+    for b, s, h, d in ((1, 100, 40, 64), (1, 97, 40, 64), (8, 1, 40, 64),
+                       (2, 131, 3, 32), (3, 61, 5, 16)):
+        buf = torch.randn((b, s, 4, h, d), generator=gen, device=dev)
+        buf[:, :, 3] = -torch.exp(buf[:, :, 3] * 0.5 - 1.0)
+        r, k, v, logw = buf.unbind(2)
+        u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+        s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
+        crafted.append((r, k, v, logw, u, s0))
+    err, scaled = {}, {}
+    for name, calls in (("decode", dec), ("prefill", pre),
+                        ("crafted", crafted)):
+        e = es = 0.0
+        for r, k, v, logw, u, s0 in calls:
+            y, st = rwkv6_scan_fwd(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0)
+            z = s0 if s0 is not None else torch.zeros_like(st)
+            for wy, ws in (rwkv6_chunked_ref(r, k, v, logw, u, s0,
+                                             chunk=RWKV_CHUNK),
+                           rwkv6_scan_ref(r, k, v, logw, u, z)):
+                for got, want in ((y, wy), (st, ws)):
+                    top = float(want.abs().max())
+                    torch.testing.assert_close(
+                        got, want, rtol=RWKV_RTOL,
+                        atol=max(RWKV_ATOL, RWKV_ATOL_SCALE * top))
+                    d = float((got - want).abs().max())
+                    e, es = max(e, d), max(es, d / max(top, 1e-30))
+        err[name], scaled[name] = e, es
+    timing = {}
+    for name, calls in (("decode", dec), ("prefill", pre)):
+        work = [_rwkv_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
+                           RWKV_CHUNK, c[5] is not None) for c in calls]
+        n = len(calls)
+        ms = graph_ms(torch, lambda: [rwkv6_scan_fwd(
+            r, k, v, w, u, chunk=RWKV_CHUNK, s0=s0)
+            for r, k, v, w, u, s0 in calls], n)
+        plain = graph_ms(torch, lambda: [rwkv6_chunked_ref(
+            r, k, v, w, u, s0, chunk=RWKV_CHUNK)
+            for r, k, v, w, u, s0 in calls], n)
+        f = sum(w[0] for w in work) / n
+        nb = sum(w[1] for w in work) / n
+        timing[name] = {"calls": n, "shape": list(calls[0][0].shape),
+                        "ms": ms, "plain_ms": plain, "flops_per_call": f,
+                        "bytes_per_call": nb,
+                        "bound_ms": max(f / FP32_FLOPS_PER_S,
+                                        nb / HBM_BYTES_PER_S) * 1e3,
+                        "bound_by": ("operations" if f / FP32_FLOPS_PER_S
+                                     >= nb / HBM_BYTES_PER_S else "bytes")}
+    emit(phase="kernel_parity", kernel="rwkv6_scan", chunk=RWKV_CHUNK,
+         max_abs_err=err, max_err_over_largest_magnitude=scaled,
+         crafted_shapes=[list(c[0].shape) for c in crafted],
+         prefill_lengths=[int(c[0].shape[1]) for c in pre],
+         tolerance={"rtol": RWKV_RTOL, "atol": f"max({RWKV_ATOL}, "
+                    f"{RWKV_ATOL_SCALE} * max|reference|)"}, timing=timing)
+    return {"name": "rwkv6_scan", "route": "cuda", "source": RWKV_SRC,
+            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:66",
+            "max_abs_err": max(err.values()), "timing": timing}
+
+
+def _rwkv_entry(k, launches, counts, n_layers):
+    """The kernels-line entry: ms, plain_ms and bound_ms per launch over the
+    serve path's mix (n_layers launches per prompt and per decode step),
+    from the prefill and decode timings."""
+    t = k.pop("timing")
+    n_pre = n_layers * counts["prefills"]
+    n_dec = n_layers * counts["decode_steps"]
+
+    def mix(key):
+        return (n_pre * t["prefill"][key] + n_dec * t["decode"][key]) / (
+            n_pre + n_dec)
+    # what bounds the mix: the kind of call that holds most of its bound
+    major = max(("prefill", n_pre), ("decode", n_dec),
+                key=lambda kn: kn[1] * t[kn[0]]["bound_ms"])[0]
+    k.update(launches=launches, launches_prefill=n_pre,
+             launches_decode=n_dec, ms=mix("ms"), plain_ms=mix("plain_ms"),
+             bound_ms=mix("bound_ms"), bound_by=t[major]["bound_by"],
+             library_ms=None,
+             library_call="none: no single PyTorch call computes the RWKV-6 "
+                          "recurrence",
+             prefill=t["prefill"], decode=t["decode"])
+    return k
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -1596,8 +1934,17 @@ def main() -> int:
                   serve_width_bytes_per_call=serve_copy["bytes_per_call"])
     phase_host_vs_zero(torch, dev, cfg, params, prompts)
     phase_serve_pool(torch, dev, smi, cfg, params, prompts)
+    del cfg, params, prompts
+    free()
+
+    eng, params, kept, rwkv_launches, rwkv_counts = phase_serve_rwkv(
+        torch, dev, smi)
+    rwkv_k = _rwkv_entry(phase_rwkv_kernel(torch, kept), rwkv_launches,
+                         rwkv_counts, eng.cfg.n_layers)
+    del eng, params, kept
+    free()
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
-                                  flash_k]}))
+                                  flash_k, rwkv_k]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

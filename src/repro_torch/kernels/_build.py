@@ -33,6 +33,7 @@ SOURCES: Dict[str, Path] = {
     / "paged_attention.cu",
     "flash_attention": KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "rwkv6_scan": KERNELS / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }
 
 _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -60,6 +61,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # seq; elements, 64-bit); causal, window; scale, logit_cap; stream
         "flash_attention": [_vp] * 4 + [_ci] * 6 + [ctypes.c_int64] * 12
         + [_ci, _ci, _cf, _cf, _vp],
+    },
+    "rwkv6_scan": {
+        # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;
+        # r/k/v/logw/y strides (batch, seq, head; elements, 64-bit); stream
+        "rwkv6_scan": [_vp] * 8 + [_ci] * 5 + [ctypes.c_int64] * 15 + [_vp],
     },
 }
 

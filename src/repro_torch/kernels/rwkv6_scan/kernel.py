@@ -1,0 +1,76 @@
+"""``rwkv6_scan_fwd``: wrapper of the hand-written CUDA kernel.
+
+Port of ``repro/kernels/rwkv6_scan/kernel.py``; the kernel lives in
+``csrc/rwkv6_scan.cu`` (the source note there gives its bound, schedule
+and decay form), built at first use by ``kernels/_build.py``. The TPU
+version halves its chunk until it divides the sequence and always starts
+from a zero state; the CUDA kernel takes a ragged last chunk and an
+optional starting state ``s0``.
+
+The wrapper checks dtype, shape and device, and that the head dimension is
+contiguous: the kernel reads r, k, v and logw through (batch, sequence,
+head) strides, so the model layout needs no copy. It launches the kernel
+for tensors on a CUDA device and calls the plain chunked version (ref.py)
+for tensors on the CPU; a CUDA tensor gets the kernel or an error.
+``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32 only.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels._build import check_tensor, library, raise_on
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
+
+LAUNCHES: Dict[str, int] = {"rwkv6_scan": 0}
+PLAIN_CALLS: Dict[str, int] = {"rwkv6_scan": 0}
+MAX_HEAD_DIM = 64                   # the kernel's shared-memory tiles
+MAX_CHUNK = 64
+
+
+def reset_counts() -> None:
+    for counts in (LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
+    """r,k,v,logw: (B,S,H,hd) fp32, any strides with hd contiguous; u:
+    (H,hd); s0: (B,H,hd,hd) or None (zeros). Returns (y (B,S,H,hd),
+    s_final (B,H,hd,hd)), both fp32 and contiguous."""
+    b, s, h, d = r.shape
+    dev = r.device
+    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+        check_tensor(name, t, torch.float32, (b, s, h, d), dev,
+                     contiguous=False)
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+    check_tensor("u", u, torch.float32, (h, d), dev)
+    if s0 is not None:
+        check_tensor("s0", s0, torch.float32, (b, h, d, d), dev)
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if dev.type == "cpu":
+        PLAIN_CALLS["rwkv6_scan"] += 1
+        return rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+    if dev.type != "cuda":
+        raise ValueError(f"rwkv6_scan: no kernel for device {dev}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}, the kernel's limit")
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}, the kernel's limit")
+    y = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+    s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
+    lib = library("rwkv6_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rwkv6_scan(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+            u.data_ptr(), None if s0 is None else s0.data_ptr(),
+            y.data_ptr(), s_out.data_ptr(), b, s, h, d, chunk,
+            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *logw.stride()[:3], *y.stride()[:3], stream)
+    raise_on(err, "rwkv6_scan")
+    LAUNCHES["rwkv6_scan"] += 1
+    return y, s_out

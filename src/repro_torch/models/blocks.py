@@ -1,19 +1,20 @@
-"""Transformer blocks, the layer schedule and KV-cache structures.
+"""Transformer and RWKV blocks, the layer schedule and cache structures.
 
 Port of ``repro/models/blocks.py`` for global- and local-attention layers
-with a dense MLP. A model is a sequence of *segments*; each segment is
+with a dense MLP, and RWKV-6 layers (time mix and channel mix,
+``models/ssm.py``). A model is a sequence of *segments*; each segment is
 ``count`` repetitions of a static tuple of layer signatures. Prefill and
 decode walk the layers one by one and thread heterogeneous per-layer caches
 (paged DBS pools for global attention, ring buffers for sliding-window
-layers, dense caches otherwise).
+layers, O(1) recurrent states for RWKV, dense caches otherwise).
 
 Caches are updated in place and returned (the reference returns new
 arrays): at full width a decode step would otherwise copy every ring cache.
 A cache entry that is a view (the serving engine's per-slot rows) writes
 through to the tensor it views.
 
-MLA, hybrid (Mamba) and RWKV token mixers and MoE MLPs raise a
-``ValueError`` naming the models slice of the port that brings them. The
+MLA and hybrid (Mamba) token mixers and MoE MLPs raise a ``ValueError``
+naming the models slice of the port that brings them. The
 reference's activation-sharding constraint is dropped: it does nothing on
 one device.
 """
@@ -26,14 +27,15 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (ArchConfig, ATTN_GLOBAL, ATTN_HYBRID,
-                                      ATTN_LOCAL, MLP_DENSE)
+                                      ATTN_LOCAL, ATTN_RWKV, MLP_DENSE)
 from repro_torch.core.dbs import last_live_lane
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (Params, apply_mlp, dense_init,
                                        init_mlp, rms_norm)
 
 INT32_MAX = 2 ** 31 - 1
-PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL)
+PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL, ATTN_RWKV)
 
 
 # ---------------------------------------------------------------------------
@@ -95,7 +97,7 @@ def layer_schedule(cfg: ArchConfig) -> List[Segment]:
 def check_ported(sig: LayerSig) -> None:
     """Raise a ValueError naming the slice that brings an unported layer."""
     if sig.attn not in PORTED_ATTN:
-        raise ValueError(f"{sig.attn!r} layers (MLA, hybrid and RWKV token "
+        raise ValueError(f"{sig.attn!r} layers (MLA and hybrid token "
                          "mixers) land with the models slice of the port")
     if sig.mlp != MLP_DENSE:
         raise ValueError(f"{sig.mlp!r} MLPs land with the models slice of "
@@ -113,6 +115,9 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, sig: LayerSig) -> Params:
     norm_w = (lambda n: torch.zeros((n,), device=dev)) if _gemma(cfg) else (
         lambda n: torch.ones((n,), device=dev))
     p: Params = {"ln1": norm_w(d), "ln2": norm_w(d)}
+    if sig.attn == ATTN_RWKV:
+        p["tmix_cmix"] = ssm.init_rwkv6(gen, cfg)
+        return p
     p.update({
         "q": dense_init(gen, d, cfg.n_heads * hd),
         "k": dense_init(gen, d, cfg.n_kv_heads * hd),
@@ -147,6 +152,8 @@ def init_layer_cache(cfg: ArchConfig, sig: LayerSig, batch: int, max_len: int,
                      page_owner_stride: int = 1, device=None) -> Params:
     """Cache dict for one layer on ``device``."""
     check_ported(sig)
+    if sig.attn == ATTN_RWKV:
+        return {"rwkv": ssm.rwkv6_init_state(cfg, batch, dtype, device)}
     hd = cfg.resolved_head_dim
     page = cfg.page_blocks
     kd = vd = hd
@@ -349,6 +356,21 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
     norm = _norm(cfg)
     new_cache = ctx.cache
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if sig.attn == ATTN_RWKV:
+        tp = p["tmix_cmix"]
+        st = ctx.cache["rwkv"]
+        h = norm(x, p["ln1"])
+        y, st_t = ssm.rwkv6_time_mix(tp, h, st, cfg, chunk=ctx.ssm_chunk,
+                                     impl=ctx.attn_impl)
+        x = x + y
+        h2 = norm(x, p["ln2"])
+        y2, st_c = ssm.rwkv6_channel_mix(tp, h2, st)
+        x = x + y2
+        # in place: the serving engine's per-slot views write through
+        for key, val in {**st_t, **st_c}.items():
+            st[key].copy_(val)
+        return x, new_cache, aux
 
     resid = x
     h = norm(x, p["ln1"])

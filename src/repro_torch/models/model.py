@@ -6,7 +6,8 @@ weight from one ``torch.Generator`` on its device and holds the layers
 unstacked (``params["layers_unstacked"]``, one dict per layer, as the
 reference's ``unstack_params`` gives them); trees carried over from the
 reference (``core/convert.py params_from_numpy``) keep its stacked
-``segments``, which ``_iter_layers`` slices per layer as views.
+``segments``, which ``_iter_layers`` slices per layer as views (nested
+parameter dicts, such as an RWKV layer's ``tmix_cmix``, included).
 """
 from __future__ import annotations
 

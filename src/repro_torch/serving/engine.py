@@ -40,6 +40,21 @@ unpadded with only its last page's K/V zero-padded (the reference prefills
 the padded prompt, whose pad tokens push real positions out of a window
 ring shorter than the padded prompt).
 
+Pure-recurrent nets (RWKV-6) serve on ``kv_backend="host"`` only, as in
+the reference (``"fused"`` raises: it needs a paged layer). Their state
+lives in per-slot model caches (``{"rwkv": {wkv, shift_t, shift_c}}``),
+which prefill and decode update in place; the volume still carries the
+session's metadata pages, and no ``dbs_copy`` runs (there is no pool).
+The reference cannot serve them (ROADMAP queue 3), and the port differs
+where: a slot's cache rows are taken through a tree map (the reference
+slices the nested cache dict itself and raises ``KeyError`` at the first
+step); admission zeroes the slot's recurrent rows (the reference starts
+prefill from the last occupant's state, moved on by the idle decode
+lanes); ``fork`` copies every per-slot row of the parent's non-paged
+caches, recurrent state and window rings alike (the reference copies
+none); and the prompt is prefilled unpadded (the reference's page padding
+feeds pad tokens into the recurrence).
+
 ``ServePool`` steps several engines as shards. ``kv_backend="sharded"``
 lands with the shards slice. The engine runs on ``device`` (default
 ``cuda``, with no CPU fallback).
@@ -68,6 +83,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
 UNPORTED_KV_BACKENDS = {"sharded": "the shards slice"}
+SHARED_CACHE_KEYS = ("pool_k", "pool_v", "block_table")
 
 
 @dataclass
@@ -94,6 +110,25 @@ def _paged_layer_info(cfg: ArchConfig, sig) -> Optional[Tuple[int, int, int]]:
         return m.kv_lora_rank + m.rope_head_dim, m.kv_lora_rank, 1
     hd = cfg.resolved_head_dim
     return hd, hd, cfg.n_kv_heads
+
+
+def _slot_rows(cache, slot: int):
+    """The slot's rows of a per-slot layer cache (ring or recurrent, nested
+    dicts kept), as views: writes to them land in the batch cache."""
+    return {k: (_slot_rows(v, slot) if isinstance(v, dict)
+                else v[slot:slot + 1]) for k, v in cache.items()}
+
+
+def _per_slot_tensors(cache):
+    """Every tensor of a layer cache whose leading dimension is the slot
+    (all but the shared paged pools and block table), nested dicts walked."""
+    for k, v in cache.items():
+        if k in SHARED_CACHE_KEYS:
+            continue
+        if isinstance(v, dict):
+            yield from _per_slot_tensors(v)
+        else:
+            yield v
 
 
 class ServeEngine:
@@ -136,7 +171,7 @@ class ServeEngine:
             if not self._paged:
                 raise ValueError("zero-copy serving needs at least one "
                                  "paged-attention layer; use "
-                                 "kv_backend='host'")
+                                 "kv_backend='host' for pure-recurrent nets")
             kvs = {info[3] for info in self._paged}
             if len(kvs) > 1:
                 raise ValueError(f"mixed KV head counts {sorted(kvs)} not "
@@ -238,15 +273,15 @@ class ServeEngine:
             return None
         child.slot = int(ids[0])
         child.volume = vid
-        # the sliding-window layers keep their K/V in per-slot ring caches,
-        # not in the volume: the child's slot takes a copy of the parent's
-        # (bounded by the window, not the context). The reference skips
-        # this, so its forks of models with local layers read the slot's
-        # stale ring (ROADMAP queue 3).
+        # window rings and recurrent state live in per-slot cache rows, not
+        # in the volume: the child's slot takes a copy of the parent's
+        # (bounded by the window or the state, not the context). The
+        # reference skips this, so its forks read the slot's stale rows
+        # (ROADMAP queue 3).
         for c in self.caches:
-            if c is not None and "ring_k" in c:
-                for key in ("ring_k", "ring_v", "ring_pos"):
-                    c[key][child.slot] = c[key][src.slot]
+            if c is not None:
+                for t in _per_slot_tensors(c):
+                    t[child.slot] = t[src.slot]
         self.slot_vol[child.slot] = vid
         self.pos[child.slot] = self.pos[src.slot]
         self.live[new_req_id] = child
@@ -280,10 +315,19 @@ class ServeEngine:
             g: GenRequest = r.payload
             g.slot = int(sid)
             g.volume = self.volumes.create().vid
+            self._reset_recurrent(g.slot)
             self.slot_vol[g.slot] = g.volume
             self.live[g.req_id] = g
             admitted.append(g)
         return admitted
+
+    def _reset_recurrent(self, slot: int) -> None:
+        """Zero the slot's recurrent-state rows, so a prompt starts from the
+        initial state and not from the last occupant's (module note)."""
+        for c in self.caches:
+            if c is not None and "rwkv" in c:
+                for t in _per_slot_tensors(c["rwkv"]):
+                    t[slot].zero_()
 
     # ---------------------------------------------- zero-copy KV data plane
     def _pump_writes(self) -> None:
@@ -390,8 +434,7 @@ class ServeEngine:
                     "v": torch.zeros((1, s, n_kv, vd), dtype=dtype,
                                      device=dev)})
             else:
-                caches_one.append({k: v[g.slot:g.slot + 1]
-                                   for k, v in c.items()})
+                caches_one.append(_slot_rows(c, g.slot))
         tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
         _logits, caches_one = M.prefill(self.params, tok, self.cfg,
                                         self.plan, caches_one)
@@ -426,8 +469,8 @@ class ServeEngine:
     def _prefill_one_host(self, g: GenRequest) -> None:
         """Allocate the prompt's pages, then prefill straight into the
         model-owned pools through the volume's block table (the slot's ring
-        rows are views, written in place). The prompt runs unpadded; its
-        last page's K/V is zero-padded (module note)."""
+        and recurrent rows are views, written in place). The prompt runs
+        unpadded; its last page's K/V is zero-padded (module note)."""
         prompt = np.asarray(g.prompt)
         s = prompt.shape[0]
         if s == 0:
@@ -448,8 +491,7 @@ class ServeEngine:
                                    "pool_v": c["pool_v"],
                                    "block_table": bt_row})
             else:
-                caches_one.append({k: v[g.slot:g.slot + 1]
-                                   for k, v in c.items()})
+                caches_one.append(_slot_rows(c, g.slot))
         tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
         M.prefill(self.params, tok, self.cfg, self.plan, caches_one)
         self.pos[g.slot] = s

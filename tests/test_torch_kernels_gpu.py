@@ -19,7 +19,14 @@ bit for bit against ``dbs_copy_ref``.
 plain versions on the card within atol 1e-4 and rtol 1e-4 (the sums run in
 another order), on the parity geometries of the CPU tests and at the
 serving path's full width (gemma2-2b: 8 heads, 4 KV heads, hd 256, page
-32). Imports no JAX.
+32).
+
+``rwkv6_scan``: the fp32 kernel against both plain versions (the chunked
+schedule and the step-by-step oracle) within atol 1e-4 and rtol 1e-4, at
+hd 16, 32 and 64, with ragged and prime lengths, a carried state ``s0``,
+inputs read through the model layout's strides, and the serving path's
+shapes (rwkv6-3b: 40 heads of 64; prefill B=1, decode B=8 and S=1).
+Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -39,6 +46,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_fwd, paged_attention_pool_fwd, paged_attention_pool_ref,
     paged_attention_ref)
+from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
+    rwkv6_chunked_ref, rwkv6_scan, rwkv6_scan_fwd, rwkv6_scan_ref)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -221,3 +230,58 @@ def test_flash_attention_kernel_matches_plain(b, sq, sk, h, kv, d, window,
         assert got.is_contiguous()
         torch.testing.assert_close(got, want, **TOL)
     torch.cuda.synchronize()
+
+
+def _rwkv_case(dev, b, s, h, d, seed, with_state):
+    """r, k, v and logw as views of one (B, S, 4, H, hd) buffer (the
+    model layout's strides), u, and s0 (zeros unless ``with_state``)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.randn((b, s, 4, h, d), generator=gen, device=dev)
+    buf[:, :, 3] = -torch.exp(buf[:, :, 3] * 0.5 - 1.0)
+    r, k, v, logw = buf.unbind(2)
+    u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+    s0 = (torch.randn((b, h, d, d), generator=gen, device=dev)
+          if with_state else torch.zeros((b, h, d, d), device=dev))
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d,chunk", [
+    (2, 128, 3, 64, 32), (1, 64, 2, 32, 64), (2, 96, 4, 16, 16),
+    (1, 100, 2, 64, 64), (2, 97, 3, 32, 64), (3, 61, 2, 16, 16),
+    (1, 513, 40, 64, 64), (8, 1, 40, 64, 64), (2, 1, 3, 16, 8)])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_scan_kernel_matches_plain(b, s, h, d, chunk, with_state):
+    """The reference sweep's geometries, ragged (100 = 64 + 36) and prime
+    lengths, the serving prefill (513 tokens: 8 full chunks and 1) and
+    decode (B=8, S=1) at rwkv6-3b's width."""
+    dev = _cuda()
+    r, k, v, logw, u, s0 = _rwkv_case(dev, b, s, h, d, s * 31 + d,
+                                      with_state)
+    y, st = rwkv6_scan_fwd(r, k, v, logw, u, chunk=chunk,
+                           s0=s0 if with_state else None)
+    for want_y, want_s in (rwkv6_chunked_ref(r, k, v, logw, u, s0,
+                                             chunk=chunk),
+                           rwkv6_scan_ref(r, k, v, logw, u, s0)):
+        torch.testing.assert_close(y, want_y, **TOL)
+        torch.testing.assert_close(st, want_s, **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_kernel_limits():
+    """Beyond its shared-memory tiles the wrapper raises, naming the limit;
+    ``rwkv6_scan`` is the same kernel; s0 may alias nothing it writes."""
+    dev = _cuda()
+    r, k, v, logw, u, s0 = _rwkv_case(dev, 1, 8, 2, 80, 0, True)
+    with pytest.raises(ValueError, match="64"):
+        rwkv6_scan_fwd(r, k, v, logw, u)
+    r, k, v, logw, u, s0 = _rwkv_case(dev, 1, 8, 2, 32, 0, True)
+    with pytest.raises(ValueError, match="64"):
+        rwkv6_scan_fwd(r, k, v, logw, u, chunk=128)
+    keep = s0.clone()
+    y, st = rwkv6_scan(r, k, v, logw, u, s0=s0)
+    assert torch.equal(s0, keep)
+    want_y, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(st, want_s, **TOL)
