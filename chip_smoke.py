@@ -23,7 +23,8 @@ and the script exits non-zero:
    from CUDA graphs of one pass over the batches, median of 20 passes
    (kernel, plain version, and one PyTorch library call as a yardstick the
    port never calls), beside the bound (bytes over 3.35 TB/s, the H100 SXM
-   HBM rate).
+   HBM rate), with the kernel's registers, shared memory and blocks in
+   flight.
 4. kernel_parity (dbs_copy) — the same at the block device's width, on the
    CoW batches (``cow_src``, ``dst``, ``cow_src >= 0``) of a second
    ``write_pages`` trace whose free ring hands extent 0 to a CoW lane: live
@@ -77,9 +78,11 @@ and the script exits non-zero:
    its plain version on those kept full-width inputs, over the serve
    path's own pool, within atol 1e-4 and rtol 1e-4; timed with CUDA graphs
    as in phase 3, beside the bound (paged: live K/V pages plus q and the
-   output over 3.35 TB/s; flash: the larger of its causal flops over the
-   67 TFLOP/s fp32 rate and its bytes over 3.35 TB/s) and one PyTorch
-   yardstick labelled with what it differs in.
+   output over 3.35 TB/s; flash: the larger of its causal flops over
+   165 TFLOP/s, the fp32 rate of 3xTF32 on the tensor cores that it
+   computes with, and its bytes over 3.35 TB/s) and one PyTorch yardstick
+   labelled with what it differs in; flash also with its registers, shared
+   memory and blocks in flight.
 11. no_sync (serving) — one call of the decode program under
    ``torch.cuda.set_sync_debug_mode("error")``.
 12. profile (serving) — where a serving step's time goes, on the same
@@ -156,6 +159,9 @@ SRC = ROOT / "src"
 KERNEL_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_rw.cu"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
+# fp32 work in 3xTF32 on the tensor cores: three TF32 products per fp32
+# multiply-add at the H100 SXM's 495 TFLOP/s dense TF32 rate
+TF32X3_FLOPS_PER_S = 495e12 / 3
 PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 COPY_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_copy.cu"
@@ -288,12 +294,23 @@ def parity_batches(torch, dbs, route, dev, n_extents, max_pages, rng,
     return out
 
 
+def resources(torch, info, grid_blocks):
+    """A kernel's registers and shared memory per block (``info``, from
+    cudaFuncGetAttributes) and its blocks in flight: the grid's blocks, at
+    most its resident blocks per SM on every SM of the card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {**info, "sms": sms, "grid_blocks": grid_blocks,
+            "blocks_in_flight": min(grid_blocks,
+                                    info["blocks_per_sm"] * sms)}
+
+
 def phase_write_kernel(torch, args, dev):
     import numpy as np
     from repro_torch.core import dbs
     from repro_torch.kernels.dbs import (dbs_rw_write, dbs_rw_write_ref,
                                          dbs_write_bytes)
     from repro_torch.kernels.dbs.ops import _route_writes
+    from repro_torch.kernels.dbs.rw_kernel import write_info
     rng = np.random.default_rng(SEED)
     n_e = args.n_extents
     batches = parity_batches(torch, dbs, _route_writes, dev, n_e,
@@ -312,6 +329,10 @@ def phase_write_kernel(torch, args, dev):
                              f"(max abs err {w_err})")
     w_bytes = [dbs_write_bytes(nl, nc, PAGE_BLOCKS, BLOCK, 4)
                for *_, nl, nc in batches]
+    # thread blocks per batch that copy a block (the rest return at once)
+    copying = [int(((dst != n_e)[:, None] & ((lane_of >= 0)
+                                               | (src != dst)[:, None]))
+                   .sum()) for src, dst, lane_of, *_ in batches]
     # the library yardstick: index_copy_ of the composed live rows, whole
     # 512 KiB rows for every live lane (more bytes than the kernel moves)
     composed = []
@@ -337,7 +358,9 @@ def phase_write_kernel(torch, args, dev):
             "replaces": "src/repro/kernels/dbs/rw_kernel.py:42",
             "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain,
             "bound_ms": mean_wb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": w_lib, "bytes_per_batch": mean_wb}
+            "library_ms": w_lib, "bytes_per_batch": mean_wb,
+            **resources(torch, write_info(vec4=True), PAGE_BLOCKS * BATCH),
+            "copying_blocks_per_batch": sum(copying) / n}
 
 
 # ---------------------------------------------------------------------------
@@ -1097,6 +1120,7 @@ def phase_flash_kernel(torch, kept):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.kernel import flash_info
     calls = kept["flash"]
     if len(calls) < 2:
         raise AssertionError("the local and global prefill inputs were not "
@@ -1118,7 +1142,7 @@ def phase_flash_kernel(torch, kept):
         nb = (2 * q.numel() + k.numel() + v.numel()) * 4
         flops.append(f)
         n_bytes.append(nb)
-        bounds.append(max(f / FP32_FLOPS_PER_S, nb / HBM_BYTES_PER_S))
+        bounds.append(max(f / TF32X3_FLOPS_PER_S, nb / HBM_BYTES_PER_S))
     n = len(calls)
     ms = graph_ms(torch, lambda: [flash_attention_fwd(q, k, v, **kw)
                                   for q, k, v, kw in calls], n)
@@ -1130,6 +1154,9 @@ def phase_flash_kernel(torch, kept):
         q, k, v, is_causal=True, enable_gqa=True) for q, k, v in cont], n)
     f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
     bound = sum(bounds) / n
+    info = flash_info(calls[0][0].shape[-1])
+    grid = [c[0].shape[0] * c[0].shape[1]
+            * -(-c[0].shape[2] // info["rows_per_block"]) for c in calls]
     emit(phase="kernel_parity", kernel="flash_attention", calls=n,
          q_shapes=[list(c[0].shape) for c in calls],
          windows=[c[3]["window"] for c in calls], max_abs_err=err,
@@ -1138,12 +1165,16 @@ def phase_flash_kernel(torch, kept):
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound * 1e3,
-            "bound_by": ("operations" if f_mean / FP32_FLOPS_PER_S
+            "bound_by": ("operations" if f_mean / TF32X3_FLOPS_PER_S
                          >= b_mean / HBM_BYTES_PER_S else "bytes"),
+            "bound_rate": "fp32 flops in 3xTF32 on the tensor cores, "
+                          "495/3 = 165 TFLOP/s; bytes at 3.35 TB/s",
             "library_ms": lib,
             "library_call": "scaled_dot_product_attention(is_causal=True, "
                             "enable_gqa=True), fp32, without the logit cap",
-            "flops_per_call": f_mean}
+            "flops_per_call": f_mean,
+            **resources(torch, info, max(grid)),
+            "grid_blocks_per_call": grid}
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "dbs_rw": {
         "dbs_rw_write": [_vp] * 5 + [_ci] * 5 + [_vp],
         "dbs_rw_read": [_vp] * 4 + [_ci] * 5 + [_vp],
+        # vec4; int[5] out (registers, static and dynamic shared memory,
+        # blocks per SM, threads)
+        "dbs_rw_write_info": [_ci, _vp],
     },
     "dbs_copy": {
         # pool, src, dst, mask; mask_i32, n_lanes, n_rows, page, d, vec4;
@@ -61,6 +64,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # seq; elements, 64-bit); causal, window; scale, logit_cap; stream
         "flash_attention": [_vp] * 4 + [_ci] * 6 + [ctypes.c_int64] * 12
         + [_ci, _ci, _cf, _cf, _vp],
+        # d; int[6] out (registers, static and dynamic shared memory,
+        # blocks per SM, threads, query rows per block)
+        "flash_attention_info": [_ci, _vp],
     },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;
@@ -142,6 +148,15 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = _ci
         _libs[name] = lib
     return lib
+
+
+def kernel_info(name: str, fn: str, arg: int, keys) -> Dict[str, int]:
+    """Call a source's ``<kernel>_info(arg, int* out)`` entry, which fills
+    ``len(keys)`` ints from ``cudaFuncGetAttributes`` and the occupancy
+    calculator, and name them."""
+    out = (ctypes.c_int * len(keys))()
+    raise_on(getattr(library(name), fn)(arg, ctypes.addressof(out)), fn)
+    return dict(zip(keys, out))
 
 
 def raise_on(err: int, name: str) -> None:

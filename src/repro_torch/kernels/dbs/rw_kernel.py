@@ -18,7 +18,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import check_tensor as _check
-from repro_torch.kernels._build import library, raise_on
+from repro_torch.kernels._build import kernel_info, library, raise_on
 from repro_torch.kernels.dbs.ref import dbs_rw_read_ref, dbs_rw_write_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_rw_write": 0, "dbs_rw_read": 0}
@@ -29,6 +29,14 @@ def reset_counts() -> None:
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
+
+
+def write_info(vec4: bool = True) -> Dict[str, int]:
+    """The CUDA write kernel's registers, shared memory, resident blocks
+    per SM and threads per block (float4 or scalar; needs the card)."""
+    return kernel_info("dbs_rw", "dbs_rw_write_info", int(vec4),
+                       ("registers", "static_smem_bytes",
+                        "dynamic_smem_bytes", "blocks_per_sm", "threads"))
 
 
 def _vec4(d: int, *tensors: torch.Tensor) -> int:

@@ -12,30 +12,70 @@
 // then masked; the softmax is online in fp32; out = acc / max(l, 1e-30).
 // Every tensor is addressed through (batch, head, sequence) strides with
 // the head dimension contiguous, so the model layout (B, S, H, hd) is read
-// and written in place, without a transposing copy.
+// and written in place, without a transposing copy. fp32 in and out.
 //
 // The TPU wrapper halves its block until it divides the sequence, down to
 // one row for an odd length. Here the tiles are fixed and the ragged last
 // query and key tiles are masked instead: the same function for any length.
 //
-// Bound on an H100 SXM: at the serving path's prefill (B 1, Sq = Sk = 100 to
-// 1000, H 8, KV 4, hd 256) the causal work is about 4 * hd * H * Sq^2 / 2
-// flops against (2 Sq H + 2 Sk KV) * hd * 4 bytes, i.e. hundreds of flops
-// per byte: the fp32 rate bounds it (67 TFLOP/s outside the tensor cores;
-// the kernel must compute in fp32 to hold the port's 1e-4 tolerance, so
-// TF32 tensor cores are not used).
+// Bound on an H100 SXM. At the serving path's prefill (B 1, Sq = Sk = 100
+// to 1000, H 8, KV 4, hd 256) the causal work is about 4 * hd * H * Sq^2 / 2
+// flops against (2 Sq H + 2 Sk KV) * hd * 4 bytes, hundreds of flops per
+// byte, so operations bound it. Both products run on the tensor cores in
+// 3xTF32 (below): three TF32 products per fp32 multiply-add at 495 TFLOP/s,
+// i.e. the fp32 work over 165 TFLOP/s (67 TFLOP/s outside the tensor cores).
 //
-// Tiles. A query tile of BQ = 32 rows and key/value tiles of BK = 32 rows.
-// At hd 256 in fp32 a 64-row tile is 64 KiB; Q (32 x 257, padded against
-// bank conflicts), K (32 x 257), V (32 x 256) and the probability tile
-// (32 x 32) take 100 KiB of the 227 KiB a block may use, which leaves room
-// for two blocks per SM. 32-row query tiles also make 8 x ceil(Sq / 32)
-// blocks per prompt (144 at Sq = 550), enough to cover the 132 SMs where
-// 64-row tiles would leave half of them idle. 256 threads: eight per query
-// row; thread (r, c) owns logits at key columns c + 8i (i < 4) and output
-// columns c + 8j (j < hd / 8, at most 32 fp32 registers, so hd <= 256).
-// Key tiles wholly outside the causal band or the window are never loaded:
-// the loop runs only over the tiles the query tile can see.
+// Precision. One TF32 product keeps 10 mantissa bits of each operand: at
+// the serving width its error (about 1e-3) misses the port's fp32 tolerance
+// of 1e-4. The split product does not: x = hi + lo with hi = x rounded to
+// TF32 and lo = x - hi (exact; the tensor core reads its TF32 bits), and
+// a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (a_lo.b_lo is below fp32's
+// rounding) is accurate to fp32's level: about 2e-6 at the serving width,
+// emulated on a CPU by tests/test_torch_flash_tf32x3.py. So the tensor
+// cores need no looser tolerance.
+//
+// Design. mma.sync m16n8k8 (tf32 in, fp32 accumulate), not wgmma: wgmma
+// takes TF32 operands from shared memory only K-major, and V in P.V has the
+// reduction dimension (keys) as its rows; mma.sync fragments are loaded by
+// hand from any layout.
+// - Tiles: 32 query rows per block, 32-key K/V tiles. 8 warps: warp w owns
+//   the 16-row group w & 1 and the column group grp = w >> 1 (of 4), i.e.
+//   the 8-wide chunks c of the head dimension with c % 4 == grp. Each warp
+//   keeps its Q fragments (hi and lo) in registers for the whole key loop
+//   and computes the partial S = Q.K^T of its row group over its own
+//   chunks (the big products and the small ones in two accumulators, so
+//   dependent products stand apart).
+// - Softmax, split over the row group's four warps: warp grp sums the four
+//   partials of key step grp (its 8 keys) in a fixed order through shared
+//   memory, scales, caps and masks them in fp32, and takes their row max
+//   (across the 4 threads of a quad); the row maxima and then the row sums
+//   go through shared memory, so all four warps hold the same running max,
+//   correction and sum, and each logit is capped and exponentiated once.
+//   The final divide is by max(l, 1e-30).
+// - P.V: the S accumulator of key step grp, with the keys permuted (A
+//   column t <-> key 2t, t + 4 <-> key 2t + 1), is already an A fragment;
+//   warp grp splits it once and stores it, and every warp of the row group
+//   reads the four steps' fragments and adds P.V for its own output
+//   chunks, reading V's rows in the same permutation.
+// - Shared memory: Q (32 rows), two stages each of K and V (32 rows), rows
+//   padded from d to d8 = roundup(d, 8) with zeros (the k-padding of the
+//   products) and strided d8 + 4 floats, which makes every fragment load
+//   free of bank conflicts; the S partials (16 KiB), P fragments (8 KiB),
+//   row maxima and sums. 188 KiB at hd 256: one block of 8 warps per SM.
+// - Staging: cp.async, 16-byte .cg where the tensor's base and strides are
+//   16-byte aligned and d % 4 == 0, 4-byte .ca otherwise (decided here per
+//   tensor); rows past the end are zero-filled. K/V tile j + 1 loads while
+//   tile j computes. Q is staged once. Four barriers a tile: the stage, the
+//   S partials, the row maxima, the P fragments and row sums.
+// - Grid: (B * H, query tiles), with the heaviest (last) causal query tiles
+//   launched first; at Sq 550 and H 8 that is 144 blocks on 132 SMs, the
+//   second wave the 12 lightest. Key tiles wholly outside the causal band
+//   or the window are never loaded.
+// - What holds it back (measured on an H100 with variants that drop one
+//   phase): each 32-row query tile reads every K/V tile it sees from L2
+//   again (about 200 MB a call at Sq 855); the products take about 45% of
+//   the time, the staging and the softmax with its barriers about a
+//   quarter each. Larger query tiles or multicast K/V loads come next.
 //
 // Offsets are 64-bit.
 
@@ -45,133 +85,386 @@
 
 namespace {
 
-constexpr int kBQ = 32;
-constexpr int kBK = 32;
-constexpr int kThreads = 256;
-constexpr int kCols = kThreads / kBQ;   // threads per query row (8)
-constexpr int kPerThreadK = kBK / kCols;  // logits per thread per tile (4)
+constexpr int kBQ = 32;                       // query rows per block
+constexpr int kBK = 32;                       // keys per K/V tile
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kGroups = kWarps / 2;           // column groups per row group
+constexpr int kNT = kBK / 8;                  // 8-key tiles of S
 constexpr int kMaxD = 256;
-constexpr int kRegs = kMaxD / kCols;    // output columns per thread (32)
+constexpr int kChunks = kMaxD / 8 / kGroups;  // 8-wide chunks per warp (8)
 constexpr float kNegInf = -1e30f;
+static_assert(kNT == kGroups, "warp grp owns the softmax of key step grp");
 
-__device__ __forceinline__ float group_max(float x) {
-  for (int o = 1; o < kCols; o <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, to nearest, ties
+// away: what cvt.rna.tf32.f32 gives, in two integer operations where sm_90
+// has no single instruction for it); lo = x - hi is exact in fp32, and the
+// tensor core reads only its TF32 bits (it truncates the 13 below)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ float group_sum(float x) {
-  for (int o = 1; o < kCols; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void mma(float* c, const uint32_t* a,
+                                    const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp16(float* dst, const float* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + kRows) of an (n_rows, d) matrix (row stride rs elements)
+// into shared rows of stride ss; rows >= n_rows are zero-filled. A thread
+// copies one column slot (16 or 4 bytes) of every step-th row.
+template <int kRows>
+__device__ __forceinline__ void stage(float* dst, int ss, const float* base,
+                                      int64_t rs, int r0, int n_rows, int d,
+                                      bool vec) {
+  const int per = vec ? d >> 2 : d;     // copies per row, at most kThreads
+  const int step = kThreads / per;      // rows per pass
+  const int first = threadIdx.x / per;
+  if (first >= step) return;            // left over by a pass
+  const int c = (threadIdx.x - first * per) << (vec ? 2 : 0);
+  for (int r = first; r < kRows; r += step) {
+    const bool in = r0 + r < n_rows;
+    const float* src = in ? base + (int64_t)(r0 + r) * rs + c : base;
+    if (vec)
+      cp16(dst + r * ss + c, src, in);
+    else
+      cp4(dst + r * ss + c, src, in);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int h,
              int kv, int sq, int sk, int d, int64_t qsb, int64_t qsh,
              int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
              int64_t vsh, int64_t vss, int64_t osb, int64_t osh, int64_t oss,
-             int causal, int window, float scale, float cap) {
-  extern __shared__ float smem[];
-  const int dp = d + 1;                 // padded row of Q and K tiles
-  float* qs = smem;                     // (BQ, d + 1)
-  float* ks = qs + kBQ * dp;            // (BK, d + 1)
-  float* vs = ks + kBK * dp;            // (BK, d)
-  float* ps = vs + kBK * d;             // (BQ, BK)
-  const int q0 = blockIdx.x * kBQ;
-  const int hh = blockIdx.y;
-  const int b = blockIdx.z;
+             int causal, int window, float scale, float cap, int vec_q,
+             int vec_k, int vec_v) {
+  extern __shared__ __align__(16) float smem[];
+  const int d8 = (d + 7) & ~7;          // head dimension padded to 8
+  const int ss = d8 + 4;                // shared row stride (ss / 4 odd)
+  const int nk = d8 >> 3;               // 8-wide chunks of the head dim
+  float* qs = smem;                     // (BQ, ss)
+  float* ks = qs + kBQ * ss;            // 2 x (BK, ss)
+  float* vs = ks + 2 * kBK * ss;        // 2 x (BK, ss)
+  float4* part = (float4*)(vs + 2 * kBK * ss);  // (2, kGroups, kNT, 32)
+  uint4* p_hi = (uint4*)(part + 2 * kGroups * kNT * 32);  // (2, kNT, 32)
+  uint4* p_lo = p_hi + 2 * kNT * 32;                       // (2, kNT, 32)
+  float* row_max = (float*)(p_lo + 2 * kNT * 32);          // (2, kGroups, 16)
+  float* row_sum = row_max + 2 * kGroups * 16;             // (2, kGroups, 16)
+
+  const int hh = blockIdx.x % h;
+  const int b = blockIdx.x / h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
   const int kh = hh / (h / kv);
   const int tid = threadIdx.x;
-  const int r = tid / kCols;
-  const int cg = tid % kCols;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rg = warp & 1;              // 16-row group
+  const int grp = warp >> 1;            // column group: chunks grp + 4c
+  const int g = lane >> 2;
+  const int t = lane & 3;
 
   const float* qb = q + (int64_t)b * qsb + (int64_t)hh * qsh;
   const float* kb = k + (int64_t)b * ksb + (int64_t)kh * ksh;
   const float* vb = v + (int64_t)b * vsb + (int64_t)kh * vsh;
-  for (int i = tid; i < kBQ * d; i += kThreads) {
-    const int row = i / d;
-    const int c = i - row * d;
-    qs[row * dp + c] = q0 + row < sq ? qb[(int64_t)(q0 + row) * qss + c] : 0.f;
+
+  // the padding columns [d, d8) of every staged row: zero, once (cp.async
+  // never writes them)
+  if (d8 > d) {
+    const int pad = d8 - d;
+    for (int i = tid; i < (kBQ + 4 * kBK) * pad; i += kThreads) {
+      const int r = i / pad;
+      smem[r * ss + d + (i - r * pad)] = 0.f;
+    }
   }
 
   const int off = sk - sq;              // suffix alignment
-  const int my_pos = q0 + r + off;
   const int last_row = min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(sk, last_row + off + 1) : sk;
-  const int k_begin = window > 0 ? max(0, q0 + off - window + 1) : 0;
+  const int t_first = (window > 0 ? max(0, q0 + off - window + 1) : 0) / kBK;
+  const int n_tiles =
+      k_end > t_first * kBK ? (k_end - t_first * kBK + kBK - 1) / kBK : 0;
 
-  float acc[kRegs];
+  stage<kBQ>(qs, ss, qb, qss, q0, sq, d, vec_q);
+  if (n_tiles > 0) {
+    stage<kBK>(ks, ss, kb, kss, t_first * kBK, sk, d, vec_k);
+    stage<kBK>(vs, ss, vb, vss, t_first * kBK, sk, d, vec_v);
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+
+  // this warp's Q fragments (rows rg * 16 + g and + 8), split once
+  uint32_t qh[kChunks][4], ql[kChunks][4];
 #pragma unroll
-  for (int j = 0; j < kRegs; ++j) acc[j] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
+  for (int c = 0; c < kChunks; ++c) {
+    const int kk = grp + kGroups * c;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qh[c][i] = ql[c][i] = 0u;
+    if (kk < nk) {
+      const float* qr = qs + (rg * 16 + g) * ss + kk * 8 + t;
+      split(qr[0], qh[c][0], ql[c][0]);
+      split(qr[8 * ss], qh[c][1], ql[c][1]);
+      split(qr[4], qh[c][2], ql[c][2]);
+      split(qr[8 * ss + 4], qh[c][3], ql[c][3]);
+    }
+  }
 
-  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();                    // the previous tile's readers are done
-    for (int i = tid; i < kBK * d; i += kThreads) {
-      const int row = i / d;
-      const int c = i - row * d;
-      const bool in = k0 + row < sk;
-      ks[row * dp + c] = in ? kb[(int64_t)(k0 + row) * kss + c] : 0.f;
-      vs[row * d + c] = in ? vb[(int64_t)(k0 + row) * vss + c] : 0.f;
+  float acc[kChunks][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  const int row0 = q0 + rg * 16 + g;    // rows of c0, c1; c2, c3 are + 8
+  const int pos[2] = {row0 + off, row0 + 8 + off};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int cur = j & 1;
+    if (j > 0) {
+      cp_wait_all();                    // tile j has landed (this thread's)
+      __syncthreads();                  // ... everyone's; tile j - 1 is done
+    }
+    if (j + 1 < n_tiles) {              // tile j + 1 loads while j computes
+      const int k1 = (t_first + j + 1) * kBK;
+      stage<kBK>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);
+      stage<kBK>(vs + (cur ^ 1) * kBK * ss, ss, vb, vss, k1, sk, d, vec_v);
+      cp_commit();
+    }
+    const float* kt = ks + cur * kBK * ss;
+    const float* vt = vs + cur * kBK * ss;
+    const int k0 = (t_first + j) * kBK;
+
+    // partial S over this warp's chunks of the head dimension, in 3xTF32:
+    // the big products into s, the small ones into s_lo, each product
+    // kNT or 2 kNT issues away from the one it depends on
+    float s[kNT][4], s_lo[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = s_lo[n][i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int kk = grp + kGroups * c;
+      if (kk < nk) {
+        uint32_t bh[kNT][2], bl[kNT][2];
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const float* kr = kt + (n * 8 + g) * ss + kk * 8 + t;
+          split(kr[0], bh[n][0], bl[n][0]);
+          split(kr[4], bh[n][1], bl[n][1]);
+        }
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) mma(s_lo[n], ql[c], bh[n]);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) mma(s[n], qh[c], bh[n]);
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qh[c], bl[n]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] += s_lo[n][i];
+    // the row group's four partials: warp grp sums those of key step grp
+    // (its 8 keys), in a fixed order, and takes their softmax
+    float4* mine = part + (rg * kGroups + grp) * kNT * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      mine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    __syncthreads();
+    float x[4];
+    {
+      float4 a = part[((rg * kGroups) * kNT + grp) * 32 + lane];
+#pragma unroll
+      for (int o = 1; o < kGroups; ++o) {
+        const float4 p = part[((rg * kGroups + o) * kNT + grp) * 32 + lane];
+        a.x += p.x;
+        a.y += p.y;
+        a.z += p.z;
+        a.w += p.w;
+      }
+      x[0] = a.x;
+      x[1] = a.y;
+      x[2] = a.z;
+      x[3] = a.w;
+    }
+
+    // scale, cap, mask; rows row0 (i < 2) and row0 + 8 (i >= 2)
+    uint32_t ok = 0u;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1;
+      const int kpos = k0 + grp * 8 + 2 * t + (i & 1);
+      float sc = x[i] * scale;
+      if (cap > 0.f) sc = tanhf(sc / cap) * cap;
+      bool valid = kpos < sk;
+      if (causal) valid = valid && kpos <= pos[r];
+      if (window > 0) valid = valid && kpos > pos[r] - window;
+      ok |= (uint32_t)valid << i;
+      x[i] = valid ? sc : kNegInf;
+      mx[r] = fmaxf(mx[r], x[i]);
+    }
+    float* my_max = row_max + (rg * kGroups + grp) * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (t == 0) my_max[g + 8 * r] = mx[r];
     }
     __syncthreads();
-    float s[kPerThreadK];
-    bool ok[kPerThreadK];
-    float mx = kNegInf;
+    // the online softmax: every warp of the row group the same m, corr, l
+    float corr[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kPerThreadK; ++i) {
-      const int col = cg + kCols * i;
-      const float* qr = qs + r * dp;
-      const float* kr = ks + col * dp;
-      float dot = 0.f;
-      for (int c = 0; c < d; ++c) dot += qr[c] * kr[c];
-      float sc = dot * scale;
-      if (cap > 0.f) sc = tanhf(sc / cap) * cap;
-      const int kpos = k0 + col;
-      bool valid = kpos < sk;
-      if (causal) valid = valid && kpos <= my_pos;
-      if (window > 0) valid = valid && kpos > my_pos - window;
-      ok[i] = valid;
-      s[i] = valid ? sc : kNegInf;
-      mx = fmaxf(mx, s[i]);
+    for (int r = 0; r < 2; ++r) {
+      float m_new = m[r];
+#pragma unroll
+      for (int o = 0; o < kGroups; ++o)
+        m_new = fmaxf(m_new, row_max[(rg * kGroups + o) * 16 + g + 8 * r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
     }
-    mx = group_max(mx);
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
 #pragma unroll
-    for (int i = 0; i < kPerThreadK; ++i) {
-      const float p = ok[i] ? expf(s[i] - m_new) : 0.f;
-      ps[r * kBK + cg + kCols * i] = p;
-      sum += p;
+    for (int i = 0; i < 4; ++i) {
+      x[i] = (ok >> i) & 1u ? expf(x[i] - m[i >> 1]) : 0.f;
+      sum[i >> 1] += x[i];
     }
-    sum = group_sum(sum);
-    const float corr = expf(m - m_new);
-    l = l * corr + sum;
-    m = m_new;
-    __syncwarp();                       // a row's probabilities: one warp
-    const float* pr = ps + r * kBK;
+    float* my_sum = row_sum + (rg * kGroups + grp) * 16;
 #pragma unroll
-    for (int j = 0; j < kRegs; ++j) {
-      const int c = cg + kCols * j;
-      if (c < d) {
-        float a = acc[j] * corr;
-        for (int t = 0; t < kBK; ++t) a += pr[t] * vs[t * d + c];
-        acc[j] = a;
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      if (t == 0) my_sum[g + 8 * r] = sum[r];
+    }
+    // P of key step grp as the A fragment of every warp of the row group,
+    // split once: key 2t in column t, key 2t + 1 in column t + 4
+    {
+      uint4 hi, lo;
+      split(x[0], hi.x, lo.x);
+      split(x[2], hi.y, lo.y);
+      split(x[1], hi.z, lo.z);
+      split(x[3], hi.w, lo.w);
+      p_hi[(rg * kNT + grp) * 32 + lane] = hi;
+      p_lo[(rg * kNT + grp) * 32 + lane] = lo;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tot = 0.f;
+#pragma unroll
+      for (int o = 0; o < kGroups; ++o)
+        tot += row_sum[(rg * kGroups + o) * 16 + g + 8 * r];
+      l[r] = l[r] * corr[r] + tot;
+    }
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      acc[c][0] *= corr[0];
+      acc[c][1] *= corr[0];
+      acc[c][2] *= corr[1];
+      acc[c][3] *= corr[1];
+    }
+
+    // O += P.V over the tile's keys, 8 at a time, V's rows read in P's key
+    // permutation; 3xTF32, small products first, each kChunks issues from
+    // the previous product into the same accumulator
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const uint4 hi = p_hi[(rg * kNT + n) * 32 + lane];
+      const uint4 lo = p_lo[(rg * kNT + n) * 32 + lane];
+      const uint32_t ah[4] = {hi.x, hi.y, hi.z, hi.w};
+      const uint32_t al[4] = {lo.x, lo.y, lo.z, lo.w};
+      const float* vr = vt + (n * 8 + 2 * t) * ss + g;
+      uint32_t bh[kChunks][2], bl[kChunks][2];
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int kk = grp + kGroups * c;
+        if (kk < nk) {
+          split(vr[kk * 8], bh[c][0], bl[c][0]);
+          split(vr[ss + kk * 8], bh[c][1], bl[c][1]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        if (grp + kGroups * c < nk) mma(acc[c], al, bh[c]);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        if (grp + kGroups * c < nk) mma(acc[c], ah, bl[c]);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c)
+        if (grp + kGroups * c < nk) mma(acc[c], ah, bh[c]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < sq) {
+      float* orow = out + (int64_t)b * osb + (int64_t)hh * osh +
+                    (int64_t)row * oss;
+      const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        const int col = (grp + kGroups * c) * 8 + 2 * t;
+        if (col < d) orow[col] = acc[c][2 * r] / den;
+        if (col + 1 < d) orow[col + 1] = acc[c][2 * r + 1] / den;
       }
     }
   }
-  if (q0 + r < sq) {
-    float* orow = out + (int64_t)b * osb + (int64_t)hh * osh +
-                  (int64_t)(q0 + r) * oss;
-    const float den = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kRegs; ++j) {
-      const int c = cg + kCols * j;
-      if (c < d) orow[c] = acc[j] / den;
-    }
-  }
+}
+
+// whether every row start of a (n0, n1, n2, d) strided tensor is 16-byte
+// aligned (a stride of a dimension of size 1 is never used)
+bool rows_aligned16(const void* p, int n0, int64_t s0, int n1, int64_t s1,
+                    int n2, int64_t s2, int d) {
+  return (uintptr_t)p % 16 == 0 && d % 4 == 0 && (n0 == 1 || s0 % 4 == 0) &&
+         (n1 == 1 || s1 % 4 == 0) && (n2 == 1 || s2 % 4 == 0);
+}
+
+size_t smem_bytes(int d) {
+  const int ss = ((d + 7) & ~7) + 4;
+  return sizeof(float) * (size_t)(kBQ + 4 * kBK) * ss +
+         sizeof(float4) * 2 * kGroups * kNT * 32 +   // S partials
+         sizeof(uint4) * 2 * 2 * kNT * 32 +          // P fragments, hi, lo
+         sizeof(float) * 2 * 2 * kGroups * 16;       // row maxima and sums
+}
+
+// Raise the kernel's dynamic shared-memory limit only when a larger size is
+// first asked for, so launches captured in a CUDA graph make no such call.
+size_t configured = 0;
+
+cudaError_t configure(size_t smem) {
+  if (smem <= configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) configured = smem;
+  return err;
 }
 
 }  // namespace
@@ -189,24 +482,45 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
   if (d <= 0 || d > kMaxD || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
-  const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + kBK) * (d + 1) + (size_t)kBK * d +
-                       (size_t)kBQ * kBK);
-  // raise the dynamic shared-memory limit only when a larger size is
-  // first asked for, so launches captured in a CUDA graph make no such call
-  static size_t configured = 0;
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured = smem;
-  }
-  dim3 grid((sq + kBQ - 1) / kBQ, h, b);
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  if (n_qt > 65535 || (int64_t)b * h > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(d);
+  const cudaError_t err = configure(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vq = rows_aligned16(q, b, qsb, h, qsh, sq, qss, d);
+  const int vk = rows_aligned16(k, b, ksb, kv, ksh, sk, kss, d);
+  const int vv = rows_aligned16(v, b, vsb, kv, vsh, sk, vss, d);
+  dim3 grid((unsigned)(b * h), (unsigned)n_qt);
   flash_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, h, kv,
       sq, sk, d, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-      causal, window, scale, cap);
+      causal, window, scale, cap, vq, vk, vv);
   return (int)cudaGetLastError();
+}
+
+// The kernel's resources at head dim d: info[0] registers per thread,
+// [1] static and [2] dynamic shared memory per block (bytes), [3] blocks
+// resident per SM, [4] threads per block, [5] query rows per block.
+int flash_attention_info(int d, int* info) {
+  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = configure(smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, flash_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)smem;
+  info[3] = per_sm;
+  info[4] = kThreads;
+  info[5] = kBQ;
+  return 0;
 }
 
 }  // extern "C"

@@ -9,10 +9,13 @@ kernel has fixed tiles and masks a ragged last tile, so it takes none.
 The wrapper checks dtype, shape and device, and that the head dimension is
 contiguous: the kernel reads q, k, v and writes the output through
 (batch, head, sequence) strides, so views of the model layout need no
-copy. It launches the kernel for tensors on a CUDA device and calls the
-plain version (ref.py) for tensors on the CPU; a CUDA tensor gets the
-kernel or an error. ``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32
-only, as the kernel computes in fp32.
+copy; the kernel itself stages a tensor with 16-byte copies where its
+base and strides allow and with 4-byte copies otherwise. It launches the
+kernel for tensors on a CUDA device and calls the plain version (ref.py)
+for tensors on the CPU; a CUDA tensor gets the kernel or an error.
+``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32 in and out: the
+kernel's products run on the tensor cores in 3xTF32, accurate to fp32's
+level.
 """
 from __future__ import annotations
 
@@ -21,18 +24,28 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels._build import check_tensor, library, raise_on
+from repro_torch.kernels._build import (check_tensor, kernel_info, library,
+                                       raise_on)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
-MAX_HEAD_DIM = 256                  # the kernel's per-thread output registers
+MAX_HEAD_DIM = 256                  # the kernel's per-warp fragment registers
+INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+             "blocks_per_sm", "threads", "rows_per_block")
 
 
 def reset_counts() -> None:
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
+
+
+def flash_info(d: int) -> Dict[str, int]:
+    """The CUDA kernel's registers, shared memory, resident blocks per SM
+    and block shape at head dim ``d`` (needs the card)."""
+    return kernel_info("flash_attention", "flash_attention_info", d,
+                       INFO_KEYS)
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,

@@ -1,0 +1,144 @@
+"""Where the flash-attention kernel's time goes, by phase (needs the card).
+
+    PYTHONPATH=src python -m repro_torch.kernels.flash_attention.phase_costs
+
+Builds ``csrc/flash_attention.cu`` as it is and in variants that each drop
+one phase of the key loop, then times every build at the serving path's
+prefill shapes (gemma2-2b: 8 heads, 4 KV heads, hd 256, the model layout,
+cap 50, causal) with CUDA graphs, the median of 20 replays. A variant's
+outputs are wrong by design; only its time counts, and the difference to
+the full kernel is the phase's cost:
+
+- ``no_qk_products`` / ``no_pv_products``: the tensor-core products of
+  S = Q.K^T or O = P.V dropped (the compiler drops their operand loads and
+  splits with them);
+- ``no_products``: both dropped;
+- ``one_product``: one TF32 product where the kernel takes three (the
+  price of 3xTF32);
+- ``no_kv_staging``: K/V tiles after the first not loaded.
+
+Prints one JSON line per sequence length and the card's name and power
+limit. The variants are built under ``build/torch_kernels/phase_costs/``.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import statistics
+import subprocess
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import _build
+
+SOURCE = _build.SOURCES["flash_attention"]
+OUT_DIR = _build.BUILD_DIR / "phase_costs"
+QK = ["        for (int n = 0; n < kNT; ++n) mma(s_lo[n], ql[c], bh[n]);",
+      "        for (int n = 0; n < kNT; ++n) mma(s[n], qh[c], bh[n]);",
+      "        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qh[c], bl[n]);"]
+PV = ["        if (grp + kGroups * c < nk) mma(acc[c], al, bh[c]);",
+      "        if (grp + kGroups * c < nk) mma(acc[c], ah, bl[c]);",
+      "        if (grp + kGroups * c < nk) mma(acc[c], ah, bh[c]);"]
+KV_STAGING = [
+    "      stage<kBK>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);",
+    "      stage<kBK>(vs + (cur ^ 1) * kBK * ss, ss, vb, vss, k1, sk, d, vec_v);"]
+SEQ_LENS = (550, 854)       # the median prompt and the kept serving calls'
+
+
+def variants(src: str) -> Dict[str, str]:
+    """The kernel's source and its phase-dropping variants."""
+    for line in QK + PV + KV_STAGING:
+        if src.count(line) != 1:
+            raise RuntimeError(f"the kernel no longer has the line {line!r}:"
+                               " update phase_costs.py with it")
+
+    def drop(lines):
+        out = src
+        for line in lines:
+            out = out.replace(line, "        ;")
+        return out
+
+    return {"full": src, "no_qk_products": drop(QK),
+            "no_pv_products": drop(PV), "no_products": drop(QK + PV),
+            "one_product": drop([QK[0], QK[2], PV[0], PV[1]]),
+            "no_kv_staging": drop(KV_STAGING)}
+
+
+def build(texts: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    """One nvcc per variant, all started together."""
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = []
+    for name, text in texts.items():
+        cu = OUT_DIR / f"{name}.cu"
+        cu.write_text(text)
+        lib = OUT_DIR / f"lib{name}.so"
+        procs.append((name, lib, subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, lib, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on variant {name}:\n{out}")
+        cdll = ctypes.CDLL(str(lib))
+        cdll.flash_attention.argtypes = _build.SIGNATURES[
+            "flash_attention"]["flash_attention"]
+        cdll.flash_attention.restype = ctypes.c_int
+        libs[name] = cdll
+    return libs
+
+
+def graph_ms(fn, passes: int = 20) -> float:
+    """Median device time of ``fn()`` replayed from a CUDA graph."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    times = []
+    for _ in range(passes):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_costs: needs a CUDA device")
+    libs = build(variants(SOURCE.read_text()))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    h, kv, d, cap = 8, 4, 256, 50.0
+    for s in SEQ_LENS:
+        x = torch.randn((1, s, h + 2 * kv, d), generator=gen, device=dev)
+        q, k, v = (t.transpose(1, 2) for t in x.split([h, kv, kv], dim=2))
+        out = torch.empty((1, s, h, d), device=dev).transpose(1, 2)
+        ms = {}
+        for name, lib in libs.items():
+            def run(lib=lib):
+                err = lib.flash_attention(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    1, h, kv, s, s, d, *q.stride()[:3], *k.stride()[:3],
+                    *v.stride()[:3], *out.stride()[:3], 1, 0, d ** -0.5, cap,
+                    torch.cuda.current_stream().cuda_stream)
+                _build.raise_on(err, "flash_attention")
+            ms[name] = graph_ms(run)
+        print(json.dumps({"seq": s, "heads": h, "kv_heads": kv,
+                          "head_dim": d, "logit_cap": cap, "ms": ms,
+                          "phase_ms": {n: ms["full"] - t for n, t in ms.items()
+                                       if n != "full"}}), flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -15,11 +15,16 @@ block device's 32 x 4096 floats, the serving baseline's 32 x 4 x 256), with
 live CoW lanes, masked lanes with dst -1 and a live copy into extent 0;
 bit for bit against ``dbs_copy_ref``.
 
+``dbs_rw_write`` also on crafted batches of only in-place writes and of
+only CoW lanes, with D % 4 != 0, and at the zero-copy serving width.
+
 ``paged_attention`` and ``flash_attention``: fp32 kernels against their
 plain versions on the card within atol 1e-4 and rtol 1e-4 (the sums run in
-another order), on the parity geometries of the CPU tests and at the
-serving path's full width (gemma2-2b: 8 heads, 4 KV heads, hd 256, page
-32).
+another order; flash's products are 3xTF32 on the tensor cores), on the
+parity geometries of the CPU tests and at the serving path's full width
+(gemma2-2b: 8 heads, 4 KV heads, hd 256, page 32); flash also on its
+edges: head dims padded to 8, one query row, Sk >> Sq, rows that are not
+16-byte aligned, windows narrower than a key tile.
 
 ``rwkv6_scan``: the fp32 kernel against both plain versions (the chunked
 schedule and the step-by-step oracle) within atol 1e-4 and rtol 1e-4, at
@@ -89,10 +94,12 @@ def _legal_batches(n_e, page, b, n_batches, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_e,page,d,b", [(16, 4, 6, 8), (33, 8, 16, 12),
-                                          (2048, 32, 4096, 64)])
+                                          (2048, 32, 4096, 64),
+                                          (16, 32, 26624, 8)])
 def test_cuda_kernels_match_plain_versions(n_e, page, d, b):
-    """D=6 takes the scalar loop, D%4==0 the float4 one; the last geometry
-    is the main path's width."""
+    """D=6 takes the scalar loop, D%4==0 the float4 one; the last two
+    geometries are the main path's width and the zero-copy serving width
+    (page 32, a 104 KiB block, 16 extents)."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(0)
     pool = torch.rand((n_e + 1, page, d), generator=gen, device=dev)
@@ -110,6 +117,49 @@ def test_cuda_kernels_match_plain_versions(n_e, page, d, b):
     got = dbs_rw_read(pool, ext, blk)
     assert torch.equal(got, dbs_rw_read_ref(pool, ext, blk))
     assert not got[0].any()
+
+
+def _crafted_write_batch(kind, n_e, page, b, rng):
+    """A routed batch of one kind: ``in_place`` (every lane writes its own
+    row, src == dst) or ``all_cow`` (every lane copies a distinct source row
+    into a distinct fresh row; the sources are no lane's destination). One
+    lane is parked on the dump row. About a third of the blocks take a
+    payload lane, any lane of the batch."""
+    rows = rng.permutation(n_e)
+    if kind == "in_place":
+        src = dst = rows[:b]
+    else:
+        src, dst = rows[:b], rows[b:2 * b]
+    src, dst = src.copy(), dst.copy()
+    lane_of = np.where(rng.random((b, page)) < 0.35,
+                       rng.integers(0, b, (b, page)), -1)
+    src[-1] = dst[-1] = n_e                          # the dump row
+    lane_of[-1] = -1
+    return [torch.from_numpy(x.astype(np.int32)) for x in (src, dst, lane_of)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,n_e,page,d,b", [
+    ("in_place", 64, 32, 4096, 64), ("all_cow", 160, 32, 4096, 64),
+    ("in_place", 40, 32, 1027, 16), ("all_cow", 40, 32, 1027, 16),
+    ("all_cow", 17, 32, 26624, 8)])
+def test_dbs_rw_write_crafted_batches(kind, n_e, page, d, b):
+    """Batches of only in-place writes and of only CoW lanes, at the block
+    device's width, with D % 4 != 0 (the scalar path) and at the zero-copy
+    serving width: bit for bit against the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(n_e * 7 + d)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    pool = torch.rand((n_e + 1, page, d), generator=gen, device=dev)
+    ref = pool.clone()
+    for _ in range(2):
+        src, dst, lane_of = (x.to(dev) for x in _crafted_write_batch(
+            kind, n_e, page, b, rng))
+        pay = torch.rand((b, d), generator=gen, device=dev)
+        dbs_rw_write(pool, src, dst, lane_of, pay, check_routing=True)
+        dbs_rw_write_ref(ref, src, dst, lane_of, pay)
+    torch.cuda.synchronize()
+    assert torch.equal(pool, ref)
 
 
 @pytest.mark.gpu
@@ -230,6 +280,59 @@ def test_flash_attention_kernel_matches_plain(b, sq, sk, h, kv, d, window,
         assert got.is_contiguous()
         torch.testing.assert_close(got, want, **TOL)
     torch.cuda.synchronize()
+
+
+def _strided(t, layout, gen):
+    """``t`` (B, N, S, hd) as a view whose rows are not 16-byte aligned:
+    ``pad`` puts each row in a buffer row of hd + 1 floats (odd stride),
+    ``offset`` starts the contiguous data one float past an aligned base."""
+    b, n, s, d = t.shape
+    if layout == "pad":
+        buf = torch.randn((b, n, s, d + 1), generator=gen, device=t.device)
+        view = buf[..., :d]
+    else:
+        buf = torch.randn(t.numel() + 1, generator=gen, device=t.device)
+        view = buf[1:].view(b, n, s, d)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,cap,layout", [
+    (1, 64, 64, 4, 2, 20, 0, 0.0, "contiguous"),      # d % 8 != 0
+    (2, 100, 100, 4, 2, 72, 40, 50.0, "contiguous"),
+    (1, 37, 37, 2, 1, 13, 0, 30.0, "contiguous"),     # d % 4 != 0
+    (1, 1, 1, 4, 2, 64, 0, 0.0, "contiguous"),        # Sq 1
+    (2, 1, 300, 8, 4, 256, 0, 50.0, "contiguous"),    # one query, many keys
+    (1, 5, 5, 4, 4, 128, 0, 0.0, "contiguous"),       # < one query tile
+    (1, 40, 1500, 8, 4, 256, 0, 50.0, "contiguous"),  # Sk >> Sq
+    (1, 29, 2000, 4, 2, 64, 700, 0.0, "contiguous"),
+    (1, 130, 130, 4, 2, 64, 0, 0.0, "pad"),           # 4-byte staging
+    (2, 77, 90, 4, 2, 256, 64, 50.0, "offset"),
+    (1, 200, 200, 4, 2, 64, 5, 0.0, "contiguous"),    # window < one key tile
+    (1, 200, 200, 4, 2, 64, 1, 50.0, "contiguous"),
+    (1, 550, 550, 8, 4, 256, 4096, 50.0, "contiguous"),   # serving, local
+    (1, 550, 550, 8, 4, 256, 0, 50.0, "contiguous")])     # serving, global
+def test_flash_attention_kernel_edge_cases(b, sq, sk, h, kv, d, window, cap,
+                                           layout):
+    """The tensor-core kernel's edges: head dims that need k-padding to 8,
+    a single query and fewer rows than one 32-row query tile, many key
+    tiles per query tile (suffix alignment), rows not 16-byte aligned (the
+    4-byte cp.async path), windows narrower than one 32-key tile, and the
+    serving prefill's shapes with cap 50; within TOL of attention_ref."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(sq * 13 + sk + d)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev)
+    if layout != "contiguous":
+        q, k, v = (_strided(x, layout, gen) for x in (q, k, v))
+        assert all(x.data_ptr() % 16 or x.stride(2) % 4 for x in (q, k, v))
+    got = flash_attention_fwd(q, k, v, window=window, logit_cap=cap)
+    want = attention_ref(q, k, v, window=window, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
 
 
 def _rwkv_case(dev, b, s, h, d, seed, with_state):
