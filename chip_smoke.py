@@ -14,7 +14,10 @@ and the script exits non-zero:
 1. env — torch/CUDA versions, the card's name and power limit.
 2. build — compile every CUDA source of the port (csrc/*.cu: dbs_rw,
    dbs_copy, paged_attention, flash_attention, rwkv6_scan) with one nvcc
-   each, all started together; seconds per library.
+   each, all started together; seconds per library. Then launch_floor —
+   the time per call of a one-element ``zero_()`` in the CUDA-graph
+   harness of phase 3: the least any launched node costs there (printed
+   beside ``dbs_rw_read`` and ``dbs_copy`` as ``launch_floor_ms``).
 3. kernel_parity (dbs_rw_write) — at full width (pool (E+1, 32, 4096) f32,
    64 lanes), on write batches from the port's own ``write_pages`` over a
    seeded trace (in-place writes, CoW after a snapshot and a clone,
@@ -55,7 +58,9 @@ and the script exits non-zero:
    synchronisations per pump for each. The ``copy`` column keeps the
    inputs of every 8th ``dbs_copy`` call; the kernel is held bit for bit
    against its plain version on them over the column's own pool and timed
-   as in phase 3 (these are its ms and bound in the kernels line).
+   as in phase 3 (these are its ms and bound in the kernels line;
+   ``zero_row_calls`` is the share of those calls that copy no row, on
+   which ``index_copy_`` of the gathered rows launches nothing).
 9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
@@ -73,7 +78,8 @@ and the script exits non-zero:
    the same pool contents bar the dump row), no volume or extent is left
    after the drain, both attention kernels launched and their plain
    versions never. The inputs of a few decode steps and of one prompt's
-   local and global prefill layers are kept.
+   local and global prefill layers are kept, and the read kernel's of
+   every 8th write pump of the traffic.
 10. kernel_parity (paged_attention, flash_attention) — each kernel against
    its plain version on those kept full-width inputs, over the serve
    path's own pool, within atol 1e-4 and rtol 1e-4; timed with CUDA graphs
@@ -82,7 +88,10 @@ and the script exits non-zero:
    165 TFLOP/s, the fp32 rate of 3xTF32 on the tensor cores that it
    computes with, and its bytes over 3.35 TB/s) and one PyTorch yardstick
    labelled with what it differs in; flash also with its registers, shared
-   memory and blocks in flight.
+   memory and blocks in flight. Then ``dbs_rw_read`` at the serving width
+   (pool (E+1, 32, 26624) f32, the serve path's own replica 0, 104 KiB
+   blocks) on the kept pump inputs: bit for bit, timed as in phase 6
+   (the ``serve_width_*`` keys of its kernels entry).
 11. no_sync (serving) — one call of the decode program under
    ``torch.cuda.set_sync_debug_mode("error")``.
 12. profile (serving) — where a serving step's time goes, on the same
@@ -101,7 +110,7 @@ and the script exits non-zero:
    requests fill the slots and four decode steps run under
    ``torch.profiler`` (a "profile" line as in phase 12).
 14. kernel_parity (dbs_copy) at the serving width (128 KiB rows), on those
-   kept calls: bit for bit, timed as in phase 3.
+   kept calls: bit for bit, timed as in phase 8.
 15. host_vs_zero_copy — four requests, eight new tokens, on both backends:
    logits within atol 1e-3 and rtol 1e-3, tokens equal (the largest
    difference and the smallest top-2 margin are printed).
@@ -147,7 +156,6 @@ import argparse
 import gc
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -188,6 +196,7 @@ LADDER = [("fused", "cuda"), ("fused", "copy"), ("slots", "torch")]
 LADDER_OPS = N_OPS // 8          # the ladder's cut trace (about 6.5k ops)
 LOOP_OPS, LOOP_MAX_OPS = 600, 300
 READ_SAMPLE_EVERY, READ_SAMPLES = 128, 32
+READ_SERVE_EVERY = 8             # of the zero-copy serve path's write pumps
 COPY_SAMPLE_EVERY = 8            # of the copy column's dbs_copy calls
 
 
@@ -202,30 +211,6 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
-def graph_ms(torch, fn, n_items: int, passes: int = 20) -> float:
-    """Median device time per item of ``fn()`` (one pass over n_items
-    launches), captured once in a CUDA graph so host launch gaps do not
-    count; 20 timed replays after a warm-up."""
-    fn()                                         # warm-up outside capture
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    g.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(passes):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n_items)
-    del g
-    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -294,11 +279,14 @@ def parity_batches(torch, dbs, route, dev, n_extents, max_pages, rng,
     return out
 
 
-def resources(torch, info, grid_blocks):
+def resources(torch, info, grid_blocks=None):
     """A kernel's registers and shared memory per block (``info``, from
-    cudaFuncGetAttributes) and its blocks in flight: the grid's blocks, at
-    most its resident blocks per SM on every SM of the card."""
+    cudaFuncGetAttributes) and its blocks in flight: the grid's blocks (by
+    default ``info["grid_blocks"]``, for a kernel that sizes its grid per
+    call), at most its resident blocks per SM on every SM of the card."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if grid_blocks is None:
+        grid_blocks = info["grid_blocks"]
     return {**info, "sms": sms, "grid_blocks": grid_blocks,
             "blocks_in_flight": min(grid_blocks,
                                     info["blocks_per_sm"] * sms)}
@@ -311,6 +299,7 @@ def phase_write_kernel(torch, args, dev):
                                          dbs_write_bytes)
     from repro_torch.kernels.dbs.ops import _route_writes
     from repro_torch.kernels.dbs.rw_kernel import write_info
+    from repro_torch.kernels.timing import graph_ms
     rng = np.random.default_rng(SEED)
     n_e = args.n_extents
     batches = parity_batches(torch, dbs, _route_writes, dev, n_e,
@@ -340,11 +329,11 @@ def phase_write_kernel(torch, args, dev):
         live = (dst != n_e).nonzero().flatten()
         composed.append((dst[live].long(), plain[dst[live].long()].clone()))
     n = len(batches)
-    w_ms = graph_ms(torch, lambda: [dbs_rw_write(pool, s, d, lo, p)
+    w_ms = graph_ms(lambda: [dbs_rw_write(pool, s, d, lo, p)
                                     for s, d, lo, p, _, _ in batches], n)
-    w_plain = graph_ms(torch, lambda: [dbs_rw_write_ref(plain, s, d, lo, p)
+    w_plain = graph_ms(lambda: [dbs_rw_write_ref(plain, s, d, lo, p)
                                        for s, d, lo, p, _, _ in batches], n)
-    w_lib = graph_ms(torch, lambda: [plain.index_copy_(0, i, v)
+    w_lib = graph_ms(lambda: [plain.index_copy_(0, i, v)
                                      for i, v in composed], n)
     del composed
     emit(phase="kernel_parity", kernel="dbs_rw_write",
@@ -374,6 +363,8 @@ def copy_parity(torch, pool, calls, timed=True):
     source rows, gathered beforehand: the bytes the kernel moves) on
     ``pool``. Returns the numbers per call."""
     from repro_torch.kernels.dbs import dbs_copy, dbs_copy_bytes, dbs_copy_ref
+    from repro_torch.kernels.dbs.copy_kernel import copy_info
+    from repro_torch.kernels.timing import graph_ms
     _e, page, d = pool.shape
     plain = pool.clone()
     copied, lib_in = [], []
@@ -392,17 +383,21 @@ def copy_parity(torch, pool, calls, timed=True):
     if not timed:
         return {"max_abs_err": err, "rows_copied": copied}
     n = len(calls)
-    ms = graph_ms(torch, lambda: [dbs_copy(pool, s, d, m)
+    ms = graph_ms(lambda: [dbs_copy(pool, s, d, m)
                                   for s, d, m in calls], n)
-    plain_ms = graph_ms(torch, lambda: [dbs_copy_ref(plain, s, d, m)
+    plain_ms = graph_ms(lambda: [dbs_copy_ref(plain, s, d, m)
                                         for s, d, m in calls], n)
-    lib = graph_ms(torch, lambda: [plain.index_copy_(0, i, v)
+    lib = graph_ms(lambda: [plain.index_copy_(0, i, v)
                                    for i, v in lib_in], n)
     del plain, lib_in
     mean_b = sum(dbs_copy_bytes(c, page, d, 4) for c in copied) / n
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
-            "bytes_per_call": mean_b, "rows_copied": copied}
+            "bytes_per_call": mean_b, "rows_copied": copied,
+            "zero_row_calls": sum(c == 0 for c in copied) / n,
+            "resources": {"lanes": calls[0][0].numel(), **resources(
+                torch, copy_info(calls[0][0].numel(), page, d,
+                                 vec4=d % 4 == 0))}}
 
 
 def phase_copy_kernel(torch, args, dev):
@@ -464,51 +459,107 @@ def phase_copy_kernel_main(torch, mgr, calls):
             "library_call": "index_copy_ of the live lanes' source rows, "
                             "gathered beforehand",
             "bytes_per_call": got["bytes_per_call"],
-            "rows_per_call": sum(got["rows_copied"]) / len(calls)}
+            "rows_per_call": sum(got["rows_copied"]) / len(calls),
+            "zero_row_calls": got["zero_row_calls"], **got["resources"]}
 
 
 # ---------------------------------------------------------------------------
 # phase 6: the read kernel on the main path's own inputs
 # ---------------------------------------------------------------------------
-def phase_read_kernel(torch, mgr, reads):
-    """Parity and timing of dbs_rw_read on the (ext, block) batches kept
-    from the main path, over replica 0's pool (all replicas agree). A hole
-    lane stores one zero block and loads nothing, so the bound counts it at
-    one block; a mapped lane reads and writes one."""
+def read_parity(torch, pool, reads):
+    """Hold ``dbs_rw_read`` against ``dbs_rw_read_ref`` bit for bit on the
+    kept (ext, block) batches over the (E, page, D) ``pool``, then time one
+    pass over them as in phase 3 (kernel, plain version, and
+    ``index_select`` of the same blocks). A hole lane stores one zero block
+    and loads nothing, so the bound counts it at one block; a mapped lane
+    reads and writes one. Returns the numbers per batch."""
     from repro_torch.kernels.dbs import (dbs_read_bytes, dbs_rw_read,
                                          dbs_rw_read_ref)
+    from repro_torch.kernels.dbs.rw_kernel import read_info
+    from repro_torch.kernels.timing import graph_ms
+    _e, page, d = pool.shape
+    err = 0.0
+    holes, lanes = [], []
+    for ext, blk in reads:
+        got, want = dbs_rw_read(pool, ext, blk), dbs_rw_read_ref(pool, ext, blk)
+        err = max(err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError("dbs_rw_read differs from its plain version")
+        holes.append(int((ext < 0).sum()))
+        lanes.append(int(ext.numel()))
+    n = len(reads)
+    flat = pool.view(-1, d)
+    idx = [(ext.clamp(min=0).long() * page + blk.long())
+           for ext, blk in reads]
+    ms = graph_ms(lambda: [dbs_rw_read(pool, e, b)
+                                  for e, b in reads], n)
+    plain = graph_ms(lambda: [dbs_rw_read_ref(pool, e, b)
+                                     for e, b in reads], n)
+    lib = graph_ms(lambda: [flat.index_select(0, i) for i in idx], n)
+    mean_b = sum(dbs_read_bytes(b - h, d, 4) + h * d * 4
+                 for b, h in zip(lanes, holes)) / n
+    common = max(set(lanes), key=lanes.count)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
+            "bytes_per_call": mean_b, "hole_lanes": holes, "lanes": lanes,
+            "resources": {"lanes": common, **resources(
+                torch, read_info(common, d, vec4=d % 4 == 0))}}
+
+
+def phase_read_kernel(torch, mgr, reads):
+    """Parity and timing of dbs_rw_read on the (ext, block) batches kept
+    from the main path, over replica 0's pool (all replicas agree)."""
     if not reads:
         raise AssertionError("no read-kernel inputs were kept")
     pool0 = mgr.engine.backend.replicas[0].pool
     pool = pool0.view(pool0.shape[0], PAGE_BLOCKS, -1)
-    r_err = 0.0
-    holes = []
-    for ext, blk in reads:
-        got, want = dbs_rw_read(pool, ext, blk), dbs_rw_read_ref(pool, ext, blk)
-        r_err = max(r_err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise AssertionError("dbs_rw_read differs from its plain version")
-        holes.append(int((ext < 0).sum()))
-    n = len(reads)
-    flat = pool.view(-1, BLOCK)
-    idx = [(ext.clamp(min=0).long() * PAGE_BLOCKS + blk.long())
-           for ext, blk in reads]
-    r_ms = graph_ms(torch, lambda: [dbs_rw_read(pool, e, b)
-                                    for e, b in reads], n)
-    r_plain = graph_ms(torch, lambda: [dbs_rw_read_ref(pool, e, b)
-                                       for e, b in reads], n)
-    r_lib = graph_ms(torch, lambda: [flat.index_select(0, i) for i in idx], n)
-    r_bytes = [dbs_read_bytes(BATCH - h, BLOCK, 4) + h * BLOCK * 4
-               for h in holes]
+    got = read_parity(torch, pool, reads)
+    n, holes = len(reads), got["hole_lanes"]
     emit(phase="kernel_parity", kernel="dbs_rw_read",
          pool_shape=list(pool.shape), lanes=BATCH, batches=n,
          hole_lanes=holes, hole_share=sum(holes) / (n * BATCH), equal=True)
-    mean_rb = sum(r_bytes) / n
     return {"name": "dbs_rw_read", "route": "cuda", "source": KERNEL_SRC,
             "replaces": "src/repro/kernels/dbs/rw_kernel.py:78",
-            "max_abs_err": r_err, "ms": r_ms, "plain_ms": r_plain,
-            "bound_ms": mean_rb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": r_lib, "bytes_per_batch": mean_rb}
+            "max_abs_err": got["max_abs_err"], "ms": got["ms"],
+            "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
+            "bound_by": "bytes", "library_ms": got["library_ms"],
+            "library_call": "index_select of the same blocks",
+            "bytes_per_batch": got["bytes_per_call"], **got["resources"]}
+
+
+def phase_read_kernel_serve(torch, eng, reads):
+    """Parity and timing of dbs_rw_read at the zero-copy serving width, on
+    the (ext, block) batches kept from every READ_SERVE_EVERY-th write pump
+    of the serve path's traffic, over its own replica-0 pool ((E+1, 32,
+    26624) f32: one 104 KiB block a token)."""
+    if not reads:
+        raise AssertionError("no read-kernel inputs were kept on the serve "
+                             "path")
+    pool0 = eng.volumes.device_pools()[0]
+    pool = pool0.view(pool0.shape[0], pool0.shape[1], -1)
+    got = read_parity(torch, pool, reads)
+    emit(phase="kernel_parity", kernel="dbs_rw_read",
+         width="zero-copy serving", pool_shape=list(pool.shape),
+         batches=len(reads), lanes=got["lanes"], hole_lanes=got["hole_lanes"],
+         max_abs_err=got["max_abs_err"], ms=got["ms"],
+         bound_ms=got["bound_ms"], library_ms=got["library_ms"],
+         resources=got["resources"], equal=True)
+    return got
+
+
+# ---------------------------------------------------------------------------
+# the launch floor: the least a launched graph node costs
+# ---------------------------------------------------------------------------
+def phase_launch_floor(torch, dev, smi, n=64):
+    """``graph_ms`` of a one-element ``zero_()`` per call: a kernel that
+    moves 4 bytes, so its time is what any launched node costs in the
+    same graph harness. A kernel timed here cannot go below it."""
+    from repro_torch.kernels.timing import graph_ms
+    x = torch.ones(1, device=dev)
+    ms = graph_ms(lambda: [x.zero_() for _ in range(n)], n)
+    emit(phase="launch_floor", op="zero_() of one fp32 element",
+         calls_per_pass=n, ms=ms, card=smi)
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -858,6 +909,7 @@ def phase_serve(torch, dev, smi):
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import backends, dbs
+    from repro_torch.kernels.dbs import ops as dbs_ops
     from repro_torch.kernels.dbs import rw_kernel
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as f_ops
@@ -879,14 +931,17 @@ def phase_serve(torch, dev, smi):
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
 
     # instrumentation: time the prefill, the write pumps and the decode
-    # program; count fused steps; keep kernel inputs for phase 10
+    # program; count fused steps; keep kernel inputs for phase 10 (the read
+    # kernel's of every READ_SERVE_EVERY-th pump of the traffic)
     clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
     counts = {"fused_steps": 0, "decode_steps": 0}
-    kept = {"paged": [], "flash": []}
+    kept = {"paged": [], "flash": [], "read": []}
+    keep_reads = [True]
     inner = {"prefill": eng._prefill_one_zero, "pump": eng._pump_writes,
              "step": eng._step_fn, "fused": backends.fused_step,
              "paged": serving.paged_attention_pool_fwd,
-             "flash": f_ops.flash_attention_fwd}
+             "flash": f_ops.flash_attention_fwd,
+             "read": dbs_ops.dbs_rw_read}
 
     def timed(name, fn):
         def run(*a, **k):
@@ -911,6 +966,11 @@ def phase_serve(torch, dev, smi):
                                   dict(k)))
         return inner["paged"](q, pool, table, lengths, **k)
 
+    def read(pool, ext, block):
+        if keep_reads[0] and counts["fused_steps"] % READ_SERVE_EVERY == 1:
+            kept["read"].append((ext.clone(), block.clone()))
+        return inner["read"](pool, ext, block)
+
     def flash(q, k, v, **kw):
         if len(kept["flash"]) < 2 and (
                 not kept["flash"] or kw["window"] != kept["flash"][0][3][
@@ -924,6 +984,7 @@ def phase_serve(torch, dev, smi):
     backends.fused_step = fused
     serving.paged_attention_pool_fwd = paged
     f_ops.flash_attention_fwd = flash
+    dbs_ops.dbs_rw_read = read
     for mod in (rw_kernel, pk, fk):
         mod.reset_counts()
     try:
@@ -937,6 +998,7 @@ def phase_serve(torch, dev, smi):
         traffic_clock = dict(clock)
         traffic_launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES,
                             **fk.LAUNCHES}
+        keep_reads[0] = False
         # fork check: a session forked after its 4th decode step against a
         # second engine decoding the same two streams independently
         fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
@@ -944,6 +1006,7 @@ def phase_serve(torch, dev, smi):
         backends.fused_step = inner["fused"]
         serving.paged_attention_pool_fwd = inner["paged"]
         f_ops.flash_attention_fwd = inner["flash"]
+        dbs_ops.dbs_rw_read = inner["read"]
         eng._prefill_one_zero = inner["prefill"]
         eng._pump_writes = inner["pump"]
         eng._step_fn = inner["step"]
@@ -1057,6 +1120,7 @@ def phase_paged_kernel(torch, eng, kept):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (paged_attention_pool_fwd,
                                                      paged_attention_pool_ref)
+    from repro_torch.kernels.timing import graph_ms
     calls = kept["paged"]
     if not calls:
         raise AssertionError("no paged-attention inputs were kept")
@@ -1073,9 +1137,9 @@ def phase_paged_kernel(torch, eng, kept):
         n_bytes.append(2 * live * page * kv * d * 4 + 2 * q.numel() * 4
                        + (table.numel() + lengths.numel()) * 4)
     n = len(calls)
-    ms = graph_ms(torch, lambda: [paged_attention_pool_fwd(q, pool, t, ln, **k)
+    ms = graph_ms(lambda: [paged_attention_pool_fwd(q, pool, t, ln, **k)
                                   for q, t, ln, k in calls], n)
-    plain = graph_ms(torch, lambda: [
+    plain = graph_ms(lambda: [
         paged_attention_pool_ref(q, pool, t, ln, **k)
         for q, t, ln, k in calls], n)
     # yardstick: index_select gathers of the K and V planes, then SDPA with
@@ -1099,7 +1163,7 @@ def phase_paged_kernel(torch, eng, kept):
                 b, p_max * page, kv, d).transpose(1, 2)
             F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask,
                                            enable_gqa=True)
-    lib = graph_ms(torch, library, n)
+    lib = graph_ms(library, n)
     mean_b = sum(n_bytes) / n
     emit(phase="kernel_parity", kernel="paged_attention", calls=n,
          pool_shape=list(pool.shape), q_shape=list(calls[0][0].shape),
@@ -1121,6 +1185,7 @@ def phase_flash_kernel(torch, kept):
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
     from repro_torch.kernels.flash_attention.kernel import flash_info
+    from repro_torch.kernels.timing import graph_ms
     calls = kept["flash"]
     if len(calls) < 2:
         raise AssertionError("the local and global prefill inputs were not "
@@ -1144,13 +1209,13 @@ def phase_flash_kernel(torch, kept):
         n_bytes.append(nb)
         bounds.append(max(f / TF32X3_FLOPS_PER_S, nb / HBM_BYTES_PER_S))
     n = len(calls)
-    ms = graph_ms(torch, lambda: [flash_attention_fwd(q, k, v, **kw)
+    ms = graph_ms(lambda: [flash_attention_fwd(q, k, v, **kw)
                                   for q, k, v, kw in calls], n)
-    plain = graph_ms(torch, lambda: [attention_ref(q, k, v, **kw)
+    plain = graph_ms(lambda: [attention_ref(q, k, v, **kw)
                                      for q, k, v, kw in calls], n)
     cont = [(q.contiguous(), k.contiguous(), v.contiguous())
             for q, k, v, _ in calls]
-    lib = graph_ms(torch, lambda: [F.scaled_dot_product_attention(
+    lib = graph_ms(lambda: [F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True) for q, k, v in cont], n)
     f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
     bound = sum(bounds) / n
@@ -1446,7 +1511,7 @@ def phase_copy_kernel_serve(torch, kept):
     emit(phase="kernel_parity", kernel="dbs_copy", width="serving baseline",
          pool_shape=list(pool.shape), calls=len(calls),
          lanes=int(calls[0][0].numel()), rows_copied=got["rows_copied"],
-         equal=True)
+         resources=got["resources"], equal=True)
     del pool
     return got
 
@@ -1762,6 +1827,7 @@ def phase_rwkv_kernel(torch, kept):
     prefill calls, beside the bound."""
     from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_ref,
                                                 rwkv6_scan_fwd, rwkv6_scan_ref)
+    from repro_torch.kernels.timing import graph_ms
     dec, pre = kept["decode"], kept["prefill"]
     if not dec or not pre:
         raise AssertionError("no rwkv6_scan inputs were kept")
@@ -1799,10 +1865,10 @@ def phase_rwkv_kernel(torch, kept):
         work = [_rwkv_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
                            RWKV_CHUNK, c[5] is not None) for c in calls]
         n = len(calls)
-        ms = graph_ms(torch, lambda: [rwkv6_scan_fwd(
+        ms = graph_ms(lambda: [rwkv6_scan_fwd(
             r, k, v, w, u, chunk=RWKV_CHUNK, s0=s0)
             for r, k, v, w, u, s0 in calls], n)
-        plain = graph_ms(torch, lambda: [rwkv6_chunked_ref(
+        plain = graph_ms(lambda: [rwkv6_chunked_ref(
             r, k, v, w, u, s0, chunk=RWKV_CHUNK)
             for r, k, v, w, u, s0 in calls], n)
         f = sum(w[0] for w in work) / n
@@ -1891,6 +1957,7 @@ def main() -> int:
         gc.collect()         # the managers' reference cycles hold pools
         torch.cuda.empty_cache()
 
+    launch_floor = phase_launch_floor(torch, dev, smi)
     write_k = phase_write_kernel(torch, args, dev)
     copy_crafted_err = phase_copy_kernel(torch, args, dev)
     mgr, launches, n_steps, kept, _ = phase_main(torch, args, dev, smi)
@@ -1935,6 +2002,7 @@ def main() -> int:
         phase_serve(torch, dev, smi)
     paged_k = phase_paged_kernel(torch, eng, kept)
     flash_k = phase_flash_kernel(torch, kept)
+    serve_read = phase_read_kernel_serve(torch, eng, kept["read"])
     del kept
     phase_no_sync_serve(torch, eng)
     phase_profile_serve(torch, eng, smi)
@@ -1946,7 +2014,16 @@ def main() -> int:
     paged_k["launches_per_decode_step"] = (serve_launches["paged_attention"]
                                            / serve_counts["decode_steps"])
     write_k["launches_serve_path"] = serve_launches["dbs_rw_write"]
-    read_k["launches_serve_path"] = serve_launches["dbs_rw_read"]
+    read_k.update(launches_serve_path=serve_launches["dbs_rw_read"],
+                  serve_width_ms=serve_read["ms"],
+                  serve_width_plain_ms=serve_read["plain_ms"],
+                  serve_width_bound_ms=serve_read["bound_ms"],
+                  serve_width_library_ms=serve_read["library_ms"],
+                  serve_width_max_abs_err=serve_read["max_abs_err"],
+                  serve_width_bytes_per_call=serve_read["bytes_per_call"],
+                  serve_width_calls=len(serve_read["lanes"]),
+                  serve_width_resources=serve_read["resources"],
+                  launch_floor_ms=launch_floor)
 
     eng, kept, host_traffic, host_fork = phase_serve_host(
         torch, dev, smi, cfg, params, prompts)
@@ -1962,7 +2039,10 @@ def main() -> int:
                   serve_width_bound_ms=serve_copy["bound_ms"],
                   serve_width_library_ms=serve_copy["library_ms"],
                   serve_width_max_abs_err=serve_copy["max_abs_err"],
-                  serve_width_bytes_per_call=serve_copy["bytes_per_call"])
+                  serve_width_bytes_per_call=serve_copy["bytes_per_call"],
+                  serve_width_zero_row_calls=serve_copy["zero_row_calls"],
+                  serve_width_resources=serve_copy["resources"],
+                  launch_floor_ms=launch_floor)
     phase_host_vs_zero(torch, dev, cfg, params, prompts)
     phase_serve_pool(torch, dev, smi, cfg, params, prompts)
     del cfg, params, prompts

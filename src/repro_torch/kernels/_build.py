@@ -46,11 +46,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # vec4; int[5] out (registers, static and dynamic shared memory,
         # blocks per SM, threads)
         "dbs_rw_write_info": [_ci, _vp],
+        # n_lanes, d, vec4; int[6] out (as dbs_rw_write_info, then blocks
+        # in the grid)
+        "dbs_rw_read_info": [_ci] * 3 + [_vp],
     },
     "dbs_copy": {
         # pool, src, dst, mask; mask_i32, n_lanes, n_rows, page, d, vec4;
         # stream
         "dbs_copy": [_vp] * 4 + [_ci] * 6 + [_vp],
+        # n_lanes, page, d, vec4; int[6] out (as dbs_rw_read_info)
+        "dbs_copy_info": [_ci] * 4 + [_vp],
     },
     "paged_attention": {
         # q, k, v, table, lengths, out; b, h, kv, d, dv, p_max, page,
@@ -150,12 +155,34 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def kernel_info(name: str, fn: str, arg: int, keys) -> Dict[str, int]:
-    """Call a source's ``<kernel>_info(arg, int* out)`` entry, which fills
+def build_variant(name: str, tag: str, source: Path) -> ctypes.CDLL:
+    """Build a second library of source ``name`` from ``source`` (another
+    checkout's copy of ``SOURCES[name]``) into ``BUILD_DIR/<tag>/`` and
+    load it with the entry points of ``name`` that it has: a build to time
+    beside the first. Raises if nvcc fails."""
+    out = BUILD_DIR / tag
+    out.mkdir(parents=True, exist_ok=True)
+    lib_path = out / f"lib{name}.so"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(lib_path), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tag}/{name}: nvcc failed ({proc.returncode}):"
+                           f"\n{proc.stdout}")
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, argtypes in SIGNATURES[name].items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _ci
+    return lib
+
+
+def kernel_info(name: str, fn: str, args, keys) -> Dict[str, int]:
+    """Call a source's ``<kernel>_info(*args, int* out)`` entry, which fills
     ``len(keys)`` ints from ``cudaFuncGetAttributes`` and the occupancy
     calculator, and name them."""
     out = (ctypes.c_int * len(keys))()
-    raise_on(getattr(library(name), fn)(arg, ctypes.addressof(out)), fn)
+    raise_on(getattr(library(name), fn)(*args, ctypes.addressof(out)), fn)
     return dict(zip(keys, out))
 
 

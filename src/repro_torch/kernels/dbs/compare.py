@@ -1,0 +1,177 @@
+"""Time the DBS read and copy kernels of this checkout against other
+builds of the same C entries, on one card, in turns (needs the card).
+
+    PYTHONPATH=src python -m repro_torch.kernels.dbs.compare \\
+        [--against NAME=DIR ...]
+
+``DIR`` is the root of another checkout (the parent commit unpacked with
+``git archive``, say): its ``dbs_rw.cu`` and ``dbs_copy.cu`` are built
+beside this checkout's under ``build/torch_kernels/compare/NAME/``. Every
+build is timed on the same inputs, made from a seed on the card at the
+main paths' shapes:
+
+- ``read_block_device``: 32 batches of 64 lanes over an (2049, 32, 4096)
+  fp32 pool, 8% hole lanes (the block device's reads);
+- ``read_serving``: 70 batches of 16 lanes over a (1033, 32, 26624) pool
+  (zero-copy serving's write pumps: one 104 KiB block a token);
+- ``copy_block_device``: 126 calls of 64 lanes over the (2049, 32, 4096)
+  pool, 85% of them with no live lane and the rest with two (the
+  ``copy`` column's calls: 0.29 rows a call); ``copy_empty`` the same
+  number of calls with no live lane, ``copy_live`` 18 calls with two live
+  rows each (what a call of each kind costs);
+- ``copy_serving``: 26 calls of 8 lanes over a (1032, 32, 1024) pool, two
+  live rows each (the serving baseline's fork);
+- ``launch_floor``: a one-element ``zero_()`` per call.
+
+Each is one CUDA graph of a pass over the calls, the median of 20
+replays, per call (``timing.graph_ms``); ``<case>_queued`` is the same
+pass launched eagerly while a spin kernel holds the card, so the launches
+queue up and run back to back (``timing.queued_ms``). The builds take
+turns (A B ... B A, twice) and each build's time is the median of its
+turns. Prints one JSON line per build and the card's name and power
+limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, Dict, List
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.timing import graph_ms, queued_ms
+
+ROOT = _build.KERNELS.parents[2]
+NAMES = ("dbs_rw", "dbs_copy")
+TURNS = 2                 # rounds of A B ... B A
+
+
+def build(tag: str, root: Path) -> Dict[str, ctypes.CDLL]:
+    """Build ``root``'s dbs_rw.cu and dbs_copy.cu (one nvcc each, run
+    together) and load them."""
+    with ThreadPoolExecutor(len(NAMES)) as ex:
+        libs = ex.map(lambda n: _build.build_variant(
+            n, f"compare/{tag}", root / _build.SOURCES[n].relative_to(ROOT)),
+            NAMES)
+    return dict(zip(NAMES, libs))
+
+
+def inputs(dev, seed: int = 0):
+    """The call lists (see the module note), made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    pool_b = torch.rand((2049, 32, 4096), generator=gen, device=dev)
+    pool_s = torch.rand((1033, 32, 26624), generator=gen, device=dev)
+    pool_c = torch.rand((1032, 32, 1024), generator=gen, device=dev)
+    reads_b = []
+    for _ in range(32):
+        ext = ints(0, 2048, 64)
+        holes = torch.rand(64, generator=gen, device=dev) < 0.08
+        reads_b.append((torch.where(holes, -1, ext).to(torch.int32),
+                        ints(0, 32, 64), torch.empty((64, 4096), device=dev)))
+    reads_s = [(ints(0, 1032, 16), ints(0, 32, 16),
+                torch.empty((16, 26624), device=dev)) for _ in range(70)]
+
+    def copies(n_calls, lanes, n_rows, live_every):
+        out = []
+        for i in range(n_calls):
+            rows = torch.randperm(n_rows, generator=gen, device=dev)
+            src = rows[:lanes].to(torch.int32)
+            dst = rows[lanes:2 * lanes].to(torch.int32)
+            mask = torch.zeros(lanes, dtype=torch.bool, device=dev)
+            if live_every and i % live_every == 0:
+                mask[torch.randperm(lanes, generator=gen, device=dev)[:2]] = 1
+            out.append((src, dst, mask))
+        return out
+
+    return {"read_block_device": (pool_b, reads_b),
+            "read_serving": (pool_s, reads_s),
+            "copy_block_device": (pool_b, copies(126, 64, 2049, 7)),
+            "copy_empty": (pool_b, copies(126, 64, 2049, 0)),
+            "copy_live": (pool_b, copies(18, 64, 2049, 1)),
+            "copy_serving": (pool_c, copies(26, 8, 1032, 1))}
+
+
+def runners(libs, cases) -> Dict[str, Callable[[], None]]:
+    """One pass over each case's calls through ``libs``."""
+    rw, cp = libs["dbs_rw"].dbs_rw_read, libs["dbs_copy"].dbs_copy
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def read(name):
+        pool, calls = cases[name]
+        e, page, d = pool.shape
+
+        def run():
+            st = stream()
+            for ext, blk, out in calls:
+                _build.raise_on(rw(pool.data_ptr(), ext.data_ptr(),
+                                   blk.data_ptr(), out.data_ptr(),
+                                   ext.numel(), e, page, d, 1, st), name)
+        return run
+
+    def copy(name):
+        pool, calls = cases[name]
+        e, page, d = pool.shape
+
+        def run():
+            st = stream()
+            for src, dst, mask in calls:
+                _build.raise_on(cp(pool.data_ptr(), src.data_ptr(),
+                                   dst.data_ptr(), mask.data_ptr(), 0,
+                                   src.numel(), e, page, d, 1, st), name)
+        return run
+
+    return {n: (read(n) if n.startswith("read") else copy(n)) for n in cases}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--against", action="append", default=[],
+                    metavar="NAME=DIR", help="another checkout's root")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("compare: no CUDA device")
+    dev = torch.device("cuda", 0)
+    roots = {"this": ROOT}
+    for item in args.against:
+        name, _, path = item.partition("=")
+        roots[name] = Path(path).resolve()
+    libs = {tag: build(tag, root) for tag, root in roots.items()}
+    cases = inputs(dev)
+    runs = {tag: runners(lib, cases) for tag, lib in libs.items()}
+    order = (list(roots) + list(roots)[::-1]) * TURNS
+    got: Dict[str, Dict[str, List[float]]] = {t: {} for t in roots}
+    x = torch.ones(1, device=dev)
+    floor = []
+    for tag in order:
+        floor.append(graph_ms(lambda: [x.zero_() for _ in range(64)], 64))
+        for case, fn in runs[tag].items():
+            n = len(cases[case][1])
+            got[tag].setdefault(case, []).append(graph_ms(fn, n))
+            got[tag].setdefault(f"{case}_queued", []).append(
+                queued_ms(fn, n))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    for tag in roots:
+        print(json.dumps({"build": tag, "root": str(roots[tag]), **{
+            case: statistics.median(ts) for case, ts in got[tag].items()},
+            "turns": {case: ts for case, ts in got[tag].items()},
+            "launch_floor": statistics.median(floor), "card": card}))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,18 +18,30 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import check_tensor as _check
-from repro_torch.kernels._build import library, raise_on
+from repro_torch.kernels._build import kernel_info, library, raise_on
 from repro_torch.kernels.dbs.ref import dbs_copy_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_copy": 0}
 PLAIN_CALLS: Dict[str, int] = {"dbs_copy": 0}
-MAX_LANES = 65535            # the grid's y dimension: one lane per row
+MAX_LANES = 65535            # lanes a call may carry
 
 
 def reset_counts() -> None:
     for counts in (LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
+
+
+def copy_info(n_lanes: int, page: int, d: int,
+              vec4: bool = True) -> Dict[str, int]:
+    """The CUDA copy kernel's registers, shared memory, resident blocks per
+    SM, threads per block, and the grid blocks it takes for ``n_lanes``
+    lanes of ``(page, d)`` rows (needs the card)."""
+    return kernel_info("dbs_copy", "dbs_copy_info",
+                       (n_lanes, page, d, int(vec4)),
+                       ("registers", "static_smem_bytes",
+                        "dynamic_smem_bytes", "blocks_per_sm", "threads",
+                        "grid_blocks"))
 
 
 def check_copy_routing(src, dst, mask, n_rows: int) -> None:

@@ -33,8 +33,20 @@
 // 16 KiB (D 4096) moves in one round with 1024 loads in flight; a wider
 // block (D 26624 on zero-copy serving, 104 KiB) loops over such rounds.
 // float4 when D % 4 == 0 and both base pointers are 16-byte aligned (the
-// wrapper decides), a scalar loop otherwise. Read design: one warp per lane,
-// eight lanes per thread block, each warp copying one contiguous D-vector.
+// wrapper decides), a scalar loop otherwise.
+//
+// Read design: one thread block per (lane i, chunk c of its D-vector), the
+// lanes on gridDim.x (no lane limit) and the chunks on gridDim.y. Each
+// thread loads ext[i] and block[i] together, then issues its four 16-byte
+// loads of the chunk before its four stores, so a block of T threads moves
+// 64 T bytes in one round: two dependent trips to memory in all. T is
+// chosen per call from D and the lane count: the widest of 256, 128 and 64
+// threads whose grid still gives every SM of the card a block (the SM
+// count is read once per device). At the block device's width (64 lanes of
+// 16 KiB) that is 64 threads and 4 KiB chunks, 256 blocks; at zero-copy
+// serving's (16 lanes of 104 KiB) 128 threads and 8 KiB chunks, 208
+// blocks; the old one-warp-per-lane design gave 8 and 2 blocks. A hole
+// lane's blocks store zeros and load nothing.
 //
 // Hazard. Pallas runs the grid in order; here thread blocks run
 // concurrently, and the blocks of one row no longer run in one thread
@@ -46,6 +58,9 @@
 // its own lane's src row, which no thread block writes in this batch (a CoW
 // source is never a destination, and src == dst copies nothing). The
 // wrapper checks the contract when asked (check_routing=True).
+// The read kernel is race-free by construction: the pool is only read, and
+// every element of out has one writer, the thread of its (lane, chunk)
+// block.
 //
 // Offsets are 64-bit: a full-size pool holds more than 2^31 floats.
 
@@ -56,7 +71,22 @@ namespace {
 
 constexpr int kWriteThreads = 256;
 constexpr int kWritePerThread = 4;   // loads in flight per thread per round
-constexpr int kReadWarps = 8;
+constexpr int kReadPerThread = 4;    // 16-byte loads in flight per thread
+constexpr int kReadMaxThreads = 256;
+constexpr int kReadMinThreads = 64;
+constexpr int kMaxDevices = 64;
+
+// The current device's SM count, read once per device (0 on an error,
+// which the launch's cudaGetLastError then reports).
+int sm_count() {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kWriteThreads)
@@ -89,25 +119,51 @@ write_kernel(T* __restrict__ pool, const int* __restrict__ src,
   }
 }
 
+// pool and out are not __restrict__, so the compiler must keep every load
+// of a chunk ahead of its stores (with both restricted it stored each value
+// as it arrived, and a thread's later loads waited for its first one).
 template <typename T>
-__global__ void read_kernel(const T* __restrict__ pool,
-                            const int* __restrict__ ext,
-                            const int* __restrict__ block, T* __restrict__ out,
-                            int n_lanes, int n_rows, int page, int d_vec) {
-  const int i = blockIdx.x * kReadWarps + threadIdx.x / 32;
-  if (i >= n_lanes) return;
-  const int lane = threadIdx.x % 32;
+__global__ void __launch_bounds__(kReadMaxThreads)
+read_kernel(const T* pool, const int* __restrict__ ext,
+            const int* __restrict__ block, T* out, int n_rows, int page,
+            int d_vec, int n_chunks) {
+  const int i = blockIdx.x;
+  // both ids load together (no branch between them); holes read as
+  // zeros, as the TPU kernel masks with the raw id
   const int e = ext[i];
+  const int b = block[i];
+  const bool hole = e < 0;
+  const T* from = pool + ((int64_t)min(max(e, 0), n_rows - 1) * page +
+                          min(max(b, 0), page - 1)) * d_vec;
   T* o = out + (int64_t)i * d_vec;
-  if (e < 0) {  // hole: zeros, as the TPU kernel masks with the raw id
-    const T zero{};
-    for (int k = lane; k < d_vec; k += 32) o[k] = zero;
-    return;
+  const int chunk = (int)blockDim.x * kReadPerThread;
+  for (int c = blockIdx.y; c < n_chunks; c += gridDim.y) {
+    const int e0 = c * chunk + threadIdx.x;
+    T v[kReadPerThread];
+#pragma unroll
+    for (int u = 0; u < kReadPerThread; ++u) {
+      const int k = e0 + u * (int)blockDim.x;
+      v[u] = T{};
+      if (!hole && k < d_vec) v[u] = from[k];
+    }
+#pragma unroll
+    for (int u = 0; u < kReadPerThread; ++u) {
+      const int k = e0 + u * (int)blockDim.x;
+      if (k < d_vec) o[k] = v[u];
+    }
   }
-  const int ec = min(e, n_rows - 1);
-  const int bc = min(max(block[i], 0), page - 1);
-  const T* from = pool + ((int64_t)ec * page + bc) * d_vec;
-  for (int k = lane; k < d_vec; k += 32) o[k] = from[k];
+}
+
+// The read kernel's block size for n_lanes lanes of d_vec elements: the
+// widest whose grid gives every SM a block, else the narrowest.
+int read_threads(int n_lanes, int d_vec) {
+  const int64_t sms = sm_count();
+  int t = kReadMaxThreads;
+  while (t > kReadMinThreads &&
+         (int64_t)n_lanes * ((d_vec + t * kReadPerThread - 1) /
+                             (t * kReadPerThread)) < sms)
+    t /= 2;
+  return t;
 }
 
 }  // namespace
@@ -163,20 +219,52 @@ int dbs_rw_write_info(int vec4, int* info) {
 int dbs_rw_read(const void* pool, const void* ext, const void* block,
                 void* out, int n_lanes, int n_rows, int page, int d, int vec4,
                 void* stream) {
-  if (n_lanes > 0) {
+  if (n_lanes > 0 && d > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-    const int grid = (n_lanes + kReadWarps - 1) / kReadWarps;
+    const int d_vec = vec4 ? d / 4 : d;
+    const int threads = read_threads(n_lanes, d_vec);
+    const int n_chunks =
+        (d_vec + threads * kReadPerThread - 1) / (threads * kReadPerThread);
+    const dim3 grid((unsigned)n_lanes, (unsigned)min(n_chunks, 65535));
     if (vec4) {
-      read_kernel<float4><<<grid, kReadWarps * 32, 0, st>>>(
+      read_kernel<float4><<<grid, threads, 0, st>>>(
           (const float4*)pool, (const int*)ext, (const int*)block,
-          (float4*)out, n_lanes, n_rows, page, d / 4);
+          (float4*)out, n_rows, page, d_vec, n_chunks);
     } else {
-      read_kernel<float><<<grid, kReadWarps * 32, 0, st>>>(
+      read_kernel<float><<<grid, threads, 0, st>>>(
           (const float*)pool, (const int*)ext, (const int*)block, (float*)out,
-          n_lanes, n_rows, page, d);
+          n_rows, page, d_vec, n_chunks);
     }
   }
   return (int)cudaGetLastError();
+}
+
+// The read kernel's resources at n_lanes lanes of d floats (float4 when
+// vec4 != 0): info[0] registers per thread, [1] static and [2] dynamic
+// shared memory per block (bytes), [3] blocks resident per SM, [4] threads
+// per block, [5] blocks in the grid.
+int dbs_rw_read_info(int n_lanes, int d, int vec4, int* info) {
+  if (n_lanes <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  const void* fn = vec4 ? (const void*)read_kernel<float4>
+                        : (const void*)read_kernel<float>;
+  const int d_vec = vec4 ? d / 4 : d;
+  const int threads = read_threads(n_lanes, d_vec);
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      0);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = 0;
+  info[3] = per_sm;
+  info[4] = threads;
+  info[5] = n_lanes * min((d_vec + threads * kReadPerThread - 1) /
+                              (threads * kReadPerThread),
+                          65535);
+  return 0;
 }
 
 }  // extern "C"

@@ -31,12 +31,24 @@ def reset_counts() -> None:
             counts[k] = 0
 
 
+INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+             "blocks_per_sm", "threads")
+
+
 def write_info(vec4: bool = True) -> Dict[str, int]:
     """The CUDA write kernel's registers, shared memory, resident blocks
     per SM and threads per block (float4 or scalar; needs the card)."""
-    return kernel_info("dbs_rw", "dbs_rw_write_info", int(vec4),
-                       ("registers", "static_smem_bytes",
-                        "dynamic_smem_bytes", "blocks_per_sm", "threads"))
+    return kernel_info("dbs_rw", "dbs_rw_write_info", (int(vec4),),
+                       INFO_KEYS)
+
+
+def read_info(n_lanes: int, d: int, vec4: bool = True) -> Dict[str, int]:
+    """The CUDA read kernel's registers, shared memory, resident blocks per
+    SM, and the threads per block and grid blocks it takes for ``n_lanes``
+    lanes of ``d`` floats (the block size is chosen per call; needs the
+    card)."""
+    return kernel_info("dbs_rw", "dbs_rw_read_info",
+                       (n_lanes, d, int(vec4)), INFO_KEYS + ("grid_blocks",))
 
 
 def _vec4(d: int, *tensors: torch.Tensor) -> int:

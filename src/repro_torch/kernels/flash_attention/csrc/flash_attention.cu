@@ -94,6 +94,7 @@ constexpr int kNT = kBK / 8;                  // 8-key tiles of S
 constexpr int kMaxD = 256;
 constexpr int kChunks = kMaxD / 8 / kGroups;  // 8-wide chunks per warp (8)
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;
 static_assert(kNT == kGroups, "warp grp owns the softmax of key step grp");
 
 // x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, to nearest, ties
@@ -456,14 +457,19 @@ size_t smem_bytes(int d) {
 }
 
 // Raise the kernel's dynamic shared-memory limit only when a larger size is
-// first asked for, so launches captured in a CUDA graph make no such call.
-size_t configured = 0;
+// first asked for on the current device (the attribute is kept per
+// device), so launches captured in a CUDA graph make no such call.
+size_t configured[kMaxDevices] = {};
 
 cudaError_t configure(size_t smem) {
-  if (smem <= configured) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= configured[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
       flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured = smem;
+  if (err == cudaSuccess) configured[dev] = smem;
   return err;
 }
 

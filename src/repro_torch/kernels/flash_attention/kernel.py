@@ -44,7 +44,7 @@ def reset_counts() -> None:
 def flash_info(d: int) -> Dict[str, int]:
     """The CUDA kernel's registers, shared memory, resident blocks per SM
     and block shape at head dim ``d`` (needs the card)."""
-    return kernel_info("flash_attention", "flash_attention_info", d,
+    return kernel_info("flash_attention", "flash_attention_info", (d,),
                        INFO_KEYS)
 
 

@@ -5,9 +5,9 @@
 Builds ``csrc/flash_attention.cu`` as it is and in variants that each drop
 one phase of the key loop, then times every build at the serving path's
 prefill shapes (gemma2-2b: 8 heads, 4 KV heads, hd 256, the model layout,
-cap 50, causal) with CUDA graphs, the median of 20 replays. A variant's
-outputs are wrong by design; only its time counts, and the difference to
-the full kernel is the phase's cost:
+cap 50, causal) with CUDA graphs (``timing.graph_ms``), the median of 20
+replays. A variant's outputs are wrong by design; only its time counts,
+and the difference to the full kernel is the phase's cost:
 
 - ``no_qk_products`` / ``no_pv_products``: the tensor-core products of
   S = Q.K^T or O = P.V dropped (the compiler drops their operand loads and
@@ -24,13 +24,13 @@ from __future__ import annotations
 
 import ctypes
 import json
-import statistics
 import subprocess
 from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.timing import graph_ms
 
 SOURCE = _build.SOURCES["flash_attention"]
 OUT_DIR = _build.BUILD_DIR / "phase_costs"
@@ -90,25 +90,6 @@ def build(texts: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
-def graph_ms(fn, passes: int = 20) -> float:
-    """Median device time of ``fn()`` replayed from a CUDA graph."""
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    times = []
-    for _ in range(passes):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        g.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("phase_costs: needs a CUDA device")
@@ -129,7 +110,7 @@ def main() -> int:
                     *v.stride()[:3], *out.stride()[:3], 1, 0, d ** -0.5, cap,
                     torch.cuda.current_stream().cuda_stream)
                 _build.raise_on(err, "flash_attention")
-            ms[name] = graph_ms(run)
+            ms[name] = graph_ms(run, 1)
         print(json.dumps({"seq": s, "heads": h, "kv_heads": kv,
                           "head_dim": d, "logit_cap": cap, "ms": ms,
                           "phase_ms": {n: ms["full"] - t for n, t in ms.items()

@@ -51,6 +51,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -193,13 +194,18 @@ int paged_attention(const void* q, const void* k, const void* v,
   const size_t smem = sizeof(float) * ((size_t)page * (d + dv) +
                                        (size_t)g * (d + page + dv) + 3 * g);
   // raise the dynamic shared-memory limit only when a larger size is
-  // first asked for, so launches captured in a CUDA graph make no such call
-  static size_t configured = 0;
-  if (smem > configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+  // first asked for on this device (the attribute is kept per device), so
+  // launches captured in a CUDA graph make no such call
+  static size_t configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > configured[dev]) {
+    err = cudaFuncSetAttribute(
         paged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    configured = smem;
+    configured[dev] = smem;
   }
   dim3 grid(b, kv);
   paged_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(

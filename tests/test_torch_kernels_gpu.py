@@ -12,8 +12,13 @@ blocks, masked lanes. Results must equal the plain versions bit for bit.
 
 ``dbs_copy``: the CPU parity geometries and the two full row widths (the
 block device's 32 x 4096 floats, the serving baseline's 32 x 4 x 256), with
-live CoW lanes, masked lanes with dst -1 and a live copy into extent 0;
-bit for bit against ``dbs_copy_ref``.
+live CoW lanes, masked lanes with dst -1 and a live copy into extent 0, no
+live lane, one, every lane live, and 1500 lanes (several compaction
+windows); bit for bit against ``dbs_copy_ref``.
+
+``dbs_rw_read`` on crafted batches: the zero-copy serving width, clamped
+extent ids and block offsets, all holes, one lane, the scalar path, a
+ragged chunk grid and more lanes than a grid's y dimension holds.
 
 ``dbs_rw_write`` also on crafted batches of only in-place writes and of
 only CoW lanes, with D % 4 != 0, and at the zero-copy serving width.
@@ -25,6 +30,10 @@ parity geometries of the CPU tests and at the serving path's full width
 (gemma2-2b: 8 heads, 4 KV heads, hd 256, page 32); flash also on its
 edges: head dims padded to 8, one query row, Sk >> Sq, rows that are not
 16-byte aligned, windows narrower than a key tile.
+
+On a machine with two cards, every kernel with a per-device setting
+(flash and paged attention's shared-memory limit, the DBS kernels' SM
+count) also runs on the second card after the first.
 
 ``rwkv6_scan``: the fp32 kernel against both plain versions (the chunked
 schedule and the step-by-step oracle) within atol 1e-4 and rtol 1e-4, at
@@ -119,6 +128,46 @@ def test_cuda_kernels_match_plain_versions(n_e, page, d, b):
     assert not got[0].any()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,n_e,page,d,b", [
+    ("serving", 1032, 32, 26624, 16), ("clamped_ext", 40, 32, 4096, 64),
+    ("clamped_block", 40, 32, 4096, 64), ("all_holes", 40, 32, 26624, 16),
+    ("one_lane", 40, 32, 26624, 1), ("one_lane", 40, 32, 4096, 1),
+    ("scalar", 40, 32, 1027, 16), ("ragged", 40, 32, 4100, 7),
+    ("many_lanes", 16, 4, 8, 70000)])
+def test_dbs_rw_read_kernel_matches_plain(case, n_e, page, d, b):
+    """The read kernel on its (lane, chunk) grid, bit for bit against the
+    plain version: the zero-copy serving width (16 lanes of 104 KiB, a
+    third of them holes); extent ids past the pool (clamped to its last
+    row) and block offsets outside the page (clamped into it); every lane
+    a hole (zeros); one lane; D 1027 (the scalar path); 7 lanes of D 4100
+    (a lane count that is no multiple of the chunks a lane takes, and a
+    ragged last chunk); more lanes than a grid's y dimension could hold."""
+    dev = _cuda()
+    rng = np.random.default_rng(d + b)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    pool = torch.rand((n_e + 1, page, d), generator=gen, device=dev)
+    ext = rng.integers(0, n_e + 1, b)
+    blk = rng.integers(0, page, b)
+    if case in ("serving", "scalar", "ragged", "many_lanes"):
+        ext[rng.random(b) < 1 / 3] = -1
+    elif case == "clamped_ext":
+        ext[::3] = n_e + 1 + rng.integers(0, 1000, ext[::3].shape)
+    elif case == "clamped_block":
+        blk[::2] = rng.choice([-5, -1, page, page + 7], blk[::2].shape)
+    elif case == "all_holes":
+        ext[:] = -1
+    ext, blk = (torch.from_numpy(x.astype(np.int32)).to(dev)
+                for x in (ext, blk))
+    got = dbs_rw_read(pool, ext, blk)
+    want = dbs_rw_read_ref(pool, ext, blk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[ext < 0].any()
+    if case == "all_holes":
+        assert not got.any()
+
+
 def _crafted_write_batch(kind, n_e, page, b, rng):
     """A routed batch of one kind: ``in_place`` (every lane writes its own
     row, src == dst) or ``all_cow`` (every lane copies a distinct source row
@@ -165,31 +214,42 @@ def test_dbs_rw_write_crafted_batches(kind, n_e, page, d, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("e,page,d,n", [
     (16, 8, 32, 4), (8, 4, 16, 4), (16, 4, 6, 5), (256, 32, 4096, 64),
-    (1032, 32, 1024, 26)])
+    (1032, 32, 1024, 26), (3010, 2, 8, 1500)])
 @pytest.mark.parametrize("mask_dtype", [torch.bool, torch.int32])
-def test_dbs_copy_kernel_matches_plain(e, page, d, n, mask_dtype):
-    """Sources in the lower half, distinct destinations in the upper half,
-    ~70% live; lane 0 copies live into extent 0 and the masked lanes carry
-    dst -1. d=6 takes the scalar loop. The full widths: 512 KiB rows (the
-    block device) and 128 KiB rows (the serving baseline at gemma2-2b)."""
+@pytest.mark.parametrize("live", ["mixed", "none", "one", "all"])
+def test_dbs_copy_kernel_matches_plain(e, page, d, n, mask_dtype, live):
+    """Sources in the lower half, distinct destinations in the upper half.
+    ``mixed``: ~70% live, lane 0 copies live into extent 0 and the masked
+    lanes carry dst -1; ``none``: every lane masked (the pool unchanged);
+    ``one``: one live lane in the middle; ``all``: every lane live. d=6
+    takes the scalar loop. The full widths: 512 KiB rows (the block device)
+    and 128 KiB rows (the serving baseline at gemma2-2b); 1500 lanes span
+    twelve of the kernel's 128-lane compaction windows."""
     dev = _cuda()
     rng = np.random.default_rng(e + d)
     gen = torch.Generator(device=dev).manual_seed(e)
     pool = torch.rand((e, page, d), generator=gen, device=dev)
     src = rng.integers(1, e // 2, n).astype(np.int32)
     dst = (np.arange(n) + e // 2).astype(np.int32)
-    mask = rng.random(n) < 0.7
-    mask[0], dst[0] = True, 0
+    mask = {"mixed": rng.random(n) < 0.7, "none": np.zeros(n, bool),
+            "one": np.arange(n) == n // 2, "all": np.ones(n, bool)}[live]
+    if live == "mixed":
+        mask[0], dst[0] = True, 0
     dst[~mask] = -1
     args = [torch.from_numpy(x).to(dev) for x in (src, dst, mask)]
     args[2] = args[2].to(mask_dtype)
+    untouched = pool.clone()
     ref = dbs_copy_ref(pool.clone(), *args)
     before = copy_kernel.LAUNCHES["dbs_copy"]
     got = dbs_copy(pool, *args, check_routing=True)
     torch.cuda.synchronize()
     assert copy_kernel.LAUNCHES["dbs_copy"] == before + 1
     assert got is pool and torch.equal(pool, ref)
-    assert torch.equal(pool[0], pool[int(src[0])])
+    if live == "none":
+        assert torch.equal(pool, untouched)
+    else:
+        i = 0 if live == "mixed" else n // 2
+        assert torch.equal(pool[int(dst[i])], untouched[int(src[i])])
     # the pool wrapper over (E, page, KV, hd)
     pool4 = torch.rand((e, page, 2, d), generator=gen, device=dev)
     ref4 = dbs_copy_ref(pool4.clone().view(e, page, -1), *args)
@@ -333,6 +393,43 @@ def test_flash_attention_kernel_edge_cases(b, sq, sk, h, kv, d, window, cap,
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+def test_kernels_on_a_second_device():
+    """The raised dynamic shared-memory limit and the SM count are kept per
+    device: flash (192000 bytes at hd 256) and paged attention (64 KiB of
+    K/V pages at gemma2-2b's width) launch on card 0 and then on card 1,
+    each against its plain version, and so do the read and copy kernels."""
+    _cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for i in (0, 1):
+        dev = torch.device("cuda", i)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        q = torch.randn((1, 8, 100, 256), generator=gen, device=dev)
+        k = torch.randn((1, 4, 100, 256), generator=gen, device=dev)
+        v = torch.randn((1, 4, 100, 256), generator=gen, device=dev)
+        torch.testing.assert_close(
+            flash_attention_fwd(q, k, v, window=0, logit_cap=50.0),
+            attention_ref(q, k, v, window=0, logit_cap=50.0), **TOL)
+        q, pk, table, lengths = _paged_case(dev, 2, 8, 4, 256, 32, 4, 12, 1)
+        _, pv, _, _ = _paged_case(dev, 2, 8, 4, 256, 32, 4, 12, 2)
+        torch.testing.assert_close(
+            paged_attention_fwd(q, pk, pv, table, lengths, logit_cap=50.0),
+            paged_attention_ref(q, pk, pv, table, lengths, logit_cap=50.0),
+            **TOL)
+        pool = torch.rand((9, 32, 4096), generator=gen, device=dev)
+        ext = torch.tensor([3, -1, 8, 0], dtype=torch.int32, device=dev)
+        blk = torch.tensor([0, 5, 31, 7], dtype=torch.int32, device=dev)
+        assert torch.equal(dbs_rw_read(pool, ext, blk),
+                           dbs_rw_read_ref(pool, ext, blk))
+        src, dst = (torch.tensor(x, dtype=torch.int32, device=dev)
+                    for x in ([1, 2], [5, 6]))
+        mask = torch.tensor([True, False], device=dev)
+        want = dbs_copy_ref(pool.clone(), src, dst, mask)
+        assert torch.equal(dbs_copy(pool, src, dst, mask), want)
+        torch.cuda.synchronize(dev)
 
 
 def _rwkv_case(dev, b, s, h, d, seed, with_state):
