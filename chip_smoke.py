@@ -87,11 +87,13 @@ and the script exits non-zero:
    output over 3.35 TB/s; flash: the larger of its causal flops over
    165 TFLOP/s, the fp32 rate of 3xTF32 on the tensor cores that it
    computes with, and its bytes over 3.35 TB/s) and one PyTorch yardstick
-   labelled with what it differs in; flash also with its registers, shared
-   memory and blocks in flight. Then ``dbs_rw_read`` at the serving width
-   (pool (E+1, 32, 26624) f32, the serve path's own replica 0, 104 KiB
-   blocks) on the kept pump inputs: bit for bit, timed as in phase 6
-   (the ``serve_width_*`` keys of its kernels entry).
+   labelled with what it differs in; each with its registers, shared
+   memory and blocks in flight, paged also with its split count (shares of
+   each sequence's pages over blocks) and kernels per call (the main grid,
+   then the merge of the partials when it splits). Then ``dbs_rw_read``
+   at the serving width (pool (E+1, 32, 26624) f32, the serve path's own
+   replica 0, 104 KiB blocks) on the kept pump inputs: bit for bit, timed
+   as in phase 6 (the ``serve_width_*`` keys of its kernels entry).
 11. no_sync (serving) — one call of the decode program under
    ``torch.cuda.set_sync_debug_mode("error")``.
 12. profile (serving) — where a serving step's time goes, on the same
@@ -137,12 +139,15 @@ and the script exits non-zero:
    of the first layers of a few decode steps are kept.
 18. kernel_parity (rwkv6_scan) — the kernel against its chunked plain
    version and the step-by-step oracle on those kept inputs and on crafted
-   ones (ragged and prime lengths, a carried state, hd 16 to 64), within
-   rtol 1e-4 and atol 1e-4 widened to 1e-5 of the reference's largest
-   magnitude (long prompts grow the outputs to hundreds; the measured
-   errors are printed); timed with CUDA graphs as in phase 3, per
-   decode and per prefill call, beside the bound (the larger of the
-   chunked form's flops over 67 TFLOP/s and its bytes over 3.35 TB/s). No
+   ones (ragged and prime lengths, a carried state, hd 16 to 64), and
+   against the oracle alone on strong decay (logw about -3 a token, where
+   the chunked version's exp(-cum) overflows), within rtol 1e-4 and atol
+   1e-4 widened to 1e-5 of the reference's largest magnitude (long prompts
+   grow the outputs to hundreds; the measured errors are printed); timed
+   with CUDA graphs as in phase 3, per decode and per prefill call, beside
+   the bound (the larger of the chunked form's flops over 67 TFLOP/s and
+   its bytes over 3.35 TB/s), with the schedule, column blocks, registers
+   and shared memory the kernel reports for each. No
    single PyTorch call computes the recurrence, so its library time is
    null; the kernels line gives the times per launch over the serve path's
    mix of prefill and decode launches.
@@ -1120,6 +1125,8 @@ def phase_paged_kernel(torch, eng, kept):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (paged_attention_pool_fwd,
                                                      paged_attention_pool_ref)
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_info, paged_row_groups, paged_splits, sm_count)
     from repro_torch.kernels.timing import graph_ms
     calls = kept["paged"]
     if not calls:
@@ -1165,10 +1172,17 @@ def phase_paged_kernel(torch, eng, kept):
                                            enable_gqa=True)
     lib = graph_ms(library, n)
     mean_b = sum(n_bytes) / n
+    # the grid the wrapper picks: (b * kv * row groups, n_split) main
+    # blocks, then the merge kernel over (b, kv) when n_split > 1
+    b, h, _ = calls[0][0].shape
+    p_max = calls[0][1].shape[1]
+    rows = b * kv * paged_row_groups(h, kv)
+    n_split = paged_splits(p_max, rows, sm_count(pool.device), h // kv)
+    info = paged_info(h // kv, d, d, True, True, p_max, n_split)
     emit(phase="kernel_parity", kernel="paged_attention", calls=n,
          pool_shape=list(pool.shape), q_shape=list(calls[0][0].shape),
          table_shape=list(calls[0][1].shape), max_abs_err=err,
-         bytes_per_call=mean_b, tolerance=ATTN_TOL)
+         bytes_per_call=mean_b, splits=n_split, tolerance=ATTN_TOL)
     return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
             "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -1177,7 +1191,9 @@ def phase_paged_kernel(torch, eng, kept):
             "library_call": "two index_select gathers (K and V planes) + "
                             "scaled_dot_product_attention with a boolean "
                             "mask, no logit cap",
-            "bytes_per_call": mean_b}
+            "bytes_per_call": mean_b, "splits": n_split,
+            "kernels_per_call": 2 if n_split > 1 else 1,
+            **resources(torch, info, rows * n_split)}
 
 
 def phase_flash_kernel(torch, kept):
@@ -1827,6 +1843,7 @@ def phase_rwkv_kernel(torch, kept):
     prefill calls, beside the bound."""
     from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_ref,
                                                 rwkv6_scan_fwd, rwkv6_scan_ref)
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_info
     from repro_torch.kernels.timing import graph_ms
     dec, pre = kept["decode"], kept["prefill"]
     if not dec or not pre:
@@ -1842,6 +1859,18 @@ def phase_rwkv_kernel(torch, kept):
         u = torch.randn((h, d), generator=gen, device=dev) * 0.1
         s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
         crafted.append((r, k, v, logw, u, s0))
+    # strong decay (logw about -3 a token): a chunk's summed log decay is
+    # below -88, where the chunked plain version's exp(-cum) overflows, so
+    # these are held against the step oracle only
+    strong = []
+    for b, s, h, d in ((1, 300, 40, 64), (8, 1, 40, 64), (2, 97, 3, 32)):
+        r, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   for _ in range(3))
+        logw = -3.0 - 0.2 * torch.rand((b, s, h, d), generator=gen,
+                                       device=dev)
+        u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+        s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
+        strong.append((r, k, v, logw, u, s0))
     err, scaled = {}, {}
     for name, calls in (("decode", dec), ("prefill", pre),
                         ("crafted", crafted)):
@@ -1860,6 +1889,21 @@ def phase_rwkv_kernel(torch, kept):
                     d = float((got - want).abs().max())
                     e, es = max(e, d), max(es, d / max(top, 1e-30))
         err[name], scaled[name] = e, es
+    e = es = 0.0
+    for r, k, v, logw, u, s0 in strong:
+        y, st = rwkv6_scan_fwd(r, k, v, logw, u, chunk=RWKV_CHUNK, s0=s0)
+        wy, ws = rwkv6_scan_ref(r, k, v, logw, u, s0)
+        for got, want in ((y, wy), (st, ws)):
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("rwkv6_scan: not finite under strong "
+                                     "decay")
+            top = float(want.abs().max())
+            torch.testing.assert_close(
+                got, want, rtol=RWKV_RTOL,
+                atol=max(RWKV_ATOL, RWKV_ATOL_SCALE * top))
+            dd = float((got - want).abs().max())
+            e, es = max(e, dd), max(es, dd / max(top, 1e-30))
+    err["strong_decay"], scaled["strong_decay"] = e, es
     timing = {}
     for name, calls in (("decode", dec), ("prefill", pre)):
         work = [_rwkv_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
@@ -1873,7 +1917,9 @@ def phase_rwkv_kernel(torch, kept):
             for r, k, v, w, u, s0 in calls], n)
         f = sum(w[0] for w in work) / n
         nb = sum(w[1] for w in work) / n
+        b, s, h, d = calls[0][0].shape
         timing[name] = {"calls": n, "shape": list(calls[0][0].shape),
+                        "kernel": rwkv6_info(b, s, h, d, RWKV_CHUNK),
                         "ms": ms, "plain_ms": plain, "flops_per_call": f,
                         "bytes_per_call": nb,
                         "bound_ms": max(f / FP32_FLOPS_PER_S,
@@ -1883,6 +1929,7 @@ def phase_rwkv_kernel(torch, kept):
     emit(phase="kernel_parity", kernel="rwkv6_scan", chunk=RWKV_CHUNK,
          max_abs_err=err, max_err_over_largest_magnitude=scaled,
          crafted_shapes=[list(c[0].shape) for c in crafted],
+         strong_decay_shapes=[list(c[0].shape) for c in strong],
          prefill_lengths=[int(c[0].shape[1]) for c in pre],
          tolerance={"rtol": RWKV_RTOL, "atol": f"max({RWKV_ATOL}, "
                     f"{RWKV_ATOL_SCALE} * max|reference|)"}, timing=timing)
@@ -1905,8 +1952,13 @@ def _rwkv_entry(k, launches, counts, n_layers):
     # what bounds the mix: the kind of call that holds most of its bound
     major = max(("prefill", n_pre), ("decode", n_dec),
                 key=lambda kn: kn[1] * t[kn[0]]["bound_ms"])[0]
+    pk = t["prefill"]["kernel"]
     k.update(launches=launches, launches_prefill=n_pre,
-             launches_decode=n_dec, ms=mix("ms"), plain_ms=mix("plain_ms"),
+             launches_decode=n_dec, kernels_per_call=1,
+             n_col=pk["n_col"], registers=pk["registers"],
+             dynamic_smem=pk["dynamic_smem"],
+             blocks_per_sm=pk["blocks_per_sm"], ms=mix("ms"),
+             plain_ms=mix("plain_ms"),
              bound_ms=mix("bound_ms"), bound_by=t[major]["bound_by"],
              library_ms=None,
              library_call="none: no single PyTorch call computes the RWKV-6 "

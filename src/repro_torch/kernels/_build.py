@@ -58,11 +58,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "dbs_copy_info": [_ci] * 4 + [_vp],
     },
     "paged_attention": {
-        # q, k, v, table, lengths, out; b, h, kv, d, dv, p_max, page,
-        # n_rows; K row, K token, V row, V token strides (elements,
-        # 64-bit); window; scale, logit_cap; stream
-        "paged_attention": [_vp] * 6 + [_ci] * 8 + [ctypes.c_int64] * 4
-        + [_ci, _cf, _cf, _vp],
+        # q, k, v, table, lengths, out, partials (or null); b, h, kv, d,
+        # dv, p_max, page, n_rows; K row, K token, V row, V token strides
+        # (elements, 64-bit); window; scale, logit_cap; n_split; stream
+        "paged_attention": [_vp] * 7 + [_ci] * 8 + [ctypes.c_int64] * 4
+        + [_ci, _cf, _cf, _ci, _vp],
+        # g, d, dv, vec_k, vec_v, p_max, n_split; int[8] out (registers,
+        # static and dynamic shared memory, blocks per SM, threads, the
+        # merge kernel's registers, positions a tile, query rows a block)
+        "paged_attention_info": [_ci] * 7 + [_vp],
     },
     "flash_attention": {
         # q, k, v, out; b, h, kv, sq, sk, d; q/k/v/o strides (batch, head,
@@ -77,6 +81,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;
         # r/k/v/logw/y strides (batch, seq, head; elements, 64-bit); stream
         "rwkv6_scan": [_vp] * 8 + [_ci] * 5 + [ctypes.c_int64] * 15 + [_vp],
+        # b, seq, h, d, chunk; int[8] out (schedule, column blocks, grid
+        # blocks, threads, registers, static and dynamic shared memory,
+        # blocks per SM)
+        "rwkv6_scan_info": [_ci] * 5 + [_vp],
     },
 }
 

@@ -1,14 +1,19 @@
-"""Time the DBS read and copy kernels of this checkout against other
-builds of the same C entries, on one card, in turns (needs the card).
+"""Time this checkout's DBS, paged-attention and RWKV-6 kernels against
+other builds of the same C entries, on one card, in turns (needs the
+card).
 
-    PYTHONPATH=src python -m repro_torch.kernels.dbs.compare \\
+    PYTHONPATH=src python -m repro_torch.kernels.compare \\
         [--against NAME=DIR ...]
 
 ``DIR`` is the root of another checkout (the parent commit unpacked with
-``git archive``, say): its ``dbs_rw.cu`` and ``dbs_copy.cu`` are built
-beside this checkout's under ``build/torch_kernels/compare/NAME/``. Every
-build is timed on the same inputs, made from a seed on the card at the
-main paths' shapes:
+``git archive``, say): its ``dbs_rw.cu``, ``dbs_copy.cu``,
+``paged_attention.cu`` and ``rwkv6_scan.cu`` are built beside this
+checkout's under ``build/torch_kernels/compare/NAME/``. Each build is
+called through the C entries it exports: a paged-attention build without
+``paged_attention_info`` has the entry without the partials scratch and
+the split count (one block per sequence and KV head). Every build is timed
+on the same inputs, made from a seed on the card at the main paths'
+shapes:
 
 - ``read_block_device``: 32 batches of 64 lanes over an (2049, 32, 4096)
   fp32 pool, 8% hole lanes (the block device's reads);
@@ -21,6 +26,15 @@ main paths' shapes:
   rows each (what a call of each kind costs);
 - ``copy_serving``: 26 calls of 8 lanes over a (1032, 32, 1024) pool, two
   live rows each (the serving baseline's fork);
+- ``paged_serving``: one zero-copy gemma2-2b decode step's 13 global
+  layers: 8 x 8 x 256 queries over planes (2l, 2l + 1) of a
+  (1033, 32, 26, 4, 256) pool, 64-page block tables, lengths drawn in
+  100-1032 (prompts of 100-1000 tokens and up to 32 new ones), logit cap
+  50, no window;
+- ``rwkv6_decode``: one rwkv6-3b decode step's 32 layers: B 8, S 1,
+  H 40, hd 64, a carried state each;
+- ``rwkv6_prefill``: 4 prompts of 497 tokens (B 1, H 40, hd 64, the
+  serving traffic's mean length), from a zero state;
 - ``launch_floor``: a one-element ``zero_()`` per call.
 
 Each is one CUDA graph of a pass over the calls, the median of 20
@@ -45,21 +59,31 @@ from typing import Callable, Dict, List
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.kernel import (paged_row_groups,
+                                                        paged_splits, sm_count)
 from repro_torch.kernels.timing import graph_ms, queued_ms
 
 ROOT = _build.KERNELS.parents[2]
-NAMES = ("dbs_rw", "dbs_copy")
+NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "rwkv6_scan")
 TURNS = 2                 # rounds of A B ... B A
+_vp, _ci, _cf, _i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int64)
+# the paged entry before the split (no partials, no n_split)
+PAGED_UNSPLIT = [_vp] * 6 + [_ci] * 8 + [_i64] * 4 + [_ci, _cf, _cf, _vp]
 
 
 def build(tag: str, root: Path) -> Dict[str, ctypes.CDLL]:
-    """Build ``root``'s dbs_rw.cu and dbs_copy.cu (one nvcc each, run
+    """Build ``root``'s sources of ``NAMES`` (one nvcc each, run
     together) and load them."""
     with ThreadPoolExecutor(len(NAMES)) as ex:
         libs = ex.map(lambda n: _build.build_variant(
             n, f"compare/{tag}", root / _build.SOURCES[n].relative_to(ROOT)),
             NAMES)
-    return dict(zip(NAMES, libs))
+    libs = dict(zip(NAMES, libs))
+    paged = libs["paged_attention"]
+    if not hasattr(paged, "paged_attention_info"):
+        paged.paged_attention.argtypes = PAGED_UNSPLIT
+    return libs
 
 
 def inputs(dev, seed: int = 0):
@@ -94,17 +118,51 @@ def inputs(dev, seed: int = 0):
             out.append((src, dst, mask))
         return out
 
+    # zero-copy decode: the pool as (E, page, 26 planes, 4 KV heads, 256)
+    paged = []
+    for layer in range(13):
+        lengths = ints(100, 1033, 8)
+        n_pages = (lengths + 31) // 32
+        perm = torch.randperm(1032, generator=gen, device=dev)[:8 * 64]
+        table = perm.view(8, 64).to(torch.int32)
+        cols = torch.arange(64, device=dev)[None, :]
+        table = torch.where(cols < n_pages[:, None], table, -1).to(
+            torch.int32)
+        q = torch.randn((8, 8, 256), generator=gen, device=dev)
+        paged.append((q, table, lengths, 2 * layer, 2 * layer + 1))
+
+    def rwkv(b, s, n_calls, with_state):
+        out = []
+        for _ in range(n_calls):
+            r, k, v = (torch.randn((b, s, 40, 64), generator=gen, device=dev)
+                       for _ in range(3))
+            logw = -torch.exp(torch.randn((b, s, 40, 64), generator=gen,
+                                          device=dev) * 0.5 - 1.0)
+            u = torch.randn((40, 64), generator=gen, device=dev) * 0.1
+            s0 = (torch.randn((b, 40, 64, 64), generator=gen, device=dev)
+                  if with_state else None)
+            out.append((r, k, v, logw, u, s0,
+                        torch.empty_like(r),
+                        torch.empty((b, 40, 64, 64), device=dev)))
+        return out
+
     return {"read_block_device": (pool_b, reads_b),
             "read_serving": (pool_s, reads_s),
             "copy_block_device": (pool_b, copies(126, 64, 2049, 7)),
             "copy_empty": (pool_b, copies(126, 64, 2049, 0)),
             "copy_live": (pool_b, copies(18, 64, 2049, 1)),
-            "copy_serving": (pool_c, copies(26, 8, 1032, 1))}
+            "copy_serving": (pool_c, copies(26, 8, 1032, 1)),
+            "paged_serving": (pool_s.view(1033, 32, 26, 4, 256), paged),
+            "rwkv6_decode": (None, rwkv(8, 1, 32, True)),
+            "rwkv6_prefill": (None, rwkv(1, 497, 4, False))}
 
 
 def runners(libs, cases) -> Dict[str, Callable[[], None]]:
     """One pass over each case's calls through ``libs``."""
     rw, cp = libs["dbs_rw"].dbs_rw_read, libs["dbs_copy"].dbs_copy
+    pa = libs["paged_attention"].paged_attention
+    split = hasattr(libs["paged_attention"], "paged_attention_info")
+    scan = libs["rwkv6_scan"].rwkv6_scan
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def read(name):
@@ -131,7 +189,48 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
                                    src.numel(), e, page, d, 1, st), name)
         return run
 
-    return {n: (read(n) if n.startswith("read") else copy(n)) for n in cases}
+    def paged(name):
+        pool, calls = cases[name]
+        e, page, n_planes, kv, d = pool.shape
+        b, h, _ = calls[0][0].shape
+        p_max = calls[0][1].shape[1]
+        tok = n_planes * kv * d
+        n_split = paged_splits(p_max, b * kv * paged_row_groups(h, kv),
+                               sm_count(pool.device), h // kv)
+        part = torch.empty((b, kv, n_split, h // kv, d + 2),
+                           device=pool.device)
+        out = torch.empty((b, h, d), device=pool.device)
+
+        def run():
+            st = stream()
+            for q, table, lengths, kp, vp in calls:
+                kv_ptr = [pool.data_ptr() + p * kv * d * 4 for p in (kp, vp)]
+                head = [q.data_ptr(), *kv_ptr, table.data_ptr(),
+                        lengths.data_ptr(), out.data_ptr()]
+                dims = [b, h, kv, d, d, p_max, page, e, page * tok, tok,
+                        page * tok, tok, 0, 1.0 / 16, 50.0]
+                args = (head + [part.data_ptr()] + dims + [n_split, st]
+                        if split else head + dims + [st])
+                _build.raise_on(pa(*args), name)
+        return run
+
+    def rwkv(name):
+        _, calls = cases[name]
+
+        def run():
+            st = stream()
+            for r, k, v, w, u, s0, y, s_out in calls:
+                b, s, h, d = r.shape
+                strides = [x for t in (r, k, v, w, y) for x in t.stride()[:3]]
+                _build.raise_on(scan(
+                    r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                    u.data_ptr(), None if s0 is None else s0.data_ptr(),
+                    y.data_ptr(), s_out.data_ptr(), b, s, h, d, 64,
+                    *strides, st), name)
+        return run
+
+    make = {"read": read, "copy": copy, "paged": paged, "rwkv6": rwkv}
+    return {n: make[n.split("_")[0]](n) for n in cases}
 
 
 def main() -> int:

@@ -17,28 +17,76 @@
 // (table < 0) and, with a window, its last position is inside the window;
 // a hole contributes nothing even where the TPU kernel's index map clamped
 // it to row 0. Logits are q.k * scale, then tanh-capped, then masked per
-// position; the softmax is online in fp32 (running max m, sum l, and an
-// accumulator rescaled by exp(m_prev - m_new) per page); the output is
-// acc / max(l, 1e-30), so a lane with no live page returns zeros.
+// position; the softmax is online in fp32; the output is acc / max(l,
+// 1e-30), so a lane with no live page returns zeros.
 //
-// Bound on an H100 SXM: bytes. Each live page's K and V rows of one KV head
-// are read once (2 * page * hd * 4 bytes), q and the output once; the
-// arithmetic is 4 * g * hd flops per position, far below the fp32 rate.
-// At the serving path's widths (8 sequences, 4 KV heads, hd 256, page 32)
-// a decode step reads about 1 MiB of K/V per 128 cached tokens.
+// Bound on an H100 SXM: bytes. Each live position's K and V rows of one KV
+// head are read once (2 * hd * 4 bytes), q and the output once; the
+// arithmetic is 4 * g * hd flops per position, far below the fp32 rate, and
+// g = 2 query rows (gemma2-2b) is far below a tensor-core tile, so it stays
+// on the CUDA cores in fp32. At the serving path's widths (8 sequences,
+// 4 KV heads, hd 256, page 32, p_max 64, about 17 live pages a sequence)
+// a call reads about 36 MB: 0.0107 ms at 3.35 TB/s.
 //
-// Design (simple and correct first). One thread block of 256 threads per
-// (sequence, KV head) walks the sequence's block-table row in order. The g
-// query rows of the KV head's group (GQA) stay in shared memory with their
-// m, l and accumulator; each live page's K and V (page x hd fp32: 32 KiB
-// each at page 32, hd 256) are staged in shared memory with coalesced
-// loads along hd, then one warp per (query row, position) forms a logit
-// with a shuffle reduction, one warp per query row updates the softmax
-// state, and each thread rescales and accumulates its own accumulator
-// elements. Shared memory is page*(hd+hd_v) + g*(hd+page+hd_v) + 3g floats
-// (about 70 KiB at the serving widths), set as dynamic shared memory. No
-// split over pages yet: a later PR can split long rows across blocks and
-// merge the partials (models/attention.py merge_partials) to fill more SMs.
+// Design (flash-decoding).
+// - Grid (b * kv * row groups, n_split). The query rows of a KV head's GQA
+//   group are cut into row groups of at most kMaxG rows (one at g <= 4);
+//   the kernel is instantiated for G = 1, 2 or 4 rows a block (a smaller
+//   group's extra rows are zero and never written), so the logits'
+//   reductions and the softmax run without per-row branches and the
+//   compiler interleaves their shuffle chains (a runtime row count puts a
+//   branch around each shuffle and serialises them).
+// - Split s of a (sequence, KV head) takes the s-th of n_split equal
+//   shares of the pages that can run: from the first page reaching into
+//   the window (0 without one) to the last page below the length. The
+//   shares are cut here from lengths[b], on the card, so every block of a
+//   live sequence has work; the wrapper picks n_split from shapes alone
+//   (p_max, rows, the SM count, the group size: kernel.py paged_splits,
+//   kBlocksPerSm blocks on every SM: 12 at the serving width), reads
+//   nothing back, and the call stays capturable in a CUDA graph. A share
+//   with no live page (past the length, or all holes) writes an empty
+//   partial (m = -1e30, l = 0) and exits.
+// - Staging. Warp 0 compacts the share's live pages (ballots) into shared
+//   memory: one barrier. Then each warp runs on its own, with no barrier
+//   until the end: the share's pages are cut into tiles of kTile
+//   positions, warp w owns positions w, w + 4, ... of every tile, and lane
+//   l owns the float4 slots l, l + 32 of hd (4-byte slots l + 32i where
+//   the base, the strides or hd are not multiples of 16 bytes: chosen per
+//   tensor here). A lane copies its own slots of its warp's K and V rows
+//   with cp.async (16 bytes a copy on the fast path) into its own part of
+//   shared memory, two tiles deep, and reads back only what it copied, so
+//   cp.async.wait_group alone orders it: no barrier and no __syncwarp per
+//   page. Positions past the length or outside the window are not loaded.
+// - Each warp keeps its own online softmax over its positions (m, l and
+//   the lane's slots of the accumulator, per query row, in registers): per
+//   tile one warp reduction per (row, position) for the logits, one
+//   rescale. The cap's tanh is 1 - 2 / (exp(2x) + 1) on the fast exp and
+//   divide (within about 1e-7 of tanhf), the exps are __expf.
+// - End of block: the four warps' (m, l, acc) merge through shared memory
+//   (two barriers); with n_split 1 the block writes the output itself,
+//   else its partial (unnormalised acc, m, l per row) into the scratch
+//   (b, kv, n_split, g, dv + 2) fp32 that the wrapper allocates.
+// - Merge: a second small kernel over (b, kv) (not the last block by an
+//   atomic ticket: a ticket needs a counter that outlives the call and
+//   would be shared by two calls in flight on two streams), with the math
+//   of models/attention.py merge_partials and finish_partial: a warp per
+//   row finds m* = max m_s and each split's coefficient exp(m_s - m*)
+//   once, into shared memory; then o = sum coef_s o_s / max(sum coef_s
+//   l_s, 1e-30) per element. An empty partial (l = 0) has coefficient 0
+//   and its acc is never read. It is launched with programmatic stream
+//   serialization: its blocks may be scheduled while the main grid runs
+//   and wait (griddepcontrol.wait) until it has finished.
+// - Shared memory: 2 stages x kTile positions x (hd + hd_v) floats (64 KiB
+//   at hd 256), kBlocksPerSm = 3 blocks an SM.
+// - What holds it back (kernel phase_costs.py, variants that drop one part,
+//   at the serving inputs): not the bytes. Dropping every K/V load saves
+//   about a third of the call, the tile math about a quarter, the merge
+//   about a sixth; what stays is the fixed cost of a call (two launches,
+//   the length and table round trips before the first copy, the block's
+//   merge and the partials' round trip), so the call is latency-bound at
+//   about a third of the HBM rate. Overlapping the merge with the next
+//   layer's work, or fewer and longer shares per SM with a deeper ring,
+//   come next.
 //
 // Offsets are 64-bit: an engine pool holds up to ~2^30 floats.
 
@@ -48,14 +96,40 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTile = 16;                 // positions staged per step
+constexpr int kPer = kTile / kWarps;      // positions of a warp per tile
+constexpr int kMaxG = 4;                  // query rows per block
+constexpr int kMaxD = 256;                // hd and hd_v: 8 floats a lane
+constexpr int kLaneF = kMaxD / 32;
+constexpr int kStages = 2;
+constexpr int kBlocksPerSm = 3;           // the wrapper's paged_splits too
+constexpr int kMergeThreads = 256;
+constexpr int kMergeSmem = 48 * 1024;     // the merge's coefficients
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// tanh(x) = 1 - 2 / (exp(2x) + 1), within about 1e-7 of tanhf (ex2.approx
+// and a fast divide), and exact at both ends
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -64,114 +138,447 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// floats of one row a lane holds: slots of W floats, slot s at column
+// (s * 32 + lane) * W
+__host__ __device__ constexpr int lane_floats(int n, int w) {
+  return ((n + 32 * w - 1) / (32 * w)) * w;
+}
+
+// WK, WV: floats a K / V copy (4 or 1); G: query rows a block (1, 2 or 4;
+// rows of a smaller group are zero and never written), so the logits'
+// reductions and the softmax have no per-row branches and interleave
+template <int WK, int WV, int G>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ table,
-             const int* __restrict__ lengths, float* __restrict__ out, int h,
-             int kv, int d, int dv, int p_max, int page, int n_rows,
-             int64_t k_row, int64_t k_tok, int64_t v_row, int64_t v_tok,
-             int window, float scale, float cap) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int g = h / kv;
-  float* ks = smem;                 // (page, d)
-  float* vs = ks + page * d;        // (page, dv)
-  float* qs = vs + page * dv;       // (g, d)
-  float* ss = qs + g * d;           // (g, page) logits, then probabilities
-  float* acc = ss + g * page;       // (g, dv)
-  float* ms = acc + g * dv;         // (g,) running max
-  float* ls = ms + g;               // (g,) running sum
-  float* cs = ls + g;               // (g,) this page's rescale factor
+             const int* __restrict__ lengths, float* __restrict__ out,
+             float* __restrict__ part, int h, int kv, int d, int dv,
+             int p_max, int page, int n_rows, int64_t k_row, int64_t k_tok,
+             int64_t v_row, int64_t v_tok, int window, float scale,
+             float cap, int n_rg, int n_split) {
+  extern __shared__ __align__(16) float smem[];
+  // let the merge kernel's blocks be scheduled; they wait for this grid
+  asm volatile("griddepcontrol.launch_dependents;");
+  constexpr int NK = kLaneF / WK, NV = kLaneF / WV;   // slots a lane
+  const int fk = lane_floats(d, WK), fv = lane_floats(dv, WV);
+  const int per_pos = (fk + fv) * 32;                 // floats a position
+  int* list = (int*)(smem + kStages * kWarps * kPer * per_pos);
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rgi = blockIdx.x % n_rg;
+  const int bkh = blockIdx.x / n_rg;
+  const int kh = bkh % kv;
+  const int bi = bkh / kv;
+  const int split = blockIdx.y;
+  const int g = h / kv;
+  const int gb = (g + n_rg - 1) / n_rg;
+  const int r0 = rgi * gb;
+  const int nr = min(gb, g - r0);
+  const int pps = (p_max + n_split - 1) / n_split;    // most pages a share
+  int* list_ip = list;
+  int* list_ext = list + pps;
 
-  const float* qb = q + ((int64_t)b * h + (int64_t)kh * g) * d;
-  for (int i = tid; i < g * d; i += kThreads) qs[i] = qb[i];
-  for (int i = tid; i < g * dv; i += kThreads) acc[i] = 0.f;
-  for (int i = tid; i < g; i += kThreads) {
-    ms[i] = kNegInf;
-    ls[i] = 0.f;
+  // the share: the s-th of n_split equal parts of the pages that can run
+  const int length = lengths[bi];
+  const int last = length > 0 ? min(p_max, (length + page - 1) / page) : 0;
+  int first = 0;
+  if (window > 0) {
+    const int x = length - window - page;   // last position <= x: outside
+    first = x < 0 ? 0 : x / page + 1;
+  }
+  const int n = max(0, last - first);
+  const int lo = first + (int)((int64_t)split * n / n_split);
+  const int hi = first + (int)((int64_t)(split + 1) * n / n_split);
+
+  // the query rows' slots, loaded while the table arrives
+  float qr[G][kLaneF];
+  const float* qb = q + ((int64_t)bi * h + (int64_t)kh * g + r0) * d;
+#pragma unroll
+  for (int r = 0; r < G; ++r)
+#pragma unroll
+    for (int s = 0; s < NK; ++s) {
+      const int col = (s * 32 + lane) * WK;
+      if (r < nr && col < d) {
+        if constexpr (WK == 4) {
+          const float4 x = *(const float4*)(qb + (int64_t)r * d + col);
+          qr[r][s * 4] = x.x;
+          qr[r][s * 4 + 1] = x.y;
+          qr[r][s * 4 + 2] = x.z;
+          qr[r][s * 4 + 3] = x.w;
+        } else {
+          qr[r][s] = qb[(int64_t)r * d + col];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < WK; ++e) qr[r][s * WK + e] = 0.f;
+      }
+    }
+
+  // warp 0 compacts the share's live pages, in order
+  if (warp == 0) {
+    const int* trow = table + (int64_t)bi * p_max;
+    int count = 0;
+    for (int p0 = lo; p0 < hi; p0 += 32) {
+      const int ip = p0 + lane;
+      int ext = -1;
+      bool run = false;
+      if (ip < hi) {
+        ext = trow[ip];
+        run = ext >= 0 && ext < n_rows;   // [lo, hi) is in range already
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, run);
+      if (run) {
+        const int at = count + __popc(bal & ((1u << lane) - 1u));
+        list_ip[at] = ip;
+        list_ext[at] = ext;
+      }
+      count += __popc(bal);
+    }
+    if (lane == 0) list[2 * pps] = count;
   }
   __syncthreads();
+  const int n_live = list[2 * pps];
+  float* pb = part + (((int64_t)bi * kv + kh) * n_split + split) * g *
+                         (int64_t)(dv + 2);
+  if (n_live == 0 && n_split > 1) {       // an empty partial
+    if (tid < nr) {
+      pb[(int64_t)(r0 + tid) * (dv + 2) + dv] = kNegInf;
+      pb[(int64_t)(r0 + tid) * (dv + 2) + dv + 1] = 0.f;
+    }
+    return;
+  }
 
-  const int length = lengths[b];
-  const int* trow = table + (int64_t)b * p_max;
-  for (int ip = 0; ip < p_max; ++ip) {
-    const int base = ip * page;
-    const int ext = trow[ip];
-    bool run = base < length && ext >= 0 && ext < n_rows;
-    if (window > 0) run = run && (base + page - 1) > (length - 1 - window);
-    if (!run) continue;  // the same decision in every thread of the block
-    __syncthreads();     // the previous page's readers of ks/vs/ss are done
-    const float* kp = k + (int64_t)ext * k_row + (int64_t)kh * d;
-    const float* vp = v + (int64_t)ext * v_row + (int64_t)kh * dv;
-    for (int i = tid; i < page * d; i += kThreads) {
-      const int t = i / d;
-      ks[i] = kp[(int64_t)t * k_tok + (i - t * d)];
-    }
-    for (int i = tid; i < page * dv; i += kThreads) {
-      const int t = i / dv;
-      vs[i] = vp[(int64_t)t * v_tok + (i - t * dv)];
-    }
-    __syncthreads();
-    for (int pr = warp; pr < g * page; pr += kWarps) {
-      const int r = pr / page;
-      const int t = pr - r * page;
-      float dot = 0.f;
-      for (int c = lane; c < d; c += 32) dot += qs[r * d + c] * ks[t * d + c];
-      dot = warp_sum(dot);
-      if (lane == 0) {
-        float s = dot * scale;
-        if (cap > 0.f) s = tanhf(s / cap) * cap;
-        ss[pr] = s;
+  const int tpp = (page + kTile - 1) / kTile;
+  const int n_tiles = n_live * tpp;
+  const int lim = length - 1 - window;    // window: positions > lim run
+  float* lane_base = smem + warp * kPer * per_pos;   // stage 0, position 0
+
+  // copy this lane's slots of this warp's positions of tile j
+  auto issue = [&](int j) {
+    const int li = j / tpp;
+    const int tb = (j - li * tpp) * kTile;
+    const int te = min(page, tb + kTile);
+    const int ip = list_ip[li];
+    const int64_t ext = list_ext[li];
+    float* st = lane_base + (j & 1) * kWarps * kPer * per_pos;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = tb + warp + kWarps * i;
+      const int pos = ip * page + t;
+      if (t < te && pos < length && (window <= 0 || pos > lim)) {
+        const float* kp = k + ext * k_row + t * k_tok + (int64_t)kh * d;
+        const float* vp = v + ext * v_row + t * v_tok + (int64_t)kh * dv;
+        float* ks = st + i * per_pos;
+        float* vs = ks + fk * 32;
+#pragma unroll
+        for (int s = 0; s < NK; ++s) {
+          const int col = (s * 32 + lane) * WK;
+          if (col < d) {
+            if constexpr (WK == 4) cp16(ks + (s * 32 + lane) * 4, kp + col);
+            else cp4(ks + s * 32 + lane, kp + col);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < NV; ++s) {
+          const int col = (s * 32 + lane) * WV;
+          if (col < dv) {
+            if constexpr (WV == 4) cp16(vs + (s * 32 + lane) * 4, vp + col);
+            else cp4(vs + s * 32 + lane, vp + col);
+          }
+        }
       }
     }
-    __syncthreads();
-    for (int r = warp; r < g; r += kWarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < page; t += 32) {
-        const int pos = base + t;
-        bool valid = pos < length;
-        if (window > 0) valid = valid && pos > (length - 1 - window);
-        if (valid) mx = fmaxf(mx, ss[r * page + t]);
+    cp_commit();
+  };
+
+  float m[G], l[G], acc[G][kLaneF];
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kLaneF; ++e) acc[r][e] = 0.f;
+  }
+
+  if (n_tiles > 0) issue(0);
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      issue(j + 1);
+      cp_wait<1>();                       // this lane's copies of tile j
+    } else {
+      cp_wait<0>();
+    }
+    const int li = j / tpp;
+    const int tb = (j - li * tpp) * kTile;
+    const int te = min(page, tb + kTile);
+    const int base = list_ip[li] * page;
+    const float* st = lane_base + (j & 1) * kWarps * kPer * per_pos;
+    bool ok[kPer];
+    float x[kPer][G];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = tb + warp + kWarps * i;
+      const int pos = base + t;
+      ok[i] = t < te && pos < length && (window <= 0 || pos > lim);
+      const float* ks = st + i * per_pos;
+      float kk[kLaneF];
+#pragma unroll
+      for (int s = 0; s < NK; ++s) {
+        const int col = (s * 32 + lane) * WK;
+        if (ok[i] && col < d) {
+          if constexpr (WK == 4) {
+            const float4 y = *(const float4*)(ks + (s * 32 + lane) * 4);
+            kk[s * 4] = y.x;
+            kk[s * 4 + 1] = y.y;
+            kk[s * 4 + 2] = y.z;
+            kk[s * 4 + 3] = y.w;
+          } else {
+            kk[s] = ks[s * 32 + lane];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < WK; ++e) kk[s * WK + e] = 0.f;
+        }
       }
-      mx = warp_max(mx);
-      const float m_prev = ms[r];
-      const float m_new = fmaxf(m_prev, mx);
+#pragma unroll
+      for (int r = 0; r < G; ++r) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < kLaneF; ++e) dot += qr[r][e] * kk[e];
+        x[i][r] = dot;
+      }
+    }
+    // the warp sums of every (position, row), interleaved
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int r = 0; r < G; ++r)
+          x[i][r] += __shfl_xor_sync(0xffffffffu, x[i][r], o);
+    float p[kPer][G];
+#pragma unroll
+    for (int r = 0; r < G; ++r) {
+      float mt = kNegInf;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        float sc = x[i][r] * scale;
+        if (cap > 0.f) sc = tanh_fast(sc / cap) * cap;
+        x[i][r] = sc;
+        if (ok[i]) mt = fmaxf(mt, sc);
+      }
+      const float m_new = fmaxf(m[r], mt);
+      const float corr = __expf(m[r] - m_new);
       float sum = 0.f;
-      for (int t = lane; t < page; t += 32) {
-        const int pos = base + t;
-        bool valid = pos < length;
-        if (window > 0) valid = valid && pos > (length - 1 - window);
-        const float p = valid ? expf(ss[r * page + t] - m_new) : 0.f;
-        ss[r * page + t] = p;
-        sum += p;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        p[i][r] = ok[i] ? __expf(x[i][r] - m_new) : 0.f;
+        sum += p[i][r];
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        ls[r] = ls[r] * corr + sum;
-        ms[r] = m_new;
-        cs[r] = corr;
-      }
+      m[r] = m_new;
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int e = 0; e < kLaneF; ++e) acc[r][e] *= corr;
     }
-    __syncthreads();
-    for (int i = tid; i < g * dv; i += kThreads) {
-      const int r = i / dv;
-      const int c = i - r * dv;
-      const float* pr = ss + r * page;
-      float a = acc[i] * cs[r];
-      for (int t = 0; t < page; ++t) a += pr[t] * vs[t * dv + c];
-      acc[i] = a;  // each element is owned by one thread throughout
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (!ok[i]) continue;               // the same in every lane
+      const float* vs = st + i * per_pos + fk * 32;
+      float vv[kLaneF];
+#pragma unroll
+      for (int s = 0; s < NV; ++s) {
+        const int col = (s * 32 + lane) * WV;
+        if (col < dv) {
+          if constexpr (WV == 4) {
+            const float4 y = *(const float4*)(vs + (s * 32 + lane) * 4);
+            vv[s * 4] = y.x;
+            vv[s * 4 + 1] = y.y;
+            vv[s * 4 + 2] = y.z;
+            vv[s * 4 + 3] = y.w;
+          } else {
+            vv[s] = vs[s * 32 + lane];
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < WV; ++e) vv[s * WV + e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < G; ++r)
+#pragma unroll
+        for (int e = 0; e < kLaneF; ++e) acc[r][e] += p[i][r] * vv[e];
+    }
+  }
+
+  // merge the four warps' softmax states through shared memory
+  __syncthreads();                        // every warp is done with stages
+  const int rs = dv + 2;
+  float* mw = smem;                       // (kWarps, kMaxG, dv + 2)
+#pragma unroll
+  for (int r = 0; r < G; ++r) {
+    if (r >= nr) continue;
+    float* row = mw + (warp * kMaxG + r) * rs;
+#pragma unroll
+    for (int s = 0; s < NV; ++s) {
+      const int col = (s * 32 + lane) * WV;
+#pragma unroll
+      for (int e = 0; e < WV; ++e)
+        if (col + e < dv) row[col + e] = acc[r][s * WV + e];
+    }
+    if (lane == 0) {
+      row[dv] = m[r];
+      row[dv + 1] = l[r];
     }
   }
   __syncthreads();
-  float* ob = out + ((int64_t)b * h + (int64_t)kh * g) * dv;
-  for (int i = tid; i < g * dv; i += kThreads)
-    ob[i] = acc[i] / fmaxf(ls[i / dv], 1e-30f);
+  float* ob = out + ((int64_t)bi * h + (int64_t)kh * g + r0) * dv;
+  for (int e = tid; e < nr * dv; e += kThreads) {
+    const int r = e / dv;
+    const int c = e - r * dv;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      mx = fmaxf(mx, mw[(w * kMaxG + r) * rs + dv]);
+    float o = 0.f, lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float* row = mw + (w * kMaxG + r) * rs;
+      const float f = __expf(row[dv] - mx);
+      o += f * row[c];
+      lsum += f * row[dv + 1];
+    }
+    if (n_split == 1) {
+      ob[(int64_t)r * dv + c] = o / fmaxf(lsum, 1e-30f);
+    } else {
+      float* pr = pb + (int64_t)(r0 + r) * rs;
+      pr[c] = o;
+      if (c == 0) {
+        pr[dv] = mx;
+        pr[dv + 1] = lsum;
+      }
+    }
+  }
 }
+
+// out[b, kh*g + r] from the n_split partials of (b, kh): merge_partials.
+// A warp per query row finds the row's largest live m and each split's
+// coefficient exp(m_s - m*) (0 for an empty split, whose acc is never
+// read) and 1 / sum_s coef l_s, into shared memory; then each thread
+// sums its elements over the splits.
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ part, float* __restrict__ out, int h,
+             int kv, int dv, int n_split) {
+  extern __shared__ float coef[];         // (g, n_split), then (g) 1 / l
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int bkh = blockIdx.x;
+  const int g = h / kv;
+  const int rs = dv + 2;
+  const int lane = threadIdx.x & 31;
+  const float* pb = part + (int64_t)bkh * n_split * g * rs;
+  float* inv = coef + g * n_split;
+  for (int r = threadIdx.x >> 5; r < g; r += kMergeThreads / 32) {
+    float mx = kNegInf;
+    for (int s = lane; s < n_split; s += 32) {
+      const float* pr = pb + ((int64_t)s * g + r) * rs;
+      if (pr[dv + 1] > 0.f) mx = fmaxf(mx, pr[dv]);
+    }
+    mx = warp_max(mx);
+    float lsum = 0.f;
+    for (int s = lane; s < n_split; s += 32) {
+      const float* pr = pb + ((int64_t)s * g + r) * rs;
+      const float ls = pr[dv + 1];
+      const float c = ls > 0.f ? __expf(pr[dv] - mx) : 0.f;
+      coef[r * n_split + s] = c;
+      lsum += c * ls;
+    }
+    lsum = warp_sum(lsum);
+    if (lane == 0) inv[r] = 1.f / fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  float* ob = out + (int64_t)bkh * g * dv;   // (b, kh) rows are contiguous
+  for (int e = threadIdx.x; e < g * dv; e += kMergeThreads) {
+    const int r = e / dv;
+    const int c = e - r * dv;
+    const float* cr = coef + r * n_split;
+    float o = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float f = cr[s];
+      if (f != 0.f) o += f * pb[((int64_t)s * g + r) * rs + c];
+    }
+    ob[e] = o * inv[r];
+  }
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, const int*,
+                        const int*, float*, float*, int, int, int, int, int,
+                        int, int, int64_t, int64_t, int64_t, int64_t, int,
+                        float, float, int, int);
+
+// the rows a block takes, rounded up to an instantiated G
+int rows_g(int g) {
+  const int gb = (g + (g + kMaxG - 1) / kMaxG - 1) / ((g + kMaxG - 1) / kMaxG);
+  return gb <= 1 ? 1 : gb <= 2 ? 2 : 4;
+}
+
+template <int G>
+Kernel pick_g(int vec_k, int vec_v) {
+  if (vec_k)
+    return vec_v ? paged_kernel<4, 4, G> : paged_kernel<4, 1, G>;
+  return vec_v ? paged_kernel<1, 4, G> : paged_kernel<1, 1, G>;
+}
+
+Kernel pick(int vec_k, int vec_v, int gr) {
+  return gr == 1 ? pick_g<1>(vec_k, vec_v)
+       : gr == 2 ? pick_g<2>(vec_k, vec_v) : pick_g<4>(vec_k, vec_v);
+}
+
+int slot(int vec_k, int vec_v, int gr) {
+  return (gr == 1 ? 0 : gr == 2 ? 4 : 8) + vec_k * 2 + vec_v;
+}
+
+size_t smem_bytes(int d, int dv, int vec_k, int vec_v, int p_max,
+                  int n_split) {
+  const int fk = lane_floats(d, vec_k ? 4 : 1);
+  const int fv = lane_floats(dv, vec_v ? 4 : 1);
+  const size_t stages =
+      (size_t)kStages * kWarps * kPer * (fk + fv) * 32;
+  const size_t merge = (size_t)kWarps * kMaxG * (dv + 2);
+  const int pps = (p_max + n_split - 1) / n_split;
+  return sizeof(float) * (stages > merge ? stages : merge) +
+         sizeof(int) * (2 * (size_t)pps + 1);
+}
+
+// Raise a kernel's dynamic shared-memory limit only when a larger size is
+// first asked for on the current device (the attribute is kept per device
+// and per kernel), so launches captured in a CUDA graph make no such call.
+size_t configured[kMaxDevices][12] = {};
+
+cudaError_t configure(int vec_k, int vec_v, int gr, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  size_t& have = configured[dev][slot(vec_k, vec_v, gr)];
+  if (smem <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(pick(vec_k, vec_v, gr),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess) have = smem;
+  return err;
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 }  // namespace
 
@@ -179,40 +586,95 @@ extern "C" {
 
 // q (b, h, d) f32 contiguous; k, v: base pointers of the K and V planes,
 // each with its row (extent) and token strides in elements, head stride d
-// (K) / dv (V);
-// table (b, p_max) i32; lengths (b,) i32; out (b, h, dv) f32 contiguous.
+// (K) / dv (V); table (b, p_max) i32; lengths (b,) i32; out (b, h, dv) f32
+// contiguous; partials: scratch of b * kv * n_split * (h / kv) * (dv + 2)
+// f32 when n_split > 1 (else unused, may be null). 1 <= n_split <= p_max.
 int paged_attention(const void* q, const void* k, const void* v,
-                    const void* table, const void* lengths, void* out, int b,
-                    int h, int kv, int d, int dv, int p_max, int page,
-                    int n_rows, int64_t k_row, int64_t k_tok, int64_t v_row,
-                    int64_t v_tok, int window, float scale, float cap,
-                    void* stream) {
-  if (kv <= 0 || h % kv != 0 || d <= 0 || dv <= 0 || page <= 0)
+                    const void* table, const void* lengths, void* out,
+                    void* partials, int b, int h, int kv, int d, int dv,
+                    int p_max, int page, int n_rows, int64_t k_row,
+                    int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
+                    float scale, float cap, int n_split, void* stream) {
+  if (kv <= 0 || h % kv != 0 || d <= 0 || d > kMaxD || dv <= 0 ||
+      dv > kMaxD || page <= 0 || p_max < 0 || n_split < 1 ||
+      n_split > (p_max > 1 ? p_max : 1) || n_split > 65535 ||
+      (n_split > 1 && partials == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (b <= 0) return (int)cudaGetLastError();
+  if (b <= 0 || h <= 0) return (int)cudaGetLastError();
   const int g = h / kv;
-  const size_t smem = sizeof(float) * ((size_t)page * (d + dv) +
-                                       (size_t)g * (d + page + dv) + 3 * g);
-  // raise the dynamic shared-memory limit only when a larger size is
-  // first asked for on this device (the attribute is kept per device), so
-  // launches captured in a CUDA graph make no such call
-  static size_t configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const size_t merge_smem = sizeof(float) * (size_t)g * (n_split + 1);
+  if (n_split > 1 && merge_smem > (size_t)kMergeSmem)
+    return (int)cudaErrorInvalidValue;
+  const int n_rg = (g + kMaxG - 1) / kMaxG;
+  const int64_t rows = (int64_t)b * kv * n_rg;
+  if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int vec_k = aligned16(q) && aligned16(k) && d % 4 == 0 &&
+                    k_row % 4 == 0 && k_tok % 4 == 0;
+  const int vec_v = aligned16(v) && dv % 4 == 0 && v_row % 4 == 0 &&
+                    v_tok % 4 == 0;
+  const size_t smem = smem_bytes(d, dv, vec_k, vec_v, p_max, n_split);
+  const int gr = rows_g(g);
+  cudaError_t err = configure(vec_k, vec_v, gr, smem);
   if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > configured[dev]) {
-    err = cudaFuncSetAttribute(
-        paged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    configured[dev] = smem;
-  }
-  dim3 grid(b, kv);
-  paged_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid((unsigned)rows, n_split);
+  pick(vec_k, vec_v, gr)<<<grid, kThreads, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)table,
-      (const int*)lengths, (float*)out, h, kv, d, dv, p_max, page, n_rows,
-      k_row, k_tok, v_row, v_tok, window, scale, cap);
+      (const int*)lengths, (float*)out, (float*)partials, h, kv, d, dv,
+      p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window, scale, cap,
+      n_rg, n_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((int64_t)b * kv));
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.dynamicSmemBytes = merge_smem;
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, merge_kernel, (const float*)partials, (float*)out,
+                     h, kv, dv, n_split);
   return (int)cudaGetLastError();
+}
+
+// The main kernel's resources for g query rows a KV head, head dims d, dv
+// and n_split shares of p_max pages (16-byte loads where vec_k / vec_v):
+// info[0] registers per thread, [1] static and [2] dynamic shared memory
+// per block (bytes), [3] blocks resident per SM, [4] threads per block,
+// [5] the merge kernel's registers per thread, [6] positions staged per
+// tile, [7] query rows a block.
+int paged_attention_info(int g, int d, int dv, int vec_k, int vec_v,
+                         int p_max, int n_split, int* info) {
+  if (g <= 0 || d <= 0 || d > kMaxD || dv <= 0 || dv > kMaxD ||
+      n_split < 1)
+    return (int)cudaErrorInvalidValue;
+  vec_k = vec_k != 0;
+  vec_v = vec_v != 0;
+  const int gr = rows_g(g);
+  const size_t smem = smem_bytes(d, dv, vec_k, vec_v, p_max, n_split);
+  cudaError_t err = configure(vec_k, vec_v, gr, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a, am;
+  err = cudaFuncGetAttributes(&a, pick(vec_k, vec_v, gr));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncGetAttributes(&am, merge_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, pick(vec_k, vec_v, gr), kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)smem;
+  info[3] = per_sm;
+  info[4] = kThreads;
+  info[5] = am.numRegs;
+  info[6] = kTile;
+  info[7] = gr;
+  return 0;
 }
 
 }  // extern "C"

@@ -14,23 +14,97 @@ reference launch the one kernel:
 Each wrapper checks dtype, shape, device and contiguity, then launches the
 kernel for tensors on a CUDA device or calls the plain version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error, never
-the plain version. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS``
-the wrappers' calls of the plain version. Both compute in fp32.
+the plain version. ``LAUNCHES`` counts wrapper calls that launched the
+kernel (its main grid and, with more than one split, the merge grid) and
+``PLAIN_CALLS`` the wrappers' calls of the plain version. Both compute in
+fp32.
+
+The kernel splits each (sequence, KV head) over ``n_split`` blocks. The
+wrapper's choices are plain functions of shapes and the card's SM count
+(``paged_splits``, ``paged_row_groups``), so a call reads nothing back
+from the card; ``paged_split_range`` is the kernel's own cut of a
+sequence's live pages into shares.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels._build import check_tensor, library, raise_on
+from repro_torch.kernels._build import (check_tensor, kernel_info, library,
+                                        raise_on)
 from repro_torch.kernels.paged_attention.ref import (paged_attention_pool_ref,
                                                      paged_attention_ref)
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"paged_attention": 0}
 F32, I32 = torch.float32, torch.int32
+MAX_HEAD_DIM = 256                   # 8 floats of hd a lane (csrc kMaxD)
+MAX_ROWS = 4                         # query rows a block (csrc kMaxG)
+BLOCKS_PER_SM = 3                    # resident blocks an SM (csrc)
+MAX_SPLITS = 65535                   # the grid's y dimension
+MERGE_FLOATS = 12 * 1024             # the merge's coefficients (csrc)
+INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm",
+             "threads", "merge_registers", "tile_positions", "rows_per_block")
+_sms: Dict[int, int] = {}
+
+
+def paged_row_groups(h: int, kv: int) -> int:
+    """Row groups of a KV head's GQA group: a block takes at most
+    ``MAX_ROWS`` query rows."""
+    return -(-(h // kv) // MAX_ROWS)
+
+
+def paged_splits(p_max: int, rows: int, sms: int, g: int = 1) -> int:
+    """Blocks per (sequence, KV head, row group), from shapes alone:
+    enough to put ``BLOCKS_PER_SM`` blocks on every SM, at most one per
+    page of the table, and few enough that the merge's coefficients of
+    the ``g`` query rows of a KV head fit its shared memory (``rows`` =
+    b * kv * row groups)."""
+    fill = (BLOCKS_PER_SM * sms) // max(rows, 1)
+    return max(1, min(fill, max(p_max, 1), MAX_SPLITS,
+                      MERGE_FLOATS // max(g, 1) - 1))
+
+
+def paged_split_range(split: int, n_split: int, first: int,
+                      last: int) -> Tuple[int, int]:
+    """The pages [lo, hi) that block ``split`` takes of the pages
+    [first, last) that can run (the kernel's cut: equal shares, the
+    larger ones last)."""
+    n = max(0, last - first)
+    return (first + split * n // n_split, first + (split + 1) * n // n_split)
+
+
+def paged_live_range(length: int, p_max: int, page: int,
+                     window: int = 0) -> Tuple[int, int]:
+    """The pages [first, last) of a sequence of ``length`` positions that
+    can run: below the length and, with a window, reaching into it."""
+    last = min(p_max, -(-length // page)) if length > 0 else 0
+    first = 0
+    if window and window > 0:
+        x = length - window - page
+        first = 0 if x < 0 else x // page + 1
+    return first, last
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
+
+
+def paged_info(g: int, d: int, dv: int, vec_k: bool = True,
+               vec_v: bool = True, p_max: int = 64,
+               n_split: int = 1) -> Dict[str, int]:
+    """The main kernel's registers, shared memory and resident blocks per
+    SM for ``g`` query rows a KV head, and the merge kernel's registers
+    (needs the card)."""
+    return kernel_info("paged_attention", "paged_attention_info",
+                       (g, d, dv, int(vec_k), int(vec_v), p_max, n_split),
+                       INFO_KEYS)
 
 
 def reset_counts() -> None:
@@ -53,15 +127,25 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
             page, n_rows, k_row, k_tok, v_row, v_tok, window, logit_cap,
             scale):
     b, h, d = q.shape
+    if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
+        raise ValueError(f"head dims ({d}, {dv}) > {MAX_HEAD_DIM}, the "
+                         "kernel's limit")
+    p_max = block_table.shape[1]
+    n_split = paged_splits(p_max, b * kv * paged_row_groups(h, kv),
+                           sm_count(q.device), h // kv)
     out = torch.empty((b, h, dv), dtype=F32, device=q.device)
+    part = (torch.empty((b, kv, n_split, h // kv, dv + 2), dtype=F32,
+                        device=q.device) if n_split > 1 else None)
     lib = library("paged_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention(
             q.data_ptr(), k_ptr, v_ptr, block_table.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), b, h, kv, d, dv,
-            block_table.shape[1], page, n_rows, k_row, k_tok, v_row, v_tok,
-            int(window or 0), float(scale), float(logit_cap or 0.0), stream)
+            lengths.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, kv, d, dv,
+            p_max, page, n_rows, k_row, k_tok, v_row, v_tok,
+            int(window or 0), float(scale), float(logit_cap or 0.0), n_split,
+            stream)
     raise_on(err, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     return out

@@ -13,6 +13,10 @@ head) strides, so the model layout needs no copy. It launches the kernel
 for tensors on a CUDA device and calls the plain chunked version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error.
 ``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32 only.
+
+The C entry picks its schedule and grid from shapes and the SM count
+alone; ``rwkv6_schedule`` and ``rwkv6_n_col`` are the same rules as plain
+functions (``rwkv6_info`` reports what the kernel picked, on the card).
 """
 from __future__ import annotations
 
@@ -20,13 +24,50 @@ from typing import Dict
 
 import torch
 
-from repro_torch.kernels._build import check_tensor, library, raise_on
+from repro_torch.kernels._build import (check_tensor, kernel_info, library,
+                                        raise_on)
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 
 LAUNCHES: Dict[str, int] = {"rwkv6_scan": 0}
 PLAIN_CALLS: Dict[str, int] = {"rwkv6_scan": 0}
 MAX_HEAD_DIM = 64                   # the kernel's shared-memory tiles
 MAX_CHUNK = 64
+DECODE_MAX = 8                      # seq <= this: the decode schedule
+BLOCKS_PER_SM = 2                   # the prefill grid's target (csrc)
+INFO_KEYS = ("schedule", "n_col", "grid_blocks", "threads", "registers",
+             "static_smem", "dynamic_smem", "blocks_per_sm")
+
+
+def padded_dim(d: int) -> int:
+    """The head dim as the prefill kernel pads it: 16, 32 or 64."""
+    return 16 if d <= 16 else 32 if d <= 32 else 64
+
+
+def rwkv6_schedule(seq: int) -> str:
+    """The kernel's schedule for a call of ``seq`` tokens."""
+    return "decode" if seq <= DECODE_MAX else "prefill"
+
+
+def rwkv6_n_col(b: int, h: int, d: int, sms: int) -> int:
+    """Column blocks of the prefill grid (H, B, n_col): doubled while each
+    block's slice of the state stays a multiple of 8 columns of the head
+    dim padded to 16, 32 or 64, and the grid within ``BLOCKS_PER_SM``
+    blocks an SM."""
+    dp = padded_dim(d)
+    n = 1
+    while n < 8 and (dp // (2 * n)) % 8 == 0 and \
+            b * h * 2 * n <= BLOCKS_PER_SM * sms:
+        n *= 2
+    return n
+
+
+def rwkv6_info(b: int, s: int, h: int, d: int,
+               chunk: int = 64) -> Dict[str, int]:
+    """What the kernel launches for these shapes on the current card:
+    schedule (0 decode, 1 prefill), column blocks, grid, registers, shared
+    memory and resident blocks per SM (needs the card)."""
+    return kernel_info("rwkv6_scan", "rwkv6_scan_info", (b, s, h, d, chunk),
+                       INFO_KEYS)
 
 
 def reset_counts() -> None:

@@ -1,5 +1,5 @@
 """Device timing of kernel launches on the card: the one yardstick behind
-every kernel time that ``chip_smoke.py``, ``kernels.dbs.compare`` and
+every kernel time that ``chip_smoke.py``, ``kernels.compare`` and
 ``kernels.flash_attention.phase_costs`` print.
 
 ``graph_ms`` times a pass of launches captured once in a CUDA graph, so

@@ -29,7 +29,12 @@ another order; flash's products are 3xTF32 on the tensor cores), on the
 parity geometries of the CPU tests and at the serving path's full width
 (gemma2-2b: 8 heads, 4 KV heads, hd 256, page 32); flash also on its
 edges: head dims padded to 8, one query row, Sk >> Sq, rows that are not
-16-byte aligned, windows narrower than a key tile.
+16-byte aligned, windows narrower than a key tile. Paged also at the
+serving width with p_max 64 and lengths up to 2048 (lengths on each side
+of a share's boundary, a share of holes, length 0, windows that start
+inside a share), under every split count the wrapper picks (one page a
+share up to no split), GQA groups of 3 and 12, and where 16-byte copies
+must not be used (hd not a multiple of 4, q one float off alignment).
 
 On a machine with two cards, every kernel with a per-device setting
 (flash and paged attention's shared-memory limit, the DBS kernels' SM
@@ -39,8 +44,11 @@ count) also runs on the second card after the first.
 schedule and the step-by-step oracle) within atol 1e-4 and rtol 1e-4, at
 hd 16, 32 and 64, with ragged and prime lengths, a carried state ``s0``,
 inputs read through the model layout's strides, and the serving path's
-shapes (rwkv6-3b: 40 heads of 64; prefill B=1, decode B=8 and S=1).
-Imports no JAX.
+shapes (rwkv6-3b: 40 heads of 64; prefill B=1, decode B=8 and S=1); on
+both sides of the decode schedule's threshold (S 1, 2, 8 and 9, hd 64,
+40, 16 and 6); under strong decay (a chunk's log decay below -88, where
+only the step oracle holds); and at hd 16, 32, 40 and 64 under every
+column split the wrapper's rule picks on the card. Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -60,8 +68,12 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_attention_fwd, paged_attention_pool_fwd, paged_attention_pool_ref,
     paged_attention_ref)
+from repro_torch.kernels.paged_attention.kernel import (  # noqa: E402
+    paged_row_groups, paged_split_range, paged_splits)
 from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
     rwkv6_chunked_ref, rwkv6_scan, rwkv6_scan_fwd, rwkv6_scan_ref)
+from repro_torch.kernels.rwkv6_scan.kernel import (  # noqa: E402
+    DECODE_MAX, padded_dim, rwkv6_info, rwkv6_n_col)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -313,6 +325,133 @@ def test_paged_attention_kernel_matches_plain(b, h, kv, d, page, p_max,
     torch.cuda.synchronize()
 
 
+def _paged_split_case(dev, lengths, *, b=8, h=8, kv=4, d=256, page=32,
+                      p_max=64, n_planes=26, holes=(), seed=5):
+    """The plane view of an engine pool at gemma2-2b's width (26 planes of
+    (4, 256), page 32, 64 pages a row) with the given lengths; ``holes``
+    are (lane, first page, last page) runs set to -1 below the length."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    e = b * p_max + 9
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    pool = torch.randn((e, page, n_planes, kv, d), generator=gen, device=dev)
+    table = rng.permutation(e - 1)[:b * p_max].reshape(b, p_max) + 1
+    lengths = np.asarray(lengths, np.int64)
+    for i in range(b):
+        table[i, -(-lengths[i] // page):] = -1
+    for lane, p0, p1 in holes:
+        table[lane, p0:p1] = -1
+    return (q, pool, torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+def _check_paged_pool(q, pool, table, lengths, **kw):
+    got = paged_attention_pool_fwd(q, pool, table, lengths, k_plane=0,
+                                   v_plane=1, **kw)
+    want = paged_attention_pool_ref(q, pool, table, lengths, k_plane=0,
+                                    v_plane=1, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,cap", [(0, 50.0), (4096, 50.0), (100, 0.0),
+                                        (700, 30.0)])
+def test_paged_attention_serving_width_splits(window, cap):
+    """The serving width (8 sequences, 4 KV heads, hd 256, p_max 64, so
+    ``paged_splits`` gives each (sequence, KV head) several pages a share)
+    with lengths from 1 to 2048: lengths on each side of share boundaries
+    (a share's last position, the next share's first), a share that is all
+    holes below the length, a lane of length 0 (zeros, not NaN), and
+    windows that start inside a share."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split = paged_splits(64, 8 * 4 * paged_row_groups(8, 4), sms, 2)
+    assert 1 < n_split < 64
+    # a last page that is full or holds one position: 13 live pages cut
+    # into n_split shares put the last two pages in one share, 417
+    # positions add a 14th page; 767 ends one position before a page
+    lengths = [0, 2048, 416, 417, 767, 1, 1000, 33]
+    # lane 1 (all 64 pages live): one whole share and more made of holes
+    lo, hi = paged_split_range(2, n_split, 0, 64)
+    q, pool, table, ln = _paged_split_case(
+        dev, lengths, holes=[(1, lo - 1, hi + 1)])
+    got = _check_paged_pool(q, pool, table, ln, window=window,
+                            logit_cap=cap)
+    assert not got[0].any()                 # length 0: zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,kv,g", [(1, 1, 2), (2, 2, 2), (8, 4, 2),
+                                    (64, 8, 2), (2, 2, 3), (3, 1, 12)])
+def test_paged_attention_split_counts(b, kv, g):
+    """Every share size the wrapper picks, from one page a share (few
+    sequences: n_split = p_max) to a single share (no merge), each
+    length's last page on either side of a boundary; GQA groups of 3 (a
+    block's fourth row is padding) and 12 (three row groups)."""
+    dev = _cuda()
+    rng = np.random.default_rng(b * 10 + kv + g)
+    lengths = rng.integers(0, 16 * 8 + 1, b)
+    lengths[0] = 16 * 8
+    if b > 1:
+        lengths[1] = 0
+    q, pool, table, ln = _paged_split_case(
+        dev, lengths, b=b, h=g * kv, kv=kv, d=64, page=8, p_max=16,
+        n_planes=4, seed=b + kv + g)
+    for window, cap in ((0, 0.0), (20, 50.0)):
+        _check_paged_pool(q, pool, table, ln, window=window, logit_cap=cap)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dv,misalign_q", [(6, 6, False), (8, 8, True),
+                                             (8, 6, False), (13, 16, False)])
+def test_paged_attention_four_byte_paths(d, dv, misalign_q):
+    """Geometries where 16-byte loads must not be used: a head dim that is
+    not a multiple of 4 (K, V or both), and q one float past an aligned
+    base (K then goes through 4-byte copies, V through 16-byte ones)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(d * 31 + dv)
+    rng = np.random.default_rng(d + dv)
+    b, h, kv, page, p_max = 3, 4, 2, 4, 9
+    e = b * p_max + 3
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    if misalign_q:
+        buf = torch.randn(q.numel() + 1, generator=gen, device=dev)
+        q = buf[1:].view(b, h, d)
+        assert q.data_ptr() % 16
+    pk = torch.randn((e, page, kv, d), generator=gen, device=dev)
+    pv = torch.randn((e, page, kv, dv), generator=gen, device=dev)
+    table = rng.permutation(e - 1)[:b * p_max].reshape(b, p_max) + 1
+    lengths = np.array([p_max * page, 0, 17])
+    for i in range(b):
+        table[i, -(-lengths[i] // page):] = -1
+    table[0, 3] = -1
+    table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    lengths = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    for window, cap in ((0, 0.0), (10, 50.0)):
+        got = paged_attention_fwd(q, pk, pv, table, lengths, window=window,
+                                  logit_cap=cap)
+        want = paged_attention_ref(q, pk, pv, table, lengths, window=window,
+                                   logit_cap=cap)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert not got[1].any()
+
+
+@pytest.mark.gpu
+def test_paged_attention_rejects_wide_heads():
+    """Head dims above the kernel's 256 raise, naming the limit."""
+    dev = _cuda()
+    q = torch.zeros((1, 2, 320), device=dev)
+    pk = torch.zeros((3, 4, 1, 320), device=dev)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        paged_attention_fwd(q, pk, pk, table, torch.ones(1, dtype=torch.int32,
+                                                          device=dev))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,sk,h,kv,d", [
     (2, 256, 256, 4, 2, 64), (1, 512, 512, 8, 2, 128),
@@ -485,3 +624,79 @@ def test_rwkv6_scan_kernel_limits():
     want_y, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(st, want_s, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 40, 16, 6])
+@pytest.mark.parametrize("s", [1, 2, DECODE_MAX, DECODE_MAX + 1])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv6_scan_decode_threshold(d, s, with_state):
+    """Both sides of the switch between the decode schedule (a warp per
+    column slice, the state in registers) and the prefill one: S 1, 2, the
+    threshold and one past it, at the serving decode's batch (8 x 40
+    heads of 64), a head padded from 40 to 64, a narrow head and one that
+    takes the 4-byte paths."""
+    dev = _cuda()
+    b, h = (8, 40) if d == 64 else (3, 5)
+    r, k, v, logw, u, s0 = _rwkv_case(dev, b, s, h, d, s * 7 + d,
+                                      with_state)
+    info = rwkv6_info(b, s, h, d)
+    assert info["schedule"] == (0 if s <= DECODE_MAX else 1)
+    y, st = rwkv6_scan_fwd(r, k, v, logw, u, s0=s0 if with_state else None)
+    want_y, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(st, want_s, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk", [(200, 64), (130, 64), (97, 32)])
+def test_rwkv6_scan_strong_decay(s, chunk):
+    """logw about -3 a token: a 64-token chunk's decay sums to about -190,
+    below fp32's exp range, where the reference's split form
+    exp(cum_excl) * exp(-cum) overflows. The sub-chunk factors have no
+    positive exponent, so the kernel stays finite and holds against the
+    step oracle."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(s + chunk)
+    b, h, d = 2, 3, 64
+    r, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev)
+               for _ in range(3))
+    logw = -3.0 - 0.2 * torch.rand((b, s, h, d), generator=gen, device=dev)
+    logw[:, :, :, :8] = -0.01            # some columns barely decay
+    u = torch.randn((h, d), generator=gen, device=dev) * 0.1
+    s0 = torch.randn((b, h, d, d), generator=gen, device=dev)
+    assert float(logw[:, :chunk].sum(1).min()) < -88
+    y, st = rwkv6_scan_fwd(r, k, v, logw, u, chunk=chunk, s0=s0)
+    want_y, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    torch.testing.assert_close(y, want_y, **TOL)
+    torch.testing.assert_close(st, want_s, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 40])
+def test_rwkv6_scan_every_column_split(d):
+    """hd 16, 32 and 64 under every n_col the wrapper's rule can pick on
+    this card (1 up to hd/8, from the batch x heads): the kernel reports
+    the rule's choice, and each grid holds against the step oracle."""
+    dev = _cuda()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    seen = set()
+    for bh in (1, 2, sms // 4, sms // 2, sms, sms + 1, 2 * sms):
+        b, h = (bh, 1) if bh <= 65535 else (1, bh)
+        n_col = rwkv6_n_col(b, h, d, sms)
+        if n_col in seen:
+            continue
+        seen.add(n_col)
+        info = rwkv6_info(b, 70, h, d)
+        assert info["schedule"] == 1 and info["n_col"] == n_col
+        r, k, v, logw, u, s0 = _rwkv_case(dev, b, 70, h, d, bh + d, True)
+        y, st = rwkv6_scan_fwd(r, k, v, logw, u, s0=s0)
+        want_y, want_s = rwkv6_scan_ref(r, k, v, logw, u, s0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, want_y, **TOL)
+        torch.testing.assert_close(st, want_s, **TOL)
+    dp = padded_dim(d)
+    assert seen == {n for n in (1, 2, 4, 8) if (dp // n) % 8 == 0}
