@@ -61,6 +61,53 @@ and the script exits non-zero:
    as in phase 3 (these are its ms and bound in the kernels line;
    ``zero_row_calls`` is the share of those calls that copy no row, on
    which ``index_copy_`` of the gathered rows launches nothing).
+8a. controller_ladder — the paper's baseline and its first two steps on
+   the same trace through the byte API, every read checked: ``upstream``
+   (``UpstreamEngine``: one queue, one request a pump, chained stores) and
+   ``+frontend`` (``loop`` over ``storage="chained"``) on the loop column's
+   cut, ``+comm`` (``slots`` over ``storage="chained"``) on the ladder's
+   cut; ops/s, MiB/s, pumps beside ``+dbs`` (``slots``) and ``+fused``;
+   the three fold into the ladder line, which follows.
+8b. layer_rows — every ported column (upstream, +frontend, +comm, +dbs,
+   +fused; benchmarks/ladder.py's column map, copied) under the paper's
+   three rows: ``frontend_only`` (``null_backend``), ``without_storage``
+   (``null_storage``) and ``full_engine``, through the ``Engine`` request
+   API (no byte API, no read check under the cuts): a seeded mix of 4 KiB
+   block requests over 4 volumes, 2048 on the batched columns and 300 on
+   the per-request ones, submitted again until the timed drains add up to
+   at least 0.5 s, after a warm-up drain; ops/s per cell.
+8c. rebuild — the full trace of phase 5 on a fused/cuda manager with
+   replica 1 failed (after a flush) once half the main path's op count was
+   issued; then ``control("rebuild", replica=1)``, timed alone between two
+   synchronisations, with its extents and bytes moved, messages by
+   opcode, host milliseconds per opcode and bound (each moved row read
+   once from the donor and written once to the target, at 3.35 TB/s).
+   Checked: ``consistent()``, the rebuilt pool equals the donor's on every
+   mapped row, every written block reads back right with replicas 0 and 2
+   failed, and rebuilding 0 and 2 then moves no row and leaves three
+   consistent replicas. Then three rebuilds of new deltas of the same row
+   count (replica 1 fails again and one block of each of the first
+   ``moved`` mapped pages is rewritten with the bytes it holds): timed
+   (``warm``), timed after ``torch.cuda.empty_cache()``
+   (``after_empty_cache``), and one under sync-debug "warn" for its host
+   syncs (counted as in phase 5). The DBS kernels' launches on this path
+   are counted.
+8d. replication — the reference's policy matrix (benchmarks/ladder.py
+   ``run_replication``) on ``slots`` over the ladder's cut trace, every read
+   checked: ``local/all`` with 2 replicas, and ``simnet`` with 3 replicas,
+   ``latency=[1, 1, 6]``, ``window=8`` under ``all``, ``quorum``,
+   ``async`` and ``quorum`` with ``read_policy="latency"``; ops/s, the
+   controller's wait in simulated ticks, retransmits, messages. After
+   ``close()`` every case's replicas agree and every replica of every case
+   holds the same volume bytes (a float64 checksum over the volume, on the
+   card).
+8e. snapshot_depth — one block of every page of a volume at the main
+   path's geometry (8192 pages, 12288 extents; 32 volume slots for the
+   snapshot table) under 0, 4, 16 and 64 snapshots (benchmarks/ladder.py
+   ``snapshot_degradation``), rounds of 256 reads of random pages until
+   the timed drains add up to at least 0.5 s, on ``upstream`` and on
+   ``fused``: reads/s and layers walked per read (the chain's depth plus
+   one on upstream, one table gather on fused), every read checked.
 9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
@@ -158,6 +205,7 @@ last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -203,6 +251,31 @@ LOOP_OPS, LOOP_MAX_OPS = 600, 300
 READ_SAMPLE_EVERY, READ_SAMPLES = 128, 32
 READ_SERVE_EVERY = 8             # of the zero-copy serve path's write pumps
 COPY_SAMPLE_EVERY = 8            # of the copy column's dbs_copy calls
+# the controller slice: the ladder's first three columns on the byte API
+# (the per-request ones on the loop column's cut), the paper's layer rows
+# on the request API, the replication policy matrix, the snapshot chain
+CONTROLLER_LADDER = [
+    ("upstream", dict(backend="upstream", kernel="torch"), True),
+    ("+frontend", dict(backend="loop", storage="chained", kernel="torch"),
+     True),
+    ("+comm", dict(backend="slots", storage="chained", kernel="torch"),
+     False)]
+LAYER_COLUMNS = ("upstream", "+frontend", "+comm", "+dbs", "+fused")
+LAYER_ROWS = ("frontend_only", "without_storage", "full_engine")
+PER_REQUEST_COLUMNS = ("upstream", "+frontend")
+LAYER_OPS = {False: 2048, True: 300}   # a round: batched, per-request
+SIMNET = dict(transport="simnet",
+              transport_opts=dict(latency=[1, 1, 6], window=8))
+REPLICATION = [
+    ("local/all", dict(n_replicas=2)),
+    ("simnet/all", dict(n_replicas=3, write_policy="all", **SIMNET)),
+    ("simnet/quorum", dict(n_replicas=3, write_policy="quorum", **SIMNET)),
+    ("simnet/async", dict(n_replicas=3, write_policy="async", **SIMNET)),
+    ("simnet/quorum+latreads", dict(n_replicas=3, write_policy="quorum",
+                                    read_policy="latency", **SIMNET))]
+SNAP_DEPTHS, SNAP_READS = (0, 4, 16, 64), 256   # reads a round
+SNAP_VOLUMES = 32                # twice the main path's: 128 snapshot slots
+MIN_WINDOW_S = 0.5               # each controller-phase timing, at least
 
 
 def emit(**kw) -> None:
@@ -618,12 +691,16 @@ def count_syncs(torch, fn) -> int:
 
 
 def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
-               n_ops=N_OPS, max_ops=None):
-    """The block device's trace through ``VolumeManager(backend, kernel)``
-    at the main path's geometry. ``n_ops`` scales the trace (the random
-    phases, the sequential spans and the hole reads); ``max_ops`` stops it
-    early (after a settle of the reads so far). Every read is checked, the
-    replicas must agree, and the kernels of the path must have launched."""
+               n_ops=N_OPS, max_ops=None, column=None, fail_after=None,
+               **extra):
+    """The block device's trace through ``VolumeManager(backend, kernel,
+    **extra)`` at the main path's geometry (``extra``: storage, replicas,
+    transport and policies). ``n_ops`` scales the trace (the random phases,
+    the sequential spans and the hole reads); ``max_ops`` stops it early
+    (after a settle of the reads so far); ``fail_after`` flushes and fails
+    replica 1 once that many ops were issued. Every read is checked, the
+    healthy DBS replicas must agree, and the kernels of the path must have
+    launched. ``column`` labels the printed line."""
     import numpy as np
     from repro_torch.core import slots
     from repro_torch.core.blockdev import VolumeManager
@@ -636,6 +713,7 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                   payload_elems=BLOCK, page_blocks=PAGE_BLOCKS,
                   max_pages=args.max_pages, n_extents=args.n_extents,
                   max_volumes=16, batch=BATCH, n_slots=256, n_queues=4)
+    config.update(extra)
     mgr = VolumeManager(device=dev, **config)
     # count pumps that did work, the fused steps by kind and the copy
     # kernel's live lanes (summed on the device); keep the read kernel's
@@ -686,6 +764,15 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     stats = {"ops": 0, "bytes": 0, "reads_checked": 0, "rmw_writes": 0}
     checks = []                       # (future, expected bytes)
     harness = [0.0]                   # seconds spent making and checking data
+    failed = [None]                   # the op count replica 1 failed at
+
+    def count_op():
+        stats["ops"] += 1
+        if (fail_after is not None and failed[0] is None
+                and stats["ops"] >= fail_after):
+            mgr.flush()
+            mgr.engine.control("fail", replica=1)
+            failed[0] = stats["ops"]
 
     def off_clock(fn, *a):
         """Run ``fn(*a)`` and book its time as the harness's own."""
@@ -701,7 +788,7 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     def write(vol, off, data):
         vol.pwrite(off, data)
         off_clock(shadow.write, vol.vid, off, data)
-        stats["ops"] += 1
+        count_op()
         stats["bytes"] += len(data)
         if off % BLOCK or len(data) % BLOCK:
             stats["rmw_writes"] += 1
@@ -709,7 +796,7 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     def read(vol, off, n):
         fut = vol.pread(off, n)
         checks.append((fut, off_clock(shadow.read, vol.vid, off, n)))
-        stats["ops"] += 1
+        count_op()
         stats["bytes"] += n
 
     def settle():
@@ -771,7 +858,7 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                 nb = 2 * page_bytes + int(rng.integers(1, page_bytes))
                 vol.discard(off, nb)
                 off_clock(shadow.write, vol.vid, off, bytes(nb))
-                stats["ops"] += 1
+                count_op()
                 read(vol, off - 100, nb + 200)
         settle()
         for vol in (v0, clone):                      # every written block
@@ -801,6 +888,8 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     def window():
         for i in range(BATCH):
             v0.pwrite((i * 97 % n_blocks) * BLOCK, bytes([i]) * BLOCK)
+            shadow.write(v0.vid, (i * 97 % n_blocks) * BLOCK,
+                         bytes([i]) * BLOCK)
         futs = [v0.pread((i * 97 % n_blocks) * BLOCK, BLOCK)
                 for i in range(BATCH)]
         mgr.flush()
@@ -825,20 +914,26 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     if kernel == "copy" and lanes_copied <= 0:
         raise AssertionError("the copy path copied no CoW lane")
     group = mgr.engine.backend
-    if not group.consistent():
-        raise AssertionError("replicas disagree on the metadata revision")
-    st0 = group.replicas[0].state
-    rows = torch.unique(st0.table[st0.table >= 0]).long()
-    for r in group.replicas[1:]:
-        if not torch.equal(r.state.table, st0.table):
-            raise AssertionError("replica extent maps differ")
-        for i in range(0, rows.numel(), 1024):
-            part = rows[i:i + 1024]
-            if not torch.equal(r.pool[part], group.replicas[0].pool[part]):
-                raise AssertionError("replica pools differ on mapped rows")
+    rows = torch.zeros((0,), dtype=torch.int64, device=dev)
+    if hasattr(group, "replicas"):            # DBS replicas: they agree
+        if not group.consistent():
+            raise AssertionError("replicas disagree on the metadata "
+                                 "revision")
+        healthy = [group.replicas[i] for i in group.healthy_indices()]
+        st0 = healthy[0].state
+        rows = torch.unique(st0.table[st0.table >= 0]).long()
+        for r in healthy[1:]:
+            if not torch.equal(r.state.table, st0.table):
+                raise AssertionError("replica extent maps differ")
+            for i in range(0, rows.numel(), 1024):
+                part = rows[i:i + 1024]
+                if not torch.equal(r.pool[part], healthy[0].pool[part]):
+                    raise AssertionError("replica pools differ on mapped "
+                                         "rows")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card: {plain}")
-    if int(slots.n_active(mgr.engine.frontend.table)) != 0:
+    table = getattr(mgr.engine.frontend, "table", None)
+    if table is not None and int(slots.n_active(table)) != 0:
         raise AssertionError("slots leaked")
     out = dict(
         config=config, volume_bytes=cap, ops=stats["ops"],
@@ -860,9 +955,387 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                    ops_per_step=stats["ops"] / n_steps)
     if kernel == "copy":
         out.update(cow_lanes_copied=lanes_copied)
-    emit(phase="main_path" if n_ops == N_OPS else "block_device", **out)
-    return mgr, launches, max(n_steps, 1), {"dbs_rw_read": reads,
-                                            "dbs_copy": copies}, out
+    if column is not None:
+        out.update(column=column)
+    if fail_after is not None:
+        out.update(replica_1_failed_at_op=failed[0])
+    emit(phase="main_path" if n_ops == N_OPS and column is None
+         else "block_device", **out)
+    return mgr, launches, max(n_steps, 1), {
+        "dbs_rw_read": reads, "dbs_copy": copies, "shadow": shadow,
+        "volumes": [v0]}, out
+
+
+# ---------------------------------------------------------------------------
+# phases 8a-8e: the controller slice on the block device
+# ---------------------------------------------------------------------------
+def ladder_engine(torch, column, row, dev, args, **kw):
+    """The ladder's column map (a copy of benchmarks/ladder.py
+    ``make_engine``, which imports JAX), the ported columns only, at the
+    main path's geometry: ``row`` picks the null layer cut."""
+    from repro_torch.core.engine import Engine, EngineConfig, UpstreamEngine
+    base = dict(payload_shape=(BLOCK,), n_replicas=REPLICAS,
+                page_blocks=PAGE_BLOCKS, n_extents=args.n_extents,
+                max_pages=args.max_pages, batch=BATCH,
+                null_backend=row == "frontend_only",
+                null_storage=row == "without_storage", kernel="cuda",
+                device=dev)
+    base.update(kw)
+    if column == "upstream":
+        return UpstreamEngine(EngineConfig(**base))
+    comm, storage = {"+frontend": ("loop", "chained"),
+                     "+comm": ("slots", "chained"),
+                     "+dbs": ("slots", "dbs"),
+                     "+fused": ("fused", "dbs")}[column]
+    return Engine(EngineConfig(comm=comm, storage=storage, **base))
+
+
+def timed_rounds(torch, submit, drain, check=None):
+    """Repeat rounds of ``submit()`` (untimed) and ``drain()`` (timed, with
+    a synchronise before and after) until the timed part adds up to
+    ``MIN_WINDOW_S``; ``check`` runs after each round, untimed. Returns
+    (items completed, seconds timed, rounds)."""
+    done, seconds, rounds = 0, 0.0, 0
+    while seconds < MIN_WINDOW_S:
+        submit()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done += drain()
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        rounds += 1
+        if check is not None:
+            check()
+    return done, seconds, rounds
+
+
+def measure_engine(torch, eng, n_requests, n_volumes=4, seed=SEED):
+    """ops/s of timed drains of a seeded mix of 4 KiB block requests (odd
+    requests write, even ones read) spread round-robin over ``n_volumes``
+    volumes, after a warm-up drain of one write batch, one read batch and
+    one mixed batch (benchmarks/ladder.py ``measure_engine``'s protocol,
+    through the ``Engine`` request API). The same ``n_requests`` are
+    submitted again until the drains add up to ``MIN_WINDOW_S``. Returns
+    (ops/s, seconds timed, rounds)."""
+    import numpy as np
+    from repro_torch.core.frontend import Request
+    vols = [eng.create_volume() for _ in range(n_volumes)]
+    pages = eng.cfg.max_pages
+    page_seq = np.random.default_rng(seed).integers(0, pages,
+                                                    size=n_requests)
+    payload = np.ones(BLOCK, np.float32)
+    for i in range(3 * BATCH):                  # warm-up: w, r, mixed
+        kind = ("write", "read", ("read", "write")[i % 2])[i // BATCH]
+        eng.submit(Request(req_id=i, kind=kind, volume=vols[i % n_volumes],
+                           page=i % pages, block=i % 8, payload=payload))
+        if i % BATCH == BATCH - 1:
+            eng.drain()
+    eng.completed = 0
+
+    def submit():
+        for i in range(n_requests):
+            eng.submit(Request(req_id=i, kind="write" if i % 2 else "read",
+                               volume=vols[i % n_volumes],
+                               page=int(page_seq[i]), block=i % 8,
+                               payload=payload))
+    done, seconds, rounds = timed_rounds(torch, submit, eng.drain)
+    if done != n_requests * rounds:
+        raise AssertionError(f"{done} of {n_requests * rounds} requests "
+                             "completed")
+    return done / seconds, seconds, rounds
+
+
+def phase_layer_rows(torch, args, dev, smi):
+    """Every ported ladder column under the paper's three rows (§IV-A):
+    ``frontend_only`` (null_backend), ``without_storage`` (null_storage),
+    ``full_engine``; ops/s per cell, each over at least ``MIN_WINDOW_S``
+    of drains."""
+    out, windows = {}, {}
+    for column in LAYER_COLUMNS:
+        n = LAYER_OPS[column in PER_REQUEST_COLUMNS]
+        out[column], windows[column] = {}, {}
+        for row in LAYER_ROWS:
+            eng = ladder_engine(torch, column, row, dev, args)
+            ops, seconds, rounds = measure_engine(torch, eng, n)
+            out[column][row] = ops
+            windows[column][row] = dict(seconds=seconds, rounds=rounds)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit(phase="layer_rows", requests={c: LAYER_OPS[c in PER_REQUEST_COLUMNS]
+                                       for c in LAYER_COLUMNS},
+         volumes=4, ops_per_s=out, windows=windows, card=smi)
+    return out
+
+
+def volume_digest(torch, pool, table_row, chunk=256):
+    """A float64 checksum of one volume's logical contents (holes as
+    zeros), each element weighted by a fixed irrational fraction of its
+    position: equal contents give equal sums, computed on the device."""
+    tot = torch.zeros((), dtype=torch.float64, device=pool.device)
+    per_page = pool[0].numel()
+    for lo in range(0, table_row.numel(), chunk):
+        ext = table_row[lo:lo + chunk].long()
+        rows = pool[ext.clamp(min=0)].double()
+        rows *= (ext >= 0).view(-1, *[1] * (rows.dim() - 1))
+        idx = torch.arange(lo * per_page, (lo + ext.numel()) * per_page,
+                           dtype=torch.float64, device=pool.device)
+        w = torch.frac(idx * 0.6180339887498949) + 0.5
+        tot += (rows.reshape(-1) * w).sum()
+    return float(tot)
+
+
+@contextlib.contextmanager
+def host_ms_by_op(replicas, out):
+    """Add to ``out[opcode name]`` the host milliseconds that each replica
+    endpoint spends executing a message: kernel enqueues, allocator calls,
+    lazy kernel loads and any copy that waits on the device. A clock read
+    a message and no synchronisation are added."""
+    from repro_torch.core.transport import MSG_NAMES
+
+    def wrap(execute):
+        def run(msg):
+            t = time.perf_counter()
+            try:
+                return execute(msg)
+            finally:
+                k = MSG_NAMES[msg.op]
+                out[k] = out.get(k, 0.0) + (time.perf_counter() - t) * 1e3
+        return run
+    for r in replicas:
+        r.execute = wrap(r.execute)
+    try:
+        yield out
+    finally:
+        for r in replicas:
+            del r.execute
+
+
+def phase_rebuild(torch, args, dev, smi, trace_ops):
+    """The full trace on a fused/cuda manager with replica 1 failed after
+    half its ops, then ``control("rebuild", replica=1)`` timed alone (a
+    synchronise before and after, no sync-debug mode), with its messages,
+    moved rows and host time per opcode; the rebuilt replica then serves
+    every written block alone, and rebuilding replicas 0 and 2 after that
+    moves nothing. Three repeats follow, each on a new delta of the same
+    row count (replica 1 failed again, one block of each of the first
+    ``moved`` mapped pages rewritten with the bytes it holds): timed
+    again, timed after ``torch.cuda.empty_cache()`` (the allocator grows
+    again, the kernels stay loaded), and run under sync-debug "warn" to
+    count its host syncs."""
+    mgr, launches, n_steps, kept, out = phase_main(
+        torch, args, dev, smi, column="rebuild", fail_after=trace_ops // 2)
+    g = mgr.engine.backend
+    row_bytes = PAGE_BLOCKS * BLOCK * 4
+    st = g.replicas[0].state
+    rows = torch.unique(st.table[st.table >= 0]).long()
+
+    def timed_rebuild():
+        moved0 = g.transports[1].pages_moved
+        sent0 = [dict(t.sent) for t in g.transports]
+        by_op = {}
+        torch.cuda.synchronize()
+        with host_ms_by_op(g.replicas, by_op):
+            t = time.perf_counter()
+            mgr.engine.control("rebuild", replica=1)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        msgs = {}
+        for tr, before in zip(g.transports, sent0):
+            for k, v in tr.sent.items():
+                if v - before.get(k, 0):
+                    msgs[k] = msgs.get(k, 0) + v - before.get(k, 0)
+        moved = g.transports[1].pages_moved - moved0
+        return dict(seconds=dt, extents_moved=moved,
+                    bytes_moved=moved * row_bytes,
+                    bound_ms=2 * moved * row_bytes / HBM_BYTES_PER_S * 1e3,
+                    host_ms_by_op=by_op, messages=msgs)
+
+    def check_rebuilt(what):
+        if not g.consistent():
+            raise AssertionError(f"replicas disagree after {what}")
+        for i in range(0, rows.numel(), 1024):
+            part = rows[i:i + 1024]
+            if not torch.equal(g.replicas[1].pool[part],
+                               g.replicas[0].pool[part]):
+                raise AssertionError(f"{what}: the rebuilt pool differs "
+                                     "from the donor")
+    cold = timed_rebuild()
+    moved = cold["extents_moved"]
+    check_rebuilt("the rebuild")
+    # the rebuilt replica alone serves every written block
+    mgr.engine.control("fail", replica=0)
+    mgr.engine.control("fail", replica=2)
+    shadow, (v0,) = kept["shadow"], kept["volumes"]
+    written = sorted(ab for (vid, ab) in shadow.blocks if vid == v0.vid)
+    futs = [(v0.pread(ab * BLOCK, BLOCK), ab) for ab in written]
+    mgr.flush()
+    for fut, ab in futs:
+        if fut.result() != shadow.read(v0.vid, ab * BLOCK, BLOCK):
+            raise AssertionError("the rebuilt replica read wrong bytes")
+    del futs
+    for i in (0, 2):                             # nothing written: no rows
+        before = sum(t.pages_moved for t in g.transports)
+        mgr.engine.control("rebuild", replica=i)
+        if sum(t.pages_moved for t in g.transports) != before:
+            raise AssertionError(f"rebuilding replica {i} moved rows")
+    if not g.consistent() or len(g.healthy_indices()) != REPLICAS:
+        raise AssertionError("the three replicas disagree")
+    if moved <= 0 or launches["dbs_rw_write"] <= 0 \
+            or launches["dbs_rw_read"] <= 0:
+        raise AssertionError(f"moved {moved} rows; launches {launches}")
+    table = g.replicas[0].state.table[v0.vid]
+    pages = torch.nonzero(table >= 0).flatten().tolist()[:moved]
+
+    def new_delta():
+        mgr.engine.control("fail", replica=1)
+        for p in pages:
+            off = p * PAGE_BLOCKS * BLOCK
+            v0.pwrite(off, shadow.read(v0.vid, off, BLOCK))
+        mgr.flush()
+    new_delta()
+    warm = timed_rebuild()
+    check_rebuilt("the warm rebuild")
+    new_delta()
+    torch.cuda.empty_cache()
+    regrown = timed_rebuild()
+    check_rebuilt("the rebuild after empty_cache")
+    new_delta()
+    syncs = count_syncs(torch, lambda: mgr.engine.control("rebuild",
+                                                          replica=1))
+    check_rebuilt("the counted rebuild")
+    del kept
+    res = dict(
+        ops=out["ops"], replica_1_failed_at_op=out["replica_1_failed_at_op"],
+        trace_ops_per_s=out["ops_per_s"], **cold,
+        warm=warm, after_empty_cache=regrown, host_syncs=syncs,
+        bound_by="bytes: each moved row read once from the donor and "
+                 "written once to the target, at 3.35 TB/s",
+        blocks_checked_on_replica_1_alone=len(written),
+        mapped_rows=int(rows.numel()), launches=launches, card=smi)
+    emit(phase="rebuild", **res)
+    mgr.close()
+    return res
+
+
+def phase_replication(torch, args, dev, smi):
+    """The reference's policy matrix (benchmarks/ladder.py
+    ``run_replication``) on ``slots`` (+dbs) over the ladder's cut trace,
+    every read checked: ops/s, the controller's wait in simulated ticks,
+    retransmits and messages sent; after ``close()`` every case's replicas
+    agree and every case ends in the same bytes."""
+    out, digests = {}, {}
+    for name, kw in REPLICATION:
+        mgr, _l, _s, kept, res = phase_main(
+            torch, args, dev, smi, backend="slots", kernel="torch",
+            n_ops=LADDER_OPS, column=f"replication {name}", **kw)
+        mgr.close()
+        g = mgr.engine.backend
+        if not g.consistent():
+            raise AssertionError(f"{name}: replicas disagree after close")
+        vid = kept["volumes"][0].vid
+        del kept
+        digests[name] = [volume_digest(torch, r.pool, r.state.table[vid])
+                         for r in g.replicas]
+        out[name] = dict(
+            ops_per_s=res["ops_per_s"], mib_per_s=res["mib_per_s"],
+            pumps=res["pumps"], wait_ticks=g.wait_ticks,
+            wait_ticks_per_op=g.wait_ticks / res["ops"],
+            retransmits=sum(t.retransmits for t in g.transports),
+            messages_sent=sum(t.messages_sent() for t in g.transports),
+            reads_checked=res["reads_checked"])
+        del mgr, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    flat = {d for ds in digests.values() for d in ds}
+    if len(flat) != 1:
+        raise AssertionError(f"the cases end in different bytes: {digests}")
+    emit(phase="replication", cases=out, digest=flat.pop(), card=smi)
+    return out
+
+
+def phase_snapshot_depth(torch, args, dev, smi):
+    """Reads against a volume whose data lies under 0, 4, 16 and 64
+    snapshots (benchmarks/ladder.py ``snapshot_degradation``: one block of
+    every page written before the first snapshot, then a snapshot and a
+    write of page 0 per newer layer; reads of random pages other than 0)
+    at the main path's geometry, with ``SNAP_VOLUMES`` volume slots for
+    the snapshot table. One engine a backend takes the snapshots in
+    steps, which leaves the same layers as a fresh engine a depth. Reads/s
+    over at least ``MIN_WINDOW_S`` of drains, every read checked, and
+    layers walked per read on ``upstream`` (the chain walk grows with the
+    snapshots) and on ``fused`` (one table gather)."""
+    import numpy as np
+    from repro_torch.core.engine import Engine, EngineConfig
+    from repro_torch.core.frontend import Request
+    pages = args.max_pages
+    payload = np.ones(BLOCK, np.float32)
+    rng = np.random.default_rng(SEED)
+    res = {}
+    for backend in ("upstream", "fused"):
+        res[backend] = []
+        eng = Engine(EngineConfig(
+            comm=backend, payload_shape=(BLOCK,), n_replicas=REPLICAS,
+            page_blocks=PAGE_BLOCKS, max_pages=pages,
+            max_volumes=SNAP_VOLUMES, n_extents=args.n_extents, batch=BATCH,
+            kernel="cuda", device=dev))
+        vol = eng.create_volume()
+        for p in range(pages):                    # data in the oldest layer
+            eng.submit(Request(req_id=p, kind="write", volume=vol,
+                               page=p, block=0, payload=payload))
+        eng.drain()
+        depth = 0
+        for ns in SNAP_DEPTHS:
+            for _ in range(ns - depth):           # newer layers
+                sid = eng.snapshot(vol)
+                if backend == "fused" and sid < 0:
+                    raise AssertionError("the snapshot table is full")
+                eng.submit(Request(req_id=0, kind="write", volume=vol,
+                                   page=0, block=0, payload=payload))
+                eng.drain()
+            depth = ns
+            stores = getattr(eng.impl, "stores", None) or []
+            before = [(s.reads, s.layers_walked) for s in stores]
+            rs = []
+
+            def submit():
+                rs[:] = [Request(req_id=i, kind="read", volume=vol,
+                                 page=int(rng.integers(1, pages)), block=0)
+                         for i in range(SNAP_READS)]
+                for r in rs:
+                    eng.submit(r)
+
+            def check():
+                if any(r.result is None
+                       or not np.array_equal(r.result, payload)
+                       for r in rs):
+                    raise AssertionError(f"{backend}, {ns} snapshots: a "
+                                         "read returned the wrong block")
+            done, seconds, rounds = timed_rounds(torch, submit, eng.drain,
+                                                 check)
+            if done != SNAP_READS * rounds:
+                raise AssertionError(f"{done} of {SNAP_READS * rounds} "
+                                     "reads completed")
+            if stores:
+                reads = sum(s.reads - b[0] for s, b in zip(stores, before))
+                walked = sum(s.layers_walked - b[1]
+                             for s, b in zip(stores, before))
+                per_read = walked / reads
+                if per_read != ns + 1:
+                    raise AssertionError(f"{per_read} layers a read under "
+                                         f"{ns} snapshots")
+            else:
+                per_read = 1.0                    # one table gather
+            res[backend].append(dict(snapshots=ns, reads_per_s=done / seconds,
+                                     layers_per_read=per_read, reads=done,
+                                     seconds=seconds, rounds=rounds))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="snapshot_depth", pages=pages, n_extents=args.n_extents,
+         max_volumes=SNAP_VOLUMES, reads_a_round=SNAP_READS, points=res,
+         card=smi)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2012,7 +2485,9 @@ def main() -> int:
     launch_floor = phase_launch_floor(torch, dev, smi)
     write_k = phase_write_kernel(torch, args, dev)
     copy_crafted_err = phase_copy_kernel(torch, args, dev)
-    mgr, launches, n_steps, kept, _ = phase_main(torch, args, dev, smi)
+    mgr, launches, n_steps, kept, main_out = phase_main(torch, args, dev,
+                                                        smi)
+    trace_ops = main_out["ops"]
     read_k = phase_read_kernel(torch, mgr, kept["dbs_rw_read"])
     del kept
     phase_no_sync(torch, mgr)
@@ -2041,14 +2516,42 @@ def main() -> int:
         mgr.close()
         del mgr
         free()
-    mgr, *_, out = phase_main(torch, args, dev, smi, backend="loop",
-                              kernel="torch", n_ops=LOOP_OPS,
-                              max_ops=LOOP_MAX_OPS)
+    mgr, _l, _s, kept, out = phase_main(torch, args, dev, smi,
+                                        backend="loop", kernel="torch",
+                                        n_ops=LOOP_OPS, max_ops=LOOP_MAX_OPS)
     ladder["loop/torch"] = out["ops_per_s"]
     mgr.close()
-    del mgr
+    del mgr, kept
     free()
+    # the paper's baseline and its first two steps on the same trace:
+    # upstream and +frontend dispatch one request at a time, so they take
+    # the loop column's cut
+    controller = {}
+    for column, kw, per_request in CONTROLLER_LADDER:
+        cut = (dict(n_ops=LOOP_OPS, max_ops=LOOP_MAX_OPS) if per_request
+               else dict(n_ops=LADDER_OPS))
+        mgr, _l, _s, kept, out = phase_main(torch, args, dev, smi,
+                                            column=column, **kw, **cut)
+        del kept
+        controller[column] = {k: out[k] for k in (
+            "ops", "ops_per_s", "mib_per_s", "pumps", "host_syncs_per_pump",
+            "reads_checked")}
+        ladder[column] = out["ops_per_s"]
+        mgr.close()
+        del mgr, out
+        free()
+    emit(phase="controller_ladder", columns=controller,
+         beside={"+dbs": ladder["slots/torch"],
+                 "+fused": ladder["fused/cuda"]}, card=smi)
     emit(phase="ladder", ops=LADDER_OPS, ops_per_s=ladder, card=smi)
+    phase_layer_rows(torch, args, dev, smi)
+    rebuild = phase_rebuild(torch, args, dev, smi, trace_ops)
+    free()
+    phase_replication(torch, args, dev, smi)
+    phase_snapshot_depth(torch, args, dev, smi)
+    free()
+    for k in (write_k, read_k):
+        k["launches_rebuild_path"] = rebuild["launches"][k["name"]]
 
     eng, kept, serve_launches, serve_counts, (cfg, params, prompts) = \
         phase_serve(torch, dev, smi)

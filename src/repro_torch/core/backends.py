@@ -13,7 +13,15 @@ here. The backend protocol is ``submit(req)``, ``pump()``, ``drain()``,
 | ``slots`` | ``HostDispatchBackend`` | batched slot admission, separate     |
 |           |                       | dispatches for writes, reads, retire   |
 | ``fused`` | ``FusedBackend``      | one fused step per pump                |
+| ``upstream`` | ``engine.UpstreamEngine`` | TGT-style baseline, one request |
+|           |                       | per pump over chained stores           |
 | ``host``  | ``HostStateBackend``  | one request per pump on one state      |
+
+``loop`` and ``slots`` run over DBS replicas (``ReplicaGroup``, any
+transport and policy) or, with ``storage="chained"``, the upstream
+chained stores (``engine.ChainedReplicas``). ``null_backend`` leaves them
+no storage at all (requests complete at the controller); ``null_storage``
+keeps the metadata work and skips the data plane.
 
 ``host`` is the sequential oracle the byte-API tests compare engines
 against, and the control plane of the copy-based serving baseline
@@ -38,8 +46,7 @@ from repro_torch.kernels.dbs.registry import resolve_kernel_name
 
 # backends of the JAX package that later slices of the port bring
 UNPORTED_BACKENDS = {"sharded": "the shards slice",
-                     "ring": "the ring slice",
-                     "upstream": "the controller slice"}
+                     "ring": "the ring slice"}
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -94,7 +101,9 @@ def fetch_to_host(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
 
 class _FrontendBackendBase(ControlDispatch):
     """Shared construction for the MultiQueueFrontend-fed backends: the
-    frontend, the replica storage and host-side control dispatch."""
+    frontend, the replica storage (DBS ``ReplicaGroup``, the chained
+    baseline, or None under ``null_backend``) and host-side control
+    dispatch (null-backend rows answer snapshot None, clone -1)."""
 
     is_pool = False
     data_kinds = frozenset({"read", "write"})
@@ -104,14 +113,25 @@ class _FrontendBackendBase(ControlDispatch):
         self.device = torch.device(cfg.device)
         self.frontend = MultiQueueFrontend(cfg.n_queues, cfg.n_slots,
                                            cfg.batch, device=self.device)
-        self.storage = ReplicaGroup(
-            cfg.n_replicas, cfg.n_extents, cfg.max_volumes, cfg.max_pages,
-            cfg.page_blocks, cfg.payload_shape, transport=cfg.transport,
-            device=self.device)
+        if cfg.null_backend:
+            self.storage = None
+        elif cfg.storage == "chained":
+            from repro_torch.core.engine import ChainedReplicas
+            self.storage = ChainedReplicas(cfg)
+        else:
+            self.storage = ReplicaGroup(
+                cfg.n_replicas, cfg.n_extents, cfg.max_volumes, cfg.max_pages,
+                cfg.page_blocks, cfg.payload_shape,
+                null_storage=cfg.null_storage, transport=cfg.transport,
+                write_policy=cfg.write_policy, read_policy=cfg.read_policy,
+                transport_opts=cfg.transport_opts, device=self.device)
+        self._chained = cfg.storage == "chained"
         self._kernel = resolve_kernel_name(cfg)
         self.completed = 0
 
     def create_volume(self) -> int:
+        if self.storage is None:
+            return 0
         return self.storage.create_volume()
 
     def submit(self, req: Request) -> None:
@@ -123,9 +143,11 @@ class _FrontendBackendBase(ControlDispatch):
                 "opcode-tagged SQ/CQ path); this backend carries data ops "
                 "only — use control() for host-side control ops")
         # out-of-range ids would index past the device tables (JAX clamps
-        # or drops them silently; a CUDA gather faults)
+        # or drops them silently; a CUDA gather faults). The chained stores
+        # are dicts, whose volume ids grow without bound as in the reference
         cfg = self.cfg
-        if not (0 <= req.volume < cfg.max_volumes
+        if not self._chained and not (
+                0 <= req.volume < cfg.max_volumes
                 and 0 <= req.page < cfg.max_pages
                 and 0 <= req.block < cfg.page_blocks):
             raise ValueError(
@@ -138,19 +160,27 @@ class _FrontendBackendBase(ControlDispatch):
         return self.frontend.depth()
 
     def snapshot(self, volume: int):
-        return self.storage.snapshot(volume)
+        return None if self.storage is None else self.storage.snapshot(volume)
 
     def clone(self, volume: int) -> int:
-        return self.storage.clone(volume)
+        return -1 if self.storage is None else self.storage.clone(volume)
 
     def unmap(self, volume: int, pages) -> None:
-        self.storage.unmap(volume, pages)
+        if self.storage is not None:
+            self.storage.unmap(volume, pages)
 
     def delete_volume(self, volume: int) -> None:
-        self.storage.delete_volume(volume)
+        if self.storage is not None:
+            self.storage.delete_volume(volume)
 
     def _control_repl(self, kind, shard, replica):
-        return getattr(self.storage, kind)(replica)  # fail / rebuild
+        if self.storage is None:
+            return None
+        fn = getattr(self.storage, kind, None)     # ReplicaGroup.fail/rebuild
+        if fn is None:
+            raise ValueError(f"storage {type(self.storage).__name__} has no "
+                             f"{kind!r} control op")
+        return fn(replica)
 
     def drain(self, max_iters: int = 100_000) -> int:
         n = 0
@@ -172,7 +202,8 @@ class HostDispatchBackend(_FrontendBackendBase):
     the per-request loop (``loop``), with separate host dispatches for
     admission, writes, reads and completion — the ladder's ``+comm``/
     ``+dbs`` columns and the ``+frontend`` loop baseline. Each read
-    dispatch makes one host copy of its results."""
+    dispatch makes one host copy of its results. Over the chained stores
+    each write request is its own mirrored store write."""
 
     def _lanes(self, reqs: List[Request]):
         """The requests' (volume, page, block, mask) lanes padded to a
@@ -188,6 +219,11 @@ class HostDispatchBackend(_FrontendBackendBase):
         return vols, pages, blocks.to(torch.int32), mask
 
     def _exec_write_batch(self, rs: List[Request]) -> None:
+        if self._chained:
+            for r in rs:
+                self.storage.write(r.volume, [r.page], [r.block],
+                                   [r.payload])
+            return
         vols, pages, blocks, mask = self._lanes(rs)
         pay = np.zeros((pages.shape[0],) + tuple(self.cfg.payload_shape),
                        np.float32)
@@ -203,6 +239,18 @@ class HostDispatchBackend(_FrontendBackendBase):
                                mask=mask[s])
 
     def _exec_read_batch(self, rs: List[Request]) -> None:
+        if self._chained:
+            out = self.storage.read([r.volume for r in rs],
+                                    [r.page for r in rs],
+                                    [r.block for r in rs])
+            if out is None:                        # null_storage
+                return
+            hit = [j for j, v in enumerate(out) if v is not None]
+            if hit:                                # one host copy
+                got, = fetch_to_host(torch.stack([out[j] for j in hit]))
+                for k, j in enumerate(hit):
+                    rs[j].result = got[k]
+            return
         vols, pages, blocks, _mask = self._lanes(rs)
         cap = self.cfg.batch
         for i in range(0, pages.shape[0], cap):
@@ -220,6 +268,17 @@ class HostDispatchBackend(_FrontendBackendBase):
         slot_ids, reqs = self.frontend.poll_batch()
         if not reqs:
             return 0
+        if self.storage is not None:               # none: null_backend
+            self._execute(reqs)
+        done = self.frontend.complete(slot_ids)
+        for r in done:
+            r.status = 0
+        self.completed += len(done)
+        return len(done)
+
+    def _execute(self, reqs: List[Request]) -> None:
+        """Writes mirrored, reads from one replica: one request at a time
+        on ``loop``, the batch's writes then its reads on ``slots``."""
         if self.cfg.comm == "loop":
             for r in reqs:                 # one request at a time
                 if r.kind == "write":
@@ -233,19 +292,25 @@ class HostDispatchBackend(_FrontendBackendBase):
                 self._exec_write_batch(writes)
             if reads:
                 self._exec_read_batch(reads)
-        done = self.frontend.complete(slot_ids)
-        for r in done:
-            r.status = 0
-        self.completed += len(done)
-        return len(done)
 
 
 @register_backend("fused")
 class FusedBackend(_FrontendBackendBase):
     """The single-step engine (core/fused.py): admission -> CoW writes ->
     mirrored stores -> rr reads -> retirement on the device, one host fetch
-    per pump. ``engine.check_ported`` has already rejected the storage
-    and policies it does not serve."""
+    per pump. The null cuts run the step without storage (``null_backend``)
+    or without the data plane (``null_storage``)."""
+
+    def __init__(self, cfg):
+        if cfg.storage != "dbs":
+            raise ValueError("backend='fused' requires storage='dbs'")
+        if cfg.write_policy != "all" or cfg.read_policy != "rr":
+            raise ValueError(
+                "backend='fused' serves the data plane IN-PROGRAM "
+                "(mirror-to-all writes, in-program rr reads); write_policy="
+                f"{cfg.write_policy!r}/read_policy={cfg.read_policy!r} "
+                "need a host-dispatch backend (loop | slots)")
+        super().__init__(cfg)
 
     def pump(self) -> int:
         """One controller iteration: drain raw request tensors in, run the
@@ -254,20 +319,25 @@ class FusedBackend(_FrontendBackendBase):
         reqs, batch = self.frontend.drain_batch(self.cfg.payload_shape)
         if not reqs:
             return 0
-        states, pools = self.storage.device_state()
-        page_revs = self.storage.device_page_revs()
-        rr = self.storage.bump_rr()
+        cuts = dict(null_backend=self.cfg.null_backend,
+                    null_storage=self.cfg.null_storage, kernel=self._kernel)
+        if self.storage is None:
+            states, pools, page_revs, rr = (), (), (), 0
+        else:
+            states, pools = self.storage.device_state()
+            page_revs = self.storage.device_page_revs()
+            rr = self.storage.bump_rr()
         if any(r.kind == "write" for r in reqs):
             table, states, pools, page_revs, ok, reads = fused_step(
                 self.frontend.table, states, pools, page_revs, batch, rr,
-                kernel=self._kernel)
-            self.storage.set_device_state(states, pools)
-            self.storage.set_device_page_revs(page_revs)
+                **cuts)
+            if self.storage is not None:
+                self.storage.set_device_state(states, pools)
+                self.storage.set_device_page_revs(page_revs)
         else:
             # read-only batch: replica state is untouched
             table, ok, reads = fused_step_read(
-                self.frontend.table, states, pools, batch, rr,
-                kernel=self._kernel)
+                self.frontend.table, states, pools, batch, rr, **cuts)
         self.frontend.table = table
         # the single host hop: completion flags + completed read payloads
         ok_host, reads_host = fetch_to_host(ok, reads)
@@ -296,7 +366,7 @@ class HostStateBackend(ControlDispatch):
     ``alloc_pages`` runs the DBS page allocation/CoW on this state and
     returns the ``WriteOps`` (destination extents, CoW sources) for the
     embedder's own pools (serving/engine.py, through
-    ``blockdev.VolumeManager``). ``null_storage`` holds no pool."""
+    ``blockdev.VolumeManager``). Under either null cut it holds no pool."""
 
     is_pool = False
     data_kinds = frozenset({"read", "write"})
@@ -308,7 +378,8 @@ class HostStateBackend(ControlDispatch):
         self.storage = None
         self.state = dbs.make_state(cfg.n_extents, cfg.max_volumes,
                                     cfg.max_pages, device=self.device)
-        self.pool = (None if cfg.null_storage else torch.zeros(
+        self.pool = (None if cfg.null_storage or cfg.null_backend
+                     else torch.zeros(
             (cfg.n_extents + 1, cfg.page_blocks) + tuple(cfg.payload_shape),
             dtype=torch.float32, device=self.device))
         self.queue: collections.deque = collections.deque()
@@ -400,3 +471,9 @@ class HostStateBackend(ControlDispatch):
         self.state, ops = dbs.write_pages(self.state, vols, pages, bits,
                                           mask)
         return ops
+
+
+@register_backend("upstream")
+def _make_upstream(cfg):
+    from repro_torch.core.engine import UpstreamEngine
+    return UpstreamEngine(cfg)

@@ -34,8 +34,12 @@ byte API, which assumes the flat layout.
 The manager runs on ``device`` (default ``cuda``, with no CPU fallback).
 ``backend="host"`` (with ``null_storage=True``: no pool) is the control
 plane of the copy-based serving baseline, which reads ``state`` and calls
-``alloc_pages``. The journal, the spill tier and ``Volume.compute`` land
-with their slices.
+``alloc_pages``. ``backend="upstream"`` is the paper's baseline, and
+``storage="chained"`` puts its chained stores behind ``loop``/``slots``;
+``transport=``/``write_policy=``/``read_policy=`` choose the replica wire
+and policies, and ``engine.control("fail"|"rebuild", replica=i)`` fails
+and rebuilds a replica. The journal, the spill tier and ``Volume.compute``
+land with their slices.
 """
 from __future__ import annotations
 
@@ -294,8 +298,9 @@ class VolumeManager:
         if self._closed:
             return 0
         done = self.flush()
-        if self.engine.backend is not None:
-            self.engine.backend.drain_transports()
+        storage = self.engine.backend
+        if storage is not None and hasattr(storage, "drain_transports"):
+            storage.drain_transports()    # quorum/async stragglers land
         self._closed = True
         return done
 
@@ -317,10 +322,10 @@ class VolumeManager:
         out = {"completed": self.engine.completed,
                "queued": self.engine.depth(),
                "backend": self.backend_name}
-        if self.engine.frontend is not None:
+        table = getattr(self.engine.frontend, "table", None)
+        if table is not None:
             from repro_torch.core import slots
-            out["slots_active"] = int(slots.n_active(
-                self.engine.frontend.table))
+            out["slots_active"] = int(slots.n_active(table))
         return out
 
     # ------------------------------------------------------------ lifecycle
@@ -477,8 +482,11 @@ class VolumeManager:
         """ONE (V, P) int32 extent map on the device (holes -1): the host
         backend's own state's, else replica 0's (the healthy replicas run
         identical control sequences, so their maps agree)."""
-        if self.engine.backend is None:                 # host backend
-            return self.engine.impl.state.table
+        impl = self.engine.impl
+        if hasattr(impl, "state"):                      # host backend
+            return impl.state.table
+        if not hasattr(self.engine.backend, "device_state"):
+            raise RuntimeError("this backend holds no extent map")
         states, _pools = self.engine.backend.device_state()
         return states[0].table
 

@@ -1,19 +1,24 @@
-"""The multi-queue (ublk-style) frontend of the fused engine.
+"""Frontends: multi-queue (ublk-style) and single-loop (TGT-style upstream).
 
-Port of ``Request`` and ``MultiQueueFrontend`` from
-``repro/core/frontend.py``: N admission queues over a single-shard
+Port of ``Request``, ``UpstreamFrontend`` and ``MultiQueueFrontend`` from
+``repro/core/frontend.py``. ``UpstreamFrontend`` is the paper's baseline:
+one queue, one loop function taking one request at a time into a dict of
+in-flight requests. ``MultiQueueFrontend`` is N admission queues over a
+single-shard
 ``RingFrontend`` (core/ring.py, the one drain protocol). ``drain_batch``
 moves the staged numpy lanes to the device as one transfer per leaf into
 the ``FusedBatch`` the fused step consumes; admission happens inside the
 step, so no slot id is ever read back. ``poll_batch``/``complete`` admit
 and retire as device ops of their own and read the slot ids back (the
-serving engine's admission). The upstream single-loop frontend and the
-sharded frontend land with their slices.
+serving engine's admission). The sharded frontend comes with the shards
+slice.
 """
 from __future__ import annotations
 
+import collections
+import itertools
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import torch
 
@@ -39,6 +44,41 @@ class Request:
     fn: Optional[str] = None  # storage-function name (kind="compute")
     arg: int = 0              # storage-function immediate argument
     fnid: int = 0             # resolved registry id
+
+
+class UpstreamFrontend:
+    """Single queue + single loop function + dynamic map (paper Fig. 4
+    left)."""
+
+    def __init__(self, max_inflight: int = 256):
+        self.queue: Deque[Request] = collections.deque()
+        self.messages: Dict[int, Request] = {}      # the Messages Map
+        self._next_id = itertools.count()
+        self.max_inflight = max_inflight
+        self.step = 0               # pump tick (latency accounting)
+
+    def submit(self, req: Request) -> None:
+        req.tick = self.step        # submission stamped in pump ticks
+        self.queue.append(req)
+
+    def poll_one(self) -> Optional[Tuple[int, Request]]:
+        """The loop function: take ONE request, give it a unique id and
+        store it in the map. Each poll is one pump tick; the request's
+        ``latency`` is stamped in ticks."""
+        if not self.queue or len(self.messages) >= self.max_inflight:
+            return None
+        req = self.queue.popleft()
+        req.latency = self.step - req.tick + 1
+        self.step += 1
+        mid = next(self._next_id)
+        self.messages[mid] = req
+        return mid, req
+
+    def complete(self, mid: int) -> Request:
+        return self.messages.pop(mid)
+
+    def __len__(self):
+        return len(self.queue)
 
 
 def _reject_control(req) -> None:

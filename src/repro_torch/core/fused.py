@@ -18,8 +18,11 @@ JAX donates the step's buffers; here the payload pools are updated in
 place (each CoW row is gathered before any destination row is written, by
 the routing contract of the kernels), and the small metadata tensors are
 replaced by new ones. The round-robin cursor is a host int, so the serving
-replica is picked by plain Python indexing. The tiered variants (spill
-tier) and the traced health mask (shards) land with their slices.
+replica is picked by plain Python indexing. The null layer cuts stop the
+step early: ``null_backend`` after admission, ``null_storage`` after the
+metadata writes (no pool write, no watermark stamp, no gather). The
+tiered variants (spill tier) and the traced health mask (shards) land
+with their slices.
 """
 from __future__ import annotations
 
@@ -57,35 +60,44 @@ def _cow_apply(pool, ops: dbs.WriteOps, payload, block_offsets, kernel: str):
 def step_core(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
               pools: Tuple[torch.Tensor, ...],
               page_revs: Tuple[torch.Tensor, ...], batch: FusedBatch,
-              rr: int, *, kernel: str = "cuda"):
+              rr: int, *, null_backend: bool = False,
+              null_storage: bool = False, kernel: str = "cuda"):
     """The fused controller iteration over the healthy replicas' states,
-    pools and watermarks. Returns ``(table', states', pools', page_revs',
+    pools and watermarks (``pools``/``page_revs`` empty with
+    ``null_storage``). Returns ``(table', states', pools', page_revs',
     ok (B,) bool, reads (B, *payload))``."""
     table, _ids, ok = slots.transact(table, batch.want, batch.volume,
                                      batch.queue, batch.step)
+    reads = torch.zeros_like(batch.payload)
+    if null_backend or not states:
+        return table, states, pools, page_revs, ok, reads
     wmask = ok & batch.is_write
     bits = torch.ones((), dtype=torch.int64, device=ok.device) << \
         batch.block.to(torch.int64)
     out_states, out_pools, out_prs = [], [], []
     for i, st in enumerate(states):            # mirrored write-to-all
         st, wops = dbs.write_pages(st, batch.volume, batch.page, bits, wmask)
-        out_pools.append(_cow_apply(pools[i], wops, batch.payload,
-                                    batch.block, kernel))
-        out_prs.append(stamp_page_rev(page_revs[i], batch.volume,
-                                      batch.page, wops.ok, st.revision))
+        if not null_storage:
+            out_pools.append(_cow_apply(pools[i], wops, batch.payload,
+                                        batch.block, kernel))
+            out_prs.append(stamp_page_rev(page_revs[i], batch.volume,
+                                          batch.page, wops.ok, st.revision))
         out_states.append(st)
-    reads = _rr_gather(out_states, out_pools, batch, rr, ok & ~batch.is_write,
-                       torch.zeros_like(batch.payload), kernel)
+    if not null_storage:
+        reads = _rr_gather(out_states, out_pools, batch, rr,
+                           ok & ~batch.is_write, reads, kernel)
     return (table, tuple(out_states), tuple(out_pools), tuple(out_prs), ok,
             reads)
 
 
 def fused_step(table, states, pools, page_revs, batch: FusedBatch, rr: int,
-               *, kernel: str = "cuda"):
+               *, null_backend: bool = False, null_storage: bool = False,
+               kernel: str = "cuda"):
     """One whole controller iteration (``step_core``). The pools are
     updated in place; callers replace their references to the table,
     states and watermarks with the returned ones."""
     return step_core(table, states, pools, page_revs, batch, rr,
+                     null_backend=null_backend, null_storage=null_storage,
                      kernel=kernel)
 
 
@@ -101,17 +113,23 @@ def _rr_gather(states, pools, batch: FusedBatch, rr: int, rmask, reads,
 
 
 def step_core_read(table: slots.SlotTable, states, pools,
-                   batch: FusedBatch, rr: int, *, kernel: str = "cuda"):
+                   batch: FusedBatch, rr: int, *, null_backend: bool = False,
+                   null_storage: bool = False, kernel: str = "cuda"):
     """``step_core`` specialised to batches with no write lanes (replica
     state and pools are inputs only). Returns ``(table', ok, reads)``."""
     table, _ids, ok = slots.transact(table, batch.want, batch.volume,
                                      batch.queue, batch.step)
+    reads = torch.zeros_like(batch.payload)
+    if null_backend or null_storage or not states:
+        return table, ok, reads
     return table, ok, _rr_gather(states, pools, batch, rr,
-                                 ok & ~batch.is_write,
-                                 torch.zeros_like(batch.payload), kernel)
+                                 ok & ~batch.is_write, reads, kernel)
 
 
 def fused_step_read(table, states, pools, batch: FusedBatch, rr: int, *,
+                    null_backend: bool = False, null_storage: bool = False,
                     kernel: str = "cuda"):
     """``fused_step`` specialised to batches with no write lanes."""
-    return step_core_read(table, states, pools, batch, rr, kernel=kernel)
+    return step_core_read(table, states, pools, batch, rr,
+                          null_backend=null_backend,
+                          null_storage=null_storage, kernel=kernel)

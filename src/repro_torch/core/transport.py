@@ -1,27 +1,36 @@
-"""Controller<->replica transport, local part: messages, endpoint, delivery.
+"""Controller<->replica transport: the pluggable wire between the two.
 
-Port of the local part of ``repro/core/transport.py``:
+Port of ``repro/core/transport.py`` (the flat endpoint; the shard-stacked
+endpoint comes with the shards slice):
 
-- **WireMsg** — an opcode-tagged controller->replica message,
+- **WireMsg** — an opcode-tagged controller->replica message: data
+  (WRITE/READ), volume control, and the rebuild stream (WATERMARKS ->
+  FETCH_DELTA -> FETCH_PAGES/PUSH_PAGES -> ADOPT_META),
 - **Replica** — one replica's endpoint: its ``DBSState``, payload pool and
-  per-page revision watermarks, executing control and query messages,
-- **ReplicaTransport** / **LocalTransport** — the delivery contract and
-  its in-process form (a ``post`` IS the endpoint call),
+  per-page revision watermarks, executing every message,
+- **ReplicaTransport** — the delivery contract with per-opcode ``sent``
+  counters, ``pages_moved`` (pool rows through the rebuild stream) and
+  ``latency_ewma``; **LocalTransport** (a ``post`` IS the endpoint call),
+  **DeviceTransport** (the same, by the name the in-program engines use)
+  and **SimNetTransport** (latency, a bounded window, drop with in-order
+  retransmit, reorder injection; seeded with ``np.random.default_rng`` as
+  the reference is, so a seed gives the same drops in both packages),
 - ``stamp_page_rev`` / ``clone_page_rev`` — the watermark updates the fused
   step and clones make.
 
 On the fused engine the data plane never rides messages: the controller
 threads the endpoint tensors through the step, and the transport carries
-control traffic. The host-dispatch backends (``loop``, ``slots``) send
-their data as WRITE and READ messages. The ``device`` and ``simnet``
-transports and the rebuild stream land with the transport slice.
+control and rebuild traffic. The host-dispatch backends (``loop``,
+``slots``) send their data as WRITE and READ messages.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import dbs
@@ -66,16 +75,20 @@ class WireMsg:
 
 
 class MsgFuture:
-    """Completion handle for one posted message (done at post time on an
-    in-process transport)."""
+    """Completion handle for one posted message. ``done`` flips when the
+    transport delivers it (at post time in-process); the controller waits
+    by ticking the owning transport."""
 
-    __slots__ = ("transport", "msg", "value", "done")
+    __slots__ = ("transport", "msg", "value", "done", "cancelled",
+                 "posted_at")
 
     def __init__(self, transport: "ReplicaTransport", msg: WireMsg):
         self.transport = transport
         self.msg = msg
         self.value: Any = None
         self.done = False
+        self.cancelled = False
+        self.posted_at = 0
 
     def result(self) -> Any:
         self.transport.wait(self)
@@ -110,6 +123,31 @@ def clone_page_rev(page_rev: torch.Tensor, src_vol, new_vol) -> torch.Tensor:
     return out
 
 
+def _delta_extents(table: torch.Tensor, page_rev: torch.Tensor,
+                   target_watermarks: torch.Tensor) -> np.ndarray:
+    """Extents the target is missing: every extent backing a page whose
+    watermark is newer than the target's. Healthy replicas execute
+    identical op sequences, so a page not written since the target's
+    watermark maps to an extent the target already holds bit for bit. The
+    masked table is computed on the device and comes back in ONE copy."""
+    newer = (page_rev > target_watermarks) & (table >= 0)
+    exts = torch.where(newer, table, -1).cpu().numpy()
+    return np.unique(exts[exts >= 0]).astype(np.int32)
+
+
+def _clone_state(st: dbs.DBSState) -> dbs.DBSState:
+    """A ``DBSState`` whose every tensor is a copy: the port writes some
+    metadata tensors in place, so a state shared by two replicas would let
+    one replica's next step change the other's."""
+    def cp(x):
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: cp(getattr(x, f.name))
+                for f in dataclasses.fields(x)})
+        return x.clone()
+    return cp(st)
+
+
 # ---------------------------------------------------------------------------
 # the replica endpoint (the server side of the boundary)
 # ---------------------------------------------------------------------------
@@ -117,12 +155,14 @@ def clone_page_rev(page_rev: torch.Tensor, src_vol, new_vol) -> torch.Tensor:
 class Replica:
     """One replica endpoint: device-resident metadata state, payload pool
     and per-page revision watermarks. ``healthy`` is the controller's mark
-    (the endpoint never consults it)."""
+    (the endpoint never consults it). With ``null_storage`` writes update
+    the metadata and watermarks but leave the pool alone."""
 
     state: dbs.DBSState
     pool: torch.Tensor           # (E+1, page_blocks, *payload)
     page_rev: torch.Tensor       # (V, P) int32 last-write watermarks
     healthy: bool = True
+    null_storage: bool = False
 
     def execute(self, msg: WireMsg) -> Any:
         op = msg.op
@@ -134,8 +174,9 @@ class Replica:
             self.page_rev = stamp_page_rev(self.page_rev, msg.volume,
                                            msg.pages, ops.ok,
                                            self.state.revision)
-            self.pool = dbs.apply_write_ops(self.pool, ops, msg.payload,
-                                            msg.blocks)
+            if not self.null_storage:
+                self.pool = dbs.apply_write_ops(self.pool, ops, msg.payload,
+                                                msg.blocks)
             return None
         if op == MSG_READ:
             # holes (never-written or unmapped pages) read as zeros: the
@@ -162,9 +203,23 @@ class Replica:
             return None
         if op == MSG_QUERY_REV:
             return self.state.revision       # device scalar; caller batches
-        if 0 <= op < len(MSG_NAMES):
-            raise ValueError(f"wire opcode {MSG_NAMES[op]} lands with the "
-                             "transport slice of the port")
+        if op == MSG_WATERMARKS:
+            return self.page_rev
+        if op == MSG_FETCH_DELTA:
+            return (_delta_extents(self.state.table, self.page_rev,
+                                   msg.meta),
+                    (self.state, self.page_rev))
+        if op == MSG_FETCH_PAGES:
+            return self.pool.index_select(0, msg.extents)
+        if op == MSG_PUSH_PAGES:
+            self.pool.index_copy_(0, msg.extents, msg.payload)
+            return None
+        if op == MSG_ADOPT_META:
+            # copies, not the donor's tensors (see ``_clone_state``)
+            meta_state, meta_pr = msg.meta
+            self.state = _clone_state(meta_state)
+            self.page_rev = meta_pr.clone()
+            return None
         raise ValueError(f"unknown wire opcode {op}")
 
 
@@ -174,20 +229,29 @@ class Replica:
 class ReplicaTransport:
     """The delivery contract between controller and one replica endpoint:
     ``post`` returns a future, ``tick`` advances simulated time (a no-op
-    in-process), ``wait``/``drain`` tick until delivery; ``sent`` counts
-    posted messages per opcode name."""
+    in-process), ``wait``/``drain`` tick until delivery. ``sent`` counts
+    posted messages per opcode name, ``pages_moved`` the pool rows through
+    the rebuild stream, and ``latency_ewma`` is the observed delivery
+    latency in ticks that the latency read policy consults."""
 
     name = "?"
+    in_process = True            # delivery is an immediate endpoint call
 
+    # livelock guard for wait/drain: a drop rate near 1 would spin forever
     MAX_WAIT_TICKS = 1_000_000
 
     def __init__(self, endpoint):
         self.endpoint = endpoint
         self.sent: collections.Counter = collections.Counter()
         self.delivered = 0
+        self.retransmits = 0
+        self.pages_moved = 0
+        self.latency_ewma = 0.0
 
     def _account(self, msg: WireMsg) -> None:
         self.sent[MSG_NAMES[msg.op]] += 1
+        if msg.op in (MSG_FETCH_PAGES, MSG_PUSH_PAGES):
+            self.pages_moved += int(len(msg.extents))
 
     def messages_sent(self) -> int:
         return sum(self.sent.values())
@@ -211,7 +275,7 @@ class ReplicaTransport:
                 return
             self.tick()
         raise RuntimeError(f"{self.name} transport livelocked waiting for "
-                           f"{MSG_NAMES[fut.msg.op]}")
+                           f"{MSG_NAMES[fut.msg.op]} (drop rate too high?)")
 
     def drain(self) -> None:
         for _ in range(self.MAX_WAIT_TICKS):
@@ -221,8 +285,9 @@ class ReplicaTransport:
         raise RuntimeError(f"{self.name} transport livelocked draining")
 
     def cancel_pending(self) -> int:
-        """Tear down undelivered messages (nothing is ever in flight
-        in-process)."""
+        """Tear down undelivered messages (the controller cutting the link
+        to a replica it declared failed: in-flight ops to it are lost, and
+        rebuild resyncs whatever landed)."""
         return 0
 
 
@@ -239,6 +304,97 @@ class LocalTransport(ReplicaTransport):
         fut.done = True
         self.delivered += 1
         return fut
+
+
+class DeviceTransport(LocalTransport):
+    """LocalTransport over a device-resident endpoint: the engines whose
+    data plane is one step on the device (fused) thread the endpoint
+    tensors through that step, and this transport carries their control
+    and rebuild traffic."""
+
+    name = "device"
+
+
+class SimNetTransport(ReplicaTransport):
+    """A simulated network link to one replica.
+
+    - every message is delivered ``latency`` ticks after it was posted,
+    - at most ``window`` messages are in flight; a post past the window
+      ticks until a slot frees (backpressure),
+    - ``drop`` loses a delivery attempt with that probability; the message
+      stays at the head and redelivers after another latency period (FIFO
+      survives; ``retransmits`` counts the losses),
+    - ``reorder`` swaps the two head messages with that probability when
+      both are due (fault injection: it breaks FIFO).
+
+    Deterministic under ``seed``: the draws are those of the reference's
+    ``np.random.default_rng(seed)``, in the same order.
+    """
+
+    name = "simnet"
+    in_process = False
+
+    def __init__(self, endpoint, *, latency: int = 2, window: int = 8,
+                 drop: float = 0.0, reorder: float = 0.0, seed: int = 0):
+        super().__init__(endpoint)
+        if latency < 1:
+            raise ValueError(f"latency must be >= 1 tick, got {latency}")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self.latency = latency
+        self.window = window
+        self.drop = drop
+        self.reorder = reorder
+        self.rng = np.random.default_rng(seed)
+        self.now = 0
+        self.queue: collections.deque = collections.deque()  # [fut, due]
+
+    def post(self, msg: WireMsg) -> MsgFuture:
+        for _ in range(self.MAX_WAIT_TICKS):
+            if len(self.queue) < self.window:
+                break
+            self.tick()                      # backpressure: window is full
+        else:
+            raise RuntimeError("simnet window never freed (livelock)")
+        self._account(msg)
+        fut = MsgFuture(self, msg)
+        fut.posted_at = self.now
+        self.queue.append([fut, self.now + self.latency])
+        return fut
+
+    def tick(self) -> None:
+        self.now += 1
+        while self.queue and self.queue[0][1] <= self.now:
+            if (self.reorder and len(self.queue) > 1
+                    and self.queue[1][1] <= self.now
+                    and self.rng.random() < self.reorder):
+                self.queue[0], self.queue[1] = self.queue[1], self.queue[0]
+            entry = self.queue[0]
+            if self.drop and self.rng.random() < self.drop:
+                # lost on the wire: retransmit after another latency period;
+                # later messages wait behind it (in-order delivery)
+                self.retransmits += 1
+                entry[1] = self.now + self.latency
+                break
+            self.queue.popleft()
+            fut = entry[0]
+            fut.value = self.endpoint.execute(fut.msg)
+            fut.done = True
+            self.delivered += 1
+            lat = float(self.now - fut.posted_at)
+            self.latency_ewma = (lat if self.delivered == 1 else
+                                 0.8 * self.latency_ewma + 0.2 * lat)
+
+    def pending(self) -> int:
+        return len(self.queue)
+
+    def cancel_pending(self) -> int:
+        n = len(self.queue)
+        for fut, _ in self.queue:
+            fut.done = True
+            fut.cancelled = True
+        self.queue.clear()
+        return n
 
 
 # ---------------------------------------------------------------------------
@@ -270,15 +426,18 @@ def available_transports() -> Tuple[str, ...]:
 
 
 def make_transport(name: str, endpoint, **opts) -> ReplicaTransport:
-    """Instantiate the transport registered under ``name``."""
+    """Instantiate the transport registered under ``name`` for one replica
+    endpoint; ``opts`` are its knobs (simnet: latency / window / drop /
+    reorder / seed)."""
     try:
         factory = _REGISTRY[name]
     except KeyError:
         raise ValueError(
             f"unknown transport {name!r} (registered: "
-            f"{', '.join(available_transports())}; device and simnet land "
-            "with the transport slice of the port)") from None
+            f"{', '.join(available_transports())})") from None
     return factory(endpoint, **opts)
 
 
 register_transport("local", LocalTransport)
+register_transport("device", DeviceTransport)
+register_transport("simnet", SimNetTransport)

@@ -303,9 +303,25 @@ class ServeEngine:
             return self.volumes.engine.control(kind, **kw)
         self.volumes.set_device_pools(self._pools)
         out = self.volumes.engine.control(kind, **kw)
-        self._pools = self.volumes.device_pools()
         self._table = self.volumes.device_extent_map()
+        if kind == "rebuild":
+            self._resync_live_rows(kw["replica"])
+        self._pools = self.volumes.device_pools()
         return out
+
+    def _resync_live_rows(self, replica: int) -> None:
+        """The decode program scatters K/V into the pools with no watermark
+        stamp, so the delta rebuild misses what it wrote into pages mapped
+        before the failure (the reference leaves those rows stale; ROADMAP
+        queue 3). Every row a live session maps, a superset of them, is
+        streamed to the rebuilt replica (one host fetch for the row ids)."""
+        vols = self.slot_vol[self.slot_vol >= 0]
+        if not len(vols):
+            return
+        ext = self._table[torch.as_tensor(vols, dtype=torch.int64,
+                                          device=self._table.device)]
+        ext = torch.unique(ext[ext >= 0]).long()
+        self.volumes.engine.backend.resync_rows(replica, ext)
 
     # ------------------------------------------------------- engine stepping
     def _admit(self) -> List[GenRequest]:

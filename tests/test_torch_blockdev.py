@@ -6,8 +6,10 @@
    watermarks and pool are equal.
 3. ``convert`` carries a JAX engine's state into the port mid-trace, and
    both go on identically.
-4. Device choice and unported configuration raise; the package imports
-   neither JAX nor ``repro``.
+4. Device choice and unported configuration raise; every configuration
+   the controller slice brought (the upstream baseline, chained storage,
+   the transports and policies, the null cuts) gives the JAX package's
+   bytes; the package imports neither JAX nor ``repro``.
 """
 import dataclasses
 import os
@@ -233,21 +235,54 @@ def test_default_device_is_cuda_without_fallback():
 @pytest.mark.parametrize("kw,slice_", [
     (dict(backend="ring"), "ring slice"),
     (dict(backend="sharded"), "shards slice"),
-    (dict(backend="slots", null_storage=True), "benchmark slice"),
-    (dict(backend="upstream"), "controller slice"),
     (dict(n_shards=2), "shards slice"),
-    (dict(transport="simnet"), "transport slice"),
-    (dict(write_policy="quorum"), "transport slice"),
-    (dict(read_policy="latency"), "transport slice"),
     (dict(journal="wal.log"), "durability slice"),
     (dict(tier=8), "durability slice"),
-    (dict(null_backend=True), "benchmark slice"),
-    (dict(null_storage=True), "benchmark slice"),
-    (dict(storage="upstream"), "controller slice"),
+    # not a storage: the fused backend refuses it as the reference does
+    (dict(storage="upstream"), "requires storage='dbs'"),
 ])
 def test_unported_configuration_raises(kw, slice_):
     with pytest.raises(ValueError, match=slice_):
         _mgr(**kw)
+    if "slice" not in slice_:
+        with pytest.raises(ValueError, match=slice_):
+            JManager(**{"backend": "fused", **GEOM, **kw})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(backend="slots", null_storage=True),
+    dict(backend="upstream"),
+    dict(transport="simnet"),
+    dict(backend="slots", transport="simnet", write_policy="quorum",
+         transport_opts=dict(latency=[1, 1, 4], window=4)),
+    dict(backend="slots", read_policy="latency"),
+    dict(null_backend=True),
+    dict(null_storage=True),
+    dict(backend="loop", storage="chained"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()
+                           if k != "transport_opts"))
+def test_ported_configuration_matches_jax(kw):
+    """Each configuration the controller slice brings builds in both
+    packages, and a short byte round trip (unaligned writes, a snapshot,
+    CoW overwrites, a discard) reads the same bytes; under the null cuts
+    every read is zeros. Where the storage is DBS replicas, their states,
+    watermarks and pools end equal too."""
+    jm = JManager(**{"backend": "fused", **GEOM, **kw})
+    tm = _mgr(**kw)
+    outs = []
+    for m in (jm, tm):
+        v = m.create()
+        v.write(5, _pat(1, 40))
+        v.snapshot()
+        v.write(30, _pat(2, 70))
+        v.discard(40, 60)
+        outs.append(v.read(0, m.capacity))
+        m.close()
+    assert outs[0] == outs[1]
+    cut = kw.get("null_backend") or kw.get("null_storage")
+    assert (outs[1] == bytes(tm.capacity)) == bool(cut)
+    if hasattr(tm.engine.backend, "replicas"):
+        _assert_same_replicas(jm, tm)
 
 
 def test_unported_calls_raise():

@@ -6,7 +6,9 @@
    step with snapshots and clones between them: every output equals.
 2. A replica fails mid-stream: writes keep mirroring to the survivors,
    reads stay right and equal to the JAX engine's, and the survivors stay
-   consistent.
+   consistent. The streamed delta rebuild then leaves every replica's
+   state, pool and watermarks equal to the JAX engine's, and the rebuilt
+   replica alone serves every block.
 3. One pump makes exactly one host fetch, and the step itself reads
    nothing back to the host.
 """
@@ -172,11 +174,23 @@ def test_replica_failure_mid_stream():
     assert teng.backend.consistent()
     revs = [int(r.state.revision) for r in teng.backend.replicas]
     assert revs[1] < revs[0] == revs[2]      # the failed one stopped
-    with pytest.raises(ValueError, match="transport slice"):
-        teng.control("rebuild", replica=1)
+    for eng in (jeng, teng):                 # the streamed delta rebuild
+        eng.control("rebuild", replica=1)
+    moved = [e.backend.transports[1].pages_moved for e in (jeng, teng)]
+    assert moved[0] == moved[1] > 0
+    for i, (jr, tr) in enumerate(zip(jeng.backend.replicas,
+                                     teng.backend.replicas)):
+        _same(jr.state, tr.state, f"rebuilt state {i}")
+        _same(jr.pool, tr.pool, f"rebuilt pool {i}")
+        _same(jr.page_rev, tr.page_rev, f"rebuilt page_rev {i}")
+    assert teng.backend.consistent()
+    teng.backend.fail(0)                     # the rebuilt replica alone
+    teng.backend.fail(2)
+    out = run([("read", p, None) for p in range(20)])
+    for p in range(20):
+        assert np.array_equal(out[p], np.full(D, shadow[p], np.float32))
     with pytest.raises(RuntimeError, match="last healthy"):
-        teng.backend.fail(0)
-        teng.backend.fail(2)
+        teng.backend.fail(1)
 
 
 def test_pump_is_single_host_fetch(monkeypatch):

@@ -12,7 +12,8 @@ sequential host backend (``host``) and ``ReplicaGroup.write``/``read``.
 3. ``VolumeManager(backend="host", null_storage=True).alloc_pages``, the
    serving baseline's control plane, against the JAX package's.
 4. ``ReplicaGroup.write``/``read`` under ``all``/``rr``, with a failed
-   replica, against the JAX group; control kinds rejected at submit.
+   replica, then its rebuild, against the JAX group; control kinds
+   rejected at submit.
 5. A ``slots`` pump makes one host copy per read dispatch.
 """
 import dataclasses
@@ -216,8 +217,24 @@ def test_replica_group_write_and_read_all_rr():
         assert np.array_equal(np.asarray(j.pool), t.pool.numpy())
         assert np.array_equal(np.asarray(j.page_rev), t.page_rev.numpy())
     assert tg.consistent()
-    with pytest.raises(ValueError, match="transport slice"):
-        tg.rebuild(1)
+    jg.rebuild(1)                             # the streamed delta rebuild
+    tg.rebuild(1)
+    assert tg.transports[1].pages_moved == jg.transports[1].pages_moved > 0
+    for j, t in zip(jg.replicas, tg.replicas):
+        jst = jax.device_get(dataclasses.asdict(j.state))
+        tst = convert.to_numpy(t.state)
+        for k in jst:
+            if k != "free":
+                assert np.array_equal(np.asarray(jst[k]), tst[k]), k
+        assert np.array_equal(np.asarray(j.pool), t.pool.numpy())
+        assert np.array_equal(np.asarray(j.page_rev), t.page_rev.numpy())
+    assert tg.consistent()
+    tg.fail(0)
+    tg.fail(2)
+    jg.fail(0)
+    jg.fail(2)                                # the rebuilt replica serves
+    got = both("read", pages, offs + 1)
+    assert np.array_equal(got[[0, 2, 3]], (payload * 2)[[0, 2, 3]])
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -48,7 +48,11 @@ shapes (rwkv6-3b: 40 heads of 64; prefill B=1, decode B=8 and S=1); on
 both sides of the decode schedule's threshold (S 1, 2, 8 and 9, hd 64,
 40, 16 and 6); under strong decay (a chunk's log decay below -88, where
 only the step oracle holds); and at hd 16, 32, 40 and 64 under every
-column split the wrapper's rule picks on the card. Imports no JAX.
+column split the wrapper's rule picks on the card.
+
+The controller slice on the card: a fused trace with a failed replica and
+its streamed delta rebuild, bit for bit against the same run on the CPU,
+and the upstream baseline's bytes against the CPU's. Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -700,3 +704,71 @@ def test_rwkv6_scan_every_column_split(d):
         torch.testing.assert_close(st, want_s, **TOL)
     dp = padded_dim(d)
     assert seen == {n for n in (1, 2, 4, 8) if (dp // n) % 8 == 0}
+
+
+def _rebuild_run(device, backend):
+    """A seeded byte trace on a 3-replica manager; on ``fused`` replica 1
+    fails halfway and is delta-rebuilt at the end. Returns every read's
+    bytes and, on ``fused``, each replica's state, pool and watermarks as
+    numpy."""
+    from repro_torch.core import convert
+    from repro_torch.core.blockdev import VolumeManager
+    rng = np.random.default_rng(7)
+    mgr = VolumeManager(backend=backend, device=device, payload_elems=64,
+                        page_blocks=8, max_pages=32, n_extents=256,
+                        max_volumes=8, batch=16, n_replicas=3,
+                        kernel="cuda")
+    vols = [mgr.create(), mgr.create()]
+    reads = []
+    for i in range(240):
+        if i == 120:
+            vols[0].snapshot()
+            vols.append(vols[0].clone())
+            if backend == "fused":
+                mgr.engine.control("fail", replica=1)
+        v = vols[i % len(vols)]
+        off = int(rng.integers(0, mgr.capacity - 256))
+        if rng.random() < 0.6:
+            v.pwrite(off, rng.integers(0, 256, int(rng.integers(1, 256)),
+                                       dtype=np.uint8).tobytes())
+        else:
+            reads.append(v.pread(off, 200))
+    mgr.flush()
+    out = [f.result() for f in reads]
+    if backend != "fused":
+        return out, None
+    g = mgr.engine.backend
+    mgr.engine.control("rebuild", replica=1)
+    assert g.transports[1].pages_moved > 0 and g.consistent()
+    mgr.engine.control("fail", replica=0)
+    mgr.engine.control("fail", replica=2)
+    out += [v.read(0, mgr.capacity) for v in vols]   # replica 1 alone
+    return out, [(convert.to_numpy(r.state), convert.to_numpy(r.pool),
+                  convert.to_numpy(r.page_rev)) for r in g.replicas]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["fused", "upstream"])
+def test_rebuild_and_upstream_on_the_card_match_the_cpu(backend):
+    """The controller slice on the card: after a seeded fused trace with a
+    failure, the streamed delta rebuild leaves every replica's state, pool
+    and watermarks bit-equal to the same run on the CPU, and the rebuilt
+    replica alone reads back the same bytes; the upstream baseline returns
+    the same bytes on the card as on the CPU."""
+    dev = _cuda()
+    (gpu_out, gpu_reps), (cpu_out, cpu_reps) = (
+        _rebuild_run(dev, backend), _rebuild_run(torch.device("cpu"),
+                                                 backend))
+    assert gpu_out == cpu_out and len(gpu_out) > 50
+    if backend != "fused":
+        return
+
+    def same(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{path}.{k}")
+            return
+        assert np.array_equal(a, b), path
+    for i, (a, b) in enumerate(zip(gpu_reps, cpu_reps)):
+        for part, x, y in zip(("state", "pool", "page_rev"), a, b):
+            same(x, y, f"replica {i} {part}")

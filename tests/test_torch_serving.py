@@ -18,6 +18,8 @@ Where a greedy step's top-2 logit margin in JAX is under 1e-3, that step's
 token is not compared (only its logits), since a tie that close may break
 either way. The port's own fork test is bit-identical, as in JAX.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -34,6 +36,7 @@ from repro.serving import GenRequest as JGen  # noqa: E402
 from repro.serving import ServeEngine as JServe  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.configs.base import ExecutionPlan  # noqa: E402
+from repro_torch.core import convert  # noqa: E402
 from repro_torch.core import dbs as TD  # noqa: E402
 from repro_torch.core.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.frontend import MultiQueueFrontend, Request  # noqa: E402
@@ -216,9 +219,18 @@ def test_fork_cow_shares_prefix_extents_and_matches_reference(granite):
 def test_serving_zero_copy_replica_failure_mid_decode(granite):
     """Failing a replica mid-decode corrupts no session: tokens and logits
     stay bit-identical to an undisturbed port engine, and the JAX engine
-    failed at the same step agrees. The survivors stay consistent. The
-    reference's closing ``rebuild`` (the streamed delta rebuild) lands with
-    the transport slice, and the port says so."""
+    failed at the same step agrees. The survivors stay consistent. Then the
+    streamed delta rebuild mid-decode, in both packages: every replica's
+    metadata and watermarks equal the JAX package's bit for bit, and the
+    replicas that never failed equal the JAX package's pools within the
+    module's tolerance on every mapped row (the K/V values themselves
+    differ within it). The reference's delta leaves stale the rows the
+    decode wrote since the failure into pages mapped before it (ROADMAP
+    queue 3); the port also streams every row of a live session, so its
+    rebuilt replica equals its donor bit for bit on every mapped row. Both
+    replicas are consistent, and with replica 0 failed afterwards
+    the rebuilt replica serves the rest of the decode to the undisturbed
+    engine's tokens and logits."""
     jc, tc, _, tp = granite
     rng = np.random.default_rng(4)
     prompt = rng.integers(0, jc.vocab_size, size=(7,))
@@ -233,16 +245,52 @@ def test_serving_zero_copy_replica_failure_mid_decode(granite):
     je.control("fail", replica=1)                   # mid-decode failure
     eng.control("fail", replica=1)
     assert len(eng.volumes.device_pools()) == 1
-    while not eng.live[0].done:
+    for _ in range(3):
         _lockstep(je, eng, 1)
+        ref.step()
+    assert eng.volumes.engine.backend.consistent()
+    je.control("rebuild", replica=1)                # mid-decode rebuild
+    eng.control("rebuild", replica=1)
+    jg, tg = je.volumes.engine.backend, eng.volumes.engine.backend
+    assert len(eng.volumes.device_pools()) == 2 and tg.consistent()
+    jmap = np.asarray(jax.device_get(jg.replicas[0].state.table))
+    rows = np.unique(jmap[jmap >= 0])
+    live = np.unique(jmap[eng.live[0].volume])
+    live = live[live >= 0]
+    assert rows.size and live.size
+    # the reference's delta, then one resync of the live session's rows
+    assert tg.transports[1].pages_moved == \
+        jg.transports[1].pages_moved + live.size
+    for i, (jr, tr) in enumerate(zip(jg.replicas, tg.replicas)):
+        jst = jax.device_get(dataclasses.asdict(jr.state))
+        tst = convert.to_numpy(tr.state)
+        for k in jst:
+            if k != "free":
+                np.testing.assert_array_equal(tst[k], np.asarray(jst[k]))
+        np.testing.assert_array_equal(tr.page_rev.numpy(),
+                                      np.asarray(jr.page_rev))
+        if i != 1:
+            np.testing.assert_allclose(tr.pool.numpy()[rows],
+                                       np.asarray(jr.pool)[rows], **TOL)
+
+    def stale(g, host):
+        a, b = (host(g.replicas[i].pool)[rows] for i in (1, 0))
+        return (a != b).reshape(len(rows), -1).any(1)
+    # reference fault, corrected in the port: the decode program scatters
+    # each token's K/V with no watermark stamp, so the reference's delta
+    # leaves those rows stale on the rebuilt replica
+    assert stale(jg, np.asarray).any()
+    assert not stale(tg, lambda t: t.numpy()).any()
+    eng.control("fail", replica=0)                  # the rebuilt one serves
+    assert eng.volumes.engine.backend.healthy_indices() == [1]
+    while not eng.live[0].done:
+        eng.step()
     while not ref.live[0].done:
         ref.step()
     assert eng.live[0].out_tokens == ref.live[0].out_tokens
     np.testing.assert_array_equal(np.stack(eng.live[0].logit_trace),
                                   np.stack(ref.live[0].logit_trace))
-    assert eng.volumes.engine.backend.consistent()
-    with pytest.raises(ValueError, match="transport slice"):
-        eng.control("rebuild", replica=1)
+    assert tg.consistent()
 
 
 def test_multiqueue_frontend_backpressure():
