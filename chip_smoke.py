@@ -69,7 +69,8 @@ and the script exits non-zero:
    cut; ops/s, MiB/s, pumps beside ``+dbs`` (``slots``) and ``+fused``;
    the three fold into the ladder line, which follows.
 8b. layer_rows — every ported column (upstream, +frontend, +comm, +dbs,
-   +fused; benchmarks/ladder.py's column map, copied) under the paper's
+   +fused, +sharded at S=4 with the main path's extents shared out;
+   benchmarks/ladder.py's column map, copied) under the paper's
    three rows: ``frontend_only`` (``null_backend``), ``without_storage``
    (``null_storage``) and ``full_engine``, through the ``Engine`` request
    API (no byte API, no read check under the cuts): a seeded mix of 4 KiB
@@ -108,6 +109,39 @@ and the script exits non-zero:
    the timed drains add up to at least 0.5 s, on ``upstream`` and on
    ``fused``: reads/s and layers walked per read (the chain's depth plus
    one on upstream, one table gather on fused), every read checked.
+8f. shards — ``VolumeManager(backend="sharded", n_shards=4)`` at the main
+   path's geometry with its 12288 extents shared out (3072 a shard, the
+   same 19.3 GB of pools): four base volumes, one a shard, share the
+   ladder's cut trace (each snapshotted and cloned, every written block
+   of every volume read back), every read checked, every shard's healthy
+   replicas equal on their mapped rows. Ops/s, MiB/s, pumps, ops and host
+   syncs a pump (the completion's event wait, which sync-debug does not
+   report, counted in) beside the ``+fused`` column's; ``dbs_rw_write``
+   and ``dbs_rw_read`` launches a pump must equal the fused column's per
+   replica (one write a replica a write pump, one routed read a replica a
+   pump). One pump then runs under sync-debug "error" from ``pump_async``
+   to its event, and the kernels' calls kept from every 16th pump (S*B =
+   256 lanes over the flattened (4*3073, 32, 4096) pool) are held bit for
+   bit against the plain versions and timed as in phases 3 and 6 (the
+   ``sharded_width_*`` keys of their kernels entries). The kept reads are
+   mostly holes, so 8 dense read batches of S*B lanes over every shard's
+   mapped rows (one lane in 16 a hole) are held and timed too
+   (``sharded_dense_*``).
+8g. table3_shards — benchmarks/table3_shards.py's protocol on the request
+   API, ``full_engine`` row: rounds of 2048 4 KiB requests (half writes)
+   over 8 volumes until 0.5 s of timed drains, ``+fused`` against
+   ``+sharded`` at S = 1, 2, 4, 8, all at 12288 extents in total; ops/s
+   and the reference's ``check_scaling`` verdict (printed, not enforced).
+   On the S=1 pool, host ms and aten ops a call of its metadata step
+   (unmapped), of that step under ``torch.func.vmap``, of ``+fused``'s
+   metadata, of its R routed reads and of one read launch
+   (``sharded_s1_split``).
+8h. shard_failover — the trace of 8f with shard 1's replica 1 failed
+   halfway, writes going on; that slice alone rebuilt and timed, against
+   the bound of its moved rows (2 x bytes / 3.35 TB/s). Checked: the
+   rebuilt slice equals its donor; no message or row of shards 0, 2 and 3
+   moved; with shard 1's other replicas failed every block written to its
+   volume reads back right from the rebuilt replica alone.
 9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
@@ -166,6 +200,15 @@ and the script exits non-zero:
 16. serve_pool — ``ServePool`` of two zero-copy engines (4 slots,
    max_len 512 each): five requests, a fork that stays on its parent's
    shard; everything completes, no leak, replicas consistent.
+16a. serve_path (``kv_backend="sharded"``) — phase 9's engine and 16
+   requests on two KV shards (1032 extents each, 2 KV replicas): tokens
+   equal phase 9's under the TIE_MARGIN rule (top-2 margins from a
+   ``topk`` on the card each step), the paged kernel reads the flattened
+   2*(E+1)-row pool, replicas agree, nothing leaks; tokens/s, decode
+   tokens/s, peak memory. Then four of the requests admitted with shard
+   0's replica 1 failed, that slice rebuilt mid-decode (delta and
+   live-row resync), shard 0's replica 0 failed: the rebuilt replica
+   alone serves to phase 9's tokens.
 17. serve_path (rwkv6-3b) — RWKV-6 serving at its published widths (32
    layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, untied
    head; fp32 weights drawn from a seeded generator on the card, after
@@ -260,7 +303,8 @@ CONTROLLER_LADDER = [
      True),
     ("+comm", dict(backend="slots", storage="chained", kernel="torch"),
      False)]
-LAYER_COLUMNS = ("upstream", "+frontend", "+comm", "+dbs", "+fused")
+LAYER_COLUMNS = ("upstream", "+frontend", "+comm", "+dbs", "+fused",
+                 "+sharded")
 LAYER_ROWS = ("frontend_only", "without_storage", "full_engine")
 PER_REQUEST_COLUMNS = ("upstream", "+frontend")
 LAYER_OPS = {False: 2048, True: 300}   # a round: batched, per-request
@@ -276,6 +320,15 @@ REPLICATION = [
 SNAP_DEPTHS, SNAP_READS = (0, 4, 16, 64), 256   # reads a round
 SNAP_VOLUMES = 32                # twice the main path's: 128 snapshot slots
 MIN_WINDOW_S = 0.5               # each controller-phase timing, at least
+# the shards slice: the byte API on S stacked shards (one volume a shard)
+# at the main path's total extents, Table III's shard counts and volumes,
+# and sharded serving on two KV shards
+SHARDS, FAILED_SHARD = 4, 1
+SHARDED_SAMPLE_EVERY = 16        # of the sharded pool's pumps: kernel inputs
+DENSE_READ_CALLS = 8             # dense S*B-lane reads over the offset rows
+SPLIT_CALLS = 200                # calls a part of the S=1 pump, timed
+TABLE3_SHARDS, TABLE3_VOLUMES = (1, 2, 4, 8), 8
+SERVE_SHARDS, SERVE_REBUILD_REQUESTS = 2, 4
 
 
 def emit(**kw) -> None:
@@ -692,15 +745,23 @@ def count_syncs(torch, fn) -> int:
 
 def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                n_ops=N_OPS, max_ops=None, column=None, fail_after=None,
+               n_volumes=1, fail_shard=None, sample_every=READ_SAMPLE_EVERY,
                **extra):
     """The block device's trace through ``VolumeManager(backend, kernel,
     **extra)`` at the main path's geometry (``extra``: storage, replicas,
-    transport and policies). ``n_ops`` scales the trace (the random phases,
-    the sequential spans and the hole reads); ``max_ops`` stops it early
-    (after a settle of the reads so far); ``fail_after`` flushes and fails
-    replica 1 once that many ops were issued. Every read is checked, the
-    healthy DBS replicas must agree, and the kernels of the path must have
-    launched. ``column`` labels the printed line."""
+    transport and policies, shards and extents). ``n_ops`` scales the trace
+    (the random phases, the sequential spans and the hole reads);
+    ``max_ops`` stops it early (after a settle of the reads so far);
+    ``fail_after`` flushes and fails replica 1 (of shard ``fail_shard`` on
+    the sharded pool) once that many ops were issued. ``n_volumes`` base
+    volumes share the trace (the random ops pick one uniformly, the
+    sequential spans too; each is snapshotted and cloned); with one, the
+    trace is the main path's. Every read is checked, the healthy DBS
+    replicas must agree, and the kernels of the path must have launched.
+    ``column`` labels the printed line. The read kernel's inputs of every
+    ``sample_every``-th step are kept; on the sharded pool the write
+    kernel's too (replica 0's call), and pumps count the pool's
+    dispatches."""
     import numpy as np
     from repro_torch.core import slots
     from repro_torch.core.blockdev import VolumeManager
@@ -721,19 +782,27 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     # kernel's of every COPY_SAMPLE_EVERY-th call for phase 8
     steps = {"write": 0, "read_only": 0}
     pumps = [0]
-    reads, copies = [], []
+    reads, copies, writes = [], [], []
     copy_calls = [0]
     copied = [torch.zeros((), dtype=torch.int64, device=dev)]
     impl = mgr.engine.impl
+    sharded = backend == "sharded"
     inner = {"fused_step": backends.fused_step,
              "fused_step_read": backends.fused_step_read,
              "dbs_rw_read": ops.dbs_rw_read, "dbs_copy": ops.dbs_copy,
-             "pump": impl.pump}
+             "dbs_rw_write": ops.dbs_rw_write, "pump": impl.pump}
 
     def pump():
         got = inner["pump"]()
         pumps[0] += got > 0
         return got
+
+    def n_pumps():
+        return impl.dispatches if sharded else pumps[0]
+
+    def n_steps_now():
+        return (sum(impl.step_counts.values()) if sharded
+                else sum(steps.values()))
 
     def write_step(*a, **k):
         steps["write"] += 1
@@ -744,10 +813,21 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
         return inner["fused_step_read"](*a, **k)
 
     def read_kernel(pool, ext, block):
-        if (sum(steps.values()) % READ_SAMPLE_EVERY == 1
+        if (n_steps_now() % sample_every == 1
                 and len(reads) < READ_SAMPLES):
             reads.append((ext.clone(), block.clone()))
         return inner["dbs_rw_read"](pool, ext, block)
+
+    kept_step = [None]
+
+    def write_kernel(pool, src, dst, lane_of, payload, **k):
+        step = n_steps_now()
+        if (sharded and step % sample_every == 1
+                and kept_step[0] != step and len(writes) < READ_SAMPLES):
+            kept_step[0] = step                  # replica 0's call
+            writes.append(tuple(t.clone() for t in (src, dst, lane_of,
+                                                    payload)))
+        return inner["dbs_rw_write"](pool, src, dst, lane_of, payload, **k)
 
     def copy(pool, src, dst, mask, **k):
         copied[0] += mask.sum()
@@ -758,6 +838,7 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     impl.pump = pump
     backends.fused_step, backends.fused_step_read = write_step, read_step
     ops.dbs_rw_read, ops.dbs_copy = read_kernel, copy
+    ops.dbs_rw_write = write_kernel
     shadow = Shadow()
     cap = mgr.capacity
     n_blocks = cap // BLOCK
@@ -771,7 +852,8 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
         if (fail_after is not None and failed[0] is None
                 and stats["ops"] >= fail_after):
             mgr.flush()
-            mgr.engine.control("fail", replica=1)
+            where = {} if fail_shard is None else {"shard": fail_shard}
+            mgr.engine.control("fail", replica=1, **where)
             failed[0] = stats["ops"]
 
     def off_clock(fn, *a):
@@ -835,23 +917,28 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
         mod.reset_counts()
     t0 = time.perf_counter()
     v0 = mgr.create()
+    base = [v0] + [mgr.create() for _ in range(n_volumes - 1)]
+    clones = []
     hot = []
     try:
-        random_io([v0], n // 2, hot)                 # 4 KiB random I/O
+        random_io(base, n // 2, hot)                 # 4 KiB random I/O
         page_bytes = mgr.page_bytes
         for _ in range(max(1, 128 * n // N_OPS)):    # 128 KiB sequential
+            vol = base[rng.integers(n_volumes)] if n_volumes > 1 else v0
             p = int(rng.integers(args.max_pages - 4))
             for k in range(4):
-                write(v0, (p + k) * page_bytes, rand_bytes(page_bytes))
-            read(v0, p * page_bytes, 4 * page_bytes)
+                write(vol, (p + k) * page_bytes, rand_bytes(page_bytes))
+            read(vol, p * page_bytes, 4 * page_bytes)
         settle()
-        v0.snapshot()
-        random_io([v0], n // 6, hot)                 # CoW overwrites
-        clone = v0.clone()
-        off_clock(shadow.clone, v0.vid, clone.vid)
-        random_io([v0, clone], n // 6, hot)          # the clone diverges
+        for vol in base:
+            vol.snapshot()
+        random_io(base, n // 6, hot)                 # CoW overwrites
+        for vol in base:
+            clones.append(vol.clone())
+            off_clock(shadow.clone, vol.vid, clones[-1].vid)
+        random_io(base + clones, n // 6, hot)        # the clones diverge
         settle()
-        for vol in (v0, clone):                      # discard: TRIM + edges
+        for vol in base + clones:                    # discard: TRIM + edges
             for _ in range(4):
                 p = int(rng.integers(args.max_pages - 4))
                 off = p * page_bytes + int(rng.integers(1, page_bytes))
@@ -861,16 +948,17 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                 count_op()
                 read(vol, off - 100, nb + 200)
         settle()
-        for vol in (v0, clone):                      # every written block
+        for vol in base + clones:                    # every written block
             for ab in off_clock(lambda: [ab for (vid, ab) in shadow.blocks
                                          if vid == vol.vid]):
                 read(vol, ab * BLOCK, BLOCK)
         for _ in range(max(8, 256 * n // N_OPS)):    # and some holes
             read(v0, int(rng.integers(n_blocks)) * BLOCK, BLOCK)
         settle()
-        clone.delete()
-        off_clock(shadow.drop, clone.vid)
-        random_io([v0], n // 6, hot)
+        for c in clones:
+            c.delete()
+            off_clock(shadow.drop, c.vid)
+        random_io(base, n // 6, hot)
     except Enough:
         pass
     settle()
@@ -880,8 +968,12 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     launches = {**rw_kernel.LAUNCHES, **copy_kernel.LAUNCHES}
     plain = {**rw_kernel.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
     lanes_copied = int(copied[0])
-    work_pumps = pumps[0]
-    n_steps = steps["write"] + steps["read_only"]
+    work_pumps = n_pumps()
+    n_steps = n_steps_now()
+    # the trace's steps by kind (the sync window's come after)
+    trace_steps = ({"write": impl.step_counts["step"],
+                    "read_only": impl.step_counts["step_read"]} if sharded
+                   else dict(steps))
 
     # host synchronisations per pump, in a window after the trace: 64
     # aligned 4 KiB writes and 64 reads of them
@@ -897,20 +989,33 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                                           for i in range(BATCH)]:
             raise AssertionError("the sync window read wrong bytes")
     pumps[0] = 0
+    pumps0 = n_pumps()
     syncs = count_syncs(torch, window)
-    window_pumps = pumps[0]
+    window_pumps = n_pumps() - pumps0
+    # the sharded pool's completion waits on a CUDA event, which sync-debug
+    # does not report: one wait a pump, counted here
+    event_waits = window_pumps if sharded else 0
     impl.pump = inner["pump"]
     backends.fused_step = inner["fused_step"]
     backends.fused_step_read = inner["fused_step_read"]
     ops.dbs_rw_read, ops.dbs_copy = inner["dbs_rw_read"], inner["dbs_copy"]
+    ops.dbs_rw_write = inner["dbs_rw_write"]
     need = {("fused", "cuda"): ("dbs_rw_write", "dbs_rw_read"),
+            ("sharded", "cuda"): ("dbs_rw_write", "dbs_rw_read"),
             ("fused", "copy"): ("dbs_copy",)}.get((backend, kernel), ())
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    if kernel == "cuda" and launches["dbs_rw_read"] != n_steps:
+    # one read launch a step; on the sharded pool one routed launch a
+    # replica, and one write launch a replica a write step, at any S
+    per_step = REPLICAS if sharded else 1
+    if kernel == "cuda" and launches["dbs_rw_read"] != n_steps * per_step:
         raise AssertionError(f"{launches['dbs_rw_read']} read launches "
-                             f"over {n_steps} fused steps")
+                             f"over {n_steps} steps")
+    if sharded and (launches["dbs_rw_write"]
+                    != REPLICAS * trace_steps["write"]):
+        raise AssertionError(f"{launches['dbs_rw_write']} write launches "
+                             f"over {trace_steps['write']} write steps")
     if kernel == "copy" and lanes_copied <= 0:
         raise AssertionError("the copy path copied no CoW lane")
     group = mgr.engine.backend
@@ -930,6 +1035,25 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                 if not torch.equal(r.pool[part], healthy[0].pool[part]):
                     raise AssertionError("replica pools differ on mapped "
                                          "rows")
+    n_mapped = int(rows.numel())
+    if sharded:                               # per shard, the same
+        if not group.consistent():
+            raise AssertionError("a shard's replicas disagree on the "
+                                 "metadata revision")
+        for sh in range(group.n_shards):
+            live = [r for r in range(REPLICAS) if group.healthy[sh, r]]
+            t0 = group.states[live[0]].table[sh]
+            rows = torch.unique(t0[t0 >= 0]).long()
+            n_mapped += rows.numel()
+            for r in live[1:]:
+                if not torch.equal(group.states[r].table[sh], t0):
+                    raise AssertionError(f"shard {sh}: extent maps differ")
+                for i in range(0, rows.numel(), 1024):
+                    part = rows[i:i + 1024]
+                    if not torch.equal(group.pools[r][sh][part],
+                                       group.pools[live[0]][sh][part]):
+                        raise AssertionError(f"shard {sh}: replica pools "
+                                             "differ on mapped rows")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the card: {plain}")
     table = getattr(mgr.engine.frontend, "table", None)
@@ -944,26 +1068,36 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
         mib_per_s=stats["bytes"] / seconds / 2 ** 20,
         engine_ops_per_s=stats["ops"] / (seconds - harness[0]),
         pumps=work_pumps, ops_per_pump=stats["ops"] / work_pumps,
-        host_syncs_per_pump=syncs / window_pumps,
-        sync_window=dict(ops=2 * BATCH, pumps=window_pumps, syncs=syncs),
+        host_syncs_per_pump=(syncs + event_waits) / window_pumps,
+        sync_window=dict(ops=2 * BATCH, pumps=window_pumps, syncs=syncs,
+                         event_waits=event_waits),
         launches=launches, plain_calls=plain,
-        mapped_rows=int(rows.numel()),
+        mapped_rows=n_mapped,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev), card=smi)
-    if backend == "fused":
-        out.update(write_steps=steps["write"],
-                   read_only_steps=steps["read_only"],
+    if backend in ("fused", "sharded"):
+        out.update(write_steps=trace_steps["write"],
+                   read_only_steps=trace_steps["read_only"],
                    ops_per_step=stats["ops"] / n_steps)
+    if sharded:
+        out.update(n_shards=impl.n_shards, volumes=n_volumes,
+                   launches_per_pump={k: launches[k] / n_steps
+                                      for k in ("dbs_rw_write",
+                                                "dbs_rw_read")},
+                   write_launches_per_write_pump=(launches["dbs_rw_write"]
+                                                  / trace_steps["write"]))
     if kernel == "copy":
         out.update(cow_lanes_copied=lanes_copied)
     if column is not None:
         out.update(column=column)
     if fail_after is not None:
         out.update(replica_1_failed_at_op=failed[0])
+        if fail_shard is not None:
+            out.update(failed_shard=fail_shard)
     emit(phase="main_path" if n_ops == N_OPS and column is None
          else "block_device", **out)
     return mgr, launches, max(n_steps, 1), {
-        "dbs_rw_read": reads, "dbs_copy": copies, "shadow": shadow,
-        "volumes": [v0]}, out
+        "dbs_rw_read": reads, "dbs_copy": copies, "dbs_rw_write": writes,
+        "shadow": shadow, "volumes": base}, out
 
 
 # ---------------------------------------------------------------------------
@@ -986,7 +1120,12 @@ def ladder_engine(torch, column, row, dev, args, **kw):
     comm, storage = {"+frontend": ("loop", "chained"),
                      "+comm": ("slots", "chained"),
                      "+dbs": ("slots", "dbs"),
-                     "+fused": ("fused", "dbs")}[column]
+                     "+fused": ("fused", "dbs"),
+                     "+sharded": ("sharded", "dbs")}[column]
+    if column == "+sharded":            # the main path's extents in all
+        base.setdefault("n_shards", SHARDS)
+        if "n_extents" not in kw:
+            base["n_extents"] = args.n_extents // base["n_shards"]
     return Engine(EngineConfig(comm=comm, storage=storage, **base))
 
 
@@ -1341,6 +1480,569 @@ def phase_snapshot_depth(torch, args, dev, smi):
 # ---------------------------------------------------------------------------
 # phase 7: the fused step never waits on the host
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phases 8f-8j: the shards slice (EnginePool, backend="sharded")
+# ---------------------------------------------------------------------------
+def sharded_config(args, n_shards=SHARDS):
+    """``phase_main``'s arguments for the sharded byte API: S shards of
+    the main path's extents shared out (the same total, so the same 19.3 GB
+    of pools), one base volume a shard, the ladder's cut trace."""
+    return dict(backend="sharded", n_shards=n_shards,
+                n_extents=args.n_extents // n_shards, n_ops=LADDER_OPS,
+                n_volumes=n_shards, sample_every=SHARDED_SAMPLE_EVERY)
+
+
+def phase_no_sync_sharded(torch, mgr):
+    """One pump of the sharded pool under sync-debug "error", from
+    ``pump_async`` (the drain, the staging through pinned memory, the
+    vmapped metadata step, the kernels, the completion copies) to the
+    recorded event: 64 writes and 64 reads over every shard's volume."""
+    pool = mgr.engine.pool
+    vols = [mgr.open(v) for v in range(pool.n_shards)]
+    futs = [vols[i % len(vols)].pwrite(i * 11 * BLOCK, bytes([i]) * BLOCK)
+            for i in range(BATCH)]
+    futs += [vols[i % len(vols)].pread(i * 11 * BLOCK, BLOCK)
+             for i in range(BATCH)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = pool.pump_async()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if pending is None:
+        raise AssertionError("the guarded sharded pump found no request")
+    done = pool._complete(pending)
+    mgr.flush()
+    if not all(f.done() for f in futs):
+        raise AssertionError("the guarded sharded pump's I/O did not "
+                             "complete")
+    emit(phase="no_sync", path="sharded", shards=pool.n_shards,
+         guarded_pumps=1, lanes_completed=done)
+
+
+def phase_sharded_kernels(torch, mgr, kept):
+    """The DBS kernels' calls kept from the sharded byte API (S*B lanes
+    over the flattened (S*(E+1), 32, 4096) pool, rows offset by s*(E+1)),
+    over replica 0's own pool: the read kernel bit for bit against its
+    plain version and timed as in phase 6; then the write kernel's calls
+    applied in turn to the pool and to a copy of it (kernel and plain
+    version), equal bit for bit, and timed as in phase 3 (the library
+    yardstick: ``index_copy_`` of the composed live rows)."""
+    from repro_torch.kernels.dbs import (dbs_rw_write, dbs_rw_write_ref,
+                                         dbs_write_bytes)
+    from repro_torch.kernels.dbs.rw_kernel import write_info
+    from repro_torch.kernels.timing import graph_ms
+    reads, writes = kept["dbs_rw_read"], kept["dbs_rw_write"]
+    if not reads or not writes:
+        raise AssertionError("no sharded kernel inputs were kept")
+    pool0 = mgr.engine.backend.pools[0]
+    pool = pool0.view(-1, PAGE_BLOCKS, BLOCK)
+    rd = read_parity(torch, pool, reads)
+    # the kept reads are mostly holes (a lane reads through one replica's
+    # launch): a dense batch of S*B lanes over every shard's mapped rows
+    # (offset by s*(E+1)), one lane in 16 a hole, holds the offset rows
+    s_n, rows_per = pool0.shape[0], pool0.shape[1]
+    table = mgr.engine.backend.states[0].table
+    mapped = torch.cat([torch.unique(table[x][table[x] >= 0]).long()
+                        + x * rows_per for x in range(s_n)])
+    g = torch.Generator(device=pool.device).manual_seed(SEED)
+    lanes_d = s_n * BATCH
+    dense = []
+    for _ in range(DENSE_READ_CALLS):
+        pick = torch.randint(0, mapped.numel(), (lanes_d,), generator=g,
+                             device=pool.device)
+        hole = torch.rand(lanes_d, generator=g, device=pool.device) < 1 / 16
+        dense.append((torch.where(hole, -1, mapped[pick]).to(torch.int32),
+                      torch.randint(0, PAGE_BLOCKS, (lanes_d,), generator=g,
+                                    device=pool.device, dtype=torch.int32)))
+    dn = read_parity(torch, pool, dense)
+    emit(phase="kernel_parity", kernel="dbs_rw_read", width="sharded_dense",
+         pool_shape=list(pool.shape), calls=len(dense), lanes=lanes_d,
+         hole_lanes=dn["hole_lanes"],
+         shards_read=int(torch.unique(torch.cat([e[e >= 0] for e, _ in dense])
+                                      // rows_per).numel()),
+         max_abs_err=dn["max_abs_err"], ms=dn["ms"], plain_ms=dn["plain_ms"],
+         bound_ms=dn["bound_ms"], library_ms=dn["library_ms"], equal=True)
+    dump = pool.shape[0] - 1
+    plain = pool.clone()
+    touched = set()
+    for src, dst, lane_of, pay in writes:
+        dbs_rw_write(pool, src, dst, lane_of, pay, check_routing=True)
+        dbs_rw_write_ref(plain, src, dst, lane_of, pay)
+        touched.update(dst[dst != dump].tolist())
+    torch.cuda.synchronize()
+    rows = torch.tensor(sorted(touched), dtype=torch.int64, device=pool.device)
+    w_err = float((pool[rows] - plain[rows]).abs().max())
+    if not torch.equal(pool, plain):
+        raise AssertionError(f"dbs_rw_write differs from its plain version "
+                             f"on the flattened rows (max abs err {w_err})")
+    n = len(writes)
+    w_bytes, composed = [], []
+    for src, dst, lane_of, _pay in writes:
+        live = dst != dump
+        w_bytes.append(dbs_write_bytes(int((lane_of >= 0).sum()),
+                                       int((live & (src != dst)).sum()),
+                                       PAGE_BLOCKS, BLOCK, 4))
+        idx = dst[live].long()
+        composed.append((idx, plain[idx].clone()))
+    w_ms = graph_ms(lambda: [dbs_rw_write(pool, s_, d_, lo, p_)
+                             for s_, d_, lo, p_ in writes], n)
+    w_plain = graph_ms(lambda: [dbs_rw_write_ref(plain, s_, d_, lo, p_)
+                                for s_, d_, lo, p_ in writes], n)
+    w_lib = graph_ms(lambda: [plain.index_copy_(0, i, v)
+                              for i, v in composed], n)
+    del composed, plain
+    lanes = int(writes[0][0].numel())
+    mean_wb = sum(w_bytes) / n
+    emit(phase="kernel_parity", kernel="dbs_rw_write", width="sharded",
+         pool_shape=list(pool.shape), shards=mgr.engine.pool.n_shards,
+         lanes=lanes, calls=n, rows_written=len(touched),
+         max_abs_err=w_err, ms=w_ms, bound_ms=mean_wb / HBM_BYTES_PER_S * 1e3,
+         library_ms=w_lib, equal=True)
+    emit(phase="kernel_parity", kernel="dbs_rw_read", width="sharded",
+         pool_shape=list(pool.shape), calls=len(reads), lanes=rd["lanes"],
+         hole_lanes=rd["hole_lanes"], max_abs_err=rd["max_abs_err"],
+         ms=rd["ms"], bound_ms=rd["bound_ms"], library_ms=rd["library_ms"],
+         equal=True)
+    write = {"sharded_width_ms": w_ms, "sharded_width_plain_ms": w_plain,
+             "sharded_width_bound_ms": mean_wb / HBM_BYTES_PER_S * 1e3,
+             "sharded_width_library_ms": w_lib,
+             "sharded_width_max_abs_err": w_err,
+             "sharded_width_lanes": lanes, "sharded_width_calls": n,
+             "sharded_width_bytes_per_call": mean_wb,
+             "sharded_width_resources": resources(
+                 torch, write_info(vec4=True), PAGE_BLOCKS * lanes)}
+    read = {"sharded_width_ms": rd["ms"],
+            "sharded_width_plain_ms": rd["plain_ms"],
+            "sharded_width_bound_ms": rd["bound_ms"],
+            "sharded_width_library_ms": rd["library_ms"],
+            "sharded_width_max_abs_err": rd["max_abs_err"],
+            "sharded_width_lanes": max(rd["lanes"]),
+            "sharded_width_calls": len(reads),
+            "sharded_width_bytes_per_call": rd["bytes_per_call"],
+            "sharded_width_resources": rd["resources"],
+            "sharded_dense_ms": dn["ms"], "sharded_dense_plain_ms":
+            dn["plain_ms"], "sharded_dense_bound_ms": dn["bound_ms"],
+            "sharded_dense_library_ms": dn["library_ms"],
+            "sharded_dense_max_abs_err": dn["max_abs_err"],
+            "sharded_dense_hole_share": sum(dn["hole_lanes"])
+            / (lanes_d * len(dense))}
+    return write, read
+
+
+def check_scaling(res, floor=0.7, upto=4):
+    """benchmarks/table3_shards.py ``check_scaling``, copied (that module
+    imports JAX): S=1 at least ``floor`` x ``+fused``, and each S up to
+    ``upto`` at least ``floor`` x the one before. Returns the problems."""
+    problems = []
+    sharded = res["+sharded"]
+    if 1 in sharded and sharded[1] < res["+fused"] * floor:
+        problems.append(f"+sharded S=1 ({sharded[1]:.0f} ops/s) < "
+                        f"{floor:g}x +fused ({res['+fused']:.0f} ops/s)")
+    ss = sorted(x for x in sharded if x <= upto)
+    for lo, hi in zip(ss, ss[1:]):
+        if sharded[hi] < sharded[lo] * floor:
+            problems.append(f"+sharded S={hi} ({sharded[hi]:.0f} ops/s) < "
+                            f"{floor:g}x S={lo} ({sharded[lo]:.0f} ops/s)")
+    return problems
+
+
+def sharded_s1_split(torch, pool, smi, n=SPLIT_CALLS):
+    """Where the S=1 pool's time a pump goes, on Table III's S=1 pool after
+    its run, for one batch of B lanes (half writes) over its 8 volumes:
+    host ms a call (a clock read around ``n`` calls, the card synchronised
+    before and after) and aten ops a call of the pool's metadata step as
+    it runs (unmapped at S=1), of the same step under ``torch.func.vmap``
+    (how a mapped S runs it), and of the metadata ``+fused`` runs
+    (``fused.step_meta`` with no health mask, one ``read_resolve``); then
+    of the pool's routed reads (R launches and their select chain) against
+    one read launch of the same lanes. Nothing is written back."""
+    from functools import partial
+    import torch.utils._pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.core import dbs
+    from repro_torch.core.fused import FusedBatch, step_meta
+    from repro_torch.core.sharded import _shard_step
+    g = pool.backend
+    states, pools, healthy = g.device_state()
+    page_revs, rr, table = g.device_page_revs(), g._rr, pool.frontend.table
+    dev = pool.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    i32 = dict(dtype=torch.int32, device=dev)
+    lane = torch.arange(BATCH, **i32)
+    batch = FusedBatch(
+        want=torch.ones((1, BATCH), dtype=torch.bool, device=dev),
+        is_write=(lane % 2 == 1)[None], volume=(lane % TABLE3_VOLUMES)[None],
+        page=torch.randint(0, pool.cfg.max_pages, (1, BATCH), generator=gen,
+                           **i32),
+        block=(lane % 8)[None],
+        payload=torch.ones((1, BATCH, BLOCK), device=dev),
+        queue=torch.zeros((1, BATCH), **i32), step=torch.zeros((1,), **i32))
+    mapped = torch.func.vmap(partial(_shard_step, null_backend=False,
+                                     null_storage=False))
+    t1, st1, pr1, b1 = pytree.tree_map(lambda x: x[0],
+                                       (table, states, page_revs, batch))
+
+    def fused_meta():
+        out = step_meta(t1, st1, pr1, b1)
+        return out, dbs.read_resolve(out[1][0], b1.volume, b1.page)
+    routes = pool._meta(table, states, page_revs, batch, rr, healthy)[5]
+    one_route = routes[0]
+    for r in routes[1:]:
+        one_route = torch.maximum(one_route, r)     # -1 off its replica
+    calls = {
+        "pool_step_unmapped": lambda: pool._meta(table, states, page_revs,
+                                                 batch, rr, healthy),
+        "pool_step_vmapped": lambda: mapped(table, states, page_revs, batch,
+                                            rr, healthy),
+        "fused_step_meta": fused_meta,
+        "routed_reads": lambda: pool._gather(pools, routes, batch),
+        "one_read": lambda: pool._kern.read_stacked(pools[0], one_route,
+                                                    batch.block)}
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+    host_ms, aten_ops = {}, {}
+    for name, f in calls.items():
+        f()
+        with Count() as c:
+            f()
+        aten_ops[name] = c.n
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            f()
+        torch.cuda.synchronize()
+        host_ms[name] = (time.perf_counter() - t) / n * 1e3
+    emit(phase="sharded_s1_split", calls=n, lanes=BATCH, host_ms=host_ms,
+         aten_ops=aten_ops, card=smi)
+    return host_ms
+
+
+def phase_table3(torch, args, dev, smi):
+    """Table III (benchmarks/table3_shards.py's protocol on the request
+    API, ``full_engine`` row): rounds of 2048 4 KiB requests, half writes,
+    over 8 volumes, until 0.5 s of timed drains; ``+fused`` against
+    ``+sharded`` at S = 1, 2, 4 and 8, all at the main path's 12288
+    extents in total (E = 12288 / S a shard). The reference's
+    ``check_scaling`` verdict is printed, not enforced. At every S the
+    DBS kernels' launch counters must give 3 write launches a write pump
+    and 3 read launches a pump (one a replica). Then the write routing
+    (``_route_writes``, O(lanes^2)) is timed alone on the card, in a CUDA
+    graph, on batches of 64, 256 and 512 lanes (S = 1, 4, 8)."""
+    from repro_torch.core.dbs import WriteOps
+    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.dbs.ops import _route_writes
+    from repro_torch.kernels.timing import graph_ms
+    res = {"+fused": None, "+sharded": {}}
+    windows, pumps, per_pump = {}, {}, {}
+    for column, n_sh in [("+fused", None)] + [("+sharded", x)
+                                              for x in TABLE3_SHARDS]:
+        kw = {} if n_sh is None else dict(n_shards=n_sh)
+        eng = ladder_engine(torch, column, "full_engine", dev, args, **kw)
+        rw_kernel.reset_counts()
+        ops, seconds, rounds = measure_engine(torch, eng, LAYER_OPS[False],
+                                              n_volumes=TABLE3_VOLUMES)
+        key = column if n_sh is None else f"S={n_sh}"
+        windows[key] = dict(seconds=seconds, rounds=rounds)
+        if n_sh is None:
+            res["+fused"] = ops
+        else:
+            res["+sharded"][n_sh] = ops
+            pool = eng.pool
+            pumps[key] = pool.dispatches
+            per_pump[key] = {
+                "dbs_rw_write": rw_kernel.LAUNCHES["dbs_rw_write"]
+                / pool.step_counts["step"],
+                "dbs_rw_read": rw_kernel.LAUNCHES["dbs_rw_read"]
+                / pool.dispatches}
+            if per_pump[key] != {"dbs_rw_write": REPLICAS,
+                                 "dbs_rw_read": REPLICAS}:
+                raise AssertionError(f"{key}: launches a pump {per_pump}")
+            if n_sh == 1:
+                sharded_s1_split(torch, pool, smi)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    route_ms = {}
+    for lanes in (BATCH, SHARDS * BATCH, TABLE3_SHARDS[-1] * BATCH):
+        g = torch.Generator(device=dev).manual_seed(lanes)
+        rows = torch.randperm(2 * lanes, generator=g, device=dev)[:lanes]
+        rows[lanes // 2:lanes // 2 + lanes // 8] = rows[:lanes // 8]
+        cow = torch.rand(lanes, generator=g, device=dev) < 0.3
+        ops = WriteOps(dst=rows.to(torch.int32),
+                       cow_src=torch.where(cow, rows + 2 * lanes, -1).to(
+                           torch.int32),
+                       ok=torch.rand(lanes, generator=g, device=dev) < 0.9)
+        blocks = torch.randint(0, PAGE_BLOCKS, (lanes,), generator=g,
+                               device=dev, dtype=torch.int32)
+        route_ms[lanes] = graph_ms(
+            lambda: _route_writes(ops, PAGE_BLOCKS, blocks, 4 * lanes), 1)
+    problems = check_scaling(res)
+    emit(phase="table3_shards", row="full_engine",
+         requests_a_round=LAYER_OPS[False], volumes=TABLE3_VOLUMES,
+         total_extents=args.n_extents, ops_per_s={
+             "+fused": res["+fused"],
+             "+sharded": {str(k): v for k, v in res["+sharded"].items()}},
+         speedup_over_fused={str(k): v / res["+fused"]
+                             for k, v in res["+sharded"].items()},
+         pumps_incl_warmup=pumps, windows=windows,
+         launches_a_pump=per_pump,
+         route_writes_ms={str(k): v for k, v in route_ms.items()},
+         check_scaling="ok" if not problems else problems, card=smi)
+    return res
+
+
+def phase_shard_failover(torch, args, dev, smi, trace_ops):
+    """The sharded byte API's trace with shard 1's replica 1 failed (after
+    a flush) halfway through it, writes going on; then that slice alone is
+    rebuilt, timed between two synchronisations, against the bound of its
+    moved rows (each read once from the donor and written once, at 3.35
+    TB/s). Checked: the shard's replicas agree and the rebuilt slice equals
+    its donor on every mapped row; no message and no row of shards 0, 2
+    and 3 moved on any replica's link; with shard 1's replicas 0 and 2
+    failed, every block written to its volume reads back right from the
+    rebuilt replica alone; rebuilding those two then moves no row."""
+    sick = FAILED_SHARD
+    mgr, launches, _steps, kept, out = phase_main(
+        torch, args, dev, smi, column="shard_failover",
+        fail_after=trace_ops // 2, fail_shard=sick, **sharded_config(args))
+    g = mgr.engine.backend
+    row_bytes = PAGE_BLOCKS * BLOCK * 4
+    sent0 = [dict(t.sent_by_shard) for t in g.transports]
+    rows0 = [dict(t.pages_moved_by_shard) for t in g.transports]
+    moved0 = g.transports[1].pages_moved
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mgr.engine.control("rebuild", shard=sick, replica=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    moved = g.transports[1].pages_moved - moved0
+    for tr, s0, r0 in zip(g.transports, sent0, rows0):
+        for sh in range(g.n_shards):
+            if sh != sick and (tr.sent_by_shard[sh] != s0.get(sh, 0)
+                               or tr.pages_moved_by_shard[sh]
+                               != r0.get(sh, 0)):
+                raise AssertionError(f"the rebuild of shard {sick} moved a "
+                                     f"message or row of shard {sh}")
+    if not g.consistent(sick) or moved <= 0:
+        raise AssertionError(f"shard {sick}: replicas disagree after the "
+                             f"rebuild (moved {moved} rows)")
+    t0 = g.states[0].table[sick]
+    if not torch.equal(g.states[1].table[sick], t0):
+        raise AssertionError("the rebuilt slice's extent map differs")
+    rows = torch.unique(t0[t0 >= 0]).long()
+    for i in range(0, rows.numel(), 1024):
+        part = rows[i:i + 1024]
+        if not torch.equal(g.pools[1][sick][part], g.pools[0][sick][part]):
+            raise AssertionError("the rebuilt slice differs from its donor")
+    mgr.engine.control("fail", shard=sick, replica=0)
+    mgr.engine.control("fail", shard=sick, replica=2)
+    shadow = kept["shadow"]
+    vols = [v for v in kept["volumes"] if v.vid % g.n_shards == sick]
+    futs = [(v.pread(ab * BLOCK, BLOCK), v, ab) for v in vols
+            for (vid, ab) in sorted(shadow.blocks) if vid == v.vid]
+    mgr.flush()
+    for fut, v, ab in futs:
+        if fut.result() != shadow.read(v.vid, ab * BLOCK, BLOCK):
+            raise AssertionError("the rebuilt slice read wrong bytes")
+    for i in (0, 2):                             # nothing written: no rows
+        before = sum(tr.pages_moved for tr in g.transports)
+        mgr.engine.control("rebuild", shard=sick, replica=i)
+        if sum(tr.pages_moved for tr in g.transports) != before:
+            raise AssertionError(f"rebuilding replica {i} moved rows")
+    if not g.consistent() or not g.healthy.all():
+        raise AssertionError("the replicas disagree after the rebuilds")
+    del kept
+    emit(phase="shard_failover", shards=g.n_shards, failed_shard=sick,
+         ops=out["ops"], failed_at_op=out["replica_1_failed_at_op"],
+         trace_ops_per_s=out["ops_per_s"], seconds=seconds,
+         extents_moved=moved, bytes_moved=moved * row_bytes,
+         bound_ms=2 * moved * row_bytes / HBM_BYTES_PER_S * 1e3,
+         bound_by="bytes: each moved row read once from the donor and "
+                  "written once to the target, at 3.35 TB/s",
+         messages_by_shard=[dict(tr.sent_by_shard) for tr in g.transports],
+         rows_by_shard=[dict(tr.pages_moved_by_shard)
+                        for tr in g.transports],
+         blocks_checked_on_replica_1_alone=len(futs),
+         mapped_rows_of_shard=int(rows.numel()), launches=launches, card=smi)
+    mgr.close()
+
+
+def _tokens_match(outs, want, margin_of, what):
+    """Each request's tokens against ``want``'s under the TIE_MARGIN rule
+    (phase 15): where they first differ, the step's top-2 logit margin must
+    be under TIE_MARGIN, and the request's later steps are not compared.
+    Returns the number of such near ties."""
+    ties = 0
+    for rid, got in outs.items():
+        ref = want[rid]
+        if len(got) != len(ref):
+            raise AssertionError(f"{what}: request {rid} made {len(got)} "
+                                 f"tokens, not {len(ref)}")
+        for t, (a, b) in enumerate(zip(got, ref)):
+            if a != b:
+                if margin_of[(rid, t)] >= TIE_MARGIN:
+                    raise AssertionError(f"{what}: request {rid} step {t}: "
+                                         f"token {a}, not {b}")
+                ties += 1
+                break
+    return ties
+
+
+def phase_serve_sharded(torch, dev, smi, cfg, params, prompts, want):
+    """Zero-copy serving on the sharded KV store: ``kv_backend="sharded",
+    kv_shards=2`` (each shard with the fused run's 1032 extents), 2 KV
+    replicas, otherwise phase 9's engine and its 16 requests. Tokens equal
+    the fused run's (``want``) under the TIE_MARGIN rule (the decode
+    program's top-2 margins are taken on the card, one ``topk`` a step);
+    the paged kernel reads the flattened (2*(E+1))-row pool; the replicas
+    agree, nothing leaks. Then four of the requests again, admitted with
+    shard 0's replica 1 failed (their prompts' K/V pumps skip it), which is
+    rebuilt after 6 steps, mid-decode (the delta and the live-row resync),
+    and shard 0's replica 0 failed after it: the rebuilt replica alone
+    serves the rest, to the fused run's tokens."""
+    from repro_torch.core import dbs
+    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.serving import engine as serving
+    from repro_torch.serving.engine import GenRequest
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _serve_engine(torch, cfg, params, dev, kv_backend="sharded",
+                        kv_shards=SERVE_SHARDS)
+    clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
+    margins, pool_rows = [], set()
+    inner = {"prefill": eng._prefill_one_zero, "pump": eng._pump_writes,
+             "step": eng._step_fn,
+             "paged": serving.paged_attention_pool_fwd}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def step_fn(*a, **k):
+        out = inner["step"](*a, **k)
+        top = torch.topk(out[0], 2, dim=-1).values      # on the card
+        who = [(g.req_id, len(g.out_tokens)) if g is not None else None
+               for g in map(eng.live_by_slot, range(eng.n_slots))]
+        margins.append((top[:, 0] - top[:, 1], who))
+        return out
+
+    def paged(q, pool, table, lengths, **k):
+        pool_rows.add(int(pool.shape[0]))
+        return inner["paged"](q, pool, table, lengths, **k)
+
+    def margin_map():
+        got = torch.stack([m for m, _ in margins]).cpu().numpy()
+        return {key: float(got[i, j]) for i, (_, who) in enumerate(margins)
+                for j, key in enumerate(who) if key is not None}
+
+    eng._prefill_one_zero = timed("prefill", inner["prefill"])
+    eng._pump_writes = timed("pumps", inner["pump"])
+    eng._step_fn = timed("decode", step_fn)
+    serving.paged_attention_pool_fwd = paged
+    for mod in (rw_kernel, pk, fk):
+        mod.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for rid, pr in enumerate(prompts):
+            eng.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
+        outs = eng.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+        plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
+                 **fk.PLAIN_CALLS}
+        peak = torch.cuda.max_memory_allocated(dev)
+        ties = _tokens_match(outs, want, margin_map(), "sharded serving")
+        n_e = eng.volumes.engine.cfg.n_extents
+        if pool_rows != {SERVE_SHARDS * (n_e + 1)}:
+            raise AssertionError(f"the paged kernel read pools of "
+                                 f"{pool_rows} rows")
+        if min(launches.values()) <= 0 or any(plain.values()):
+            raise AssertionError(f"launches {launches}, plain {plain}")
+        eng.volumes.flush()
+        g = eng.volumes.engine.backend
+        pools = eng.volumes.device_pools()
+        if not g.consistent() or not torch.equal(pools[0][:-1],
+                                                 pools[1][:-1]):
+            raise AssertionError("the sharded KV replicas disagree")
+        del pools
+        st = eng.state
+        if bool((st.extent_owner >= 0).any() | (st.vol_head >= 0).any()):
+            raise AssertionError("sharded serving leaked volumes or extents")
+        gen_tokens = SERVE_REQUESTS * SERVE_NEW
+        emit(phase="serve_path", model=SERVE_MODEL, config=dict(
+            kv_backend="sharded", kv_shards=SERVE_SHARDS, kv_replicas=2,
+            n_slots=8, max_len=2048, n_queues=2, kernel="cuda",
+            attn_impl="cuda", dtype="float32", n_extents_a_shard=n_e),
+            requests=SERVE_REQUESTS, generated_tokens=gen_tokens,
+            run_seconds=run_s, prefill_seconds=clock["prefill"],
+            pump_seconds=clock["pumps"], decode_seconds=clock["decode"],
+            decode_tokens_per_s=gen_tokens / clock["decode"],
+            tokens_per_s=gen_tokens / run_s, tokens_equal_fused=ties == 0,
+            near_ties=ties, paged_pool_rows=sorted(pool_rows),
+            launches=launches, plain_calls=plain, max_memory_allocated=peak,
+            card=smi)
+
+        # mid-decode per-shard failover; then the rebuilt replica alone
+        margins.clear()
+        base = 1000
+        eng.control("fail", shard=0, replica=1)
+        for rid in range(SERVE_REBUILD_REQUESTS):
+            eng.submit(GenRequest(req_id=base + rid, prompt=prompts[rid],
+                                  max_new=SERVE_NEW))
+        for _ in range(6):
+            eng.step()
+        moved0 = dict(g.transports[1].pages_moved_by_shard)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.control("rebuild", shard=0, replica=1)
+        torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t
+        moved = {k: v - moved0.get(k, 0)
+                 for k, v in g.transports[1].pages_moved_by_shard.items()
+                 if v != moved0.get(k, 0)}
+        eng.control("fail", shard=0, replica=0)
+        if eng._attn != 1 or set(moved) != {0}:
+            raise AssertionError(f"attending replica {eng._attn}; rows "
+                                 f"moved by shard {moved}")
+        outs2 = eng.run(max_steps=4 * SERVE_NEW)
+        got = {rid - base: toks for rid, toks in outs2.items()
+               if rid >= base}
+        mm = {(rid - base, t): m for (rid, t), m in margin_map().items()
+              if rid >= base}
+        ties2 = _tokens_match(got, want, mm, "the rebuilt replica alone")
+        eng.control("rebuild", shard=0, replica=0)
+        if not g.consistent() or not g.healthy.all():
+            raise AssertionError("the replicas disagree after the rebuilds")
+        on0 = [v % SERVE_SHARDS == 0 for v in
+               (eng.live[base + r].volume for r in
+                range(SERVE_REBUILD_REQUESTS))]
+        emit(phase="serve_sharded_rebuild", requests=SERVE_REBUILD_REQUESTS,
+             sessions_on_shard_0=sum(on0), failed_before_admission=True,
+             rebuilt_after_steps=6, rebuild_seconds=rebuild_s,
+             rows_moved_by_shard=moved, attended_replica_after=1,
+             tokens_equal_fused=ties2 == 0, near_ties=ties2, card=smi)
+    finally:
+        serving.paged_attention_pool_fwd = inner["paged"]
+        eng.volumes.close()
+    return launches
+
+
 def phase_no_sync(torch, mgr):
     from repro_torch.core import backends
     inner = backends.fused_step
@@ -1373,14 +2075,14 @@ def phase_no_sync(torch, mgr):
 # phase 9: zero-copy serving at gemma2-2b's full width
 # ---------------------------------------------------------------------------
 def _serve_engine(torch, cfg, params, dev, record_logits=False,
-                  kv_backend="fused"):
+                  kv_backend="fused", **kw):
     from repro_torch.configs.base import ExecutionPlan
     from repro_torch.serving.engine import ServeEngine
     return ServeEngine(cfg, params, n_slots=8, max_len=2048, n_queues=2,
                        kv_backend=kv_backend, kv_replicas=2, kernel="cuda",
                        plan=ExecutionPlan(attn_impl="cuda",
                                           compute_dtype="float32"),
-                       record_logits=record_logits, device=dev)
+                       record_logits=record_logits, device=dev, **kw)
 
 
 def phase_serve(torch, dev, smi):
@@ -2501,12 +3203,13 @@ def main() -> int:
     # the hand-written kernels, the fused step on the copy entry (whose
     # kept dbs_copy calls time the kernel), the unfused host-dispatched
     # engine; then the per-request loop over the first few hundred ops
-    ladder = {}
+    ladder, ladder_out = {}, {}
     for backend, kernel in LADDER:
         mgr, got, steps, kept, out = phase_main(
             torch, args, dev, smi, backend=backend, kernel=kernel,
             n_ops=LADDER_OPS)
         ladder[f"{backend}/{kernel}"] = out["ops_per_s"]
+        ladder_out[f"{backend}/{kernel}"] = out
         if kernel == "copy":
             copy_k = phase_copy_kernel_main(torch, mgr, kept["dbs_copy"])
             copy_k.update(launches=got["dbs_copy"],
@@ -2553,8 +3256,53 @@ def main() -> int:
     for k in (write_k, read_k):
         k["launches_rebuild_path"] = rebuild["launches"][k["name"]]
 
+    # the shards slice: the byte API on the sharded pool beside the fused
+    # column (its kernels' kept calls held against the plain versions, one
+    # pump under sync-debug "error"), Table III, the per-shard failover
+    mgr, sh_launches, _s, kept, sh_out = phase_main(
+        torch, args, dev, smi, column="+sharded", **sharded_config(args))
+    phase_no_sync_sharded(torch, mgr)
+    sh_write, sh_read = phase_sharded_kernels(torch, mgr, kept)
+    del kept
+    mgr.close()
+    del mgr
+    free()
+    fused = ladder_out["fused/cuda"]
+    per_replica = {
+        "fused": {"dbs_rw_write": fused["launches"]["dbs_rw_write"]
+                  / fused["write_steps"] / REPLICAS,
+                  "dbs_rw_read": fused["launches"]["dbs_rw_read"]
+                  / (fused["write_steps"] + fused["read_only_steps"])},
+        "sharded": {"dbs_rw_write": sh_out["write_launches_per_write_pump"]
+                    / REPLICAS,
+                    "dbs_rw_read": sh_out["launches_per_pump"]["dbs_rw_read"]
+                    / REPLICAS}}
+    if per_replica["fused"] != per_replica["sharded"]:
+        raise AssertionError(f"launches a pump per replica differ: "
+                             f"{per_replica}")
+    emit(phase="shards", shards=SHARDS, ops=sh_out["ops"],
+         ops_per_s={"+sharded": sh_out["ops_per_s"],
+                    "+fused": fused["ops_per_s"]},
+         mib_per_s={"+sharded": sh_out["mib_per_s"],
+                    "+fused": fused["mib_per_s"]},
+         pumps={"+sharded": sh_out["pumps"], "+fused": fused["pumps"]},
+         ops_per_pump={"+sharded": sh_out["ops_per_pump"],
+                       "+fused": fused["ops_per_pump"]},
+         host_syncs_per_pump={"+sharded": sh_out["host_syncs_per_pump"],
+                              "+fused": fused["host_syncs_per_pump"]},
+         launches_per_pump_per_replica=per_replica, card=smi)
+    for k, extra in ((write_k, sh_write), (read_k, sh_read)):
+        k.update(extra, launches_sharded_path=sh_launches[k["name"]],
+                 launches_per_pump_sharded=sh_out["launches_per_pump"][
+                     k["name"]])
+    phase_table3(torch, args, dev, smi)
+    phase_shard_failover(torch, args, dev, smi, sh_out["ops"])
+    free()
+
     eng, kept, serve_launches, serve_counts, (cfg, params, prompts) = \
         phase_serve(torch, dev, smi)
+    fused_tokens = {rid: list(eng.live[rid].out_tokens)
+                    for rid in range(SERVE_REQUESTS)}
     paged_k = phase_paged_kernel(torch, eng, kept)
     flash_k = phase_flash_kernel(torch, kept)
     serve_read = phase_read_kernel_serve(torch, eng, kept["read"])
@@ -2600,6 +3348,11 @@ def main() -> int:
                   launch_floor_ms=launch_floor)
     phase_host_vs_zero(torch, dev, cfg, params, prompts)
     phase_serve_pool(torch, dev, smi, cfg, params, prompts)
+    free()
+    sh_serve = phase_serve_sharded(torch, dev, smi, cfg, params, prompts,
+                                   fused_tokens)
+    for k in (paged_k, flash_k):
+        k["launches_sharded_serve_path"] = sh_serve[k["name"]]
     del cfg, params, prompts
     free()
 

@@ -5,10 +5,12 @@
 #                   local/device/simnet transports + registry
 #   replication.py  write/read policies and the streamed delta rebuild
 #   fused.py        the fused engine step (admit -> CoW -> complete)
+#   sharded.py      EnginePool: S stacked engine shards, one step a pump
 #   ring.py         the SQ/CQ ring protocol, host half (the drain)
 #   frontend.py     multi-queue ublk-style admission vs TGT-style baseline
 #   control.py      the control-verb dispatch mixin
-#   backends.py     the backend registry (loop/slots/fused/upstream/host)
+#   backends.py     the backend registry (loop/slots/fused/sharded/
+#                   upstream/host)
 #   engine.py       EngineConfig + the Engine façade + upstream baseline
 #   blockdev.py     ublk-style public API: VolumeManager/Volume, byte I/O
 #   convert.py      engine state to and from the reference, as numpy

@@ -13,6 +13,8 @@ here. The backend protocol is ``submit(req)``, ``pump()``, ``drain()``,
 | ``slots`` | ``HostDispatchBackend`` | batched slot admission, separate     |
 |           |                       | dispatches for writes, reads, retire   |
 | ``fused`` | ``FusedBackend``      | one fused step per pump                |
+| ``sharded`` | ``sharded.EnginePool`` | one sharded step a pump for S   |
+|           |                       | stacked shards, pipelined completion   |
 | ``upstream`` | ``engine.UpstreamEngine`` | TGT-style baseline, one request |
 |           |                       | per pump over chained stores           |
 | ``host``  | ``HostStateBackend``  | one request per pump on one state      |
@@ -45,8 +47,7 @@ from repro_torch.core.replication import ReplicaGroup
 from repro_torch.kernels.dbs.registry import resolve_kernel_name
 
 # backends of the JAX package that later slices of the port bring
-UNPORTED_BACKENDS = {"sharded": "the shards slice",
-                     "ring": "the ring slice"}
+UNPORTED_BACKENDS = {"ring": "the ring slice"}
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -471,6 +472,12 @@ class HostStateBackend(ControlDispatch):
         self.state, ops = dbs.write_pages(self.state, vols, pages, bits,
                                           mask)
         return ops
+
+
+@register_backend("sharded")
+def _make_sharded(cfg):
+    from repro_torch.core.sharded import EnginePool
+    return EnginePool(cfg)
 
 
 @register_backend("upstream")

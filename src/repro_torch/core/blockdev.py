@@ -38,8 +38,11 @@ plane of the copy-based serving baseline, which reads ``state`` and calls
 ``storage="chained"`` puts its chained stores behind ``loop``/``slots``;
 ``transport=``/``write_policy=``/``read_policy=`` choose the replica wire
 and policies, and ``engine.control("fail"|"rebuild", replica=i)`` fails
-and rebuilds a replica. The journal, the spill tier and ``Volume.compute``
-land with their slices.
+and rebuilds a replica. ``backend="sharded", n_shards=S`` serves the
+volumes from S stacked engine shards (volume ``vid`` on shard ``vid % S``;
+``control("fail"|"rebuild", shard=s, replica=i)`` is per shard), and the
+device views then address the flattened pools of all shards. The journal,
+the spill tier and ``Volume.compute`` land with their slices.
 """
 from __future__ import annotations
 
@@ -51,6 +54,8 @@ import torch
 
 from repro_torch.core.engine import Engine, EngineConfig
 from repro_torch.core.frontend import Request
+from repro_torch.core.replication import ShardedReplicaGroup
+from repro_torch.kernels.dbs.ops import shard_rows
 
 
 def _bytes_to_lanes(data) -> np.ndarray:
@@ -480,34 +485,59 @@ class VolumeManager:
     # pools it treats as the KV cache. Nothing here syncs to the host.
     def device_extent_map(self) -> torch.Tensor:
         """ONE (V, P) int32 extent map on the device (holes -1): the host
-        backend's own state's, else replica 0's (the healthy replicas run
-        identical control sequences, so their maps agree)."""
+        backend's own state's, else replica 0's (the replicas run identical
+        control sequences, so their maps agree). On the sharded pool each
+        shard's map is its first healthy replica's (a failed replica's map
+        stops moving; the reference reads replica 0's whatever its health),
+        and the per-shard (S, V, P) maps are put into global coordinates:
+        shard s's extents move up by ``s*(E+1)`` to index the flattened
+        pools of ``device_pools``, and row ``v`` is global volume v
+        (``local*S + shard``)."""
         impl = self.engine.impl
         if hasattr(impl, "state"):                      # host backend
             return impl.state.table
-        if not hasattr(self.engine.backend, "device_state"):
+        storage = self.engine.backend
+        if isinstance(storage, ShardedReplicaGroup):
+            first = storage.healthy.argmax(axis=1)      # host mirror
+            tbl = torch.stack([storage.states[r].table[s]
+                               for s, r in enumerate(first)])  # (S, V, P)
+            rows = storage.pools[0].shape[1]            # E+1 a shard
+            flat = shard_rows(tbl.reshape(tbl.shape[0], -1), rows)
+            return flat.view(tbl.shape).transpose(0, 1).reshape(
+                -1, tbl.shape[2])
+        if not hasattr(storage, "device_state"):
             raise RuntimeError("this backend holds no extent map")
-        states, _pools = self.engine.backend.device_state()
+        states, _pools = storage.device_state()
         return states[0].table
 
     def device_pools(self) -> Tuple[torch.Tensor, ...]:
-        """The live payload pools of the healthy replicas, each
-        ``(E+1, page_blocks, *payload_shape)``: the tensors the fused step
-        updates in place, not copies, so writes into them are writes into
-        the replicas."""
-        _states, pools = self.engine.backend.device_state()
+        """The live payload pools: the tensors the engine step updates in
+        place, not copies, so writes into them are writes into the
+        replicas. On the fused engine the healthy replicas' pools, each
+        ``(E+1, page_blocks, *payload_shape)``; on the sharded pool every
+        replica's, each viewed as ``(S*(E+1), page_blocks, *payload_shape)``
+        (the row ids of ``device_extent_map``; health there is per shard)."""
+        storage = self.engine.backend
+        if isinstance(storage, ShardedReplicaGroup):
+            _states, pools, _healthy = storage.device_state()
+            return tuple(p.view((-1,) + tuple(p.shape[2:])) for p in pools)
+        _states, pools = storage.device_state()
         return tuple(pools)
 
     def set_device_pools(self, pools) -> None:
-        """Store pools (as ``device_pools`` returned them, healthy replicas
-        in order) back into the replicas: the commit half of an external
-        step that scattered into them (the serving decode program)."""
+        """Store pools (as ``device_pools`` returned them, in its order)
+        back into the replicas: the commit half of an external step that
+        scattered into them (the serving decode program)."""
         storage = self.engine.backend
-        states, cur = storage.device_state()
+        sharded = isinstance(storage, ShardedReplicaGroup)
+        states, cur = storage.device_state()[:2]
         for p, c in zip(pools, cur):
-            if p.shape != c.shape:
-                raise ValueError(f"pool shape {tuple(p.shape)} != "
-                                 f"{tuple(c.shape)}")
+            want = ((c.shape[0] * c.shape[1],) + tuple(c.shape[2:])
+                    if sharded else tuple(c.shape))
+            if tuple(p.shape) != want:
+                raise ValueError(f"pool shape {tuple(p.shape)} != {want}")
+        if sharded:
+            pools = tuple(p.view(c.shape) for p, c in zip(pools, cur))
         storage.set_device_state(states, tuple(pools))
 
     def __repr__(self):

@@ -15,9 +15,13 @@ Port of ``repro/core/dbs.py``; the layout is the same:
   and independent of the snapshot-chain depth.
 
 Every function returns new metadata tensors and reads nothing back to the
-host. JAX clamps out-of-bounds gathers and drops out-of-bounds scatters;
-torch raises on both, so each such site clamps, masks or scatters into a
-one-row pad that is sliced off.
+host. ``DBSState`` and ``WriteOps`` are pytrees, and ``write_pages``,
+``read_resolve`` and the slot functions run unchanged under
+``torch.func.vmap`` over a leading shard axis (core/sharded.py); the
+control ops take host ints and run on one shard's slice. JAX clamps
+out-of-bounds gathers and drops out-of-bounds scatters; torch raises on
+both, so each such site clamps, masks or scatters into a one-row pad that
+is sliced off.
 
 ``write_pages`` is the control plane. ``apply_write_ops`` is the plain
 data-plane reference (the ``torch`` kernel-registry entry); the fused step
@@ -32,13 +36,15 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.slots import (SlotRing, _isum, _scatter_drop, acquire,
-                                    make_ring, release)
+                                    make_ring, register_pytree_dataclass,
+                                    release)
 
 NULL = -1
 I32 = torch.int32
 BITS = 32                   # bitmap width: blocks per extent row at most
 
 
+@register_pytree_dataclass
 @dataclass
 class DBSState:
     # extent-status region
@@ -308,6 +314,7 @@ def write_pages(st: DBSState, vol, pages: torch.Tensor,
     return _bump(st), ops
 
 
+@register_pytree_dataclass
 @dataclass
 class WriteOps:
     dst: torch.Tensor       # (B,) destination extents (-1 = failed/starved)

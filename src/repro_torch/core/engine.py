@@ -46,12 +46,14 @@ class EngineConfig:
     null_backend: bool = False
     null_storage: bool = False
     storage: str = "dbs"         # dbs | chained (sparse-file-style baseline)
-    comm: str = "fused"          # a REGISTERED BACKEND name (core/backends)
+    comm: str = "fused"          # a REGISTERED BACKEND name (core/backends):
+                                 # fused | slots | loop | sharded | host
+                                 # | upstream
     cow: str = "auto"            # legacy data-plane axis: auto only
     kernel: str = "auto"         # a REGISTERED KERNEL (kernels/dbs
                                  # registry): auto (= cuda) | cuda | torch
                                  # | ref | copy
-    n_shards: int = 1
+    n_shards: int = 1            # engine shards of comm="sharded"
     transport: str = "local"     # controller<->replica wire (a REGISTERED
                                  # TRANSPORT): local | device | simnet
     write_policy: str = "all"    # all | quorum | async (host dispatch)
@@ -78,7 +80,8 @@ def check_ported(cfg: EngineConfig) -> None:
     """Raise a ValueError naming the slice of the port that brings each
     configuration value this slice does not serve."""
     later = [
-        (cfg.n_shards > 1, "n_shards > 1 lands with the shards slice"),
+        (cfg.n_shards > 1 and cfg.comm == "ring",
+         "n_shards > 1 on comm='ring' lands with the ring slice"),
         (cfg.journal is not None, "journal= lands with the durability slice"),
         (cfg.tier is not None, "tier= lands with the durability slice"),
         (cfg.cow != "auto",
@@ -92,8 +95,9 @@ def check_ported(cfg: EngineConfig) -> None:
 
 class Engine:
     """Thin façade over a registered backend (core/backends.py):
-    ``.frontend`` is the backend's frontend and ``.backend`` its replica
-    storage (both None on the host backend)."""
+    ``.frontend`` is the backend's frontend, ``.backend`` its replica
+    storage (both None on the host backend), and ``.pool`` the backend
+    itself when it is a shard pool (``comm="sharded"``), else None."""
 
     def __init__(self, cfg: EngineConfig):
         check_ported(cfg)
@@ -106,6 +110,8 @@ class Engine:
         self.cfg = cfg
         from repro_torch.core.backends import make_backend
         self._impl = make_backend(cfg.comm, cfg)
+        self.pool = (self._impl if getattr(self._impl, "is_pool", False)
+                     else None)
         # the host backend has no frontend, no replica storage and no
         # data-plane kernel
         self.frontend = self._impl.frontend

@@ -10,8 +10,10 @@ moves the staged numpy lanes to the device as one transfer per leaf into
 the ``FusedBatch`` the fused step consumes; admission happens inside the
 step, so no slot id is ever read back. ``poll_batch``/``complete`` admit
 and retire as device ops of their own and read the slot ids back (the
-serving engine's admission). The sharded frontend comes with the shards
-slice.
+serving engine's admission). ``ShardedFrontend`` is an S-shard
+``RingFrontend`` with a shard-stacked slot table: ``drain_sharded``
+stages one (S, B) batch a pump and moves each leaf to the device through
+pinned memory without blocking.
 """
 from __future__ import annotations
 
@@ -186,3 +188,62 @@ class MultiQueueFrontend:
         self.table = slots.retire(self.table, slot_ids)
         return [self._by_slot.pop(sid) for sid in slot_ids.tolist()
                 if sid >= 0 and sid in self._by_slot]
+
+
+def _to_device(a, device: torch.device) -> torch.Tensor:
+    """A staged numpy leaf on ``device`` in one transfer; to a card through
+    pinned memory and without blocking, so the pump never waits on it."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class ShardedFrontend:
+    """S volume-hashed shards feeding ONE stacked admission: an S-shard
+    ``RingFrontend`` (queues, drain; volume ids become shard-local,
+    ``volume // S``) beside the shard-stacked slot table of the sharded
+    step (core/sharded.py)."""
+
+    def __init__(self, n_shards: int, n_queues: int, n_slots: int,
+                 batch: int = 64, *, device):
+        self.ring = RingFrontend(n_shards, n_queues, n_slots, batch)
+        self.device = torch.device(device)
+        self.table = slots.make_sharded_table(n_shards, n_slots, self.device)
+        self.n_shards = n_shards
+        self.batch = batch
+
+    def shard_of(self, volume: int) -> int:
+        return volume % self.n_shards
+
+    def submit(self, req: Request) -> None:
+        _reject_control(req)
+        self.ring.submit(req)
+
+    def requeue(self, req: Request) -> None:
+        self.ring.requeue(req)
+
+    def depth(self) -> int:
+        return self.ring.depth()
+
+    def drain_sharded(self, payload_shape: Tuple[int, ...] = ()
+                      ) -> Tuple[List[List[Request]], Optional[FusedBatch]]:
+        """Drain every shard into one stacked (S, B, ...) ``FusedBatch``
+        (None when no shard had traffic). Shard s's request i rides lane
+        (s, i); an idle shard contributes inert lanes, so the batch's shape
+        never depends on which shards are busy."""
+        drained, st, classes = self.ring._stage(payload_shape)
+        if st is None:
+            return [], None
+        _check_data_only(classes)
+        dev = self.device
+        batch = FusedBatch(
+            want=_to_device(st["want"], dev),
+            is_write=_to_device(st["op"] == OP_WRITE, dev),
+            volume=_to_device(st["volume"], dev),
+            page=_to_device(st["page"], dev),
+            block=_to_device(st["block"], dev),
+            payload=_to_device(st["payload"], dev),
+            queue=_to_device(st["queue"], dev),
+            step=_to_device(st["step"], dev))
+        return drained, batch

@@ -20,9 +20,15 @@ the routing contract of the kernels), and the small metadata tensors are
 replaced by new ones. The round-robin cursor is a host int, so the serving
 replica is picked by plain Python indexing. The null layer cuts stop the
 step early: ``null_backend`` after admission, ``null_storage`` after the
-metadata writes (no pool write, no watermark stamp, no gather). The
-tiered variants (spill tier) and the traced health mask (shards) land
-with their slices.
+metadata writes (no pool write, no watermark stamp, no gather).
+
+``step_meta`` is the step's metadata half (admission, ``write_pages``,
+watermark stamps), pure tensor code that core/sharded.py maps over a
+leading shard axis with an (R,) ``healthy`` mask over a fixed replica
+tuple; there the kernels run outside the map on the flattened pools, and
+``read_routes`` (the masked round-robin read: the (rr mod H)-th healthy
+replica) tells each replica's read launch which lanes are its own. The
+tiered variants (spill tier) land with their slice.
 """
 from __future__ import annotations
 
@@ -32,10 +38,12 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import dbs, slots
+from repro_torch.core.slots import register_pytree_dataclass
 from repro_torch.core.transport import stamp_page_rev
 from repro_torch.kernels.dbs.registry import make_kernel
 
 
+@register_pytree_dataclass
 @dataclass
 class FusedBatch:
     """Fixed-shape admitted-request batch: the raw tensors the host moves
@@ -57,6 +65,40 @@ def _cow_apply(pool, ops: dbs.WriteOps, payload, block_offsets, kernel: str):
     return make_kernel(kernel).write(pool, ops, payload, block_offsets)
 
 
+def step_meta(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
+              page_revs: Tuple[torch.Tensor, ...], batch: FusedBatch,
+              healthy=None, *, null_backend: bool = False,
+              null_storage: bool = False):
+    """The metadata half of the step, up to the kernels: admission, each
+    replica's ``write_pages`` and watermark stamp. Pure tensor code, so
+    core/sharded.py maps it over a leading shard axis.
+
+    ``healthy``: None for the single-engine path (the caller passes only
+    healthy replicas, ``ReplicaGroup.device_state``), or an (R,) bool mask
+    over a fixed replica tuple: a failed replica's state takes the
+    all-masked call, as in the reference, so its revision moves on, and
+    its slice takes no writes. Returns ``(table', states', page_revs', ok,
+    write ops per replica)``; ``page_revs`` is empty with ``null_storage``,
+    the ops with ``null_backend``."""
+    table, _ids, ok = slots.transact(table, batch.want, batch.volume,
+                                     batch.queue, batch.step)
+    if null_backend or not states:
+        return table, states, page_revs, ok, ()
+    wmask = ok & batch.is_write
+    bits = torch.ones((), dtype=torch.int64, device=ok.device) << \
+        batch.block.to(torch.int64)
+    out_states, out_ops, out_prs = [], [], []
+    for i, st in enumerate(states):            # mirrored write-to-all
+        m = wmask if healthy is None else wmask & healthy[i]
+        st, wops = dbs.write_pages(st, batch.volume, batch.page, bits, m)
+        if not null_storage:
+            out_prs.append(stamp_page_rev(page_revs[i], batch.volume,
+                                          batch.page, wops.ok, st.revision))
+        out_states.append(st)
+        out_ops.append(wops)
+    return table, tuple(out_states), tuple(out_prs), ok, tuple(out_ops)
+
+
 def step_core(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
               pools: Tuple[torch.Tensor, ...],
               page_revs: Tuple[torch.Tensor, ...], batch: FusedBatch,
@@ -64,30 +106,22 @@ def step_core(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
               null_storage: bool = False, kernel: str = "cuda"):
     """The fused controller iteration over the healthy replicas' states,
     pools and watermarks (``pools``/``page_revs`` empty with
-    ``null_storage``). Returns ``(table', states', pools', page_revs',
+    ``null_storage``): ``step_meta``, then each replica's write kernel and
+    the round-robin read. Returns ``(table', states', pools', page_revs',
     ok (B,) bool, reads (B, *payload))``."""
-    table, _ids, ok = slots.transact(table, batch.want, batch.volume,
-                                     batch.queue, batch.step)
+    table, states, page_revs, ok, ops = step_meta(
+        table, states, page_revs, batch, null_backend=null_backend,
+        null_storage=null_storage)
     reads = torch.zeros_like(batch.payload)
     if null_backend or not states:
         return table, states, pools, page_revs, ok, reads
-    wmask = ok & batch.is_write
-    bits = torch.ones((), dtype=torch.int64, device=ok.device) << \
-        batch.block.to(torch.int64)
-    out_states, out_pools, out_prs = [], [], []
-    for i, st in enumerate(states):            # mirrored write-to-all
-        st, wops = dbs.write_pages(st, batch.volume, batch.page, bits, wmask)
-        if not null_storage:
-            out_pools.append(_cow_apply(pools[i], wops, batch.payload,
-                                        batch.block, kernel))
-            out_prs.append(stamp_page_rev(page_revs[i], batch.volume,
-                                          batch.page, wops.ok, st.revision))
-        out_states.append(st)
-    if not null_storage:
-        reads = _rr_gather(out_states, out_pools, batch, rr,
-                           ok & ~batch.is_write, reads, kernel)
-    return (table, tuple(out_states), tuple(out_pools), tuple(out_prs), ok,
-            reads)
+    if null_storage:
+        return table, states, (), page_revs, ok, reads
+    pools = tuple(_cow_apply(pool, wops, batch.payload, batch.block, kernel)
+                  for pool, wops in zip(pools, ops))
+    reads = _rr_gather(states, pools, batch, rr, ok & ~batch.is_write,
+                       reads, kernel)
+    return table, states, pools, page_revs, ok, reads
 
 
 def fused_step(table, states, pools, page_revs, batch: FusedBatch, rr: int,
@@ -133,3 +167,23 @@ def fused_step_read(table, states, pools, batch: FusedBatch, rr: int, *,
     return step_core_read(table, states, pools, batch, rr,
                           null_backend=null_backend,
                           null_storage=null_storage, kernel=kernel)
+
+
+# ---------------------------------------------------------------------------
+# the read routes of the shard-stacked pool (vmap-safe; core/sharded.py)
+# ---------------------------------------------------------------------------
+def read_routes(states, batch: FusedBatch, rr, rmask, healthy):
+    """The masked form of ``_rr_gather`` for a fixed replica tuple: each
+    replica's read route, the extent of every read lane on the replica
+    that serves it and -1 on every other replica and lane. The serving
+    replica is the (rr mod H)-th healthy one, picked with the reference's
+    rank-compare one-hot, so every lane reads through exactly one
+    replica's gather and a hole (-1) loads nothing. ``rr`` is a device
+    scalar, ``healthy`` an (R,) bool."""
+    h = healthy.to(torch.int32)
+    target = rr % h.sum().clamp(min=1)
+    sel = healthy & (torch.cumsum(h, 0) - 1 == target)       # (R,) one-hot
+    return tuple(torch.where(sel[i] & rmask,
+                             dbs.read_resolve(st, batch.volume, batch.page),
+                             -1)
+                 for i, st in enumerate(states))

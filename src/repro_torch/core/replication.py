@@ -20,8 +20,12 @@ device | simnet):
 The fused step (core/fused.py) applies ``all``/``rr`` inside the step and
 threads the endpoint tensors through it; there the transport carries
 control and rebuild traffic only. The host-dispatch backends (``loop``,
-``slots``) post WRITE and READ messages, where the policies bite. The
-shard-stacked group (``ShardedReplicaGroup``) comes with the shards slice.
+``slots``) post WRITE and READ messages, where the policies bite.
+
+``ShardedReplicaGroup`` stacks S such groups along a leading shard axis
+for the sharded pool (core/sharded.py): R ``StackedReplica`` endpoints, a
+dense (S, R) health mask, and per-shard fail/rebuild (the same streamed
+delta, addressed to one shard's slice).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core import dbs
 from repro_torch.core.transport import (MSG_ADOPT_META, MSG_CLONE,
@@ -37,7 +42,8 @@ from repro_torch.core.transport import (MSG_ADOPT_META, MSG_CLONE,
                                         MSG_PUSH_PAGES, MSG_QUERY_REV,
                                         MSG_READ, MSG_SNAPSHOT, MSG_UNMAP,
                                         MSG_WATERMARKS, MSG_WRITE, MsgFuture,
-                                        Replica, ReplicaTransport, WireMsg,
+                                        Replica, ReplicaTransport,
+                                        StackedReplica, WireMsg,
                                         make_transport)
 
 WRITE_POLICIES = ("all", "quorum", "async")
@@ -95,24 +101,30 @@ class _Waiter:
         raise RuntimeError("replica transports livelocked "
                            f"({sum(f.done for f in futs)}/{need} delivered)")
 
-    def _delta_rebuild(self, donor_t, tgt_t, device) -> None:
-        wm = tgt_t.call(WireMsg(op=MSG_WATERMARKS))
-        ext_ids, meta = donor_t.call(WireMsg(op=MSG_FETCH_DELTA, meta=wm))
+    def _delta_rebuild(self, donor_t, tgt_t, device,
+                       shard: Optional[int] = None) -> None:
+        """The wire sequence, addressed to ``shard``'s slice on stacked
+        endpoints (None on flat ones)."""
+        wm = tgt_t.call(WireMsg(op=MSG_WATERMARKS, shard=shard))
+        ext_ids, meta = donor_t.call(WireMsg(op=MSG_FETCH_DELTA, meta=wm,
+                                             shard=shard))
         if not self.null_storage and len(ext_ids):
             # the extent ids cross to the device once; chunks are slices
             self._stream_rows(donor_t, tgt_t, torch.from_numpy(
-                ext_ids.astype(np.int64)).to(device))
-        tgt_t.call(WireMsg(op=MSG_ADOPT_META, meta=meta))
+                ext_ids.astype(np.int64)).to(device), shard)
+        tgt_t.call(WireMsg(op=MSG_ADOPT_META, meta=meta, shard=shard))
 
     @staticmethod
-    def _stream_rows(donor_t, tgt_t, ext: torch.Tensor) -> None:
+    def _stream_rows(donor_t, tgt_t, ext: torch.Tensor,
+                     shard: Optional[int] = None) -> None:
         """FETCH_PAGES/PUSH_PAGES the pool rows ``ext`` (int64, on the
         device) from donor to target in ``REBUILD_CHUNK``-row messages."""
         for lo in range(0, len(ext), REBUILD_CHUNK):
             chunk = ext[lo:lo + REBUILD_CHUNK]
-            rows = donor_t.call(WireMsg(op=MSG_FETCH_PAGES, extents=chunk))
+            rows = donor_t.call(WireMsg(op=MSG_FETCH_PAGES, extents=chunk,
+                                        shard=shard))
             tgt_t.call(WireMsg(op=MSG_PUSH_PAGES, extents=chunk,
-                               payload=rows))
+                               payload=rows, shard=shard))
 
 
 class ReplicaGroup(_Waiter):
@@ -363,3 +375,253 @@ class ReplicaGroup(_Waiter):
             return
         self._stream_rows(self.transports[self._donor(donors)],
                           self.transports[idx], extents)
+
+
+# ---------------------------------------------------------------------------
+# the shard-stacked group (the sharded pool's storage, core/sharded.py)
+# ---------------------------------------------------------------------------
+class ShardedReplicaGroup(_Waiter):
+    """S independent replica groups stacked along a leading shard axis.
+
+    Each of the R replicas is ONE ``StackedReplica`` endpoint whose leaves
+    carry a leading (S,) axis (shard s's replica r is ``states[r]`` at
+    ``[s]``), so the sharded step serves every shard's mirrored writes and
+    round-robin reads at once; the transports carry control and rebuild
+    traffic, and the data plane is ``all``/``rr`` by construction. Health
+    is a dense (S, R) mask that the step takes as a tensor (a failed
+    replica's slice takes no writes and serves no reads until ``rebuild``);
+    its device copy is cached until ``fail``/``rebuild`` change it. The
+    round-robin cursors are an (S,) device tensor moved on by a device add:
+    the pump reads neither back."""
+
+    def __init__(self, n_shards: int, n_replicas: int, n_extents: int,
+                 max_volumes: int, max_pages: int, page_blocks: int,
+                 payload_shape=(4,), null_storage: bool = False,
+                 transport: str = "device", write_policy: str = "all",
+                 read_policy: str = "rr",
+                 transport_opts: Optional[Dict[str, Any]] = None, *,
+                 device):
+        _check_policies(write_policy, read_policy)   # unknown names first
+        if write_policy != "all" or read_policy != "rr":
+            raise ValueError(
+                "the sharded data plane mirrors writes and round-robins "
+                "reads IN-PROGRAM (inside the sharded step); write_policy="
+                f"{write_policy!r}/read_policy={read_policy!r} need a "
+                "host-dispatch backend (loop | slots)")
+        self.n_shards = n_shards
+        self.n_replicas = n_replicas
+        self.null_storage = null_storage
+        self.page_blocks = page_blocks
+        self.device = torch.device(device)
+        # "local" names the in-process call; on stacked endpoints that IS
+        # the device transport
+        self.transport_name = "device" if transport == "local" else transport
+
+        def stack(x):
+            return x[None].repeat((n_shards,) + (1,) * x.dim())
+        # one extra extent row per shard's pool: the dump row
+        endpoints = [
+            StackedReplica(
+                state=pytree.tree_map(stack, dbs.make_state(
+                    n_extents, max_volumes, max_pages, device=device)),
+                pool=torch.zeros((n_shards, n_extents + 1, page_blocks)
+                                 + tuple(payload_shape),
+                                 dtype=torch.float32, device=device),
+                page_rev=torch.zeros((n_shards, max_volumes, max_pages),
+                                     dtype=torch.int32, device=device),
+                null_storage=null_storage)
+            for _ in range(n_replicas)]
+        self.transports = [
+            make_transport(self.transport_name, ep,
+                           **_transport_opts(transport_opts, i))
+            for i, ep in enumerate(endpoints)]
+        self._healthy_np = np.ones((n_shards, n_replicas), bool)
+        self._healthy_dev: Optional[torch.Tensor] = None   # device cache
+        self._healthy_stale = False   # device mask newer than the mirror
+        self._rr = torch.zeros((n_shards,), dtype=torch.int32, device=device)
+
+    # -- the stacked endpoint tensors ----------------------------------------
+    @property
+    def states(self) -> List[dbs.DBSState]:
+        return [t.endpoint.state for t in self.transports]
+
+    @property
+    def pools(self) -> List[torch.Tensor]:
+        return [t.endpoint.pool for t in self.transports]
+
+    @property
+    def healthy(self) -> np.ndarray:
+        """The host's (S, R) health mirror; after ``adopt_health`` the
+        device mask is newer and the mirror is fetched here, on the control
+        path, never on the pump's."""
+        if self._healthy_stale:
+            self._healthy_np = self._healthy_dev.cpu().numpy().copy()
+            self._healthy_stale = False
+        return self._healthy_np
+
+    def adopt_health(self, mask: torch.Tensor) -> None:
+        """Adopt a health mask computed on the device (in-band fail/rebuild
+        of the ring slice)."""
+        self._healthy_dev = mask
+        self._healthy_stale = True
+
+    # -- control plane: one shard's slice, on every replica ------------------
+    def _mirror_ctl(self, shard: int, op: int, **kw) -> Any:
+        """Post one shard-addressed control message to EVERY replica,
+        healthy or not: all R slices stay in lock step, so a rebuild adopts
+        the donor's metadata without replaying control ops. Returns
+        replica 0's reply."""
+        msg = WireMsg(op=op, shard=shard, **kw)
+        futs = [t.post(msg) for t in self.transports]
+        self._await(futs)
+        return futs[0].value
+
+    def create_volume(self, shard: int) -> int:
+        return int(self._mirror_ctl(shard, MSG_CREATE))
+
+    def snapshot(self, shard: int, vol: int) -> int:
+        return int(self._mirror_ctl(shard, MSG_SNAPSHOT, volume=vol))
+
+    def clone(self, shard: int, vol: int) -> int:
+        return int(self._mirror_ctl(shard, MSG_CLONE, volume=vol))
+
+    def unmap(self, shard: int, vol: int, pages) -> None:
+        self._mirror_ctl(shard, MSG_UNMAP, volume=vol, pages=torch.as_tensor(
+            list(pages), dtype=torch.int64).to(self.device))
+
+    def delete_volume(self, shard: int, vol: int) -> None:
+        self._mirror_ctl(shard, MSG_DELETE, volume=vol)
+
+    # -- the sharded step's data plane ---------------------------------------
+    def device_state(self):
+        """(states, pools, healthy): R stacked states, R stacked pools (none
+        with ``null_storage``) and the cached (S, R) device mask."""
+        pools = () if self.null_storage else tuple(self.pools)
+        if self._healthy_dev is None:      # a copy: the mirror changes
+            self._healthy_dev = torch.tensor(self.healthy,
+                                             device=self.device)
+        return tuple(self.states), pools, self._healthy_dev
+
+    def set_device_state(self, states, pools) -> None:
+        for t, st in zip(self.transports, states):
+            t.endpoint.state = st
+        for t, p in zip(self.transports, pools):
+            t.endpoint.pool = p
+
+    def device_page_revs(self):
+        """Per-replica stacked (S, V, P) watermarks (none with
+        ``null_storage``)."""
+        if self.null_storage:
+            return ()
+        return tuple(t.endpoint.page_rev for t in self.transports)
+
+    def set_device_page_revs(self, page_revs) -> None:
+        for t, pr in zip(self.transports, page_revs):
+            t.endpoint.page_rev = pr
+
+    def bump_rr(self) -> torch.Tensor:
+        """Return the (S,) read cursors and move them on (a device add)."""
+        rr = self._rr
+        self._rr = rr + 1
+        return rr
+
+    # -- host read path (verification and tooling) ---------------------------
+    def read(self, shard: int, vol: int, pages: torch.Tensor,
+             block_offsets: torch.Tensor) -> torch.Tensor:
+        """One block per lane from the first healthy replica of ``shard``
+        (holes zero); the pump serves reads in the step."""
+        for r in range(self.n_replicas):
+            if not self.healthy[shard, r]:
+                continue
+            if self.null_storage:
+                pool = self.pools[r]
+                return torch.zeros((pages.shape[0],) + tuple(pool.shape[3:]),
+                                   dtype=pool.dtype, device=self.device)
+            fut = self.transports[r].post(WireMsg(
+                op=MSG_READ, shard=shard, volume=vol, pages=pages,
+                blocks=block_offsets))
+            self._await([fut])
+            return fut.value
+        raise RuntimeError(f"no healthy replica in shard {shard}")
+
+    def drain_transports(self) -> None:
+        for t in self.transports:
+            t.drain()
+
+    # -- fault handling, one shard at a time ---------------------------------
+    def _check(self, shard: int, replica: int) -> None:
+        if not 0 <= shard < self.n_shards:
+            raise IndexError(f"shard index {shard} out of range "
+                             f"[0, {self.n_shards})")
+        if not 0 <= replica < self.n_replicas:
+            raise IndexError(f"replica index {replica} out of range "
+                             f"[0, {self.n_replicas})")
+
+    def fail(self, shard: int, replica: int) -> None:
+        """Mark one shard's replica faulty. The shard's last healthy
+        replica is never failed: an all-failed shard would drop writes and
+        read zeros while its lanes still complete."""
+        self._check(shard, replica)
+        if self.healthy[shard, replica] and self.healthy[shard].sum() == 1:
+            raise RuntimeError(
+                f"replica {replica} is shard {shard}'s last healthy "
+                "replica; failing it would lose the shard's volumes")
+        self.healthy[shard, replica] = False
+        self._healthy_dev = None
+
+    def _donor(self, shard: int, candidates: Sequence[int]) -> int:
+        """The candidate with the highest revision on ``shard`` (each
+        replica's (S,) revisions, fetched in one host copy)."""
+        futs = [self.transports[r].post(WireMsg(op=MSG_QUERY_REV))
+                for r in candidates]
+        self._await(futs)
+        revs = torch.stack([f.value for f in futs]).cpu().numpy()
+        return candidates[int(np.argmax(revs[:, shard]))]
+
+    def rebuild(self, shard: int, replica: int) -> None:
+        """Restore ``shard``'s slice of ``replica`` from the shard's most
+        up-to-date healthy copy: the streamed delta of
+        ``ReplicaGroup.rebuild``, addressed to that slice alone."""
+        self._check(shard, replica)
+        if self.healthy[shard, replica]:
+            raise ValueError(f"shard {shard} replica {replica} is healthy; "
+                             "only a failed replica can be rebuilt")
+        donors = [r for r in range(self.n_replicas)
+                  if self.healthy[shard, r]]
+        if not donors:
+            raise RuntimeError(f"no healthy replica in shard {shard} to "
+                               "rebuild from")
+        self._delta_rebuild(self.transports[self._donor(shard, donors)],
+                            self.transports[replica], self.device,
+                            shard=shard)
+        self.healthy[shard, replica] = True
+        self._healthy_dev = None
+
+    def resync_rows(self, shard: int, replica: int,
+                    extents: torch.Tensor) -> None:
+        """Stream ``shard``'s pool rows ``extents`` (shard-local, int64, on
+        the device) to its healthy ``replica`` from the shard's other
+        healthy replica with the highest revision: ``ReplicaGroup.
+        resync_rows`` on one shard's slice."""
+        self._check(shard, replica)
+        donors = [r for r in range(self.n_replicas)
+                  if self.healthy[shard, r] and r != replica]
+        if not self.healthy[shard, replica] or not donors:
+            raise ValueError(f"shard {shard} replica {replica} must be "
+                             "healthy with a healthy peer to resync from")
+        if self.null_storage or not len(extents):
+            return
+        self._stream_rows(self.transports[self._donor(shard, donors)],
+                          self.transports[replica], extents, shard)
+
+    def consistent(self, shard: Optional[int] = None) -> bool:
+        """The healthy replicas of ``shard`` (of every shard by default)
+        agree on the metadata revision; every replica's (S,) revisions come
+        back in one host copy."""
+        futs = [t.post(WireMsg(op=MSG_QUERY_REV)) for t in self.transports]
+        self._await(futs)
+        revs = torch.stack([f.value for f in futs]).cpu().numpy()  # (R, S)
+        healthy = self.healthy
+        shards = range(self.n_shards) if shard is None else [shard]
+        return all(len({int(revs[r, s]) for r in range(self.n_replicas)
+                        if healthy[s, r]}) <= 1 for s in shards)

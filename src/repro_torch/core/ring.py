@@ -1,9 +1,10 @@
-"""The SQ/CQ ring protocol, host half: opcodes and the drain (numpy only).
+"""The SQ/CQ ring protocol, host half: opcodes, the drain and the shard map.
 
 Port of the host half of ``repro/core/ring.py``: the opcode table, the
 completion statuses and ``RingFrontend`` — S shards x Q admission queues
 drained under the batch-ordering contract into host-side numpy lane
-buffers. The device half (SQE/CQ records, the opcode-dispatched step,
+buffers, and ``vmap_shards``, which maps one shard's step over the shard
+axis (core/sharded.py). The device half (SQE/CQ records, the opcode-dispatched step,
 ``RingEngine``) and the COMPUTE opcode class land with the ring slice.
 
 Batch-ordering contract: within one batch, data lanes precede control
@@ -18,6 +19,7 @@ from typing import Any, List, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 # ---------------------------------------------------------------------------
 # the opcode table (SQE.op) and completion statuses (CQE.status)
@@ -55,6 +57,18 @@ ST_MISMATCH = 1    # the op ran, its predicate did not hold (not an error)
 
 # max control ops per batch (the device step's control-scan window)
 CTRL_TAIL = 8
+
+
+def vmap_shards(fn, n_shards: int):
+    """Map ``fn`` over a leading (S,) shard axis with ``torch.func.vmap``.
+    At S=1 it runs unmapped (squeeze, call, unsqueeze), as the reference
+    does: the single shard pays no batching rule."""
+    if n_shards == 1:
+        def unmapped(*args):
+            out = fn(*pytree.tree_map(lambda x: x[0], args))
+            return pytree.tree_map(lambda x: x[None], out)
+        return unmapped
+    return torch.func.vmap(fn)
 
 
 class RingFrontend:

@@ -12,6 +12,10 @@ Messages Map, so no lock and no coordinator serialize admission:
 Every function is plain tensor code on the tensors' own device and never
 reads a value back to the host. Out-of-bounds scatters (JAX's
 ``mode="drop"``) become scatters into a one-row pad that is sliced off.
+
+The dataclasses are registered as pytrees (``register_pytree_dataclass``),
+so ``torch.func.vmap`` maps these functions over a leading shard axis
+unchanged (``make_sharded_table``; core/sharded.py).
 """
 from __future__ import annotations
 
@@ -19,10 +23,23 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.utils._pytree as pytree
 
 I32 = torch.int32
 
 
+def register_pytree_dataclass(cls):
+    """Register a dataclass of tensors (and nested such dataclasses) as a
+    pytree node whose children are its fields in order, so ``vmap`` and
+    ``tree_map`` walk it. Returns ``cls`` (usable as a decorator)."""
+    names = [f.name for f in dataclasses.fields(cls)]
+    pytree.register_pytree_node(
+        cls, lambda x: ([getattr(x, n) for n in names], None),
+        lambda values, _ctx: cls(*values))
+    return cls
+
+
+@register_pytree_dataclass
 @dataclass
 class SlotRing:
     ids: torch.Tensor    # (N,) int32 ring storage of free slot ids
@@ -91,6 +108,7 @@ def release(ring: SlotRing, ids: torch.Tensor, mask=None) -> SlotRing:
     return dataclasses.replace(ring, ids=new_ids, tail=ring.tail + _isum(ok))
 
 
+@register_pytree_dataclass
 @dataclass
 class SlotTable:
     ring: SlotRing
@@ -111,6 +129,16 @@ def make_table(n_slots: int, device) -> SlotTable:
                                         device=device),
                      seq_len=z(), volume=z() - 1, queue=z(), arrival=z(),
                      opcode=z(), fnid=z(), status=z())
+
+
+def make_sharded_table(n_shards: int, n_slots: int, device) -> SlotTable:
+    """S independent Messages Arrays, shard-major: every leaf gains a
+    leading (S,) axis, so slot ``(s, i)`` belongs to shard ``s`` alone —
+    the layout ``torch.func.vmap`` maps one admission over for all shards
+    (core/sharded.py)."""
+    return pytree.tree_map(
+        lambda x: x[None].repeat((n_shards,) + (1,) * x.dim()).contiguous(),
+        make_table(n_slots, device))
 
 
 def admit(table: SlotTable, want: torch.Tensor, volumes, queues, step,

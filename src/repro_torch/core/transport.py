@@ -1,16 +1,19 @@
 """Controller<->replica transport: the pluggable wire between the two.
 
-Port of ``repro/core/transport.py`` (the flat endpoint; the shard-stacked
-endpoint comes with the shards slice):
+Port of ``repro/core/transport.py``:
 
 - **WireMsg** — an opcode-tagged controller->replica message: data
   (WRITE/READ), volume control, and the rebuild stream (WATERMARKS ->
   FETCH_DELTA -> FETCH_PAGES/PUSH_PAGES -> ADOPT_META),
 - **Replica** — one replica's endpoint: its ``DBSState``, payload pool and
   per-page revision watermarks, executing every message,
+- **StackedReplica** — one replica's endpoint across S engine shards
+  (leaves with a leading (S,) axis); a message addresses one shard's slice
+  (``WireMsg.shard``), and ``QUERY_REV`` answers with all S revisions,
 - **ReplicaTransport** — the delivery contract with per-opcode ``sent``
-  counters, ``pages_moved`` (pool rows through the rebuild stream) and
-  ``latency_ewma``; **LocalTransport** (a ``post`` IS the endpoint call),
+  counters, ``pages_moved`` (pool rows through the rebuild stream), both
+  also per addressed shard (``sent_by_shard``, ``pages_moved_by_shard``),
+  and ``latency_ewma``; **LocalTransport** (a ``post`` IS the endpoint call),
   **DeviceTransport** (the same, by the name the in-program engines use)
   and **SimNetTransport** (latency, a bounded window, drop with in-order
   retransmit, reorder injection; seeded with ``np.random.default_rng`` as
@@ -32,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from repro_torch.core import dbs
 
@@ -223,6 +227,52 @@ class Replica:
         raise ValueError(f"unknown wire opcode {op}")
 
 
+# messages that change an endpoint's metadata (state or watermarks)
+_META_OPS = frozenset({MSG_WRITE, MSG_CREATE, MSG_SNAPSHOT, MSG_CLONE,
+                       MSG_UNMAP, MSG_DELETE, MSG_ADOPT_META})
+
+
+@dataclass
+class StackedReplica:
+    """One replica's endpoint across S engine shards: every leaf carries a
+    leading (S,) axis, and a message addresses one shard's slice
+    (``msg.shard``) — executed by a flat ``Replica`` over that slice, whose
+    pool is a view (pool writes land in place) and whose new metadata is
+    written back into a fresh stacked copy (no tensor is shared with a
+    donor or with an earlier state). ``QUERY_REV`` returns the (S,)
+    revisions. The pool's foreground I/O rides the sharded step
+    (core/sharded.py); the transport carries control and rebuild traffic."""
+
+    state: dbs.DBSState          # leaves (S, ...)
+    pool: torch.Tensor           # (S, E+1, page_blocks, *payload)
+    page_rev: torch.Tensor       # (S, V, P) int32 last-write watermarks
+    null_storage: bool = False
+
+    def _slice(self, s: int) -> Replica:
+        return Replica(state=pytree.tree_map(lambda x: x[s], self.state),
+                       pool=self.pool[s], page_rev=self.page_rev[s],
+                       null_storage=self.null_storage)
+
+    def _write_back(self, s: int, view: Replica) -> None:
+        def put(full, new):
+            out = full.clone()
+            out[s] = new
+            return out
+        self.state = pytree.tree_map(put, self.state, view.state)
+        self.page_rev = put(self.page_rev, view.page_rev)
+
+    def execute(self, msg: WireMsg) -> Any:
+        if msg.op == MSG_QUERY_REV:
+            return self.state.revision       # (S,); the caller slices
+        if msg.shard is None:
+            raise ValueError("stacked endpoints need msg.shard")
+        view = self._slice(msg.shard)
+        out = view.execute(msg)
+        if msg.op in _META_OPS:
+            self._write_back(msg.shard, view)
+        return out
+
+
 # ---------------------------------------------------------------------------
 # transports
 # ---------------------------------------------------------------------------
@@ -231,8 +281,10 @@ class ReplicaTransport:
     ``post`` returns a future, ``tick`` advances simulated time (a no-op
     in-process), ``wait``/``drain`` tick until delivery. ``sent`` counts
     posted messages per opcode name, ``pages_moved`` the pool rows through
-    the rebuild stream, and ``latency_ewma`` is the observed delivery
-    latency in ticks that the latency read policy consults."""
+    the rebuild stream (``sent_by_shard``/``pages_moved_by_shard``: the
+    same per ``msg.shard``, None for flat endpoints), and ``latency_ewma``
+    is the observed delivery latency in ticks that the latency read policy
+    consults."""
 
     name = "?"
     in_process = True            # delivery is an immediate endpoint call
@@ -246,12 +298,17 @@ class ReplicaTransport:
         self.delivered = 0
         self.retransmits = 0
         self.pages_moved = 0
+        self.sent_by_shard: collections.Counter = collections.Counter()
+        self.pages_moved_by_shard: collections.Counter = \
+            collections.Counter()
         self.latency_ewma = 0.0
 
     def _account(self, msg: WireMsg) -> None:
         self.sent[MSG_NAMES[msg.op]] += 1
+        self.sent_by_shard[msg.shard] += 1
         if msg.op in (MSG_FETCH_PAGES, MSG_PUSH_PAGES):
             self.pages_moved += int(len(msg.extents))
+            self.pages_moved_by_shard[msg.shard] += int(len(msg.extents))
 
     def messages_sent(self) -> int:
         return sum(self.sent.values())

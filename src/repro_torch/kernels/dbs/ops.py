@@ -10,6 +10,13 @@ the bytes a batch semantically moves (the numerator of each kernel's bound).
 
 Engine pools carry one row past the allocator's range: the dump row that
 inert lanes are parked on (``ReplicaGroup`` sizes pools to n_extents+1).
+
+A shard-stacked pool ``(S, E+1, page, *payload)`` is served in one call as
+the flattened ``(S*(E+1), page, *payload)`` pool: ``shard_rows`` offsets
+shard s's row ids by ``s*(E+1)`` (holes stay -1), and the kernels index
+rows with 64-bit offsets. The write routing then parks inert lanes on the
+flattened pool's last row, shard S-1's dump row, where each is a no-op
+copy of that row onto itself; no other shard's dump row is touched.
 """
 from __future__ import annotations
 
@@ -19,6 +26,15 @@ from repro_torch.kernels.dbs.copy_kernel import dbs_copy
 from repro_torch.kernels.dbs.rw_kernel import dbs_rw_read, dbs_rw_write
 
 I32 = torch.int32
+
+
+def shard_rows(ids, rows_per_shard: int):
+    """(S, B) shard-local row ids -> (S*B,) rows of the flattened
+    ``(S*rows_per_shard, ...)`` pool: shard s's ids move up by
+    ``s*rows_per_shard``; holes (-1) stay -1."""
+    off = torch.arange(ids.shape[0], dtype=ids.dtype,
+                       device=ids.device)[:, None] * rows_per_shard
+    return torch.where(ids >= 0, ids + off, -1).reshape(-1)
 
 
 def dbs_copy_pool(pool, src, dst, mask, *, check_routing: bool = False):

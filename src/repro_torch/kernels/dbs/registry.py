@@ -20,7 +20,8 @@ copy      the hybrid of JAX's ``copy`` entry: the hand-written ``dbs_copy``
 ========  ==================================================================
 
 ``kernel="auto"`` resolves to ``cuda``, the counterpart of JAX's
-``pallas`` entry.
+``pallas`` entry. ``write_stacked``/``read_stacked`` run any entry over a
+shard-stacked pool in one call (the flattened-row form, ops.py).
 """
 from __future__ import annotations
 
@@ -44,6 +45,30 @@ class DBSKernel:
     name: str
     write: Callable
     read: Callable
+
+    def write_stacked(self, pool, ops, payload, block_offsets):
+        """``write`` over a shard-stacked ``(S, E+1, page, *payload)`` pool
+        in ONE call: the (S, B) ops, payloads and offsets of every shard
+        become S*B lanes over the flattened pool (ops.py ``shard_rows``).
+        Updates ``pool`` in place and returns it."""
+        from repro_torch.core.dbs import WriteOps
+        rows = pool.shape[1]
+        flat = WriteOps(dst=_ops.shard_rows(ops.dst, rows),
+                        cow_src=_ops.shard_rows(ops.cow_src, rows),
+                        ok=ops.ok.reshape(-1))
+        self.write(pool.view((-1,) + tuple(pool.shape[2:])), flat,
+                   payload.reshape((-1,) + tuple(payload.shape[2:])),
+                   block_offsets.reshape(-1))
+        return pool
+
+    def read_stacked(self, pool, ext, block_offsets):
+        """``read`` over a shard-stacked pool in ONE call: (S, B) shard-local
+        extents (holes -1) -> (S, B, *payload), holes zero."""
+        s, b = ext.shape
+        out = self.read(pool.view((-1,) + tuple(pool.shape[2:])),
+                        _ops.shard_rows(ext, pool.shape[1]),
+                        block_offsets.reshape(-1))
+        return out.view((s, b) + tuple(pool.shape[3:]))
 
 
 _REGISTRY: Dict[str, DBSKernel] = {}

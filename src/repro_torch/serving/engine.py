@@ -1,7 +1,7 @@
 """ServeEngine: continuous batching with the KV cache in the DBS pools.
 
-Port of ``GenRequest`` and ``ServeEngine(kv_backend="fused")`` from
-``repro/serving/engine.py``. One running engine = one Longhorn node:
+Port of ``GenRequest`` and ``ServeEngine(kv_backend="fused"|"sharded")``
+from ``repro/serving/engine.py``. One running engine = one Longhorn node:
 
 - admission goes through the **multi-queue frontend** (ublk analogue),
 - live requests own **slots** in a fixed SlotTable (Messages Array); the
@@ -55,9 +55,19 @@ caches, recurrent state and window rings alike (the reference copies
 none); and the prompt is prefilled unpadded (the reference's page padding
 feeds pad tokens into the recurrence).
 
-``ServePool`` steps several engines as shards. ``kv_backend="sharded"``
-lands with the shards slice. The engine runs on ``device`` (default
-``cuda``, with no CPU fallback).
+``kv_backend="sharded"`` keeps the KV store on the shard-stacked pool
+(``kv_shards`` shards, core/sharded.py): session volumes spread over the
+shards, the extent map and the pools are the flattened global views
+(``VolumeManager.device_extent_map``/``device_pools``), and one pump and
+one decode program serve every shard. Health there is per shard, and the
+decode attends through the first replica healthy on every shard (the
+reference attends replica 0's pool whatever its health, so after a
+shard's replica 0 fails it reads pages the pumps no longer write; ROADMAP
+queue 3). ``control("fail"|"rebuild", shard=, replica=)`` addresses one
+shard's slice.
+
+``ServePool`` steps several engines as shards. The engine runs on
+``device`` (default ``cuda``, with no CPU fallback).
 """
 from __future__ import annotations
 
@@ -82,7 +92,6 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_pool_ref
 from repro_torch.models import blocks as B
 from repro_torch.models import model as M
 
-UNPORTED_KV_BACKENDS = {"sharded": "the shards slice"}
 SHARED_CACHE_KEYS = ("pool_k", "pool_v", "block_table")
 
 
@@ -138,9 +147,6 @@ class ServeEngine:
                  kv_backend: str = "fused", kv_shards: int = 1,
                  kv_replicas: int = 2, kernel: str = "auto",
                  record_logits: bool = False, device=None):
-        if kv_backend in UNPORTED_KV_BACKENDS:
-            raise ValueError(f"kv_backend={kv_backend!r} lands with "
-                             f"{UNPORTED_KV_BACKENDS[kv_backend]} of the port")
         if cfg.n_codebooks > 1:
             raise ValueError("multi-codebook models land with the models "
                              "slice of the port")
@@ -200,6 +206,7 @@ class ServeEngine:
             # pump that may move extents (_pump_writes)
             self._pools = self.volumes.device_pools()
             self._table = self.volumes.device_extent_map()
+            self._attn = 0            # the pool the decode attends through
             self._attn_cuda = kernel in ("auto", "cuda")
             self._cow_pending: set = set()
             self._step_fn = self._decode_program
@@ -223,10 +230,15 @@ class ServeEngine:
     def state(self):
         """The DBS metadata behind the session volumes (``state.table`` is
         the paged-attention block table): the host backend's own state on
-        the copy-based baseline, else replica 0's."""
+        the copy-based baseline, else replica 0's (on the sharded pool its
+        stacked (S, ...) state)."""
         if not self._zero_copy:
             return self.volumes.state
         return self.volumes.engine.backend.device_state()[0][0]
+
+    @property
+    def _sharded(self) -> bool:
+        return self.volumes.engine.pool is not None
 
     @staticmethod
     def _pool_rows(cache, n_rows: int):
@@ -296,32 +308,67 @@ class ServeEngine:
         return child
 
     def control(self, kind: str, **kw):
-        """Replica-plane control (fail/...) on the KV store. The pools are
-        committed to the replicas first, so a control op sees every decode
-        scatter, not just the last pumped state."""
+        """Replica-plane control (fail/rebuild; ``shard=`` on the sharded
+        pool) on the KV store. The pools are committed to the replicas
+        first, so a control op sees every decode scatter, not just the last
+        pumped state."""
         if not self._zero_copy:
             return self.volumes.engine.control(kind, **kw)
+        if self._sharded and kind == "fail":
+            self._check_attend_after_fail(kw.get("shard"), kw.get("replica"))
         self.volumes.set_device_pools(self._pools)
         out = self.volumes.engine.control(kind, **kw)
         self._table = self.volumes.device_extent_map()
         if kind == "rebuild":
-            self._resync_live_rows(kw["replica"])
+            self._resync_live_rows(kw["replica"], kw.get("shard"))
         self._pools = self.volumes.device_pools()
+        if self._sharded:
+            # every shard's lanes read one pool: a replica healthy on all
+            healthy = self.volumes.engine.backend.healthy.all(axis=0)
+            self._attn = int(np.argmax(healthy))
         return out
 
-    def _resync_live_rows(self, replica: int) -> None:
+    def _check_attend_after_fail(self, shard, replica) -> None:
+        """The decode attends every shard's lanes through one pool, so a
+        fail that would leave no replica healthy on every shard is refused
+        before anything changes. Ids out of range are left to the pool's
+        own check."""
+        healthy = self.volumes.engine.backend.healthy
+        s_n, r_n = healthy.shape
+        if shard is None or replica is None or not (
+                0 <= shard < s_n and 0 <= replica < r_n):
+            return
+        after = healthy.copy()
+        after[shard, replica] = False
+        if not after.all(axis=0).any():
+            raise RuntimeError(
+                f"failing shard {shard} replica {replica} would leave no KV "
+                "replica healthy on every shard, and the decode attends "
+                "through one")
+
+    def _resync_live_rows(self, replica: int,
+                          shard: Optional[int] = None) -> None:
         """The decode program scatters K/V into the pools with no watermark
         stamp, so the delta rebuild misses what it wrote into pages mapped
         before the failure (the reference leaves those rows stale; ROADMAP
         queue 3). Every row a live session maps, a superset of them, is
-        streamed to the rebuilt replica (one host fetch for the row ids)."""
+        streamed to the rebuilt replica (one host fetch for the row ids);
+        on the sharded pool, the rows of the rebuilt shard's sessions, as
+        that shard's own row ids."""
         vols = self.slot_vol[self.slot_vol >= 0]
+        if shard is not None:
+            vols = vols[vols % self.volumes.engine.pool.n_shards == shard]
         if not len(vols):
             return
         ext = self._table[torch.as_tensor(vols, dtype=torch.int64,
                                           device=self._table.device)]
         ext = torch.unique(ext[ext >= 0]).long()
-        self.volumes.engine.backend.resync_rows(replica, ext)
+        storage = self.volumes.engine.backend
+        if shard is None:
+            storage.resync_rows(replica, ext)
+        else:
+            rows = storage.pools[0].shape[1]            # E+1 a shard
+            storage.resync_rows(shard, replica, ext - shard * rows)
 
     # ------------------------------------------------------- engine stepping
     def _admit(self) -> List[GenRequest]:
@@ -410,7 +457,7 @@ class ServeEngine:
             lengths = (p + 1).to(torch.int32)
             attend = (paged_attention_pool_fwd if self._attn_cuda
                       else paged_attention_pool_ref)
-            out = attend(qk.float().contiguous(), pools[0],
+            out = attend(qk.float().contiguous(), pools[self._attn],
                          bt_.contiguous(), lengths, k_plane=kp, v_plane=vp,
                          window=window, logit_cap=logit_cap, scale=eff_scale)
             out = out[..., :vd].to(q.dtype)[:, None]

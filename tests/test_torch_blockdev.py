@@ -7,9 +7,14 @@
 3. ``convert`` carries a JAX engine's state into the port mid-trace, and
    both go on identically.
 4. Device choice and unported configuration raise; every configuration
-   the controller slice brought (the upstream baseline, chained storage,
-   the transports and policies, the null cuts) gives the JAX package's
-   bytes; the package imports neither JAX nor ``repro``.
+   the controller and shards slices brought (the upstream baseline,
+   chained storage, the transports and policies, the null cuts, the
+   sharded pool) gives the JAX package's bytes; the package imports
+   neither JAX nor ``repro``.
+5. The sharded pool (``backend="sharded"``) through the byte API: the
+   interleaved oracle scenario, a seeded trace against the JAX pool (every
+   stacked replica leaf bit for bit), one flush completing a page-crossing
+   span, and control kinds refused at submit on every backend.
 """
 import dataclasses
 import os
@@ -176,6 +181,28 @@ def _assert_same_replicas(jm, tm):
         assert np.array_equal(a[2], b[2]), f"replica {i} pool"
 
 
+def _assert_same_stacked(jm, tm):
+    """Every stacked replica leaf of two sharded pools, bit for bit."""
+    jg, tg = jm.engine.backend, tm.engine.backend
+    np.testing.assert_array_equal(jg.healthy, tg.healthy)
+    for i in range(jg.n_replicas):
+        _cmp_tree(jax.device_get(dataclasses.asdict(jg.states[i])),
+                  convert.to_numpy(tg.states[i]), f"replica {i} state")
+        assert np.array_equal(np.asarray(jg.pools[i]),
+                              tg.pools[i].numpy()), f"replica {i} pool"
+    for i, (a, b) in enumerate(zip(jg.device_page_revs(),
+                                   tg.device_page_revs())):
+        assert np.array_equal(np.asarray(a), b.numpy()), f"replica {i} revs"
+
+
+def _cmp_tree(a, b, path):
+    if isinstance(a, dict):
+        for k in a:
+            _cmp_tree(a[k], b[k], f"{path}.{k}")
+        return
+    assert np.array_equal(np.asarray(a), np.asarray(b)), path
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("jkernel,tkernel", [("pallas", "cuda"),
                                              ("xla", "torch")])
@@ -234,8 +261,8 @@ def test_default_device_is_cuda_without_fallback():
 
 @pytest.mark.parametrize("kw,slice_", [
     (dict(backend="ring"), "ring slice"),
-    (dict(backend="sharded"), "shards slice"),
-    (dict(n_shards=2), "shards slice"),
+    (dict(backend="ring", n_shards=2), "ring slice"),
+    (dict(backend="sharded", n_shards=2, tier=8), "durability slice"),
     (dict(journal="wal.log"), "durability slice"),
     (dict(tier=8), "durability slice"),
     # not a storage: the fused backend refuses it as the reference does
@@ -259,6 +286,9 @@ def test_unported_configuration_raises(kw, slice_):
     dict(null_backend=True),
     dict(null_storage=True),
     dict(backend="loop", storage="chained"),
+    dict(backend="sharded", n_shards=2),
+    dict(backend="sharded", n_shards=2, null_storage=True),
+    dict(n_shards=2),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()
                            if k != "transport_opts"))
 def test_ported_configuration_matches_jax(kw):
@@ -283,6 +313,8 @@ def test_ported_configuration_matches_jax(kw):
     assert (outs[1] == bytes(tm.capacity)) == bool(cut)
     if hasattr(tm.engine.backend, "replicas"):
         _assert_same_replicas(jm, tm)
+    if hasattr(tm.engine.backend, "states"):
+        _assert_same_stacked(jm, tm)
 
 
 def test_unported_calls_raise():
@@ -318,3 +350,70 @@ def test_port_imports_no_jax_and_no_repro():
     assert len(files) > 15
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+# ---------------------------------------------------------------------------
+# 5. the sharded pool through the byte API
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kernel", ["cuda", "torch"])
+def test_byte_equivalence_interleaved_sharded(kernel):
+    interleaved_scenario(_mgr(backend="sharded", n_shards=2, kernel=kernel,
+                              n_extents=128))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sharded_seeded_trace_matches_jax(seed):
+    """The seeded byte trace over volumes spread on two shards: the same
+    bytes from every read, and every stacked replica leaf of the two
+    pools equal at the end."""
+    kw = dict(GEOM, backend="sharded", n_shards=2)
+    jm = JManager(kernel="pallas", **kw)
+    tm = VolumeManager(kernel="cuda", device="cpu", **kw)
+    ops = _trace(seed, 70, jm.capacity)
+    outs = ([], [])
+    for m, out in zip((jm, tm), outs):
+        vols = [m.create(), m.create(), m.create()]
+        _replay(m, ops, vols, out)
+    assert outs[0] == outs[1]
+    assert len(outs[1]) > 10
+    _assert_same_stacked(jm, tm)
+    assert tm.engine.backend.consistent()
+
+
+@pytest.mark.parametrize("backend,shards", [("sharded", 2), ("fused", 1)])
+def test_large_span_fans_out_and_completes_on_flush(backend, shards):
+    """One call fans out to many block requests, completed by ONE flush
+    (no per-block host round trip); the bytes round-trip exactly."""
+    mgr = _mgr(backend=backend, n_shards=shards, n_extents=128)
+    v = mgr.create()
+    data = _pat(11, 5 * mgr.page_bytes + 3)             # cross-extent span
+    fut = v.pwrite(3, data)
+    rfut = v.pread(3, len(data))
+    assert not fut.done()
+    mgr.flush()
+    assert fut.done() and rfut.done()
+    assert fut.result() == len(data)
+    assert rfut.result() == data
+
+
+@pytest.mark.parametrize("backend,shards", [("upstream", 1), ("loop", 1),
+                                            ("slots", 1), ("fused", 1),
+                                            ("sharded", 2), ("host", 1)])
+def test_control_rejected_at_submit_data_survives(backend, shards):
+    """On the data-only backends a control kind is refused at submit,
+    before it is queued, so the data request queued beside it survives;
+    the same op then goes through the control plane."""
+    from repro_torch.core import Request
+    mgr = _mgr(backend=backend, n_shards=shards, n_extents=128)
+    v = mgr.create()
+    eng = mgr.engine
+    w = Request(req_id=0, kind="write", volume=v.vid, page=0, block=0,
+                payload=np.full((BB,), 7.0, np.float32))
+    eng.submit(w)
+    for kind in ("snapshot", "clone", "unmap", "noop"):
+        with pytest.raises(ValueError):
+            eng.submit(Request(req_id=1, kind=kind, volume=v.vid))
+    assert eng.depth() == 1
+    assert eng.drain() == 1 and w.status == 0
+    mgr.snapshot(v)
+    assert v.read(0, BB) == bytes([7] * BB)

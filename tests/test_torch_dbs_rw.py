@@ -7,13 +7,17 @@
    (interpret mode) and ``xla``; reads with holes agree too.
 2. Multidimensional payloads, the registry API, the drop-``dst<0`` rule of
    the ``torch`` entry and the write-routing check.
-3. The CUDA kernels themselves are held against their plain versions on a
+3. The flattened-row form of the sharded pool (``write_stacked``/
+   ``read_stacked``: one call over every shard) equals per-shard calls and
+   the reference's ``jax.vmap`` of the kernels, dump rows included.
+4. The CUDA kernels themselves are held against their plain versions on a
    card by tests/test_torch_kernels_gpu.py, which imports no JAX.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import dbs as jdbs  # noqa: E402
@@ -108,6 +112,49 @@ def test_read_matches_jax_with_holes(kernel, e, page, d, b):
             jnp.asarray(pool), jnp.asarray(ext), jnp.asarray(blocks)))
         assert np.array_equal(got, want), ref
     assert not got[0].any()
+
+
+@pytest.mark.parametrize("kernel", PORT_KERNELS)
+def test_write_and_read_vmap_safe(kernel):
+    """tests/test_dbs_rw.py's vmap case in the port's flattened-row form:
+    three shards, each with its own ``write_pages`` batch over its own pool,
+    written by ONE ``write_stacked`` call (3*B lanes over the (3*E, page,
+    d) view) and read by ONE ``read_stacked`` call with holes. Every row
+    (each shard's dump row too) equals per-shard calls of the same entry
+    and the reference's ``jax.vmap`` of its ``pallas`` kernels."""
+    e, page, d, b, s = 16, 4, 8, 8, 3
+    batches = [_legal_batch(e, page, d, b, seed) for seed in range(s)]
+    pools, dst, cow, ok, pay, blk = (np.stack(x) for x in zip(*batches))
+    kern = make_kernel(kernel)
+    ops = tdbs.WriteOps(dst=torch.from_numpy(dst),
+                        cow_src=torch.from_numpy(cow), ok=torch.from_numpy(ok))
+    stacked = torch.from_numpy(pools.copy())
+    out = kern.write_stacked(stacked, ops, torch.from_numpy(pay),
+                             torch.from_numpy(blk))
+    assert out.data_ptr() == stacked.data_ptr()
+    per_shard = np.stack([_port_write(kernel, *bt) for bt in batches])
+    jk = j_make_kernel("pallas")
+    vw = jax.vmap(lambda p, dd, cc, oo, pp, bb: jk.write(
+        p, jdbs.WriteOps(dst=dd, cow_src=cc, ok=oo), pp, bb))
+    want = np.asarray(vw(*(jnp.asarray(x) for x in (pools, dst, cow, ok, pay,
+                                                     blk))))
+    assert np.array_equal(per_shard, want)
+    assert np.array_equal(out.numpy(), want)
+    lane = np.arange(b, dtype=np.int32)
+    ext = np.stack([np.where((lane + i) % 3 == 0, -1, (lane * 5 + i) % e)
+                    for i in range(s)]).astype(np.int32)
+    got = kern.read_stacked(out, torch.from_numpy(ext),
+                            torch.from_numpy(blk)).numpy()
+    assert got.shape == (s, b, d)
+    for i in range(s):
+        assert np.array_equal(got[i], kern.read(
+            out[i], torch.from_numpy(ext[i]),
+            torch.from_numpy(blk[i])).numpy()), i
+    vr = jax.vmap(lambda p, x, bb: jk.read(p, x, bb))
+    assert np.array_equal(got, np.asarray(vr(jnp.asarray(want),
+                                             jnp.asarray(ext),
+                                             jnp.asarray(blk))))
+    assert not got[ext < 0].any()
 
 
 def test_rw_pool_wrappers_multidim_payload():

@@ -52,7 +52,13 @@ column split the wrapper's rule picks on the card.
 
 The controller slice on the card: a fused trace with a failed replica and
 its streamed delta rebuild, bit for bit against the same run on the CPU,
-and the upstream baseline's bytes against the CPU's. Imports no JAX.
+and the upstream baseline's bytes against the CPU's.
+
+The shards slice on the card: the flattened-row form (``write_stacked``/
+``read_stacked``: one launch over S shards' lanes at offset rows) against
+the plain versions over the same stacked pool, at S 1, 4 and 8, up to the
+block device's width; and a sharded pool's trace with a per-shard failure
+and rebuild, bit for bit against the same run on the CPU. Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -762,6 +768,119 @@ def test_rebuild_and_upstream_on_the_card_match_the_cpu(backend):
     assert gpu_out == cpu_out and len(gpu_out) > 50
     if backend != "fused":
         return
+
+    def same(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{path}.{k}")
+            return
+        assert np.array_equal(a, b), path
+    for i, (a, b) in enumerate(zip(gpu_reps, cpu_reps)):
+        for part, x, y in zip(("state", "pool", "page_rev"), a, b):
+            same(x, y, f"replica {i} {part}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,n_e,page,d,b", [(1, 33, 8, 16, 12),
+                                            (4, 33, 8, 16, 12),
+                                            (8, 16, 4, 6, 8),
+                                            (4, 64, 32, 4096, 64)])
+def test_flattened_rows_match_plain_versions(s, n_e, page, d, b):
+    """One ``dbs_rw_write`` launch and one ``dbs_rw_read`` launch over S
+    shards' write_pages batches (S*B lanes at rows offset by s*(E+1))
+    leave the stacked pool and return the blocks bit for bit as the plain
+    versions do over the same stacked pool."""
+    from repro_torch.kernels.dbs import make_kernel
+    from repro_torch.kernels.dbs import rw_kernel
+    dev = _cuda()
+    rng = np.random.default_rng(s * 100 + n_e)
+    n_p = 4 * b
+    ops, blocks = [], []
+    for i in range(s):          # each shard's own write_pages batch
+        st = dbs.make_state(n_e, 2, n_p, device=torch.device("cpu"))
+        st, _ = dbs.create_volume(st)
+        pages = rng.integers(0, n_p // 2, b).astype(np.int32)
+        st, _ = dbs.write_pages(st, 0, torch.from_numpy(pages[:b // 2]),
+                                torch.ones(b // 2, dtype=torch.int64))
+        st, _ = dbs.snapshot(st, 0)
+        blk = rng.integers(0, page, b).astype(np.int64)
+        st, op = dbs.write_pages(
+            st, 0, torch.from_numpy(pages),
+            torch.ones((), dtype=torch.int64) << torch.from_numpy(blk),
+            torch.from_numpy(rng.random(b) < 0.9))
+        ops.append(op)
+        blocks.append(blk.astype(np.int32))
+    stacked = dbs.WriteOps(*(torch.stack([getattr(o, f) for o in ops]).to(dev)
+                             for f in ("dst", "cow_src", "ok")))
+    blk = torch.from_numpy(np.stack(blocks)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(s)
+    pool = torch.rand((s, n_e + 1, page, d), generator=gen, device=dev)
+    plain = pool.clone()
+    pay = torch.rand((s, b, d), generator=gen, device=dev)
+    before = dict(rw_kernel.LAUNCHES)
+    make_kernel("cuda").write_stacked(pool, stacked, pay, blk)
+    make_kernel("ref").write_stacked(plain, stacked, pay, blk)
+    torch.cuda.synchronize()
+    assert torch.equal(pool, plain)
+    lane = torch.arange(b, device=dev, dtype=torch.int32)
+    ext = torch.stack([torch.where((lane + i) % 3 == 0, -1,
+                                   (lane * 7 + i) % n_e)
+                       for i in range(s)]).to(torch.int32)
+    got = make_kernel("cuda").read_stacked(pool, ext, blk)
+    want = make_kernel("ref").read_stacked(plain, ext, blk)
+    assert torch.equal(got, want) and not got[ext < 0].any()
+    assert {k: rw_kernel.LAUNCHES[k] - before[k] for k in before} == {
+        "dbs_rw_write": 1, "dbs_rw_read": 1}
+
+
+def _sharded_run(device):
+    """A seeded byte trace on a 3-replica, 4-shard pool with shard 1's
+    replica 1 failed halfway and rebuilt at the end, then read from it
+    alone. Returns every read's bytes and each replica's stacked state,
+    pool and watermarks as numpy."""
+    from repro_torch.core import convert
+    from repro_torch.core.blockdev import VolumeManager
+    rng = np.random.default_rng(9)
+    mgr = VolumeManager(backend="sharded", n_shards=4, device=device,
+                        payload_elems=64, page_blocks=8, max_pages=32,
+                        n_extents=64, max_volumes=4, batch=16, n_replicas=3,
+                        kernel="cuda")
+    vols = [mgr.create() for _ in range(4)]
+    reads = []
+    for i in range(240):
+        if i == 120:
+            vols[1].snapshot()
+            vols.append(vols[1].clone())
+            mgr.engine.control("fail", shard=1, replica=1)
+        v = vols[i % len(vols)]
+        off = int(rng.integers(0, mgr.capacity - 256))
+        if rng.random() < 0.6:
+            v.pwrite(off, rng.integers(0, 256, int(rng.integers(1, 256)),
+                                       dtype=np.uint8).tobytes())
+        else:
+            reads.append(v.pread(off, 200))
+    mgr.flush()
+    out = [f.result() for f in reads]
+    g = mgr.engine.backend
+    mgr.engine.control("rebuild", shard=1, replica=1)
+    assert g.transports[1].pages_moved_by_shard[1] > 0 and g.consistent()
+    mgr.engine.control("fail", shard=1, replica=0)
+    mgr.engine.control("fail", shard=1, replica=2)
+    out += [v.read(0, mgr.capacity) for v in vols]
+    return out, [(convert.to_numpy(st), convert.to_numpy(p),
+                  convert.to_numpy(r)) for st, p, r in zip(
+                      g.states, g.pools, g.device_page_revs())]
+
+
+@pytest.mark.gpu
+def test_sharded_pool_on_the_card_matches_the_cpu():
+    """The sharded pool on the card (the DBS kernels over flattened rows)
+    leaves every stacked leaf bit-equal to the same run on the CPU, and the
+    rebuilt slice alone reads back the same bytes."""
+    dev = _cuda()
+    (gpu_out, gpu_reps), (cpu_out, cpu_reps) = (
+        _sharded_run(dev), _sharded_run(torch.device("cpu")))
+    assert gpu_out == cpu_out and len(gpu_out) > 50
 
     def same(a, b, path):
         if isinstance(a, dict):

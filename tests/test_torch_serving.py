@@ -1,4 +1,5 @@
-"""Port parity: zero-copy serving, ``ServeEngine(kv_backend="fused")``.
+"""Port parity: zero-copy serving, ``ServeEngine(kv_backend="fused")`` and
+``kv_backend="sharded"``.
 
 Twins of tests/test_serving.py's continuous-batching, fork, replica-failure
 and multi-queue tests. Each feeds the same seeded requests to the JAX
@@ -17,6 +18,11 @@ their plain versions) and steps both in lock step. After every step:
 Where a greedy step's top-2 logit margin in JAX is under 1e-3, that step's
 token is not compared (only its logits), since a tie that close may break
 either way. The port's own fork test is bit-identical, as in JAX.
+
+On the sharded KV store (two shards) the same lock step holds, with replica
+0's whole stacked ``DBSState`` compared instead of its stats; the clone
+route's watermark inheritance, the dump rows and a mid-decode failover
+(where the port corrects the reference: ROADMAP queue 3) are checked too.
 """
 import dataclasses
 
@@ -103,14 +109,23 @@ def _check(je, te, jo, to):
     jt_map = np.asarray(jax.device_get(je.volumes.device_extent_map()))
     tt_map = te.volumes.device_extent_map().numpy()
     np.testing.assert_array_equal(tt_map, jt_map)
-    assert TD.stats(te.state) == JD.stats(je.state)
+    if te._sharded:                 # replica 0's stacked (S, ...) state
+        jst = jax.device_get(dataclasses.asdict(je.state))
+        tst = convert.to_numpy(te.state)
+        for k in jst:
+            if k != "free":
+                np.testing.assert_array_equal(tst[k], np.asarray(jst[k]))
+    else:
+        assert TD.stats(te.state) == JD.stats(je.state)
     rows = np.unique(jt_map[jt_map >= 0])
     # the engines' live pools: the reference holds its decode scatters in
     # the engine until the next pump commits them to the replicas; the
-    # port's scatters land in the replicas' own tensors
+    # port's scatters land in the replicas' own tensors (on the sharded
+    # pool, views of them)
     jpools = jax.device_get(je._pools)
     tpools = te.volumes.device_pools()
-    assert all(a is b for a, b in zip(tpools, te._pools))
+    assert all((a.data_ptr() == b.data_ptr()) if te._sharded else a is b
+               for a, b in zip(tpools, te._pools))
     assert len(jpools) == len(tpools)
     for jp_, tp_ in zip(jpools, tpools):
         np.testing.assert_allclose(tp_.numpy()[rows], np.asarray(jp_)[rows],
@@ -407,8 +422,8 @@ def test_device_views_are_the_live_pools(granite):
 
 def test_unported_serving_configuration_raises(granite):
     _, tc, _, tp = granite
-    with pytest.raises(ValueError, match="shards slice"):
-        ServeEngine(tc, tp, kv_backend="sharded", device="cpu")
+    with pytest.raises(ValueError, match="ring slice"):
+        ServeEngine(tc, tp, kv_backend="ring", device="cpu")
     with pytest.raises(ValueError, match="models slice"):
         ServeEngine(t_smoke("musicgen-large"), tp, device="cpu")
     if not torch.cuda.is_available():
@@ -480,3 +495,194 @@ def test_gemma2_fork_matches_reference_in_lock_step(gemma2):
     assert te.live[1].out_tokens == je.live[1].out_tokens
     assert te.live[0].out_tokens == je.live[0].out_tokens
     assert len(te.live[1].out_tokens) == 8
+
+
+# ---------------------------------------------------------------------------
+# the sharded KV store
+# ---------------------------------------------------------------------------
+SHARDED = dict(kv_backend="sharded", kv_shards=2)
+
+
+def test_sharded_serving_matches_jax(granite):
+    """More requests than slots, their volumes spread over two shards: each
+    lock step gives the reference's tokens and logits, extent map, stacked
+    metadata and pools (the module note); at the end nothing leaks and the
+    replicas agree on every shard."""
+    jc = granite[0]
+    je, te = _pair(granite, n_slots=4, max_len=64, **SHARDED)
+    rng = np.random.default_rng(5)
+    for rid in range(6):
+        _submit(je, te, rid, rng.integers(0, jc.vocab_size, size=(8 + rid,)),
+                4)
+    _drain(je, te, 40)
+    assert all(len(g.out_tokens) == 4 for g in te.live.values())
+    st = convert.to_numpy(te.state)
+    assert (st["extent_owner"] < 0).all() and (st["vol_head"] < 0).all()
+    assert te.volumes.engine.backend.consistent()
+    assert {g.volume % 2 for g in te.live.values()} == {0, 1}
+
+
+def test_clone_inherits_page_rev_on_serving_route():
+    """tests/test_serving.py's check on the sharded pool, in both packages:
+    ``VolumeManager.clone`` keeps the clone on its source's shard with the
+    source's watermark row, so a replica rebuilt after the clone diverged
+    serves the clone's prefix fresh. The watermarks and the final stacked
+    metadata equal the reference's."""
+    from repro.core.blockdev import VolumeManager as JManager
+    from repro_torch.core.blockdev import VolumeManager
+
+    def run(make, host):
+        with make(backend="sharded", n_shards=2, n_replicas=2,
+                  payload_elems=8, page_blocks=4, n_extents=64,
+                  max_volumes=8, max_pages=8) as mgr:
+            vol = mgr.create()
+            data = bytes(range(32))                 # one full page
+            vol.write(0, data)
+            clone = vol.clone()
+            assert clone is not None
+            shard = vol.vid % 2
+            assert clone.vid % 2 == shard           # shard-local clone
+            revs = np.stack([host(r) for r in
+                             mgr.engine.backend.device_page_revs()])
+            src_l, cl_l = vol.vid // 2, clone.vid // 2
+            assert revs[0, shard, src_l].max() > 0
+            np.testing.assert_array_equal(revs[:, shard, cl_l],
+                                          revs[:, shard, src_l])
+            mgr.flush()
+            mgr.engine.control("fail", shard=shard, replica=0)
+            clone.write(32, b"\xff" * 8)            # diverge while degraded
+            mgr.engine.control("rebuild", shard=shard, replica=0)
+            mgr.engine.control("fail", shard=shard, replica=1)
+            assert clone.read(0, 32) == data
+            assert clone.read(32, 8) == b"\xff" * 8
+            mgr.engine.control("rebuild", shard=shard, replica=1)
+            g = mgr.engine.backend
+            return revs, [host(r) for r in g.device_page_revs()], [
+                host(st.table) for st in g.states]
+    jout = run(JManager, lambda x: np.asarray(jax.device_get(x)))
+    tout = run(lambda **kw: VolumeManager(device="cpu", **kw),
+               lambda x: x.numpy())
+    np.testing.assert_array_equal(tout[0], jout[0])
+    for a, b in zip(tout[1] + tout[2], jout[1] + jout[2]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sharded_dump_rows_are_never_read(granite):
+    """Every shard's dump row (flattened row ``s*(E+1)+E``) filled with NaN
+    before decoding reaches no logit; inactive lanes scatter into the last
+    one, as the reference's wrapped index -1 does."""
+    jc, tc, _, tp = granite
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, jc.vocab_size, size=(6 + i,)) for i in (0, 1)]
+    engines = []
+    for poison in (False, True):
+        e = ServeEngine(tc, tp, n_slots=4, max_len=32, record_logits=True,
+                        device="cpu", **SHARDED)
+        for rid, pr in enumerate(prompts):
+            e.submit(GenRequest(req_id=rid, prompt=pr.copy(), max_new=6))
+        rows = e.volumes.engine.backend.pools[0].shape[1]
+        dumps = [s * rows + rows - 1 for s in range(2)]
+        if poison:
+            for p in e.volumes.device_pools():
+                p[dumps] = float("nan")
+        e.run(max_steps=20)
+        engines.append(e)
+    assert all(torch.isnan(p[dumps]).all(dim=0).any()
+               for p in engines[1]._pools)
+    for rid in range(2):
+        np.testing.assert_array_equal(
+            np.stack(engines[0].live[rid].logit_trace),
+            np.stack(engines[1].live[rid].logit_trace))
+
+
+def test_sharded_failover_reads_healthy_replicas(granite):
+    """A shard's replica 0 fails mid-decode and two more sessions are
+    admitted, one of them on that shard; later that replica is rebuilt and
+    shard 0's replica 1 fails. The port reads each shard's extent map from
+    a healthy replica and attends through a replica healthy on every shard,
+    so every session's tokens and logits equal an undisturbed engine's bit
+    for bit; the rebuild moves rows of shard 0 only. The reference reads
+    replica 0's map and pool whatever their health: the session admitted
+    on the failed shard finds no extent for its prompt, and its logits
+    leave the undisturbed ones (ROADMAP queue 3)."""
+    jc, tc, _, tp = granite
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, jc.vocab_size, size=(7 + i,))
+               for i in range(3)]
+    je, te = _pair(granite, n_slots=4, max_len=64, **SHARDED)
+    ref = ServeEngine(tc, tp, n_slots=4, max_len=64, record_logits=True,
+                      device="cpu", **SHARDED)
+
+    def submit(rid):
+        _submit(je, te, rid, prompts[rid], 6)
+        ref.submit(GenRequest(req_id=rid, prompt=prompts[rid].copy(),
+                              max_new=6))
+
+    def step(n, engines):
+        for _ in range(n):
+            for e in engines:
+                e.step()
+    submit(0)
+    _lockstep(je, te, 2)
+    step(2, [ref])
+    je.control("fail", shard=0, replica=0)
+    te.control("fail", shard=0, replica=0)
+    submit(1)
+    submit(2)
+    step(3, [je, te, ref])
+    on0, = (rid for rid in (1, 2) if te.live[rid].volume % 2 == 0)
+    assert je.live[on0].volume == te.live[on0].volume
+    g = te.volumes.engine.backend
+    moved = dict(g.transports[0].pages_moved_by_shard)
+    te.control("rebuild", shard=0, replica=0)  # mid-decode, delta + resync
+    assert set(g.transports[0].pages_moved_by_shard) == {0}
+    assert g.transports[0].pages_moved_by_shard[0] > moved.get(0, 0)
+    te.control("fail", shard=0, replica=1)     # the rebuilt one serves
+    assert te._attn == 0 and g.consistent()
+    step(12, [je, te, ref])
+    for rid in range(3):
+        assert te.live[rid].done and ref.live[rid].done
+        assert te.live[rid].out_tokens == ref.live[rid].out_tokens
+        np.testing.assert_array_equal(np.stack(te.live[rid].logit_trace),
+                                      np.stack(ref.live[rid].logit_trace))
+    # the reference's session on the failed shard attends no prompt K/V
+    assert not np.allclose(np.stack(je.live[on0].logit_trace),
+                           np.stack(ref.live[on0].logit_trace), **TOL)
+
+
+def test_sharded_fail_refused_before_it_applies(granite):
+    """Two KV replicas over two shards: failing (shard 0, replica 1) and
+    then (shard 1, replica 0) leaves each shard a healthy replica but none
+    healthy on both, so no pool could serve the one decode. The second fail
+    is refused with nothing changed: the health mask, the pool the decode
+    attends through, and the tokens, which still equal an undisturbed
+    engine's bit for bit."""
+    jc, tc, _, tp = granite
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, jc.vocab_size, size=(7 + i,))
+               for i in range(2)]
+    engines = [ServeEngine(tc, tp, n_slots=4, max_len=64,
+                           record_logits=True, device="cpu", **SHARDED)
+               for _ in range(2)]
+    for e in engines:
+        for rid, pr in enumerate(prompts):
+            e.submit(GenRequest(req_id=rid, prompt=pr.copy(), max_new=6))
+        for _ in range(3):
+            e.step()
+    te = engines[0]
+    g = te.volumes.engine.backend
+    te.control("fail", shard=0, replica=1)
+    assert te._attn == 0
+    before = g.healthy.copy()
+    with pytest.raises(RuntimeError, match="no KV replica healthy"):
+        te.control("fail", shard=1, replica=0)
+    np.testing.assert_array_equal(g.healthy, before)
+    assert te._attn == 0
+    for e in engines:
+        e.run(max_steps=20)
+    for rid in range(2):
+        assert te.live[rid].done
+        assert te.live[rid].out_tokens == engines[1].live[rid].out_tokens
+        np.testing.assert_array_equal(
+            np.stack(te.live[rid].logit_trace),
+            np.stack(engines[1].live[rid].logit_trace))

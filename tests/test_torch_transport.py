@@ -10,10 +10,11 @@ counters (``sent`` per opcode, ``delivered``, ``retransmits``,
 round-robin cursor. The simnet links draw from ``np.random.default_rng``
 in both, so a seed gives the same drops and reorders.
 
-Not twinned here, waiting for their slices (ROADMAP): the in-band ring
-clone before a host rebuild (tests/test_transport.py:163), the sharded
-pool's per-shard rebuild (:234), the ring manager's close (:460) and the
-sharded/ring legs of the in-program policy refusal (:399).
+The sharded pool's per-shard rebuild (tests/test_transport.py:234) is
+twinned here with the sharded leg of the in-program policy refusal
+(:399). Not twinned, waiting for the ring slice (ROADMAP): the in-band
+ring clone before a host rebuild (:163), the ring manager's close (:460)
+and the ring leg of the policy refusal.
 """
 import dataclasses
 
@@ -72,6 +73,14 @@ class J:
     def pages(xs):
         return jnp.asarray(xs, jnp.int32)
 
+    @staticmethod
+    def leaves_pool(x):
+        return np.asarray(jax.device_get(x))
+
+    @staticmethod
+    def leaves_state(st):
+        return jax.device_get(dataclasses.asdict(st))
+
     cfg = {}
 
 
@@ -105,6 +114,14 @@ class T:
     @staticmethod
     def pages(xs):
         return torch.as_tensor(xs, dtype=torch.int32)
+
+    @staticmethod
+    def leaves_pool(x):
+        return x.numpy()
+
+    @staticmethod
+    def leaves_state(st):
+        return convert.to_numpy(st)
 
     cfg = {"device": "cpu"}
 
@@ -300,6 +317,48 @@ def test_delta_rebuild_after_fused_engine_traffic():
     _twin(scenario)
 
 
+def test_delta_rebuild_sharded_pool():
+    """The per-shard streamed delta through the stacked device transport,
+    after in-step traffic on both shards: 4 rows move, the other shard's
+    slices are untouched, and every stacked leaf and transport counter
+    equals the reference's."""
+    def scenario(P):
+        eng = P.Engine(P.Config(comm="sharded", n_shards=2, storage="dbs",
+                                payload_shape=PAY, n_extents=256,
+                                max_pages=64, batch=16, **P.cfg))
+        vols = [eng.create_volume() for _ in range(2)]
+        pay = np.ones(PAY, np.float32)
+        for i in range(16):
+            for v in vols:
+                eng.submit(P.Request(req_id=i * 2 + v, kind="write",
+                                     volume=v, page=i, block=0, payload=pay))
+        eng.drain()
+        pool = eng.pool
+        sick = vols[0] % 2
+        pool.backend.fail(sick, 1)
+        for i in range(4):                   # shard 0's replica 1 misses
+            eng.submit(P.Request(req_id=900 + i, kind="write",
+                                 volume=vols[0], page=i, block=0,
+                                 payload=3 * pay))
+        eng.drain()
+        t1 = pool.backend.transports[1]
+        moved0 = t1.pages_moved
+        pool.backend.rebuild(sick, 1)
+        assert t1.pages_moved - moved0 == 4
+        assert pool.backend.consistent()
+        other = 1 - sick
+        a, b = (np.asarray(P.leaves_pool(pool.backend.pools[r])[other])
+                for r in (0, 1))
+        np.testing.assert_array_equal(a, b)
+        out = [dict(t.sent) for t in pool.backend.transports]
+        out += [t.pages_moved for t in pool.backend.transports]
+        out += [P.leaves_pool(x) for x in pool.backend.pools]
+        out += [P.leaves_pool(x) for x in pool.backend.device_page_revs()]
+        out += [P.leaves_state(x) for x in pool.backend.states]
+        return out
+    _twin(scenario)
+
+
 # ---------------------------------------------------------------------------
 # simnet semantics
 # ---------------------------------------------------------------------------
@@ -461,14 +520,19 @@ def test_engineconfig_threads_transport_to_the_group():
 
 
 def test_inprogram_backends_reject_host_policies():
-    """The fused leg (the sharded and ring legs wait for their slices)."""
+    """The fused and sharded legs (the ring leg waits for its slice). The
+    JAX package's sharded refusal says INSIDE where the others say
+    IN-PROGRAM."""
     for P in (J, T):
-        with pytest.raises(ValueError, match="write_policy|IN-PROGRAM"):
-            P.Engine(P.Config(comm="fused", storage="dbs",
-                              write_policy="quorum", **P.cfg))
-        with pytest.raises(ValueError, match="IN-PROGRAM"):
-            P.Engine(P.Config(comm="fused", storage="dbs",
-                              read_policy="latency", **P.cfg))
+        for comm in ("fused", "sharded"):
+            word = "INSIDE" if (P is J and comm == "sharded") else \
+                "IN-PROGRAM"
+            with pytest.raises(ValueError, match=f"write_policy|{word}"):
+                P.Engine(P.Config(comm=comm, storage="dbs",
+                                  write_policy="quorum", **P.cfg))
+            with pytest.raises(ValueError, match=word):
+                P.Engine(P.Config(comm=comm, storage="dbs",
+                                  read_policy="latency", **P.cfg))
 
 
 def test_volumemanager_threads_transport():
