@@ -46,7 +46,9 @@ and the script exits non-zero:
 6. kernel_parity (dbs_rw_read) — on the kept main-path inputs and the main
    path's own replica pool: bit for bit against the plain version, timed as
    in phase 3; hole lanes (zeros, no load) count one block in the bound.
-7. no_sync — one write pump's fused step under
+7. storage_functions (``fused``): the five storage functions on the
+   main volume through ``Volume.compute`` (per call, ``device_compute``),
+   as in phase 8j. Then no_sync — one write pump's fused step under
    ``torch.cuda.set_sync_debug_mode("error")``.
 8. block_device, ladder — the ladder's columns on the same trace cut to an
    eighth of its ops, each checked as in phase 5, once each: the fused
@@ -69,7 +71,8 @@ and the script exits non-zero:
    cut; ops/s, MiB/s, pumps beside ``+dbs`` (``slots``) and ``+fused``;
    the three fold into the ladder line, which follows.
 8b. layer_rows — every ported column (upstream, +frontend, +comm, +dbs,
-   +fused, +sharded at S=4 with the main path's extents shared out;
+   +fused, +sharded and +ring at S=4 with the main path's extents shared
+   out;
    benchmarks/ladder.py's column map, copied) under the paper's
    three rows: ``frontend_only`` (``null_backend``), ``without_storage``
    (``null_storage``) and ``full_engine``, through the ``Engine`` request
@@ -142,6 +145,32 @@ and the script exits non-zero:
    rebuilt slice equals its donor; no message or row of shards 0, 2 and 3
    moved; with shard 1's other replicas failed every block written to its
    volume reads back right from the rebuilt replica alone.
+8i. ring — ``VolumeManager(backend="ring")`` (the default backend) at
+   the main path's geometry over the full trace of phase 5, every read
+   checked: the trace's snapshots, clones, discards' unmaps and deletes
+   are in-band requests in the ring's pumps. Ops/s, MiB/s, pumps, host
+   syncs a pump (the completion's event counted in) beside the fused main
+   path; write and read launches a pump per replica must equal the
+   ``+fused`` column's; pumps by step signature.
+8j. storage_functions (``ring``) — on the ring's main volume, in-band:
+   ``checksum`` and ``scan_count`` over the whole 1 GiB range and a
+   sub-range, ``filter_pages``, ``verify_on_read`` of a written block and
+   of a hole, ``compare_and_write`` once not matching and once matching
+   (the block then reads back committed). Each result must equal the
+   numpy byte spec over the trace's shadow (``ByteSpec``; the port's
+   ``np_blocksum`` for blocks). ms a call, the full range's bytes read and
+   bound (the volume's float32 lanes once over 3.35 TB/s), the peak
+   memory the calls add to the pools (at most 2 GiB: no whole-volume view
+   is built). Then no_sync (``ring``): one pump with data and control
+   lanes and one with compute lanes under sync-debug "error".
+8k. ring_shards — the ring at S=4 on 8f's geometry and cut trace, shard
+   1's replica 1 failed by an in-band FAIL request after half the ops and
+   rebuilt by an in-band REBUILD request after three quarters (the step
+   copies the donor's slice in place), every read checked, every shard's
+   replicas equal at the end; the rebuild pump's ms against its bound
+   (the slice's pool read once and written once over 3.35 TB/s), the
+   phase's peak memory. Then the ring on the ``copy`` entry over the
+   ladder's cut trace (it must launch ``dbs_copy``).
 9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
@@ -209,6 +238,11 @@ and the script exits non-zero:
    0's replica 1 failed, that slice rebuilt mid-decode (delta and
    live-row resync), shard 0's replica 0 failed: the rebuilt replica
    alone serves to phase 9's tokens.
+16b. serve_path (``kv_backend="ring"``) — phase 9's engine on the ring,
+   2 KV replicas, its first four requests: the KV writes ride the ring's
+   pumps and the sessions' deletes its in-band control; tokens equal
+   phase 9's under the TIE_MARGIN rule, the replicas agree, nothing
+   leaks.
 17. serve_path (rwkv6-3b) — RWKV-6 serving at its published widths (32
    layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, untied
    head; fp32 weights drawn from a seeded generator on the card, after
@@ -304,7 +338,7 @@ CONTROLLER_LADDER = [
     ("+comm", dict(backend="slots", storage="chained", kernel="torch"),
      False)]
 LAYER_COLUMNS = ("upstream", "+frontend", "+comm", "+dbs", "+fused",
-                 "+sharded")
+                 "+sharded", "+ring")
 LAYER_ROWS = ("frontend_only", "without_storage", "full_engine")
 PER_REQUEST_COLUMNS = ("upstream", "+frontend")
 LAYER_OPS = {False: 2048, True: 300}   # a round: batched, per-request
@@ -329,6 +363,7 @@ DENSE_READ_CALLS = 8             # dense S*B-lane reads over the offset rows
 SPLIT_CALLS = 200                # calls a part of the S=1 pump, timed
 TABLE3_SHARDS, TABLE3_VOLUMES = (1, 2, 4, 8), 8
 SERVE_SHARDS, SERVE_REBUILD_REQUESTS = 2, 4
+SERVE_RING_REQUESTS = 4          # ring serving: phase 9's first requests
 
 
 def emit(**kw) -> None:
@@ -746,21 +781,23 @@ def count_syncs(torch, fn) -> int:
 def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
                n_ops=N_OPS, max_ops=None, column=None, fail_after=None,
                n_volumes=1, fail_shard=None, sample_every=READ_SAMPLE_EVERY,
-               **extra):
+               rebuild_after=None, **extra):
     """The block device's trace through ``VolumeManager(backend, kernel,
     **extra)`` at the main path's geometry (``extra``: storage, replicas,
     transport and policies, shards and extents). ``n_ops`` scales the trace
     (the random phases, the sequential spans and the hole reads);
     ``max_ops`` stops it early (after a settle of the reads so far);
     ``fail_after`` flushes and fails replica 1 (of shard ``fail_shard`` on
-    the sharded pool) once that many ops were issued. ``n_volumes`` base
+    the sharded pool and the ring) once that many ops were issued, and
+    ``rebuild_after`` flushes and rebuilds it once that many were, timed
+    between two synchronisations (on the ring both are in-band requests). ``n_volumes`` base
     volumes share the trace (the random ops pick one uniformly, the
     sequential spans too; each is snapshotted and cloned); with one, the
     trace is the main path's. Every read is checked, the healthy DBS
     replicas must agree, and the kernels of the path must have launched.
     ``column`` labels the printed line. The read kernel's inputs of every
-    ``sample_every``-th step are kept; on the sharded pool the write
-    kernel's too (replica 0's call), and pumps count the pool's
+    ``sample_every``-th step are kept; on the sharded pool and the ring
+    the write kernel's too (replica 0's call), and pumps count the pool's
     dispatches."""
     import numpy as np
     from repro_torch.core import slots
@@ -786,7 +823,8 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     copy_calls = [0]
     copied = [torch.zeros((), dtype=torch.int64, device=dev)]
     impl = mgr.engine.impl
-    sharded = backend == "sharded"
+    sharded = backend in ("sharded", "ring")   # a ShardedReplicaGroup
+    ring = backend == "ring"
     inner = {"fused_step": backends.fused_step,
              "fused_step_read": backends.fused_step_read,
              "dbs_rw_read": ops.dbs_rw_read, "dbs_copy": ops.dbs_copy,
@@ -846,15 +884,24 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     checks = []                       # (future, expected bytes)
     harness = [0.0]                   # seconds spent making and checking data
     failed = [None]                   # the op count replica 1 failed at
+    rebuilt = [None, None]            # the op count and seconds of its rebuild
 
     def count_op():
         stats["ops"] += 1
+        where = {} if fail_shard is None else {"shard": fail_shard}
         if (fail_after is not None and failed[0] is None
                 and stats["ops"] >= fail_after):
             mgr.flush()
-            where = {} if fail_shard is None else {"shard": fail_shard}
             mgr.engine.control("fail", replica=1, **where)
             failed[0] = stats["ops"]
+        if (rebuild_after is not None and rebuilt[0] is None
+                and stats["ops"] >= rebuild_after):
+            mgr.flush()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mgr.engine.control("rebuild", replica=1, **where)
+            torch.cuda.synchronize()
+            rebuilt[:] = [stats["ops"], time.perf_counter() - t]
 
     def off_clock(fn, *a):
         """Run ``fn(*a)`` and book its time as the harness's own."""
@@ -971,9 +1018,14 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     work_pumps = n_pumps()
     n_steps = n_steps_now()
     # the trace's steps by kind (the sync window's come after)
-    trace_steps = ({"write": impl.step_counts["step"],
-                    "read_only": impl.step_counts["step_read"]} if sharded
-                   else dict(steps))
+    if ring:
+        trace_steps = {"write": impl.write_steps,
+                       "read_only": impl.dispatches - impl.write_steps}
+    elif sharded:
+        trace_steps = {"write": impl.step_counts["step"],
+                       "read_only": impl.step_counts["step_read"]}
+    else:
+        trace_steps = dict(steps)
 
     # host synchronisations per pump, in a window after the trace: 64
     # aligned 4 KiB writes and 64 reads of them
@@ -1002,18 +1054,21 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
     ops.dbs_rw_write = inner["dbs_rw_write"]
     need = {("fused", "cuda"): ("dbs_rw_write", "dbs_rw_read"),
             ("sharded", "cuda"): ("dbs_rw_write", "dbs_rw_read"),
-            ("fused", "copy"): ("dbs_copy",)}.get((backend, kernel), ())
+            ("ring", "cuda"): ("dbs_rw_write", "dbs_rw_read"),
+            ("fused", "copy"): ("dbs_copy",),
+            ("ring", "copy"): ("dbs_copy",)}.get((backend, kernel), ())
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
-    # one read launch a step; on the sharded pool one routed launch a
-    # replica, and one write launch a replica a write step, at any S
+    # one read launch a step; on the sharded pool and the ring one routed
+    # launch a replica, and one write launch a replica a write step, at
+    # any S
     per_step = REPLICAS if sharded else 1
     if kernel == "cuda" and launches["dbs_rw_read"] != n_steps * per_step:
         raise AssertionError(f"{launches['dbs_rw_read']} read launches "
                              f"over {n_steps} steps")
-    if sharded and (launches["dbs_rw_write"]
-                    != REPLICAS * trace_steps["write"]):
+    if sharded and kernel == "cuda" and (launches["dbs_rw_write"]
+                                         != REPLICAS * trace_steps["write"]):
         raise AssertionError(f"{launches['dbs_rw_write']} write launches "
                              f"over {trace_steps['write']} write steps")
     if kernel == "copy" and lanes_copied <= 0:
@@ -1074,10 +1129,13 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
         launches=launches, plain_calls=plain,
         mapped_rows=n_mapped,
         max_memory_allocated=torch.cuda.max_memory_allocated(dev), card=smi)
-    if backend in ("fused", "sharded"):
+    if backend in ("fused", "sharded", "ring"):
         out.update(write_steps=trace_steps["write"],
                    read_only_steps=trace_steps["read_only"],
                    ops_per_step=stats["ops"] / n_steps)
+    if ring:
+        out.update(steps_by_signature={"+".join(k): v for k, v in
+                                       impl.step_counts.items()})
     if sharded:
         out.update(n_shards=impl.n_shards, volumes=n_volumes,
                    launches_per_pump={k: launches[k] / n_steps
@@ -1089,6 +1147,9 @@ def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
         out.update(cow_lanes_copied=lanes_copied)
     if column is not None:
         out.update(column=column)
+    if rebuild_after is not None:
+        out.update(replica_1_rebuilt_at_op=rebuilt[0],
+                   rebuild_seconds=rebuilt[1])
     if fail_after is not None:
         out.update(replica_1_failed_at_op=failed[0])
         if fail_shard is not None:
@@ -1121,8 +1182,9 @@ def ladder_engine(torch, column, row, dev, args, **kw):
                      "+comm": ("slots", "chained"),
                      "+dbs": ("slots", "dbs"),
                      "+fused": ("fused", "dbs"),
-                     "+sharded": ("sharded", "dbs")}[column]
-    if column == "+sharded":            # the main path's extents in all
+                     "+sharded": ("sharded", "dbs"),
+                     "+ring": ("ring", "dbs")}[column]
+    if column in ("+sharded", "+ring"):  # the main path's extents in all
         base.setdefault("n_shards", SHARDS)
         if "n_extents" not in kw:
             base["n_extents"] = args.n_extents // base["n_shards"]
@@ -1662,6 +1724,7 @@ def sharded_s1_split(torch, pool, smi, n=SPLIT_CALLS):
     from torch.utils._python_dispatch import TorchDispatchMode
     from repro_torch.core import dbs
     from repro_torch.core.fused import FusedBatch, step_meta
+    from repro_torch.core.ring import routed_read
     from repro_torch.core.sharded import _shard_step
     g = pool.backend
     states, pools, healthy = g.device_state()
@@ -1696,7 +1759,8 @@ def sharded_s1_split(torch, pool, smi, n=SPLIT_CALLS):
         "pool_step_vmapped": lambda: mapped(table, states, page_revs, batch,
                                             rr, healthy),
         "fused_step_meta": fused_meta,
-        "routed_reads": lambda: pool._gather(pools, routes, batch),
+        "routed_reads": lambda: routed_read(pool._kern, pools, routes,
+                                            batch.block, batch.payload),
         "one_read": lambda: pool._kern.read_stacked(pools[0], one_route,
                                                     batch.block)}
 
@@ -2039,6 +2103,346 @@ def phase_serve_sharded(torch, dev, smi, cfg, params, prompts, want):
              tokens_equal_fused=ties2 == 0, near_ties=ties2, card=smi)
     finally:
         serving.paged_attention_pool_fwd = inner["paged"]
+        eng.volumes.close()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the ring slice: the opcode-dispatched step, in-band control, storage
+# functions
+# ---------------------------------------------------------------------------
+def _rot_table(np):
+    """T[r, b] = rotl32(b + 1, r) as uint64, r in 0..31, b in 0..255."""
+    r = np.arange(32, dtype=np.uint64)[:, None]
+    v = np.arange(1, 257, dtype=np.uint64)[None, :]
+    return ((v << r) | (v >> ((32 - r) % 32))) & np.uint64(0xFFFFFFFF)
+
+
+class ByteSpec:
+    """The storage functions' byte spec (repro_torch/compute/functions.py)
+    in numpy over a volume that is zeros but for the trace's written
+    blocks (``Shadow``): the range fold is linear in XOR, so it is the fold
+    of an all-zero volume (from per-rotation position counts) XOR the
+    written bytes' change against zeros; no 1 GiB host array is built."""
+
+    def __init__(self, np, shadow, vid, n_pages):
+        self.np = np
+        self.n_pages = n_pages
+        self.T = _rot_table(np)
+        blocks = sorted(ab for (v, ab) in shadow.blocks if v == vid)
+        self.ab = np.asarray(blocks, np.int64)
+        self.data = (np.frombuffer(b"".join(shadow.blocks[(vid, ab)]
+                                            for ab in blocks), np.uint8)
+                     .reshape(len(blocks), BLOCK) if blocks else
+                     np.zeros((0, BLOCK), np.uint8))
+        page_bytes = PAGE_BLOCKS * BLOCK
+        # positions of a page with j % 31 == k, k in 0..30
+        self.per_k = np.bincount(np.arange(page_bytes) % 31, minlength=31)
+
+    def i32(self, x):
+        x = int(x) & 0xFFFFFFFF
+        return x - (1 << 32) if x >= (1 << 31) else x
+
+    def checksum(self, p0, cnt):
+        np = self.np
+        p1 = min(p0 + cnt, self.n_pages)
+        pages = np.arange(max(p0, 0), p1)
+        # zeros: byte 0 contributes rotl32(1, r) at rotation r, so only
+        # the parity of each rotation's count matters
+        r = (np.arange(31)[None, :] + (pages % 31)[:, None]) % 32
+        par = np.bincount(r.ravel(), weights=np.broadcast_to(
+            self.per_k, r.shape).ravel(), minlength=32).astype(np.int64) % 2
+        total = 0
+        for rot in np.nonzero(par)[0]:
+            total ^= int(self.T[rot, 0])
+        sel = (self.ab // PAGE_BLOCKS >= max(p0, 0)) & \
+            (self.ab // PAGE_BLOCKS < p1)
+        ab, data = self.ab[sel], self.data[sel]
+        for i in range(0, len(ab), 2048):
+            a, d = ab[i:i + 2048], data[i:i + 2048]
+            j = (a % PAGE_BLOCKS)[:, None] * BLOCK + np.arange(BLOCK)[None]
+            rot = (j % 31 + ((a // PAGE_BLOCKS) % 31)[:, None]) % 32
+            total ^= int(np.bitwise_xor.reduce(
+                (self.T[rot, d] ^ self.T[rot, 0]).ravel()))
+        return self.i32(total)
+
+    def _match(self, arg):
+        return self.data != 0 if arg < 0 else self.data == (arg & 0xFF)
+
+    def scan_count(self, arg):
+        n = int(self._match(arg).sum())
+        if arg == 0:          # every byte of every hole block matches
+            n += (self.n_pages * PAGE_BLOCKS - len(self.ab)) * BLOCK
+        return n
+
+    def filter_pages(self, arg, d=BLOCK):
+        np = self.np
+        if arg == 0:
+            raise ValueError("the spec's filter skips arg 0 (holes match)")
+        hit = self._match(arg).any(1)
+        pages = np.unique(self.ab[hit] // PAGE_BLOCKS)
+        return len(pages), [int(p) for p in pages[:d]]
+
+    def block(self, ab):
+        i = int(self.np.searchsorted(self.ab, ab))
+        if i < len(self.ab) and self.ab[i] == ab:
+            return self.data[i].tobytes()
+        return bytes(BLOCK)
+
+
+def phase_compute(torch, smi, mgr, kept, path):
+    """The five storage functions on the main volume at full width through
+    ``Volume.compute``: in-band on the ring (one COMPUTE request a call),
+    per call on ``fused`` (``device_compute``). ``checksum`` and
+    ``scan_count`` over the whole 1 GiB range and a sub-range, ``filter_
+    pages``, ``verify_on_read`` of a written block and of a hole,
+    ``compare_and_write`` once not matching and once matching (then the
+    block reads back committed). Each result equals the numpy byte spec
+    over the trace's shadow (``ByteSpec``, the port's own ``np_blocksum``
+    for the block functions). ms a call (between synchronisations), bytes
+    read (the volume's mapped blocks), the bound of a full-range fold (the
+    volume's float32 lanes read once over 3.35 TB/s) and the peak memory
+    the calls add to the pools."""
+    import numpy as np
+    from repro_torch.compute.functions import np_blocksum
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
+    vol = kept["volumes"][0]
+    shadow = kept["shadow"]
+    mgr.flush()
+    before = {**rw_kernel.LAUNCHES, **copy_kernel.LAUNCHES}
+    n_pages = mgr.capacity // mgr.page_bytes
+    spec = ByteSpec(np, shadow, vol.vid, n_pages)
+    table = mgr.device_extent_map()[vol.vid]
+    mapped = int((table >= 0).sum())
+    lane_bytes = n_pages * PAGE_BLOCKS * BLOCK * 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    calls, results = {}, {}
+
+    def run(name, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = vol.compute(*a, **k).result()
+        torch.cuda.synchronize()
+        calls.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+        return res
+
+    def check(name, got, want):
+        results[name] = dict(value=got.value, status=got.status)
+        if (got.value, got.status) != want:
+            raise AssertionError(f"{path} {name}: {(got.value, got.status)}"
+                                 f" against the spec's {want}")
+
+    pby = mgr.page_bytes
+    check("checksum", run("checksum", "checksum"),
+          (spec.checksum(0, n_pages), 0))
+    p0, cnt = n_pages // 8, n_pages // 4
+    check("checksum_sub", run("checksum", "checksum", p0 * pby, cnt * pby),
+          (spec.checksum(p0, cnt), 0))
+    for arg in (7, -1, 0):
+        check(f"scan_count_{arg}", run("scan_count", "scan_count", arg=arg),
+              (spec.scan_count(arg), 0))
+    for arg in (7, -1):
+        got = run("filter_pages", "filter_pages", arg=arg)
+        n, pages = spec.filter_pages(arg)
+        check(f"filter_pages_{arg}", got, (n, 0))
+        if got.pages() != pages:
+            raise AssertionError(f"{path} filter_pages {arg}: pages differ")
+    live = np.nonzero(spec.data.any(1))[0]      # a block with data
+    ab = int(spec.ab[live[len(live) // 2]])
+    cur = spec.block(ab)
+    got = run("verify_on_read", "verify_on_read", ab * BLOCK,
+              arg=np_blocksum(cur))
+    check("verify_on_read", got, (np_blocksum(cur), 0))
+    if got.data() != cur:
+        raise AssertionError(f"{path} verify_on_read: wrong bytes")
+    hole = next(b for b in range(n_pages * PAGE_BLOCKS)
+                if (vol.vid, b) not in shadow.blocks)
+    got = run("verify_on_read", "verify_on_read", hole * BLOCK)
+    check("verify_on_read_hole", got, (np_blocksum(bytes(BLOCK)), 0))
+    new = bytes((i * 13 + 5) % 256 for i in range(BLOCK))
+    want = np_blocksum(cur)
+    bad = want + 1 if want < 2 ** 31 - 1 else want - 1
+    check("compare_and_write_miss", run(
+        "compare_and_write", "compare_and_write", ab * BLOCK, arg=bad,
+        data=new), (want, 1))
+    check("compare_and_write_match", run(
+        "compare_and_write", "compare_and_write", ab * BLOCK, arg=want,
+        data=new), (want, 0))
+    if vol.read(ab * BLOCK, BLOCK) != new:
+        raise AssertionError(f"{path} compare_and_write did not commit")
+    shadow.write(vol.vid, ab * BLOCK, new)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in
+                {**rw_kernel.LAUNCHES, **copy_kernel.LAUNCHES}.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    if peak > 2 << 30:
+        raise AssertionError(f"{path}: the storage functions took {peak} "
+                             "bytes over the pools")
+    emit(phase="storage_functions", path=path, volume_bytes=mgr.capacity,
+         written_blocks=len(spec.ab), mapped_pages=mapped,
+         results=results,
+         ms={k: float(np.median(v)) for k, v in calls.items()},
+         calls={k: len(v) for k, v in calls.items()},
+         full_range_bytes_read=mapped * PAGE_BLOCKS * BLOCK * 4,
+         full_range_bound_ms=lane_bytes / HBM_BYTES_PER_S * 1e3,
+         bound_by="bytes: the volume's float32 lanes read once at 3.35 TB/s",
+         peak_bytes_over_pools=peak, launches=launches, card=smi)
+    return launches
+
+
+def phase_no_sync_ring(torch, mgr):
+    """One ring pump with data and control lanes (32 writes, a snapshot,
+    an unmap and a clone of the main volume) and one with compute lanes (a
+    whole-volume checksum, a verify_on_read and a committing
+    compare_and_write) under sync-debug "error", from ``pump_async`` to
+    the recorded event."""
+    import numpy as np
+    from repro_torch.compute.functions import np_blocksum
+    from repro_torch.core.frontend import Request
+    pool = mgr.engine.pool
+    vid = 0
+    blk = mgr.open(vid).read(0, BLOCK)
+    rid = lambda: mgr._rid(vid)
+    batches = [
+        [Request(req_id=rid(), kind="write", volume=vid, page=i, block=3,
+                 payload=np.full(BLOCK, i, np.float32)) for i in range(32)]
+        + [Request(req_id=rid(), kind="snapshot", volume=vid),
+           Request(req_id=rid(), kind="unmap", volume=vid,
+                   page=mgr.capacity // mgr.page_bytes - 1),
+           Request(req_id=rid(), kind="clone", volume=vid)],
+        [Request(req_id=rid(), kind="compute", volume=vid, fn="checksum",
+                 page=0, block=mgr.capacity // mgr.page_bytes),
+         Request(req_id=rid(), kind="compute", volume=vid,
+                 fn="verify_on_read", page=0, block=1),
+         Request(req_id=rid(), kind="compute", volume=vid,
+                 fn="compare_and_write", page=0, block=0,
+                 arg=np_blocksum(blk), payload=np.zeros(BLOCK, np.float32))]]
+    mgr.engine.backend.device_state()     # the health mask, cached
+    done = []
+    for batch in batches:
+        for r in batch:
+            pool.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = pool.pump_async()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        done.append(pool._complete(pending))
+        if done[-1] != len(batch) or any(r.status != 0 for r in batch):
+            raise AssertionError("a guarded ring pump did not complete its "
+                                 "lanes")
+    clone = batches[0][-1].result
+    mgr.delete(clone)
+    if mgr.open(vid).read(0, BLOCK) != bytes(BLOCK):
+        raise AssertionError("the guarded compare_and_write did not commit")
+    emit(phase="no_sync", path="ring", guarded_pumps=2,
+         lanes_completed=done, control_lanes=3, compute_lanes=3)
+
+
+def phase_ring_shards(torch, args, dev, smi, trace_ops):
+    """The ring at S=4 on the sharded byte API's geometry and cut trace,
+    shard 1's replica 1 failed by an in-band FAIL request after half the
+    trace's ops and rebuilt by an in-band REBUILD request after three
+    quarters (the step copies the donor's slice, state, pool and
+    watermarks, in place), every read checked, every shard's replicas
+    equal at the end. The rebuild pump's time against its bound (the
+    slice's pool bytes read once and written once over 3.35 TB/s) and the
+    phase's peak memory."""
+    cfg = dict(sharded_config(args), backend="ring")
+    mgr, launches, _steps, kept, out = phase_main(
+        torch, args, dev, smi, column="+ring S=4",
+        fail_after=trace_ops // 2, rebuild_after=3 * trace_ops // 4,
+        fail_shard=FAILED_SHARD, **cfg)
+    g = mgr.engine.backend
+    slice_bytes = g.pools[1][FAILED_SHARD].numel() * 4
+    if not g.healthy.all() or not g.consistent():
+        raise AssertionError("the in-band rebuild left the ring unhealthy")
+    del kept
+    mgr.close()
+    emit(phase="ring_shards", shards=SHARDS, failed_shard=FAILED_SHARD,
+         ops=out["ops"], ops_per_s=out["ops_per_s"],
+         failed_at_op=out["replica_1_failed_at_op"],
+         rebuilt_at_op=out["replica_1_rebuilt_at_op"],
+         rebuild_ms=out["rebuild_seconds"] * 1e3,
+         rebuild_bound_ms=2 * slice_bytes / HBM_BYTES_PER_S * 1e3,
+         bound_by="bytes: the slice's pool read once from the donor and "
+                  "written once, at 3.35 TB/s",
+         slice_pool_bytes=slice_bytes,
+         max_memory_allocated=out["max_memory_allocated"],
+         launches=launches, card=smi)
+    return out
+
+
+def phase_serve_ring(torch, dev, smi, cfg, params, prompts, want):
+    """Zero-copy serving on the ring: ``kv_backend="ring"``, 2 KV
+    replicas, phase 9's engine and its first four requests. The KV writes
+    ride the ring's pumps, the sessions' deletes its in-band control.
+    Tokens equal the fused run's under the TIE_MARGIN rule; the replicas
+    agree; nothing leaks."""
+    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.serving.engine import GenRequest
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = _serve_engine(torch, cfg, params, dev, kv_backend="ring")
+    margins = []
+    inner = eng._step_fn
+
+    def step_fn(*a, **k):
+        out = inner(*a, **k)
+        top = torch.topk(out[0], 2, dim=-1).values      # on the card
+        who = [(g.req_id, len(g.out_tokens)) if g is not None else None
+               for g in map(eng.live_by_slot, range(eng.n_slots))]
+        margins.append((top[:, 0] - top[:, 1], who))
+        return out
+    eng._step_fn = step_fn
+    for mod in (rw_kernel, pk, fk):
+        mod.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for rid in range(SERVE_RING_REQUESTS):
+            eng.submit(GenRequest(req_id=rid, prompt=prompts[rid],
+                                  max_new=SERVE_NEW))
+        outs = eng.run(max_steps=10 * SERVE_NEW * SERVE_RING_REQUESTS)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+        plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
+                 **fk.PLAIN_CALLS}
+        got = torch.stack([m for m, _ in margins]).cpu().numpy()
+        mm = {key: float(got[i, j]) for i, (_, who) in enumerate(margins)
+              for j, key in enumerate(who) if key is not None}
+        ties = _tokens_match(outs, {r: want[r] for r in outs}, mm,
+                             "ring serving")
+        if min(launches.values()) <= 0 or any(plain.values()):
+            raise AssertionError(f"launches {launches}, plain {plain}")
+        eng.volumes.flush()
+        g = eng.volumes.engine.backend
+        pools = eng.volumes.device_pools()
+        if not g.consistent() or not torch.equal(pools[0][:-1],
+                                                 pools[1][:-1]):
+            raise AssertionError("the ring's KV replicas disagree")
+        del pools
+        st = eng.state
+        if bool((st.extent_owner >= 0).any() | (st.vol_head >= 0).any()):
+            raise AssertionError("ring serving leaked volumes or extents")
+        gen = SERVE_RING_REQUESTS * SERVE_NEW
+        emit(phase="serve_path", model=SERVE_MODEL, config=dict(
+            kv_backend="ring", kv_replicas=2, n_slots=8, max_len=2048,
+            n_queues=2, kernel="cuda", attn_impl="cuda", dtype="float32"),
+            requests=SERVE_RING_REQUESTS, generated_tokens=gen,
+            run_seconds=run_s, tokens_per_s=gen / run_s,
+            tokens_equal_fused=ties == 0, near_ties=ties,
+            steps_by_signature={"+".join(k): v for k, v in
+                                eng.volumes.engine.pool.step_counts.items()},
+            launches=launches, plain_calls=plain,
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            card=smi)
+    finally:
         eng.volumes.close()
     return launches
 
@@ -3191,8 +3595,9 @@ def main() -> int:
                                                         smi)
     trace_ops = main_out["ops"]
     read_k = phase_read_kernel(torch, mgr, kept["dbs_rw_read"])
+    fused_compute = phase_compute(torch, smi, mgr, kept, "fused")
     del kept
-    phase_no_sync(torch, mgr)
+    phase_no_sync(torch, mgr)     # writes blocks the shadow does not hold
     mgr.close()
     del mgr
     free()
@@ -3299,6 +3704,54 @@ def main() -> int:
     phase_shard_failover(torch, args, dev, smi, sh_out["ops"])
     free()
 
+    # the ring slice: the byte API's full trace on the ring (control
+    # in-band), the storage functions in-band, two guarded pumps; the ring
+    # at S=4 with an in-band fail and rebuild; the ring on the copy entry
+    mgr, ring_launches, _s, kept, ring_out = phase_main(
+        torch, args, dev, smi, backend="ring", column="+ring")
+    ring_compute = phase_compute(torch, smi, mgr, kept, "ring")
+    phase_no_sync_ring(torch, mgr)
+    del kept
+    mgr.close()
+    del mgr
+    free()
+    per_replica["ring"] = {
+        "dbs_rw_write": ring_out["launches"]["dbs_rw_write"]
+        / ring_out["write_steps"] / REPLICAS,
+        "dbs_rw_read": ring_out["launches"]["dbs_rw_read"]
+        / (ring_out["write_steps"] + ring_out["read_only_steps"])
+        / REPLICAS}
+    if per_replica["ring"] != per_replica["fused"]:
+        raise AssertionError(f"launches a pump per replica differ: "
+                             f"{per_replica}")
+    emit(phase="ring", ops=ring_out["ops"],
+         ops_per_s={"+ring": ring_out["ops_per_s"],
+                    "+fused (main path)": main_out["ops_per_s"]},
+         mib_per_s={"+ring": ring_out["mib_per_s"],
+                    "+fused (main path)": main_out["mib_per_s"]},
+         pumps=ring_out["pumps"], ops_per_pump=ring_out["ops_per_pump"],
+         host_syncs_per_pump={"+ring": ring_out["host_syncs_per_pump"],
+                              "+fused": main_out["host_syncs_per_pump"]},
+         launches_per_pump_per_replica=per_replica,
+         steps_by_signature=ring_out["steps_by_signature"], card=smi)
+    ring_sh = phase_ring_shards(torch, args, dev, smi, sh_out["ops"])
+    free()
+    mgr, ring_copy, _s, kept, _o = phase_main(
+        torch, args, dev, smi, backend="ring", kernel="copy",
+        n_ops=LADDER_OPS, column="+ring copy")
+    del kept
+    mgr.close()
+    del mgr
+    free()
+    for k in (write_k, read_k):
+        k.update(launches_ring_path=ring_launches[k["name"]],
+                 launches_ring_s4_path=ring_sh["launches"][k["name"]],
+                 launches_ring_storage_functions=ring_compute[k["name"]],
+                 launches_fused_storage_functions=fused_compute[k["name"]],
+                 launches_per_pump_ring=ring_out["launches_per_pump"][
+                     k["name"]])
+    copy_k.update(launches_ring_copy_column=ring_copy["dbs_copy"])
+
     eng, kept, serve_launches, serve_counts, (cfg, params, prompts) = \
         phase_serve(torch, dev, smi)
     fused_tokens = {rid: list(eng.live[rid].out_tokens)
@@ -3353,6 +3806,11 @@ def main() -> int:
                                    fused_tokens)
     for k in (paged_k, flash_k):
         k["launches_sharded_serve_path"] = sh_serve[k["name"]]
+    free()
+    ring_serve = phase_serve_ring(torch, dev, smi, cfg, params, prompts,
+                                  fused_tokens)
+    for k in (paged_k, flash_k, write_k, read_k):
+        k["launches_ring_serve_path"] = ring_serve[k["name"]]
     del cfg, params, prompts
     free()
 

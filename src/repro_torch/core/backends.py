@@ -15,6 +15,8 @@ here. The backend protocol is ``submit(req)``, ``pump()``, ``drain()``,
 | ``fused`` | ``FusedBackend``      | one fused step per pump                |
 | ``sharded`` | ``sharded.EnginePool`` | one sharded step a pump for S   |
 |           |                       | stacked shards, pipelined completion   |
+| ``ring``  | ``ring.RingEngine``   | one opcode-tagged step a pump for  |
+|           |                       | data, compute AND control, S shards    |
 | ``upstream`` | ``engine.UpstreamEngine`` | TGT-style baseline, one request |
 |           |                       | per pump over chained stores           |
 | ``host``  | ``HostStateBackend``  | one request per pump on one state      |
@@ -26,10 +28,9 @@ no storage at all (requests complete at the controller); ``null_storage``
 keeps the metadata work and skips the data plane.
 
 ``host`` is the sequential oracle the byte-API tests compare engines
-against, and the control plane of the copy-based serving baseline
-(``alloc_pages`` returns the DBS ``WriteOps`` for an external data plane).
-The other names of the JAX registry raise a ``ValueError`` naming the
-slice that brings them.
+against (storage functions included: ``compute/exec.py host_compute``),
+and the control plane of the copy-based serving baseline (``alloc_pages``
+returns the DBS ``WriteOps`` for an external data plane).
 """
 from __future__ import annotations
 
@@ -45,9 +46,6 @@ from repro_torch.core.frontend import MultiQueueFrontend, Request
 from repro_torch.core.fused import fused_step, fused_step_read
 from repro_torch.core.replication import ReplicaGroup
 from repro_torch.kernels.dbs.registry import resolve_kernel_name
-
-# backends of the JAX package that later slices of the port bring
-UNPORTED_BACKENDS = {"ring": "the ring slice"}
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -75,9 +73,6 @@ def available_backends() -> Tuple[str, ...]:
 
 def make_backend(name: str, cfg):
     """Instantiate the backend registered under ``name`` for ``cfg``."""
-    if name not in _REGISTRY and name in UNPORTED_BACKENDS:
-        raise ValueError(f"backend={name!r} lands with "
-                         f"{UNPORTED_BACKENDS[name]} of the port")
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -370,7 +365,7 @@ class HostStateBackend(ControlDispatch):
     ``blockdev.VolumeManager``). Under either null cut it holds no pool."""
 
     is_pool = False
-    data_kinds = frozenset({"read", "write"})
+    data_kinds = frozenset({"read", "write", "compute"})
 
     def __init__(self, cfg):
         self.cfg = cfg
@@ -395,13 +390,10 @@ class HostStateBackend(ControlDispatch):
         return int(vid)
 
     def submit(self, req: Request) -> None:
-        if req.kind == "compute":
-            raise ValueError("kind='compute' requests on the host backend "
-                             "land with the ring/compute slice of the port")
         if req.kind not in self.data_kinds:
             raise ValueError(
                 f"kind={req.kind!r} requests need backend='ring'; the host "
-                "oracle carries data ops only — use control()")
+                "oracle carries data and compute ops only — use control()")
         req.tick = self.step
         self.queue.append(req)
 
@@ -414,6 +406,7 @@ class HostStateBackend(ControlDispatch):
         if not self.queue:
             return 0
         r = self.queue.popleft()
+        status = 0
         if r.kind == "write":
             self.state, ops = dbs.write_pages(
                 self.state, r.volume, self._i([r.page]),
@@ -426,11 +419,19 @@ class HostStateBackend(ControlDispatch):
                 self.pool = dbs.apply_write_ops(
                     self.pool, ops, pay.to(self.device),
                     self._i([r.block]))
+        elif r.kind == "compute":
+            # the sequential host_ref: the reference every in-program
+            # backend's storage-function results are held against
+            if self.pool is not None:
+                from repro_torch.compute.exec import host_compute
+                val, status, out, self.state, self.pool = host_compute(
+                    self.state, self.pool, r, self.cfg.payload_shape)
+                r.result = (val, out)
         elif self.pool is not None:
             ext = self.state.table[r.volume, r.page]
             got = self.pool[ext.clamp(min=0), r.block]
             r.result, = fetch_to_host(torch.where(ext >= 0, got, 0))
-        r.status = 0
+        r.status = status
         r.latency = self.step - r.tick + 1
         self.step += 1
         self.completed += 1
@@ -478,6 +479,12 @@ class HostStateBackend(ControlDispatch):
 def _make_sharded(cfg):
     from repro_torch.core.sharded import EnginePool
     return EnginePool(cfg)
+
+
+@register_backend("ring")
+def _make_ring(cfg):
+    from repro_torch.core.ring import RingEngine
+    return RingEngine(cfg)
 
 
 @register_backend("upstream")

@@ -5,7 +5,7 @@ Port of ``IOFuture``, ``Volume`` and ``VolumeManager`` from
 backend and its pump loop and hands out ``Volume`` handles; callers issue
 byte-addressed asynchronous I/O:
 
-    mgr = VolumeManager(backend="fused", n_replicas=3, payload_elems=4096)
+    mgr = VolumeManager(backend="ring", n_replicas=3, payload_elems=4096)
     vol = mgr.create()
     fut = vol.pwrite(4096, b"hello")       # async: an IOFuture
     assert vol.read(4096, 5) == b"hello"   # sync convenience wrapper
@@ -22,8 +22,13 @@ single host fetch. Unaligned edges take an in-API read-modify-write path.
 Per volume, submission order is execution order (a volume's requests ride
 one admission queue, and overlapping-block hazards are fenced with a
 flush). ``discard`` unmaps fully covered pages and zero-fills partial
-edges. Control ops (snapshot/clone/delete/unmap) flush, then dispatch on
-the host.
+edges. Control ops (snapshot/clone/delete/unmap) ride the volume's stream
+as in-band requests on ``backend="ring"`` (the default, as in the
+reference); elsewhere they flush, then dispatch on the host.
+``Volume.compute`` runs a registered storage function (repro_torch/
+compute) against the volume's bytes: one in-band request on the ring and
+on the host oracle, a flush and one per-call device execution on the other
+backends; it resolves to a ``ComputeResult``.
 
 ``payload_shape=`` replaces the flat ``(payload_elems,)`` block with any
 per-block tensor: the serving engine stores one token's K/V for every
@@ -41,12 +46,14 @@ and policies, and ``engine.control("fail"|"rebuild", replica=i)`` fails
 and rebuilds a replica. ``backend="sharded", n_shards=S`` serves the
 volumes from S stacked engine shards (volume ``vid`` on shard ``vid % S``;
 ``control("fail"|"rebuild", shard=s, replica=i)`` is per shard), and the
-device views then address the flattened pools of all shards. The journal,
-the spill tier and ``Volume.compute`` land with their slices.
+device views then address the flattened pools of all shards; the ring's
+storage is such a sharded group too. The journal and the spill tier land
+with their slices.
 """
 from __future__ import annotations
 
 import itertools
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -108,6 +115,8 @@ class IOFuture:
             self._mgr.flush()
         if not self.done():
             raise RuntimeError("I/O did not complete after a full drain")
+        # negative statuses are I/O errors; positive ones (ST_MISMATCH from
+        # compare_and_write / verify_on_read) are results, not exceptions
         bad = [r for r in self._reqs if r.status < 0]
         if bad:
             raise OSError(f"{bad[0].kind} failed with status {bad[0].status} "
@@ -115,6 +124,34 @@ class IOFuture:
         self._cached = (self._assemble() if self._assemble is not None
                         else self._value)
         return self._cached
+
+
+@dataclass
+class ComputeResult:
+    """Outcome of one ``Volume.compute`` call: ``value`` is the function's
+    scalar result (checksum, match count, the actual blocksum for
+    ``compare_and_write``...), ``status`` its op status (0 = OK,
+    ``ST_MISMATCH`` = the compare or verify failed: a result, not an I/O
+    error), ``payload`` the output lanes (matching pages for
+    ``filter_pages``, the block for ``verify_on_read``)."""
+    fn: str
+    value: int
+    status: int
+    payload: np.ndarray = field(repr=False)
+
+    @property
+    def ok(self) -> bool:
+        return self.status == 0
+
+    def pages(self) -> List[int]:
+        """The payload as a page list (``filter_pages``): the non-negative
+        lanes, in ascending order."""
+        return [int(v) for v in np.asarray(self.payload).reshape(-1)
+                if v >= 0]
+
+    def data(self) -> bytes:
+        """The payload as block bytes (``verify_on_read``)."""
+        return _lanes_to_bytes(self.payload)
 
 
 class Volume:
@@ -138,8 +175,15 @@ class Volume:
 
     def compute(self, fn: str, off: int = 0, nbytes: Optional[int] = None,
                 *, arg: int = 0, data: Optional[bytes] = None) -> IOFuture:
-        raise ValueError("Volume.compute (in-band storage functions) lands "
-                         "with the ring/compute slice of the port")
+        """Run a registered storage function against this volume's bytes
+        (repro_torch/compute). Range-scoped functions take a page-aligned
+        ``[off, off+nbytes)`` span (default: to the end of the device),
+        block-scoped ones the block at ``off``; ``arg`` is the function's
+        scalar parameter, ``data`` the new block of a writing function
+        (``compare_and_write``). Returns an ``IOFuture`` resolving to a
+        ``ComputeResult``."""
+        return self.mgr.compute(self.vid, fn, off, nbytes, arg=arg,
+                                data=data)
 
     def read(self, off: int, nbytes: int) -> bytes:
         return self.pread(off, nbytes).result()
@@ -183,7 +227,7 @@ class VolumeManager:
     submission order execution order; overlapping-block write hazards are
     fenced with a flush."""
 
-    def __init__(self, backend: str = "fused", *, n_shards: int = 1,
+    def __init__(self, backend: str = "ring", *, n_shards: int = 1,
                  n_replicas: int = 2, payload_elems: int = 64,
                  page_blocks: int = 32, n_extents: int = 1024,
                  max_volumes: int = 16, max_pages: int = 256,
@@ -218,6 +262,9 @@ class VolumeManager:
         self._nq = max(1, n_queues)
         self._ns = max(1, n_shards)
         self._seq = itertools.count()
+        # control ops ride the data stream when the backend's submission
+        # path takes them (the ring); elsewhere they fence host-side
+        self._inband = "snapshot" in self.engine.data_kinds
         # the hot-path submit: the manager only mints valid data kinds, so
         # aligned spans go straight to the backend's frontend (the host
         # backend has none and queues them itself)
@@ -348,9 +395,16 @@ class VolumeManager:
             vid, Volume(self, vid))
 
     def _control_sync(self, kind: str, vid: int, **kw):
-        """One control op, ordered behind the volume's in-flight stream:
-        flush, then host-side dispatch."""
+        """One control op, ordered behind the volume's in-flight stream: an
+        in-band request through the volume's own queue on the ring, a flush
+        and host-side dispatch elsewhere. Drains to completion either
+        way."""
         self._check_open()
+        if self._inband and kind in ("snapshot", "clone", "delete"):
+            r = Request(req_id=self._rid(vid), kind=kind, volume=vid)
+            self.engine.submit(r)
+            self.flush()
+            return r.result
         self.flush()
         return self.engine.control(kind, volume=vid, **kw)
 
@@ -454,8 +508,8 @@ class VolumeManager:
         last_full = end // pby
         reqs: List[Request] = []
         if first_full < last_full:
-            self.flush()                         # order: behind in-flight
-            self.engine.unmap(vid, list(range(first_full, last_full)))
+            reqs.extend(self._unmap_pages(
+                vid, list(range(first_full, last_full))))
             edges = [(off, first_full * pby), (last_full * pby, end)]
         else:
             edges = [(off, end)]
@@ -463,6 +517,95 @@ class VolumeManager:
             if b > a:
                 reqs.extend(self.pwrite(vid, a, b"\x00" * (b - a))._reqs)
         return IOFuture(self, reqs, value=nbytes)
+
+    def _unmap_pages(self, vid: int, pages: List[int]) -> List[Request]:
+        """Unmap fully covered pages (extents freed): in-band UNMAP
+        requests on the ring, a flush and host-side dispatch elsewhere."""
+        reqs: List[Request] = []
+        if self._inband:
+            for p in pages:
+                r = Request(req_id=self._rid(vid), kind="unmap", volume=vid,
+                            page=p)
+                self.engine.submit(r)
+                reqs.append(r)
+        else:
+            self.flush()                     # order: behind in-flight ops
+            self.engine.unmap(vid, pages)
+        return reqs
+
+    # ------------------------------------------------- computational storage
+    def compute(self, vol, fn: str, off: int = 0,
+                nbytes: Optional[int] = None, *, arg: int = 0,
+                data: Optional[bytes] = None) -> IOFuture:
+        """A storage function over a volume's bytes (``Volume.compute``).
+        On backends whose submission path takes ``kind="compute"`` (the
+        ring runs it inside its step; the host oracle runs the sequential
+        reference in its FIFO) this is one async request on the volume's
+        queue, ordered like any other. Elsewhere it flushes and runs the
+        same device computation against the replica pools
+        (``compute/exec.py device_compute``)."""
+        self._check_open()
+        from repro_torch.compute import make_storage_fn, storage_fn_id
+        vid = self._vid(vol)
+        entry = make_storage_fn(fn)           # unknown names raise here
+        bb, pby = self.block_bytes, self.page_bytes
+        if entry.scope == "range":
+            if nbytes is None:
+                nbytes = self.capacity - off
+            if off % pby or nbytes % pby or nbytes <= 0:
+                raise ValueError(
+                    f"range-scoped {fn!r} needs a page-aligned non-empty "
+                    f"span (page_bytes={pby}), got [{off}, {off + nbytes})")
+            self._check_span(off, nbytes)
+            page, block = off // pby, nbytes // pby   # start page, count
+        else:                                  # scope == "block"
+            if off % bb:
+                raise ValueError(f"block-scoped {fn!r} needs a block-aligned "
+                                 f"offset (block_bytes={bb}), got {off}")
+            if nbytes is None:
+                nbytes = bb
+            if nbytes != bb:
+                raise ValueError(f"block-scoped {fn!r} covers exactly one "
+                                 f"block ({bb}B), got nbytes={nbytes}")
+            self._check_span(off, nbytes)
+            ab = off // bb
+            page, block = ab // self.page_blocks, ab % self.page_blocks
+        payload = None
+        if entry.writes:
+            if data is None:
+                raise ValueError(f"{fn!r} writes: pass data= (the new "
+                                 "block contents)")
+            data = bytes(data)
+            if len(data) != bb:
+                raise ValueError(f"{fn!r} data must be one block "
+                                 f"({bb}B), got {len(data)}")
+            payload = _bytes_to_lanes(data)
+        elif data is not None:
+            raise ValueError(f"{fn!r} does not take data=")
+
+        def wrap(value, status, lanes) -> ComputeResult:
+            return ComputeResult(fn=fn, value=int(value), status=int(status),
+                                 payload=np.asarray(lanes, np.float32))
+
+        if "compute" in self.engine.data_kinds:    # ring + host: in-queue
+            r = Request(req_id=self._rid(vid), kind="compute", volume=vid,
+                        page=page, block=block, payload=payload, fn=fn,
+                        arg=int(arg), fnid=storage_fn_id(fn))
+            self._fast_submit(r)
+
+            def assemble() -> ComputeResult:
+                value, lanes = (r.result if r.result is not None
+                                else (0, np.zeros(self.payload_shape,
+                                                  np.float32)))
+                return wrap(value, r.status, lanes)
+            return IOFuture(self, [r], assemble=assemble)
+        # no in-band compute path: fence behind in-flight I/O with a flush,
+        # then run the same device computation against the replica pools
+        from repro_torch.compute.exec import device_compute
+        self.flush()
+        value, status, lanes = device_compute(
+            self.engine, vid, fn, page, block, int(arg), payload)
+        return IOFuture(self, [], value=wrap(value, status, lanes))
 
     # ------------------------------------- embedder control-plane passthrough
     @property

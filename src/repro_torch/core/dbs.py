@@ -95,11 +95,30 @@ def _vol(st: DBSState, vol) -> torch.Tensor:
                       device=st.vol_head.device)
 
 
+def _ix(i: torch.Tensor) -> torch.Tensor:
+    """A 0-d index tensor as a (1,) int64 one. Outside ``vmap`` torch reads
+    a 0-d integer index back to the host (``.item()``), which synchronises
+    with a card; a (1,) index stays on the device."""
+    return i.reshape(1).long()
+
+
+def _get(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[i]`` for a 0-d index tensor that callers keep in bounds."""
+    return a[_ix(i)][0]
+
+
 def _set(a: torch.Tensor, i: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``a.at[i].set(v)`` for a scalar index that callers keep in bounds."""
+    """``a.at[i].set(v)`` for a 0-d index tensor that callers keep in
+    bounds."""
     a = a.clone()
-    a[i] = v
+    a[_ix(i)] = v
     return a
+
+
+def _true(n: int, device) -> torch.Tensor:
+    """(n,) True, filled on the device: a Python scalar stored into a CUDA
+    tensor is copied from the host, which synchronises."""
+    return torch.ones((n,), dtype=torch.bool, device=device)
 
 
 def _first_free_volume(st: DBSState) -> torch.Tensor:
@@ -116,17 +135,18 @@ def create_volume(st: DBSState) -> Tuple[DBSState, torch.Tensor]:
     sid = st.n_snaps
     n_s = st.snap_parent.shape[0]
     sidc = sid.clamp(max=n_s - 1)          # JAX clamps; the write is masked
-    ok = (st.vol_head[vid] < 0) & (sid < n_s)
+    ok = (_get(st.vol_head, vid) < 0) & (sid < n_s)
     st = dataclasses.replace(
         st,
         vol_head=_set(st.vol_head, vid,
-                      torch.where(ok, sid, st.vol_head[vid])),
+                      torch.where(ok, sid, _get(st.vol_head, vid))),
         snap_parent=_set(st.snap_parent, sidc,
-                         torch.where(ok, NULL, st.snap_parent[sidc])),
+                         torch.where(ok, NULL, _get(st.snap_parent, sidc))),
         snap_vol=_set(st.snap_vol, sidc,
-                      torch.where(ok, vid.to(I32), st.snap_vol[sidc])),
+                      torch.where(ok, vid.to(I32), _get(st.snap_vol, sidc))),
         n_snaps=st.n_snaps + ok.to(I32),
-        table=_set(st.table, vid, torch.where(ok, NULL, st.table[vid])),
+        table=_set(st.table, vid,
+                   torch.where(ok, NULL, _get(st.table, vid))),
     )
     return _bump(st), torch.where(ok, vid.to(I32), NULL)
 
@@ -137,16 +157,15 @@ def snapshot(st: DBSState, vol) -> Tuple[DBSState, torch.Tensor]:
     sid = st.n_snaps
     n_s = st.snap_parent.shape[0]
     sidc = sid.clamp(max=n_s - 1)
-    ok = (st.vol_head[vol] >= 0) & (sid < n_s)
+    head = _get(st.vol_head, vol)
+    ok = (head >= 0) & (sid < n_s)
     st = dataclasses.replace(
         st,
         snap_parent=_set(st.snap_parent, sidc,
-                         torch.where(ok, st.vol_head[vol],
-                                     st.snap_parent[sidc])),
+                         torch.where(ok, head, _get(st.snap_parent, sidc))),
         snap_vol=_set(st.snap_vol, sidc,
-                      torch.where(ok, vol.to(I32), st.snap_vol[sidc])),
-        vol_head=_set(st.vol_head, vol,
-                      torch.where(ok, sid, st.vol_head[vol])),
+                      torch.where(ok, vol.to(I32), _get(st.snap_vol, sidc))),
+        vol_head=_set(st.vol_head, vol, torch.where(ok, sid, head)),
         n_snaps=st.n_snaps + ok.to(I32),
     )
     return _bump(st), torch.where(ok, sid, NULL)
@@ -162,18 +181,19 @@ def clone(st: DBSState, src_vol) -> Tuple[DBSState, torch.Tensor]:
     sid = st.n_snaps
     n_s = st.snap_parent.shape[0]
     sidc = sid.clamp(max=n_s - 1)
-    ok = (st.vol_head[vid] < 0) & (frozen >= 0) & (sid < n_s)
+    ok = (_get(st.vol_head, vid) < 0) & (frozen >= 0) & (sid < n_s)
     st = dataclasses.replace(
         st,
         vol_head=_set(st.vol_head, vid,
-                      torch.where(ok, sid, st.vol_head[vid])),
+                      torch.where(ok, sid, _get(st.vol_head, vid))),
         snap_parent=_set(st.snap_parent, sidc,
-                         torch.where(ok, frozen, st.snap_parent[sidc])),
+                         torch.where(ok, frozen, _get(st.snap_parent, sidc))),
         snap_vol=_set(st.snap_vol, sidc,
-                      torch.where(ok, vid.to(I32), st.snap_vol[sidc])),
+                      torch.where(ok, vid.to(I32), _get(st.snap_vol, sidc))),
         n_snaps=st.n_snaps + ok.to(I32),
         table=_set(st.table, vid,
-                   torch.where(ok, st.table[src_vol], st.table[vid])),
+                   torch.where(ok, _get(st.table, src_vol),
+                               _get(st.table, vid))),
     )
     return _bump(st), torch.where(ok, vid.to(I32), NULL)
 
@@ -194,7 +214,7 @@ def delete_volume(st: DBSState, vol) -> DBSState:
     snapshots own, minus those another live volume's table still references
     (prefix sharing from clones)."""
     vol = _vol(st, vol)
-    ok = st.vol_head[vol] >= 0
+    ok = _get(st.vol_head, vol) >= 0
     owner_vol = torch.where(st.extent_owner >= 0,
                             st.snap_vol[st.extent_owner.clamp(min=0)], NULL)
     mine = ok & (owner_vol == vol)
@@ -204,15 +224,15 @@ def delete_volume(st: DBSState, vol) -> DBSState:
     referenced = torch.zeros((st.n_extents + 1,), dtype=torch.bool,
                              device=vol.device)
     # every index writes True, so duplicate indices are harmless
-    referenced[torch.where(live_vols[:, None], st.table + 1, 0)
-               .flatten().long()] = True
+    idx = torch.where(live_vols[:, None], st.table + 1, 0).flatten().long()
+    referenced[idx] = _true(idx.shape[0], idx.device)
     st = _free_extents(st, mine & ~referenced[1:])
     snaps_of_vol = st.snap_vol == vol
     st = dataclasses.replace(
         st,
         vol_head=_set(st.vol_head, vol,
-                      torch.where(ok, NULL, st.vol_head[vol])),
-        table=_set(st.table, vol, torch.where(ok, NULL, st.table[vol])),
+                      torch.where(ok, NULL, _get(st.vol_head, vol))),
+        table=_set(st.table, vol, torch.where(ok, NULL, _get(st.table, vol))),
         snap_parent=torch.where(snaps_of_vol & ok, -2, st.snap_parent),
     )
     return _bump(st)
@@ -224,7 +244,8 @@ def delete_volume(st: DBSState, vol) -> DBSState:
 def read_resolve(st: DBSState, vol, pages: torch.Tensor) -> torch.Tensor:
     """(B,) page ids -> (B,) extent ids (-1 for holes). O(1) per page and
     independent of snapshot-chain depth."""
-    return st.table[_vol(st, vol), pages.long()]
+    pages = pages.long()
+    return st.table[_vol(st, vol).expand(pages.shape), pages]
 
 
 def _unpack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -389,15 +410,16 @@ def unmap(st: DBSState, vol, pages: torch.Tensor) -> DBSState:
     """Drop pages from a volume (TRIM). Extents owned by the live head are
     freed; snapshot-owned extents just unlink (data stays for the
     snapshot)."""
-    vol = _vol(st, vol)
     pages = pages.long()
+    vol = _vol(st, vol).expand(pages.shape)
     head = st.vol_head[vol]
     ext = st.table[vol, pages]
     valid = ext >= 0
     owned_by_head = valid & (st.extent_owner[ext.clamp(min=0)] == head)
     e = st.n_extents
     free_mask = torch.zeros((e + 1,), dtype=torch.bool, device=ext.device)
-    free_mask[torch.where(owned_by_head, ext, e).long()] = True
+    free_mask[torch.where(owned_by_head, ext, e).long()] = _true(
+        ext.shape[0], ext.device)
     st = _free_extents(st, free_mask[:e])
     table = st.table.clone()
     table[vol, pages] = torch.where(valid, NULL, ext)

@@ -47,13 +47,15 @@ class EngineConfig:
     null_storage: bool = False
     storage: str = "dbs"         # dbs | chained (sparse-file-style baseline)
     comm: str = "fused"          # a REGISTERED BACKEND name (core/backends):
-                                 # fused | slots | loop | sharded | host
-                                 # | upstream
+                                 # fused | slots | loop | sharded | ring
+                                 # | host | upstream
     cow: str = "auto"            # legacy data-plane axis: auto only
     kernel: str = "auto"         # a REGISTERED KERNEL (kernels/dbs
                                  # registry): auto (= cuda) | cuda | torch
                                  # | ref | copy
-    n_shards: int = 1            # engine shards of comm="sharded"
+    n_shards: int = 1            # engine shards of comm="sharded"/"ring"
+    compute_tail: int = 8        # max COMPUTE requests a ring batch (the
+                                 # drain's compute window, core/ring.py)
     transport: str = "local"     # controller<->replica wire (a REGISTERED
                                  # TRANSPORT): local | device | simnet
     write_policy: str = "all"    # all | quorum | async (host dispatch)
@@ -80,8 +82,6 @@ def check_ported(cfg: EngineConfig) -> None:
     """Raise a ValueError naming the slice of the port that brings each
     configuration value this slice does not serve."""
     later = [
-        (cfg.n_shards > 1 and cfg.comm == "ring",
-         "n_shards > 1 on comm='ring' lands with the ring slice"),
         (cfg.journal is not None, "journal= lands with the durability slice"),
         (cfg.tier is not None, "tier= lands with the durability slice"),
         (cfg.cow != "auto",

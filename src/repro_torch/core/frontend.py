@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core import slots
 from repro_torch.core.fused import FusedBatch
-from repro_torch.core.ring import KIND_CLASS, OP_WRITE, RingFrontend
+from repro_torch.core.ring import (KIND_CLASS, OP_WRITE, RingFrontend,
+                                   _to_device)
 
 
 @dataclass
@@ -188,15 +189,6 @@ class MultiQueueFrontend:
         self.table = slots.retire(self.table, slot_ids)
         return [self._by_slot.pop(sid) for sid in slot_ids.tolist()
                 if sid >= 0 and sid in self._by_slot]
-
-
-def _to_device(a, device: torch.device) -> torch.Tensor:
-    """A staged numpy leaf on ``device`` in one transfer; to a card through
-    pinned memory and without blocking, so the pump never waits on it."""
-    t = torch.from_numpy(a)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 class ShardedFrontend:

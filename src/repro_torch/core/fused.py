@@ -84,8 +84,21 @@ def step_meta(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
                                      batch.queue, batch.step)
     if null_backend or not states:
         return table, states, page_revs, ok, ()
-    wmask = ok & batch.is_write
-    bits = torch.ones((), dtype=torch.int64, device=ok.device) << \
+    states, page_revs, ops = write_meta(states, page_revs, batch,
+                                        ok & batch.is_write, healthy,
+                                        null_storage=null_storage)
+    return table, states, page_revs, ok, ops
+
+
+def write_meta(states, page_revs, batch, wmask, healthy=None, *,
+               null_storage: bool = False):
+    """Each replica's ``write_pages`` of the lanes in ``wmask`` (under the
+    (R,) ``healthy`` mask when given: a failed replica takes the
+    all-masked call) and its watermark stamp; ``batch`` needs ``volume``,
+    ``page`` and ``block`` lanes (a ``FusedBatch`` or the ring's SQE).
+    Returns ``(states', page_revs', write ops)``; no watermarks with
+    ``null_storage``."""
+    bits = torch.ones((), dtype=torch.int64, device=wmask.device) << \
         batch.block.to(torch.int64)
     out_states, out_ops, out_prs = [], [], []
     for i, st in enumerate(states):            # mirrored write-to-all
@@ -96,7 +109,7 @@ def step_meta(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
                                           batch.page, wops.ok, st.revision))
         out_states.append(st)
         out_ops.append(wops)
-    return table, tuple(out_states), tuple(out_prs), ok, tuple(out_ops)
+    return tuple(out_states), tuple(out_prs), tuple(out_ops)
 
 
 def step_core(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],

@@ -460,8 +460,8 @@ class ShardedReplicaGroup(_Waiter):
         return self._healthy_np
 
     def adopt_health(self, mask: torch.Tensor) -> None:
-        """Adopt a health mask computed on the device (in-band fail/rebuild
-        of the ring slice)."""
+        """Adopt a health mask computed on the device (the ring's in-band
+        fail/rebuild, core/ring.py)."""
         self._healthy_dev = mask
         self._healthy_stale = True
 

@@ -49,7 +49,7 @@ from repro_torch.core.control import ControlDispatch
 from repro_torch.core.frontend import Request, ShardedFrontend
 from repro_torch.core.fused import FusedBatch, read_routes, step_meta
 from repro_torch.core.replication import ShardedReplicaGroup
-from repro_torch.core.ring import vmap_shards
+from repro_torch.core.ring import routed_read, vmap_shards
 from repro_torch.kernels.dbs.registry import make_kernel, resolve_kernel_name
 
 
@@ -218,22 +218,6 @@ class EnginePool(ControlDispatch):
         self.frontend.submit(req)
 
     # ------------------------------------------------------------- pumping
-    def _gather(self, pools, routes, batch: FusedBatch) -> torch.Tensor:
-        """One routed read launch a replica: a lane reads through the
-        replica its route names and is a hole (-1: zeros, no load) on the
-        others, so the chain of selects returns each lane's one block."""
-        reads = None
-        for pool, route in zip(pools, routes):
-            vals = self._kern.read_stacked(pool, route, batch.block)
-            self.kernel_calls["read"] += 1
-            if reads is None:
-                reads = vals
-            else:
-                hit = (route >= 0).reshape(route.shape
-                                           + (1,) * (vals.dim() - 2))
-                reads = torch.where(hit, vals, reads)
-        return torch.zeros_like(batch.payload) if reads is None else reads
-
     def pump_async(self) -> Optional[PendingPump]:
         """Admit one batch a shard and launch the pump; do NOT wait for it.
         Returns a ``PendingPump`` (None when no shard had traffic)."""
@@ -264,7 +248,9 @@ class EnginePool(ControlDispatch):
             self.step_counts["step_read"] += 1
             table, ok, routes = self._meta_read(
                 self.frontend.table, states, batch, rr, healthy)
-        reads = self._gather(pools, routes, batch)
+        reads = routed_read(self._kern, pools, routes, batch.block,
+                            batch.payload)
+        self.kernel_calls["read"] += len(routes)
         self.frontend.table = table
         if self.device.type != "cuda":
             return PendingPump(reqs=reqs, ok=ok, reads=reads)

@@ -120,7 +120,8 @@ def clone_page_rev(page_rev: torch.Tensor, src_vol, new_vol) -> torch.Tensor:
     """A clone inherits the SOURCE's watermark row (no-op when the clone
     failed, ``new_vol < 0``)."""
     new_vol = torch.as_tensor(new_vol).long()
-    safe = new_vol.clamp(min=0)
+    # (1,) indices: a 0-d index tensor is read back to the host
+    safe = new_vol.clamp(min=0).reshape(1)
     row = torch.where(new_vol >= 0, page_rev[int(src_vol)], page_rev[safe])
     out = page_rev.clone()
     out[safe] = row

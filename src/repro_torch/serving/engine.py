@@ -1,7 +1,7 @@
 """ServeEngine: continuous batching with the KV cache in the DBS pools.
 
-Port of ``GenRequest`` and ``ServeEngine(kv_backend="fused"|"sharded")``
-from ``repro/serving/engine.py``. One running engine = one Longhorn node:
+Port of ``GenRequest`` and ``ServeEngine(kv_backend="fused"|"sharded"|
+"ring")`` from ``repro/serving/engine.py``. One running engine = one Longhorn node:
 
 - admission goes through the **multi-queue frontend** (ublk analogue),
 - live requests own **slots** in a fixed SlotTable (Messages Array); the
@@ -55,7 +55,9 @@ caches, recurrent state and window rings alike (the reference copies
 none); and the prompt is prefilled unpadded (the reference's page padding
 feeds pad tokens into the recurrence).
 
-``kv_backend="sharded"`` keeps the KV store on the shard-stacked pool
+``kv_backend="sharded"`` (and ``"ring"``, whose storage is the same
+stacked group, and whose forks' clones and sessions' deletes ride the
+ring's requests in-band) keeps the KV store on the shard-stacked pool
 (``kv_shards`` shards, core/sharded.py): session volumes spread over the
 shards, the extent map and the pools are the flattened global views
 (``VolumeManager.device_extent_map``/``device_pools``), and one pump and

@@ -260,8 +260,6 @@ def test_default_device_is_cuda_without_fallback():
 
 
 @pytest.mark.parametrize("kw,slice_", [
-    (dict(backend="ring"), "ring slice"),
-    (dict(backend="ring", n_shards=2), "ring slice"),
     (dict(backend="sharded", n_shards=2, tier=8), "durability slice"),
     (dict(journal="wal.log"), "durability slice"),
     (dict(tier=8), "durability slice"),
@@ -289,6 +287,10 @@ def test_unported_configuration_raises(kw, slice_):
     dict(backend="sharded", n_shards=2),
     dict(backend="sharded", n_shards=2, null_storage=True),
     dict(n_shards=2),
+    dict(backend="ring"),
+    dict(backend="ring", n_shards=2),
+    dict(backend="ring", n_shards=2, null_storage=True),
+    dict(backend="ring", null_backend=True),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()
                            if k != "transport_opts"))
 def test_ported_configuration_matches_jax(kw):
@@ -320,8 +322,8 @@ def test_ported_configuration_matches_jax(kw):
 def test_unported_calls_raise():
     mgr = _mgr()
     v = mgr.create()
-    with pytest.raises(ValueError, match="compute slice"):
-        v.compute("checksum")
+    with pytest.raises(ValueError, match="unknown storage function"):
+        v.compute("no_such_function")
     with pytest.raises(ValueError, match="out of range"):
         from repro_torch.core import Request
         mgr.submit(Request(req_id=0, kind="write", volume=v.vid,
@@ -380,7 +382,8 @@ def test_sharded_seeded_trace_matches_jax(seed):
     assert tm.engine.backend.consistent()
 
 
-@pytest.mark.parametrize("backend,shards", [("sharded", 2), ("fused", 1)])
+@pytest.mark.parametrize("backend,shards", [("sharded", 2), ("fused", 1),
+                                            ("ring", 2), ("ring", 1)])
 def test_large_span_fans_out_and_completes_on_flush(backend, shards):
     """One call fans out to many block requests, completed by ONE flush
     (no per-block host round trip); the bytes round-trip exactly."""
@@ -417,3 +420,137 @@ def test_control_rejected_at_submit_data_survives(backend, shards):
     assert eng.drain() == 1 and w.status == 0
     mgr.snapshot(v)
     assert v.read(0, BB) == bytes([7] * BB)
+
+
+# ---------------------------------------------------------------------------
+# 6. the ring through the byte API (tests/test_blockdev.py's ring cases)
+# ---------------------------------------------------------------------------
+def test_default_backend_is_ring():
+    """As in the reference, the manager's default backend is the ring, and
+    with no device it targets the card (tested above)."""
+    mgr = VolumeManager(device="cpu", **GEOM)
+    assert mgr.backend_name == JManager(**GEOM).backend_name == "ring"
+    assert mgr._inband and mgr.engine.pool is mgr.engine.impl
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("kernel", ["cuda", "torch", "copy"])
+def test_byte_equivalence_interleaved_ring(kernel, shards):
+    interleaved_scenario(_mgr(backend="ring", n_shards=shards, kernel=kernel,
+                              n_extents=128))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("shards", [1, 2])
+def test_ring_seeded_trace_matches_jax(seed, shards):
+    """The seeded byte trace on the ring, its snapshots, clones, discards
+    and deletes in-band: the same bytes from every read, and every stacked
+    replica leaf equal at the end."""
+    kw = dict(GEOM, backend="ring", n_shards=shards)
+    jm = JManager(kernel="pallas", **kw)
+    tm = VolumeManager(kernel="cuda", device="cpu", **kw)
+    ops = _trace(seed, 70, jm.capacity)
+    outs = ([], [])
+    for m, out in zip((jm, tm), outs):
+        vols = [m.create(), m.create(), m.create()]
+        _replay(m, ops, vols, out)
+    assert outs[0] == outs[1]
+    _assert_same_stacked(jm, tm)
+    assert tm.engine.backend.consistent()
+
+
+def test_api_one_program_per_class_signature():
+    """Byte traffic with in-band control (a snapshot, a discard's UNMAP):
+    the reference compiles one program a signature and none for more
+    traffic; the port pumps the same signatures, adds none for more
+    traffic, and completes a whole page span with one host fetch."""
+    outs = []
+    for m in (JManager(backend="ring", n_shards=2, n_queues=1, **GEOM),
+              _mgr(backend="ring", n_shards=2, n_queues=1)):
+        pool = m.engine.pool
+        vols = [m.create() for _ in range(4)]
+
+        def traffic():
+            futs = []
+            for i, v in enumerate(vols):
+                futs.append(v.pwrite(0, _pat(i, m.page_bytes)))
+                futs.append(v.pread(i * BB, 3 * BB))
+            vols[0].snapshot()
+            m.discard(vols[1], 0, m.page_bytes)
+            m.flush()
+            return [f.result() for f in futs]
+        first = traffic()
+        counts = getattr(pool, "trace_counts", None)
+        before = set(pool.step_counts if counts is None else counts)
+        d0 = pool.dispatches
+        assert traffic() == first
+        after = set(pool.step_counts if counts is None else counts)
+        assert after == before and pool.dispatches > d0
+        outs.append((first, sorted(before), pool.dispatches))
+    assert outs[0] == outs[1]
+    pool = m.engine.pool
+    fut = vols[2].pwrite(0, _pat(3, m.page_bytes))
+    calls = []
+    real = pool._fetch
+    pool._fetch = lambda p: (calls.append(1), real(p))[1]
+    assert pool.pump() == PB and calls == [1]
+    assert fut.result() == m.page_bytes
+
+
+def test_mixed_kind_batch_inband_on_ring():
+    from repro.core.frontend import Request as JRequest
+    from repro_torch.core import Request
+    outs = []
+    ms = (JManager(backend="ring", n_shards=2, n_queues=1, **GEOM),
+          _mgr(backend="ring", n_shards=2, n_queues=1))
+    for m, R in zip(ms, (JRequest, Request)):
+        v = m.create()
+        fut = v.pwrite(0, _pat(1, 2 * BB))
+        snap = R(req_id=m._rid(v.vid), kind="snapshot", volume=v.vid)
+        m.engine.submit(snap)
+        fut2 = v.pwrite(0, _pat(2, BB))         # CoW against the snapshot
+        m.flush()
+        assert fut.result() == 2 * BB and fut2.result() == BB
+        assert snap.status == 0 and snap.result >= 0
+        got = v.read(0, 2 * BB)
+        assert got == _pat(2, BB) + _pat(1, 2 * BB)[BB:]
+        outs.append((snap.result, got))
+    assert outs[0] == outs[1]
+    _assert_same_stacked(*ms)
+
+
+def test_engine_facade_legacy_surface():
+    from repro_torch.core import Engine, EngineConfig, Request
+    eng = Engine(EngineConfig(comm="ring", n_shards=2, payload_shape=(BB,),
+                              n_extents=128, max_pages=16, device="cpu"))
+    assert eng.pool is not None and eng.pool is eng.impl
+    assert eng.backend is eng.pool.backend
+    assert eng.frontend is eng.pool.frontend
+    unfused = Engine(EngineConfig(comm="slots", payload_shape=(BB,),
+                                  device="cpu"))
+    assert unfused.pool is None and unfused.backend is not None
+    up = Engine(EngineConfig(comm="upstream", payload_shape=(BB,),
+                             device="cpu"))
+    assert up.pool is None and up.backend is None
+    vol = up.create_volume()
+    r = Request(req_id=0, kind="write", volume=vol, page=0, block=0,
+                payload=np.ones((BB,), np.float32))
+    up.submit(r)
+    assert up.drain() == 1 and r.status == 0
+
+
+def test_volumemanager_stats_and_bounds():
+    outs = []
+    for m in (JManager(backend="ring", n_shards=2, **GEOM),
+              _mgr(backend="ring", n_shards=2)):
+        v = m.create()
+        with pytest.raises(ValueError):
+            v.pread(m.capacity - 2, 4)
+        with pytest.raises(ValueError):
+            v.pwrite(-1, b"x")
+        assert v.pwrite(0, b"").result() == 0
+        assert v.pread(5, 0).result() == b""
+        st_ = m.stats()
+        assert st_["backend"] == "ring" and st_["queued"] == 0
+        outs.append(st_)
+    assert outs[0] == outs[1]

@@ -49,7 +49,7 @@ def _mgrs(backend: str):
     return _MGRS[backend]
 
 
-@pytest.mark.parametrize("backend", ["fused", "upstream"])
+@pytest.mark.parametrize("backend", ["fused", "upstream", "ring"])
 @settings(max_examples=15, deadline=None,
           suppress_health_check=[HealthCheck.function_scoped_fixture])
 @given(ops=st.lists(_OP, max_size=14))

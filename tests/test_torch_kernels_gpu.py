@@ -58,7 +58,16 @@ The shards slice on the card: the flattened-row form (``write_stacked``/
 ``read_stacked``: one launch over S shards' lanes at offset rows) against
 the plain versions over the same stacked pool, at S 1, 4 and 8, up to the
 block device's width; and a sharded pool's trace with a per-shard failure
-and rebuild, bit for bit against the same run on the CPU. Imports no JAX.
+and rebuild, bit for bit against the same run on the CPU.
+
+The ring slice on the card: a ring trace (``backend="ring"`` at 1 and 4
+shards) whose pumps carry data, in-band control (snapshots, clones,
+discards' unmaps, a delete, a shard's replica failed and rebuilt by
+FAIL/REBUILD requests) and compute lanes (all five storage functions, a
+compare-and-write that commits), bit for bit against the same run on the
+CPU (the plain path: the kernel wrappers' plain versions); and one ring
+pump with control lanes and one with compute lanes under
+``torch.cuda.set_sync_debug_mode("error")``. Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -891,3 +900,131 @@ def test_sharded_pool_on_the_card_matches_the_cpu():
     for i, (a, b) in enumerate(zip(gpu_reps, cpu_reps)):
         for part, x, y in zip(("state", "pool", "page_rev"), a, b):
             same(x, y, f"replica {i} {part}")
+
+
+def _ring_run(device, n_shards):
+    """A seeded byte trace on a 3-replica ring with in-band control and
+    storage functions aboard; shard 0's replica 1 failed and rebuilt by
+    requests mid-trace. Returns every read's bytes, every compute result
+    and each replica's stacked state, pool and watermarks as numpy."""
+    from repro_torch.compute.functions import py_blocksum
+    from repro_torch.core import convert
+    from repro_torch.core.blockdev import VolumeManager
+    rng = np.random.default_rng(11)
+    mgr = VolumeManager(backend="ring", n_shards=n_shards, device=device,
+                        payload_elems=64, page_blocks=8, max_pages=32,
+                        n_extents=96, max_volumes=8, batch=16, n_replicas=3,
+                        kernel="cuda")
+    vols = [mgr.create() for _ in range(4)]
+    reads, computes = [], []
+    for i in range(240):
+        v = vols[i % len(vols)]
+        if i == 80:
+            vols[1].snapshot()
+            vols.append(vols[1].clone())
+        if i == 100:
+            mgr.engine.control("fail", shard=0, replica=1)
+        if i == 150:
+            mgr.engine.control("rebuild", shard=0, replica=1)
+        if i == 200:
+            vols.pop(2).delete()
+        off = int(rng.integers(0, mgr.capacity - 256))
+        r = rng.random()
+        if r < 0.5:
+            v.pwrite(off, rng.integers(0, 256, int(rng.integers(1, 256)),
+                                       dtype=np.uint8).tobytes())
+        elif r < 0.75:
+            reads.append(v.pread(off, 200))
+        elif r < 0.8:
+            v.discard(off // 2, 2 * mgr.page_bytes)
+        else:
+            fn = ("checksum", "scan_count", "filter_pages",
+                  "verify_on_read", "compare_and_write")[i % 5]
+            blk = off // mgr.block_bytes * mgr.block_bytes
+            if fn == "compare_and_write":
+                cur = v.read(blk, mgr.block_bytes)
+                computes.append(v.compute(fn, blk, arg=py_blocksum(cur),
+                                          data=bytes([i % 256]) * 64))
+            elif fn == "verify_on_read":
+                computes.append(v.compute(fn, blk))
+            else:
+                computes.append(v.compute(fn, arg=i % 7 if i % 2 else -1))
+    mgr.flush()
+    out = [f.result() for f in reads]
+    out += [(c.result().value, c.result().status,
+             c.result().payload.tolist()) for c in computes]
+    out += [v.read(0, mgr.capacity) for v in vols]
+    g = mgr.engine.backend
+    assert g.consistent() and g.healthy.all()
+    return out, [(convert.to_numpy(st), convert.to_numpy(p),
+                  convert.to_numpy(r)) for st, p, r in zip(
+                      g.states, g.pools, g.device_page_revs())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_ring_on_the_card_matches_the_cpu(n_shards):
+    """The ring on the card (the DBS kernels over flattened rows, the
+    compute gathers through the read kernel, the in-band rebuild's in-place
+    pool copy) leaves every stacked leaf bit-equal to the same run on the
+    CPU, and every read and storage-function result equal."""
+    dev = _cuda()
+    (gpu_out, gpu_reps), (cpu_out, cpu_reps) = (
+        _ring_run(dev, n_shards), _ring_run(torch.device("cpu"), n_shards))
+    assert gpu_out == cpu_out and len(gpu_out) > 50
+
+    def same(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{path}.{k}")
+            return
+        assert np.array_equal(a, b), path
+    for i, (a, b) in enumerate(zip(gpu_reps, cpu_reps)):
+        for part, x, y in zip(("state", "pool", "page_rev"), a, b):
+            same(x, y, f"replica {i} {part}")
+
+
+@pytest.mark.gpu
+def test_ring_pumps_do_not_sync():
+    """One ring pump with control lanes (a snapshot, an unmap, a clone)
+    and one with compute lanes (a whole-volume checksum and a committing
+    compare-and-write) launch under sync-debug "error": the pump reads
+    nothing back; its one host wait is the completion's event."""
+    from repro_torch.compute.functions import py_blocksum
+    from repro_torch.core.blockdev import VolumeManager
+    from repro_torch.core.frontend import Request
+    dev = _cuda()
+    mgr = VolumeManager(backend="ring", n_shards=2, device=dev,
+                        payload_elems=64, page_blocks=8, max_pages=32,
+                        n_extents=96, max_volumes=8, batch=16, n_replicas=3)
+    v = mgr.create()
+    data = bytes(range(256)) * (mgr.capacity // 256)
+    v.write(0, data)
+    eng = mgr.engine.pool
+    warm = [v.snapshot(), v.compute("checksum").result()]
+    assert warm[0] >= 0 and warm[1].ok
+    mgr.engine.backend.device_state()      # the health mask, cached
+    rid = lambda: mgr._rid(v.vid)
+    lanes = [[Request(req_id=rid(), kind="write", volume=v.vid, page=1,
+                      block=2, payload=np.full(64, 5, np.float32)),
+              Request(req_id=rid(), kind="snapshot", volume=v.vid),
+              Request(req_id=rid(), kind="unmap", volume=v.vid, page=30),
+              Request(req_id=rid(), kind="clone", volume=v.vid)],
+             [Request(req_id=rid(), kind="compute", volume=v.vid,
+                      fn="checksum", page=0, block=32),
+              Request(req_id=rid(), kind="compute", volume=v.vid,
+                      fn="compare_and_write", page=0, block=0,
+                      arg=py_blocksum(data[:64]),
+                      payload=np.zeros(64, np.float32))]]
+    for batch in lanes:
+        for r in batch:
+            eng.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p = eng.pump_async()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert eng._complete(p) == len(batch)
+        assert all(r.status == 0 for r in batch)
+    assert v.read(0, 64) == bytes(64)          # the CAS committed

@@ -79,8 +79,23 @@ def test_ring_drain_matches_jax(seed, n_shards, n_queues, batch):
 
 
 def test_compute_kind_lands_later():
-    ring = RingFrontend(1, 2, 8)
-    with pytest.raises(ValueError, match="compute slice"):
-        ring.submit(Request(req_id=0, kind="compute", volume=0))
-    with pytest.raises(ValueError, match="unknown request kind"):
-        ring.submit(Request(req_id=0, kind="bogus", volume=0))
+    """COMPUTE requests resolve their function name to the registry id at
+    submit, as the reference's do (the same ids: both registries list the
+    built-ins in one order), and a writing function closes the batch's
+    compute window; unknown names and kinds raise at submit."""
+    jr, tr = JRing(1, 2, 8, with_table=False), RingFrontend(1, 2, 8)
+    for ring, R in ((jr, JRequest), (tr, Request)):
+        for i, fn in enumerate(("checksum", "compare_and_write",
+                                "verify_on_read")):
+            ring.submit(R(req_id=i, kind="compute", volume=0, fn=fn))
+        with pytest.raises(ValueError, match="unknown storage function"):
+            ring.submit(R(req_id=9, kind="compute", volume=0, fn="nope"))
+        with pytest.raises(ValueError, match="unknown request kind"):
+            ring.submit(R(req_id=9, kind="bogus", volume=0))
+    jd, jst, jcls = jr._stage((4,))
+    td, tst, tcls = tr._stage((4,))
+    assert jcls == tcls == {"compute"}
+    assert [r.fnid for r in jd[0]] == [r.fnid for r in td[0]] == [0, 3]
+    for k in jst:
+        assert np.array_equal(jst[k], tst[k]), k
+    assert jr.depth() == tr.depth() == 1

@@ -422,8 +422,8 @@ def test_device_views_are_the_live_pools(granite):
 
 def test_unported_serving_configuration_raises(granite):
     _, tc, _, tp = granite
-    with pytest.raises(ValueError, match="ring slice"):
-        ServeEngine(tc, tp, kv_backend="ring", device="cpu")
+    ring = ServeEngine(tc, tp, kv_backend="ring", device="cpu")
+    assert ring._sharded and ring.volumes.backend_name == "ring"
     with pytest.raises(ValueError, match="models slice"):
         ServeEngine(t_smoke("musicgen-large"), tp, device="cpu")
     if not torch.cuda.is_available():
@@ -686,3 +686,48 @@ def test_sharded_fail_refused_before_it_applies(granite):
         np.testing.assert_array_equal(
             np.stack(te.live[rid].logit_trace),
             np.stack(engines[1].live[rid].logit_trace))
+
+
+# ---------------------------------------------------------------------------
+# the ring KV store (the reference's default block-device backend)
+# ---------------------------------------------------------------------------
+def _ring_scenario(m, shards, fork):
+    jc = m[0]
+    je, te = _pair(m, n_slots=3, max_len=64, kv_backend="ring",
+                   kv_shards=shards)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, jc.vocab_size, size=(6 + rid,))
+               for rid in range(4)]
+    for rid in range(2):
+        _submit(je, te, rid, prompts[rid], 4)
+    _lockstep(je, te, 2)
+    if fork:
+        assert je.fork(0, 100, 3) is not None
+        assert te.fork(0, 100, 3) is not None
+    for rid in range(2, 4):                # more requests than slots
+        _submit(je, te, rid, prompts[rid], 4)
+    _drain(je, te, 40)
+    assert {rid: g.out_tokens for rid, g in je.live.items()} == \
+        {rid: g.out_tokens for rid, g in te.live.items()}
+    st = convert.to_numpy(te.state)
+    assert (st["extent_owner"] < 0).all() and (st["vol_head"] < 0).all()
+    assert te.volumes.engine.backend.consistent()
+    return te
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_ring_serving_matches_jax(granite, shards):
+    """``kv_backend="ring"``: the KV writes, a fork's clone and the
+    sessions' deletes ride the ring's requests in-band. More requests than
+    slots and a fork: each lock step gives the reference's tokens and
+    logits, extent map, stacked metadata and pools (the module note); at
+    the end nothing leaks and the replicas agree."""
+    te = _ring_scenario(granite, shards, fork=True)
+    assert te.volumes.engine.pool.step_counts.get(("read", "vol", "write"))
+
+
+def test_ring_serving_matches_jax_gemma2(gemma2):
+    """The same on gemma2-2b's smoke config (local and global layers, logit
+    caps), without a fork: the reference's gemma2 forks read stale window
+    rings (ROADMAP queue 3)."""
+    _ring_scenario(gemma2, 1, fork=False)

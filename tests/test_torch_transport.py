@@ -11,10 +11,9 @@ round-robin cursor. The simnet links draw from ``np.random.default_rng``
 in both, so a seed gives the same drops and reorders.
 
 The sharded pool's per-shard rebuild (tests/test_transport.py:234) is
-twinned here with the sharded leg of the in-program policy refusal
-(:399). Not twinned, waiting for the ring slice (ROADMAP): the in-band
-ring clone before a host rebuild (:163), the ring manager's close (:460)
-and the ring leg of the policy refusal.
+twinned here, and so are the ring's cases: the in-band clone before a
+host delta rebuild (:163), the ring leg of the in-program policy refusal
+(:399) and the ring manager's close (:460).
 """
 import dataclasses
 
@@ -520,12 +519,12 @@ def test_engineconfig_threads_transport_to_the_group():
 
 
 def test_inprogram_backends_reject_host_policies():
-    """The fused and sharded legs (the ring leg waits for its slice). The
-    JAX package's sharded refusal says INSIDE where the others say
+    """The fused, sharded and ring legs. The JAX package's sharded group
+    (behind ``sharded`` and ``ring``) says INSIDE where the others say
     IN-PROGRAM."""
     for P in (J, T):
-        for comm in ("fused", "sharded"):
-            word = "INSIDE" if (P is J and comm == "sharded") else \
+        for comm in ("fused", "sharded", "ring"):
+            word = "INSIDE" if (P is J and comm != "fused") else \
                 "IN-PROGRAM"
             with pytest.raises(ValueError, match=f"write_policy|{word}"):
                 P.Engine(P.Config(comm=comm, storage="dbs",
@@ -533,6 +532,68 @@ def test_inprogram_backends_reject_host_policies():
             with pytest.raises(ValueError, match=word):
                 P.Engine(P.Config(comm=comm, storage="dbs",
                                   read_policy="latency", **P.cfg))
+
+
+def test_inband_clone_then_host_delta_rebuild():
+    """The clone hazard through the ring's in-band CLONE: the control tail
+    copies the source's watermark row, so the host-side streamed delta
+    rebuild after it moves the extents the clone still shares, and the
+    rebuilt replica alone serves both volumes."""
+    def scenario(P):
+        eng = P.Engine(P.Config(comm="ring", n_shards=1, storage="dbs",
+                                payload_shape=PAY, n_extents=256,
+                                max_pages=64, batch=16, **P.cfg))
+        vol = eng.create_volume()
+        pay = np.ones(PAY, np.float32)
+
+        def write(page, val):
+            eng.submit(P.Request(req_id=page, kind="write", volume=vol,
+                                 page=page, block=0, payload=val * pay))
+            eng.drain()
+        write(0, 1.0)
+        b = eng.pool.backend
+        b.fail(0, 1)
+        write(0, 2.0)                        # replica 1 misses this
+        cvol = eng.clone(vol)                # in-band CLONE
+        assert cvol >= 0
+        write(0, 3.0)                        # the source CoWs away
+        b.rebuild(0, 1)                      # host-side streamed delta
+        assert b.consistent()
+        b.fail(0, 0)                         # the rebuilt replica serves
+        got = [P.leaves_pool(eng.pool.read_volume(v, P.pages([0]),
+                                                  P.pages([0])))[:, 0]
+               for v in (vol, cvol)]
+        np.testing.assert_allclose(got, [[3.0], [2.0]])
+        b.rebuild(0, 0)
+        out = [dict(t.sent) for t in b.transports]
+        out += [t.pages_moved for t in b.transports]
+        out += [P.leaves_pool(x) for x in b.pools]
+        out += [P.leaves_pool(x) for x in b.device_page_revs()]
+        out += [P.leaves_state(x) for x in b.states]
+        return out + got
+    _twin(scenario)
+
+
+def test_volumemanager_close_drains_inflight():
+    """Context-manager exit drains in-flight I/O on the ring; the closed
+    manager rejects new submissions and keeps its futures resolvable."""
+    def scenario(P):
+        with P.Manager(backend="ring", payload_elems=8, page_blocks=4,
+                       max_pages=16, **P.cfg) as vm:
+            v = vm.create()
+            fut = v.pwrite(0, b"bye")
+            rfut = v.pread(0, 3)
+            assert not fut.done()            # still queued, no flush yet
+        assert vm.closed and fut.done() and rfut.done()
+        assert rfut.result() == b"bye"
+        assert vm.close() == 0               # idempotent
+        for call in (lambda: v.pwrite(0, b"nope"),
+                     lambda: vm.pread(v, 0, 1), vm.create):
+            with pytest.raises(ValueError, match="closed"):
+                call()
+        assert vm.flush() == 0
+        return [P.leaves_pool(x) for x in vm.engine.backend.pools]
+    _twin(scenario)
 
 
 def test_volumemanager_threads_transport():
