@@ -171,6 +171,39 @@ and the script exits non-zero:
    (the slice's pool read once and written once over 3.35 TB/s), the
    phase's peak memory. Then the ring on the ``copy`` entry over the
    ladder's cut trace (it must launch ``dbs_copy``).
+8l. journal — at the main path's geometry (``fused``/``cuda``), 4096
+   4 KiB writes at scattered blocks (a stride of 7919 blocks: each lands
+   on a page of its own), a flush every 64 and a durable flush at the
+   end, on ``VolumeManager(journal=...)`` and on one without: a short
+   warm-up each, a stream each with its host syncs a pump counted under
+   sync-debug "warn" (they must be equal), then three timed streams
+   each, interleaved: ops/s, the
+   overhead of the best against the best, the ms a group commit and an
+   fsync take inside the timed streams, the reference's gate (at most
+   30%, benchmarks/ladder.py ``check_durability_gate``) printed as
+   ``gate_met`` and not enforced, appends, records, journal bytes, the
+   journal's directory (under TMPDIR) and its filesystem type.
+8m. recovery — the journaled manager abandoned unclosed, half a record
+   torn onto its tail, ``durability.recover`` into a fresh manager: timed,
+   records and blocks replayed; the volume's digest must equal the
+   crashed manager's and every written block must read back through the
+   byte API. Then a fresh journaled stream with a ``SnapshotExport`` after
+   its first half (``extents_moved`` must equal the delta: the mapped
+   extents then), crashed and torn the same way and recovered with
+   ``export=``: install timed alone, bytes across the bus each way,
+   ``after_seq`` > 0, the same two checks. Then 2048 writes journaled on
+   ``backend="ring"`` (the default), recovered by full replay and checked
+   the same way. The DBS kernels' launches in each recovery (replay and
+   read-back) are counted.
+8n. tier — 512 of the volume's 8192 pages (cut for time) written whole
+   and read back twice on the all-resident pool; then on
+   ``VolumeManager(tier=...)``, written, the budget cut to 256 device
+   extents (2x over-subscribed), and read back twice, every read checked:
+   MiB/s of each, spills, fills, extents and bytes each way, host syncs a
+   tiered pump (its second read pass, under sync-debug "warn") beside the
+   untiered main path's; the tiered step must launch one ``dbs_rw_write``
+   a replica a write pump and one ``dbs_rw_read`` a pump, and spill and
+   fill both.
 9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
@@ -286,8 +319,11 @@ import contextlib
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -364,6 +400,12 @@ SPLIT_CALLS = 200                # calls a part of the S=1 pump, timed
 TABLE3_SHARDS, TABLE3_VOLUMES = (1, 2, 4, 8), 8
 SERVE_SHARDS, SERVE_REBUILD_REQUESTS = 2, 4
 SERVE_RING_REQUESTS = 4          # ring serving: phase 9's first requests
+# the durability slice: the journal's write stream, the reference's gate
+# (benchmarks/ladder.py check_durability_gate: at most 30% overhead),
+# the ring's journaled stream, and the tier's pages and device budget
+DUR_WRITES, DUR_FLUSH_EVERY, DUR_GATE_FLOOR = 4096, 64, 0.77
+RING_DUR_WRITES = 2048           # the ring's stream, cut for time
+TIER_PAGES, TIER_BUDGET = 512, 256   # of 8192 pages: cut for time
 
 
 def emit(**kw) -> None:
@@ -765,7 +807,9 @@ def count_syncs(torch, fn) -> int:
     """Run ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
     count the synchronising CUDA calls it made (device-to-host copies,
     ``.tolist()``/``.item()``, pageable host-to-device copies, stream
-    synchronisations), one warning each."""
+    synchronisations), one warning each. The notice that the first
+    switch to a debug mode prints once a process ("Synchronization debug
+    mode is a prototype feature ...") is not a sync and is not counted."""
     import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as seen:
@@ -775,7 +819,8 @@ def count_syncs(torch, fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in seen)
+    return sum("synchroniz" in str(w.message)
+               and "prototype" not in str(w.message) for w in seen)
 
 
 def phase_main(torch, args, dev, smi, backend="fused", kernel="cuda",
@@ -2447,6 +2492,442 @@ def phase_serve_ring(torch, dev, smi, cfg, params, prompts, want):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 8l-8n: the durability slice on the block device
+# ---------------------------------------------------------------------------
+def durability_config(args, **kw):
+    """The main path's manager geometry (3 replicas, 4 KiB blocks, 32-block
+    extent rows, the 1 GiB volume, fused on the cuda kernels)."""
+    config = dict(backend="fused", kernel="cuda", n_replicas=REPLICAS,
+                  payload_elems=BLOCK, page_blocks=PAGE_BLOCKS,
+                  max_pages=args.max_pages, n_extents=args.n_extents,
+                  max_volumes=16, batch=BATCH, n_slots=256, n_queues=4)
+    config.update(kw)
+    return config
+
+
+def fs_of(path):
+    """The mount point holding ``path`` and its filesystem type, from
+    /proc/mounts (the longest mount point that prefixes the path)."""
+    real, best, kind = os.path.realpath(path), "", "unknown"
+    try:
+        with open("/proc/mounts") as f:
+            for ln in f:
+                parts = ln.split()
+                mnt = parts[1]
+                if ((real == mnt or real.startswith(mnt.rstrip("/") + "/"))
+                        and len(mnt) > len(best)):
+                    best, kind = mnt, parts[2]
+    except OSError:
+        pass
+    return best, kind
+
+
+class PumpCounter:
+    """Counts the pumps that did work on a manager's backend, until
+    ``restore()``."""
+
+    def __init__(self, mgr):
+        self.impl = mgr.engine.impl
+        self.inner = self.impl.pump
+        self.n = 0
+
+        def pump():
+            got = self.inner()
+            self.n += got > 0
+            return got
+        self.impl.pump = pump
+
+    def restore(self):
+        self.impl.pump = self.inner
+
+
+def write_stream(mgr, vid, payloads, n_writes, shift, written,
+                 on_half=None):
+    """The journal phase's stream: ``n_writes`` 4 KiB writes at scattered
+    block offsets (a stride of 7919 blocks over the volume), a flush every
+    DUR_FLUSH_EVERY and a durable flush at the end; ``written`` maps each
+    block to its bytes. ``on_half`` runs after the flush at the middle.
+    Returns the seconds the stream took."""
+    n_blocks = mgr.capacity // BLOCK
+    t0 = time.perf_counter()
+    for i in range(n_writes):
+        ab = (i * 7919) % n_blocks
+        data = payloads[(i + shift) % len(payloads)]
+        mgr.pwrite(vid, ab * BLOCK, data)
+        written[ab] = data
+        if (i + 1) % DUR_FLUSH_EVERY == 0:
+            mgr.flush()
+            if on_half is not None and i + 1 == n_writes // 2:
+                on_half()
+    mgr.flush(durable=True)
+    return time.perf_counter() - t0
+
+
+def mgr_digest(torch, mgr, vid):
+    """``volume_digest`` of volume ``vid`` on a manager's first healthy
+    replica (the fused group, or shard 0 of a one-shard ring)."""
+    g = mgr.engine.backend
+    if hasattr(g, "replicas"):
+        r = g.replicas[g.healthy_indices()[0]]
+        return volume_digest(torch, r.pool, r.state.table[vid])
+    if g.n_shards != 1:
+        raise ValueError("mgr_digest reads one-shard groups only")
+    return volume_digest(torch, g.pools[0][0], g.states[0].table[0, vid])
+
+
+def check_blocks(mgr, vid, written):
+    """Read every written block back through the byte API; all must hold
+    their bytes. Returns the blocks checked."""
+    futs = [(mgr.pread(vid, ab * BLOCK, BLOCK), data)
+            for ab, data in written.items()]
+    mgr.flush()
+    bad = sum(f.result() != data for f, data in futs)
+    if bad:
+        raise AssertionError(f"{bad} of {len(futs)} blocks read back wrong")
+    return len(futs)
+
+
+def tear_tail(path):
+    """A crash mid-append: half a valid write record on the journal tail."""
+    import numpy as np
+    from repro_torch.core.transport import MSG_WRITE, WireMsg
+    from repro_torch.durability.journal import encode_record
+    rec = encode_record(10 ** 9, WireMsg(
+        op=MSG_WRITE, volume=0, pages=np.asarray([0], np.int32),
+        blocks=np.asarray([0], np.int32),
+        payload=np.zeros((1, BLOCK), np.float32)))
+    with open(path, "ab") as f:
+        f.write(rec[:len(rec) // 2])
+
+
+def replayed_blocks(path):
+    from repro_torch.core.transport import MSG_WRITE
+    from repro_torch.durability import read_journal
+    return sum(len(m.pages) for _, m in read_journal(path).records
+               if m.op == MSG_WRITE)
+
+
+def phase_journal(torch, args, dev, smi, tmp):
+    """8l: the same write stream with the journal on and off, interleaved,
+    best of 3 after a short warm-up and a stream whose host syncs a pump
+    are counted."""
+    import numpy as np
+    from repro_torch.core.blockdev import VolumeManager
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
+    rng = np.random.default_rng(SEED + 21)
+    payloads = [rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes()
+                for _ in range(DUR_FLUSH_EVERY)]
+    jp = os.path.join(tmp, "wal.dbsj")
+    cfg = durability_config(args)
+    for mod in (rw_kernel, copy_kernel):
+        mod.reset_counts()
+    on = VolumeManager(journal=jp, device=dev, **cfg)
+    off = VolumeManager(device=dev, **cfg)
+    vids, written, syncs, pumps = {}, {}, {}, {}
+    for name, mgr in (("on", on), ("off", off)):
+        vids[name] = mgr.create().vid
+        written[name] = {}
+        # a short warm-up first: one-time set-up (the first pinned
+        # buffer, the kernels' first calls) must not land in a count
+        write_stream(mgr, vids[name], payloads, 4 * DUR_FLUSH_EVERY, 0,
+                     written[name])
+        pc = PumpCounter(mgr)
+        syncs[name] = count_syncs(torch, lambda: write_stream(
+            mgr, vids[name], payloads, DUR_WRITES, 0, written[name]))
+        pumps[name] = pc.n
+        pc.restore()
+    secs = {"on": [], "off": []}
+    # where the journal's time goes: its group commits (encode, checksum,
+    # one file write) and its fsyncs, timed inside the timed streams
+    jn, spent = on._journal, {"append": 0.0, "sync": 0.0, "appends": 0}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t
+                spent["appends"] += name == "append"
+        return call
+    jn.append_batch = timed("append", jn.append_batch)
+    jn.sync = timed("sync", jn.sync)
+    for rep in range(1, 4):
+        for name, mgr in (("on", on), ("off", off)):
+            torch.cuda.synchronize()
+            secs[name].append(write_stream(mgr, vids[name], payloads,
+                                           DUR_WRITES, rep, written[name]))
+    del jn.append_batch, jn.sync
+    launches = dict(rw_kernel.LAUNCHES)
+    plain = {**rw_kernel.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the card: {plain}")
+    per_pump = {k: syncs[k] / pumps[k] for k in syncs}
+    if per_pump["on"] != per_pump["off"]:
+        raise AssertionError(f"the journal changed the host syncs a pump: "
+                             f"{per_pump}")
+    t_on, t_off = min(secs["on"]), min(secs["off"])
+    overhead = t_on / t_off - 1.0
+    js = on.stats()["journal"]
+    mount, fstype = fs_of(tmp)
+    emit(phase="journal", writes=DUR_WRITES, flush_every=DUR_FLUSH_EVERY,
+         ops_per_s={"journal_on": DUR_WRITES / t_on,
+                    "journal_off": DUR_WRITES / t_off},
+         seconds={k: v for k, v in secs.items()},
+         overhead=overhead, gate_floor=DUR_GATE_FLOOR,
+         gate_met=DUR_WRITES / t_on >= DUR_GATE_FLOOR * DUR_WRITES / t_off,
+         appends=js["appends"], records=js["records"], seq=js["seq"],
+         append_ms_per_commit=1e3 * spent["append"] / spent["appends"],
+         fsync_ms_per_stream=1e3 * spent["sync"] / 3,
+         journal_bytes=os.path.getsize(jp),
+         host_syncs_per_pump=per_pump,
+         sync_window=dict(pumps=pumps, syncs=syncs),
+         journal_dir=tmp, mount=mount, fs_type=fstype,
+         launches=launches, card=smi)
+    off.close()
+    del off
+    return dict(mgr=on, path=jp, vid=vids["on"], written=written["on"],
+                launches=launches)
+
+
+def phase_recovery(torch, args, dev, smi, tmp, crashed):
+    """8m: recover the abandoned journaled manager of 8l (``crashed``:
+    its ``mgr`` is taken out, so nothing else holds it) by full replay,
+    then a stream with a SnapshotExport at its middle recovered by install
+    plus tail replay, then a journaled stream on the ring recovered by full
+    replay. Each recovered volume must equal the crashed one's digest and
+    read every written block back."""
+    import numpy as np
+    from repro_torch.core.blockdev import VolumeManager
+    from repro_torch.durability import SnapshotExport, recover
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
+    cfg = durability_config(args)
+    out, launches = {}, {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def crash_and_recover(label, box, path, vid, written, **kw):
+        mgr = box.pop("mgr")
+        want = mgr_digest(torch, mgr, vid)
+        del mgr                                   # abandoned, never closed
+        free()
+        tear_tail(path)
+        blocks = replayed_blocks(path)
+        for mod in (rw_kernel, copy_kernel):
+            mod.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rec = recover(path, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = mgr_digest(torch, rec, vid)
+        if got != want:
+            raise AssertionError(f"{label}: the recovered volume's digest "
+                                 f"{got} != the crashed one's {want}")
+        checked = check_blocks(rec, vid, written)
+        launches[label] = dict(rw_kernel.LAUNCHES)
+        plain = {**rw_kernel.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+        if any(plain.values()):
+            raise AssertionError(f"plain versions ran on the card: {plain}")
+        info = rec.recovery_info
+        if not info["torn_tail"]:
+            raise AssertionError(f"{label}: the torn tail went unseen")
+        out[label] = dict(
+            seconds=secs, records_replayed=info["replayed"],
+            sealed_records=info["sealed_records"],
+            blocks_replayed=blocks, replay_blocks_per_s=blocks / secs,
+            after_seq=info["after_seq"], torn_tail=info["torn_tail"],
+            dropped_records=info["dropped_records"], digest=got,
+            blocks_checked=checked, launches=launches[label])
+        return rec, info
+
+    rec, _info = crash_and_recover("fused_full_replay", crashed,
+                                   crashed["path"], crashed["vid"],
+                                   crashed["written"], **cfg)
+    rec.close()
+    del rec
+    free()
+
+    # a stream with an export at its middle: install plus tail replay
+    rng = np.random.default_rng(SEED + 22)
+    payloads = [rng.integers(0, 256, BLOCK, dtype=np.uint8).tobytes()
+                for _ in range(DUR_FLUSH_EVERY)]
+    jp2, xp = os.path.join(tmp, "wal2.dbsj"), os.path.join(tmp, "inc.dbsx")
+    mgr = VolumeManager(journal=jp2, device=dev, **cfg)
+    vid2 = mgr.create().vid
+    exp = SnapshotExport(xp)
+    exported = {}
+
+    def export_now():
+        tbl = mgr.engine.backend.replicas[0].state.table
+        exported["delta"] = int(torch.unique(tbl[tbl >= 0]).numel())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        exported.update(exp.export(mgr, journal=mgr._journal))
+        exported["seconds"] = time.perf_counter() - t
+    written2 = {}
+    write_stream(mgr, vid2, payloads, DUR_WRITES, 0, written2,
+                 on_half=export_now)
+    if exported["extents_moved"] != exported["delta"]:
+        raise AssertionError(f"the export moved {exported['extents_moved']} "
+                             f"extents, the delta is {exported['delta']}")
+    installed = {}
+    real_install = SnapshotExport.install
+
+    def timed_install(self, m):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_install(self, m)
+        torch.cuda.synchronize()
+        installed.update(res, seconds=time.perf_counter() - t)
+        return res
+    SnapshotExport.install = timed_install
+    box = {"mgr": mgr}
+    del mgr
+    try:
+        rec, info = crash_and_recover("fused_export", box, jp2, vid2,
+                                      written2, export=xp, **cfg)
+    finally:
+        SnapshotExport.install = real_install
+    if not info["installed"] or info["after_seq"] <= 0:
+        raise AssertionError(f"the export was not installed: {info}")
+    out["fused_export"].update(
+        extents_moved=exported["extents_moved"], delta=exported["delta"],
+        export_seconds=exported["seconds"],
+        export_bytes_copied=exported["bytes_copied"],
+        install_seconds=installed["seconds"],
+        install_bytes_copied=installed["bytes_copied"],
+        extents_installed=installed["extents_replayed"],
+        export_file_bytes=os.path.getsize(xp))
+    rec.close()
+    del rec, exp
+    free()
+
+    # the default backend, the ring, by full replay
+    jp3 = os.path.join(tmp, "wal3.dbsj")
+    ring_cfg = durability_config(args, backend="ring")
+    mgr = VolumeManager(journal=jp3, device=dev, **ring_cfg)
+    vid3 = mgr.create().vid
+    written3 = {}
+    t = write_stream(mgr, vid3, payloads, RING_DUR_WRITES, 0, written3)
+    box = {"mgr": mgr}
+    del mgr
+    rec, _info = crash_and_recover("ring_full_replay", box, jp3, vid3,
+                                   written3, **ring_cfg)
+    out["ring_full_replay"].update(stream_writes=RING_DUR_WRITES,
+                                   stream_ops_per_s=RING_DUR_WRITES / t)
+    rec.close()
+    del rec
+    free()
+    emit(phase="recovery", **out, card=smi)
+    return launches
+
+
+def phase_tier(torch, args, dev, smi, untiered_syncs):
+    """8n: TIER_PAGES pages written, read back twice on the all-resident
+    pool and on a tiered pool cut to TIER_BUDGET device extents (2x
+    over-subscribed), every read checked."""
+    import numpy as np
+    from repro_torch.core import backends
+    from repro_torch.core.blockdev import VolumeManager
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
+    rng = np.random.default_rng(SEED + 23)
+    page_bytes = BLOCK * PAGE_BLOCKS
+    pages = sorted(int(p) for p in rng.choice(args.max_pages, TIER_PAGES,
+                                              replace=False))
+    data = [rng.integers(0, 256, page_bytes, dtype=np.uint8).tobytes()
+            for _ in pages]
+
+    def fill(mgr, vid):
+        for p, d in zip(pages, data):
+            mgr.pwrite(vid, p * page_bytes, d)
+        mgr.flush()
+
+    def read_pass(mgr, vid):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        futs = [mgr.pread(vid, p * page_bytes, page_bytes) for p in pages]
+        mgr.flush()
+        secs = time.perf_counter() - t
+        bad = sum(f.result() != d for f, d in zip(futs, data))
+        if bad:
+            raise AssertionError(f"{bad} of {len(pages)} pages read back "
+                                 "wrong")
+        return secs
+
+    nbytes = TIER_PAGES * page_bytes
+    cfg = durability_config(args)
+    mgr = VolumeManager(device=dev, **cfg)
+    vid = mgr.create().vid
+    fill(mgr, vid)
+    resident = min(read_pass(mgr, vid) for _ in range(2))
+    mgr.close()
+    del mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = {"write": 0, "read_only": 0}
+    inner = (backends.fused_step_tiered, backends.fused_step_read_tiered)
+
+    def write_step(*a, **k):
+        steps["write"] += 1
+        return inner[0](*a, **k)
+
+    def read_step(*a, **k):
+        steps["read_only"] += 1
+        return inner[1](*a, **k)
+    backends.fused_step_tiered, backends.fused_step_read_tiered = (
+        write_step, read_step)
+    for mod in (rw_kernel, copy_kernel):
+        mod.reset_counts()
+    try:
+        mgr = VolumeManager(device=dev, tier=args.n_extents, **cfg)
+        tier = mgr.engine.impl.tier
+        vid = mgr.create().vid
+        fill(mgr, vid)
+        tier.device_extents = TIER_BUDGET       # the cut: 2x over
+        tiered = read_pass(mgr, vid)
+        pc = PumpCounter(mgr)
+        syncs = count_syncs(torch, lambda: read_pass(mgr, vid))
+        sync_pumps = pc.n
+        pc.restore()
+    finally:
+        backends.fused_step_tiered, backends.fused_step_read_tiered = inner
+    launches = dict(rw_kernel.LAUNCHES)
+    plain = {**rw_kernel.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+    if any(plain.values()):
+        raise AssertionError(f"plain versions ran on the card: {plain}")
+    n_steps = steps["write"] + steps["read_only"]
+    per_replica = {"dbs_rw_write": launches["dbs_rw_write"]
+                   / max(steps["write"], 1) / REPLICAS,
+                   "dbs_rw_read": launches["dbs_rw_read"] / n_steps}
+    if per_replica != {"dbs_rw_write": 1.0, "dbs_rw_read": 1.0}:
+        raise AssertionError(f"tiered launches a pump per replica: "
+                             f"{per_replica}")
+    st = mgr.stats()["tier"]
+    if st["spills"] <= 0 or st["fills"] <= 0:
+        raise AssertionError(f"the tier did not both spill and fill: {st}")
+    emit(phase="tier", pages=TIER_PAGES, budget=TIER_BUDGET,
+         mapped_extents=TIER_PAGES,
+         mib_per_s={"tiered": nbytes / tiered / 2 ** 20,
+                    "resident": nbytes / resident / 2 ** 20},
+         tier_read_ratio=resident / tiered,
+         host_syncs_per_pump={"tiered": syncs / sync_pumps,
+                              "untiered_main_path": untiered_syncs},
+         sync_window=dict(pumps=sync_pumps, syncs=syncs),
+         steps=steps, launches=launches,
+         launches_per_pump_per_replica=per_replica, tier=st,
+         reads_checked=3 * TIER_PAGES, card=smi)
+    mgr.close()
+    del mgr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_no_sync(torch, mgr):
     from repro_torch.core import backends
     inner = backends.fused_step
@@ -3751,6 +4232,30 @@ def main() -> int:
                  launches_per_pump_ring=ring_out["launches_per_pump"][
                      k["name"]])
     copy_k.update(launches_ring_copy_column=ring_copy["dbs_copy"])
+
+    # the durability slice: the journal on and off, crash recovery (full
+    # replay, an export's install plus tail replay, the ring), the tier
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-durability-")
+    try:
+        crashed = phase_journal(torch, args, dev, smi, tmp)
+        journal_launches = crashed["launches"]
+        rec_launches = phase_recovery(torch, args, dev, smi, tmp, crashed)
+        del crashed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free()
+    tier_launches = phase_tier(torch, args, dev, smi,
+                               main_out["host_syncs_per_pump"])
+    for k in (write_k, read_k):
+        k.update(
+            launches_journal_path=journal_launches[k["name"]],
+            launches_recovery_path=rec_launches["fused_full_replay"][
+                k["name"]],
+            launches_recovery_export_path=rec_launches["fused_export"][
+                k["name"]],
+            launches_ring_recovery_path=rec_launches["ring_full_replay"][
+                k["name"]],
+            launches_tier_path=tier_launches[k["name"]])
 
     eng, kept, serve_launches, serve_counts, (cfg, params, prompts) = \
         phase_serve(torch, dev, smi)

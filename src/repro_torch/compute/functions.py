@@ -267,31 +267,34 @@ def py_blocksum(data) -> int:
     return py_i32(py_fold(data))
 
 
+_FOLD_CHUNK = 31 << 20           # bytes a pass of np_blocksum (31 | it)
+
+
 def np_blocksum(data) -> int:
-    """Vectorized twin of ``py_blocksum``: the same rotate/XOR fold in
-    numpy instead of a per-byte Python loop."""
+    """Vectorized twin of ``py_blocksum``. The fold XORs
+    ``rotl32(byte + 1, pos % 31)`` over the bytes; a rotation distributes
+    over XOR, so it equals the XOR over residues k of ``rotl32(X_k, k)``,
+    X_k the XOR of ``byte + 1`` over the positions congruent to k mod 31:
+    one uint16 pass over the bytes, a chunk at a time, so a blob of
+    gigabytes (an export section) folds in bounded memory."""
     a = np.frombuffer(memoryview(data), np.uint8)
-    if a.size == 0:
-        return 0
-    v = a.astype(np.uint64) + 1
-    s = np.arange(a.size, dtype=np.uint64) % 31
-    r = ((v << s) | (v >> ((32 - s) % 32))) & np.uint64(M32)
-    return py_i32(int(np.bitwise_xor.reduce(r)))
+    acc = np.zeros(31, np.uint16)
+    for lo in range(0, a.size, _FOLD_CHUNK):
+        part = a[lo:lo + _FOLD_CHUNK].astype(np.uint16)
+        part += 1
+        full = part.size - part.size % 31
+        acc ^= np.bitwise_xor.reduce(part[:full].reshape(-1, 31), axis=0)
+        acc[:part.size - full] ^= part[full:]
+    t = 0
+    for k in range(31):
+        t ^= py_rotl32(int(acc[k]), k)
+    return py_i32(t)
 
 
 def np_blocksum_many(blobs) -> list:
-    """``np_blocksum`` over many non-empty blobs in one numpy pass:
-    concatenate, rebuild each byte's position in its blob, and XOR-fold
-    per span with ``reduceat``. Bit-identical to ``np_blocksum`` on each."""
-    lens = np.fromiter((len(b) for b in blobs), np.int64, len(blobs))
-    cat = np.frombuffer(b"".join(blobs), np.uint8)
-    starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
-    pos = np.arange(cat.size, dtype=np.uint64)
-    pos -= np.repeat(starts, lens).astype(np.uint64)
-    v = cat.astype(np.uint64) + 1
-    s = pos % 31
-    r = ((v << s) | (v >> ((32 - s) % 32))) & np.uint64(M32)
-    return [py_i32(int(t)) for t in np.bitwise_xor.reduceat(r, starts)]
+    """``np_blocksum`` of each blob (the journal's records of one group
+    commit)."""
+    return [np_blocksum(b) for b in blobs]
 
 
 def _pages(shadow, page_bytes: int, page: int, count: int):

@@ -43,7 +43,8 @@ import torch
 from repro_torch.core import dbs
 from repro_torch.core.control import ControlDispatch
 from repro_torch.core.frontend import MultiQueueFrontend, Request
-from repro_torch.core.fused import fused_step, fused_step_read
+from repro_torch.core.fused import (fused_step, fused_step_read,
+                                    fused_step_read_tiered, fused_step_tiered)
 from repro_torch.core.replication import ReplicaGroup
 from repro_torch.kernels.dbs.registry import resolve_kernel_name
 
@@ -307,11 +308,27 @@ class FusedBackend(_FrontendBackendBase):
                 f"{cfg.write_policy!r}/read_policy={cfg.read_policy!r} "
                 "need a host-dispatch backend (loop | slots)")
         super().__init__(cfg)
+        # cold-extent spill tier (repro_torch/durability/tier.py): bounded
+        # device-resident hot set, host-memory capacity tier, spill/fill at
+        # the pump boundary. Needs the real DBS storage plane.
+        self.tier = None
+        if cfg.tier is not None:
+            if cfg.null_backend or cfg.null_storage:
+                raise ValueError("tier= needs the real storage plane "
+                                 "(null_backend/null_storage hold no pools)")
+            from repro_torch.durability.tier import as_tier
+            self.tier = as_tier(cfg.tier, cfg.n_extents, self.device)
 
     def pump(self) -> int:
         """One controller iteration: drain raw request tensors in, run the
         fused step, and fetch ``(ok, reads)`` to the host exactly once.
-        Between admission and completion nothing crosses to the host."""
+        Between admission and completion nothing crosses to the host.
+
+        With a tier, spill/fill rides the pump boundary: the spilled
+        extents the batch touches fault in before the step (which reads
+        replica 0's table back to the host), the step is the *tiered* one
+        (it also stamps per-extent access ticks), and an over-budget
+        resident set is rebalanced after (which reads the stamps back)."""
         reqs, batch = self.frontend.drain_batch(self.cfg.payload_shape)
         if not reqs:
             return 0
@@ -323,7 +340,23 @@ class FusedBackend(_FrontendBackendBase):
             states, pools = self.storage.device_state()
             page_revs = self.storage.device_page_revs()
             rr = self.storage.bump_rr()
-        if any(r.kind == "write" for r in reqs):
+        tier = self.tier
+        if tier is not None:
+            pools, touched = tier.fault_in(states[0].table.cpu().numpy(),
+                                           reqs, pools)
+            if any(r.kind == "write" for r in reqs):
+                (table, states, pools, page_revs, tier.stamps, ok,
+                 reads) = fused_step_tiered(
+                    self.frontend.table, states, pools, page_revs,
+                    tier.stamps, batch, rr, kernel=self._kernel)
+                self.storage.set_device_page_revs(page_revs)
+            else:
+                table, tier.stamps, ok, reads = fused_step_read_tiered(
+                    self.frontend.table, states, pools, tier.stamps, batch,
+                    rr, kernel=self._kernel)
+            pools = tier.balance(pools, protect=touched)
+            self.storage.set_device_state(states, pools)
+        elif any(r.kind == "write" for r in reqs):
             table, states, pools, page_revs, ok, reads = fused_step(
                 self.frontend.table, states, pools, page_revs, batch, rr,
                 **cuts)

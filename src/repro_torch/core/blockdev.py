@@ -47,8 +47,15 @@ and rebuilds a replica. ``backend="sharded", n_shards=S`` serves the
 volumes from S stacked engine shards (volume ``vid`` on shard ``vid % S``;
 ``control("fail"|"rebuild", shard=s, replica=i)`` is per shard), and the
 device views then address the flattened pools of all shards; the ring's
-storage is such a sharded group too. The journal and the spill tier land
-with their slices.
+storage is such a sharded group too.
+
+``journal=`` (a path or a ``durability.Journal``) turns on the write-ahead
+journal: the manager buffers one ``WireMsg`` record per mutating call,
+built from host bytes already in hand, and group-commits the buffer (ONE
+append and one seal) at every pump boundary, before the engine applies
+the batch; ``flush(durable=True)`` then fsyncs it, and
+``durability.recover`` rebuilds a manager from it. ``tier=`` (fused only)
+bounds the device-resident extents with the spill tier.
 """
 from __future__ import annotations
 
@@ -62,7 +69,14 @@ import torch
 from repro_torch.core.engine import Engine, EngineConfig
 from repro_torch.core.frontend import Request
 from repro_torch.core.replication import ShardedReplicaGroup
+from repro_torch.core.transport import (MSG_CLONE, MSG_CREATE, MSG_DELETE,
+                                        MSG_SNAPSHOT, MSG_UNMAP, MSG_WRITE,
+                                        WireMsg)
 from repro_torch.kernels.dbs.ops import shard_rows
+
+# control kinds the durability journal records (core -> journal opcode)
+_JOURNAL_CTRL = {"snapshot": MSG_SNAPSHOT, "clone": MSG_CLONE,
+                 "delete": MSG_DELETE}
 
 
 def _bytes_to_lanes(data) -> np.ndarray:
@@ -253,6 +267,12 @@ class VolumeManager:
             read_policy=read_policy, transport_opts=transport_opts,
             journal=journal, tier=tier, device=device))
         self.device = self.engine.cfg.device
+        # durability journal (repro_torch/durability/journal.py): one
+        # WireMsg per mutating public-API op, group-committed (ONE append +
+        # seal) at every pump boundary, BEFORE the engine applies the batch
+        # (write-ahead)
+        self._journal = self.engine.journal
+        self._jbuf: List[WireMsg] = []
         self._closed = False
         self.backend_name = backend
         self.block_bytes = payload_elems
@@ -324,7 +344,24 @@ class VolumeManager:
         self._check_open()
         self.engine.submit(req)
 
+    # ------------------------------------------------------------ journaling
+    def _journal_seal(self) -> None:
+        """Group commit: append the buffered records + ONE seal as a single
+        file write (write-ahead: called before the engine pumps/drains)."""
+        if self._journal is not None and self._jbuf:
+            self._journal.append_batch(self._jbuf)
+            self._jbuf.clear()
+
+    def attach_journal(self, journal) -> None:
+        """Adopt a (recovered, tail-truncated) journal: subsequent mutating
+        ops append to it (``durability.recovery.recover``'s reattach)."""
+        self._journal = journal
+        self.engine.journal = journal
+        self.engine._journal_owned = True
+
     def pump(self) -> int:
+        if self._jbuf:
+            self._journal_seal()
         done = self.engine.pump()
         if self._n_pending and self.engine.depth() == 0:
             # queues empty after a pump => every submitted op completed
@@ -336,12 +373,17 @@ class VolumeManager:
 
     def flush(self, durable: bool = False) -> int:
         """Complete everything in flight (one host fetch per pump).
-        ``durable=True`` needs the journal, which lands with the
-        durability slice; without one it is the plain flush, as in the
-        reference."""
+
+        ``durable=True`` is the durability barrier: after the drain the
+        journal is fsync'd, so every acked op survives a crash (without it,
+        sealed records sit in OS buffers: crash-consistent but only as
+        durable as the page cache). With no journal it is the plain flush."""
+        self._journal_seal()
         done = self.engine.drain()
         if self._n_pending:
             self._clear_pending()
+        if durable and self._journal is not None:
+            self._journal.sync()
         return done
 
     def close(self) -> int:
@@ -353,6 +395,10 @@ class VolumeManager:
         storage = self.engine.backend
         if storage is not None and hasattr(storage, "drain_transports"):
             storage.drain_transports()    # quorum/async stragglers land
+        if self._journal is not None:
+            self._journal.sync()
+            if self.engine._journal_owned:
+                self._journal.close()
         self._closed = True
         return done
 
@@ -378,6 +424,13 @@ class VolumeManager:
         if table is not None:
             from repro_torch.core import slots
             out["slots_active"] = int(slots.n_active(table))
+        if self._journal is not None:
+            out["journal"] = {"seq": self._journal.seq,
+                              "appends": self._journal.appends,
+                              "records": self._journal.records}
+        tier = getattr(self.engine.impl, "tier", None)
+        if tier is not None:
+            out["tier"] = tier.to_dict()
         return out
 
     # ------------------------------------------------------------ lifecycle
@@ -386,6 +439,9 @@ class VolumeManager:
         vid = self.engine.create_volume()
         if vid is None or vid < 0:
             raise RuntimeError("volume table full")
+        if self._journal is not None:
+            self._jbuf.append(WireMsg(op=MSG_CREATE, volume=vid,
+                                      meta=(vid, 0)))
         vol = Volume(self, vid)
         self.volumes[vid] = vol
         return vol
@@ -404,9 +460,17 @@ class VolumeManager:
             r = Request(req_id=self._rid(vid), kind=kind, volume=vid)
             self.engine.submit(r)
             self.flush()
-            return r.result
-        self.flush()
-        return self.engine.control(kind, volume=vid, **kw)
+            res = r.result
+        else:
+            self.flush()
+            res = self.engine.control(kind, volume=vid, **kw)
+        op = _JOURNAL_CTRL.get(kind)
+        if op is not None and self._journal is not None:
+            # the engine's result id rides meta so recovery can ASSERT its
+            # replay allocated the same volume/snapshot ids
+            rid = -1 if res is None else int(res)
+            self._jbuf.append(WireMsg(op=op, volume=vid, meta=(rid, 0)))
+        return res
 
     def snapshot(self, vol) -> Any:
         return self._control_sync("snapshot", self._vid(vol))
@@ -491,7 +555,32 @@ class VolumeManager:
             submit(r)
             reqs.append(r)
         self._track(self._pending_w, vid, first, last + 1)
+        if self._journal is not None:
+            # ONE record per pwrite: the POST-RMW block-aligned bytes already
+            # in hand, so replay applies them directly (no re-merge) and the
+            # capture adds no device work
+            self._jbuf.append(WireMsg(
+                op=MSG_WRITE, volume=vid, pages=[r.page for r in reqs],
+                blocks=[r.block for r in reqs], payload=bytes(data)))
         return IOFuture(self, reqs, value=n)
+
+    def _replay_write(self, vid: int, pages, blocks, lanes) -> None:
+        """Recovery replay of one journaled ``MSG_WRITE`` record: re-submit
+        its block lanes through the normal path, hazard fence included, so
+        replay re-serializes exactly the overlapping spans the original run
+        fenced (durability/recovery.py)."""
+        self._check_open()
+        pb = self.page_blocks
+        abs_blocks = np.asarray(pages, np.int64) * pb + np.asarray(blocks)
+        lo, hi = int(abs_blocks.min()), int(abs_blocks.max()) + 1
+        if self._n_pending:
+            self._fence_write(vid, lo, hi)
+        submit = self._fast_submit
+        for p, b, lane in zip(pages, blocks, lanes):
+            submit(Request(req_id=self._rid(vid), kind="write", volume=vid,
+                           page=int(p), block=int(b),
+                           payload=np.asarray(lane, np.float32)))
+        self._track(self._pending_w, vid, lo, hi)
 
     def discard(self, vol, off: int, nbytes: int) -> IOFuture:
         """TRIM ``[off, off+nbytes)``: fully covered pages are unmapped
@@ -520,7 +609,9 @@ class VolumeManager:
 
     def _unmap_pages(self, vid: int, pages: List[int]) -> List[Request]:
         """Unmap fully covered pages (extents freed): in-band UNMAP
-        requests on the ring, a flush and host-side dispatch elsewhere."""
+        requests on the ring, a flush and host-side dispatch elsewhere.
+        Journaled as ONE ``MSG_UNMAP`` record; also recovery's replay entry
+        for that record."""
         reqs: List[Request] = []
         if self._inband:
             for p in pages:
@@ -531,6 +622,9 @@ class VolumeManager:
         else:
             self.flush()                     # order: behind in-flight ops
             self.engine.unmap(vid, pages)
+        if self._journal is not None and pages:
+            self._jbuf.append(WireMsg(op=MSG_UNMAP, volume=vid,
+                                      pages=np.asarray(pages, np.int32)))
         return reqs
 
     # ------------------------------------------------- computational storage
@@ -582,6 +676,19 @@ class VolumeManager:
             payload = _bytes_to_lanes(data)
         elif data is not None:
             raise ValueError(f"{fn!r} does not take data=")
+
+        if entry.writes and self._journal is not None:
+            # only MUTATING storage functions are journaled (read-only ones
+            # don't change state); replay re-executes them in place: their
+            # outcome is a pure function of the replayed device state
+            from repro_torch.durability.journal import OP_COMPUTE
+            self._jbuf.append(WireMsg(
+                op=OP_COMPUTE, volume=vid,
+                pages=np.asarray([page], np.int32),
+                blocks=np.asarray([block], np.int32),
+                extents=fn.encode(),
+                meta=(int(arg), 1 if entry.scope == "range" else 0),
+                payload=data))
 
         def wrap(value, status, lanes) -> ComputeResult:
             return ComputeResult(fn=fn, value=int(value), status=int(status),

@@ -82,8 +82,6 @@ def check_ported(cfg: EngineConfig) -> None:
     """Raise a ValueError naming the slice of the port that brings each
     configuration value this slice does not serve."""
     later = [
-        (cfg.journal is not None, "journal= lands with the durability slice"),
-        (cfg.tier is not None, "tier= lands with the durability slice"),
         (cfg.cow != "auto",
          f"cow={cfg.cow!r} (the legacy data-plane axis) is not ported; "
          "name a kernel= instead"),
@@ -106,10 +104,24 @@ class Engine:
             raise ValueError(
                 f"unknown kernel {cfg.kernel!r} (expected auto | "
                 f"{' | '.join(available_kernels())})")
+        if cfg.tier is not None and cfg.comm != "fused":
+            raise ValueError(
+                f"tier= (the cold-extent spill tier) needs comm='fused': "
+                f"the tier's access stamps live in the fused step; got "
+                f"comm={cfg.comm!r}")
         cfg.device = resolve_device(cfg.device)
         self.cfg = cfg
         from repro_torch.core.backends import make_backend
         self._impl = make_backend(cfg.comm, cfg)
+        # the durability journal (repro_torch/durability): resolved here so
+        # EngineConfig(journal=path) is enough to enable it; the manager
+        # (core/blockdev.py) owns the record buffer and the group commit
+        self.journal = None
+        self._journal_owned = False
+        if cfg.journal is not None:
+            from repro_torch.durability.journal import as_journal
+            self.journal = as_journal(cfg.journal)
+            self._journal_owned = self.journal is not cfg.journal
         self.pool = (self._impl if getattr(self._impl, "is_pool", False)
                      else None)
         # the host backend has no frontend, no replica storage and no

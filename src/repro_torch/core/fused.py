@@ -27,8 +27,11 @@ watermark stamps), pure tensor code that core/sharded.py maps over a
 leading shard axis with an (R,) ``healthy`` mask over a fixed replica
 tuple; there the kernels run outside the map on the flattened pools, and
 ``read_routes`` (the masked round-robin read: the (rr mod H)-th healthy
-replica) tells each replica's read launch which lanes are its own. The
-tiered variants (spill tier) land with their slice.
+replica) tells each replica's read launch which lanes are its own.
+
+The tiered variants (``step_core_tiered``, ``step_core_read_tiered``)
+thread the spill tier's per-extent access stamps (repro_torch/durability/
+tier.py) through the same step and launch the same kernels.
 """
 from __future__ import annotations
 
@@ -180,6 +183,86 @@ def fused_step_read(table, states, pools, batch: FusedBatch, rr: int, *,
     return step_core_read(table, states, pools, batch, rr,
                           null_backend=null_backend,
                           null_storage=null_storage, kernel=kernel)
+
+
+# ---------------------------------------------------------------------------
+# tiered variants: the same step + per-extent access stamps for the spill
+# tier (repro_torch/durability/tier.py). The stamps are an (E+1,) int32
+# tensor, row E the dump slot invalid lanes scatter into; every extent a
+# batch resolves (read extents, write destinations AND CoW sources) is
+# stamped with the batch step inside the step, so the clock/second-chance
+# sweep needs no extra device round trip on the hot path.
+# ---------------------------------------------------------------------------
+def _stamp_tier(stamps, state, batch: FusedBatch, ok, cow_src=None):
+    """Stamp the batch's resolved extents with the admission step, in
+    place; returns ``stamps``.
+
+    ``state`` is the POST-write replica-0 state, so write lanes resolve to
+    their freshly allocated/CoW'd destination extents; ``cow_src`` (the
+    write ops' CoW sources, pre-write extents) is stamped too: a CoW read
+    is an access. Lanes hit one extent many times, so the stamps take a
+    scatter-max (a plain scatter with duplicate indices is undefined on
+    CUDA). Invalid lanes land on the dump row E, zeroed back so it never
+    looks hot."""
+    dump = stamps.shape[0] - 1
+    step = batch.step.to(stamps.dtype).reshape(1).expand(ok.shape)
+    ext = dbs.read_resolve(state, batch.volume, batch.page)
+    idx = torch.where(ok & (ext >= 0), ext, dump).long()
+    stamps.scatter_reduce_(0, idx, step, "amax")
+    if cow_src is not None:
+        src = torch.where(ok & batch.is_write & (cow_src >= 0), cow_src,
+                          dump).long()
+        stamps.scatter_reduce_(0, src, step, "amax")
+    stamps[dump:].zero_()
+    return stamps
+
+
+def step_core_tiered(table: slots.SlotTable, states: Tuple[dbs.DBSState, ...],
+                     pools: Tuple[torch.Tensor, ...],
+                     page_revs: Tuple[torch.Tensor, ...],
+                     stamps: torch.Tensor, batch: FusedBatch, rr: int, *,
+                     kernel: str = "cuda"):
+    """``step_core`` + tier stamping. The tier needs the real storage
+    plane, so there are no null_backend/null_storage forms. Returns
+    ``(table', states', pools', page_revs', stamps', ok, reads)``."""
+    table, states, page_revs, ok, ops = step_meta(table, states, page_revs,
+                                                  batch)
+    pools = tuple(_cow_apply(pool, wops, batch.payload, batch.block, kernel)
+                  for pool, wops in zip(pools, ops))
+    # replicas agree on the CoW sources (mirror-all)
+    stamps = _stamp_tier(stamps, states[0], batch, ok, ops[0].cow_src)
+    reads = _rr_gather(states, pools, batch, rr, ok & ~batch.is_write,
+                       torch.zeros_like(batch.payload), kernel)
+    return table, states, pools, page_revs, stamps, ok, reads
+
+
+def fused_step_tiered(table, states, pools, page_revs, stamps,
+                      batch: FusedBatch, rr: int, *, kernel: str = "cuda"):
+    """``fused_step`` with the tier's access stamps threaded through (the
+    pools and the stamps are updated in place)."""
+    return step_core_tiered(table, states, pools, page_revs, stamps, batch,
+                            rr, kernel=kernel)
+
+
+def step_core_read_tiered(table: slots.SlotTable, states, pools,
+                          stamps: torch.Tensor, batch: FusedBatch, rr: int,
+                          *, kernel: str = "cuda"):
+    """``step_core_read`` + tier stamping. Returns ``(table', stamps', ok,
+    reads)``."""
+    table, _ids, ok = slots.transact(table, batch.want, batch.volume,
+                                     batch.queue, batch.step)
+    stamps = _stamp_tier(stamps, states[0], batch, ok, None)
+    reads = _rr_gather(states, pools, batch, rr, ok & ~batch.is_write,
+                       torch.zeros_like(batch.payload), kernel)
+    return table, stamps, ok, reads
+
+
+def fused_step_read_tiered(table, states, pools, stamps, batch: FusedBatch,
+                           rr: int, *, kernel: str = "cuda"):
+    """``fused_step_read`` + tier stamping: states and pools are inputs
+    only; the stamps are updated in place."""
+    return step_core_read_tiered(table, states, pools, stamps, batch, rr,
+                                 kernel=kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@
 4. Device choice and unported configuration raise; every configuration
    the controller and shards slices brought (the upstream baseline,
    chained storage, the transports and policies, the null cuts, the
-   sharded pool) gives the JAX package's bytes; the package imports
+   sharded pool, the spill tier) gives the JAX package's bytes; the package imports
    neither JAX nor ``repro``.
 5. The sharded pool (``backend="sharded"``) through the byte API: the
    interleaved oracle scenario, a seeded trace against the JAX pool (every
@@ -259,18 +259,21 @@ def test_default_device_is_cuda_without_fallback():
         VolumeManager(backend="fused", **GEOM)
 
 
-@pytest.mark.parametrize("kw,slice_", [
-    (dict(backend="sharded", n_shards=2, tier=8), "durability slice"),
-    (dict(journal="wal.log"), "durability slice"),
-    (dict(tier=8), "durability slice"),
+@pytest.mark.parametrize("kw,match,jax_raises", [
+    # the spill tier lives in the fused step: refused elsewhere, as the
+    # reference refuses it
+    (dict(backend="sharded", n_shards=2, tier=8), "needs comm='fused'",
+     True),
+    # the legacy data-plane axis is not ported
+    (dict(cow="pallas"), "not ported", False),
     # not a storage: the fused backend refuses it as the reference does
-    (dict(storage="upstream"), "requires storage='dbs'"),
+    (dict(storage="upstream"), "requires storage='dbs'", True),
 ])
-def test_unported_configuration_raises(kw, slice_):
-    with pytest.raises(ValueError, match=slice_):
+def test_unported_configuration_raises(kw, match, jax_raises):
+    with pytest.raises(ValueError, match=match):
         _mgr(**kw)
-    if "slice" not in slice_:
-        with pytest.raises(ValueError, match=slice_):
+    if jax_raises:
+        with pytest.raises(ValueError, match=match):
             JManager(**{"backend": "fused", **GEOM, **kw})
 
 
@@ -291,6 +294,7 @@ def test_unported_configuration_raises(kw, slice_):
     dict(backend="ring", n_shards=2),
     dict(backend="ring", n_shards=2, null_storage=True),
     dict(backend="ring", null_backend=True),
+    dict(tier=2),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()
                            if k != "transport_opts"))
 def test_ported_configuration_matches_jax(kw):
@@ -337,7 +341,7 @@ def test_port_imports_no_jax_and_no_repro():
     code = ("import sys, repro_torch.core.blockdev, "
             "repro_torch.kernels._build, repro_torch.serving.engine, "
             "repro_torch.kernels.paged_attention, "
-            "repro_torch.kernels.flash_attention; "
+            "repro_torch.kernels.flash_attention, repro_torch.durability; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")

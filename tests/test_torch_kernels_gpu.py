@@ -67,7 +67,11 @@ FAIL/REBUILD requests) and compute lanes (all five storage functions, a
 compare-and-write that commits), bit for bit against the same run on the
 CPU (the plain path: the kernel wrappers' plain versions); and one ring
 pump with control lanes and one with compute lanes under
-``torch.cuda.set_sync_debug_mode("error")``. Imports no JAX.
+``torch.cuda.set_sync_debug_mode("error")``.
+
+The durability slice on the card: a fused trace under the spill tier
+(spills and fills both happen) gives the same reads, tier counters,
+stamps and replica leaves as the same run on the CPU. Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -1028,3 +1032,60 @@ def test_ring_pumps_do_not_sync():
         assert eng._complete(p) == len(batch)
         assert all(r.status == 0 for r in batch)
     assert v.read(0, 64) == bytes(64)          # the CAS committed
+
+
+def _tier_run(device):
+    """A seeded byte trace on a fused manager whose spill tier holds 6 of
+    the ~16 mapped extents (writes, a snapshot and CoW overwrites, then
+    every page read twice). Returns every read's bytes, the tier's
+    counters and stamps, and each replica's state, pool and watermarks
+    as numpy."""
+    from repro_torch.core import convert
+    from repro_torch.core.blockdev import VolumeManager
+    rng = np.random.default_rng(21)
+    mgr = VolumeManager(backend="fused", device=device, payload_elems=64,
+                        page_blocks=8, max_pages=8, n_extents=64,
+                        max_volumes=4, batch=16, n_replicas=3,
+                        kernel="cuda", tier=6)
+    vols = [mgr.create(), mgr.create()]
+    pby = mgr.page_bytes
+    for i in range(48):
+        if i == 24:
+            vols[0].snapshot()
+        v = vols[i % 2]
+        off = int(rng.integers(0, mgr.capacity - pby))
+        v.pwrite(off, rng.integers(0, 256, int(rng.integers(1, pby)),
+                                   dtype=np.uint8).tobytes())
+    mgr.flush()
+    out = [v.read(p * pby, pby) for _ in range(2) for v in vols
+           for p in range(8)]
+    tier = mgr.engine.impl.tier
+    g = mgr.engine.backend
+    return out, tier.to_dict(), tier.stamps.cpu().numpy(), [
+        (convert.to_numpy(r.state), convert.to_numpy(r.pool),
+         convert.to_numpy(r.page_rev)) for r in g.replicas]
+
+
+@pytest.mark.gpu
+def test_tiered_step_on_the_card_matches_the_cpu():
+    """The durability slice on the card: the tiered fused step (the DBS
+    kernels, the stamps' scatter-max, the pinned spill and fill copies)
+    gives the same reads, tier counters, stamps, and every replica's
+    state, pool (spilled rows zero) and watermarks as the same run on the
+    CPU, where the kernel wrappers run their plain versions."""
+    dev = _cuda()
+    gpu, cpu = _tier_run(dev), _tier_run(torch.device("cpu"))
+    assert gpu[0] == cpu[0] and len(gpu[0]) == 32
+    assert gpu[1] == cpu[1]
+    assert gpu[1]["spills"] > 0 and gpu[1]["fills"] > 0, gpu[1]
+    np.testing.assert_array_equal(gpu[2], cpu[2])
+
+    def same(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                same(a[k], b[k], f"{path}.{k}")
+            return
+        assert np.array_equal(a, b), path
+    for i, (a, b) in enumerate(zip(gpu[3], cpu[3])):
+        for part, x, y in zip(("state", "pool", "page_rev"), a, b):
+            same(x, y, f"replica {i} {part}")
