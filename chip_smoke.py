@@ -204,6 +204,29 @@ and the script exits non-zero:
    untiered main path's; the tiered step must launch one ``dbs_rw_write``
    a replica a write pump and one ``dbs_rw_read`` a pump, and spill and
    fill both.
+8o. harness — the chaos harness (``repro_torch.harness``: seeded fio-style
+   traces, trace-indexed chaos schedules, the shadow byte oracle). Every
+   catalog scenario (``SCENARIOS``: slots over local/simnet links with the
+   all/quorum/async policies, the ring's in-band control, the sharded
+   pool's all-shard replica chaos, storage functions in-band, crashes
+   recovered from the journal) runs at the catalog's geometry (16 B
+   blocks, 4-block pages, 32 pages), cut to 60 ops, on the card and on the
+   CPU: the digests (completion ticks, the verification read-back bytes,
+   retransmits) and ticks must be equal. Then every scenario at its own
+   op count at the block device's widths (4 KiB blocks, 32-block pages,
+   64-lane pumps, the main path's 12288-extent pool; the volume cut to 64
+   pages, 8 MiB, because the end-of-trace sweeps read every volume and
+   clone whole once a replica) on the hand-written kernels, the
+   determinism replay, and ``check_trace_gates`` (oracle-clean, replay
+   equal, the straggler wait-tick P99/P999 bounds) must return nothing;
+   then ``run()`` on ``fused`` with 3 replicas on the ``cuda`` and the
+   ``copy`` entries (which must launch ``dbs_copy``) and on the ring at one
+   shard, over the chaos/simnet trace with ten events. Each card run: the
+   DBS launches counted from zero (write and read must launch, the plain
+   versions never), ops/s, wall and verification seconds, checked reads
+   and computes, crashes, events applied and skipped, pump-tick
+   P50/P99/P999 (all, read, write), wait ticks, transport counters, peak
+   memory.
 9. serve_path — zero-copy serving at gemma2-2b's full width (26 layers,
    d_model 2304, 8 heads, 4 KV heads, head_dim 256, vocab 256000; fp32
    weights drawn from a seeded ``torch.Generator`` on the card):
@@ -406,6 +429,22 @@ SERVE_RING_REQUESTS = 4          # ring serving: phase 9's first requests
 DUR_WRITES, DUR_FLUSH_EVERY, DUR_GATE_FLOOR = 4096, 64, 0.77
 RING_DUR_WRITES = 2048           # the ring's stream, cut for time
 TIER_PAGES, TIER_BUDGET = 512, 256   # of 8192 pages: cut for time
+# the harness slice: the chaos catalog on the card against the CPU at the
+# catalog's own geometry (cut to HARNESS_AB_OPS ops a scenario), then at
+# the block device's widths over the main path's pool, the volume cut to
+# HARNESS_PAGES pages (8 MiB: the end-of-trace sweeps read every volume
+# and clone whole through the byte API, once a replica), each scenario at
+# its own op count
+HARNESS_AB_OPS, HARNESS_PAGES = 60, 64
+HARNESS_LINKS_OFF = (("straggler", 0.0), ("heal", 0.0), ("drop_on", 0.0),
+                     ("drop_off", 0.0))
+# run() calls beside the catalog: the main path's backend on the cuda and
+# copy entries, and the default backend at one shard, on the chaos/simnet
+# trace with ten events (no simnet links on these backends)
+HARNESS_EXTRA = (("fused/cuda", dict(backend="fused", kernel="cuda")),
+                 ("fused/copy", dict(backend="fused", kernel="copy")),
+                 ("ring/s1", dict(backend="ring", n_shards=1,
+                                  kernel="auto")))
 
 
 def emit(**kw) -> None:
@@ -2928,6 +2967,161 @@ def phase_tier(torch, args, dev, smi, untiered_syncs):
     return launches
 
 
+def harness_line(res, launches, peak, verify_s):
+    """What one harness run prints: its ``trace``-document entry (tick
+    tails, wait tails, counters) plus launches, peak memory and the
+    replay's own rate (the end-of-trace sweeps taken out)."""
+    doc = res.to_dict()
+    doc.update(events_applied=len(res.events_applied),
+               events_skipped=len(res.events_skipped),
+               skipped=res.events_skipped, launches=launches,
+               max_memory_allocated=peak, verify_s=verify_s,
+               replay_ops_per_s=res.n_ops / (res.wall_s - verify_s))
+    return doc
+
+
+def phase_harness(torch, args, dev, smi):
+    """8o: the chaos harness (``repro_torch.harness``). (a) every catalog
+    scenario at the catalog's geometry and HARNESS_AB_OPS ops on the card
+    and on the CPU: equal digests and completion ticks. (b) every scenario
+    at the block device's widths at its own op count on the hand-written
+    kernels, oracle-clean, plus the determinism replay, gated by
+    ``check_trace_gates``; then the HARNESS_EXTRA runs.
+    Every card run: DBS launches counted from zero, the plain versions
+    never, peak memory. Returns the card's launches over (a) and (b)."""
+    from repro_torch.harness import (SCENARIOS, ChaosConfig,
+                                     check_trace_gates, run, run_scenario)
+    from repro_torch.harness import runner
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
+    total = {"dbs_rw_write": 0, "dbs_rw_read": 0, "dbs_copy": 0}
+    verify_s = []
+    inner_verify = runner._Run.verify
+
+    def timed_verify(self):
+        t = time.perf_counter()
+        try:
+            return inner_verify(self)
+        finally:
+            verify_s.append(time.perf_counter() - t)
+
+    def card_run(label, fn, need=()):
+        for mod in (rw_kernel, copy_kernel):
+            mod.reset_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        del verify_s[:]
+        runner._Run.verify = timed_verify
+        try:
+            res = fn()
+        finally:
+            runner._Run.verify = inner_verify
+        torch.cuda.synchronize()
+        launches = {**rw_kernel.LAUNCHES, **copy_kernel.LAUNCHES}
+        plain = {**rw_kernel.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+        if any(plain.values()):
+            raise AssertionError(f"{label}: plain versions ran on the card: "
+                                 f"{plain}")
+        missing = [k for k in need if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: {missing} never launched: "
+                                 f"{launches}")
+        res.raise_if_failed()
+        for k in total:
+            total[k] += launches[k]
+        peak = torch.cuda.max_memory_allocated(dev)
+        return res, launches, peak, sum(verify_s)
+
+    # (a) the card against the CPU at the catalog's geometry
+    def needs(kw):
+        # the hand-written kernels serve the fused, sharded and ring steps
+        # (the copy entry: dbs_copy for the CoW rows, torch for the rest);
+        # slots replicas write and read with plain indexing, as the
+        # reference's do
+        if kw["backend"] not in ("fused", "sharded", "ring"):
+            return ()
+        if kw.get("kernel") == "copy":
+            return ("dbs_copy",)
+        return ("dbs_rw_write", "dbs_rw_read")
+
+    same = {}
+    t0 = time.perf_counter()
+    for name in SCENARIOS:
+        cpu = run_scenario(name, n_ops=HARNESS_AB_OPS, device="cpu")
+        cpu.raise_if_failed()
+        gpu, launches, _peak, _v = card_run(
+            f"{name} (catalog geometry)",
+            lambda: run_scenario(name, n_ops=HARNESS_AB_OPS, device=dev),
+            needs(SCENARIOS[name]))
+        ticks_equal = gpu.completion_ticks == cpu.completion_ticks
+        if gpu.digest != cpu.digest or not ticks_equal:
+            raise AssertionError(f"harness {name}: the card's digest "
+                                 f"{gpu.digest} != the CPU's {cpu.digest} "
+                                 f"(ticks equal: {ticks_equal})")
+        same[name] = dict(digest=gpu.digest, checked_reads=gpu.checked_reads,
+                          launches=launches)
+    emit(phase="harness_card_vs_cpu", ops=HARNESS_AB_OPS, scenarios=same,
+         seconds=time.perf_counter() - t0, card=smi)
+
+    # (b) the catalog at the block device's widths (4 KiB blocks, an fp32
+    # lane a byte; 32-block pages; 64-lane pumps; the main path's extent
+    # pool; the volume cut to HARNESS_PAGES pages), gated as run_matrix's
+    geo = dict(block_bytes=BLOCK, page_blocks=PAGE_BLOCKS,
+               n_pages=HARNESS_PAGES, batch=BATCH, n_extents=args.n_extents,
+               max_volumes=12, n_queues=4, n_slots=256)
+    trace, runs = {}, {}
+    t0 = time.perf_counter()
+    for name in SCENARIOS:
+        res, launches, peak, vs = card_run(name, lambda: run_scenario(
+            name, geometry=geo, kernel="auto", device=dev),
+            needs(SCENARIOS[name]))
+        trace[name] = res.to_dict()
+        runs[name] = harness_line(res, launches, peak, vs)
+        emit(phase="harness_run", scenario=name, geometry=geo, **runs[name],
+             card=smi)
+        if name == runner.DETERMINISM_SCENARIO:
+            first = res
+        del res
+    again, _l, _p, _v = card_run("determinism", lambda: run_scenario(
+        runner.DETERMINISM_SCENARIO, geometry=geo, kernel="auto",
+        device=dev))
+    trace["determinism"] = {
+        "scenario": runner.DETERMINISM_SCENARIO,
+        "digest_a": first.digest, "digest_b": again.digest,
+        "ticks_match": first.completion_ticks == again.completion_ticks,
+        "match": (first.digest == again.digest
+                  and first.completion_ticks == again.completion_ticks)}
+    del first, again
+    problems = check_trace_gates(trace)
+    if problems:
+        raise AssertionError(f"harness gates: {problems}")
+    if not (total["dbs_rw_write"] and total["dbs_rw_read"]):
+        raise AssertionError(f"the catalog launched no DBS kernel: {total}")
+    extra = {}
+    for label, kw in HARNESS_EXTRA:
+        res, launches, peak, vs = card_run(label, lambda: run(
+            trace=SCENARIOS["chaos/simnet"]["trace"],
+            chaos=ChaosConfig(n_events=10, weights=HARNESS_LINKS_OFF),
+            n_replicas=REPLICAS, geometry=geo, device=dev, **kw), needs(kw))
+        extra[label] = harness_line(res, launches, peak, vs)
+        emit(phase="harness_run", scenario=label, geometry=geo,
+             **extra[label], card=smi)
+        del res
+    emit(phase="harness", geometry=geo, cut=dict(
+             n_pages=HARNESS_PAGES, main_path_pages=args.max_pages,
+             card_vs_cpu_ops=HARNESS_AB_OPS),
+         gates=problems, determinism=trace["determinism"],
+         ops_per_s={k: v["ops_per_s"] for k, v in {**runs, **extra}.items()},
+         tick_p99={k: v["latency"]["all"]["p99"]
+                   for k, v in {**runs, **extra}.items()},
+         straggler_wait={k: {q: runs[k]["wait"]["read"][q]
+                             for q in ("p99", "p999")}
+                         for k in ("straggler/rr", "straggler/latency")},
+         seconds=time.perf_counter() - t0, launches=total, card=smi)
+    return total
+
+
 def phase_no_sync(torch, mgr):
     from repro_torch.core import backends
     inner = backends.fused_step
@@ -4246,6 +4440,11 @@ def main() -> int:
     free()
     tier_launches = phase_tier(torch, args, dev, smi,
                                main_out["host_syncs_per_pump"])
+    free()
+    harness_launches = phase_harness(torch, args, dev, smi)
+    free()
+    for k in (write_k, read_k, copy_k):
+        k["launches_harness_path"] = harness_launches[k["name"]]
     for k in (write_k, read_k):
         k.update(
             launches_journal_path=journal_launches[k["name"]],

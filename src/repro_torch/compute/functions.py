@@ -302,32 +302,44 @@ def _pages(shadow, page_bytes: int, page: int, count: int):
     return range(max(page, 0), min(page + count, n_pages))
 
 
+def _page_bytes_of(shadow, page_bytes: int, page: int, count: int):
+    """(page, its bytes as a uint8 view) over the range's pages."""
+    a = np.frombuffer(memoryview(shadow), np.uint8)
+    for p in _pages(shadow, page_bytes, page, count):
+        yield p, a[p * page_bytes:(p + 1) * page_bytes]
+
+
 def _py_match(v: int, arg: int) -> bool:
     return v != 0 if arg < 0 else v == (arg & 0xFF)
 
 
+def _np_match(seg: np.ndarray, arg: int) -> np.ndarray:
+    """The bytes ``_match`` selects: nonzero for a negative ``arg``, else
+    equal to its low byte."""
+    return seg != 0 if arg < 0 else seg == (arg & 0xFF)
+
+
+# The range mirrors fold and match a page at a time with numpy (the same
+# values as the reference's per-byte loops; ``np_blocksum`` is the fold):
+# a harness run at the block device's widths mirrors megabyte ranges.
 def _checksum_mirror(shadow, page_bytes, block_bytes, page, block, arg, data):
     t = 0
-    for p in _pages(shadow, page_bytes, page, block):
-        ps = py_fold(shadow[p * page_bytes:(p + 1) * page_bytes])
-        t ^= py_rotl32(ps, p % 31)
+    for p, seg in _page_bytes_of(shadow, page_bytes, page, block):
+        t ^= py_rotl32(np_blocksum(seg) & M32, p % 31)
     return py_i32(t), 0, None
 
 
 def _scan_count_mirror(shadow, page_bytes, block_bytes, page, block, arg,
                        data):
-    n = 0
-    for p in _pages(shadow, page_bytes, page, block):
-        seg = shadow[p * page_bytes:(p + 1) * page_bytes]
-        n += sum(1 for v in seg if _py_match(v, arg))
+    n = sum(int(np.count_nonzero(_np_match(seg, arg)))
+            for _p, seg in _page_bytes_of(shadow, page_bytes, page, block))
     return n, 0, None
 
 
 def _filter_pages_mirror(shadow, page_bytes, block_bytes, page, block, arg,
                          data):
-    hits = [p for p in _pages(shadow, page_bytes, page, block)
-            if any(_py_match(v, arg)
-                   for v in shadow[p * page_bytes:(p + 1) * page_bytes])]
+    hits = [p for p, seg in _page_bytes_of(shadow, page_bytes, page, block)
+            if _np_match(seg, arg).any()]
     # the payload carries block_bytes lanes -> the first block_bytes indices
     return len(hits), 0, hits[:block_bytes]
 

@@ -71,7 +71,11 @@ pump with control lanes and one with compute lanes under
 
 The durability slice on the card: a fused trace under the spill tier
 (spills and fills both happen) gives the same reads, tier counters,
-stamps and replica leaves as the same run on the CPU. Imports no JAX.
+stamps and replica leaves as the same run on the CPU.
+
+The chaos harness on the card: every catalog scenario at the catalog
+geometry gives the same digest, completion ticks, events and counters as
+the same run on the CPU. Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -1089,3 +1093,26 @@ def test_tiered_step_on_the_card_matches_the_cpu():
     for i, (a, b) in enumerate(zip(gpu[3], cpu[3])):
         for part, x, y in zip(("state", "pool", "page_rev"), a, b):
             same(x, y, f"replica {i} {part}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "steady/local", "chaos/simnet", "chaos/async", "control/ring",
+    "straggler/rr", "straggler/latency", "serve/steady", "compute/steady",
+    "crash/journal"])
+def test_harness_scenario_on_the_card_matches_the_cpu(name):
+    """The chaos harness's scenario on the card (the DBS kernels) replays
+    to the CPU run's digest: the same completion ticks, verification
+    read-back bytes and retransmits, events and counters; both
+    oracle-clean."""
+    dev = _cuda()
+    from repro_torch.harness import SCENARIOS, run_scenario
+    assert name in SCENARIOS
+    gpu = run_scenario(name, n_ops=60, device=dev)
+    cpu = run_scenario(name, n_ops=60, device="cpu")
+    assert gpu.ok, gpu.oracle_failures + gpu.harness_failures
+    assert cpu.ok, cpu.oracle_failures + cpu.harness_failures
+    for field in ("digest", "completion_ticks", "checked_reads",
+                  "compute_checked", "crashes", "events_applied",
+                  "events_skipped", "latency", "wait", "counters"):
+        assert getattr(gpu, field) == getattr(cpu, field), field
