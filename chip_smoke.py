@@ -236,19 +236,23 @@ and the script exits non-zero:
    runs the flash-attention kernel and decode the paged-attention kernel
    over the block device's own extent pool (one 104 KiB block per token).
    16 requests with seeded prompt lengths in 100-1000 and 32 new tokens
-   each (more requests than slots), then a fork check: a session forked
-   after its 4th decode step, and a second engine decoding the same two
-   streams independently, must give the same tokens (the largest logit
-   difference is printed). Checked: every request ends with 32 tokens, the
-   replicas are consistent after a flush (the same metadata revisions and
-   the same pool contents bar the dump row), no volume or extent is left
-   after the drain, both attention kernels launched and their plain
-   versions never. The inputs of a few decode steps and of one prompt's
-   local and global prefill layers are kept, and the read kernel's of
-   every 8th write pump of the traffic.
+   each (more requests than slots). Checked: every request ends with 32
+   tokens, the replicas are consistent after a flush (the same metadata
+   revisions and the same pool contents bar the dump row), no volume or
+   extent is left after the drain, every kernel of the path launched
+   (paged attention once a global layer a decode step, flash attention
+   once a layer a prompt) and no plain version ran. The inputs of a few
+   decode steps and of one prompt's local and global prefill layers are
+   kept, and the DBS kernels' of every 8th write pump of the traffic (the
+   read's, and replica 0's write). Phase 10 runs on them at once; then a
+   fork check: a session forked after its 4th decode step, and a second
+   engine decoding the same two streams independently, must give the same
+   tokens (the largest logit difference is printed). Phases 9-10 are one
+   helper, ``_serve_traffic``, that phases 19-20 run too.
 10. kernel_parity (paged_attention, flash_attention) — each kernel against
    its plain version on those kept full-width inputs, over the serve
-   path's own pool, within atol 1e-4 and rtol 1e-4; timed with CUDA graphs
+   path's own pool as the traffic left it, within atol 1e-4 and rtol 1e-4;
+   timed with CUDA graphs
    as in phase 3, beside the bound (paged: live K/V pages plus q and the
    output over 3.35 TB/s; flash: the larger of its causal flops over
    165 TFLOP/s, the fp32 rate of 3xTF32 on the tensor cores that it
@@ -259,7 +263,10 @@ and the script exits non-zero:
    then the merge of the partials when it splits). Then ``dbs_rw_read``
    at the serving width (pool (E+1, 32, 26624) f32, the serve path's own
    replica 0, 104 KiB blocks) on the kept pump inputs: bit for bit, timed
-   as in phase 6 (the ``serve_width_*`` keys of its kernels entry).
+   as in phase 6; and ``dbs_rw_write``'s kept calls replayed in order on
+   two copies of that pool, through the kernel and through its plain
+   version: bit for bit, timed as in phase 3 (the ``serve_width_*`` keys
+   of their kernels entries).
 11. no_sync (serving) — one call of the decode program under
    ``torch.cuda.set_sync_debug_mode("error")``.
 12. profile (serving) — where a serving step's time goes, on the same
@@ -331,6 +338,47 @@ and the script exits non-zero:
    single PyTorch call computes the recurrence, so its library time is
    null; the kernels line gives the times per launch over the serve path's
    mix of prefill and decode launches.
+19. serve_path (hymba-1.5b) — the hybrid family at its published widths
+   and depth (32 layers, d_model 1600, 25 heads over 5 KV heads of 64,
+   attention and a Mamba branch (E 3200, N 16) in every layer, a
+   1024-token window but on layers 0, 15 and 31, d_ff 5504, vocab 32001;
+   fp32 weights from a seeded generator on the card, after rwkv6-3b's are
+   freed) on phase 9's engine (``fused``, 2 KV replicas, 8 slots,
+   max_len 2048, ``kernel="cuda"``, ``attn_impl="cuda"``): the three
+   global layers' K/V in the extent pool (6 planes of (5, 64)), the
+   window rings and the Mamba states in per-slot caches. 16 requests of
+   32 new tokens, prompts drawn in 100-1000 but two of 1100-1500 tokens
+   (the window bites in prefill and the rings wrap) and one of 513 (a
+   length the reference's Mamba prefill rejects). Checked: every request
+   ends with 32 tokens; the replicas agree after a flush and nothing
+   leaks; ``dbs_rw_write``, ``dbs_rw_read``, ``flash_attention`` (32 a
+   prompt) and ``paged_attention`` (3 a decode step) launched and no
+   plain version ran; the last request, in a recycled slot, equals a
+   fresh engine's (the TIE_MARGIN rule); the fork check of phase 9; one
+   decode step under sync-debug "error"; the copy-based baseline
+   (``kv_backend="host"``) on the same prompts gives the same tokens
+   (TIE_MARGIN rule on the zero-copy run's top-2 margins, taken on the
+   card). Kept paged calls (the first 4 of decode steps 8, 24, 40: G=5,
+   two row groups), flash calls (a global and a windowed layer of the
+   first prompt past the window) and the DBS kernels' inputs of every 8th
+   write pump (7.5 KiB blocks) are held against the plain versions and
+   timed as in phase 10, right after the traffic (the ``hybrid_width_*``
+   keys of their kernels entries).
+   Printed: tokens/s, decode tokens/s, prefill, pump and decode seconds,
+   the prefill seconds of the 513-token and the longest prompt, peak
+   memory, and one profiled decode step's device time split into
+   attention (KV writes and reads), the Mamba branch and the rest, with
+   its kernels a step.
+20. serve_path (granite-moe-3b-a800m) — the MoE family the same way (32
+   layers, d_model 1536, 24 heads over 8 KV heads of 64, 40 experts of
+   d_ff 512, top 8, vocab 49155; 13.2 GB of fp32 weights): all 32 layers
+   paged (64 planes of (8, 64), 128 KiB a token), prompts drawn in
+   100-1000; the MoE runs every expert on every token with zero combine
+   weights for the unselected ones, in prefill and decode (nothing read
+   back). The same checks and prints, G=3 (one partial row
+   group) in the kept paged calls, two prompts' layer-0 flash calls, 128
+   KiB blocks in the DBS kernels' calls; the split names the MoE instead
+   of the Mamba branch (``moe_width_*`` keys).
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -445,6 +493,16 @@ HARNESS_EXTRA = (("fused/cuda", dict(backend="fused", kernel="cuda")),
                  ("fused/copy", dict(backend="fused", kernel="copy")),
                  ("ring/s1", dict(backend="ring", n_shards=1,
                                   kernel="auto")))
+
+
+# the hybrid and MoE families, served at full width after rwkv6-3b: hymba
+# (hybrid heads: attention and Mamba side by side) with two prompts past
+# its 1024-token window and one of 513 tokens, a length the reference's
+# Mamba prefill rejects; granite-moe (40 experts, top 8)
+HYBRID_MODEL, MOE_MODEL = "hymba-1.5b", "granite-moe-3b-a800m"
+HYBRID_LONG = (1100, 1500)       # prompt lengths past the window, [lo, hi]
+HYBRID_AT = {2: "long", 6: "513", 10: "long"}   # request index -> length
+FAMILY_KEEP_LAYERS = 4           # paged calls kept of each kept step
 
 
 def emit(**kw) -> None:
@@ -748,9 +806,70 @@ def read_parity(torch, pool, reads):
     common = max(set(lanes), key=lanes.count)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
-            "bytes_per_call": mean_b, "hole_lanes": holes, "lanes": lanes,
+            "bytes_per_call": mean_b, "calls": n, "hole_lanes": holes,
+            "lanes": lanes,
             "resources": {"lanes": common, **resources(
                 torch, read_info(common, d, vec4=d % 4 == 0))}}
+
+
+def _width_keys(tag, k):
+    """A kernel-parity result under ``<tag>_width_*`` keys of an entry."""
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "bytes_per_call", "flops_per_call", "splits",
+            "grid_blocks_per_call", "calls", "resources")
+    return {f"{tag}_width_{key}": k[key] for key in keep if key in k}
+
+
+def write_parity(torch, pool, writes):
+    """Apply the kept (src, dst, lane_of, payload) write calls in turn to
+    the (E, page, D) ``pool`` (updated in place) through ``dbs_rw_write``
+    and to a copy of it through ``dbs_rw_write_ref``: equal bit for bit.
+    Then time one pass over them as in phase 3 (kernel, plain version, and
+    ``index_copy_`` of the composed live rows, which moves whole rows).
+    Returns the numbers per call."""
+    from repro_torch.kernels.dbs import (dbs_rw_write, dbs_rw_write_ref,
+                                         dbs_write_bytes)
+    from repro_torch.kernels.dbs.rw_kernel import write_info
+    from repro_torch.kernels.timing import graph_ms
+    _e, page, d = pool.shape
+    dump = pool.shape[0] - 1
+    plain = pool.clone()
+    touched = set()
+    for src, dst, lane_of, pay in writes:
+        dbs_rw_write(pool, src, dst, lane_of, pay, check_routing=True)
+        dbs_rw_write_ref(plain, src, dst, lane_of, pay)
+        touched.update(dst[dst != dump].tolist())
+    torch.cuda.synchronize()
+    rows = torch.tensor(sorted(touched), dtype=torch.int64, device=pool.device)
+    err = float((pool[rows] - plain[rows]).abs().max()) if touched else 0.0
+    if not torch.equal(pool, plain):
+        raise AssertionError(f"dbs_rw_write differs from its plain version "
+                             f"(max abs err {err})")
+    n = len(writes)
+    n_bytes, composed = [], []
+    for src, dst, lane_of, _pay in writes:
+        live = dst != dump
+        n_bytes.append(dbs_write_bytes(int((lane_of >= 0).sum()),
+                                       int((live & (src != dst)).sum()),
+                                       page, d, 4))
+        idx = dst[live].long()
+        composed.append((idx, plain[idx].clone()))
+    ms = graph_ms(lambda: [dbs_rw_write(pool, s_, d_, lo, p_)
+                           for s_, d_, lo, p_ in writes], n)
+    plain_ms = graph_ms(lambda: [dbs_rw_write_ref(plain, s_, d_, lo, p_)
+                                 for s_, d_, lo, p_ in writes], n)
+    lib = graph_ms(lambda: [plain.index_copy_(0, i, v)
+                            for i, v in composed], n)
+    del composed, plain
+    lanes = [int(w[0].numel()) for w in writes]
+    common = max(set(lanes), key=lanes.count)
+    mean_b = sum(n_bytes) / n
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
+            "bytes_per_call": mean_b, "calls": n, "lanes": lanes,
+            "rows_written": len(touched),
+            "resources": {"lanes": common, **resources(
+                torch, write_info(vec4=d % 4 == 0), page * common)}}
 
 
 def phase_read_kernel(torch, mgr, reads):
@@ -791,6 +910,31 @@ def phase_read_kernel_serve(torch, eng, reads):
          max_abs_err=got["max_abs_err"], ms=got["ms"],
          bound_ms=got["bound_ms"], library_ms=got["library_ms"],
          resources=got["resources"], equal=True)
+    return got
+
+
+def phase_write_kernel_serve(torch, eng, writes):
+    """Parity and timing of dbs_rw_write at a zero-copy serving width, on
+    replica 0's (src, dst, lane_of, payload) calls kept from every
+    READ_SERVE_EVERY-th write pump of the serve path's traffic, replayed
+    on a copy of its replica-0 pool (whose rows they route over) through
+    the kernel and, on a second copy, through the plain version: equal bit
+    for bit; timed as in phase 3."""
+    if not writes:
+        raise AssertionError("no write-kernel inputs were kept on the serve "
+                             "path")
+    pool0 = eng.volumes.device_pools()[0]
+    pool = pool0.view(pool0.shape[0], pool0.shape[1], -1).clone()
+    got = write_parity(torch, pool, writes)
+    emit(phase="kernel_parity", kernel="dbs_rw_write",
+         width="zero-copy serving", pool_shape=list(pool.shape),
+         calls=got["calls"], lanes=got["lanes"],
+         rows_written=got["rows_written"], max_abs_err=got["max_abs_err"],
+         ms=got["ms"], bound_ms=got["bound_ms"],
+         library_ms=got["library_ms"], resources=got["resources"],
+         equal=True)
+    del pool
+    torch.cuda.empty_cache()
     return got
 
 
@@ -1674,10 +1818,6 @@ def phase_sharded_kernels(torch, mgr, kept):
     applied in turn to the pool and to a copy of it (kernel and plain
     version), equal bit for bit, and timed as in phase 3 (the library
     yardstick: ``index_copy_`` of the composed live rows)."""
-    from repro_torch.kernels.dbs import (dbs_rw_write, dbs_rw_write_ref,
-                                         dbs_write_bytes)
-    from repro_torch.kernels.dbs.rw_kernel import write_info
-    from repro_torch.kernels.timing import graph_ms
     reads, writes = kept["dbs_rw_read"], kept["dbs_rw_write"]
     if not reads or not writes:
         raise AssertionError("no sharded kernel inputs were kept")
@@ -1709,55 +1849,19 @@ def phase_sharded_kernels(torch, mgr, kept):
                                       // rows_per).numel()),
          max_abs_err=dn["max_abs_err"], ms=dn["ms"], plain_ms=dn["plain_ms"],
          bound_ms=dn["bound_ms"], library_ms=dn["library_ms"], equal=True)
-    dump = pool.shape[0] - 1
-    plain = pool.clone()
-    touched = set()
-    for src, dst, lane_of, pay in writes:
-        dbs_rw_write(pool, src, dst, lane_of, pay, check_routing=True)
-        dbs_rw_write_ref(plain, src, dst, lane_of, pay)
-        touched.update(dst[dst != dump].tolist())
-    torch.cuda.synchronize()
-    rows = torch.tensor(sorted(touched), dtype=torch.int64, device=pool.device)
-    w_err = float((pool[rows] - plain[rows]).abs().max())
-    if not torch.equal(pool, plain):
-        raise AssertionError(f"dbs_rw_write differs from its plain version "
-                             f"on the flattened rows (max abs err {w_err})")
-    n = len(writes)
-    w_bytes, composed = [], []
-    for src, dst, lane_of, _pay in writes:
-        live = dst != dump
-        w_bytes.append(dbs_write_bytes(int((lane_of >= 0).sum()),
-                                       int((live & (src != dst)).sum()),
-                                       PAGE_BLOCKS, BLOCK, 4))
-        idx = dst[live].long()
-        composed.append((idx, plain[idx].clone()))
-    w_ms = graph_ms(lambda: [dbs_rw_write(pool, s_, d_, lo, p_)
-                             for s_, d_, lo, p_ in writes], n)
-    w_plain = graph_ms(lambda: [dbs_rw_write_ref(plain, s_, d_, lo, p_)
-                                for s_, d_, lo, p_ in writes], n)
-    w_lib = graph_ms(lambda: [plain.index_copy_(0, i, v)
-                              for i, v in composed], n)
-    del composed, plain
-    lanes = int(writes[0][0].numel())
-    mean_wb = sum(w_bytes) / n
+    wr = write_parity(torch, pool, writes)
+    lanes = wr["resources"]["lanes"]
     emit(phase="kernel_parity", kernel="dbs_rw_write", width="sharded",
          pool_shape=list(pool.shape), shards=mgr.engine.pool.n_shards,
-         lanes=lanes, calls=n, rows_written=len(touched),
-         max_abs_err=w_err, ms=w_ms, bound_ms=mean_wb / HBM_BYTES_PER_S * 1e3,
-         library_ms=w_lib, equal=True)
+         lanes=lanes, calls=wr["calls"], rows_written=wr["rows_written"],
+         max_abs_err=wr["max_abs_err"], ms=wr["ms"], bound_ms=wr["bound_ms"],
+         library_ms=wr["library_ms"], equal=True)
     emit(phase="kernel_parity", kernel="dbs_rw_read", width="sharded",
          pool_shape=list(pool.shape), calls=len(reads), lanes=rd["lanes"],
          hole_lanes=rd["hole_lanes"], max_abs_err=rd["max_abs_err"],
          ms=rd["ms"], bound_ms=rd["bound_ms"], library_ms=rd["library_ms"],
          equal=True)
-    write = {"sharded_width_ms": w_ms, "sharded_width_plain_ms": w_plain,
-             "sharded_width_bound_ms": mean_wb / HBM_BYTES_PER_S * 1e3,
-             "sharded_width_library_ms": w_lib,
-             "sharded_width_max_abs_err": w_err,
-             "sharded_width_lanes": lanes, "sharded_width_calls": n,
-             "sharded_width_bytes_per_call": mean_wb,
-             "sharded_width_resources": resources(
-                 torch, write_info(vec4=True), PAGE_BLOCKS * lanes)}
+    write = {**_width_keys("sharded", wr), "sharded_width_lanes": lanes}
     read = {"sharded_width_ms": rd["ms"],
             "sharded_width_plain_ms": rd["plain_ms"],
             "sharded_width_bound_ms": rd["bound_ms"],
@@ -2044,6 +2148,36 @@ def _tokens_match(outs, want, margin_of, what):
     return ties
 
 
+def _margin_np(np, logits) -> float:
+    """The top-2 margin of one step's recorded logits (TIE_MARGIN rule)."""
+    top = np.sort(np.asarray(logits))[-2:]
+    return float(top[1] - top[0])
+
+
+def _margin_step(torch, eng, step, margins):
+    """``step`` (an engine's decode program) wrapped to append, each call,
+    every slot's top-2 logit margin (one ``topk`` on the card) with the
+    (request, token index) it decided to ``margins`` (TIE_MARGIN rule)."""
+    def run(*a, **k):
+        out = step(*a, **k)
+        top = torch.topk(out[0], 2, dim=-1).values      # on the card
+        who = [(g.req_id, len(g.out_tokens)) if g is not None else None
+               for g in map(eng.live_by_slot, range(eng.n_slots))]
+        margins.append((top[:, 0] - top[:, 1], who))
+        return out
+    return run
+
+
+def _margin_map(torch, margins):
+    """``{(request, token index): top-2 margin}`` of ``_margin_step``'s
+    record, read back once."""
+    if not margins:
+        return {}
+    got = torch.stack([m for m, _ in margins]).cpu().numpy()
+    return {key: float(got[i, j]) for i, (_, who) in enumerate(margins)
+            for j, key in enumerate(who) if key is not None}
+
+
 def phase_serve_sharded(torch, dev, smi, cfg, params, prompts, want):
     """Zero-copy serving on the sharded KV store: ``kv_backend="sharded",
     kv_shards=2`` (each shard with the fused run's 1032 extents), 2 KV
@@ -2081,26 +2215,14 @@ def phase_serve_sharded(torch, dev, smi, cfg, params, prompts, want):
             return out
         return run
 
-    def step_fn(*a, **k):
-        out = inner["step"](*a, **k)
-        top = torch.topk(out[0], 2, dim=-1).values      # on the card
-        who = [(g.req_id, len(g.out_tokens)) if g is not None else None
-               for g in map(eng.live_by_slot, range(eng.n_slots))]
-        margins.append((top[:, 0] - top[:, 1], who))
-        return out
-
     def paged(q, pool, table, lengths, **k):
         pool_rows.add(int(pool.shape[0]))
         return inner["paged"](q, pool, table, lengths, **k)
 
-    def margin_map():
-        got = torch.stack([m for m, _ in margins]).cpu().numpy()
-        return {key: float(got[i, j]) for i, (_, who) in enumerate(margins)
-                for j, key in enumerate(who) if key is not None}
-
     eng._prefill_one_zero = timed("prefill", inner["prefill"])
     eng._pump_writes = timed("pumps", inner["pump"])
-    eng._step_fn = timed("decode", step_fn)
+    eng._step_fn = timed("decode", _margin_step(torch, eng, inner["step"],
+                                                margins))
     serving.paged_attention_pool_fwd = paged
     for mod in (rw_kernel, pk, fk):
         mod.reset_counts()
@@ -2115,7 +2237,8 @@ def phase_serve_sharded(torch, dev, smi, cfg, params, prompts, want):
         plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
                  **fk.PLAIN_CALLS}
         peak = torch.cuda.max_memory_allocated(dev)
-        ties = _tokens_match(outs, want, margin_map(), "sharded serving")
+        ties = _tokens_match(outs, want, _margin_map(torch, margins),
+                             "sharded serving")
         n_e = eng.volumes.engine.cfg.n_extents
         if pool_rows != {SERVE_SHARDS * (n_e + 1)}:
             raise AssertionError(f"the paged kernel read pools of "
@@ -2171,8 +2294,8 @@ def phase_serve_sharded(torch, dev, smi, cfg, params, prompts, want):
         outs2 = eng.run(max_steps=4 * SERVE_NEW)
         got = {rid - base: toks for rid, toks in outs2.items()
                if rid >= base}
-        mm = {(rid - base, t): m for (rid, t), m in margin_map().items()
-              if rid >= base}
+        mm = {(rid - base, t): m for (rid, t), m in
+              _margin_map(torch, margins).items() if rid >= base}
         ties2 = _tokens_match(got, want, mm, "the rebuilt replica alone")
         eng.control("rebuild", shard=0, replica=0)
         if not g.consistent() or not g.healthy.all():
@@ -2474,16 +2597,7 @@ def phase_serve_ring(torch, dev, smi, cfg, params, prompts, want):
     torch.cuda.reset_peak_memory_stats()
     eng = _serve_engine(torch, cfg, params, dev, kv_backend="ring")
     margins = []
-    inner = eng._step_fn
-
-    def step_fn(*a, **k):
-        out = inner(*a, **k)
-        top = torch.topk(out[0], 2, dim=-1).values      # on the card
-        who = [(g.req_id, len(g.out_tokens)) if g is not None else None
-               for g in map(eng.live_by_slot, range(eng.n_slots))]
-        margins.append((top[:, 0] - top[:, 1], who))
-        return out
-    eng._step_fn = step_fn
+    eng._step_fn = _margin_step(torch, eng, eng._step_fn, margins)
     for mod in (rw_kernel, pk, fk):
         mod.reset_counts()
     try:
@@ -2497,11 +2611,8 @@ def phase_serve_ring(torch, dev, smi, cfg, params, prompts, want):
         launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
         plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
                  **fk.PLAIN_CALLS}
-        got = torch.stack([m for m, _ in margins]).cpu().numpy()
-        mm = {key: float(got[i, j]) for i, (_, who) in enumerate(margins)
-              for j, key in enumerate(who) if key is not None}
-        ties = _tokens_match(outs, {r: want[r] for r in outs}, mm,
-                             "ring serving")
+        ties = _tokens_match(outs, {r: want[r] for r in outs},
+                             _margin_map(torch, margins), "ring serving")
         if min(launches.values()) <= 0 or any(plain.values()):
             raise AssertionError(f"launches {launches}, plain {plain}")
         eng.volumes.flush()
@@ -3164,18 +3275,205 @@ def _serve_engine(torch, cfg, params, dev, record_logits=False,
                        record_logits=record_logits, device=dev, **kw)
 
 
-def phase_serve(torch, dev, smi):
-    import numpy as np
-    from repro_torch.configs import get_config
+def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
+    """Run ``prompts`` (request ids 0.., SERVE_NEW new tokens each) on a
+    zero-copy engine under phase 9's instrumentation, check the run, and
+    hold what it kept against the plain versions (phase 10).
+
+    Timed: each request's prefill, the write pumps, the decode program.
+    Counted: fused steps (pumps) and decode steps. Kept: every decode
+    step's top-2 margins; the paged calls of the SERVE_KEEP_STEPS decode
+    steps (the first ``keep_layers`` of each, or all); the flash calls
+    ``keep_flash(kept, q, kw)`` accepts; and the DBS kernels' inputs of
+    every READ_SERVE_EVERY-th pump (the read's, and replica 0's write).
+    Checked: every request ends with SERVE_NEW tokens; after a flush the
+    replicas' metadata and pool contents (bar the dump row) agree; no
+    volume or extent is left; every kernel of the path launched,
+    ``paged_attention`` once a paged layer a decode step and
+    ``flash_attention`` once a layer a prompt; no plain version ran. The
+    kept calls are then held against the plain versions on the traffic's
+    own pool, before anything else runs on the engine."""
     from repro_torch.core import backends, dbs
     from repro_torch.kernels.dbs import ops as dbs_ops
-    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.paged_attention import kernel as pk
-    from repro_torch.models import init_params
     from repro_torch.serving import engine as serving
     from repro_torch.serving.engine import GenRequest
+    cfg = eng.cfg
+    clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
+    counts = {"fused_steps": 0, "decode_steps": 0, "paged_this_step": 0}
+    kept = {"paged": [], "flash": [], "read": [], "write": []}
+    prefill_s, margins, write_pump = {}, [], [0]
+    inner = {"prefill": eng._prefill_one_zero, "pump": eng._pump_writes,
+             "step": eng._step_fn, "fused": backends.fused_step,
+             "paged": serving.paged_attention_pool_fwd,
+             "flash": f_ops.flash_attention_fwd, "read": dbs_ops.dbs_rw_read,
+             "write": dbs_ops.dbs_rw_write}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+
+    def prefill(g):
+        t = time.perf_counter()
+        inner["prefill"](g)
+        torch.cuda.synchronize()
+        prefill_s[g.req_id] = time.perf_counter() - t
+        clock["prefill"] += prefill_s[g.req_id]
+
+    def step_fn(*a, **k):
+        counts["decode_steps"] += 1
+        counts["paged_this_step"] = 0
+        return inner["step"](*a, **k)
+
+    def fused(*a, **k):
+        counts["fused_steps"] += 1
+        return inner["fused"](*a, **k)
+
+    def paged(q, pool, table, lengths, **k):
+        if counts["decode_steps"] in SERVE_KEEP_STEPS and (
+                keep_layers is None
+                or counts["paged_this_step"] < keep_layers):
+            kept["paged"].append((q.clone(), table.clone(), lengths.clone(),
+                                  dict(k)))
+        counts["paged_this_step"] += 1
+        return inner["paged"](q, pool, table, lengths, **k)
+
+    def flash(q, k, v, **kw):
+        if keep_flash(kept["flash"], q, kw):
+            kept["flash"].append((q.clone(), k.clone(), v.clone(), dict(kw)))
+        return inner["flash"](q, k, v, **kw)
+
+    def read(pool, ext, block):
+        if counts["fused_steps"] % READ_SERVE_EVERY == 1:
+            kept["read"].append((ext.clone(), block.clone()))
+        return inner["read"](pool, ext, block)
+
+    def write(pool, src, dst, lane_of, payload, **k):
+        n = counts["fused_steps"]
+        if n % READ_SERVE_EVERY == 1 and write_pump[0] != n:
+            write_pump[0] = n                    # the pump's first replica
+            kept["write"].append(tuple(t.clone() for t in (
+                src, dst, lane_of, payload)))
+        return inner["write"](pool, src, dst, lane_of, payload, **k)
+
+    eng._prefill_one_zero = prefill
+    eng._pump_writes = timed("pumps", inner["pump"])
+    eng._step_fn = timed("decode", _margin_step(torch, eng, step_fn, margins))
+    backends.fused_step = fused
+    serving.paged_attention_pool_fwd = paged
+    f_ops.flash_attention_fwd = flash
+    dbs_ops.dbs_rw_read, dbs_ops.dbs_rw_write = read, write
+    for mod in (rw_kernel, pk, fk, copy_kernel):
+        mod.reset_counts()
+    try:
+        t0 = time.perf_counter()
+        for rid, pr in enumerate(prompts):
+            eng.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
+        outs = eng.run(max_steps=10 * SERVE_NEW * len(prompts))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+        plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
+                 **fk.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+    finally:
+        backends.fused_step = inner["fused"]
+        serving.paged_attention_pool_fwd = inner["paged"]
+        f_ops.flash_attention_fwd = inner["flash"]
+        dbs_ops.dbs_rw_read = inner["read"]
+        dbs_ops.dbs_rw_write = inner["write"]
+        eng._prefill_one_zero = inner["prefill"]
+        eng._pump_writes = inner["pump"]
+        eng._step_fn = inner["step"]
+    peak = torch.cuda.max_memory_allocated(eng.device)
+    bad = [rid for rid in range(len(prompts))
+           if len(outs.get(rid, [])) != SERVE_NEW]
+    if bad:
+        raise AssertionError(f"{cfg.name}: requests {bad} did not end with "
+                             f"{SERVE_NEW} tokens")
+    eng.volumes.flush()
+    if not eng.volumes.engine.backend.consistent():
+        raise AssertionError(f"{cfg.name}: the KV replicas disagree after "
+                             f"a flush")
+    # the decode program scatters into every replica's pool in place: their
+    # contents must agree too, bar the dump row (inactive lanes scatter
+    # there in no fixed order, and nothing reads it)
+    pools = eng.volumes.device_pools()
+    if not all(torch.equal(pools[0][:-1], p[:-1]) for p in pools[1:]):
+        raise AssertionError(f"{cfg.name}: the KV replica pools' contents "
+                             f"differ")
+    del pools
+    st = dbs.stats(eng.state)
+    if st["volumes"] or st["extents_used"]:
+        raise AssertionError(f"{cfg.name}: volumes or extents leaked: {st}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"{cfg.name}: a kernel of the serve path never "
+                             f"launched: {launches}")
+    if any(plain.values()):
+        raise AssertionError(f"{cfg.name}: plain versions ran on the card: "
+                             f"{plain}")
+    n_paged = len(eng._paged)
+    if launches["paged_attention"] != n_paged * counts["decode_steps"] or \
+            launches["flash_attention"] != cfg.n_layers * len(prompts):
+        raise AssertionError(f"{cfg.name}: launches {launches}, not "
+                             f"{n_paged} paged a decode step and "
+                             f"{cfg.n_layers} flash a prompt")
+    parity = {"paged_attention": phase_paged_kernel(torch, eng, kept),
+              "flash_attention": phase_flash_kernel(torch, kept),
+              "dbs_rw_read": phase_read_kernel_serve(torch, eng,
+                                                     kept["read"]),
+              "dbs_rw_write": phase_write_kernel_serve(torch, eng,
+                                                       kept["write"])}
+    return {"outs": outs, "run_s": run_s, "clock": clock, "counts": counts,
+            "prefill_s": prefill_s, "margin_of": _margin_map(torch, margins),
+            "launches": launches, "plain": plain, "dbs_stats": st,
+            "peak": peak, "parity": parity}
+
+
+def _serve_fields(lens, res):
+    """The serve_path line's fields every zero-copy serving phase prints."""
+    gen = len(lens) * SERVE_NEW
+    clock, counts = res["clock"], res["counts"]
+    return dict(
+        requests=len(lens), prompt_tokens=int(lens.sum()),
+        prompt_lengths=[int(x) for x in lens], generated_tokens=gen,
+        run_seconds=res["run_s"], prefill_seconds=clock["prefill"],
+        pump_seconds=clock["pumps"], decode_seconds=clock["decode"],
+        decode_steps=counts["decode_steps"],
+        decode_tokens_per_s=gen / clock["decode"],
+        tokens_per_s=gen / res["run_s"], pumps=counts["fused_steps"],
+        launches=res["launches"], plain_calls=res["plain"],
+        dbs_stats=res["dbs_stats"], max_memory_allocated=res["peak"])
+
+
+def _serve_config(cfg, eng, **extra):
+    return dict(kv_backend="fused", kv_replicas=2, n_slots=8, max_len=2048,
+                n_queues=2, kernel="cuda", attn_impl="cuda", dtype="float32",
+                page_blocks=cfg.page_blocks, paged_layers=len(eng._paged),
+                payload_shape=list(eng._payload_shape), **extra)
+
+
+def _keep_local_global(kept, q, kw) -> bool:
+    """gemma2's flash calls kept: the first prompt's first local and first
+    global layer."""
+    return len(kept) < 2 and (not kept
+                              or kw["window"] != kept[0][3]["window"])
+
+
+def phase_serve(torch, dev, smi):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models import init_params
     cfg = get_config(SERVE_MODEL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3188,134 +3486,19 @@ def phase_serve(torch, dev, smi):
     rng = np.random.default_rng(SEED + 2)
     lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
-
-    # instrumentation: time the prefill, the write pumps and the decode
-    # program; count fused steps; keep kernel inputs for phase 10 (the read
-    # kernel's of every READ_SERVE_EVERY-th pump of the traffic)
-    clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
-    counts = {"fused_steps": 0, "decode_steps": 0}
-    kept = {"paged": [], "flash": [], "read": []}
-    keep_reads = [True]
-    inner = {"prefill": eng._prefill_one_zero, "pump": eng._pump_writes,
-             "step": eng._step_fn, "fused": backends.fused_step,
-             "paged": serving.paged_attention_pool_fwd,
-             "flash": f_ops.flash_attention_fwd,
-             "read": dbs_ops.dbs_rw_read}
-
-    def timed(name, fn):
-        def run(*a, **k):
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            clock[name] += time.perf_counter() - t
-            return out
-        return run
-
-    def step_fn(*a, **k):
-        counts["decode_steps"] += 1
-        return inner["step"](*a, **k)
-
-    def fused(*a, **k):
-        counts["fused_steps"] += 1
-        return inner["fused"](*a, **k)
-
-    def paged(q, pool, table, lengths, **k):
-        if counts["decode_steps"] in SERVE_KEEP_STEPS:
-            kept["paged"].append((q.clone(), table.clone(), lengths.clone(),
-                                  dict(k)))
-        return inner["paged"](q, pool, table, lengths, **k)
-
-    def read(pool, ext, block):
-        if keep_reads[0] and counts["fused_steps"] % READ_SERVE_EVERY == 1:
-            kept["read"].append((ext.clone(), block.clone()))
-        return inner["read"](pool, ext, block)
-
-    def flash(q, k, v, **kw):
-        if len(kept["flash"]) < 2 and (
-                not kept["flash"] or kw["window"] != kept["flash"][0][3][
-                    "window"]):
-            kept["flash"].append((q.clone(), k.clone(), v.clone(), dict(kw)))
-        return inner["flash"](q, k, v, **kw)
-
-    eng._prefill_one_zero = timed("prefill", inner["prefill"])
-    eng._pump_writes = timed("pumps", inner["pump"])
-    eng._step_fn = timed("decode", step_fn)
-    backends.fused_step = fused
-    serving.paged_attention_pool_fwd = paged
-    f_ops.flash_attention_fwd = flash
-    dbs_ops.dbs_rw_read = read
+    res = _serve_traffic(torch, eng, prompts, _keep_local_global)
+    # fork check: a session forked after its 4th decode step against a
+    # second engine decoding the same two streams independently
     for mod in (rw_kernel, pk, fk):
         mod.reset_counts()
-    try:
-        t0 = time.perf_counter()
-        for rid, pr in enumerate(prompts):
-            eng.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
-        outs = eng.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        traffic_counts = dict(counts)
-        traffic_clock = dict(clock)
-        traffic_launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES,
-                            **fk.LAUNCHES}
-        keep_reads[0] = False
-        # fork check: a session forked after its 4th decode step against a
-        # second engine decoding the same two streams independently
-        fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
-    finally:
-        backends.fused_step = inner["fused"]
-        serving.paged_attention_pool_fwd = inner["paged"]
-        f_ops.flash_attention_fwd = inner["flash"]
-        dbs_ops.dbs_rw_read = inner["read"]
-        eng._prefill_one_zero = inner["prefill"]
-        eng._pump_writes = inner["pump"]
-        eng._step_fn = inner["step"]
-    launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
-    plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS, **fk.PLAIN_CALLS}
-    peak = torch.cuda.max_memory_allocated(dev)
-    bad = [rid for rid in range(SERVE_REQUESTS)
-           if len(outs.get(rid, [])) != SERVE_NEW]
-    if bad:
-        raise AssertionError(f"requests {bad} did not end with "
-                             f"{SERVE_NEW} tokens")
-    eng.volumes.flush()
-    if not eng.volumes.engine.backend.consistent():
-        raise AssertionError("the KV replicas disagree after a flush")
-    # the decode program scatters into every replica's pool in place: their
-    # contents must agree too, bar the dump row (inactive lanes scatter
-    # there in no fixed order, and nothing reads it)
-    pools = eng.volumes.device_pools()
-    if not all(torch.equal(pools[0][:-1], p[:-1]) for p in pools[1:]):
-        raise AssertionError("the KV replica pools' contents differ")
-    del pools
-    st = dbs.stats(eng.state)
-    if st["volumes"] or st["extents_used"]:
-        raise AssertionError(f"volumes or extents leaked: {st}")
-    if min(traffic_launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the serve path never launched: "
-                             f"{traffic_launches}")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the card: {plain}")
-    gen_tokens = SERVE_REQUESTS * SERVE_NEW
-    emit(phase="serve_path", model=SERVE_MODEL, config=dict(
-        kv_backend="fused", kv_replicas=2, n_slots=8, max_len=2048,
-        n_queues=2, kernel="cuda", attn_impl="cuda", dtype="float32",
-        page_blocks=cfg.page_blocks,
-        payload_shape=list(eng._payload_shape)),
-        requests=SERVE_REQUESTS, prompt_tokens=int(lens.sum()),
-        prompt_lengths=[int(x) for x in lens],
-        generated_tokens=gen_tokens, init_seconds=init_s,
-        run_seconds=run_s, prefill_seconds=traffic_clock["prefill"],
-        pump_seconds=traffic_clock["pumps"],
-        decode_seconds=traffic_clock["decode"],
-        decode_steps=traffic_counts["decode_steps"],
-        decode_tokens_per_s=gen_tokens / traffic_clock["decode"],
-        tokens_per_s=gen_tokens / run_s,
-        pumps=traffic_counts["fused_steps"], launches=traffic_launches,
-        launches_with_fork_check=launches, plain_calls=plain, dbs_stats=st,
-        fork=fork, max_memory_allocated=peak,
-        memory_allocated_before=held_before, card=smi)
-    return eng, kept, traffic_launches, traffic_counts, (cfg, params,
-                                                         prompts)
+    fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
+    emit(phase="serve_path", model=SERVE_MODEL,
+         config=_serve_config(cfg, eng), **_serve_fields(lens, res),
+         init_seconds=init_s, fork=fork,
+         fork_check_launches={**rw_kernel.LAUNCHES, **pk.LAUNCHES,
+                              **fk.LAUNCHES},
+         memory_allocated_before=held_before, card=smi)
+    return eng, res, (cfg, params, prompts)
 
 
 def phase_fork_check(torch, cfg, params, dev, eng, prompt):
@@ -4221,6 +4404,226 @@ def _rwkv_entry(k, launches, counts, n_layers):
     return k
 
 
+# ---------------------------------------------------------------------------
+# phases 19-20: the hybrid and MoE families at full width
+# ---------------------------------------------------------------------------
+def _family_prompts(np, cfg, seed, hybrid):
+    """SERVE_REQUESTS prompts drawn in SERVE_PROMPT; on the hybrid model
+    the requests of HYBRID_AT take two lengths past the window and 513."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    if hybrid:
+        for i, kind in HYBRID_AT.items():
+            lens[i] = (513 if kind == "513" else
+                       rng.integers(HYBRID_LONG[0], HYBRID_LONG[1] + 1))
+    return lens, [rng.integers(0, cfg.vocab_size, n) for n in lens]
+
+
+def _device_us(e) -> float:
+    """A profiler event's device time with its children's (the attribute's
+    name moved between torch releases)."""
+    v = getattr(e, "device_time_total", None)
+    return float(v if v is not None else e.cuda_time_total)
+
+
+def _decode_split(torch, eng, smi, name):
+    """Eight requests fill the slots; after two warm-up steps (admission
+    and prefill ride the first) PROFILE_STEPS decode steps are timed, then
+    one runs under ``torch.profiler`` with the attention (KV writes and
+    the read, every cache kind), the Mamba branch and the MoE MLP each in a
+    ``record_function`` range: the device time of each range's kernels,
+    the rest, and the step's kernels. The engine then drains."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core import dbs
+    from repro_torch.models import blocks as B
+    from repro_torch.models import ssm
+    from repro_torch.serving.engine import GenRequest
+    rng = np.random.default_rng(SEED + 8)
+    for i in range(eng.n_slots):
+        n = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        eng.submit(GenRequest(req_id=5000 + i, prompt=rng.integers(
+            0, eng.cfg.vocab_size, n), max_new=3 + PROFILE_STEPS))
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t) / PROFILE_STEPS
+    parts = {"attention": (B, "_decode_attention"),
+             "mamba": (ssm, "mamba_step"), "moe": (B, "apply_moe")}
+    inner = {label: getattr(mod, attr) for label, (mod, attr)
+             in parts.items()}
+
+    def ranged(label, fn):
+        def run(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return run
+    for label, (mod, attr) in parts.items():
+        setattr(mod, attr, ranged(label, inner[label]))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        for label, (mod, attr) in parts.items():
+            setattr(mod, attr, inner[label])
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in parts]
+    total = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+    split = {label: sum(_device_us(e) for e in events
+                        if e.name == label
+                        and e.device_type == DeviceType.CPU) / 1e3
+             for label in parts}
+    ranges = {label: sum(1 for e in events if e.name == label
+                         and e.device_type == DeviceType.CPU)
+              for label in parts}
+    split["rest"] = total - sum(split.values())
+    emit(phase="profile", part=f"{name} decode step, split", slots=eng.n_slots,
+         decode_step_s=step_s, profiled_step_wall_s=wall,
+         device_kernel_ms=total, device_ms_by_part=split,
+         ranges_by_part=ranges, kernels_a_step=len(kernels),
+         device_idle_share=1.0 - total / 1e3 / wall, card=smi)
+    eng.run(max_steps=PROFILE_STEPS + 4)
+    st = dbs.stats(eng.state)
+    if not all(r.done for r in eng.live.values()) or st["volumes"]:
+        raise AssertionError(f"the profiled requests did not drain: {st}")
+    return {"decode_step_s": step_s, "kernels_a_step": len(kernels),
+            "device_kernel_ms": total, "device_ms_by_part": split}
+
+
+def phase_serve_family(torch, dev, smi, model, seed):
+    """Zero-copy serving of one hybrid or MoE model at its published widths
+    and depth (fp32 weights from a seeded generator on the card), phase 9's
+    engine (``fused``, 2 KV replicas, 8 slots, max_len 2048, the flash
+    kernel in prefill, the paged kernel in decode, the DBS kernels in the
+    KV pumps): 16 requests (slots recycled) of 32 new tokens, run, checked
+    and their kept kernel calls held against the plain versions as in
+    phases 9-10 (``_serve_traffic``). Then: the last request (a recycled
+    slot) equals a fresh engine's; the fork check of phase 9; one decode
+    step under sync-debug "error"; a profiled decode step's split; and the
+    copy-based baseline on the same prompts gives the same tokens
+    (TIE_MARGIN rule, with the zero-copy run's top-2 margins). Returns the
+    traffic's launches and the kernel-parity results."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import dbs
+    from repro_torch.kernels.dbs import copy_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models import init_params
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import GenRequest
+    cfg = get_config(model)
+    hybrid = cfg.ssm is not None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = M.param_count_actual(params)
+    lens, prompts = _family_prompts(np, cfg, seed, hybrid)
+    eng = _serve_engine(torch, cfg, params, dev)
+
+    def keep_flash(kept, q, kw):
+        # hymba: the first prompt past the window, one global and one
+        # windowed layer; granite-moe: layer 0 of two prompts
+        sq, seen = q.shape[2], [(c[0].shape[2], c[3]["window"])
+                                for c in kept]
+        return len(kept) < 2 and (
+            (hybrid and sq > cfg.sliding_window
+             and all(s == sq and w != kw["window"] for s, w in seen))
+            or (not hybrid and all(s != sq for s, _ in seen)))
+    res = _serve_traffic(torch, eng, prompts, keep_flash,
+                         keep_layers=FAMILY_KEEP_LAYERS)
+    fused_tokens = {rid: list(toks) for rid, toks in res["outs"].items()}
+    config = _serve_config(
+        cfg, eng, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        sliding_window=cfg.sliding_window,
+        global_layers=list(cfg.global_layer_indices),
+        ssm=None if cfg.ssm is None else dict(
+            state_dim=cfg.ssm.state_dim, expand=cfg.ssm.expand,
+            conv_kernel=cfg.ssm.conv_kernel),
+        moe=None if cfg.moe is None else dict(
+            n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+            d_ff_expert=cfg.moe.d_ff_expert))
+
+    # the last request ran in a recycled slot: a fresh engine, same prompt
+    rid = SERVE_REQUESTS - 1
+    fresh = _serve_engine(torch, cfg, params, dev, record_logits=True)
+    alone = _serve_one(torch, fresh, rid, prompts[rid])
+    fresh.volumes.close()
+    del fresh
+    torch.cuda.empty_cache()
+    recycle_ties = _tokens_match(
+        {rid: fused_tokens[rid]}, {rid: alone.out_tokens},
+        {(rid, t): _margin_np(np, lg) for t, lg in
+         enumerate(alone.logit_trace)}, f"{model}: the recycled slot")
+    fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
+    phase_no_sync_serve(torch, eng)
+    split = _decode_split(torch, eng, smi, model)
+    longest = int(np.argmax(lens))
+    eng.volumes.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the copy-based baseline on the same prompts
+    host = _serve_engine(torch, cfg, params, dev, kv_backend="host")
+    for mod in (pk, fk, copy_kernel):
+        mod.reset_counts()
+    t0 = time.perf_counter()
+    for r, pr in enumerate(prompts):
+        host.submit(GenRequest(req_id=r, prompt=pr, max_new=SERVE_NEW))
+    host_outs = host.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    host_launches = {**copy_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+    host_plain = {**copy_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
+                  **fk.PLAIN_CALLS}
+    host_st = dbs.stats(host.state)
+    host.volumes.close()
+    del host
+    host_ties = _tokens_match(host_outs, fused_tokens, res["margin_of"],
+                              f"{model}: the copy-based baseline")
+    if host_st["volumes"] or host_st["extents_used"] or any(
+            host_plain.values()) or host_launches["flash_attention"] <= 0:
+        raise AssertionError(f"{model} baseline: {host_st}, launches "
+                             f"{host_launches}, plain {host_plain}")
+    gen_tokens = SERVE_REQUESTS * SERVE_NEW
+    prefill_s = res["prefill_s"]
+    emit(phase="serve_path", model=model, config=config, params=n_params,
+         **_serve_fields(lens, res), init_seconds=init_s,
+         prefill_seconds_by_length={
+             **({"513": prefill_s[int(np.flatnonzero(lens == 513)[0])]}
+                if hybrid else {}),
+             f"longest ({int(lens[longest])})": prefill_s[longest]},
+         launches_per_decode_step={
+             "paged_attention": config["paged_layers"],
+             "all kernels (profiled step)": split["kernels_a_step"]},
+         recycled_slot_near_ties=recycle_ties, fork=fork,
+         no_sync_decode_step=True, decode_split=split,
+         host_baseline=dict(run_seconds=host_s,
+                            tokens_per_s=gen_tokens / host_s,
+                            tokens_equal_zero_copy=host_ties == 0,
+                            near_ties=host_ties, launches=host_launches),
+         card=smi)
+    del params
+    return {"launches": res["launches"], **res["parity"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -4456,34 +4859,26 @@ def main() -> int:
                 k["name"]],
             launches_tier_path=tier_launches[k["name"]])
 
-    eng, kept, serve_launches, serve_counts, (cfg, params, prompts) = \
-        phase_serve(torch, dev, smi)
-    fused_tokens = {rid: list(eng.live[rid].out_tokens)
+    eng, serve, (cfg, params, prompts) = phase_serve(torch, dev, smi)
+    fused_tokens = {rid: list(serve["outs"][rid])
                     for rid in range(SERVE_REQUESTS)}
-    paged_k = phase_paged_kernel(torch, eng, kept)
-    flash_k = phase_flash_kernel(torch, kept)
-    serve_read = phase_read_kernel_serve(torch, eng, kept["read"])
-    del kept
     phase_no_sync_serve(torch, eng)
     phase_profile_serve(torch, eng, smi)
     eng.volumes.close()
     del eng
     free()
+    serve_launches = serve["launches"]
+    paged_k = serve["parity"]["paged_attention"]
+    flash_k = serve["parity"]["flash_attention"]
     for k in (paged_k, flash_k):
         k["launches"] = serve_launches[k["name"]]
     paged_k["launches_per_decode_step"] = (serve_launches["paged_attention"]
-                                           / serve_counts["decode_steps"])
-    write_k["launches_serve_path"] = serve_launches["dbs_rw_write"]
-    read_k.update(launches_serve_path=serve_launches["dbs_rw_read"],
-                  serve_width_ms=serve_read["ms"],
-                  serve_width_plain_ms=serve_read["plain_ms"],
-                  serve_width_bound_ms=serve_read["bound_ms"],
-                  serve_width_library_ms=serve_read["library_ms"],
-                  serve_width_max_abs_err=serve_read["max_abs_err"],
-                  serve_width_bytes_per_call=serve_read["bytes_per_call"],
-                  serve_width_calls=len(serve_read["lanes"]),
-                  serve_width_resources=serve_read["resources"],
-                  launch_floor_ms=launch_floor)
+                                           / serve["counts"]["decode_steps"])
+    for k in (write_k, read_k):
+        k.update(_width_keys("serve", serve["parity"][k["name"]]),
+                 launches_serve_path=serve_launches[k["name"]],
+                 launch_floor_ms=launch_floor)
+    del serve
 
     eng, kept, host_traffic, host_fork = phase_serve_host(
         torch, dev, smi, cfg, params, prompts)
@@ -4524,6 +4919,15 @@ def main() -> int:
                          rwkv_counts, eng.cfg.n_layers)
     del eng, params, kept
     free()
+
+    # the hybrid and MoE families at full width, the previous model freed
+    for tag, model, seed in (("hybrid", HYBRID_MODEL, SEED + 6),
+                             ("moe", MOE_MODEL, SEED + 7)):
+        fam = phase_serve_family(torch, dev, smi, model, seed)
+        free()
+        for k in (write_k, read_k, paged_k, flash_k):
+            k[f"launches_{tag}_serve_path"] = fam["launches"][k["name"]]
+            k.update(_width_keys(tag, fam[k["name"]]))
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

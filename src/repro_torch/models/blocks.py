@@ -1,22 +1,28 @@
-"""Transformer and RWKV blocks, the layer schedule and cache structures.
+"""Transformer, hybrid and RWKV blocks, the layer schedule and cache
+structures.
 
-Port of ``repro/models/blocks.py`` for global- and local-attention layers
-with a dense MLP, and RWKV-6 layers (time mix and channel mix,
-``models/ssm.py``). A model is a sequence of *segments*; each segment is
-``count`` repetitions of a static tuple of layer signatures. Prefill and
-decode walk the layers one by one and thread heterogeneous per-layer caches
-(paged DBS pools for global attention, ring buffers for sliding-window
-layers, O(1) recurrent states for RWKV, dense caches otherwise).
+Port of ``repro/models/blocks.py`` for global- and local-attention layers,
+hybrid layers (attention and a Mamba branch side by side, hymba), RWKV-6
+layers (time mix and channel mix, ``models/ssm.py``), each with a dense
+or a dropless MoE MLP. A model is a sequence of *segments*; each segment
+is ``count`` repetitions of a static tuple of layer signatures. ``forward``,
+prefill and decode walk the layers one by one and thread heterogeneous
+per-layer caches (paged DBS pools for global attention, ring buffers for
+sliding-window layers, O(1) recurrent states for Mamba and RWKV, dense
+caches otherwise).
 
 Caches are updated in place and returned (the reference returns new
 arrays): at full width a decode step would otherwise copy every ring cache.
 A cache entry that is a view (the serving engine's per-slot rows) writes
-through to the tensor it views.
+through to the tensor it views; so does a hybrid layer's Mamba state.
 
-MLA and hybrid (Mamba) token mixers and MoE MLPs raise a ``ValueError``
-naming the models slice of the port that brings them. The
-reference's activation-sharding constraint is dropped: it does nothing on
-one device.
+MoE MLPs run every expert on every token with zero combine weights for
+the unselected ones (``layers.apply_moe``): nothing waits on the host,
+which the decode step must not.
+
+MLA token mixers raise a ``ValueError`` naming the MLA/MTP slice of the
+port that brings them. The reference's activation-sharding constraint is
+dropped: it does nothing on one device.
 """
 from __future__ import annotations
 
@@ -27,15 +33,16 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (ArchConfig, ATTN_GLOBAL, ATTN_HYBRID,
-                                      ATTN_LOCAL, ATTN_RWKV, MLP_DENSE)
+                                      ATTN_LOCAL, ATTN_RWKV, MLP_MOE)
 from repro_torch.core.dbs import last_live_lane
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
-from repro_torch.models.layers import (Params, apply_mlp, dense_init,
-                                       init_mlp, rms_norm)
+from repro_torch.models.layers import (Params, apply_mlp, apply_moe,
+                                       dense_init, init_mlp, init_moe,
+                                       rms_norm)
 
 INT32_MAX = 2 ** 31 - 1
-PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL, ATTN_RWKV)
+PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL, ATTN_HYBRID, ATTN_RWKV)
 
 
 # ---------------------------------------------------------------------------
@@ -97,11 +104,9 @@ def layer_schedule(cfg: ArchConfig) -> List[Segment]:
 def check_ported(sig: LayerSig) -> None:
     """Raise a ValueError naming the slice that brings an unported layer."""
     if sig.attn not in PORTED_ATTN:
-        raise ValueError(f"{sig.attn!r} layers (MLA and hybrid token "
-                         "mixers) land with the models slice of the port")
-    if sig.mlp != MLP_DENSE:
-        raise ValueError(f"{sig.mlp!r} MLPs land with the models slice of "
-                         "the port")
+        raise ValueError(f"{sig.attn!r} layers (MLA token mixers, "
+                         "deepseek-v3) land with the MLA/MTP models slice "
+                         "of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -127,10 +132,15 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, sig: LayerSig) -> Params:
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((hd,), device=dev)
         p["k_norm"] = torch.ones((hd,), device=dev)
+    if sig.attn == ATTN_HYBRID:
+        p["mamba"] = ssm.init_mamba(gen, cfg)
+        p["fuse_norm_attn"] = torch.ones((d,), device=dev)
+        p["fuse_norm_ssm"] = torch.ones((d,), device=dev)
     if cfg.post_norms:
         p["ln1_post"] = norm_w(d)
         p["ln2_post"] = norm_w(d)
-    p["mlp"] = init_mlp(gen, cfg)
+    p["mlp"] = (init_moe(gen, cfg) if sig.mlp == MLP_MOE
+                else init_mlp(gen, cfg))
     return p
 
 
@@ -160,6 +170,10 @@ def init_layer_cache(cfg: ArchConfig, sig: LayerSig, batch: int, max_len: int,
     n_kv = cfg.n_kv_heads
     z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     c: Params = {}
+    if sig.attn == ATTN_HYBRID:
+        e = cfg.ssm.expand * cfg.d_model
+        c["mamba"] = {"conv": z((batch, cfg.ssm.conv_kernel - 1, e)),
+                      "ssm": z((batch, e, cfg.ssm.state_dim), torch.float32)}
     if sig.window:  # sliding-window ring buffer
         w = min(sig.window, max_len)
         c["ring_k"] = z((batch, w, n_kv, kd))
@@ -188,7 +202,7 @@ def init_layer_cache(cfg: ArchConfig, sig: LayerSig, batch: int, max_len: int,
 @dataclass
 class BlockCtx:
     """Everything a block needs besides params and the hidden state."""
-    mode: str                               # prefill | decode
+    mode: str                               # train (forward) | prefill | decode
     q_pos: torch.Tensor                     # (B, Sq) absolute positions
     k_pos: Optional[torch.Tensor] = None    # (B, Sk) for prefill
     cache: Optional[Params] = None
@@ -359,7 +373,9 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
 
     if sig.attn == ATTN_RWKV:
         tp = p["tmix_cmix"]
-        st = ctx.cache["rwkv"]
+        st = ctx.cache["rwkv"] if ctx.cache else None
+        if st is None:                              # forward: no cache
+            st = ssm.rwkv6_init_state(cfg, x.shape[0], x.dtype, x.device)
         h = norm(x, p["ln1"])
         y, st_t = ssm.rwkv6_time_mix(tp, h, st, cfg, chunk=ctx.ssm_chunk,
                                      impl=ctx.attn_impl)
@@ -387,6 +403,22 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
 
     b, s = o.shape[:2]
     att_out = o.reshape(b, s, -1) @ p["o"].to(o.dtype)
+
+    if sig.attn == ATTN_HYBRID:
+        # forward has no cache: the branch starts from the zero state
+        mstate = ctx.cache["mamba"] if ctx.cache is not None else None
+        if ctx.mode == "decode":
+            m_out, m_state = ssm.mamba_step(p["mamba"], h, mstate)
+        else:
+            m_out, m_state = ssm.mamba_forward(p["mamba"], h, mstate,
+                                               chunk=ctx.ssm_chunk)
+        att_out = 0.5 * (norm(att_out, p["fuse_norm_attn"])
+                         + norm(m_out, p["fuse_norm_ssm"]))
+        if mstate is not None:
+            # in place: the serving engine's per-slot views write through
+            for key, val in m_state.items():
+                mstate[key].copy_(val)
+
     if cfg.post_norms:
         att_out = norm(att_out, p["ln1_post"])
     x = resid + att_out
@@ -394,7 +426,10 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
     # ---------------- MLP ---------------------------------------------------
     resid = x
     h = norm(x, p["ln2"])
-    mlp_out = apply_mlp(p["mlp"], h, cfg)
+    if sig.mlp == MLP_MOE:
+        mlp_out, aux = apply_moe(p["mlp"], h, cfg)
+    else:
+        mlp_out = apply_mlp(p["mlp"], h, cfg)
     if cfg.post_norms:
         mlp_out = norm(mlp_out, p["ln2_post"])
     return resid + mlp_out, new_cache, aux

@@ -1,11 +1,11 @@
-"""Shared layer primitives: norms, RoPE, dense MLPs, embeddings.
+"""Shared layer primitives: norms, RoPE, MLPs, MoE, embeddings.
 
 Port of ``repro/models/layers.py`` on torch tensors. Parameters are plain
 dicts of tensors: ``init_*`` builds them, the ``apply``-style functions
 consume them. Initialisation draws from an explicit ``torch.Generator`` on
 the generator's own device, so a full-width model is made on the card
 without passing through the host. The compute dtype is the caller's
-(parameters are cast at the call site). MoE waits for the models slice.
+(parameters are cast at the call site).
 """
 from __future__ import annotations
 
@@ -100,6 +100,91 @@ def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = x @ p["wi"].to(x.dtype)
     h = act(h) * (x @ p["wg"].to(x.dtype)) if "wg" in p else act(h)
     return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE — token-dropless top-k routing
+# ---------------------------------------------------------------------------
+def init_moe(gen: torch.Generator, cfg: ArchConfig) -> Params:
+    mo = cfg.moe
+    d, f, e = cfg.d_model, mo.d_ff_expert, mo.e_total
+    p: Params = {
+        "router": dense_init(gen, d, e),
+        "wi": normal(gen, (e, d, f), 1.0 / math.sqrt(d)),
+        "wo": normal(gen, (e, f, d), 1.0 / math.sqrt(f)),
+    }
+    if cfg.gated_mlp:
+        p["wg"] = normal(gen, (e, d, f), 1.0 / math.sqrt(d))
+    if mo.router_aux_free:
+        p["router_bias"] = torch.zeros((e,), device=gen.device)
+    if mo.n_shared:
+        p["shared"] = init_mlp(gen, cfg, d_ff=mo.n_shared * mo.d_ff_shared)
+    return p
+
+
+def _moe_route(p: Params, xf: torch.Tensor, cfg: ArchConfig):
+    """Router logits (T, E) in fp32 and the top-k experts (T, k) with their
+    combine weights, as the reference routes."""
+    mo = cfg.moe
+    logits = (xf @ p["router"].to(xf.dtype)).float()
+    if mo.n_experts_padded > mo.n_experts:
+        # padded experts exist only for even expert-parallel sharding; the
+        # router never selects them
+        dead = torch.arange(mo.e_total, device=xf.device) >= mo.n_experts
+        logits = torch.where(dead[None, :], -1e30, logits)
+    if mo.router_aux_free:
+        gates = torch.sigmoid(logits)
+        top_idx = torch.topk(gates + p["router_bias"], mo.top_k, dim=-1)[1]
+        top_gate = torch.gather(gates, -1, top_idx)
+        top_w = top_gate / (torch.sum(top_gate, -1, keepdim=True) + 1e-9)
+    else:
+        top_logits, top_idx = torch.topk(logits, mo.top_k, dim=-1)
+        top_w = torch.softmax(top_logits, dim=-1)
+    return logits, top_idx, top_w
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """Dropless top-k MoE: no capacity, no dropped token. Returns
+    (out, aux), the Switch-style load-balance loss (zero under aux-free
+    routing), as the reference's does.
+
+    Every token goes through every expert as one batched product a
+    weight, and the outputs are combined with the routing weights (zero
+    for the experts a token did not select). Nothing is read back to the
+    host, so the decode step never waits on it, and each expert's weights
+    are read once a call. The reference sorts the (token, expert) pairs
+    into per-expert groups instead; the two agree within fp32 rounding,
+    since this form sums a token's experts in expert order and the
+    reference in top-k order."""
+    mo = cfg.moe
+    act = activation_fn(cfg.activation)
+    orig_shape = x.shape
+    xf = x.reshape(-1, cfg.d_model)
+    logits, top_idx, top_w = _moe_route(p, xf, cfg)
+    t = xf.shape[0]
+    xe = xf.expand(mo.e_total, t, cfg.d_model)               # (E, T, D)
+    h = torch.bmm(xe, p["wi"].to(xf.dtype))                 # (E, T, F)
+    h = act(h) * torch.bmm(xe, p["wg"].to(xf.dtype)) if "wg" in p \
+        else act(h)
+    ys = torch.bmm(h, p["wo"].to(xf.dtype))                  # (E, T, D)
+    comb = torch.zeros((t, mo.e_total), dtype=ys.dtype, device=xf.device)
+    comb.scatter_(1, top_idx, top_w.to(ys.dtype))
+    out = torch.einsum("te,etd->td", comb, ys)
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], xf, cfg)
+
+    # Switch-style load-balance aux loss (skipped for aux-free routing).
+    if mo.router_aux_free:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        probs = torch.softmax(logits, -1)
+        flat_ids = top_idx.reshape(-1)
+        counts = torch.zeros((mo.e_total,), dtype=torch.float32,
+                             device=x.device).index_add_(
+            0, flat_ids, torch.ones_like(flat_ids, dtype=torch.float32))
+        aux = mo.n_experts * torch.sum(
+            (counts / counts.sum().clamp(min=1.0)) * probs.mean(0))
+    return out.reshape(orig_shape), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""Model assembly: init / caches / prefill / decode over the layer schedule.
+"""Model assembly: init / forward / caches / prefill / decode over the layer
+schedule.
 
-Port of ``repro/models/model.py`` without the training ``forward`` and the
-MTP head, which wait for the training slice. ``init_params`` draws every
+Port of ``repro/models/model.py`` without the MTP head, which lands with
+the MLA/MTP slice. ``forward`` walks the layers one by one, with no remat
+and no scan over stacked segments (those shape the reference's training
+graph; the port's training slice brings them). ``init_params`` draws every
 weight from one ``torch.Generator`` on its device and holds the layers
 unstacked (``params["layers_unstacked"]``, one dict per layer, as the
 reference's ``unstack_params`` gives them); trees carried over from the
@@ -32,8 +35,8 @@ def _dtype(name: str) -> torch.dtype:
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
     """Random fp32 parameters drawn from ``gen``, made on ``gen.device``."""
     if cfg.mtp_depth:
-        raise ValueError("multi-token-prediction heads land with the models "
-                         "slice of the port")
+        raise ValueError("multi-token-prediction heads (deepseek-v3) land "
+                         "with the MLA/MTP models slice of the port")
     p: Params = {"embed": init_embeddings(gen, cfg)}
     p["layers_unstacked"] = [B.init_layer(gen, cfg, sig)
                              for sig in B.layer_sigs(cfg)]
@@ -63,6 +66,32 @@ def _tree_map(fn, tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
+            plan: ExecutionPlan, positions: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S[,K]) -> (final hidden states (B,S,D), aux loss scalar):
+    every layer over the whole sequence, no cache, the MoE layers' aux
+    losses summed."""
+    dtype = _dtype(plan.compute_dtype)
+    x = embed_tokens(params["embed"], tokens, cfg, dtype)
+    bsz, seq = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(seq, dtype=torch.int32,
+                                 device=x.device).expand(bsz, seq)
+    ctx = B.BlockCtx(mode="train", q_pos=positions, k_pos=positions,
+                     attn_impl=plan.attn_impl, chunk=1024)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for _li, sig, lp in _iter_layers(cfg, params):
+        x, _, a = B.apply_block(cfg, sig, lp, x, ctx)
+        aux = aux + a
+    h = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 gemma_style=cfg.name.startswith("gemma"))
+    return h, aux
 
 
 # ---------------------------------------------------------------------------

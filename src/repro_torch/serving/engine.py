@@ -40,6 +40,17 @@ unpadded with only its last page's K/V zero-padded (the reference prefills
 the padded prompt, whose pad tokens push real positions out of a window
 ring shorter than the padded prompt).
 
+Hybrid nets (hymba) carry a Mamba state ``{"conv", "ssm"}`` in every
+layer's cache beside its paged pool or window ring. The reference cannot
+serve them (ROADMAP queue 3): its prefill slices each per-slot cache entry
+as ``v[slot:slot + 1]``, which shortens the Mamba tuple instead of taking
+the slot's rows, and its zero-copy prefill neither hands a paged layer
+the slot's Mamba state nor writes the prompt's back. Here every layer's
+single-sequence cache holds the slot's rows of its per-slot entries, as
+views that prefill updates in place; admission zeroes the slot's Mamba
+state and a fork copies it (both as for RWKV below). MoE nets need nothing
+of the engine: ``apply_moe`` reads nothing back to the host.
+
 Pure-recurrent nets (RWKV-6) serve on ``kv_backend="host"`` only, as in
 the reference (``"fused"`` raises: it needs a paged layer). Their state
 lives in per-slot model caches (``{"rwkv": {wkv, shift_t, shift_c}}``),
@@ -124,9 +135,12 @@ def _paged_layer_info(cfg: ArchConfig, sig) -> Optional[Tuple[int, int, int]]:
 
 
 def _slot_rows(cache, slot: int):
-    """The slot's rows of a per-slot layer cache (ring or recurrent, nested
-    dicts kept), as views: writes to them land in the batch cache."""
-    return {k: (_slot_rows(v, slot) if isinstance(v, dict)
+    """A layer cache for one sequence: the slot's rows of every per-slot
+    entry (ring, recurrent state; nested dicts kept), as views, so writes
+    to them land in the batch cache; the shared paged pools and block
+    table as they are."""
+    return {k: (v if k in SHARED_CACHE_KEYS
+                else _slot_rows(v, slot) if isinstance(v, dict)
                 else v[slot:slot + 1]) for k, v in cache.items()}
 
 
@@ -150,8 +164,9 @@ class ServeEngine:
                  kv_replicas: int = 2, kernel: str = "auto",
                  record_logits: bool = False, device=None):
         if cfg.n_codebooks > 1:
-            raise ValueError("multi-codebook models land with the models "
-                             "slice of the port")
+            raise ValueError("multi-codebook heads (musicgen) land with the "
+                             "MLA/MTP and multi-codebook models slice of the "
+                             "port")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -387,12 +402,14 @@ class ServeEngine:
         return admitted
 
     def _reset_recurrent(self, slot: int) -> None:
-        """Zero the slot's recurrent-state rows, so a prompt starts from the
-        initial state and not from the last occupant's (module note)."""
+        """Zero the slot's recurrent-state rows (RWKV and Mamba), so a
+        prompt starts from the initial state and not from the last
+        occupant's (module note)."""
         for c in self.caches:
-            if c is not None and "rwkv" in c:
-                for t in _per_slot_tensors(c["rwkv"]):
-                    t[slot].zero_()
+            for key in ("rwkv", "mamba"):
+                if c is not None and key in c:
+                    for t in _per_slot_tensors(c[key]):
+                        t[slot].zero_()
 
     # ---------------------------------------------- zero-copy KV data plane
     def _pump_writes(self) -> None:
@@ -483,23 +500,26 @@ class ServeEngine:
         dtype = getattr(torch, self.plan.compute_dtype)
         dev = self.device
         # single-sequence prefill with dense K/V caches for the paged layers
-        # (their content goes to the ENGINE pool, not the model's); the ring
-        # caches are the slot's rows of the batch caches, as views, so the
-        # prefill writes them in place
+        # (their content goes to the ENGINE pool, not the model's); the
+        # ring caches and recurrent states (a hybrid paged layer's Mamba
+        # state too) are the slot's rows of the batch caches, as views, so
+        # the prefill writes them in place
         caches_one = []
         for c in self.caches:
             if c is None:
                 caches_one.append(None)
-            elif "pool_k" in c:
+                continue
+            one = _slot_rows(c, g.slot)
+            if "pool_k" in c:
                 kd, vd = c["pool_k"].shape[-1], c["pool_v"].shape[-1]
                 n_kv = c["pool_k"].shape[2]
-                caches_one.append({
-                    "k": torch.zeros((1, s, n_kv, kd), dtype=dtype,
-                                     device=dev),
-                    "v": torch.zeros((1, s, n_kv, vd), dtype=dtype,
-                                     device=dev)})
-            else:
-                caches_one.append(_slot_rows(c, g.slot))
+                for key in SHARED_CACHE_KEYS:
+                    del one[key]
+                one["k"] = torch.zeros((1, s, n_kv, kd), dtype=dtype,
+                                       device=dev)
+                one["v"] = torch.zeros((1, s, n_kv, vd), dtype=dtype,
+                                       device=dev)
+            caches_one.append(one)
         tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
         _logits, caches_one = M.prefill(self.params, tok, self.cfg,
                                         self.plan, caches_one)
@@ -534,8 +554,9 @@ class ServeEngine:
     def _prefill_one_host(self, g: GenRequest) -> None:
         """Allocate the prompt's pages, then prefill straight into the
         model-owned pools through the volume's block table (the slot's ring
-        and recurrent rows are views, written in place). The prompt runs
-        unpadded; its last page's K/V is zero-padded (module note)."""
+        and recurrent rows, a paged layer's Mamba state included, are
+        views, written in place). The prompt runs unpadded; its last page's
+        K/V is zero-padded (module note)."""
         prompt = np.asarray(g.prompt)
         s = prompt.shape[0]
         if s == 0:
@@ -551,12 +572,11 @@ class ServeEngine:
         for c in self.caches:
             if c is None:
                 caches_one.append(None)
-            elif "pool_k" in c:
-                caches_one.append({"pool_k": c["pool_k"],
-                                   "pool_v": c["pool_v"],
-                                   "block_table": bt_row})
-            else:
-                caches_one.append(_slot_rows(c, g.slot))
+                continue
+            one = _slot_rows(c, g.slot)
+            if "block_table" in one:
+                one["block_table"] = bt_row
+            caches_one.append(one)
         tok = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
         M.prefill(self.params, tok, self.cfg, self.plan, caches_one)
         self.pos[g.slot] = s

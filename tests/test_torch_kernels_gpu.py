@@ -75,7 +75,18 @@ stamps and replica leaves as the same run on the CPU.
 
 The chaos harness on the card: every catalog scenario at the catalog
 geometry gives the same digest, completion ticks, events and counters as
-the same run on the CPU. Imports no JAX.
+the same run on the CPU.
+
+The hybrid and MoE families: paged and flash attention at hymba's and
+granite-moe's GQA groups (25 query heads over 5 KV heads, G=5: one full
+row group of 4 and a partial one; 24 over 8, G=3) at hd 64, flash also
+with hymba's 1024-token window on prompts past it; the Mamba branch at
+hymba's width (E 3200, N 16) on the card against the same function on the
+CPU (atol 1e-4, rtol 1e-4: the products and the scan sum in other orders
+on the card); and the MoE at granite-moe's width for a decode batch
+under ``torch.cuda.set_sync_debug_mode("error")``, against the same on
+the CPU.
+Imports no JAX.
 """
 import numpy as np
 import pytest
@@ -320,7 +331,8 @@ def _paged_case(dev, b, h, kv, d, page, p_max, e, seed, n_planes=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,kv,d,page,p_max", [
     (4, 4, 2, 8, 4, 5), (2, 4, 2, 64, 8, 6), (3, 8, 4, 128, 16, 4),
-    (2, 4, 1, 64, 8, 5), (1, 16, 16, 64, 32, 3), (8, 8, 4, 256, 32, 64)])
+    (2, 4, 1, 64, 8, 5), (1, 16, 16, 64, 32, 3), (8, 8, 4, 256, 32, 64),
+    (8, 25, 5, 64, 32, 64), (8, 24, 8, 64, 32, 64)])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (24, 50.0), (4096, 50.0)])
 def test_paged_attention_kernel_matches_plain(b, h, kv, d, page, p_max,
                                               window, cap):
@@ -483,7 +495,8 @@ def test_paged_attention_rejects_wide_heads():
 @pytest.mark.parametrize("b,sq,sk,h,kv,d", [
     (2, 256, 256, 4, 2, 64), (1, 512, 512, 8, 2, 128),
     (2, 128, 128, 4, 4, 64), (1, 384, 384, 6, 1, 64), (1, 97, 97, 4, 2, 16),
-    (1, 33, 70, 4, 2, 32), (1, 550, 550, 8, 4, 256), (1, 999, 999, 8, 4, 256)])
+    (1, 33, 70, 4, 2, 32), (1, 550, 550, 8, 4, 256), (1, 999, 999, 8, 4, 256),
+    (1, 700, 700, 25, 5, 64), (1, 600, 600, 24, 8, 64)])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (96, 50.0), (4096, 30.0)])
 def test_flash_attention_kernel_matches_plain(b, sq, sk, h, kv, d, window,
                                               cap):
@@ -505,6 +518,25 @@ def test_flash_attention_kernel_matches_plain(b, sq, sk, h, kv, d, window,
                                          logit_cap=cap)
         assert got.is_contiguous()
         torch.testing.assert_close(got, want, **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,kv", [(1300, 25, 5), (1100, 25, 5),
+                                    (1500, 24, 8)])
+def test_flash_attention_kernel_window_1024(s, h, kv):
+    """hymba's window layers: prompts past the 1024-token window (the band
+    bites), at its G=5 and at granite-moe's G=3, hd 64."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(s + h)
+    q = torch.randn((1, h, s, 64), generator=gen, device=dev)
+    k = torch.randn((1, kv, s, 64), generator=gen, device=dev)
+    v = torch.randn((1, kv, s, 64), generator=gen, device=dev)
+    got = flash_attention_fwd(q, k, v, window=1024, logit_cap=0.0)
+    want = attention_ref(q, k, v, window=1024, logit_cap=0.0)
+    torch.testing.assert_close(got, want, **TOL)
+    full = attention_ref(q, k, v, window=0, logit_cap=0.0)
+    assert not torch.allclose(got[:, :, 1024:], full[:, :, 1024:], **TOL)
     torch.cuda.synchronize()
 
 
@@ -1116,3 +1148,57 @@ def test_harness_scenario_on_the_card_matches_the_cpu(name):
                   "compute_checked", "crashes", "events_applied",
                   "events_skipped", "latency", "wait", "counters"):
         assert getattr(gpu, field) == getattr(cpu, field), field
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,chunk,b", [(300, 256, 1), (513, 256, 1),
+                                       (1, 1, 8)])
+def test_mamba_on_the_card_matches_the_cpu(s, chunk, b):
+    """The Mamba branch at hymba's width (d 1600, E 3200, N 16): a prefill
+    (300 tokens; 513, which takes a ragged last chunk) and a decode step of
+    8 slots from a carried state, on the card against the CPU."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    cfg = get_config("hymba-1.5b")
+    p = ssm.init_mamba(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(s)
+    x = torch.randn((b, s, cfg.d_model), generator=gen)
+    st = ssm.mamba_init_state(p, b, torch.float32, "cpu")
+    st = {k: torch.randn(v.shape, generator=gen) * 0.1
+          for k, v in st.items()}
+    y_c, st_c = ssm.mamba_forward(p, x, st, chunk=chunk)
+    to = (lambda t: t.to(dev))
+    y_g, st_g = ssm.mamba_forward({k: to(v) for k, v in p.items()}, to(x),
+                                  {k: to(v) for k, v in st.items()},
+                                  chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_g).all()
+    torch.testing.assert_close(y_g.cpu(), y_c, **TOL)
+    for k in st_c:
+        torch.testing.assert_close(st_g[k].cpu(), st_c[k], **TOL)
+
+
+@pytest.mark.gpu
+def test_moe_does_not_sync():
+    """granite-moe's MoE at full width (40 experts, top 8, d 1536, f 512)
+    for 8 slots runs under sync-debug "error" and agrees with the same
+    function on the CPU."""
+    dev = _cuda()
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config("granite-moe-3b-a800m")
+    p = layers.init_moe(torch.Generator(device=dev).manual_seed(0), cfg)
+    x = torch.randn((8, 1, cfg.d_model),
+                    generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out_g, aux_g = layers.apply_moe(p, x, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out_c, aux_c = layers.apply_moe({k: v.cpu() for k, v in p.items()},
+                                    x.cpu(), cfg)
+    torch.testing.assert_close(out_g.cpu(), out_c, **TOL)
+    torch.testing.assert_close(aux_g.cpu(), aux_c, **TOL)

@@ -85,11 +85,15 @@ def test_configs_equal_the_reference(name):
 
 
 def test_unported_layer_kinds_raise():
-    # (rwkv6-3b's layers are ported: tests/test_torch_ssm.py)
-    for name in ("deepseek-v3-671b", "hymba-1.5b", "granite-moe-3b-a800m"):
-        cfg = tcfgs.smoke_config(name)
-        with pytest.raises(ValueError, match="models slice"):
-            TM.init_params(torch.Generator().manual_seed(0), cfg)
+    # rwkv6-3b's layers are ported (tests/test_torch_ssm.py), and so are
+    # hymba's hybrid and granite-moe's MoE layers (tests/test_torch_hybrid.py,
+    # tests/test_torch_moe.py); deepseek-v3's MLA layers and MTP head are not
+    cfg = tcfgs.smoke_config("deepseek-v3-671b")
+    with pytest.raises(ValueError, match="MLA/MTP models slice"):
+        TM.init_params(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(ValueError, match="MLA/MTP models slice"):
+        TM.init_params(torch.Generator().manual_seed(0),
+                       dataclasses.replace(cfg, mtp_depth=0))
 
 
 # ---------------------------------------------------------------------------
