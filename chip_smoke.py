@@ -363,7 +363,10 @@ and the script exits non-zero:
    first prompt past the window) and the DBS kernels' inputs of every 8th
    write pump (7.5 KiB blocks) are held against the plain versions and
    timed as in phase 10, right after the traffic (the ``hybrid_width_*``
-   keys of their kernels entries).
+   keys of their kernels entries); the baseline's split-pool decode calls
+   of its 8th step (the first 4 paged layers) are held against the
+   split-pool entry of the paged kernel (``hybrid_split_*`` keys). Nothing
+   but 2 GB may be allocated at the phase's start.
    Printed: tokens/s, decode tokens/s, prefill, pump and decode seconds,
    the prefill seconds of the 513-token and the longest prompt, peak
    memory, and one profiled decode step's device time split into
@@ -379,6 +382,31 @@ and the script exits non-zero:
    group) in the kept paged calls, two prompts' layer-0 flash calls, 128
    KiB blocks in the DBS kernels' calls; the split names the MoE instead
    of the Mamba branch (``moe_width_*`` keys).
+21. serve_path (deepseek-v3-671b) — MLA and 256 experts at every published
+   width (d_model 7168, 128 heads, q_lora 1536, kv_lora 512, rope 64, nope
+   128, v 128, 256 routed experts of d_ff 2048 top 8 with a shared one,
+   dense d_ff 18432, vocab 129280) with the depth cut to its three dense
+   layers and its first MoE layer (MLA_LAYERS; 61 published; 63 GB of fp32
+   weights with the MTP head, 5 layers would take 106 GB). Phase 19's
+   engine, traffic and checks; the engine pool holds one latent KV head a layer (8 planes of
+   (1, 576): 18 KiB a token), so decode runs the paged kernel's wide
+   instantiation at G = 128 (32 row groups) and prefill the flash
+   kernel's at K 576 / V 512; the MoE form each call took (every expert
+   at every decode step, grouped past 146 prompt tokens) with its device
+   ms. The baseline's split-pool calls are K 576, V 512 wide
+   (``mla_split_*`` keys), the engine's pool entry's 576 and 576
+   (``mla_width_*``).
+22. mtp — on the same weights, ``forward`` then ``mtp_hidden`` over a
+   1000-token prompt on ``attn_impl="cuda"`` (flash once a layer and once
+   in the MTP block) against ``"dense"``, within atol 1e-3 and rtol 1e-3,
+   the dense run routed as the kernel run (the tokens it would route
+   otherwise are counted); seconds of each.
+23. serve_path (musicgen-large) — four codebooks at full width and depth
+   (48 layers, d_model 2048, 32 heads of 64, d_ff 8192, vocab 2048;
+   9.8 GB) with max_len cut to 1024 (AUDIO_MAX_LEN; 768 KiB of K/V a
+   token, 13 GB an engine replica) and prompts of shape (S, 4) drawn in
+   [100, 960]: the checks of phase 21 (``audio_*`` keys), the paged
+   kernel at G = 1 and the DBS kernels at 768 KiB blocks.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -503,6 +531,14 @@ HYBRID_MODEL, MOE_MODEL = "hymba-1.5b", "granite-moe-3b-a800m"
 HYBRID_LONG = (1100, 1500)       # prompt lengths past the window, [lo, hi]
 HYBRID_AT = {2: "long", 6: "513", 10: "long"}   # request index -> length
 FAMILY_KEEP_LAYERS = 4           # paged calls kept of each kept step
+# phases 21-23: deepseek-v3 (MLA, 256 experts, the MTP head) cut to its
+# three dense layers and its first MoE layer (63 GB of fp32 weights; five
+# layers would take 106 GB), and musicgen-large (four codebooks, 768 KiB of
+# K/V a token) at max_len 1024, prompts of [100, 960] tokens
+MLA_MODEL, MLA_LAYERS = "deepseek-v3-671b", 4
+AUDIO_MODEL, AUDIO_MAX_LEN, AUDIO_PROMPT = "musicgen-large", 1024, (100, 960)
+MTP_PROMPT = 1000                # tokens of the MTP check's prompt
+FAMILY_HELD_BYTES = 2 << 30      # what may stay allocated before a phase
 
 
 def emit(**kw) -> None:
@@ -841,7 +877,9 @@ def write_parity(torch, pool, writes):
         touched.update(dst[dst != dump].tolist())
     torch.cuda.synchronize()
     rows = torch.tensor(sorted(touched), dtype=torch.int64, device=pool.device)
-    err = float((pool[rows] - plain[rows]).abs().max()) if touched else 0.0
+    # 16 rows at a time: musicgen's rows are 24 MiB each
+    err = max((float((pool[r] - plain[r]).abs().max())
+               for r in rows.split(16)), default=0.0)
     if not torch.equal(pool, plain):
         raise AssertionError(f"dbs_rw_write differs from its plain version "
                              f"(max abs err {err})")
@@ -2149,8 +2187,10 @@ def _tokens_match(outs, want, margin_of, what):
 
 
 def _margin_np(np, logits) -> float:
-    """The top-2 margin of one step's recorded logits (TIE_MARGIN rule)."""
-    top = np.sort(np.asarray(logits))[-2:]
+    """The top-2 margin of one step's recorded logits (TIE_MARGIN rule);
+    codebook 0's on a multi-codebook net, whose token it is."""
+    logits = np.asarray(logits)
+    top = np.sort(logits if logits.ndim == 1 else logits[0])[-2:]
     return float(top[1] - top[0])
 
 
@@ -2160,7 +2200,8 @@ def _margin_step(torch, eng, step, margins):
     (request, token index) it decided to ``margins`` (TIE_MARGIN rule)."""
     def run(*a, **k):
         out = step(*a, **k)
-        top = torch.topk(out[0], 2, dim=-1).values      # on the card
+        logits = out[0] if out[0].dim() == 2 else out[0][:, 0]  # codebook 0
+        top = torch.topk(logits, 2, dim=-1).values      # on the card
         who = [(g.req_id, len(g.out_tokens)) if g is not None else None
                for g in map(eng.live_by_slot, range(eng.n_slots))]
         margins.append((top[:, 0] - top[:, 1], who))
@@ -3265,10 +3306,10 @@ def phase_no_sync(torch, mgr):
 # phase 9: zero-copy serving at gemma2-2b's full width
 # ---------------------------------------------------------------------------
 def _serve_engine(torch, cfg, params, dev, record_logits=False,
-                  kv_backend="fused", **kw):
+                  kv_backend="fused", max_len=2048, **kw):
     from repro_torch.configs.base import ExecutionPlan
     from repro_torch.serving.engine import ServeEngine
-    return ServeEngine(cfg, params, n_slots=8, max_len=2048, n_queues=2,
+    return ServeEngine(cfg, params, n_slots=8, max_len=max_len, n_queues=2,
                        kv_backend=kv_backend, kv_replicas=2, kernel="cuda",
                        plan=ExecutionPlan(attn_impl="cuda",
                                           compute_dtype="float32"),
@@ -3454,7 +3495,8 @@ def _serve_fields(lens, res):
 
 
 def _serve_config(cfg, eng, **extra):
-    return dict(kv_backend="fused", kv_replicas=2, n_slots=8, max_len=2048,
+    return dict(kv_backend="fused", kv_replicas=2, n_slots=8,
+                max_len=eng.max_len,
                 n_queues=2, kernel="cuda", attn_impl="cuda", dtype="float32",
                 page_blocks=cfg.page_blocks, paged_layers=len(eng._paged),
                 payload_shape=list(eng._payload_shape), **extra)
@@ -3520,7 +3562,7 @@ def phase_fork_check(torch, cfg, params, dev, eng, prompt):
     eng.run(max_steps=4 * SERVE_NEW)
     eng.record_logits = False
     ref = _serve_engine(torch, cfg, params, dev, record_logits=True,
-                        kv_backend=eng.kv_backend)
+                        kv_backend=eng.kv_backend, max_len=eng.max_len)
     for rid in (0, 1):
         ref.submit(GenRequest(req_id=rid, prompt=prompt.copy(),
                               max_new=SERVE_NEW))
@@ -3539,6 +3581,7 @@ def phase_fork_check(torch, cfg, params, dev, eng, prompt):
                          - np.stack(ref.live[1].logit_trace[4:4 + n_c])).max())
     ref.volumes.close()
     del ref
+    gc.collect()             # the manager's reference cycles hold its pools
     torch.cuda.empty_cache()
     return {"tokens_equal": True, "parent_tokens": len(par.out_tokens),
             "child_tokens": len(chi.out_tokens),
@@ -3587,7 +3630,9 @@ def phase_paged_kernel(torch, eng, kept):
         paged_attention_pool_ref(q, pool, t, ln, **k)
         for q, t, ln, k in calls], n)
     # yardstick: index_select gathers of the K and V planes, then SDPA with
-    # a boolean mask (holes, lengths; no logit cap, which SDPA cannot apply)
+    # a boolean mask (holes, lengths; no logit cap, which SDPA cannot
+    # apply), a KV head's G query heads on SDPA's query axis (GQA's
+    # expansion would copy K and V G times: 4.5 GiB at MLA's G = 128)
     lib_in = []
     for q, table, lengths, kw in calls:
         b, h, _ = q.shape
@@ -3596,8 +3641,9 @@ def phase_paged_kernel(torch, eng, kept):
         valid = (pos[None, :] < lengths[:, None]) & (
             table >= 0).repeat_interleave(page, dim=1)
         idx = table.clamp(min=0).reshape(-1).long()
-        lib_in.append((q[:, :, None, :], idx, valid[:, None, None, :], b,
-                       p_max, kw["k_plane"], kw["v_plane"]))
+        lib_in.append((q.reshape(b, kv, h // kv, d), idx,
+                       valid[:, None, None, :], b, p_max, kw["k_plane"],
+                       kw["v_plane"]))
 
     def library():
         for q4, idx, mask, b, p_max, kp, vp in lib_in:
@@ -3605,8 +3651,7 @@ def phase_paged_kernel(torch, eng, kept):
                 b, p_max * page, kv, d).transpose(1, 2)
             vv = pool[:, :, vp].index_select(0, idx).reshape(
                 b, p_max * page, kv, d).transpose(1, 2)
-            F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask,
-                                           enable_gqa=True)
+            F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask)
     lib = graph_ms(library, n)
     mean_b = sum(n_bytes) / n
     # the grid the wrapper picks: (b * kv * row groups, n_split) main
@@ -3614,7 +3659,7 @@ def phase_paged_kernel(torch, eng, kept):
     b, h, _ = calls[0][0].shape
     p_max = calls[0][1].shape[1]
     rows = b * kv * paged_row_groups(h, kv)
-    n_split = paged_splits(p_max, rows, sm_count(pool.device), h // kv)
+    n_split = paged_splits(p_max, rows, sm_count(pool.device), h // kv, d)
     info = paged_info(h // kv, d, d, True, True, p_max, n_split)
     emit(phase="kernel_parity", kernel="paged_attention", calls=n,
          pool_shape=list(pool.shape), q_shape=list(calls[0][0].shape),
@@ -3627,7 +3672,8 @@ def phase_paged_kernel(torch, eng, kept):
             "library_ms": lib,
             "library_call": "two index_select gathers (K and V planes) + "
                             "scaled_dot_product_attention with a boolean "
-                            "mask, no logit cap",
+                            "mask, a KV head's query heads on its query "
+                            "axis, no logit cap",
             "bytes_per_call": mean_b, "splits": n_split,
             "kernels_per_call": 2 if n_split > 1 else 1,
             **resources(torch, info, rows * n_split)}
@@ -3650,13 +3696,14 @@ def phase_flash_kernel(torch, kept):
         torch.testing.assert_close(got, want, **ATTN_TOL)
         err = max(err, float((got - want).abs().max()))
         b, h, sq, d = q.shape
-        sk = k.shape[2]
+        sk, dv = k.shape[2], v.shape[-1]
         qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         kp = torch.arange(sk, device=q.device)[None, :]
         vis = kp <= qp
         if kw["window"]:
             vis &= kp > qp - kw["window"]
-        f = 4.0 * d * h * b * int(vis.sum())       # QK^T and PV, 2 flops/MAC
+        # QK^T (d wide) and PV (dv wide), 2 flops a multiply-add
+        f = 2.0 * (d + dv) * h * b * int(vis.sum())
         nb = (2 * q.numel() + k.numel() + v.numel()) * 4
         flops.append(f)
         n_bytes.append(nb)
@@ -3672,11 +3719,12 @@ def phase_flash_kernel(torch, kept):
         q, k, v, is_causal=True, enable_gqa=True) for q, k, v in cont], n)
     f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
     bound = sum(bounds) / n
-    info = flash_info(calls[0][0].shape[-1])
+    info = flash_info(calls[0][0].shape[-1], calls[0][2].shape[-1])
     grid = [c[0].shape[0] * c[0].shape[1]
             * -(-c[0].shape[2] // info["rows_per_block"]) for c in calls]
     emit(phase="kernel_parity", kernel="flash_attention", calls=n,
          q_shapes=[list(c[0].shape) for c in calls],
+         v_shapes=[list(c[2].shape) for c in calls],
          windows=[c[3]["window"] for c in calls], max_abs_err=err,
          flops_per_call=f_mean, bytes_per_call=b_mean, tolerance=ATTN_TOL)
     return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
@@ -3717,8 +3765,8 @@ def phase_no_sync_serve(torch, eng):
     eng._step_fn = guarded
     try:
         rng = np.random.default_rng(SEED + 3)
-        eng.submit(GenRequest(req_id=2000, prompt=rng.integers(
-            0, eng.cfg.vocab_size, 40), max_new=2))
+        eng.submit(GenRequest(req_id=2000, prompt=_prompt(
+            rng, eng.cfg, 40), max_new=2))
         eng.run(max_steps=8)
     finally:
         eng._step_fn = inner
@@ -4407,16 +4455,23 @@ def _rwkv_entry(k, launches, counts, n_layers):
 # ---------------------------------------------------------------------------
 # phases 19-20: the hybrid and MoE families at full width
 # ---------------------------------------------------------------------------
-def _family_prompts(np, cfg, seed, hybrid):
-    """SERVE_REQUESTS prompts drawn in SERVE_PROMPT; on the hybrid model
+def _prompt(rng, cfg, n):
+    """``n`` token ids drawn from ``rng``: (n,), or (n, K) on a K-codebook
+    net (the same draws as (n,) for one codebook)."""
+    k = cfg.n_codebooks
+    return rng.integers(0, cfg.vocab_size, (n, k) if k > 1 else n)
+
+
+def _family_prompts(np, cfg, seed, hybrid, lengths=SERVE_PROMPT):
+    """SERVE_REQUESTS prompts drawn in ``lengths``; on the hybrid model
     the requests of HYBRID_AT take two lengths past the window and 513."""
     rng = np.random.default_rng(seed)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    lens = rng.integers(lengths[0], lengths[1] + 1, SERVE_REQUESTS)
     if hybrid:
         for i, kind in HYBRID_AT.items():
             lens[i] = (513 if kind == "513" else
                        rng.integers(HYBRID_LONG[0], HYBRID_LONG[1] + 1))
-    return lens, [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    return lens, [_prompt(rng, cfg, n) for n in lens]
 
 
 def _device_us(e) -> float:
@@ -4426,7 +4481,7 @@ def _device_us(e) -> float:
     return float(v if v is not None else e.cuda_time_total)
 
 
-def _decode_split(torch, eng, smi, name):
+def _decode_split(torch, eng, smi, name, lengths=SERVE_PROMPT):
     """Eight requests fill the slots; after two warm-up steps (admission
     and prefill ride the first) PROFILE_STEPS decode steps are timed, then
     one runs under ``torch.profiler`` with the attention (KV writes and
@@ -4442,9 +4497,9 @@ def _decode_split(torch, eng, smi, name):
     from repro_torch.serving.engine import GenRequest
     rng = np.random.default_rng(SEED + 8)
     for i in range(eng.n_slots):
-        n = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
-        eng.submit(GenRequest(req_id=5000 + i, prompt=rng.integers(
-            0, eng.cfg.vocab_size, n), max_new=3 + PROFILE_STEPS))
+        n = int(rng.integers(lengths[0], lengths[1] + 1))
+        eng.submit(GenRequest(req_id=5000 + i, prompt=_prompt(
+            rng, eng.cfg, n), max_new=3 + PROFILE_STEPS))
     for _ in range(2):
         eng.step()
     torch.cuda.synchronize()
@@ -4501,19 +4556,260 @@ def _decode_split(torch, eng, smi, name):
             "device_kernel_ms": total, "device_ms_by_part": split}
 
 
-def phase_serve_family(torch, dev, smi, model, seed):
-    """Zero-copy serving of one hybrid or MoE model at its published widths
-    and depth (fp32 weights from a seeded generator on the card), phase 9's
-    engine (``fused``, 2 KV replicas, 8 slots, max_len 2048, the flash
-    kernel in prefill, the paged kernel in decode, the DBS kernels in the
-    KV pumps): 16 requests (slots recycled) of 32 new tokens, run, checked
-    and their kept kernel calls held against the plain versions as in
-    phases 9-10 (``_serve_traffic``). Then: the last request (a recycled
-    slot) equals a fresh engine's; the fork check of phase 9; one decode
-    step under sync-debug "error"; a profiled decode step's split; and the
+@contextlib.contextmanager
+def _moe_record(torch, record):
+    """While open, every MoE call appends (form, tokens, start, end): its
+    form (``layers._moe_every`` or ``_moe_grouped``, the one ``moe_form``
+    picked), its token count and CUDA events around it."""
+    from repro_torch.models import layers
+    inner = {f: getattr(layers, f"_moe_{f}") for f in ("every", "grouped")}
+
+    def wrap(form):
+        def run(p, xf, *a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = inner[form](p, xf, *a, **k)
+            end.record()
+            record.append((form, int(xf.shape[0]), start, end))
+            return out
+        return run
+    for form in inner:
+        setattr(layers, f"_moe_{form}", wrap(form))
+    try:
+        yield record
+    finally:
+        for form, fn in inner.items():
+            setattr(layers, f"_moe_{form}", fn)
+
+
+def _moe_summary(torch, record, n_slots):
+    """Calls, tokens and device ms (the span between the call's events)
+    by path (a call of at most ``n_slots`` tokens is a decode step's, the
+    rest prefill's) and form."""
+    torch.cuda.synchronize()
+    out = {}
+    for form, t, start, end in record:
+        path = "decode" if t <= n_slots else "prefill"
+        e = out.setdefault(f"{path}/{form}", {"calls": 0, "tokens": 0,
+                                              "device_ms": 0.0})
+        e["calls"] += 1
+        e["tokens"] += t
+        e["device_ms"] += start.elapsed_time(end)
+    return out
+
+
+@contextlib.contextmanager
+def _keep_split_calls(torch, n_paged, kept, step=SERVE_KEEP_STEPS[0]):
+    """While open, the copy-based baseline's plain paged decode (``models.
+    attention.paged_decode_attention``, after the new token's write into
+    the model-owned split pools) keeps the inputs of the first
+    FAMILY_KEEP_LAYERS paged layers of its ``step``-th decode step, in the
+    split-pool kernel's form: (q (B,H,d), pool_k and pool_v copies, the
+    block table, lengths = position + 1, kw)."""
+    from repro_torch.models import attention as A
+    inner = A.paged_decode_attention
+    seen = [0]
+
+    def run(q, pool_k, pool_v, block_table, q_pos, *, window=0,
+            logit_cap=0.0, scale=None, **kw):
+        first = n_paged * step
+        if first <= seen[0] < first + min(n_paged, FAMILY_KEEP_LAYERS):
+            kept.append((q[:, 0].contiguous(), pool_k.clone(),
+                         pool_v.clone(),
+                         block_table.to(torch.int32).contiguous(),
+                         (q_pos[:, 0] + 1).to(torch.int32),
+                         dict(window=window, logit_cap=logit_cap,
+                              scale=scale)))
+        seen[0] += 1
+        return inner(q, pool_k, pool_v, block_table, q_pos, window=window,
+                     logit_cap=logit_cap, scale=scale, **kw)
+    A.paged_decode_attention = run
+    try:
+        yield kept
+    finally:
+        A.paged_decode_attention = inner
+
+
+def phase_paged_split_kernel(torch, kept):
+    """``paged_attention_fwd``, the split-pool entry, on the baseline decode
+    calls ``_keep_split_calls`` kept (deepseek-v3: K 576 and V 512 wide on
+    one latent KV head, 128 query heads; musicgen: 32 heads of 64) against
+    its plain version within ATTN_TOL, timed as in phase 10 beside the
+    bound (live K and V rows, q and the output over 3.35 TB/s) and two
+    ``index_select`` gathers with SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (paged_attention_fwd,
+                                                     paged_attention_ref)
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_info, paged_row_groups, paged_splits, sm_count)
+    from repro_torch.kernels.timing import graph_ms
+    if not kept:
+        raise AssertionError("no baseline decode call was kept")
+    err, n_bytes, lib_in = 0.0, [], []
+    for q, pk, pv, table, lengths, kw in kept:
+        got = paged_attention_fwd(q, pk, pv, table, lengths, **kw)
+        want = paged_attention_ref(q, pk, pv, table, lengths, **kw)
+        torch.testing.assert_close(got, want, **ATTN_TOL)
+        err = max(err, float((got - want).abs().max()))
+        b, h, d = q.shape
+        _e, page, kv, dv = pv.shape
+        live = _paged_live_pages(torch, table, lengths, page, kw["window"])
+        n_bytes.append(live * page * kv * (d + dv) * 4
+                       + b * h * (d + dv) * 4
+                       + (table.numel() + lengths.numel()) * 4)
+        p_max = table.shape[1]
+        pos = torch.arange(p_max * page, device=q.device)
+        valid = (pos[None, :] < lengths[:, None]) & (
+            table >= 0).repeat_interleave(page, dim=1)
+        lib_in.append((q.reshape(b, pk.shape[2], -1, d), table.clamp(
+            min=0).reshape(-1).long(), valid[:, None, None, :], pk, pv, b,
+            p_max))
+    n = len(kept)
+    ms = graph_ms(lambda: [paged_attention_fwd(*c[:5], **c[5])
+                           for c in kept], n)
+    plain = graph_ms(lambda: [paged_attention_ref(*c[:5], **c[5])
+                              for c in kept], n)
+
+    def library():
+        for q4, idx, mask, pk, pv, b, p_max in lib_in:
+            kk = pk.index_select(0, idx).reshape(
+                b, p_max * pk.shape[1], pk.shape[2], -1).transpose(1, 2)
+            vv = pv.index_select(0, idx).reshape(
+                b, p_max * pv.shape[1], pv.shape[2], -1).transpose(1, 2)
+            F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask)
+    lib = graph_ms(library, n)
+    q, pk, pv, table = kept[0][:4]
+    b, h, d = q.shape
+    kv, dv, p_max = pk.shape[2], pv.shape[3], table.shape[1]
+    rows = b * kv * paged_row_groups(h, kv)
+    n_split = paged_splits(p_max, rows, sm_count(q.device), h // kv,
+                           max(d, dv))
+    info = paged_info(h // kv, d, dv, True, True, p_max, n_split)
+    mean_b = sum(n_bytes) / n
+    emit(phase="kernel_parity", kernel="paged_attention",
+         entry="split pools (copy-based baseline)", calls=n,
+         q_shape=list(q.shape), pool_k_shape=list(pk.shape),
+         pool_v_shape=list(pv.shape), max_abs_err=err,
+         bytes_per_call=mean_b, splits=n_split, tolerance=ATTN_TOL)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib, "bytes_per_call": mean_b, "splits": n_split,
+            "calls": n, "resources": resources(torch, info, rows * n_split)}
+
+
+@contextlib.contextmanager
+def _route_replay(torch, routes, replay):
+    """While open, every MoE router call records its top-k experts in
+    ``routes`` (``replay`` False) or takes them from ``routes`` in call
+    order (``replay`` True), recomputing their combine weights from its own
+    logits, as ``layers._moe_route`` does."""
+    from repro_torch.models import layers
+    inner = layers._moe_route
+    calls = [0]
+
+    def run(p, xf, cfg):
+        logits, top_idx, top_w = inner(p, xf, cfg)
+        if not replay:
+            routes.append(top_idx)
+            return logits, top_idx, top_w
+        mine, top_idx = top_idx, routes[calls[0]]
+        calls[0] += 1
+        routes.append(int((mine != top_idx).any(dim=-1).sum()))
+        if cfg.moe.router_aux_free:
+            top_gate = torch.gather(torch.sigmoid(logits), -1, top_idx)
+            top_w = top_gate / (top_gate.sum(-1, keepdim=True) + 1e-9)
+        else:
+            top_w = torch.softmax(torch.gather(logits, -1, top_idx), -1)
+        return logits, top_idx, top_w
+    layers._moe_route = run
+    try:
+        yield routes
+    finally:
+        layers._moe_route = inner
+
+
+def phase_mtp(torch, cfg, params, dev, smi):
+    """deepseek-v3's MTP head on the serving phase's weights: ``forward``
+    over one MTP_PROMPT-token prompt, then ``mtp_hidden``, on
+    ``attn_impl="cuda"`` (the flash kernel, once a layer and once in the
+    MTP block) and on ``"dense"`` (the plain attention; no kernel), each
+    timed between synchronisations. Both results must be finite, of shape
+    (1, S, D) and (1, S - 1, D), and agree within HOST_TOL. The dense run
+    takes the kernel run's top-8 experts at every token (its own combine
+    weights): a 256-way router may pick another expert on a difference of
+    1e-6 in its logits, which is not the attention's error; the tokens the
+    dense run would route otherwise are counted. Returns the flash
+    launches."""
+    import numpy as np
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import forward, mtp_hidden
+    tok = torch.as_tensor(np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (1, MTP_PROMPT)), device=dev)
+    out, secs, launches, plain, routes = {}, {}, {}, {}, []
+    for impl in ("cuda", "dense"):
+        plan = ExecutionPlan(attn_impl=impl, compute_dtype="float32")
+        fk.reset_counts()
+        with _route_replay(torch, routes, replay=impl == "dense"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h, _ = forward(params, tok, cfg, plan)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = mtp_hidden(params, h, tok, cfg, plan)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        out[impl] = (h, m)
+        secs[impl] = {"forward": t1 - t0, "mtp_hidden": t2 - t1}
+        launches[impl] = fk.LAUNCHES["flash_attention"]
+        plain[impl] = fk.PLAIN_CALLS["flash_attention"]
+    flips = [r for r in routes if isinstance(r, int)]
+    (h, m), (hd, md) = out["cuda"], out["dense"]
+    if h.shape != (1, MTP_PROMPT, cfg.d_model) or m.shape != (
+            1, MTP_PROMPT - 1, cfg.d_model):
+        raise AssertionError(f"mtp: shapes {h.shape}, {m.shape}")
+    if not (torch.isfinite(h).all() and torch.isfinite(m).all()):
+        raise AssertionError("mtp: non-finite hidden states")
+    if launches != {"cuda": cfg.n_layers + 1, "dense": 0} or any(
+            plain.values()):
+        raise AssertionError(f"mtp: flash launches {launches}, plain "
+                             f"{plain}: not one a layer and one in the "
+                             f"MTP block on the cuda route")
+    torch.testing.assert_close(h, hd, **HOST_TOL)
+    torch.testing.assert_close(m, md, **HOST_TOL)
+    emit(phase="mtp", model=cfg.name, n_layers=cfg.n_layers,
+         prompt_tokens=MTP_PROMPT, seconds=secs, flash_launches=launches,
+         tolerance=HOST_TOL,
+         max_abs_diff_hidden=float((h - hd).abs().max()),
+         max_abs_diff_mtp=float((m - md).abs().max()),
+         moe_layers_replayed=len(flips),
+         tokens_routed_otherwise_by_dense=flips, card=smi)
+    return launches["cuda"]
+
+
+def phase_serve_family(torch, dev, smi, model, seed, n_layers=None,
+                       max_len=2048, lengths=SERVE_PROMPT, mtp=False):
+    """Zero-copy serving of one model at its published widths (fp32 weights
+    from a seeded generator on the card; its depth cut to ``n_layers``
+    where given), phase 9's engine (``fused``, 2 KV replicas, 8 slots,
+    ``max_len``, the flash kernel in prefill, the paged kernel in decode,
+    the DBS kernels in the KV pumps): 16 requests (slots recycled) with
+    prompts drawn in ``lengths``, of 32 new tokens, run, checked and their
+    kept kernel calls held against the plain versions as in phases 9-10
+    (``_serve_traffic``). Then: the last request (a recycled slot) equals a
+    fresh engine's; the fork check of phase 9; one decode step under
+    sync-debug "error"; a profiled decode step's split; and the
     copy-based baseline on the same prompts gives the same tokens
-    (TIE_MARGIN rule, with the zero-copy run's top-2 margins). Returns the
-    traffic's launches and the kernel-parity results."""
+    (TIE_MARGIN rule, with the zero-copy run's top-2 margins), whose
+    split-pool decode calls of one step are kept and held against the
+    split-pool entry (``<tag>_split`` keys). Nothing but FAMILY_HELD_BYTES
+    may be allocated at the start. On an MoE model the form each MoE call
+    took is recorded with its device ms; with ``mtp``, ``phase_mtp`` runs
+    on the same weights. Returns the traffic's launches and the
+    kernel-parity results."""
+    import dataclasses
+
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core import dbs
@@ -4524,16 +4820,26 @@ def phase_serve_family(torch, dev, smi, model, seed):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import GenRequest
     cfg = get_config(model)
+    reduced = {}
+    if n_layers is not None:
+        reduced["n_layers"] = [cfg.n_layers, n_layers]
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if max_len != 2048:
+        reduced["max_len"] = [2048, max_len]
     hybrid = cfg.ssm is not None
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    if held >= FAMILY_HELD_BYTES:
+        raise AssertionError(f"{model}: {held} bytes still allocated before "
+                             f"the phase: an earlier engine or model lives")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = M.param_count_actual(params)
-    lens, prompts = _family_prompts(np, cfg, seed, hybrid)
-    eng = _serve_engine(torch, cfg, params, dev)
+    lens, prompts = _family_prompts(np, cfg, seed, hybrid, lengths)
+    eng = _serve_engine(torch, cfg, params, dev, max_len=max_len)
 
     def keep_flash(kept, q, kw):
         # hymba: the first prompt past the window, one global and one
@@ -4544,8 +4850,14 @@ def phase_serve_family(torch, dev, smi, model, seed):
             (hybrid and sq > cfg.sliding_window
              and all(s == sq and w != kw["window"] for s, w in seen))
             or (not hybrid and all(s != sq for s, _ in seen)))
-    res = _serve_traffic(torch, eng, prompts, keep_flash,
-                         keep_layers=FAMILY_KEEP_LAYERS)
+    moe_calls = []
+    with (_moe_record(torch, moe_calls) if cfg.moe is not None
+          else contextlib.nullcontext()):
+        res = _serve_traffic(torch, eng, prompts, keep_flash,
+                             keep_layers=FAMILY_KEEP_LAYERS)
+    moe_forms = (_moe_summary(torch, moe_calls, eng.n_slots)
+                 if cfg.moe is not None else None)
+    del moe_calls
     fused_tokens = {rid: list(toks) for rid, toks in res["outs"].items()}
     config = _serve_config(
         cfg, eng, n_layers=cfg.n_layers, d_model=cfg.d_model,
@@ -4558,14 +4870,20 @@ def phase_serve_family(torch, dev, smi, model, seed):
             conv_kernel=cfg.ssm.conv_kernel),
         moe=None if cfg.moe is None else dict(
             n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
-            d_ff_expert=cfg.moe.d_ff_expert))
+            d_ff_expert=cfg.moe.d_ff_expert, n_shared=cfg.moe.n_shared,
+            dense_layers=cfg.n_dense_layers),
+        mla=None if cfg.mla is None else dataclasses.asdict(cfg.mla),
+        mtp_depth=cfg.mtp_depth, codebooks=cfg.n_codebooks,
+        prompt_lengths_drawn_in=list(lengths), reduced=reduced)
 
     # the last request ran in a recycled slot: a fresh engine, same prompt
     rid = SERVE_REQUESTS - 1
-    fresh = _serve_engine(torch, cfg, params, dev, record_logits=True)
+    fresh = _serve_engine(torch, cfg, params, dev, record_logits=True,
+                          max_len=max_len)
     alone = _serve_one(torch, fresh, rid, prompts[rid])
     fresh.volumes.close()
     del fresh
+    gc.collect()             # musicgen's engine holds 26 GB of pools
     torch.cuda.empty_cache()
     recycle_ties = _tokens_match(
         {rid: fused_tokens[rid]}, {rid: alone.out_tokens},
@@ -4573,7 +4891,7 @@ def phase_serve_family(torch, dev, smi, model, seed):
          enumerate(alone.logit_trace)}, f"{model}: the recycled slot")
     fork = phase_fork_check(torch, cfg, params, dev, eng, prompts[0])
     phase_no_sync_serve(torch, eng)
-    split = _decode_split(torch, eng, smi, model)
+    split = _decode_split(torch, eng, smi, model, lengths)
     longest = int(np.argmax(lens))
     eng.volumes.close()
     del eng
@@ -4581,14 +4899,18 @@ def phase_serve_family(torch, dev, smi, model, seed):
     torch.cuda.empty_cache()
 
     # the copy-based baseline on the same prompts
-    host = _serve_engine(torch, cfg, params, dev, kv_backend="host")
+    host = _serve_engine(torch, cfg, params, dev, kv_backend="host",
+                         max_len=max_len)
     for mod in (pk, fk, copy_kernel):
         mod.reset_counts()
+    kept_split = []
+    n_paged = sum(c is not None and "pool_k" in c for c in host.caches)
     t0 = time.perf_counter()
-    for r, pr in enumerate(prompts):
-        host.submit(GenRequest(req_id=r, prompt=pr, max_new=SERVE_NEW))
-    host_outs = host.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
-    torch.cuda.synchronize()
+    with _keep_split_calls(torch, n_paged, kept_split):
+        for r, pr in enumerate(prompts):
+            host.submit(GenRequest(req_id=r, prompt=pr, max_new=SERVE_NEW))
+        host_outs = host.run(max_steps=10 * SERVE_NEW * SERVE_REQUESTS)
+        torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     host_launches = {**copy_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
     host_plain = {**copy_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
@@ -4602,6 +4924,11 @@ def phase_serve_family(torch, dev, smi, model, seed):
             host_plain.values()) or host_launches["flash_attention"] <= 0:
         raise AssertionError(f"{model} baseline: {host_st}, launches "
                              f"{host_launches}, plain {host_plain}")
+    split_k = phase_paged_split_kernel(torch, kept_split)
+    del kept_split
+    torch.cuda.empty_cache()
+    mtp_launches = (phase_mtp(torch, cfg, params, dev, smi) if mtp
+                    else None)
     gen_tokens = SERVE_REQUESTS * SERVE_NEW
     prefill_s = res["prefill_s"]
     emit(phase="serve_path", model=model, config=config, params=n_params,
@@ -4614,14 +4941,16 @@ def phase_serve_family(torch, dev, smi, model, seed):
              "paged_attention": config["paged_layers"],
              "all kernels (profiled step)": split["kernels_a_step"]},
          recycled_slot_near_ties=recycle_ties, fork=fork,
-         no_sync_decode_step=True, decode_split=split,
+         no_sync_decode_step=True, decode_split=split, moe_forms=moe_forms,
          host_baseline=dict(run_seconds=host_s,
                             tokens_per_s=gen_tokens / host_s,
                             tokens_equal_zero_copy=host_ties == 0,
                             near_ties=host_ties, launches=host_launches),
-         card=smi)
+         max_memory_allocated_phase=torch.cuda.max_memory_allocated(dev),
+         memory_allocated_before=held, card=smi)
     del params
-    return {"launches": res["launches"], **res["parity"]}
+    return {"launches": res["launches"], "split": split_k,
+            "mtp_flash_launches": mtp_launches, **res["parity"]}
 
 
 def main() -> int:
@@ -4920,14 +5249,24 @@ def main() -> int:
     del eng, params, kept
     free()
 
-    # the hybrid and MoE families at full width, the previous model freed
-    for tag, model, seed in (("hybrid", HYBRID_MODEL, SEED + 6),
-                             ("moe", MOE_MODEL, SEED + 7)):
-        fam = phase_serve_family(torch, dev, smi, model, seed)
+    # the hybrid and MoE families at full width; then MLA with the MTP
+    # head (deepseek-v3, its depth cut) and the multi-codebook heads
+    # (musicgen-large, max_len cut); each with the previous model freed
+    for tag, model, seed, kw in (
+            ("hybrid", HYBRID_MODEL, SEED + 6, {}),
+            ("moe", MOE_MODEL, SEED + 7, {}),
+            ("mla", MLA_MODEL, SEED + 9, dict(n_layers=MLA_LAYERS,
+                                              mtp=True)),
+            ("audio", AUDIO_MODEL, SEED + 10, dict(max_len=AUDIO_MAX_LEN,
+                                                   lengths=AUDIO_PROMPT))):
+        fam = phase_serve_family(torch, dev, smi, model, seed, **kw)
         free()
         for k in (write_k, read_k, paged_k, flash_k):
             k[f"launches_{tag}_serve_path"] = fam["launches"][k["name"]]
             k.update(_width_keys(tag, fam[k["name"]]))
+        paged_k.update(_width_keys(f"{tag}_split", fam["split"]))
+        if fam["mtp_flash_launches"] is not None:
+            flash_k["launches_mtp_path"] = fam["mtp_flash_launches"]
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

@@ -69,13 +69,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "paged_attention_info": [_ci] * 7 + [_vp],
     },
     "flash_attention": {
-        # q, k, v, out; b, h, kv, sq, sk, d; q/k/v/o strides (batch, head,
-        # seq; elements, 64-bit); causal, window; scale, logit_cap; stream
-        "flash_attention": [_vp] * 4 + [_ci] * 6 + [ctypes.c_int64] * 12
+        # q, k, v, out; b, h, kv, sq, sk, d, dv; q/k/v/o strides (batch,
+        # head, seq; elements, 64-bit); causal, window; scale, logit_cap;
+        # stream
+        "flash_attention": [_vp] * 4 + [_ci] * 7 + [ctypes.c_int64] * 12
         + [_ci, _ci, _cf, _cf, _vp],
-        # d; int[6] out (registers, static and dynamic shared memory,
+        # d, dv; int[6] out (registers, static and dynamic shared memory,
         # blocks per SM, threads, query rows per block)
-        "flash_attention_info": [_ci, _vp],
+        "flash_attention_info": [_ci, _ci, _vp],
     },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;

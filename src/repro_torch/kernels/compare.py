@@ -1,17 +1,19 @@
-"""Time this checkout's DBS, paged-attention and RWKV-6 kernels against
-other builds of the same C entries, on one card, in turns (needs the
-card).
+"""Time this checkout's DBS, paged-attention, flash-attention and RWKV-6
+kernels against other builds of the same C entries, on one card, in turns
+(needs the card).
 
     PYTHONPATH=src python -m repro_torch.kernels.compare \\
         [--against NAME=DIR ...]
 
 ``DIR`` is the root of another checkout (the parent commit unpacked with
 ``git archive``, say): its ``dbs_rw.cu``, ``dbs_copy.cu``,
-``paged_attention.cu`` and ``rwkv6_scan.cu`` are built beside this
-checkout's under ``build/torch_kernels/compare/NAME/``. Each build is
-called through the C entries it exports: a paged-attention build without
-``paged_attention_info`` has the entry without the partials scratch and
-the split count (one block per sequence and KV head). Every build is timed
+``paged_attention.cu``, ``flash_attention.cu`` and ``rwkv6_scan.cu`` are
+built beside this checkout's under ``build/torch_kernels/compare/NAME/``.
+Each build is called through the C entries it exports: a paged-attention
+build without ``paged_attention_info`` has the entry without the partials
+scratch and the split count (one block per sequence and KV head); a
+flash-attention source whose entry takes no ``dv`` (before V had a width
+of its own) is called without it. Every build is timed
 on the same inputs, made from a seed on the card at the main paths'
 shapes:
 
@@ -31,6 +33,13 @@ shapes:
   (1033, 32, 26, 4, 256) pool, 64-page block tables, lengths drawn in
   100-1032 (prompts of 100-1000 tokens and up to 32 new ones), logit cap
   50, no window;
+- ``flash_serving``: gemma2-2b's prefill of an 854-token prompt, a local
+  (window 4096) and a global layer: 8 heads over 4 KV heads of 256, logit
+  cap 50, the model layout's strides;
+- ``flash_hybrid``: hymba-1.5b's 1369-token prompt, a global layer and a
+  1024-token window layer: 25 heads over 5 KV heads of 64;
+- ``flash_moe``: granite-moe's prompts of 951 and 663 tokens: 24 heads
+  over 8 KV heads of 64;
 - ``rwkv6_decode``: one rwkv6-3b decode step's 32 layers: B 8, S 1,
   H 40, hd 64, a carried state each;
 - ``rwkv6_prefill``: 4 prompts of 497 tokens (B 1, H 40, hd 64, the
@@ -64,12 +73,17 @@ from repro_torch.kernels.paged_attention.kernel import (paged_row_groups,
 from repro_torch.kernels.timing import graph_ms, queued_ms
 
 ROOT = _build.KERNELS.parents[2]
-NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "rwkv6_scan")
+NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "flash_attention",
+         "rwkv6_scan")
 TURNS = 2                 # rounds of A B ... B A
 _vp, _ci, _cf, _i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int64)
 # the paged entry before the split (no partials, no n_split)
 PAGED_UNSPLIT = [_vp] * 6 + [_ci] * 8 + [_i64] * 4 + [_ci, _cf, _cf, _vp]
+# the flash entry before V had a width of its own (no dv)
+FLASH_ONE_WIDTH = [_vp] * 4 + [_ci] * 6 + [_i64] * 12 + [_ci, _ci, _cf, _cf,
+                                                         _vp]
+FLASH_DV = "int b, int h, int kv, int sq, int sk, int d, int dv,"
 
 
 def build(tag: str, root: Path) -> Dict[str, ctypes.CDLL]:
@@ -83,6 +97,10 @@ def build(tag: str, root: Path) -> Dict[str, ctypes.CDLL]:
     paged = libs["paged_attention"]
     if not hasattr(paged, "paged_attention_info"):
         paged.paged_attention.argtypes = PAGED_UNSPLIT
+    flash_src = root / _build.SOURCES["flash_attention"].relative_to(ROOT)
+    libs["flash_dv"] = FLASH_DV in flash_src.read_text()
+    if not libs["flash_dv"]:
+        libs["flash_attention"].flash_attention.argtypes = FLASH_ONE_WIDTH
     return libs
 
 
@@ -131,6 +149,17 @@ def inputs(dev, seed: int = 0):
         q = torch.randn((8, 8, 256), generator=gen, device=dev)
         paged.append((q, table, lengths, 2 * layer, 2 * layer + 1))
 
+    def flash(s, h, kv, d, windows, cap=0.0):
+        """Model-layout (B, S, heads, hd) q, k, v and output views, one
+        call per window."""
+        out = []
+        for w in windows:
+            x = torch.randn((1, s, h + 2 * kv, d), generator=gen, device=dev)
+            q, k, v = (t.transpose(1, 2) for t in x.split([h, kv, kv], 2))
+            o = torch.empty((1, s, h, d), device=dev).transpose(1, 2)
+            out.append((q, k, v, o, w, cap))
+        return out
+
     def rwkv(b, s, n_calls, with_state):
         out = []
         for _ in range(n_calls):
@@ -153,6 +182,10 @@ def inputs(dev, seed: int = 0):
             "copy_live": (pool_b, copies(18, 64, 2049, 1)),
             "copy_serving": (pool_c, copies(26, 8, 1032, 1)),
             "paged_serving": (pool_s.view(1033, 32, 26, 4, 256), paged),
+            "flash_serving": (None, flash(854, 8, 4, 256, (4096, 0), 50.0)),
+            "flash_hybrid": (None, flash(1369, 25, 5, 64, (0, 1024))),
+            "flash_moe": (None, flash(951, 24, 8, 64, (0,))
+                          + flash(663, 24, 8, 64, (0,))),
             "rwkv6_decode": (None, rwkv(8, 1, 32, True)),
             "rwkv6_prefill": (None, rwkv(1, 497, 4, False))}
 
@@ -163,6 +196,7 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
     pa = libs["paged_attention"].paged_attention
     split = hasattr(libs["paged_attention"], "paged_attention_info")
     scan = libs["rwkv6_scan"].rwkv6_scan
+    fa = libs["flash_attention"].flash_attention
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def read(name):
@@ -229,7 +263,24 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
                     *strides, st), name)
         return run
 
-    make = {"read": read, "copy": copy, "paged": paged, "rwkv6": rwkv}
+    def flash(name):
+        _, calls = cases[name]
+
+        def run():
+            st = stream()
+            for q, k, v, o, window, cap in calls:
+                b, h, sq, d = q.shape
+                kv, sk = k.shape[1], k.shape[2]
+                dims = [b, h, kv, sq, sk, d] + ([d] if libs["flash_dv"]
+                                                else [])
+                strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
+                _build.raise_on(fa(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    *dims, *strides, 1, window, d ** -0.5, cap, st), name)
+        return run
+
+    make = {"read": read, "copy": copy, "paged": paged, "flash": flash,
+            "rwkv6": rwkv}
     return {n: make[n.split("_")[0]](n) for n in cases}
 
 

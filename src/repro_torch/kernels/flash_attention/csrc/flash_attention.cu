@@ -4,8 +4,9 @@
 // kernels/flash_attention/kernel.py).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention/kernel.py::
-// flash_attention_fwd (body _kernel). q (B, H, Sq, hd), k and v
-// (B, KV, Sk, hd) -> out (B, H, Sq, hd); query head hh reads KV head
+// flash_attention_fwd (body _kernel). q (B, H, Sq, hd), k (B, KV, Sk, hd)
+// and v (B, KV, Sk, hd_v) -> out (B, H, Sq, hd_v); query head hh reads KV
+// head
 // hh / (H / KV). Positions are suffix-aligned: query row i sits at
 // i + Sk - Sq. Key j is visible to query position p when j <= p (causal)
 // and j > p - window (window > 0). Logits are q.k * scale, then tanh-capped,
@@ -17,13 +18,19 @@
 // The TPU wrapper halves its block until it divides the sequence, down to
 // one row for an odd length. Here the tiles are fixed and the ragged last
 // query and key tiles are masked instead: the same function for any length.
+// The TPU kernel takes one head width; this one gives V a width of its own,
+// so MLA's absorbed latent (deepseek-v3: K 576 = latent 512 + rope 64, V
+// the latent's 512) runs without padding V to 576 on the way in (12% more
+// V bytes and a padded copy of V every layer) and slicing the output back.
 //
 // Bound on an H100 SXM. At the serving path's prefill (B 1, Sq = Sk = 100
 // to 1000, H 8, KV 4, hd 256) the causal work is about 4 * hd * H * Sq^2 / 2
 // flops against (2 Sq H + 2 Sk KV) * hd * 4 bytes, hundreds of flops per
-// byte, so operations bound it. Both products run on the tensor cores in
-// 3xTF32 (below): three TF32 products per fp32 multiply-add at 495 TFLOP/s,
-// i.e. the fp32 work over 165 TFLOP/s (67 TFLOP/s outside the tensor cores).
+// byte, so operations bound it; at MLA's (H 128 on one KV head, hd 576,
+// hd_v 512) 2 (hd + hd_v) H Sq^2 / 2 flops, far more so. Both products
+// run on the tensor cores in 3xTF32 (below): three TF32 products per fp32
+// multiply-add at 495 TFLOP/s, i.e. the fp32 work over 165 TFLOP/s (67
+// TFLOP/s outside the tensor cores).
 //
 // Precision. One TF32 product keeps 10 mantissa bits of each operand: at
 // the serving width its error (about 1e-3) misses the port's fp32 tolerance
@@ -59,9 +66,21 @@
 //   chunks, reading V's rows in the same permutation.
 // - Shared memory: Q (32 rows), two stages each of K and V (32 rows), rows
 //   padded from d to d8 = roundup(d, 8) with zeros (the k-padding of the
-//   products) and strided d8 + 4 floats, which makes every fragment load
-//   free of bank conflicts; the S partials (16 KiB), P fragments (8 KiB),
-//   row maxima and sums. 188 KiB at hd 256: one block of 8 warps per SM.
+//   products) and strided d8 + 4 floats (V's: dv8 + 4), which makes every
+//   fragment load free of bank conflicts; the S partials (16 KiB), P
+//   fragments (8 KiB), row maxima and sums. 188 KiB at hd 256: one block
+//   of 8 warps per SM.
+// - Two instantiations (Shape): the narrow one above, for d = dv up to
+//   256 (its code as before V had a width), and a wide one for any other
+//   d up to 576 with dv up to 512, whose tiles at the narrow layout would
+//   take 371 KiB. The wide one keeps the tiles
+//   (32 query rows, 32-key tiles, the same warps, softmax and fragment
+//   permutation) but stages no Q: each warp reads its 18 chunks of Q
+//   fragments from device memory once and keeps them unsplit (72
+//   registers), splitting them each tile; K and V have one stage each
+//   (the next tile loads after this one is done, behind two barriers);
+//   and P.V runs in batches of four output chunks. 162 KiB at 576 / 512,
+//   one block an SM.
 // - Staging: cp.async, 16-byte .cg where the tensor's base and strides are
 //   16-byte aligned and d % 4 == 0, 4-byte .ca otherwise (decided here per
 //   tensor); rows past the end are zero-filled. K/V tile j + 1 loads while
@@ -91,11 +110,29 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kGroups = kWarps / 2;           // column groups per row group
 constexpr int kNT = kBK / 8;                  // 8-key tiles of S
-constexpr int kMaxD = 256;
-constexpr int kChunks = kMaxD / 8 / kGroups;  // 8-wide chunks per warp (8)
+constexpr int kMaxD = 256;                    // the narrow instantiation
+constexpr int kMaxDWide = 576;                // the wide one: dk
+constexpr int kMaxDvWide = 512;               // and dv
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxDevices = 64;
 static_assert(kNT == kGroups, "warp grp owns the softmax of key step grp");
+
+// The two instantiations' shapes. Narrow (dk = dv <= 256): Q staged once
+// and its fragments split once into registers, K/V double-buffered, every
+// P.V chunk's B fragments loaded before its products. Wide (any other dk
+// <= 576 with dv <= 512; MLA's absorbed latent): Q's fragments kept
+// unsplit in registers (read straight from device memory once) and split
+// each tile, K and V single-buffered, P.V in batches of kCB chunks: a
+// block's registers and its 166 KiB of shared memory fit one block an SM.
+template <bool kWide>
+struct Shape {
+  static constexpr int kChunks = (kWide ? kMaxDWide : kMaxD) / 8 / kGroups;
+  static constexpr int kChunksV = (kWide ? kMaxDvWide : kMaxD) / 8 / kGroups;
+  static constexpr int kStages = kWide ? 1 : 2;
+  static constexpr int kQRows = kWide ? 0 : kBQ;   // Q rows staged
+  static constexpr int kCB = kWide ? 4 : kChunksV;  // P.V chunks a batch
+  static_assert(kChunksV % kCB == 0, "P.V batches");
+};
 
 // x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, to nearest, ties
 // away: what cvt.rna.tf32.f32 gives, in two integer operations where sm_90
@@ -136,13 +173,29 @@ __device__ __forceinline__ void cp_wait_all() {
 }
 
 // Rows [r0, r0 + kRows) of an (n_rows, d) matrix (row stride rs elements)
-// into shared rows of stride ss; rows >= n_rows are zero-filled. A thread
-// copies one column slot (16 or 4 bytes) of every step-th row.
-template <int kRows>
+// into shared rows of stride ss; rows >= n_rows are zero-filled. Narrow: a
+// thread copies one column slot (16 or 4 bytes) of every step-th row (at
+// most kThreads slots a row). Wide: the block walks the tile's slots in
+// order, kThreads at a time (a 576-wide row has 144 or 576 slots).
+template <int kRows, bool kWide>
 __device__ __forceinline__ void stage(float* dst, int ss, const float* base,
                                       int64_t rs, int r0, int n_rows, int d,
                                       bool vec) {
-  const int per = vec ? d >> 2 : d;     // copies per row, at most kThreads
+  const int per = vec ? d >> 2 : d;     // copies per row
+  if constexpr (kWide) {
+    const int sh = vec ? 2 : 0;
+    for (int i = threadIdx.x; i < kRows * per; i += kThreads) {
+      const int r = i / per;
+      const int c = (i - r * per) << sh;
+      const bool in = r0 + r < n_rows;
+      const float* src = in ? base + (int64_t)(r0 + r) * rs + c : base;
+      if (vec)
+        cp16(dst + r * ss + c, src, in);
+      else
+        cp4(dst + r * ss + c, src, in);
+    }
+    return;
+  }
   const int step = kThreads / per;      // rows per pass
   const int first = threadIdx.x / per;
   if (first >= step) return;            // left over by a pass
@@ -157,22 +210,32 @@ __device__ __forceinline__ void stage(float* dst, int ss, const float* base,
   }
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int h,
-             int kv, int sq, int sk, int d, int64_t qsb, int64_t qsh,
+             int kv, int sq, int sk, int d, int dv_in, int64_t qsb, int64_t qsh,
              int64_t qss, int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
              int64_t vsh, int64_t vss, int64_t osb, int64_t osh, int64_t oss,
              int causal, int window, float scale, float cap, int vec_q,
              int vec_k, int vec_v) {
+  using S = Shape<kWide>;
+  constexpr int kChunks = S::kChunks;
+  constexpr int kChunksV = S::kChunksV;
+  constexpr int kCB = S::kCB;
   extern __shared__ __align__(16) float smem[];
   const int d8 = (d + 7) & ~7;          // head dimension padded to 8
   const int ss = d8 + 4;                // shared row stride (ss / 4 odd)
   const int nk = d8 >> 3;               // 8-wide chunks of the head dim
-  float* qs = smem;                     // (BQ, ss)
-  float* ks = qs + kBQ * ss;            // 2 x (BK, ss)
-  float* vs = ks + 2 * kBK * ss;        // 2 x (BK, ss)
-  float4* part = (float4*)(vs + 2 * kBK * ss);  // (2, kGroups, kNT, 32)
+  const int dv = kWide ? dv_in : d;     // narrow: V as wide as K
+  const int dv8 = (dv + 7) & ~7;        // the same for V
+  const int ssv = dv8 + 4;
+  const int nkv = dv8 >> 3;
+  float* qs = smem;                     // (kQRows, ss)
+  float* ks = qs + S::kQRows * ss;      // kStages x (BK, ss)
+  float* vs = ks + S::kStages * kBK * ss;   // kStages x (BK, ssv)
+  // (2, kGroups, kNT, 32)
+  float4* part = (float4*)(vs + S::kStages * kBK * ssv);
   uint4* p_hi = (uint4*)(part + 2 * kGroups * kNT * 32);  // (2, kNT, 32)
   uint4* p_lo = p_hi + 2 * kNT * 32;                       // (2, kNT, 32)
   float* row_max = (float*)(p_lo + 2 * kNT * 32);          // (2, kGroups, 16)
@@ -194,13 +257,22 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (int64_t)b * ksb + (int64_t)kh * ksh;
   const float* vb = v + (int64_t)b * vsb + (int64_t)kh * vsh;
 
-  // the padding columns [d, d8) of every staged row: zero, once (cp.async
-  // never writes them)
+  // the padding columns [d, d8) of every staged Q and K row (narrow: and
+  // V row) and [dv, dv8) of every V row: zero, once (cp.async never
+  // writes them)
   if (d8 > d) {
     const int pad = d8 - d;
-    for (int i = tid; i < (kBQ + 4 * kBK) * pad; i += kThreads) {
+    const int rows = S::kQRows + S::kStages * kBK * (kWide ? 1 : 2);
+    for (int i = tid; i < rows * pad; i += kThreads) {
       const int r = i / pad;
       smem[r * ss + d + (i - r * pad)] = 0.f;
+    }
+  }
+  if (kWide && dv8 > dv) {
+    const int pad = dv8 - dv;
+    for (int i = tid; i < S::kStages * kBK * pad; i += kThreads) {
+      const int r = i / pad;
+      vs[r * ssv + dv + (i - r * pad)] = 0.f;
     }
   }
 
@@ -211,34 +283,46 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int n_tiles =
       k_end > t_first * kBK ? (k_end - t_first * kBK + kBK - 1) / kBK : 0;
 
-  stage<kBQ>(qs, ss, qb, qss, q0, sq, d, vec_q);
+  if constexpr (!kWide) stage<kBQ, kWide>(qs, ss, qb, qss, q0, sq, d, vec_q);
   if (n_tiles > 0) {
-    stage<kBK>(ks, ss, kb, kss, t_first * kBK, sk, d, vec_k);
-    stage<kBK>(vs, ss, vb, vss, t_first * kBK, sk, d, vec_v);
+    stage<kBK, kWide>(ks, ss, kb, kss, t_first * kBK, sk, d, vec_k);
+    stage<kBK, kWide>(vs, ssv, vb, vss, t_first * kBK, sk, dv, vec_v);
   }
   cp_commit();
   cp_wait_all();
   __syncthreads();
 
-  // this warp's Q fragments (rows rg * 16 + g and + 8), split once
-  uint32_t qh[kChunks][4], ql[kChunks][4];
+  // this warp's Q fragments (rows rg * 16 + g and + 8): split once
+  // (narrow), or kept as they are and split each tile (wide)
+  uint32_t qh[kWide ? 1 : kChunks][4], ql[kWide ? 1 : kChunks][4];
+  float qf[kWide ? kChunks : 1][4];
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int kk = grp + kGroups * c;
+    if constexpr (kWide) {
+      const int ra = q0 + rg * 16 + g, col = kk * 8 + t;
+      const float* qr = qb + (int64_t)ra * qss + col;
+      const bool a = kk < nk && ra < sq, bb = kk < nk && ra + 8 < sq;
+      qf[c][0] = a && col < d ? qr[0] : 0.f;
+      qf[c][1] = bb && col < d ? qr[8 * qss] : 0.f;
+      qf[c][2] = a && col + 4 < d ? qr[4] : 0.f;
+      qf[c][3] = bb && col + 4 < d ? qr[8 * qss + 4] : 0.f;
+    } else {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) qh[c][i] = ql[c][i] = 0u;
-    if (kk < nk) {
-      const float* qr = qs + (rg * 16 + g) * ss + kk * 8 + t;
-      split(qr[0], qh[c][0], ql[c][0]);
-      split(qr[8 * ss], qh[c][1], ql[c][1]);
-      split(qr[4], qh[c][2], ql[c][2]);
-      split(qr[8 * ss + 4], qh[c][3], ql[c][3]);
+      for (int i = 0; i < 4; ++i) qh[c][i] = ql[c][i] = 0u;
+      if (kk < nk) {
+        const float* qr = qs + (rg * 16 + g) * ss + kk * 8 + t;
+        split(qr[0], qh[c][0], ql[c][0]);
+        split(qr[8 * ss], qh[c][1], ql[c][1]);
+        split(qr[4], qh[c][2], ql[c][2]);
+        split(qr[8 * ss + 4], qh[c][3], ql[c][3]);
+      }
     }
   }
 
-  float acc[kChunks][4];
+  float acc[kChunksV][4];
 #pragma unroll
-  for (int c = 0; c < kChunks; ++c)
+  for (int c = 0; c < kChunksV; ++c)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
   float m[2] = {kNegInf, kNegInf};
@@ -247,19 +331,29 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int pos[2] = {row0 + off, row0 + 8 + off};
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int cur = j & 1;
-    if (j > 0) {
-      cp_wait_all();                    // tile j has landed (this thread's)
-      __syncthreads();                  // ... everyone's; tile j - 1 is done
-    }
-    if (j + 1 < n_tiles) {              // tile j + 1 loads while j computes
-      const int k1 = (t_first + j + 1) * kBK;
-      stage<kBK>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);
-      stage<kBK>(vs + (cur ^ 1) * kBK * ss, ss, vb, vss, k1, sk, d, vec_v);
+    const int cur = S::kStages == 2 ? j & 1 : 0;
+    if constexpr (S::kStages == 2) {
+      if (j > 0) {
+        cp_wait_all();                  // tile j has landed (this thread's)
+        __syncthreads();                // ... everyone's; tile j - 1 is done
+      }
+      if (j + 1 < n_tiles) {            // tile j + 1 loads while j computes
+        const int k1 = (t_first + j + 1) * kBK;
+        stage<kBK, kWide>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);
+        stage<kBK, kWide>(vs + (cur ^ 1) * kBK * ssv, ssv, vb, vss, k1, sk, dv, vec_v);
+        cp_commit();
+      }
+    } else if (j > 0) {                 // one buffer: tile j - 1 is done
+      __syncthreads();
+      const int k1 = (t_first + j) * kBK;
+      stage<kBK, kWide>(ks, ss, kb, kss, k1, sk, d, vec_k);
+      stage<kBK, kWide>(vs, ssv, vb, vss, k1, sk, dv, vec_v);
       cp_commit();
+      cp_wait_all();
+      __syncthreads();
     }
     const float* kt = ks + cur * kBK * ss;
-    const float* vt = vs + cur * kBK * ss;
+    const float* vt = vs + cur * kBK * ssv;
     const int k0 = (t_first + j) * kBK;
 
     // partial S over this warp's chunks of the head dimension, in 3xTF32:
@@ -274,6 +368,16 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kChunks; ++c) {
       const int kk = grp + kGroups * c;
       if (kk < nk) {
+        uint32_t qhc[4], qlc[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (kWide) {
+            split(qf[c][i], qhc[i], qlc[i]);
+          } else {
+            qhc[i] = qh[c][i];
+            qlc[i] = ql[c][i];
+          }
+        }
         uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
@@ -282,11 +386,11 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
           split(kr[4], bh[n][1], bl[n][1]);
         }
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) mma(s_lo[n], ql[c], bh[n]);
+        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qlc, bh[n]);
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) mma(s[n], qh[c], bh[n]);
+        for (int n = 0; n < kNT; ++n) mma(s[n], qhc, bh[n]);
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qh[c], bl[n]);
+        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qhc, bl[n]);
       }
     }
 #pragma unroll
@@ -385,7 +489,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[r] = l[r] * corr[r] + tot;
     }
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c) {
+    for (int c = 0; c < kChunksV; ++c) {
       acc[c][0] *= corr[0];
       acc[c][1] *= corr[0];
       acc[c][2] *= corr[1];
@@ -393,33 +497,36 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // O += P.V over the tile's keys, 8 at a time, V's rows read in P's key
-    // permutation; 3xTF32, small products first, each kChunks issues from
-    // the previous product into the same accumulator
+    // permutation; 3xTF32, small products first, each kCB issues from the
+    // previous product into the same accumulator
 #pragma unroll
     for (int n = 0; n < kNT; ++n) {
       const uint4 hi = p_hi[(rg * kNT + n) * 32 + lane];
       const uint4 lo = p_lo[(rg * kNT + n) * 32 + lane];
       const uint32_t ah[4] = {hi.x, hi.y, hi.z, hi.w};
       const uint32_t al[4] = {lo.x, lo.y, lo.z, lo.w};
-      const float* vr = vt + (n * 8 + 2 * t) * ss + g;
-      uint32_t bh[kChunks][2], bl[kChunks][2];
+      const float* vr = vt + (n * 8 + 2 * t) * ssv + g;
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
-        const int kk = grp + kGroups * c;
-        if (kk < nk) {
-          split(vr[kk * 8], bh[c][0], bl[c][0]);
-          split(vr[ss + kk * 8], bh[c][1], bl[c][1]);
+      for (int cb = 0; cb < kChunksV; cb += kCB) {
+        uint32_t bh[kCB][2], bl[kCB][2];
+#pragma unroll
+        for (int c = 0; c < kCB; ++c) {
+          const int kk = grp + kGroups * (cb + c);
+          if (kk < nkv) {
+            split(vr[kk * 8], bh[c][0], bl[c][0]);
+            split(vr[ssv + kk * 8], bh[c][1], bl[c][1]);
+          }
         }
+#pragma unroll
+        for (int c = 0; c < kCB; ++c)
+          if (grp + kGroups * (cb + c) < nkv) mma(acc[cb + c], al, bh[c]);
+#pragma unroll
+        for (int c = 0; c < kCB; ++c)
+          if (grp + kGroups * (cb + c) < nkv) mma(acc[cb + c], ah, bl[c]);
+#pragma unroll
+        for (int c = 0; c < kCB; ++c)
+          if (grp + kGroups * (cb + c) < nkv) mma(acc[cb + c], ah, bh[c]);
       }
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        if (grp + kGroups * c < nk) mma(acc[c], al, bh[c]);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        if (grp + kGroups * c < nk) mma(acc[c], ah, bl[c]);
-#pragma unroll
-      for (int c = 0; c < kChunks; ++c)
-        if (grp + kGroups * c < nk) mma(acc[c], ah, bh[c]);
     }
   }
 
@@ -431,10 +538,10 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     (int64_t)row * oss;
       const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c) {
+      for (int c = 0; c < kChunksV; ++c) {
         const int col = (grp + kGroups * c) * 8 + 2 * t;
-        if (col < d) orow[col] = acc[c][2 * r] / den;
-        if (col + 1 < d) orow[col + 1] = acc[c][2 * r + 1] / den;
+        if (col < dv) orow[col] = acc[c][2 * r] / den;
+        if (col + 1 < dv) orow[col + 1] = acc[c][2 * r + 1] / den;
       }
     }
   }
@@ -448,28 +555,54 @@ bool rows_aligned16(const void* p, int n0, int64_t s0, int n1, int64_t s1,
          (n1 == 1 || s1 % 4 == 0) && (n2 == 1 || s2 % 4 == 0);
 }
 
-size_t smem_bytes(int d) {
+template <bool kWide>
+size_t smem_bytes(int d, int dv) {
+  using S = Shape<kWide>;
   const int ss = ((d + 7) & ~7) + 4;
-  return sizeof(float) * (size_t)(kBQ + 4 * kBK) * ss +
+  const int ssv = ((dv + 7) & ~7) + 4;
+  return sizeof(float) * (size_t)(S::kQRows + S::kStages * kBK) * ss +
+         sizeof(float) * (size_t)S::kStages * kBK * ssv +
          sizeof(float4) * 2 * kGroups * kNT * 32 +   // S partials
          sizeof(uint4) * 2 * 2 * kNT * 32 +          // P fragments, hi, lo
          sizeof(float) * 2 * 2 * kGroups * 16;       // row maxima and sums
 }
 
-// Raise the kernel's dynamic shared-memory limit only when a larger size is
-// first asked for on the current device (the attribute is kept per
-// device), so launches captured in a CUDA graph make no such call.
-size_t configured[kMaxDevices] = {};
+// the narrow instantiation takes V as wide as K, up to 256
+int is_wide(int d, int dv) { return d > kMaxD || dv > kMaxD || d != dv; }
 
-cudaError_t configure(size_t smem) {
+bool dims_ok(int d, int dv) {
+  return d > 0 && dv > 0 &&
+         (is_wide(d, dv) ? d <= kMaxDWide && dv <= kMaxDvWide : true);
+}
+
+size_t smem_of(int d, int dv) {
+  return is_wide(d, dv) ? smem_bytes<true>(d, dv) : smem_bytes<false>(d, dv);
+}
+
+using Kernel = void (*)(const float*, const float*, const float*, float*, int,
+                        int, int, int, int, int, int64_t, int64_t, int64_t,
+                        int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+                        int64_t, int64_t, int64_t, int, int, float, float,
+                        int, int, int);
+
+Kernel pick(int wide) {
+  return wide ? flash_kernel<true> : flash_kernel<false>;
+}
+
+// Raise a kernel's dynamic shared-memory limit only when a larger size is
+// first asked for on the current device (the attribute is kept per device
+// and per kernel), so launches captured in a CUDA graph make no such call.
+size_t configured[kMaxDevices][2] = {};
+
+cudaError_t configure(int wide, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= configured[dev]) return cudaSuccess;
+  if (smem <= configured[dev][wide]) return cudaSuccess;
   err = cudaFuncSetAttribute(
-      flash_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured[dev] = smem;
+      pick(wide), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) configured[dev][wide] = smem;
   return err;
 }
 
@@ -477,47 +610,52 @@ cudaError_t configure(size_t smem) {
 
 extern "C" {
 
-// q (b, h, sq, d), k and v (b, kv, sk, d), out (b, h, sq, d), all f32 with
-// the last dimension contiguous and the other three strided (elements).
+// q (b, h, sq, d), k (b, kv, sk, d), v (b, kv, sk, dv), out (b, h, sq,
+// dv), all f32 with the last dimension contiguous and the other three
+// strided (elements). d = dv <= 256 (narrow), or d <= 576 and dv <= 512
+// (wide).
 int flash_attention(const void* q, const void* k, const void* v, void* out,
-                    int b, int h, int kv, int sq, int sk, int d, int64_t qsb,
-                    int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
-                    int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                    int64_t osb, int64_t osh, int64_t oss, int causal,
-                    int window, float scale, float cap, void* stream) {
-  if (d <= 0 || d > kMaxD || kv <= 0 || h % kv != 0)
+                    int b, int h, int kv, int sq, int sk, int d, int dv,
+                    int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
+                    int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
+                    int64_t vss, int64_t osb, int64_t osh, int64_t oss,
+                    int causal, int window, float scale, float cap,
+                    void* stream) {
+  if (!dims_ok(d, dv) || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
   const int n_qt = (sq + kBQ - 1) / kBQ;
   if (n_qt > 65535 || (int64_t)b * h > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  const cudaError_t err = configure(smem);
+  const int wide = is_wide(d, dv);
+  const size_t smem = smem_of(d, dv);
+  const cudaError_t err = configure(wide, smem);
   if (err != cudaSuccess) return (int)err;
   const int vq = rows_aligned16(q, b, qsb, h, qsh, sq, qss, d);
   const int vk = rows_aligned16(k, b, ksb, kv, ksh, sk, kss, d);
-  const int vv = rows_aligned16(v, b, vsb, kv, vsh, sk, vss, d);
+  const int vv = rows_aligned16(v, b, vsb, kv, vsh, sk, vss, dv);
   dim3 grid((unsigned)(b * h), (unsigned)n_qt);
-  flash_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  pick(wide)<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, h, kv,
-      sq, sk, d, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
-      causal, window, scale, cap, vq, vk, vv);
+      sq, sk, d, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
+      oss, causal, window, scale, cap, vq, vk, vv);
   return (int)cudaGetLastError();
 }
 
-// The kernel's resources at head dim d: info[0] registers per thread,
+// The kernel's resources at head dims d, dv: info[0] registers per thread,
 // [1] static and [2] dynamic shared memory per block (bytes), [3] blocks
 // resident per SM, [4] threads per block, [5] query rows per block.
-int flash_attention_info(int d, int* info) {
-  if (d <= 0 || d > kMaxD) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(d);
-  cudaError_t err = configure(smem);
+int flash_attention_info(int d, int dv, int* info) {
+  if (!dims_ok(d, dv)) return (int)cudaErrorInvalidValue;
+  const int wide = is_wide(d, dv);
+  const size_t smem = smem_of(d, dv);
+  cudaError_t err = configure(wide, smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, flash_kernel);
+  err = cudaFuncGetAttributes(&a, pick(wide));
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_kernel,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick(wide),
                                                       kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = a.numRegs;

@@ -34,15 +34,15 @@ from repro_torch.kernels.timing import graph_ms
 
 SOURCE = _build.SOURCES["flash_attention"]
 OUT_DIR = _build.BUILD_DIR / "phase_costs"
-QK = ["        for (int n = 0; n < kNT; ++n) mma(s_lo[n], ql[c], bh[n]);",
-      "        for (int n = 0; n < kNT; ++n) mma(s[n], qh[c], bh[n]);",
-      "        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qh[c], bl[n]);"]
-PV = ["        if (grp + kGroups * c < nk) mma(acc[c], al, bh[c]);",
-      "        if (grp + kGroups * c < nk) mma(acc[c], ah, bl[c]);",
-      "        if (grp + kGroups * c < nk) mma(acc[c], ah, bh[c]);"]
+QK = ["        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qlc, bh[n]);",
+      "        for (int n = 0; n < kNT; ++n) mma(s[n], qhc, bh[n]);",
+      "        for (int n = 0; n < kNT; ++n) mma(s_lo[n], qhc, bl[n]);"]
+PV = ["          if (grp + kGroups * (cb + c) < nkv) mma(acc[cb + c], al, bh[c]);",
+      "          if (grp + kGroups * (cb + c) < nkv) mma(acc[cb + c], ah, bl[c]);",
+      "          if (grp + kGroups * (cb + c) < nkv) mma(acc[cb + c], ah, bh[c]);"]
 KV_STAGING = [
-    "      stage<kBK>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);",
-    "      stage<kBK>(vs + (cur ^ 1) * kBK * ss, ss, vb, vss, k1, sk, d, vec_v);"]
+    "        stage<kBK, kWide>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);",
+    "        stage<kBK, kWide>(vs + (cur ^ 1) * kBK * ssv, ssv, vb, vss, k1, sk, dv, vec_v);"]
 SEQ_LENS = (550, 854)       # the median prompt and the kept serving calls'
 
 
@@ -106,7 +106,7 @@ def main() -> int:
             def run(lib=lib):
                 err = lib.flash_attention(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    1, h, kv, s, s, d, *q.stride()[:3], *k.stride()[:3],
+                    1, h, kv, s, s, d, d, *q.stride()[:3], *k.stride()[:3],
                     *v.stride()[:3], *out.stride()[:3], 1, 0, d ** -0.5, cap,
                     torch.cuda.current_stream().cuda_stream)
                 _build.raise_on(err, "flash_attention")

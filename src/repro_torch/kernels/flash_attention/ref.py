@@ -15,8 +15,8 @@ NEG_INF = -1e30
 
 def attention_ref(q, k, v, *, causal=True, window: int = 0,
                   logit_cap: float = 0.0, scale=None):
-    """q: (B,H,Sq,hd); k,v: (B,KV,Sk,hd). Queries at positions
-    Sk-Sq..Sk-1 (suffix alignment). Returns (B,H,Sq,hd) fp32."""
+    """q: (B,H,Sq,hd); k: (B,KV,Sk,hd); v: (B,KV,Sk,hd_v). Queries at
+    positions Sk-Sq..Sk-1 (suffix alignment). Returns (B,H,Sq,hd_v) fp32."""
     b, h, sq, d = q.shape
     kv = k.shape[1]
     g = h // kv
@@ -36,4 +36,4 @@ def attention_ref(q, k, v, *, causal=True, window: int = 0,
     logits = torch.where(mask, logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bksd->bkgqd", w, v.float())
-    return out.reshape(b, h, sq, d)
+    return out.reshape(b, h, sq, v.shape[-1])

@@ -78,6 +78,17 @@
 //   and wait (griddepcontrol.wait) until it has finished.
 // - Shared memory: 2 stages x kTile positions x (hd + hd_v) floats (64 KiB
 //   at hd 256), kBlocksPerSm = 3 blocks an SM.
+// - Two instantiations of each (copy width, rows) kernel, by a lane's
+//   floats of a row in registers (LF): 8 up to hd 256, today's code and
+//   tiles; 20 up to 576 (five float4 slots, the fifth half used; or 18
+//   4-byte ones), for MLA's absorbed latent (deepseek-v3: K 576 = latent
+//   512 + rope 64, V 512 on the split pools and 576 on the engine pool's
+//   planes, G = 128 query heads on one KV head, so 32 row groups of 4).
+//   The wide one stages 160 KiB (one block an SM) and keeps 2 x 4 rows x
+//   20 floats of q and accumulator a lane (launch bounds for one block an
+//   SM, 255 registers). Each of the 32 row groups of a sequence re-reads
+//   its latent pages: 32x the bytes of the bound, right and slow; packing
+//   the G rows of one KV head into one block is a speed PR's work.
 // - What holds it back (kernel phase_costs.py, variants that drop one part,
 //   at the serving inputs): not the bytes. Dropping every K/V load saves
 //   about a third of the call, the tile math about a quarter, the merge
@@ -102,9 +113,10 @@ constexpr int kTile = 16;                 // positions staged per step
 constexpr int kPer = kTile / kWarps;      // positions of a warp per tile
 constexpr int kMaxG = 4;                  // query rows per block
 constexpr int kMaxD = 256;                // hd and hd_v: 8 floats a lane
-constexpr int kLaneF = kMaxD / 32;
+constexpr int kMaxDWide = 576;            // the wide instantiation's
 constexpr int kStages = 2;
 constexpr int kBlocksPerSm = 3;           // the wrapper's paged_splits too
+constexpr int kBlocksPerSmWide = 1;       // 160 KiB of stages at 576
 constexpr int kMergeThreads = 256;
 constexpr int kMergeSmem = 48 * 1024;     // the merge's coefficients
 constexpr float kNegInf = -1e30f;
@@ -154,11 +166,18 @@ __host__ __device__ constexpr int lane_floats(int n, int w) {
   return ((n + 32 * w - 1) / (32 * w)) * w;
 }
 
+// a lane's floats of a row in registers: 8 up to hd 256 (today's code),
+// 20 up to 576 (MLA's latent: five float4 slots, or 18 4-byte ones)
+constexpr int kLaneNarrow = kMaxD / 32;
+constexpr int kLaneWide = lane_floats(kMaxDWide, 4);
+
 // WK, WV: floats a K / V copy (4 or 1); G: query rows a block (1, 2 or 4;
 // rows of a smaller group are zero and never written), so the logits'
-// reductions and the softmax have no per-row branches and interleave
-template <int WK, int WV, int G>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+// reductions and the softmax have no per-row branches and interleave;
+// LF: a lane's floats of a row (kLaneNarrow or kLaneWide)
+template <int WK, int WV, int G, int LF>
+__global__ void __launch_bounds__(
+    kThreads, LF == kLaneNarrow ? kBlocksPerSm : kBlocksPerSmWide)
 paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const int* __restrict__ table,
              const int* __restrict__ lengths, float* __restrict__ out,
@@ -169,7 +188,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ __align__(16) float smem[];
   // let the merge kernel's blocks be scheduled; they wait for this grid
   asm volatile("griddepcontrol.launch_dependents;");
-  constexpr int NK = kLaneF / WK, NV = kLaneF / WV;   // slots a lane
+  constexpr int NK = LF / WK, NV = LF / WV;           // slots a lane
   const int fk = lane_floats(d, WK), fv = lane_floats(dv, WV);
   const int per_pos = (fk + fv) * 32;                 // floats a position
   int* list = (int*)(smem + kStages * kWarps * kPer * per_pos);
@@ -202,7 +221,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hi = first + (int)((int64_t)(split + 1) * n / n_split);
 
   // the query rows' slots, loaded while the table arrives
-  float qr[G][kLaneF];
+  float qr[G][LF];
   const float* qb = q + ((int64_t)bi * h + (int64_t)kh * g + r0) * d;
 #pragma unroll
   for (int r = 0; r < G; ++r)
@@ -302,13 +321,13 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_commit();
   };
 
-  float m[G], l[G], acc[G][kLaneF];
+  float m[G], l[G], acc[G][LF];
 #pragma unroll
   for (int r = 0; r < G; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kLaneF; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < LF; ++e) acc[r][e] = 0.f;
   }
 
   if (n_tiles > 0) issue(0);
@@ -332,7 +351,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int pos = base + t;
       ok[i] = t < te && pos < length && (window <= 0 || pos > lim);
       const float* ks = st + i * per_pos;
-      float kk[kLaneF];
+      float kk[LF];
 #pragma unroll
       for (int s = 0; s < NK; ++s) {
         const int col = (s * 32 + lane) * WK;
@@ -355,7 +374,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int r = 0; r < G; ++r) {
         float dot = 0.f;
 #pragma unroll
-        for (int e = 0; e < kLaneF; ++e) dot += qr[r][e] * kk[e];
+        for (int e = 0; e < LF; ++e) dot += qr[r][e] * kk[e];
         x[i][r] = dot;
       }
     }
@@ -389,13 +408,13 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[r] = m_new;
       l[r] = l[r] * corr + sum;
 #pragma unroll
-      for (int e = 0; e < kLaneF; ++e) acc[r][e] *= corr;
+      for (int e = 0; e < LF; ++e) acc[r][e] *= corr;
     }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       if (!ok[i]) continue;               // the same in every lane
       const float* vs = st + i * per_pos + fk * 32;
-      float vv[kLaneF];
+      float vv[LF];
 #pragma unroll
       for (int s = 0; s < NV; ++s) {
         const int col = (s * 32 + lane) * WV;
@@ -417,7 +436,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < G; ++r)
 #pragma unroll
-        for (int e = 0; e < kLaneF; ++e) acc[r][e] += p[i][r] * vv[e];
+        for (int e = 0; e < LF; ++e) acc[r][e] += p[i][r] * vv[e];
     }
   }
 
@@ -531,20 +550,27 @@ int rows_g(int g) {
   return gb <= 1 ? 1 : gb <= 2 ? 2 : 4;
 }
 
-template <int G>
+template <int G, int LF>
 Kernel pick_g(int vec_k, int vec_v) {
   if (vec_k)
-    return vec_v ? paged_kernel<4, 4, G> : paged_kernel<4, 1, G>;
-  return vec_v ? paged_kernel<1, 4, G> : paged_kernel<1, 1, G>;
+    return vec_v ? paged_kernel<4, 4, G, LF> : paged_kernel<4, 1, G, LF>;
+  return vec_v ? paged_kernel<1, 4, G, LF> : paged_kernel<1, 1, G, LF>;
 }
 
-Kernel pick(int vec_k, int vec_v, int gr) {
-  return gr == 1 ? pick_g<1>(vec_k, vec_v)
-       : gr == 2 ? pick_g<2>(vec_k, vec_v) : pick_g<4>(vec_k, vec_v);
+template <int LF>
+Kernel pick_lf(int vec_k, int vec_v, int gr) {
+  return gr == 1 ? pick_g<1, LF>(vec_k, vec_v)
+       : gr == 2 ? pick_g<2, LF>(vec_k, vec_v) : pick_g<4, LF>(vec_k, vec_v);
 }
 
-int slot(int vec_k, int vec_v, int gr) {
-  return (gr == 1 ? 0 : gr == 2 ? 4 : 8) + vec_k * 2 + vec_v;
+// the wide instantiation where either head dim passes 256
+Kernel pick(int vec_k, int vec_v, int gr, int wide) {
+  return wide ? pick_lf<kLaneWide>(vec_k, vec_v, gr)
+              : pick_lf<kLaneNarrow>(vec_k, vec_v, gr);
+}
+
+int slot(int vec_k, int vec_v, int gr, int wide) {
+  return wide * 12 + (gr == 1 ? 0 : gr == 2 ? 4 : 8) + vec_k * 2 + vec_v;
 }
 
 size_t smem_bytes(int d, int dv, int vec_k, int vec_v, int p_max,
@@ -562,16 +588,16 @@ size_t smem_bytes(int d, int dv, int vec_k, int vec_v, int p_max,
 // Raise a kernel's dynamic shared-memory limit only when a larger size is
 // first asked for on the current device (the attribute is kept per device
 // and per kernel), so launches captured in a CUDA graph make no such call.
-size_t configured[kMaxDevices][12] = {};
+size_t configured[kMaxDevices][24] = {};
 
-cudaError_t configure(int vec_k, int vec_v, int gr, size_t smem) {
+cudaError_t configure(int vec_k, int vec_v, int gr, int wide, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t& have = configured[dev][slot(vec_k, vec_v, gr)];
+  size_t& have = configured[dev][slot(vec_k, vec_v, gr, wide)];
   if (smem <= have) return cudaSuccess;
-  err = cudaFuncSetAttribute(pick(vec_k, vec_v, gr),
+  err = cudaFuncSetAttribute(pick(vec_k, vec_v, gr, wide),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess) have = smem;
@@ -579,6 +605,12 @@ cudaError_t configure(int vec_k, int vec_v, int gr, size_t smem) {
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+bool dims_ok(int d, int dv) {
+  return d > 0 && d <= kMaxDWide && dv > 0 && dv <= kMaxDWide;
+}
+
+int is_wide(int d, int dv) { return d > kMaxD || dv > kMaxD; }
 
 }  // namespace
 
@@ -595,8 +627,8 @@ int paged_attention(const void* q, const void* k, const void* v,
                     int p_max, int page, int n_rows, int64_t k_row,
                     int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
                     float scale, float cap, int n_split, void* stream) {
-  if (kv <= 0 || h % kv != 0 || d <= 0 || d > kMaxD || dv <= 0 ||
-      dv > kMaxD || page <= 0 || p_max < 0 || n_split < 1 ||
+  if (kv <= 0 || h % kv != 0 || !dims_ok(d, dv) || page <= 0 ||
+      p_max < 0 || n_split < 1 ||
       n_split > (p_max > 1 ? p_max : 1) || n_split > 65535 ||
       (n_split > 1 && partials == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -614,11 +646,12 @@ int paged_attention(const void* q, const void* k, const void* v,
                     v_tok % 4 == 0;
   const size_t smem = smem_bytes(d, dv, vec_k, vec_v, p_max, n_split);
   const int gr = rows_g(g);
-  cudaError_t err = configure(vec_k, vec_v, gr, smem);
+  const int wide = is_wide(d, dv);
+  cudaError_t err = configure(vec_k, vec_v, gr, wide, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((unsigned)rows, n_split);
-  pick(vec_k, vec_v, gr)<<<grid, kThreads, smem, st>>>(
+  pick(vec_k, vec_v, gr, wide)<<<grid, kThreads, smem, st>>>(
       (const float*)q, (const float*)k, (const float*)v, (const int*)table,
       (const int*)lengths, (float*)out, (float*)partials, h, kv, d, dv,
       p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window, scale, cap,
@@ -648,23 +681,23 @@ int paged_attention(const void* q, const void* k, const void* v,
 // tile, [7] query rows a block.
 int paged_attention_info(int g, int d, int dv, int vec_k, int vec_v,
                          int p_max, int n_split, int* info) {
-  if (g <= 0 || d <= 0 || d > kMaxD || dv <= 0 || dv > kMaxD ||
-      n_split < 1)
+  if (g <= 0 || !dims_ok(d, dv) || n_split < 1)
     return (int)cudaErrorInvalidValue;
   vec_k = vec_k != 0;
   vec_v = vec_v != 0;
   const int gr = rows_g(g);
+  const int wide = is_wide(d, dv);
   const size_t smem = smem_bytes(d, dv, vec_k, vec_v, p_max, n_split);
-  cudaError_t err = configure(vec_k, vec_v, gr, smem);
+  cudaError_t err = configure(vec_k, vec_v, gr, wide, smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a, am;
-  err = cudaFuncGetAttributes(&a, pick(vec_k, vec_v, gr));
+  err = cudaFuncGetAttributes(&a, pick(vec_k, vec_v, gr, wide));
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncGetAttributes(&am, merge_kernel);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, pick(vec_k, vec_v, gr), kThreads, smem);
+      &per_sm, pick(vec_k, vec_v, gr, wide), kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = a.numRegs;
   info[1] = (int)a.sharedSizeBytes;

@@ -40,9 +40,11 @@ from repro_torch.kernels.paged_attention.ref import (paged_attention_pool_ref,
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"paged_attention": 0}
 F32, I32 = torch.float32, torch.int32
-MAX_HEAD_DIM = 256                   # 8 floats of hd a lane (csrc kMaxD)
+NARROW_HEAD_DIM = 256                # 8 floats of hd a lane (csrc kMaxD)
+MAX_HEAD_DIM = 576                   # the wide instantiation (kMaxDWide)
 MAX_ROWS = 4                         # query rows a block (csrc kMaxG)
 BLOCKS_PER_SM = 3                    # resident blocks an SM (csrc)
+BLOCKS_PER_SM_WIDE = 1               # at a head dim past 256 (csrc)
 MAX_SPLITS = 65535                   # the grid's y dimension
 MERGE_FLOATS = 12 * 1024             # the merge's coefficients (csrc)
 INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm",
@@ -56,13 +58,17 @@ def paged_row_groups(h: int, kv: int) -> int:
     return -(-(h // kv) // MAX_ROWS)
 
 
-def paged_splits(p_max: int, rows: int, sms: int, g: int = 1) -> int:
+def paged_splits(p_max: int, rows: int, sms: int, g: int = 1,
+                 d: int = NARROW_HEAD_DIM) -> int:
     """Blocks per (sequence, KV head, row group), from shapes alone:
-    enough to put ``BLOCKS_PER_SM`` blocks on every SM, at most one per
-    page of the table, and few enough that the merge's coefficients of
-    the ``g`` query rows of a KV head fit its shared memory (``rows`` =
-    b * kv * row groups)."""
-    fill = (BLOCKS_PER_SM * sms) // max(rows, 1)
+    enough to put the resident blocks (``BLOCKS_PER_SM``, or
+    ``BLOCKS_PER_SM_WIDE`` where the wider head dim ``d`` passes 256) on
+    every SM, at most one per page of the table, and few enough that the
+    merge's coefficients of the ``g`` query rows of a KV head fit its
+    shared memory (``rows`` = b * kv * row groups; at g = 128 the cap is
+    95)."""
+    per_sm = BLOCKS_PER_SM if d <= NARROW_HEAD_DIM else BLOCKS_PER_SM_WIDE
+    fill = (per_sm * sms) // max(rows, 1)
     return max(1, min(fill, max(p_max, 1), MAX_SPLITS,
                       MERGE_FLOATS // max(g, 1) - 1))
 
@@ -132,7 +138,7 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
                          "kernel's limit")
     p_max = block_table.shape[1]
     n_split = paged_splits(p_max, b * kv * paged_row_groups(h, kv),
-                           sm_count(q.device), h // kv)
+                           sm_count(q.device), h // kv, max(d, dv))
     out = torch.empty((b, h, dv), dtype=F32, device=q.device)
     part = (torch.empty((b, kv, n_split, h // kv, dv + 2), dtype=F32,
                         device=q.device) if n_split > 1 else None)

@@ -2,26 +2,31 @@
 structures.
 
 Port of ``repro/models/blocks.py`` for global- and local-attention layers,
-hybrid layers (attention and a Mamba branch side by side, hymba), RWKV-6
-layers (time mix and channel mix, ``models/ssm.py``), each with a dense
-or a dropless MoE MLP. A model is a sequence of *segments*; each segment
-is ``count`` repetitions of a static tuple of layer signatures. ``forward``,
-prefill and decode walk the layers one by one and thread heterogeneous
-per-layer caches (paged DBS pools for global attention, ring buffers for
-sliding-window layers, O(1) recurrent states for Mamba and RWKV, dense
-caches otherwise).
+MLA layers (deepseek-v3's low-rank latent attention, run in the absorbed
+latent basis), hybrid layers (attention and a Mamba branch side by side,
+hymba), RWKV-6 layers (time mix and channel mix, ``models/ssm.py``), each
+with a dense or a dropless MoE MLP. A model is a sequence of
+*segments*; each segment is ``count`` repetitions of a static tuple of
+layer signatures. ``forward``, prefill and decode walk the layers one by
+one and thread heterogeneous per-layer caches (paged DBS pools for global
+attention, ring buffers for sliding-window layers, O(1) recurrent states
+for Mamba and RWKV, dense caches otherwise).
 
 Caches are updated in place and returned (the reference returns new
 arrays): at full width a decode step would otherwise copy every ring cache.
 A cache entry that is a view (the serving engine's per-slot rows) writes
 through to the tensor it views; so does a hybrid layer's Mamba state.
 
-MoE MLPs run every expert on every token with zero combine weights for
-the unselected ones (``layers.apply_moe``): nothing waits on the host,
-which the decode step must not.
+MoE MLPs pick their form from shapes alone (``layers.apply_moe``): every
+expert on every token where that is small (every decode step: nothing
+waits on the host), per-expert groups otherwise.
 
-MLA token mixers raise a ``ValueError`` naming the MLA/MTP slice of the
-port that brings them. The reference's activation-sharding constraint is
+An MLA layer's cache holds one shared KV "head": keys of the latent plus
+the rope part (576 wide on deepseek-v3), values of the latent (512), and
+its attention runs H query heads on it (GQA with one KV head) at the
+explicit scale 1/sqrt(nope + rope), on every cache kind and in every
+attention route. A layer kind the port does not know raises a
+``ValueError``. The reference's activation-sharding constraint is
 dropped: it does nothing on one device.
 """
 from __future__ import annotations
@@ -33,7 +38,8 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (ArchConfig, ATTN_GLOBAL, ATTN_HYBRID,
-                                      ATTN_LOCAL, ATTN_RWKV, MLP_MOE)
+                                      ATTN_LOCAL, ATTN_MLA, ATTN_RWKV,
+                                      MLP_MOE)
 from repro_torch.core.dbs import last_live_lane
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -42,7 +48,7 @@ from repro_torch.models.layers import (Params, apply_mlp, apply_moe,
                                        rms_norm)
 
 INT32_MAX = 2 ** 31 - 1
-PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL, ATTN_HYBRID, ATTN_RWKV)
+PORTED_ATTN = (ATTN_GLOBAL, ATTN_LOCAL, ATTN_MLA, ATTN_HYBRID, ATTN_RWKV)
 
 
 # ---------------------------------------------------------------------------
@@ -102,11 +108,10 @@ def layer_schedule(cfg: ArchConfig) -> List[Segment]:
 
 
 def check_ported(sig: LayerSig) -> None:
-    """Raise a ValueError naming the slice that brings an unported layer."""
+    """Raise a ValueError for a layer kind the port does not know."""
     if sig.attn not in PORTED_ATTN:
-        raise ValueError(f"{sig.attn!r} layers (MLA token mixers, "
-                         "deepseek-v3) land with the MLA/MTP models slice "
-                         "of the port")
+        raise ValueError(f"unknown layer kind {sig.attn!r}: the port runs "
+                         f"{', '.join(PORTED_ATTN)}")
 
 
 # ---------------------------------------------------------------------------
@@ -123,19 +128,31 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, sig: LayerSig) -> Params:
     if sig.attn == ATTN_RWKV:
         p["tmix_cmix"] = ssm.init_rwkv6(gen, cfg)
         return p
-    p.update({
-        "q": dense_init(gen, d, cfg.n_heads * hd),
-        "k": dense_init(gen, d, cfg.n_kv_heads * hd),
-        "v": dense_init(gen, d, cfg.n_kv_heads * hd),
-        "o": dense_init(gen, cfg.n_heads * hd, d),
-    })
-    if cfg.qk_norm:
-        p["q_norm"] = torch.ones((hd,), device=dev)
-        p["k_norm"] = torch.ones((hd,), device=dev)
-    if sig.attn == ATTN_HYBRID:
-        p["mamba"] = ssm.init_mamba(gen, cfg)
-        p["fuse_norm_attn"] = torch.ones((d,), device=dev)
-        p["fuse_norm_ssm"] = torch.ones((d,), device=dev)
+    if sig.attn == ATTN_MLA:
+        m = cfg.mla
+        qh = cfg.n_heads * (m.nope_head_dim + m.rope_head_dim)
+        p["q_a"] = dense_init(gen, d, m.q_lora_rank)
+        p["q_a_norm"] = torch.ones((m.q_lora_rank,), device=dev)
+        p["q_b"] = dense_init(gen, m.q_lora_rank, qh)
+        p["kv_a"] = dense_init(gen, d, m.kv_lora_rank + m.rope_head_dim)
+        p["kv_a_norm"] = torch.ones((m.kv_lora_rank,), device=dev)
+        p["kv_b"] = dense_init(gen, m.kv_lora_rank,
+                               cfg.n_heads * (m.nope_head_dim + m.v_head_dim))
+        p["o"] = dense_init(gen, cfg.n_heads * m.v_head_dim, d)
+    else:
+        p.update({
+            "q": dense_init(gen, d, cfg.n_heads * hd),
+            "k": dense_init(gen, d, cfg.n_kv_heads * hd),
+            "v": dense_init(gen, d, cfg.n_kv_heads * hd),
+            "o": dense_init(gen, cfg.n_heads * hd, d),
+        })
+        if cfg.qk_norm:
+            p["q_norm"] = torch.ones((hd,), device=dev)
+            p["k_norm"] = torch.ones((hd,), device=dev)
+        if sig.attn == ATTN_HYBRID:
+            p["mamba"] = ssm.init_mamba(gen, cfg)
+            p["fuse_norm_attn"] = torch.ones((d,), device=dev)
+            p["fuse_norm_ssm"] = torch.ones((d,), device=dev)
     if cfg.post_norms:
         p["ln1_post"] = norm_w(d)
         p["ln2_post"] = norm_w(d)
@@ -164,10 +181,14 @@ def init_layer_cache(cfg: ArchConfig, sig: LayerSig, batch: int, max_len: int,
     check_ported(sig)
     if sig.attn == ATTN_RWKV:
         return {"rwkv": ssm.rwkv6_init_state(cfg, batch, dtype, device)}
-    hd = cfg.resolved_head_dim
     page = cfg.page_blocks
-    kd = vd = hd
-    n_kv = cfg.n_kv_heads
+    if sig.attn == ATTN_MLA:
+        m = cfg.mla
+        kd, vd = m.kv_lora_rank + m.rope_head_dim, m.kv_lora_rank
+        n_kv = 1
+    else:
+        kd = vd = cfg.resolved_head_dim
+        n_kv = cfg.n_kv_heads
     z = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     c: Params = {}
     if sig.attn == ATTN_HYBRID:
@@ -225,6 +246,50 @@ def _project_qkv(cfg, p, h):
         q = rms_norm(q, p["q_norm"], cfg.norm_eps, gemma_style=_gemma(cfg))
         k = rms_norm(k, p["k_norm"], cfg.norm_eps, gemma_style=_gemma(cfg))
     return q, k, v
+
+
+def _project_mla(cfg, p, h, ctx):
+    """Returns (q_eff, k_new, v_new, scale) in the *absorbed* latent basis.
+
+    q_eff: (B,S,H,kv_rank+rope); k_new: (B,S,1,kv_rank+rope); v_new = the
+    latent (B,S,1,kv_rank). The same for forward, prefill and decode:
+    attention runs with one shared KV "head" and H query heads (GQA with
+    n_kv = 1), at the scale of the unabsorbed heads, 1/sqrt(nope + rope).
+    """
+    m = cfg.mla
+    b, s, _ = h.shape
+    nope, rope, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    qa = rms_norm(h @ p["q_a"].to(h.dtype), p["q_a_norm"], cfg.norm_eps)
+    q = (qa @ p["q_b"].to(h.dtype)).reshape(b, s, cfg.n_heads, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = attn.apply_rope(q_rope, ctx.q_pos, cfg.rope_theta)
+
+    kv = h @ p["kv_a"].to(h.dtype)                         # (B,S,rank+rope)
+    c_kv = rms_norm(kv[..., :m.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = kv[..., m.kv_lora_rank:].reshape(b, s, 1, rope)
+    k_rope = attn.apply_rope(k_rope, ctx.q_pos, cfg.rope_theta)
+
+    # absorb the k-part of kv_b into q:  q_lat = q_nope @ W_k^T (per head)
+    w = p["kv_b"].to(h.dtype).reshape(m.kv_lora_rank, cfg.n_heads, nope + vd)
+    w_k = w[..., :nope]                                    # (rank, H, nope)
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, w_k)
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)
+    k_new = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)
+    v_new = c_kv[:, :, None, :]
+    scale = 1.0 / math.sqrt(nope + rope)
+    return q_eff, k_new, v_new, scale
+
+
+def _mla_output(cfg, p, o_lat):
+    """o_lat: (B,S,H,kv_rank) -> (B,S,D) through the absorbed v-part of
+    kv_b, then the output projection."""
+    m = cfg.mla
+    w = p["kv_b"].to(o_lat.dtype).reshape(
+        m.kv_lora_rank, cfg.n_heads, m.nope_head_dim + m.v_head_dim)
+    w_v = w[..., m.nope_head_dim:]                         # (rank, H, vd)
+    o = torch.einsum("bshr,rhv->bshv", o_lat, w_v)
+    b, s = o.shape[:2]
+    return o.reshape(b, s, cfg.n_heads * m.v_head_dim) @ p["o"].to(o.dtype)
 
 
 def _full_attention(cfg, sig, q, k, v, ctx, scale=None):
@@ -390,19 +455,27 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
 
     resid = x
     h = norm(x, p["ln1"])
-    q, k, v = _project_qkv(cfg, p, h)
-    q = attn.apply_rope(q, ctx.q_pos, cfg.rope_theta)
-    k = attn.apply_rope(k, ctx.q_pos, cfg.rope_theta)
+    scale = None
+    if sig.attn == ATTN_MLA:
+        q, k, v, scale = _project_mla(cfg, p, h, ctx)
+    else:
+        q, k, v = _project_qkv(cfg, p, h)
+        q = attn.apply_rope(q, ctx.q_pos, cfg.rope_theta)
+        k = attn.apply_rope(k, ctx.q_pos, cfg.rope_theta)
 
     if ctx.mode == "decode":
-        o, new_cache = _decode_attention(cfg, sig, p, q, k, v, ctx, ctx.cache)
+        o, new_cache = _decode_attention(cfg, sig, p, q, k, v, ctx, ctx.cache,
+                                         scale=scale)
     else:
-        o = _full_attention(cfg, sig, q, k, v, ctx)
+        o = _full_attention(cfg, sig, q, k, v, ctx, scale=scale)
         if ctx.mode == "prefill":
             new_cache = _write_prefill_cache(cfg, sig, ctx.cache, k, v, ctx)
 
-    b, s = o.shape[:2]
-    att_out = o.reshape(b, s, -1) @ p["o"].to(o.dtype)
+    if sig.attn == ATTN_MLA:
+        att_out = _mla_output(cfg, p, o)
+    else:
+        b, s = o.shape[:2]
+        att_out = o.reshape(b, s, -1) @ p["o"].to(o.dtype)
 
     if sig.attn == ATTN_HYBRID:
         # forward has no cache: the branch starts from the zero state

@@ -24,8 +24,9 @@ Params = Dict[str, Any]
 # small helpers
 # ---------------------------------------------------------------------------
 def normal(gen: torch.Generator, shape, std: float = 1.0) -> torch.Tensor:
-    """Standard-normal fp32 draws on the generator's device, times std."""
-    return torch.randn(shape, generator=gen, device=gen.device) * std
+    """Standard-normal fp32 draws on the generator's device, times std (in
+    place: a 15 GB expert tensor is made without a second copy)."""
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(std)
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
@@ -143,24 +144,34 @@ def _moe_route(p: Params, xf: torch.Tensor, cfg: ArchConfig):
     return logits, top_idx, top_w
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig):
-    """Dropless top-k MoE: no capacity, no dropped token. Returns
-    (out, aux), the Switch-style load-balance loss (zero under aux-free
-    routing), as the reference's does.
+# The every-expert form's (E, T, max(d, f)) intermediates may take at
+# most this many bytes; past it the grouped form runs (moe_form)
+MOE_EVERY_EXPERT_BYTES = 1 << 30
 
-    Every token goes through every expert as one batched product a
-    weight, and the outputs are combined with the routing weights (zero
-    for the experts a token did not select). Nothing is read back to the
-    host, so the decode step never waits on it, and each expert's weights
-    are read once a call. The reference sorts the (token, expert) pairs
-    into per-expert groups instead; the two agree within fp32 rounding,
-    since this form sums a token's experts in expert order and the
-    reference in top-k order."""
+
+def moe_form(cfg: ArchConfig, t: int, itemsize: int = 4) -> str:
+    """The MoE form for ``t`` tokens, from shapes alone: ``"every"`` (every
+    expert on every token) while its (E, T, max(d, f)) intermediates fit
+    ``MOE_EVERY_EXPERT_BYTES``, else ``"grouped"``. Every decode step of
+    the served models is every-expert (deepseek-v3 at 8 slots: 59 MB), and
+    so is granite-moe's prefill (40 x 1000 x 1536 fp32: 246 MB), where
+    every-expert measured faster on the card; deepseek-v3's prefill past
+    146 tokens (256 experts x 7168 wide: 7.3 GB at 1000) is grouped."""
+    mo = cfg.moe
+    width = max(cfg.d_model, mo.d_ff_expert)
+    fits = mo.e_total * t * width * itemsize <= MOE_EVERY_EXPERT_BYTES
+    return "every" if fits else "grouped"
+
+
+def _moe_every(p: Params, xf: torch.Tensor, top_idx, top_w,
+               cfg: ArchConfig) -> torch.Tensor:
+    """Every token through every expert as one batched product a weight,
+    combined with the routing weights (zero for the experts a token did
+    not select). Nothing is read back to the host, and each expert's
+    weights are read once a call; a token's experts are summed in expert
+    order (the reference: top-k order), within fp32 rounding of it."""
     mo = cfg.moe
     act = activation_fn(cfg.activation)
-    orig_shape = x.shape
-    xf = x.reshape(-1, cfg.d_model)
-    logits, top_idx, top_w = _moe_route(p, xf, cfg)
     t = xf.shape[0]
     xe = xf.expand(mo.e_total, t, cfg.d_model)               # (E, T, D)
     h = torch.bmm(xe, p["wi"].to(xf.dtype))                 # (E, T, F)
@@ -169,7 +180,56 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig):
     ys = torch.bmm(h, p["wo"].to(xf.dtype))                  # (E, T, D)
     comb = torch.zeros((t, mo.e_total), dtype=ys.dtype, device=xf.device)
     comb.scatter_(1, top_idx, top_w.to(ys.dtype))
-    out = torch.einsum("te,etd->td", comb, ys)
+    return torch.einsum("te,etd->td", comb, ys)
+
+
+def _moe_grouped(p: Params, xf: torch.Tensor, top_idx, top_w,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """The reference's sort-and-group: the (token, expert) pairs stably
+    sorted by expert, one product per expert over its group, and the
+    top-k-order combine. The group sizes are read back to the host once
+    (no torch op takes a grouped fp32 product from device-side group
+    offsets); empty groups launch nothing."""
+    mo = cfg.moe
+    act = activation_fn(cfg.activation)
+    t = xf.shape[0]
+    flat_ids = top_idx.reshape(-1)                           # (T*k,)
+    order = torch.argsort(flat_ids, stable=True)
+    xs = xf[order // mo.top_k]                               # by expert
+    sizes = torch.bincount(flat_ids, minlength=mo.e_total).tolist()
+    ys = torch.empty_like(xs)
+    start = 0
+    for e, n in enumerate(sizes):
+        if n:
+            seg = xs[start:start + n]
+            h = seg @ p["wi"][e].to(xs.dtype)
+            h = act(h) * (seg @ p["wg"][e].to(xs.dtype)) if "wg" in p \
+                else act(h)
+            ys[start:start + n] = h @ p["wo"][e].to(xs.dtype)
+        start += n
+    inv = torch.argsort(order)
+    ys = ys[inv] * top_w.reshape(-1, 1).to(ys.dtype)
+    return ys.reshape(t, mo.top_k, cfg.d_model).sum(dim=1)
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ArchConfig):
+    """Dropless top-k MoE: no capacity, no dropped token. Returns
+    (out, aux), the Switch-style load-balance loss (zero under aux-free
+    routing), as the reference's does.
+
+    The form is ``moe_form``'s for the token count: every expert on every
+    token with zero combine weights for the unselected ones, reading
+    nothing back to the host, so the decode step never waits; or each
+    expert on its own tokens, the reference's form, with one host read of
+    the group sizes."""
+    orig_shape = x.shape
+    xf = x.reshape(-1, cfg.d_model)
+    logits, top_idx, top_w = _moe_route(p, xf, cfg)
+    if moe_form(cfg, xf.shape[0], xf.element_size()) == "every":
+        out = _moe_every(p, xf, top_idx, top_w, cfg)
+    else:
+        out = _moe_grouped(p, xf, top_idx, top_w, cfg)
+    mo = cfg.moe
     if "shared" in p:
         out = out + apply_mlp(p["shared"], xf, cfg)
 

@@ -1,8 +1,9 @@
 """Model assembly: init / forward / caches / prefill / decode over the layer
 schedule.
 
-Port of ``repro/models/model.py`` without the MTP head, which lands with
-the MLA/MTP slice. ``forward`` walks the layers one by one, with no remat
+Port of ``repro/models/model.py``, deepseek-v3's multi-token-prediction
+head included (``init_params`` draws it, ``mtp_hidden`` runs it; its loss
+is training's). ``forward`` walks the layers one by one, with no remat
 and no scan over stacked segments (those shape the reference's training
 graph; the port's training slice brings them). ``init_params`` draws every
 weight from one ``torch.Generator`` on its device and holds the layers
@@ -19,10 +20,10 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, ExecutionPlan
+from repro_torch.configs.base import ArchConfig, ExecutionPlan, MLP_DENSE
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (Params, embed_tokens, init_embeddings,
-                                       lm_logits, rms_norm)
+                                       lm_logits, normal, rms_norm)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -33,16 +34,27 @@ def _dtype(name: str) -> torch.dtype:
 # init
 # ---------------------------------------------------------------------------
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> Params:
-    """Random fp32 parameters drawn from ``gen``, made on ``gen.device``."""
-    if cfg.mtp_depth:
-        raise ValueError("multi-token-prediction heads (deepseek-v3) land "
-                         "with the MLA/MTP models slice of the port")
+    """Random fp32 parameters drawn from ``gen``, made on ``gen.device``;
+    with ``cfg.mtp_depth`` the MTP head ``p["mtp"]`` too: one block
+    (``mtp_sig``), the ``(2d, d)`` projection and its norm."""
     p: Params = {"embed": init_embeddings(gen, cfg)}
     p["layers_unstacked"] = [B.init_layer(gen, cfg, sig)
                              for sig in B.layer_sigs(cfg)]
     fill = torch.zeros if cfg.name.startswith("gemma") else torch.ones
     p["final_norm"] = fill((cfg.d_model,), device=gen.device)
+    if cfg.mtp_depth:
+        p["mtp"] = {
+            "block": B.init_layer(gen, cfg, mtp_sig(cfg)),
+            "proj": normal(gen, (2 * cfg.d_model, cfg.d_model), 0.02),
+            "norm": torch.ones((cfg.d_model,), device=gen.device),
+        }
     return p
+
+
+def mtp_sig(cfg: ArchConfig) -> B.LayerSig:
+    """The MTP block's signature: the last layer's token mixer with a dense
+    MLP of ``d_ff``."""
+    return B.LayerSig(cfg.layer_kind(cfg.n_layers - 1), 0, MLP_DENSE)
 
 
 def param_count_actual(params: Params) -> int:
@@ -213,3 +225,26 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
                  gemma_style=cfg.name.startswith("gemma"))
     logits = lm_logits(params["embed"], h, cfg)
     return logits[:, 0], new_caches
+
+
+# ---------------------------------------------------------------------------
+# deepseek MTP (multi-token prediction) auxiliary hidden states
+# ---------------------------------------------------------------------------
+def mtp_hidden(params: Params, h: torch.Tensor, tokens: torch.Tensor,
+               cfg: ArchConfig, plan: ExecutionPlan) -> torch.Tensor:
+    """DeepSeek-V3 MTP: combine h_t with emb(token_{t+1}) and run one extra
+    block; the caller computes the t+2 loss on the result. h: (B,S,D) ->
+    (B,S-1,D)."""
+    mtp = params["mtp"]
+    dtype = h.dtype
+    emb_next = embed_tokens(params["embed"], tokens[:, 1:], cfg, dtype)
+    h_in = torch.cat([rms_norm(h[:, :-1], mtp["norm"], cfg.norm_eps),
+                      emb_next], dim=-1)
+    h_in = h_in @ mtp["proj"].to(dtype)
+    bsz, seq = h_in.shape[:2]
+    positions = torch.arange(seq, dtype=torch.int32,
+                             device=h.device).expand(bsz, seq)
+    ctx = B.BlockCtx(mode="train", q_pos=positions, k_pos=positions,
+                     attn_impl=plan.attn_impl)
+    out, _, _ = B.apply_block(cfg, mtp_sig(cfg), mtp["block"], h_in, ctx)
+    return out

@@ -79,6 +79,20 @@ shard's replica 0 fails it reads pages the pumps no longer write; ROADMAP
 queue 3). ``control("fail"|"rebuild", shard=, replica=)`` addresses one
 shard's slice.
 
+Multi-codebook nets (musicgen) take prompts of shape ``(S, K)``: the
+prompt's K codebook embeddings are summed as in ``forward``. Each decode
+step emits codebook 0's argmax and feeds that one token back to all K
+codebooks, and a prompt's last step feeds its last row's codebook 0: the
+reference's behaviours, kept (the EnCodec delay pattern is upstream of
+the model and a stub here; ROADMAP queue 3). Recorded logits are (K, V)
+a step.
+
+MLA nets (deepseek-v3) need nothing of their own: a layer's one latent KV
+head takes two planes of (1, 576), the values zero-padded from 512 to the
+pool's width, and the decode slices the attention's output back to 512;
+the copy-based baseline's model-owned pools are (E, page, 1, 576) keys
+and (E, page, 1, 512) values.
+
 ``ServePool`` steps several engines as shards. The engine runs on
 ``device`` (default ``cuda``, with no CPU fallback).
 """
@@ -111,7 +125,7 @@ SHARED_CACHE_KEYS = ("pool_k", "pool_v", "block_table")
 @dataclass
 class GenRequest:
     req_id: int
-    prompt: np.ndarray            # (S,) int token ids
+    prompt: np.ndarray            # (S,) int token ids, (S, K) codebooks
     max_new: int = 16
     out_tokens: List[int] = field(default_factory=list)
     slot: int = -1
@@ -163,10 +177,6 @@ class ServeEngine:
                  kv_backend: str = "fused", kv_shards: int = 1,
                  kv_replicas: int = 2, kernel: str = "auto",
                  record_logits: bool = False, device=None):
-        if cfg.n_codebooks > 1:
-            raise ValueError("multi-codebook heads (musicgen) land with the "
-                             "MLA/MTP and multi-codebook models slice of the "
-                             "port")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -271,6 +281,15 @@ class ServeEngine:
 
     # ------------------------------------------------------------------ API
     def submit(self, req: GenRequest) -> None:
+        """Queue a request. Its prompt is (S,) token ids, or (S, K) on a
+        K-codebook net; another shape raises here (the reference fails
+        later, inside the step's embedding)."""
+        k = self.cfg.n_codebooks
+        shape = np.shape(req.prompt)
+        if (len(shape) != 2 or shape[1] != k) if k > 1 else len(shape) != 1:
+            want = f"(S, {k})" if k > 1 else "(S,)"
+            raise ValueError(f"request {req.req_id}: prompt of shape {shape}, "
+                             f"not {want} for {self.cfg.name}")
         self.frontend.submit(Request(req_id=req.req_id, kind="write",
                                      volume=-1, page=0, payload=req))
 
@@ -628,6 +647,10 @@ class ServeEngine:
               if self.live_by_slot(i) and self.live_by_slot(i).out_tokens
               else self._last_prompt_token(i)) for i in range(self.n_slots)],
             dtype=torch.int64, device=dev)
+        if self.cfg.n_codebooks > 1:
+            # the reference feeds the one emitted token to every codebook
+            # (module note)
+            last = last[:, None].expand(self.n_slots, self.cfg.n_codebooks)
         pos_dev = torch.as_tensor(self.pos, device=dev)
         active_dev = torch.as_tensor(active, device=dev)
         if self._zero_copy:
@@ -651,6 +674,8 @@ class ServeEngine:
             logits, self.caches = M.decode_step(
                 self.params, last, pos_dev, self.cfg, self.plan, self.caches)
             nxt = torch.argmax(logits, dim=-1)
+        if self.cfg.n_codebooks > 1:
+            nxt = nxt[:, 0]                       # codebook 0's argmax
         nxt_host = nxt.cpu().numpy()
         logits_host = logits.cpu().numpy() if self.record_logits else None
         self.pos = self.pos + active.astype(np.int32)
@@ -679,7 +704,8 @@ class ServeEngine:
         g = self.live_by_slot(slot)
         if g is None or g.prompt.shape[0] == 0:
             return 0
-        return int(g.prompt[-1])
+        t = g.prompt[-1]
+        return int(t if np.ndim(t) == 0 else t.flat[0])   # codebook 0
 
     def _finish(self, g: GenRequest) -> None:
         g.done = True

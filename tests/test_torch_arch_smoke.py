@@ -1,8 +1,7 @@
 """Port parity: per-architecture smoke tests, the twin of
-tests/test_arch_smoke.py, over every arch the port serves (all but
-deepseek-v3, whose MLA layers and MTP head, and musicgen, whose
-multi-codebook heads, land with the next models slice; both raise a
-``ValueError`` naming it).
+tests/test_arch_smoke.py, over every arch of ``configs/`` (deepseek-v3 with
+its MLA layers and MTP head, musicgen with its four codebooks: tokens of
+shape (B, S, 4), logits (B, 4, V)).
 
 Each arch's reduced same-family config on the CPU: the port's ``forward``
 (its own weights, drawn from a ``torch.Generator``) gives finite hidden
@@ -32,12 +31,10 @@ from repro_torch.models import (decode_step, default_block_tables,  # noqa: E402
                                 with_block_tables)
 from repro_torch.models.layers import lm_logits, rms_norm  # noqa: E402
 from repro_torch.models.model import param_count_actual  # noqa: E402
-from repro_torch.serving import ServeEngine  # noqa: E402
 
 E2E = dict(atol=1e-4, rtol=1e-4)
 DEC = dict(atol=2e-3, rtol=2e-3)     # tests/test_arch_smoke.py's
-UNSERVED = ("deepseek-v3-671b", "musicgen-large")
-SERVED = [a for a in ALL_ARCHS if a not in UNSERVED]
+SERVED = list(ALL_ARCHS)
 PLAN = ExecutionPlan(remat="none", attn_impl="chunked",
                      compute_dtype="float32")
 J_PLAN = JPlan(remat="block", attn_impl="chunked", compute_dtype="float32",
@@ -45,7 +42,9 @@ J_PLAN = JPlan(remat="block", attn_impl="chunked", compute_dtype="float32",
 
 
 def _tokens(cfg, seed, b, s):
-    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s))
+    k = cfg.n_codebooks
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s, k) if k > 1 else (b, s))
 
 
 @pytest.fixture(scope="module", params=SERVED)
@@ -99,15 +98,3 @@ def test_prefill_decode_matches_forward(arch):
                    gemma_style=cfg.name.startswith("gemma"))
     logits_fwd = lm_logits(params["embed"], h_n, cfg)[:, 0]
     np.testing.assert_allclose(logits_dec.numpy(), logits_fwd.numpy(), **DEC)
-
-
-@pytest.mark.parametrize("name", UNSERVED)
-def test_unserved_archs_raise_naming_their_slice(name):
-    cfg = t_smoke(name)
-    if name.startswith("deepseek"):
-        with pytest.raises(ValueError, match="MLA/MTP models slice"):
-            init_params(torch.Generator().manual_seed(0), cfg)
-    else:
-        params = init_params(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(ValueError, match="multi-codebook models slice"):
-            ServeEngine(cfg, params, device="cpu")

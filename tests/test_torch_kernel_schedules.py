@@ -28,7 +28,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.paged_attention.kernel import (  # noqa: E402
-    BLOCKS_PER_SM as PAGED_PER_SM, MAX_SPLITS, MERGE_FLOATS,
+    BLOCKS_PER_SM as PAGED_PER_SM, BLOCKS_PER_SM_WIDE, MAX_SPLITS,
+    MERGE_FLOATS,
     paged_live_range, paged_row_groups, paged_split_range, paged_splits)
 from repro_torch.kernels.paged_attention.ref import (  # noqa: E402
     NEG_INF, paged_attention_ref)
@@ -58,6 +59,26 @@ def test_paged_splits_stay_within_the_kernel(sms):
     assert paged_row_groups(8, 4) == 1
     assert paged_splits(64, 32, 132) == 12
     assert paged_row_groups(48, 4) == 3          # g = 12: three row groups
+
+
+@pytest.mark.parametrize("sms", SMS)
+def test_paged_splits_at_mla_width(sms):
+    """MLA's decode (128 query heads on one latent KV head, 576 wide): 32
+    row groups of 4, the merge's cap at g = 128 (MERGE_FLOATS // 128 - 1
+    = 95 shares), and the wide instantiation's one resident block an SM
+    in the fill; below 257 the narrow rule's three."""
+    assert paged_row_groups(128, 1) == 32
+    assert MERGE_FLOATS // 128 - 1 == 95
+    for p_max in (1, 32, 64, 200, 4096):
+        for b in (1, 2, 8):
+            rows = b * paged_row_groups(128, 1)
+            n = paged_splits(p_max, rows, sms, 128, 576)
+            assert 1 <= n <= min(max(p_max, 1), 95)
+            assert 128 * (n + 1) <= MERGE_FLOATS
+            assert rows * n <= max(BLOCKS_PER_SM_WIDE * sms, rows)
+            assert n <= paged_splits(p_max, rows, sms, 128, 256)
+    # deepseek-v3's serving decode: 8 slots, 64 pages: one share
+    assert paged_splits(64, 8 * 32, 132, 128, 576) == 1
 
 
 def test_paged_split_ranges_tile_the_live_pages():

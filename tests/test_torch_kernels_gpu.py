@@ -481,14 +481,19 @@ def test_paged_attention_four_byte_paths(d, dv, misalign_q):
 
 @pytest.mark.gpu
 def test_paged_attention_rejects_wide_heads():
-    """Head dims above the kernel's 256 raise, naming the limit."""
+    """Head dims above the wide instantiation's 576 raise, naming the
+    limit; so do flash's above (576, 512)."""
     dev = _cuda()
-    q = torch.zeros((1, 2, 320), device=dev)
-    pk = torch.zeros((3, 4, 1, 320), device=dev)
+    q = torch.zeros((1, 2, 640), device=dev)
+    pk = torch.zeros((3, 4, 1, 640), device=dev)
     table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="256"):
+    with pytest.raises(ValueError, match="576"):
         paged_attention_fwd(q, pk, pk, table, torch.ones(1, dtype=torch.int32,
                                                           device=dev))
+    qf = torch.zeros((1, 2, 8, 576), device=dev)
+    with pytest.raises(ValueError, match="576, 512"):
+        flash_attention_fwd(qf, qf[:, :1], torch.zeros((1, 1, 8, 576),
+                                                        device=dev))
 
 
 @pytest.mark.gpu
@@ -1202,3 +1207,104 @@ def test_moe_does_not_sync():
                                     x.cpu(), cfg)
     torch.testing.assert_close(out_g.cpu(), out_c, **TOL)
     torch.testing.assert_close(aux_g.cpu(), aux_c, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# MLA's latent widths (deepseek-v3) and musicgen's heads
+# ---------------------------------------------------------------------------
+def _mla_paged_case(dev, b, h, kv, dk, dv, page, p_max, seed, n_planes=0):
+    """Split pools of widths dk and dv (or an engine pool of n_planes
+    planes at dk), a block table with holes past each length and one
+    below, ragged lengths with a lane of length 0 and a full one."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    e = b * p_max + 5
+    q = torch.randn((b, h, dk), generator=gen, device=dev)
+    if n_planes:
+        pools = (torch.randn((e, page, n_planes, kv, dk), generator=gen,
+                             device=dev),)
+    else:
+        pools = (torch.randn((e, page, kv, dk), generator=gen, device=dev),
+                 torch.randn((e, page, kv, dv), generator=gen, device=dev))
+    table = rng.permutation(e - 1)[:b * p_max].reshape(b, p_max) + 1
+    lengths = rng.integers(1, p_max * page + 1, b)
+    lengths[0] = 0
+    lengths[-1] = p_max * page
+    for i in range(b):
+        table[i, -(-lengths[i] // page):] = -1
+    table[-1, 1] = -1
+    return (q, pools, torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(lengths.astype(np.int32)).to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,h,kv,dk,dv", [
+    ("split", 128, 1, 576, 512), ("pool", 128, 1, 576, 576),
+    ("pool", 32, 32, 64, 64), ("split", 8, 4, 256, 256),
+    ("pool", 8, 4, 256, 256)])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (100, 50.0)])
+def test_paged_attention_mla_and_audio_widths(entry, h, kv, dk, dv, window,
+                                             cap):
+    """deepseek-v3's decode (8 sequences, one latent KV head of 576, 128
+    query heads, page 32 and 32 pages: lengths up to 1024; the copy-based
+    baseline's split pools with V 512, the zero-copy engine pool's planes
+    at 576) at MLA's scale 1/sqrt(192); musicgen's 32 heads of 64 (G = 1);
+    and gemma2-2b's 256, the narrow instantiation, as a regression."""
+    dev = _cuda()
+    scale = 1.0 / np.sqrt(192.0) if dk == 576 else None
+    q, pools, table, lengths = _mla_paged_case(
+        dev, 8, h, kv, dk, dv, 32, 32, dk + h,
+        n_planes=8 if entry == "pool" else 0)
+    kw = dict(window=window, logit_cap=cap, scale=scale)
+    if entry == "split":
+        got = paged_attention_fwd(q, *pools, table, lengths, **kw)
+        want = paged_attention_ref(q, *pools, table, lengths, **kw)
+    else:
+        got = paged_attention_pool_fwd(q, pools[0], table, lengths,
+                                       k_plane=6, v_plane=7, **kw)
+        want = paged_attention_pool_ref(q, pools[0], table, lengths,
+                                        k_plane=6, v_plane=7, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (8, h, dv)
+    assert torch.isfinite(got).all() and not got[0].any()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,h,kv,dk,dv,window,cap,v_of_k", [
+    (300, 128, 1, 576, 512, 0, 0.0, False),
+    (1000, 128, 1, 576, 512, 0, 0.0, False),
+    (97, 128, 1, 576, 512, 0, 0.0, True),       # v = k[..., :512]
+    (130, 16, 1, 576, 512, 40, 50.0, False),
+    (70, 8, 1, 570, 500, 0, 0.0, False),        # 4-byte staging of q, k
+    (300, 16, 2, 320, 64, 0, 0.0, False),
+    (700, 32, 32, 64, 64, 0, 0.0, False),       # musicgen
+    (550, 8, 4, 256, 256, 0, 50.0, False),      # the narrow kernel
+    (130, 4, 2, 96, 64, 0, 0.0, False)])
+def test_flash_attention_mla_and_audio_widths(sq, h, kv, dk, dv, window, cap,
+                                             v_of_k):
+    """deepseek-v3's prefill in the absorbed basis (128 query heads on one
+    latent KV head, K 576, V 512, scale 1/sqrt(192)) on the wide
+    instantiation: ragged lengths, up to 1000 tokens, V read through a
+    view of K, a window with a cap, widths that are not multiples of 4,
+    a wide K with a narrow V; musicgen's (32, 32, 64) and gemma2's 256
+    on the narrow one; the model-layout entry on the MLA shapes."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(sq + dk)
+    q = torch.randn((1, h, sq, dk), generator=gen, device=dev)
+    k = torch.randn((1, kv, sq, dk), generator=gen, device=dev)
+    v = (k[..., :dv] if v_of_k
+         else torch.randn((1, kv, sq, dv), generator=gen, device=dev))
+    scale = 1.0 / np.sqrt(192.0) if dk >= 512 else None
+    kw = dict(window=window, logit_cap=cap, scale=scale)
+    got = flash_attention_fwd(q, k, v, **kw)
+    want = attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (1, h, sq, dv) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
+    if dk == 576 and not v_of_k:
+        qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        got = flash_attention(qm, km, vm, **kw)
+        want = flash_attention_reference(qm, km, vm, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)

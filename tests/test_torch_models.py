@@ -85,15 +85,17 @@ def test_configs_equal_the_reference(name):
 
 
 def test_unported_layer_kinds_raise():
-    # rwkv6-3b's layers are ported (tests/test_torch_ssm.py), and so are
-    # hymba's hybrid and granite-moe's MoE layers (tests/test_torch_hybrid.py,
-    # tests/test_torch_moe.py); deepseek-v3's MLA layers and MTP head are not
+    # every layer kind of configs/ is ported: deepseek-v3's MLA layers and
+    # MTP head build (tests/test_torch_mla.py holds them against the
+    # reference); a kind the port does not know still raises
     cfg = tcfgs.smoke_config("deepseek-v3-671b")
-    with pytest.raises(ValueError, match="MLA/MTP models slice"):
-        TM.init_params(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(ValueError, match="MLA/MTP models slice"):
-        TM.init_params(torch.Generator().manual_seed(0),
-                       dataclasses.replace(cfg, mtp_depth=0))
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg)
+    assert "mtp" in params and "kv_b" in params["layers_unstacked"][0]
+    bogus = TB.LayerSig("sparse", 0, "dense")
+    with pytest.raises(ValueError, match="unknown layer kind 'sparse'"):
+        TB.init_layer(torch.Generator().manual_seed(0), cfg, bogus)
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        TB.init_layer_cache(cfg, bogus, 1, 16, paged=True)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,14 @@ zero combine weights for the unselected ones (it reads nothing back to
 the host) and so sums a token's experts in expert order, the reference
 in top-k order; the tolerance covers that.
 
+The grouped form (``form="grouped"``: the reference's sort-and-group,
+one product per expert over its tokens, the top-k-order combine) is held
+against the reference and against the every-expert form at the same
+tolerance, and the rule that picks the form (``moe_form``, on shapes
+alone) is checked at the served models' full widths: every-expert at
+every decode batch and at granite-moe's prefill, grouped at
+deepseek-v3's prefill past 146 tokens.
+
 Configurations: granite-moe's smoke MoE (softmax top-k, gated SiLU, the
 Switch aux loss), deepseek-v3's (sigmoid aux-free routing with a nonzero
 ``router_bias``, a shared expert, aux 0), and each with padded experts
@@ -26,6 +34,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import smoke_config as j_smoke  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
+from repro_torch.configs import get_config as t_get  # noqa: E402
 from repro_torch.configs import smoke_config as t_smoke  # noqa: E402
 from repro_torch.core.convert import params_from_numpy  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
@@ -136,3 +145,77 @@ def test_moe_dropless_routes_every_token():
             act(xf[t] @ p["wi"][e]) * (xf[t] @ p["wg"][e])) @ p["wo"][e]
             for j, e in enumerate(top_idx[t].tolist()))
         _close(out.reshape(-1, tc.d_model)[t], want)
+
+
+def _forms(monkeypatch, budget):
+    """Count the calls of each MoE form while ``MOE_EVERY_EXPERT_BYTES``
+    is ``budget`` (0: every call is grouped)."""
+    seen = {"every": 0, "grouped": 0}
+    for form in seen:
+        inner = getattr(TL, f"_moe_{form}")
+
+        def run(*a, _inner=inner, _form=form, **k):
+            seen[_form] += 1
+            return _inner(*a, **k)
+        monkeypatch.setattr(TL, f"_moe_{form}", run)
+    monkeypatch.setattr(TL, "MOE_EVERY_EXPERT_BYTES", budget)
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(2, 16), (1, 40), (8, 1)])
+def test_grouped_moe_matches_reference_and_every_expert(moe, shape,
+                                                        monkeypatch):
+    """The grouped form (the budget at 0 forces it) against the
+    reference's ``apply_moe`` and against the every-expert form (the
+    default at smoke sizes), output and aux."""
+    jc, tc, pj, pt = moe
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    x = _tokens(rng, shape, jc.d_model)
+    out_j, aux_j = JL.apply_moe(pj, jnp.asarray(x), jc)
+    out_e, aux_e = TL.apply_moe(pt, torch.from_numpy(x), tc)
+    seen = _forms(monkeypatch, 0)
+    out_g, aux_g = TL.apply_moe(pt, torch.from_numpy(x), tc)
+    assert seen == {"every": 0, "grouped": 1}
+    assert out_g.shape == x.shape
+    _close(out_g, out_j)
+    _close(aux_g, aux_j)
+    _close(out_g, out_e)
+    _close(aux_g, aux_e)
+
+
+@pytest.mark.parametrize("model,tokens,form", [
+    ("deepseek-v3-671b", 8, "every"),          # the serving decode batch
+    ("deepseek-v3-671b", 146, "every"),
+    ("deepseek-v3-671b", 147, "grouped"),
+    ("deepseek-v3-671b", 1000, "grouped"),     # a prompt, the MTP check
+    ("granite-moe-3b-a800m", 8, "every"),
+    ("granite-moe-3b-a800m", 1000, "every"),   # its longest served prompt
+    ("granite-moe-3b-a800m", 1500, "every")])
+def test_moe_form_rule(model, tokens, form):
+    """``moe_form`` on shapes alone: the every-expert form while its
+    (E, T, max(d, f)) fp32 intermediates fit ``MOE_EVERY_EXPERT_BYTES``."""
+    cfg = t_get(model)
+    assert TL.moe_form(cfg, tokens) == form
+    mo = cfg.moe
+    big = mo.e_total * tokens * max(cfg.d_model, mo.d_ff_expert) * 4
+    assert (big <= TL.MOE_EVERY_EXPERT_BYTES) == (form == "every")
+
+
+def test_apply_moe_takes_the_rules_form(moe, monkeypatch):
+    """``apply_moe`` runs the form ``moe_form`` picks: every-expert at
+    smoke sizes, grouped once the budget is below the call's
+    intermediates (here 2 x 5 tokens: a budget of one token's)."""
+    jc, tc, _, pt = moe
+    x = torch.from_numpy(_tokens(np.random.default_rng(3), (2, 5),
+                                 jc.d_model))
+    mo = tc.moe
+    one = mo.e_total * max(tc.d_model, mo.d_ff_expert) * 4
+    seen = _forms(monkeypatch, TL.MOE_EVERY_EXPERT_BYTES)
+    TL.apply_moe(pt, x, tc)
+    TL.apply_moe(pt, x[:1, :1], tc)
+    assert seen == {"every": 2, "grouped": 0}
+    monkeypatch.setattr(TL, "MOE_EVERY_EXPERT_BYTES", one)
+    assert TL.moe_form(tc, 1) == "every" and TL.moe_form(tc, 10) == "grouped"
+    TL.apply_moe(pt, x[:1, :1], tc)
+    TL.apply_moe(pt, x, tc)
+    assert seen == {"every": 3, "grouped": 1}

@@ -47,6 +47,7 @@ from repro_torch.core import dbs as TD  # noqa: E402
 from repro_torch.core.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.frontend import MultiQueueFrontend, Request  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as PK  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.blocks import layer_sigs  # noqa: E402
 from repro_torch.serving import GenRequest, ServeEngine  # noqa: E402
 
@@ -421,11 +422,26 @@ def test_device_views_are_the_live_pools(granite):
 
 
 def test_unported_serving_configuration_raises(granite):
+    """Every arch serves now: musicgen (four codebooks) on the zero-copy
+    path (tests/test_torch_serving_mla.py holds it against the
+    reference); what the engine cannot serve still raises: a pure
+    recurrent net on ``fused``, a prompt of the wrong shape, and (with no
+    card) the default device."""
     _, tc, _, tp = granite
     ring = ServeEngine(tc, tp, kv_backend="ring", device="cpu")
     assert ring._sharded and ring.volumes.backend_name == "ring"
-    with pytest.raises(ValueError, match="models slice"):
-        ServeEngine(t_smoke("musicgen-large"), tp, device="cpu")
+    mg = t_smoke("musicgen-large")
+    mp = TM.init_params(torch.Generator().manual_seed(0), mg)
+    eng = ServeEngine(mg, mp, n_slots=2, max_len=32, device="cpu")
+    eng.submit(GenRequest(req_id=0, prompt=np.zeros((5, mg.n_codebooks),
+                                                    np.int64), max_new=2))
+    assert len(eng.run(max_steps=8)[0]) == 2
+    with pytest.raises(ValueError, match="prompt of shape"):
+        eng.submit(GenRequest(req_id=1, prompt=np.zeros((5,), np.int64)))
+    rw = t_smoke("rwkv6-3b")
+    with pytest.raises(ValueError, match="paged-attention layer"):
+        ServeEngine(rw, TM.init_params(torch.Generator().manual_seed(0), rw),
+                    device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(tc, tp)
