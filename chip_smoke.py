@@ -407,6 +407,39 @@ and the script exits non-zero:
    token, 13 GB an engine replica) and prompts of shape (S, 4) drawn in
    [100, 960]: the checks of phase 21 (``audio_*`` keys), the paged
    kernel at G = 1 and the DBS kernels at 768 KiB blocks.
+24. train_parity — gemma2-2b at full width (d_model 2304, vocab 256000)
+   cut to two layers (one local, one global; 0.75 B params), a batch of
+   2 x 256 tokens, the launch plan (remat a layer, fp32, chunked
+   attention): one train step's gradients on the card and on the CPU from
+   the same seeded params and batch, then AdamW on the card's gradients in
+   both places. Enforced (TRAIN_TOL): loss within rtol 1e-5, grad_norm
+   within 1e-4, every gradient and AdamW moment within 1e-4 of its leaf's
+   largest magnitude, the params after AdamW within 1e-6 of theirs; the
+   errors (and the updates' own, scaled) are printed.
+25. train — gemma2-2b at full width and depth (26 layers, 2.61 B params,
+   10.5 GB fp32) through ``Trainer`` over ``Prefetcher(SyntheticLM(...))``,
+   4 x 1024 tokens a step, AdamW (warmup 2), 6 steps, logits in chunks of
+   512. Enforced: every loss finite, the last below the first + 0.05, and
+   none of the six kernels launched (the reference's training path runs no
+   Pallas kernel; the kernels refuse grad). Printed: tokens/s and the
+   median step over steps 2-6, the optimizer's share of a step (CUDA
+   events), its byte bound, the peak memory, the model-flops share of the
+   fp32 peak (6·N·tokens over step time x 67 TFLOP/s), and a profiled
+   step's idle share (a "profile" line).
+26. checkpoint — (a) a ``Trainer`` at CKPT_WIDTH (gemma2-2b's layers at
+   d_model 256, 4 layers, vocab 4096: 5.0 M params, 60 MB of params and
+   AdamW state a version, which the trainer's 256 MB store holds three
+   of) saves every 2 steps to two replica directories; a fresh
+   ``Trainer`` resumes at the same step with params and state bit-equal;
+   replica 1 failed, rebuilt through ``stream_store`` and restored alone,
+   bit-equal; the restored params serve through ``ServeEngine`` (``fused``)
+   the live params' tokens and logits, bit for bit. (b) phase 24's params
+   (2.98 GB) through a ``ReplicatedCheckpoint`` sized for them: save (two
+   replicas), restore (bit-equal) and the rebuild (every byte streamed),
+   seconds and MB/s; the bytes it needs and the temp dir's free space
+   first (cut to what fits, and listed, when the disk is short). (c) ``python -m
+   repro_torch.launch.train --arch gemma2-2b --steps 3 --ckpt-dir <tmp>``
+   as a subprocess, exit 0. Files under TMPDIR, removed.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -539,6 +572,27 @@ MLA_MODEL, MLA_LAYERS = "deepseek-v3-671b", 4
 AUDIO_MODEL, AUDIO_MAX_LEN, AUDIO_PROMPT = "musicgen-large", 1024, (100, 960)
 MTP_PROMPT = 1000                # tokens of the MTP check's prompt
 FAMILY_HELD_BYTES = 2 << 30      # what may stay allocated before a phase
+# phases 24-26, training and checkpoints: gemma2-2b at full width; the
+# parity step cut to two layers (one local, one global) at 2 x 256 tokens,
+# the train phase at full depth, 4 x 1024 tokens a step, 6 steps, logits in
+# chunks of 512; the checkpoint phase's trainer at a width whose params and
+# AdamW state (~60 MB a version, three versions in flight) fit the
+# trainer's 256 MB store, then the parity cut's params (~3 GB)
+TRAIN_MODEL = "gemma2-2b"
+PARITY_LAYERS, PARITY_BATCH, PARITY_SEQ = 2, 2, 256
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
+TRAIN_CHUNK = 512
+# card against CPU, fp32 both (TF32 off): the loss and the global norm
+# relative; every gradient, the AdamW moments and the params after AdamW
+# within a share of their leaf's largest magnitude (an update is ~lr =
+# 1.5e-4 and lands on params of up to ~0.1, so one rounding of a param is
+# ~5e-5 of the update, and a param that lands near 0 has no relative
+# accuracy: the updates' own scaled error is printed, not held)
+TRAIN_TOL = dict(loss_rtol=1e-5, grad_norm_rtol=1e-4, grad_scaled=1e-4,
+                 adamw_state_scaled=1e-4, adamw_params_scaled=1e-6)
+CKPT_WIDTH = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
+                  head_dim=64, d_ff=1024, vocab_size=4096)
+CKPT_EVERY, CKPT_STEPS = 2, 4
 
 
 def emit(**kw) -> None:
@@ -3778,11 +3832,11 @@ def phase_no_sync_serve(torch, eng):
 # ---------------------------------------------------------------------------
 # phase 12: where a serving step's time goes
 # ---------------------------------------------------------------------------
-def _profiled(torch, name: str, fn, smi) -> None:
+def _profiled(torch, name: str, fn, smi) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and emit its wall time, the
     device's busy time (the union of the kernels' intervals), its idle
     share, the device events counted, and the operators that took the most
-    device and host time."""
+    device and host time; returns the first four."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3807,10 +3861,12 @@ def _profiled(torch, name: str, fn, smi) -> None:
                  "self_host_ms": e.self_cpu_time_total / 1e3}
                 for e in sorted(prof.key_averages(),
                                 key=lambda e: -getattr(e, key))[:n]]
-    emit(phase="profile", part=name, wall_s=wall, device_busy_s=busy,
-         device_idle_share=1.0 - busy / wall, device_events=len(spans),
+    out = dict(wall_s=wall, device_busy_s=busy,
+               device_idle_share=1.0 - busy / wall, device_events=len(spans))
+    emit(phase="profile", part=name, **out,
          top_device=top("self_device_time_total", 10),
          top_host=top("self_cpu_time_total", 6), card=smi)
+    return out
 
 
 def phase_profile_serve(torch, eng, smi):
@@ -4953,6 +5009,373 @@ def phase_serve_family(torch, dev, smi, model, seed, n_layers=None,
             "mtp_flash_launches": mtp_launches, **res["parity"]}
 
 
+# ---------------------------------------------------------------------------
+# phases 24-26: training and checkpoints
+# ---------------------------------------------------------------------------
+def _kernel_modules():
+    """The six kernels' wrapper modules (their LAUNCHES, PLAIN_CALLS)."""
+    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    return (rw_kernel, copy_kernel, pk, fk, rk)
+
+
+def _scaled_err(torch, got, want) -> float:
+    """The largest of each leaf pair's max |difference| over the leaf's
+    largest magnitude (got on any device, want on the CPU)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        scale = float(b.abs().max()) or 1.0
+        worst = max(worst, float((a.cpu() - b).abs().max()) / scale)
+    return worst
+
+
+def phase_train_parity(torch, dev, smi):
+    """Phase 24: one train step of gemma2-2b at full width cut to
+    PARITY_LAYERS layers (one local, one global) on the card and on the CPU
+    from the same seeded params and batch, the launch plan (remat "block",
+    fp32, chunked attention): loss, grad_norm and every parameter's
+    gradient, then AdamW on the card's gradients in both places. Returns
+    the params on the CPU (phase 26 checkpoints them)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.models import init_params
+    from repro_torch.models.model import param_count_actual
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.training.optimizer import global_norm, make_optimizer
+    from repro_torch.training.train_step import grads_of
+    full = get_config(TRAIN_MODEL)
+    cfg = dataclasses.replace(full, n_layers=PARITY_LAYERS)
+    kinds = sorted(cfg.layer_kind(i) for i in range(cfg.n_layers))
+    if kinds != ["global", "local"]:
+        raise AssertionError(f"parity cut's layers: {kinds}")
+    plan = ExecutionPlan(remat="block", compute_dtype="float32",
+                         logits_chunk=0)
+    params = init_params(torch.Generator().manual_seed(SEED + 11), cfg)
+    ids = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (PARITY_BATCH, PARITY_SEQ + 1))
+    batch = {"tokens": torch.from_numpy(ids[:, :-1]),
+             "labels": torch.from_numpy(ids[:, 1:])}
+    out, secs = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda t, d=d: t.to(d, copy=True), params)
+        b = {k: v.to(d) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        g, m = grads_of(p, b, cfg, plan)
+        norm = global_norm(g)
+        float(norm)
+        secs[where] = time.perf_counter() - t0
+        out[where] = (p, g, m, norm)
+    (p_d, g_d, m_d, n_d), (p_c, g_c, m_c, n_c) = out["card"], out["cpu"]
+    loss = {"card": float(m_d["loss"]), "cpu": float(m_c["loss"])}
+    norms = {"card": float(n_d), "cpu": float(n_c)}
+    grad_err = _scaled_err(torch, tree_leaves(g_d), tree_leaves(g_c))
+    # AdamW on identical inputs: the card's gradients, in both places
+    init, update = make_optimizer("adamw", warmup=TRAIN_WARMUP,
+                                  total_steps=TRAIN_STEPS)
+    upd = {}
+    for where, p in (("card", p_d), ("cpu", p_c)):
+        before = [t.clone() for t in tree_leaves(p)]
+        grads = tree_map(lambda t, d=p["final_norm"].device: t.to(
+            d, copy=True), g_d)
+        state = init(p)
+        with torch.no_grad():
+            update(grads, state, p)
+        upd[where] = ([a - b for a, b in zip(tree_leaves(p), before)],
+                      tree_leaves(state["m"]) + tree_leaves(state["v"]))
+        del before, grads
+    update_err = _scaled_err(torch, upd["card"][0], upd["cpu"][0])
+    state_err = _scaled_err(torch, upd["card"][1], upd["cpu"][1])
+    params_err = _scaled_err(torch, tree_leaves(p_d), tree_leaves(p_c))
+    rel = {"loss": abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"]),
+           "grad_norm": abs(norms["card"] - norms["cpu"]) / norms["cpu"]}
+    emit(phase="train_parity", model=TRAIN_MODEL,
+         config=dict(n_layers=cfg.n_layers, layers=kinds,
+                     d_model=cfg.d_model, heads=cfg.n_heads,
+                     kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+                     d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+                     batch=PARITY_BATCH, seq=PARITY_SEQ,
+                     plan="remat block, fp32, chunked attention",
+                     reduced={"n_layers": [full.n_layers, cfg.n_layers]}),
+         params=param_count_actual(params), loss=loss, grad_norm=norms,
+         relative_error=rel, grad_max_scaled_err=grad_err,
+         adamw_update_max_scaled_err=update_err,
+         adamw_state_max_scaled_err=state_err,
+         adamw_params_max_scaled_err=params_err,
+         grads_seconds=secs, tolerances=TRAIN_TOL, card=smi)
+    if not (rel["loss"] <= TRAIN_TOL["loss_rtol"]
+            and rel["grad_norm"] <= TRAIN_TOL["grad_norm_rtol"]
+            and grad_err <= TRAIN_TOL["grad_scaled"]
+            and state_err <= TRAIN_TOL["adamw_state_scaled"]
+            and params_err <= TRAIN_TOL["adamw_params_scaled"]):
+        raise AssertionError("train parity: the card disagrees with the CPU")
+    del out, upd, p_d, g_d, p_c, g_c
+    return params
+
+
+def phase_train(torch, dev, smi):
+    """Phase 25: gemma2-2b at full width and depth through ``Trainer`` over
+    ``Prefetcher(SyntheticLM(...))``: TRAIN_BATCH x TRAIN_SEQ tokens a
+    step, AdamW (warmup TRAIN_WARMUP), TRAIN_STEPS steps, the launch plan
+    with logits in chunks of TRAIN_CHUNK. Every loss finite and the last
+    below the first + 0.05 (tests/test_system.py's criterion); tokens/s and
+    the median step over steps 2 on, the optimizer's share of a step (CUDA
+    events around the update), peak memory, the model-flops share of the
+    fp32 peak, a profiled step's idle share and the six kernels' launches
+    (none: the reference's training path runs no Pallas kernel, and the
+    kernels refuse grad). Returns those launches."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+    from repro_torch.models.model import param_count_actual
+    from repro_torch.training import train_step as TS
+    from repro_torch.training.trainer import Trainer
+    cfg = get_config(TRAIN_MODEL)
+    plan = ExecutionPlan(remat="block", compute_dtype="float32",
+                         logits_chunk=TRAIN_CHUNK)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    if held >= FAMILY_HELD_BYTES:
+        raise AssertionError(f"train: {held} bytes still allocated before "
+                             "the phase")
+    torch.cuda.reset_peak_memory_stats()
+    mods = _kernel_modules()
+    for mod in mods:
+        mod.reset_counts()
+    events = []
+    inner = TS.make_optimizer
+
+    def timed(name, **kw):
+        init, update = inner(name, **kw)
+
+        def upd(grads, state, params):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            res = update(grads, state, params)
+            b.record()
+            events.append((a, b))
+            return res
+        return init, upd
+    data = Prefetcher(SyntheticLM(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                  seed=SEED), depth=2)
+    t0 = time.perf_counter()
+    TS.make_optimizer = timed
+    try:
+        tr = Trainer(cfg, plan, data, device=dev, seed=SEED,
+                     total_steps=TRAIN_STEPS, warmup=TRAIN_WARMUP)
+    finally:
+        TS.make_optimizer = inner
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count_actual(tr.params)
+    hist = tr.run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+    opt_ms = [a.elapsed_time(b) for a, b in events]
+    losses = [h["loss"] for h in hist]
+    steady = [h["step_time_s"] for h in hist[1:]]
+    step_s = float(np.median(steady))
+    opt_med = float(np.median(opt_ms[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    prof = _profiled(torch, "train_step", lambda: tr.run(1), smi)
+    data.close()
+    opt_bytes = 7 * 4 * n_params      # p, m, v read and written; g read
+    emit(phase="train", model=TRAIN_MODEL,
+         config=dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
+                     vocab=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
+                     logits_chunk=TRAIN_CHUNK, optimizer="adamw",
+                     plan="remat block, fp32, chunked attention"),
+         params=n_params, init_seconds=init_s, losses=losses,
+         grad_norms=[h["grad_norm"] for h in hist],
+         step_seconds=[h["step_time_s"] for h in hist],
+         median_step_s_steps_2_on=step_s, tokens_per_s=tokens / step_s,
+         optimizer_ms=opt_ms, optimizer_share=opt_med / 1e3 / step_s,
+         optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+         model_flops_per_step=6.0 * n_params * tokens,
+         model_flops_share_fp32=6.0 * n_params * tokens
+         / (step_s * FP32_FLOPS_PER_S),
+         profiled_step_idle_share=prof["device_idle_share"],
+         max_memory_allocated=peak, memory_allocated_before=held,
+         kernel_launches=launches, kernel_plain_calls=plain,
+         kernel_launches_why=("none: the reference's training path runs no "
+                              "Pallas kernel (chunked attention, XLA "
+                              "code), so the port's trains on plain "
+                              "autograd; the kernels refuse grad"),
+         card=smi)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] + 0.05:
+        raise AssertionError(f"train: losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"train: kernel launches {launches}")
+    del tr
+    return launches
+
+
+def _bit_equal(torch, a, b) -> bool:
+    from repro_torch.models.model import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x, y.to(x.device)) for x, y in zip(la, lb))
+
+
+def phase_checkpoint(torch, dev, smi, parity_params):
+    """Phase 26: (a) a ``Trainer`` at CKPT_WIDTH (its params and AdamW
+    state fit the trainer's 256 MB store) checkpoints every CKPT_EVERY
+    steps to two replicas; a fresh ``Trainer`` resumes at the same step,
+    params and state bit-equal; ``fail(1)``, ``rebuild(1)`` through
+    ``stream_store``, then replica 1 alone restores bit-equal; the restored
+    params serve through ``ServeEngine`` (``fused``) the live params'
+    tokens and logits. (b) phase 24's params through a
+    ``ReplicatedCheckpoint`` sized for them: save, restore (bit-equal) and
+    rebuild (every byte streamed; (a) restores a rebuilt replica), seconds
+    and MB/s, the bytes needed and the disk's free space first. (c) ``python -m
+    repro_torch.launch.train --arch gemma2-2b --steps 3 --ckpt-dir`` in a
+    subprocess, exit 0. Files under TMPDIR, removed."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.checkpoint import ReplicatedCheckpoint
+    from repro_torch.checkpoint.store import BS
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import param_count_actual
+    from repro_torch.serving.engine import GenRequest, ServeEngine
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.training.trainer import CKPT_CAPACITY, Trainer
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    try:
+        # (a) resume, rebuild, serve at a width the trainer's store holds
+        cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                                  name=f"{TRAIN_MODEL}-ckpt", **CKPT_WIDTH)
+        plan = ExecutionPlan(remat="block", compute_dtype="float32",
+                             logits_chunk=0)
+        dirs = [os.path.join(tmp, d) for d in "ab"]
+        kw = dict(ckpt_dirs=dirs, ckpt_every=CKPT_EVERY, device=dev,
+                  seed=SEED, total_steps=10, warmup=2)
+        tr = Trainer(cfg, plan, SyntheticLM(cfg.vocab_size, 4, 64), **kw)
+        hist = tr.run(CKPT_STEPS)
+        tr.ckpt.close()
+        t0 = time.perf_counter()
+        tr2 = Trainer(cfg, plan, None, **kw)
+        resume_s = time.perf_counter() - t0
+        resumed = (tr2.step == tr.step and _bit_equal(torch, tr2.params,
+                                                      tr.params)
+                   and _bit_equal(torch, tr2.opt_state, tr.opt_state))
+        rc = tr2.ckpt
+        rc.fail(1)
+        t0 = time.perf_counter()
+        info = rc.rebuild(1)
+        rebuild_s = time.perf_counter() - t0
+        step, blob = rc.stores[1].restore("train", like=tr2._state(),
+                                          device=dev)
+        rebuilt = (step == tr.step
+                   and _bit_equal(torch, blob["params"], tr.params)
+                   and _bit_equal(torch, blob["opt"], tr.opt_state))
+        rc.close()
+        served, logits = {}, {}
+        prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 16)
+        for name, p in (("live", tr.params), ("restored", blob["params"])):
+            eng = ServeEngine(cfg, p, n_slots=2, max_len=128, device=dev,
+                              kernel="cuda", record_logits=True)
+            req = GenRequest(req_id=0, prompt=prompt, max_new=8)
+            eng.submit(req)
+            served[name] = eng.run(max_steps=32)[0]
+            logits[name] = np.stack(req.logit_trace)
+            eng.volumes.close()
+            del eng
+        logit_diff = float(np.abs(logits["live"] - logits["restored"]).max())
+        small = dict(params=param_count_actual(tr.params),
+                     version_bytes=sum(t.numel() * t.element_size()
+                                       for t in tree_leaves(tr._state())),
+                     store_bytes=CKPT_CAPACITY, losses=[h["loss"]
+                                                        for h in hist],
+                     resumed_step=tr2.step, resume_s=resume_s,
+                     resume_bit_equal=resumed, rebuild=info,
+                     rebuild_s=rebuild_s, rebuilt_restore_bit_equal=rebuilt,
+                     served_tokens=served, served_logit_max_diff=logit_diff,
+                     served_equal=(served["live"] == served["restored"]
+                                   and logit_diff == 0.0))
+        del tr, tr2, blob
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) phase 24's params through a store sized for them
+        tree = tree_map(lambda t: t.to(dev), parity_params)
+        leaves = tree_leaves(tree)
+        need = sum(-(-t.numel() * t.element_size() // BS) * BS
+                   for t in leaves) + 16 * BS
+        disk = shutil.disk_usage(tmp)
+        reduced = {}
+        if 3 * need > disk.free:         # two replicas and one rebuilt
+            keep, size = [], 0
+            for name in sorted(tree):
+                n = sum(t.numel() * 4 for t in tree_leaves(tree[name]))
+                if 3 * (size + n + 16 * BS) <= disk.free:
+                    keep.append(name)
+                    size += n
+            reduced = {"leaves": [sorted(tree), keep]}
+            tree = {k: tree[k] for k in keep}
+            need = size + 16 * BS
+        big = [os.path.join(tmp, f"big_{d}") for d in "ab"]
+        rc = ReplicatedCheckpoint(big, capacity_bytes=int(need * 1.05))
+        mb = need / 2**20
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc.save("parity", 24, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, back = rc.restore("parity", like=tree, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored = step == 24 and _bit_equal(torch, back, tree)
+        del back
+        rc.fail(1)
+        t0 = time.perf_counter()
+        binfo = rc.rebuild(1)
+        brebuild_s = time.perf_counter() - t0
+        brebuilt = binfo["counters"]["bytes_moved"] >= need - 16 * BS
+        rc.close()
+        del tree, leaves
+        large = dict(bytes_needed=need, disk_free=disk.free,
+                     disk_total=disk.total, fs=fs_of(tmp), reduced=reduced,
+                     save_s=save_s, save_mb_per_s=2 * mb / save_s,
+                     restore_s=restore_s, restore_mb_per_s=mb / restore_s,
+                     rebuild_s=brebuild_s, rebuild_mb_per_s=mb / brebuild_s,
+                     rebuild=binfo["counters"], restore_bit_equal=restored,
+                     rebuild_streamed_every_byte=brebuilt)
+        for d in big:
+            shutil.rmtree(d, ignore_errors=True)
+
+        # (c) the launcher as a user runs it
+        t0 = time.perf_counter()
+        cp = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_MODEL, "--steps", "3", "--ckpt-dir",
+             os.path.join(tmp, "launch")], capture_output=True, text=True,
+            timeout=600, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(SRC)))
+        launch = dict(rc=cp.returncode, seconds=time.perf_counter() - t0,
+                      stdout=cp.stdout.strip().splitlines()[-3:],
+                      stderr=cp.stderr.strip().splitlines()[-3:])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="checkpoint", trainer=small, parity_params=large,
+         launch=launch, card=smi)
+    if not (resumed and rebuilt and small["served_equal"] and restored
+            and brebuilt and launch["rc"] == 0):
+        raise AssertionError("checkpoint phase failed (see its line)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -5267,6 +5690,18 @@ def main() -> int:
         paged_k.update(_width_keys(f"{tag}_split", fam["split"]))
         if fam["mtp_flash_launches"] is not None:
             flash_k["launches_mtp_path"] = fam["mtp_flash_launches"]
+
+    # the training slice: one step at full width (two layers) on the card
+    # against the CPU, gemma2-2b trained at full depth, then checkpoints
+    parity_params = phase_train_parity(torch, dev, smi)
+    free()
+    train_launches = phase_train(torch, dev, smi)
+    free()
+    phase_checkpoint(torch, dev, smi, parity_params)
+    del parity_params
+    free()
+    for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
+        k["launches_train_path"] = train_launches[k["name"]]
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

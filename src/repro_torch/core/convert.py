@@ -11,7 +11,9 @@ JAX array. The block bitmap is uint32 on the JAX side and int64 here.
 Weights: the serving engine runs a model, whose parameters the reference
 initialises from a JAX key; ``params_from_numpy`` takes that tree as numpy
 (``jax.device_get(repro.models.init_params(key, cfg))``, stacked segments
-and all) and makes the port's parameters of it.
+and all) and makes the port's parameters of it; ``opt_state_from_numpy``
+does the same for an optimizer state, so both packages can start a train
+step from one state.
 """
 from __future__ import annotations
 
@@ -87,10 +89,21 @@ def params_from_numpy(cfg, tree: Any, device) -> Any:
             raise ValueError(f"{len(tree['segments'])} segments in the tree, "
                              f"{len(schedule)} in {cfg.name}'s schedule")
 
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        if isinstance(x, (list, tuple)):
-            return type(x)(conv(v) for v in x)
-        return _t(x, device)
-    return conv(tree)
+    return _tree_from_numpy(tree, device)
+
+
+def opt_state_from_numpy(tree: Any, device) -> Any:
+    """The port's optimizer state from the reference's as numpy
+    (``jax.device_get(opt_init(params))`` or a later state): AdamW's
+    ``m``/``v``/``count`` or Adafactor's ``slots``/``count``, the same
+    nested dicts with a tensor on ``device`` at each leaf (``count`` a 0-d
+    int32)."""
+    return _tree_from_numpy(tree, device)
+
+
+def _tree_from_numpy(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_from_numpy(v, device) for v in tree)
+    return _t(tree, device)

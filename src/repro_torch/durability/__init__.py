@@ -18,8 +18,8 @@ durability plane, four cooperating modules riding existing surfaces:
 - ``export``: ``SnapshotExport``, incremental snapshot export on the
   ``page_rev`` watermarks: each section ships only the extents backing
   pages newer than the previous section's watermark row, into a versioned
-  file with header-commits-last ordering. ``stream_store`` (the checkpoint
-  rebuild) waits for the checkpoint slice and raises.
+  file with header-commits-last ordering; ``stream_store``, the checkpoint
+  replica rebuild streamed through the stores' block paths.
 - ``tier``: ``ExtentTier``, a capacity tier for the fused engine that
   spills cold extents to (pinned) host memory and keeps a bounded
   device-resident hot set (clock/second-chance over per-extent access

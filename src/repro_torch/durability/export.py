@@ -35,8 +35,10 @@ leaves the header pointing at the old, consistent prefix.
 post-watermark extents" the same way the rebuild tests assert streamed
 page counts.
 
-``stream_store`` (the checkpoint replica rebuild over this surface) needs
-the checkpoint store, which is not ported yet; it raises.
+``stream_store`` is the checkpoint replica rebuild over this surface
+(``checkpoint/replicated.py``): it streams a donor ``CheckpointStore``'s
+committed volumes into a target store through both stores' block paths,
+with the same counters as the reference's.
 """
 from __future__ import annotations
 
@@ -337,10 +339,44 @@ class SnapshotExport:
 
 
 def stream_store(donor, target, *, chunk_blocks: int = 64,
-                 counters: Optional[ExportCounters] = None):
-    """The checkpoint replica rebuild streamed through the block paths
-    (the reference's ``stream_store``). It needs the checkpoint store,
-    which ROADMAP queue 1 item 4 ports; until then it raises."""
-    raise ValueError("durability.stream_store serves the checkpoint rebuild "
-                     "and lands with the checkpoint slice (ROADMAP queue 1 "
-                     "item 4)")
+                 counters: Optional[ExportCounters] = None
+                 ) -> Dict[str, Any]:
+    """Rebuild a checkpoint replica by STREAMING the donor's committed
+    volumes through both stores' public block paths — the export-plane
+    analogue of the engine's chunked FETCH_PAGES/PUSH_PAGES rebuild — with
+    transport-style accounting.
+
+    For every donor volume, the valid manifest (header + digest walk,
+    ``CheckpointStore._read_valid``) picks the committed version, its data
+    blocks are read in ``chunk_blocks`` chunks and written into the target
+    store, and the target freezes a snapshot — the same commit ordering
+    ``save`` uses, so a crash mid-stream leaves the target's head torn but
+    never a frozen version. Returns ``{"volumes": {name: blocks},
+    "counters": ...}``."""
+    from repro_torch.checkpoint.store import BS
+    counters = counters or ExportCounters()
+    streamed: Dict[str, int] = {}
+    for name in list(donor.dev.volumes):
+        if name.startswith("__restore_"):
+            continue
+        try:
+            blob = donor._read_valid(name)
+        except IOError:
+            continue
+        man = blob["manifest"]
+        data_end = (1 + blob["manifest_blocks"]) * BS + man["total"]
+        total_blocks = data_end // BS
+        if name not in target.dev.volumes:
+            target.dev.create_volume(name)
+        moved = 0
+        for b0 in range(0, total_blocks, chunk_blocks):
+            nb = min(chunk_blocks, total_blocks - b0)
+            raw = donor.dev.read(blob["volume"], b0 * BS, nb * BS)
+            target.dev.write(name, b0 * BS, raw)
+            moved += nb
+            counters.account("STREAM", nb, nb * BS)
+        target.dev.snapshot(name)                 # version committed
+        if blob["volume"] != name:                # _read_valid's temp clone
+            donor.dev.delete_volume(blob["volume"])
+        streamed[name] = moved
+    return {"volumes": streamed, "counters": counters.to_dict()}

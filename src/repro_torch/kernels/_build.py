@@ -9,7 +9,8 @@ per source together, so a cold start waits for the slowest source, not
 their sum. ``nvcc`` failures raise. Nothing here runs at import time.
 
 Register a source in ``SOURCES`` and its C entry points in ``SIGNATURES``.
-``check_tensor`` and ``raise_on`` are the wrappers' shared launch checks.
+``check_tensor``, ``refuse_grad`` and ``raise_on`` are the wrappers'
+shared launch checks.
 """
 from __future__ import annotations
 
@@ -215,3 +216,15 @@ def check_tensor(name: str, t, dtype, shape, device,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernels
+    have no backward (nor has the reference's Pallas kernel), and an output
+    without a ``grad_fn`` would drop those inputs' gradients silently. On
+    the CPU as on the card: the check comes before any launch."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{name}: the kernel has no backward; train on a "
+                         "plain attn_impl ('chunked' or 'dense')")

@@ -26,7 +26,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels._build import (check_tensor, kernel_info, library,
-                                       raise_on)
+                                       raise_on, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -68,6 +68,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     output is laid out as (B,Sq,H,hd_v) in memory (the model layout) and
     returned as its (B,H,Sq,hd_v) view. The default scale is
     1/sqrt(hd)."""
+    refuse_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]

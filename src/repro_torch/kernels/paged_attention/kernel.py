@@ -33,7 +33,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels._build import (check_tensor, kernel_info, library,
-                                        raise_on)
+                                        raise_on, refuse_grad)
 from repro_torch.kernels.paged_attention.ref import (paged_attention_pool_ref,
                                                      paged_attention_ref)
 
@@ -162,6 +162,7 @@ def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
     """q: (B,H,hd); pools: (E,page,KV,hd_{k,v}); block_table: (B,P) int32;
     lengths: (B,) int32. Hole pages (extent -1) are skipped. Returns
     (B,H,hd_v) fp32."""
+    refuse_grad("paged_attention", q, pool_k, pool_v)
     e, page, kv, dk = pool_k.shape
     dv = pool_v.shape[-1]
     dev = q.device
@@ -194,6 +195,7 @@ def paged_attention_pool_fwd(q, pool, block_table, lengths, *, k_plane,
     ``2*l+1`` its values (serving/engine.py); block_table: (B,P) rows of
     the volume extent map (holes -1); lengths: (B,). The kernel reads the
     two planes in place through strides: no staging copy of the KV cache."""
+    refuse_grad("paged_attention", q, pool)
     e, page, n_planes, kv, d = pool.shape
     dev = q.device
     _check_common(q, block_table, lengths, kv, dev)

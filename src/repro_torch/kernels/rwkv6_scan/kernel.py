@@ -25,7 +25,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import (check_tensor, kernel_info, library,
-                                        raise_on)
+                                        raise_on, refuse_grad)
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 
 LAUNCHES: Dict[str, int] = {"rwkv6_scan": 0}
@@ -80,6 +80,7 @@ def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
     """r,k,v,logw: (B,S,H,hd) fp32, any strides with hd contiguous; u:
     (H,hd); s0: (B,H,hd,hd) or None (zeros). Returns (y (B,S,H,hd),
     s_final (B,H,hd,hd)), both fp32 and contiguous."""
+    refuse_grad("rwkv6_scan", r, k, v, logw, u, s0)
     b, s, h, d = r.shape
     dev = r.device
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):

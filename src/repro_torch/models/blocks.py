@@ -438,7 +438,8 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
 
     if sig.attn == ATTN_RWKV:
         tp = p["tmix_cmix"]
-        st = ctx.cache["rwkv"] if ctx.cache else None
+        cached = ctx.cache["rwkv"] if ctx.cache else None
+        st = cached
         if st is None:                              # forward: no cache
             st = ssm.rwkv6_init_state(cfg, x.shape[0], x.dtype, x.device)
         h = norm(x, p["ln1"])
@@ -448,9 +449,11 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
         h2 = norm(x, p["ln2"])
         y2, st_c = ssm.rwkv6_channel_mix(tp, h2, st)
         x = x + y2
-        # in place: the serving engine's per-slot views write through
-        for key, val in {**st_t, **st_c}.items():
-            st[key].copy_(val)
+        if cached is not None:
+            # in place: the serving engine's per-slot views write through
+            # (not into forward's fresh state, which backward reads)
+            for key, val in {**st_t, **st_c}.items():
+                cached[key].copy_(val)
         return x, new_cache, aux
 
     resid = x

@@ -3,10 +3,12 @@ schedule.
 
 Port of ``repro/models/model.py``, deepseek-v3's multi-token-prediction
 head included (``init_params`` draws it, ``mtp_hidden`` runs it; its loss
-is training's). ``forward`` walks the layers one by one, with no remat
-and no scan over stacked segments (those shape the reference's training
-graph; the port's training slice brings them). ``init_params`` draws every
-weight from one ``torch.Generator`` on its device and holds the layers
+is training's). ``forward`` walks the layers one by one (no scan over
+stacked segments); with ``plan.remat`` other than ``"none"`` and autograd
+recording, each layer runs under ``torch.utils.checkpoint``, so backward
+keeps only the layers' inputs and recomputes the rest a layer at a time,
+as the reference's ``jax.checkpoint`` a layer does. ``init_params`` draws
+every weight from one ``torch.Generator`` on its device and holds the layers
 unstacked (``params["layers_unstacked"]``, one dict per layer, as the
 reference's ``unstack_params`` gives them); trees carried over from the
 reference (``core/convert.py params_from_numpy``) keep its stacked
@@ -19,6 +21,7 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, ExecutionPlan, MLP_DENSE
 from repro_torch.models import blocks as B
@@ -58,25 +61,28 @@ def mtp_sig(cfg: ArchConfig) -> B.LayerSig:
 
 
 def param_count_actual(params: Params) -> int:
-    return sum(t.numel() for t in _leaves(params))
+    return sum(t.numel() for t in tree_leaves(params))
 
 
-def _leaves(tree):
+def tree_leaves(tree) -> List:
+    """Leaves of nested dicts, lists and tuples, in insertion order."""
+    return leaves_up_to(tree, tree)
+
+
+def leaves_up_to(like, tree) -> List:
+    """``tree``'s subtrees at ``like``'s leaves, in ``like``'s order."""
+    if isinstance(like, dict):
+        return [x for k in like for x in leaves_up_to(like[k], tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for a, b in zip(like, tree) for x in leaves_up_to(a, b)]
+    return [tree]
+
+
+def tree_map(fn, tree):
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -98,12 +104,22 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ArchConfig,
     ctx = B.BlockCtx(mode="train", q_pos=positions, k_pos=positions,
                      attn_impl=plan.attn_impl, chunk=1024)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = plan.remat != "none" and torch.is_grad_enabled()
     for _li, sig, lp in _iter_layers(cfg, params):
-        x, _, a = B.apply_block(cfg, sig, lp, x, ctx)
+        if remat:
+            x, a = checkpoint(_train_block, cfg, sig, lp, x, ctx,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _train_block(cfg, sig, lp, x, ctx)
         aux = aux + a
     h = rms_norm(x, params["final_norm"], cfg.norm_eps,
                  gemma_style=cfg.name.startswith("gemma"))
     return h, aux
+
+
+def _train_block(cfg, sig, lp, x, ctx):
+    x, _, a = B.apply_block(cfg, sig, lp, x, ctx)
+    return x, a
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +177,7 @@ def _iter_layers(cfg, params):
     for seg, seg_p in zip(schedule, params["segments"]):
         for step in range(seg.count):
             for pi, sig in enumerate(seg.sigs):
-                lp = _tree_map(lambda a, s=step: a[s], seg_p[f"pos{pi}"])
+                lp = tree_map(lambda a, s=step: a[s], seg_p[f"pos{pi}"])
                 yield li, sig, lp
                 li += 1
 

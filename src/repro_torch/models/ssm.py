@@ -92,15 +92,30 @@ def _linear_scan(decay: torch.Tensor, inp: torch.Tensor):
     """Inclusive scan of ``h_t = decay_t * h_{t-1} + inp_t`` along dim 1
     from h = 0, in log2(C) passes: pass ``d`` folds element ``t - d`` into
     ``t`` with the reference's combine ``(a1 * a2, b1 * a2 + b2)``. Returns
-    (the decays' running products, the running states); both inputs are
-    consumed (overwritten)."""
+    (the decays' running products, the running states). Without autograd
+    both inputs are consumed (overwritten); when an input needs a gradient
+    each pass builds new tensors of the same values instead, since autograd
+    keeps the overwritten ones."""
     c = decay.shape[1]
     d = 1
+    if _tracked(decay, inp):
+        while d < c:
+            folded = inp[:, d:] + inp[:, :-d] * decay[:, d:]
+            inp = torch.cat([inp[:, :d], folded], dim=1)
+            decay = torch.cat([decay[:, :d], decay[:, d:] * decay[:, :-d]],
+                              dim=1)
+            d *= 2
+        return decay, inp
     while d < c:
         inp[:, d:] += inp[:, :-d] * decay[:, d:]
         decay[:, d:] = decay[:, d:] * decay[:, :-d]
         d *= 2
     return decay, inp
+
+
+def _tracked(*tensors) -> bool:
+    """Whether autograd records an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def _mamba_inner(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
@@ -138,7 +153,10 @@ def _mamba_inner(p: Params, xz: torch.Tensor, conv_state: torch.Tensor,
         decay = torch.exp(dtb[..., None] * a)                  # (B,C,E,N)
         inp = (dtb * xf[:, sl])[..., None] * b_t[:, sl, None, :]
         a_sc, b_sc = _linear_scan(decay, inp)
-        hs = a_sc.mul_(h[:, None]).add_(b_sc)                  # (B,C,E,N)
+        if _tracked(a_sc, b_sc, h):
+            hs = a_sc * h[:, None] + b_sc
+        else:
+            hs = a_sc.mul_(h[:, None]).add_(b_sc)              # (B,C,E,N)
         ys.append(torch.einsum("bcen,bcn->bce", hs, c_t[:, sl]))
         h = hs[:, -1]
     y = ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)

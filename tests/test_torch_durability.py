@@ -22,10 +22,11 @@ that hold the two packages against each other:
    the untiered one on the same trace (byte-equal reads, stamps equal to
    the JAX ``_stamp_tier``'s, spills and fills both above 0).
 
-Left out with the modules they need: the checkpoint stream rebuild
-(``test_checkpoint_rebuild_streams_blocks``, the checkpoint slice) and the
-harness crash scenario (``test_harness_crash_scenario``, the harness
-slice); ``stream_store`` raises until then.
+The checkpoint stream rebuild (``test_checkpoint_rebuild_streams_blocks``)
+has its twin in tests/test_torch_system.py; here ``stream_store`` runs
+straight between two checkpoint stores against the reference's. The
+harness crash scenario (``test_harness_crash_scenario``) has its twin in
+tests/test_torch_harness_scenarios.py.
 """
 import dataclasses
 import os
@@ -769,7 +770,36 @@ def test_stats_expose_journal_counters(tmp_path):
     mgr.close()
 
 
-def test_stream_store_waits_for_the_checkpoint_slice():
+def test_stream_store_waits_for_the_checkpoint_slice(tmp_path):
+    """``stream_store`` no longer waits: between two checkpoint stores (the
+    donor with two versions, a torn head and a leaf of 3 chunks) it gives
+    the reference's summary and target file, byte for byte."""
+    from repro.checkpoint import CheckpointStore as JStore
+    from repro.durability.export import stream_store as j_stream
+    from repro_torch.checkpoint import CheckpointStore
     from repro_torch.durability import stream_store
-    with pytest.raises(ValueError, match="queue 1 item 4"):
-        stream_store(None, None)
+    rng = np.random.default_rng(0)
+    trees = [{"w": rng.normal(size=(200, 160)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+             for _ in range(2)]
+    out = {}
+    for pkg, store, stream in (("j", JStore, j_stream),
+                               ("t", CheckpointStore, stream_store)):
+        donor = store(str(tmp_path / f"{pkg}_donor.dbs"),
+                      capacity_bytes=1 << 22)
+        for step, tree in enumerate(trees):
+            donor.save("train", step, tree)
+        donor.dev.write("train", 0, b"\xff" * 4096)      # a torn head
+        target = store(str(tmp_path / f"{pkg}_target.dbs"),
+                       capacity_bytes=1 << 22)
+        out[pkg] = stream(donor, target, chunk_blocks=16)
+        step, back = target.restore("train", like=trees[1])
+        assert step == 1
+        np.testing.assert_array_equal(np.asarray(back["w"]), trees[1]["w"])
+        donor.close()
+        target.close()
+    assert out["t"] == out["j"]
+    assert out["t"]["counters"]["sent"]["STREAM"] >= 3
+    with open(tmp_path / "t_target.dbs", "rb") as f_t, \
+            open(tmp_path / "j_target.dbs", "rb") as f_j:
+        assert f_t.read() == f_j.read()

@@ -86,6 +86,14 @@ CPU (atol 1e-4, rtol 1e-4: the products and the scan sum in other orders
 on the card); and the MoE at granite-moe's width for a decode batch
 under ``torch.cuda.set_sync_debug_mode("error")``, against the same on
 the CPU.
+
+Training and checkpoints: one train step at smoke width (gemma2-2b,
+hymba-1.5b, granite-moe-3b-a800m, rwkv6-3b; remat on, the chunked
+attention) on the card against the CPU from the same params and batch:
+the loss within rtol 1e-5, every gradient within 1e-4 of its leaf's
+largest magnitude, and the params after a step within 2 lr (AdamW's first
+step is a sign function); and a checkpoint saved from tensors on the card (fp32, bf16, a 0-d
+int32) restored onto the card and onto the CPU bit for bit.
 Imports no JAX.
 """
 import numpy as np
@@ -1308,3 +1316,76 @@ def test_flash_attention_mla_and_audio_widths(sq, h, kv, dk, dv, window, cap,
         want = flash_attention_reference(qm, km, vm, **kw)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# training and checkpoints
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma2-2b", "hymba-1.5b",
+                                  "granite-moe-3b-a800m", "rwkv6-3b"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    dev = _cuda()
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.training.train_step import grads_of, make_train_step
+    cfg = smoke_config(arch)
+    plan = ExecutionPlan(remat="block", attn_impl="chunked",
+                         compute_dtype="float32")
+    params = init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.randint(0, cfg.vocab_size, (2, 32),
+                        generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": tok, "labels": tok}
+    on = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = tree_map(lambda t, d=d: t.to(d, copy=True), params)
+        b = {k: v.to(d) for k, v in batch.items()}
+        g, m = grads_of(p, b, cfg, plan)
+        init, step = make_train_step(cfg, plan, total_steps=8, warmup=1)
+        q, _, m2 = step(p, init(p), b)
+        on[name] = (g, m, q, m2)
+    (g_c, m_c, p_c, s_c), (g_g, m_g, p_g, s_g) = on["cpu"], on["card"]
+    for k in m_c:
+        torch.testing.assert_close(m_g[k].cpu(), m_c[k], atol=1e-6,
+                                   rtol=1e-5)
+    torch.testing.assert_close(s_g["grad_norm"].cpu(), s_c["grad_norm"],
+                               atol=1e-6, rtol=1e-5)
+    for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        scale = float(b.abs().max()) or 1.0
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * scale
+    # AdamW's first step moves a parameter by about lr (3e-4 here) whatever
+    # the size of its gradient, so where a gradient is ~0 and its sign
+    # differs the params differ by up to 2 lr
+    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        assert torch.isfinite(a).all()
+        assert float((a.cpu() - b).abs().max()) <= 2 * 3e-4 + 1e-6
+
+
+@pytest.mark.gpu
+def test_checkpoint_from_card_tensors(tmp_path):
+    dev = _cuda()
+    from repro_torch.checkpoint import CheckpointStore
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = {"w": torch.randn((300, 70), generator=gen, device=dev),
+            "e": torch.randn((17, 9), generator=gen, device=dev)
+            .to(torch.bfloat16),
+            "opt": {"count": torch.tensor(5, dtype=torch.int32, device=dev),
+                    "m": [torch.randn((4096,), generator=gen, device=dev)]}}
+    st = CheckpointStore(str(tmp_path / "ck.dbs"), capacity_bytes=1 << 22)
+    st.save("train", 3, tree)
+    for where in (dev, torch.device("cpu")):
+        step, back = st.restore("train", like=tree, device=where)
+        assert step == 3
+        for key in ("w", "e"):
+            assert back[key].device.type == where.type
+            assert back[key].dtype == tree[key].dtype
+            assert torch.equal(back[key].cpu().view(torch.int16)
+                               if key == "e" else back[key].cpu(),
+                               tree[key].cpu().view(torch.int16)
+                               if key == "e" else tree[key].cpu())
+        assert int(back["opt"]["count"]) == 5
+        assert torch.equal(back["opt"]["m"][0].cpu(),
+                           tree["opt"]["m"][0].cpu())
+    st.close()
