@@ -439,7 +439,23 @@ and the script exits non-zero:
    seconds and MB/s; the bytes it needs and the temp dir's free space
    first (cut to what fits, and listed, when the disk is short). (c) ``python -m
    repro_torch.launch.train --arch gemma2-2b --steps 3 --ckpt-dir <tmp>``
-   as a subprocess, exit 0. Files under TMPDIR, removed.
+   as a subprocess, exit 0. Files under TMPDIR; (b)'s replicas stay for
+   phase 27, then all are removed.
+27. distributed — the mesh on one card: a (1, 1) ("data", "model") NCCL
+   mesh over a 1-rank group (a localhost rendezvous; destroyed at the
+   end). ``machine_profile()`` must name the H100 without assuming; the
+   planner's placements for every parameter leaf of gemma2-2b at its
+   published widths and depth, the params placed as DTensors; one decode
+   step of phase 24's cut (4 prompts of 500 tokens) through
+   ``make_sharded_paged_decode(mesh, True)`` against the same step through
+   the local paged read (equal tokens, logits within atol 1e-5 and rtol
+   1e-5), and the striped read of the first paged layer against the paged
+   kernel on the same pools and block table (ATTN_TOL; kernel #4's check
+   calls go in its kernels entry); phase 26's 2.98 GB checkpoint restored
+   as DTensors with the planner's placements, every leaf bit-equal, with
+   its MB/s; ``compressed_cross_pod_mean`` over two steps with error
+   feedback and ``hierarchical_psum`` on a (1, 1, 1) ("pod", "data",
+   "model") mesh, exact on one rank. The phase's seconds beside the card.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -463,11 +479,9 @@ ROOT = Path(__file__).resolve().parent
 T0 = time.perf_counter()
 SRC = ROOT / "src"
 KERNEL_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_rw.cu"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
-# fp32 work in 3xTF32 on the tensor cores: three TF32 products per fp32
-# multiply-add at the H100 SXM's 495 TFLOP/s dense TF32 rate
-TF32X3_FLOPS_PER_S = 495e12 / 3
+# the H100 SXM's data-sheet rates (HBM bytes/s, fp32 and 3xTF32 flops/s)
+# live in repro_torch/utils/machine.py; main() imports them once it has
+# found the port's sources
 PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 COPY_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_copy.cu"
@@ -593,6 +607,11 @@ TRAIN_TOL = dict(loss_rtol=1e-5, grad_norm_rtol=1e-4, grad_scaled=1e-4,
 CKPT_WIDTH = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
                   head_dim=64, d_ff=1024, vocab_size=4096)
 CKPT_EVERY, CKPT_STEPS = 2, 4
+# phase 27, the mesh on one card: a (1, 1) NCCL mesh; the striped decode
+# on phase 24's cut (a batch of DIST_BATCH prompts of DIST_PROMPT tokens,
+# caches of DIST_MAX_LEN positions), held against the local paged read
+DIST_BATCH, DIST_PROMPT, DIST_MAX_LEN = 4, 500, 1024
+DIST_TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 def emit(**kw) -> None:
@@ -5227,7 +5246,7 @@ def _bit_equal(torch, a, b) -> bool:
         and torch.equal(x, y.to(x.device)) for x, y in zip(la, lb))
 
 
-def phase_checkpoint(torch, dev, smi, parity_params):
+def phase_checkpoint(torch, dev, smi, parity_params, keep):
     """Phase 26: (a) a ``Trainer`` at CKPT_WIDTH (its params and AdamW
     state fit the trainer's 256 MB store) checkpoints every CKPT_EVERY
     steps to two replicas; a fresh ``Trainer`` resumes at the same step,
@@ -5239,7 +5258,9 @@ def phase_checkpoint(torch, dev, smi, parity_params):
     rebuild (every byte streamed; (a) restores a rebuilt replica), seconds
     and MB/s, the bytes needed and the disk's free space first. (c) ``python -m
     repro_torch.launch.train --arch gemma2-2b --steps 3 --ckpt-dir`` in a
-    subprocess, exit 0. Files under TMPDIR, removed."""
+    subprocess, exit 0. Files under ``keep`` (in TMPDIR): (b)'s two
+    replicas stay for phase 27, the rest is removed. Returns (b)'s
+    checkpoint: its directories, bytes, capacity and the params' keys."""
     import dataclasses
 
     import numpy as np
@@ -5252,7 +5273,8 @@ def phase_checkpoint(torch, dev, smi, parity_params):
     from repro_torch.serving.engine import GenRequest, ServeEngine
     from repro_torch.models.model import tree_leaves, tree_map
     from repro_torch.training.trainer import CKPT_CAPACITY, Trainer
-    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    tmp = os.path.join(keep, "phase26")
+    os.makedirs(tmp)
     try:
         # (a) resume, rebuild, serve at a width the trainer's store holds
         cfg = dataclasses.replace(get_config(TRAIN_MODEL),
@@ -5315,18 +5337,20 @@ def phase_checkpoint(torch, dev, smi, parity_params):
         need = sum(-(-t.numel() * t.element_size() // BS) * BS
                    for t in leaves) + 16 * BS
         disk = shutil.disk_usage(tmp)
+        # two replicas and one rebuilt, then (c)'s two stores beside them
+        room = disk.free - 2 * CKPT_CAPACITY
         reduced = {}
-        if 3 * need > disk.free:         # two replicas and one rebuilt
-            keep, size = [], 0
+        if 3 * need > room:
+            kept_leaves, size = [], 0
             for name in sorted(tree):
                 n = sum(t.numel() * 4 for t in tree_leaves(tree[name]))
-                if 3 * (size + n + 16 * BS) <= disk.free:
-                    keep.append(name)
+                if 3 * (size + n + 16 * BS) <= room:
+                    kept_leaves.append(name)
                     size += n
-            reduced = {"leaves": [sorted(tree), keep]}
-            tree = {k: tree[k] for k in keep}
+            reduced = {"leaves": [sorted(tree), kept_leaves]}
+            tree = {k: tree[k] for k in kept_leaves}
             need = size + 16 * BS
-        big = [os.path.join(tmp, f"big_{d}") for d in "ab"]
+        big = [os.path.join(keep, f"big_{d}") for d in "ab"]
         rc = ReplicatedCheckpoint(big, capacity_bytes=int(need * 1.05))
         mb = need / 2**20
         torch.cuda.synchronize()
@@ -5345,6 +5369,8 @@ def phase_checkpoint(torch, dev, smi, parity_params):
         brebuild_s = time.perf_counter() - t0
         brebuilt = binfo["counters"]["bytes_moved"] >= need - 16 * BS
         rc.close()
+        saved = dict(dirs=big, need=need, capacity=int(need * 1.05),
+                     keys=sorted(tree))
         del tree, leaves
         large = dict(bytes_needed=need, disk_free=disk.free,
                      disk_total=disk.total, fs=fs_of(tmp), reduced=reduced,
@@ -5353,8 +5379,6 @@ def phase_checkpoint(torch, dev, smi, parity_params):
                      rebuild_s=brebuild_s, rebuild_mb_per_s=mb / brebuild_s,
                      rebuild=binfo["counters"], restore_bit_equal=restored,
                      rebuild_streamed_every_byte=brebuilt)
-        for d in big:
-            shutil.rmtree(d, ignore_errors=True)
 
         # (c) the launcher as a user runs it
         t0 = time.perf_counter()
@@ -5374,7 +5398,217 @@ def phase_checkpoint(torch, dev, smi, parity_params):
     if not (resumed and rebuilt and small["served_equal"] and restored
             and brebuilt and launch["rc"] == 0):
         raise AssertionError("checkpoint phase failed (see its line)")
+    return saved
 
+
+
+def phase_distributed(torch, dev, smi, parity_params, saved, keep):
+    """Phase 27: the mesh on one card, a (1, 1) ("data", "model") NCCL mesh
+    (a 1-rank group on a localhost rendezvous, destroyed at the end). (a) ``machine_profile()``
+    names the card without assuming. (b) The planner's placements for every
+    parameter leaf of gemma2-2b at its published widths and depth, the
+    params placed as DTensors. (c) One decode step of phase 24's cut after
+    a DIST_BATCH x DIST_PROMPT prefill through ``decode_step(...,
+    paged_decode_fn=make_sharded_paged_decode(mesh, True))`` against the
+    same step through the local paged read: equal tokens, logits within
+    DIST_TOL; the striped read of the first paged layer held against the
+    paged kernel (``paged_attention_fwd``) on the same pools and block
+    table, within ATTN_TOL. (d) Phase 26's checkpoint restored through
+    ``ReplicatedCheckpoint.restore(..., mesh=, placements=)`` with the
+    planner's placements: every leaf bit-equal, MB/s. (e)
+    ``compressed_cross_pod_mean`` (two steps, error feedback) and
+    ``hierarchical_psum`` on a (1, 1, 1) ("pod", "data", "model") mesh
+    and the (1, 1) one: on one rank each is exact. Returns the paged
+    kernel's check calls."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.checkpoint import ReplicatedCheckpoint
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.distributed.collectives import (
+        compress_int8, compressed_cross_pod_mean, decompress_int8,
+        hierarchical_psum, make_sharded_paged_decode)
+    from repro_torch.distributed.planner import Planner, distribute
+    from repro_torch.kernels.paged_attention import kernel as paged_mod
+    from repro_torch.launch.mesh import local_init_method, make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.models.model import (decode_step, default_block_tables,
+                                          init_cache, leaves_up_to,
+                                          param_count_actual, prefill,
+                                          tree_leaves, tree_map,
+                                          with_block_tables)
+    from repro_torch.utils.machine import machine_profile
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=local_init_method(),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        prof = machine_profile()
+        profile = dict(prof.to_dict(), device=torch.cuda.get_device_name(0))
+
+        # (b) the planner over gemma2-2b at its published shapes
+        full = get_config(TRAIN_MODEL)
+        plan = ExecutionPlan(compute_dtype="float32")
+        t0 = time.perf_counter()
+        params = init_params(torch.Generator(device=dev).manual_seed(SEED),
+                             full)
+        planner = Planner(mesh, full, plan)
+        places = planner.shardings(params)
+        placed = distribute(params, mesh, places, src_data_rank=None)
+        got = tree_leaves(placed)
+        places = leaves_up_to(params, places)
+        planned = dict(
+            leaves=len(places), params=param_count_actual(params),
+            dtensors=sum(type(t).__name__ == "DTensor" for t in got),
+            sharded_leaves=sum(any(x.is_shard() for x in pl)
+                               for pl in places),
+            equal=all(torch.equal(a.to_local(), b)
+                      for a, b in zip(got, tree_leaves(params))),
+            seconds=time.perf_counter() - t0)
+        del params, placed, got, places
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the striped decode against the local paged read and kernel #4
+        cfg = dataclasses.replace(full, n_layers=PARITY_LAYERS)
+        p = tree_map(lambda t: t.to(dev), parity_params)
+        rng = torch.Generator().manual_seed(SEED + 27)
+        tokens = torch.randint(0, cfg.vocab_size, (DIST_BATCH, DIST_PROMPT),
+                               generator=rng).to(dev)
+        caches = init_cache(cfg, DIST_BATCH, DIST_MAX_LEN,
+                            dtype=torch.float32, device=dev)
+        caches = with_block_tables(caches, default_block_tables(
+            cfg, DIST_BATCH, DIST_MAX_LEN, device=dev))
+        with torch.no_grad():
+            logits0, caches = prefill(p, tokens, cfg, plan, caches)
+        nxt = logits0.argmax(-1)
+        pos = torch.full((DIST_BATCH,), DIST_PROMPT, dtype=torch.int32,
+                         device=dev)
+        striped = make_sharded_paged_decode(mesh, True)
+        calls = []
+
+        def recorded(q, k_new, v_new, pool_k, pool_v, table, q_pos, **kw):
+            out, pk, pv = striped(q, k_new, v_new, pool_k, pool_v, table,
+                                  q_pos, **kw)
+            if not calls:
+                calls.append((q, pk.clone(), pv.clone(), table, q_pos, kw,
+                              out))
+            return out, pk, pv
+        logits = {}
+        paged_mod.reset_counts()
+        for name, fn in (("striped", recorded), ("local", None)):
+            c = tree_map(lambda t: t.clone(), caches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits[name], _ = decode_step(p, nxt, pos, cfg, plan, c,
+                                              paged_decode_fn=fn)
+            torch.cuda.synchronize()
+            logits[name + "_s"] = time.perf_counter() - t0
+            del c
+        step_launches = dict(paged_mod.LAUNCHES)
+        diff = float((logits["striped"] - logits["local"]).abs().max())
+        logits_ok = torch.allclose(logits["striped"], logits["local"],
+                                   **DIST_TOL)
+        tokens_equal = torch.equal(logits["striped"].argmax(-1),
+                                   logits["local"].argmax(-1))
+        q, pk, pv, table, q_pos, kw, out = calls[0]
+        want = paged_mod.paged_attention_fwd(
+            q[:, 0].contiguous(), pk, pv, table, q_pos[:, 0] + 1,
+            window=kw["window"], logit_cap=kw["logit_cap"],
+            scale=kw["scale"])
+        check_calls = paged_mod.LAUNCHES["paged_attention"] - \
+            step_launches["paged_attention"]
+        kernel_err = float((out[:, 0].float() - want).abs().max())
+        kernel_ok = torch.allclose(out[:, 0].float(), want, **ATTN_TOL)
+        decode = dict(
+            layers=[cfg.layer_kind(i) for i in range(cfg.n_layers)],
+            batch=DIST_BATCH, prompt=DIST_PROMPT, max_len=DIST_MAX_LEN,
+            stride=striped.stride, owner_rank=striped.owner_rank,
+            logits_max_abs_diff=diff, logits_within_tol=logits_ok,
+            tokens_equal=tokens_equal, tolerance=DIST_TOL,
+            seconds={k[:-2]: v for k, v in logits.items()
+                     if k.endswith("_s")},
+            paged_launches_in_the_two_steps=step_launches["paged_attention"],
+            kernel_check=dict(pool_shape=list(pk.shape),
+                              table_shape=list(table.shape),
+                              max_abs_err=kernel_err, within_tol=kernel_ok,
+                              calls=check_calls, tolerance=ATTN_TOL))
+        del calls, q, pk, pv, out, want, caches, logits
+
+        # (d) phase 26's checkpoint restored onto the mesh
+        tree = {k: p[k] for k in saved["keys"]}
+        cplan = Planner(mesh, cfg, plan)
+        rc = ReplicatedCheckpoint(saved["dirs"],
+                                  capacity_bytes=saved["capacity"],
+                                  mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step, back = rc.restore("parity", like=tree, mesh=mesh,
+                                placements=cplan.shardings(tree))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rc.close()
+        got, want = tree_leaves(back), tree_leaves(tree)
+        restore = dict(
+            step=step, leaves=len(got), bytes=saved["need"],
+            dtensors=sum(type(t).__name__ == "DTensor" for t in got),
+            bit_equal=len(got) == len(want) and all(
+                a.to_local().dtype == b.dtype and torch.equal(a.to_local(),
+                                                              b)
+                for a, b in zip(got, want)),
+            seconds=restore_s, mb_per_s=saved["need"] / 2**20 / restore_s,
+            fs=fs_of(keep))
+        del back, got, want, tree, p
+
+        # (e) the gradient collectives on one rank
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), "cuda")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+        grads = [{"w": torch.randn((2304, 2304), generator=gen, device=dev),
+                  "b": torch.randn((2304,), generator=gen, device=dev) * 1e-3}
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m0, ef = compressed_cross_pod_mean(grads[0], mesh3)
+        m1, ef1 = compressed_cross_pod_mean(grads[1], mesh3,
+                                            error_feedback=ef)
+        torch.cuda.synchronize()
+        mean_s = time.perf_counter() - t0
+        exact = True
+        for k in ("w", "b"):
+            a0 = decompress_int8(*compress_int8(grads[0][k]))
+            g1 = grads[1][k] + (grads[0][k] - a0)
+            a1 = decompress_int8(*compress_int8(g1))
+            exact &= (torch.equal(m0[k], a0) and torch.equal(ef[k],
+                                                             grads[0][k] - a0)
+                      and torch.equal(m1[k], a1)
+                      and torch.equal(ef1[k], g1 - a1))
+        x = grads[0]["w"]
+        psum_exact = (torch.equal(hierarchical_psum(x, mesh3), x)
+                      and torch.equal(hierarchical_psum(x, mesh), x))
+        collectives = dict(compressed_mean_exact=bool(exact),
+                           hierarchical_psum_exact=psum_exact,
+                           two_steps_ms=mean_s * 1e3,
+                           elements=sum(t.numel() for t in grads[0].values()))
+        del grads, m0, m1, ef, ef1, x
+    finally:
+        dist.destroy_process_group()
+    seconds = time.perf_counter() - t_phase
+    emit(phase="distributed", mesh={"data": 1, "model": 1},
+         backend="nccl", profile=profile, planner=planned, decode=decode,
+         restore=restore, collectives=collectives, seconds=seconds,
+         card=smi)
+    ok = (not prof.assumed and prof.name.startswith("h100")
+          and planned["dtensors"] == planned["leaves"] and planned["equal"]
+          and logits_ok and tokens_equal and kernel_ok and check_calls >= 1
+          and restore["bit_equal"] and restore["step"] == 24
+          and restore["dtensors"] == restore["leaves"]
+          and collectives["compressed_mean_exact"]
+          and collectives["hierarchical_psum_exact"])
+    if not ok:
+        raise AssertionError("distributed phase failed (see its line)")
+    return check_calls
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5395,6 +5629,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    global FP32_FLOPS_PER_S, HBM_BYTES_PER_S, TF32X3_FLOPS_PER_S
+    from repro_torch.utils.machine import (FP32_FLOPS_PER_S, HBM_BYTES_PER_S,
+                                           TF32X3_FLOPS_PER_S)
     dev = torch.device("cuda", 0)
     smi = smi_line()
     emit(phase="env", python=sys.version.split()[0], torch=torch.__version__,
@@ -5697,9 +5934,18 @@ def main() -> int:
     free()
     train_launches = phase_train(torch, dev, smi)
     free()
-    phase_checkpoint(torch, dev, smi, parity_params)
+    # the mesh on one card: phase 26's checkpoint restored as DTensors
+    keep = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    try:
+        saved = phase_checkpoint(torch, dev, smi, parity_params, keep)
+        free()
+        dist_checks = phase_distributed(torch, dev, smi, parity_params,
+                                        saved, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     del parity_params
     free()
+    paged_k["check_calls_distributed_phase"] = dist_checks
     for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
         k["launches_train_path"] = train_launches[k["name"]]
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,

@@ -17,8 +17,35 @@ bytes under the dtype string ``"bfloat16"``. So a checkpoint either package
 writes restores in the other bit for bit, and the same tree saved by both
 gives the same device file. ``restore(name, like, device=None)`` places
 the leaves on ``device`` (the host by default) with the dtypes of the
-manifest; the reference's ``shardings`` (re-placing onto a mesh) waits for
-the port's distributed slice.
+manifest.
+
+The elastic path (the reference's ``shardings=``): ``restore(name, like,
+mesh=mesh, placements=tree)`` returns DTensors placed on a
+``DeviceMesh`` (``placements``: a tree like ``like`` with a sequence of
+placements at each leaf; ``None`` replicates). Only one process may open a
+store file (``close`` rewrites the superblock), so a store built with
+``mesh=`` opens the file on global rank 0 alone, and every rank of the
+mesh (which spans the world) calls ``save`` and ``restore`` together:
+rank 0 reads and sends the manifest's shapes and dtypes by
+``broadcast_object_list``, each leaf is scattered with
+``distribute_tensor(..., src_data_rank=0)``; a save gathers each DTensor
+leaf with ``full_tensor()`` on every rank, rank 0 writes and sends its
+result. Rank 0's failure (a full store, an I/O error) raises on every
+rank of either call instead of leaving the others in their next
+collective.
+
+Two reference faults are corrected, the file format kept:
+
+- a live head that owns any extent is a save in flight (a complete save
+  freezes its head and starts an empty one), so ``_read_valid`` skips it
+  and takes the newest intact snapshot; the reference validates the old
+  header and manifest over the new data blocks and restores a mix. The
+  GC keeps that rule true: it never merges the newest snapshot into the
+  head, so ``keep_last=0`` keeps one frozen version as 1 does;
+- a fallback to a snapshot reads through the snapshot's chain
+  (``DBSHost.read_snapshot``) where the reference clones it into
+  ``__restore_<sid>`` and keeps the clone, whose fork point stops the
+  snapshot GC until the store is full.
 """
 from __future__ import annotations
 
@@ -26,7 +53,7 @@ import hashlib
 import json
 import math
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +105,66 @@ def _unflatten(like, leaves):
     return build(like)
 
 
+def _flatten_up_to(like, tree) -> List[Any]:
+    """``tree``'s subtrees at ``like``'s leaves, in ``_flatten``'s order
+    (a placement sequence at a leaf stays whole)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _flatten_up_to(like[k],
+                                                                 tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for a, b in zip(like, tree) for x in _flatten_up_to(a, b)]
+    if like is None:
+        return []
+    return [tree]
+
+
+def _is_reader() -> bool:
+    """True in the process that opens store files: the only one, or global
+    rank 0 of an initialised process group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _agree(fn: Optional[Callable[[], Any]]) -> Any:
+    """``fn()``'s result on every rank: the reader (the only rank that
+    passes ``fn``) runs it and broadcasts its result or its exception, and
+    every rank returns or raises it. Without a process group, ``fn()``."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return fn()
+    msg: List[Any] = [None]
+    if fn is not None:
+        try:
+            msg = [fn()]
+        except Exception as e:           # raised on every rank below
+            msg = [e]
+    dist.broadcast_object_list(msg, src=0)
+    if isinstance(msg[0], Exception):
+        raise msg[0]
+    return msg[0]
+
+
+def _gather(tree, keep: bool) -> Tuple[List[Tuple[np.ndarray, str]], str]:
+    """(host arrays, treedef) of a tree whose leaves may be DTensors. Every
+    rank of a DTensor's mesh calls it together: each DTensor leaf is
+    gathered with ``full_tensor()``; without ``keep`` (a rank that holds no
+    store file) no arrays are returned."""
+    leaves, treedef = _flatten(tree)
+    arrays = []
+    for leaf in leaves:
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
+        if keep:
+            arrays.append(_host(leaf))
+    return arrays, treedef
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    if name == _BF16:
+        return torch.bfloat16
+    return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
+
+
 def _host(leaf) -> Tuple[np.ndarray, str]:
     """(contiguous host array of the leaf's bytes, its dtype string)."""
     if isinstance(leaf, torch.Tensor):
@@ -114,9 +201,16 @@ def _tensor(raw: bytes, ent, device) -> torch.Tensor:
 
 
 class CheckpointStore:
-    """One DBS device file holding checkpoint volumes."""
+    """One DBS device file holding checkpoint volumes. With ``mesh=`` the
+    file is opened on global rank 0 alone (module note)."""
 
-    def __init__(self, path: str, *, capacity_bytes: int = 1 << 30):
+    def __init__(self, path: str, *, capacity_bytes: int = 1 << 30,
+                 mesh=None):
+        self.path = path
+        self.dev = None
+        self.mesh = mesh
+        if mesh is not None and not _is_reader():
+            return
         n_extents = max(64, math.ceil(capacity_bytes / (BS * EB)))
         if os.path.exists(path):
             self.dev = DBSHost.open(path)
@@ -125,13 +219,20 @@ class CheckpointStore:
             self.dev = DBSHost.create(
                 path, n_extents=n_extents, extent_blocks=EB, block_size=BS,
                 max_pages=n_extents)
-        self.path = path
 
     # ------------------------------------------------------------------ save
     def save(self, name: str, step: int, tree: Any,
-             keep_last: int = 2) -> int:
-        leaves, treedef = _flatten(tree)
-        arrays = [_host(leaf) for leaf in leaves]
+             keep_last: int = 2) -> Optional[int]:
+        """Commit ``tree`` as a new version; returns the frozen snapshot id
+        (with ``mesh``, on every rank: module note)."""
+        arrays, treedef = _gather(tree, self.dev is not None)
+        if self.mesh is None:
+            return self._write(name, step, arrays, treedef, keep_last)
+        return _agree(None if self.dev is None else (
+            lambda: self._write(name, step, arrays, treedef, keep_last)))
+
+    def _write(self, name: str, step: int, arrays, treedef: str,
+               keep_last: int) -> int:
         man = _manifest(arrays, treedef, step)
         man_blocks = math.ceil((len(man) + 16) / BS)
         header = json.dumps({"manifest_blocks": man_blocks,
@@ -154,61 +255,72 @@ class CheckpointStore:
         return frozen
 
     def _gc(self, name: str, keep_last: int) -> None:
-        """Merge-delete old snapshots beyond the retention window."""
+        """Merge-delete old snapshots beyond the retention window. The
+        newest stays whatever ``keep_last`` says: merged into the head, its
+        extents would make the head look like a save in flight."""
         chain = self.dev._chain(self.dev.volumes[name])
         # chain[0] = live head; keep `keep_last` frozen snapshots after it
-        for sid in reversed(chain[1 + keep_last:]):
+        for sid in reversed(chain[1 + max(keep_last, 1):]):
             try:
                 self.dev.delete_snapshot(sid)
             except ValueError:
                 break                           # fork point: stop GC here
 
     # --------------------------------------------------------------- restore
-    def restore(self, name: str, like: Any = None,
-                device=None) -> Tuple[int, Any]:
+    def restore(self, name: str, like: Any = None, device=None, *,
+                mesh=None, placements=None) -> Tuple[int, Any]:
         """Returns (step, tree). ``like`` provides the structure
-        (required); the leaves land on ``device`` (default: the host)."""
+        (required); the leaves land on ``device`` (default: the host), or
+        with ``mesh`` as DTensors placed by ``placements`` (module note;
+        every rank of the mesh calls it)."""
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("restore takes a device or a mesh, not both")
+            return restore_on_mesh(
+                None if self.dev is None else (lambda: self._read_valid(name)),
+                like, mesh, placements)
         blob = self._read_valid(name)
         man = blob["manifest"]
         leaves_like, _ = _flatten(like)
         if len(man["entries"]) != len(leaves_like):
             raise ValueError("checkpoint/tree structure mismatch")
-        data_base = (1 + blob["manifest_blocks"]) * BS
         device = torch.device("cpu") if device is None else device
-        out = []
-        for ent in man["entries"]:
-            raw = self.dev.read(blob["volume"], data_base + ent["offset"],
-                                math.ceil(ent["nbytes"] / BS) * BS)
-            out.append(_tensor(raw[:ent["nbytes"]], ent, device))
+        out = [_tensor(raw, ent, device)
+               for raw, ent in zip(_entries(blob), man["entries"])]
         return man["step"], _unflatten(like, out)
 
     def _read_valid(self, name: str) -> Dict:
-        """Validate the live head; fall back to the newest intact snapshot.
-        Raises ``IOError`` when no version is intact."""
-        candidates = [name]
-        chain = self.dev._chain(self.dev.volumes[name])
-        for sid in chain[1:]:
-            candidates.append(("@snap", sid))
-        for cand in candidates:
-            vol = name
-            tmp = None
+        """The newest committed version of ``name``: the live head when it
+        owns no extent (a complete save left it empty), then each frozen
+        snapshot, newest first, read through its chain; the first whose
+        header's digest matches its manifest. Returns ``{"read": fn(offset,
+        length), "manifest", "manifest_blocks", "snapshot": sid or None}``.
+        Writes nothing. Raises ``IOError`` when no version is intact."""
+        head = self.dev.volumes[name]
+        chain = self.dev._chain(head)
+        candidates: List[Optional[int]] = []
+        if not (self.dev.extent_owner == head).any():
+            candidates.append(None)             # head: no save in flight
+        candidates.extend(chain[1:])
+        for sid in candidates:
+            if sid is None:
+                def read(off, n):
+                    return self.dev.read(name, off, n)
+            else:
+                table = self.dev.snapshot_table(sid)
+
+                def read(off, n, sid=sid, table=table):
+                    return self.dev.read_snapshot(sid, off, n, table)
             try:
-                if isinstance(cand, tuple):
-                    tmp = f"__restore_{cand[1]}"
-                    if tmp in self.dev.volumes:
-                        self.dev.delete_volume(tmp)
-                    self.dev.clone(name, tmp, snapshot_id=cand[1])
-                    vol = tmp
-                hdr = json.loads(self.dev.read(vol, 0, BS).split(b"\x00")[0])
-                man_raw = self.dev.read(vol, BS, hdr["manifest_blocks"] * BS)
+                hdr = json.loads(read(0, BS).split(b"\x00")[0])
+                man_raw = read(BS, hdr["manifest_blocks"] * BS)
                 man_raw = man_raw[:man_raw.rfind(b"}") + 1]
                 if hashlib.sha256(man_raw).hexdigest()[:16] != hdr["digest"]:
                     raise IOError("digest mismatch")
-                return {"volume": vol, "manifest": json.loads(man_raw),
-                        "manifest_blocks": hdr["manifest_blocks"]}
+                return {"read": read, "manifest": json.loads(man_raw),
+                        "manifest_blocks": hdr["manifest_blocks"],
+                        "snapshot": sid}
             except Exception:
-                if tmp and tmp in self.dev.volumes:
-                    self.dev.delete_volume(tmp)
                 continue
         raise IOError(f"no valid checkpoint for {name!r}")
 
@@ -219,4 +331,54 @@ class CheckpointStore:
             return []
 
     def close(self):
-        self.dev.close()
+        if self.dev is not None:
+            self.dev.close()
+
+
+def _entries(blob):
+    """Each manifest entry's raw bytes, in order."""
+    data_base = (1 + blob["manifest_blocks"]) * BS
+    for ent in blob["manifest"]["entries"]:
+        raw = blob["read"](data_base + ent["offset"],
+                           math.ceil(ent["nbytes"] / BS) * BS)
+        yield raw[:ent["nbytes"]]
+
+
+def restore_on_mesh(read_valid: Optional[Callable[[], Dict]], like: Any,
+                    mesh, placements=None) -> Tuple[int, Any]:
+    """(step, tree of DTensors on ``mesh``). Every rank calls it together;
+    the reader passes ``read_valid`` (a ``_read_valid`` of the chosen
+    store), the others ``None``. The reader's failure (no valid version, a
+    tree that does not fit) raises on every rank."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    if dist.is_initialized() and mesh.size() != dist.get_world_size():
+        raise ValueError("a mesh restore needs a mesh over the whole world")
+    leaves_like, _ = _flatten(like)
+    blob = None
+
+    def read():
+        nonlocal blob
+        blob = read_valid()
+        man = blob["manifest"]
+        if len(man["entries"]) != len(leaves_like):
+            raise ValueError("checkpoint/tree structure mismatch")
+        return {"step": man["step"], "entries": man["entries"]}
+
+    head = _agree(None if read_valid is None else read)
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    places = (_flatten_up_to(like, placements) if placements is not None
+              else [None] * len(leaves_like))
+    raws = _entries(blob) if blob is not None else None
+    out = []
+    for ent, place in zip(head["entries"], places):
+        if raws is not None:
+            t = _tensor(next(raws), ent, dev)
+        else:
+            t = torch.empty(ent["shape"], dtype=_torch_dtype(ent["dtype"]),
+                            device=dev)
+        place = place or [Replicate()] * mesh.ndim
+        out.append(distribute_tensor(t, mesh, list(place), src_data_rank=0))
+    return head["step"], _unflatten(like, out)

@@ -27,6 +27,13 @@ A faithful single-file DBS with the paper's four regions:
 - crash consistency: the superblock carries a revision + committed flag;
   torn writes behind the allocation mark are invisible after recovery.
 
+Two additions to the reference, neither of which changes a byte on disk:
+``read_snapshot`` reads a frozen snapshot through its chain without
+cloning it (the checkpoint store's fallback restore writes nothing), and a
+write that needs an extent when none is free, or that ends past the
+volume's ``max_pages``, raises ``StoreFull`` before it writes (the
+reference's ``IndexError`` from the empty free list or the page table).
+
 Used by repro_torch.checkpoint as the checkpoint volume store.
 """
 from __future__ import annotations
@@ -42,6 +49,11 @@ import numpy as np
 MAGIC = b"DBSv1\x00\x00\x00"
 SUPERBLOCK_SIZE = 4096
 META_ENTRY = 64
+
+
+class StoreFull(IOError):
+    """A write needed a new extent and the device has none free, or it
+    ends past the volume's last page."""
 
 
 @dataclass
@@ -249,13 +261,17 @@ class DBSHost:
         self.snapshots[sid] = Snapshot(sid, frozen, dst)
         self.volumes[dst] = sid
         # rebuild dst table from the chain (cheap: metadata only)
+        self.tables[dst] = self.snapshot_table(frozen)
+        self._commit()
+
+    def snapshot_table(self, sid: int) -> np.ndarray:
+        """The extent map a volume forked at snapshot ``sid`` would see:
+        the chain walked oldest to newest, newer owners overriding."""
         table = np.full((self.max_pages,), -1, np.int32)
-        by_page: Dict[int, int] = {}
-        for s in reversed(self._chain(frozen)):
+        for s in reversed(self._chain(sid)):
             for ext in np.nonzero(self.extent_owner == s)[0]:
                 table[self.extent_page[ext]] = ext
-        self.tables[dst] = table
-        self._commit()
+        return table
 
     def delete_volume(self, name: str) -> None:
         head = self.volumes.pop(name)
@@ -307,6 +323,10 @@ class DBSHost:
         bs, eb = self.block_size, self.extent_blocks
         if offset % bs or len(data) % bs:
             raise ValueError("unaligned write")
+        if offset + len(data) > self.max_pages * eb * bs:
+            raise StoreFull(f"{self.path}: a write to byte "
+                            f"{offset + len(data)} of {name!r} passes its "
+                            f"{self.max_pages} pages")
         head = self.volumes[name]
         table = self.tables[name]
         pos = 0
@@ -317,6 +337,9 @@ class DBSHost:
             ext = int(table[page])
             owner = int(self.extent_owner[ext]) if ext >= 0 else -1
             if ext < 0 or owner != head:
+                if not self.free:
+                    raise StoreFull(f"{self.path}: no free extent for "
+                                    f"page {page} of {name!r}")
                 new = self.free.pop(0)               # allocation: serialized
                 if ext >= 0:                         # CoW copy old content
                     self.f.seek(self._data_off(ext))
@@ -342,8 +365,19 @@ class DBSHost:
             self.f.flush()
 
     def read(self, name: str, offset: int, length: int) -> bytes:
+        return self._read_table(self.tables[name], offset, length)
+
+    def read_snapshot(self, sid: int, offset: int, length: int,
+                      table: Optional[np.ndarray] = None) -> bytes:
+        """Read frozen snapshot ``sid`` without a clone (``table``: its
+        ``snapshot_table``, when the caller holds it)."""
+        if table is None:
+            table = self.snapshot_table(sid)
+        return self._read_table(table, offset, length)
+
+    def _read_table(self, table: np.ndarray, offset: int, length: int
+                    ) -> bytes:
         bs, eb = self.block_size, self.extent_blocks
-        table = self.tables[name]
         out = bytearray()
         pos = 0
         while pos < length:

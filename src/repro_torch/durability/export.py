@@ -347,9 +347,11 @@ def stream_store(donor, target, *, chunk_blocks: int = 64,
     transport-style accounting.
 
     For every donor volume, the valid manifest (header + digest walk,
-    ``CheckpointStore._read_valid``) picks the committed version, its data
-    blocks are read in ``chunk_blocks`` chunks and written into the target
-    store, and the target freezes a snapshot — the same commit ordering
+    ``CheckpointStore._read_valid``, which reads a snapshot through its
+    chain and writes nothing to the donor) picks the committed version; a
+    ``__restore_<sid>`` clone that a reference store left behind is not
+    streamed. Its data blocks are read in ``chunk_blocks`` chunks and
+    written into the target store, and the target freezes a snapshot — the same commit ordering
     ``save`` uses, so a crash mid-stream leaves the target's head torn but
     never a frozen version. Returns ``{"volumes": {name: blocks},
     "counters": ...}``."""
@@ -371,12 +373,10 @@ def stream_store(donor, target, *, chunk_blocks: int = 64,
         moved = 0
         for b0 in range(0, total_blocks, chunk_blocks):
             nb = min(chunk_blocks, total_blocks - b0)
-            raw = donor.dev.read(blob["volume"], b0 * BS, nb * BS)
+            raw = blob["read"](b0 * BS, nb * BS)
             target.dev.write(name, b0 * BS, raw)
             moved += nb
             counters.account("STREAM", nb, nb * BS)
         target.dev.snapshot(name)                 # version committed
-        if blob["volume"] != name:                # _read_valid's temp clone
-            donor.dev.delete_volume(blob["volume"])
         streamed[name] = moved
     return {"volumes": streamed, "counters": counters.to_dict()}

@@ -26,8 +26,9 @@ the rope part (576 wide on deepseek-v3), values of the latent (512), and
 its attention runs H query heads on it (GQA with one KV head) at the
 explicit scale 1/sqrt(nope + rope), on every cache kind and in every
 attention route. A layer kind the port does not know raises a
-``ValueError``. The reference's activation-sharding constraint is
-dropped: it does nothing on one device.
+``ValueError``. A layer's output passes through
+``distributed.runtime.constrain`` where the reference's does: a no-op
+unless a launcher installed an activation placement.
 """
 from __future__ import annotations
 
@@ -41,6 +42,7 @@ from repro_torch.configs.base import (ArchConfig, ATTN_GLOBAL, ATTN_HYBRID,
                                       ATTN_LOCAL, ATTN_MLA, ATTN_RWKV,
                                       MLP_MOE)
 from repro_torch.core.dbs import last_live_lane
+from repro_torch.distributed.runtime import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.layers import (Params, apply_mlp, apply_moe,
@@ -508,4 +510,4 @@ def apply_block(cfg: ArchConfig, sig: LayerSig, p: Params, x: torch.Tensor,
         mlp_out = apply_mlp(p["mlp"], h, cfg)
     if cfg.post_norms:
         mlp_out = norm(mlp_out, p["ln2_post"])
-    return resid + mlp_out, new_cache, aux
+    return constrain(resid + mlp_out), new_cache, aux

@@ -339,3 +339,192 @@ def test_restore_with_no_healthy_replica_is_no_checkpoint(tmp_path):
     rj.fail(0)
     with pytest.raises(ZeroDivisionError):
         rj.restore("train", like=_j_tree(0))
+
+
+# ---------------------------------------------------------------------------
+# the store repairs: a save torn in its data, the fallback's clone, a full
+# store (the reference's behaviour pinned beside the port's)
+# ---------------------------------------------------------------------------
+def _torn_save(store, step, tree, tear_block):
+    """``store.save`` cut after its first ``tear_block`` blocks (data,
+    then the manifest, then the header), as a crash leaves the file: what
+    was written stays, nothing is closed."""
+    dev = store.dev
+    write = dev.write
+    left = [tear_block]
+
+    def cut(name, off, data):
+        n = min(left[0], len(data) // 4096)
+        if n:
+            write(name, off, data[:n * 4096])
+            left[0] -= n
+        if n * 4096 < len(data):
+            raise KeyboardInterrupt("torn")
+    dev.write = cut
+    with pytest.raises(KeyboardInterrupt):
+        store.save("train", step, tree)
+    dev.f.flush()
+    dev.f.close()
+    dev.f = None
+
+
+def _wb(pkg):
+    if pkg == "j":
+        return {"w": jnp.zeros(4096), "b": jnp.zeros(1024)}, \
+            {"w": jnp.ones(4096), "b": jnp.ones(1024)}
+    return {"w": torch.zeros(4096), "b": torch.zeros(1024)}, \
+        {"w": torch.ones(4096), "b": torch.ones(1024)}
+
+
+# leaves in JAX's order: b (1 block), then w (4 blocks); then the manifest
+# (1 block) and the header: a tear at 0..6 blocks written
+@pytest.mark.parametrize("tear_block", [0, 1, 3, 5, 6])
+def test_torn_save_restores_last_complete_step(tmp_path, tear_block):
+    path = str(tmp_path / "ck.dbs")
+    st = CheckpointStore(path, capacity_bytes=1 << 24)
+    zeros, ones = _wb("t")
+    st.save("train", 10, zeros)
+    _torn_save(st, 11, ones, tear_block)
+    st2 = CheckpointStore(path, capacity_bytes=1 << 24)
+    owns = (st2.dev.extent_owner == st2.dev.volumes["train"]).any()
+    assert owns == (tear_block > 0)             # a save in flight
+    step, back = st2.restore("train", like=zeros)
+    assert step == 10
+    _assert_tree_eq(zeros, back)
+    assert st2.steps("train") == [10]
+    st2.close()
+
+
+def test_reference_torn_save_restores_a_mix(tmp_path):
+    """The reference validates the old header over the new data: only the
+    first leaf (b) of a step-11 save of ones written, it restores step 10
+    with b all ones."""
+    path = str(tmp_path / "ck.dbs")
+    st = JStore(path, capacity_bytes=1 << 24)
+    zeros, ones = _wb("j")
+    st.save("train", 10, zeros)
+    _torn_save(st, 11, ones, 1)
+    step, back = JStore(path, capacity_bytes=1 << 24).restore("train",
+                                                               like=zeros)
+    assert step == 10
+    np.testing.assert_array_equal(np.asarray(back["b"]), np.ones(1024))
+    np.testing.assert_array_equal(np.asarray(back["w"]), np.zeros(4096))
+
+
+def _fallback_then_saves(store_cls, path, conv, keep_last=2):
+    """A 1 MiB tree in a 16 MiB store: save step 1, tear the head's
+    header, restore (the snapshot fallback) and ``steps``, then saves
+    2..20. Returns (the store, volumes after the restore, chain lengths)."""
+    st = store_cls(path, capacity_bytes=1 << 24)
+    tree = conv({"w": np.arange(1 << 18, dtype=np.float32)})
+    st.save("train", 1, tree)
+    st.dev.write("train", 0, b"\xff" * 4096)
+    step, back = st.restore("train", like=tree)
+    assert step == 1
+    _assert_tree_eq(tree, back)
+    assert st.steps("train") == [1]
+    after = sorted(st.dev.volumes)
+    chains = []
+    for step in range(2, 21):
+        st.save("train", step, tree, keep_last=keep_last)
+        chains.append(len(st.dev._chain(st.dev.volumes["train"])))
+    return st, after, chains
+
+
+def test_fallback_restore_leaves_no_clone(tmp_path):
+    st, after, chains = _fallback_then_saves(
+        CheckpointStore, str(tmp_path / "ck.dbs"),
+        lambda t: {k: torch.from_numpy(v) for k, v in t.items()})
+    assert after == ["train"]
+    assert max(chains) <= 2 + 1                 # keep_last + the head
+    assert st.steps("train") == [20]
+    assert not [v for v in st.dev.volumes if v.startswith("__restore_")]
+    st.close()
+
+
+def test_reference_fallback_clone_fills_the_store(tmp_path):
+    """The reference keeps ``__restore_<sid>``; its fork point stops the
+    GC and a later save finds no free extent (``IndexError``)."""
+    with pytest.raises(IndexError):
+        _fallback_then_saves(JStore, str(tmp_path / "ck.dbs"),
+                             lambda t: {k: jnp.asarray(v)
+                                        for k, v in t.items()})
+    st = JStore(str(tmp_path / "ck.dbs"), capacity_bytes=1 << 24)
+    assert [v for v in st.dev.volumes if v.startswith("__restore_")]
+
+
+@pytest.mark.parametrize("kind", ["store", "replicated"])
+def test_save_keeping_no_old_version_restores(tmp_path, kind):
+    """``keep_last=0``: the GC keeps the newest snapshot (merged into the
+    head it would read as a save in flight), so every save restores, as
+    the reference's (which reads its head) does."""
+    if kind == "store":
+        st = CheckpointStore(str(tmp_path / "ck.dbs"), capacity_bytes=1 << 24)
+        js = JStore(str(tmp_path / "j.dbs"), capacity_bytes=1 << 24)
+    else:
+        st = ReplicatedCheckpoint([str(tmp_path / d) for d in "ab"],
+                                  capacity_bytes=1 << 24)
+        js = JReplicated([str(tmp_path / d) for d in "jk"],
+                         capacity_bytes=1 << 24)
+    stores = [st] if kind == "store" else st.stores
+    for step in range(1, 4):
+        st.save("train", step, _to_torch(_j_tree(step)), keep_last=0)
+        js.save("train", step, _j_tree(step), keep_last=0)
+        back_step, back = st.restore("train", like=_to_torch(_j_tree(0)))
+        assert back_step == step
+        _assert_tree_eq(_to_torch(_j_tree(step)), back)
+        assert js.restore("train", like=_j_tree(0))[0] == step
+        for s in stores:
+            head = s.dev.volumes["train"]
+            assert len(s.dev._chain(head)) == 2     # the head + one version
+            assert not (s.dev.extent_owner == head).any()
+    st.close()
+    js.close()
+
+
+def test_full_store_raises_store_full(tmp_path):
+    from repro_torch.core.dbs_host import StoreFull
+    st = CheckpointStore(str(tmp_path / "ck.dbs"), capacity_bytes=1 << 20)
+    tree = {"w": torch.zeros(1 << 18)}          # 1 MiB; 64 extents: 8 MiB
+    with pytest.raises(StoreFull):
+        for step in range(10):                  # every version kept
+            st.save("train", step, tree, keep_last=100)
+    assert step > 1 and not st.dev.free
+    assert isinstance(StoreFull("x"), IOError)
+
+
+def test_tree_past_the_volume_raises_store_full(tmp_path):
+    """A tree larger than the volume raises ``StoreFull`` before it writes
+    (the reference's page table raises ``IndexError``); the last version
+    still restores."""
+    from repro_torch.core.dbs_host import StoreFull
+    st = CheckpointStore(str(tmp_path / "ck.dbs"), capacity_bytes=1 << 20)
+    small = {"w": torch.arange(1024, dtype=torch.float32)}
+    st.save("train", 1, small)
+    with pytest.raises(StoreFull):
+        st.save("train", 2, {"w": torch.zeros(3 << 20)})   # 12 of 8 MiB
+    step, back = st.restore("train", like=small)
+    assert step == 1
+    _assert_tree_eq(small, back)
+    st.close()
+
+
+def test_rebuild_after_fallback_matches_reference(tmp_path):
+    """A donor whose head is torn streams its newest snapshot: the same
+    summary and rebuilt file as the reference's, and the port's donor
+    keeps no clone (the reference's ``stream_store`` deletes its own)."""
+    out = {}
+    for pkg, rep, conv in (("j", JReplicated, lambda t: t),
+                           ("t", ReplicatedCheckpoint, _to_torch)):
+        dirs = [str(tmp_path / pkg / d) for d in "ab"]
+        rc = rep(dirs, capacity_bytes=1 << 22)
+        rc.save("train", 4, conv(_j_tree(0)))
+        rc.save("train", 5, conv(_j_tree(1)))
+        rc.stores[0].dev.write("train", 0, b"\xff" * 4096)
+        rc.fail(1)
+        out[pkg] = rc.rebuild(1)
+        assert sorted(rc.stores[0].dev.volumes) == ["train"]
+        rc.close()
+    assert out["t"] == out["j"]
+    assert _read(tmp_path / "t" / "b" / "ckpt.dbs") == \
+        _read(tmp_path / "j" / "b" / "ckpt.dbs")

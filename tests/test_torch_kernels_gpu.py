@@ -94,6 +94,12 @@ the loss within rtol 1e-5, every gradient within 1e-4 of its leaf's
 largest magnitude, and the params after a step within 2 lr (AdamW's first
 step is a sign function); and a checkpoint saved from tensors on the card (fp32, bf16, a 0-d
 int32) restored onto the card and onto the CPU bit for bit.
+
+The mesh on one card: a (1, 1) NCCL mesh (a 1-rank group); the striped
+paged decode (``make_sharded_paged_decode``) against the paged kernel on
+the same pools and block table (atol 1e-4, rtol 1e-4), and a checkpoint
+restored as DTensors on the card with the planner's placements, bit for
+bit.
 Imports no JAX.
 """
 import numpy as np
@@ -1389,3 +1395,84 @@ def test_checkpoint_from_card_tensors(tmp_path):
         assert torch.equal(back["opt"]["m"][0].cpu(),
                            tree["opt"]["m"][0].cpu())
     st.close()
+
+
+class _OneCardMesh:
+    """A 1-rank NCCL group and its (1, 1) ("data", "model") mesh."""
+
+    def __init__(self, tmp_path):
+        from repro_torch.launch.mesh import local_init_method
+        self.init = local_init_method()
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_mesh
+        dist.init_process_group("nccl", init_method=self.init, world_size=1,
+                                rank=0)
+        return make_mesh((1, 1), ("data", "model"), "cuda")
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window,cap,stripe_slice", [(0, 0.0, True),
+                                                     (40, 50.0, False)])
+def test_striped_decode_on_a_one_card_mesh(tmp_path, window, cap,
+                                           stripe_slice):
+    dev = _cuda()
+    from repro_torch.distributed.collectives import make_sharded_paged_decode
+    b, h, kv, d, page, p_max = 4, 8, 4, 256, 32, 8
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+    k_new = torch.randn((b, 1, kv, d), generator=gen, device=dev)
+    v_new = torch.randn((b, 1, kv, d), generator=gen, device=dev)
+    e = b * p_max + 1
+    pool_k = torch.randn((e, page, kv, d), generator=gen, device=dev)
+    pool_v = torch.randn((e, page, kv, d), generator=gen, device=dev)
+    table = torch.randperm(e - 1, generator=torch.Generator().manual_seed(1)
+                           )[:b * p_max].reshape(b, p_max).int().to(dev)
+    pos = torch.tensor([[5], [100], [200], [255]], dtype=torch.int32,
+                       device=dev)
+    for i in range(b):                 # holes past each sequence's length
+        table[i, int(pos[i]) // page + 1:] = -1
+    with _OneCardMesh(tmp_path) as mesh:
+        fn = make_sharded_paged_decode(mesh, True, stripe_slice=stripe_slice)
+        out, pk, pv = fn(q, k_new, v_new, pool_k.clone(), pool_v.clone(),
+                         table, pos, window=window, logit_cap=cap)
+    assert out.shape == (b, 1, h, d) and out.device == q.device
+    want = paged_attention_fwd(q[:, 0].contiguous(), pk, pv, table,
+                               pos[:, 0] + 1, window=window, logit_cap=cap,
+                               scale=1.0 / np.sqrt(d))
+    torch.testing.assert_close(out[:, 0], want, **TOL)
+    rows = table[torch.arange(b, device=dev), (pos[:, 0] // page).long()]
+    off = (pos[:, 0] % page).long()
+    assert torch.equal(pk[rows.long(), off], k_new[:, 0])
+    assert torch.equal(pv[rows.long(), off], v_new[:, 0])
+
+
+@pytest.mark.gpu
+def test_dtensor_restore_on_the_card(tmp_path):
+    dev = _cuda()
+    from repro_torch.checkpoint import ReplicatedCheckpoint
+    from repro_torch.checkpoint.store import _flatten
+    from repro_torch.configs import smoke_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.distributed.planner import Planner
+    from repro_torch.models import init_params
+    cfg = smoke_config("gemma2-2b")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    dirs = [str(tmp_path / d) for d in "ab"]
+    with _OneCardMesh(tmp_path) as mesh:
+        rc = ReplicatedCheckpoint(dirs, capacity_bytes=1 << 26, mesh=mesh)
+        rc.save("params", 2, params)
+        pl = Planner(mesh, cfg, ExecutionPlan()).shardings(params)
+        step, back = rc.restore("params", like=params, mesh=mesh,
+                                placements=pl)
+        rc.close()
+        assert step == 2
+        for got, want in zip(_flatten(back)[0], _flatten(params)[0]):
+            assert type(got).__name__ == "DTensor"
+            assert got.to_local().device.type == dev.type
+            assert torch.equal(got.full_tensor(), want)
