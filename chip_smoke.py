@@ -456,6 +456,30 @@ and the script exits non-zero:
    its MB/s; ``compressed_cross_pod_mean`` over two steps with error
    feedback and ``hierarchical_psum`` on a (1, 1, 1) ("pod", "data",
    "model") mesh, exact on one rank. The phase's seconds beside the card.
+28. dryrun — (b) first, with nothing else running beside its timed
+   steps: gemma2-2b:decode_32k at its published widths and depth on a
+   (1, 1) NCCL mesh, fp32, the global batch cut to DRY_BATCH, built for
+   real: ``per_device_bytes`` within 1% of the growth of
+   ``torch.cuda.memory_allocated()``; one step under the counting mode
+   (the paged kernel's counts zeroed just before, read just after); the
+   step timed over DRY_STEPS steps with CUDA events and over DRY_OP_STEPS
+   with every kernel entry routed through its custom op, in turns; the
+   paged entry's host microseconds a call on both routes (the dispatch's
+   cost a step); the logits finite; the stripe entry
+   ``paged_attention_lse_fwd`` at the first paged layer's shapes against
+   ``paged_attention_ref(..., return_lse=True)`` (out within ATTN_TOL,
+   the log-sum-exp within DRY_LSE_TOL). Then (a) ``python -m
+   repro_torch.launch.dryrun`` on the (16, 16) production mesh for
+   gemma2-2b x train_4k and decode_32k and granite-moe-3b-a800m x
+   decode_32k, and (b)'s cell on a fake (1, 1) world, each in a Python of
+   its own on the CPU alone (its fake world never meets the NCCL group;
+   with no card visible its peaks are the H100 data sheet's, marked
+   assumed), while (c) ``python -m repro_torch.launch.serve --arch
+   gemma2-2b`` runs on the card (exit 0, a line a request). Each record's
+   counts, roofline terms and seconds are printed; (b)'s FLOPs and
+   kernel-entry counts must equal its fake count's, and its ms stand
+   beside the fake record's ``t_compute``, ``t_memory`` and
+   ``bottleneck``.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -612,6 +636,21 @@ CKPT_EVERY, CKPT_STEPS = 2, 4
 # caches of DIST_MAX_LEN positions), held against the local paged read
 DIST_BATCH, DIST_PROMPT, DIST_MAX_LEN = 4, 500, 1024
 DIST_TOL = dict(atol=1e-5, rtol=1e-5)
+# phase 28, the dry run: (a) the production cells counted on a fake (16, 16)
+# world, each in a Python of its own started in the background after (b)'s
+# timed steps (they need no card); (b) DRY_MODEL:decode_32k at its
+# published widths and depth built for real on a (1, 1) NCCL mesh, in fp32
+# (the kernels' dtype), the global batch 128 cut to DRY_BATCH (fp32 params
+# 10.5 GB + 8 x 3.9 GB of caches at 32k: ~42 GB, about half the card)
+DRY_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "decode_32k"),
+             ("granite-moe-3b-a800m", "decode_32k"))
+DRY_MODEL, DRY_BATCH = "gemma2-2b", 8
+DRY_PLAN = {"compute_dtype": "float32", "param_dtype": "float32"}
+DRY_STEPS = 20                   # timed steps, direct entries
+DRY_OP_STEPS = 10                # and with the entries through their ops
+DRY_MEM_TOL = 0.01               # per_device_bytes vs the allocator's growth
+DRY_LSE_TOL = dict(atol=1e-5, rtol=1e-5)   # the stripe entry's log-sum-exp
+DRY_TIMEOUT = 900
 
 
 def emit(**kw) -> None:
@@ -3664,22 +3703,12 @@ def phase_fork_check(torch, cfg, params, dev, eng, prompt):
 # ---------------------------------------------------------------------------
 # phase 10: the attention kernels on the serve path's kept inputs
 # ---------------------------------------------------------------------------
-def _paged_live_pages(torch, table, lengths, page, window) -> int:
-    """Pages the kernel reads: started below the length, not a hole, and
-    (with a window) reaching into it — the data-dependent work."""
-    base = torch.arange(table.shape[1], device=table.device)[None, :] * page
-    run = (base < lengths[:, None]) & (table >= 0)
-    if window:
-        run &= (base + page - 1) > (lengths[:, None] - 1 - window)
-    return int(run.sum())
-
-
 def phase_paged_kernel(torch, eng, kept):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import (paged_attention_pool_fwd,
                                                      paged_attention_pool_ref)
     from repro_torch.kernels.paged_attention.kernel import (
-        paged_info, paged_row_groups, paged_splits, sm_count)
+        paged_info, paged_row_groups, paged_splits, paged_work, sm_count)
     from repro_torch.kernels.timing import graph_ms
     calls = kept["paged"]
     if not calls:
@@ -3692,10 +3721,9 @@ def phase_paged_kernel(torch, eng, kept):
         want = paged_attention_pool_ref(q, pool, table, lengths, **kw)
         torch.testing.assert_close(got, want, **ATTN_TOL)
         err = max(err, float((got - want).abs().max()))
-        live = _paged_live_pages(torch, table, lengths, page,
-                                 kw["window"])
-        n_bytes.append(2 * live * page * kv * d * 4 + 2 * q.numel() * 4
-                       + (table.numel() + lengths.numel()) * 4)
+        # the live pages' K and V planes, q, the table and the output
+        n_bytes.append(paged_work(q, table, lengths, page, kv, d, d,
+                                  kw["window"])[1])
     n = len(calls)
     ms = graph_ms(lambda: [paged_attention_pool_fwd(q, pool, t, ln, **k)
                                   for q, t, ln, k in calls], n)
@@ -3756,7 +3784,8 @@ def phase_flash_kernel(torch, kept):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.flash_attention.kernel import flash_info
+    from repro_torch.kernels.flash_attention.kernel import (flash_info,
+                                                            flash_work)
     from repro_torch.kernels.timing import graph_ms
     calls = kept["flash"]
     if len(calls) < 2:
@@ -3768,16 +3797,8 @@ def phase_flash_kernel(torch, kept):
         want = attention_ref(q, k, v, **kw)
         torch.testing.assert_close(got, want, **ATTN_TOL)
         err = max(err, float((got - want).abs().max()))
-        b, h, sq, d = q.shape
-        sk, dv = k.shape[2], v.shape[-1]
-        qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        kp = torch.arange(sk, device=q.device)[None, :]
-        vis = kp <= qp
-        if kw["window"]:
-            vis &= kp > qp - kw["window"]
-        # QK^T (d wide) and PV (dv wide), 2 flops a multiply-add
-        f = 2.0 * (d + dv) * h * b * int(vis.sum())
-        nb = (2 * q.numel() + k.numel() + v.numel()) * 4
+        # QK^T and PV over the visible pairs; q, k, v and the output once
+        f, nb = flash_work(q, k, v, kw.get("causal", True), kw["window"])
         flops.append(f)
         n_bytes.append(nb)
         bounds.append(max(f / TF32X3_FLOPS_PER_S, nb / HBM_BYTES_PER_S))
@@ -4377,24 +4398,6 @@ def phase_serve_rwkv(torch, dev, smi):
     return eng, params, kept, launches["rwkv6_scan"], traffic_counts
 
 
-def _rwkv_work(b, s, h, d, chunk, with_state):
-    """(flops, bytes) the chunked form needs for one call: per (b, h) and
-    chunk of L tokens, L hd^2 multiply-adds for the inter-chunk read
-    (L x hd by hd x hd) and as many for the state update (hd x L by
-    L x hd), hd L (L - 1) / 2 for the intra-chunk matrix, hd L (L + 1) / 2
-    for its product with v and hd L for the bonus (2 flops each; exps not
-    counted). Bytes: r, k, v, logw and y, u, the state written and, when
-    carried in, read."""
-    sq = 0
-    for c0 in range(0, s, chunk):
-        n = min(chunk, s - c0)
-        sq += n * n
-    macs = b * h * (2 * s * d * d + d * sq + d * s)
-    n_bytes = 4 * (5 * b * s * h * d + h * d
-                   + (2 if with_state else 1) * b * h * d * d)
-    return 2 * macs, n_bytes
-
-
 def phase_rwkv_kernel(torch, kept):
     """``rwkv6_scan`` against both plain versions (the chunked schedule and
     the step oracle) on the serve path's kept inputs and on crafted ones
@@ -4403,7 +4406,7 @@ def phase_rwkv_kernel(torch, kept):
     prefill calls, beside the bound."""
     from repro_torch.kernels.rwkv6_scan import (rwkv6_chunked_ref,
                                                 rwkv6_scan_fwd, rwkv6_scan_ref)
-    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_info
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_info, rwkv6_work
     from repro_torch.kernels.timing import graph_ms
     dec, pre = kept["decode"], kept["prefill"]
     if not dec or not pre:
@@ -4466,7 +4469,7 @@ def phase_rwkv_kernel(torch, kept):
     err["strong_decay"], scaled["strong_decay"] = e, es
     timing = {}
     for name, calls in (("decode", dec), ("prefill", pre)):
-        work = [_rwkv_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
+        work = [rwkv6_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
                            RWKV_CHUNK, c[5] is not None) for c in calls]
         n = len(calls)
         ms = graph_ms(lambda: [rwkv6_scan_fwd(
@@ -4717,7 +4720,7 @@ def phase_paged_split_kernel(torch, kept):
     from repro_torch.kernels.paged_attention import (paged_attention_fwd,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import (
-        paged_info, paged_row_groups, paged_splits, sm_count)
+        paged_info, paged_row_groups, paged_splits, paged_work, sm_count)
     from repro_torch.kernels.timing import graph_ms
     if not kept:
         raise AssertionError("no baseline decode call was kept")
@@ -4729,10 +4732,8 @@ def phase_paged_split_kernel(torch, kept):
         err = max(err, float((got - want).abs().max()))
         b, h, d = q.shape
         _e, page, kv, dv = pv.shape
-        live = _paged_live_pages(torch, table, lengths, page, kw["window"])
-        n_bytes.append(live * page * kv * (d + dv) * 4
-                       + b * h * (d + dv) * 4
-                       + (table.numel() + lengths.numel()) * 4)
+        n_bytes.append(paged_work(q, table, lengths, page, kv, d, dv,
+                                  kw["window"])[1])
         p_max = table.shape[1]
         pos = torch.arange(p_max * page, device=q.device)
         valid = (pos[None, :] < lengths[:, None]) & (
@@ -5610,6 +5611,267 @@ def phase_distributed(torch, dev, smi, parity_params, saved, keep):
         raise AssertionError("distributed phase failed (see its line)")
     return check_calls
 
+# ---------------------------------------------------------------------------
+# phase 28: the dry run
+# ---------------------------------------------------------------------------
+def start_dryruns(out_dir: str) -> dict:
+    """Phase 28's fake-world counts, each ``python -m
+    repro_torch.launch.dryrun`` in a process of its own, started now and
+    left running: ``{name: (Popen, record path)}``."""
+    # on the CPU only: no CUDA context beside (c)'s launcher (the
+    # records' peaks are then the H100 data sheet's, "assumed")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    cmds = {f"{a}:{sh}": ["--arch", a, "--shape", sh] for a, sh in DRY_CELLS}
+    cmds["real_cell"] = (["--arch", DRY_MODEL, "--shape", "decode_32k",
+                          "--mesh", "1,1", "--global-batch", str(DRY_BATCH)]
+                         + [a for k, v in DRY_PLAN.items()
+                            for a in ("--plan", f"{k}={v}")])
+    runs = {}
+    for i, (name, args) in enumerate(cmds.items()):
+        path = os.path.join(out_dir, f"cell{i}.json")
+        runs[name] = (subprocess.Popen(
+            base + args + ["--out", path], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=ROOT, env=env), path)
+    return runs
+
+
+def stop_dryruns(runs: dict) -> None:
+    for proc, _ in runs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _dry_record(proc, path) -> dict:
+    out, _ = proc.communicate(timeout=DRY_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun exited {proc.returncode}:\n"
+                             f"{out[-3000:]}")
+    with open(path) as f:
+        rec = json.load(f)[0]
+    if rec.get("status") != "ok":
+        raise AssertionError(f"dryrun cell failed: {rec}")
+    return rec
+
+
+DRY_KEYS = ("arch", "shape", "mesh", "kind", "global_batch", "plan",
+            "count_s", "flops_per_device", "bytes_per_device",
+            "collective_bytes_per_device", "collectives", "ops",
+            "model_flops_total", "hlo_useful_ratio", "t_compute", "t_memory",
+            "t_collective", "bottleneck", "roofline_fraction",
+            "analytic_state_bytes_per_device", "peak")
+
+
+def _entry_host_us(torch, cell, cfg, dev, build, n=200):
+    """Host microseconds a call of the paged entry takes at the cell's
+    first paged layer (its pools and table, every position live), direct
+    and through its custom op, in turns; no synchronisation inside a run,
+    so the card's work overlaps and only the host's is timed."""
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_lse_fwd)
+    c = next(c for c in cell.args[3] if c is not None and "pool_k" in c)
+    pk, pv = c["pool_k"].to_local(), c["pool_v"].to_local()
+    table = c["block_table"].to_local()
+    b = table.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    q = torch.randn((b, cfg.n_heads, cfg.resolved_head_dim), generator=gen,
+                    device=dev)
+    lengths = torch.full((b,), table.shape[1] * pk.shape[1],
+                         dtype=torch.int32, device=dev)
+    direct = build.dispatching
+    us = {"direct": [], "custom_op": []}
+    for _round in range(4):
+        for route in us:
+            build.dispatching = direct if route == "direct" else \
+                (lambda: True)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n // 4):
+                    paged_attention_lse_fwd(q, pk, pv, table, lengths)
+                us[route].append((time.perf_counter() - t0) / (n // 4) * 1e6)
+                torch.cuda.synchronize()
+            finally:
+                build.dispatching = direct
+    return {k: sorted(v)[len(v) // 2] for k, v in us.items()}
+
+
+def _lse_check(torch, cell, cfg, dev) -> dict:
+    """The stripe entry ``paged_attention_lse_fwd`` at the cell's first
+    paged layer's shapes, on its pools (refilled with random rows: the
+    cell's are zeros but for the step's one position), its table and the
+    model's logit cap, q random and the lengths from every position live
+    down to one: out against ``paged_attention_ref(..., return_lse=True)``
+    within ATTN_TOL, the log-sum-exp within DRY_LSE_TOL. Run after the
+    timed steps (the refill ends the cell's use)."""
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_lse_fwd)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    c = next(c for c in cell.args[3] if c is not None and "pool_k" in c)
+    pk, pv = c["pool_k"].to_local(), c["pool_v"].to_local()
+    table = c["block_table"].to_local()
+    b = table.shape[0]
+    full = table.shape[1] * pk.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    pk.normal_(generator=gen)
+    pv.normal_(generator=gen)
+    q = torch.randn((b, cfg.n_heads, pk.shape[-1]), generator=gen, device=dev)
+    lengths = torch.randint(1, full + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[-1] = full, 1
+    kw = dict(logit_cap=cfg.attn_logit_softcap)
+    out, lse = paged_attention_lse_fwd(q, pk, pv, table, lengths, **kw)
+    want_out, want_lse = paged_attention_ref(q, pk, pv, table, lengths,
+                                             return_lse=True, **kw)
+    err = {"out": float((out - want_out).abs().max()),
+           "lse": float((lse - want_lse).abs().max())}
+    torch.testing.assert_close(out, want_out, **ATTN_TOL)
+    torch.testing.assert_close(lse, want_lse, **DRY_LSE_TOL)
+    return {"max_abs_err": err, "lengths": lengths.tolist(),
+            "tolerance": {"out": ATTN_TOL, "lse": DRY_LSE_TOL}}
+
+
+def phase_dryrun(torch, dev, smi):
+    """Phase 28 (the module docstring). Returns the paged kernel's launches
+    on (b)'s counted step."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import kernel as paged_mod
+    from repro_torch.launch.dryrun import cell_plan, count_step
+    from repro_torch.launch.mesh import local_init_method, make_mesh
+    from repro_torch.launch.specs import build_cell, per_device_bytes
+    t_phase = time.perf_counter()
+    # (b) the accounting against the card, first: nothing else runs beside
+    # its timed steps
+    cfg = get_config(DRY_MODEL)
+    shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=DRY_BATCH)
+    dist.init_process_group("nccl", init_method=local_init_method(),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        plan = cell_plan(cfg, shape, {"data": 1, "model": 1}, DRY_PLAN)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cell = build_cell(cfg, shape, mesh, plan, seed=SEED + 28)
+        gc.collect()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        grown = torch.cuda.memory_allocated() - before
+        analytic = per_device_bytes(mesh, cell.args)
+        mem_rel = abs(grown - analytic) / analytic
+        # the phase's path: one step counted, the paged kernel's counts
+        # zeroed just before and read just after
+        paged_mod.reset_counts()
+        t0 = time.perf_counter()
+        counts = count_step(cell)
+        torch.cuda.synchronize()
+        count_s = time.perf_counter() - t0
+        launches = dict(paged_mod.LAUNCHES)
+
+        def timed(n):
+            ms = []
+            for _ in range(n):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits, _ = cell.step(*cell.args)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            return ms, logits
+        direct = _build.dispatching
+        timed(2)                                # warm both routes
+        _build.dispatching = lambda: True
+        try:
+            timed(2)
+        finally:
+            _build.dispatching = direct
+        step_ms = {"direct": [], "custom_op": []}
+        for _round in range(2):             # in turns: the host drifts
+            got, logits = timed(DRY_STEPS // 2)
+            step_ms["direct"] += got
+            _build.dispatching = lambda: True
+            try:
+                step_ms["custom_op"] += timed(DRY_OP_STEPS // 2)[0]
+            finally:
+                _build.dispatching = direct
+        local = logits.to_local()
+        logits_ok = (tuple(logits.shape) == (DRY_BATCH, cfg.vocab_size)
+                     and bool(torch.isfinite(local).all()))
+        entry_us = _entry_host_us(torch, cell, cfg, dev, _build)
+        lse = _lse_check(torch, cell, cfg, dev)
+        del cell, logits, local
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the production meshes and (b)'s fake count, in the background on
+    # the CPU alone while (c) runs on the card
+    dry_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    runs = start_dryruns(dry_dir)
+    try:
+        # (c) the serve launcher on the card
+        t0 = time.perf_counter()
+        cp = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             DRY_MODEL], capture_output=True, text=True, timeout=600,
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)))
+        reqs = [ln for ln in cp.stdout.splitlines() if ln.startswith("req ")]
+        serve = dict(rc=cp.returncode, seconds=time.perf_counter() - t0,
+                     requests=len(reqs), stdout=reqs,
+                     stderr=cp.stderr.strip().splitlines()[-3:])
+        t0 = time.perf_counter()
+        records = {name: _dry_record(*run) for name, run in runs.items()}
+        counts_wait_s = time.perf_counter() - t0
+    finally:
+        stop_dryruns(runs)
+        shutil.rmtree(dry_dir, ignore_errors=True)
+    fake = records.pop("real_cell")
+    production = [{k: r[k] for k in DRY_KEYS} for r in records.values()]
+    mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
+    n_paged = counts["ops"].get("paged_attention_lse", 0)
+    real = dict(
+        cell=f"{DRY_MODEL}:decode_32k", global_batch=DRY_BATCH,
+        cut="global_batch 128 -> %d (about half the card in fp32)"
+            % DRY_BATCH, plan=DRY_PLAN, build_s=build_s,
+        memory_allocated_growth=grown, per_device_bytes=analytic,
+        memory_rel_diff=mem_rel, count_s=count_s,
+        flops=counts["flops"], fake_flops=fake["flops_per_device"],
+        ops=counts["ops"], fake_ops=fake["ops"],
+        bytes=counts["bytes"], fake_bytes=fake["bytes_per_device"],
+        launches=launches, step_ms=mean["direct"],
+        step_ms_all=step_ms["direct"],
+        step_ms_custom_op=mean["custom_op"],
+        step_ms_custom_op_all=step_ms["custom_op"],
+        custom_op_ms_per_step=mean["custom_op"] - mean["direct"],
+        entry_calls_per_step=n_paged, entry_host_us=entry_us,
+        custom_op_host_ms_per_step=(entry_us["custom_op"]
+                                    - entry_us["direct"]) * n_paged / 1e3,
+        t_compute_ms=fake["t_compute"] * 1e3,
+        t_memory_ms=fake["t_memory"] * 1e3,
+        t_collective_ms=fake["t_collective"] * 1e3,
+        bottleneck=fake["bottleneck"], peak=fake["peak"],
+        logits_finite=logits_ok, lse_entry=lse)
+    emit(phase="dryrun", production=production, real=real, serve=serve,
+         counts_wait_s=counts_wait_s,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    ok = (counts["flops"] == fake["flops_per_device"]
+          and counts["ops"] == fake["ops"] and n_paged >= 1
+          and launches["paged_attention"] == n_paged
+          and mem_rel <= DRY_MEM_TOL and logits_ok
+          and serve["rc"] == 0 and serve["requests"] == 6)
+    if not ok:
+        raise AssertionError("dryrun phase failed (see its line)")
+    return launches["paged_attention"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -5948,6 +6210,11 @@ def main() -> int:
     paged_k["check_calls_distributed_phase"] = dist_checks
     for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
         k["launches_train_path"] = train_launches[k["name"]]
+    # the dry run: the accounting held against the card
+    dry_launches = phase_dryrun(torch, dev, smi)
+    for k in (write_k, read_k, copy_k, flash_k, rwkv_k):
+        k["launches_dryrun_path"] = 0
+    paged_k["launches_dryrun_path"] = dry_launches
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

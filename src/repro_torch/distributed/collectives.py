@@ -13,6 +13,16 @@ each rank calls the returned function on its own shards, and the merge is
 when the function is made. The reference computes this read with ``jnp``
 outside any Pallas kernel, so torch ops are its counterpart here.
 
+With ``kernel=True`` each stripe's read is the paged kernel's entry
+(``paged_attention_lse_fwd``, fp32 pools): a stripe-sliced table and the
+stripe's own lengths where the pages divide by the stripe (no window),
+else the whole table with the other stripes' pages as holes; the entry's
+log-sum-exp stands in for the partial's (m, l). Called with DTensors (the
+dry run's cells, ``launch/specs.py``), the function runs on their local
+shards: q, the new K/V, positions and table redistributed to the batch
+placement, the pools to the extent stripes, and returns the output as a
+DTensor on the batch placement.
+
 The reductions take the mesh explicitly (``shard_map`` gives the reference
 its axes implicitly): ``hierarchical_psum(x, mesh)`` and
 ``compressed_cross_pod_mean(grads, mesh)``. They return new tensors and
@@ -49,7 +59,8 @@ def _group(mesh, axes: Tuple[str, ...]):
 
 
 def make_sharded_paged_decode(mesh, batch_shardable: bool,
-                              stripe_slice: bool = True):
+                              stripe_slice: bool = True,
+                              kernel: bool = False):
     """Returns fn(q, k_new, v_new, pool_k, pool_v, block_table, q_pos,
     **kw) -> (out (B,1,H,dv), pool_k, pool_v), called by every rank on its
     own shards.
@@ -71,16 +82,30 @@ def make_sharded_paged_decode(mesh, batch_shardable: bool,
         rank = rank * sizes[a] + coord[a]
     group = _group(mesh, stripe)
 
-    def fn(q, k_new, v_new, pool_k, pool_v, block_table, q_pos, *,
-           window=0, logit_cap=0.0, scale=None):
+    def fn(q, k_new, v_new, pool_k, pool_v, block_table, q_pos, **kw):
+        if _is_dtensor(q, pool_k):
+            return _on_shards(mesh, baxes if batch_shardable else (),
+                              local, q, k_new, v_new, pool_k, pool_v,
+                              block_table, q_pos, **kw)
+        return local(q, k_new, v_new, pool_k, pool_v, block_table, q_pos,
+                     **kw)
+
+    def local(q, k_new, v_new, pool_k, pool_v, block_table, q_pos, *,
+              window=0, logit_cap=0.0, scale=None):
         from repro_torch.models.blocks import paged_write_local
         pool_k, pool_v = paged_write_local(pool_k, pool_v, block_table,
                                            q_pos[:, 0], k_new, v_new, stride,
                                            rank)
-        o, m, l = attn.paged_decode_attention(
-            q, pool_k, pool_v, block_table, q_pos, window=window,
-            logit_cap=logit_cap, scale=scale, page_owner_stride=stride,
-            owner_rank=rank, stripe_slice=stripe_slice)
+        if kernel:
+            o, m, l = _kernel_partial(q, pool_k, pool_v, block_table, q_pos,
+                                      stride, rank, stripe_slice,
+                                      window=window, logit_cap=logit_cap,
+                                      scale=scale)
+        else:
+            o, m, l = attn.paged_decode_attention(
+                q, pool_k, pool_v, block_table, q_pos, window=window,
+                logit_cap=logit_cap, scale=scale, page_owner_stride=stride,
+                owner_rank=rank, stripe_slice=stripe_slice)
         # FlashDecoding merge across the stripe axes
         m_star = m.clone()
         dist.all_reduce(m_star, dist.ReduceOp.MAX, group=group)
@@ -96,6 +121,73 @@ def make_sharded_paged_decode(mesh, batch_shardable: bool,
 
     fn.stride, fn.owner_rank = stride, rank
     return fn
+
+
+def _kernel_partial(q, pool_k, pool_v, block_table, q_pos, stride: int,
+                    rank: int, stripe_slice: bool, *, window, logit_cap,
+                    scale):
+    """This stripe's partial (o, m, l) of one decode token through the
+    paged kernel: o normalised over the stripe's live positions, m its
+    log-sum-exp and l 1 (0 where the stripe saw no live position), which
+    the FlashDecoding merge takes as it takes the plain partials."""
+    from repro_torch.kernels.paged_attention.kernel import (
+        NEG_INF, paged_attention_lse_fwd)
+    b, p_max = block_table.shape
+    page = pool_k.shape[1]
+    length = q_pos[:, 0].to(torch.int32) + 1
+    if stride == 1:
+        table = block_table
+    elif stripe_slice and p_max % stride == 0 and not window:
+        # owned pages p = l * stride + rank, local page l: every owned page
+        # before the sequence's last is full, so a local length says it
+        table = block_table.reshape(b, p_max // stride, stride)[:, :, rank]
+        full, rem = length // page, length % page
+        owned = torch.clamp((full - rank + stride - 1) // stride, min=0)
+        length = owned * page + torch.where(
+            (rem > 0) & (full % stride == rank), rem, 0)
+    else:
+        pages = torch.arange(p_max, device=block_table.device)
+        table = torch.where((pages % stride == rank)[None, :], block_table,
+                            -1)
+    out, lse = paged_attention_lse_fwd(
+        q[:, 0].float().contiguous(), pool_k, pool_v,
+        table.to(torch.int32).contiguous(),
+        length.to(torch.int32).contiguous(), window=window,
+        logit_cap=logit_cap, scale=scale)
+    kv = pool_k.shape[2]
+    g = q.shape[2] // kv
+    o = out.reshape(b, kv, g, 1, out.shape[-1])
+    m = lse.reshape(b, kv, g, 1)
+    return o, m, (m > NEG_INF / 2).to(torch.float32)
+
+
+def _is_dtensor(*tensors) -> bool:
+    return any(type(t).__name__ == "DTensor" for t in tensors)
+
+
+def _on_shards(mesh, baxes, local, q, k_new, v_new, pool_k, pool_v,
+               block_table, q_pos, **kw):
+    """``local`` on this rank's shards of DTensor inputs (the module note);
+    plain tensors are taken as replicated values."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    names = mesh.mesh_dim_names
+    batch = [Shard(0) if a in baxes else Replicate() for a in names]
+    stripes = [Shard(0)] * len(names)
+
+    def shard(t, places):
+        if isinstance(t, DTensor):
+            if list(t.placements) != places:
+                t = t.redistribute(mesh, places)
+            return t.to_local()
+        return distribute_tensor(t, mesh, places,
+                                 src_data_rank=None).to_local()
+    out, _pk, _pv = local(
+        shard(q, batch), shard(k_new, batch), shard(v_new, batch),
+        shard(pool_k, stripes), shard(pool_v, stripes),
+        shard(block_table, batch), shard(q_pos, batch), **kw)
+    out = DTensor.from_local(out, mesh, batch, run_check=False)
+    return out, pool_k, pool_v
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,16 @@ their sum. ``nvcc`` failures raise. Nothing here runs at import time.
 Register a source in ``SOURCES`` and its C entry points in ``SIGNATURES``.
 ``check_tensor``, ``refuse_grad`` and ``raise_on`` are the wrappers'
 shared launch checks.
+
+Every wrapper is also a ``torch.library`` custom op (``repro_torch::<name>``)
+with a fake implementation, a FLOP formula in ``torch.utils.flop_counter``
+and a bytes formula in ``utils/op_stats.py``. ``entry`` routes a call
+through the op while a dispatch mode is on the stack (the counting mode of
+``utils/op_stats.py``, ``FakeTensorMode``, ``FlopCounterMode``), which then
+sees the launch as one op, counted as itself, and when an argument is a
+tensor subclass (a DTensor: the op's sharding rule, ``launch/specs.py``,
+runs the launch on the local shards); on plain tensors with no mode on the
+stack it calls the launch directly, so the serving paths pay no dispatch.
 """
 from __future__ import annotations
 
@@ -228,3 +238,33 @@ def refuse_grad(name: str, *tensors) -> None:
             t is not None and t.requires_grad for t in tensors):
         raise ValueError(f"{name}: the kernel has no backward; train on a "
                          "plain attn_impl ('chunked' or 'dense')")
+
+
+def dispatching() -> bool:
+    """True while a dispatch mode is on the stack."""
+    import torch
+    return torch._C._len_torch_dispatch_stack() > 0
+
+
+def subclassed(args) -> bool:
+    """True when a tensor among ``args`` is a tensor subclass (a DTensor, a
+    fake tensor), which only the op can take apart."""
+    import torch
+    return any(isinstance(a, torch.Tensor)
+               and type(a) not in (torch.Tensor, torch.nn.Parameter)
+               for a in args)
+
+
+def entry(op, impl, *args):
+    """``op(*args)`` while a dispatch mode is on the stack or an argument
+    is a tensor subclass, else ``impl(*args)``: the same launch either way
+    (see the module note)."""
+    return op(*args) if dispatching() or subclassed(args) else impl(*args)
+
+
+def known(*tensors) -> bool:
+    """True when every tensor's values can be read: none is a fake or a
+    meta tensor (a data-dependent formula then counts this run's data)."""
+    from torch._subclasses.fake_tensor import is_fake
+    return all(t is None or not (is_fake(t) or t.device.type == "meta")
+               for t in tensors)

@@ -10,6 +10,9 @@ an error, never the plain version.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the wrapper's calls
 of the plain version, so a run can show which path it went through.
+
+The entry is a custom op (``repro_torch::dbs_copy``, which mutates the
+pool; ``_build.py entry``): no FLOPs, and each lane's row read and written.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import check_tensor as _check
-from repro_torch.kernels._build import kernel_info, library, raise_on
+from repro_torch.kernels._build import entry, kernel_info, library, raise_on
 from repro_torch.kernels.dbs.ref import dbs_copy_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_copy": 0}
@@ -84,15 +87,25 @@ def dbs_copy(pool, src, dst, mask, *, check_routing: bool = False):
     _check("mask", mask, mask.dtype, (n,), dev)
     if check_routing:
         check_copy_routing(src, dst, mask, e)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"dbs_copy: no kernel for device {dev}")
+    if dev.type == "cuda" and n > MAX_LANES:
+        raise ValueError(f"dbs_copy: {n} lanes, at most {MAX_LANES}")
+    entry(torch.ops.repro_torch.dbs_copy.default, _copy, pool, src, dst, mask)
+    return pool
+
+
+def _copy(pool, src, dst, mask) -> None:
+    """The launch (the CPU's plain version), in place."""
+    e, page, d = pool.shape
+    n = src.shape[0]
+    dev = pool.device
     if dev.type == "cpu":
         PLAIN_CALLS["dbs_copy"] += 1
-        return dbs_copy_ref(pool, src, dst, mask)
-    if dev.type != "cuda":
-        raise ValueError(f"dbs_copy: no kernel for device {dev}")
-    if n > MAX_LANES:
-        raise ValueError(f"dbs_copy: {n} lanes, at most {MAX_LANES}")
+        dbs_copy_ref(pool, src, dst, mask)                     # in place
+        return
     if n == 0:
-        return pool
+        return
     lib = library("dbs_copy")
     vec4 = int(d % 4 == 0 and pool.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
@@ -102,4 +115,34 @@ def dbs_copy(pool, src, dst, mask, *, check_routing: bool = False):
                            n, e, page, d, vec4, stream)
     raise_on(err, "dbs_copy")
     LAUNCHES["dbs_copy"] += 1
-    return pool
+
+
+# ---------------------------------------------------------------------------
+# the entry as a custom op: fake implementation and bytes formula
+# ---------------------------------------------------------------------------
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::dbs_copy", mutates_args=("pool",))
+def _copy_op(pool: Tensor, src: Tensor, dst: Tensor, mask: Tensor) -> None:
+    _copy(pool, src, dst, mask)
+
+
+@_copy_op.register_fake
+def _(pool, src, dst, mask):
+    return None
+
+
+def _register_formulas():
+    from repro_torch.utils.op_stats import register_bytes_formula
+
+    @register_bytes_formula(torch.ops.repro_torch.dbs_copy)
+    def _copy_bytes(pool, src, dst, mask, out_val=None):
+        # every lane's row read and written (masked lanes at most), its ids
+        # and mask read
+        row = pool.shape[1] * pool.shape[2] * pool.element_size()
+        return 2 * src.shape[0] * row + 4 * 2 * src.numel() \
+            + mask.numel() * mask.element_size()
+
+
+_register_formulas()

@@ -10,6 +10,10 @@ or an error, never the plain version.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the wrappers' calls
 of the plain version, so a run can show which path it went through.
+
+Both entries are custom ops (``repro_torch::dbs_rw_write``, which mutates
+the pool, and ``repro_torch::dbs_rw_read``; ``_build.py entry``): no
+FLOPs, and the bytes the batch semantically moves (ops.py).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels._build import check_tensor as _check
-from repro_torch.kernels._build import kernel_info, library, raise_on
+from repro_torch.kernels._build import entry, kernel_info, library, raise_on
 from repro_torch.kernels.dbs.ref import dbs_rw_read_ref, dbs_rw_write_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_rw_write": 0, "dbs_rw_read": 0}
@@ -103,11 +107,22 @@ def dbs_rw_write(pool, src, dst, lane_of, payload, *,
     _check("payload", payload, torch.float32, (b, d), dev)
     if check_routing:
         check_write_routing(src, dst, lane_of, e)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"dbs_rw_write: no kernel for device {dev}")
+    entry(torch.ops.repro_torch.dbs_rw_write.default, _write, pool, src, dst,
+          lane_of, payload)
+    return pool
+
+
+def _write(pool, src, dst, lane_of, payload) -> None:
+    """The write launch (the CPU's plain version), in place."""
+    e, page, d = pool.shape
+    b = src.shape[0]
+    dev = pool.device
     if dev.type == "cpu":
         PLAIN_CALLS["dbs_rw_write"] += 1
-        return dbs_rw_write_ref(pool, src, dst, lane_of, payload)
-    if dev.type != "cuda":
-        raise ValueError(f"dbs_rw_write: no kernel for device {dev}")
+        dbs_rw_write_ref(pool, src, dst, lane_of, payload)     # in place
+        return
     lib = library("dbs_rw")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -117,7 +132,6 @@ def dbs_rw_write(pool, src, dst, lane_of, payload, *,
                                _vec4(d, pool, payload), stream)
     raise_on(err, "dbs_rw_write")
     LAUNCHES["dbs_rw_write"] += 1
-    return pool
 
 
 def dbs_rw_read(pool, ext, block):
@@ -129,11 +143,20 @@ def dbs_rw_read(pool, ext, block):
     _check("pool", pool, torch.float32, (e, page, d), dev)
     _check("ext", ext, torch.int32, (b,), dev)
     _check("block", block, torch.int32, (b,), dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"dbs_rw_read: no kernel for device {dev}")
+    return entry(torch.ops.repro_torch.dbs_rw_read.default, _read, pool, ext,
+                 block)
+
+
+def _read(pool, ext, block):
+    """The read launch (the CPU's plain version)."""
+    e, page, d = pool.shape
+    b = ext.shape[0]
+    dev = pool.device
     if dev.type == "cpu":
         PLAIN_CALLS["dbs_rw_read"] += 1
         return dbs_rw_read_ref(pool, ext, block)
-    if dev.type != "cuda":
-        raise ValueError(f"dbs_rw_read: no kernel for device {dev}")
     lib = library("dbs_rw")
     out = torch.empty((b, d), dtype=pool.dtype, device=dev)
     with torch.cuda.device(dev):
@@ -144,3 +167,51 @@ def dbs_rw_read(pool, ext, block):
     raise_on(err, "dbs_rw_read")
     LAUNCHES["dbs_rw_read"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the entries as custom ops: fake implementations and bytes formulas
+# ---------------------------------------------------------------------------
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::dbs_rw_write", mutates_args=("pool",))
+def _write_op(pool: Tensor, src: Tensor, dst: Tensor, lane_of: Tensor,
+              payload: Tensor) -> None:
+    _write(pool, src, dst, lane_of, payload)
+
+
+@_write_op.register_fake
+def _(pool, src, dst, lane_of, payload):
+    return None
+
+
+@torch.library.custom_op("repro_torch::dbs_rw_read", mutates_args=())
+def _read_op(pool: Tensor, ext: Tensor, block: Tensor) -> Tensor:
+    return _read(pool, ext, block)
+
+
+@_read_op.register_fake
+def _(pool, ext, block):
+    return pool.new_empty((ext.shape[0], pool.shape[2]))
+
+
+def _register_formulas():
+    from repro_torch.utils.op_stats import register_bytes_formula
+
+    @register_bytes_formula(torch.ops.repro_torch.dbs_rw_write)
+    def _write_bytes(pool, src, dst, lane_of, payload, out_val=None):
+        # every lane's row read and written (a CoW or a no-op dump lane at
+        # most), its payload read and its ids and block map read
+        row = pool.shape[1] * pool.shape[2] * pool.element_size()
+        return (2 * src.shape[0] * row + payload.numel()
+                * payload.element_size() + 4 * (2 * src.numel()
+                                                + lane_of.numel()))
+
+    @register_bytes_formula(torch.ops.repro_torch.dbs_rw_read)
+    def _read_bytes(pool, ext, block, out_val=None):
+        return 2 * ext.shape[0] * pool.shape[2] * pool.element_size() \
+            + 4 * (ext.numel() + block.numel())
+
+
+_register_formulas()

@@ -17,6 +17,11 @@ for tensors on the CPU; a CUDA tensor gets the kernel or an error.
 kernel's products run on the tensor cores in 3xTF32, accurate to fp32's
 level. V has a width of its own: MLA's prefill (K 576, V 512) runs on
 the kernel's wide instantiation without padding V.
+
+The entry is a custom op (``repro_torch::flash_attention``, ``_build.py
+entry``) whose FLOP formula counts QK^T and PV over the causal (or
+windowed) positions and whose bytes formula counts q, k, v read and the
+output written once, the bound's work.
 """
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels._build import (check_tensor, kernel_info, library,
-                                       raise_on, refuse_grad)
+from repro_torch.kernels._build import (check_tensor, entry, kernel_info,
+                                       library, raise_on, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -80,14 +85,29 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
             raise ValueError(f"{name}: the head dimension must be contiguous")
     if kv <= 0 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: no kernel for device {dev}")
+    if dev.type == "cuda":
+        check_head_dims(d, dv)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    return entry(torch.ops.repro_torch.flash_attention.default, _flash,
+                 q, k, v, bool(causal), int(window or 0),
+                 float(logit_cap or 0.0), scale)
+
+
+def _flash(q, k, v, causal: bool, window: int, logit_cap: float,
+           scale: float):
+    """The launch (the CPU's plain version)."""
+    dev = q.device
     if dev.type == "cpu":
         PLAIN_CALLS["flash_attention"] += 1
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             logit_cap=logit_cap, scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {dev}")
-    check_head_dims(d, dv)
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+        out = attention_ref(q, k, v, causal=causal, window=window,
+                            logit_cap=logit_cap, scale=scale)
+        # the kernel's layout (the op's fake), which DTensor's metadata takes
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
+    b, h, sq, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
     out = torch.empty((b, sq, h, dv), dtype=torch.float32,
                       device=dev).transpose(1, 2)
     lib = library("flash_attention")
@@ -101,3 +121,67 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     raise_on(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the entry as a custom op: fake implementation, FLOP and bytes formulas
+# ---------------------------------------------------------------------------
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+              logit_cap: float, scale: float) -> Tensor:
+    return _flash(q, k, v, causal, window, logit_cap, scale)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window, logit_cap, scale):
+    b, h, sq, _d = q.shape
+    return q.new_empty((b, sq, h, v.shape[-1])).transpose(1, 2)
+
+
+def visible_pairs(sq: int, sk: int, causal: bool = True,
+                  window: int = 0) -> int:
+    """(query, key) pairs a query block attends to: queries at positions
+    sk-sq..sk-1 (suffix alignment), keys at or before each (with
+    ``causal``) and inside the window (with one)."""
+    if not causal:
+        return sum(sk - max(0, sk - sq + i - window + 1)
+                   if window and window > 0 else sk for i in range(sq))
+
+    def upto(n: int) -> int:          # sum of min(m, window) for m = 1..n
+        if not window or window <= 0 or n <= window:
+            return n * (n + 1) // 2
+        return window * (window + 1) // 2 + (n - window) * window
+    return upto(sk) - upto(sk - sq)
+
+
+def flash_work(q, k, v, causal=True, window=0):
+    """(flops, bytes) of one call: QK^T (d wide) and PV (dv wide) over the
+    visible pairs of every head, 2 flops a multiply-add; q, k and v read
+    and the output written once (``chip_smoke.py``'s bound)."""
+    b, h, sq, d = q.shape
+    sk, dv = k.shape[2], v.shape[-1]
+    pairs = visible_pairs(sq, sk, causal, window)
+    flops = 2 * (d + dv) * h * b * pairs
+    n_bytes = (q.numel() + k.numel() + v.numel() + b * h * sq * dv) \
+        * q.element_size()
+    return flops, n_bytes
+
+
+def _register_formulas():
+    from torch.utils.flop_counter import register_flop_formula
+    from repro_torch.utils.op_stats import register_bytes_formula
+    packet = torch.ops.repro_torch.flash_attention
+
+    @register_flop_formula(packet, get_raw=True)
+    def _flops(q, k, v, causal, window, *_a, out_val=None, **_k):
+        return flash_work(q, k, v, causal, window)[0]
+
+    @register_bytes_formula(packet)
+    def _bytes(q, k, v, causal, window, *_a, out_val=None, **_k):
+        return flash_work(q, k, v, causal, window)[1]
+
+
+_register_formulas()

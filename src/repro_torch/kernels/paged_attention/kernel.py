@@ -24,6 +24,18 @@ wrapper's choices are plain functions of shapes and the card's SM count
 (``paged_splits``, ``paged_row_groups``), so a call reads nothing back
 from the card; ``paged_split_range`` is the kernel's own cut of a
 sequence's live pages into shares.
+
+``paged_attention_lse_fwd`` is the split-pool entry that also returns each
+row's log-sum-exp, the stripe's share of a distributed read
+(``distributed/collectives.py``): the launch is the same kernel with at
+least two shares, and the log-sum-exp is read from the shares' (m, l) in
+the partials scratch after the merge (the kernel source is unchanged).
+
+Each entry is a custom op (``repro_torch::paged_attention``,
+``paged_attention_pool``, ``paged_attention_lse``; ``_build.py entry``)
+whose FLOP and bytes formulas count the live pages' positions: this run's
+when the table and lengths can be read, every page of the table when they
+are fake (the dry run's step at the end of a full context).
 """
 from __future__ import annotations
 
@@ -32,14 +44,16 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels._build import (check_tensor, kernel_info, library,
-                                        raise_on, refuse_grad)
+from repro_torch.kernels._build import (check_tensor, entry, kernel_info,
+                                        known, library, raise_on,
+                                        refuse_grad)
 from repro_torch.kernels.paged_attention.ref import (paged_attention_pool_ref,
                                                      paged_attention_ref)
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"paged_attention": 0}
 F32, I32 = torch.float32, torch.int32
+NEG_INF = -1e30
 NARROW_HEAD_DIM = 256                # 8 floats of hd a lane (csrc kMaxD)
 MAX_HEAD_DIM = 576                   # the wide instantiation (kMaxDWide)
 MAX_ROWS = 4                         # query rows a block (csrc kMaxG)
@@ -131,14 +145,18 @@ def _check_common(q, block_table, lengths, kv: int, dev) -> None:
 
 def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
             page, n_rows, k_row, k_tok, v_row, v_tok, window, logit_cap,
-            scale):
+            scale, lse=False):
     b, h, d = q.shape
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims ({d}, {dv}) > {MAX_HEAD_DIM}, the "
                          "kernel's limit")
+    if lse and block_table.shape[1] < 2:      # room for two shares: a hole
+        block_table = torch.nn.functional.pad(block_table, (0, 1), value=-1)
     p_max = block_table.shape[1]
     n_split = paged_splits(p_max, b * kv * paged_row_groups(h, kv),
                            sm_count(q.device), h // kv, max(d, dv))
+    if lse:
+        n_split = max(n_split, 2)
     out = torch.empty((b, h, dv), dtype=F32, device=q.device)
     part = (torch.empty((b, kv, n_split, h // kv, dv + 2), dtype=F32,
                         device=q.device) if n_split > 1 else None)
@@ -154,7 +172,20 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
             stream)
     raise_on(err, "paged_attention")
     LAUNCHES["paged_attention"] += 1
-    return out
+    if not lse:
+        return out
+    return out, _shares_lse(part[..., dv], part[..., dv + 1], b, h)
+
+
+def _shares_lse(m, l, b: int, h: int):
+    """(b, kv, n_split, g) shares' running max and sum -> (b, h) log-sum-
+    exp, NEG_INF where no share saw a live position."""
+    live = l > 0
+    m_star = torch.where(live, m, NEG_INF).amax(dim=2, keepdim=True)
+    total = torch.where(live, l * torch.exp(m - m_star), 0.0).sum(dim=2)
+    m_star = m_star[:, :, 0]
+    out = torch.where(total > 0, m_star + torch.log(total), NEG_INF)
+    return out.reshape(b, h)
 
 
 def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
@@ -163,6 +194,25 @@ def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
     lengths: (B,) int32. Hole pages (extent -1) are skipped. Returns
     (B,H,hd_v) fp32."""
     refuse_grad("paged_attention", q, pool_k, pool_v)
+    scale = _check_split(q, pool_k, pool_v, block_table, lengths, scale)
+    return entry(torch.ops.repro_torch.paged_attention.default, _split,
+                 q, pool_k, pool_v, block_table, lengths, int(window or 0),
+                 float(logit_cap or 0.0), scale)
+
+
+def paged_attention_lse_fwd(q, pool_k, pool_v, block_table, lengths, *,
+                            window=0, logit_cap=0.0, scale=None):
+    """``paged_attention_fwd`` that also returns each row's log-sum-exp of
+    its live logits: (out (B,H,hd_v), lse (B,H)) fp32, lse NEG_INF on a
+    row with no live position (its out is zeros)."""
+    refuse_grad("paged_attention", q, pool_k, pool_v)
+    scale = _check_split(q, pool_k, pool_v, block_table, lengths, scale)
+    return entry(torch.ops.repro_torch.paged_attention_lse.default,
+                 _split_lse, q, pool_k, pool_v, block_table, lengths,
+                 int(window or 0), float(logit_cap or 0.0), scale)
+
+
+def _check_split(q, pool_k, pool_v, block_table, lengths, scale) -> float:
     e, page, kv, dk = pool_k.shape
     dv = pool_v.shape[-1]
     dev = q.device
@@ -171,19 +221,41 @@ def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
         raise ValueError(f"q head dim {q.shape[-1]} != pool_k's {dk}")
     check_tensor("pool_k", pool_k, F32, (e, page, kv, dk), dev)
     check_tensor("pool_v", pool_v, F32, (e, page, kv, dv), dev)
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"paged_attention: no kernel for device {dev}")
+    return float(scale) if scale is not None else 1.0 / math.sqrt(dk)
+
+
+def _split_args(pool_k, pool_v):
+    e, page, kv, dk = pool_k.shape
+    dv = pool_v.shape[-1]
+    return dict(kv=kv, dv=dv, page=page, n_rows=e, k_row=page * kv * dk,
+                k_tok=kv * dk, v_row=page * kv * dv, v_tok=kv * dv)
+
+
+def _split(q, pool_k, pool_v, block_table, lengths, window: int,
+           logit_cap: float, scale: float):
+    """The split-pool launch (the CPU's plain version)."""
+    if q.device.type == "cpu":
         PLAIN_CALLS["paged_attention"] += 1
         return paged_attention_ref(q, pool_k, pool_v, block_table, lengths,
                                    window=window, logit_cap=logit_cap,
                                    scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"paged_attention: no kernel for device {dev}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(dk)
     return _launch(q, pool_k.data_ptr(), pool_v.data_ptr(), block_table,
-                   lengths, kv=kv, dv=dv, page=page, n_rows=e,
-                   k_row=page * kv * dk, k_tok=kv * dk, v_row=page * kv * dv,
-                   v_tok=kv * dv, window=window, logit_cap=logit_cap,
-                   scale=scale)
+                   lengths, window=window, logit_cap=logit_cap, scale=scale,
+                   **_split_args(pool_k, pool_v))
+
+
+def _split_lse(q, pool_k, pool_v, block_table, lengths, window: int,
+               logit_cap: float, scale: float):
+    if q.device.type == "cpu":
+        PLAIN_CALLS["paged_attention"] += 1
+        return paged_attention_ref(q, pool_k, pool_v, block_table, lengths,
+                                   window=window, logit_cap=logit_cap,
+                                   scale=scale, return_lse=True)
+    return _launch(q, pool_k.data_ptr(), pool_v.data_ptr(), block_table,
+                   lengths, window=window, logit_cap=logit_cap, scale=scale,
+                   lse=True, **_split_args(pool_k, pool_v))
 
 
 def paged_attention_pool_fwd(q, pool, block_table, lengths, *, k_plane,
@@ -205,15 +277,24 @@ def paged_attention_pool_fwd(q, pool, block_table, lengths, *, k_plane,
     if not (0 <= k_plane < n_planes and 0 <= v_plane < n_planes):
         raise ValueError(f"planes ({k_plane}, {v_plane}) outside "
                          f"[0, {n_planes})")
-    if dev.type == "cpu":
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"paged_attention: no kernel for device {dev}")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    return entry(torch.ops.repro_torch.paged_attention_pool.default, _pool,
+                 q, pool, block_table, lengths, int(k_plane), int(v_plane),
+                 int(window or 0), float(logit_cap or 0.0), scale)
+
+
+def _pool(q, pool, block_table, lengths, k_plane: int, v_plane: int,
+          window: int, logit_cap: float, scale: float):
+    """The zero-copy launch (the CPU's plain version)."""
+    if q.device.type == "cpu":
         PLAIN_CALLS["paged_attention"] += 1
         return paged_attention_pool_ref(q, pool, block_table, lengths,
                                         k_plane=k_plane, v_plane=v_plane,
                                         window=window, logit_cap=logit_cap,
                                         scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"paged_attention: no kernel for device {dev}")
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    e, page, n_planes, kv, d = pool.shape
     plane = kv * d                       # elements per plane of one token
     item = pool.element_size()
     tok = n_planes * plane
@@ -222,3 +303,110 @@ def paged_attention_pool_fwd(q, pool, block_table, lengths, *, k_plane,
                    lengths, kv=kv, dv=d, page=page, n_rows=e,
                    k_row=page * tok, k_tok=tok, v_row=page * tok, v_tok=tok,
                    window=window, logit_cap=logit_cap, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# the entries as custom ops: fake implementations, FLOP and bytes formulas
+# ---------------------------------------------------------------------------
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::paged_attention", mutates_args=())
+def _paged_op(q: Tensor, pool_k: Tensor, pool_v: Tensor, block_table: Tensor,
+              lengths: Tensor, window: int, logit_cap: float,
+              scale: float) -> Tensor:
+    return _split(q, pool_k, pool_v, block_table, lengths, window, logit_cap,
+                  scale)
+
+
+@torch.library.custom_op("repro_torch::paged_attention_lse", mutates_args=())
+def _paged_lse_op(q: Tensor, pool_k: Tensor, pool_v: Tensor,
+                  block_table: Tensor, lengths: Tensor, window: int,
+                  logit_cap: float, scale: float) -> Tuple[Tensor, Tensor]:
+    return _split_lse(q, pool_k, pool_v, block_table, lengths, window,
+                      logit_cap, scale)
+
+
+@torch.library.custom_op("repro_torch::paged_attention_pool",
+                         mutates_args=())
+def _paged_pool_op(q: Tensor, pool: Tensor, block_table: Tensor,
+                   lengths: Tensor, k_plane: int, v_plane: int, window: int,
+                   logit_cap: float, scale: float) -> Tensor:
+    return _pool(q, pool, block_table, lengths, k_plane, v_plane, window,
+                 logit_cap, scale)
+
+
+@_paged_op.register_fake
+def _(q, pool_k, pool_v, block_table, lengths, window, logit_cap, scale):
+    return q.new_empty((*q.shape[:2], pool_v.shape[-1]))
+
+
+@_paged_lse_op.register_fake
+def _(q, pool_k, pool_v, block_table, lengths, window, logit_cap, scale):
+    return (q.new_empty((*q.shape[:2], pool_v.shape[-1])),
+            q.new_empty(q.shape[:2]))
+
+
+@_paged_pool_op.register_fake
+def _(q, pool, block_table, lengths, k_plane, v_plane, window, logit_cap,
+      scale):
+    return q.new_empty(q.shape)
+
+
+def live_positions(block_table, lengths, page: int, window: int = 0) -> int:
+    """Positions of the pages the kernel runs (``_paged_live_pages`` of
+    ``chip_smoke.py``, times the page): this run's data when it can be
+    read, else every page of the table."""
+    if not known(block_table, lengths):
+        return block_table.numel() * page
+    base = torch.arange(block_table.shape[1],
+                        device=block_table.device)[None, :] * page
+    run = (base < lengths[:, None]) & (block_table >= 0)
+    if window:
+        run &= (base + page - 1) > (lengths[:, None] - 1 - window)
+    return int(run.sum()) * page
+
+
+def paged_work(q, block_table, lengths, page: int, kv: int, d: int, dv: int,
+               window: int, itemsize: int = 4):
+    """(flops, bytes) of one call: QK^T (d wide) and PV (dv wide) at every
+    live position for each query head, 2 flops a multiply-add; each live
+    position's K and V rows of its KV heads read once, q, the table and
+    the lengths read and the output written once."""
+    n = live_positions(block_table, lengths, page, window)
+    b, h, _ = q.shape
+    flops = 2 * h * (d + dv) * n
+    n_bytes = (n * kv * (d + dv) * itemsize
+               + (q.numel() + b * h * dv) * itemsize
+               + (block_table.numel() + lengths.numel()) * 4)
+    return flops, n_bytes
+
+
+def _split_work(q, pool_k, pool_v, block_table, lengths, window, *_a, **_k):
+    _e, page, kv, d = pool_k.shape
+    return paged_work(q, block_table, lengths, page, kv, d,
+                      pool_v.shape[-1], window, pool_k.element_size())
+
+
+def _pool_work(q, pool, block_table, lengths, k_plane, v_plane, window, *_a,
+               **_k):
+    _e, page, _n, kv, d = pool.shape
+    return paged_work(q, block_table, lengths, page, kv, d, d, window,
+                      pool.element_size())
+
+
+def _register_formulas():
+    from torch.utils.flop_counter import register_flop_formula
+    from repro_torch.utils.op_stats import register_bytes_formula
+    for packet, work in ((torch.ops.repro_torch.paged_attention, _split_work),
+                         (torch.ops.repro_torch.paged_attention_lse,
+                          _split_work),
+                         (torch.ops.repro_torch.paged_attention_pool,
+                          _pool_work)):
+        register_flop_formula(packet, get_raw=True)(
+            lambda *a, _w=work, out_val=None, **k: _w(*a, **k)[0])
+        register_bytes_formula(packet)(
+            lambda *a, _w=work, out_val=None, **k: _w(*a, **k)[1])
+
+
+_register_formulas()

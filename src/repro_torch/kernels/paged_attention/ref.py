@@ -19,11 +19,13 @@ NEG_INF = -1e30
 
 
 def paged_attention_ref(q, pool_k, pool_v, block_table, lengths, *,
-                        window: int = 0, logit_cap: float = 0.0, scale=None):
+                        window: int = 0, logit_cap: float = 0.0, scale=None,
+                        return_lse: bool = False):
     """q: (B,H,hd); pools: (E,page,KV,hd) extent ids; block_table: (B,P)
     (holes -1); lengths: (B,) tokens in cache (the query attends to
     positions < lengths, i.e. the query position is lengths-1 having just
-    been written). Returns (B,H,hd) fp32."""
+    been written). Returns (B,H,hd) fp32; with ``return_lse`` also (B,H)
+    log-sum-exp of the live logits (NEG_INF on a row with none)."""
     b, h, d = q.shape
     _e, page, kv, _ = pool_k.shape
     p_max = block_table.shape[1]
@@ -50,7 +52,13 @@ def paged_attention_ref(q, pool_k, pool_v, block_table, lengths, *,
     w = torch.softmax(logits, dim=-1)
     w = torch.where(vmask, w, 0.0)                    # all-hole lanes -> 0
     out = torch.einsum("bkgs,bskd->bkgd", w, v.float())
-    return out.reshape(b, h, v.shape[-1])
+    out = out.reshape(b, h, v.shape[-1])
+    if not return_lse:
+        return out
+    m = logits.amax(dim=-1, keepdim=True)
+    total = torch.where(vmask, torch.exp(logits - m), 0.0).sum(dim=-1)
+    lse = torch.where(total > 0, m[..., 0] + torch.log(total), NEG_INF)
+    return out, lse.reshape(b, h)
 
 
 def paged_attention_pool_ref(q, pool, block_table, lengths, *, k_plane,

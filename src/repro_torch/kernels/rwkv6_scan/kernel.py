@@ -17,15 +17,19 @@ for tensors on the CPU; a CUDA tensor gets the kernel or an error.
 The C entry picks its schedule and grid from shapes and the SM count
 alone; ``rwkv6_schedule`` and ``rwkv6_n_col`` are the same rules as plain
 functions (``rwkv6_info`` reports what the kernel picked, on the card).
+
+The entry is a custom op (``repro_torch::rwkv6_scan``, ``_build.py
+entry``) whose FLOP and bytes formulas are the chunked form's work
+(``rwkv6_work``, ``chip_smoke.py``'s bound).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels._build import (check_tensor, kernel_info, library,
-                                        raise_on, refuse_grad)
+from repro_torch.kernels._build import (check_tensor, entry, kernel_info,
+                                        library, raise_on, refuse_grad)
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 
 LAUNCHES: Dict[str, int] = {"rwkv6_scan": 0}
@@ -93,15 +97,27 @@ def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
         check_tensor("s0", s0, torch.float32, (b, h, d, d), dev)
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"rwkv6_scan: no kernel for device {dev}")
+    if dev.type == "cuda":
+        if d > MAX_HEAD_DIM:
+            raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}, the kernel's "
+                             "limit")
+        if chunk > MAX_CHUNK:
+            raise ValueError(f"chunk {chunk} > {MAX_CHUNK}, the kernel's "
+                             "limit")
+    y, s_out = entry(torch.ops.repro_torch.rwkv6_scan.default, _scan,
+                     r, k, v, logw, u, s0, int(chunk))
+    return y, s_out
+
+
+def _scan(r, k, v, logw, u, s0, chunk: int):
+    """The launch (the CPU's plain chunked version)."""
+    b, s, h, d = r.shape
+    dev = r.device
     if dev.type == "cpu":
         PLAIN_CALLS["rwkv6_scan"] += 1
         return rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
-    if dev.type != "cuda":
-        raise ValueError(f"rwkv6_scan: no kernel for device {dev}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}, the kernel's limit")
-    if chunk > MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > {MAX_CHUNK}, the kernel's limit")
     y = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
     lib = library("rwkv6_scan")
@@ -116,3 +132,57 @@ def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
     raise_on(err, "rwkv6_scan")
     LAUNCHES["rwkv6_scan"] += 1
     return y, s_out
+
+
+# ---------------------------------------------------------------------------
+# the entry as a custom op: fake implementation, FLOP and bytes formulas
+# ---------------------------------------------------------------------------
+Tensor = torch.Tensor
+
+
+@torch.library.custom_op("repro_torch::rwkv6_scan", mutates_args=())
+def _scan_op(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
+             s0: Optional[Tensor], chunk: int) -> Tuple[Tensor, Tensor]:
+    return _scan(r, k, v, logw, u, s0, chunk)
+
+
+@_scan_op.register_fake
+def _(r, k, v, logw, u, s0, chunk):
+    b, s, h, d = r.shape
+    return r.new_empty((b, s, h, d)), r.new_empty((b, h, d, d))
+
+
+def rwkv6_work(b: int, s: int, h: int, d: int, chunk: int,
+               with_state: bool, itemsize: int = 4):
+    """(flops, bytes) the chunked form needs for one call: per (b, h) and
+    chunk of L tokens, L hd^2 multiply-adds for the inter-chunk read and as
+    many for the state update, hd L (L - 1) / 2 for the intra-chunk
+    matrix, hd L (L + 1) / 2 for its product with v and hd L for the bonus
+    (2 flops each; exps not counted). Bytes: r, k, v, logw and y, u, the
+    state written and, when carried in, read."""
+    sq = 0
+    for c0 in range(0, s, chunk):
+        n = min(chunk, s - c0)
+        sq += n * n
+    macs = b * h * (2 * s * d * d + d * sq + d * s)
+    n_bytes = itemsize * (5 * b * s * h * d + h * d
+                          + (2 if with_state else 1) * b * h * d * d)
+    return 2 * macs, n_bytes
+
+
+def _work(r, k, v, logw, u, s0, chunk, *_a, **_k):
+    b, s, h, d = r.shape
+    return rwkv6_work(b, s, h, d, chunk, s0 is not None, r.element_size())
+
+
+def _register_formulas():
+    from torch.utils.flop_counter import register_flop_formula
+    from repro_torch.utils.op_stats import register_bytes_formula
+    packet = torch.ops.repro_torch.rwkv6_scan
+    register_flop_formula(packet, get_raw=True)(
+        lambda *a, out_val=None, **k: _work(*a, **k)[0])
+    register_bytes_formula(packet)(
+        lambda *a, out_val=None, **k: _work(*a, **k)[1])
+
+
+_register_formulas()

@@ -323,13 +323,12 @@ def _decode_attention(cfg, sig, p, q, k_new, v_new, ctx, cache, scale=None):
     pos = ctx.q_pos[:, 0]                                      # (B,)
     new_cache = dict(cache)
     cap = cfg.attn_logit_softcap
-    rows = torch.arange(b, device=q.device)
     if "ring_k" in cache:
         rk, rv, rp = cache["ring_k"], cache["ring_v"], cache["ring_pos"]
         slot = (pos % rk.shape[1]).long()
-        rk[rows, slot] = k_new[:, 0].to(rk.dtype)
-        rv[rows, slot] = v_new[:, 0].to(rv.dtype)
-        rp[rows, slot] = pos.to(rp.dtype)
+        _store_token(rk, slot, k_new)
+        _store_token(rv, slot, v_new)
+        _scatter_seq(rp, slot[:, None], pos[:, None].to(rp.dtype))
         out = attn.decode_attention(q, rk, rv, ctx.q_pos, rp,
                                     window=sig.window, logit_cap=cap,
                                     scale=scale)
@@ -344,14 +343,36 @@ def _decode_attention(cfg, sig, p, q, k_new, v_new, ctx, cache, scale=None):
     else:
         kc, vc = cache["k"], cache["v"]
         s_max = kc.shape[1]
-        kc[rows, pos.long()] = k_new[:, 0].to(kc.dtype)
-        vc[rows, pos.long()] = v_new[:, 0].to(vc.dtype)
+        _store_token(kc, pos.long(), k_new)
+        _store_token(vc, pos.long(), v_new)
         k_pos = torch.arange(s_max, dtype=torch.int32,
                              device=q.device).expand(b, s_max)
         out = attn.decode_attention(q, kc, vc, ctx.q_pos, k_pos,
                                     window=sig.window, logit_cap=cap,
                                     scale=scale)
     return out, new_cache
+
+
+def _store_token(cache, slot, new) -> None:
+    """``cache[b, slot[b]] = new[b, 0]`` for every row b, in place."""
+    idx = slot[:, None, None, None].expand(-1, 1, *cache.shape[2:])
+    _scatter_seq(cache, idx, new.to(cache.dtype))
+
+
+def _scatter_seq(cache, idx, val) -> None:
+    """``cache.scatter_(1, idx, val)``: a scatter along the sequence dim,
+    which never crosses rows. A DTensor cache split by rows alone (a dry
+    run's cell) takes it on each rank's own rows, its index and values
+    moved to its placements first: DTensor has no rule for this scatter
+    in every release, and its fallback would gather every row."""
+    pl = tuple(getattr(cache, "placements", ()))
+    if pl and all(p.is_shard(0) or not p.is_shard() for p in pl):
+        from torch.distributed.tensor.experimental import local_map
+        local_map(lambda c, i, v: c.scatter_(1, i, v), out_placements=None,
+                  in_placements=(pl, pl, pl),
+                  redistribute_inputs=True)(cache, idx, val)
+        return
+    cache.scatter_(1, idx, val)
 
 
 def paged_write_local(pool_k, pool_v, block_table, pos, k_new, v_new,

@@ -271,9 +271,11 @@ def embed_tokens(p: Params, tokens: torch.Tensor, cfg: ArchConfig,
         # sum the K codebook embeddings (musicgen)
         out = 0.0
         for k in range(cfg.n_codebooks):
-            out = out + emb[k][tokens[..., k]]
+            out = out + F.embedding(tokens[..., k], emb[k])
     else:
-        out = emb[tokens]
+        # a lookup op (not indexing), so a table sharded on its vocab stays
+        # sharded under DTensor
+        out = F.embedding(tokens, emb)
     if cfg.post_norms or cfg.activation == "gelu_tanh":
         # gemma normalizes embeddings by sqrt(d_model)
         if cfg.name.startswith("gemma"):

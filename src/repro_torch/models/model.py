@@ -182,6 +182,39 @@ def _iter_layers(cfg, params):
                 li += 1
 
 
+def stack_params(params: Params, cfg: ArchConfig) -> Params:
+    """The reference's stacked layout from per-layer dicts: ``segments``,
+    one dict a segment of ``pos<i>`` trees whose leaves stack the
+    segment's layers on a leading dim, in the reference's key order
+    (``embed``, ``segments``, ``final_norm``, ``mtp``). The inverse of
+    ``unstack_params``; a segment's per-layer tensors are dropped as it is
+    stacked."""
+    layers = list(params["layers_unstacked"])
+    segs = []
+    for seg in B.layer_schedule(cfg):
+        width = len(seg.sigs)
+        seg_p = {}
+        for pi in range(width):
+            idx = [seg.first_layer + step * width + pi
+                   for step in range(seg.count)]
+            seg_p[f"pos{pi}"] = _stack_trees([layers[i] for i in idx])
+            for i in idx:
+                layers[i] = None
+        segs.append(seg_p)
+    out = {"embed": params["embed"], "segments": segs,
+           "final_norm": params["final_norm"]}
+    if "mtp" in params:
+        out["mtp"] = params["mtp"]
+    return out
+
+
+def _stack_trees(trees: List) -> Params:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
 def unstack_params(params: Params, cfg: ArchConfig) -> Params:
     """Per-layer parameter dicts (views of the stacked segments)."""
     out = {k: v for k, v in params.items() if k != "segments"}

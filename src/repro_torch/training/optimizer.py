@@ -56,10 +56,14 @@ def global_norm(tree) -> torch.Tensor:
     summed in pieces of at most ``NORM_PIECE`` elements by ``torch.sum``
     (pairwise on the CPU, a tree on the card), which holds a 590M-element
     embedding's sum to fp32's accuracy on both; a plain running fp32
-    norm on the CPU drifts by ~1e-4 there."""
+    norm on the CPU drifts by ~1e-4 there. A DTensor leaf is summed
+    whole: each rank sums its own shard and DTensor reduces the partial
+    sums (flattening a sharded leaf would make DTensor plan the pieces
+    over an index of every element)."""
     sums = [torch.sum(torch.square(piece.float()))
             for x in tree_leaves(tree)
-            for piece in x.reshape(-1).split(NORM_PIECE)]
+            for piece in ((x,) if hasattr(x, "placements")
+                          else x.reshape(-1).split(NORM_PIECE))]
     return torch.stack(sums).sum().sqrt()
 
 

@@ -62,6 +62,19 @@ def chunked_cross_entropy(params_embed: Params, h: torch.Tensor,
 
 def _ce_block(params_embed, h, labels, cfg) -> torch.Tensor:
     logits = lm_logits(params_embed, h, cfg).float()
+    if any(p.is_shard(logits.ndim - 1)
+           for p in getattr(logits, "placements", ())):
+        # DTensor logits sharded on the vocab (a dry-run cell,
+        # launch/specs.py): the log-partition and the gold logit as
+        # reductions over the vocab, which each shard takes on its own
+        # columns (a gather of the gold logit would gather every logit)
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        logz = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m),
+                                               dim=-1))
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.sum(torch.where(vocab == labels.long()[..., None],
+                                     logits, 0.0), dim=-1)
+        return torch.mean(logz - gold)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return torch.mean(logz - gold)

@@ -100,6 +100,19 @@ paged decode (``make_sharded_paged_decode``) against the paged kernel on
 the same pools and block table (atol 1e-4, rtol 1e-4), and a checkpoint
 restored as DTensors on the card with the planner's placements, bit for
 bit.
+
+The dry run's accounting on the card: each kernel entry called under the
+counting mode (``utils/op_stats.py``) goes through its custom op, is
+counted once as itself with the FLOPs of its formula, and its output (the
+pool, for the in-place DBS entries) equals the undecorated launch's bit
+for bit; the striped decode's kernel route (``make_sharded_paged_decode(
+..., kernel=True)``) on the one-card mesh against its plain route; the
+stripe entry ``paged_attention_lse_fwd`` against ``paged_attention_ref(
+..., return_lse=True)`` (out within 1e-4, log-sum-exp within 1e-5) and
+four stripes of ``_kernel_partial`` merged against the unstriped plain
+read (1e-4); an fp32 prefill cell on the one-card mesh, run with no
+dispatch mode, launching flash once a layer on its DTensors' local
+shards, its logits against the plain chunked route's (1e-4).
 Imports no JAX.
 """
 import numpy as np
@@ -1476,3 +1489,227 @@ def test_dtensor_restore_on_the_card(tmp_path):
             assert type(got).__name__ == "DTensor"
             assert got.to_local().device.type == dev.type
             assert torch.equal(got.full_tensor(), want)
+
+
+def _entry_case(name, dev):
+    """(public call, undecorated launch, counted FLOPs it must give)."""
+    from repro_torch.kernels.dbs import copy_kernel as ck
+    from repro_torch.kernels.dbs import rw_kernel as rk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    b, h, kv, d, page, p_max = 4, 8, 4, 256, 32, 8
+    table = torch.arange(b * p_max, dtype=torch.int32,
+                         device=dev).reshape(b, p_max)
+    lengths = torch.tensor([5, 100, 200, 256], dtype=torch.int32, device=dev)
+    q = rnd(b, h, d)
+    scale = 1.0 / np.sqrt(d)
+    if name in ("paged_attention", "paged_attention_lse"):
+        pools = (rnd(b * p_max, page, kv, d), rnd(b * p_max, page, kv, d))
+        fwd = (pk.paged_attention_fwd if name == "paged_attention"
+               else pk.paged_attention_lse_fwd)
+        raw = pk._split if name == "paged_attention" else pk._split_lse
+        args = (q, *pools, table, lengths)
+        return (lambda: fwd(*args, scale=scale),
+                lambda: raw(*args, 0, 0.0, scale),
+                pk.paged_work(q, table, lengths, page, kv, d, d, 0)[0])
+    if name == "paged_attention_pool":
+        pool = rnd(b * p_max, page, 4, kv, d)
+        args = (q, pool, table, lengths)
+        return (lambda: pk.paged_attention_pool_fwd(*args, k_plane=2,
+                                                    v_plane=3, scale=scale),
+                lambda: pk._pool(*args, 2, 3, 0, 0.0, scale),
+                pk.paged_work(q, table, lengths, page, kv, d, d, 0)[0])
+    if name == "flash_attention":
+        fq, fk_, fv = rnd(2, 8, 300, 64), rnd(2, 4, 300, 64), rnd(2, 4, 300, 64)
+        return (lambda: fk.flash_attention_fwd(fq, fk_, fv, window=100),
+                lambda: fk._flash(fq, fk_, fv, True, 100, 0.0, 1 / 8.0),
+                fk.flash_work(fq, fk_, fv, True, 100)[0])
+    if name == "rwkv6_scan":
+        r, k, v = rnd(2, 70, 40, 64), rnd(2, 70, 40, 64), rnd(2, 70, 40, 64)
+        logw = -0.5 * torch.rand((2, 70, 40, 64), generator=gen, device=dev)
+        u, s0 = rnd(40, 64), rnd(2, 40, 64, 64)
+        return (lambda: sk.rwkv6_scan_fwd(r, k, v, logw, u, s0=s0),
+                lambda: sk._scan(r, k, v, logw, u, s0, 64),
+                sk.rwkv6_work(2, 70, 40, 64, 64, True)[0])
+    pool = rnd(9, 32, 1024)
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    if name == "dbs_rw_read":
+        blk = torch.tensor([0, 5, 31, 7], dtype=torch.int32, device=dev)
+        return (lambda: rk.dbs_rw_read(pool, ids, blk),
+                lambda: rk._read(pool, ids, blk), 0)
+    if name == "dbs_rw_write":
+        lane_of = torch.full((4, 32), -1, dtype=torch.int32, device=dev)
+        lane_of[:, 3] = ids
+        pay, dst = rnd(4, 1024), ids + 4
+        return (lambda: rk.dbs_rw_write(pool.clone(), ids, dst, lane_of, pay),
+                lambda: _mutated(rk._write, pool, ids, dst, lane_of, pay), 0)
+    mask = torch.tensor([1, 0, 1, 1], dtype=torch.bool, device=dev)
+    return (lambda: ck.dbs_copy(pool.clone(), ids, ids + 4, mask),
+            lambda: _mutated(ck._copy, pool, ids, ids + 4, mask), 0)
+
+
+def _mutated(launch, pool, *args):
+    out = pool.clone()
+    launch(out, *args)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "paged_attention", "paged_attention_lse", "paged_attention_pool",
+    "flash_attention", "rwkv6_scan", "dbs_rw_read", "dbs_rw_write",
+    "dbs_copy"])
+def test_custom_op_entries_count_their_formula(name):
+    dev = _cuda()
+    from repro_torch.utils.op_stats import OpCounter
+    call, raw, flops = _entry_case(name, dev)
+    with OpCounter() as c:
+        got = call()
+    want = raw()
+    torch.cuda.synchronize()
+    assert c.count_ops() == {name: 1}
+    assert c.module_costs()["flops"] == flops
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stripe_slice", [True, False])
+def test_striped_decode_kernel_route_on_a_one_card_mesh(tmp_path,
+                                                        stripe_slice):
+    dev = _cuda()
+    from repro_torch.distributed.collectives import make_sharded_paged_decode
+    from repro_torch.kernels.paged_attention import kernel as pk
+    b, h, kv, d, page, p_max = 4, 8, 4, 256, 32, 8
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+    k_new = torch.randn((b, 1, kv, d), generator=gen, device=dev)
+    v_new = torch.randn((b, 1, kv, d), generator=gen, device=dev)
+    pool_k = torch.randn((b * p_max, page, kv, d), generator=gen, device=dev)
+    pool_v = torch.randn((b * p_max, page, kv, d), generator=gen, device=dev)
+    table = torch.arange(b * p_max, dtype=torch.int32,
+                         device=dev).reshape(b, p_max)
+    pos = torch.tensor([[5], [100], [200], [255]], dtype=torch.int32,
+                       device=dev)
+    outs = {}
+    with _OneCardMesh(tmp_path) as mesh:
+        for kernel in (False, True):
+            fn = make_sharded_paged_decode(mesh, True,
+                                           stripe_slice=stripe_slice,
+                                           kernel=kernel)
+            pk.reset_counts()
+            outs[kernel], _, _ = fn(q, k_new, v_new, pool_k.clone(),
+                                    pool_v.clone(), table, pos)
+            assert pk.LAUNCHES["paged_attention"] == int(kernel)
+    torch.testing.assert_close(outs[True], outs[False], **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_max,window,cap,holes", [
+    (8, 0, 0.0, False), (8, 0, 50.0, True), (8, 70, 0.0, False),
+    (1, 0, 50.0, False), (64, 0, 50.0, True)])
+def test_paged_lse_entry_against_its_plain_version(p_max, window, cap,
+                                                   holes):
+    """``paged_attention_lse_fwd`` (at least two shares, the log-sum-exp
+    read from the partials scratch) against ``paged_attention_ref(...,
+    return_lse=True)``: out within TOL, the log-sum-exp within 1e-5; a
+    row with no live position has zeros and NEG_INF. p_max 1 takes the
+    padded hole page."""
+    dev = _cuda()
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    b, h, kv, d, page = 5, 8, 4, 256, 32
+    gen = torch.Generator(device=dev).manual_seed(p_max + window)
+    pools = [torch.randn((b * p_max + 1, page, kv, d), generator=gen,
+                         device=dev) for _ in range(2)]
+    q = torch.randn((b, h, d), generator=gen, device=dev)
+    table = torch.arange(b * p_max, dtype=torch.int32,
+                         device=dev).reshape(b, p_max)
+    if holes:
+        table[:, 1::3] = -1
+    full = p_max * page
+    lengths = torch.tensor([full, full // 2 + 3, 7, 1, 0], dtype=torch.int32,
+                           device=dev).clamp(max=full)
+    kw = dict(window=window, logit_cap=cap, scale=1.0 / 16)
+    pk.reset_counts()
+    out, lse = pk.paged_attention_lse_fwd(q, *pools, table, lengths, **kw)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["paged_attention"] == 1
+    want_out, want_lse = paged_attention_ref(q, *pools, table, lengths,
+                                             return_lse=True, **kw)
+    torch.testing.assert_close(out, want_out, **TOL)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert bool((lse[4] == pk.NEG_INF).all()) and not bool(out[4].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stripe_slice,window", [(True, 0), (False, 0),
+                                                 (True, 40)])
+def test_kernel_stripes_merge_on_the_card(stripe_slice, window):
+    """Four stripes' partials through the paged kernel (``_kernel_partial``
+    at stride 4, rank by rank; rows whose context ends before a stripe's
+    first page leave it empty) merged as the striped decode merges them,
+    against the plain unstriped read (TOL)."""
+    dev = _cuda()
+    from repro_torch.distributed.collectives import _kernel_partial
+    from repro_torch.kernels.paged_attention import kernel as pk
+    from repro_torch.models import attention as attn
+    b, h, kv, d, page, p_max, stride = 4, 8, 4, 256, 32, 8, 4
+    gen = torch.Generator(device=dev).manual_seed(11)
+    pools = [torch.randn((b * p_max, page, kv, d), generator=gen,
+                         device=dev) for _ in range(2)]
+    table = torch.arange(b * p_max, dtype=torch.int32,
+                         device=dev).reshape(b, p_max)
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev)
+    q_pos = torch.tensor([[5], [40], [131], [255]], dtype=torch.int32,
+                         device=dev)
+    pk.reset_counts()
+    parts = [_kernel_partial(q, *pools, table, q_pos, stride, rank,
+                             stripe_slice, window=window, logit_cap=50.0,
+                             scale=None) for rank in range(stride)]
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["paged_attention"] == stride
+    got = attn.merge_partials(*(torch.stack([p[i] for p in parts])
+                                for i in range(3)))
+    want = attn.merge_partials(*(t[None] for t in attn.paged_decode_attention(
+        q, *pools, table, q_pos, window=window, logit_cap=50.0)))
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.gpu
+def test_prefill_cell_runs_the_flash_kernel_on_a_one_card_mesh(tmp_path):
+    """An fp32 prefill cell (``launch/specs.py``) on the one-card mesh, its
+    step run outside any dispatch mode: the flash entry takes the cell's
+    DTensors through its op, launches the kernel once a layer on the local
+    shards, and the logits equal the plain chunked route's (TOL)."""
+    dev = _cuda()
+    import dataclasses
+    from repro_torch.configs import SHAPES, smoke_config
+    from repro_torch.configs.base import default_plan
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.model import prefill, tree_map
+    cfg = smoke_config("gemma2-2b")
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=64,
+                                global_batch=8)
+    plan = dataclasses.replace(default_plan(cfg, shape, 1, data_shards=1),
+                               compute_dtype="float32",
+                               param_dtype="float32")
+    with _OneCardMesh(tmp_path) as mesh:
+        cell = build_cell(cfg, shape, mesh, plan)
+        params, tokens, caches = tree_map(
+            lambda t: t.to_local().clone(), list(cell.args))
+        want, _ = prefill(params, tokens, cfg, dataclasses.replace(
+            cell.plan, attn_impl="chunked"), caches)
+        fk.reset_counts()
+        got, _ = cell.step(*cell.args)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["flash_attention"] == cfg.n_layers
+        assert type(got).__name__ == "DTensor"
+        torch.testing.assert_close(got.to_local(), want, **TOL)
