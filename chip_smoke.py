@@ -13,8 +13,9 @@ and the script exits non-zero:
 
 1. env — torch/CUDA versions, the card's name and power limit.
 2. build — compile every CUDA source of the port (csrc/*.cu: dbs_rw,
-   dbs_copy, paged_attention, flash_attention, rwkv6_scan) with one nvcc
-   each, all started together; seconds per library. Then launch_floor —
+   dbs_copy, paged_attention, paged_attention_bf16, flash_attention,
+   rwkv6_scan) with one nvcc each, all started together; seconds per
+   library. Then launch_floor —
    the time per call of a one-element ``zero_()`` in the CUDA-graph
    harness of phase 3: the least any launched node costs there (printed
    beside ``dbs_rw_read`` and ``dbs_copy`` as ``launch_floor_ms``).
@@ -456,8 +457,9 @@ and the script exits non-zero:
    its MB/s; ``compressed_cross_pod_mean`` over two steps with error
    feedback and ``hierarchical_psum`` on a (1, 1, 1) ("pod", "data",
    "model") mesh, exact on one rank. The phase's seconds beside the card.
-28. dryrun — (b) first, with nothing else running beside its timed
-   steps: gemma2-2b:decode_32k at its published widths and depth on a
+28. dryrun — (a)'s counts, started before phase 25 (below), collected
+   first, so nothing runs beside (b)'s timed steps. (b)
+   gemma2-2b:decode_32k at its published widths and depth on a
    (1, 1) NCCL mesh, fp32, the global batch cut to DRY_BATCH, built for
    real: ``per_device_bytes`` within 1% of the growth of
    ``torch.cuda.memory_allocated()``; one step under the counting mode
@@ -468,20 +470,54 @@ and the script exits non-zero:
    cost a step); the logits finite; the stripe entry
    ``paged_attention_lse_fwd`` at the first paged layer's shapes against
    ``paged_attention_ref(..., return_lse=True)`` (out within ATTN_TOL,
-   the log-sum-exp within DRY_LSE_TOL). Then (a) ``python -m
-   repro_torch.launch.dryrun`` on the (16, 16) production mesh for
-   gemma2-2b x train_4k and decode_32k and granite-moe-3b-a800m x
-   decode_32k, and (b)'s cell on a fake (1, 1) world, each in a Python of
-   its own on the CPU alone (its fake world never meets the NCCL group;
-   with no card visible its peaks are the H100 data sheet's, marked
-   assumed), while (c) ``python -m repro_torch.launch.serve --arch
-   gemma2-2b`` runs on the card (exit 0, a line a request). Each record's
-   counts, roofline terms and seconds are printed; (b)'s FLOPs and
-   kernel-entry counts must equal its fake count's, and its ms stand
-   beside the fake record's ``t_compute``, ``t_memory`` and
-   ``bottleneck``.
+   the log-sum-exp within DRY_LSE_TOL). (b') The same cell built again in
+   its own default serve plan (bf16 params and compute), one step counted
+   the same way: its paged launches (the bf16 form's) must be more than 0
+   and equal its paged entries, its logits bf16 and finite. (a) is
+   ``python -m repro_torch.launch.dryrun`` on the (16, 16) production
+   mesh for gemma2-2b x train_4k and decode_32k and granite-moe-3b-a800m
+   x decode_32k, and (b)'s and (b')'s cells on a fake (1, 1) world, each
+   in a Python of its own on the CPU alone (its fake world never meets
+   the NCCL group; with no card visible its peaks are the H100 data
+   sheet's, marked assumed), started before phase 25 and running beside
+   phases 25-27 (the card's and the disk's work). (c) ``python -m
+   repro_torch.launch.serve --arch gemma2-2b`` runs on the card (exit 0,
+   a line a request), then phase 29. Each record's counts, roofline terms
+   and seconds are printed; (b)'s and (b')'s FLOPs and kernel-entry
+   counts must equal their fake counts', and (b)'s ms stand beside the
+   fake record's ``t_compute``, ``t_memory`` and ``bottleneck``.
+29. serve_path (gemma2-2b, bf16) — after phase 28's (c): phase 9's
+   model (its published widths and depth, the same seeded weights rounded
+   to bf16, the serve plan's param dtype), engine and 16 prompts of 32
+   new tokens under ``ExecutionPlan(remat="none", attn_impl="cuda",
+   compute_dtype="bfloat16")``: prefill through flash's bf16 form, decode
+   through paged's pool form with bf16 q over the fp32 engine pool.
+   ``_serve_traffic``'s checks and prints (tokens/s, prefill, pump and
+   decode seconds, peak memory, launches, no plain call), every launch of
+   the two attention kernels of their bf16 forms (``LAUNCHES_BY_DTYPE``),
+   the kept calls held against the plain versions in bf16 within
+   BF16_ATTN_TOL (one bf16 step) and timed as in phase 10 (flash's bound
+   at 989 TFLOP/s; SDPA and the paged yardstick in bf16); the split-pool
+   and stripe (lse) entries on bf16 copies of the kept calls' planes.
+   (b) BF16_LOCKSTEP's requests with the logits recorded on three
+   engines: bf16 through the kernels, bf16 on the plain paths
+   (``attn_impl="dense"``, ``kernel="ref"``: every kernel's plain
+   version) and fp32 on the plain paths (the weights upcast): while a
+   request's streams agree, the kernel path's largest distance to the
+   fp32 logits must stay within BF16_RATIO of the plain bf16 path's
+   (both compute attention in fp32 and round its output to bf16, in
+   other orders), and where the two bf16 paths'
+   tokens differ the plain path's top-2 margin must be under twice that
+   distance. (c) The 16 requests on the plain bf16 path: tokens equal to
+   the kernel path's under the TIE_MARGIN rule with that margin. Then the
+   wide instantiations' bf16 forms at deepseek-v3's widths (seeded
+   inputs): flash at K 576 / V 512 on BF16_WIDE_PROMPTS' lengths, paged
+   on bf16 split pools (576 / 512) and, bf16 q, over an fp32 engine pool
+   (576), each held and timed the same way.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line, and
+Then a ``{"kernels": [...]}`` line (the paged and flash entries carry the
+bf16 forms' numbers under ``bf16_*`` keys and their launches on phase 29's
+path and phase 28's bf16 step), the ``nvidia-smi`` name/power line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -524,6 +560,11 @@ SERVE_PROMPT = (100, 1000)       # prompt lengths drawn in [lo, hi]
 SERVE_KEEP_STEPS = (8, 24, 40)   # decode steps whose paged calls are kept
 PROFILE_STEPS = 4                # decode steps timed, then profiled
 ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
+# a bf16 form against its plain version in the working type: both compute
+# in fp32 from the same bf16 inputs and round once, so they differ by one
+# bf16 step (at most 2^-7 of the value) where the two land on either side
+# of a rounding boundary; the atol is ATTN_TOL's, for values near zero
+BF16_ATTN_TOL = dict(atol=1e-4, rtol=2 ** -7)
 HOST_TOL = dict(atol=1e-3, rtol=1e-3)   # host baseline vs zero-copy logits
 TIE_MARGIN = 1e-2                # a closer top-2 step may pick either token
 BLOCK, PAGE_BLOCKS, REPLICAS, BATCH = 4096, 32, 3, 64
@@ -637,11 +678,12 @@ CKPT_EVERY, CKPT_STEPS = 2, 4
 DIST_BATCH, DIST_PROMPT, DIST_MAX_LEN = 4, 500, 1024
 DIST_TOL = dict(atol=1e-5, rtol=1e-5)
 # phase 28, the dry run: (a) the production cells counted on a fake (16, 16)
-# world, each in a Python of its own started in the background after (b)'s
-# timed steps (they need no card); (b) DRY_MODEL:decode_32k at its
+# world, each in a Python of its own started in the background before phase
+# 25 and collected before (b) (they need no card); (b) DRY_MODEL:decode_32k at its
 # published widths and depth built for real on a (1, 1) NCCL mesh, in fp32
-# (the kernels' dtype), the global batch 128 cut to DRY_BATCH (fp32 params
-# 10.5 GB + 8 x 3.9 GB of caches at 32k: ~42 GB, about half the card)
+# (DRY_PLAN) and then in the cell's own bf16 serve plan, the global batch
+# 128 cut to DRY_BATCH (fp32 params 10.5 GB + 8 x 3.9 GB of caches at 32k:
+# ~42 GB, about half the card; half that in bf16)
 DRY_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "decode_32k"),
              ("granite-moe-3b-a800m", "decode_32k"))
 DRY_MODEL, DRY_BATCH = "gemma2-2b", 8
@@ -651,6 +693,9 @@ DRY_OP_STEPS = 10                # and with the entries through their ops
 DRY_MEM_TOL = 0.01               # per_device_bytes vs the allocator's growth
 DRY_LSE_TOL = dict(atol=1e-5, rtol=1e-5)   # the stripe entry's log-sum-exp
 DRY_TIMEOUT = 900
+BF16_RATIO = 1.5                 # kernel bf16 vs fp32 logits / plain bf16's
+BF16_LOCKSTEP = (4, 8)           # requests, new tokens of phase 29's (b)
+BF16_WIDE_PROMPTS = (479, 884)   # MLA prefill lengths of the wide forms
 
 
 def emit(**kw) -> None:
@@ -958,6 +1003,12 @@ def read_parity(torch, pool, reads):
             "lanes": lanes,
             "resources": {"lanes": common, **resources(
                 torch, read_info(common, d, vec4=d % 4 == 0))}}
+
+
+def _attn_tol(torch, dtype):
+    """The attention kernels' tolerance against their plain versions in
+    ``dtype``: ATTN_TOL in fp32, BF16_ATTN_TOL in bf16."""
+    return ATTN_TOL if dtype == torch.float32 else BF16_ATTN_TOL
 
 
 def _width_keys(tag, k):
@@ -2277,11 +2328,13 @@ def phase_shard_failover(torch, args, dev, smi, trace_ops):
     mgr.close()
 
 
-def _tokens_match(outs, want, margin_of, what):
+def _tokens_match(outs, want, margin_of, what, tie_margin=None):
     """Each request's tokens against ``want``'s under the TIE_MARGIN rule
-    (phase 15): where they first differ, the step's top-2 logit margin must
-    be under TIE_MARGIN, and the request's later steps are not compared.
-    Returns the number of such near ties."""
+    (phase 15; ``tie_margin`` in its place where given): where they first
+    differ, the step's top-2 logit margin must be under it, and the
+    request's later steps are not compared. Returns the number of such
+    near ties."""
+    tie_margin = TIE_MARGIN if tie_margin is None else tie_margin
     ties = 0
     for rid, got in outs.items():
         ref = want[rid]
@@ -2290,7 +2343,7 @@ def _tokens_match(outs, want, margin_of, what):
                                  f"tokens, not {len(ref)}")
         for t, (a, b) in enumerate(zip(got, ref)):
             if a != b:
-                if margin_of[(rid, t)] >= TIE_MARGIN:
+                if margin_of[(rid, t)] >= tie_margin:
                     raise AssertionError(f"{what}: request {rid} step {t}: "
                                          f"token {a}, not {b}")
                 ties += 1
@@ -2313,7 +2366,7 @@ def _margin_step(torch, eng, step, margins):
     def run(*a, **k):
         out = step(*a, **k)
         logits = out[0] if out[0].dim() == 2 else out[0][:, 0]  # codebook 0
-        top = torch.topk(logits, 2, dim=-1).values      # on the card
+        top = torch.topk(logits, 2, dim=-1).values.float()   # on the card
         who = [(g.req_id, len(g.out_tokens)) if g is not None else None
                for g in map(eng.live_by_slot, range(eng.n_slots))]
         margins.append((top[:, 0] - top[:, 1], who))
@@ -3418,14 +3471,15 @@ def phase_no_sync(torch, mgr):
 # phase 9: zero-copy serving at gemma2-2b's full width
 # ---------------------------------------------------------------------------
 def _serve_engine(torch, cfg, params, dev, record_logits=False,
-                  kv_backend="fused", max_len=2048, **kw):
+                  kv_backend="fused", max_len=2048, plan=None, kernel="cuda",
+                  **kw):
     from repro_torch.configs.base import ExecutionPlan
     from repro_torch.serving.engine import ServeEngine
+    plan = plan or ExecutionPlan(attn_impl="cuda", compute_dtype="float32")
     return ServeEngine(cfg, params, n_slots=8, max_len=max_len, n_queues=2,
-                       kv_backend=kv_backend, kv_replicas=2, kernel="cuda",
-                       plan=ExecutionPlan(attn_impl="cuda",
-                                          compute_dtype="float32"),
-                       record_logits=record_logits, device=dev, **kw)
+                       kv_backend=kv_backend, kv_replicas=2, kernel=kernel,
+                       plan=plan, record_logits=record_logits, device=dev,
+                       **kw)
 
 
 def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
@@ -3534,6 +3588,8 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+        by_dtype = {"paged_attention": dict(pk.LAUNCHES_BY_DTYPE),
+                    "flash_attention": dict(fk.LAUNCHES_BY_DTYPE)}
         plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
                  **fk.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
     finally:
@@ -3586,8 +3642,9 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
                                                        kept["write"])}
     return {"outs": outs, "run_s": run_s, "clock": clock, "counts": counts,
             "prefill_s": prefill_s, "margin_of": _margin_map(torch, margins),
-            "launches": launches, "plain": plain, "dbs_stats": st,
-            "peak": peak, "parity": parity}
+            "launches": launches, "launches_by_dtype": by_dtype,
+            "plain": plain, "dbs_stats": st, "peak": peak, "parity": parity,
+            "kept_paged": kept["paged"]}
 
 
 def _serve_fields(lens, res):
@@ -3609,7 +3666,8 @@ def _serve_fields(lens, res):
 def _serve_config(cfg, eng, **extra):
     return dict(kv_backend="fused", kv_replicas=2, n_slots=8,
                 max_len=eng.max_len,
-                n_queues=2, kernel="cuda", attn_impl="cuda", dtype="float32",
+                n_queues=2, kernel="cuda", attn_impl="cuda",
+                dtype=eng.plan.compute_dtype,
                 page_blocks=cfg.page_blocks, paged_layers=len(eng._paged),
                 payload_shape=list(eng._payload_shape), **extra)
 
@@ -3619,6 +3677,14 @@ def _keep_local_global(kept, q, kw) -> bool:
     global layer."""
     return len(kept) < 2 and (not kept
                               or kw["window"] != kept[0][3]["window"])
+
+
+def _serve_prompts(np, cfg):
+    """Phase 9's SERVE_REQUESTS prompts (seeded lengths in SERVE_PROMPT):
+    (lengths, prompts); phase 29 serves the same."""
+    rng = np.random.default_rng(SEED + 2)
+    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
+    return lens, [rng.integers(0, cfg.vocab_size, n) for n in lens]
 
 
 def phase_serve(torch, dev, smi):
@@ -3637,9 +3703,7 @@ def phase_serve(torch, dev, smi):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     eng = _serve_engine(torch, cfg, params, dev)
-    rng = np.random.default_rng(SEED + 2)
-    lens = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    lens, prompts = _serve_prompts(np, cfg)
     res = _serve_traffic(torch, eng, prompts, _keep_local_global)
     # fork check: a session forked after its 4th decode step against a
     # second engine decoding the same two streams independently
@@ -3715,20 +3779,23 @@ def phase_paged_kernel(torch, eng, kept):
         raise AssertionError("no paged-attention inputs were kept")
     pool = eng._pools[0]
     _e, page, _np_, kv, d = pool.shape
+    dtype = calls[0][0].dtype
+    tol = _attn_tol(torch, dtype)
     err, n_bytes = 0.0, []
     for q, table, lengths, kw in calls:
         got = paged_attention_pool_fwd(q, pool, table, lengths, **kw)
-        want = paged_attention_pool_ref(q, pool, table, lengths, **kw)
-        torch.testing.assert_close(got, want, **ATTN_TOL)
-        err = max(err, float((got - want).abs().max()))
+        want = paged_attention_pool_ref(q, pool, table, lengths,
+                                        **kw).to(dtype)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = max(err, float((got.float() - want.float()).abs().max()))
         # the live pages' K and V planes, q, the table and the output
         n_bytes.append(paged_work(q, table, lengths, page, kv, d, d,
-                                  kw["window"])[1])
+                                  kw["window"], pool.element_size())[1])
     n = len(calls)
     ms = graph_ms(lambda: [paged_attention_pool_fwd(q, pool, t, ln, **k)
                                   for q, t, ln, k in calls], n)
     plain = graph_ms(lambda: [
-        paged_attention_pool_ref(q, pool, t, ln, **k)
+        paged_attention_pool_ref(q, pool, t, ln, **k).to(dtype)
         for q, t, ln, k in calls], n)
     # yardstick: index_select gathers of the K and V planes, then SDPA with
     # a boolean mask (holes, lengths; no logit cap, which SDPA cannot
@@ -3752,7 +3819,8 @@ def phase_paged_kernel(torch, eng, kept):
                 b, p_max * page, kv, d).transpose(1, 2)
             vv = pool[:, :, vp].index_select(0, idx).reshape(
                 b, p_max * page, kv, d).transpose(1, 2)
-            F.scaled_dot_product_attention(q4, kk, vv, attn_mask=mask)
+            F.scaled_dot_product_attention(q4, kk.to(dtype), vv.to(dtype),
+                                           attn_mask=mask)
     lib = graph_ms(library, n)
     mean_b = sum(n_bytes) / n
     # the grid the wrapper picks: (b * kv * row groups, n_split) main
@@ -3761,11 +3829,15 @@ def phase_paged_kernel(torch, eng, kept):
     p_max = calls[0][1].shape[1]
     rows = b * kv * paged_row_groups(h, kv)
     n_split = paged_splits(p_max, rows, sm_count(pool.device), h // kv, d)
-    info = paged_info(h // kv, d, d, True, True, p_max, n_split)
+    info = paged_info(h // kv, d, d, True, True, p_max, n_split, dtype=dtype,
+                      kv_dtype=pool.dtype)
     emit(phase="kernel_parity", kernel="paged_attention", calls=n,
          pool_shape=list(pool.shape), q_shape=list(calls[0][0].shape),
          table_shape=list(calls[0][1].shape), max_abs_err=err,
-         bytes_per_call=mean_b, splits=n_split, tolerance=ATTN_TOL)
+         bytes_per_call=mean_b, splits=n_split, tolerance=tol,
+         dtype=str(dtype), pool_dtype=str(pool.dtype))
+    cast = ("" if dtype == pool.dtype
+            else ", the gathered K and V cast to q's dtype")
     return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
             "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -3774,7 +3846,7 @@ def phase_paged_kernel(torch, eng, kept):
             "library_call": "two index_select gathers (K and V planes) + "
                             "scaled_dot_product_attention with a boolean "
                             "mask, a KV head's query heads on its query "
-                            "axis, no logit cap",
+                            "axis, no logit cap" + cast,
             "bytes_per_call": mean_b, "splits": n_split,
             "kernels_per_call": 2 if n_split > 1 else 1,
             **resources(torch, info, rows * n_split)}
@@ -3791,21 +3863,27 @@ def phase_flash_kernel(torch, kept):
     if len(calls) < 2:
         raise AssertionError("the local and global prefill inputs were not "
                              "both kept")
+    dtype = calls[0][0].dtype
+    tol = _attn_tol(torch, dtype)
+    # fp32 runs in 3xTF32 (three TF32 products a multiply-add), bf16 on
+    # the bf16 tensor cores
+    rate = TF32X3_FLOPS_PER_S if dtype == torch.float32 else \
+        BF16_FLOPS_PER_S
     err, flops, n_bytes, bounds = 0.0, [], [], []
     for q, k, v, kw in calls:
         got = flash_attention_fwd(q, k, v, **kw)
-        want = attention_ref(q, k, v, **kw)
-        torch.testing.assert_close(got, want, **ATTN_TOL)
-        err = max(err, float((got - want).abs().max()))
+        want = attention_ref(q, k, v, **kw).to(dtype)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        err = max(err, float((got.float() - want.float()).abs().max()))
         # QK^T and PV over the visible pairs; q, k, v and the output once
         f, nb = flash_work(q, k, v, kw.get("causal", True), kw["window"])
         flops.append(f)
         n_bytes.append(nb)
-        bounds.append(max(f / TF32X3_FLOPS_PER_S, nb / HBM_BYTES_PER_S))
+        bounds.append(max(f / rate, nb / HBM_BYTES_PER_S))
     n = len(calls)
     ms = graph_ms(lambda: [flash_attention_fwd(q, k, v, **kw)
                                   for q, k, v, kw in calls], n)
-    plain = graph_ms(lambda: [attention_ref(q, k, v, **kw)
+    plain = graph_ms(lambda: [attention_ref(q, k, v, **kw).to(dtype)
                                      for q, k, v, kw in calls], n)
     cont = [(q.contiguous(), k.contiguous(), v.contiguous())
             for q, k, v, _ in calls]
@@ -3813,25 +3891,30 @@ def phase_flash_kernel(torch, kept):
         q, k, v, is_causal=True, enable_gqa=True) for q, k, v in cont], n)
     f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
     bound = sum(bounds) / n
-    info = flash_info(calls[0][0].shape[-1], calls[0][2].shape[-1])
+    info = flash_info(calls[0][0].shape[-1], calls[0][2].shape[-1], dtype)
     grid = [c[0].shape[0] * c[0].shape[1]
             * -(-c[0].shape[2] // info["rows_per_block"]) for c in calls]
     emit(phase="kernel_parity", kernel="flash_attention", calls=n,
          q_shapes=[list(c[0].shape) for c in calls],
          v_shapes=[list(c[2].shape) for c in calls],
          windows=[c[3]["window"] for c in calls], max_abs_err=err,
-         flops_per_call=f_mean, bytes_per_call=b_mean, tolerance=ATTN_TOL)
+         flops_per_call=f_mean, bytes_per_call=b_mean, tolerance=tol,
+         dtype=str(dtype))
+    fp32 = dtype == torch.float32
     return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound * 1e3,
-            "bound_by": ("operations" if f_mean / TF32X3_FLOPS_PER_S
+            "bound_by": ("operations" if f_mean / rate
                          >= b_mean / HBM_BYTES_PER_S else "bytes"),
-            "bound_rate": "fp32 flops in 3xTF32 on the tensor cores, "
-                          "495/3 = 165 TFLOP/s; bytes at 3.35 TB/s",
+            "bound_rate": ("fp32 flops in 3xTF32 on the tensor cores, "
+                           "495/3 = 165 TFLOP/s" if fp32 else
+                           "bf16 flops on the tensor cores, 989 TFLOP/s "
+                           "dense") + "; bytes at 3.35 TB/s",
             "library_ms": lib,
             "library_call": "scaled_dot_product_attention(is_causal=True, "
-                            "enable_gqa=True), fp32, without the logit cap",
+                            "enable_gqa=True), %s, without the logit cap"
+                            % ("fp32" if fp32 else "bf16"),
             "flops_per_call": f_mean,
             **resources(torch, info, max(grid)),
             "grid_blocks_per_call": grid}
@@ -5624,10 +5707,11 @@ def start_dryruns(out_dir: str) -> dict:
                CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
     cmds = {f"{a}:{sh}": ["--arch", a, "--shape", sh] for a, sh in DRY_CELLS}
-    cmds["real_cell"] = (["--arch", DRY_MODEL, "--shape", "decode_32k",
-                          "--mesh", "1,1", "--global-batch", str(DRY_BATCH)]
-                         + [a for k, v in DRY_PLAN.items()
-                            for a in ("--plan", f"{k}={v}")])
+    real = ["--arch", DRY_MODEL, "--shape", "decode_32k", "--mesh", "1,1",
+            "--global-batch", str(DRY_BATCH)]
+    cmds["real_cell"] = real + [a for k, v in DRY_PLAN.items()
+                                for a in ("--plan", f"{k}={v}")]
+    cmds["real_cell_bf16"] = real          # the cell's own serve plan
     runs = {}
     for i, (name, args) in enumerate(cmds.items()):
         path = os.path.join(out_dir, f"cell{i}.json")
@@ -5733,21 +5817,51 @@ def _lse_check(torch, cell, cfg, dev) -> dict:
             "tolerance": {"out": ATTN_TOL, "lse": DRY_LSE_TOL}}
 
 
-def phase_dryrun(torch, dev, smi):
-    """Phase 28 (the module docstring). Returns the paged kernel's launches
-    on (b)'s counted step."""
+def _real_count(torch, cfg, shape, mesh, plan, paged_mod):
+    """One cell built for real on ``mesh`` and its step counted once under
+    the counting mode, the paged kernel's counts zeroed just before and read
+    just after: (cell, counts, launches, launches by dtype, build s, count
+    s, the growth of ``memory_allocated()`` over the build)."""
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.specs import build_cell
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cell = build_cell(cfg, shape, mesh, plan, seed=SEED + 28)
+    gc.collect()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - before
+    paged_mod.reset_counts()
+    t0 = time.perf_counter()
+    counts = count_step(cell)
+    torch.cuda.synchronize()
+    return (cell, counts, dict(paged_mod.LAUNCHES),
+            dict(paged_mod.LAUNCHES_BY_DTYPE), build_s,
+            time.perf_counter() - t0, grown)
+
+
+def phase_dryrun(torch, dev, smi, runs, beside=None):
+    """Phase 28 (the module docstring): ``runs`` are (a)'s counts
+    (``start_dryruns``, started before phase 25), collected first;
+    ``beside()`` runs last (phase 29). Returns the paged kernel's launches
+    on (b)'s fp32 and bf16 counted steps, and what ``beside`` returned."""
     import dataclasses
 
     import torch.distributed as dist
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import kernel as paged_mod
-    from repro_torch.launch.dryrun import cell_plan, count_step
+    from repro_torch.launch.dryrun import cell_plan
     from repro_torch.launch.mesh import local_init_method, make_mesh
-    from repro_torch.launch.specs import build_cell, per_device_bytes
+    from repro_torch.launch.specs import per_device_bytes
     t_phase = time.perf_counter()
-    # (b) the accounting against the card, first: nothing else runs beside
-    # its timed steps
+    # (a) the production meshes and (b)'s fake counts, on the CPU alone
+    # since phase 25: waited for here, so nothing runs beside (b)'s timed
+    # steps
+    records = {name: _dry_record(*run) for name, run in runs.items()}
+    counts_wait_s = time.perf_counter() - t_phase
+    # (b) the accounting against the card
     cfg = get_config(DRY_MODEL)
     shape = dataclasses.replace(SHAPES["decode_32k"], global_batch=DRY_BATCH)
     dist.init_process_group("nccl", init_method=local_init_method(),
@@ -5755,24 +5869,12 @@ def phase_dryrun(torch, dev, smi):
     try:
         mesh = make_mesh((1, 1), ("data", "model"), "cuda")
         plan = cell_plan(cfg, shape, {"data": 1, "model": 1}, DRY_PLAN)
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        cell = build_cell(cfg, shape, mesh, plan, seed=SEED + 28)
-        gc.collect()
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        grown = torch.cuda.memory_allocated() - before
-        analytic = per_device_bytes(mesh, cell.args)
-        mem_rel = abs(grown - analytic) / analytic
         # the phase's path: one step counted, the paged kernel's counts
         # zeroed just before and read just after
-        paged_mod.reset_counts()
-        t0 = time.perf_counter()
-        counts = count_step(cell)
-        torch.cuda.synchronize()
-        count_s = time.perf_counter() - t0
-        launches = dict(paged_mod.LAUNCHES)
+        cell, counts, launches, _by, build_s, count_s, grown = _real_count(
+            torch, cfg, shape, mesh, plan, paged_mod)
+        analytic = per_device_bytes(mesh, cell.args)
+        mem_rel = abs(grown - analytic) / analytic
 
         def timed(n):
             ms = []
@@ -5807,33 +5909,39 @@ def phase_dryrun(torch, dev, smi):
         entry_us = _entry_host_us(torch, cell, cfg, dev, _build)
         lse = _lse_check(torch, cell, cfg, dev)
         del cell, logits, local
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (b') the same cell in its own default serve plan (bf16 params and
+        # compute): the kernel entries in their bf16 forms
+        plan16 = cell_plan(cfg, shape, {"data": 1, "model": 1})
+        cell, counts16, launches16, by16, build16_s, count16_s, grown16 = \
+            _real_count(torch, cfg, shape, mesh, plan16, paged_mod)
+        logits16 = cell.step(*cell.args)[0]     # the caches go with cell
+        local16 = logits16.to_local()
+        logits16_ok = (tuple(logits16.shape) == (DRY_BATCH, cfg.vocab_size)
+                       and local16.dtype == torch.bfloat16
+                       and bool(torch.isfinite(local16.float()).all()))
+        del cell, logits16, local16
     finally:
         dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (a) the production meshes and (b)'s fake count, in the background on
-    # the CPU alone while (c) runs on the card
-    dry_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
-    runs = start_dryruns(dry_dir)
-    try:
-        # (c) the serve launcher on the card
-        t0 = time.perf_counter()
-        cp = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             DRY_MODEL], capture_output=True, text=True, timeout=600,
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)))
-        reqs = [ln for ln in cp.stdout.splitlines() if ln.startswith("req ")]
-        serve = dict(rc=cp.returncode, seconds=time.perf_counter() - t0,
-                     requests=len(reqs), stdout=reqs,
-                     stderr=cp.stderr.strip().splitlines()[-3:])
-        t0 = time.perf_counter()
-        records = {name: _dry_record(*run) for name, run in runs.items()}
-        counts_wait_s = time.perf_counter() - t0
-    finally:
-        stop_dryruns(runs)
-        shutil.rmtree(dry_dir, ignore_errors=True)
+    # (c) the serve launcher on the card
+    t0 = time.perf_counter()
+    cp = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         DRY_MODEL], capture_output=True, text=True, timeout=600,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    reqs = [ln for ln in cp.stdout.splitlines() if ln.startswith("req ")]
+    serve = dict(rc=cp.returncode, seconds=time.perf_counter() - t0,
+                 requests=len(reqs), stdout=reqs,
+                 stderr=cp.stderr.strip().splitlines()[-3:])
+    t0 = time.perf_counter()
+    beside_out = beside() if beside is not None else None
+    beside_s = time.perf_counter() - t0
     fake = records.pop("real_cell")
+    fake16 = records.pop("real_cell_bf16")
     production = [{k: r[k] for k in DRY_KEYS} for r in records.values()]
     mean = {k: sum(v) / len(v) for k, v in step_ms.items()}
     n_paged = counts["ops"].get("paged_attention_lse", 0)
@@ -5859,17 +5967,387 @@ def phase_dryrun(torch, dev, smi):
         t_collective_ms=fake["t_collective"] * 1e3,
         bottleneck=fake["bottleneck"], peak=fake["peak"],
         logits_finite=logits_ok, lse_entry=lse)
-    emit(phase="dryrun", production=production, real=real, serve=serve,
-         counts_wait_s=counts_wait_s,
-         seconds=time.perf_counter() - t_phase, card=smi)
+    n_paged16 = counts16["ops"].get("paged_attention_lse", 0)
+    real16 = dict(
+        cell=f"{DRY_MODEL}:decode_32k", global_batch=DRY_BATCH,
+        plan={"compute_dtype": plan16.compute_dtype,
+              "param_dtype": plan16.param_dtype}, build_s=build16_s,
+        count_s=count16_s, flops=counts16["flops"],
+        fake_flops=fake16["flops_per_device"], ops=counts16["ops"],
+        fake_ops=fake16["ops"], bytes=counts16["bytes"],
+        fake_bytes=fake16["bytes_per_device"],
+        memory_allocated_growth=grown16, launches=launches16,
+        launches_by_dtype=by16, entry_calls_per_step=n_paged16,
+        t_memory_ms=fake16["t_memory"] * 1e3, logits_finite=logits16_ok)
+    emit(phase="dryrun", production=production, real=real, real_bf16=real16,
+         serve=serve, counts_wait_s=counts_wait_s, beside_s=beside_s,
+         seconds=time.perf_counter() - t_phase - beside_s, card=smi)
     ok = (counts["flops"] == fake["flops_per_device"]
           and counts["ops"] == fake["ops"] and n_paged >= 1
           and launches["paged_attention"] == n_paged
+          and counts16["flops"] == fake16["flops_per_device"]
+          and counts16["ops"] == fake16["ops"] and n_paged16 >= 1
+          and launches16["paged_attention"] == n_paged16
+          == by16["bfloat16"] and logits16_ok
           and mem_rel <= DRY_MEM_TOL and logits_ok
           and serve["rc"] == 0 and serve["requests"] == 6)
     if not ok:
         raise AssertionError("dryrun phase failed (see its line)")
-    return launches["paged_attention"]
+    return launches["paged_attention"], launches16["paged_attention"], \
+        beside_out
+
+
+# ---------------------------------------------------------------------------
+# phase 29: gemma2-2b on its bf16 serve plan
+# ---------------------------------------------------------------------------
+def _bf16_plan(attn_impl):
+    """The serve plan's dtypes (bf16 params and compute) on ``attn_impl``:
+    "cuda" for the kernels, "dense" for the plain paths (the reference's
+    "chunked" cuts a prompt of prime length into one-token chunks)."""
+    from repro_torch.configs.base import ExecutionPlan
+    return ExecutionPlan(remat="none", attn_impl=attn_impl,
+                         compute_dtype="bfloat16", param_dtype="bfloat16")
+
+
+def _bf16_lockstep(torch, dev, cfg, params, prompts):
+    """BF16_LOCKSTEP's requests on three zero-copy engines with the logits
+    recorded: bf16 through the kernels, bf16 on the plain paths
+    (``attn_impl="dense"``, ``kernel="ref"``: every kernel's plain version)
+    and fp32 on the plain paths with the same weights upcast (exactly).
+    While a request's three token streams agree its steps are compared:
+    over them the kernel
+    path's largest distance to the fp32 logits must stay within BF16_RATIO
+    of the plain bf16 path's. Where the kernel and plain bf16 tokens
+    differ, the plain path's top-2 margin must be under twice that
+    distance (a near tie). Returns the line's fields."""
+    import numpy as np
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.models.model import tree_map
+    from repro_torch.serving.engine import GenRequest
+    n_req, n_new = BF16_LOCKSTEP
+    runs = {}
+    for name in ("kernel", "plain", "fp32"):
+        if name == "fp32":
+            p = tree_map(lambda t: t.float() if t.is_floating_point() else t,
+                         params)
+            plan = ExecutionPlan(remat="none", attn_impl="dense",
+                                 compute_dtype="float32")
+        else:
+            p = params
+            plan = _bf16_plan("cuda" if name == "kernel" else "dense")
+        eng = _serve_engine(torch, cfg, p, dev, record_logits=True,
+                            plan=plan,
+                            kernel="cuda" if name == "kernel" else "ref")
+        for rid in range(n_req):
+            eng.submit(GenRequest(req_id=rid, prompt=prompts[rid],
+                                  max_new=n_new))
+        eng.run(max_steps=n_req * n_new)
+        runs[name] = {rid: (list(g.out_tokens), np.stack(g.logit_trace))
+                      for rid, g in eng.live.items()}
+        eng.volumes.close()
+        del eng, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    d_kernel = d_plain = d_pair = 0.0
+    compared, ties = 0, {}
+    for rid in range(n_req):
+        (kt, kl), (pt, pl), (ft, fl) = (runs[n][rid]
+                                        for n in ("kernel", "plain", "fp32"))
+        if not len(kt) == len(pt) == len(ft) == n_new:
+            raise AssertionError(f"bf16 lock step: request {rid} made "
+                                 f"{len(kt)}, {len(pt)}, {len(ft)} tokens")
+        for t in range(n_new):
+            d_kernel = max(d_kernel, float(np.abs(kl[t] - fl[t]).max()))
+            d_plain = max(d_plain, float(np.abs(pl[t] - fl[t]).max()))
+            d_pair = max(d_pair, float(np.abs(kl[t] - pl[t]).max()))
+            compared += 1
+            if kt[t] != pt[t]:
+                ties[rid] = (t, _margin_np(np, pl[t]))
+            if kt[t] != pt[t] or pt[t] != ft[t]:
+                break
+    ok = (compared >= n_req and d_plain > 0
+          and d_kernel <= BF16_RATIO * d_plain
+          and all(m < 2 * d_plain for _t, m in ties.values()))
+    fields = dict(requests=n_req, new_tokens=n_new, steps_compared=compared,
+                  kernel_vs_fp32=d_kernel, plain_vs_fp32=d_plain,
+                  kernel_vs_plain=d_pair, ratio=BF16_RATIO,
+                  near_ties={str(r): v for r, v in ties.items()})
+    if not ok:
+        raise AssertionError(f"bf16 lock step failed: {fields}")
+    return fields
+
+
+def _form_parity(torch, kernel, entry, calls, launch, plain, work, rate=None,
+                 library=None, lse_tol=None):
+    """One bf16 form on ``calls`` ((args, kw) pairs) against its plain
+    version in the working type (``plain`` returns what the wrapper's plain
+    version returns: fp32 math rounded to bf16) within BF16_ATTN_TOL (an
+    lse entry's second output, fp32, within ``lse_tol``); timed as in phase
+    10 beside the plain version, one PyTorch yardstick (``library(args,
+    kw)`` prepares a call's inputs, untimed, and returns the call; None:
+    there is none) and the bound: ``work(args, kw)`` -> (flops, bytes),
+    flops over ``rate`` (None: bytes alone) against bytes over 3.35 TB/s.
+    Emits a kernel_parity line; returns the entry's fields."""
+    from repro_torch.kernels.timing import graph_ms
+    err, lse_err, flops, n_bytes = 0.0, 0.0, [], []
+    for args, kw in calls:
+        got, want = launch(*args, **kw), plain(*args, **kw)
+        if lse_tol is not None:
+            torch.testing.assert_close(got[1], want[1], **lse_tol)
+            lse_err = max(lse_err, float((got[1] - want[1]).abs().max()))
+            got, want = got[0], want[0]
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"{kernel} {entry}: output {got.dtype}")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **BF16_ATTN_TOL)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        f, nb = work(args, kw)
+        flops.append(f)
+        n_bytes.append(nb)
+    n = len(calls)
+    ms = graph_ms(lambda: [launch(*a, **k) for a, k in calls], n)
+    plain_ms = graph_ms(lambda: [plain(*a, **k) for a, k in calls], n)
+    lib = None
+    if library is not None:
+        runs = [library(a, k) for a, k in calls]
+        lib = graph_ms(lambda: [run() for run in runs], n)
+    f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
+    t_ops = f_mean / rate if rate else 0.0
+    t_bytes = b_mean / HBM_BYTES_PER_S
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               max_abs_err=err, calls=n, bytes_per_call=b_mean,
+               flops_per_call=f_mean)
+    extra = ({"lse_max_abs_err": lse_err, "lse_tolerance": lse_tol}
+             if lse_tol is not None else {})
+    emit(phase="kernel_parity", kernel=kernel, entry=entry, dtype="bfloat16",
+         tolerance=BF16_ATTN_TOL, **out, **extra)
+    return out
+
+
+def _paged_library(torch, q, pk, pv, table, lengths, **kw):
+    """The paged yardstick of phase 10, prepared: the index and the
+    boolean mask (holes, lengths) made now; the call two ``index_select``
+    gathers of the pools' pages, then SDPA with the mask, a KV head's
+    query heads on its query axis, in q's dtype (no logit cap: SDPA has
+    none)."""
+    import torch.nn.functional as F
+    b, h, d = q.shape
+    _e, page, kv, _ = pk.shape
+    p_max = table.shape[1]
+    pos = torch.arange(p_max * page, device=q.device)
+    mask = ((pos[None, :] < lengths[:, None])
+            & (table >= 0).repeat_interleave(page, dim=1))[:, None, None]
+    idx = table.clamp(min=0).reshape(-1).long()
+    q4 = q.reshape(b, kv, h // kv, d)
+
+    def run():
+        kk = pk.index_select(0, idx).reshape(b, p_max * page, kv, -1)
+        vv = pv.index_select(0, idx).reshape(b, p_max * page, kv, -1)
+        return F.scaled_dot_product_attention(
+            q4, kk.transpose(1, 2).to(q.dtype), vv.transpose(1, 2).to(
+                q.dtype), attn_mask=mask, scale=kw["scale"])
+    return run
+
+
+def _sdpa(torch, q, k, v, **kw):
+    """Phase 10's flash yardstick, prepared: SDPA (causal, GQA, no cap)
+    on contiguous copies of q, k and v made now."""
+    import torch.nn.functional as F
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"])
+
+
+def _bf16_split_forms(torch, pool, kept):
+    """The split-pool entry and the stripe entry (``paged_attention_lse_fwd``)
+    in bf16 at the serving width: the kept decode calls of the bf16
+    traffic (q bf16) over bf16 copies of their layers' K and V planes of
+    the engine pool (E, page, KV, hd each; a layer's planes copied once)."""
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_fwd, paged_attention_lse_fwd, paged_work)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    planes = {}
+
+    def plane(i):
+        if i not in planes:
+            planes[i] = pool[:, :, i].to(torch.bfloat16).contiguous()
+        return planes[i]
+    calls = [((q, plane(kw["k_plane"]), plane(kw["v_plane"]), table,
+               lengths), dict(window=kw["window"],
+                              logit_cap=kw["logit_cap"], scale=kw["scale"]))
+             for q, table, lengths, kw in kept]
+    _e, page, kv, d = calls[0][0][1].shape
+
+    def work(args, kw):
+        return paged_work(args[0], args[3], args[4], page, kv, d, d,
+                          kw["window"], 2)
+
+    def plain(*a, **kw):
+        return paged_attention_ref(*a, **kw).to(torch.bfloat16)
+
+    def plain_lse(*a, **kw):
+        out, lse = paged_attention_ref(*a, return_lse=True, **kw)
+        return out.to(torch.bfloat16), lse
+    split = _form_parity(torch, "paged_attention", "split pools, bf16",
+                         calls, paged_attention_fwd, plain, work,
+                         library=lambda a, k: _paged_library(torch, *a, **k))
+    lse = _form_parity(torch, "paged_attention", "lse (stripe), bf16",
+                       calls, paged_attention_lse_fwd, plain_lse, work,
+                       lse_tol=DRY_LSE_TOL)
+    return split, lse
+
+
+def _bf16_wide_forms(torch, dev):
+    """The wide instantiations' bf16 forms at deepseek-v3's serving shapes
+    (the absorbed latent: K 576, V 512, 128 query heads on one KV head,
+    scale 1/sqrt(192); seeded random values): flash on two prompts of
+    BF16_WIDE_PROMPTS tokens in the model layout; paged on 8 sequences of
+    up to 1024 positions (page 32, 32 pages, holes past each length, a
+    lane of length 0) over bf16 split pools (K 576, V 512) and, q bf16,
+    over an fp32 engine pool of 8 planes at 576."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention.kernel import flash_work
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention_fwd, paged_attention_pool_fwd, paged_work)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_pool_ref, paged_attention_ref)
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    h, dk, dv, scale = 128, 576, 512, 1.0 / math.sqrt(192.0)
+    flash_calls = []
+    for s in BF16_WIDE_PROMPTS:
+        q = torch.randn((1, s, h, dk), generator=gen, device=dev).to(bf)
+        k = torch.randn((1, s, 1, dk), generator=gen, device=dev).to(bf)
+        v = torch.randn((1, s, 1, dv), generator=gen, device=dev).to(bf)
+        flash_calls.append(((q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2)),
+                            dict(window=0, logit_cap=0.0, scale=scale)))
+    wide = {"flash": _form_parity(
+        torch, "flash_attention", "wide (K 576, V 512), bf16", flash_calls,
+        flash_attention_fwd,
+        lambda *a, **k: attention_ref(*a, **k).to(bf),
+        lambda a, k: flash_work(*a, True, k["window"]), BF16_FLOPS_PER_S,
+        library=lambda a, k: _sdpa(torch, *a, **k))}
+    b, page, p_max, n_planes = 8, 32, 32, 8
+    e = b * p_max + 5
+    rng = np.random.default_rng(SEED + 31)
+    table = rng.permutation(e - 1)[:b * p_max].reshape(b, p_max) + 1
+    lengths = rng.integers(1, p_max * page + 1, b)
+    lengths[0], lengths[-1] = 0, p_max * page
+    for i in range(b):
+        table[i, -(-lengths[i] // page):] = -1
+    table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    lengths = torch.from_numpy(lengths.astype(np.int32)).to(dev)
+    q = torch.randn((b, h, dk), generator=gen, device=dev).to(bf)
+    pk = torch.randn((e, page, 1, dk), generator=gen, device=dev).to(bf)
+    pv = torch.randn((e, page, 1, dv), generator=gen, device=dev).to(bf)
+    pool = torch.randn((e, page, n_planes, 1, dk), generator=gen, device=dev)
+    kw = dict(window=0, logit_cap=0.0, scale=scale)
+    wide["paged_split"] = _form_parity(
+        torch, "paged_attention", "wide split pools (576 / 512), bf16",
+        [((q, pk, pv, table, lengths), kw)], paged_attention_fwd,
+        lambda *a, **k: paged_attention_ref(*a, **k).to(bf),
+        lambda a, k: paged_work(a[0], a[3], a[4], page, 1, dk, dv, 0, 2),
+        library=lambda a, k: _paged_library(torch, *a, **k))
+    pkw = dict(kw, k_plane=6, v_plane=7)
+    wide["paged_pool"] = _form_parity(
+        torch, "paged_attention", "wide pool (576), bf16 q over fp32",
+        [((q, pool, table, lengths), pkw)], paged_attention_pool_fwd,
+        lambda *a, **k: paged_attention_pool_ref(*a, **k).to(bf),
+        lambda a, k: paged_work(a[0], a[2], a[3], page, 1, dk, dk, 0, 4),
+        library=lambda a, k: _paged_library(
+            torch, a[0], a[1][:, :, 6], a[1][:, :, 7], a[2], a[3], **k))
+    return wide
+
+
+def phase_serve_bf16(torch, dev, smi):
+    """Phase 29 (the module docstring). Returns the bf16 forms' fields for
+    the kernels line."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_map
+    from repro_torch.serving.engine import GenRequest
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_MODEL)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    params = tree_map(
+        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t,
+        init_params(torch.Generator(device=dev).manual_seed(SEED), cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    lens, prompts = _serve_prompts(np, cfg)
+    # (a) the kernel path: phase 9's traffic and checks on the bf16 plan
+    eng = _serve_engine(torch, cfg, params, dev, plan=_bf16_plan("cuda"))
+    res = _serve_traffic(torch, eng, prompts, _keep_local_global)
+    by = res["launches_by_dtype"]
+    forms = {"flash_attention": by["flash_attention"]["bfloat16"],
+             "paged_attention": by["paged_attention"]["bfloat16_q"]}
+    if any(forms[k] != res["launches"][k] or forms[k] <= 0 for k in forms):
+        raise AssertionError(f"bf16 serving launched {by}, not the bf16 "
+                             f"forms alone ({res['launches']})")
+    split, lse = _bf16_split_forms(torch, eng._pools[0], res["kept_paged"])
+    emit(phase="serve_path", model=SERVE_MODEL,
+         config=_serve_config(cfg, eng, param_dtype="bfloat16"),
+         **_serve_fields(lens, res), launches_by_dtype=by,
+         init_seconds=init_s, memory_allocated_before=held_before, card=smi)
+    kernel_tokens = {rid: list(res["outs"][rid]) for rid in res["outs"]}
+    eng.volumes.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the logits: a lock step against the plain bf16 and fp32 paths
+    lock = _bf16_lockstep(torch, dev, cfg, params, prompts)
+    # (c) the same requests on the plain bf16 path: tokens equal but at
+    # near ties (the kernel run's top-2 margin under twice (b)'s plain
+    # path's distance to fp32)
+    plain = _serve_engine(torch, cfg, params, dev, plan=_bf16_plan("dense"),
+                          kernel="ref")
+    clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            clock[name] += time.perf_counter() - t
+            return out
+        return run
+    plain._prefill_one_zero = timed("prefill", plain._prefill_one_zero)
+    plain._pump_writes = timed("pumps", plain._pump_writes)
+    plain._step_fn = timed("decode", plain._step_fn)
+    t0 = time.perf_counter()
+    for rid, pr in enumerate(prompts):
+        plain.submit(GenRequest(req_id=rid, prompt=pr, max_new=SERVE_NEW))
+    plain_outs = plain.run(max_steps=10 * SERVE_NEW * len(prompts))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ties = _tokens_match(plain_outs, kernel_tokens, res["margin_of"],
+                         "bf16 plain path", 2 * lock["plain_vs_fp32"])
+    plain.volumes.close()
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="bf16_vs_plain", model=SERVE_MODEL, lockstep=lock,
+         requests=len(prompts), plain_run_seconds=plain_s,
+         plain_tokens_per_s=len(prompts) * SERVE_NEW / plain_s,
+         plain_seconds=clock,
+         near_ties=ties, tie_margin=2 * lock["plain_vs_fp32"], card=smi)
+    wide = _bf16_wide_forms(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase="serve_bf16", seconds=time.perf_counter() - t_phase, card=smi)
+    return {"launches": res["launches"], "by_dtype": by,
+            "paged": res["parity"]["paged_attention"],
+            "flash": res["parity"]["flash_attention"], "split": split,
+            "lse": lse, "wide": wide}
 
 
 def main() -> int:
@@ -5891,8 +6369,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    global FP32_FLOPS_PER_S, HBM_BYTES_PER_S, TF32X3_FLOPS_PER_S
-    from repro_torch.utils.machine import (FP32_FLOPS_PER_S, HBM_BYTES_PER_S,
+    global BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, \
+        TF32X3_FLOPS_PER_S
+    from repro_torch.utils.machine import (BF16_FLOPS_PER_S,
+                                           FP32_FLOPS_PER_S, HBM_BYTES_PER_S,
                                            TF32X3_FLOPS_PER_S)
     dev = torch.device("cuda", 0)
     smi = smi_line()
@@ -6194,27 +6674,57 @@ def main() -> int:
     # against the CPU, gemma2-2b trained at full depth, then checkpoints
     parity_params = phase_train_parity(torch, dev, smi)
     free()
-    train_launches = phase_train(torch, dev, smi)
-    free()
-    # the mesh on one card: phase 26's checkpoint restored as DTensors
-    keep = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    # phase 28's counts on the CPU alone, started now: they run beside the
+    # training and checkpoint phases (the card's and the disk's work) and
+    # are collected before phase 28's timed steps
+    dry_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    dry_runs = start_dryruns(dry_dir)
     try:
-        saved = phase_checkpoint(torch, dev, smi, parity_params, keep)
+        train_launches = phase_train(torch, dev, smi)
         free()
-        dist_checks = phase_distributed(torch, dev, smi, parity_params,
-                                        saved, keep)
+        # the mesh on one card: phase 26's checkpoint restored as DTensors
+        keep = tempfile.mkdtemp(prefix="chip-smoke-train-")
+        try:
+            saved = phase_checkpoint(torch, dev, smi, parity_params, keep)
+            free()
+            dist_checks = phase_distributed(torch, dev, smi, parity_params,
+                                            saved, keep)
+        finally:
+            shutil.rmtree(keep, ignore_errors=True)
+        del parity_params
+        free()
+        # the dry run: the accounting held against the card; then phase 29
+        # (gemma2-2b on its bf16 serve plan)
+        dry_launches, dry16_launches, bf16 = phase_dryrun(
+            torch, dev, smi, dry_runs,
+            beside=lambda: phase_serve_bf16(torch, dev, smi))
     finally:
-        shutil.rmtree(keep, ignore_errors=True)
-    del parity_params
+        stop_dryruns(dry_runs)
+        shutil.rmtree(dry_dir, ignore_errors=True)
     free()
     paged_k["check_calls_distributed_phase"] = dist_checks
     for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
         k["launches_train_path"] = train_launches[k["name"]]
-    # the dry run: the accounting held against the card
-    dry_launches = phase_dryrun(torch, dev, smi)
     for k in (write_k, read_k, copy_k, flash_k, rwkv_k):
         k["launches_dryrun_path"] = 0
+        k["launches_dryrun_bf16_path"] = 0
     paged_k["launches_dryrun_path"] = dry_launches
+    paged_k["launches_dryrun_bf16_path"] = dry16_launches
+    for k in (copy_k, rwkv_k):
+        k["launches_bf16_serve_path"] = 0
+    for k in (write_k, read_k, paged_k, flash_k):
+        k["launches_bf16_serve_path"] = bf16["launches"][k["name"]]
+    for k in (paged_k, flash_k):
+        k["launches_bf16_serve_path_by_dtype"] = bf16["by_dtype"][k["name"]]
+    paged_k.update(**_width_keys("bf16", bf16["paged"]),
+                   **_width_keys("bf16_split", bf16["split"]),
+                   **_width_keys("bf16_lse", bf16["lse"]),
+                   **_width_keys("bf16_wide_split",
+                                 bf16["wide"]["paged_split"]),
+                   **_width_keys("bf16_wide_pool",
+                                 bf16["wide"]["paged_pool"]))
+    flash_k.update(**_width_keys("bf16", bf16["flash"]),
+                   **_width_keys("bf16_wide", bf16["wide"]["flash"]))
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

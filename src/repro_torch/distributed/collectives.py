@@ -14,7 +14,8 @@ when the function is made. The reference computes this read with ``jnp``
 outside any Pallas kernel, so torch ops are its counterpart here.
 
 With ``kernel=True`` each stripe's read is the paged kernel's entry
-(``paged_attention_lse_fwd``, fp32 pools): a stripe-sliced table and the
+(``paged_attention_lse_fwd``, q and the caches in the plan's compute
+dtype, fp32 or bf16, and the output in it): a stripe-sliced table and the
 stripe's own lengths where the pages divide by the stripe (no window),
 else the whole table with the other stripes' pages as holes; the entry's
 log-sum-exp stands in for the partial's (m, l). Called with DTensors (the
@@ -150,7 +151,7 @@ def _kernel_partial(q, pool_k, pool_v, block_table, q_pos, stride: int,
         table = torch.where((pages % stride == rank)[None, :], block_table,
                             -1)
     out, lse = paged_attention_lse_fwd(
-        q[:, 0].float().contiguous(), pool_k, pool_v,
+        q[:, 0].contiguous(), pool_k, pool_v,
         table.to(torch.int32).contiguous(),
         length.to(torch.int32).contiguous(), window=window,
         logit_cap=logit_cap, scale=scale)

@@ -42,6 +42,9 @@ SOURCES: Dict[str, Path] = {
     "dbs_copy": KERNELS / "dbs" / "csrc" / "dbs_copy.cu",
     "paged_attention": KERNELS / "paged_attention" / "csrc"
     / "paged_attention.cu",
+    # the bf16 forms: paged_attention.cu again, as a library of its own
+    "paged_attention_bf16": KERNELS / "paged_attention" / "csrc"
+    / "paged_attention_bf16.cu",
     "flash_attention": KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
     "rwkv6_scan": KERNELS / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
@@ -79,15 +82,27 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # merge kernel's registers, positions a tile, query rows a block)
         "paged_attention_info": [_ci] * 7 + [_vp],
     },
+    "paged_attention_bf16": {
+        # paged_attention's arguments with q and out bf16, then kv_bf16
+        # (the pools bf16, else fp32) before the stream
+        "paged_attention_bf16": [_vp] * 7 + [_ci] * 8
+        + [ctypes.c_int64] * 4 + [_ci, _cf, _cf, _ci, _ci, _vp],
+        # paged_attention_info's, kv_bf16 before the out array
+        "paged_attention_bf16_info": [_ci] * 8 + [_vp],
+    },
     "flash_attention": {
         # q, k, v, out; b, h, kv, sq, sk, d, dv; q/k/v/o strides (batch,
         # head, seq; elements, 64-bit); causal, window; scale, logit_cap;
         # stream
         "flash_attention": [_vp] * 4 + [_ci] * 7 + [ctypes.c_int64] * 12
         + [_ci, _ci, _cf, _cf, _vp],
+        # the same, q, k, v and out bf16
+        "flash_attention_bf16": [_vp] * 4 + [_ci] * 7
+        + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp],
         # d, dv; int[6] out (registers, static and dynamic shared memory,
-        # blocks per SM, threads, query rows per block)
+        # blocks per SM, threads, query rows per block); of each form
         "flash_attention_info": [_ci, _ci, _vp],
+        "flash_attention_bf16_info": [_ci, _ci, _vp],
     },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;
@@ -120,9 +135,13 @@ def _nvcc() -> str:
 
 
 def _fresh(name: str) -> bool:
+    """The library is newer than its source and every ``.cu``/``.cuh``
+    beside it (a source may include its neighbours)."""
     lib = library_path(name)
-    return (lib.is_file()
-            and lib.stat().st_mtime >= SOURCES[name].stat().st_mtime)
+    src = SOURCES[name]
+    newest = max(p.stat().st_mtime for p in [src, *src.parent.glob("*.cu"),
+                                             *src.parent.glob("*.cuh")])
+    return lib.is_file() and lib.stat().st_mtime >= newest
 
 
 def build_all(names: Optional[Iterable[str]] = None,

@@ -13,7 +13,9 @@
 // then masked; the softmax is online in fp32; out = acc / max(l, 1e-30).
 // Every tensor is addressed through (batch, head, sequence) strides with
 // the head dimension contiguous, so the model layout (B, S, H, hd) is read
-// and written in place, without a transposing copy. fp32 in and out.
+// and written in place, without a transposing copy. fp32 in and out, or
+// bf16 in and out (the bf16 form, below); the Pallas kernel takes either,
+// upcasts to fp32 inside and writes the output in q's dtype.
 //
 // The TPU wrapper halves its block until it divides the sequence, down to
 // one row for an odd length. Here the tiles are fixed and the ragged last
@@ -96,13 +98,32 @@
 //   the time, the staging and the softmax with its barriers about a
 //   quarter each. Larger query tiles or multicast K/V loads come next.
 //
+// The bf16 form (flash_kernel_bf16, both instantiations' shapes): the same
+// block, warps, key tiles, softmax and masks on bf16 tiles, half the fp32
+// form's bytes through shared memory (103 KiB at hd 256, 195 KiB at 576 /
+// 512; K and V double-buffered in both). S = Q.K^T runs on
+// mma.sync m16n8k16 bf16 with fp32 accumulation: a bf16 x bf16 product is
+// exact in fp32, so this is the Pallas kernel's upcast product. P.V takes
+// P split into bf16 hi and lo parts (two products, 16 mantissa bits of P
+// kept; rounding P to bf16 alone would err by up to 2^-9 of each weight),
+// V's B fragments from ldmatrix.trans. Against the plain version in fp32
+// its error before the output's rounding is about 1e-5 of the output's
+// scale, so the bf16 output differs from the plain version's rounded
+// output by at most one bf16 step (2^-8 relative) where the two land on
+// either side of a rounding boundary. Bound at gemma2-2b's prefill: the
+// causal flops over the dense bf16 rate, 989 TFLOP/s (the P.V split counts
+// twice on the card).
+//
 // Offsets are 64-bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 32;                       // query rows per block
 constexpr int kBK = 32;                       // keys per K/V tile
@@ -547,12 +568,402 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form: q, k, v and the output in bf16, the products on the bf16
+// tensor cores, the softmax and both accumulators in fp32.
+// ---------------------------------------------------------------------------
+
+// S = Q.K^T on m16n8k16 (bf16 in, fp32 accumulate); narrow: d = dv <= 256,
+// wide: d <= 576 with dv <= 512. Q's fragments are 16 head dims a chunk
+// (kChunks a warp: chunks grp + 4c), the output's 8 (kChunksV a warp)
+static_assert(kNT == 4, "P.V takes two 16-key steps a tile");
+
+template <bool kWide>
+struct ShapeH {
+  static constexpr int kChunks = (kWide ? kMaxDWide : kMaxD) / 16 / kGroups;
+  static constexpr int kChunksV = (kWide ? kMaxDvWide : kMaxD) / 8 / kGroups;
+};
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8x8 tiles of 16-bit elements, transposed: lane i gives the address
+// of row i % 8 of tile i / 8, and register j gets tile j's elements (2t, g)
+// and (2t + 1, g): the B fragment of rows (keys) 2t, 2t + 1 at column g
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// (x0, x1) = hi + lo, each a bf16 pair (x0 in the low half): hi rounded to
+// nearest, lo = the rounding error rounded again; hi + lo keeps 16
+// mantissa bits of each value
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void cp16h(bf16* dst, const bf16* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+// Rows [r0, r0 + kRows) of an (n_rows, d) bf16 matrix into shared rows of
+// stride ss, rows >= n_rows zero-filled: 16-byte cp.async copies (8
+// values) where the tensor allows them, else plain 2-byte loads and stores
+// (cp.async has no 2-byte copy), which the barrier before the tile's use
+// orders as it orders the copies
+template <int kRows>
+__device__ __forceinline__ void stage_h(bf16* dst, int ss, const bf16* base,
+                                        int64_t rs, int r0, int n_rows, int d,
+                                        bool vec) {
+  if (vec) {
+    const int per = d >> 3;
+    for (int i = threadIdx.x; i < kRows * per; i += kThreads) {
+      const int r = i / per;
+      const int c = (i - r * per) << 3;
+      const bool in = r0 + r < n_rows;
+      cp16h(dst + r * ss + c, in ? base + (int64_t)(r0 + r) * rs + c : base,
+            in);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kRows * d; i += kThreads) {
+    const int r = i / d;
+    const int c = i - r * d;
+    dst[r * ss + c] = r0 + r < n_rows ? base[(int64_t)(r0 + r) * rs + c]
+                                      : __float2bfloat16(0.f);
+  }
+}
+
+// The fp32 kernel's block, warps, key tiles, softmax and masks, on bf16
+// tiles: Q (32 rows) staged once and its fragments kept in registers, K and
+// V double-buffered, rows padded to d16 = roundup(d, 16) (V's to dv8) with
+// zeros and strided d16 + 8 (dv8 + 8) values, which keeps the 32-bit
+// fragment loads of Q and K and V's ldmatrix rows free of bank conflicts at
+// head dims that are multiples of 64. P.V: the softmax warp of key step grp
+// stores its 8 keys' P as bf16 hi and lo pairs, which are already the A
+// fragments of m16n8k16 (keys 2t, 2t + 1 of the step in c0, c1); V's B
+// fragments come from one ldmatrix.trans of the tile's 32 rows a chunk.
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, bf16* __restrict__ out, int h,
+                  int kv, int sq, int sk, int d, int dv_in, int64_t qsb,
+                  int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                  int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                  int64_t osb, int64_t osh, int64_t oss, int causal,
+                  int window, float scale, float cap, int vec_q, int vec_k,
+                  int vec_v) {
+  using S = ShapeH<kWide>;
+  constexpr int kChunks = S::kChunks;
+  constexpr int kChunksV = S::kChunksV;
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  const int d16 = (d + 15) & ~15;       // head dimension padded to 16
+  const int ss = d16 + 8;               // shared row stride (values)
+  const int nk = d16 >> 4;              // 16-wide chunks of the head dim
+  const int dv = kWide ? dv_in : d;     // narrow: V as wide as K
+  const int dv8 = (dv + 7) & ~7;
+  const int ssv = dv8 + 8;
+  const int nkv = dv8 >> 3;             // 8-wide chunks of the output
+  bf16* qs = (bf16*)smem_h;             // (BQ, ss)
+  bf16* ks = qs + kBQ * ss;             // 2 x (BK, ss)
+  bf16* vs = ks + 2 * kBK * ss;         // 2 x (BK, ssv)
+  // (2, kGroups, kNT, 32)
+  float4* part = (float4*)(vs + 2 * kBK * ssv);
+  uint2* p_hi = (uint2*)(part + 2 * kGroups * kNT * 32);  // (2, kNT, 32)
+  uint2* p_lo = p_hi + 2 * kNT * 32;                       // (2, kNT, 32)
+  float* row_max = (float*)(p_lo + 2 * kNT * 32);          // (2, kGroups, 16)
+  float* row_sum = row_max + 2 * kGroups * 16;             // (2, kGroups, 16)
+
+  const int hh = blockIdx.x % h;
+  const int b = blockIdx.x / h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  const int kh = hh / (h / kv);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rg = warp & 1;
+  const int grp = warp >> 1;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const bf16* qb = q + (int64_t)b * qsb + (int64_t)hh * qsh;
+  const bf16* kb = k + (int64_t)b * ksb + (int64_t)kh * ksh;
+  const bf16* vb = v + (int64_t)b * vsb + (int64_t)kh * vsh;
+
+  // padding columns: [d, d16) of every Q and K row, [dv, dv8) of every V
+  // row, zero once (the staging never writes them)
+  const bf16 zero = __float2bfloat16(0.f);
+  if (d16 > d) {
+    const int pad = d16 - d;
+    for (int i = tid; i < (kBQ + 2 * kBK) * pad; i += kThreads) {
+      const int r = i / pad;
+      qs[r * ss + d + (i - r * pad)] = zero;
+    }
+  }
+  if (dv8 > dv) {
+    const int pad = dv8 - dv;
+    for (int i = tid; i < 2 * kBK * pad; i += kThreads) {
+      const int r = i / pad;
+      vs[r * ssv + dv + (i - r * pad)] = zero;
+    }
+  }
+
+  const int off = sk - sq;
+  const int last_row = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(sk, last_row + off + 1) : sk;
+  const int t_first = (window > 0 ? max(0, q0 + off - window + 1) : 0) / kBK;
+  const int n_tiles =
+      k_end > t_first * kBK ? (k_end - t_first * kBK + kBK - 1) / kBK : 0;
+
+  stage_h<kBQ>(qs, ss, qb, qss, q0, sq, d, vec_q);
+  if (n_tiles > 0) {
+    stage_h<kBK>(ks, ss, kb, kss, t_first * kBK, sk, d, vec_k);
+    stage_h<kBK>(vs, ssv, vb, vss, t_first * kBK, sk, dv, vec_v);
+  }
+  cp_commit();
+  cp_wait_all();
+  __syncthreads();
+
+  // this warp's Q fragments: rows rg * 16 + g and + 8, head dims kk * 16 +
+  // 2t, + 1 and + 8, + 9 of its chunks kk
+  uint32_t qa[kChunks][4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int kk = grp + kGroups * c;
+    if (kk < nk) {
+      const bf16* qr = qs + (rg * 16 + g) * ss + kk * 16 + 2 * t;
+      qa[c][0] = ld32(qr);
+      qa[c][1] = ld32(qr + 8 * ss);
+      qa[c][2] = ld32(qr + 8);
+      qa[c][3] = ld32(qr + 8 * ss + 8);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[c][i] = 0u;
+    }
+  }
+
+  float acc[kChunksV][4];
+#pragma unroll
+  for (int c = 0; c < kChunksV; ++c)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[c][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  const int row0 = q0 + rg * 16 + g;
+  const int pos[2] = {row0 + off, row0 + 8 + off};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int cur = j & 1;
+    if (j > 0) {
+      cp_wait_all();
+      __syncthreads();
+    }
+    if (j + 1 < n_tiles) {
+      const int k1 = (t_first + j + 1) * kBK;
+      stage_h<kBK>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);
+      stage_h<kBK>(vs + (cur ^ 1) * kBK * ssv, ssv, vb, vss, k1, sk, dv,
+                   vec_v);
+      cp_commit();
+    }
+    const bf16* kt = ks + cur * kBK * ss;
+    const bf16* vt = vs + cur * kBK * ssv;
+    const int k0 = (t_first + j) * kBK;
+
+    // partial S over this warp's chunks: one bf16 product a chunk and key
+    // step, exact products summed in fp32
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int kk = grp + kGroups * c;
+      if (kk < nk) {
+        uint32_t bk[kNT][2];
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const bf16* kr = kt + (n * 8 + g) * ss + kk * 16 + 2 * t;
+          bk[n][0] = ld32(kr);
+          bk[n][1] = ld32(kr + 8);
+        }
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) mma_bf16(s[n], qa[c], bk[n]);
+      }
+    }
+    float4* mine = part + (rg * kGroups + grp) * kNT * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      mine[n * 32] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    __syncthreads();
+    float x[4];
+    {
+      float4 a = part[((rg * kGroups) * kNT + grp) * 32 + lane];
+#pragma unroll
+      for (int o = 1; o < kGroups; ++o) {
+        const float4 p = part[((rg * kGroups + o) * kNT + grp) * 32 + lane];
+        a.x += p.x;
+        a.y += p.y;
+        a.z += p.z;
+        a.w += p.w;
+      }
+      x[0] = a.x;
+      x[1] = a.y;
+      x[2] = a.z;
+      x[3] = a.w;
+    }
+
+    // scale, cap, mask: c0, c1 are keys 2t, 2t + 1 of row row0, c2, c3 of
+    // row0 + 8
+    uint32_t ok = 0u;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i >> 1;
+      const int kpos = k0 + grp * 8 + 2 * t + (i & 1);
+      float sc = x[i] * scale;
+      if (cap > 0.f) sc = tanhf(sc / cap) * cap;
+      bool valid = kpos < sk;
+      if (causal) valid = valid && kpos <= pos[r];
+      if (window > 0) valid = valid && kpos > pos[r] - window;
+      ok |= (uint32_t)valid << i;
+      x[i] = valid ? sc : kNegInf;
+      mx[r] = fmaxf(mx[r], x[i]);
+    }
+    float* my_max = row_max + (rg * kGroups + grp) * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      if (t == 0) my_max[g + 8 * r] = mx[r];
+    }
+    __syncthreads();
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m_new = m[r];
+#pragma unroll
+      for (int o = 0; o < kGroups; ++o)
+        m_new = fmaxf(m_new, row_max[(rg * kGroups + o) * 16 + g + 8 * r]);
+      corr[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = (ok >> i) & 1u ? expf(x[i] - m[i >> 1]) : 0.f;
+      sum[i >> 1] += x[i];
+    }
+    float* my_sum = row_sum + (rg * kGroups + grp) * 16;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      if (t == 0) my_sum[g + 8 * r] = sum[r];
+    }
+    // P of key step grp, hi and lo: register 0 row row0's keys 2t, 2t + 1,
+    // register 1 row0 + 8's
+    {
+      uint2 hi, lo;
+      split_bf16(x[0], x[1], hi.x, lo.x);
+      split_bf16(x[2], x[3], hi.y, lo.y);
+      p_hi[(rg * kNT + grp) * 32 + lane] = hi;
+      p_lo[(rg * kNT + grp) * 32 + lane] = lo;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tot = 0.f;
+#pragma unroll
+      for (int o = 0; o < kGroups; ++o)
+        tot += row_sum[(rg * kGroups + o) * 16 + g + 8 * r];
+      l[r] = l[r] * corr[r] + tot;
+    }
+#pragma unroll
+    for (int c = 0; c < kChunksV; ++c) {
+      acc[c][0] *= corr[0];
+      acc[c][1] *= corr[0];
+      acc[c][2] *= corr[1];
+      acc[c][3] *= corr[1];
+    }
+
+    // O += P.V: the A fragment of 16-key step u is key steps 2u and 2u + 1
+    // of the softmax; the small products (P's lo) first
+    uint32_t ah[kNT / 2][4], al[kNT / 2][4];
+#pragma unroll
+    for (int u = 0; u < kNT / 2; ++u) {
+      const uint2 h0 = p_hi[(rg * kNT + 2 * u) * 32 + lane];
+      const uint2 h1 = p_hi[(rg * kNT + 2 * u + 1) * 32 + lane];
+      const uint2 l0 = p_lo[(rg * kNT + 2 * u) * 32 + lane];
+      const uint2 l1 = p_lo[(rg * kNT + 2 * u + 1) * 32 + lane];
+      ah[u][0] = h0.x;
+      ah[u][1] = h0.y;
+      ah[u][2] = h1.x;
+      ah[u][3] = h1.y;
+      al[u][0] = l0.x;
+      al[u][1] = l0.y;
+      al[u][2] = l1.x;
+      al[u][3] = l1.y;
+    }
+#pragma unroll
+    for (int c = 0; c < kChunksV; ++c) {
+      const int kk = grp + kGroups * c;
+      if (kk < nkv) {
+        uint32_t bv[4];                 // keys 0-7, 8-15, 16-23, 24-31
+        ldsm_x4_t(bv, vt + lane * ssv + kk * 8);
+        mma_bf16(acc[c], al[0], bv);
+        mma_bf16(acc[c], al[1], bv + 2);
+        mma_bf16(acc[c], ah[0], bv);
+        mma_bf16(acc[c], ah[1], bv + 2);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row < sq) {
+      bf16* orow = out + (int64_t)b * osb + (int64_t)hh * osh +
+                   (int64_t)row * oss;
+      const float den = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int c = 0; c < kChunksV; ++c) {
+        const int col = (grp + kGroups * c) * 8 + 2 * t;
+        if (col < dv) orow[col] = __float2bfloat16(acc[c][2 * r] / den);
+        if (col + 1 < dv)
+          orow[col + 1] = __float2bfloat16(acc[c][2 * r + 1] / den);
+      }
+    }
+  }
+}
+
 // whether every row start of a (n0, n1, n2, d) strided tensor is 16-byte
-// aligned (a stride of a dimension of size 1 is never used)
+// aligned, with per elements to 16 bytes (4 fp32, 8 bf16; a stride of a
+// dimension of size 1 is never used)
 bool rows_aligned16(const void* p, int n0, int64_t s0, int n1, int64_t s1,
-                    int n2, int64_t s2, int d) {
-  return (uintptr_t)p % 16 == 0 && d % 4 == 0 && (n0 == 1 || s0 % 4 == 0) &&
-         (n1 == 1 || s1 % 4 == 0) && (n2 == 1 || s2 % 4 == 0);
+                    int n2, int64_t s2, int d, int per) {
+  return (uintptr_t)p % 16 == 0 && d % per == 0 &&
+         (n0 == 1 || s0 % per == 0) && (n1 == 1 || s1 % per == 0) &&
+         (n2 == 1 || s2 % per == 0);
 }
 
 template <bool kWide>
@@ -567,6 +978,17 @@ size_t smem_bytes(int d, int dv) {
          sizeof(float) * 2 * 2 * kGroups * 16;       // row maxima and sums
 }
 
+// the bf16 form's (narrow and wide alike): Q, two stages of K and V
+size_t smem_bytes_h(int d, int dv) {
+  const int ss = ((d + 15) & ~15) + 8;
+  const int ssv = ((dv + 7) & ~7) + 8;
+  return sizeof(bf16) * (size_t)(kBQ + 2 * kBK) * ss +
+         sizeof(bf16) * (size_t)2 * kBK * ssv +
+         sizeof(float4) * 2 * kGroups * kNT * 32 +   // S partials
+         sizeof(uint2) * 2 * 2 * kNT * 32 +          // P fragments, hi, lo
+         sizeof(float) * 2 * 2 * kGroups * 16;       // row maxima and sums
+}
+
 // the narrow instantiation takes V as wide as K, up to 256
 int is_wide(int d, int dv) { return d > kMaxD || dv > kMaxD || d != dv; }
 
@@ -575,7 +997,8 @@ bool dims_ok(int d, int dv) {
          (is_wide(d, dv) ? d <= kMaxDWide && dv <= kMaxDvWide : true);
 }
 
-size_t smem_of(int d, int dv) {
+size_t smem_of(int d, int dv, int half) {
+  if (half) return smem_bytes_h(d, dv);
   return is_wide(d, dv) ? smem_bytes<true>(d, dv) : smem_bytes<false>(d, dv);
 }
 
@@ -584,26 +1007,98 @@ using Kernel = void (*)(const float*, const float*, const float*, float*, int,
                         int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
                         int64_t, int64_t, int64_t, int, int, float, float,
                         int, int, int);
+using KernelH = void (*)(const bf16*, const bf16*, const bf16*, bf16*, int,
+                         int, int, int, int, int, int64_t, int64_t, int64_t,
+                         int64_t, int64_t, int64_t, int64_t, int64_t,
+                         int64_t, int64_t, int64_t, int64_t, int, int, float,
+                         float, int, int, int);
 
 Kernel pick(int wide) {
   return wide ? flash_kernel<true> : flash_kernel<false>;
 }
 
+KernelH pick_h(int wide) {
+  return wide ? flash_kernel_bf16<true> : flash_kernel_bf16<false>;
+}
+
+const void* kernel_of(int wide, int half) {
+  return half ? (const void*)pick_h(wide) : (const void*)pick(wide);
+}
+
 // Raise a kernel's dynamic shared-memory limit only when a larger size is
 // first asked for on the current device (the attribute is kept per device
 // and per kernel), so launches captured in a CUDA graph make no such call.
-size_t configured[kMaxDevices][2] = {};
+size_t configured[kMaxDevices][4] = {};
 
-cudaError_t configure(int wide, size_t smem) {
+cudaError_t configure(int wide, int half, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem <= configured[dev][wide]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      pick(wide), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess) configured[dev][wide] = smem;
+  size_t& have = configured[dev][2 * half + wide];
+  if (smem <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel_of(wide, half),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess) have = smem;
   return err;
+}
+
+// both dtypes' launch: half selects the bf16 form
+int launch(const void* q, const void* k, const void* v, void* out, int b,
+           int h, int kv, int sq, int sk, int d, int dv, int64_t qsb,
+           int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
+           int64_t vsb, int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
+           int64_t oss, int causal, int window, float scale, float cap,
+           void* stream, int half) {
+  if (!dims_ok(d, dv) || kv <= 0 || h % kv != 0)
+    return (int)cudaErrorInvalidValue;
+  if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  if (n_qt > 65535 || (int64_t)b * h > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int wide = is_wide(d, dv);
+  const size_t smem = smem_of(d, dv, half);
+  const cudaError_t err = configure(wide, half, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int per = half ? 8 : 4;
+  const int vq = rows_aligned16(q, b, qsb, h, qsh, sq, qss, d, per);
+  const int vk = rows_aligned16(k, b, ksb, kv, ksh, sk, kss, d, per);
+  const int vv = rows_aligned16(v, b, vsb, kv, vsh, sk, vss, dv, per);
+  dim3 grid((unsigned)(b * h), (unsigned)n_qt);
+  if (half)
+    pick_h(wide)<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, h, kv,
+        sq, sk, d, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
+        oss, causal, window, scale, cap, vq, vk, vv);
+  else
+    pick(wide)<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (float*)out, h,
+        kv, sq, sk, d, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,
+        osh, oss, causal, window, scale, cap, vq, vk, vv);
+  return (int)cudaGetLastError();
+}
+
+int info_of(int d, int dv, int* info, int half) {
+  if (!dims_ok(d, dv)) return (int)cudaErrorInvalidValue;
+  const int wide = is_wide(d, dv);
+  const size_t smem = smem_of(d, dv, half);
+  cudaError_t err = configure(wide, half, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, kernel_of(wide, half));
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel_of(wide, half), kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = a.numRegs;
+  info[1] = (int)a.sharedSizeBytes;
+  info[2] = (int)smem;
+  info[3] = per_sm;
+  info[4] = kThreads;
+  info[5] = kBQ;
+  return 0;
 }
 
 }  // namespace
@@ -621,50 +1116,34 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     int64_t vss, int64_t osb, int64_t osh, int64_t oss,
                     int causal, int window, float scale, float cap,
                     void* stream) {
-  if (!dims_ok(d, dv) || kv <= 0 || h % kv != 0)
-    return (int)cudaErrorInvalidValue;
-  if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
-  const int n_qt = (sq + kBQ - 1) / kBQ;
-  if (n_qt > 65535 || (int64_t)b * h > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  const int wide = is_wide(d, dv);
-  const size_t smem = smem_of(d, dv);
-  const cudaError_t err = configure(wide, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vq = rows_aligned16(q, b, qsb, h, qsh, sq, qss, d);
-  const int vk = rows_aligned16(k, b, ksb, kv, ksh, sk, kss, d);
-  const int vv = rows_aligned16(v, b, vsb, kv, vsh, sk, vss, dv);
-  dim3 grid((unsigned)(b * h), (unsigned)n_qt);
-  pick(wide)<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, h, kv,
-      sq, sk, d, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
-      oss, causal, window, scale, cap, vq, vk, vv);
-  return (int)cudaGetLastError();
+  return launch(q, k, v, out, b, h, kv, sq, sk, d, dv, qsb, qsh, qss, ksb,
+                ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale,
+                cap, stream, 0);
+}
+
+// The same with q, k, v and out bf16.
+int flash_attention_bf16(const void* q, const void* k, const void* v,
+                         void* out, int b, int h, int kv, int sq, int sk,
+                         int d, int dv, int64_t qsb, int64_t qsh, int64_t qss,
+                         int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
+                         int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
+                         int64_t oss, int causal, int window, float scale,
+                         float cap, void* stream) {
+  return launch(q, k, v, out, b, h, kv, sq, sk, d, dv, qsb, qsh, qss, ksb,
+                ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale,
+                cap, stream, 1);
 }
 
 // The kernel's resources at head dims d, dv: info[0] registers per thread,
 // [1] static and [2] dynamic shared memory per block (bytes), [3] blocks
 // resident per SM, [4] threads per block, [5] query rows per block.
 int flash_attention_info(int d, int dv, int* info) {
-  if (!dims_ok(d, dv)) return (int)cudaErrorInvalidValue;
-  const int wide = is_wide(d, dv);
-  const size_t smem = smem_of(d, dv);
-  cudaError_t err = configure(wide, smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, pick(wide));
-  if (err != cudaSuccess) return (int)err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick(wide),
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  info[0] = a.numRegs;
-  info[1] = (int)a.sharedSizeBytes;
-  info[2] = (int)smem;
-  info[3] = per_sm;
-  info[4] = kThreads;
-  info[5] = kBQ;
-  return 0;
+  return info_of(d, dv, info, 0);
+}
+
+// The same for the bf16 form.
+int flash_attention_bf16_info(int d, int dv, int* info) {
+  return info_of(d, dv, info, 1);
 }
 
 }  // extern "C"

@@ -13,10 +13,16 @@ copy; the kernel itself stages a tensor with 16-byte copies where its
 base and strides allow and with 4-byte copies otherwise. It launches the
 kernel for tensors on a CUDA device and calls the plain version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error.
-``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32 in and out: the
-kernel's products run on the tensor cores in 3xTF32, accurate to fp32's
-level. V has a width of its own: MLA's prefill (K 576, V 512) runs on
-the kernel's wide instantiation without padding V.
+``LAUNCHES`` and ``PLAIN_CALLS`` count the two, and ``LAUNCHES_BY_DTYPE``
+splits the launches by form (``float32``, ``bfloat16``).
+q, k and v are all fp32 or all bf16, as the TPU kernel takes either, and
+the output is in q's dtype; any other dtype raises. fp32: the kernel's
+products run on the tensor cores in 3xTF32, accurate to fp32's level.
+bf16: the kernel's bf16 form (products on the bf16 tensor cores, softmax
+and sums in fp32); no input is cast to reach a form. The plain version
+computes in fp32 and rounds its output to q's dtype. V has a width of its
+own: MLA's prefill (K 576, V 512) runs on the kernel's wide
+instantiation without padding V.
 
 The entry is a custom op (``repro_torch::flash_attention``, ``_build.py
 entry``) whose FLOP formula counts QK^T and PV over the causal (or
@@ -36,6 +42,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
+LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+DTYPES = (torch.float32, torch.bfloat16)    # the forms: fp32, bf16
 NARROW_HEAD_DIM = 256               # the narrow instantiation: dk, dv
 MAX_HEAD_DIM = 576                  # the wide one: dk (MLA's latent + rope)
 MAX_V_HEAD_DIM = 512                # and dv (MLA's latent)
@@ -44,17 +52,20 @@ INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE):
         for k in counts:
             counts[k] = 0
 
 
-def flash_info(d: int, dv: Optional[int] = None) -> Dict[str, int]:
+def flash_info(d: int, dv: Optional[int] = None,
+               dtype=torch.float32) -> Dict[str, int]:
     """The CUDA kernel's registers, shared memory, resident blocks per SM
-    and block shape at head dims ``d`` and ``dv`` (default ``d``; needs
-    the card)."""
-    return kernel_info("flash_attention", "flash_attention_info",
-                       (d, d if dv is None else dv), INFO_KEYS)
+    and block shape at head dims ``d`` and ``dv`` (default ``d``), of the
+    form of ``dtype`` (needs the card)."""
+    fn = ("flash_attention_bf16_info" if dtype == torch.bfloat16
+          else "flash_attention_info")
+    return kernel_info("flash_attention", fn, (d, d if dv is None else dv),
+                       INFO_KEYS)
 
 
 def check_head_dims(d: int, dv: int) -> None:
@@ -69,18 +80,21 @@ def check_head_dims(d: int, dv: int) -> None:
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                         scale=None):
     """q: (B,H,Sq,hd); k: (B,KV,Sk,hd); v: (B,KV,Sk,hd_v) -> (B,H,Sq,hd_v)
-    fp32. Any strides with the last dimension contiguous; on the card the
-    output is laid out as (B,Sq,H,hd_v) in memory (the model layout) and
-    returned as its (B,H,Sq,hd_v) view. The default scale is
-    1/sqrt(hd)."""
+    in q's dtype (fp32 or bf16; k and v the same). Any strides with the
+    last dimension contiguous; on the card the output is laid out as
+    (B,Sq,H,hd_v) in memory (the model layout) and returned as its
+    (B,H,Sq,hd_v) view. The default scale is 1/sqrt(hd)."""
     refuse_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
     dev = q.device
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: expected torch.float32 or torch.bfloat16, got "
+                        f"{q.dtype}")
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, kv, sk, d)),
                            ("v", v, (b, kv, sk, dv))):
-        check_tensor(name, t, torch.float32, shape, dev, contiguous=False)
+        check_tensor(name, t, q.dtype, shape, dev, contiguous=False)
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
     if kv <= 0 or h % kv:
@@ -102,24 +116,27 @@ def _flash(q, k, v, causal: bool, window: int, logit_cap: float,
     if dev.type == "cpu":
         PLAIN_CALLS["flash_attention"] += 1
         out = attention_ref(q, k, v, causal=causal, window=window,
-                            logit_cap=logit_cap, scale=scale)
+                            logit_cap=logit_cap, scale=scale).to(q.dtype)
         # the kernel's layout (the op's fake), which DTensor's metadata takes
         return out.transpose(1, 2).contiguous().transpose(1, 2)
     b, h, sq, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     dv = v.shape[-1]
-    out = torch.empty((b, sq, h, dv), dtype=torch.float32,
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype,
                       device=dev).transpose(1, 2)
+    form = ("flash_attention_bf16" if q.dtype == torch.bfloat16
+            else "flash_attention")
     lib = library("flash_attention")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.flash_attention(
+        err = getattr(lib, form)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             kv, sq, sk, d, dv, *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
             int(window or 0), float(scale), float(logit_cap or 0.0), stream)
-    raise_on(err, "flash_attention")
+    raise_on(err, form)
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES_BY_DTYPE[str(q.dtype).split(".")[1]] += 1
     return out
 
 

@@ -20,8 +20,17 @@
 // position; the softmax is online in fp32; the output is acc / max(l,
 // 1e-30), so a lane with no live page returns zeros.
 //
+// Dtypes (the Pallas kernel takes any, upcasts inside and writes q's
+// dtype): q, the pools and the output fp32; q, the pools and the output
+// bf16 (a bf16 plan's split pools); or q and the output bf16 over fp32
+// pools (a bf16 plan's q against the fp32 engine pool of zero-copy
+// serving). Loads convert to fp32; the logits, the softmax, the
+// accumulators and the partials stay fp32; the output is rounded to q's
+// dtype once, at the end.
+//
 // Bound on an H100 SXM: bytes. Each live position's K and V rows of one KV
-// head are read once (2 * hd * 4 bytes), q and the output once; the
+// head are read once (2 * hd * 4 bytes; 2 * hd * 2 from bf16 pools), q
+// and the output once; the
 // arithmetic is 4 * g * hd flops per position, far below the fp32 rate, and
 // g = 2 query rows (gemma2-2b) is far below a tensor-core tile, so it stays
 // on the CUDA cores in fp32. At the serving path's widths (8 sequences,
@@ -50,10 +59,13 @@
 //   memory: one barrier. Then each warp runs on its own, with no barrier
 //   until the end: the share's pages are cut into tiles of kTile
 //   positions, warp w owns positions w, w + 4, ... of every tile, and lane
-//   l owns the float4 slots l, l + 32 of hd (4-byte slots l + 32i where
-//   the base, the strides or hd are not multiples of 16 bytes: chosen per
-//   tensor here). A lane copies its own slots of its warp's K and V rows
-//   with cp.async (16 bytes a copy on the fast path) into its own part of
+//   l owns the 16-byte slots l, l + 32 of hd: 4 floats each, or 8 bf16
+//   values of a bf16 pool, so a lane's slot is columns 8l to 8l + 7 and
+//   one slot a lane covers hd 256 (single values l + 32i where the base,
+//   the strides or hd are not multiples of 16 bytes: chosen per tensor
+//   here, for bf16 q by both pools together). A lane copies its own slots
+//   of its warp's K and V rows with cp.async (16 bytes a copy on the fast
+//   path; a single bf16 by a plain load and store) into its own part of
 //   shared memory, two tiles deep, and reads back only what it copied, so
 //   cp.async.wait_group alone orders it: no barrier and no __syncwarp per
 //   page. Positions past the length or outside the window are not loaded.
@@ -76,14 +88,16 @@
 //   and its acc is never read. It is launched with programmatic stream
 //   serialization: its blocks may be scheduled while the main grid runs
 //   and wait (griddepcontrol.wait) until it has finished.
-// - Shared memory: 2 stages x kTile positions x (hd + hd_v) floats (64 KiB
-//   at hd 256), kBlocksPerSm = 3 blocks an SM.
-// - Two instantiations of each (copy width, rows) kernel, by a lane's
-//   floats of a row in registers (LF): 8 up to hd 256, today's code and
-//   tiles; 20 up to 576 (five float4 slots, the fifth half used; or 18
-//   4-byte ones), for MLA's absorbed latent (deepseek-v3: K 576 = latent
-//   512 + rope 64, V 512 on the split pools and 576 on the engine pool's
-//   planes, G = 128 query heads on one KV head, so 32 row groups of 4).
+// - Shared memory: 2 stages x kTile positions x (hd + hd_v) values (64 KiB
+//   at hd 256 in fp32, 32 KiB in bf16), kBlocksPerSm = 3 blocks an SM.
+// - Two instantiations of each (dtypes, copy width, rows) kernel, by a
+//   lane's values of a row in registers (LF): 8 up to hd 256, today's code
+//   and tiles; 20 up to 576 (five float4 slots, the fifth half used; five
+//   8-byte slots of 4 bf16, which keep the fp32 form's registers where
+//   16-byte ones would take 24; or 18 single ones), for MLA's absorbed
+//   latent (deepseek-v3: K 576 = latent 512 + rope 64, V 512 on the
+//   split pools and 576 on the engine pool's planes, G = 128 query heads
+//   on one KV head, so 32 row groups of 4).
 //   The wide one stages 160 KiB (one block an SM) and keeps 2 x 4 rows x
 //   20 floats of q and accumulator a lane (launch bounds for one block an
 //   SM, 255 registers). Each of the 32 row groups of a sequence re-reads
@@ -99,13 +113,22 @@
 //   layer's work, or fewer and longer shares per SM with a deeper ring,
 //   come next.
 //
+// Two libraries from this file, compiled in parallel: the fp32 form's
+// kernels and entries (paged_attention, paged_attention_info) as it is, and
+// with PAGED_ATTENTION_BF16 defined (paged_attention_bf16.cu includes this
+// file) the bf16 forms' (paged_attention_bf16, paged_attention_bf16_info):
+// one file of 48 instantiations took 78 s of nvcc, each half about 40.
+//
 // Offsets are 64-bit: an engine pool holds up to ~2^30 floats.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -134,8 +157,70 @@ __device__ __forceinline__ void cp4(float* dst, const float* src) {
                "l"(src));
 }
 
+__device__ __forceinline__ void cp8(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// one copy of W values of type T into shared memory: cp.async for 16, 8
+// and 4 bytes; one bf16 (2 bytes, below cp.async's smallest copy) by a
+// plain load and store, which the lane itself reads back later, so it
+// needs no wait
+template <typename T, int W>
+__device__ __forceinline__ void cp_slot(T* dst, const T* src) {
+  constexpr int kBytes = (int)sizeof(T) * W;
+  if constexpr (kBytes == 16) cp16((float*)dst, (const float*)src);
+  else if constexpr (kBytes == 8) cp8(dst, src);
+  else if constexpr (kBytes == 4) cp4((float*)dst, (const float*)src);
+  else *dst = *src;
+}
+
+// bf16 pairs to floats: the low half first, exact
+__device__ __forceinline__ void unpack2(float* x, uint32_t u) {
+  x[0] = __uint_as_float(u << 16);
+  x[1] = __uint_as_float(u & 0xffff0000u);
+}
+
+// W values of type T from shared memory (one copy's slot) as floats
+template <typename T, int W>
+__device__ __forceinline__ void load_slot(float* x, const T* p) {
+  if constexpr (sizeof(T) == 4 && W == 4) {
+    const float4 y = *(const float4*)p;
+    x[0] = y.x;
+    x[1] = y.y;
+    x[2] = y.z;
+    x[3] = y.w;
+  } else if constexpr (sizeof(T) == 2 && W == 8) {
+    const uint4 y = *(const uint4*)p;
+    unpack2(x, y.x);
+    unpack2(x + 2, y.y);
+    unpack2(x + 4, y.z);
+    unpack2(x + 6, y.w);
+  } else if constexpr (sizeof(T) == 2 && W == 4) {
+    const uint2 y = *(const uint2*)p;
+    unpack2(x, y.x);
+    unpack2(x + 2, y.y);
+  } else {
+#pragma unroll
+    for (int e = 0; e < W; ++e) x[e] = to_f(p[e]);
+  }
 }
 
 // tanh(x) = 1 - 2 / (exp(2x) + 1), within about 1e-7 of tanhf (ex2.approx
@@ -171,16 +256,19 @@ __host__ __device__ constexpr int lane_floats(int n, int w) {
 constexpr int kLaneNarrow = kMaxD / 32;
 constexpr int kLaneWide = lane_floats(kMaxDWide, 4);
 
-// WK, WV: floats a K / V copy (4 or 1); G: query rows a block (1, 2 or 4;
+// TQ: q's and the output's type, TKV: the pools' (float, float; bf16,
+// bf16; or bf16 over float pools); WK, WV: values a K / V copy (16 bytes:
+// 4 floats or 8 bf16; 8 bytes: 4 bf16 in the wide instantiation; or 1);
+// G: query rows a block (1, 2 or 4;
 // rows of a smaller group are zero and never written), so the logits'
 // reductions and the softmax have no per-row branches and interleave;
-// LF: a lane's floats of a row (kLaneNarrow or kLaneWide)
-template <int WK, int WV, int G, int LF>
+// LF: a lane's values of a row (kLaneNarrow or kLaneWide)
+template <typename TQ, typename TKV, int WK, int WV, int G, int LF>
 __global__ void __launch_bounds__(
     kThreads, LF == kLaneNarrow ? kBlocksPerSm : kBlocksPerSmWide)
-paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const int* __restrict__ table,
-             const int* __restrict__ lengths, float* __restrict__ out,
+paged_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
+             const void* __restrict__ v_, const int* __restrict__ table,
+             const int* __restrict__ lengths, void* __restrict__ out_,
              float* __restrict__ part, int h, int kv, int d, int dv,
              int p_max, int page, int n_rows, int64_t k_row, int64_t k_tok,
              int64_t v_row, int64_t v_tok, int window, float scale,
@@ -188,10 +276,15 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
   extern __shared__ __align__(16) float smem[];
   // let the merge kernel's blocks be scheduled; they wait for this grid
   asm volatile("griddepcontrol.launch_dependents;");
+  const TQ* __restrict__ q = (const TQ*)q_;
+  const TKV* __restrict__ k = (const TKV*)k_;
+  const TKV* __restrict__ v = (const TKV*)v_;
+  TQ* __restrict__ out = (TQ*)out_;
   constexpr int NK = LF / WK, NV = LF / WV;           // slots a lane
   const int fk = lane_floats(d, WK), fv = lane_floats(dv, WV);
-  const int per_pos = (fk + fv) * 32;                 // floats a position
-  int* list = (int*)(smem + kStages * kWarps * kPer * per_pos);
+  const int per_pos = (fk + fv) * 32;                 // values a position
+  TKV* stages = (TKV*)smem;
+  int* list = (int*)(stages + kStages * kWarps * kPer * per_pos);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -220,23 +313,25 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lo = first + (int)((int64_t)split * n / n_split);
   const int hi = first + (int)((int64_t)(split + 1) * n / n_split);
 
-  // the query rows' slots, loaded while the table arrives
+  // the query rows' slots (K's lane map), loaded while the table arrives
   float qr[G][LF];
-  const float* qb = q + ((int64_t)bi * h + (int64_t)kh * g + r0) * d;
+  const TQ* qb = q + ((int64_t)bi * h + (int64_t)kh * g + r0) * d;
 #pragma unroll
   for (int r = 0; r < G; ++r)
 #pragma unroll
     for (int s = 0; s < NK; ++s) {
       const int col = (s * 32 + lane) * WK;
       if (r < nr && col < d) {
-        if constexpr (WK == 4) {
+        if constexpr (sizeof(TQ) == 4 && WK == 4) {
           const float4 x = *(const float4*)(qb + (int64_t)r * d + col);
           qr[r][s * 4] = x.x;
           qr[r][s * 4 + 1] = x.y;
           qr[r][s * 4 + 2] = x.z;
           qr[r][s * 4 + 3] = x.w;
         } else {
-          qr[r][s] = qb[(int64_t)r * d + col];
+#pragma unroll
+          for (int e = 0; e < WK; ++e)
+            qr[r][s * WK + e] = to_f(qb[(int64_t)r * d + col + e]);
         }
       } else {
 #pragma unroll
@@ -281,7 +376,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tpp = (page + kTile - 1) / kTile;
   const int n_tiles = n_live * tpp;
   const int lim = length - 1 - window;    // window: positions > lim run
-  float* lane_base = smem + warp * kPer * per_pos;   // stage 0, position 0
+  TKV* lane_base = stages + warp * kPer * per_pos;   // stage 0, position 0
 
   // copy this lane's slots of this warp's positions of tile j
   auto issue = [&](int j) {
@@ -290,31 +385,25 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int te = min(page, tb + kTile);
     const int ip = list_ip[li];
     const int64_t ext = list_ext[li];
-    float* st = lane_base + (j & 1) * kWarps * kPer * per_pos;
+    TKV* st = lane_base + (j & 1) * kWarps * kPer * per_pos;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       const int t = tb + warp + kWarps * i;
       const int pos = ip * page + t;
       if (t < te && pos < length && (window <= 0 || pos > lim)) {
-        const float* kp = k + ext * k_row + t * k_tok + (int64_t)kh * d;
-        const float* vp = v + ext * v_row + t * v_tok + (int64_t)kh * dv;
-        float* ks = st + i * per_pos;
-        float* vs = ks + fk * 32;
+        const TKV* kp = k + ext * k_row + t * k_tok + (int64_t)kh * d;
+        const TKV* vp = v + ext * v_row + t * v_tok + (int64_t)kh * dv;
+        TKV* ks = st + i * per_pos;
+        TKV* vs = ks + fk * 32;
 #pragma unroll
         for (int s = 0; s < NK; ++s) {
           const int col = (s * 32 + lane) * WK;
-          if (col < d) {
-            if constexpr (WK == 4) cp16(ks + (s * 32 + lane) * 4, kp + col);
-            else cp4(ks + s * 32 + lane, kp + col);
-          }
+          if (col < d) cp_slot<TKV, WK>(ks + col, kp + col);
         }
 #pragma unroll
         for (int s = 0; s < NV; ++s) {
           const int col = (s * 32 + lane) * WV;
-          if (col < dv) {
-            if constexpr (WV == 4) cp16(vs + (s * 32 + lane) * 4, vp + col);
-            else cp4(vs + s * 32 + lane, vp + col);
-          }
+          if (col < dv) cp_slot<TKV, WV>(vs + col, vp + col);
         }
       }
     }
@@ -342,7 +431,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int tb = (j - li * tpp) * kTile;
     const int te = min(page, tb + kTile);
     const int base = list_ip[li] * page;
-    const float* st = lane_base + (j & 1) * kWarps * kPer * per_pos;
+    const TKV* st = lane_base + (j & 1) * kWarps * kPer * per_pos;
     bool ok[kPer];
     float x[kPer][G];
 #pragma unroll
@@ -350,21 +439,13 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int t = tb + warp + kWarps * i;
       const int pos = base + t;
       ok[i] = t < te && pos < length && (window <= 0 || pos > lim);
-      const float* ks = st + i * per_pos;
+      const TKV* ks = st + i * per_pos;
       float kk[LF];
 #pragma unroll
       for (int s = 0; s < NK; ++s) {
         const int col = (s * 32 + lane) * WK;
         if (ok[i] && col < d) {
-          if constexpr (WK == 4) {
-            const float4 y = *(const float4*)(ks + (s * 32 + lane) * 4);
-            kk[s * 4] = y.x;
-            kk[s * 4 + 1] = y.y;
-            kk[s * 4 + 2] = y.z;
-            kk[s * 4 + 3] = y.w;
-          } else {
-            kk[s] = ks[s * 32 + lane];
-          }
+          load_slot<TKV, WK>(kk + s * WK, ks + col);
         } else {
 #pragma unroll
           for (int e = 0; e < WK; ++e) kk[s * WK + e] = 0.f;
@@ -413,21 +494,13 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
       if (!ok[i]) continue;               // the same in every lane
-      const float* vs = st + i * per_pos + fk * 32;
+      const TKV* vs = st + i * per_pos + fk * 32;
       float vv[LF];
 #pragma unroll
       for (int s = 0; s < NV; ++s) {
         const int col = (s * 32 + lane) * WV;
         if (col < dv) {
-          if constexpr (WV == 4) {
-            const float4 y = *(const float4*)(vs + (s * 32 + lane) * 4);
-            vv[s * 4] = y.x;
-            vv[s * 4 + 1] = y.y;
-            vv[s * 4 + 2] = y.z;
-            vv[s * 4 + 3] = y.w;
-          } else {
-            vv[s] = vs[s * 32 + lane];
-          }
+          load_slot<TKV, WV>(vv + s * WV, vs + col);
         } else {
 #pragma unroll
           for (int e = 0; e < WV; ++e) vv[s * WV + e] = 0.f;
@@ -461,7 +534,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
-  float* ob = out + ((int64_t)bi * h + (int64_t)kh * g + r0) * dv;
+  TQ* ob = out + ((int64_t)bi * h + (int64_t)kh * g + r0) * dv;
   for (int e = tid; e < nr * dv; e += kThreads) {
     const int r = e / dv;
     const int c = e - r * dv;
@@ -478,7 +551,7 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
       lsum += f * row[dv + 1];
     }
     if (n_split == 1) {
-      ob[(int64_t)r * dv + c] = o / fmaxf(lsum, 1e-30f);
+      ob[(int64_t)r * dv + c] = from_f<TQ>(o / fmaxf(lsum, 1e-30f));
     } else {
       float* pr = pb + (int64_t)(r0 + r) * rs;
       pr[c] = o;
@@ -494,9 +567,10 @@ paged_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // A warp per query row finds the row's largest live m and each split's
 // coefficient exp(m_s - m*) (0 for an empty split, whose acc is never
 // read) and 1 / sum_s coef l_s, into shared memory; then each thread
-// sums its elements over the splits.
+// sums its elements over the splits, written in the output's type TO.
+template <typename TO>
 __global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(const float* __restrict__ part, float* __restrict__ out, int h,
+merge_kernel(const float* __restrict__ part, TO* __restrict__ out, int h,
              int kv, int dv, int n_split) {
   extern __shared__ float coef[];         // (g, n_split), then (g) 1 / l
   asm volatile("griddepcontrol.wait;" ::: "memory");
@@ -525,7 +599,7 @@ merge_kernel(const float* __restrict__ part, float* __restrict__ out, int h,
     if (lane == 0) inv[r] = 1.f / fmaxf(lsum, 1e-30f);
   }
   __syncthreads();
-  float* ob = out + (int64_t)bkh * g * dv;   // (b, kh) rows are contiguous
+  TO* ob = out + (int64_t)bkh * g * dv;      // (b, kh) rows are contiguous
   for (int e = threadIdx.x; e < g * dv; e += kMergeThreads) {
     const int r = e / dv;
     const int c = e - r * dv;
@@ -535,14 +609,30 @@ merge_kernel(const float* __restrict__ part, float* __restrict__ out, int h,
       const float f = cr[s];
       if (f != 0.f) o += f * pb[((int64_t)s * g + r) * rs + c];
     }
-    ob[e] = o * inv[r];
+    ob[e] = from_f<TO>(o * inv[r]);
   }
 }
 
-using Kernel = void (*)(const float*, const float*, const float*, const int*,
-                        const int*, float*, float*, int, int, int, int, int,
+bool dims_ok(int d, int dv) {
+  return d > 0 && d <= kMaxDWide && dv > 0 && dv <= kMaxDWide;
+}
+
+int is_wide(int d, int dv) { return d > kMaxD || dv > kMaxD; }
+
+using Kernel = void (*)(const void*, const void*, const void*, const int*,
+                        const int*, void*, float*, int, int, int, int, int,
                         int, int, int64_t, int64_t, int64_t, int64_t, int,
                         float, float, int, int);
+
+// the element types: q and pools fp32; q and pools bf16; q bf16 over fp32
+// pools (the zero-copy serving mix: a bf16 plan's q, the fp32 engine pool);
+// TOut, the output's (and q's) type of this library's kernels
+constexpr int kF32 = 0, kBF16 = 1, kBF16Q = 2;
+#ifdef PAGED_ATTENTION_BF16
+using TOut = bf16;
+#else
+using TOut = float;
+#endif
 
 // the rows a block takes, rounded up to an instantiated G
 int rows_g(int g) {
@@ -550,54 +640,93 @@ int rows_g(int g) {
   return gb <= 1 ? 1 : gb <= 2 ? 2 : 4;
 }
 
-template <int G, int LF>
+// values a vector copy of the pools moves: 16 bytes, but 8 for bf16 in the
+// wide instantiation (4 a copy keeps a lane's 20 values of a 576 row in
+// registers, as fp32's five float4 slots do; 16-byte copies would take 24)
+template <typename TKV, int LF>
+constexpr int vec_values() {
+  return sizeof(TKV) == 4 ? 4 : LF == kLaneNarrow ? 8 : 4;
+}
+
+template <typename TQ, typename TKV, int G, int LF>
 Kernel pick_g(int vec_k, int vec_v) {
-  if (vec_k)
-    return vec_v ? paged_kernel<4, 4, G, LF> : paged_kernel<4, 1, G, LF>;
-  return vec_v ? paged_kernel<1, 4, G, LF> : paged_kernel<1, 1, G, LF>;
+  constexpr int W = vec_values<TKV, LF>();
+  if constexpr (sizeof(TQ) == 4) {          // fp32: each pool its own width
+    if (vec_k)
+      return vec_v ? paged_kernel<TQ, TKV, W, W, G, LF>
+                   : paged_kernel<TQ, TKV, W, 1, G, LF>;
+    return vec_v ? paged_kernel<TQ, TKV, 1, W, G, LF>
+                 : paged_kernel<TQ, TKV, 1, 1, G, LF>;
+  } else {                                  // bf16 q: both or neither
+    return vec_k && vec_v ? paged_kernel<TQ, TKV, W, W, G, LF>
+                          : paged_kernel<TQ, TKV, 1, 1, G, LF>;
+  }
 }
 
-template <int LF>
+template <typename TQ, typename TKV, int LF>
 Kernel pick_lf(int vec_k, int vec_v, int gr) {
-  return gr == 1 ? pick_g<1, LF>(vec_k, vec_v)
-       : gr == 2 ? pick_g<2, LF>(vec_k, vec_v) : pick_g<4, LF>(vec_k, vec_v);
+  return gr == 1   ? pick_g<TQ, TKV, 1, LF>(vec_k, vec_v)
+         : gr == 2 ? pick_g<TQ, TKV, 2, LF>(vec_k, vec_v)
+                   : pick_g<TQ, TKV, 4, LF>(vec_k, vec_v);
 }
 
-// the wide instantiation where either head dim passes 256
-Kernel pick(int vec_k, int vec_v, int gr, int wide) {
-  return wide ? pick_lf<kLaneWide>(vec_k, vec_v, gr)
-              : pick_lf<kLaneNarrow>(vec_k, vec_v, gr);
+template <typename TQ, typename TKV>
+Kernel pick_t(int vec_k, int vec_v, int gr, int wide) {
+  return wide ? pick_lf<TQ, TKV, kLaneWide>(vec_k, vec_v, gr)
+              : pick_lf<TQ, TKV, kLaneNarrow>(vec_k, vec_v, gr);
 }
 
-int slot(int vec_k, int vec_v, int gr, int wide) {
-  return wide * 12 + (gr == 1 ? 0 : gr == 2 ? 4 : 8) + vec_k * 2 + vec_v;
+// the wide instantiation where either head dim passes 256; this
+// library's element types only (the file's note on PAGED_ATTENTION_BF16)
+Kernel pick(int types, int vec_k, int vec_v, int gr, int wide) {
+#ifdef PAGED_ATTENTION_BF16
+  return types == kBF16 ? pick_t<bf16, bf16>(vec_k, vec_v, gr, wide)
+                        : pick_t<bf16, float>(vec_k, vec_v, gr, wide);
+#else
+  (void)types;
+  return pick_t<float, float>(vec_k, vec_v, gr, wide);
+#endif
 }
 
-size_t smem_bytes(int d, int dv, int vec_k, int vec_v, int p_max,
+int slot(int types, int vec_k, int vec_v, int gr, int wide) {
+  return types * 24 + wide * 12 + (gr == 1 ? 0 : gr == 2 ? 4 : 8) +
+         vec_k * 2 + vec_v;
+}
+
+// a copy's values: the vector width where vec, else 1
+int copy_values(int types, int vec, int wide) {
+  if (!vec) return 1;
+  return types == kBF16 && !wide ? 8 : 4;
+}
+
+size_t smem_bytes(int types, int d, int dv, int vec_k, int vec_v, int p_max,
                   int n_split) {
-  const int fk = lane_floats(d, vec_k ? 4 : 1);
-  const int fv = lane_floats(dv, vec_v ? 4 : 1);
+  const int wide = is_wide(d, dv);
+  const size_t item = types == kBF16 ? sizeof(bf16) : sizeof(float);
+  const int fk = lane_floats(d, copy_values(types, vec_k, wide));
+  const int fv = lane_floats(dv, copy_values(types, vec_v, wide));
   const size_t stages =
-      (size_t)kStages * kWarps * kPer * (fk + fv) * 32;
-  const size_t merge = (size_t)kWarps * kMaxG * (dv + 2);
+      item * kStages * kWarps * kPer * (fk + fv) * 32;
+  const size_t merge = sizeof(float) * kWarps * kMaxG * (dv + 2);
   const int pps = (p_max + n_split - 1) / n_split;
-  return sizeof(float) * (stages > merge ? stages : merge) +
+  return (stages > merge ? stages : merge) +
          sizeof(int) * (2 * (size_t)pps + 1);
 }
 
 // Raise a kernel's dynamic shared-memory limit only when a larger size is
 // first asked for on the current device (the attribute is kept per device
 // and per kernel), so launches captured in a CUDA graph make no such call.
-size_t configured[kMaxDevices][24] = {};
+size_t configured[kMaxDevices][3 * 24] = {};
 
-cudaError_t configure(int vec_k, int vec_v, int gr, int wide, size_t smem) {
+cudaError_t configure(int types, int vec_k, int vec_v, int gr, int wide,
+                      size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t& have = configured[dev][slot(vec_k, vec_v, gr, wide)];
+  size_t& have = configured[dev][slot(types, vec_k, vec_v, gr, wide)];
   if (smem <= have) return cudaSuccess;
-  err = cudaFuncSetAttribute(pick(vec_k, vec_v, gr, wide),
+  err = cudaFuncSetAttribute(pick(types, vec_k, vec_v, gr, wide),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess) have = smem;
@@ -606,27 +735,39 @@ cudaError_t configure(int vec_k, int vec_v, int gr, int wide, size_t smem) {
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-bool dims_ok(int d, int dv) {
-  return d > 0 && d <= kMaxDWide && dv > 0 && dv <= kMaxDWide;
+// whether a pool plane takes copies of n values (n * item bytes): its base,
+// its head dim and both strides aligned to them
+bool vec_ok(const void* p, int d, int64_t row, int64_t tok, int n,
+            int item) {
+  return (uintptr_t)p % (n * item) == 0 && d % n == 0 && row % n == 0 &&
+         tok % n == 0;
 }
 
-int is_wide(int d, int dv) { return d > kMaxD || dv > kMaxD; }
+template <typename TO>
+cudaError_t launch_merge(cudaStream_t st, const float* partials, TO* out,
+                         int b, int h, int kv, int dv, int n_split,
+                         size_t merge_smem) {
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((int64_t)b * kv));
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.dynamicSmemBytes = merge_smem;
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, merge_kernel<TO>, partials, out, h, kv, dv,
+                     n_split);
+  return cudaGetLastError();
+}
 
-}  // namespace
-
-extern "C" {
-
-// q (b, h, d) f32 contiguous; k, v: base pointers of the K and V planes,
-// each with its row (extent) and token strides in elements, head stride d
-// (K) / dv (V); table (b, p_max) i32; lengths (b,) i32; out (b, h, dv) f32
-// contiguous; partials: scratch of b * kv * n_split * (h / kv) * (dv + 2)
-// f32 when n_split > 1 (else unused, may be null). 1 <= n_split <= p_max.
-int paged_attention(const void* q, const void* k, const void* v,
-                    const void* table, const void* lengths, void* out,
-                    void* partials, int b, int h, int kv, int d, int dv,
-                    int p_max, int page, int n_rows, int64_t k_row,
-                    int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
-                    float scale, float cap, int n_split, void* stream) {
+int launch(const void* q, const void* k, const void* v, const void* table,
+           const void* lengths, void* out, void* partials, int b, int h,
+           int kv, int d, int dv, int p_max, int page, int n_rows,
+           int64_t k_row, int64_t k_tok, int64_t v_row, int64_t v_tok,
+           int window, float scale, float cap, int n_split, void* stream,
+           int types) {
   if (kv <= 0 || h % kv != 0 || !dims_ok(d, dv) || page <= 0 ||
       p_max < 0 || n_split < 1 ||
       n_split > (p_max > 1 ? p_max : 1) || n_split > 65535 ||
@@ -640,64 +781,55 @@ int paged_attention(const void* q, const void* k, const void* v,
   const int n_rg = (g + kMaxG - 1) / kMaxG;
   const int64_t rows = (int64_t)b * kv * n_rg;
   if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const int vec_k = aligned16(q) && aligned16(k) && d % 4 == 0 &&
-                    k_row % 4 == 0 && k_tok % 4 == 0;
-  const int vec_v = aligned16(v) && dv % 4 == 0 && v_row % 4 == 0 &&
-                    v_tok % 4 == 0;
-  const size_t smem = smem_bytes(d, dv, vec_k, vec_v, p_max, n_split);
-  const int gr = rows_g(g);
   const int wide = is_wide(d, dv);
-  cudaError_t err = configure(vec_k, vec_v, gr, wide, smem);
+  int vec_k, vec_v;
+  if (types == kF32) {      // q's slots load as float4 with K's
+    vec_k = aligned16(q) && aligned16(k) && d % 4 == 0 && k_row % 4 == 0 &&
+            k_tok % 4 == 0;
+    vec_v = aligned16(v) && dv % 4 == 0 && v_row % 4 == 0 && v_tok % 4 == 0;
+  } else {                  // bf16 q loads by value: the pools decide
+    const int n = copy_values(types, 1, wide);
+    const int item = types == kBF16 ? 2 : 4;
+    vec_k = vec_v = vec_ok(k, d, k_row, k_tok, n, item) &&
+                    vec_ok(v, dv, v_row, v_tok, n, item);
+  }
+  const size_t smem = smem_bytes(types, d, dv, vec_k, vec_v, p_max, n_split);
+  const int gr = rows_g(g);
+  cudaError_t err = configure(types, vec_k, vec_v, gr, wide, smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const dim3 grid((unsigned)rows, n_split);
-  pick(vec_k, vec_v, gr, wide)<<<grid, kThreads, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)table,
-      (const int*)lengths, (float*)out, (float*)partials, h, kv, d, dv,
-      p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window, scale, cap,
-      n_rg, n_split);
+  pick(types, vec_k, vec_v, gr, wide)<<<grid, kThreads, smem, st>>>(
+      q, k, v, (const int*)table, (const int*)lengths, out, (float*)partials,
+      h, kv, d, dv, p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window,
+      scale, cap, n_rg, n_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((int64_t)b * kv));
-  cfg.blockDim = dim3(kMergeThreads);
-  cfg.dynamicSmemBytes = merge_smem;
-  cfg.stream = st;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, merge_kernel, (const float*)partials, (float*)out,
-                     h, kv, dv, n_split);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(st, (const float*)partials, (TOut*)out, b, h, kv,
+                           dv, n_split, merge_smem);
 }
 
-// The main kernel's resources for g query rows a KV head, head dims d, dv
-// and n_split shares of p_max pages (16-byte loads where vec_k / vec_v):
-// info[0] registers per thread, [1] static and [2] dynamic shared memory
-// per block (bytes), [3] blocks resident per SM, [4] threads per block,
-// [5] the merge kernel's registers per thread, [6] positions staged per
-// tile, [7] query rows a block.
-int paged_attention_info(int g, int d, int dv, int vec_k, int vec_v,
-                         int p_max, int n_split, int* info) {
+int info_of(int g, int d, int dv, int vec_k, int vec_v, int p_max,
+            int n_split, int types, int* info) {
   if (g <= 0 || !dims_ok(d, dv) || n_split < 1)
     return (int)cudaErrorInvalidValue;
   vec_k = vec_k != 0;
   vec_v = vec_v != 0;
+  if (types != kF32) vec_k = vec_v = vec_k && vec_v;
   const int gr = rows_g(g);
   const int wide = is_wide(d, dv);
-  const size_t smem = smem_bytes(d, dv, vec_k, vec_v, p_max, n_split);
-  cudaError_t err = configure(vec_k, vec_v, gr, wide, smem);
+  const size_t smem = smem_bytes(types, d, dv, vec_k, vec_v, p_max, n_split);
+  cudaError_t err = configure(types, vec_k, vec_v, gr, wide, smem);
   if (err != cudaSuccess) return (int)err;
+  const Kernel kern = pick(types, vec_k, vec_v, gr, wide);
   cudaFuncAttributes a, am;
-  err = cudaFuncGetAttributes(&a, pick(vec_k, vec_v, gr, wide));
+  err = cudaFuncGetAttributes(&a, kern);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncGetAttributes(&am, merge_kernel);
+  err = cudaFuncGetAttributes(&am, merge_kernel<TOut>);
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, pick(vec_k, vec_v, gr, wide), kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                      smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = a.numRegs;
   info[1] = (int)a.sharedSizeBytes;
@@ -709,5 +841,61 @@ int paged_attention_info(int g, int d, int dv, int vec_k, int vec_v,
   info[7] = gr;
   return 0;
 }
+
+}  // namespace
+
+extern "C" {
+
+#ifndef PAGED_ATTENTION_BF16
+// q (b, h, d) f32 contiguous; k, v: base pointers of the K and V planes,
+// each with its row (extent) and token strides in elements, head stride d
+// (K) / dv (V); table (b, p_max) i32; lengths (b,) i32; out (b, h, dv) f32
+// contiguous; partials: scratch of b * kv * n_split * (h / kv) * (dv + 2)
+// f32 when n_split > 1 (else unused, may be null). 1 <= n_split <= p_max.
+int paged_attention(const void* q, const void* k, const void* v,
+                    const void* table, const void* lengths, void* out,
+                    void* partials, int b, int h, int kv, int d, int dv,
+                    int p_max, int page, int n_rows, int64_t k_row,
+                    int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
+                    float scale, float cap, int n_split, void* stream) {
+  return launch(q, k, v, table, lengths, out, partials, b, h, kv, d, dv,
+                p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window,
+                scale, cap, n_split, stream, kF32);
+}
+
+// The main kernel's resources for g query rows a KV head, head dims d, dv
+// and n_split shares of p_max pages (vector loads where vec_k / vec_v):
+// info[0] registers per thread, [1] static and [2] dynamic shared memory
+// per block (bytes), [3] blocks resident per SM, [4] threads per block,
+// [5] the merge kernel's registers per thread, [6] positions staged per
+// tile, [7] query rows a block.
+int paged_attention_info(int g, int d, int dv, int vec_k, int vec_v,
+                         int p_max, int n_split, int* info) {
+  return info_of(g, d, dv, vec_k, vec_v, p_max, n_split, kF32, info);
+}
+#else
+// The same with q and out bf16, and the K and V planes bf16 (kv_bf16 1)
+// or f32 (0); the partials stay f32.
+int paged_attention_bf16(const void* q, const void* k, const void* v,
+                         const void* table, const void* lengths, void* out,
+                         void* partials, int b, int h, int kv, int d, int dv,
+                         int p_max, int page, int n_rows, int64_t k_row,
+                         int64_t k_tok, int64_t v_row, int64_t v_tok,
+                         int window, float scale, float cap, int n_split,
+                         int kv_bf16, void* stream) {
+  return launch(q, k, v, table, lengths, out, partials, b, h, kv, d, dv,
+                p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window,
+                scale, cap, n_split, stream, kv_bf16 ? kBF16 : kBF16Q);
+}
+
+// paged_attention_info for the bf16 forms (kv_bf16 as in
+// paged_attention_bf16; vector loads where both vec_k and vec_v).
+int paged_attention_bf16_info(int g, int d, int dv, int vec_k, int vec_v,
+                              int p_max, int n_split, int kv_bf16,
+                              int* info) {
+  return info_of(g, d, dv, vec_k, vec_v, p_max, n_split,
+                 kv_bf16 ? kBF16 : kBF16Q, info);
+}
+#endif
 
 }  // extern "C"

@@ -15,9 +15,16 @@ Each wrapper checks dtype, shape, device and contiguity, then launches the
 kernel for tensors on a CUDA device or calls the plain version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error, never
 the plain version. ``LAUNCHES`` counts wrapper calls that launched the
-kernel (its main grid and, with more than one split, the merge grid) and
-``PLAIN_CALLS`` the wrappers' calls of the plain version. Both compute in
-fp32.
+kernel (its main grid and, with more than one split, the merge grid),
+``LAUNCHES_BY_DTYPE`` splits them by form (``float32``; ``bfloat16``: q
+and pools bf16; ``bfloat16_q``: bf16 q over fp32 pools) and
+``PLAIN_CALLS`` counts the wrappers' calls of the plain version.
+
+Dtypes, as the TPU kernel takes them: q fp32 or bf16, the split pools in
+q's dtype, the engine pool of the pool form fp32 (or q's dtype); any
+other dtype or mix raises. Both versions compute in fp32 and return the
+output in q's dtype (the log-sum-exp in fp32); no input is cast to reach
+a form.
 
 The kernel splits each (sequence, KV head) over ``n_split`` blocks. The
 wrapper's choices are plain functions of shapes and the card's SM count
@@ -52,7 +59,10 @@ from repro_torch.kernels.paged_attention.ref import (paged_attention_pool_ref,
 
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"paged_attention": 0}
-F32, I32 = torch.float32, torch.int32
+LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
+                                     "bfloat16_q": 0}
+F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
+DTYPES = (F32, BF16)                 # q's (and the split pools') forms
 NEG_INF = -1e30
 NARROW_HEAD_DIM = 256                # 8 floats of hd a lane (csrc kMaxD)
 MAX_HEAD_DIM = 576                   # the wide instantiation (kMaxDWide)
@@ -117,25 +127,34 @@ def sm_count(dev: torch.device) -> int:
 
 
 def paged_info(g: int, d: int, dv: int, vec_k: bool = True,
-               vec_v: bool = True, p_max: int = 64,
-               n_split: int = 1) -> Dict[str, int]:
+               vec_v: bool = True, p_max: int = 64, n_split: int = 1,
+               dtype=F32, kv_dtype=None) -> Dict[str, int]:
     """The main kernel's registers, shared memory and resident blocks per
-    SM for ``g`` query rows a KV head, and the merge kernel's registers
-    (needs the card)."""
-    return kernel_info("paged_attention", "paged_attention_info",
-                       (g, d, dv, int(vec_k), int(vec_v), p_max, n_split),
+    SM for ``g`` query rows a KV head, and the merge kernel's registers,
+    of the form of q's ``dtype`` and the pools' ``kv_dtype`` (default
+    ``dtype``; needs the card)."""
+    kv_dtype = dtype if kv_dtype is None else kv_dtype
+    args = (g, d, dv, int(vec_k), int(vec_v), p_max, n_split)
+    if dtype == BF16:
+        return kernel_info("paged_attention_bf16",
+                           "paged_attention_bf16_info",
+                           args + (int(kv_dtype == BF16),), INFO_KEYS)
+    return kernel_info("paged_attention", "paged_attention_info", args,
                        INFO_KEYS)
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE):
         for k in counts:
             counts[k] = 0
 
 
 def _check_common(q, block_table, lengths, kv: int, dev) -> None:
     b, h, _d = q.shape
-    check_tensor("q", q, F32, q.shape, dev)
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q: expected torch.float32 or torch.bfloat16, got "
+                        f"{q.dtype}")
+    check_tensor("q", q, q.dtype, q.shape, dev)
     check_tensor("block_table", block_table, I32, (b, block_table.shape[1]),
                  dev)
     check_tensor("lengths", lengths, I32, (b,), dev)
@@ -143,9 +162,16 @@ def _check_common(q, block_table, lengths, kv: int, dev) -> None:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
 
 
+def _form(dtype, kv_dtype) -> str:
+    """The ``LAUNCHES_BY_DTYPE`` key of a call."""
+    if dtype == F32:
+        return "float32"
+    return "bfloat16" if kv_dtype == BF16 else "bfloat16_q"
+
+
 def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
             page, n_rows, k_row, k_tok, v_row, v_tok, window, logit_cap,
-            scale, lse=False):
+            scale, kv_dtype, lse=False):
     b, h, d = q.shape
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
         raise ValueError(f"head dims ({d}, {dv}) > {MAX_HEAD_DIM}, the "
@@ -157,21 +183,24 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
                            sm_count(q.device), h // kv, max(d, dv))
     if lse:
         n_split = max(n_split, 2)
-    out = torch.empty((b, h, dv), dtype=F32, device=q.device)
+    out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     part = (torch.empty((b, kv, n_split, h // kv, dv + 2), dtype=F32,
                         device=q.device) if n_split > 1 else None)
-    lib = library("paged_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_attention(
-            q.data_ptr(), k_ptr, v_ptr, block_table.data_ptr(),
+    args = (q.data_ptr(), k_ptr, v_ptr, block_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), b, h, kv, d, dv,
             p_max, page, n_rows, k_row, k_tok, v_row, v_tok,
-            int(window or 0), float(scale), float(logit_cap or 0.0), n_split,
-            stream)
+            int(window or 0), float(scale), float(logit_cap or 0.0), n_split)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if q.dtype == BF16:
+            err = library("paged_attention_bf16").paged_attention_bf16(
+                *args, int(kv_dtype == BF16), stream)
+        else:
+            err = library("paged_attention").paged_attention(*args, stream)
     raise_on(err, "paged_attention")
     LAUNCHES["paged_attention"] += 1
+    LAUNCHES_BY_DTYPE[_form(q.dtype, kv_dtype)] += 1
     if not lse:
         return out
     return out, _shares_lse(part[..., dv], part[..., dv + 1], b, h)
@@ -190,9 +219,9 @@ def _shares_lse(m, l, b: int, h: int):
 
 def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
                         window=0, logit_cap=0.0, scale=None):
-    """q: (B,H,hd); pools: (E,page,KV,hd_{k,v}); block_table: (B,P) int32;
-    lengths: (B,) int32. Hole pages (extent -1) are skipped. Returns
-    (B,H,hd_v) fp32."""
+    """q: (B,H,hd) fp32 or bf16; pools: (E,page,KV,hd_{k,v}) in q's dtype;
+    block_table: (B,P) int32; lengths: (B,) int32. Hole pages (extent -1)
+    are skipped. Returns (B,H,hd_v) in q's dtype."""
     refuse_grad("paged_attention", q, pool_k, pool_v)
     scale = _check_split(q, pool_k, pool_v, block_table, lengths, scale)
     return entry(torch.ops.repro_torch.paged_attention.default, _split,
@@ -203,8 +232,8 @@ def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
 def paged_attention_lse_fwd(q, pool_k, pool_v, block_table, lengths, *,
                             window=0, logit_cap=0.0, scale=None):
     """``paged_attention_fwd`` that also returns each row's log-sum-exp of
-    its live logits: (out (B,H,hd_v), lse (B,H)) fp32, lse NEG_INF on a
-    row with no live position (its out is zeros)."""
+    its live logits: (out (B,H,hd_v) in q's dtype, lse (B,H) fp32), lse
+    NEG_INF on a row with no live position (its out is zeros)."""
     refuse_grad("paged_attention", q, pool_k, pool_v)
     scale = _check_split(q, pool_k, pool_v, block_table, lengths, scale)
     return entry(torch.ops.repro_torch.paged_attention_lse.default,
@@ -219,8 +248,8 @@ def _check_split(q, pool_k, pool_v, block_table, lengths, scale) -> float:
     _check_common(q, block_table, lengths, kv, dev)
     if q.shape[-1] != dk:
         raise ValueError(f"q head dim {q.shape[-1]} != pool_k's {dk}")
-    check_tensor("pool_k", pool_k, F32, (e, page, kv, dk), dev)
-    check_tensor("pool_v", pool_v, F32, (e, page, kv, dv), dev)
+    check_tensor("pool_k", pool_k, q.dtype, (e, page, kv, dk), dev)
+    check_tensor("pool_v", pool_v, q.dtype, (e, page, kv, dv), dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"paged_attention: no kernel for device {dev}")
     return float(scale) if scale is not None else 1.0 / math.sqrt(dk)
@@ -230,7 +259,8 @@ def _split_args(pool_k, pool_v):
     e, page, kv, dk = pool_k.shape
     dv = pool_v.shape[-1]
     return dict(kv=kv, dv=dv, page=page, n_rows=e, k_row=page * kv * dk,
-                k_tok=kv * dk, v_row=page * kv * dv, v_tok=kv * dv)
+                k_tok=kv * dk, v_row=page * kv * dv, v_tok=kv * dv,
+                kv_dtype=pool_k.dtype)
 
 
 def _split(q, pool_k, pool_v, block_table, lengths, window: int,
@@ -240,7 +270,7 @@ def _split(q, pool_k, pool_v, block_table, lengths, window: int,
         PLAIN_CALLS["paged_attention"] += 1
         return paged_attention_ref(q, pool_k, pool_v, block_table, lengths,
                                    window=window, logit_cap=logit_cap,
-                                   scale=scale)
+                                   scale=scale).to(q.dtype)
     return _launch(q, pool_k.data_ptr(), pool_v.data_ptr(), block_table,
                    lengths, window=window, logit_cap=logit_cap, scale=scale,
                    **_split_args(pool_k, pool_v))
@@ -250,9 +280,11 @@ def _split_lse(q, pool_k, pool_v, block_table, lengths, window: int,
                logit_cap: float, scale: float):
     if q.device.type == "cpu":
         PLAIN_CALLS["paged_attention"] += 1
-        return paged_attention_ref(q, pool_k, pool_v, block_table, lengths,
-                                   window=window, logit_cap=logit_cap,
-                                   scale=scale, return_lse=True)
+        out, lse = paged_attention_ref(q, pool_k, pool_v, block_table,
+                                       lengths, window=window,
+                                       logit_cap=logit_cap, scale=scale,
+                                       return_lse=True)
+        return out.to(q.dtype), lse
     return _launch(q, pool_k.data_ptr(), pool_v.data_ptr(), block_table,
                    lengths, window=window, logit_cap=logit_cap, scale=scale,
                    lse=True, **_split_args(pool_k, pool_v))
@@ -262,18 +294,21 @@ def paged_attention_pool_fwd(q, pool, block_table, lengths, *, k_plane,
                              v_plane, window=0, logit_cap=0.0, scale=None):
     """Zero-copy variant: attend straight out of ONE engine extent pool.
 
-    q: (B,H,hd); pool: (E, page, n_planes, KV, hd) — the fused engine's
-    payload pool, where plane ``2*l`` holds paged layer l's keys and
-    ``2*l+1`` its values (serving/engine.py); block_table: (B,P) rows of
-    the volume extent map (holes -1); lengths: (B,). The kernel reads the
-    two planes in place through strides: no staging copy of the KV cache."""
+    q: (B,H,hd) fp32 or bf16; pool: (E, page, n_planes, KV, hd) fp32 or
+    q's dtype — the fused engine's payload pool (fp32), where plane
+    ``2*l`` holds paged layer l's keys and ``2*l+1`` its values
+    (serving/engine.py); block_table: (B,P) rows of the volume extent map
+    (holes -1); lengths: (B,). Returns (B,H,hd) in q's dtype. The kernel
+    reads the two planes in place through strides: no staging copy of the
+    KV cache."""
     refuse_grad("paged_attention", q, pool)
     e, page, n_planes, kv, d = pool.shape
     dev = q.device
     _check_common(q, block_table, lengths, kv, dev)
     if q.shape[-1] != d:
         raise ValueError(f"q head dim {q.shape[-1]} != the pool's {d}")
-    check_tensor("pool", pool, F32, (e, page, n_planes, kv, d), dev)
+    check_tensor("pool", pool, F32 if pool.dtype == F32 else q.dtype,
+                 (e, page, n_planes, kv, d), dev)
     if not (0 <= k_plane < n_planes and 0 <= v_plane < n_planes):
         raise ValueError(f"planes ({k_plane}, {v_plane}) outside "
                          f"[0, {n_planes})")
@@ -293,7 +328,7 @@ def _pool(q, pool, block_table, lengths, k_plane: int, v_plane: int,
         return paged_attention_pool_ref(q, pool, block_table, lengths,
                                         k_plane=k_plane, v_plane=v_plane,
                                         window=window, logit_cap=logit_cap,
-                                        scale=scale)
+                                        scale=scale).to(q.dtype)
     e, page, n_planes, kv, d = pool.shape
     plane = kv * d                       # elements per plane of one token
     item = pool.element_size()
@@ -302,7 +337,8 @@ def _pool(q, pool, block_table, lengths, k_plane: int, v_plane: int,
                    pool.data_ptr() + v_plane * plane * item, block_table,
                    lengths, kv=kv, dv=d, page=page, n_rows=e,
                    k_row=page * tok, k_tok=tok, v_row=page * tok, v_tok=tok,
-                   window=window, logit_cap=logit_cap, scale=scale)
+                   window=window, logit_cap=logit_cap, scale=scale,
+                   kv_dtype=pool.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -344,7 +380,7 @@ def _(q, pool_k, pool_v, block_table, lengths, window, logit_cap, scale):
 @_paged_lse_op.register_fake
 def _(q, pool_k, pool_v, block_table, lengths, window, logit_cap, scale):
     return (q.new_empty((*q.shape[:2], pool_v.shape[-1])),
-            q.new_empty(q.shape[:2]))
+            q.new_empty(q.shape[:2], dtype=F32))
 
 
 @_paged_pool_op.register_fake
@@ -371,13 +407,14 @@ def paged_work(q, block_table, lengths, page: int, kv: int, d: int, dv: int,
                window: int, itemsize: int = 4):
     """(flops, bytes) of one call: QK^T (d wide) and PV (dv wide) at every
     live position for each query head, 2 flops a multiply-add; each live
-    position's K and V rows of its KV heads read once, q, the table and
-    the lengths read and the output written once."""
+    position's K and V rows of its KV heads read once (``itemsize`` bytes
+    a value), q, the table and the lengths read and the output (q's dtype)
+    written once."""
     n = live_positions(block_table, lengths, page, window)
     b, h, _ = q.shape
     flops = 2 * h * (d + dv) * n
     n_bytes = (n * kv * (d + dv) * itemsize
-               + (q.numel() + b * h * dv) * itemsize
+               + (q.numel() + b * h * dv) * q.element_size()
                + (block_table.numel() + lengths.numel()) * 4)
     return flops, n_bytes
 

@@ -36,8 +36,8 @@ from repro_torch.kernels.timing import graph_ms
 
 SOURCE = _build.SOURCES["paged_attention"]
 OUT_DIR = _build.BUILD_DIR / "phase_costs"
-MERGE = ["  cudaLaunchKernelEx(&cfg, merge_kernel, (const float*)partials, "
-         "(float*)out,"]
+MERGE = ["  cudaLaunchKernelEx(&cfg, merge_kernel<TO>, partials, out, h, kv, "
+         "dv,"]
 LOADS = ["    cp_commit();\n  };"]
 MATH = ["    const int base = list_ip[li] * page;"]
 SPLITS = (1, 4, 8, 16, 24, 32)

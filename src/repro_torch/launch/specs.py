@@ -10,13 +10,14 @@ outside it on a real mesh they are the card's. ``build_cell`` follows the
 reference branch for branch; the parameters take the reference's stacked
 layout (``stack_params``), so a tree has its leaves.
 
-A serve cell whose plan computes in float32 (the kernels' dtype) runs the
-kernel entries, as the card's run does: prefill's attention through the
-flash kernel (``attn_impl="cuda"``, the RWKV-6 scan too) and decode's
-striped read through the paged kernel (``make_sharded_paged_decode(...,
-kernel=True)``); on a CPU mesh the entries run their plain versions. A
-bfloat16 plan runs the plain paths, which is what the card can run for it,
-and a train cell always does (the kernels have no backward).
+A serve cell runs the kernel entries, as the card's run does, in its
+plan's compute dtype (the kernels take fp32 and bf16, as the TPU kernels
+do): prefill's attention through the flash kernel (``attn_impl="cuda"``,
+the RWKV-6 scan too, which takes fp32 from the model in either plan) and
+decode's striped read through the paged kernel
+(``make_sharded_paged_decode(..., kernel=True)``); on a CPU mesh the
+entries run their plain versions. A train cell runs the plain paths (the
+kernels have no backward).
 ``Cell.step`` runs the model on DTensors inside ``runtime.spmd``.
 
 ``per_device_bytes`` is the reference's analytic formula: a leaf's global
@@ -144,7 +145,7 @@ def build_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, n_experts_padded=pad))
     # the kernel entries where the card runs them (module note)
-    kernels = shape.kind != "train" and plan.compute_dtype == "float32"
+    kernels = shape.kind != "train"
     if kernels:
         plan = dataclasses.replace(plan, attn_impl="cuda")
         register_kernel_shardings()

@@ -495,7 +495,9 @@ class ServeEngine:
             lengths = (p + 1).to(torch.int32)
             attend = (paged_attention_pool_fwd if self._attn_cuda
                       else paged_attention_pool_ref)
-            out = attend(qk.float().contiguous(), pools[self._attn],
+            # q in the compute dtype against the fp32 pool, as the
+            # reference hands it to its kernel; out in q's dtype
+            out = attend(qk.contiguous(), pools[self._attn],
                          bt_.contiguous(), lengths, k_plane=kp, v_plane=vp,
                          window=window, logit_cap=logit_cap, scale=eff_scale)
             out = out[..., :vd].to(q.dtype)[:, None]
@@ -677,7 +679,10 @@ class ServeEngine:
         if self.cfg.n_codebooks > 1:
             nxt = nxt[:, 0]                       # codebook 0's argmax
         nxt_host = nxt.cpu().numpy()
-        logits_host = logits.cpu().numpy() if self.record_logits else None
+        # bf16 logits are recorded as their exact fp32 values (numpy has
+        # no bfloat16)
+        logits_host = (logits.float().cpu().numpy() if self.record_logits
+                       else None)
         self.pos = self.pos + active.astype(np.int32)
         out = []
         self._steps += 1

@@ -24,10 +24,11 @@ group outlives its cases for later files on the same worker.
   counts (75, 110) and ``tokens_per_step``; rank 0's local shards hold as
   many bytes.
 - ``run_cell``: a smoke-config cell of each kind on a (2, 4) fake mesh has
-  every output key, each number finite; the fp32 decode cell counts the
-  paged kernel's entry and the fp32 prefill cell the flash kernel's, once a
-  layer that has one, and a bf16 cell neither; the CLI writes its
-  records. ``run_cell`` refuses to run over an initialised (real) process
+  every output key, each number finite; a decode cell counts the paged
+  kernel's entry and the fp32 prefill cell the flash kernel's, once a
+  layer that has one, in fp32 and in the bf16 default plan alike (the
+  kernels take both dtypes), and the train cell neither; the CLI writes
+  its records. ``run_cell`` refuses to run over an initialised (real) process
   group.
 - The striped decode's kernel route: each stripe's partial through the
   paged entry (plain version on the CPU) merges to the plain route's
@@ -226,9 +227,9 @@ def test_run_cell_records(shape_name, overrides):
     n_global = sum(cfg.layer_kind(i) == "global"
                    for i in range(cfg.n_layers))
     ops = r["ops"]
-    if overrides and shape_name == "decode_32k":
+    if shape_name == "decode_32k":
         assert ops.get("paged_attention_lse") == n_global
-    elif overrides:
+    elif shape_name == "prefill_32k":
         assert ops.get("flash_attention") == cfg.n_layers
     else:
         assert not any(k.startswith(("paged", "flash")) for k in ops)

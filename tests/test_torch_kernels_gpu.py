@@ -113,6 +113,17 @@ four stripes of ``_kernel_partial`` merged against the unstriped plain
 read (1e-4); an fp32 prefill cell on the one-card mesh, run with no
 dispatch mode, launching flash once a layer on its DTensors' local
 shards, its logits against the plain chunked route's (1e-4).
+
+The bf16 forms: flash and paged attention on bf16 inputs against their
+plain versions in the working type (fp32 math rounded to bf16; within one
+bf16 step, BF16_TOL), each call one launch of its form
+(``LAUNCHES_BY_DTYPE``): flash at gemma2-2b's prefill widths in the model
+layout with a window and the cap, G = 1 at hd 64, the wide 576/512 form,
+head dims padded to 16, rows that take no 16-byte copy; paged's split
+pools, pool form over an fp32 and a bf16 engine pool, one share and a
+page a share, the wide form, 2- and 4-byte copies, with holes and a lane
+of length 0; the stripe entry's fp32 log-sum-exp; and the refusal of
+fp16, fp64 and mixed dtypes on the card.
 Imports no JAX.
 """
 import numpy as np
@@ -1713,3 +1724,188 @@ def test_prefill_cell_runs_the_flash_kernel_on_a_one_card_mesh(tmp_path):
         assert fk.LAUNCHES["flash_attention"] == cfg.n_layers
         assert type(got).__name__ == "DTensor"
         torch.testing.assert_close(got.to_local(), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms
+# ---------------------------------------------------------------------------
+BF16 = torch.bfloat16
+# the kernel and the plain version compute in fp32 from the same bf16
+# inputs and round once to bf16: where the two fp32 results straddle a
+# rounding boundary they differ by one bf16 step, at most 2^-7 of the
+# value; the atol is the fp32 tolerance, for values near zero
+BF16_TOL = dict(atol=1e-4, rtol=2 ** -7)
+
+
+def _close_bf16(got, want):
+    """``got`` (a kernel's bf16 output) against the plain version's fp32
+    output rounded to bf16, in the working type (BF16_TOL)."""
+    assert got.dtype == BF16
+    torch.testing.assert_close(got.float(), want.to(BF16).float(),
+                               **BF16_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,dk,dv,window,cap,layout", [
+    (1, 550, 550, 8, 4, 256, 256, 0, 50.0, "model"),      # gemma2, global
+    (1, 855, 855, 8, 4, 256, 256, 4096, 50.0, "model"),   # gemma2, local
+    (1, 700, 700, 32, 32, 64, 64, 0, 0.0, "model"),       # G = 1, hd 64
+    (1, 479, 479, 128, 1, 576, 512, 0, 0.0, "contiguous"),   # MLA, wide
+    (1, 130, 130, 16, 1, 576, 512, 40, 50.0, "contiguous"),
+    (1, 70, 70, 8, 1, 570, 500, 0, 0.0, "contiguous"),   # wide, 2-byte
+    (2, 100, 100, 4, 2, 72, 72, 40, 50.0, "contiguous"),  # d % 16 != 0
+    (1, 37, 37, 2, 1, 13, 13, 0, 30.0, "contiguous"),    # d odd
+    (1, 1, 1, 4, 2, 64, 64, 0, 0.0, "contiguous"),       # Sq 1
+    (1, 40, 1500, 8, 4, 256, 256, 0, 50.0, "contiguous"),    # Sk >> Sq
+    (1, 200, 200, 4, 2, 64, 64, 5, 0.0, "contiguous"),   # window < a tile
+    (1, 130, 130, 4, 2, 64, 64, 0, 0.0, "pad")])         # 2-byte staging
+def test_flash_attention_bf16_form(b, sq, sk, h, kv, dk, dv, window, cap,
+                                   layout):
+    """The bf16 form against its plain version in the working type: the
+    serving prefill's shapes (gemma2-2b global and local in the model
+    layout, read through strides; G = 1 at hd 64), the wide instantiation
+    at MLA's widths (K 576, V 512, scale 1/sqrt(192)), head dims padded to
+    16, a single query, many key tiles, a window inside one key tile, and
+    rows that take no 16-byte copy; one launch of the bf16 form a call,
+    the output bf16."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(sq * 7 + dk + h)
+    scale = 1.0 / np.sqrt(192.0) if dk >= 512 else None
+    q = torch.randn((b, h, sq, dk), generator=gen, device=dev).to(BF16)
+    k = torch.randn((b, kv, sk, dk), generator=gen, device=dev).to(BF16)
+    v = torch.randn((b, kv, sk, dv), generator=gen, device=dev).to(BF16)
+    if layout == "model":      # (B, S, N, hd) tensors, read as views
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    elif layout == "pad":      # rows of hd + 1 values: no 16-byte copy
+        q, k, v = (torch.cat([t, t[..., :1]], -1)[..., :t.shape[-1]]
+                   for t in (q, k, v))
+        assert all(t.stride(2) % 8 for t in (q, k, v))
+    kw = dict(window=window, logit_cap=cap, scale=scale)
+    fk.reset_counts()
+    got = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES_BY_DTYPE == {"float32": 0, "bfloat16": 1}
+    assert got.shape == (b, h, sq, dv) and torch.isfinite(got.float()).all()
+    _close_bf16(got, attention_ref(q, k, v, **kw))
+
+
+def _bf16_paged_case(dev, b, h, kv, dk, dv, page, p_max, seed, n_planes=0,
+                     pool_dtype=BF16):
+    """``_mla_paged_case``'s pools and table with q in bf16 and the pools in
+    ``pool_dtype`` (values representable in bf16 either way)."""
+    q, pools, table, lengths = _mla_paged_case(dev, b, h, kv, dk, dv, page,
+                                               p_max, seed, n_planes)
+    return (q.to(BF16), tuple(p.to(BF16).to(pool_dtype) for p in pools),
+            table, lengths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,b,h,kv,dk,dv,page,p_max,pool_dtype", [
+    ("split", 8, 8, 4, 256, 256, 32, 64, BF16),      # gemma2's width
+    ("pool", 8, 8, 4, 256, 256, 32, 64, torch.float32),   # serving's mix
+    ("pool", 8, 8, 4, 256, 256, 32, 64, BF16),
+    ("split", 64, 16, 8, 256, 256, 32, 16, BF16),    # one share, no merge
+    ("pool", 64, 16, 8, 256, 256, 32, 16, torch.float32),
+    ("split", 2, 2, 2, 64, 64, 8, 16, BF16),         # a page a share
+    ("pool", 8, 32, 32, 64, 64, 32, 32, torch.float32),   # G = 1, hd 64
+    ("split", 8, 128, 1, 576, 512, 32, 32, BF16),    # MLA, wide
+    ("pool", 8, 128, 1, 576, 576, 32, 32, torch.float32),
+    ("pool", 8, 128, 1, 576, 576, 32, 32, BF16),
+    ("split", 3, 12, 1, 6, 6, 4, 9, BF16),           # 2-byte copies
+    ("split", 3, 4, 2, 8, 12, 4, 9, BF16),
+    ("pool", 3, 12, 4, 6, 6, 4, 9, torch.float32)])  # 4-byte copies
+@pytest.mark.parametrize("window,cap", [(0, 50.0), (100, 0.0)])
+def test_paged_attention_bf16_forms(entry, b, h, kv, dk, dv, page, p_max,
+                                    pool_dtype, window, cap):
+    """The bf16 forms against their plain version in the working type: q
+    bf16 over bf16 split pools, over the fp32 engine pool (zero-copy
+    serving's mix) and over a bf16 engine pool; at gemma2-2b's serving
+    width, with one share (no merge) and with a page a share, G = 1 at hd
+    64, the wide instantiation at MLA's widths (scale 1/sqrt(192)), and
+    head dims that take no 16-byte copy; holes past each length and one
+    below, a lane of length 0 (zeros). One launch of the form a call."""
+    dev = _cuda()
+    from repro_torch.kernels.paged_attention import kernel as pk
+    q, pools, table, lengths = _bf16_paged_case(
+        dev, b, h, kv, dk, dv, page, p_max, dk + h + p_max,
+        n_planes=8 if entry == "pool" else 0, pool_dtype=pool_dtype)
+    kw = dict(window=window, logit_cap=cap,
+              scale=1.0 / np.sqrt(192.0) if dk == 576 else None)
+    pk.reset_counts()
+    if entry == "split":
+        got = paged_attention_fwd(q, *pools, table, lengths, **kw)
+        want = paged_attention_ref(q, *pools, table, lengths, **kw)
+    else:
+        got = paged_attention_pool_fwd(q, pools[0], table, lengths,
+                                       k_plane=6, v_plane=7, **kw)
+        want = paged_attention_pool_ref(q, pools[0], table, lengths,
+                                        k_plane=6, v_plane=7, **kw)
+    torch.cuda.synchronize()
+    form = "bfloat16" if pool_dtype == BF16 else "bfloat16_q"
+    assert pk.LAUNCHES_BY_DTYPE[form] == 1 == pk.LAUNCHES["paged_attention"]
+    assert got.shape == (b, h, dv) and not got[0].any()
+    _close_bf16(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_max,window,cap", [(8, 0, 50.0), (64, 70, 0.0),
+                                              (1, 0, 50.0)])
+def test_paged_lse_entry_bf16(p_max, window, cap):
+    """The stripe entry on bf16 q and pools: the output bf16 against the
+    plain version in the working type, the log-sum-exp fp32 within 1e-5
+    (both from the same bf16 values in fp32); a row with no live position
+    has zeros and NEG_INF."""
+    dev = _cuda()
+    from repro_torch.kernels.paged_attention import kernel as pk
+    b, h, kv, d, page = 5, 8, 4, 256, 32
+    gen = torch.Generator(device=dev).manual_seed(p_max + window + 1)
+    pools = [torch.randn((b * p_max + 1, page, kv, d), generator=gen,
+                         device=dev).to(BF16) for _ in range(2)]
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(BF16)
+    table = torch.arange(b * p_max, dtype=torch.int32,
+                         device=dev).reshape(b, p_max)
+    table[:, 1::3] = -1
+    full = p_max * page
+    lengths = torch.tensor([full, full // 2 + 3, 7, 1, 0], dtype=torch.int32,
+                           device=dev).clamp(max=full)
+    kw = dict(window=window, logit_cap=cap, scale=1.0 / 16)
+    out, lse = pk.paged_attention_lse_fwd(q, *pools, table, lengths, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = paged_attention_ref(q, *pools, table, lengths,
+                                             return_lse=True, **kw)
+    assert lse.dtype == torch.float32
+    _close_bf16(out, want_out)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+    assert bool((lse[4] == pk.NEG_INF).all()) and not bool(out[4].any())
+
+
+@pytest.mark.gpu
+def test_bf16_forms_refuse_other_dtypes():
+    """On the card as on the CPU: fp16 and fp64 inputs, and q and pools (or
+    k, v) of mixed dtypes other than the pool form's bf16 q over an fp32
+    pool, raise before any launch; nothing is cast to reach a form."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    fk.reset_counts()
+    pk.reset_counts()
+    q = torch.zeros((1, 2, 8, 64), device=dev, dtype=BF16)
+    for bad in ((q.half(), q.half(), q.half()), (q.double(),) * 3,
+                (q, q.float(), q), (q.float(), q, q.float())):
+        with pytest.raises(TypeError):
+            flash_attention_fwd(*bad)
+    qd = torch.zeros((1, 2, 64), device=dev, dtype=BF16)
+    pool = torch.zeros((3, 4, 2, 64), device=dev, dtype=BF16)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    ln = torch.ones(1, dtype=torch.int32, device=dev)
+    for bad in ((qd.half(), pool.half()), (qd, pool.float()),
+                (qd.float(), pool)):
+        with pytest.raises(TypeError):
+            paged_attention_fwd(bad[0], bad[1], bad[1], table, ln)
+    with pytest.raises(TypeError):
+        paged_attention_pool_fwd(qd.float(), pool[:, :, None], table, ln,
+                                 k_plane=0, v_plane=0)
+    assert fk.LAUNCHES["flash_attention"] == 0
+    assert pk.LAUNCHES["paged_attention"] == 0
