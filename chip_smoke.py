@@ -390,9 +390,10 @@ and the script exits non-zero:
    layers and its first MoE layer (MLA_LAYERS; 61 published; 63 GB of fp32
    weights with the MTP head, 5 layers would take 106 GB). Phase 19's
    engine, traffic and checks; the engine pool holds one latent KV head a layer (8 planes of
-   (1, 576): 18 KiB a token), so decode runs the paged kernel's wide
-   instantiation at G = 128 (32 row groups) and prefill the flash
-   kernel's at K 576 / V 512; the MoE form each call took (every expert
+   (1, 576): 18 KiB a token), so decode runs the paged kernel's packed
+   instantiation at G = 128 (every launch checked; 32-row tiles on the
+   tensor cores, 3xTF32) and prefill the flash kernel's wide one at K
+   576 / V 512; the MoE form each call took (every expert
    at every decode step, grouped past 146 prompt tokens) with its device
    ms. The baseline's split-pool calls are K 576, V 512 wide
    (``mla_split_*`` keys), the engine's pool entry's 576 and 576
@@ -495,7 +496,9 @@ and the script exits non-zero:
    ``_serve_traffic``'s checks and prints (tokens/s, prefill, pump and
    decode seconds, peak memory, launches, no plain call), every launch of
    the two attention kernels of their bf16 forms (``LAUNCHES_BY_DTYPE``),
-   the kept calls held against the plain versions in bf16 within
+   every flash launch of the wgmma form (``LAUNCHES_BY_FORM``: hd 256 in
+   the model layout; its file and form in the kernel-parity line), the
+   kept calls held against the plain versions in bf16 within
    BF16_ATTN_TOL (one bf16 step) and timed as in phase 10 (flash's bound
    at 989 TFLOP/s; SDPA and the paged yardstick in bf16); the split-pool
    and stripe (lse) entries on bf16 copies of the kept calls' planes.
@@ -511,13 +514,20 @@ and the script exits non-zero:
    distance. (c) The 16 requests on the plain bf16 path: tokens equal to
    the kernel path's under the TIE_MARGIN rule with that margin. Then the
    wide instantiations' bf16 forms at deepseek-v3's widths (seeded
-   inputs): flash at K 576 / V 512 on BF16_WIDE_PROMPTS' lengths, paged
-   on bf16 split pools (576 / 512) and, bf16 q, over an fp32 engine pool
-   (576), each held and timed the same way.
+   inputs): flash at K 576 / V 512 on BF16_WIDE_PROMPTS' lengths (every
+   launch of the mma.sync bf16 form), paged on bf16 split pools (576 /
+   512) and, bf16 q, over an fp32 engine pool (576) (every launch of the
+   packed instantiation, ``LAUNCHES_BY_INSTANCE``; their bounds count the
+   products too, at the bf16 rate and, over the fp32 pool, at two TF32
+   products for q.K^T and three for P.V), each held and timed the same
+   way.
 
 Then a ``{"kernels": [...]}`` line (the paged and flash entries carry the
 bf16 forms' numbers under ``bf16_*`` keys and their launches on phase 29's
-path and phase 28's bf16 step), the ``nvidia-smi`` name/power line, and
+path, by dtype and by form, and phase 28's bf16 step; the paged entry the
+instantiation each family's decode launched, ``launches_<family>_serve_
+path_by_instance``: packed on deepseek-v3's), the ``nvidia-smi`` name/power
+line, and
 last ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -544,6 +554,8 @@ KERNEL_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_rw.cu"
 # found the port's sources
 PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_WGMMA_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention_wgmma.cu")
 COPY_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_copy.cu"
 RWKV_SRC = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
 RWKV_MODEL, RWKV_CHUNK = "rwkv6-3b", 64
@@ -1015,7 +1027,8 @@ def _width_keys(tag, k):
     """A kernel-parity result under ``<tag>_width_*`` keys of an entry."""
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "max_abs_err", "bytes_per_call", "flops_per_call", "splits",
-            "grid_blocks_per_call", "calls", "resources")
+            "grid_blocks_per_call", "calls", "resources", "source", "form",
+            "instance")
     return {f"{tag}_width_{key}": k[key] for key in keep if key in k}
 
 
@@ -3590,6 +3603,8 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
         launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
         by_dtype = {"paged_attention": dict(pk.LAUNCHES_BY_DTYPE),
                     "flash_attention": dict(fk.LAUNCHES_BY_DTYPE)}
+        by_form = {"paged_attention": dict(pk.LAUNCHES_BY_INSTANCE),
+                   "flash_attention": dict(fk.LAUNCHES_BY_FORM)}
         plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
                  **fk.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
     finally:
@@ -3643,6 +3658,7 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
     return {"outs": outs, "run_s": run_s, "clock": clock, "counts": counts,
             "prefill_s": prefill_s, "margin_of": _margin_map(torch, margins),
             "launches": launches, "launches_by_dtype": by_dtype,
+            "launches_by_form": by_form,
             "plain": plain, "dbs_stats": st, "peak": peak, "parity": parity,
             "kept_paged": kept["paged"]}
 
@@ -3772,7 +3788,8 @@ def phase_paged_kernel(torch, eng, kept):
     from repro_torch.kernels.paged_attention import (paged_attention_pool_fwd,
                                                      paged_attention_pool_ref)
     from repro_torch.kernels.paged_attention.kernel import (
-        paged_info, paged_row_groups, paged_splits, paged_work, sm_count)
+        paged_block_rows, paged_form, paged_info, paged_splits, paged_work,
+        sm_count)
     from repro_torch.kernels.timing import graph_ms
     calls = kept["paged"]
     if not calls:
@@ -3781,7 +3798,7 @@ def phase_paged_kernel(torch, eng, kept):
     _e, page, _np_, kv, d = pool.shape
     dtype = calls[0][0].dtype
     tol = _attn_tol(torch, dtype)
-    err, n_bytes = 0.0, []
+    err, n_bytes, flops = 0.0, [], []
     for q, table, lengths, kw in calls:
         got = paged_attention_pool_fwd(q, pool, table, lengths, **kw)
         want = paged_attention_pool_ref(q, pool, table, lengths,
@@ -3789,8 +3806,10 @@ def phase_paged_kernel(torch, eng, kept):
         torch.testing.assert_close(got.float(), want.float(), **tol)
         err = max(err, float((got.float() - want.float()).abs().max()))
         # the live pages' K and V planes, q, the table and the output
-        n_bytes.append(paged_work(q, table, lengths, page, kv, d, d,
-                                  kw["window"], pool.element_size())[1])
+        f, nb = paged_work(q, table, lengths, page, kv, d, d, kw["window"],
+                           pool.element_size())
+        flops.append(f)
+        n_bytes.append(nb)
     n = len(calls)
     ms = graph_ms(lambda: [paged_attention_pool_fwd(q, pool, t, ln, **k)
                                   for q, t, ln, k in calls], n)
@@ -3822,42 +3841,66 @@ def phase_paged_kernel(torch, eng, kept):
             F.scaled_dot_product_attention(q4, kk.to(dtype), vv.to(dtype),
                                            attn_mask=mask)
     lib = graph_ms(library, n)
-    mean_b = sum(n_bytes) / n
-    # the grid the wrapper picks: (b * kv * row groups, n_split) main
-    # blocks, then the merge kernel over (b, kv) when n_split > 1
+    mean_b, mean_f = sum(n_bytes) / n, sum(flops) / n
+    # the grid the wrapper picks: b * paged_block_rows x n_split main
+    # blocks, then the merge kernel
     b, h, _ = calls[0][0].shape
     p_max = calls[0][1].shape[1]
-    rows = b * kv * paged_row_groups(h, kv)
+    rows = b * paged_block_rows(h, kv, d, d)
     n_split = paged_splits(p_max, rows, sm_count(pool.device), h // kv, d)
     info = paged_info(h // kv, d, d, True, True, p_max, n_split, dtype=dtype,
                       kv_dtype=pool.dtype)
+    # the packed instantiation's products on the tensor cores
+    # (_packed_rate); the lanes kernel's at the fp32 rate of the CUDA cores
+    instance = paged_form(h // kv, d, d)
+    rate = (FP32_FLOPS_PER_S if instance == "lanes" else
+            _packed_rate(torch, dtype, pool.dtype, d, d))
     emit(phase="kernel_parity", kernel="paged_attention", calls=n,
          pool_shape=list(pool.shape), q_shape=list(calls[0][0].shape),
          table_shape=list(calls[0][1].shape), max_abs_err=err,
-         bytes_per_call=mean_b, splits=n_split, tolerance=tol,
-         dtype=str(dtype), pool_dtype=str(pool.dtype))
+         bytes_per_call=mean_b, flops_per_call=mean_f, splits=n_split,
+         instance=instance, tolerance=tol, dtype=str(dtype),
+         pool_dtype=str(pool.dtype))
     cast = ("" if dtype == pool.dtype
             else ", the gathered K and V cast to q's dtype")
     return {"name": "paged_attention", "route": "cuda", "source": PAGED_SRC,
             "replaces": "src/repro/kernels/paged_attention/kernel.py:96",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": max(mean_b / HBM_BYTES_PER_S, mean_f / rate) * 1e3,
+            "bound_by": ("bytes" if mean_b / HBM_BYTES_PER_S
+                         >= mean_f / rate else "operations"),
             "library_ms": lib,
             "library_call": "two index_select gathers (K and V planes) + "
                             "scaled_dot_product_attention with a boolean "
                             "mask, a KV head's query heads on its query "
                             "axis, no logit cap" + cast,
-            "bytes_per_call": mean_b, "splits": n_split,
-            "kernels_per_call": 2 if n_split > 1 else 1,
+            "bytes_per_call": mean_b, "flops_per_call": mean_f,
+            "splits": n_split, "instance": instance,
+            "kernels_per_call": 2 if n_split > 1 or instance == "packed"
+            else 1,
             **resources(torch, info, rows * n_split)}
+
+
+def _packed_rate(torch, q_dtype, pool_dtype, d, dv):
+    """The rate of the packed paged kernel's products on the tensor cores,
+    flops a second. Over bf16 pools, bf16's. Over fp32 pools, 3xTF32's (a
+    third of the TF32 rate: three TF32 products a multiply-add), except
+    q.K^T for bf16 q, which is exact in TF32 and so takes two products:
+    the two rates then mixed by their products' shares of the flops (d of
+    a position's d + dv multiply-adds are q.K^T's)."""
+    if pool_dtype == torch.bfloat16:
+        return BF16_FLOPS_PER_S
+    tf32 = 3 * TF32X3_FLOPS_PER_S            # the dense TF32 rate
+    qk = tf32 / (2 if q_dtype == torch.bfloat16 else 3)
+    return (d + dv) / (d / qk + dv / TF32X3_FLOPS_PER_S)
 
 
 def phase_flash_kernel(torch, kept):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.flash_attention.kernel import (flash_info,
-                                                            flash_work)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_form, flash_info, flash_work)
     from repro_torch.kernels.timing import graph_ms
     calls = kept["flash"]
     if len(calls) < 2:
@@ -3891,7 +3934,11 @@ def phase_flash_kernel(torch, kept):
         q, k, v, is_causal=True, enable_gqa=True) for q, k, v in cont], n)
     f_mean, b_mean = sum(flops) / n, sum(n_bytes) / n
     bound = sum(bounds) / n
-    info = flash_info(calls[0][0].shape[-1], calls[0][2].shape[-1], dtype)
+    q0, k0, v0 = calls[0][:3]
+    form = flash_form(q0.shape[-1], v0.shape[-1], dtype,
+                      [x for t in (q0, k0, v0) for x in t.stride()[:3]],
+                      [t.data_ptr() for t in (q0, k0, v0)])
+    info = flash_info(q0.shape[-1], v0.shape[-1], dtype, form)
     grid = [c[0].shape[0] * c[0].shape[1]
             * -(-c[0].shape[2] // info["rows_per_block"]) for c in calls]
     emit(phase="kernel_parity", kernel="flash_attention", calls=n,
@@ -3899,9 +3946,11 @@ def phase_flash_kernel(torch, kept):
          v_shapes=[list(c[2].shape) for c in calls],
          windows=[c[3]["window"] for c in calls], max_abs_err=err,
          flops_per_call=f_mean, bytes_per_call=b_mean, tolerance=tol,
-         dtype=str(dtype))
+         dtype=str(dtype), form=form)
     fp32 = dtype == torch.float32
-    return {"name": "flash_attention", "route": "cuda", "source": FLASH_SRC,
+    return {"name": "flash_attention", "route": "cuda",
+            "source": FLASH_WGMMA_SRC if form == "bf16_wgmma" else FLASH_SRC,
+            "form": form,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound * 1e3,
@@ -4803,11 +4852,12 @@ def phase_paged_split_kernel(torch, kept):
     from repro_torch.kernels.paged_attention import (paged_attention_fwd,
                                                      paged_attention_ref)
     from repro_torch.kernels.paged_attention.kernel import (
-        paged_info, paged_row_groups, paged_splits, paged_work, sm_count)
+        paged_block_rows, paged_form, paged_info, paged_splits, paged_work,
+        sm_count)
     from repro_torch.kernels.timing import graph_ms
     if not kept:
         raise AssertionError("no baseline decode call was kept")
-    err, n_bytes, lib_in = 0.0, [], []
+    err, n_bytes, flops, lib_in = 0.0, [], [], []
     for q, pk, pv, table, lengths, kw in kept:
         got = paged_attention_fwd(q, pk, pv, table, lengths, **kw)
         want = paged_attention_ref(q, pk, pv, table, lengths, **kw)
@@ -4815,8 +4865,9 @@ def phase_paged_split_kernel(torch, kept):
         err = max(err, float((got - want).abs().max()))
         b, h, d = q.shape
         _e, page, kv, dv = pv.shape
-        n_bytes.append(paged_work(q, table, lengths, page, kv, d, dv,
-                                  kw["window"])[1])
+        f, nb = paged_work(q, table, lengths, page, kv, d, dv, kw["window"])
+        flops.append(f)
+        n_bytes.append(nb)
         p_max = table.shape[1]
         pos = torch.arange(p_max * page, device=q.device)
         valid = (pos[None, :] < lengths[:, None]) & (
@@ -4841,19 +4892,25 @@ def phase_paged_split_kernel(torch, kept):
     q, pk, pv, table = kept[0][:4]
     b, h, d = q.shape
     kv, dv, p_max = pk.shape[2], pv.shape[3], table.shape[1]
-    rows = b * kv * paged_row_groups(h, kv)
+    rows = b * paged_block_rows(h, kv, d, dv)
     n_split = paged_splits(p_max, rows, sm_count(q.device), h // kv,
                            max(d, dv))
     info = paged_info(h // kv, d, dv, True, True, p_max, n_split)
-    mean_b = sum(n_bytes) / n
+    mean_b, mean_f = sum(n_bytes) / n, sum(flops) / n
+    instance = paged_form(h // kv, d, dv)
+    rate = FP32_FLOPS_PER_S if instance == "lanes" else TF32X3_FLOPS_PER_S
+    t_b, t_f = mean_b / HBM_BYTES_PER_S, mean_f / rate
     emit(phase="kernel_parity", kernel="paged_attention",
          entry="split pools (copy-based baseline)", calls=n,
          q_shape=list(q.shape), pool_k_shape=list(pk.shape),
          pool_v_shape=list(pv.shape), max_abs_err=err,
-         bytes_per_call=mean_b, splits=n_split, tolerance=ATTN_TOL)
+         bytes_per_call=mean_b, flops_per_call=mean_f, splits=n_split,
+         instance=instance, tolerance=ATTN_TOL)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": lib, "bytes_per_call": mean_b, "splits": n_split,
+            "bound_ms": max(t_b, t_f) * 1e3,
+            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "library_ms": lib, "bytes_per_call": mean_b,
+            "flops_per_call": mean_f, "splits": n_split,
             "calls": n, "resources": resources(torch, info, rows * n_split)}
 
 
@@ -5014,6 +5071,16 @@ def phase_serve_family(torch, dev, smi, model, seed, n_layers=None,
           else contextlib.nullcontext()):
         res = _serve_traffic(torch, eng, prompts, keep_flash,
                              keep_layers=FAMILY_KEEP_LAYERS)
+    # every decode call of the instantiation its shapes pick (deepseek-v3's
+    # 128 query heads on a 576-wide latent: the packed one)
+    q0, pool0 = res["kept_paged"][0][0], eng._pools[0]
+    paged_instance = pk.paged_form(q0.shape[1] // pool0.shape[3],
+                                   q0.shape[2], pool0.shape[4])
+    by_instance = res["launches_by_form"]["paged_attention"]
+    if by_instance[paged_instance] != res["launches"]["paged_attention"]:
+        raise AssertionError(f"{model}: paged launches {by_instance}, not "
+                             f"the {paged_instance} instantiation alone")
+    del q0, pool0
     moe_forms = (_moe_summary(torch, moe_calls, eng.n_slots)
                  if cfg.moe is not None else None)
     del moe_calls
@@ -5109,6 +5176,7 @@ def phase_serve_family(torch, dev, smi, model, seed, n_layers=None,
          memory_allocated_before=held, card=smi)
     del params
     return {"launches": res["launches"], "split": split_k,
+            "paged_by_instance": by_instance,
             "mtp_flash_launches": mtp_launches, **res["parity"]}
 
 
@@ -6203,14 +6271,19 @@ def _bf16_wide_forms(torch, dev):
     """The wide instantiations' bf16 forms at deepseek-v3's serving shapes
     (the absorbed latent: K 576, V 512, 128 query heads on one KV head,
     scale 1/sqrt(192); seeded random values): flash on two prompts of
-    BF16_WIDE_PROMPTS tokens in the model layout; paged on 8 sequences of
-    up to 1024 positions (page 32, 32 pages, holes past each length, a
-    lane of length 0) over bf16 split pools (K 576, V 512) and, q bf16,
-    over an fp32 engine pool of 8 planes at 576."""
+    BF16_WIDE_PROMPTS tokens in the model layout (the mma.sync form);
+    paged on 8 sequences of up to 1024 positions (page 32, 32 pages, holes
+    past each length, a lane of length 0) over bf16 split pools (K 576, V
+    512) and, q bf16, over an fp32 engine pool of 8 planes at 576 (the
+    packed instantiation, each launch checked: its products bound the
+    bf16 split form at the bf16 rate, the fp32 pool's at _packed_rate's:
+    q.K^T in two TF32 products, P.V in three)."""
     import numpy as np
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.kernel import flash_work
+    from repro_torch.kernels.paged_attention import kernel as pk
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention_fwd, paged_attention_pool_fwd, paged_work)
     from repro_torch.kernels.paged_attention.ref import (
@@ -6226,12 +6299,16 @@ def _bf16_wide_forms(torch, dev):
         flash_calls.append(((q.transpose(1, 2), k.transpose(1, 2),
                              v.transpose(1, 2)),
                             dict(window=0, logit_cap=0.0, scale=scale)))
+    fk.reset_counts()
     wide = {"flash": _form_parity(
         torch, "flash_attention", "wide (K 576, V 512), bf16", flash_calls,
         flash_attention_fwd,
         lambda *a, **k: attention_ref(*a, **k).to(bf),
         lambda a, k: flash_work(*a, True, k["window"]), BF16_FLOPS_PER_S,
         library=lambda a, k: _sdpa(torch, *a, **k))}
+    if fk.LAUNCHES_BY_FORM["bf16_mma"] != fk.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"the wide bf16 flash form launched "
+                             f"{fk.LAUNCHES_BY_FORM}, not bf16_mma alone")
     b, page, p_max, n_planes = 8, 32, 32, 8
     e = b * p_max + 5
     rng = np.random.default_rng(SEED + 31)
@@ -6243,15 +6320,17 @@ def _bf16_wide_forms(torch, dev):
     table = torch.from_numpy(table.astype(np.int32)).to(dev)
     lengths = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     q = torch.randn((b, h, dk), generator=gen, device=dev).to(bf)
-    pk = torch.randn((e, page, 1, dk), generator=gen, device=dev).to(bf)
+    pk_ = torch.randn((e, page, 1, dk), generator=gen, device=dev).to(bf)
     pv = torch.randn((e, page, 1, dv), generator=gen, device=dev).to(bf)
     pool = torch.randn((e, page, n_planes, 1, dk), generator=gen, device=dev)
     kw = dict(window=0, logit_cap=0.0, scale=scale)
+    pk.reset_counts()
     wide["paged_split"] = _form_parity(
         torch, "paged_attention", "wide split pools (576 / 512), bf16",
-        [((q, pk, pv, table, lengths), kw)], paged_attention_fwd,
+        [((q, pk_, pv, table, lengths), kw)], paged_attention_fwd,
         lambda *a, **k: paged_attention_ref(*a, **k).to(bf),
         lambda a, k: paged_work(a[0], a[3], a[4], page, 1, dk, dv, 0, 2),
+        BF16_FLOPS_PER_S,
         library=lambda a, k: _paged_library(torch, *a, **k))
     pkw = dict(kw, k_plane=6, v_plane=7)
     wide["paged_pool"] = _form_parity(
@@ -6259,8 +6338,13 @@ def _bf16_wide_forms(torch, dev):
         [((q, pool, table, lengths), pkw)], paged_attention_pool_fwd,
         lambda *a, **k: paged_attention_pool_ref(*a, **k).to(bf),
         lambda a, k: paged_work(a[0], a[2], a[3], page, 1, dk, dk, 0, 4),
+        _packed_rate(torch, bf, torch.float32, dk, dk),
         library=lambda a, k: _paged_library(
             torch, a[0], a[1][:, :, 6], a[1][:, :, 7], a[2], a[3], **k))
+    if pk.LAUNCHES_BY_INSTANCE["packed"] != pk.LAUNCHES["paged_attention"]:
+        raise AssertionError(f"the wide paged forms launched "
+                             f"{pk.LAUNCHES_BY_INSTANCE}, not the packed "
+                             f"instantiation alone")
     return wide
 
 
@@ -6293,11 +6377,17 @@ def phase_serve_bf16(torch, dev, smi):
     if any(forms[k] != res["launches"][k] or forms[k] <= 0 for k in forms):
         raise AssertionError(f"bf16 serving launched {by}, not the bf16 "
                              f"forms alone ({res['launches']})")
+    by_form = res["launches_by_form"]
+    if by_form["flash_attention"]["bf16_wgmma"] != \
+            res["launches"]["flash_attention"]:
+        raise AssertionError(f"bf16 prefill launched {by_form}, not the "
+                             f"wgmma form alone")
     split, lse = _bf16_split_forms(torch, eng._pools[0], res["kept_paged"])
     emit(phase="serve_path", model=SERVE_MODEL,
          config=_serve_config(cfg, eng, param_dtype="bfloat16"),
          **_serve_fields(lens, res), launches_by_dtype=by,
-         init_seconds=init_s, memory_allocated_before=held_before, card=smi)
+         launches_by_form=by_form, init_seconds=init_s,
+         memory_allocated_before=held_before, card=smi)
     kernel_tokens = {rid: list(res["outs"][rid]) for rid in res["outs"]}
     eng.volumes.close()
     del eng
@@ -6344,7 +6434,7 @@ def phase_serve_bf16(torch, dev, smi):
     gc.collect()
     torch.cuda.empty_cache()
     emit(phase="serve_bf16", seconds=time.perf_counter() - t_phase, card=smi)
-    return {"launches": res["launches"], "by_dtype": by,
+    return {"launches": res["launches"], "by_dtype": by, "by_form": by_form,
             "paged": res["parity"]["paged_attention"],
             "flash": res["parity"]["flash_attention"], "split": split,
             "lse": lse, "wide": wide}
@@ -6667,6 +6757,8 @@ def main() -> int:
             k[f"launches_{tag}_serve_path"] = fam["launches"][k["name"]]
             k.update(_width_keys(tag, fam[k["name"]]))
         paged_k.update(_width_keys(f"{tag}_split", fam["split"]))
+        paged_k[f"launches_{tag}_serve_path_by_instance"] = fam[
+            "paged_by_instance"]
         if fam["mtp_flash_launches"] is not None:
             flash_k["launches_mtp_path"] = fam["mtp_flash_launches"]
 
@@ -6716,6 +6808,7 @@ def main() -> int:
         k["launches_bf16_serve_path"] = bf16["launches"][k["name"]]
     for k in (paged_k, flash_k):
         k["launches_bf16_serve_path_by_dtype"] = bf16["by_dtype"][k["name"]]
+        k["launches_bf16_serve_path_by_form"] = bf16["by_form"][k["name"]]
     paged_k.update(**_width_keys("bf16", bf16["paged"]),
                    **_width_keys("bf16_split", bf16["split"]),
                    **_width_keys("bf16_lse", bf16["lse"]),

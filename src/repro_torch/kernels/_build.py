@@ -47,6 +47,9 @@ SOURCES: Dict[str, Path] = {
     / "paged_attention_bf16.cu",
     "flash_attention": KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    # flash's bf16 form at d = dv in {64, 128, 256} on wgmma and TMA
+    "flash_attention_wgmma": KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_wgmma.cu",
     "rwkv6_scan": KERNELS / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }
 
@@ -103,6 +106,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # blocks per SM, threads, query rows per block); of each form
         "flash_attention_info": [_ci, _ci, _vp],
         "flash_attention_bf16_info": [_ci, _ci, _vp],
+    },
+    "flash_attention_wgmma": {
+        # q, k, v, out; b, h, kv, sq, sk, d; q/k/v/o strides (batch, head,
+        # seq; elements, 64-bit); causal, window; scale, logit_cap; stream
+        "flash_attention_bf16_wgmma": [_vp] * 4 + [_ci] * 6
+        + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp],
+        # d; int[7] out (flash_attention_info's, then K/V stages)
+        "flash_attention_bf16_wgmma_info": [_ci, _vp],
     },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;

@@ -6,16 +6,22 @@ kernels against other builds of the same C entries, on one card, in turns
         [--against NAME=DIR ...]
 
 ``DIR`` is the root of another checkout (the parent commit unpacked with
-``git archive``, say): its ``dbs_rw.cu``, ``dbs_copy.cu``,
-``paged_attention.cu``, ``flash_attention.cu`` and ``rwkv6_scan.cu`` are
-built beside this checkout's under ``build/torch_kernels/compare/NAME/``.
-Each build is called through the C entries it exports: a paged-attention
-build without ``paged_attention_info`` has the entry without the partials
+``git archive``, say): its sources of ``NAMES`` (``dbs_rw.cu``,
+``dbs_copy.cu``, ``paged_attention.cu`` and its bf16 library
+``paged_attention_bf16.cu``, ``flash_attention.cu``,
+``flash_attention_wgmma.cu`` where the checkout has it, ``rwkv6_scan.cu``)
+are built beside this checkout's under
+``build/torch_kernels/compare/NAME/``, one nvcc each, together. Each
+build is called through the C entries it exports: a paged-attention build
+without ``paged_attention_info`` has the entry without the partials
 scratch and the split count (one block per sequence and KV head); a
 flash-attention source whose entry takes no ``dv`` (before V had a width
-of its own) is called without it. Every build is timed
-on the same inputs, made from a seed on the card at the main paths'
-shapes:
+of its own) is called without it; the bf16 flash case runs the wgmma
+entry where the build has it, else ``flash_attention_bf16``; the MLA
+paged case takes each build's own split rule (``paged_block_rows`` where
+its source has the packed kernel, else ``paged_row_groups``' one). Every
+build is timed on the same inputs, made from a seed on the card at the
+main paths' shapes:
 
 - ``read_block_device``: 32 batches of 64 lanes over an (2049, 32, 4096)
   fp32 pool, 8% hole lanes (the block device's reads);
@@ -36,6 +42,15 @@ shapes:
 - ``flash_serving``: gemma2-2b's prefill of an 854-token prompt, a local
   (window 4096) and a global layer: 8 heads over 4 KV heads of 256, logit
   cap 50, the model layout's strides;
+- ``flash_serving_bf16``: the same two calls in bf16 (gemma2-2b's bf16
+  serve plan);
+- ``paged_mla``: deepseek-v3's zero-copy decode step at its 4 layers: 8
+  sequences of prompts drawn in [100, 1000] plus 24 decoded tokens, 128
+  query heads on one latent KV head of 576 (scale 1/sqrt(192)), page 32,
+  64-page tables; its three wide forms, each a case of its own:
+  ``paged_mla_f32`` (q fp32 over the fp32 engine pool's planes, 576 / 576),
+  ``paged_mla_bf16`` (q bf16 over bf16 split pools, 576 / 512) and
+  ``paged_mla_bf16q`` (q bf16 over the fp32 engine pool);
 - ``flash_hybrid``: hymba-1.5b's 1369-token prompt, a global layer and a
   1024-token window layer: 25 heads over 5 KV heads of 64;
 - ``flash_moe``: granite-moe's prompts of 951 and 663 tokens: 24 heads
@@ -68,13 +83,14 @@ from typing import Callable, Dict, List
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention.kernel import (paged_row_groups,
-                                                        paged_splits, sm_count)
+from repro_torch.kernels.paged_attention.kernel import (
+    paged_block_rows, paged_partial_floats, paged_row_groups, paged_splits,
+    sm_count)
 from repro_torch.kernels.timing import graph_ms, queued_ms
 
 ROOT = _build.KERNELS.parents[2]
-NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "flash_attention",
-         "rwkv6_scan")
+NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "paged_attention_bf16",
+         "flash_attention", "flash_attention_wgmma", "rwkv6_scan")
 TURNS = 2                 # rounds of A B ... B A
 _vp, _ci, _cf, _i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int64)
@@ -87,13 +103,17 @@ FLASH_DV = "int b, int h, int kv, int sq, int sk, int d, int dv,"
 
 
 def build(tag: str, root: Path) -> Dict[str, ctypes.CDLL]:
-    """Build ``root``'s sources of ``NAMES`` (one nvcc each, run
-    together) and load them."""
-    with ThreadPoolExecutor(len(NAMES)) as ex:
+    """Build ``root``'s sources of ``NAMES`` that it has (one nvcc each,
+    run together) and load them."""
+    names = [n for n in NAMES
+             if (root / _build.SOURCES[n].relative_to(ROOT)).is_file()]
+    with ThreadPoolExecutor(len(names)) as ex:
         libs = ex.map(lambda n: _build.build_variant(
             n, f"compare/{tag}", root / _build.SOURCES[n].relative_to(ROOT)),
-            NAMES)
-    libs = dict(zip(NAMES, libs))
+            names)
+    libs = dict(zip(names, libs))
+    paged_src = root / _build.SOURCES["paged_attention"].relative_to(ROOT)
+    libs["paged_packed"] = "paged_packed_kernel" in paged_src.read_text()
     paged = libs["paged_attention"]
     if not hasattr(paged, "paged_attention_info"):
         paged.paged_attention.argtypes = PAGED_UNSPLIT
@@ -149,16 +169,44 @@ def inputs(dev, seed: int = 0):
         q = torch.randn((8, 8, 256), generator=gen, device=dev)
         paged.append((q, table, lengths, 2 * layer, 2 * layer + 1))
 
-    def flash(s, h, kv, d, windows, cap=0.0):
+    def flash(s, h, kv, d, windows, cap=0.0, dtype=torch.float32):
         """Model-layout (B, S, heads, hd) q, k, v and output views, one
         call per window."""
         out = []
         for w in windows:
-            x = torch.randn((1, s, h + 2 * kv, d), generator=gen, device=dev)
+            x = torch.randn((1, s, h + 2 * kv, d), generator=gen,
+                            device=dev).to(dtype)
             q, k, v = (t.transpose(1, 2) for t in x.split([h, kv, kv], 2))
-            o = torch.empty((1, s, h, d), device=dev).transpose(1, 2)
+            o = torch.empty((1, s, h, d), device=dev,
+                            dtype=dtype).transpose(1, 2)
             out.append((q, k, v, o, w, cap))
         return out
+
+    # deepseek-v3's decode: the engine pool's planes (E, 32, 8, 1, 576),
+    # the bf16 split pools, 4 layers' queries and tables
+    mla_len = ints(100, 1001, 8) + 24
+    mla_pages = (mla_len + 31) // 32
+    mla_pool = torch.randn((8 * 64 + 5, 32, 8, 1, 576), generator=gen,
+                           device=dev)
+    mla_k = torch.randn((8 * 64 + 5, 32, 1, 576), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    mla_v = torch.randn((8 * 64 + 5, 32, 1, 512), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    mla = []
+    for layer in range(4):
+        perm = torch.randperm(8 * 64 + 4, generator=gen, device=dev)[:8 * 64]
+        table = (perm + 1).view(8, 64)
+        cols = torch.arange(64, device=dev)[None, :]
+        table = torch.where(cols < mla_pages[:, None], table, -1).to(
+            torch.int32)
+        q = torch.randn((8, 128, 576), generator=gen, device=dev)
+        mla.append((q, table, mla_len, 2 * layer, 2 * layer + 1))
+
+    def mla_case(form):
+        calls = [((q if form == "f32" else q.to(torch.bfloat16)), t, n, kp,
+                  vp) for q, t, n, kp, vp in mla]
+        return ((mla_pool, form) if form != "bf16"
+                else ((mla_k, mla_v), form), calls)
 
     def rwkv(b, s, n_calls, with_state):
         out = []
@@ -183,6 +231,11 @@ def inputs(dev, seed: int = 0):
             "copy_serving": (pool_c, copies(26, 8, 1032, 1)),
             "paged_serving": (pool_s.view(1033, 32, 26, 4, 256), paged),
             "flash_serving": (None, flash(854, 8, 4, 256, (4096, 0), 50.0)),
+            "flash_serving_bf16": (None, flash(854, 8, 4, 256, (4096, 0),
+                                               50.0, torch.bfloat16)),
+            "paged_mla_f32": mla_case("f32"),
+            "paged_mla_bf16": mla_case("bf16"),
+            "paged_mla_bf16q": mla_case("bf16q"),
             "flash_hybrid": (None, flash(1369, 25, 5, 64, (0, 1024))),
             "flash_moe": (None, flash(951, 24, 8, 64, (0,))
                           + flash(663, 24, 8, 64, (0,))),
@@ -265,6 +318,10 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
 
     def flash(name):
         _, calls = cases[name]
+        bf16 = calls[0][0].dtype == torch.bfloat16
+        wg = libs.get("flash_attention_wgmma") if bf16 else None
+        entry = (fa if not bf16 else wg.flash_attention_bf16_wgmma if wg
+                 else libs["flash_attention"].flash_attention_bf16)
 
         def run():
             st = stream()
@@ -272,16 +329,61 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
                 b, h, sq, d = q.shape
                 kv, sk = k.shape[1], k.shape[2]
                 dims = [b, h, kv, sq, sk, d] + ([d] if libs["flash_dv"]
-                                                else [])
+                                                and not wg else [])
                 strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
-                _build.raise_on(fa(
+                tail = [1, window, d ** -0.5, cap]
+                _build.raise_on(entry(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    *dims, *strides, 1, window, d ** -0.5, cap, st), name)
+                    *dims, *strides, *tail, st), name)
+        return run
+
+    def paged_mla(name):
+        (pools, form), calls = cases[name]
+        q0, table0 = calls[0][0], calls[0][1]
+        b, h, d = q0.shape
+        p_max = table0.shape[1]
+        if form == "bf16":
+            pk, pv = pools
+            e, page, kv, _ = pk.shape
+            dv = pv.shape[-1]
+            strides = [page * kv * d, kv * d, page * kv * dv, kv * dv]
+        else:
+            e, page, n_planes, kv, _ = pools.shape
+            dv = d
+            tok = n_planes * kv * d
+            strides = [page * tok, tok, page * tok, tok]
+        rows = (paged_block_rows(h, kv, d, dv)
+                if libs["paged_packed"] else kv * paged_row_groups(h, kv))
+        n_split = paged_splits(p_max, b * rows, sm_count(q0.device), h // kv,
+                               max(d, dv))
+        part = torch.empty(max(1, paged_partial_floats(
+            b, h, kv, dv, n_split,
+            "packed" if libs["paged_packed"] else "lanes")), device=q0.device)
+        out = torch.empty((b, h, dv), device=q0.device, dtype=q0.dtype)
+        lib = (libs["paged_attention"].paged_attention if form == "f32"
+               else libs["paged_attention_bf16"].paged_attention_bf16)
+
+        def run():
+            st = stream()
+            for q, table, lengths, kp, vp in calls:
+                if form == "bf16":
+                    ptrs = [pk.data_ptr(), pv.data_ptr()]
+                else:
+                    ptrs = [pools.data_ptr() + p * kv * d * 4
+                            for p in (kp, vp)]
+                args = [q.data_ptr(), *ptrs, table.data_ptr(),
+                        lengths.data_ptr(), out.data_ptr(), part.data_ptr(),
+                        b, h, kv, d, dv, p_max, page, e, *strides, 0,
+                        192 ** -0.5, 0.0, n_split]
+                if form != "f32":
+                    args.append(int(form == "bf16"))
+                _build.raise_on(lib(*args, st), name)
         return run
 
     make = {"read": read, "copy": copy, "paged": paged, "flash": flash,
             "rwkv6": rwkv}
-    return {n: make[n.split("_")[0]](n) for n in cases}
+    return {n: (paged_mla(n) if n.startswith("paged_mla")
+                else make[n.split("_")[0]](n)) for n in cases}
 
 
 def main() -> int:

@@ -98,7 +98,9 @@
 //   the time, the staging and the softmax with its barriers about a
 //   quarter each. Larger query tiles or multicast K/V loads come next.
 //
-// The bf16 form (flash_kernel_bf16, both instantiations' shapes): the same
+// The bf16 form (flash_kernel_bf16, both instantiations' shapes; where d =
+// dv is 64, 128 or 256 on 16-byte aligned rows the wrapper launches the
+// warpgroup kernel of flash_attention_wgmma.cu instead): the same
 // block, warps, key tiles, softmax and masks on bf16 tiles, half the fp32
 // form's bytes through shared memory (103 KiB at hd 256, 195 KiB at 576 /
 // 512; K and V double-buffered in both). S = Q.K^T runs on

@@ -13,8 +13,15 @@ copy; the kernel itself stages a tensor with 16-byte copies where its
 base and strides allow and with 4-byte copies otherwise. It launches the
 kernel for tensors on a CUDA device and calls the plain version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error.
-``LAUNCHES`` and ``PLAIN_CALLS`` count the two, and ``LAUNCHES_BY_DTYPE``
-splits the launches by form (``float32``, ``bfloat16``).
+``LAUNCHES`` and ``PLAIN_CALLS`` count the two, ``LAUNCHES_BY_DTYPE``
+splits the launches by dtype (``float32``, ``bfloat16``) and
+``LAUNCHES_BY_FORM`` by instantiation: ``float32``; ``bf16_wgmma``, the
+warpgroup-product kernel of ``csrc/flash_attention_wgmma.cu`` for bf16 at
+d = dv in {64, 128, 256} with 16-byte aligned bases and strides (TMA's
+rule); ``bf16_mma``, ``csrc/flash_attention.cu``'s bf16 form, for every
+other bf16 shape (odd or unaligned head dims and rows, the wide 576 / 512
+form). ``flash_form`` makes that choice from shapes alone (no
+read-back).
 q, k and v are all fp32 or all bf16, as the TPU kernel takes either, and
 the output is in q's dtype; any other dtype raises. fp32: the kernel's
 products run on the tensor cores in 3xTF32, accurate to fp32's level.
@@ -43,29 +50,54 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
 LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+LAUNCHES_BY_FORM: Dict[str, int] = {"float32": 0, "bf16_mma": 0,
+                                    "bf16_wgmma": 0}
 DTYPES = (torch.float32, torch.bfloat16)    # the forms: fp32, bf16
+WGMMA_HEAD_DIMS = (64, 128, 256)    # the wgmma kernel's d = dv
 NARROW_HEAD_DIM = 256               # the narrow instantiation: dk, dv
 MAX_HEAD_DIM = 576                  # the wide one: dk (MLA's latent + rope)
 MAX_V_HEAD_DIM = 512                # and dv (MLA's latent)
 INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
              "blocks_per_sm", "threads", "rows_per_block")
+WGMMA_INFO_KEYS = INFO_KEYS + ("stages",)
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE):
+    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE,
+                   LAUNCHES_BY_FORM):
         for k in counts:
             counts[k] = 0
 
 
-def flash_info(d: int, dv: Optional[int] = None,
-               dtype=torch.float32) -> Dict[str, int]:
+def flash_form(d: int, dv: int, dtype, strides=(), ptrs=()) -> str:
+    """The instantiation a call launches (a ``LAUNCHES_BY_FORM`` key):
+    fp32 its own; bf16 the wgmma kernel where d = dv is 64, 128 or 256 and
+    every base pointer in ``ptrs`` and element stride in ``strides`` (of
+    the dims of size above 1) is 16-byte aligned, else the mma.sync one."""
+    if dtype == torch.float32:
+        return "float32"
+    if (d == dv and d in WGMMA_HEAD_DIMS and all(s % 8 == 0 for s in strides)
+            and all(p % 16 == 0 for p in ptrs)):
+        return "bf16_wgmma"
+    return "bf16_mma"
+
+
+def flash_info(d: int, dv: Optional[int] = None, dtype=torch.float32,
+               form: Optional[str] = None) -> Dict[str, int]:
     """The CUDA kernel's registers, shared memory, resident blocks per SM
     and block shape at head dims ``d`` and ``dv`` (default ``d``), of the
-    form of ``dtype`` (needs the card)."""
+    form of ``dtype`` (bf16: ``form`` "bf16_mma" or "bf16_wgmma", by
+    default the wgmma form where d = dv takes it); needs the card."""
+    dv = d if dv is None else dv
+    if dtype == torch.bfloat16:
+        form = form or flash_form(d, dv, dtype)
+        if form == "bf16_wgmma":
+            return kernel_info("flash_attention_wgmma",
+                               "flash_attention_bf16_wgmma_info", (d,),
+                               WGMMA_INFO_KEYS)
     fn = ("flash_attention_bf16_info" if dtype == torch.bfloat16
           else "flash_attention_info")
-    return kernel_info("flash_attention", fn, (d, d if dv is None else dv),
-                       INFO_KEYS)
+    return kernel_info("flash_attention", fn, (d, dv), INFO_KEYS)
 
 
 def check_head_dims(d: int, dv: int) -> None:
@@ -124,20 +156,35 @@ def _flash(q, k, v, causal: bool, window: int, logit_cap: float,
     dv = v.shape[-1]
     out = torch.empty((b, sq, h, dv), dtype=q.dtype,
                       device=dev).transpose(1, 2)
-    form = ("flash_attention_bf16" if q.dtype == torch.bfloat16
-            else "flash_attention")
-    lib = library("flash_attention")
+    form = flash_form(d, dv, q.dtype, _outer_strides(q, k, v),
+                      (q.data_ptr(), k.data_ptr(), v.data_ptr()))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+            kv, sq, sk)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3])
+    tail = (int(bool(causal)), int(window or 0), float(scale),
+            float(logit_cap or 0.0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, form)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
-            kv, sq, sk, d, dv, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], int(bool(causal)),
-            int(window or 0), float(scale), float(logit_cap or 0.0), stream)
+        if form == "bf16_wgmma":
+            err = library("flash_attention_wgmma").flash_attention_bf16_wgmma(
+                *head, d, *strides, *tail, stream)
+        else:
+            fn = ("flash_attention_bf16" if form == "bf16_mma"
+                  else "flash_attention")
+            err = getattr(library("flash_attention"), fn)(
+                *head, d, dv, *strides, *tail, stream)
     raise_on(err, form)
     LAUNCHES["flash_attention"] += 1
     LAUNCHES_BY_DTYPE[str(q.dtype).split(".")[1]] += 1
+    LAUNCHES_BY_FORM[form] += 1
     return out
+
+
+def _outer_strides(*ts):
+    """The (batch, head, sequence) strides of the dims of size above 1."""
+    return [st for t in ts for n, st in zip(t.shape[:3], t.stride()[:3])
+            if n > 1]
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,7 @@
 // 4 KV heads, hd 256, page 32, p_max 64, about 17 live pages a sequence)
 // a call reads about 36 MB: 0.0107 ms at 3.35 TB/s.
 //
-// Design (flash-decoding).
+// Design (flash-decoding; the lanes instantiation, then the packed one).
 // - Grid (b * kv * row groups, n_split). The query rows of a KV head's GQA
 //   group are cut into row groups of at most kMaxG rows (one at g <= 4);
 //   the kernel is instantiated for G = 1, 2 or 4 rows a block (a smaller
@@ -97,13 +97,53 @@
 //   16-byte ones would take 24; or 18 single ones), for MLA's absorbed
 //   latent (deepseek-v3: K 576 = latent 512 + rope 64, V 512 on the
 //   split pools and 576 on the engine pool's planes, G = 128 query heads
-//   on one KV head, so 32 row groups of 4).
-//   The wide one stages 160 KiB (one block an SM) and keeps 2 x 4 rows x
-//   20 floats of q and accumulator a lane (launch bounds for one block an
-//   SM, 255 registers). Each of the 32 row groups of a sequence re-reads
-//   its latent pages: 32x the bytes of the bound, right and slow; packing
-//   the G rows of one KV head into one block is a speed PR's work.
-// - What holds it back (kernel phase_costs.py, variants that drop one part,
+//   on one KV head). The wide one stages 160 KiB (one block an SM) and
+//   keeps 2 x 4 rows x 20 floats of q and accumulator a lane; it now runs
+//   where a KV head's group is small (fewer than kPackedMinG rows).
+// - The packed instantiation (paged_packed_kernel, below): a wide head dim
+//   (past 256) and a GQA group of at least kPackedMinG = 16 rows, MLA's
+//   decode (G = 128 on one 576-wide latent), where the lanes kernel's 32
+//   row groups of 4 each re-read a sequence's latent pages (32x the bytes
+//   of the bound: 0.2955 ms against 0.00945 at deepseek-v3's serving
+//   inputs on an H100). Bound there: the live K and V rows
+//   once (bytes), level with the products at the tensor cores' 3xTF32
+//   rate over the fp32 pool (2 x 128 x 1152 flops a position). Design:
+//   - A block takes kPackedRows = 32 of the group's query rows and 16
+//     positions a tile, so each latent page is read by g / 32 blocks (4 at
+//     G = 128), and both products run on the tensor cores: S = Q.K^T by
+//     all 8 warps, each over an eighth of d (its partial through shared
+//     memory), the softmax by 8 threads a row, then O += P.V, each warp
+//     its 8-wide column chunks of the output for all 32 rows. Over fp32
+//     pools: mma.sync m16n8k8 in 3xTF32 (as flash's fp32 form; fragments
+//     of fp32 rows by ldmatrix); with bf16 q over the fp32 pool q is exact
+//     in TF32, so q.K^T is two products (K's hi and lo) and P.V three;
+//     over bf16 pools: m16n8k16 with P split into bf16 hi and lo.
+//   - Staging: Q once a segment, K double-buffered, V single-buffered (read
+//     last, released first: its next tile loads during the next S), by
+//     cp.async, a warp a row; rows past the length, outside the window or
+//     past the page are zeros. A segment's live pages are compacted
+//     kPackedList = 256 at a time, so shared memory (204 KiB at fp32 576,
+//     168 KiB for bf16 q over the fp32 pool) does not grow with the block
+//     table: a table of any width launches.
+//   - The cut, on the card from lengths: the live page ranges of all b
+//     sequences laid end to end, and block s of nb = b * n_split takes
+//     pages [s W / nb, (s + 1) W / nb) -- a segment of each sequence it
+//     reaches -- so every block does the same work whatever the lengths
+//     (a per-sequence cut left the longest sequence's blocks the whole
+//     critical path). Each segment writes a partial (slot s + i of the KV
+//     head's nb + b); merge_rows_kernel (programmatic dependent launch)
+//     merges each sequence's slots over (b, kh) x 4-row groups, with the
+//     first slots' values loaded before the coefficients, and writes each
+//     row's log-sum-exp for the stripe entry.
+//   - 64 rows a block over bf16 pools was measured slower: with half the
+//     row tiles the cut needs twice the blocks a row tile to fill the
+//     card, and so twice the partials' bytes and merge.
+//   - What holds it back (the dev phase variants, one call at deepseek-
+//     v3's shapes, fp32): the products (3xTF32 on mma.sync, about two
+//     thirds of the card's TF32 rate in the S and P.V phases) take most of
+//     a tile; the merge and the partials about a sixth of the call; K/V
+//     loads mostly hidden.
+// - What holds the lanes kernel back (kernel phase_costs.py, variants that drop one part,
 //   at the serving inputs): not the bytes. Dropping every K/V load saves
 //   about a third of the call, the tile math about a quarter, the merge
 //   about a sixth; what stays is the fixed cost of a call (two launches,
@@ -613,11 +653,771 @@ merge_kernel(const float* __restrict__ part, TO* __restrict__ out, int h,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The packed instantiation: a KV head's query rows on the tensor cores.
+// ---------------------------------------------------------------------------
+constexpr int kPackedT = 16;              // positions a staged tile
+constexpr int kPackedWarps = 8;
+constexpr int kPackedThreads = kPackedWarps * 32;
+constexpr int kPackedMinG = 16;           // the wrapper's PACKED_MIN_G
+constexpr int kPackedRows = 32;           // query rows a block (PACKED_ROWS)
+constexpr int kMaxChunksV = (kMaxDWide / 8 + kPackedWarps - 1) / kPackedWarps;
+constexpr int kPackedList = 256;          // pages a segment compacts at once
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away); lo = x -
+// hi is exact in fp32 and the tensor core reads its TF32 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two 8x8 tiles of 16-bit values, transposed: lanes 0-15 give the row
+// addresses (tile 0's rows, then tile 1's); register j gets tile j's
+// elements (2t, g) and (2t + 1, g), the B fragment of keys 2t, 2t + 1
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const bf16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(a));
+}
+
+// four 8x8 matrices of 16-bit values: lane i gives the address of row
+// i % 8 of matrix i / 8; register j gets matrix j's (g, 2t), (g, 2t + 1)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void cp16z(void* dst, const void* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4z(void* dst, const void* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+// n_rows rows of n values of T (row r from src + r * rs, or zeros where
+// !in(r)) into shared rows of stride ss: a warp a row, its lanes along
+// the row, 16-byte copies where vec, else single values (a bf16 by a plain
+// load and store, below cp.async's smallest copy)
+template <typename T, typename In>
+__device__ __forceinline__ void stage_rows(T* dst, int ss, const T* src,
+                                           int64_t rs, int n_rows, int n,
+                                           bool vec, In in) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < n_rows; r += kPackedWarps) {
+    const bool ok = in(r);
+    const T* s = ok ? src + r * rs : src;
+    T* d = dst + r * ss;
+    if (vec) {
+      constexpr int kPer = 16 / (int)sizeof(T);
+      for (int c = lane * kPer; c < n; c += 32 * kPer)
+        cp16z(d + c, ok ? s + c : s, ok);
+    } else {
+      for (int c = lane; c < n; c += 32) {
+        if constexpr (sizeof(T) == 4)
+          cp4z(d + c, ok ? s + c : s, ok);
+        else
+          d[c] = ok ? s[c] : from_f<T>(0.f);
+      }
+    }
+  }
+}
+
+// shared row strides (values) that keep the fragment loads free of bank
+// conflicts: fp32 rows at 4 mod 8 words (Q and K: lanes (g, t) read row
+// g, column t), fp32 V rows at 8 mod 32 (lanes read row t, column g),
+// bf16 rows at 8 values past a multiple of 16 (32-bit pairs and
+// ldmatrix rows)
+__host__ __device__ constexpr int packed_stride(int n, int item, bool v) {
+  return item == 4 ? ((n + 7) & ~7) + (v ? 8 : 4) : ((n + 15) & ~15) + 8;
+}
+
+// the pages [first, first + n) of a sequence of length positions that can
+// run (the lanes kernel's range: below the length and, with a window,
+// reaching into it); returns n, writes first
+__device__ __forceinline__ int packed_live(int length, int p_max, int page,
+                                           int window, int* first) {
+  const int last = length > 0 ? min(p_max, (length + page - 1) / page) : 0;
+  int f = 0;
+  if (window > 0) {
+    const int x = length - window - page;
+    f = x < 0 ? 0 : x / page + 1;
+  }
+  if (first != nullptr) *first = f;
+  return max(0, last - f);
+}
+
+// TQ: q's and the output's type; TKV: the pools'. bf16 pools: the bf16
+// family (m16n8k16, P split into bf16 hi and lo); fp32 pools: the TF32
+// family (m16n8k8; q.K^T in 3xTF32, or two products where q is bf16 and
+// so exact in TF32; P.V in 3xTF32). kR: query rows a block.
+template <typename TQ, typename TKV, int kR>
+__global__ void __launch_bounds__(kPackedThreads, 1)
+paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
+                    const void* __restrict__ v_,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths, void* __restrict__ out_,
+                    float* __restrict__ part, int h, int kv, int d, int dv,
+                    int p_max, int page, int n_rows, int64_t k_row,
+                    int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
+                    float scale, float cap, int n_rt, int n_seq, int vec_q,
+                    int vec_kv) {
+  constexpr bool kBF = sizeof(TKV) == 2;
+  constexpr int kRT = kR / 16;                        // 16-row tiles
+  constexpr int kKT = kPackedT / 8;                   // 8-key tiles
+  constexpr int kDS = kPackedWarps;                   // d split in S
+
+  constexpr int kTPR = kPackedThreads / kR;           // softmax threads a row
+  constexpr int kKPT = kPackedT / kTPR;               // their keys each
+  constexpr int kSS = kPackedT + 4;                   // S / P row stride
+  constexpr int kPS = kPackedT + 8;                   // bf16 P row stride
+  extern __shared__ __align__(16) float smem[];
+  asm volatile("griddepcontrol.launch_dependents;");
+  const TQ* __restrict__ q = (const TQ*)q_;
+  const TKV* __restrict__ k = (const TKV*)k_;
+  const TKV* __restrict__ v = (const TKV*)v_;
+  TQ* __restrict__ out = (TQ*)out_;
+  const int qs = packed_stride(d, sizeof(TQ), false);
+  const int ks = packed_stride(d, sizeof(TKV), false);
+  const int vs = packed_stride(dv, sizeof(TKV), true);
+  TQ* q_sm = (TQ*)smem;
+  TKV* k_sm = (TKV*)(q_sm + kR * qs);    // 2 stages of K tiles
+  TKV* v_sm = k_sm + 2 * kPackedT * ks;  // 1 of V
+  float* s_sm = (float*)(v_sm + kPackedT * vs);       // (kDS, kR, kSS)
+  bf16* p_hi = (bf16*)(s_sm + kDS * kR * kSS);        // bf16: (kR, kPS) x 2
+  bf16* p_lo = p_hi + (kBF ? kR * kPS : 0);
+  float* row_corr = (float*)(p_lo + (kBF ? kR * kPS : 0));
+  float* row_m = row_corr + kR;
+  float* row_l = row_m + kR;
+  int* list = (int*)(row_l + kR);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rti = blockIdx.x % n_rt;
+  const int kh = blockIdx.x / n_rt;
+  const int g = h / kv;
+  const int r0 = rti * kR;
+  const int nr = min(kR, g - r0);
+  const int nb = gridDim.y;               // blocks over every sequence
+  int* list_ip = list;                    // a chunk's live pages, in order
+  int* list_ext = list + kPackedList;
+
+  // zeros in every padding column, once (the staging never writes them)
+  for (int i = tid; i < kR * (qs - d); i += kPackedThreads) {
+    const int r = i / (qs - d);
+    q_sm[r * qs + d + (i - r * (qs - d))] = from_f<TQ>(0.f);
+  }
+  for (int i = tid; i < 2 * kPackedT * (ks - d); i += kPackedThreads) {
+    const int r = i / (ks - d);
+    k_sm[r * ks + d + (i - r * (ks - d))] = from_f<TKV>(0.f);
+  }
+  for (int i = tid; i < kPackedT * (vs - dv); i += kPackedThreads) {
+    const int r = i / (vs - dv);
+    v_sm[r * vs + dv + (i - r * (vs - dv))] = from_f<TKV>(0.f);
+  }
+
+  // one segment: the pages [lo, hi) of sequence bi, its partial in slot
+  // id of the KV head's nb + n_seq
+  auto segment = [&](int bi, int lo, int hi, int id) {
+  const int length = lengths[bi];
+  __syncthreads();                        // the last segment is done
+
+  // the sequence's query rows
+  const TQ* qb = q + ((int64_t)bi * h + (int64_t)kh * g + r0) * d;
+  stage_rows<TQ>(q_sm, qs, qb, d, kR, d, vec_q, [&](int r) { return r < nr; });
+  cp_commit();
+
+  float* pb = part + ((int64_t)kh * (nb + n_seq) + id) * g * (int64_t)(dv + 2);
+  const int tpp = (page + kPackedT - 1) / kPackedT;
+  const int lim = length - 1 - window;    // window: positions > lim run
+
+  // tile j's positions (page list_ip[j / tpp], from (j % tpp) * kPackedT):
+  // K into stage j & 1, V into its one stage (each its own cp.async
+  // group); positions past the page, the length or the window are zeros
+  auto load_tile = [&](int jt, bool is_v) {
+    const int pi = jt / tpp;
+    const int t0 = (jt - pi * tpp) * kPackedT;
+    const int base_pos = list_ip[pi] * page + t0;
+    const int64_t ext = list_ext[pi];
+    auto in = [&](int r) {
+      const int pos = base_pos + r;
+      return t0 + r < page && pos < length && (window <= 0 || pos > lim);
+    };
+    if (is_v)
+      stage_rows<TKV>(v_sm, vs,
+                      v + ext * v_row + (int64_t)t0 * v_tok +
+                          (int64_t)kh * dv,
+                      v_tok, kPackedT, dv, vec_kv, in);
+    else
+      stage_rows<TKV>(k_sm + (jt & 1) * kPackedT * ks, ks,
+                      k + ext * k_row + (int64_t)t0 * k_tok +
+                          (int64_t)kh * d,
+                      k_tok, kPackedT, d, vec_kv, in);
+    cp_commit();                          // its own group
+  };
+
+  // the S job of this warp: every row and key of the tile over the
+  // ds-th eighth of d
+  const int ds = warp;
+  // the softmax: kTPR threads a row, kKPT keys each
+  const int sm_r = tid / kTPR;
+  const int sm_k = (tid % kTPR) * kKPT;
+  float m_run = kNegInf, l_run = 0.f;
+  // P.V: this warp's 8-column chunks warp + 8i of the output, all rows
+  const int nkv = (dv + 7) >> 3;
+  float acc[kRT][kMaxChunksV][4];
+#pragma unroll
+  for (int a = 0; a < kRT; ++a)
+#pragma unroll
+    for (int c = 0; c < kMaxChunksV; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.f;
+
+  // the segment's pages kPackedList at a time (shared memory that does not
+  // grow with the table): warp 0 compacts a chunk's live pages, in order,
+  // then its tiles run; the rows' (m, l) and accumulators carry over
+  int seen = 0;                           // live pages of the segment
+  for (int c0 = lo; c0 < hi; c0 += kPackedList) {
+  const int c1 = min(hi, c0 + kPackedList);
+  __syncthreads();                        // the last chunk's tiles are done
+  if (warp == 0) {
+    const int* trow = table + (int64_t)bi * p_max;
+    int count = 0;
+    for (int p0 = c0; p0 < c1; p0 += 32) {
+      const int ip = p0 + lane;
+      int ext = -1;
+      bool run = false;
+      if (ip < c1) {
+        ext = trow[ip];
+        run = ext >= 0 && ext < n_rows;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, run);
+      if (run) {
+        const int at = count + __popc(bal & ((1u << lane) - 1u));
+        list_ip[at] = ip;
+        list_ext[at] = ext;
+      }
+      count += __popc(bal);
+    }
+    if (lane == 0) list[2 * kPackedList] = count;
+  }
+  __syncthreads();
+  const int n_live = list[2 * kPackedList];
+  seen += n_live;
+  const int n_tiles = n_live * tpp;
+
+  // cp.async groups in order: Q (the first chunk), K(0), V(0), then K(j + 1)
+  // at the top of tile j and V(j + 1) at its end (V(j) is read last and
+  // released first)
+  if (n_tiles > 0) {
+    load_tile(0, false);
+    load_tile(0, true);
+  }
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_wait<1>();                         // all but V(j): K(j) is in
+    __syncthreads();                      // ... everyone's; j - 1 is done
+    if (j + 1 < n_tiles) load_tile(j + 1, false);
+    const TKV* kt_sm = k_sm + (j & 1) * kPackedT * ks;
+    const TKV* vt_sm = v_sm;
+
+    // S partial over this warp's part of d: rows a * 16 + (gq, gq + 8),
+    // keys n * 8 + (2tq, 2tq + 1), each of the products into accumulators
+    // of its own (no product waits on the one before it)
+    {
+      float sa[kRT][kKT][3][4] = {};
+      if constexpr (kBF) {
+        const int n16 = (d + 15) >> 4;
+        const int per = (n16 + kDS - 1) / kDS;
+        const int c0 = ds * per, c1 = min(n16, c0 + per);
+        const bf16* qa = (const bf16*)q_sm + gq * qs + 2 * tq;
+        const bf16* kb = (const bf16*)kt_sm + gq * ks + 2 * tq;
+        for (int c = c0; c < c1; ++c) {
+          uint32_t a[kRT][4], bb[kKT][2];
+#pragma unroll
+          for (int m = 0; m < kRT; ++m) {
+            const bf16* qr = qa + m * 16 * qs + 16 * c;
+            a[m][0] = ld_u32(qr);
+            a[m][1] = ld_u32(qr + 8 * qs);
+            a[m][2] = ld_u32(qr + 8);
+            a[m][3] = ld_u32(qr + 8 * qs + 8);
+          }
+#pragma unroll
+          for (int n = 0; n < kKT; ++n) {
+            const bf16* kr = kb + n * 8 * ks + 16 * c;
+            bb[n][0] = ld_u32(kr);
+            bb[n][1] = ld_u32(kr + 8);
+          }
+#pragma unroll
+          for (int m = 0; m < kRT; ++m)
+#pragma unroll
+            for (int n = 0; n < kKT; ++n) mma_bf16(sa[m][n][0], a[m], bb[n]);
+        }
+      } else {
+        const int n8 = (d + 7) >> 3;
+        const int per = (n8 + kDS - 1) / kDS;
+        const int c0 = ds * per, c1 = min(n8, c0 + per);
+        // fragments of fp32 rows by ldmatrix (a 32-bit value as two b16
+        // halves: lane (g, t) of an 8 x 8 b16 matrix gets row g's value
+        // t): Q's 16 x 8 tile in one x4 (rows 0-7, 8-15 of columns 0-3,
+        // then of 4-7: a0-a3), K's two 8-key tiles in another (b0, b1 of
+        // each); bf16 q by single loads
+        const TQ* qa = q_sm + gq * qs + tq;
+        const int lrow = lane & 7;
+        const float* qm = (const float*)q_sm + (lrow + 8 * ((lane >> 3) & 1)) *
+                          qs + 4 * (lane >> 4);
+        const float* km = (const float*)kt_sm + (lrow + 8 * (lane >> 4)) * ks +
+                          4 * ((lane >> 3) & 1);
+        static_assert(kKT == 2, "K's two 8-key tiles in one ldmatrix.x4");
+        for (int c = c0; c < c1; ++c) {
+          uint32_t ah[kRT][4], al[kRT][4], bh[kKT][2], bl[kKT][2];
+#pragma unroll
+          for (int m = 0; m < kRT; ++m) {
+            if constexpr (sizeof(TQ) == 4) {
+              uint32_t r[4];
+              ldsm_x4(r, qm + m * 16 * qs + 8 * c);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                split_tf32(__uint_as_float(r[e]), ah[m][e], al[m][e]);
+            } else {                      // bf16 q: exact in TF32
+              const TQ* qr = qa + m * 16 * qs + 8 * c;
+              const float x[4] = {to_f(qr[0]), to_f(qr[8 * qs]),
+                                  to_f(qr[4]), to_f(qr[8 * qs + 4])};
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                ah[m][e] = __float_as_uint(x[e]);
+                al[m][e] = 0u;
+              }
+            }
+          }
+          {
+            uint32_t r[4];
+            ldsm_x4(r, km + 8 * c);
+#pragma unroll
+            for (int n = 0; n < kKT; ++n) {
+              split_tf32(__uint_as_float(r[2 * n]), bh[n][0], bl[n][0]);
+              split_tf32(__uint_as_float(r[2 * n + 1]), bh[n][1], bl[n][1]);
+            }
+          }
+          if constexpr (sizeof(TQ) == 4) {
+#pragma unroll
+            for (int m = 0; m < kRT; ++m)
+#pragma unroll
+              for (int n = 0; n < kKT; ++n)
+                mma_tf32(sa[m][n][2], al[m], bh[n]);
+          }
+#pragma unroll
+          for (int m = 0; m < kRT; ++m)
+#pragma unroll
+            for (int n = 0; n < kKT; ++n) mma_tf32(sa[m][n][1], ah[m], bl[n]);
+#pragma unroll
+          for (int m = 0; m < kRT; ++m)
+#pragma unroll
+            for (int n = 0; n < kKT; ++n) mma_tf32(sa[m][n][0], ah[m], bh[n]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kRT; ++m)
+#pragma unroll
+        for (int n = 0; n < kKT; ++n) {
+          float* sp = s_sm + (ds * kR + m * 16 + gq) * kSS + n * 8 + 2 * tq;
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            x[e] = sa[m][n][0][e] + (sa[m][n][1][e] + sa[m][n][2][e]);
+          *reinterpret_cast<float2*>(sp) = make_float2(x[0], x[1]);
+          *reinterpret_cast<float2*>(sp + 8 * kSS) = make_float2(x[2], x[3]);
+        }
+    }
+    __syncthreads();
+
+    // the softmax of row sm_r over keys sm_k .. + kKPT - 1 of the tile
+    {
+      const int pi = j / tpp;
+      const int t0 = (j - pi * tpp) * kPackedT;
+      const int base_pos = list_ip[pi] * page + t0;
+      float x[kKPT];
+      bool ok[kKPT];
+      float mt = kNegInf;
+#pragma unroll
+      for (int e = 0; e < kKPT; ++e) {
+        const int kk = sm_k + e;
+        float y = 0.f;
+#pragma unroll
+        for (int a = 0; a < kDS; ++a) y += s_sm[(a * kR + sm_r) * kSS + kk];
+        y *= scale;
+        if (cap > 0.f) y = tanh_fast(y / cap) * cap;
+        const int pos = base_pos + kk;
+        ok[e] = t0 + kk < page && pos < length && (window <= 0 || pos > lim);
+        x[e] = y;
+        if (ok[e]) mt = fmaxf(mt, y);
+      }
+#pragma unroll
+      for (int o = 1; o < kTPR; o <<= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, o));
+      const float m_new = fmaxf(m_run, mt);
+      const float corr = __expf(m_run - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int e = 0; e < kKPT; ++e) {
+        x[e] = ok[e] ? __expf(x[e] - m_new) : 0.f;
+        sum += x[e];
+      }
+#pragma unroll
+      for (int o = 1; o < kTPR; o <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      m_run = m_new;
+      l_run = l_run * corr + sum;
+      if (sm_k == 0) row_corr[sm_r] = corr;
+      if constexpr (kBF) {
+#pragma unroll
+        for (int e = 0; e < kKPT; e += 2) {
+          uint32_t ph, pl;
+          const __nv_bfloat162 hh = __floats2bfloat162_rn(x[e], x[e + 1]);
+          const __nv_bfloat162 ll = __floats2bfloat162_rn(
+              x[e] - __low2float(hh), x[e + 1] - __high2float(hh));
+          ph = *reinterpret_cast<const uint32_t*>(&hh);
+          pl = *reinterpret_cast<const uint32_t*>(&ll);
+          *reinterpret_cast<uint32_t*>(p_hi + sm_r * kPS + sm_k + e) = ph;
+          *reinterpret_cast<uint32_t*>(p_lo + sm_r * kPS + sm_k + e) = pl;
+        }
+      } else {                            // over the two S partials
+        uint32_t* ph = (uint32_t*)s_sm + sm_r * kSS + sm_k;
+        uint32_t* pl = ph + kR * kSS;
+#pragma unroll
+        for (int e = 0; e < kKPT; ++e) split_tf32(x[e], ph[e], pl[e]);
+      }
+    }
+    if (j + 1 < n_tiles)
+      cp_wait<1>();                       // all but K(j + 1): V(j) is in
+    else
+      cp_wait<0>();
+    __syncthreads();
+
+    // O = O * corr + P.V over this warp's column chunks
+#pragma unroll
+    for (int a = 0; a < kRT; ++a) {
+      const float c_a = row_corr[a * 16 + gq];
+      const float c_b = row_corr[a * 16 + gq + 8];
+#pragma unroll
+      for (int c = 0; c < kMaxChunksV; ++c) {
+        acc[a][c][0] *= c_a;
+        acc[a][c][1] *= c_a;
+        acc[a][c][2] *= c_b;
+        acc[a][c][3] *= c_b;
+      }
+    }
+    if constexpr (kBF) {
+      uint32_t ah[kRT][4], al[kRT][4];
+#pragma unroll
+      for (int a = 0; a < kRT; ++a) {
+        const bf16* ph = p_hi + (a * 16 + gq) * kPS + 2 * tq;
+        const bf16* pl = p_lo + (a * 16 + gq) * kPS + 2 * tq;
+        ah[a][0] = ld_u32(ph);
+        ah[a][1] = ld_u32(ph + 8 * kPS);
+        ah[a][2] = ld_u32(ph + 8);
+        ah[a][3] = ld_u32(ph + 8 * kPS + 8);
+        al[a][0] = ld_u32(pl);
+        al[a][1] = ld_u32(pl + 8 * kPS);
+        al[a][2] = ld_u32(pl + 8);
+        al[a][3] = ld_u32(pl + 8 * kPS + 8);
+      }
+      uint32_t bv[kMaxChunksV][2];
+#pragma unroll
+      for (int c = 0; c < kMaxChunksV; ++c) {
+        const int ch = min(warp + kPackedWarps * c, nkv - 1);
+        ldsm_x2_t(bv[c], (const bf16*)vt_sm + (lane & 15) * vs + ch * 8);
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxChunksV; ++c)
+        if (warp + kPackedWarps * c < nkv)
+#pragma unroll
+          for (int a = 0; a < kRT; ++a) mma_bf16(acc[a][c], al[a], bv[c]);
+#pragma unroll
+      for (int c = 0; c < kMaxChunksV; ++c)
+        if (warp + kPackedWarps * c < nkv)
+#pragma unroll
+          for (int a = 0; a < kRT; ++a) mma_bf16(acc[a][c], ah[a], bv[c]);
+    } else {
+#pragma unroll
+      for (int st = 0; st < kKT; ++st) {
+        uint32_t ah[kRT][4], al[kRT][4];
+#pragma unroll
+        for (int a = 0; a < kRT; ++a) {
+          const uint32_t* ph =
+              (const uint32_t*)s_sm + (a * 16 + gq) * kSS + 8 * st + tq;
+          const uint32_t* pl = ph + kR * kSS;
+          ah[a][0] = ph[0];
+          ah[a][1] = ph[8 * kSS];
+          ah[a][2] = ph[4];
+          ah[a][3] = ph[8 * kSS + 4];
+          al[a][0] = pl[0];
+          al[a][1] = pl[8 * kSS];
+          al[a][2] = pl[4];
+          al[a][3] = pl[8 * kSS + 4];
+        }
+        // every chunk's V fragments split first, then each product over
+        // every chunk: an accumulator's products kMaxChunksV * kRT apart
+        const float* vr = (const float*)vt_sm + (8 * st + tq) * vs + gq;
+        uint32_t bh[kMaxChunksV][2], bl[kMaxChunksV][2];
+#pragma unroll
+        for (int c = 0; c < kMaxChunksV; ++c) {
+          const int ch = min(warp + kPackedWarps * c, nkv - 1);
+          split_tf32(vr[ch * 8], bh[c][0], bl[c][0]);
+          split_tf32(vr[4 * vs + ch * 8], bh[c][1], bl[c][1]);
+        }
+#pragma unroll
+        for (int c = 0; c < kMaxChunksV; ++c)
+          if (warp + kPackedWarps * c < nkv)
+#pragma unroll
+            for (int a = 0; a < kRT; ++a) mma_tf32(acc[a][c], al[a], bh[c]);
+#pragma unroll
+        for (int c = 0; c < kMaxChunksV; ++c)
+          if (warp + kPackedWarps * c < nkv)
+#pragma unroll
+            for (int a = 0; a < kRT; ++a) mma_tf32(acc[a][c], ah[a], bl[c]);
+#pragma unroll
+        for (int c = 0; c < kMaxChunksV; ++c)
+          if (warp + kPackedWarps * c < nkv)
+#pragma unroll
+            for (int a = 0; a < kRT; ++a) mma_tf32(acc[a][c], ah[a], bh[c]);
+      }
+    }
+    if (j + 1 < n_tiles) {
+      __syncthreads();                    // everyone is done with V(j)
+      load_tile(j + 1, true);
+    }
+  }
+  }
+  cp_wait<0>();                           // Q, where no tile waited for it
+  if (seen == 0) {                        // an empty partial
+    if (tid < nr) {
+      pb[(int64_t)(r0 + tid) * (dv + 2) + dv] = kNegInf;
+      pb[(int64_t)(r0 + tid) * (dv + 2) + dv + 1] = 0.f;
+    }
+    return;
+  }
+
+  // the rows' (m, l) and the unnormalised output: the segment's partial
+  if (sm_k == 0) {
+    row_m[sm_r] = m_run;
+    row_l[sm_r] = l_run;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < kRT; ++a)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = a * 16 + gq + 8 * hf;
+      if (row >= nr) continue;
+      float* pr = pb + (int64_t)(r0 + row) * (dv + 2);
+#pragma unroll
+      for (int c = 0; c < kMaxChunksV; ++c) {
+        const int col = (warp + kPackedWarps * c) * 8 + 2 * tq;
+        if (col + 1 < dv)                 // rows of dv + 2: pairs stay
+          *reinterpret_cast<float2*>(pr + col) =   // 8-byte aligned
+              make_float2(acc[a][c][2 * hf], acc[a][c][2 * hf + 1]);
+        else if (col < dv)
+          pr[col] = acc[a][c][2 * hf];
+      }
+    }
+  if (tid < nr) {
+    float* pr = pb + (int64_t)(r0 + tid) * (dv + 2);
+    pr[dv] = row_m[tid];
+    pr[dv + 1] = row_l[tid];
+  }
+  };
+
+  // The cut (the merge's the same; tests/test_torch_attention_tiles.py
+  // emulates it): the live page ranges of the n_seq sequences laid end to
+  // end, W pages;
+  // block s of the nb takes pages [s W / nb, (s + 1) W / nb), a segment of
+  // each sequence it reaches, so that every block has the same share of
+  // the work whatever the lengths. From lengths, on the card.
+  int total = 0;
+  for (int i = 0; i < n_seq; ++i)
+    total += packed_live(lengths[i], p_max, page, window, nullptr);
+  const int sb = blockIdx.y;
+  const int g0 = (int)((int64_t)sb * total / nb);
+  const int g1 = (int)((int64_t)(sb + 1) * total / nb);
+  int at = 0;
+  for (int i = 0; i < n_seq && at < g1; ++i) {
+    int first_i;
+    const int n_i = packed_live(lengths[i], p_max, page, window, &first_i);
+    const int a = max(g0, at), e = min(g1, at + n_i);
+    if (a < e) segment(i, first_i + a - at, first_i + e - at, sb + i);
+    at += n_i;
+  }
+}
+
+// The packed instantiation's merge: merge_kernel's math for the cut's
+// segments, over a grid of (b, kh) x groups of kMergeRows rows (a GQA
+// group of 128 rows gives 32 blocks a sequence and KV head). The
+// sequence's pages [at, at + n) of the cut's total were reached by blocks
+// s_first..s_last, each of which wrote slot s + bi: a warp a row puts each
+// slot's coefficient exp(m_s - m*) (0 for a block that did not reach the
+// sequence or saw no live position) into shared memory (2 nb floats a row
+// at most) with 1 / l and the row's log-sum-exp (into lse); each thread
+// sums its elements over the slots, kMergeUnroll slots' loads in flight,
+// the first of them issued before the coefficients.
+constexpr int kMergeRows = 4;
+constexpr int kMergeUnroll = 4;
+
+template <typename TO>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_rows_kernel(const float* __restrict__ part, TO* __restrict__ out,
+                  float* __restrict__ lse, const int* __restrict__ lengths,
+                  int h, int kv, int dv, int p_max, int page, int window,
+                  int n_seq, int nb) {
+  extern __shared__ float coef[];         // (2, kMergeRows, nb), 1 / l
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int bi = blockIdx.x / kv, kh = blockIdx.x % kv;
+  const int g = h / kv;
+  const int rs = dv + 2;
+  const int r0 = blockIdx.y * kMergeRows;
+  const int nr = min(kMergeRows, g - r0);
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  float* slot_m = coef + kMergeRows * nb;
+  float* inv = slot_m + kMergeRows * nb;
+  int total = 0, at = 0, n = 0;
+  for (int i = 0; i < n_seq; ++i) {
+    const int ni = packed_live(lengths[i], p_max, page, window, nullptr);
+    at += i < bi ? ni : 0;
+    n = i == bi ? ni : n;
+    total += ni;
+  }
+  int s_first = 0, n_slots = 0;
+  if (n > 0) {
+    s_first = (int)min((int64_t)nb - 1, ((int64_t)(at + 1) * nb - 1) / total);
+    n_slots = (int)min((int64_t)nb - 1,
+                       ((int64_t)(at + n) * nb - 1) / total) - s_first + 1;
+  }
+  const float* pb =
+      part + ((int64_t)kh * (nb + n_seq) + s_first + bi) * g * rs;
+  // each thread's elements of the block's rows, and the first
+  // kMergeUnroll slots' values of them, loaded before the coefficients
+  // (they do not depend on them)
+  constexpr int kPer =
+      (kMergeRows * kMaxDWide + kMergeThreads - 1) / kMergeThreads;
+  const int64_t stride = (int64_t)g * rs;
+  const float* src[kPer];
+  const float* cf[kPer];
+  float o[kPer], x[kPer][kMergeUnroll];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * kMergeThreads;
+    const int rl = min(e / dv, nr - 1);
+    src[i] = pb + (int64_t)(r0 + rl) * rs + (e - (e / dv) * dv);
+    cf[i] = coef + rl * nb;
+    o[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kMergeUnroll; ++u)
+      x[i][u] = u < n_slots && e < nr * dv ? src[i][u * stride] : 0.f;
+  }
+  // a warp a row: the slots' (m, l) in one pass (l into the coefficients
+  // for now), m* and then exp(m_s - m*) from what was loaded
+  if (wp < nr) {
+    const int r = r0 + wp;
+    float* cr = coef + wp * nb;
+    float* mr = slot_m + wp * nb;
+    float mx = kNegInf;
+    for (int j = lane; j < n_slots; j += 32) {
+      const int s = s_first + j;
+      const int64_t g0 = (int64_t)s * total / nb;
+      const int64_t g1 = (int64_t)(s + 1) * total / nb;
+      const bool reached = (g0 > at ? g0 : (int64_t)at) <
+                           (g1 < at + n ? g1 : (int64_t)(at + n));
+      const float* pr = pb + ((int64_t)j * g + r) * rs;
+      const float ls = reached ? pr[dv + 1] : 0.f;
+      const float m = reached ? pr[dv] : kNegInf;
+      cr[j] = ls;
+      mr[j] = m;
+      if (ls > 0.f) mx = fmaxf(mx, m);
+    }
+    mx = warp_max(mx);
+    float lsum = 0.f;
+    for (int j = lane; j < n_slots; j += 32) {
+      const float ls = cr[j];
+      const float c = ls > 0.f ? __expf(mr[j] - mx) : 0.f;
+      cr[j] = c;
+      lsum += c * ls;
+    }
+    lsum = warp_sum(lsum);
+    if (lane == 0) {
+      inv[wp] = 1.f / fmaxf(lsum, 1e-30f);
+      lse[(int64_t)bi * h + (int64_t)kh * g + r] =
+          lsum > 0.f ? mx + logf(lsum) : kNegInf;
+    }
+  }
+  __syncthreads();
+  for (int j0 = 0; j0 < n_slots; j0 += kMergeUnroll) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (threadIdx.x + i * kMergeThreads < nr * dv) {
+        if (j0 > 0) {
+#pragma unroll
+          for (int u = 0; u < kMergeUnroll; ++u)
+            x[i][u] = j0 + u < n_slots ? src[i][(j0 + u) * stride] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kMergeUnroll; ++u) {
+          // a slot of coefficient 0 wrote no acc, or not for this row:
+          // loaded, not used
+          const float f = j0 + u < n_slots ? cf[i][j0 + u] : 0.f;
+          o[i] = f != 0.f ? fmaf(f, x[i][u], o[i]) : o[i];
+        }
+      }
+    }
+  }
+  TO* ob = out + ((int64_t)bi * h + (int64_t)kh * g + r0) * dv;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int e = threadIdx.x + i * kMergeThreads;
+    if (e < nr * dv) ob[e] = from_f<TO>(o[i] * inv[e / dv]);
+  }
+}
+
 bool dims_ok(int d, int dv) {
   return d > 0 && d <= kMaxDWide && dv > 0 && dv <= kMaxDWide;
 }
 
 int is_wide(int d, int dv) { return d > kMaxD || dv > kMaxD; }
+
+// the packed instantiation: a wide head dim and a large GQA group (the
+// wrapper's paged_form)
+int is_packed(int g, int d, int dv) {
+  return g >= kPackedMinG && is_wide(d, dv);
+}
 
 using Kernel = void (*)(const void*, const void*, const void*, const int*,
                         const int*, void*, float*, int, int, int, int, int,
@@ -633,6 +1433,37 @@ using TOut = bf16;
 #else
 using TOut = float;
 #endif
+
+using PackedKernel = void (*)(const void*, const void*, const void*,
+                              const int*, const int*, void*, float*, int, int,
+                              int, int, int, int, int, int64_t, int64_t,
+                              int64_t, int64_t, int, float, float, int, int,
+                              int, int);
+
+PackedKernel pick_packed(int types) {
+#ifdef PAGED_ATTENTION_BF16
+  return types == kBF16 ? paged_packed_kernel<bf16, bf16, kPackedRows>
+                        : paged_packed_kernel<bf16, float, kPackedRows>;
+#else
+  (void)types;
+  return paged_packed_kernel<float, float, kPackedRows>;
+#endif
+}
+
+size_t packed_smem(int types, int d, int dv) {
+  const int rows = kPackedRows;
+  const int iq = types == kF32 ? 4 : 2, ikv = types == kBF16 ? 2 : 4;
+  const size_t q = (size_t)rows * packed_stride(d, iq, false) * iq;
+  const size_t stages = (size_t)kPackedT * ikv *
+                        (2 * packed_stride(d, ikv, false) +
+                         packed_stride(dv, ikv, true));
+  const size_t s = sizeof(float) * (size_t)kPackedWarps * rows *
+                   (kPackedT + 4);
+  const size_t p = types == kBF16 ? 2 * sizeof(bf16) * rows * (kPackedT + 8)
+                                  : 0;
+  return q + stages + s + p + sizeof(float) * 3 * rows +
+         sizeof(int) * (2 * (size_t)kPackedList + 1);
+}
 
 // the rows a block takes, rounded up to an instantiated G
 int rows_g(int g) {
@@ -716,21 +1547,30 @@ size_t smem_bytes(int types, int d, int dv, int vec_k, int vec_v, int p_max,
 // Raise a kernel's dynamic shared-memory limit only when a larger size is
 // first asked for on the current device (the attribute is kept per device
 // and per kernel), so launches captured in a CUDA graph make no such call.
-size_t configured[kMaxDevices][3 * 24] = {};
+// (the packed kernels' in the last three slots, by types)
+size_t configured[kMaxDevices][3 * 24 + 3] = {};
 
-cudaError_t configure(int types, int vec_k, int vec_v, int gr, int wide,
-                      size_t smem) {
+cudaError_t set_smem(int slot_i, const void* kern, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t& have = configured[dev][slot(types, vec_k, vec_v, gr, wide)];
+  size_t& have = configured[dev][slot_i];
   if (smem <= have) return cudaSuccess;
-  err = cudaFuncSetAttribute(pick(types, vec_k, vec_v, gr, wide),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess) have = smem;
   return err;
+}
+
+cudaError_t configure(int types, int vec_k, int vec_v, int gr, int wide,
+                      size_t smem) {
+  return set_smem(slot(types, vec_k, vec_v, gr, wide),
+                  (const void*)pick(types, vec_k, vec_v, gr, wide), smem);
+}
+
+cudaError_t configure_packed(int types, size_t smem) {
+  return set_smem(3 * 24 + types, (const void*)pick_packed(types), smem);
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
@@ -762,6 +1602,61 @@ cudaError_t launch_merge(cudaStream_t st, const float* partials, TO* out,
   return cudaGetLastError();
 }
 
+// the packed instantiation's launch (launch's checks done): the cut's
+// nb = b * n_split blocks for each (KV head, row tile), then the merge
+// over (b, kv) x row groups, which also writes each row's log-sum-exp
+// after the segments' partials (the wrapper's paged_partial_floats);
+// 16-byte copies of q where its rows allow them, of the pools where both
+// planes' bases, strides and head dims do
+int launch_packed(const void* q, const void* k, const void* v,
+                  const void* table, const void* lengths, void* out,
+                  void* partials, int b, int h, int kv, int d, int dv,
+                  int p_max, int page, int n_rows, int64_t k_row,
+                  int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
+                  float scale, float cap, int n_split, void* stream,
+                  int types) {
+  const int g = h / kv;
+  const int n_rt = (g + kPackedRows - 1) / kPackedRows;
+  const int64_t nb = (int64_t)b * n_split;
+  if (partials == nullptr || 2 * nb + 1 > kMergeSmem / (4 * kMergeRows) ||
+      (int64_t)kv * n_rt > 0x7fffffff ||
+      (int64_t)b * kv > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const int iq = types == kF32 ? 4 : 2, ikv = types == kBF16 ? 2 : 4;
+  const int vec_q = aligned16(q) && (d * iq) % 16 == 0;
+  const int n = 16 / ikv;
+  const int vec_kv = vec_ok(k, d, k_row, k_tok, n, ikv) &&
+                     vec_ok(v, dv, v_row, v_tok, n, ikv);
+  const size_t smem = packed_smem(types, d, dv);
+  if (smem > (size_t)232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = configure_packed(types, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  pick_packed(types)<<<dim3((unsigned)(kv * n_rt), (unsigned)nb),
+                       kPackedThreads, smem, st>>>(
+      q, k, v, (const int*)table, (const int*)lengths, out, (float*)partials,
+      h, kv, d, dv, p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window,
+      scale, cap, n_rt, b, vec_q, vec_kv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(b * kv),
+                     (unsigned)((g + kMergeRows - 1) / kMergeRows));
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * kMergeRows * (2 * (size_t)nb + 1);
+  cfg.stream = st;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  float* lse = (float*)partials + (int64_t)kv * (nb + b) * g * (dv + 2);
+  cudaLaunchKernelEx(&cfg, merge_rows_kernel<TOut>, (const float*)partials,
+                     (TOut*)out, lse, (const int*)lengths, h, kv, dv, p_max,
+                     page, window, b, (int)nb);
+  return (int)cudaGetLastError();
+}
+
 int launch(const void* q, const void* k, const void* v, const void* table,
            const void* lengths, void* out, void* partials, int b, int h,
            int kv, int d, int dv, int p_max, int page, int n_rows,
@@ -778,6 +1673,10 @@ int launch(const void* q, const void* k, const void* v, const void* table,
   const size_t merge_smem = sizeof(float) * (size_t)g * (n_split + 1);
   if (n_split > 1 && merge_smem > (size_t)kMergeSmem)
     return (int)cudaErrorInvalidValue;
+  if (is_packed(g, d, dv))
+    return launch_packed(q, k, v, table, lengths, out, partials, b, h, kv, d,
+                         dv, p_max, page, n_rows, k_row, k_tok, v_row, v_tok,
+                         window, scale, cap, n_split, stream, types);
   const int n_rg = (g + kMaxG - 1) / kMaxG;
   const int64_t rows = (int64_t)b * kv * n_rg;
   if (rows > 0x7fffffff) return (int)cudaErrorInvalidValue;
@@ -813,6 +1712,30 @@ int info_of(int g, int d, int dv, int vec_k, int vec_v, int p_max,
             int n_split, int types, int* info) {
   if (g <= 0 || !dims_ok(d, dv) || n_split < 1)
     return (int)cudaErrorInvalidValue;
+  if (is_packed(g, d, dv)) {
+    const size_t smem = packed_smem(types, d, dv);
+    cudaError_t err = configure_packed(types, smem);
+    if (err != cudaSuccess) return (int)err;
+    const void* kern = (const void*)pick_packed(types);
+    cudaFuncAttributes a, am;
+    if ((err = cudaFuncGetAttributes(&a, kern)) != cudaSuccess ||
+        (err = cudaFuncGetAttributes(&am, merge_rows_kernel<TOut>)) !=
+            cudaSuccess)
+      return (int)err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kern, kPackedThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    info[0] = a.numRegs;
+    info[1] = (int)a.sharedSizeBytes;
+    info[2] = (int)smem;
+    info[3] = per_sm;
+    info[4] = kPackedThreads;
+    info[5] = am.numRegs;
+    info[6] = kPackedT;
+    info[7] = kPackedRows;
+    return 0;
+  }
   vec_k = vec_k != 0;
   vec_v = vec_v != 0;
   if (types != kF32) vec_k = vec_v = vec_k && vec_v;

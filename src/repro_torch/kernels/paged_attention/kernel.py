@@ -28,9 +28,15 @@ a form.
 
 The kernel splits each (sequence, KV head) over ``n_split`` blocks. The
 wrapper's choices are plain functions of shapes and the card's SM count
-(``paged_splits``, ``paged_row_groups``), so a call reads nothing back
-from the card; ``paged_split_range`` is the kernel's own cut of a
-sequence's live pages into shares.
+(``paged_form``, ``paged_block_rows``, ``paged_splits``), so a call reads
+nothing back from the card; ``paged_split_range`` is the kernel's own cut
+of a sequence's live pages into shares. Two instantiations, chosen by
+``paged_form`` as the C side does: ``lanes`` (a block takes up to
+``MAX_ROWS`` query rows, the values of a row spread over a warp's lanes;
+``paged_row_groups`` of them a KV head) and ``packed`` (a wide head dim
+with a GQA group of at least ``PACKED_MIN_G`` rows, MLA's: a block takes
+``PACKED_ROWS`` of the group's rows, its products on the tensor
+cores). ``LAUNCHES_BY_INSTANCE`` counts the launches of each.
 
 ``paged_attention_lse_fwd`` is the split-pool entry that also returns each
 row's log-sum-exp, the stripe's share of a distributed read
@@ -61,6 +67,7 @@ LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"paged_attention": 0}
 LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
                                      "bfloat16_q": 0}
+LAUNCHES_BY_INSTANCE: Dict[str, int] = {"lanes": 0, "packed": 0}
 F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
 DTYPES = (F32, BF16)                 # q's (and the split pools') forms
 NEG_INF = -1e30
@@ -71,6 +78,11 @@ BLOCKS_PER_SM = 3                    # resident blocks an SM (csrc)
 BLOCKS_PER_SM_WIDE = 1               # at a head dim past 256 (csrc)
 MAX_SPLITS = 65535                   # the grid's y dimension
 MERGE_FLOATS = 12 * 1024             # the merge's coefficients (csrc)
+PACKED_MIN_G = 16                    # the packed instantiation (csrc
+                                     # kPackedMinG): a group this large
+PACKED_ROWS = 32                     # its query rows a block, every
+                                     # dtype (csrc kPackedRows; the note
+                                     # there says why not 64 over bf16)
 INFO_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm",
              "threads", "merge_registers", "tile_positions", "rows_per_block")
 _sms: Dict[int, int] = {}
@@ -80,6 +92,34 @@ def paged_row_groups(h: int, kv: int) -> int:
     """Row groups of a KV head's GQA group: a block takes at most
     ``MAX_ROWS`` query rows."""
     return -(-(h // kv) // MAX_ROWS)
+
+
+def paged_form(g: int, d: int, dv: int) -> str:
+    """The instantiation a call launches (the C side's is_packed):
+    "packed" where the head dims pass 256 and the GQA group has at least
+    ``PACKED_MIN_G`` rows, else "lanes"."""
+    wide = max(d, dv) > NARROW_HEAD_DIM
+    return "packed" if wide and g >= PACKED_MIN_G else "lanes"
+
+
+def paged_block_rows(h: int, kv: int, d: int, dv: int) -> int:
+    """Blocks a sequence's query rows take (``paged_splits``' ``rows`` per
+    sequence): kv x the packed row tiles, or kv x ``paged_row_groups``."""
+    g = h // kv
+    if paged_form(g, d, dv) == "packed":
+        return kv * -(-g // PACKED_ROWS)
+    return kv * paged_row_groups(h, kv)
+
+
+def paged_partial_floats(b: int, h: int, kv: int, dv: int, n_split: int,
+                         form: str) -> int:
+    """fp32 values of the partials scratch a launch takes: lanes, (b, kv,
+    n_split, g, dv + 2) when n_split > 1; packed, the KV heads' b *
+    n_split + b segment slots of (g, dv + 2), then (b, h) log-sum-exps."""
+    g = h // kv
+    if form == "packed":
+        return kv * (b * n_split + b) * g * (dv + 2) + b * h
+    return b * kv * n_split * g * (dv + 2) if n_split > 1 else 0
 
 
 def paged_splits(p_max: int, rows: int, sms: int, g: int = 1,
@@ -144,7 +184,8 @@ def paged_info(g: int, d: int, dv: int, vec_k: bool = True,
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE):
+    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE,
+                   LAUNCHES_BY_INSTANCE):
         for k in counts:
             counts[k] = 0
 
@@ -179,13 +220,16 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
     if lse and block_table.shape[1] < 2:      # room for two shares: a hole
         block_table = torch.nn.functional.pad(block_table, (0, 1), value=-1)
     p_max = block_table.shape[1]
-    n_split = paged_splits(p_max, b * kv * paged_row_groups(h, kv),
-                           sm_count(q.device), h // kv, max(d, dv))
-    if lse:
+    rows = b * paged_block_rows(h, kv, d, dv)
+    n_split = paged_splits(p_max, rows, sm_count(q.device), h // kv,
+                           max(d, dv))
+    form = paged_form(h // kv, d, dv)
+    if lse and form == "lanes":
         n_split = max(n_split, 2)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
-    part = (torch.empty((b, kv, n_split, h // kv, dv + 2), dtype=F32,
-                        device=q.device) if n_split > 1 else None)
+    n_part = paged_partial_floats(b, h, kv, dv, n_split, form)
+    part = (torch.empty(n_part, dtype=F32, device=q.device) if n_part
+            else None)
     args = (q.data_ptr(), k_ptr, v_ptr, block_table.data_ptr(),
             lengths.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(), b, h, kv, d, dv,
@@ -201,8 +245,12 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
     raise_on(err, "paged_attention")
     LAUNCHES["paged_attention"] += 1
     LAUNCHES_BY_DTYPE[_form(q.dtype, kv_dtype)] += 1
+    LAUNCHES_BY_INSTANCE[form] += 1
     if not lse:
         return out
+    if form == "packed":                 # the merge wrote them
+        return out, part[n_part - b * h:].view(b, h)
+    part = part.view(b, kv, n_split, h // kv, dv + 2)
     return out, _shares_lse(part[..., dv], part[..., dv + 1], b, h)
 
 

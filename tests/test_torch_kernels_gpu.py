@@ -1909,3 +1909,158 @@ def test_bf16_forms_refuse_other_dtypes():
                                  k_plane=0, v_plane=0)
     assert fk.LAUNCHES["flash_attention"] == 0
     assert pk.LAUNCHES["paged_attention"] == 0
+
+
+# ---------------------------------------------------------------------------
+# flash's wgmma form and paged attention's packed form
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,cap,layout", [
+    (1, 854, 854, 8, 4, 256, 4096, 50.0, "model"),   # gemma2, local
+    (1, 550, 550, 8, 4, 256, 0, 50.0, "model"),      # gemma2, global
+    (1, 300, 300, 4, 2, 128, 100, 0.0, "model"),     # window > a tile
+    (1, 333, 333, 8, 2, 64, 0, 30.0, "contiguous"),  # ragged, cap
+    (1, 40, 1500, 8, 4, 256, 0, 50.0, "contiguous"),  # Sk >> Sq
+    (2, 70, 90, 4, 2, 64, 50, 0.0, "contiguous"),    # Sk > Sq, ragged
+    (1, 60, 60, 8, 4, 128, 0, 0.0, "model"),         # one key tile
+    (1, 1, 1, 4, 2, 64, 0, 0.0, "contiguous"),       # Sq 1
+    (4, 854, 854, 8, 4, 256, 0, 50.0, "model"),      # past the card's SMs
+    (3, 400, 400, 25, 5, 64, 1024, 0.0, "model"),    # odd groups
+    (2, 500, 500, 16, 16, 128, 0, 0.0, "contiguous")])
+def test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
+                                    layout):
+    """The wgmma form (TMA loads, warp-specialised, P.V on wgmma with V
+    transposed) against its plain version in the working type at d 64, 128
+    and 256: gemma2-2b's prefill in the model layout, a window crossing
+    key tiles, ragged Sq and Sk, Sk >> Sq, one key tile and one query, and
+    more blocks than the card's SMs; each call one launch of the wgmma
+    form."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(sq + sk + d + h)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(BF16)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(BF16)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(BF16)
+    if layout == "model":
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    kw = dict(window=window, logit_cap=cap)
+    fk.reset_counts()
+    got = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES_BY_FORM == {"float32": 0, "bf16_mma": 0,
+                                   "bf16_wgmma": 1}
+    assert got.shape == (b, h, sq, d) and torch.isfinite(got.float()).all()
+    _close_bf16(got, attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.gpu
+def test_flash_attention_wgmma_form_takes_only_its_shapes():
+    """Shapes outside the wgmma form launch the mma.sync bf16 form: rows
+    one value off 16 bytes ("pad"), d 72, d != dv, the wide 576 / 512."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(BF16)
+    q, k, v = rand(1, 4, 130, 64), rand(1, 2, 130, 64), rand(1, 2, 130, 64)
+    pad = [torch.cat([t, t[..., :1]], -1)[..., :64] for t in (q, k, v)]
+    cases = [pad, [rand(1, 4, 90, 72), rand(1, 2, 90, 72),
+                   rand(1, 2, 90, 72)],
+             [rand(1, 4, 90, 256), rand(1, 2, 90, 256), rand(1, 2, 90, 128)],
+             [rand(1, 16, 70, 576), rand(1, 1, 70, 576), rand(1, 1, 70, 512)]]
+    for q, k, v in cases:
+        fk.reset_counts()
+        got = flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES_BY_FORM["bf16_mma"] == 1, fk.LAUNCHES_BY_FORM
+        _close_bf16(got, attention_ref(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g", [16, 64, 128])
+@pytest.mark.parametrize("entry,dk,dv,q_dtype,pool_dtype", [
+    ("pool", 576, 576, torch.float32, torch.float32),   # zero-copy, fp32
+    ("split", 576, 512, torch.float32, torch.float32),  # the baseline's
+    ("split", 576, 512, BF16, BF16),                    # bf16 split pools
+    ("pool", 576, 576, BF16, torch.float32),            # bf16 q, fp32 pool
+    ("pool", 576, 576, BF16, BF16)])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (100, 50.0)])
+def test_paged_attention_packed_form(g, entry, dk, dv, q_dtype, pool_dtype,
+                                     window, cap):
+    """The packed instantiation (a KV head's query rows on the tensor
+    cores, the cut's balanced segments merged) against its plain version:
+    deepseek-v3's widths (scale 1/sqrt(192)) at groups of 16, 64 and 128
+    rows on one or two KV heads, every dtype form, holes past each length
+    and one below, a lane of length 0 (zeros) and a full one; fp32 within
+    ATTN's fp32 tolerance, bf16 output within one bf16 step. One launch of
+    the packed instantiation a call; the stripe entry's log-sum-exp, from
+    the merge, on the split pools."""
+    dev = _cuda()
+    from repro_torch.kernels.paged_attention import kernel as pk
+    kv = 2 if g == 16 else 1
+    q, pools, table, lengths = _mla_paged_case(
+        dev, 6, g * kv, kv, dk, dv, 32, 24, g + dk + window,
+        n_planes=8 if entry == "pool" else 0)
+    q = q.to(BF16).to(q_dtype)
+    pools = tuple(p.to(BF16).to(pool_dtype) if q_dtype == BF16 else p
+                  for p in pools)
+    kw = dict(window=window, logit_cap=cap, scale=1.0 / np.sqrt(192.0))
+    pk.reset_counts()
+    if entry == "split":
+        got = paged_attention_fwd(q, *pools, table, lengths, **kw)
+        want = paged_attention_ref(q, *pools, table, lengths, **kw)
+    else:
+        got = paged_attention_pool_fwd(q, pools[0], table, lengths,
+                                       k_plane=6, v_plane=7, **kw)
+        want = paged_attention_pool_ref(q, pools[0], table, lengths,
+                                        k_plane=6, v_plane=7, **kw)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES_BY_INSTANCE == {"lanes": 0, "packed": 1}
+    assert got.shape == (6, g * kv, dv) and not got[0].any()
+    if q_dtype == BF16:
+        _close_bf16(got, want)
+    else:
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, **TOL)
+    if entry == "split":
+        out, lse = pk.paged_attention_lse_fwd(q, *pools, table, lengths,
+                                              **kw)
+        want_out, want_lse = paged_attention_ref(q, *pools, table, lengths,
+                                                 return_lse=True, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+        assert bool((lse[0] == pk.NEG_INF).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,dv,page,p_max", [
+    ("pool", 576, 4, 16384),      # 64k positions, 512 pages a segment
+    ("split", 512, 32, 4096)])    # 128k positions at deepseek-v3's page
+def test_paged_attention_packed_form_long_table(entry, dv, page, p_max):
+    """The packed instantiation over block tables of thousands of pages in
+    fp32: its shared memory does not grow with the table (a segment's
+    pages are compacted a fixed number at a time, so segments longer than
+    that carry the rows' softmax across chunks), against the plain
+    version within the fp32 tolerance."""
+    dev = _cuda()
+    from repro_torch.kernels.paged_attention import kernel as pk
+    q, pools, table, lengths = _mla_paged_case(
+        dev, 2, 128, 1, 576, dv, page, p_max, p_max + page,
+        n_planes=2 if entry == "pool" else 0)
+    kw = dict(scale=1.0 / np.sqrt(192.0))
+    pk.reset_counts()
+    if entry == "split":
+        got = paged_attention_fwd(q, *pools, table, lengths, **kw)
+        want = paged_attention_ref(q, *pools, table, lengths, **kw)
+    else:
+        got = paged_attention_pool_fwd(q, pools[0], table, lengths,
+                                       k_plane=0, v_plane=1, **kw)
+        want = paged_attention_pool_ref(q, pools[0], table, lengths,
+                                        k_plane=0, v_plane=1, **kw)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES_BY_INSTANCE == {"lanes": 0, "packed": 1}
+    assert got.shape == (2, 128, dv) and not got[0].any()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, **TOL)
