@@ -52,7 +52,8 @@ and the script exits non-zero:
    as in phase 8j. Then no_sync — one write pump's fused step under
    ``torch.cuda.set_sync_debug_mode("error")``.
 8. block_device, ladder — the ladder's columns on the same trace cut to an
-   eighth of its ops, each checked as in phase 5, once each: the fused
+   sixteenth of its ops (an eighth until cut for the script's time), each
+   checked as in phase 5, once each: the fused
    step on the hand-written kernels (``kernel="cuda"``), the fused step on
    the ``copy`` entry (``dbs_copy`` for the CoW rows, then a torch block
    scatter; it must launch ``dbs_copy`` and copy CoW lanes), and the
@@ -80,7 +81,7 @@ and the script exits non-zero:
    API (no byte API, no read check under the cuts): a seeded mix of 4 KiB
    block requests over 4 volumes, 2048 on the batched columns and 300 on
    the per-request ones, submitted again until the timed drains add up to
-   at least 0.5 s, after a warm-up drain; ops/s per cell.
+   at least MIN_WINDOW_S (0.25 s), after a warm-up drain; ops/s per cell.
 8c. rebuild — the full trace of phase 5 on a fused/cuda manager with
    replica 1 failed (after a flush) once half the main path's op count was
    issued; then ``control("rebuild", replica=1)``, timed alone between two
@@ -110,7 +111,7 @@ and the script exits non-zero:
    path's geometry (8192 pages, 12288 extents; 32 volume slots for the
    snapshot table) under 0, 4, 16 and 64 snapshots (benchmarks/ladder.py
    ``snapshot_degradation``), rounds of 256 reads of random pages until
-   the timed drains add up to at least 0.5 s, on ``upstream`` and on
+   the timed drains add up to at least MIN_WINDOW_S, on ``upstream`` and on
    ``fused``: reads/s and layers walked per read (the chain's depth plus
    one on upstream, one table gather on fused), every read checked.
 8f. shards — ``VolumeManager(backend="sharded", n_shards=4)`` at the main
@@ -133,7 +134,7 @@ and the script exits non-zero:
    (``sharded_dense_*``).
 8g. table3_shards — benchmarks/table3_shards.py's protocol on the request
    API, ``full_engine`` row: rounds of 2048 4 KiB requests (half writes)
-   over 8 volumes until 0.5 s of timed drains, ``+fused`` against
+   over 8 volumes until MIN_WINDOW_S of timed drains, ``+fused`` against
    ``+sharded`` at S = 1, 2, 4, 8, all at 12288 extents in total; ops/s
    and the reference's ``check_scaling`` verdict (printed, not enforced).
    On the S=1 pool, host ms and aten ops a call of its metadata step
@@ -418,16 +419,32 @@ and the script exits non-zero:
    within 1e-4, every gradient and AdamW moment within 1e-4 of its leaf's
    largest magnitude, the params after AdamW within 1e-6 of theirs; the
    errors (and the updates' own, scaled) are printed.
+24b. train_parity_bf16 — the same cut, params and batch on gemma2-2b's
+   own train plan (bf16 compute over fp32 params, remat a layer, chunked
+   attention): one step's gradients on the card and on the CPU. Enforced:
+   per parameter leaf, the card's distance to phase 24's CPU fp32
+   gradient at most TRAIN16_FACTOR (1.5) times the CPU's own bf16
+   gradient's (the yardstick of tests/test_torch_train_bf16.py), the
+   losses within TRAIN16_LOSS_RTOL; the ratios and the card-vs-CPU
+   scaled error printed.
 25. train — gemma2-2b at full width and depth (26 layers, 2.61 B params,
    10.5 GB fp32) through ``Trainer`` over ``Prefetcher(SyntheticLM(...))``,
    4 x 1024 tokens a step, AdamW (warmup 2), 6 steps, logits in chunks of
-   512. Enforced: every loss finite, the last below the first + 0.05, and
+   512.
+   Enforced: every loss finite, the last below the first + 0.05, and
    none of the six kernels launched (the reference's training path runs no
    Pallas kernel; the kernels refuse grad). Printed: tokens/s and the
-   median step over steps 2-6, the optimizer's share of a step (CUDA
+   median step over steps 2 on, the optimizer's share of a step (CUDA
    events), its byte bound, the peak memory, the model-flops share of the
    fp32 peak (6·N·tokens over step time x 67 TFLOP/s), and a profiled
    step's idle share (a "profile" line).
+25b. train_bf16 — the same model, data and checks on its own plan,
+   ``default_plan(cfg, ShapeSpec("train", 1024, 4, "train"),
+   n_chips=1)``: 4 microbatches of one 1024-token sequence (gradients
+   accumulated in fp32), remat by block, AdamW on fp32 params, bf16
+   compute, logits in chunks of 1024; TRAIN16_STEPS steps. Printed as
+   phase 25, with the model-flops share of the bf16 peak (989 TFLOP/s)
+   and phase 25's figures beside it.
 26. checkpoint — (a) a ``Trainer`` at CKPT_WIDTH (gemma2-2b's layers at
    d_model 256, 4 layers, vocab 4096: 5.0 M params, 60 MB of params and
    AdamW state a version, which the trainer's 256 MB store holds three
@@ -436,7 +453,9 @@ and the script exits non-zero:
    replica 1 failed, rebuilt through ``stream_store`` and restored alone,
    bit-equal; the restored params serve through ``ServeEngine`` (``fused``)
    the live params' tokens and logits, bit for bit. (b) phase 24's params
-   (2.98 GB) through a ``ReplicatedCheckpoint`` sized for them: save (two
+   but the embedding table (0.62 of their 2.98 GB; the table left out for
+   the script's time, CKPT_LEAVE_OUT) through a ``ReplicatedCheckpoint``
+   sized for them: save (two
    replicas), restore (bit-equal) and the rebuild (every byte streamed),
    seconds and MB/s; the bytes it needs and the temp dir's free space
    first (cut to what fits, and listed, when the disk is short). (c) ``python -m
@@ -453,12 +472,12 @@ and the script exits non-zero:
    the local paged read (equal tokens, logits within atol 1e-5 and rtol
    1e-5), and the striped read of the first paged layer against the paged
    kernel on the same pools and block table (ATTN_TOL; kernel #4's check
-   calls go in its kernels entry); phase 26's 2.98 GB checkpoint restored
+   calls go in its kernels entry); phase 26's 0.62 GB checkpoint restored
    as DTensors with the planner's placements, every leaf bit-equal, with
    its MB/s; ``compressed_cross_pod_mean`` over two steps with error
    feedback and ``hierarchical_psum`` on a (1, 1, 1) ("pod", "data",
    "model") mesh, exact on one rank. The phase's seconds beside the card.
-28. dryrun — (a)'s counts, started before phase 25 (below), collected
+28. dryrun — (a)'s counts, started before phase 24 (below), collected
    first, so nothing runs beside (b)'s timed steps. (b)
    gemma2-2b:decode_32k at its published widths and depth on a
    (1, 1) NCCL mesh, fp32, the global batch cut to DRY_BATCH, built for
@@ -480,8 +499,8 @@ and the script exits non-zero:
    x decode_32k, and (b)'s and (b')'s cells on a fake (1, 1) world, each
    in a Python of its own on the CPU alone (its fake world never meets
    the NCCL group; with no card visible its peaks are the H100 data
-   sheet's, marked assumed), started before phase 25 and running beside
-   phases 25-27 (the card's and the disk's work). (c) ``python -m
+   sheet's, marked assumed), started before phase 24 and running beside
+   phases 24-27 (the card's and the disk's work). (c) ``python -m
    repro_torch.launch.serve --arch gemma2-2b`` runs on the card (exit 0,
    a line a request), then phase 29. Each record's counts, roofline terms
    and seconds are printed; (b)'s and (b')'s FLOPs and kernel-entry
@@ -521,10 +540,30 @@ and the script exits non-zero:
    products too, at the bf16 rate and, over the fp32 pool, at two TF32
    products for q.K^T and three for P.V), each held and timed the same
    way.
+30. example — the four examples through their ``main`` on the card, as
+   ``python -m repro_torch.examples.<name>`` runs them, at the reference
+   examples' own sizes: serve_paged (gemma2-2b smoke, 10 requests over 4
+   slots: no extent left), fork_sessions (granite-3-8b smoke: two forks,
+   each a prefix of its parent), quickstart (granite-3-8b smoke: 15
+   steps, a replicated checkpoint, a restart at step 15, 3 requests
+   served); each prints its lines, its tokens/s and its launches. In each,
+   the DBS write and read, paged and flash kernels must launch and no
+   plain version run, and the kept calls are held against the plain
+   versions on the example's own pool (phase 10's checks, its kernel-
+   parity lines). train_lm (67.7M params, 8 x 256 tokens a step, bf16
+   plan, checkpoints to two replicas every 50 steps and at the end) for
+   EXAMPLE_TRAIN_STEPS steps (cut from 300): the loss must fall and no
+   kernel launch; a restart resumes at the last step with the params and
+   AdamW state bit for bit; step seconds, tokens/s, each save's MB/s
+   (the store sized to the state: ``ckpt_capacity``), the resume's MB/s
+   and peak memory are printed.
 
 Then a ``{"kernels": [...]}`` line (the paged and flash entries carry the
 bf16 forms' numbers under ``bf16_*`` keys and their launches on phase 29's
-path, by dtype and by form, and phase 28's bf16 step; the paged entry the
+path, by dtype and by form, and phase 28's bf16 step; every entry its
+launches in each example, ``launches_examples``, and the four serving
+kernels their kept example calls' numbers under ``example_<name>_width_*``
+keys; the paged entry the
 instantiation each family's decode launched, ``launches_<family>_serve_
 path_by_instance``: packed on deepseek-v3's), the ``nvidia-smi`` name/power
 line, and
@@ -580,9 +619,12 @@ BF16_ATTN_TOL = dict(atol=1e-4, rtol=2 ** -7)
 HOST_TOL = dict(atol=1e-3, rtol=1e-3)   # host baseline vs zero-copy logits
 TIE_MARGIN = 1e-2                # a closer top-2 step may pick either token
 BLOCK, PAGE_BLOCKS, REPLICAS, BATCH = 4096, 32, 3, 64
-SEED, N_OPS = 0, 12000           # the trace; N_OPS sets the random-I/O phases
+# the trace; N_OPS sets the random-I/O phases (cut from 12000 to 8000 for
+# the script's time: every full-trace phase runs two thirds of the ops
+# over the same 1 GiB volume)
+SEED, N_OPS = 0, 8000
 LADDER = [("fused", "cuda"), ("fused", "copy"), ("slots", "torch")]
-LADDER_OPS = N_OPS // 8          # the ladder's cut trace (about 6.5k ops)
+LADDER_OPS = N_OPS // 16         # the ladder's cut trace (about 3k ops)
 LOOP_OPS, LOOP_MAX_OPS = 600, 300
 READ_SAMPLE_EVERY, READ_SAMPLES = 128, 32
 READ_SERVE_EVERY = 8             # of the zero-copy serve path's write pumps
@@ -612,7 +654,8 @@ REPLICATION = [
                                     read_policy="latency", **SIMNET))]
 SNAP_DEPTHS, SNAP_READS = (0, 4, 16, 64), 256   # reads a round
 SNAP_VOLUMES = 32                # twice the main path's: 128 snapshot slots
-MIN_WINDOW_S = 0.5               # each controller-phase timing, at least
+MIN_WINDOW_S = 0.25              # each controller-phase timing, at least
+                                 # (0.5 s until cut for the script's time)
 # the shards slice: the byte API on S stacked shards (one volume a shard)
 # at the main path's total extents, Table III's shard counts and volumes,
 # and sharded serving on two KV shards
@@ -673,6 +716,21 @@ TRAIN_MODEL = "gemma2-2b"
 PARITY_LAYERS, PARITY_BATCH, PARITY_SEQ = 2, 2, 256
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_WARMUP = 4, 1024, 6, 2
 TRAIN_CHUNK = 512
+# phases 24b-25b, gemma2-2b's own train plan (bf16 compute over fp32
+# params): phase 24's cut, card against CPU, held to the CPU's own bf16
+# error (tests/test_torch_train_bf16.py's yardstick: there the port's bf16
+# gradients lie at most 1.28x as far from fp32's as the reference's own
+# bf16 ones); the losses within twice the largest bf16 loss difference
+# measured between the packages on the CPU (8.1e-5 at train_lm's width);
+# then TRAIN16_STEPS steps at full width and depth
+TRAIN16_FACTOR = 1.5
+TRAIN16_LOSS_RTOL = 2e-4
+TRAIN16_STEPS = 6
+# phase 30, the examples: run as a user runs them on the card; train_lm cut
+# from its 300 steps to EXAMPLE_TRAIN_STEPS (it checkpoints every 50)
+EXAMPLE_TRAIN_STEPS = 100
+EXAMPLE_KEEP_PAGED = 16          # paged calls kept, every EXAMPLE_EVERY-th
+EXAMPLE_EVERY = 5                # of the paged calls and the pumps
 # card against CPU, fp32 both (TF32 off): the loss and the global norm
 # relative; every gradient, the AdamW moments and the params after AdamW
 # within a share of their leaf's largest magnitude (an update is ~lr =
@@ -684,6 +742,9 @@ TRAIN_TOL = dict(loss_rtol=1e-5, grad_norm_rtol=1e-4, grad_scaled=1e-4,
 CKPT_WIDTH = dict(n_layers=4, d_model=256, n_heads=4, n_kv_heads=2,
                   head_dim=64, d_ff=1024, vocab_size=4096)
 CKPT_EVERY, CKPT_STEPS = 2, 4
+# phase 26 (b) checkpoints phase 24's params but these (cut for the
+# script's time: the table is 2.36 of the 2.98 GB; 0.62 GB remain)
+CKPT_LEAVE_OUT = ("embed",)
 # phase 27, the mesh on one card: a (1, 1) NCCL mesh; the striped decode
 # on phase 24's cut (a batch of DIST_BATCH prompts of DIST_PROMPT tokens,
 # caches of DIST_MAX_LEN positions), held against the local paged read
@@ -700,8 +761,9 @@ DRY_CELLS = (("gemma2-2b", "train_4k"), ("gemma2-2b", "decode_32k"),
              ("granite-moe-3b-a800m", "decode_32k"))
 DRY_MODEL, DRY_BATCH = "gemma2-2b", 8
 DRY_PLAN = {"compute_dtype": "float32", "param_dtype": "float32"}
-DRY_STEPS = 20                   # timed steps, direct entries
-DRY_OP_STEPS = 10                # and with the entries through their ops
+DRY_STEPS = 10                   # timed steps, direct entries, and with
+DRY_OP_STEPS = 6                 # the entries through their ops (cut from
+                                 # 20 and 10 for the script's time)
 DRY_MEM_TOL = 0.01               # per_device_bytes vs the allocator's growth
 DRY_LSE_TOL = dict(atol=1e-5, rtol=1e-5)   # the stripe entry's log-sum-exp
 DRY_TIMEOUT = 900
@@ -4006,9 +4068,14 @@ def phase_no_sync_serve(torch, eng):
 # ---------------------------------------------------------------------------
 def _profiled(torch, name: str, fn, smi) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and emit its wall time, the
-    device's busy time (the union of the kernels' intervals), its idle
-    share, the device events counted, and the operators that took the most
-    device and host time; returns the first four."""
+    device's busy time (the union of the device events' intervals), its
+    idle share, the device events counted, and the names that took the
+    most device time (kernels) and host time (operators, inclusive of
+    what they call); returns the first four. The profiler's raw events
+    are read (``kineto_results``): building its operator tree costs ~65
+    us an event on the host, a minute for a step of 48k kernels."""
+    from collections import defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4018,26 +4085,33 @@ def _profiled(torch, name: str, fn, smi) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, end = 0.0, float("-inf")
+    events = prof.profiler.kineto_results.events()
+    spans, device, host = [], defaultdict(lambda: [0, 0]), \
+        defaultdict(lambda: [0, 0])
+    for e in events:
+        on_device = e.device_type() == DeviceType.CUDA
+        if on_device:
+            spans.append((e.start_ns(), e.end_ns()))
+        acc = (device if on_device else host)[e.name()]
+        acc[0] += 1
+        acc[1] += e.duration_ns()
+    spans.sort()
+    busy, end = 0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    busy /= 1e6                                  # us -> s
+    busy /= 1e9                                  # ns -> s
 
-    def top(key, n):
-        return [{"op": e.key[:80], "calls": e.count,
-                 "self_device_ms": e.self_device_time_total / 1e3,
-                 "self_host_ms": e.self_cpu_time_total / 1e3}
-                for e in sorted(prof.key_averages(),
-                                key=lambda e: -getattr(e, key))[:n]]
+    def top(table, key, n):
+        return [{"op": k[:80], "calls": c, key: ns / 1e6}
+                for k, (c, ns) in sorted(table.items(),
+                                         key=lambda kv: -kv[1][1])[:n]]
     out = dict(wall_s=wall, device_busy_s=busy,
                device_idle_share=1.0 - busy / wall, device_events=len(spans))
     emit(phase="profile", part=name, **out,
-         top_device=top("self_device_time_total", 10),
-         top_host=top("self_cpu_time_total", 6), card=smi)
+         top_device=top(device, "device_ms", 10),
+         top_host=top(host, "host_ms_inclusive", 6), card=smi)
     return out
 
 
@@ -5208,7 +5282,9 @@ def phase_train_parity(torch, dev, smi):
     from the same seeded params and batch, the launch plan (remat "block",
     fp32, chunked attention): loss, grad_norm and every parameter's
     gradient, then AdamW on the card's gradients in both places. Returns
-    the params on the CPU (phase 26 checkpoints them)."""
+    the params, the batch and the CPU's gradients, on the CPU (phase 24b
+    holds the bf16 plan's gradients against these; phase 26 checkpoints
+    the params)."""
     import dataclasses
 
     import numpy as np
@@ -5284,35 +5360,29 @@ def phase_train_parity(torch, dev, smi):
             and state_err <= TRAIN_TOL["adamw_state_scaled"]
             and params_err <= TRAIN_TOL["adamw_params_scaled"]):
         raise AssertionError("train parity: the card disagrees with the CPU")
-    del out, upd, p_d, g_d, p_c, g_c
-    return params
+    del out, upd, p_d, g_d, p_c
+    return params, batch, g_c
 
 
-def phase_train(torch, dev, smi):
-    """Phase 25: gemma2-2b at full width and depth through ``Trainer`` over
-    ``Prefetcher(SyntheticLM(...))``: TRAIN_BATCH x TRAIN_SEQ tokens a
-    step, AdamW (warmup TRAIN_WARMUP), TRAIN_STEPS steps, the launch plan
-    with logits in chunks of TRAIN_CHUNK. Every loss finite and the last
-    below the first + 0.05 (tests/test_system.py's criterion); tokens/s and
-    the median step over steps 2 on, the optimizer's share of a step (CUDA
-    events around the update), peak memory, the model-flops share of the
-    fp32 peak, a profiled step's idle share and the six kernels' launches
-    (none: the reference's training path runs no Pallas kernel, and the
-    kernels refuse grad). Returns those launches."""
+def _train_steps(torch, dev, smi, cfg, plan, steps, tag):
+    """gemma2-2b at full width and depth through ``Trainer`` over
+    ``Prefetcher(SyntheticLM(...))`` on ``plan``: TRAIN_BATCH x TRAIN_SEQ
+    tokens a step, AdamW (warmup TRAIN_WARMUP), ``steps`` steps. Every
+    loss finite and the last below the first + 0.05
+    (tests/test_system.py's criterion); tokens/s and the median step over
+    steps 2 on, the optimizer's share of a step (CUDA events around the
+    update), peak memory, a profiled step's idle share and the six
+    kernels' launches (none: the reference's training path runs no Pallas
+    kernel, and the kernels refuse grad). Returns the figures."""
     import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ExecutionPlan
     from repro_torch.data.pipeline import Prefetcher, SyntheticLM
     from repro_torch.models.model import param_count_actual
     from repro_torch.training import train_step as TS
     from repro_torch.training.trainer import Trainer
-    cfg = get_config(TRAIN_MODEL)
-    plan = ExecutionPlan(remat="block", compute_dtype="float32",
-                         logits_chunk=TRAIN_CHUNK)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     if held >= FAMILY_HELD_BYTES:
-        raise AssertionError(f"train: {held} bytes still allocated before "
+        raise AssertionError(f"{tag}: {held} bytes still allocated before "
                              "the phase")
     torch.cuda.reset_peak_memory_stats()
     mods = _kernel_modules()
@@ -5338,56 +5408,169 @@ def phase_train(torch, dev, smi):
     TS.make_optimizer = timed
     try:
         tr = Trainer(cfg, plan, data, device=dev, seed=SEED,
-                     total_steps=TRAIN_STEPS, warmup=TRAIN_WARMUP)
+                     total_steps=steps, warmup=TRAIN_WARMUP)
     finally:
         TS.make_optimizer = inner
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = param_count_actual(tr.params)
-    hist = tr.run(TRAIN_STEPS)
+    hist = tr.run(steps)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
     plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
     opt_ms = [a.elapsed_time(b) for a, b in events]
     losses = [h["loss"] for h in hist]
-    steady = [h["step_time_s"] for h in hist[1:]]
-    step_s = float(np.median(steady))
+    step_s = float(np.median([h["step_time_s"] for h in hist[1:]]))
     opt_med = float(np.median(opt_ms[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    prof = _profiled(torch, "train_step", lambda: tr.run(1), smi)
+    prof = _profiled(torch, tag, lambda: tr.run(1), smi)
     data.close()
     opt_bytes = 7 * 4 * n_params      # p, m, v read and written; g read
+    flops = 6.0 * n_params * tokens
+    out = dict(
+        params=n_params, init_seconds=init_s, losses=losses,
+        grad_norms=[h["grad_norm"] for h in hist],
+        step_seconds=[h["step_time_s"] for h in hist],
+        median_step_s_steps_2_on=step_s, tokens_per_s=tokens / step_s,
+        optimizer_ms=opt_ms, optimizer_median_ms=opt_med,
+        optimizer_share=opt_med / 1e3 / step_s,
+        optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
+        model_flops_per_step=flops,
+        model_flops_share_fp32=flops / (step_s * FP32_FLOPS_PER_S),
+        model_flops_share_bf16=flops / (step_s * BF16_FLOPS_PER_S),
+        profiled_step_idle_share=prof["device_idle_share"],
+        max_memory_allocated=peak, memory_allocated_before=held,
+        kernel_launches=launches, kernel_plain_calls=plain)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0] + 0.05:
+        raise AssertionError(f"{tag}: losses {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: kernel launches {launches}")
+    del tr
+    return out
+
+
+def phase_train(torch, dev, smi):
+    """Phase 25: ``_train_steps`` on the launch plan (remat by block, fp32,
+    logits in chunks of TRAIN_CHUNK), TRAIN_STEPS steps. Returns the
+    figures (phase 25b prints its own beside them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    cfg = get_config(TRAIN_MODEL)
+    plan = ExecutionPlan(remat="block", compute_dtype="float32",
+                         logits_chunk=TRAIN_CHUNK)
+    out = _train_steps(torch, dev, smi, cfg, plan, TRAIN_STEPS, "train_step")
     emit(phase="train", model=TRAIN_MODEL,
          config=dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
                      vocab=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                      steps=TRAIN_STEPS, warmup=TRAIN_WARMUP,
                      logits_chunk=TRAIN_CHUNK, optimizer="adamw",
                      plan="remat block, fp32, chunked attention"),
-         params=n_params, init_seconds=init_s, losses=losses,
-         grad_norms=[h["grad_norm"] for h in hist],
-         step_seconds=[h["step_time_s"] for h in hist],
-         median_step_s_steps_2_on=step_s, tokens_per_s=tokens / step_s,
-         optimizer_ms=opt_ms, optimizer_share=opt_med / 1e3 / step_s,
-         optimizer_bound_ms=opt_bytes / HBM_BYTES_PER_S * 1e3,
-         model_flops_per_step=6.0 * n_params * tokens,
-         model_flops_share_fp32=6.0 * n_params * tokens
-         / (step_s * FP32_FLOPS_PER_S),
-         profiled_step_idle_share=prof["device_idle_share"],
-         max_memory_allocated=peak, memory_allocated_before=held,
-         kernel_launches=launches, kernel_plain_calls=plain,
+         **out,
          kernel_launches_why=("none: the reference's training path runs no "
                               "Pallas kernel (chunked attention, XLA "
                               "code), so the port's trains on plain "
                               "autograd; the kernels refuse grad"),
          card=smi)
-    if not all(math.isfinite(x) for x in losses) or \
-            not losses[-1] < losses[0] + 0.05:
-        raise AssertionError(f"train: losses {losses}")
-    if any(launches.values()):
-        raise AssertionError(f"train: kernel launches {launches}")
-    del tr
-    return launches
+    return out
+
+
+def phase_train_bf16(torch, dev, smi, fp32):
+    """Phase 25b: gemma2-2b on its own train plan, ``default_plan(cfg,
+    ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train"), n_chips=1)``:
+    TRAIN_BATCH microbatches of one sequence, remat by block, AdamW on fp32
+    params, bf16 compute, logits in chunks of 1024 (one chunk at
+    TRAIN_SEQ), TRAIN16_STEPS steps through ``_train_steps`` (its checks);
+    the model-flops share of the bf16 peak beside phase 25's fp32 figures
+    (``fp32``) from the same call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec, default_plan
+    cfg = get_config(TRAIN_MODEL)
+    plan = default_plan(cfg, ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH,
+                                       "train"), n_chips=1)
+    if plan.compute_dtype != "bfloat16" or plan.param_dtype != "float32":
+        raise AssertionError(f"train_bf16: the default plan is {plan}")
+    out = _train_steps(torch, dev, smi, cfg, plan, TRAIN16_STEPS,
+                       "train_step_bf16")
+    keys = ("median_step_s_steps_2_on", "tokens_per_s",
+            "optimizer_median_ms", "optimizer_share",
+            "model_flops_share_fp32", "model_flops_share_bf16",
+            "profiled_step_idle_share", "max_memory_allocated")
+    emit(phase="train_bf16", model=TRAIN_MODEL,
+         config=dict(n_layers=cfg.n_layers, d_model=cfg.d_model,
+                     vocab=cfg.vocab_size, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                     steps=TRAIN16_STEPS, warmup=TRAIN_WARMUP,
+                     plan={k: v for k, v in dataclasses.asdict(plan).items()
+                           if k in ("microbatches", "remat", "optimizer",
+                                    "param_dtype", "compute_dtype",
+                                    "logits_chunk", "attn_impl")}),
+         **out, fp32_beside={k: fp32[k] for k in keys},
+         step_ratio_fp32_over_bf16=(fp32["median_step_s_steps_2_on"]
+                                    / out["median_step_s_steps_2_on"]),
+         card=smi)
+    return out
+
+
+def phase_train_parity_bf16(torch, dev, smi, params, batch, g32):
+    """Phase 24b: phase 24's cut (gemma2-2b at full width, PARITY_LAYERS
+    layers) on gemma2-2b's bf16 train plan (remat by block, bf16 compute
+    over fp32 params, chunked attention): one step's gradients on the card
+    and on the CPU from phase 24's params and batch. bf16 rounds each
+    op's result; the card's GEMMs sum in other orders than the CPU's, so
+    their roundings differ. The card is held to a yardstick, the CPU's
+    own bf16 error: per parameter leaf, ``||card16 - cpu32||`` (Frobenius)
+    at most TRAIN16_FACTOR x ``||cpu16 - cpu32||``, where ``cpu32`` is
+    phase 24's CPU gradients (``g32``); the losses within
+    TRAIN16_LOSS_RTOL. Both enforced and printed, with the plain scaled
+    error of card against CPU in bf16."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ExecutionPlan
+    from repro_torch.models.model import tree_leaves, tree_map
+    from repro_torch.training.train_step import grads_of
+    cfg = dataclasses.replace(get_config(TRAIN_MODEL),
+                              n_layers=PARITY_LAYERS)
+    plan = ExecutionPlan(remat="block", compute_dtype="bfloat16",
+                         param_dtype="float32", logits_chunk=0)
+    out, secs = {}, {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = tree_map(lambda t, d=d: t.to(d, copy=True), params)
+        b = {k: v.to(d) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        g, m = grads_of(p, b, cfg, plan)
+        float(m["loss"])
+        secs[where] = time.perf_counter() - t0
+        out[where] = ([t.cpu() for t in tree_leaves(g)], float(m["loss"]))
+        del p, g
+    (g_d, loss_d), (g_c, loss_c) = out["card"], out["cpu"]
+    ratios, worst = [], 0.0
+    for a, b, ref in zip(g_d, g_c, tree_leaves(g32)):
+        err = float((a - ref).norm())
+        yard = float((b - ref).norm())
+        ratios.append(err / yard if yard else (0.0 if err == 0 else
+                                               math.inf))
+    grad16_err = _scaled_err(torch, g_d, g_c)
+    rel = abs(loss_d - loss_c) / abs(loss_c)
+    emit(phase="train_parity_bf16", model=TRAIN_MODEL,
+         config=dict(n_layers=cfg.n_layers, batch=PARITY_BATCH,
+                     seq=PARITY_SEQ, plan="remat block, bf16 compute, fp32 "
+                     "params, chunked attention"),
+         loss={"card": loss_d, "cpu": loss_c}, loss_relative_error=rel,
+         yardstick_ratio_max=max(ratios),
+         yardstick_ratio_median=float(np.median(ratios)),
+         yardstick_ratios=ratios, grad_max_scaled_err_card_vs_cpu=grad16_err,
+         grads_seconds=secs, tolerances=dict(
+             loss_rtol=TRAIN16_LOSS_RTOL, yardstick_factor=TRAIN16_FACTOR),
+         card=smi)
+    if not (rel <= TRAIN16_LOSS_RTOL and max(ratios) <= TRAIN16_FACTOR):
+        raise AssertionError("train parity bf16: the card strays from the "
+                             "CPU's fp32 gradients more than the CPU's bf16")
+    del out, g_d, g_c
 
 
 def _bit_equal(torch, a, b) -> bool:
@@ -5471,7 +5654,7 @@ def phase_checkpoint(torch, dev, smi, parity_params, keep):
         small = dict(params=param_count_actual(tr.params),
                      version_bytes=sum(t.numel() * t.element_size()
                                        for t in tree_leaves(tr._state())),
-                     store_bytes=CKPT_CAPACITY, losses=[h["loss"]
+                     store_bytes=tr.ckpt.capacity, losses=[h["loss"]
                                                         for h in hist],
                      resumed_step=tr2.step, resume_s=resume_s,
                      resume_bit_equal=resumed, rebuild=info,
@@ -5483,15 +5666,21 @@ def phase_checkpoint(torch, dev, smi, parity_params, keep):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (b) phase 24's params through a store sized for them
-        tree = tree_map(lambda t: t.to(dev), parity_params)
+        # (b) phase 24's params through a store sized for them, the
+        # embedding table (2.36 of their 2.98 GB) left out for the
+        # script's time (CKPT_LEAVE_OUT)
+        tree = tree_map(lambda t: t.to(dev), {
+            k: v for k, v in parity_params.items()
+            if k not in CKPT_LEAVE_OUT})
         leaves = tree_leaves(tree)
         need = sum(-(-t.numel() * t.element_size() // BS) * BS
                    for t in leaves) + 16 * BS
         disk = shutil.disk_usage(tmp)
         # two replicas and one rebuilt, then (c)'s two stores beside them
         room = disk.free - 2 * CKPT_CAPACITY
-        reduced = {}
+        reduced = {"leaves": [sorted(parity_params), sorted(tree)],
+                   "why": "the embedding table left out for the script's "
+                          "time"}
         if 3 * need > room:
             kept_leaves, size = [], 0
             for name in sorted(tree):
@@ -5911,7 +6100,7 @@ def _real_count(torch, cfg, shape, mesh, plan, paged_mod):
 
 def phase_dryrun(torch, dev, smi, runs, beside=None):
     """Phase 28 (the module docstring): ``runs`` are (a)'s counts
-    (``start_dryruns``, started before phase 25), collected first;
+    (``start_dryruns``, started before phase 24), collected first;
     ``beside()`` runs last (phase 29). Returns the paged kernel's launches
     on (b)'s fp32 and bf16 counted steps, and what ``beside`` returned."""
     import dataclasses
@@ -6440,6 +6629,232 @@ def phase_serve_bf16(torch, dev, smi):
             "lse": lse, "wide": wide}
 
 
+@contextlib.contextmanager
+def _kept_serving_calls(torch, keep_flash):
+    """Count and keep the four serving kernels' calls of whatever engine
+    runs inside: every kernel's counts zeroed on entry; kept, the flash
+    calls ``keep_flash(kept, q, kw)`` accepts, every EXAMPLE_EVERY-th
+    paged call (at most EXAMPLE_KEEP_PAGED), and the DBS read's and
+    replica 0's write's inputs of every EXAMPLE_EVERY-th pump. Yields
+    ``kept``; on exit ``kept["launches"]`` and ``kept["plain"]`` hold the
+    counts of the run, read before anything else launches."""
+    from repro_torch.core import backends
+    from repro_torch.kernels.dbs import ops as dbs_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.serving import engine as serving
+    kept = {"paged": [], "flash": [], "read": [], "write": []}
+    counts = {"paged": 0, "pumps": 0, "write_pump": -1}
+    inner = {"fused": backends.fused_step,
+             "paged": serving.paged_attention_pool_fwd,
+             "flash": f_ops.flash_attention_fwd, "read": dbs_ops.dbs_rw_read,
+             "write": dbs_ops.dbs_rw_write}
+
+    def fused(*a, **k):
+        counts["pumps"] += 1
+        return inner["fused"](*a, **k)
+
+    def paged(q, pool, table, lengths, **k):
+        if counts["paged"] % EXAMPLE_EVERY == 0 and \
+                len(kept["paged"]) < EXAMPLE_KEEP_PAGED:
+            kept["paged"].append((q.clone(), table.clone(), lengths.clone(),
+                                  dict(k)))
+        counts["paged"] += 1
+        return inner["paged"](q, pool, table, lengths, **k)
+
+    def flash(q, k, v, **kw):
+        if keep_flash(kept["flash"], q, kw):
+            kept["flash"].append((q.clone(), k.clone(), v.clone(), dict(kw)))
+        return inner["flash"](q, k, v, **kw)
+
+    def read(pool, ext, block):
+        if counts["pumps"] % EXAMPLE_EVERY == 1:
+            kept["read"].append((ext.clone(), block.clone()))
+        return inner["read"](pool, ext, block)
+
+    def write(pool, src, dst, lane_of, payload, **k):
+        n = counts["pumps"]
+        if n % EXAMPLE_EVERY == 1 and counts["write_pump"] != n:
+            counts["write_pump"] = n             # the pump's first replica
+            kept["write"].append(tuple(t.clone() for t in (
+                src, dst, lane_of, payload)))
+        return inner["write"](pool, src, dst, lane_of, payload, **k)
+
+    mods = _kernel_modules()
+    for mod in mods:
+        mod.reset_counts()
+    backends.fused_step = fused
+    serving.paged_attention_pool_fwd = paged
+    f_ops.flash_attention_fwd = flash
+    dbs_ops.dbs_rw_read, dbs_ops.dbs_rw_write = read, write
+    try:
+        yield kept
+        torch.cuda.synchronize()
+        kept["launches"] = {k: v for mod in mods
+                            for k, v in mod.LAUNCHES.items()}
+        kept["plain"] = {k: v for mod in mods
+                         for k, v in mod.PLAIN_CALLS.items()}
+    finally:
+        backends.fused_step = inner["fused"]
+        serving.paged_attention_pool_fwd = inner["paged"]
+        f_ops.flash_attention_fwd = inner["flash"]
+        dbs_ops.dbs_rw_read = inner["read"]
+        dbs_ops.dbs_rw_write = inner["write"]
+
+
+def _first_two(kept, q, kw) -> bool:
+    return len(kept) < 2
+
+
+def _example_train_lm(torch, dev, smi, tmp):
+    """``repro_torch.examples.train_lm`` at its own sizes (8 x 256 tokens a
+    step, its bf16 plan, 67.7M params) for EXAMPLE_TRAIN_STEPS steps (cut
+    from 300) with its checkpoints to two replicas under ``tmp`` (every 50
+    steps and at the end; each save timed); then a restart resumes at the
+    last step with the params and AdamW state bit for bit. The loss must
+    fall (the mean of the last ten steps below the first ten's) and no
+    kernel launch (the kernels refuse grad)."""
+    import numpy as np
+    from repro_torch.checkpoint import replicated
+    from repro_torch.examples import train_lm
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.training.trainer import Trainer
+    saves = []
+    inner = replicated.ReplicatedCheckpoint.save
+
+    def save(self, name, step, tree, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(self, name, step, tree, **kw)
+        saves.append((step, time.perf_counter() - t, len(self.healthy())))
+        return out
+    mods = _kernel_modules()
+    for mod in mods:
+        mod.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    replicated.ReplicatedCheckpoint.save = save
+    try:
+        out = train_lm.main(["--steps", str(EXAMPLE_TRAIN_STEPS),
+                             "--ckpt-dir", tmp, "--device", "cuda"])
+    finally:
+        replicated.ReplicatedCheckpoint.save = inner
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    state = {"params": out["params"], "opt": out["opt_state"]}
+    version = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    t0 = time.perf_counter()
+    tr = Trainer(train_lm.CFG_100M, train_lm.PLAN, None,
+                 ckpt_dirs=out["ckpt_dirs"], device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resumed = tr.step == out["step"] == EXAMPLE_TRAIN_STEPS and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+            tree_leaves({"params": tr.params, "opt": tr.opt_state}),
+            tree_leaves(state)))
+    tr.ckpt.close()
+    del tr
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    step_s = float(np.median([h["step_time_s"] for h in hist[1:]]))
+    tokens = out["tokens"] / EXAMPLE_TRAIN_STEPS
+    save_s = [t for _, t, _ in saves]
+    res = dict(lines=out["lines"], steps=EXAMPLE_TRAIN_STEPS,
+               reduced={"steps": [300, EXAMPLE_TRAIN_STEPS]},
+               params=sum(t.numel() for t in tree_leaves(out["params"])),
+               first_losses=losses[:3], last_losses=losses[-3:],
+               median_step_s_steps_2_on=step_s,
+               tokens_per_s=tokens / step_s,
+               run_seconds=out["seconds"],
+               run_tokens_per_s=out["tokens"] / out["seconds"],
+               straggler_events=out["straggler_events"],
+               store_bytes=out["ckpt_capacity"], version_bytes=version,
+               saves=[dict(step=st, seconds=t, replicas=r)
+                      for st, t, r in saves],
+               save_mb_per_s=[version * r / 2**20 / t for _, t, r in saves],
+               resume_seconds=resume_s,
+               resume_mb_per_s=version / 2**20 / resume_s,
+               resumed_bit_equal=resumed, max_memory_allocated=peak,
+               kernel_launches=launches)
+    del out, state
+    if not (all(math.isfinite(x) for x in losses)
+            and np.mean(losses[-10:]) < np.mean(losses[:10])):
+        raise AssertionError(f"train_lm: losses {losses}")
+    if not resumed or any(launches.values()) or len(saves) < 2:
+        raise AssertionError(f"train_lm: resumed {resumed}, launches "
+                             f"{launches}, saves {saves}")
+    return res
+
+
+def phase_examples(torch, dev, smi):
+    """Phase 30: the four examples through their ``main`` on the card, as
+    ``python -m repro_torch.examples.<name>`` runs them, at the reference
+    examples' own sizes (smoke widths for the three serving ones, their
+    prefill through flash and their decode through paged; train_lm's
+    steps cut). In each serving example kernels #1, #2, #4 and #5 (DBS
+    write and read, paged and flash attention) must launch and no plain
+    version run (``_kept_serving_calls``); the kept calls are then held
+    against the plain versions on the example's own engine pool, as in
+    phase 10. serve_paged must leave no extent used; fork_sessions' forks
+    must be prefixes of the parent (the example raises otherwise, and it
+    is checked again here); quickstart must resume at step 15. Tokens/s
+    of each serving example; ``_example_train_lm``'s figures. Returns
+    each kernel's launches by example."""
+    from repro_torch.examples import fork_sessions, quickstart, serve_paged
+    lines, launches_by, parity_by = {}, {}, {}
+    for name, mod, keep in (("serve_paged", serve_paged, _keep_local_global),
+                            ("fork_sessions", fork_sessions, _first_two),
+                            ("quickstart", quickstart, _first_two)):
+        torch.cuda.reset_peak_memory_stats()
+        with _kept_serving_calls(torch, keep) as kept:
+            out = mod.main(["--device", "cuda"])
+        launches, plain = kept["launches"], kept["plain"]
+        eng = out["engine"]
+        need = ("dbs_rw_write", "dbs_rw_read", "paged_attention",
+                "flash_attention")
+        if min(launches[k] for k in need) <= 0 or any(plain.values()):
+            raise AssertionError(f"{name}: launches {launches}, plain "
+                                 f"calls {plain}")
+        if name == "serve_paged" and out["dbs"]["extents_used"]:
+            raise AssertionError(f"serve_paged: {out['dbs']}")
+        if name == "fork_sessions":
+            p = out["outs"][0]
+            if any(out["outs"][r] != p[:len(out["outs"][r])]
+                   for r in (1, 2)):
+                raise AssertionError(f"fork_sessions: {out['outs']}")
+        if name == "quickstart" and out["resumed"] != quickstart.TRAIN_STEPS:
+            raise AssertionError(f"quickstart resumed at {out['resumed']}")
+        parity = {"paged_attention": phase_paged_kernel(torch, eng, kept),
+                  "flash_attention": phase_flash_kernel(torch, kept),
+                  "dbs_rw_read": phase_read_kernel_serve(torch, eng,
+                                                         kept["read"]),
+                  "dbs_rw_write": phase_write_kernel_serve(torch, eng,
+                                                           kept["write"])}
+        emit(phase="example", name=name, lines=out["lines"],
+             tokens=out["tokens"], seconds=out["seconds"],
+             tokens_per_s=out["tokens"] / out["seconds"],
+             launches=launches, plain_calls=plain,
+             max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+             kept={k: len(v) for k, v in kept.items()
+                   if k not in ("launches", "plain")},
+             parity={k: {f: v[f] for f in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms")}
+                     for k, v in parity.items()}, card=smi)
+        lines[name] = out["lines"]
+        launches_by[name] = launches
+        parity_by[name] = parity
+        eng.volumes.close()
+        del out, eng, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-lm-")
+    try:
+        tlm = _example_train_lm(torch, dev, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="example", name="train_lm", **tlm, card=smi)
+    launches_by["train_lm"] = tlm["kernel_launches"]
+    return launches_by, parity_by
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-pages", type=int, default=8192,
@@ -6762,17 +7177,27 @@ def main() -> int:
         if fam["mtp_flash_launches"] is not None:
             flash_k["launches_mtp_path"] = fam["mtp_flash_launches"]
 
-    # the training slice: one step at full width (two layers) on the card
-    # against the CPU, gemma2-2b trained at full depth, then checkpoints
-    parity_params = phase_train_parity(torch, dev, smi)
-    free()
     # phase 28's counts on the CPU alone, started now: they run beside the
     # training and checkpoint phases (the card's and the disk's work) and
     # are collected before phase 28's timed steps
     dry_dir = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
     dry_runs = start_dryruns(dry_dir)
     try:
-        train_launches = phase_train(torch, dev, smi)
+        # the training slice: one step at full width (two layers) on the
+        # card against the CPU, in fp32 and on the bf16 plan, gemma2-2b
+        # trained at full depth, then checkpoints
+        parity_params, parity_batch, parity_g32 = phase_train_parity(
+            torch, dev, smi)
+        free()
+        phase_train_parity_bf16(torch, dev, smi, parity_params,
+                                parity_batch, parity_g32)
+        del parity_batch, parity_g32
+        free()
+        train32 = phase_train(torch, dev, smi)
+        train_launches = train32["kernel_launches"]
+        free()
+        train16_launches = phase_train_bf16(torch, dev, smi, train32)[
+            "kernel_launches"]
         free()
         # the mesh on one card: phase 26's checkpoint restored as DTensors
         keep = tempfile.mkdtemp(prefix="chip-smoke-train-")
@@ -6818,6 +7243,18 @@ def main() -> int:
                                  bf16["wide"]["paged_pool"]))
     flash_k.update(**_width_keys("bf16", bf16["flash"]),
                    **_width_keys("bf16_wide", bf16["wide"]["flash"]))
+    for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
+        k["launches_train_bf16_path"] = train16_launches[k["name"]]
+
+    # the examples as a user runs them
+    ex_launches, ex_parity = phase_examples(torch, dev, smi)
+    free()
+    for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
+        k["launches_examples"] = {name: got[k["name"]]
+                                  for name, got in ex_launches.items()}
+    for name, parity in ex_parity.items():
+        for k in (write_k, read_k, paged_k, flash_k):
+            k.update(_width_keys(f"example_{name}", parity[k["name"]]))
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

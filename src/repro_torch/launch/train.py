@@ -5,8 +5,10 @@ Port of ``repro/launch/train.py``. It trains on the card (``cuda``) unless
 config by default and the published one with ``--full``. With
 ``--ckpt-dir`` it checkpoints to two replicas, ``<dir>/a`` and ``<dir>/b``,
 every ``--ckpt-every`` steps and at the end, and resumes from them. The
-trainer's checkpoint store holds 256 MB (the reference's), so ``--full``
-with a checkpoint directory fits no model of the catalog.
+trainer's checkpoint store is sized to the params and optimizer state
+(``training/trainer.py ckpt_capacity``; the reference's is 256 MB
+whatever the model, so its ``--full`` with a checkpoint directory fits no
+model of the catalog).
 """
 from __future__ import annotations
 

@@ -96,10 +96,21 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig,
     return p
 
 
+def gated(act, h: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
+    """``act(h) * g`` (``act(h)`` when ``g`` is None) in fp32, rounded once
+    to ``h``'s dtype: the reference's XLA fuses this elementwise chain and
+    keeps it in fp32 between its ends, where eager ops would round after
+    each one. In fp32 it is the plain product."""
+    out = act(h.float())
+    if g is not None:
+        out = out * g.float()
+    return out.to(h.dtype)
+
+
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     act = activation_fn(cfg.activation)
     h = x @ p["wi"].to(x.dtype)
-    h = act(h) * (x @ p["wg"].to(x.dtype)) if "wg" in p else act(h)
+    h = gated(act, h, x @ p["wg"].to(x.dtype) if "wg" in p else None)
     return h @ p["wo"].to(x.dtype)
 
 
@@ -175,8 +186,8 @@ def _moe_every(p: Params, xf: torch.Tensor, top_idx, top_w,
     t = xf.shape[0]
     xe = xf.expand(mo.e_total, t, cfg.d_model)               # (E, T, D)
     h = torch.bmm(xe, p["wi"].to(xf.dtype))                 # (E, T, F)
-    h = act(h) * torch.bmm(xe, p["wg"].to(xf.dtype)) if "wg" in p \
-        else act(h)
+    h = gated(act, h, torch.bmm(xe, p["wg"].to(xf.dtype)) if "wg" in p
+              else None)
     ys = torch.bmm(h, p["wo"].to(xf.dtype))                  # (E, T, D)
     comb = torch.zeros((t, mo.e_total), dtype=ys.dtype, device=xf.device)
     comb.scatter_(1, top_idx, top_w.to(ys.dtype))
@@ -203,8 +214,8 @@ def _moe_grouped(p: Params, xf: torch.Tensor, top_idx, top_w,
         if n:
             seg = xs[start:start + n]
             h = seg @ p["wi"][e].to(xs.dtype)
-            h = act(h) * (seg @ p["wg"][e].to(xs.dtype)) if "wg" in p \
-                else act(h)
+            h = gated(act, h, seg @ p["wg"][e].to(xs.dtype) if "wg" in p
+                      else None)
             ys[start:start + n] = h @ p["wo"][e].to(xs.dtype)
         start += n
     inv = torch.argsort(order)

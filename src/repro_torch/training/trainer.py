@@ -16,11 +16,22 @@ is moved there as it is taken from the source, and a step reads back its
 metrics once, with the step's time. ``params`` and ``opt_state`` are
 public and the step updates them in place.
 
-One reference fault is corrected: the reference's ``_try_resume`` takes
-any exception for "no checkpoint" and starts from step 0, so a checkpoint
-that does not fit the model silently restarts training. Here only
-"no valid checkpoint" (``IOError``) starts fresh; anything else, a
-structure mismatch for one, raises.
+``params=`` starts from given parameters (a tree like ``init_params``'s,
+on the trainer's device) in place of the seeded draw, so a run can start
+from another package's weights (``core/convert.py params_from_numpy``).
+
+Two reference faults are corrected:
+
+- the reference's ``_try_resume`` takes any exception for "no checkpoint"
+  and starts from step 0, so a checkpoint that does not fit the model
+  silently restarts training. Here only "no valid checkpoint"
+  (``IOError``) starts fresh; anything else, a structure mismatch for
+  one, raises;
+- the reference opens a 256 MB store whatever the model, so a model whose
+  params and optimizer state pass it (the reference's own
+  ``examples/train_lm.py``: 67.7M params, 812 MB with AdamW's moments)
+  fails at its first save. Here the store is sized to what it saves
+  (``ckpt_capacity``), with the reference's 256 MB as its floor.
 """
 from __future__ import annotations
 
@@ -31,11 +42,29 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import ReplicatedCheckpoint
+from repro_torch.checkpoint.store import BS, EB
 from repro_torch.configs.base import ArchConfig, ExecutionPlan
 from repro_torch.models import init_params
+from repro_torch.models.model import tree_leaves
 from repro_torch.training.train_step import make_train_step
 
-CKPT_CAPACITY = 1 << 28          # the reference's store: 256 MB
+CKPT_CAPACITY = 1 << 28          # the reference's store: the floor
+CKPT_KEEP = 2                    # versions a save keeps (``keep_last``)
+
+
+def ckpt_capacity(state) -> int:
+    """Bytes of the checkpoint store for ``state`` (a tree of tensors or
+    numpy arrays): the ``CKPT_KEEP`` versions a save keeps plus the one it
+    writes, since a save writes its version whole beside the kept ones
+    (copy-on-write) before it drops the oldest; a version is its leaves,
+    each rounded up to whole blocks, its header and manifest, and one
+    extent more for the last one it fills in part. At least
+    ``CKPT_CAPACITY``, so a small model gets the reference's store."""
+    leaves = tree_leaves(state)
+    data = sum(-(-t.nbytes // BS) * BS for t in leaves)
+    manifest = 256 * len(leaves) + 2 * BS
+    version = data + manifest + BS * EB
+    return max(CKPT_CAPACITY, (CKPT_KEEP + 1) * version)
 
 
 class Trainer:
@@ -43,20 +72,22 @@ class Trainer:
                  *, ckpt_dirs: Optional[List[str]] = None,
                  ckpt_every: int = 50, seed: int = 0,
                  deadline_factor: float = 3.0, device="cuda",
-                 **opt_overrides):
+                 params=None, **opt_overrides):
         self.cfg, self.plan = cfg, plan
         self.data = data
         self.ckpt_every = ckpt_every
         self.deadline_factor = deadline_factor
         self.device = torch.device(device)
         opt_init, self.step_fn = make_train_step(cfg, plan, **opt_overrides)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = init_params(gen, cfg)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(gen, cfg)
+        self.params = params
         self.opt_state = opt_init(self.params)
         self.step = 0
-        self.ckpt = (ReplicatedCheckpoint(ckpt_dirs,
-                                          capacity_bytes=CKPT_CAPACITY)
-                     if ckpt_dirs else None)
+        self.ckpt = (ReplicatedCheckpoint(
+            ckpt_dirs, capacity_bytes=ckpt_capacity(self._state()))
+            if ckpt_dirs else None)
         self.history: List[Dict[str, float]] = []
         self.straggler_events = 0
         self._durations: List[float] = []
@@ -79,7 +110,8 @@ class Trainer:
 
     def _save(self):
         if self.ckpt is not None:
-            self.ckpt.save("train", self.step, self._state())
+            self.ckpt.save("train", self.step, self._state(),
+                           keep_last=CKPT_KEEP)
 
     # ------------------------------------------------------------------ loop
     def run(self, num_steps: int) -> List[Dict[str, float]]:

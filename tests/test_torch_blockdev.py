@@ -341,7 +341,11 @@ def test_port_imports_no_jax_and_no_repro():
     code = ("import sys, repro_torch.core.blockdev, "
             "repro_torch.kernels._build, repro_torch.serving.engine, "
             "repro_torch.kernels.paged_attention, "
-            "repro_torch.kernels.flash_attention, repro_torch.durability; "
+            "repro_torch.kernels.flash_attention, repro_torch.durability, "
+            "repro_torch.examples.serve_paged, "
+            "repro_torch.examples.fork_sessions, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.train_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")

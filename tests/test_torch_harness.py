@@ -368,7 +368,8 @@ def test_run_needs_the_card_unless_told_otherwise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             T.run(trace=T.TraceConfig(n_ops=4))
-    code = ("import sys, repro_torch.harness, repro_torch.harness.__main__; "
+    code = ("import sys, repro_torch.harness, repro_torch.harness.__main__, "
+            "repro_torch.examples.quickstart, repro_torch.examples.train_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")

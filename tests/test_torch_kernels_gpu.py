@@ -2064,3 +2064,77 @@ def test_paged_attention_packed_form_long_table(entry, dv, page, p_max):
     assert got.shape == (2, 128, dv) and not got[0].any()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, **TOL)
+
+
+def _example_weights(cfg):
+    """A seeded draw of the port's params on the CPU, as numpy (the form
+    the examples' ``params=`` takes), so the card and the CPU run one
+    model."""
+    from repro_torch.models import init_params
+    from repro_torch.models.model import tree_map
+    return tree_map(lambda t: t.numpy(),
+                    init_params(torch.Generator().manual_seed(0), cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,arch", [("serve_paged", "gemma2-2b"),
+                                       ("fork_sessions", "granite-3-8b")])
+def test_serving_examples_on_the_card(name, arch):
+    """A serving example through its ``main`` on the card: the DBS write
+    and read, paged and flash kernels all launch and no plain version
+    runs; its tokens equal the same example's on the CPU from the same
+    weights, each request up to its first step whose top-2 logit margin
+    is under 1e-3 (a near tie may break either way)."""
+    _cuda()
+    import importlib
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.dbs import rw_kernel
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.paged_attention import kernel as pk
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    params = _example_weights(smoke_config(arch))
+    for m in (rw_kernel, pk, fk):
+        m.reset_counts()
+    card = mod.main(["--device", "cuda"], params=params, record_logits=True)
+    torch.cuda.synchronize()
+    launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+    plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS, **fk.PLAIN_CALLS}
+    assert min(launches.values()) > 0 and not any(plain.values()), \
+        (launches, plain)
+    cpu = mod.main(["--device", "cpu"], params=params)
+    assert set(card["outs"]) == set(cpu["outs"])
+    for rid, want in cpu["outs"].items():
+        got, trace = card["outs"][rid], card["logits"][rid]
+        offset = len(got) - len(trace)          # a fork's copied tokens
+        for t, (a, b) in enumerate(zip(got, want)):
+            if t >= offset:
+                top = np.sort(trace[t - offset])[-2:]
+                if top[1] - top[0] < 1e-3:
+                    break
+            assert a == b, (rid, t, got, want)
+    assert card["dbs"] == cpu["dbs"]
+
+
+@pytest.mark.gpu
+def test_train_lm_example_on_the_card_saves_and_resumes(tmp_path):
+    """``examples.train_lm`` on the card, its bf16 plan at 2 steps of 2 x
+    32 tokens: finite losses, no kernel launched (the kernels refuse
+    grad), a store sized to its 812 MB state, and a restart that resumes
+    at step 2 with the params and AdamW state bit for bit."""
+    dev = _cuda()
+    from repro_torch.examples import train_lm
+    from repro_torch.models.model import tree_leaves
+    from repro_torch.training.trainer import Trainer, ckpt_capacity
+    out = train_lm.main(["--steps", "2", "--batch", "2", "--seq", "32",
+                         "--ckpt-dir", str(tmp_path), "--device", "cuda"])
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    state = {"params": out["params"], "opt": out["opt_state"]}
+    assert out["ckpt_capacity"] == ckpt_capacity(state) > 3 * 800e6
+    tr = Trainer(train_lm.CFG_100M, train_lm.PLAN, None,
+                 ckpt_dirs=out["ckpt_dirs"], device=dev)
+    assert tr.step == 2
+    for a, b in zip(tree_leaves({"params": tr.params, "opt": tr.opt_state}),
+                    tree_leaves(state)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    tr.ckpt.close()
