@@ -28,7 +28,10 @@ and the script exits non-zero:
    (kernel, plain version, and one PyTorch library call as a yardstick the
    port never calls), beside the bound (bytes over 3.35 TB/s, the H100 SXM
    HBM rate), with the kernel's registers, shared memory and blocks in
-   flight.
+   flight. Then the kernel's other dtypes on the same batches: bf16 and
+   uint8 copies of the pool and payloads (uint8: the [0, 1) floats scaled
+   to bytes), bit for bit and timed the same way (``bf16_block_width_*``
+   and ``uint8_block_width_*`` keys).
 4. kernel_parity (dbs_copy) — the same at the block device's width, on the
    CoW batches (``cow_src``, ``dst``, ``cow_src >= 0``) of a second
    ``write_pages`` trace whose free ring hands extent 0 to a CoW lane: live
@@ -47,6 +50,8 @@ and the script exits non-zero:
 6. kernel_parity (dbs_rw_read) — on the kept main-path inputs and the main
    path's own replica pool: bit for bit against the plain version, timed as
    in phase 3; hole lanes (zeros, no load) count one block in the bound.
+   Then on bf16 and uint8 copies of that pool (exact: its fp32 lanes carry
+   a byte each), the same batches, held and timed the same way.
 7. storage_functions (``fused``): the five storage functions on the
    main volume through ``Volume.compute`` (per call, ``device_compute``),
    as in phase 8j. Then no_sync — one write pump's fused step under
@@ -334,12 +339,20 @@ and the script exits non-zero:
    1e-4 widened to 1e-5 of the reference's largest magnitude (long prompts
    grow the outputs to hundreds; the measured errors are printed); timed
    with CUDA graphs as in phase 3, per decode and per prefill call, beside
-   the bound (the larger of the chunked form's flops over 67 TFLOP/s and
-   its bytes over 3.35 TB/s), with the schedule, column blocks, registers
+   the bound (the larger of its bytes over 3.35 TB/s and the chunked
+   form's flops at the rates of the units that run them: the decode
+   schedule's all at 67 TFLOP/s, the CUDA cores' fp32; the prefill's
+   products at 3xTF32's 165 and its bonus and diagonal triangles at 67,
+   ``_rwkv_op_seconds``), with the schedule, column blocks, registers
    and shared memory the kernel reports for each. No
    single PyTorch call computes the recurrence, so its library time is
    null; the kernels line gives the times per launch over the serve path's
-   mix of prefill and decode launches.
+   mix of prefill and decode launches. Then the bf16 form: the kept decode
+   and prefill calls with r, k, v, logw and u rounded to bf16 (the state
+   fp32) against the plain chunked version on the same inputs, the state
+   within RWKV_TOL's terms and y (bf16) within them plus one bf16 step of
+   |y|; every launch of the bf16 form; timed the same way, its bound at
+   2-byte inputs (``bf16_prefill_width_*``, ``bf16_decode_width_*``).
 19. serve_path (hymba-1.5b) — the hybrid family at its published widths
    and depth (32 layers, d_model 1600, 25 heads over 5 KV heads of 64,
    attention and a Mamba branch (E 3200, N 16) in every layer, a
@@ -520,7 +533,10 @@ and the script exits non-zero:
    kept calls held against the plain versions in bf16 within
    BF16_ATTN_TOL (one bf16 step) and timed as in phase 10 (flash's bound
    at 989 TFLOP/s; SDPA and the paged yardstick in bf16); the split-pool
-   and stripe (lse) entries on bf16 copies of the kept calls' planes.
+   and stripe (lse) entries on bf16 copies of the kept calls' planes;
+   ``dbs_rw_read`` and ``dbs_rw_write`` in bf16 on a bf16 copy of the
+   traffic's replica-0 engine pool under its kept reads and writes (bit
+   for bit, timed; ``bf16_serve_width_*``).
    (b) BF16_LOCKSTEP's requests with the logits recorded on three
    engines: bf16 through the kernels, bf16 on the plain paths
    (``attn_impl="dense"``, ``kernel="ref"``: every kernel's plain
@@ -539,7 +555,20 @@ and the script exits non-zero:
    packed instantiation, ``LAUNCHES_BY_INSTANCE``; their bounds count the
    products too, at the bf16 rate and, over the fp32 pool, at two TF32
    products for q.K^T and three for P.V), each held and timed the same
-   way.
+   way. (d) The fork mix (BF16_FORK, before (c)'s weights are freed):
+   phase 9's first 4 prompts as parents of 32 new tokens, each forked
+   once right after its 8th token, each child on for 24 new tokens; first
+   on the copy-based baseline (``kv_backend="host"``, its K/V pools bf16:
+   the forks' CoW runs ``dbs_copy``'s bf16 form, every launch of it
+   checked, a launch a pool), then on zero-copy (no ``dbs_copy``). On
+   each, no plain version runs, and every parent's and child's tokens
+   equal an independent decode of the parents on a second engine of the
+   same backend (TIE_MARGIN rule); the two backends' tokens agree under
+   (c)'s bf16 tie margin. Every kept copy is held against the plain
+   version bit for bit and timed (``bf16_fork_width_*``). A
+   ``serve_fork_bf16`` line: tokens/s, prefill seconds, seconds in the
+   CoW copies (baseline) and the write pumps (zero-copy), launches, peak
+   memory.
 30. example — the four examples through their ``main`` on the card, as
    ``python -m repro_torch.examples.<name>`` runs them, at the reference
    examples' own sizes: serve_paged (gemma2-2b smoke, 10 requests over 4
@@ -560,7 +589,9 @@ and the script exits non-zero:
 
 Then a ``{"kernels": [...]}`` line (the paged and flash entries carry the
 bf16 forms' numbers under ``bf16_*`` keys and their launches on phase 29's
-path, by dtype and by form, and phase 28's bf16 step; every entry its
+path, by dtype and by form, and phase 28's bf16 step; the DBS and scan
+entries their other dtypes' under ``bf16_*`` and ``uint8_*`` keys, and
+every entry its launches on phase 29 (d)'s fork mix; every entry its
 launches in each example, ``launches_examples``, and the four serving
 kernels their kept example calls' numbers under ``example_<name>_width_*``
 keys; the paged entry the
@@ -770,6 +801,9 @@ DRY_TIMEOUT = 900
 BF16_RATIO = 1.5                 # kernel bf16 vs fp32 logits / plain bf16's
 BF16_LOCKSTEP = (4, 8)           # requests, new tokens of phase 29's (b)
 BF16_WIDE_PROMPTS = (479, 884)   # MLA prefill lengths of the wide forms
+# phase 29's fork mix: parents (phase 9's first prompts), their new tokens,
+# the token after which each forks once, and each child's new tokens
+BF16_FORK = (4, 32, 8, 24)
 
 
 def emit(**kw) -> None:
@@ -851,6 +885,28 @@ def parity_batches(torch, dbs, route, dev, n_extents, max_pages, rng,
     return out
 
 
+def _bytes_equal(torch, a, b) -> bool:
+    """Equal bit for bit (as bytes: any dtype, NaN patterns included)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def dtype_name(dtype) -> str:
+    """"bfloat16" for torch.bfloat16: the dtype keys of the lines."""
+    return str(dtype).split(".")[1]
+
+
+def _max_err(torch, a, b) -> float:
+    """The largest absolute difference of two tensors of any dtype, as
+    fp32, taken in slices of the first dimension of at most 2**26 elements
+    (a pool of several GB needs no fp32 copy of itself); 0.0 when empty."""
+    if a.numel() == 0:
+        return 0.0
+    rows = max(1, (1 << 26) // max(1, a[0].numel()))
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a.split(rows), b.split(rows)))
+
+
 def resources(torch, info, grid_blocks=None):
     """A kernel's registers and shared memory per block (``info``, from
     cudaFuncGetAttributes) and its blocks in flight: the grid's blocks (by
@@ -912,7 +968,24 @@ def phase_write_kernel(torch, args, dev):
          pool_shape=list(pool.shape), lanes=BATCH, batches=n,
          live_lanes=[b[4] for b in batches],
          cow_lanes=[b[5] for b in batches], equal=True)
-    del pool, plain
+    del plain
+    # the other dtypes: bf16 and uint8 copies of the pool and the payloads
+    # (uint8: the [0, 1) floats scaled to bytes), the same batches
+    forms = {}
+    for dt in (torch.bfloat16, torch.uint8):
+        conv = ((lambda t, dt=dt: t.to(dt)) if dt.is_floating_point
+                else (lambda t, dt=dt: (t * 256).to(dt)))
+        got = write_parity(torch, conv(pool), [
+            (s_, d_, lo, conv(p_)) for s_, d_, lo, p_, _, _ in batches])
+        forms[dtype_name(dt)] = got
+        emit(phase="kernel_parity", kernel="dbs_rw_write",
+             dtype=dtype_name(dt), width="block device",
+             pool_shape=list(pool.shape), batches=n, equal=True,
+             **{k: got[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "library_ms",
+                                    "bytes_per_call", "resources")})
+        torch.cuda.empty_cache()
+    del pool
     torch.cuda.empty_cache()
     mean_wb = sum(w_bytes) / len(w_bytes)
     return {"name": "dbs_rw_write", "route": "cuda", "source": KERNEL_SRC,
@@ -920,8 +993,10 @@ def phase_write_kernel(torch, args, dev):
             "max_abs_err": w_err, "ms": w_ms, "plain_ms": w_plain,
             "bound_ms": mean_wb / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "library_ms": w_lib, "bytes_per_batch": mean_wb,
-            **resources(torch, write_info(vec4=True), PAGE_BLOCKS * BATCH),
-            "copying_blocks_per_batch": sum(copying) / n}
+            **resources(torch, write_info(16), PAGE_BLOCKS * BATCH),
+            "copying_blocks_per_batch": sum(copying) / n,
+            **_width_keys("bf16_block", forms["bfloat16"]),
+            **_width_keys("uint8_block", forms["uint8"])}
 
 
 # ---------------------------------------------------------------------------
@@ -934,10 +1009,12 @@ def copy_parity(torch, pool, calls, timed=True):
     calls (kernel, plain version, and ``index_copy_`` of each call's live
     source rows, gathered beforehand: the bytes the kernel moves) on
     ``pool``. Returns the numbers per call."""
+    from repro_torch.kernels._build import word_bytes
     from repro_torch.kernels.dbs import dbs_copy, dbs_copy_bytes, dbs_copy_ref
     from repro_torch.kernels.dbs.copy_kernel import copy_info
     from repro_torch.kernels.timing import graph_ms
     _e, page, d = pool.shape
+    size = pool.element_size()
     plain = pool.clone()
     copied, lib_in = [], []
     for src, dst, mask in calls:
@@ -948,8 +1025,8 @@ def copy_parity(torch, pool, calls, timed=True):
         copied.append(int(live.numel()))
         lib_in.append((dst[live].long(), plain[src[live].long()].clone()))
     torch.cuda.synchronize()
-    err = float((pool - plain).abs().max())
-    if not torch.equal(pool, plain):
+    err = _max_err(torch, pool, plain)
+    if not _bytes_equal(torch, pool, plain):
         raise AssertionError(f"dbs_copy differs from its plain version "
                              f"(max abs err {err})")
     if not timed:
@@ -962,14 +1039,17 @@ def copy_parity(torch, pool, calls, timed=True):
     lib = graph_ms(lambda: [plain.index_copy_(0, i, v)
                                    for i, v in lib_in], n)
     del plain, lib_in
-    mean_b = sum(dbs_copy_bytes(c, page, d, 4) for c in copied) / n
+    mean_b = sum(dbs_copy_bytes(c, page, d, size) for c in copied) / n
+    row_bytes = page * d * size
+    word = word_bytes(row_bytes, pool)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
-            "bytes_per_call": mean_b, "rows_copied": copied,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib, "bytes_per_call": mean_b, "calls": n,
+            "rows_copied": copied,
             "zero_row_calls": sum(c == 0 for c in copied) / n,
-            "resources": {"lanes": calls[0][0].numel(), **resources(
-                torch, copy_info(calls[0][0].numel(), page, d,
-                                 vec4=d % 4 == 0))}}
+            "resources": {"lanes": calls[0][0].numel(), "word_bytes": word,
+                          **resources(torch, copy_info(
+                              calls[0][0].numel(), row_bytes, word))}}
 
 
 def phase_copy_kernel(torch, args, dev):
@@ -1045,17 +1125,19 @@ def read_parity(torch, pool, reads):
     ``index_select`` of the same blocks). A hole lane stores one zero block
     and loads nothing, so the bound counts it at one block; a mapped lane
     reads and writes one. Returns the numbers per batch."""
+    from repro_torch.kernels._build import word_bytes
     from repro_torch.kernels.dbs import (dbs_read_bytes, dbs_rw_read,
                                          dbs_rw_read_ref)
     from repro_torch.kernels.dbs.rw_kernel import read_info
     from repro_torch.kernels.timing import graph_ms
     _e, page, d = pool.shape
+    size = pool.element_size()
     err = 0.0
     holes, lanes = [], []
     for ext, blk in reads:
         got, want = dbs_rw_read(pool, ext, blk), dbs_rw_read_ref(pool, ext, blk)
-        err = max(err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
+        err = max(err, _max_err(torch, got, want))
+        if got.dtype != pool.dtype or not _bytes_equal(torch, got, want):
             raise AssertionError("dbs_rw_read differs from its plain version")
         holes.append(int((ext < 0).sum()))
         lanes.append(int(ext.numel()))
@@ -1068,15 +1150,17 @@ def read_parity(torch, pool, reads):
     plain = graph_ms(lambda: [dbs_rw_read_ref(pool, e, b)
                                      for e, b in reads], n)
     lib = graph_ms(lambda: [flat.index_select(0, i) for i in idx], n)
-    mean_b = sum(dbs_read_bytes(b - h, d, 4) + h * d * 4
+    mean_b = sum(dbs_read_bytes(b - h, d, size) + h * d * size
                  for b, h in zip(lanes, holes)) / n
     common = max(set(lanes), key=lanes.count)
+    word = word_bytes(d * size, pool)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
-            "bytes_per_call": mean_b, "calls": n, "hole_lanes": holes,
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib, "bytes_per_call": mean_b, "calls": n,
+            "hole_lanes": holes,
             "lanes": lanes,
-            "resources": {"lanes": common, **resources(
-                torch, read_info(common, d, vec4=d % 4 == 0))}}
+            "resources": {"lanes": common, "word_bytes": word, **resources(
+                torch, read_info(common, d * size, word))}}
 
 
 def _attn_tol(torch, dtype):
@@ -1101,11 +1185,13 @@ def write_parity(torch, pool, writes):
     Then time one pass over them as in phase 3 (kernel, plain version, and
     ``index_copy_`` of the composed live rows, which moves whole rows).
     Returns the numbers per call."""
+    from repro_torch.kernels._build import word_bytes
     from repro_torch.kernels.dbs import (dbs_rw_write, dbs_rw_write_ref,
                                          dbs_write_bytes)
     from repro_torch.kernels.dbs.rw_kernel import write_info
     from repro_torch.kernels.timing import graph_ms
     _e, page, d = pool.shape
+    size = pool.element_size()
     dump = pool.shape[0] - 1
     plain = pool.clone()
     touched = set()
@@ -1116,9 +1202,9 @@ def write_parity(torch, pool, writes):
     torch.cuda.synchronize()
     rows = torch.tensor(sorted(touched), dtype=torch.int64, device=pool.device)
     # 16 rows at a time: musicgen's rows are 24 MiB each
-    err = max((float((pool[r] - plain[r]).abs().max())
-               for r in rows.split(16)), default=0.0)
-    if not torch.equal(pool, plain):
+    err = max((_max_err(torch, pool[r], plain[r]) for r in rows.split(16)),
+              default=0.0)
+    if not _bytes_equal(torch, pool, plain):
         raise AssertionError(f"dbs_rw_write differs from its plain version "
                              f"(max abs err {err})")
     n = len(writes)
@@ -1127,7 +1213,7 @@ def write_parity(torch, pool, writes):
         live = dst != dump
         n_bytes.append(dbs_write_bytes(int((lane_of >= 0).sum()),
                                        int((live & (src != dst)).sum()),
-                                       page, d, 4))
+                                       page, d, size))
         idx = dst[live].long()
         composed.append((idx, plain[idx].clone()))
     ms = graph_ms(lambda: [dbs_rw_write(pool, s_, d_, lo, p_)
@@ -1140,12 +1226,13 @@ def write_parity(torch, pool, writes):
     lanes = [int(w[0].numel()) for w in writes]
     common = max(set(lanes), key=lanes.count)
     mean_b = sum(n_bytes) / n
+    word = word_bytes(d * size, pool, writes[0][3])
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "library_ms": lib,
-            "bytes_per_call": mean_b, "calls": n, "lanes": lanes,
-            "rows_written": len(touched),
-            "resources": {"lanes": common, **resources(
-                torch, write_info(vec4=d % 4 == 0), page * common)}}
+            "bound_ms": mean_b / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": lib, "bytes_per_call": mean_b, "calls": n,
+            "lanes": lanes, "rows_written": len(touched),
+            "resources": {"lanes": common, "word_bytes": word, **resources(
+                torch, write_info(word), page * common)}}
 
 
 def phase_read_kernel(torch, mgr, reads):
@@ -1160,13 +1247,29 @@ def phase_read_kernel(torch, mgr, reads):
     emit(phase="kernel_parity", kernel="dbs_rw_read",
          pool_shape=list(pool.shape), lanes=BATCH, batches=n,
          hole_lanes=holes, hole_share=sum(holes) / (n * BATCH), equal=True)
+    # the other dtypes: bf16 and uint8 copies of the pool (its fp32 lanes
+    # carry one byte each, so both copies are exact), the same batches
+    forms = {}
+    for dt in (torch.bfloat16, torch.uint8):
+        copy = pool.to(dt)
+        forms[dtype_name(dt)] = f = read_parity(torch, copy, reads)
+        emit(phase="kernel_parity", kernel="dbs_rw_read",
+             dtype=dtype_name(dt), width="block device",
+             pool_shape=list(copy.shape), batches=n, equal=True,
+             **{k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "library_ms", "bytes_per_call",
+                                  "resources")})
+        del copy
+        torch.cuda.empty_cache()
     return {"name": "dbs_rw_read", "route": "cuda", "source": KERNEL_SRC,
             "replaces": "src/repro/kernels/dbs/rw_kernel.py:78",
             "max_abs_err": got["max_abs_err"], "ms": got["ms"],
             "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
             "bound_by": "bytes", "library_ms": got["library_ms"],
             "library_call": "index_select of the same blocks",
-            "bytes_per_batch": got["bytes_per_call"], **got["resources"]}
+            "bytes_per_batch": got["bytes_per_call"], **got["resources"],
+            **_width_keys("bf16_block", forms["bfloat16"]),
+            **_width_keys("uint8_block", forms["uint8"])}
 
 
 def phase_read_kernel_serve(torch, eng, reads):
@@ -3577,7 +3680,6 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
     own pool, before anything else runs on the engine."""
     from repro_torch.core import backends, dbs
     from repro_torch.kernels.dbs import ops as dbs_ops
-    from repro_torch.kernels.dbs import copy_kernel, rw_kernel
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.paged_attention import kernel as pk
@@ -3653,7 +3755,8 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
     serving.paged_attention_pool_fwd = paged
     f_ops.flash_attention_fwd = flash
     dbs_ops.dbs_rw_read, dbs_ops.dbs_rw_write = read, write
-    for mod in (rw_kernel, pk, fk, copy_kernel):
+    mods = _kernel_modules()
+    for mod in mods:
         mod.reset_counts()
     try:
         t0 = time.perf_counter()
@@ -3662,13 +3765,12 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
         outs = eng.run(max_steps=10 * SERVE_NEW * len(prompts))
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = {**rw_kernel.LAUNCHES, **pk.LAUNCHES, **fk.LAUNCHES}
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
         by_dtype = {"paged_attention": dict(pk.LAUNCHES_BY_DTYPE),
                     "flash_attention": dict(fk.LAUNCHES_BY_DTYPE)}
         by_form = {"paged_attention": dict(pk.LAUNCHES_BY_INSTANCE),
                    "flash_attention": dict(fk.LAUNCHES_BY_FORM)}
-        plain = {**rw_kernel.PLAIN_CALLS, **pk.PLAIN_CALLS,
-                 **fk.PLAIN_CALLS, **copy_kernel.PLAIN_CALLS}
+        plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
     finally:
         backends.fused_step = inner["fused"]
         serving.paged_attention_pool_fwd = inner["paged"]
@@ -3699,7 +3801,8 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
     st = dbs.stats(eng.state)
     if st["volumes"] or st["extents_used"]:
         raise AssertionError(f"{cfg.name}: volumes or extents leaked: {st}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("dbs_rw_write", "dbs_rw_read",
+                                 "paged_attention", "flash_attention")) <= 0:
         raise AssertionError(f"{cfg.name}: a kernel of the serve path never "
                              f"launched: {launches}")
     if any(plain.values()):
@@ -3722,7 +3825,8 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
             "launches": launches, "launches_by_dtype": by_dtype,
             "launches_by_form": by_form,
             "plain": plain, "dbs_stats": st, "peak": peak, "parity": parity,
-            "kept_paged": kept["paged"]}
+            "kept_paged": kept["paged"], "kept_read": kept["read"],
+            "kept_write": kept["write"]}
 
 
 def _serve_fields(lens, res):
@@ -4686,15 +4790,16 @@ def phase_rwkv_kernel(torch, kept):
             for r, k, v, w, u, s0 in calls], n)
         f = sum(w[0] for w in work) / n
         nb = sum(w[1] for w in work) / n
+        op_s = sum(_rwkv_op_seconds(c[0].shape) for c in calls) / n
         b, s, h, d = calls[0][0].shape
         timing[name] = {"calls": n, "shape": list(calls[0][0].shape),
                         "kernel": rwkv6_info(b, s, h, d, RWKV_CHUNK),
                         "ms": ms, "plain_ms": plain, "flops_per_call": f,
                         "bytes_per_call": nb,
-                        "bound_ms": max(f / FP32_FLOPS_PER_S,
-                                        nb / HBM_BYTES_PER_S) * 1e3,
-                        "bound_by": ("operations" if f / FP32_FLOPS_PER_S
+                        "bound_ms": max(op_s, nb / HBM_BYTES_PER_S) * 1e3,
+                        "bound_by": ("operations" if op_s
                                      >= nb / HBM_BYTES_PER_S else "bytes")}
+    bf16 = _rwkv_bf16_form(torch, dec, pre)
     emit(phase="kernel_parity", kernel="rwkv6_scan", chunk=RWKV_CHUNK,
          max_abs_err=err, max_err_over_largest_magnitude=scaled,
          crafted_shapes=[list(c[0].shape) for c in crafted],
@@ -4704,7 +4809,103 @@ def phase_rwkv_kernel(torch, kept):
                     f"{RWKV_ATOL_SCALE} * max|reference|)"}, timing=timing)
     return {"name": "rwkv6_scan", "route": "cuda", "source": RWKV_SRC,
             "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:66",
-            "max_abs_err": max(err.values()), "timing": timing}
+            "max_abs_err": max(err.values()), "timing": timing,
+            "bf16": bf16}
+
+
+def _rwkv_bf16_form(torch, dec, pre):
+    """The scan's bf16 form on the kept decode and prefill calls with r, k,
+    v, logw and u rounded to bf16 (the carried state stays fp32), against
+    the plain chunked version on the same inputs: the state within
+    RWKV_TOL's terms, y (bf16) within them plus one bf16 step of |y| (rtol
+    2^-7 more); every launch of the bf16 form. Timed as the fp32 form,
+    its bound at 2-byte inputs (the operations as _rwkv_op_seconds counts
+    them). Emits a kernel_parity line; returns the numbers per schedule."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref
+    from repro_torch.kernels.rwkv6_scan.kernel import (rwkv6_info,
+                                                       rwkv6_scan_fwd,
+                                                       rwkv6_work)
+    from repro_torch.kernels.timing import graph_ms
+    out = {}
+    for name, kept in (("decode", dec), ("prefill", pre)):
+        calls = [tuple(t.to(torch.bfloat16) for t in c[:5]) + (c[5],)
+                 for c in kept]
+        e_y = e_s = 0.0
+        sk.reset_counts()
+        for r, k, v, w, u, s0 in calls:
+            y, st = rwkv6_scan_fwd(r, k, v, w, u, chunk=RWKV_CHUNK, s0=s0)
+            wy, ws = rwkv6_chunked_ref(r, k, v, w, u, s0, chunk=RWKV_CHUNK)
+            if y.dtype != torch.bfloat16 or st.dtype != torch.float32:
+                raise AssertionError(f"rwkv6_scan bf16: y {y.dtype}, state "
+                                     f"{st.dtype}")
+            for got, want, rtol in ((y, wy, RWKV_RTOL + 2 ** -7),
+                                    (st, ws, RWKV_RTOL)):
+                top = float(want.float().abs().max())
+                torch.testing.assert_close(
+                    got.float(), want.float(), rtol=rtol,
+                    atol=max(RWKV_ATOL, RWKV_ATOL_SCALE * top))
+            e_y = max(e_y, _max_err(torch, y, wy))
+            e_s = max(e_s, _max_err(torch, st, ws))
+        if sk.LAUNCHES_BY_DTYPE["bfloat16"] != len(calls) or \
+                sk.LAUNCHES["rwkv6_scan"] != len(calls):
+            raise AssertionError(f"rwkv6_scan bf16: launches "
+                                 f"{sk.LAUNCHES_BY_DTYPE}, not {len(calls)} "
+                                 f"of the bf16 form")
+        work = [rwkv6_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
+                           RWKV_CHUNK, c[5] is not None, 2) for c in calls]
+        n = len(calls)
+        ms = graph_ms(lambda: [rwkv6_scan_fwd(
+            r, k, v, w, u, chunk=RWKV_CHUNK, s0=s0)
+            for r, k, v, w, u, s0 in calls], n)
+        plain = graph_ms(lambda: [rwkv6_chunked_ref(
+            r, k, v, w, u, s0, chunk=RWKV_CHUNK)
+            for r, k, v, w, u, s0 in calls], n)
+        f = sum(x[0] for x in work) / n
+        nb = sum(x[1] for x in work) / n
+        op_s = sum(_rwkv_op_seconds(c[0].shape) for c in calls) / n
+        b, s, h, d = calls[0][0].shape
+        out[name] = {"calls": n, "shape": list(calls[0][0].shape),
+                     "kernel": rwkv6_info(b, s, h, d, RWKV_CHUNK, bf16=True),
+                     "ms": ms, "plain_ms": plain, "library_ms": None,
+                     "max_abs_err": max(e_y, e_s), "max_abs_err_y": e_y,
+                     "max_abs_err_state": e_s, "flops_per_call": f,
+                     "bytes_per_call": nb,
+                     "bound_ms": max(op_s, nb / HBM_BYTES_PER_S) * 1e3,
+                     "bound_by": ("operations" if op_s
+                                  >= nb / HBM_BYTES_PER_S else "bytes")}
+    emit(phase="kernel_parity", kernel="rwkv6_scan", dtype="bfloat16",
+         inputs="the kept calls rounded to bf16 (u too; the state fp32)",
+         tolerance={"rtol": f"{RWKV_RTOL} (y: + 2^-7)",
+                    "atol": f"max({RWKV_ATOL}, {RWKV_ATOL_SCALE} * "
+                            f"max|reference|)"}, timing=out)
+    return out
+
+
+def _rwkv_op_seconds(shape) -> float:
+    """The least time the scan's operations (rwkv6_work's count) take on
+    the card, each at the rate of the units that run it. The decode
+    schedule runs all of them on the CUDA cores (fp32). The prefill runs
+    its four products on the tensor cores in 3xTF32 (the inter-chunk read,
+    the state update, att . v and the intra-chunk matrix but for its
+    diagonal triangles) and on the CUDA cores only the bonus and, in each
+    16-token sub-chunk (rwkv6_scan.cu kSub), the pairs inside its two
+    8-token halves (the lower-left quadrant is one more product)."""
+    from repro_torch.kernels.rwkv6_scan.kernel import (rwkv6_schedule,
+                                                       rwkv6_work)
+    b, s, h, d = shape
+    total = rwkv6_work(b, s, h, d, RWKV_CHUNK, False)[0]
+    if rwkv6_schedule(s) == "decode":
+        return total / FP32_FLOPS_PER_S
+    pairs = 0
+    for c0 in range(0, s, RWKV_CHUNK):
+        n = min(RWKV_CHUNK, s - c0)
+        for a0 in range(0, n, 16):
+            m = min(16, n - a0)
+            lo, hi = min(m, 8), max(m - 8, 0)
+            pairs += lo * (lo - 1) // 2 + hi * (hi - 1) // 2
+    simt = 2 * b * h * d * (pairs + s)
+    return simt / FP32_FLOPS_PER_S + (total - simt) / TF32X3_FLOPS_PER_S
 
 
 def _rwkv_entry(k, launches, counts, n_layers):
@@ -4733,6 +4934,9 @@ def _rwkv_entry(k, launches, counts, n_layers):
              library_call="none: no single PyTorch call computes the RWKV-6 "
                           "recurrence",
              prefill=t["prefill"], decode=t["decode"])
+    t16 = k.pop("bf16")
+    k.update(**_width_keys("bf16_prefill", t16["prefill"]),
+             **_width_keys("bf16_decode", t16["decode"]))
     return k
 
 
@@ -6577,6 +6781,7 @@ def phase_serve_bf16(torch, dev, smi):
          **_serve_fields(lens, res), launches_by_dtype=by,
          launches_by_form=by_form, init_seconds=init_s,
          memory_allocated_before=held_before, card=smi)
+    rw16 = _bf16_rw_forms(torch, eng, res["kept_read"], res["kept_write"])
     kernel_tokens = {rid: list(res["outs"][rid]) for rid in res["outs"]}
     eng.volumes.close()
     del eng
@@ -6611,7 +6816,7 @@ def phase_serve_bf16(torch, dev, smi):
     ties = _tokens_match(plain_outs, kernel_tokens, res["margin_of"],
                          "bf16 plain path", 2 * lock["plain_vs_fp32"])
     plain.volumes.close()
-    del plain, params
+    del plain
     gc.collect()
     torch.cuda.empty_cache()
     emit(phase="bf16_vs_plain", model=SERVE_MODEL, lockstep=lock,
@@ -6619,6 +6824,13 @@ def phase_serve_bf16(torch, dev, smi):
          plain_tokens_per_s=len(prompts) * SERVE_NEW / plain_s,
          plain_seconds=clock,
          near_ties=ties, tie_margin=2 * lock["plain_vs_fp32"], card=smi)
+    # (d) the fork mix on the copy-based baseline (bf16 pools: dbs_copy's
+    # bf16 form) and on zero-copy
+    fork = phase_fork_bf16(torch, dev, smi, cfg, params, prompts,
+                           2 * lock["plain_vs_fp32"])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     wide = _bf16_wide_forms(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6626,7 +6838,210 @@ def phase_serve_bf16(torch, dev, smi):
     return {"launches": res["launches"], "by_dtype": by, "by_form": by_form,
             "paged": res["parity"]["paged_attention"],
             "flash": res["parity"]["flash_attention"], "split": split,
-            "lse": lse, "wide": wide}
+            "lse": lse, "wide": wide, "rw": rw16, "fork": fork}
+
+
+def _bf16_rw_forms(torch, eng, reads, writes):
+    """``dbs_rw_read`` and ``dbs_rw_write`` in bf16 at the zero-copy
+    serving width: a bf16 copy of the bf16 traffic's replica-0 engine pool
+    ((E+1, 32, 26624): one 52 KiB block a token) under its kept reads, then
+    its kept replica-0 writes (payloads rounded to bf16) replayed in
+    order; bit for bit against the plain versions, timed as in phase 10.
+    Emits a kernel_parity line each; returns their numbers."""
+    pool0 = eng.volumes.device_pools()[0]
+    pool = pool0.view(pool0.shape[0], pool0.shape[1], -1).to(torch.bfloat16)
+    got = {"dbs_rw_read": read_parity(torch, pool, reads),
+           "dbs_rw_write": write_parity(
+               torch, pool, [(s_, d_, lo, p_.to(torch.bfloat16))
+                             for s_, d_, lo, p_ in writes])}
+    for name, f in got.items():
+        emit(phase="kernel_parity", kernel=name, dtype="bfloat16",
+             width="zero-copy serving", pool_shape=list(pool.shape),
+             equal=True, **{k: f[k] for k in (
+                 "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                 "library_ms", "bytes_per_call", "resources")})
+    del pool
+    torch.cuda.empty_cache()
+    return got
+
+
+def _fork_mix(torch, eng, prompts, forks=True):
+    """BF16_FORK's traffic on ``eng``: its parents (request ids 0..),
+    BF16_FORK[1] new tokens each, each forked once (child id 100 + parent)
+    right after its BF16_FORK[2]-th token, the child running on for
+    BF16_FORK[3] new tokens; without ``forks``, the parents alone (an
+    independent decode of the same streams). Returns ``{request id:
+    tokens}`` and the run's seconds."""
+    from repro_torch.serving.engine import GenRequest
+    n_par, n_new, fork_at, child_new = BF16_FORK
+    t0 = time.perf_counter()
+    for rid in range(n_par):
+        eng.submit(GenRequest(req_id=rid, prompt=prompts[rid],
+                              max_new=n_new))
+    forked = set()
+    for _ in range(4 * n_new):
+        eng.step()
+        for rid in range(n_par):
+            g = eng.live.get(rid)
+            if not forks or rid in forked or g is None:
+                continue
+            if len(g.out_tokens) > fork_at:
+                raise AssertionError(f"request {rid} passed token {fork_at} "
+                                     f"unforked")
+            if len(g.out_tokens) == fork_at:
+                if eng.fork(rid, 100 + rid,
+                            max_new=fork_at + child_new) is None:
+                    raise AssertionError(f"no slot or volume to fork {rid}")
+                forked.add(rid)
+        if all(g.done for g in eng.live.values()) and \
+                len(forked) == (n_par if forks else 0):
+            break
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    outs = {rid: list(g.out_tokens) for rid, g in eng.live.items()}
+    want = {rid: n_new for rid in range(n_par)}
+    if forks:
+        want.update({100 + rid: fork_at + child_new for rid in range(n_par)})
+    if {r: len(t) for r, t in outs.items()} != want:
+        raise AssertionError(f"fork mix: tokens made "
+                             f"{ {r: len(t) for r, t in outs.items()} }, "
+                             f"not {want}")
+    return outs, run_s
+
+
+def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
+    """Phase 29 (d): BF16_FORK's mix on gemma2-2b's bf16 serve plan,
+    first on the copy-based baseline (``kv_backend="host"``: its model-
+    owned K/V pools bf16, CoW'd through ``dbs_copy`` once a pool at the
+    first step after a fork), then on zero-copy (``fused``). Checked on
+    each: every ``dbs_copy`` launch of the bf16 form, launches on the
+    baseline and none on zero-copy; no plain version called; each parent's
+    and child's tokens equal an independent decode of the same streams on
+    a second engine of the same backend (the TIE_MARGIN rule on the fork
+    run's top-2 margins); the two backends' tokens equal under the same
+    rule with ``tie_margin`` (phase 29 (c)'s: their decode attends through
+    other paths). Every kept copy held against the plain version bit for
+    bit on a copy of a bf16 pool and timed (phase 14's check). Printed:
+    tokens/s, prefill seconds, seconds in the CoW copies (baseline) and in
+    the write pumps (zero-copy), launches, peak memory. Returns the copy
+    parity and the launches for the kernels line."""
+    import collections
+    from repro_torch.kernels.dbs import copy_kernel
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as serving
+    mods = _kernel_modules()
+    t_phase = time.perf_counter()
+    fields, outs, kept = {}, {}, []
+    inner_copy, inner_decode = serving.dbs_copy_pool, M.decode_step
+    for backend in ("host", "fused"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        eng = _serve_engine(torch, cfg, params, dev, kv_backend=backend,
+                            plan=_bf16_plan("cuda"))
+        clock = {"prefill": 0.0, "cow_copies": 0.0, "pumps": 0.0}
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                clock[name] += time.perf_counter() - t
+                return out
+            return run
+
+        def copy(pool, src, dst, mask, **k):
+            kept.append((pool, src.clone(), dst.clone(), mask.clone()))
+            return inner_copy(pool, src, dst, mask, **k)
+        margins = []
+        if backend == "host":        # its decode is the model's step
+            eng._prefill_one_host = timed("prefill", eng._prefill_one_host)
+            serving.dbs_copy_pool = timed("cow_copies", copy)
+            M.decode_step = _margin_step(torch, eng, inner_decode, margins)
+        else:
+            eng._prefill_one_zero = timed("prefill", eng._prefill_one_zero)
+            eng._pump_writes = timed("pumps", eng._pump_writes)
+            eng._step_fn = _margin_step(torch, eng, eng._step_fn, margins)
+        for mod in mods:
+            mod.reset_counts()
+        try:
+            outs[backend], run_s = _fork_mix(torch, eng, prompts)
+        finally:
+            serving.dbs_copy_pool, M.decode_step = inner_copy, inner_decode
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        copy_by = dict(copy_kernel.LAUNCHES_BY_DTYPE)
+        plain = {k: v for mod in mods for k, v in mod.PLAIN_CALLS.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        margin_of = collections.defaultdict(lambda: float("inf"),
+                                            _margin_map(torch, margins))
+        if any(plain.values()):
+            raise AssertionError(f"fork mix on {backend}: plain versions "
+                                 f"ran on the card: {plain}")
+        n_copy = launches["dbs_copy"]
+        if backend == "host" and (n_copy <= 0 or copy_by["bfloat16"]
+                                  != n_copy
+                                  or n_copy % len(_model_pools(eng))):
+            raise AssertionError(f"the baseline's forks launched dbs_copy "
+                                 f"{copy_by}, not the bf16 form alone, a "
+                                 f"launch a pool")
+        if backend == "fused" and n_copy:
+            raise AssertionError(f"zero-copy launched dbs_copy {n_copy} "
+                                 f"times")
+        if launches["rwkv6_scan"]:
+            raise AssertionError(f"fork mix on {backend}: gemma2-2b "
+                                 f"launched rwkv6_scan: {launches}")
+        eng.volumes.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        # an independent decode of the same streams: the parents alone
+        ref = _serve_engine(torch, cfg, params, dev, kv_backend=backend,
+                            plan=_bf16_plan("cuda"))
+        ref_outs, _ = _fork_mix(torch, ref, prompts, forks=False)
+        ref.volumes.close()
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_par, _n, fork_at, child_new = BF16_FORK
+        want = {**ref_outs, **{100 + r: ref_outs[r][:fork_at + child_new]
+                               for r in range(n_par)}}
+        ties = _tokens_match(outs[backend], want, margin_of,
+                             f"fork mix on {backend} against an independent "
+                             f"decode")
+        if backend == "fused":
+            fused_margins = margin_of
+        n_tok = sum(len(t) for t in outs[backend].values()) - n_par * fork_at
+        fields[backend] = dict(
+            run_seconds=run_s, tokens_per_s=n_tok / run_s,
+            generated_tokens=n_tok, seconds=clock, launches=launches,
+            dbs_copy_launches_by_dtype=copy_by, plain_calls=plain,
+            near_ties_vs_independent=ties, max_memory_allocated=peak)
+    cross = _tokens_match(outs["host"], outs["fused"], fused_margins,
+                          "fork mix, baseline against zero-copy", tie_margin)
+    pool0 = kept[0][0]
+    e, page = pool0.shape[:2]
+    copies = copy_parity(torch, pool0.reshape(e, page, -1).clone(),
+                         [(s_.to(torch.int32), d_.to(torch.int32), m.bool())
+                          for _p, s_, d_, m in kept])
+    emit(phase="kernel_parity", kernel="dbs_copy", dtype="bfloat16",
+         width="serving baseline (bf16 pools)",
+         pool_shape=list(pool0.reshape(e, page, -1).shape),
+         calls=len(kept), rows_copied=copies["rows_copied"], equal=True,
+         **{k: copies[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "library_ms",
+                                   "bytes_per_call", "resources")})
+    del kept, pool0
+    emit(phase="serve_fork_bf16", model=SERVE_MODEL,
+         config=dict(n_slots=8, max_len=2048, kv_replicas=2,
+                     attn_impl="cuda", compute_dtype="bfloat16",
+                     param_dtype="bfloat16"),
+         parents=BF16_FORK[0], parent_new_tokens=BF16_FORK[1],
+         fork_after_token=BF16_FORK[2], child_new_tokens=BF16_FORK[3],
+         backends=fields, near_ties_baseline_vs_zero_copy=cross,
+         tie_margin=tie_margin,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    return {"copy": copies,
+            "launches": {b: f["launches"] for b, f in fields.items()},
+            "dbs_copy_by_dtype": fields["host"]["dbs_copy_launches_by_dtype"]}
 
 
 @contextlib.contextmanager
@@ -7227,10 +7642,16 @@ def main() -> int:
         k["launches_dryrun_bf16_path"] = 0
     paged_k["launches_dryrun_path"] = dry_launches
     paged_k["launches_dryrun_bf16_path"] = dry16_launches
-    for k in (copy_k, rwkv_k):
-        k["launches_bf16_serve_path"] = 0
-    for k in (write_k, read_k, paged_k, flash_k):
+    for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
         k["launches_bf16_serve_path"] = bf16["launches"][k["name"]]
+        # phase 29 (d): the fork mix on the bf16 baseline and zero-copy
+        k["launches_bf16_fork_path"] = {
+            b: got[k["name"]] for b, got in bf16["fork"]["launches"].items()}
+    copy_k["launches_bf16_fork_path_by_dtype"] = bf16["fork"][
+        "dbs_copy_by_dtype"]
+    copy_k.update(_width_keys("bf16_fork", bf16["fork"]["copy"]))
+    for k in (write_k, read_k):
+        k.update(_width_keys("bf16_serve", bf16["rw"][k["name"]]))
     for k in (paged_k, flash_k):
         k["launches_bf16_serve_path_by_dtype"] = bf16["by_dtype"][k["name"]]
         k["launches_bf16_serve_path_by_form"] = bf16["by_form"][k["name"]]

@@ -58,21 +58,26 @@ _vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # pointers and the stream are c_void_p, or ctypes would cut them to 32 bits
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "dbs_rw": {
+        # pool, src, dst, lane_of, payload; n_lanes, n_rows, page, block
+        # bytes, word (bytes an access); stream
         "dbs_rw_write": [_vp] * 5 + [_ci] * 5 + [_vp],
+        # pool, ext, block, out; n_lanes, n_rows, page, block bytes, word;
+        # stream
         "dbs_rw_read": [_vp] * 4 + [_ci] * 5 + [_vp],
-        # vec4; int[5] out (registers, static and dynamic shared memory,
+        # word; int[5] out (registers, static and dynamic shared memory,
         # blocks per SM, threads)
         "dbs_rw_write_info": [_ci, _vp],
-        # n_lanes, d, vec4; int[6] out (as dbs_rw_write_info, then blocks
-        # in the grid)
+        # n_lanes, block bytes, word; int[6] out (as dbs_rw_write_info,
+        # then blocks in the grid)
         "dbs_rw_read_info": [_ci] * 3 + [_vp],
     },
     "dbs_copy": {
-        # pool, src, dst, mask; mask_i32, n_lanes, n_rows, page, d, vec4;
-        # stream
-        "dbs_copy": [_vp] * 4 + [_ci] * 6 + [_vp],
-        # n_lanes, page, d, vec4; int[6] out (as dbs_rw_read_info)
-        "dbs_copy_info": [_ci] * 4 + [_vp],
+        # pool, src, dst, mask; mask_i32, n_lanes, n_rows; row bytes
+        # (64-bit); word; stream
+        "dbs_copy": [_vp] * 4 + [_ci] * 3 + [ctypes.c_int64, _ci, _vp],
+        # n_lanes, row bytes (64-bit), word; int[6] out (as
+        # dbs_rw_read_info)
+        "dbs_copy_info": [_ci, ctypes.c_int64, _ci, _vp],
     },
     "paged_attention": {
         # q, k, v, table, lengths, out, partials (or null); b, h, kv, d,
@@ -117,12 +122,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;
-        # r/k/v/logw/y strides (batch, seq, head; elements, 64-bit); stream
-        "rwkv6_scan": [_vp] * 8 + [_ci] * 5 + [ctypes.c_int64] * 15 + [_vp],
-        # b, seq, h, d, chunk; int[8] out (schedule, column blocks, grid
-        # blocks, threads, registers, static and dynamic shared memory,
+        # r/k/v/logw/y strides (batch, seq, head; elements, 64-bit); in_bf16
+        # (r, k, v, logw and y bf16, else fp32), u_bf16; stream
+        "rwkv6_scan": [_vp] * 8 + [_ci] * 5 + [ctypes.c_int64] * 15
+        + [_ci, _ci, _vp],
+        # b, seq, h, d, chunk, in_bf16; int[8] out (schedule, column blocks,
+        # grid blocks, threads, registers, static and dynamic shared memory,
         # blocks per SM)
-        "rwkv6_scan_info": [_ci] * 5 + [_vp],
+        "rwkv6_scan_info": [_ci] * 6 + [_vp],
     },
 }
 
@@ -256,6 +263,28 @@ def check_tensor(name: str, t, dtype, shape, device,
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+WORDS = (16, 8, 4, 2, 1)            # the DBS kernels' access widths
+
+
+def word_bytes(nbytes: int, *tensors) -> int:
+    """The widest access, in bytes, that divides ``nbytes`` (a row's or a
+    block's) and every tensor's base address: the word the DBS kernels move
+    a dtype's bytes in (16 for fp32 rows of 4k floats, 2 for an odd count
+    of bf16)."""
+    for w in WORDS:
+        if nbytes % w == 0 and all(t.data_ptr() % w == 0 for t in tensors):
+            return w
+    return 1
+
+
+def check_pool_dtype(name: str, t) -> None:
+    """Raise unless ``t``'s elements are 1, 2, 4 or 8 bytes: the DBS
+    kernels copy any such dtype bit for bit, as the TPU kernels do."""
+    if t.element_size() not in (1, 2, 4, 8):
+        raise TypeError(f"{name}: {t.dtype} has {t.element_size()}-byte "
+                        "elements; the DBS kernels take 1, 2, 4 or 8")
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -1,27 +1,18 @@
 """Time this checkout's DBS, paged-attention, flash-attention and RWKV-6
-kernels against other builds of the same C entries, on one card, in turns
+kernels against other checkouts' builds of them, on one card, in turns
 (needs the card).
 
     PYTHONPATH=src python -m repro_torch.kernels.compare \\
         [--against NAME=DIR ...]
 
 ``DIR`` is the root of another checkout (the parent commit unpacked with
-``git archive``, say): its sources of ``NAMES`` (``dbs_rw.cu``,
-``dbs_copy.cu``, ``paged_attention.cu`` and its bf16 library
-``paged_attention_bf16.cu``, ``flash_attention.cu``,
-``flash_attention_wgmma.cu`` where the checkout has it, ``rwkv6_scan.cu``)
-are built beside this checkout's under
-``build/torch_kernels/compare/NAME/``, one nvcc each, together. Each
-build is called through the C entries it exports: a paged-attention build
-without ``paged_attention_info`` has the entry without the partials
-scratch and the split count (one block per sequence and KV head); a
-flash-attention source whose entry takes no ``dv`` (before V had a width
-of its own) is called without it; the bf16 flash case runs the wgmma
-entry where the build has it, else ``flash_attention_bf16``; the MLA
-paged case takes each build's own split rule (``paged_block_rows`` where
-its source has the packed kernel, else ``paged_row_groups``' one). Every
-build is timed on the same inputs, made from a seed on the card at the
-main paths' shapes:
+``git archive``, say). Each checkout runs in a Python of its own on its
+own ``src``: that checkout's ``compare.build`` builds its sources (one
+nvcc each, together, under its ``build/torch_kernels/compare/NAME/``),
+its ``inputs`` makes the call lists on the card from seed 0, and its
+``runners`` call its builds through its own C entries, so no checkout
+needs to know another's interface. This checkout's cases, at the main
+paths' shapes:
 
 - ``read_block_device``: 32 batches of 64 lanes over an (2049, 32, 4096)
   fp32 pool, 8% hole lanes (the block device's reads);
@@ -62,20 +53,23 @@ main paths' shapes:
 - ``launch_floor``: a one-element ``zero_()`` per call.
 
 Each is one CUDA graph of a pass over the calls, the median of 20
-replays, per call (``timing.graph_ms``); ``<case>_queued`` is the same
-pass launched eagerly while a spin kernel holds the card, so the launches
-queue up and run back to back (``timing.queued_ms``). The builds take
-turns (A B ... B A, twice) and each build's time is the median of its
-turns. Prints one JSON line per build and the card's name and power
-limit.
+replays, per call (``timing.graph_ms``, this checkout's for every side);
+``<case>_queued`` is the same pass launched eagerly while a spin kernel
+holds the card, so the launches queue up and run back to back
+(``timing.queued_ms``). The checkouts take turns (A B ... B A, twice):
+one side times all its cases while the others wait, and each build's
+time is the median of its turns. Prints one JSON line per build and the
+card's name and power limit.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import os
 import statistics
 import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List
@@ -86,42 +80,53 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention.kernel import (
     paged_block_rows, paged_partial_floats, paged_row_groups, paged_splits,
     sm_count)
-from repro_torch.kernels.timing import graph_ms, queued_ms
 
 ROOT = _build.KERNELS.parents[2]
 NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "paged_attention_bf16",
          "flash_attention", "flash_attention_wgmma", "rwkv6_scan")
 TURNS = 2                 # rounds of A B ... B A
-_vp, _ci, _cf, _i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int64)
-# the paged entry before the split (no partials, no n_split)
-PAGED_UNSPLIT = [_vp] * 6 + [_ci] * 8 + [_i64] * 4 + [_ci, _cf, _cf, _vp]
-# the flash entry before V had a width of its own (no dv)
-FLASH_ONE_WIDTH = [_vp] * 4 + [_ci] * 6 + [_i64] * 12 + [_ci, _ci, _cf, _cf,
-                                                         _vp]
-FLASH_DV = "int b, int h, int kv, int sq, int sk, int d, int dv,"
+
+# runs on one checkout, through its own build, inputs and runners (what
+# every checkout's compare module has); reads "turn" lines and answers
+# each with one JSON line of its times, on the stdout it was given
+CHILD = r"""
+import importlib.util, json, os, sys
+from pathlib import Path
+tag, timing_path = sys.argv[1], sys.argv[2]
+out = os.fdopen(os.dup(1), "w")
+os.dup2(2, 1)                      # nvcc and prints go to stderr
+spec = importlib.util.spec_from_file_location("compare_timing", timing_path)
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+import torch
+from repro_torch.kernels import compare as C
+dev = torch.device("cuda", 0)
+libs = C.build(tag, C.ROOT)
+cases = C.inputs(dev)
+runs = C.runners(libs, cases)
+x = torch.ones(1, device=dev)
+print(json.dumps({"ready": sorted(runs)}), file=out, flush=True)
+for line in sys.stdin:
+    if line.strip() != "turn":
+        break
+    got = {"launch_floor": timing.graph_ms(
+        lambda: [x.zero_() for _ in range(64)], 64)}
+    for case, fn in runs.items():
+        n = len(cases[case][1])
+        got[case] = timing.graph_ms(fn, n)
+        got[f"{case}_queued"] = timing.queued_ms(fn, n)
+    print(json.dumps(got), file=out, flush=True)
+"""
 
 
 def build(tag: str, root: Path) -> Dict[str, ctypes.CDLL]:
-    """Build ``root``'s sources of ``NAMES`` that it has (one nvcc each,
-    run together) and load them."""
-    names = [n for n in NAMES
-             if (root / _build.SOURCES[n].relative_to(ROOT)).is_file()]
-    with ThreadPoolExecutor(len(names)) as ex:
+    """Build ``root``'s sources of ``NAMES`` (one nvcc each, run together)
+    and load them."""
+    with ThreadPoolExecutor(len(NAMES)) as ex:
         libs = ex.map(lambda n: _build.build_variant(
             n, f"compare/{tag}", root / _build.SOURCES[n].relative_to(ROOT)),
-            names)
-    libs = dict(zip(names, libs))
-    paged_src = root / _build.SOURCES["paged_attention"].relative_to(ROOT)
-    libs["paged_packed"] = "paged_packed_kernel" in paged_src.read_text()
-    paged = libs["paged_attention"]
-    if not hasattr(paged, "paged_attention_info"):
-        paged.paged_attention.argtypes = PAGED_UNSPLIT
-    flash_src = root / _build.SOURCES["flash_attention"].relative_to(ROOT)
-    libs["flash_dv"] = FLASH_DV in flash_src.read_text()
-    if not libs["flash_dv"]:
-        libs["flash_attention"].flash_attention.argtypes = FLASH_ONE_WIDTH
-    return libs
+            NAMES)
+    return dict(zip(NAMES, libs))
 
 
 def inputs(dev, seed: int = 0):
@@ -247,7 +252,6 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
     """One pass over each case's calls through ``libs``."""
     rw, cp = libs["dbs_rw"].dbs_rw_read, libs["dbs_copy"].dbs_copy
     pa = libs["paged_attention"].paged_attention
-    split = hasattr(libs["paged_attention"], "paged_attention_info")
     scan = libs["rwkv6_scan"].rwkv6_scan
     fa = libs["flash_attention"].flash_attention
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
@@ -261,7 +265,8 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
             for ext, blk, out in calls:
                 _build.raise_on(rw(pool.data_ptr(), ext.data_ptr(),
                                    blk.data_ptr(), out.data_ptr(),
-                                   ext.numel(), e, page, d, 1, st), name)
+                                   ext.numel(), e, page, 4 * d, 16, st),
+                                name)
         return run
 
     def copy(name):
@@ -273,7 +278,8 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
             for src, dst, mask in calls:
                 _build.raise_on(cp(pool.data_ptr(), src.data_ptr(),
                                    dst.data_ptr(), mask.data_ptr(), 0,
-                                   src.numel(), e, page, d, 1, st), name)
+                                   src.numel(), e, 4 * page * d, 16, st),
+                                name)
         return run
 
     def paged(name):
@@ -296,9 +302,8 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
                         lengths.data_ptr(), out.data_ptr()]
                 dims = [b, h, kv, d, d, p_max, page, e, page * tok, tok,
                         page * tok, tok, 0, 1.0 / 16, 50.0]
-                args = (head + [part.data_ptr()] + dims + [n_split, st]
-                        if split else head + dims + [st])
-                _build.raise_on(pa(*args), name)
+                _build.raise_on(pa(*head, part.data_ptr(), *dims, n_split,
+                                   st), name)
         return run
 
     def rwkv(name):
@@ -313,23 +318,21 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
                     r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                     u.data_ptr(), None if s0 is None else s0.data_ptr(),
                     y.data_ptr(), s_out.data_ptr(), b, s, h, d, 64,
-                    *strides, st), name)
+                    *strides, 0, 0, st), name)
         return run
 
     def flash(name):
         _, calls = cases[name]
         bf16 = calls[0][0].dtype == torch.bfloat16
-        wg = libs.get("flash_attention_wgmma") if bf16 else None
-        entry = (fa if not bf16 else wg.flash_attention_bf16_wgmma if wg
-                 else libs["flash_attention"].flash_attention_bf16)
+        entry = (libs["flash_attention_wgmma"].flash_attention_bf16_wgmma
+                 if bf16 else fa)
 
         def run():
             st = stream()
             for q, k, v, o, window, cap in calls:
                 b, h, sq, d = q.shape
                 kv, sk = k.shape[1], k.shape[2]
-                dims = [b, h, kv, sq, sk, d] + ([d] if libs["flash_dv"]
-                                                and not wg else [])
+                dims = [b, h, kv, sq, sk, d] + ([] if bf16 else [d])
                 strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
                 tail = [1, window, d ** -0.5, cap]
                 _build.raise_on(entry(
@@ -352,13 +355,10 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
             dv = d
             tok = n_planes * kv * d
             strides = [page * tok, tok, page * tok, tok]
-        rows = (paged_block_rows(h, kv, d, dv)
-                if libs["paged_packed"] else kv * paged_row_groups(h, kv))
-        n_split = paged_splits(p_max, b * rows, sm_count(q0.device), h // kv,
-                               max(d, dv))
+        n_split = paged_splits(p_max, b * paged_block_rows(h, kv, d, dv),
+                               sm_count(q0.device), h // kv, max(d, dv))
         part = torch.empty(max(1, paged_partial_floats(
-            b, h, kv, dv, n_split,
-            "packed" if libs["paged_packed"] else "lanes")), device=q0.device)
+            b, h, kv, dv, n_split, "packed")), device=q0.device)
         out = torch.empty((b, h, dv), device=q0.device, dtype=q0.dtype)
         lib = (libs["paged_attention"].paged_attention if form == "f32"
                else libs["paged_attention_bf16"].paged_attention_bf16)
@@ -393,36 +393,48 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("compare: no CUDA device")
-    dev = torch.device("cuda", 0)
     roots = {"this": ROOT}
     for item in args.against:
         name, _, path = item.partition("=")
         roots[name] = Path(path).resolve()
-    libs = {tag: build(tag, root) for tag, root in roots.items()}
-    cases = inputs(dev)
-    runs = {tag: runners(lib, cases) for tag, lib in libs.items()}
-    order = (list(roots) + list(roots)[::-1]) * TURNS
+    timing = str(Path(__file__).with_name("timing.py"))
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-c", CHILD, tag, timing], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for tag, root in roots.items()}
     got: Dict[str, Dict[str, List[float]]] = {t: {} for t in roots}
-    x = torch.ones(1, device=dev)
-    floor = []
-    for tag in order:
-        floor.append(graph_ms(lambda: [x.zero_() for _ in range(64)], 64))
-        for case, fn in runs[tag].items():
-            n = len(cases[case][1])
-            got[tag].setdefault(case, []).append(graph_ms(fn, n))
-            got[tag].setdefault(f"{case}_queued", []).append(
-                queued_ms(fn, n))
+    try:
+        for tag, proc in procs.items():          # every side built
+            _read(tag, proc)
+        for tag in (list(roots) + list(roots)[::-1]) * TURNS:
+            procs[tag].stdin.write("turn\n")
+            procs[tag].stdin.flush()
+            for key, ms in _read(tag, procs[tag]).items():
+                got[tag].setdefault(key, []).append(ms)
+    finally:
+        for proc in procs.values():
+            proc.stdin.close()
+            proc.wait()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     for tag in roots:
         print(json.dumps({"build": tag, "root": str(roots[tag]), **{
-            case: statistics.median(ts) for case, ts in got[tag].items()},
-            "turns": {case: ts for case, ts in got[tag].items()},
-            "launch_floor": statistics.median(floor), "card": card}))
+            key: statistics.median(ts) for key, ts in got[tag].items()},
+            "turns": got[tag], "card": card}))
     print(card)
     return 0
+
+
+def _read(tag: str, proc: subprocess.Popen) -> Dict:
+    """The next JSON line from a checkout's Python; raises if it ended."""
+    line = proc.stdout.readline()
+    if not line:
+        raise RuntimeError(f"compare: {tag}'s Python ended "
+                           f"(exit {proc.wait()})")
+    return json.loads(line)
 
 
 if __name__ == "__main__":

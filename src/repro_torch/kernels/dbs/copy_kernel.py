@@ -6,10 +6,13 @@ built at first use by ``kernels/_build.py``. The wrapper checks device,
 dtype, shape and contiguity, then launches the kernel for a tensor on a
 CUDA device or calls the plain version (kernels/dbs/ref.py
 ``dbs_copy_ref``) for a tensor on the CPU. A CUDA tensor gets the kernel or
-an error, never the plain version.
+an error, never the plain version. The pool may be of any dtype of 1, 2, 4
+or 8 bytes, as the TPU kernel's: the kernel copies a row's bytes in the
+widest word that divides them and the pool's alignment (``word_bytes``).
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the wrapper's calls
-of the plain version, so a run can show which path it went through.
+``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_DTYPE`` splits them by
+the pool's dtype, and ``PLAIN_CALLS`` counts the wrapper's calls of the
+plain version, so a run can show which path it went through.
 
 The entry is a custom op (``repro_torch::dbs_copy``, which mutates the
 pool; ``_build.py entry``): no FLOPs, and each lane's row read and written.
@@ -20,28 +23,33 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels._build import check_pool_dtype
 from repro_torch.kernels._build import check_tensor as _check
-from repro_torch.kernels._build import entry, kernel_info, library, raise_on
+from repro_torch.kernels._build import (entry, kernel_info, library,
+                                        raise_on, word_bytes)
 from repro_torch.kernels.dbs.ref import dbs_copy_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_copy": 0}
+LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
+                                     "uint8": 0}
 PLAIN_CALLS: Dict[str, int] = {"dbs_copy": 0}
 MAX_LANES = 65535            # lanes a call may carry
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE):
         for k in counts:
             counts[k] = 0
 
 
-def copy_info(n_lanes: int, page: int, d: int,
-              vec4: bool = True) -> Dict[str, int]:
+def copy_info(n_lanes: int, row_bytes: int, word: int = 16
+              ) -> Dict[str, int]:
     """The CUDA copy kernel's registers, shared memory, resident blocks per
     SM, threads per block, and the grid blocks it takes for ``n_lanes``
-    lanes of ``(page, d)`` rows (needs the card)."""
+    lanes of ``row_bytes``-byte rows in ``word``-byte accesses (needs the
+    card)."""
     return kernel_info("dbs_copy", "dbs_copy_info",
-                       (n_lanes, page, d, int(vec4)),
+                       (n_lanes, row_bytes, word),
                        ("registers", "static_smem_bytes",
                         "dynamic_smem_bytes", "blocks_per_sm", "threads",
                         "grid_blocks"))
@@ -68,8 +76,9 @@ def check_copy_routing(src, dst, mask, n_rows: int) -> None:
 
 
 def dbs_copy(pool, src, dst, mask, *, check_routing: bool = False):
-    """pool: (E, page, D) f32, updated in place and returned; src/dst: (N,)
-    int32 extent ids; mask: (N,) bool or int32, nonzero = copy.
+    """pool: (E, page, D) of a 1-, 2-, 4- or 8-byte dtype, updated in
+    place and returned; src/dst: (N,) int32 extent ids; mask: (N,) bool or
+    int32, nonzero = copy.
 
     ``pool[dst[i]] = pool[src[i]]`` for every live lane (``mask[i]`` and
     both ids in ``[0, E)``); every other lane touches nothing. Live lanes
@@ -79,7 +88,8 @@ def dbs_copy(pool, src, dst, mask, *, check_routing: bool = False):
     e, page, d = pool.shape
     n = src.shape[0]
     dev = pool.device
-    _check("pool", pool, torch.float32, (e, page, d), dev)
+    check_pool_dtype("pool", pool)
+    _check("pool", pool, pool.dtype, (e, page, d), dev)
     _check("src", src, torch.int32, (n,), dev)
     _check("dst", dst, torch.int32, (n,), dev)
     if mask.dtype not in (torch.bool, torch.int32):
@@ -107,14 +117,17 @@ def _copy(pool, src, dst, mask) -> None:
     if n == 0:
         return
     lib = library("dbs_copy")
-    vec4 = int(d % 4 == 0 and pool.data_ptr() % 16 == 0)
+    row_bytes = page * d * pool.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dbs_copy(pool.data_ptr(), src.data_ptr(), dst.data_ptr(),
                            mask.data_ptr(), int(mask.dtype == torch.int32),
-                           n, e, page, d, vec4, stream)
+                           n, e, row_bytes, word_bytes(row_bytes, pool),
+                           stream)
     raise_on(err, "dbs_copy")
     LAUNCHES["dbs_copy"] += 1
+    key = str(pool.dtype).split(".")[1]
+    LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + 1
 
 
 # ---------------------------------------------------------------------------

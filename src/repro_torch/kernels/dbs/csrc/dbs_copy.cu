@@ -4,15 +4,20 @@
 //
 // Replaces the Pallas kernel repro/kernels/dbs/copy_kernel.py::dbs_copy
 // (body _kernel): pool[dst[i]] = pool[src[i]] for every lane with mask[i],
-// in place, on an (n_rows, page, d) fp32 pool.
+// in place, on an (n_rows, page, d) pool of any dtype. A copy moves bytes:
+// the kernel sees a row as row_bytes bytes and copies it in words of 16,
+// 8, 4, 2 or 1 bytes, the widest that divides the row's bytes and the
+// pool's alignment (words.cuh; the wrapper decides: fp32 rows of
+// d % 4 == 0 take 16).
 //
 // Bound on an H100 SXM (3.35 TB/s HBM): pure data movement, so bytes bound
-// it. A copied lane reads and writes one whole extent row (page * d * 4
-// bytes each way). At the block device's width (page 32, d 4096) a row is
-// 512 KiB and a batch of 64 CoW lanes moves 64 MiB, about 20 us of HBM
-// time; on the serving baseline at gemma2-2b (page 32, d 4 * 256) a row is
-// 128 KiB. But the block device's own calls copy 0.3-0.4 rows on average
-// and most copy none, so a call is mostly its launch: what counts is that a
+// it. A copied lane reads and writes one whole extent row (page * d *
+// itemsize bytes each way). At the block device's width (page 32, d 4096
+// fp32) a row is 512 KiB and a batch of 64 CoW lanes moves 64 MiB, about
+// 20 us of HBM time; on the serving baseline at gemma2-2b (page 32, d 4 *
+// 256) a row is 128 KiB in fp32 and 64 KiB on the bf16 serve plan's
+// pools. But the block device's own calls copy 0.3-0.4 rows on average and
+// most copy none, so a call is mostly its launch: what counts is that a
 // call with no live lane does next to nothing.
 //
 // Design: a small grid that compacts the live lanes itself, warp by warp.
@@ -34,10 +39,11 @@
 // to build the list) an empty call cost about the same and a live call
 // more. Every warp computes the same list. A call with no live lane costs
 // its launch and one round trip for 576 bytes (64 lanes). More lanes than
-// a window take more windows (the wrapper allows 65535). float4 when
-// d % 4 == 0 and the pool is 16-byte aligned (the wrapper decides), scalar
-// otherwise (1 KiB items). A row holds fewer than 2^31 elements of T, so
-// item offsets are 32-bit; a larger row is refused.
+// a window take more windows (the wrapper allows 65535). The word is the
+// wrapper's: 16 bytes (4 KiB items) when the row's bytes are a multiple of
+// 16 and the pool is 16-byte aligned, else the widest of 8, 4, 2 and 1
+// bytes that fits (items of 32 x 8 words). A row holds fewer than 2^31
+// words, so item offsets are 32-bit; a larger row is refused.
 //
 // Launch. Most calls do next to nothing, so the launch itself is much of a
 // call. The kernel is launched with programmatic stream serialization
@@ -66,17 +72,20 @@
 // the call, whichever warps run first. The wrapper checks the contract
 // when asked (check_routing=True).
 //
-// Row offsets are 64-bit: a block-device pool holds 1.6e9 floats.
+// Row offsets are 64-bit: a block-device pool holds 6.4e9 bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "words.cuh"
+
 
 namespace {
 
 constexpr int kThreads = 64;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 8;                 // 16-byte loads in flight
-constexpr int kItem = 32 * kPerThread;        // elements of T per warp item
+constexpr int kItem = 32 * kPerThread;        // words per warp item
 constexpr int kLanesPerThread = 4;
 constexpr int kWindow = 32 * kLanesPerThread; // lanes a warp compacts a pass
 constexpr int kBlocksPerSm = 1;
@@ -194,15 +203,16 @@ unsigned copy_grid(int n_lanes, int items_per_row) {
 
 extern "C" {
 
-// pool (n_rows, page, d) f32, updated in place; src, dst (n_lanes,) i32;
-// mask (n_lanes,) bool (one byte each) or i32 (mask_i32 != 0). vec4 != 0
-// selects float4 accesses (d % 4 == 0, aligned).
+// pool (n_rows, page, d) of any dtype, updated in place, row_bytes = page *
+// d * itemsize bytes a row; src, dst (n_lanes,) i32; mask (n_lanes,) bool
+// (one byte each) or i32 (mask_i32 != 0). word: the bytes of one access
+// (16, 8, 4, 2 or 1; it divides row_bytes and the pool's alignment).
 int dbs_copy(void* pool, const void* src, const void* dst, const void* mask,
-             int mask_i32, int n_lanes, int n_rows, int page, int d, int vec4,
-             void* stream) {
-  if (n_lanes > 0 && n_rows > 0 && page > 0 && d > 0) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const int64_t row64 = (int64_t)page * (vec4 ? d / 4 : d);
+             int mask_i32, int n_lanes, int n_rows, int64_t row_bytes,
+             int word, void* stream) {
+  if (word <= 0 || row_bytes % word) return (int)cudaErrorInvalidValue;
+  if (n_lanes > 0 && n_rows > 0 && row_bytes > 0) {
+    const int64_t row64 = row_bytes / word;
     if (row64 > 0x7fffffff) return (int)cudaErrorInvalidValue;
     const int row = (int)row64;
     const int items = (int)((row64 + kItem - 1) / kItem);
@@ -213,31 +223,33 @@ int dbs_copy(void* pool, const void* src, const void* dst, const void* mask,
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(grid);
     cfg.blockDim = dim3(kThreads);
-    cfg.stream = st;
+    cfg.stream = (cudaStream_t)stream;
     cfg.attrs = pdl;
     cfg.numAttrs = 1;
-    if (vec4) {
-      cudaLaunchKernelEx(&cfg, copy_kernel<float4>, (float4*)pool,
-                         (const int*)src, (const int*)dst, mask, mask_i32,
-                         n_lanes, n_rows, row, items);
-    } else {
-      cudaLaunchKernelEx(&cfg, copy_kernel<float>, (float*)pool,
-                         (const int*)src, (const int*)dst, mask, mask_i32,
-                         n_lanes, n_rows, row, items);
-    }
+    const bool known = by_word(word, [&](auto w) {
+      using T = decltype(w);
+      cudaLaunchKernelEx(&cfg, copy_kernel<T>, (T*)pool, (const int*)src,
+                         (const int*)dst, mask, mask_i32, n_lanes, n_rows,
+                         row, items);
+    });
+    if (!known) return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// The copy kernel's resources at n_lanes lanes of (page, d) rows (float4
-// when vec4 != 0): info[0] registers per thread, [1] static and [2]
+// The copy kernel's resources at n_lanes lanes of row_bytes-byte rows in
+// words of `word` bytes: info[0] registers per thread, [1] static and [2]
 // dynamic shared memory per block (bytes), [3] blocks resident per SM, [4]
 // threads per block, [5] blocks in the grid.
-int dbs_copy_info(int n_lanes, int page, int d, int vec4, int* info) {
-  if (n_lanes <= 0 || page <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const void* fn = vec4 ? (const void*)copy_kernel<float4>
-                        : (const void*)copy_kernel<float>;
-  const int64_t row = (int64_t)page * (vec4 ? d / 4 : d);
+int dbs_copy_info(int n_lanes, int64_t row_bytes, int word, int* info) {
+  if (n_lanes <= 0 || row_bytes <= 0 || word <= 0 || row_bytes % word)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  if (!by_word(word, [&](auto w) {
+        fn = (const void*)copy_kernel<decltype(w)>;
+      }))
+    return (int)cudaErrorInvalidValue;
+  const int64_t row = row_bytes / word;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;

@@ -12,15 +12,22 @@
 // _read_kernel): out[i] = pool[clamp(ext[i])][clamp(block[i])], zeros where
 // the raw ext[i] < 0.
 //
+// Any dtype, as the TPU kernels take: both kernels move bytes. A block of D
+// elements is block_bytes = D * itemsize bytes, moved in words of 16, 8, 4,
+// 2 or 1 bytes, the widest that divides block_bytes and the base pointers'
+// alignment (words.cuh; the wrappers decide: fp32 blocks of D % 4 == 0
+// take 16). A hole reads as zero bytes, which is 0 in every float and
+// integer dtype.
+//
 // Bound on an H100 SXM (3.35 TB/s HBM): both are pure data movement with no
 // arithmetic, so bytes bound them. The semantic bytes are those of
 // kernels/dbs/ops.py dbs_write_bytes / dbs_read_bytes: a CoW lane reads and
-// writes one whole extent row (page * D * 4 bytes each way), every written
-// block moves D * 4 bytes, every read lane reads and writes D * 4 bytes. At
-// the main path's widths (page 32, D 4096 fp32, 64 lanes) a write batch
-// averages about 10.7 MB, 3.2 us of HBM time, and one read batch is 2 MiB,
-// about 0.63 us: a batch is too small to fill the card for long, so what
-// counts is how many loads are in flight at once.
+// writes one whole extent row (page * D * itemsize bytes each way), every
+// written block moves D * itemsize bytes, every read lane reads and writes
+// D * itemsize bytes. At the main path's widths (page 32, D 4096 fp32, 64
+// lanes) a write batch averages about 10.7 MB, 3.2 us of HBM time, and one
+// read batch is 2 MiB, about 0.63 us: a batch is too small to fill the card
+// for long, so what counts is how many loads are in flight at once.
 //
 // Write design: one thread block per (block j of the row, lane i), 32 x 64
 // = 2048 blocks at the block device's width. A block reads dst[i], src[i]
@@ -32,14 +39,15 @@
 // 256 threads, each issuing its four 16-byte loads before its stores, so
 // 16 KiB (D 4096) moves in one round with 1024 loads in flight; a wider
 // block (D 26624 on zero-copy serving, 104 KiB) loops over such rounds.
-// float4 when D % 4 == 0 and both base pointers are 16-byte aligned (the
-// wrapper decides), a scalar loop otherwise.
+// In narrower words (a block whose bytes are no multiple of 16, or an
+// unaligned base) a round moves 1024 words.
 //
 // Read design: one thread block per (lane i, chunk c of its D-vector), the
 // lanes on gridDim.x (no lane limit) and the chunks on gridDim.y. Each
 // thread loads ext[i] and block[i] together, then issues its four 16-byte
 // loads of the chunk before its four stores, so a block of T threads moves
-// 64 T bytes in one round: two dependent trips to memory in all. T is
+// 64 T bytes (4 T words) in one round: two dependent trips to memory in
+// all. T is
 // chosen per call from D and the lane count: the widest of 256, 128 and 64
 // threads whose grid still gives every SM of the card a block (the SM
 // count is read once per device). At the block device's width (64 lanes of
@@ -62,10 +70,12 @@
 // every element of out has one writer, the thread of its (lane, chunk)
 // block.
 //
-// Offsets are 64-bit: a full-size pool holds more than 2^31 floats.
+// Offsets are 64-bit: a full-size pool holds more than 2^31 words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "words.cuh"
 
 namespace {
 
@@ -170,36 +180,42 @@ int read_threads(int n_lanes, int d_vec) {
 
 extern "C" {
 
-// pool (n_rows, page, d) f32, aliased in place; src, dst (n_lanes,) i32;
-// lane_of (n_lanes, page) i32; payload (n_lanes, d) f32. The dump row is
-// n_rows - 1. vec4 != 0 selects float4 accesses (d % 4 == 0, aligned).
+// pool (n_rows, page, d) of any dtype, aliased in place; src, dst
+// (n_lanes,) i32; lane_of (n_lanes, page) i32; payload (n_lanes, d) of the
+// pool's dtype; block_bytes = d * itemsize. The dump row is n_rows - 1.
+// word: the bytes of one access (16, 8, 4, 2 or 1; it divides block_bytes
+// and both base pointers' alignment).
 int dbs_rw_write(void* pool, const void* src, const void* dst,
                  const void* lane_of, const void* payload, int n_lanes,
-                 int n_rows, int page, int d, int vec4, void* stream) {
-  if (n_lanes > 65535) return (int)cudaErrorInvalidValue;
-  if (n_lanes > 0 && page > 0 && d > 0) {
+                 int n_rows, int page, int block_bytes, int word,
+                 void* stream) {
+  if (n_lanes > 65535 || word <= 0 || block_bytes % word)
+    return (int)cudaErrorInvalidValue;
+  if (n_lanes > 0 && page > 0 && block_bytes > 0) {
     cudaStream_t st = (cudaStream_t)stream;
     const int dump = n_rows - 1;
     const dim3 grid((unsigned)page, (unsigned)n_lanes);
-    if (vec4) {
-      write_kernel<float4><<<grid, kWriteThreads, 0, st>>>(
-          (float4*)pool, (const int*)src, (const int*)dst,
-          (const int*)lane_of, (const float4*)payload, dump, page, d / 4);
-    } else {
-      write_kernel<float><<<grid, kWriteThreads, 0, st>>>(
-          (float*)pool, (const int*)src, (const int*)dst,
-          (const int*)lane_of, (const float*)payload, dump, page, d);
-    }
+    const int d_vec = block_bytes / word;
+    const bool known = by_word(word, [&](auto w) {
+      using T = decltype(w);
+      write_kernel<T><<<grid, kWriteThreads, 0, st>>>(
+          (T*)pool, (const int*)src, (const int*)dst, (const int*)lane_of,
+          (const T*)payload, dump, page, d_vec);
+    });
+    if (!known) return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// The write kernel's resources (float4 when vec4 != 0): info[0] registers
+// The write kernel's resources in words of `word` bytes: info[0] registers
 // per thread, [1] static and [2] dynamic shared memory per block (bytes),
 // [3] blocks resident per SM, [4] threads per block.
-int dbs_rw_write_info(int vec4, int* info) {
-  const void* fn = vec4 ? (const void*)write_kernel<float4>
-                        : (const void*)write_kernel<float>;
+int dbs_rw_write_info(int word, int* info) {
+  const void* fn = nullptr;
+  if (!by_word(word, [&](auto w) {
+        fn = (const void*)write_kernel<decltype(w)>;
+      }))
+    return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return (int)err;
@@ -215,39 +231,43 @@ int dbs_rw_write_info(int vec4, int* info) {
   return 0;
 }
 
-// pool (n_rows, page, d) f32; ext, block (n_lanes,) i32; out (n_lanes, d).
+// pool (n_rows, page, d) of any dtype; ext, block (n_lanes,) i32; out
+// (n_lanes, d) of the pool's dtype; block_bytes and word as dbs_rw_write's.
 int dbs_rw_read(const void* pool, const void* ext, const void* block,
-                void* out, int n_lanes, int n_rows, int page, int d, int vec4,
-                void* stream) {
-  if (n_lanes > 0 && d > 0) {
+                void* out, int n_lanes, int n_rows, int page, int block_bytes,
+                int word, void* stream) {
+  if (word <= 0 || block_bytes % word) return (int)cudaErrorInvalidValue;
+  if (n_lanes > 0 && block_bytes > 0) {
     cudaStream_t st = (cudaStream_t)stream;
-    const int d_vec = vec4 ? d / 4 : d;
+    const int d_vec = block_bytes / word;
     const int threads = read_threads(n_lanes, d_vec);
     const int n_chunks =
         (d_vec + threads * kReadPerThread - 1) / (threads * kReadPerThread);
     const dim3 grid((unsigned)n_lanes, (unsigned)min(n_chunks, 65535));
-    if (vec4) {
-      read_kernel<float4><<<grid, threads, 0, st>>>(
-          (const float4*)pool, (const int*)ext, (const int*)block,
-          (float4*)out, n_rows, page, d_vec, n_chunks);
-    } else {
-      read_kernel<float><<<grid, threads, 0, st>>>(
-          (const float*)pool, (const int*)ext, (const int*)block, (float*)out,
+    const bool known = by_word(word, [&](auto w) {
+      using T = decltype(w);
+      read_kernel<T><<<grid, threads, 0, st>>>(
+          (const T*)pool, (const int*)ext, (const int*)block, (T*)out,
           n_rows, page, d_vec, n_chunks);
-    }
+    });
+    if (!known) return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// The read kernel's resources at n_lanes lanes of d floats (float4 when
-// vec4 != 0): info[0] registers per thread, [1] static and [2] dynamic
-// shared memory per block (bytes), [3] blocks resident per SM, [4] threads
-// per block, [5] blocks in the grid.
-int dbs_rw_read_info(int n_lanes, int d, int vec4, int* info) {
-  if (n_lanes <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
-  const void* fn = vec4 ? (const void*)read_kernel<float4>
-                        : (const void*)read_kernel<float>;
-  const int d_vec = vec4 ? d / 4 : d;
+// The read kernel's resources at n_lanes lanes of block_bytes-byte blocks
+// in words of `word` bytes: info[0] registers per thread, [1] static and
+// [2] dynamic shared memory per block (bytes), [3] blocks resident per SM,
+// [4] threads per block, [5] blocks in the grid.
+int dbs_rw_read_info(int n_lanes, int block_bytes, int word, int* info) {
+  if (n_lanes <= 0 || block_bytes <= 0 || word <= 0 || block_bytes % word)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = nullptr;
+  if (!by_word(word, [&](auto w) {
+        fn = (const void*)read_kernel<decltype(w)>;
+      }))
+    return (int)cudaErrorInvalidValue;
+  const int d_vec = block_bytes / word;
   const int threads = read_threads(n_lanes, d_vec);
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, fn);

@@ -6,7 +6,10 @@ built at first use by ``kernels/_build.py``.
 Each wrapper checks device, dtype, shape and contiguity, then launches the
 kernel for a tensor on a CUDA device or calls the plain version
 (kernels/dbs/ref.py) for a tensor on the CPU. A CUDA tensor gets the kernel
-or an error, never the plain version.
+or an error, never the plain version. The pool may be of any dtype of 1, 2,
+4 or 8 bytes, as the TPU kernels': the kernels move a block's bytes in the
+widest word that divides them and the base pointers' alignment
+(``word_bytes``); a write's payload is of the pool's dtype.
 
 ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` the wrappers' calls
 of the plain version, so a run can show which path it went through.
@@ -21,8 +24,10 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels._build import check_pool_dtype
 from repro_torch.kernels._build import check_tensor as _check
-from repro_torch.kernels._build import entry, kernel_info, library, raise_on
+from repro_torch.kernels._build import (entry, kernel_info, library,
+                                        raise_on, word_bytes)
 from repro_torch.kernels.dbs.ref import dbs_rw_read_ref, dbs_rw_write_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_rw_write": 0, "dbs_rw_read": 0}
@@ -39,24 +44,22 @@ INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
              "blocks_per_sm", "threads")
 
 
-def write_info(vec4: bool = True) -> Dict[str, int]:
+def write_info(word: int = 16) -> Dict[str, int]:
     """The CUDA write kernel's registers, shared memory, resident blocks
-    per SM and threads per block (float4 or scalar; needs the card)."""
-    return kernel_info("dbs_rw", "dbs_rw_write_info", (int(vec4),),
-                       INFO_KEYS)
+    per SM and threads per block in ``word``-byte accesses (needs the
+    card)."""
+    return kernel_info("dbs_rw", "dbs_rw_write_info", (word,), INFO_KEYS)
 
 
-def read_info(n_lanes: int, d: int, vec4: bool = True) -> Dict[str, int]:
+def read_info(n_lanes: int, block_bytes: int,
+              word: int = 16) -> Dict[str, int]:
     """The CUDA read kernel's registers, shared memory, resident blocks per
     SM, and the threads per block and grid blocks it takes for ``n_lanes``
-    lanes of ``d`` floats (the block size is chosen per call; needs the
-    card)."""
+    lanes of ``block_bytes``-byte blocks in ``word``-byte accesses (the
+    block size is chosen per call; needs the card)."""
     return kernel_info("dbs_rw", "dbs_rw_read_info",
-                       (n_lanes, d, int(vec4)), INFO_KEYS + ("grid_blocks",))
-
-
-def _vec4(d: int, *tensors: torch.Tensor) -> int:
-    return int(d % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+                       (n_lanes, block_bytes, word),
+                       INFO_KEYS + ("grid_blocks",))
 
 
 def check_write_routing(src, dst, lane_of, n_rows: int) -> None:
@@ -89,9 +92,10 @@ def check_write_routing(src, dst, lane_of, n_rows: int) -> None:
 
 def dbs_rw_write(pool, src, dst, lane_of, payload, *,
                  check_routing: bool = False):
-    """pool: (E, page, D) f32, updated in place and returned; src/dst: (B,)
-    int32 extent ids; lane_of: (B, page) int32 block -> payload lane (-1
-    keeps the source block); payload: (B, D) f32.
+    """pool: (E, page, D) of a 1-, 2-, 4- or 8-byte dtype, updated in
+    place and returned; src/dst: (B,) int32 extent ids; lane_of: (B, page)
+    int32 block -> payload lane (-1 keeps the source block); payload: (B, D)
+    of the pool's dtype.
 
     src/dst must be pre-routed (ops.py ``_route_writes``): every live row is
     named by exactly one lane, no lane reads a row another lane writes, and
@@ -100,11 +104,12 @@ def dbs_rw_write(pool, src, dst, lane_of, payload, *,
     e, page, d = pool.shape
     b = src.shape[0]
     dev = pool.device
-    _check("pool", pool, torch.float32, (e, page, d), dev)
+    check_pool_dtype("pool", pool)
+    _check("pool", pool, pool.dtype, (e, page, d), dev)
     _check("src", src, torch.int32, (b,), dev)
     _check("dst", dst, torch.int32, (b,), dev)
     _check("lane_of", lane_of, torch.int32, (b, page), dev)
-    _check("payload", payload, torch.float32, (b, d), dev)
+    _check("payload", payload, pool.dtype, (b, d), dev)
     if check_routing:
         check_write_routing(src, dst, lane_of, e)
     if dev.type not in ("cpu", "cuda"):
@@ -124,23 +129,26 @@ def _write(pool, src, dst, lane_of, payload) -> None:
         dbs_rw_write_ref(pool, src, dst, lane_of, payload)     # in place
         return
     lib = library("dbs_rw")
+    nbytes = d * pool.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dbs_rw_write(pool.data_ptr(), src.data_ptr(),
                                dst.data_ptr(), lane_of.data_ptr(),
-                               payload.data_ptr(), b, e, page, d,
-                               _vec4(d, pool, payload), stream)
+                               payload.data_ptr(), b, e, page, nbytes,
+                               word_bytes(nbytes, pool, payload), stream)
     raise_on(err, "dbs_rw_write")
     LAUNCHES["dbs_rw_write"] += 1
 
 
 def dbs_rw_read(pool, ext, block):
-    """pool: (E, page, D) f32; ext: (B,) int32, -1 = hole (reads as zeros);
-    block: (B,) int32 block offset within the page. Returns (B, D)."""
+    """pool: (E, page, D) of a 1-, 2-, 4- or 8-byte dtype; ext: (B,) int32,
+    -1 = hole (reads as zeros); block: (B,) int32 block offset within the
+    page. Returns (B, D) of the pool's dtype."""
     e, page, d = pool.shape
     b = ext.shape[0]
     dev = pool.device
-    _check("pool", pool, torch.float32, (e, page, d), dev)
+    check_pool_dtype("pool", pool)
+    _check("pool", pool, pool.dtype, (e, page, d), dev)
     _check("ext", ext, torch.int32, (b,), dev)
     _check("block", block, torch.int32, (b,), dev)
     if dev.type not in ("cpu", "cuda"):
@@ -159,11 +167,12 @@ def _read(pool, ext, block):
         return dbs_rw_read_ref(pool, ext, block)
     lib = library("dbs_rw")
     out = torch.empty((b, d), dtype=pool.dtype, device=dev)
+    nbytes = d * pool.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dbs_rw_read(pool.data_ptr(), ext.data_ptr(),
                               block.data_ptr(), out.data_ptr(), b, e, page,
-                              d, _vec4(d, pool, out), stream)
+                              nbytes, word_bytes(nbytes, pool, out), stream)
     raise_on(err, "dbs_rw_read")
     LAUNCHES["dbs_rw_read"] += 1
     return out

@@ -4,7 +4,7 @@
 //
 // Replaces the Pallas kernel repro/kernels/rwkv6_scan/kernel.py::
 // rwkv6_scan_fwd (body _kernel). r, k, v, logw (B, S, H, hd) and u (H, hd)
-// -> y (B, S, H, hd) and the final state (B, H, hd, hd), all fp32:
+// -> y (B, S, H, hd) and the final state (B, H, hd, hd):
 //   y_t = r_t (S_{t-1} + (u * k_t)^T v_t),
 //   S_t = diag(exp(logw_t)) S_{t-1} + k_t^T v_t,
 // from S_0 = s0, or zeros when s0 is null (as the TPU kernel starts).
@@ -13,6 +13,15 @@
 // state and u are contiguous. s0 and s_out may be the same buffer: a block
 // reads its own slice of the state before it writes it, and no other block
 // touches that slice.
+//
+// Dtypes, as the TPU kernel takes them: r, k, v, logw and y are fp32 or
+// bf16 together (the TI template argument: y in r's dtype), u fp32 or bf16
+// (a flag), s0 and the final state fp32. Both schedules load a bf16 input
+// into fp32 where they read it and compute in fp32 as the fp32 form does;
+// y is rounded to bf16 once, on its store. The prefill's bf16 staging is
+// synchronous (16-bit inputs cannot go through cp.async into the fp32
+// tiles): a thread loads 8 bytes (4 values) where the tensor's base and
+// strides allow, else 2, and stores them converted.
 //
 // Exactness of the column split. Column c of the state depends only on
 // column c of v: S_t[j][c] = exp(w_t[j]) S_{t-1}[j][c] + k_t[j] v_t[c] and
@@ -104,9 +113,12 @@
 //
 // Offsets are 64-bit.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -163,6 +175,21 @@ __device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
                "l"(src), "r"(in ? 4 : 0));
 }
 
+// an input element as fp32, and y's store in its dtype
+__device__ __forceinline__ float ld_in(const float* p) { return *p; }
+__device__ __forceinline__ float ld_in(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void st_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+// u[i], fp32 or (u_bf16) bf16
+__device__ __forceinline__ float ld_u(const void* u, int64_t i, int u_bf16) {
+  return u_bf16 ? __bfloat162float(((const __nv_bfloat16*)u)[i])
+                : ((const float*)u)[i];
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -185,12 +212,12 @@ int sm_count() {
 // ---------------------------------------------------------------------------
 // decode schedule
 // ---------------------------------------------------------------------------
-template <int W>
+template <typename TI, int W>
 __global__ void __launch_bounds__(32)
-decode_kernel(const float* __restrict__ r, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ w,
-              const float* __restrict__ u, const float* s0,
-              float* __restrict__ y, float* s_out, int seq, int h, int d,
+decode_kernel(const TI* __restrict__ r, const TI* __restrict__ k,
+              const TI* __restrict__ v, const TI* __restrict__ w,
+              const void* __restrict__ u, int u_bf16, const float* s0,
+              TI* __restrict__ y, float* s_out, int seq, int h, int d,
               int64_t rsb, int64_t rss, int64_t rsh, int64_t ksb,
               int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
               int64_t vsh, int64_t wsb, int64_t wss, int64_t wsh,
@@ -235,23 +262,24 @@ decode_kernel(const float* __restrict__ r, const float* __restrict__ k,
     if (e < n) {
       const int t = e / d;
       const int j = e - t * d;
-      ra[it] = r[b * rsb + t * rss + hh * rsh + j];
-      ka[it] = k[b * ksb + t * kss + hh * ksh + j];
-      wa[it] = w[b * wsb + t * wss + hh * wsh + j];
+      ra[it] = ld_in(r + (b * rsb + t * rss + hh * rsh + j));
+      ka[it] = ld_in(k + (b * ksb + t * kss + hh * ksh + j));
+      wa[it] = ld_in(w + (b * wsb + t * wss + hh * wsh + j));
     }
   }
 #pragma unroll
   for (int it = 0; it < kMaxD / 32; ++it) {
     const int e = lane + 32 * it;
-    if (e < d) ua[it] = u[(int64_t)hh * d + e];
+    if (e < d) ua[it] = ld_u(u, (int64_t)hh * d + e, u_bf16);
   }
 #pragma unroll
   for (int it = 0; it < kItV; ++it) {
     const int e = lane + 32 * it;
     const int t = e / (4 * W);
     const int cc = blockIdx.z * 4 * W + (e - t * 4 * W);
-    va[it] = (t < seq && cc < d) ? v[b * vsb + t * vss + hh * vsh + cc]
-                                 : 0.f;
+    va[it] = (t < seq && cc < d)
+                 ? ld_in(v + (b * vsb + t * vss + hh * vsh + cc))
+                 : 0.f;
   }
 #pragma unroll
   for (int it = 0; it < kIt; ++it) {
@@ -305,12 +333,13 @@ decode_kernel(const float* __restrict__ r, const float* __restrict__ k,
         yp[e] += __shfl_xor_sync(0xffffffffu, yp[e], o);
     }
     if (rg == 0 && c < d) {
-      float* yt = y + b * ysb + t * yss + hh * ysh + c;
-      if constexpr (W == 4) {
+      TI* yt = y + b * ysb + t * yss + hh * ysh + c;
+      if constexpr (W == 4 && std::is_same<TI, float>::value) {
         *(float4*)yt = make_float4(yp[0], yp[W > 1 ? 1 : 0],
                                    yp[W > 2 ? 2 : 0], yp[W > 3 ? 3 : 0]);
       } else {
-        yt[0] = yp[0];
+#pragma unroll
+        for (int e = 0; e < W; ++e) st_out(yt + e, yp[e]);
       }
     }
   }
@@ -382,12 +411,44 @@ __device__ __forceinline__ void stage(float* dst, int p, const float* src,
   }
 }
 
-template <int NT>      // 8-column tiles of the block's state slice
+// the same from a bf16 tensor, synchronously: each value converted to fp32
+// on its way into the tile (vec: 8-byte loads of 4 values)
+__device__ __forceinline__ void stage(float* dst, int p,
+                                      const __nv_bfloat16* src, int64_t rs,
+                                      int t0, int len, int rows, int ncols,
+                                      bool vec) {
+  const int per = vec ? ncols >> 2 : ncols;   // loads a row, <= kThreads
+  const int step = kThreads / per;            // rows a pass
+  const int first = threadIdx.x / per;
+  if (first >= step) return;                  // left over by a pass
+  const int c = (threadIdx.x - first * per) << (vec ? 2 : 0);
+  for (int row = first; row < rows; row += step) {
+    const bool in = row < len;
+    const __nv_bfloat16* s = src + (int64_t)(t0 + row) * rs + c;
+    float* o = dst + row * p + c;
+    if (vec) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) {
+        const uint2 raw = *(const uint2*)s;
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        x = make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+      *(float4*)o = x;
+    } else {
+      *o = in ? __bfloat162float(*s) : 0.f;
+    }
+  }
+}
+
+template <typename TI, int NT>   // input dtype; 8-column tiles of the slice
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-prefill_kernel(const float* __restrict__ r, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ w,
-               const float* __restrict__ u, const float* s0,
-               float* __restrict__ y, float* s_out, int seq, int h, int d,
+prefill_kernel(const TI* __restrict__ r, const TI* __restrict__ k,
+               const TI* __restrict__ v, const TI* __restrict__ w,
+               const void* __restrict__ u, int u_bf16, const float* s0,
+               TI* __restrict__ y, float* s_out, int seq, int h, int d,
                int chunk, int n_col, int64_t rsb, int64_t rss, int64_t rsh,
                int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
                int64_t vss, int64_t vsh, int64_t wsb, int64_t wss,
@@ -425,11 +486,11 @@ prefill_kernel(const float* __restrict__ r, const float* __restrict__ k,
   const int wh = warp & 1;               // its half of the key tiles
   const int64_t soff = ((int64_t)b * h + hh) * d * d;
 
-  const float* rb = r + b * rsb + hh * rsh;
-  const float* kb = k + b * ksb + hh * ksh;
-  const float* vb = v + b * vsb + hh * vsh + c0;
-  const float* wb = w + b * wsb + hh * wsh;
-  float* yb = y + b * ysb + hh * ysh + c0;
+  const TI* rb = r + b * rsb + hh * rsh;
+  const TI* kb = k + b * ksb + hh * ksh;
+  const TI* vb = v + b * vsb + hh * vsh + c0;
+  const TI* wb = w + b * wsb + hh * wsh;
+  TI* yb = y + b * ysb + hh * ysh + c0;
 
   // padded columns of the staged tiles: zero, once (cp.async never
   // writes them)
@@ -454,7 +515,7 @@ prefill_kernel(const float* __restrict__ r, const float* __restrict__ k,
         (s0 && j < d && c < cv) ? s0[soff + (int64_t)j * d + c0 + c] : 0.f;
   }
   for (int j = tid; j < dp; j += kThreads)
-    us[j] = j < d ? u[(int64_t)hh * d + j] : 0.f;
+    us[j] = j < d ? ld_u(u, (int64_t)hh * d + j, u_bf16) : 0.f;
 
   const int n_chunks = (seq + chunk - 1) / chunk;
   {
@@ -735,14 +796,15 @@ prefill_kernel(const float* __restrict__ r, const float* __restrict__ k,
       for (int half = 0; half < 2; ++half) {
         const int i = wa * kSub + gq + 8 * half;
         if (i < len) {
-          float* yt = yb + (int64_t)(t0 + i) * yss;
+          TI* yt = yb + (int64_t)(t0 + i) * yss;
 #pragma unroll
           for (int n = 0; n < NT; ++n) {
             const int c = n * 8 + 2 * tq;
             if (c < cv)
-              yt[c] = ya[n][2 * half] + yr[8 * half * pv + n * 8];
+              st_out(yt + c, ya[n][2 * half] + yr[8 * half * pv + n * 8]);
             if (c + 1 < cv)
-              yt[c + 1] = ya[n][2 * half + 1] + yr[8 * half * pv + n * 8 + 1];
+              st_out(yt + c + 1,
+                 ya[n][2 * half + 1] + yr[8 * half * pv + n * 8 + 1]);
           }
         }
       }
@@ -771,20 +833,28 @@ prefill_kernel(const float* __restrict__ r, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-using Prefill = void (*)(const float*, const float*, const float*,
-                         const float*, const float*, const float*, float*,
-                         float*, int, int, int, int, int, int64_t, int64_t,
+template <typename TI>
+using Prefill = void (*)(const TI*, const TI*, const TI*, const TI*,
+                         const void*, int, const float*, TI*, float*, int,
+                         int, int, int, int, int64_t, int64_t, int64_t,
                          int64_t, int64_t, int64_t, int64_t, int64_t,
                          int64_t, int64_t, int64_t, int64_t, int64_t,
-                         int64_t, int64_t, int64_t, int, int);
+                         int64_t, int64_t, int, int);
 
-Prefill prefill_for(int nt) {
+template <typename TI>
+Prefill<TI> prefill_for(int nt) {
   switch (nt) {
-    case 1: return prefill_kernel<1>;
-    case 2: return prefill_kernel<2>;
-    case 4: return prefill_kernel<4>;
-    default: return prefill_kernel<8>;
+    case 1: return prefill_kernel<TI, 1>;
+    case 2: return prefill_kernel<TI, 2>;
+    case 4: return prefill_kernel<TI, 4>;
+    default: return prefill_kernel<TI, 8>;
   }
+}
+
+// the prefill kernel of input form bf16 (else fp32) and nt tiles
+const void* prefill_fn(bool bf16, int nt) {
+  return bf16 ? (const void*)prefill_for<__nv_bfloat16>(nt)
+              : (const void*)prefill_for<float>(nt);
 }
 
 // the prefill grid's column blocks: doubled while the slice stays a
@@ -798,26 +868,79 @@ int pick_cols(int bh, int dp, int sms) {
   return n;
 }
 
-size_t configured[kMaxDevices][4] = {};
+size_t configured[kMaxDevices][2][4] = {};
 
-cudaError_t configure(int nt, size_t smem) {
+cudaError_t configure(bool bf16, int nt, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   const int slot = nt == 1 ? 0 : nt == 2 ? 1 : nt == 4 ? 2 : 3;
-  if (smem <= configured[dev][slot]) return cudaSuccess;
-  err = cudaFuncSetAttribute(prefill_for(nt),
+  if (smem <= configured[dev][bf16][slot]) return cudaSuccess;
+  err = cudaFuncSetAttribute(prefill_fn(bf16, nt),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-  if (err == cudaSuccess) configured[dev][slot] = smem;
+  if (err == cudaSuccess) configured[dev][bf16][slot] = smem;
   return err;
 }
 
-bool rows_aligned16(const void* p, int64_t sb, int64_t ss, int64_t sh,
-                    int d) {
-  return (uintptr_t)p % 16 == 0 && d % 4 == 0 && sb % 4 == 0 && ss % 4 == 0 &&
-         sh % 4 == 0;
+// rows of 4 elements of `size` bytes each, aligned to 4 * size: the
+// 16-byte (fp32) or 8-byte (bf16) accesses
+bool rows_aligned4(const void* p, int64_t sb, int64_t ss, int64_t sh, int d,
+                   int size) {
+  return (uintptr_t)p % (4 * size) == 0 && d % 4 == 0 && sb % 4 == 0 &&
+         ss % 4 == 0 && sh % 4 == 0;
+}
+
+template <typename TI>
+cudaError_t launch(const void* r, const void* k, const void* v,
+                   const void* logw, const void* u, int u_bf16,
+                   const void* s0, void* y, void* s_out, int b, int seq,
+                   int h, int d, int chunk, int64_t rsb, int64_t rss,
+                   int64_t rsh, int64_t ksb, int64_t kss, int64_t ksh,
+                   int64_t vsb, int64_t vss, int64_t vsh, int64_t wsb,
+                   int64_t wss, int64_t wsh, int64_t ysb, int64_t yss,
+                   int64_t ysh, cudaStream_t st) {
+  constexpr bool kBf16 = std::is_same<TI, __nv_bfloat16>::value;
+  constexpr int kSize = (int)sizeof(TI);
+  if (seq <= kDecodeMax) {
+    // bf16 y is stored a value at a time, so only the state asks 16 bytes
+    const bool vec = d % 4 == 0 && (uintptr_t)s_out % 16 == 0 &&
+                     (s0 == nullptr || (uintptr_t)s0 % 16 == 0) &&
+                     (kBf16 || rows_aligned4(y, ysb, yss, ysh, d, kSize));
+    const int wcols = vec ? 16 : 4;
+    dim3 grid(h, b, (d + wcols - 1) / wcols);
+    if (vec)
+      decode_kernel<TI, 4><<<grid, 32, 0, st>>>(
+          (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u,
+          u_bf16, (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, rsb,
+          rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss, wsh, ysb, yss,
+          ysh);
+    else
+      decode_kernel<TI, 1><<<grid, 32, 0, st>>>(
+          (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u,
+          u_bf16, (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, rsb,
+          rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss, wsh, ysb, yss,
+          ysh);
+    return cudaGetLastError();
+  }
+  const int dp = padded_dim(d);
+  const int n_col = pick_cols(b * h, dp, sm_count());
+  const Geo geo = geometry(d, seq, chunk, n_col);
+  const int nt = geo.cw / 8;
+  const size_t smem = sizeof(float) * geo.floats;
+  cudaError_t err = configure(kBf16, nt, smem);
+  if (err != cudaSuccess) return err;
+  const int vec_in = rows_aligned4(r, rsb, rss, rsh, d, kSize) &&
+                     rows_aligned4(k, ksb, kss, ksh, d, kSize) &&
+                     rows_aligned4(logw, wsb, wss, wsh, d, kSize);
+  const int vec_v = rows_aligned4(v, vsb, vss, vsh, d, kSize);
+  prefill_for<TI>(nt)<<<dim3(h, b, n_col), kThreads, smem, st>>>(
+      (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u, u_bf16,
+      (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, chunk, n_col, rsb,
+      rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss, wsh, ysb, yss, ysh,
+      vec_in, vec_v);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -826,64 +949,39 @@ extern "C" {
 
 // r, k, v, logw (b, seq, h, d) with (batch, sequence, head) strides in
 // elements and d contiguous; u (h, d); s0 (b, h, d, d) or null; y
-// (b, seq, h, d) strided like the inputs; s_out (b, h, d, d). All f32.
+// (b, seq, h, d) strided like the inputs; s_out (b, h, d, d). r, k, v,
+// logw and y bf16 when in_bf16, else fp32; u bf16 when u_bf16, else fp32;
+// s0 and s_out fp32.
 int rwkv6_scan(const void* r, const void* k, const void* v, const void* logw,
                const void* u, const void* s0, void* y, void* s_out, int b,
                int seq, int h, int d, int chunk, int64_t rsb, int64_t rss,
                int64_t rsh, int64_t ksb, int64_t kss, int64_t ksh,
                int64_t vsb, int64_t vss, int64_t vsh, int64_t wsb,
                int64_t wss, int64_t wsh, int64_t ysb, int64_t yss,
-               int64_t ysh, void* stream) {
+               int64_t ysh, int in_bf16, int u_bf16, void* stream) {
   if (d <= 0 || d > kMaxD || chunk <= 0 || chunk > kMaxC || seq < 0)
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || h <= 0) return (int)cudaGetLastError();
   if (b > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (seq <= kDecodeMax) {
-    const bool vec = d % 4 == 0 && (uintptr_t)s_out % 16 == 0 &&
-                     (s0 == nullptr || (uintptr_t)s0 % 16 == 0) &&
-                     rows_aligned16(y, ysb, yss, ysh, d);
-    const int wcols = vec ? 16 : 4;
-    dim3 grid(h, b, (d + wcols - 1) / wcols);
-    if (vec)
-      decode_kernel<4><<<grid, 32, 0, st>>>(
-          (const float*)r, (const float*)k, (const float*)v,
-          (const float*)logw, (const float*)u, (const float*)s0, (float*)y,
-          (float*)s_out, seq, h, d, rsb, rss, rsh, ksb, kss, ksh, vsb, vss,
-          vsh, wsb, wss, wsh, ysb, yss, ysh);
-    else
-      decode_kernel<1><<<grid, 32, 0, st>>>(
-          (const float*)r, (const float*)k, (const float*)v,
-          (const float*)logw, (const float*)u, (const float*)s0, (float*)y,
-          (float*)s_out, seq, h, d, rsb, rss, rsh, ksb, kss, ksh, vsb, vss,
-          vsh, wsb, wss, wsh, ysb, yss, ysh);
-    return (int)cudaGetLastError();
-  }
-  const int dp = padded_dim(d);
-  const int n_col = pick_cols(b * h, dp, sm_count());
-  const Geo geo = geometry(d, seq, chunk, n_col);
-  const int nt = geo.cw / 8;
-  const size_t smem = sizeof(float) * geo.floats;
-  cudaError_t err = configure(nt, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vec_in = rows_aligned16(r, rsb, rss, rsh, d) &&
-                     rows_aligned16(k, ksb, kss, ksh, d) &&
-                     rows_aligned16(logw, wsb, wss, wsh, d);
-  const int vec_v = rows_aligned16(v, vsb, vss, vsh, d);
-  prefill_for(nt)<<<dim3(h, b, n_col), kThreads, smem, st>>>(
-      (const float*)r, (const float*)k, (const float*)v, (const float*)logw,
-      (const float*)u, (const float*)s0, (float*)y, (float*)s_out, seq, h, d,
-      chunk, n_col, rsb, rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss,
-      wsh, ysb, yss, ysh, vec_in, vec_v);
-  return (int)cudaGetLastError();
+  return (int)(in_bf16
+                   ? launch<__nv_bfloat16>(
+                         r, k, v, logw, u, u_bf16, s0, y, s_out, b, seq, h,
+                         d, chunk, rsb, rss, rsh, ksb, kss, ksh, vsb, vss,
+                         vsh, wsb, wss, wsh, ysb, yss, ysh, st)
+                   : launch<float>(r, k, v, logw, u, u_bf16, s0, y, s_out, b,
+                                   seq, h, d, chunk, rsb, rss, rsh, ksb, kss,
+                                   ksh, vsb, vss, vsh, wsb, wss, wsh, ysb,
+                                   yss, ysh, st));
 }
 
 // What rwkv6_scan launches for these shapes (on the current device, with
-// 16-byte access): info[0] schedule (0 decode, 1 prefill), [1] column
-// blocks a (batch, head), [2] blocks in the grid, [3] threads per block,
-// [4] registers per thread, [5] static and [6] dynamic shared memory per
-// block (bytes), [7] blocks resident per SM.
-int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int* info) {
+// 16-byte access; the bf16 form's with in_bf16): info[0] schedule (0
+// decode, 1 prefill), [1] column blocks a (batch, head), [2] blocks in the
+// grid, [3] threads per block, [4] registers per thread, [5] static and
+// [6] dynamic shared memory per block (bytes), [7] blocks resident per SM.
+int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int in_bf16,
+                    int* info) {
   if (d <= 0 || d > kMaxD || chunk <= 0 || chunk > kMaxC || seq < 0 ||
       b <= 0 || h <= 0)
     return (int)cudaErrorInvalidValue;
@@ -892,8 +990,11 @@ int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int* info) {
   int per_sm = 0;
   if (seq <= kDecodeMax) {
     const bool vec = d % 4 == 0;
-    const void* fn = vec ? (const void*)decode_kernel<4>
-                         : (const void*)decode_kernel<1>;
+    const void* fn =
+        in_bf16 ? (vec ? (const void*)decode_kernel<__nv_bfloat16, 4>
+                       : (const void*)decode_kernel<__nv_bfloat16, 1>)
+                : (vec ? (const void*)decode_kernel<float, 4>
+                       : (const void*)decode_kernel<float, 1>);
     err = cudaFuncGetAttributes(&a, fn);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32, 0);
@@ -910,12 +1011,13 @@ int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int* info) {
     const Geo geo = geometry(d, seq, chunk, n_col);
     const size_t smem = sizeof(float) * geo.floats;
     const int nt = geo.cw / 8;
-    err = configure(nt, smem);
+    err = configure(in_bf16 != 0, nt, smem);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncGetAttributes(&a, (const void*)prefill_for(nt));
+    const void* fn = prefill_fn(in_bf16 != 0, nt);
+    err = cudaFuncGetAttributes(&a, fn);
     if (err != cudaSuccess) return (int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, prefill_for(nt), kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kThreads, smem);
     if (err != cudaSuccess) return (int)err;
     info[0] = 1;
     info[1] = n_col;

@@ -12,7 +12,13 @@ contiguous: the kernel reads r, k, v and logw through (batch, sequence,
 head) strides, so the model layout needs no copy. It launches the kernel
 for tensors on a CUDA device and calls the plain chunked version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error.
-``LAUNCHES`` and ``PLAIN_CALLS`` count the two. fp32 only.
+``LAUNCHES`` and ``PLAIN_CALLS`` count the two, ``LAUNCHES_BY_DTYPE`` the
+launches by the inputs' dtype.
+
+Dtypes, as the TPU kernel takes them: r, k, v and logw share one dtype,
+fp32 or bf16 (a mix raises); u is fp32 or bf16; s0 and the final state are
+fp32; y is in r's dtype. The kernel loads bf16 inputs into fp32 and
+computes in fp32 as the fp32 form does, rounding y once on its store.
 
 The C entry picks its schedule and grid from shapes and the SM count
 alone; ``rwkv6_schedule`` and ``rwkv6_n_col`` are the same rules as plain
@@ -33,7 +39,9 @@ from repro_torch.kernels._build import (check_tensor, entry, kernel_info,
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 
 LAUNCHES: Dict[str, int] = {"rwkv6_scan": 0}
+LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0}
 PLAIN_CALLS: Dict[str, int] = {"rwkv6_scan": 0}
+DTYPES = (torch.float32, torch.bfloat16)   # r, k, v, logw (and u)
 MAX_HEAD_DIM = 64                   # the kernel's shared-memory tiles
 MAX_CHUNK = 64
 DECODE_MAX = 8                      # seq <= this: the decode schedule
@@ -65,34 +73,47 @@ def rwkv6_n_col(b: int, h: int, d: int, sms: int) -> int:
     return n
 
 
-def rwkv6_info(b: int, s: int, h: int, d: int,
-               chunk: int = 64) -> Dict[str, int]:
-    """What the kernel launches for these shapes on the current card:
-    schedule (0 decode, 1 prefill), column blocks, grid, registers, shared
-    memory and resident blocks per SM (needs the card)."""
-    return kernel_info("rwkv6_scan", "rwkv6_scan_info", (b, s, h, d, chunk),
-                       INFO_KEYS)
+def rwkv6_info(b: int, s: int, h: int, d: int, chunk: int = 64,
+               bf16: bool = False) -> Dict[str, int]:
+    """What the kernel launches for these shapes on the current card (the
+    bf16 form's with ``bf16``): schedule (0 decode, 1 prefill), column
+    blocks, grid, registers, shared memory and resident blocks per SM
+    (needs the card)."""
+    return kernel_info("rwkv6_scan", "rwkv6_scan_info",
+                       (b, s, h, d, chunk, int(bf16)), INFO_KEYS)
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
+    for counts in (LAUNCHES, PLAIN_CALLS, LAUNCHES_BY_DTYPE):
         for k in counts:
             counts[k] = 0
 
 
 def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
-    """r,k,v,logw: (B,S,H,hd) fp32, any strides with hd contiguous; u:
-    (H,hd); s0: (B,H,hd,hd) or None (zeros). Returns (y (B,S,H,hd),
-    s_final (B,H,hd,hd)), both fp32 and contiguous."""
+    """r,k,v,logw: (B,S,H,hd) of one dtype, fp32 or bf16, any strides
+    with hd contiguous; u: (H,hd) fp32 or bf16; s0: (B,H,hd,hd) fp32 or
+    None (zeros). Returns (y (B,S,H,hd) in r's dtype, s_final (B,H,hd,hd)
+    fp32), both contiguous."""
     refuse_grad("rwkv6_scan", r, k, v, logw, u, s0)
     b, s, h, d = r.shape
     dev = r.device
+    if r.dtype not in DTYPES:
+        raise TypeError(f"r: expected torch.float32 or torch.bfloat16, got "
+                        f"{r.dtype}")
+    mixed = [f"{n} is {t.dtype}" for n, t in (("k", k), ("v", v),
+                                              ("logw", logw))
+             if t.dtype != r.dtype]
+    if mixed:
+        raise TypeError(f"rwkv6_scan: r, k, v and logw must share one dtype; "
+                        f"r is {r.dtype}, {', '.join(mixed)}")
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
-        check_tensor(name, t, torch.float32, (b, s, h, d), dev,
-                     contiguous=False)
+        check_tensor(name, t, r.dtype, (b, s, h, d), dev, contiguous=False)
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
-    check_tensor("u", u, torch.float32, (h, d), dev)
+    if u.dtype not in DTYPES:
+        raise TypeError(f"u: expected torch.float32 or torch.bfloat16, got "
+                        f"{u.dtype}")
+    check_tensor("u", u, u.dtype, (h, d), dev)
     if s0 is not None:
         check_tensor("s0", s0, torch.float32, (b, h, d, d), dev)
     if chunk < 1:
@@ -118,7 +139,7 @@ def _scan(r, k, v, logw, u, s0, chunk: int):
     if dev.type == "cpu":
         PLAIN_CALLS["rwkv6_scan"] += 1
         return rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
-    y = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+    y = torch.empty((b, s, h, d), dtype=r.dtype, device=dev)
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=dev)
     lib = library("rwkv6_scan")
     with torch.cuda.device(dev):
@@ -128,9 +149,12 @@ def _scan(r, k, v, logw, u, s0, chunk: int):
             u.data_ptr(), None if s0 is None else s0.data_ptr(),
             y.data_ptr(), s_out.data_ptr(), b, s, h, d, chunk,
             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *logw.stride()[:3], *y.stride()[:3], stream)
+            *logw.stride()[:3], *y.stride()[:3],
+            int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
+            stream)
     raise_on(err, "rwkv6_scan")
     LAUNCHES["rwkv6_scan"] += 1
+    LAUNCHES_BY_DTYPE[str(r.dtype).split(".")[1]] += 1
     return y, s_out
 
 
@@ -149,7 +173,8 @@ def _scan_op(r: Tensor, k: Tensor, v: Tensor, logw: Tensor, u: Tensor,
 @_scan_op.register_fake
 def _(r, k, v, logw, u, s0, chunk):
     b, s, h, d = r.shape
-    return r.new_empty((b, s, h, d)), r.new_empty((b, h, d, d))
+    return (r.new_empty((b, s, h, d)),
+            r.new_empty((b, h, d, d), dtype=torch.float32))
 
 
 def rwkv6_work(b: int, s: int, h: int, d: int, chunk: int,
@@ -158,15 +183,16 @@ def rwkv6_work(b: int, s: int, h: int, d: int, chunk: int,
     chunk of L tokens, L hd^2 multiply-adds for the inter-chunk read and as
     many for the state update, hd L (L - 1) / 2 for the intra-chunk
     matrix, hd L (L + 1) / 2 for its product with v and hd L for the bonus
-    (2 flops each; exps not counted). Bytes: r, k, v, logw and y, u, the
-    state written and, when carried in, read."""
+    (2 flops each; exps not counted). Bytes: r, k, v, logw and y and u at
+    ``itemsize`` (the inputs' dtype), the fp32 state written and, when
+    carried in, read."""
     sq = 0
     for c0 in range(0, s, chunk):
         n = min(chunk, s - c0)
         sq += n * n
     macs = b * h * (2 * s * d * d + d * sq + d * s)
-    n_bytes = itemsize * (5 * b * s * h * d + h * d
-                          + (2 if with_state else 1) * b * h * d * d)
+    n_bytes = (itemsize * (5 * b * s * h * d + h * d)
+               + 4 * (2 if with_state else 1) * b * h * d * d)
     return 2 * macs, n_bytes
 
 

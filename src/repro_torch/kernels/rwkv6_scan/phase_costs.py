@@ -110,7 +110,7 @@ def main() -> int:
                 err = lib.rwkv6_scan(
                     r.data_ptr(), k.data_ptr(), v.data_ptr(),
                     logw.data_ptr(), u.data_ptr(), None, y.data_ptr(),
-                    s_out.data_ptr(), 1, s, h, d, 64, *strides,
+                    s_out.data_ptr(), 1, s, h, d, 64, *strides, 0, 0,
                     torch.cuda.current_stream().cuda_stream)
                 _build.raise_on(err, "rwkv6_scan")
             ms[name] = graph_ms(run, 1)

@@ -56,11 +56,13 @@ def _chunk(r, k, v, logw, u, s_in):
 def rwkv6_chunked_ref(r, k, v, logw, u, s0=None, chunk: int = 64):
     """The chunked schedule: chunks of ``chunk`` tokens, the last one
     ragged when ``chunk`` does not divide S. ``s0=None`` starts from
-    zeros, as the TPU kernel does. Same arguments and results as
-    ``rwkv6_scan_ref``."""
+    zeros, as the TPU kernel does. Same arguments as ``rwkv6_scan_ref``;
+    computes in fp32 and returns y in r's dtype (as the TPU kernel and the
+    CUDA kernel store it) and the final state in fp32."""
     b, s, h, d = r.shape
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    y_dtype = r.dtype
     r, k, v, logw, u = (t.float() for t in (r, k, v, logw, u))
     st = (torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
           if s0 is None else s0.float())
@@ -70,5 +72,5 @@ def rwkv6_chunked_ref(r, k, v, logw, u, s0=None, chunk: int = 64):
         y, st = _chunk(r[:, sl], k[:, sl], v[:, sl], logw[:, sl], u, st)
         ys.append(y)
     if not ys:
-        return r.new_zeros((b, 0, h, d)), st.clone()
-    return torch.cat(ys, dim=1), st
+        return r.new_zeros((b, 0, h, d), dtype=y_dtype), st.clone()
+    return torch.cat(ys, dim=1).to(y_dtype), st

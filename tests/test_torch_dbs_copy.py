@@ -1,9 +1,11 @@
 """Port parity: the ``dbs_copy`` CoW extent copy and the ``copy`` entry.
 
 1. ``dbs_copy_ref``, ``dbs_copy`` and ``dbs_copy_pool`` against the JAX
-   ``dbs_copy`` on the tests/test_kernels.py sweep geometries, and against
-   the JAX ``dbs_copy_pool`` with its ``scratch`` option both ways, bit for
-   bit (a copy moves float32 values unchanged).
+   ``dbs_copy`` on the tests/test_kernels.py sweep geometries, on fp32,
+   bf16 and uint8 pools (the Pallas kernel takes any dtype; the port's
+   kernel moves bytes), and against the JAX ``dbs_copy_pool`` with its
+   ``scratch`` option both ways, bit for bit (a copy moves values
+   unchanged).
 2. The crafted and ``write_pages`` CoW batches of tests/test_fused.py
    through the port's ``copy`` registry entry against the JAX ``copy``
    entry, and a seeded byte trace through ``VolumeManager(backend="fused",
@@ -21,6 +23,7 @@ holds the CUDA kernel against it on the card.
 import sys
 from pathlib import Path
 
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -48,33 +51,62 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _sweep_case(e, page, d, n, seed):
+def _pool_values(rng, shape, dtype):
+    """Seeded pool values: normal draws (rounded to bf16 for ``bfloat16``),
+    or random bytes for ``uint8``."""
+    if dtype == "uint8":
+        return rng.integers(0, 256, shape).astype(np.uint8)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else x
+
+
+def _tp(a):
+    """A numpy pool (bf16 through ml_dtypes) as a torch tensor."""
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _sweep_case(e, page, d, n, seed, dtype="float32"):
     """The tests/test_kernels.py sweep inputs, drawn with numpy: sources in
     the lower half, distinct destinations in the upper half, ~70% live."""
     rng = np.random.default_rng(seed)
-    pool = rng.standard_normal((e, page, d)).astype(np.float32)
+    pool = _pool_values(rng, (e, page, d), dtype)
     src = rng.integers(0, e // 2, n).astype(np.int32)
     dst = (np.arange(n) + e // 2).astype(np.int32)
     mask = rng.random(n) < 0.7
     return pool, src, dst, mask
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize("e,page,d,n", [(16, 8, 32, 4), (8, 4, 16, 4)])
-def test_copy_matches_jax_on_sweep(e, page, d, n, seed):
-    pool, src, dst, mask = _sweep_case(e, page, d, n, seed)
+def test_copy_matches_jax_on_sweep(e, page, d, n, seed, dtype):
+    """Bit for bit in every pool dtype (the pools' bytes compared); the
+    wrapper counts its plain calls, not launches by dtype, on the CPU."""
+    pool, src, dst, mask = _sweep_case(e, page, d, n, seed, dtype)
     want = np.asarray(j_copy(jnp.asarray(pool), jnp.asarray(src),
                              jnp.asarray(dst), jnp.asarray(mask)))
+    assert want.dtype == pool.dtype
+    bits = want.view(np.uint8)
+
+    def got_bits(t):
+        assert t.dtype == _tp(pool).dtype
+        return t.view(torch.uint8).numpy()
     assert np.array_equal(
         np.asarray(j_copy_ref(jnp.asarray(pool), jnp.asarray(src),
-                              jnp.asarray(dst), jnp.asarray(mask))), want)
+                              jnp.asarray(dst), jnp.asarray(mask))
+                   ).view(np.uint8), bits)
+    copy_kernel.reset_counts()
     for fn in (dbs_copy_ref, dbs_copy):
-        got = fn(_t(pool), _t(src), _t(dst), _t(mask))
-        assert np.array_equal(got.numpy(), want), fn.__name__
+        got = fn(_tp(pool.copy()), _t(src), _t(dst), _t(mask))
+        assert np.array_equal(got_bits(got), bits), fn.__name__
     # int32 masks are taken as they are
-    got = dbs_copy(_t(pool), _t(src), _t(dst), _t(mask.astype(np.int32)),
-                   check_routing=True)
-    assert np.array_equal(got.numpy(), want)
+    got = dbs_copy(_tp(pool.copy()), _t(src), _t(dst),
+                   _t(mask.astype(np.int32)), check_routing=True)
+    assert np.array_equal(got_bits(got), bits)
+    assert copy_kernel.PLAIN_CALLS["dbs_copy"] == 2
+    assert not any(copy_kernel.LAUNCHES_BY_DTYPE.values())
 
 
 @pytest.mark.parametrize("scratch", [False, True])
@@ -211,9 +243,9 @@ def test_cpu_tensors_take_the_plain_version_and_inputs_are_checked():
     dbs_copy(pool, _t(np.int32([0])), _t(np.int32([1])), _t([True]))
     assert copy_kernel.PLAIN_CALLS["dbs_copy"] == 1
     assert copy_kernel.LAUNCHES["dbs_copy"] == 0
-    with pytest.raises(TypeError, match="float32"):
-        dbs_copy(pool.double(), _t(np.int32([0])), _t(np.int32([1])),
-                 _t([True]))
+    with pytest.raises(TypeError, match="1, 2, 4 or 8"):
+        dbs_copy(pool.to(torch.complex128), _t(np.int32([0])),
+                 _t(np.int32([1])), _t([True]))
     with pytest.raises(TypeError, match="bool or int32"):
         dbs_copy(pool, _t(np.int32([0])), _t(np.int32([1])), _t([1.0]))
     with pytest.raises(ValueError, match="shape"):

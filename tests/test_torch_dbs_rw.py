@@ -4,7 +4,11 @@
    control plane (``write_pages``) emits, the port's registry entries —
    ``cuda`` (whose wrappers run the plain versions for CPU tensors),
    ``torch`` and ``ref`` — leave the pool bit-identical to JAX ``pallas``
-   (interpret mode) and ``xla``; reads with holes agree too.
+   (interpret mode) and ``xla``; reads with holes agree too. Each on fp32,
+   bf16 and uint8 pools (the Pallas kernels take any dtype, and so do the
+   port's: they move bytes); the wrappers refuse a payload of another
+   dtype than the pool's and elements of another size than 1, 2, 4 or 8
+   bytes.
 2. Multidimensional payloads, the registry API, the drop-``dst<0`` rule of
    the ``torch`` entry and the write-routing check.
 3. The flattened-row form of the sharded pool (``write_stacked``/
@@ -13,6 +17,7 @@
 4. The CUDA kernels themselves are held against their plain versions on a
    card by tests/test_torch_kernels_gpu.py, which imports no JAX.
 """
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -34,9 +39,34 @@ from repro_torch.kernels.dbs import (LAUNCHES, PLAIN_CALLS,  # noqa: E402
 from repro_torch.kernels.dbs.registry import _REGISTRY  # noqa: E402
 
 PORT_KERNELS = ["cuda", "torch", "ref"]
+DTYPES = ["float32", "bfloat16", "uint8"]      # pool dtypes of the twins
 
 
-def _legal_batch(e, page, d, b, seed):
+def _values(rng, shape, dtype="float32"):
+    """Seeded pool or payload values in ``dtype``: normal draws (rounded to
+    bf16 for ``bfloat16``), or random bytes for ``uint8``."""
+    if dtype == "uint8":
+        return rng.integers(0, 256, shape).astype(np.uint8)
+    x = rng.standard_normal(shape).astype(np.float32)
+    return x.astype(ml_dtypes.bfloat16) if dtype == "bfloat16" else x
+
+
+def _tt(a):
+    """A numpy array (bf16 through ml_dtypes) as a torch tensor."""
+    if a.dtype == ml_dtypes.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _bits(x):
+    """The bytes of a torch tensor or a numpy/JAX array, for bit-for-bit
+    comparison in any dtype."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous().view(torch.uint8).numpy()
+    return np.ascontiguousarray(np.asarray(x)).view(np.uint8)
+
+
+def _legal_batch(e, page, d, b, seed, dtype="float32"):
     """A write batch from the JAX control plane (so it is write_pages-legal):
     CoW after a snapshot and a clone (two lanes may share one CoW source),
     in-place pages, holes, duplicate-page groups with duplicate blocks,
@@ -60,8 +90,8 @@ def _legal_batch(e, page, d, b, seed):
     mask = rng.random(b) < 0.8
     st, ops = jdbs.write_pages(st, jnp.asarray(vol), jnp.asarray(pages),
                                bits(blocks), jnp.asarray(mask))
-    pool = rng.standard_normal((e, page, d)).astype(np.float32)
-    payload = rng.standard_normal((b, d)).astype(np.float32)
+    pool = _values(rng, (e, page, d), dtype)
+    payload = _values(rng, (b, d), dtype)
     return (pool, np.array(ops.dst), np.array(ops.cow_src),
             np.array(ops.ok), payload, blocks)
 
@@ -76,42 +106,78 @@ def _jax_write(name, pool, dst, cow, ok, payload, blocks):
 def _port_write(name, pool, dst, cow, ok, payload, blocks):
     ops = tdbs.WriteOps(dst=torch.from_numpy(dst), cow_src=torch.from_numpy(cow),
                         ok=torch.from_numpy(ok))
-    p = torch.from_numpy(pool.copy())
-    out = make_kernel(name).write(p, ops, torch.from_numpy(payload),
+    p = _tt(pool.copy())
+    out = make_kernel(name).write(p, ops, _tt(payload),
                                   torch.from_numpy(blocks))
     assert out.data_ptr() == p.data_ptr(), "write must update the pool in place"
-    return out.numpy()
+    assert out.dtype == p.dtype
+    return out.view(torch.uint8).numpy() if out.dtype == torch.bfloat16 \
+        else out.numpy()
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("e,page,d,b", [(16, 4, 8, 8), (33, 8, 16, 12),
                                          (9, 2, 4, 16)])
 @pytest.mark.parametrize("kernel", PORT_KERNELS)
 def test_write_matches_jax_on_write_pages_batches(kernel, e, page, d, b,
-                                                  seed):
-    args = _legal_batch(e, page, d, b, seed)
+                                                  seed, dtype):
+    """Bit for bit in every pool dtype (the pool's bytes compared)."""
+    args = _legal_batch(e, page, d, b, seed, dtype)
     got = _port_write(kernel, *args)
     for ref in ("pallas", "xla"):
-        assert np.array_equal(got, _jax_write(ref, *args)), ref
+        want = _jax_write(ref, *args)
+        assert want.dtype == args[0].dtype, ref
+        assert np.array_equal(_bits(got), _bits(want)), ref
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("e,page,d,b", [(16, 4, 8, 8), (33, 8, 16, 20)])
 @pytest.mark.parametrize("kernel", PORT_KERNELS)
-def test_read_matches_jax_with_holes(kernel, e, page, d, b):
-    """Hole lanes (ext < 0) read as zeros, not as clamped extent 0."""
+def test_read_matches_jax_with_holes(kernel, e, page, d, b, dtype):
+    """Hole lanes (ext < 0) read as zeros, not as clamped extent 0, in the
+    pool's dtype."""
     rng = np.random.default_rng(e)
-    pool = rng.standard_normal((e, page, d)).astype(np.float32)
+    pool = _values(rng, (e, page, d), dtype)
     lane = np.arange(b, dtype=np.int32)
     ext = np.where(lane % 3 == 0, -1, (lane * 7) % e).astype(np.int32)
     blocks = ((lane * 3) % page).astype(np.int32)
-    got = make_kernel(kernel).read(torch.from_numpy(pool),
-                                   torch.from_numpy(ext),
-                                   torch.from_numpy(blocks)).numpy()
+    got = make_kernel(kernel).read(_tt(pool), torch.from_numpy(ext),
+                                   torch.from_numpy(blocks))
+    assert got.dtype == _tt(pool).dtype
     for ref in ("pallas", "xla"):
         want = np.asarray(j_make_kernel(ref).read(
             jnp.asarray(pool), jnp.asarray(ext), jnp.asarray(blocks)))
-        assert np.array_equal(got, want), ref
-    assert not got[0].any()
+        assert want.dtype == pool.dtype, ref
+        assert np.array_equal(_bits(got), _bits(want)), ref
+    assert not _bits(got[0]).any()
+
+
+def test_wrappers_refuse_mixed_and_odd_dtypes():
+    """``dbs_rw_write`` takes its payload in the pool's dtype (the pool
+    wrapper casts, the kernel does not) and neither entry takes elements
+    of 16 bytes; the refusals come before any dispatch."""
+    i = torch.tensor([0, 3], dtype=torch.int32)
+    none = torch.full((2, 2), -1, dtype=torch.int32)
+    for dt, pay in ((torch.bfloat16, torch.float32),
+                    (torch.uint8, torch.bfloat16),
+                    (torch.float32, torch.float64)):
+        pool = torch.zeros((4, 2, 4), dtype=dt)
+        with pytest.raises(TypeError, match="payload"):
+            dbs_rw_write(pool, i, i, none, torch.zeros((2, 4), dtype=pay))
+    wide = torch.zeros((4, 2, 4), dtype=torch.complex128)
+    with pytest.raises(TypeError, match="1, 2, 4 or 8"):
+        dbs_rw_read(wide, i, i)
+    with pytest.raises(TypeError, match="1, 2, 4 or 8"):
+        dbs_rw_write(wide, i, i, none, torch.zeros((2, 4), dtype=wide.dtype))
+    # the pool wrapper casts the payload to the pool's dtype
+    pool = torch.zeros((4, 2, 4), dtype=torch.bfloat16)
+    ops = tdbs.WriteOps(dst=torch.tensor([1], dtype=torch.int32),
+                        cow_src=torch.tensor([-1], dtype=torch.int32),
+                        ok=torch.tensor([True]))
+    dbs_rw_write_pool(pool, ops, torch.full((1, 4), 1.5),
+                      torch.tensor([1], dtype=torch.int32))
+    assert pool[1, 1].tolist() == [1.5] * 4 and pool.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("kernel", PORT_KERNELS)
@@ -257,7 +323,7 @@ def test_cpu_tensors_take_the_plain_version():
     assert PLAIN_CALLS == {"dbs_rw_write": 1, "dbs_rw_read": 1}
     assert LAUNCHES == {"dbs_rw_write": 0, "dbs_rw_read": 0}
     with pytest.raises(TypeError):
-        dbs_rw_read(pool.double(), i, i)
+        dbs_rw_read(pool.to(torch.complex128), i, i)
     with pytest.raises(ValueError, match="contiguous"):
         dbs_rw_read(pool.transpose(0, 1).contiguous().transpose(0, 1), i, i)
 
@@ -287,3 +353,33 @@ def test_routing_check_rejects_racy_batches():
     src[1], dst_[1] = 5, 5              # ... which lane 1 writes
     with pytest.raises(ValueError, match="another lane writes"):
         dbs_rw_write(t, src, dst_, none, pay, check_routing=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bytes_formulas_count_the_pool_dtype(dtype):
+    """The dry run's bytes formulas of the three DBS entries (counted under
+    ``utils/op_stats.py``'s mode, through the custom ops) take the pool's
+    element size: a block is D * itemsize bytes, an id 4."""
+    from repro_torch.kernels.dbs import dbs_copy
+    from repro_torch.utils.op_stats import OpCounter
+    e, page, d, b = 9, 4, 8, 3
+    size = np.dtype(dtype).itemsize
+    pool = _tt(_values(np.random.default_rng(0), (e, page, d), dtype))
+    i = torch.tensor([1, 2, 8], dtype=torch.int32)
+    blk = i % page
+    lane_of = torch.full((b, page), -1, dtype=torch.int32)
+    pay = pool[:b, 0].clone()
+    nxt, mask = i + 1, torch.tensor([True, False, False])
+    calls = {
+        "read": (lambda: dbs_rw_read(pool, i, blk),
+                 2 * b * d * size + 4 * 2 * b),
+        "write": (lambda: dbs_rw_write(pool, i, i, lane_of, pay),
+                  2 * b * page * d * size + b * d * size
+                  + 4 * (2 * b + b * page)),
+        "copy": (lambda: dbs_copy(pool, i, nxt, mask),
+                 2 * b * page * d * size + 4 * 2 * b + b),
+    }
+    for name, (call, want) in calls.items():
+        with OpCounter() as c:
+            call()
+        assert c.bytes == want, (name, c.bytes, want)

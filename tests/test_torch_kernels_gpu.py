@@ -124,6 +124,17 @@ pools, pool form over an fp32 and a bf16 engine pool, one share and a
 page a share, the wide form, 2- and 4-byte copies, with holes and a lane
 of length 0; the stripe entry's fp32 log-sum-exp; and the refusal of
 fp16, fp64 and mixed dtypes on the card.
+
+The DBS kernels' other dtypes: ``dbs_rw_write``, ``dbs_rw_read`` and
+``dbs_copy`` on bf16, uint8 and int64 pools, bit for bit against their
+plain versions, in every access width the wrappers pick (16 bytes at the
+block device's width, 8, 4, 2 and 1 on odd rows or a pool offset by one
+element), and ``LAUNCHES_BY_DTYPE``; a payload of another dtype than the
+pool's refused. ``rwkv6_scan`` on bf16 inputs (u fp32 or bf16) in both
+schedules, at the serving path's shapes, through the model layout's
+strides and with a carried state: y bf16 within the fp32 tolerance plus
+one bf16 step of |y| (rtol 2^-7 more) of the plain chunked version on the
+same inputs, the state fp32 within the fp32 tolerance.
 Imports no JAX.
 """
 import numpy as np
@@ -2138,3 +2149,146 @@ def test_train_lm_example_on_the_card_saves_and_resumes(tmp_path):
                     tree_leaves(state)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     tr.ckpt.close()
+
+
+# ---------------------------------------------------------------------------
+# the DBS kernels' other dtypes and the scan's bf16 form
+# ---------------------------------------------------------------------------
+def _pool_of(dev, gen, shape, dtype, offset=False):
+    """Seeded values in ``dtype`` (random bytes for the integer dtypes);
+    with ``offset``, a view one element into a larger buffer, so the base
+    is aligned to the element alone."""
+    n = int(np.prod(shape)) + int(offset)
+    if dtype.is_floating_point:
+        flat = torch.randn(n, generator=gen, device=dev).to(dtype)
+    else:
+        flat = torch.randint(0, 256, (n * dtype.itemsize,), generator=gen,
+                             device=dev, dtype=torch.uint8).view(dtype)
+    return flat[int(offset):].view(shape)
+
+
+# dtype, extents, page, D, lanes, offset base, the write/read word (bytes)
+DBS_FORMS = [(torch.bfloat16, 33, 8, 16, 12, False, 16),
+             (torch.bfloat16, 16, 4, 6, 8, False, 4),     # 12-byte blocks
+             (torch.bfloat16, 16, 4, 7, 8, False, 2),
+             (torch.bfloat16, 2048, 32, 4096, 64, False, 16),
+             (torch.bfloat16, 16, 32, 26624, 8, True, 2),
+             (torch.uint8, 33, 8, 16, 12, False, 16),
+             (torch.uint8, 16, 4, 7, 8, False, 1),
+             (torch.uint8, 40, 32, 4096, 64, True, 1),
+             (torch.int64, 16, 4, 3, 8, False, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n_e,page,d,b,offset,word", DBS_FORMS)
+def test_dbs_rw_kernels_other_dtypes(dtype, n_e, page, d, b, offset, word):
+    """The write and read kernels on pools of other dtypes (the access
+    word from the block's bytes and the pool's alignment), bit for bit;
+    a payload of another dtype is refused."""
+    from repro_torch.kernels._build import word_bytes
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(d + b)
+    pool = _pool_of(dev, gen, (n_e + 1, page, d), dtype, offset)
+    ref = pool.clone()
+    assert word_bytes(d * pool.element_size(), pool) == word
+    for src, dst, lane_of in _legal_batches(n_e, page, b, 4, n_e):
+        src, dst, lane_of = src.to(dev), dst.to(dev), lane_of.to(dev)
+        pay = _pool_of(dev, gen, (b, d), dtype)
+        dbs_rw_write(pool, src, dst, lane_of, pay, check_routing=True)
+        dbs_rw_write_ref(ref, src, dst, lane_of, pay)
+    torch.cuda.synchronize()
+    assert torch.equal(pool.view(torch.uint8), ref.view(torch.uint8))
+    lane = torch.arange(b, device=dev, dtype=torch.int32)
+    ext = torch.where(lane % 3 == 0, -1, lane * 7 % (n_e + 1)).to(torch.int32)
+    blk = (lane * 5 % page).to(torch.int32)
+    got = dbs_rw_read(pool, ext, blk)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.uint8),
+                       dbs_rw_read_ref(pool, ext, blk).view(torch.uint8))
+    assert not got[0].view(torch.uint8).any()
+    with pytest.raises(TypeError, match="payload"):
+        dbs_rw_write(pool, src, dst, lane_of, pay.float() if dtype !=
+                     torch.float32 else pay.double())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n_e,page,d,b,offset,_word", DBS_FORMS)
+def test_dbs_copy_kernel_other_dtypes(dtype, n_e, page, d, b, offset, _word):
+    """The copy kernel on pools of other dtypes: live copies, masked lanes
+    with dst -1, a live copy into extent 0, bit for bit; one launch of the
+    pool's dtype (``LAUNCHES_BY_DTYPE``)."""
+    dev = _cuda()
+    e = max(n_e, 2 * b + 2)
+    rng = np.random.default_rng(e + d)
+    gen = torch.Generator(device=dev).manual_seed(e)
+    pool = _pool_of(dev, gen, (e, page, d), dtype, offset)
+    src = rng.integers(1, e // 2, b).astype(np.int32)
+    dst = (np.arange(b) + e // 2).astype(np.int32)
+    mask = rng.random(b) < 0.7
+    mask[0], dst[0] = True, 0
+    dst[~mask] = -1
+    args = [torch.from_numpy(x).to(dev) for x in (src, dst, mask)]
+    untouched = pool.clone()
+    ref = dbs_copy_ref(pool.clone(), *args)
+    copy_kernel.reset_counts()
+    got = dbs_copy(pool, *args, check_routing=True)
+    torch.cuda.synchronize()
+    key = str(dtype).split(".")[1]
+    assert copy_kernel.LAUNCHES_BY_DTYPE[key] == 1 == \
+        copy_kernel.LAUNCHES["dbs_copy"]
+    assert got is pool
+    assert torch.equal(pool.view(torch.uint8), ref.view(torch.uint8))
+    assert torch.equal(pool[0].view(torch.uint8),
+                       untouched[int(src[0])].view(torch.uint8))
+
+
+Y_BF16_TOL = dict(atol=1e-4, rtol=1e-4 + 2 ** -7)     # TOL + one bf16 step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d,chunk", [
+    (2, 128, 3, 64, 32), (2, 97, 3, 32, 64), (3, 61, 2, 16, 16),
+    (1, 513, 40, 64, 64), (8, 1, 40, 64, 64), (3, 5, 5, 40, 64),
+    (2, 9, 3, 6, 8)])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_scan_bf16_form(b, s, h, d, chunk, with_state, u_dtype):
+    """bf16 r, k, v and logw (views of one buffer: the model layout) in
+    both schedules, rwkv6-3b's prefill and decode among them, hd 40 and 6
+    (the 2-byte loads): y bf16 within Y_BF16_TOL of the plain chunked
+    version on the same bf16 inputs, the state fp32 within TOL; one launch
+    of the bf16 form."""
+    from repro_torch.kernels.rwkv6_scan import kernel as sk
+    dev = _cuda()
+    r, k, v, logw, u, s0 = _rwkv_case(dev, b, s, h, d, s * 13 + d,
+                                      with_state)
+    buf = torch.stack((r, k, v, logw), 2).to(torch.bfloat16)
+    r, k, v, logw = buf.unbind(2)
+    u = u.to(u_dtype)
+    sk.reset_counts()
+    y, st = rwkv6_scan_fwd(r, k, v, logw, u, chunk=chunk,
+                           s0=s0 if with_state else None)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES_BY_DTYPE == {"float32": 0, "bfloat16": 1}
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    want_y, want_s = rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
+    assert want_y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), want_y.float(), **Y_BF16_TOL)
+    torch.testing.assert_close(st, want_s, **TOL)
+
+
+@pytest.mark.gpu
+def test_rwkv6_scan_refuses_mixed_dtypes_on_the_card():
+    """A mix of fp32 and bf16 among r, k, v and logw, fp16 and fp64 raise
+    on the card as on the CPU."""
+    dev = _cuda()
+    r, k, v, logw, u, _ = _rwkv_case(dev, 1, 8, 2, 16, 0, False)
+    bf = [t.to(torch.bfloat16) for t in (r, k, v, logw)]
+    for i in range(4):
+        mixed = list(bf)
+        mixed[i] = mixed[i].float()
+        with pytest.raises(TypeError, match="one dtype"):
+            rwkv6_scan_fwd(*mixed, u)
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            rwkv6_scan_fwd(*(t.to(bad) for t in (r, k, v, logw)), u)

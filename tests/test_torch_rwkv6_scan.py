@@ -4,10 +4,19 @@ The same numpy inputs go through the JAX package's ``rwkv6_scan`` (the
 Pallas kernel in interpret mode on the CPU, as tests/test_kernels.py runs
 it) and ``rwkv6_scan_reference`` (the step-by-step oracle), and through the
 port's ``rwkv6_scan`` (on the CPU its wrapper runs the plain chunked
-version), ``rwkv6_chunked_ref`` and ``rwkv6_scan_ref``. fp32 throughout;
-tolerance atol 1e-4 and rtol 1e-4 (the chunked and step forms, and the two
-packages, sum in other orders; outputs are of order 1 to 10). The CUDA
-kernel itself is held against these plain versions on the card
+version), ``rwkv6_chunked_ref`` and ``rwkv6_scan_ref``. fp32 tolerance
+atol 1e-4 and rtol 1e-4 (the chunked and step forms, and the two
+packages, sum in other orders; outputs are of order 1 to 10).
+
+The bf16 form (inputs rounded to bf16, as the Pallas kernel takes them):
+both packages compute in fp32 and round y to bf16 (the kernel and the
+chunked version; the step oracles return fp32), the state fp32. The state
+within the fp32 tolerance; y within it plus one bf16 step of |y| (rtol
+2^-7 more): two fp32 values that close may round to neighbouring bf16
+values. The wrapper refuses r, k, v and logw of mixed dtypes and dtypes
+other than fp32 and bf16.
+
+The CUDA kernel itself is held against these plain versions on the card
 (tests/test_torch_kernels_gpu.py, chip_smoke.py).
 """
 import numpy as np
@@ -26,6 +35,13 @@ from repro_torch.kernels.rwkv6_scan import (  # noqa: E402
 from repro_torch.kernels.rwkv6_scan import kernel as scan_kernel  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+Y_TOL = {"float32": TOL, "bfloat16": dict(atol=1e-4, rtol=1e-4 + 2 ** -7)}
+
+
+def _round_bf16(*arrays):
+    """fp32 arrays rounded to bf16 values (still fp32, exactly)."""
+    return [np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+            for a in arrays]
 
 
 def _inputs(b, s, h, hd, seed, with_state=False):
@@ -45,17 +61,26 @@ def _t(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,hd,chunk", [
     (2, 128, 3, 64, 32), (1, 64, 2, 32, 64), (2, 96, 4, 16, 16),
 ])
-def test_scan_matches_reference(b, s, h, hd, chunk):
+def test_scan_matches_reference(b, s, h, hd, chunk, dtype):
     """The geometries of the reference's kernel sweep: the port's op and
-    both plain versions against JAX's kernel and oracle."""
+    both plain versions against JAX's kernel and oracle, in fp32 and on
+    bf16 inputs (``u`` too; the module note's tolerances). y comes back in
+    r's dtype from the kernel and the chunked version of both packages."""
     r, k, v, logw, u, s0 = _inputs(b, s, h, hd, seed=s + hd)
-    jy, js = j_scan(*map(jnp.asarray, (r, k, v, logw, u)), chunk=chunk)
+    if dtype == "bfloat16":
+        r, k, v, logw, u = _round_bf16(r, k, v, logw, u)
+    jd, td = jnp.dtype(dtype), getattr(torch, dtype)
+    jy, js = j_scan(*(jnp.asarray(a, jd) for a in (r, k, v, logw, u)),
+                    chunk=chunk)
+    assert jy.dtype == jd and js.dtype == jnp.float32
     ry, rs = j_ref(*map(jnp.asarray, (r, k, v, logw, u, s0)))
-    jy, js, ry, rs = (np.asarray(jax.device_get(a)) for a in (jy, js, ry, rs))
-    tr = _t(r, k, v, logw, u)
+    jy, js, ry, rs = (np.asarray(jax.device_get(a), np.float32)
+                      for a in (jy, js, ry, rs))
+    tr = [t.to(td) for t in _t(r, k, v, logw, u)]
     scan_kernel.reset_counts()
     got = {
         "op": rwkv6_scan(*tr, chunk=chunk),
@@ -65,9 +90,14 @@ def test_scan_matches_reference(b, s, h, hd, chunk):
     }
     # on the CPU the wrapper runs its plain version, never the kernel
     assert PLAIN_CALLS["rwkv6_scan"] == 1 and LAUNCHES["rwkv6_scan"] == 0
+    assert not any(scan_kernel.LAUNCHES_BY_DTYPE.values())
+    for name in ("op", "chunked"):
+        assert got[name][0].dtype == td, name
     for name, (y, st) in got.items():
+        assert st.dtype == torch.float32, name
         for want_y, want_s in ((jy, js), (ry, rs)):
-            np.testing.assert_allclose(y.numpy(), want_y, **TOL, err_msg=name)
+            np.testing.assert_allclose(y.float().numpy(), want_y,
+                                       **Y_TOL[dtype], err_msg=name)
             np.testing.assert_allclose(st.numpy(), want_s, **TOL,
                                        err_msg=name)
 
@@ -104,6 +134,26 @@ def test_scan_ragged_and_prime_lengths(s, chunk):
         np.testing.assert_allclose(st.numpy(), want_s, **TOL)
 
 
+@pytest.mark.parametrize("mix", ["k", "v", "logw", "r"])
+def test_wrapper_refuses_mixed_dtypes(mix):
+    """r, k, v and logw share one dtype, fp32 or bf16, and u is fp32 or
+    bf16: a mix, fp16 or fp64 raises before any dispatch (no input is
+    cast to reach a form); bf16 inputs with an fp32 or a bf16 u pass."""
+    bf = [t.bfloat16() for t in _t(*_inputs(1, 8, 2, 16, seed=0)[:5])]
+    args = dict(zip(("r", "k", "v", "logw", "u"), bf))
+    odd = dict(args, **{mix: args[mix].float()})
+    with pytest.raises(TypeError, match="one dtype"):
+        rwkv6_scan_fwd(*odd.values())
+    for bad in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            rwkv6_scan_fwd(*dict(args, **{mix: args[mix].to(bad)}).values())
+        with pytest.raises(TypeError, match="u"):
+            rwkv6_scan_fwd(*dict(args, u=args["u"].to(bad)).values())
+    for u in (args["u"], args["u"].float()):
+        y, st = rwkv6_scan_fwd(*dict(args, u=u).values())
+        assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+
+
 def test_wrapper_checks_its_inputs():
     """dtype, shape and layout are checked before any dispatch; the model
     layout's strided views are taken as they are."""
@@ -124,3 +174,18 @@ def test_wrapper_checks_its_inputs():
                                     torch.zeros((1, 2, 16, 16)))
     torch.testing.assert_close(y, want_y, **TOL)
     torch.testing.assert_close(st, want_s, **TOL)
+
+
+@pytest.mark.parametrize("dtype,size", [("float32", 4), ("bfloat16", 2)])
+def test_bytes_formula_counts_the_input_dtype(dtype, size):
+    """The dry run's bytes formula of the scan's entry (counted through its
+    custom op under ``utils/op_stats.py``'s mode): r, k, v, logw, y and u
+    at the inputs' element size, the state fp32 (4 bytes) whatever the
+    inputs."""
+    from repro_torch.utils.op_stats import OpCounter
+    b, s, h, d = 1, 8, 2, 16
+    r, k, v, logw, u, _ = (t.to(getattr(torch, dtype)) for t in _t(
+        *_inputs(b, s, h, d, seed=0)))
+    with OpCounter() as c:
+        rwkv6_scan_fwd(r, k, v, logw, u)
+    assert c.bytes == size * (5 * b * s * h * d + h * d) + 4 * b * h * d * d
