@@ -521,8 +521,8 @@ and the script exits non-zero:
    fake record's ``t_compute``, ``t_memory`` and ``bottleneck``.
 29. serve_path (gemma2-2b, bf16) — after phase 28's (c): phase 9's
    model (its published widths and depth, the same seeded weights rounded
-   to bf16, the serve plan's param dtype), engine and 16 prompts of 32
-   new tokens under ``ExecutionPlan(remat="none", attn_impl="cuda",
+   to bf16, the serve plan's param dtype), engine and first BF16_REQUESTS
+   (8) prompts of 32 new tokens (cut from 16) under ``ExecutionPlan(remat="none", attn_impl="cuda",
    compute_dtype="bfloat16")``: prefill through flash's bf16 form, decode
    through paged's pool form with bf16 q over the fp32 engine pool.
    ``_serve_traffic``'s checks and prints (tokens/s, prefill, pump and
@@ -546,7 +546,7 @@ and the script exits non-zero:
    (both compute attention in fp32 and round its output to bf16, in
    other orders), and where the two bf16 paths'
    tokens differ the plain path's top-2 margin must be under twice that
-   distance. (c) The 16 requests on the plain bf16 path: tokens equal to
+   distance. (c) The 8 requests on the plain bf16 path: tokens equal to
    the kernel path's under the TIE_MARGIN rule with that margin. Then the
    wide instantiations' bf16 forms at deepseek-v3's widths (seeded
    inputs): flash at K 576 / V 512 on BF16_WIDE_PROMPTS' lengths (every
@@ -586,12 +586,36 @@ and the script exits non-zero:
    AdamW state bit for bit; step seconds, tokens/s, each save's MB/s
    (the store sized to the state: ``ckpt_capacity``), the resume's MB/s
    and peak memory are printed.
+31. serve_path (gemma2-2b, fp16) — phase 29 on the fp16 serve plan
+   (``ExecutionPlan(remat="none", attn_impl="cuda", compute_dtype=
+   "float16", param_dtype="float16")``, the same seeded weights rounded to
+   fp16), through the kernels' fp16 forms (one template over bf16 and
+   fp16 each): (a) the 16 requests with ``_serve_traffic``'s checks, every
+   flash launch ``float16`` of the wgmma form (``f16_wgmma``) and every
+   paged launch ``float16_q`` (fp16 q over the fp32 engine pool), the kept
+   calls, the split-pool and stripe entries on fp16 copies of their planes
+   and ``dbs_rw_read``/``dbs_rw_write`` on an fp16 copy of the engine
+   pool (bit for bit); (b) the lock step of 4 x 8 tokens against the plain
+   fp16 and fp32 paths (every kernel-path logit finite, its distance to
+   fp32 within BF16_RATIO of the plain fp16 path's); no plain 16-request
+   run (phase 29's (c)); (d) the fork mix on the baseline (fp16 pools:
+   every ``dbs_copy`` launch ``float16``) and on zero-copy, tokens equal
+   to an independent decode; then the wide forms (flash 576 / 512 on
+   mma.sync, paged split pools and the packed instantiation at G = 128)
+   and flash's narrow mma.sync form at musicgen-large's d = 64 on rows one
+   value off 16 bytes (NARROW_MMA_PROMPT tokens; phase 29 runs it in bf16
+   too). Each fp16 form within F16_ATTN_TOL (rtol and atol 2e-3, the
+   reference's tolerance for a dtype other than bf16) of its plain
+   version, timed beside its bound and library call. The scan's fp16 form
+   is held in phase 18 beside its bf16 one, on the kept rwkv6-3b calls.
 
 Then a ``{"kernels": [...]}`` line (the paged and flash entries carry the
 bf16 forms' numbers under ``bf16_*`` keys and their launches on phase 29's
-path, by dtype and by form, and phase 28's bf16 step; the DBS and scan
-entries their other dtypes' under ``bf16_*`` and ``uint8_*`` keys, and
-every entry its launches on phase 29 (d)'s fork mix; every entry its
+path, by dtype and by form, and phase 28's bf16 step; the fp16 forms the
+same under ``f16_*`` keys from phase 31 (the scan's from phase 18); the
+DBS and scan entries their other dtypes' under ``bf16_*``, ``f16_*`` and
+``uint8_*`` keys, and every entry its launches on phase 29 (d)'s and 31
+(d)'s fork mixes; every entry its
 launches in each example, ``launches_examples``, and the four serving
 kernels their kept example calls' numbers under ``example_<name>_width_*``
 keys; the paged entry the
@@ -647,6 +671,10 @@ ATTN_TOL = dict(atol=1e-4, rtol=1e-4)
 # bf16 step (at most 2^-7 of the value) where the two land on either side
 # of a rounding boundary; the atol is ATTN_TOL's, for values near zero
 BF16_ATTN_TOL = dict(atol=1e-4, rtol=2 ** -7)
+# an fp16 form against its plain version: the reference's own tolerance for
+# a dtype other than bf16 (tests/test_kernels.py _tol), which one fp16 step
+# (2^-10 of the value) fits
+F16_ATTN_TOL = dict(atol=2e-3, rtol=2e-3)
 HOST_TOL = dict(atol=1e-3, rtol=1e-3)   # host baseline vs zero-copy logits
 TIE_MARGIN = 1e-2                # a closer top-2 step may pick either token
 BLOCK, PAGE_BLOCKS, REPLICAS, BATCH = 4096, 32, 3, 64
@@ -799,8 +827,12 @@ DRY_MEM_TOL = 0.01               # per_device_bytes vs the allocator's growth
 DRY_LSE_TOL = dict(atol=1e-5, rtol=1e-5)   # the stripe entry's log-sum-exp
 DRY_TIMEOUT = 900
 BF16_RATIO = 1.5                 # kernel bf16 vs fp32 logits / plain bf16's
+# phase 29's (a) and (c) on phase 9's first 8 requests (cut from 16 for
+# the script's time once phase 31 served the 16 on the fp16 plan)
+BF16_REQUESTS = 8
 BF16_LOCKSTEP = (4, 8)           # requests, new tokens of phase 29's (b)
 BF16_WIDE_PROMPTS = (479, 884)   # MLA prefill lengths of the wide forms
+NARROW_MMA_PROMPT = 700          # musicgen-large's prefill, the mma form
 # phase 29's fork mix: parents (phase 9's first prompts), their new tokens,
 # the token after which each forks once, and each child's new tokens
 BF16_FORK = (4, 32, 8, 24)
@@ -1165,8 +1197,16 @@ def read_parity(torch, pool, reads):
 
 def _attn_tol(torch, dtype):
     """The attention kernels' tolerance against their plain versions in
-    ``dtype``: ATTN_TOL in fp32, BF16_ATTN_TOL in bf16."""
-    return ATTN_TOL if dtype == torch.float32 else BF16_ATTN_TOL
+    ``dtype``: ATTN_TOL in fp32, BF16_ATTN_TOL in bf16, F16_ATTN_TOL in
+    fp16."""
+    return {torch.float32: ATTN_TOL, torch.bfloat16: BF16_ATTN_TOL}.get(
+        dtype, F16_ATTN_TOL)
+
+
+def _tag16(torch, dtype) -> str:
+    """A 16-bit dtype's form prefix (``LAUNCHES_BY_FORM``, the kernels
+    line's keys): bf16 or f16."""
+    return "bf16" if dtype == torch.bfloat16 else "f16"
 
 
 def _width_keys(tag, k):
@@ -4049,15 +4089,16 @@ def phase_paged_kernel(torch, eng, kept):
 
 def _packed_rate(torch, q_dtype, pool_dtype, d, dv):
     """The rate of the packed paged kernel's products on the tensor cores,
-    flops a second. Over bf16 pools, bf16's. Over fp32 pools, 3xTF32's (a
-    third of the TF32 rate: three TF32 products a multiply-add), except
-    q.K^T for bf16 q, which is exact in TF32 and so takes two products:
-    the two rates then mixed by their products' shares of the flops (d of
-    a position's d + dv multiply-adds are q.K^T's)."""
-    if pool_dtype == torch.bfloat16:
+    flops a second. Over 16-bit pools (bf16 or fp16), their dense rate
+    (the same). Over fp32 pools, 3xTF32's (a third of the TF32 rate: three
+    TF32 products a multiply-add), except q.K^T for 16-bit q, which is
+    exact in TF32 and so takes two products: the two rates then mixed by
+    their products' shares of the flops (d of a position's d + dv
+    multiply-adds are q.K^T's)."""
+    if pool_dtype != torch.float32:
         return BF16_FLOPS_PER_S
     tf32 = 3 * TF32X3_FLOPS_PER_S            # the dense TF32 rate
-    qk = tf32 / (2 if q_dtype == torch.bfloat16 else 3)
+    qk = tf32 / (2 if q_dtype != torch.float32 else 3)
     return (d + dv) / (d / qk + dv / TF32X3_FLOPS_PER_S)
 
 
@@ -4074,8 +4115,8 @@ def phase_flash_kernel(torch, kept):
                              "both kept")
     dtype = calls[0][0].dtype
     tol = _attn_tol(torch, dtype)
-    # fp32 runs in 3xTF32 (three TF32 products a multiply-add), bf16 on
-    # the bf16 tensor cores
+    # fp32 runs in 3xTF32 (three TF32 products a multiply-add), bf16 and
+    # fp16 on the tensor cores at their (one) dense rate
     rate = TF32X3_FLOPS_PER_S if dtype == torch.float32 else \
         BF16_FLOPS_PER_S
     err, flops, n_bytes, bounds = 0.0, [], [], []
@@ -4115,7 +4156,8 @@ def phase_flash_kernel(torch, kept):
          dtype=str(dtype), form=form)
     fp32 = dtype == torch.float32
     return {"name": "flash_attention", "route": "cuda",
-            "source": FLASH_WGMMA_SRC if form == "bf16_wgmma" else FLASH_SRC,
+            "source": (FLASH_WGMMA_SRC if form.endswith("_wgmma")
+                       else FLASH_SRC),
             "form": form,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
@@ -4124,12 +4166,13 @@ def phase_flash_kernel(torch, kept):
                          >= b_mean / HBM_BYTES_PER_S else "bytes"),
             "bound_rate": ("fp32 flops in 3xTF32 on the tensor cores, "
                            "495/3 = 165 TFLOP/s" if fp32 else
-                           "bf16 flops on the tensor cores, 989 TFLOP/s "
-                           "dense") + "; bytes at 3.35 TB/s",
+                           f"{_tag16(torch, dtype)} flops on the tensor "
+                           f"cores, 989 TFLOP/s dense")
+            + "; bytes at 3.35 TB/s",
             "library_ms": lib,
             "library_call": "scaled_dot_product_attention(is_causal=True, "
                             "enable_gqa=True), %s, without the logit cap"
-                            % ("fp32" if fp32 else "bf16"),
+                            % ("fp32" if fp32 else _tag16(torch, dtype)),
             "flops_per_call": f_mean,
             **resources(torch, info, max(grid)),
             "grid_blocks_per_call": grid}
@@ -4799,7 +4842,8 @@ def phase_rwkv_kernel(torch, kept):
                         "bound_ms": max(op_s, nb / HBM_BYTES_PER_S) * 1e3,
                         "bound_by": ("operations" if op_s
                                      >= nb / HBM_BYTES_PER_S else "bytes")}
-    bf16 = _rwkv_bf16_form(torch, dec, pre)
+    bf16 = _rwkv_form16(torch, dec, pre, torch.bfloat16)
+    f16 = _rwkv_form16(torch, dec, pre, torch.float16)
     emit(phase="kernel_parity", kernel="rwkv6_scan", chunk=RWKV_CHUNK,
          max_abs_err=err, max_err_over_largest_magnitude=scaled,
          crafted_shapes=[list(c[0].shape) for c in crafted],
@@ -4810,17 +4854,20 @@ def phase_rwkv_kernel(torch, kept):
     return {"name": "rwkv6_scan", "route": "cuda", "source": RWKV_SRC,
             "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:66",
             "max_abs_err": max(err.values()), "timing": timing,
-            "bf16": bf16}
+            "bf16": bf16, "f16": f16}
 
 
-def _rwkv_bf16_form(torch, dec, pre):
-    """The scan's bf16 form on the kept decode and prefill calls with r, k,
-    v, logw and u rounded to bf16 (the carried state stays fp32), against
-    the plain chunked version on the same inputs: the state within
-    RWKV_TOL's terms, y (bf16) within them plus one bf16 step of |y| (rtol
-    2^-7 more); every launch of the bf16 form. Timed as the fp32 form,
-    its bound at 2-byte inputs (the operations as _rwkv_op_seconds counts
-    them). Emits a kernel_parity line; returns the numbers per schedule."""
+def _rwkv_form16(torch, dec, pre, dtype):
+    """The scan's 16-bit form of ``dtype`` (bf16 or fp16) on the kept
+    decode and prefill calls with r, k, v, logw and u rounded to ``dtype``
+    (the carried state stays fp32), against the plain chunked version on
+    the same inputs: the state within RWKV_TOL's terms; y (of ``dtype``)
+    in bf16 within them plus one bf16 step of |y| (rtol 2^-7 more), in
+    fp16 within the reference's fp16 tolerance (rtol 2e-3, atol 2e-3 or
+    RWKV_ATOL_SCALE of the largest magnitude, the fp32 rule's widening);
+    every launch of the form. Timed as the fp32 form, its bound at 2-byte
+    inputs (the operations as _rwkv_op_seconds counts them). Emits a
+    kernel_parity line; returns the numbers per schedule."""
     from repro_torch.kernels.rwkv6_scan import kernel as sk
     from repro_torch.kernels.rwkv6_scan import rwkv6_chunked_ref
     from repro_torch.kernels.rwkv6_scan.kernel import (rwkv6_info,
@@ -4828,30 +4875,34 @@ def _rwkv_bf16_form(torch, dec, pre):
                                                        rwkv6_work)
     from repro_torch.kernels.timing import graph_ms
     out = {}
+    key = str(dtype).split(".")[1]
+    bf = dtype == torch.bfloat16
+    y_rtol, y_atol = ((RWKV_RTOL + 2 ** -7, RWKV_ATOL) if bf
+                      else (F16_ATTN_TOL["rtol"], F16_ATTN_TOL["atol"]))
     for name, kept in (("decode", dec), ("prefill", pre)):
-        calls = [tuple(t.to(torch.bfloat16) for t in c[:5]) + (c[5],)
+        calls = [tuple(t.to(dtype) for t in c[:5]) + (c[5],)
                  for c in kept]
         e_y = e_s = 0.0
         sk.reset_counts()
         for r, k, v, w, u, s0 in calls:
             y, st = rwkv6_scan_fwd(r, k, v, w, u, chunk=RWKV_CHUNK, s0=s0)
             wy, ws = rwkv6_chunked_ref(r, k, v, w, u, s0, chunk=RWKV_CHUNK)
-            if y.dtype != torch.bfloat16 or st.dtype != torch.float32:
-                raise AssertionError(f"rwkv6_scan bf16: y {y.dtype}, state "
+            if y.dtype != dtype or st.dtype != torch.float32:
+                raise AssertionError(f"rwkv6_scan {key}: y {y.dtype}, state "
                                      f"{st.dtype}")
-            for got, want, rtol in ((y, wy, RWKV_RTOL + 2 ** -7),
-                                    (st, ws, RWKV_RTOL)):
+            for got, want, rtol, atol in ((y, wy, y_rtol, y_atol),
+                                          (st, ws, RWKV_RTOL, RWKV_ATOL)):
                 top = float(want.float().abs().max())
                 torch.testing.assert_close(
                     got.float(), want.float(), rtol=rtol,
-                    atol=max(RWKV_ATOL, RWKV_ATOL_SCALE * top))
+                    atol=max(atol, RWKV_ATOL_SCALE * top))
             e_y = max(e_y, _max_err(torch, y, wy))
             e_s = max(e_s, _max_err(torch, st, ws))
-        if sk.LAUNCHES_BY_DTYPE["bfloat16"] != len(calls) or \
+        if sk.LAUNCHES_BY_DTYPE[key] != len(calls) or \
                 sk.LAUNCHES["rwkv6_scan"] != len(calls):
-            raise AssertionError(f"rwkv6_scan bf16: launches "
+            raise AssertionError(f"rwkv6_scan {key}: launches "
                                  f"{sk.LAUNCHES_BY_DTYPE}, not {len(calls)} "
-                                 f"of the bf16 form")
+                                 f"of the {key} form")
         work = [rwkv6_work(*c[0].shape[:2], c[0].shape[2], c[0].shape[3],
                            RWKV_CHUNK, c[5] is not None, 2) for c in calls]
         n = len(calls)
@@ -4866,7 +4917,8 @@ def _rwkv_bf16_form(torch, dec, pre):
         op_s = sum(_rwkv_op_seconds(c[0].shape) for c in calls) / n
         b, s, h, d = calls[0][0].shape
         out[name] = {"calls": n, "shape": list(calls[0][0].shape),
-                     "kernel": rwkv6_info(b, s, h, d, RWKV_CHUNK, bf16=True),
+                     "kernel": rwkv6_info(b, s, h, d, RWKV_CHUNK,
+                                           dtype=dtype),
                      "ms": ms, "plain_ms": plain, "library_ms": None,
                      "max_abs_err": max(e_y, e_s), "max_abs_err_y": e_y,
                      "max_abs_err_state": e_s, "flops_per_call": f,
@@ -4874,11 +4926,12 @@ def _rwkv_bf16_form(torch, dec, pre):
                      "bound_ms": max(op_s, nb / HBM_BYTES_PER_S) * 1e3,
                      "bound_by": ("operations" if op_s
                                   >= nb / HBM_BYTES_PER_S else "bytes")}
-    emit(phase="kernel_parity", kernel="rwkv6_scan", dtype="bfloat16",
-         inputs="the kept calls rounded to bf16 (u too; the state fp32)",
-         tolerance={"rtol": f"{RWKV_RTOL} (y: + 2^-7)",
-                    "atol": f"max({RWKV_ATOL}, {RWKV_ATOL_SCALE} * "
-                            f"max|reference|)"}, timing=out)
+    emit(phase="kernel_parity", kernel="rwkv6_scan", dtype=key,
+         inputs=f"the kept calls rounded to {key} (u too; the state fp32)",
+         tolerance={"rtol": f"{RWKV_RTOL} (y: {y_rtol})",
+                    "atol": f"max({RWKV_ATOL} (y: {y_atol}), "
+                            f"{RWKV_ATOL_SCALE} * max|reference|)"},
+         timing=out)
     return out
 
 
@@ -4934,9 +4987,10 @@ def _rwkv_entry(k, launches, counts, n_layers):
              library_call="none: no single PyTorch call computes the RWKV-6 "
                           "recurrence",
              prefill=t["prefill"], decode=t["decode"])
-    t16 = k.pop("bf16")
-    k.update(**_width_keys("bf16_prefill", t16["prefill"]),
-             **_width_keys("bf16_decode", t16["decode"]))
+    for tag in ("bf16", "f16"):
+        t16 = k.pop(tag)
+        k.update(**_width_keys(f"{tag}_prefill", t16["prefill"]),
+                 **_width_keys(f"{tag}_decode", t16["decode"]))
     return k
 
 
@@ -6461,26 +6515,28 @@ def phase_dryrun(torch, dev, smi, runs, beside=None):
 # ---------------------------------------------------------------------------
 # phase 29: gemma2-2b on its bf16 serve plan
 # ---------------------------------------------------------------------------
-def _bf16_plan(attn_impl):
-    """The serve plan's dtypes (bf16 params and compute) on ``attn_impl``:
-    "cuda" for the kernels, "dense" for the plain paths (the reference's
-    "chunked" cuts a prompt of prime length into one-token chunks)."""
+def _plan16(attn_impl, dtype="bfloat16"):
+    """A 16-bit serve plan's dtypes (params and compute in ``dtype``,
+    bfloat16 or float16) on ``attn_impl``: "cuda" for the kernels, "dense"
+    for the plain paths (the reference's "chunked" cuts a prompt of prime
+    length into one-token chunks)."""
     from repro_torch.configs.base import ExecutionPlan
     return ExecutionPlan(remat="none", attn_impl=attn_impl,
-                         compute_dtype="bfloat16", param_dtype="bfloat16")
+                         compute_dtype=dtype, param_dtype=dtype)
 
 
-def _bf16_lockstep(torch, dev, cfg, params, prompts):
+def _lockstep16(torch, dev, cfg, params, prompts, dtype="bfloat16"):
     """BF16_LOCKSTEP's requests on three zero-copy engines with the logits
-    recorded: bf16 through the kernels, bf16 on the plain paths
-    (``attn_impl="dense"``, ``kernel="ref"``: every kernel's plain version)
-    and fp32 on the plain paths with the same weights upcast (exactly).
-    While a request's three token streams agree its steps are compared:
-    over them the kernel
-    path's largest distance to the fp32 logits must stay within BF16_RATIO
-    of the plain bf16 path's. Where the kernel and plain bf16 tokens
-    differ, the plain path's top-2 margin must be under twice that
-    distance (a near tie). Returns the line's fields."""
+    recorded: ``dtype`` (bfloat16 or float16, the params') through the
+    kernels, ``dtype`` on the plain paths (``attn_impl="dense"``,
+    ``kernel="ref"``: every kernel's plain version) and fp32 on the plain
+    paths with the same weights upcast (exactly). Every logit of the
+    kernel path must be finite. While a request's three token streams
+    agree its steps are compared: over them the kernel path's largest
+    distance to the fp32 logits must stay within BF16_RATIO of the plain
+    16-bit path's. Where the kernel and plain 16-bit tokens differ, the
+    plain path's top-2 margin must be under twice that distance (a near
+    tie). Returns the line's fields."""
     import numpy as np
     from repro_torch.configs.base import ExecutionPlan
     from repro_torch.models.model import tree_map
@@ -6495,7 +6551,7 @@ def _bf16_lockstep(torch, dev, cfg, params, prompts):
                                  compute_dtype="float32")
         else:
             p = params
-            plan = _bf16_plan("cuda" if name == "kernel" else "dense")
+            plan = _plan16("cuda" if name == "kernel" else "dense", dtype)
         eng = _serve_engine(torch, cfg, p, dev, record_logits=True,
                             plan=plan,
                             kernel="cuda" if name == "kernel" else "ref")
@@ -6515,8 +6571,11 @@ def _bf16_lockstep(torch, dev, cfg, params, prompts):
         (kt, kl), (pt, pl), (ft, fl) = (runs[n][rid]
                                         for n in ("kernel", "plain", "fp32"))
         if not len(kt) == len(pt) == len(ft) == n_new:
-            raise AssertionError(f"bf16 lock step: request {rid} made "
+            raise AssertionError(f"{dtype} lock step: request {rid} made "
                                  f"{len(kt)}, {len(pt)}, {len(ft)} tokens")
+        if not np.isfinite(kl).all():
+            raise AssertionError(f"{dtype} lock step: request {rid}'s "
+                                 f"logits through the kernels not finite")
         for t in range(n_new):
             d_kernel = max(d_kernel, float(np.abs(kl[t] - fl[t]).max()))
             d_plain = max(d_plain, float(np.abs(pl[t] - fl[t]).max()))
@@ -6534,22 +6593,25 @@ def _bf16_lockstep(torch, dev, cfg, params, prompts):
                   kernel_vs_plain=d_pair, ratio=BF16_RATIO,
                   near_ties={str(r): v for r, v in ties.items()})
     if not ok:
-        raise AssertionError(f"bf16 lock step failed: {fields}")
+        raise AssertionError(f"{dtype} lock step failed: {fields}")
     return fields
 
 
 def _form_parity(torch, kernel, entry, calls, launch, plain, work, rate=None,
-                 library=None, lse_tol=None):
-    """One bf16 form on ``calls`` ((args, kw) pairs) against its plain
+                 library=None, lse_tol=None, dtype=None):
+    """One 16-bit form on ``calls`` ((args, kw) pairs) against its plain
     version in the working type (``plain`` returns what the wrapper's plain
-    version returns: fp32 math rounded to bf16) within BF16_ATTN_TOL (an
-    lse entry's second output, fp32, within ``lse_tol``); timed as in phase
+    version returns: fp32 math rounded to ``dtype``, bf16 by default)
+    within ``_attn_tol`` (an lse entry's second output, fp32, within
+    ``lse_tol``); timed as in phase
     10 beside the plain version, one PyTorch yardstick (``library(args,
     kw)`` prepares a call's inputs, untimed, and returns the call; None:
     there is none) and the bound: ``work(args, kw)`` -> (flops, bytes),
     flops over ``rate`` (None: bytes alone) against bytes over 3.35 TB/s.
     Emits a kernel_parity line; returns the entry's fields."""
     from repro_torch.kernels.timing import graph_ms
+    dtype = dtype or torch.bfloat16
+    tol = _attn_tol(torch, dtype)
     err, lse_err, flops, n_bytes = 0.0, 0.0, [], []
     for args, kw in calls:
         got, want = launch(*args, **kw), plain(*args, **kw)
@@ -6557,10 +6619,9 @@ def _form_parity(torch, kernel, entry, calls, launch, plain, work, rate=None,
             torch.testing.assert_close(got[1], want[1], **lse_tol)
             lse_err = max(lse_err, float((got[1] - want[1]).abs().max()))
             got, want = got[0], want[0]
-        if got.dtype != torch.bfloat16:
+        if got.dtype != dtype:
             raise AssertionError(f"{kernel} {entry}: output {got.dtype}")
-        torch.testing.assert_close(got.float(), want.float(),
-                                   **BF16_ATTN_TOL)
+        torch.testing.assert_close(got.float(), want.float(), **tol)
         err = max(err, float((got.float() - want.float()).abs().max()))
         f, nb = work(args, kw)
         flops.append(f)
@@ -6582,8 +6643,8 @@ def _form_parity(torch, kernel, entry, calls, launch, plain, work, rate=None,
                flops_per_call=f_mean)
     extra = ({"lse_max_abs_err": lse_err, "lse_tolerance": lse_tol}
              if lse_tol is not None else {})
-    emit(phase="kernel_parity", kernel=kernel, entry=entry, dtype="bfloat16",
-         tolerance=BF16_ATTN_TOL, **out, **extra)
+    emit(phase="kernel_parity", kernel=kernel, entry=entry,
+         dtype=str(dtype).split(".")[1], tolerance=tol, **out, **extra)
     return out
 
 
@@ -6621,19 +6682,22 @@ def _sdpa(torch, q, k, v, **kw):
         q, k, v, is_causal=True, enable_gqa=True, scale=kw["scale"])
 
 
-def _bf16_split_forms(torch, pool, kept):
+def _split_forms16(torch, pool, kept, dtype=None):
     """The split-pool entry and the stripe entry (``paged_attention_lse_fwd``)
-    in bf16 at the serving width: the kept decode calls of the bf16
-    traffic (q bf16) over bf16 copies of their layers' K and V planes of
-    the engine pool (E, page, KV, hd each; a layer's planes copied once)."""
+    in ``dtype`` (bf16 by default, or fp16) at the serving width: the kept
+    decode calls of the 16-bit traffic (q of ``dtype``) over copies in
+    ``dtype`` of their layers' K and V planes of the engine pool (E, page,
+    KV, hd each; a layer's planes copied once)."""
     from repro_torch.kernels.paged_attention.kernel import (
         paged_attention_fwd, paged_attention_lse_fwd, paged_work)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    dtype = dtype or torch.bfloat16
+    tag = _tag16(torch, dtype)
     planes = {}
 
     def plane(i):
         if i not in planes:
-            planes[i] = pool[:, :, i].to(torch.bfloat16).contiguous()
+            planes[i] = pool[:, :, i].to(dtype).contiguous()
         return planes[i]
     calls = [((q, plane(kw["k_plane"]), plane(kw["v_plane"]), table,
                lengths), dict(window=kw["window"],
@@ -6646,31 +6710,36 @@ def _bf16_split_forms(torch, pool, kept):
                           kw["window"], 2)
 
     def plain(*a, **kw):
-        return paged_attention_ref(*a, **kw).to(torch.bfloat16)
+        return paged_attention_ref(*a, **kw).to(dtype)
 
     def plain_lse(*a, **kw):
         out, lse = paged_attention_ref(*a, return_lse=True, **kw)
-        return out.to(torch.bfloat16), lse
-    split = _form_parity(torch, "paged_attention", "split pools, bf16",
+        return out.to(dtype), lse
+    split = _form_parity(torch, "paged_attention", f"split pools, {tag}",
                          calls, paged_attention_fwd, plain, work,
-                         library=lambda a, k: _paged_library(torch, *a, **k))
-    lse = _form_parity(torch, "paged_attention", "lse (stripe), bf16",
+                         library=lambda a, k: _paged_library(torch, *a, **k),
+                         dtype=dtype)
+    lse = _form_parity(torch, "paged_attention", f"lse (stripe), {tag}",
                        calls, paged_attention_lse_fwd, plain_lse, work,
-                       lse_tol=DRY_LSE_TOL)
+                       lse_tol=DRY_LSE_TOL, dtype=dtype)
     return split, lse
 
 
-def _bf16_wide_forms(torch, dev):
-    """The wide instantiations' bf16 forms at deepseek-v3's serving shapes
-    (the absorbed latent: K 576, V 512, 128 query heads on one KV head,
-    scale 1/sqrt(192); seeded random values): flash on two prompts of
-    BF16_WIDE_PROMPTS tokens in the model layout (the mma.sync form);
-    paged on 8 sequences of up to 1024 positions (page 32, 32 pages, holes
-    past each length, a lane of length 0) over bf16 split pools (K 576, V
-    512) and, q bf16, over an fp32 engine pool of 8 planes at 576 (the
-    packed instantiation, each launch checked: its products bound the
-    bf16 split form at the bf16 rate, the fp32 pool's at _packed_rate's:
-    q.K^T in two TF32 products, P.V in three)."""
+def _wide_forms16(torch, dev, dtype=None):
+    """The wide instantiations' 16-bit forms (``dtype``: bf16 by default,
+    or fp16) at deepseek-v3's serving shapes (the absorbed latent: K 576,
+    V 512, 128 query heads on one KV head, scale 1/sqrt(192); seeded random
+    values): flash on two prompts of BF16_WIDE_PROMPTS tokens in the model
+    layout (the mma.sync form); paged on 8 sequences of up to 1024
+    positions (page 32, 32 pages, holes past each length, a lane of length
+    0) over split pools of ``dtype`` (K 576, V 512) and, q of ``dtype``,
+    over an fp32 engine pool of 8 planes at 576 (the packed instantiation,
+    each launch checked: its products bound the 16-bit split form at the
+    16-bit rate, the fp32 pool's at _packed_rate's: q.K^T in two TF32
+    products, P.V in three). Then the narrow mma.sync form at musicgen-
+    large's prefill shape (32 heads, d 64, NARROW_MMA_PROMPT tokens) on
+    rows one value off 16 bytes (at 16-byte rows d = 64 takes the wgmma
+    form)."""
     import numpy as np
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
@@ -6681,7 +6750,8 @@ def _bf16_wide_forms(torch, dev):
         paged_attention_fwd, paged_attention_pool_fwd, paged_work)
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_pool_ref, paged_attention_ref)
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
+    tag = _tag16(torch, bf)
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     h, dk, dv, scale = 128, 576, 512, 1.0 / math.sqrt(192.0)
     flash_calls = []
@@ -6694,14 +6764,14 @@ def _bf16_wide_forms(torch, dev):
                             dict(window=0, logit_cap=0.0, scale=scale)))
     fk.reset_counts()
     wide = {"flash": _form_parity(
-        torch, "flash_attention", "wide (K 576, V 512), bf16", flash_calls,
+        torch, "flash_attention", f"wide (K 576, V 512), {tag}", flash_calls,
         flash_attention_fwd,
         lambda *a, **k: attention_ref(*a, **k).to(bf),
         lambda a, k: flash_work(*a, True, k["window"]), BF16_FLOPS_PER_S,
-        library=lambda a, k: _sdpa(torch, *a, **k))}
-    if fk.LAUNCHES_BY_FORM["bf16_mma"] != fk.LAUNCHES["flash_attention"]:
-        raise AssertionError(f"the wide bf16 flash form launched "
-                             f"{fk.LAUNCHES_BY_FORM}, not bf16_mma alone")
+        library=lambda a, k: _sdpa(torch, *a, **k), dtype=bf)}
+    if fk.LAUNCHES_BY_FORM[f"{tag}_mma"] != fk.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"the wide {tag} flash form launched "
+                             f"{fk.LAUNCHES_BY_FORM}, not {tag}_mma alone")
     b, page, p_max, n_planes = 8, 32, 32, 8
     e = b * p_max + 5
     rng = np.random.default_rng(SEED + 31)
@@ -6719,89 +6789,154 @@ def _bf16_wide_forms(torch, dev):
     kw = dict(window=0, logit_cap=0.0, scale=scale)
     pk.reset_counts()
     wide["paged_split"] = _form_parity(
-        torch, "paged_attention", "wide split pools (576 / 512), bf16",
+        torch, "paged_attention", f"wide split pools (576 / 512), {tag}",
         [((q, pk_, pv, table, lengths), kw)], paged_attention_fwd,
         lambda *a, **k: paged_attention_ref(*a, **k).to(bf),
         lambda a, k: paged_work(a[0], a[3], a[4], page, 1, dk, dv, 0, 2),
         BF16_FLOPS_PER_S,
-        library=lambda a, k: _paged_library(torch, *a, **k))
+        library=lambda a, k: _paged_library(torch, *a, **k), dtype=bf)
     pkw = dict(kw, k_plane=6, v_plane=7)
     wide["paged_pool"] = _form_parity(
-        torch, "paged_attention", "wide pool (576), bf16 q over fp32",
+        torch, "paged_attention", f"wide pool (576), {tag} q over fp32",
         [((q, pool, table, lengths), pkw)], paged_attention_pool_fwd,
         lambda *a, **k: paged_attention_pool_ref(*a, **k).to(bf),
         lambda a, k: paged_work(a[0], a[2], a[3], page, 1, dk, dk, 0, 4),
         _packed_rate(torch, bf, torch.float32, dk, dk),
         library=lambda a, k: _paged_library(
-            torch, a[0], a[1][:, :, 6], a[1][:, :, 7], a[2], a[3], **k))
+            torch, a[0], a[1][:, :, 6], a[1][:, :, 7], a[2], a[3], **k),
+        dtype=bf)
     if pk.LAUNCHES_BY_INSTANCE["packed"] != pk.LAUNCHES["paged_attention"]:
         raise AssertionError(f"the wide paged forms launched "
                              f"{pk.LAUNCHES_BY_INSTANCE}, not the packed "
                              f"instantiation alone")
+    s, h, d = NARROW_MMA_PROMPT, 32, 64
+    q, k, v = (torch.randn((1, s, h, d + 1), generator=gen,
+                           device=dev).to(bf)[..., :d].transpose(1, 2)
+               for _ in range(3))
+    fk.reset_counts()
+    wide["flash_narrow_mma"] = _form_parity(
+        torch, "flash_attention", f"narrow mma.sync (d 64, rows of 65), "
+        f"{tag}", [((q, k, v), dict(window=0, logit_cap=0.0,
+                                    scale=1.0 / 8.0))],
+        flash_attention_fwd, lambda *a, **k: attention_ref(*a, **k).to(bf),
+        lambda a, k: flash_work(*a, True, k["window"]), BF16_FLOPS_PER_S,
+        library=lambda a, k: _sdpa(torch, *a, **k), dtype=bf)
+    if fk.LAUNCHES_BY_FORM[f"{tag}_mma"] != fk.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"the narrow {tag} call launched "
+                             f"{fk.LAUNCHES_BY_FORM}, not {tag}_mma alone")
     return wide
 
 
 def phase_serve_bf16(torch, dev, smi):
     """Phase 29 (the module docstring). Returns the bf16 forms' fields for
     the kernels line."""
+    return _serve16(torch, dev, smi, torch.bfloat16, plain_run=True,
+                    n_requests=BF16_REQUESTS)
+
+
+def phase_serve_f16(torch, dev, smi):
+    """Phase 31 (the module docstring): phase 29 on gemma2-2b's fp16 serve
+    plan, without its plain 16-request run (c). Returns the fp16 forms'
+    fields for the kernels line."""
+    return _serve16(torch, dev, smi, torch.float16, plain_run=False,
+                    n_requests=SERVE_REQUESTS)
+
+
+def _serve16(torch, dev, smi, dtype, plain_run, n_requests):
+    """Phase 29 or 31: gemma2-2b on its serve plan of the 16-bit ``dtype``
+    through the kernels' forms of that dtype, (a)-(d) of the module
+    docstring on phase 9's first ``n_requests`` prompts ((c), their plain
+    run, with ``plain_run``), then the wide and narrow mma.sync forms at
+    kept shapes."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.models.model import tree_map
-    from repro_torch.serving.engine import GenRequest
     t_phase = time.perf_counter()
+    name = str(dtype).split(".")[1]
+    tag = _tag16(torch, dtype)
     cfg = get_config(SERVE_MODEL)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held_before = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     params = tree_map(
-        lambda t: t.to(torch.bfloat16) if t.is_floating_point() else t,
+        lambda t: t.to(dtype) if t.is_floating_point() else t,
         init_params(torch.Generator(device=dev).manual_seed(SEED), cfg))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     lens, prompts = _serve_prompts(np, cfg)
-    # (a) the kernel path: phase 9's traffic and checks on the bf16 plan
-    eng = _serve_engine(torch, cfg, params, dev, plan=_bf16_plan("cuda"))
+    lens, prompts = lens[:n_requests], prompts[:n_requests]
+    # (a) the kernel path: phase 9's traffic and checks on the 16-bit plan
+    eng = _serve_engine(torch, cfg, params, dev, plan=_plan16("cuda", name))
     res = _serve_traffic(torch, eng, prompts, _keep_local_global)
     by = res["launches_by_dtype"]
-    forms = {"flash_attention": by["flash_attention"]["bfloat16"],
-             "paged_attention": by["paged_attention"]["bfloat16_q"]}
+    forms = {"flash_attention": by["flash_attention"][name],
+             "paged_attention": by["paged_attention"][f"{name}_q"]}
     if any(forms[k] != res["launches"][k] or forms[k] <= 0 for k in forms):
-        raise AssertionError(f"bf16 serving launched {by}, not the bf16 "
+        raise AssertionError(f"{name} serving launched {by}, not the {tag} "
                              f"forms alone ({res['launches']})")
     by_form = res["launches_by_form"]
-    if by_form["flash_attention"]["bf16_wgmma"] != \
+    if by_form["flash_attention"][f"{tag}_wgmma"] != \
             res["launches"]["flash_attention"]:
-        raise AssertionError(f"bf16 prefill launched {by_form}, not the "
+        raise AssertionError(f"{name} prefill launched {by_form}, not the "
                              f"wgmma form alone")
-    split, lse = _bf16_split_forms(torch, eng._pools[0], res["kept_paged"])
+    split, lse = _split_forms16(torch, eng._pools[0], res["kept_paged"],
+                                dtype)
     emit(phase="serve_path", model=SERVE_MODEL,
-         config=_serve_config(cfg, eng, param_dtype="bfloat16"),
+         config=_serve_config(cfg, eng, param_dtype=name),
          **_serve_fields(lens, res), launches_by_dtype=by,
          launches_by_form=by_form, init_seconds=init_s,
          memory_allocated_before=held_before, card=smi)
-    rw16 = _bf16_rw_forms(torch, eng, res["kept_read"], res["kept_write"])
+    rw16 = _rw_forms16(torch, eng, res["kept_read"], res["kept_write"],
+                       dtype)
     kernel_tokens = {rid: list(res["outs"][rid]) for rid in res["outs"]}
     eng.volumes.close()
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    # (b) the logits: a lock step against the plain bf16 and fp32 paths
-    lock = _bf16_lockstep(torch, dev, cfg, params, prompts)
-    # (c) the same requests on the plain bf16 path: tokens equal but at
-    # near ties (the kernel run's top-2 margin under twice (b)'s plain
-    # path's distance to fp32)
-    plain = _serve_engine(torch, cfg, params, dev, plan=_bf16_plan("dense"),
-                          kernel="ref")
+    # (b) the logits: a lock step against the plain 16-bit and fp32 paths
+    lock = _lockstep16(torch, dev, cfg, params, prompts, name)
+    if plain_run:
+        _plain16_run(torch, dev, smi, cfg, params, prompts, res,
+                     kernel_tokens, lock, name)
+    else:
+        emit(phase=f"{tag}_lockstep", model=SERVE_MODEL, lockstep=lock,
+             card=smi)
+    # (d) the fork mix on the copy-based baseline (16-bit pools: dbs_copy's
+    # 2-byte form) and on zero-copy
+    fork = phase_fork16(torch, dev, smi, cfg, params, prompts,
+                        2 * lock["plain_vs_fp32"], dtype)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide = _wide_forms16(torch, dev, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(phase=f"serve_{tag}", seconds=time.perf_counter() - t_phase,
+         card=smi)
+    return {"launches": res["launches"], "by_dtype": by, "by_form": by_form,
+            "paged": res["parity"]["paged_attention"],
+            "flash": res["parity"]["flash_attention"], "split": split,
+            "lse": lse, "wide": wide, "rw": rw16, "fork": fork}
+
+
+def _plain16_run(torch, dev, smi, cfg, params, prompts, res, kernel_tokens,
+                 lock, name):
+    """Phase 29 (c): the same requests on the plain 16-bit path, tokens
+    equal but at near ties (the kernel run's top-2 margin under twice
+    (b)'s plain path's distance to fp32)."""
+    from repro_torch.serving.engine import GenRequest
+    plain = _serve_engine(torch, cfg, params, dev,
+                          plan=_plan16("dense", name), kernel="ref")
     clock = {"prefill": 0.0, "pumps": 0.0, "decode": 0.0}
 
-    def timed(name, fn):
+    def timed(key, fn):
         def run(*a, **k):
             t = time.perf_counter()
             out = fn(*a, **k)
             torch.cuda.synchronize()
-            clock[name] += time.perf_counter() - t
+            clock[key] += time.perf_counter() - t
             return out
         return run
     plain._prefill_one_zero = timed("prefill", plain._prefill_one_zero)
@@ -6814,48 +6949,37 @@ def phase_serve_bf16(torch, dev, smi):
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     ties = _tokens_match(plain_outs, kernel_tokens, res["margin_of"],
-                         "bf16 plain path", 2 * lock["plain_vs_fp32"])
+                         f"{name} plain path", 2 * lock["plain_vs_fp32"])
     plain.volumes.close()
     del plain
     gc.collect()
     torch.cuda.empty_cache()
-    emit(phase="bf16_vs_plain", model=SERVE_MODEL, lockstep=lock,
+    emit(phase=f"{_tag16(torch, getattr(torch, name))}_vs_plain",
+         model=SERVE_MODEL, lockstep=lock,
          requests=len(prompts), plain_run_seconds=plain_s,
          plain_tokens_per_s=len(prompts) * SERVE_NEW / plain_s,
          plain_seconds=clock,
          near_ties=ties, tie_margin=2 * lock["plain_vs_fp32"], card=smi)
-    # (d) the fork mix on the copy-based baseline (bf16 pools: dbs_copy's
-    # bf16 form) and on zero-copy
-    fork = phase_fork_bf16(torch, dev, smi, cfg, params, prompts,
-                           2 * lock["plain_vs_fp32"])
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    wide = _bf16_wide_forms(torch, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    emit(phase="serve_bf16", seconds=time.perf_counter() - t_phase, card=smi)
-    return {"launches": res["launches"], "by_dtype": by, "by_form": by_form,
-            "paged": res["parity"]["paged_attention"],
-            "flash": res["parity"]["flash_attention"], "split": split,
-            "lse": lse, "wide": wide, "rw": rw16, "fork": fork}
 
 
-def _bf16_rw_forms(torch, eng, reads, writes):
-    """``dbs_rw_read`` and ``dbs_rw_write`` in bf16 at the zero-copy
-    serving width: a bf16 copy of the bf16 traffic's replica-0 engine pool
-    ((E+1, 32, 26624): one 52 KiB block a token) under its kept reads, then
-    its kept replica-0 writes (payloads rounded to bf16) replayed in
-    order; bit for bit against the plain versions, timed as in phase 10.
-    Emits a kernel_parity line each; returns their numbers."""
+def _rw_forms16(torch, eng, reads, writes, dtype=None):
+    """``dbs_rw_read`` and ``dbs_rw_write`` on a 16-bit pool (``dtype``:
+    bf16 by default, or fp16) at the zero-copy serving width: a copy in
+    ``dtype`` of the 16-bit traffic's replica-0 engine pool ((E+1, 32,
+    26624): one 52 KiB block a token) under its kept reads, then its kept
+    replica-0 writes (payloads rounded to ``dtype``) replayed in order; bit
+    for bit against the plain versions, timed as in phase 10. Emits a
+    kernel_parity line each; returns their numbers."""
+    dtype = dtype or torch.bfloat16
     pool0 = eng.volumes.device_pools()[0]
-    pool = pool0.view(pool0.shape[0], pool0.shape[1], -1).to(torch.bfloat16)
+    pool = pool0.view(pool0.shape[0], pool0.shape[1], -1).to(dtype)
     got = {"dbs_rw_read": read_parity(torch, pool, reads),
            "dbs_rw_write": write_parity(
-               torch, pool, [(s_, d_, lo, p_.to(torch.bfloat16))
+               torch, pool, [(s_, d_, lo, p_.to(dtype))
                              for s_, d_, lo, p_ in writes])}
     for name, f in got.items():
-        emit(phase="kernel_parity", kernel=name, dtype="bfloat16",
+        emit(phase="kernel_parity", kernel=name,
+             dtype=str(dtype).split(".")[1],
              width="zero-copy serving", pool_shape=list(pool.shape),
              equal=True, **{k: f[k] for k in (
                  "calls", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -6909,19 +7033,22 @@ def _fork_mix(torch, eng, prompts, forks=True):
     return outs, run_s
 
 
-def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
-    """Phase 29 (d): BF16_FORK's mix on gemma2-2b's bf16 serve plan,
-    first on the copy-based baseline (``kv_backend="host"``: its model-
-    owned K/V pools bf16, CoW'd through ``dbs_copy`` once a pool at the
+def phase_fork16(torch, dev, smi, cfg, params, prompts, tie_margin,
+                 dtype=None):
+    """Phase 29 (d) and 31 (d): BF16_FORK's mix on gemma2-2b's serve plan
+    of the 16-bit ``dtype`` (bf16 by default, or fp16; the params'), first
+    on the copy-based baseline (``kv_backend="host"``: its model-owned K/V
+    pools of ``dtype``, CoW'd through ``dbs_copy`` once a pool at the
     first step after a fork), then on zero-copy (``fused``). Checked on
-    each: every ``dbs_copy`` launch of the bf16 form, launches on the
+    each: every ``dbs_copy`` launch of the pool's dtype, launches on the
     baseline and none on zero-copy; no plain version called; each parent's
     and child's tokens equal an independent decode of the same streams on
     a second engine of the same backend (the TIE_MARGIN rule on the fork
     run's top-2 margins); the two backends' tokens equal under the same
-    rule with ``tie_margin`` (phase 29 (c)'s: their decode attends through
-    other paths). Every kept copy held against the plain version bit for
-    bit on a copy of a bf16 pool and timed (phase 14's check). Printed:
+    rule with ``tie_margin`` (twice (b)'s plain distance to fp32: their
+    decode attends through other paths). Every kept copy held against the
+    plain version bit for bit on a copy of a 16-bit pool and timed (phase
+    14's check). Printed:
     tokens/s, prefill seconds, seconds in the CoW copies (baseline) and in
     the write pumps (zero-copy), launches, peak memory. Returns the copy
     parity and the launches for the kernels line."""
@@ -6930,6 +7057,8 @@ def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
     from repro_torch.models import model as M
     from repro_torch.serving import engine as serving
     mods = _kernel_modules()
+    dtype = dtype or torch.bfloat16
+    name, tag = str(dtype).split(".")[1], _tag16(torch, dtype)
     t_phase = time.perf_counter()
     fields, outs, kept = {}, {}, []
     inner_copy, inner_decode = serving.dbs_copy_pool, M.decode_step
@@ -6937,7 +7066,7 @@ def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         eng = _serve_engine(torch, cfg, params, dev, kv_backend=backend,
-                            plan=_bf16_plan("cuda"))
+                            plan=_plan16("cuda", name))
         clock = {"prefill": 0.0, "cow_copies": 0.0, "pumps": 0.0}
 
         def timed(name, fn):
@@ -6977,12 +7106,11 @@ def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
             raise AssertionError(f"fork mix on {backend}: plain versions "
                                  f"ran on the card: {plain}")
         n_copy = launches["dbs_copy"]
-        if backend == "host" and (n_copy <= 0 or copy_by["bfloat16"]
-                                  != n_copy
+        if backend == "host" and (n_copy <= 0 or copy_by[name] != n_copy
                                   or n_copy % len(_model_pools(eng))):
             raise AssertionError(f"the baseline's forks launched dbs_copy "
-                                 f"{copy_by}, not the bf16 form alone, a "
-                                 f"launch a pool")
+                                 f"{copy_by}, not the {name} pools' alone, "
+                                 f"a launch a pool")
         if backend == "fused" and n_copy:
             raise AssertionError(f"zero-copy launched dbs_copy {n_copy} "
                                  f"times")
@@ -6995,7 +7123,7 @@ def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
         torch.cuda.empty_cache()
         # an independent decode of the same streams: the parents alone
         ref = _serve_engine(torch, cfg, params, dev, kv_backend=backend,
-                            plan=_bf16_plan("cuda"))
+                            plan=_plan16("cuda", name))
         ref_outs, _ = _fork_mix(torch, ref, prompts, forks=False)
         ref.volumes.close()
         del ref
@@ -7022,18 +7150,18 @@ def phase_fork_bf16(torch, dev, smi, cfg, params, prompts, tie_margin):
     copies = copy_parity(torch, pool0.reshape(e, page, -1).clone(),
                          [(s_.to(torch.int32), d_.to(torch.int32), m.bool())
                           for _p, s_, d_, m in kept])
-    emit(phase="kernel_parity", kernel="dbs_copy", dtype="bfloat16",
-         width="serving baseline (bf16 pools)",
+    emit(phase="kernel_parity", kernel="dbs_copy", dtype=name,
+         width=f"serving baseline ({tag} pools)",
          pool_shape=list(pool0.reshape(e, page, -1).shape),
          calls=len(kept), rows_copied=copies["rows_copied"], equal=True,
          **{k: copies[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "library_ms",
                                    "bytes_per_call", "resources")})
     del kept, pool0
-    emit(phase="serve_fork_bf16", model=SERVE_MODEL,
+    emit(phase=f"serve_fork_{tag}", model=SERVE_MODEL,
          config=dict(n_slots=8, max_len=2048, kv_replicas=2,
-                     attn_impl="cuda", compute_dtype="bfloat16",
-                     param_dtype="bfloat16"),
+                     attn_impl="cuda", compute_dtype=name,
+                     param_dtype=name),
          parents=BF16_FORK[0], parent_new_tokens=BF16_FORK[1],
          fork_after_token=BF16_FORK[2], child_new_tokens=BF16_FORK[3],
          backends=fields, near_ties_baseline_vs_zero_copy=cross,
@@ -7268,6 +7396,38 @@ def phase_examples(torch, dev, smi):
     emit(phase="example", name="train_lm", **tlm, card=smi)
     launches_by["train_lm"] = tlm["kernel_launches"]
     return launches_by, parity_by
+
+
+def _forms16_keys(got, tag, write_k, read_k, copy_k, paged_k, flash_k,
+                  rwkv_k) -> None:
+    """Phase 29's or 31's results (``_serve16``) into the kernels line's
+    entries under ``<tag>_*`` keys (bf16 or f16): every entry's launches on
+    the 16-bit serve path and on the fork mix (the baseline and
+    zero-copy), the paged and flash entries' launches by dtype and form,
+    and each form's kept-call numbers."""
+    for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
+        k[f"launches_{tag}_serve_path"] = got["launches"][k["name"]]
+        k[f"launches_{tag}_fork_path"] = {
+            b: n[k["name"]] for b, n in got["fork"]["launches"].items()}
+    copy_k[f"launches_{tag}_fork_path_by_dtype"] = got["fork"][
+        "dbs_copy_by_dtype"]
+    copy_k.update(_width_keys(f"{tag}_fork", got["fork"]["copy"]))
+    for k in (write_k, read_k):
+        k.update(_width_keys(f"{tag}_serve", got["rw"][k["name"]]))
+    for k in (paged_k, flash_k):
+        k[f"launches_{tag}_serve_path_by_dtype"] = got["by_dtype"][k["name"]]
+        k[f"launches_{tag}_serve_path_by_form"] = got["by_form"][k["name"]]
+    paged_k.update(**_width_keys(tag, got["paged"]),
+                   **_width_keys(f"{tag}_split", got["split"]),
+                   **_width_keys(f"{tag}_lse", got["lse"]),
+                   **_width_keys(f"{tag}_wide_split",
+                                 got["wide"]["paged_split"]),
+                   **_width_keys(f"{tag}_wide_pool",
+                                 got["wide"]["paged_pool"]))
+    flash_k.update(**_width_keys(tag, got["flash"]),
+                   **_width_keys(f"{tag}_wide", got["wide"]["flash"]),
+                   **_width_keys(f"{tag}_narrow_mma",
+                                 got["wide"]["flash_narrow_mma"]))
 
 
 def main() -> int:
@@ -7642,28 +7802,8 @@ def main() -> int:
         k["launches_dryrun_bf16_path"] = 0
     paged_k["launches_dryrun_path"] = dry_launches
     paged_k["launches_dryrun_bf16_path"] = dry16_launches
-    for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
-        k["launches_bf16_serve_path"] = bf16["launches"][k["name"]]
-        # phase 29 (d): the fork mix on the bf16 baseline and zero-copy
-        k["launches_bf16_fork_path"] = {
-            b: got[k["name"]] for b, got in bf16["fork"]["launches"].items()}
-    copy_k["launches_bf16_fork_path_by_dtype"] = bf16["fork"][
-        "dbs_copy_by_dtype"]
-    copy_k.update(_width_keys("bf16_fork", bf16["fork"]["copy"]))
-    for k in (write_k, read_k):
-        k.update(_width_keys("bf16_serve", bf16["rw"][k["name"]]))
-    for k in (paged_k, flash_k):
-        k["launches_bf16_serve_path_by_dtype"] = bf16["by_dtype"][k["name"]]
-        k["launches_bf16_serve_path_by_form"] = bf16["by_form"][k["name"]]
-    paged_k.update(**_width_keys("bf16", bf16["paged"]),
-                   **_width_keys("bf16_split", bf16["split"]),
-                   **_width_keys("bf16_lse", bf16["lse"]),
-                   **_width_keys("bf16_wide_split",
-                                 bf16["wide"]["paged_split"]),
-                   **_width_keys("bf16_wide_pool",
-                                 bf16["wide"]["paged_pool"]))
-    flash_k.update(**_width_keys("bf16", bf16["flash"]),
-                   **_width_keys("bf16_wide", bf16["wide"]["flash"]))
+    _forms16_keys(bf16, "bf16", write_k, read_k, copy_k, paged_k, flash_k,
+                  rwkv_k)
     for k in (write_k, read_k, copy_k, paged_k, flash_k, rwkv_k):
         k["launches_train_bf16_path"] = train16_launches[k["name"]]
 
@@ -7676,6 +7816,12 @@ def main() -> int:
     for name, parity in ex_parity.items():
         for k in (write_k, read_k, paged_k, flash_k):
             k.update(_width_keys(f"example_{name}", parity[k["name"]]))
+
+    # phase 31: gemma2-2b on its fp16 serve plan
+    f16 = phase_serve_f16(torch, dev, smi)
+    free()
+    _forms16_keys(f16, "f16", write_k, read_k, copy_k, paged_k, flash_k,
+                  rwkv_k)
     print(json.dumps({"kernels": [write_k, read_k, copy_k, paged_k,
                                   flash_k, rwkv_k]}))
     print(smi)

@@ -49,9 +49,12 @@ class EngineConfig:
     comm: str = "fused"          # a REGISTERED BACKEND name (core/backends):
                                  # fused | slots | loop | sharded | ring
                                  # | host | upstream
-    cow: str = "auto"            # legacy data-plane axis: auto only
+    cow: str = "auto"            # LEGACY data-plane axis (pre-registry):
+                                 # auto | pallas | ref, only consulted
+                                 # when kernel="auto"
     kernel: str = "auto"         # a REGISTERED KERNEL (kernels/dbs
-                                 # registry): auto (= cuda) | cuda | torch
+                                 # registry): auto (follow cow: cuda, or
+                                 # torch for cow="ref") | cuda | torch
                                  # | ref | copy
     n_shards: int = 1            # engine shards of comm="sharded"/"ring"
     compute_tail: int = 8        # max COMPUTE requests a ring batch (the
@@ -78,17 +81,13 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def check_ported(cfg: EngineConfig) -> None:
-    """Raise a ValueError naming the slice of the port that brings each
-    configuration value this slice does not serve."""
-    later = [
-        (cfg.cow != "auto",
-         f"cow={cfg.cow!r} (the legacy data-plane axis) is not ported; "
-         "name a kernel= instead"),
-    ]
-    for bad, msg in later:
-        if bad:
-            raise ValueError(msg)
+def check_cow(cfg: EngineConfig) -> None:
+    """Raise as the reference does on a value of the legacy ``cow`` axis
+    that it does not know (``kernels/dbs/registry.py resolve_kernel_name``
+    maps the others)."""
+    if cfg.cow not in ("auto", "pallas", "ref"):
+        raise ValueError(f"unknown cow impl {cfg.cow!r} "
+                         "(expected auto | pallas | ref)")
 
 
 class Engine:
@@ -98,7 +97,7 @@ class Engine:
     itself when it is a shard pool (``comm="sharded"``), else None."""
 
     def __init__(self, cfg: EngineConfig):
-        check_ported(cfg)
+        check_cow(cfg)
         from repro_torch.kernels.dbs.registry import available_kernels
         if cfg.kernel != "auto" and cfg.kernel not in available_kernels():
             raise ValueError(

@@ -42,14 +42,19 @@ SOURCES: Dict[str, Path] = {
     "dbs_copy": KERNELS / "dbs" / "csrc" / "dbs_copy.cu",
     "paged_attention": KERNELS / "paged_attention" / "csrc"
     / "paged_attention.cu",
-    # the bf16 forms: paged_attention.cu again, as a library of its own
+    # the bf16 and fp16 forms: paged_attention.cu again, a library each
     "paged_attention_bf16": KERNELS / "paged_attention" / "csrc"
     / "paged_attention_bf16.cu",
+    "paged_attention_f16": KERNELS / "paged_attention" / "csrc"
+    / "paged_attention_f16.cu",
     "flash_attention": KERNELS / "flash_attention" / "csrc"
     / "flash_attention.cu",
-    # flash's bf16 form at d = dv in {64, 128, 256} on wgmma and TMA
+    # flash's bf16 form at d = dv in {64, 128, 256} on wgmma and TMA, and
+    # its fp16 form (the same source, a library of its own)
     "flash_attention_wgmma": KERNELS / "flash_attention" / "csrc"
     / "flash_attention_wgmma.cu",
+    "flash_attention_wgmma_f16": KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_wgmma_f16.cu",
     "rwkv6_scan": KERNELS / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }
 
@@ -98,19 +103,28 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # paged_attention_info's, kv_bf16 before the out array
         "paged_attention_bf16_info": [_ci] * 8 + [_vp],
     },
+    "paged_attention_f16": {
+        # paged_attention_bf16's, q and out fp16 (kv_f16: the pools fp16)
+        "paged_attention_f16": [_vp] * 7 + [_ci] * 8
+        + [ctypes.c_int64] * 4 + [_ci, _cf, _cf, _ci, _ci, _vp],
+        "paged_attention_f16_info": [_ci] * 8 + [_vp],
+    },
     "flash_attention": {
         # q, k, v, out; b, h, kv, sq, sk, d, dv; q/k/v/o strides (batch,
         # head, seq; elements, 64-bit); causal, window; scale, logit_cap;
         # stream
         "flash_attention": [_vp] * 4 + [_ci] * 7 + [ctypes.c_int64] * 12
         + [_ci, _ci, _cf, _cf, _vp],
-        # the same, q, k, v and out bf16
+        # the same, q, k, v and out bf16; and fp16
         "flash_attention_bf16": [_vp] * 4 + [_ci] * 7
+        + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp],
+        "flash_attention_f16": [_vp] * 4 + [_ci] * 7
         + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp],
         # d, dv; int[6] out (registers, static and dynamic shared memory,
         # blocks per SM, threads, query rows per block); of each form
         "flash_attention_info": [_ci, _ci, _vp],
         "flash_attention_bf16_info": [_ci, _ci, _vp],
+        "flash_attention_f16_info": [_ci, _ci, _vp],
     },
     "flash_attention_wgmma": {
         # q, k, v, out; b, h, kv, sq, sk, d; q/k/v/o strides (batch, head,
@@ -120,13 +134,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # d; int[7] out (flash_attention_info's, then K/V stages)
         "flash_attention_bf16_wgmma_info": [_ci, _vp],
     },
+    "flash_attention_wgmma_f16": {
+        # the same, q, k, v and out fp16
+        "flash_attention_f16_wgmma": [_vp] * 4 + [_ci] * 6
+        + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp],
+        "flash_attention_f16_wgmma_info": [_ci, _vp],
+    },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;
-        # r/k/v/logw/y strides (batch, seq, head; elements, 64-bit); in_bf16
-        # (r, k, v, logw and y bf16, else fp32), u_bf16; stream
+        # r/k/v/logw/y strides (batch, seq, head; elements, 64-bit); in_type
+        # (r, k, v, logw and y: 0 fp32, 1 bf16, 2 fp16), u_type; stream
         "rwkv6_scan": [_vp] * 8 + [_ci] * 5 + [ctypes.c_int64] * 15
         + [_ci, _ci, _vp],
-        # b, seq, h, d, chunk, in_bf16; int[8] out (schedule, column blocks,
+        # b, seq, h, d, chunk, in_type; int[8] out (schedule, column blocks,
         # grid blocks, threads, registers, static and dynamic shared memory,
         # blocks per SM)
         "rwkv6_scan_info": [_ci] * 6 + [_vp],
@@ -153,12 +173,14 @@ def _nvcc() -> str:
 
 
 def _fresh(name: str) -> bool:
-    """The library is newer than its source and every ``.cu``/``.cuh``
-    beside it (a source may include its neighbours)."""
+    """The library is newer than its source, every ``.cu``/``.cuh`` beside
+    it (a source may include its neighbours) and the shared headers of
+    ``kernels/csrc``."""
     lib = library_path(name)
     src = SOURCES[name]
-    newest = max(p.stat().st_mtime for p in [src, *src.parent.glob("*.cu"),
-                                             *src.parent.glob("*.cuh")])
+    newest = max(p.stat().st_mtime for p in [
+        src, *src.parent.glob("*.cu"), *src.parent.glob("*.cuh"),
+        *(KERNELS / "csrc").glob("*.cuh")])
     return lib.is_file() and lib.stat().st_mtime >= newest
 
 

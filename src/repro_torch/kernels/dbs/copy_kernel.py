@@ -31,7 +31,7 @@ from repro_torch.kernels.dbs.ref import dbs_copy_ref
 
 LAUNCHES: Dict[str, int] = {"dbs_copy": 0}
 LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
-                                     "uint8": 0}
+                                     "float16": 0, "uint8": 0}
 PLAIN_CALLS: Dict[str, int] = {"dbs_copy": 0}
 MAX_LANES = 65535            # lanes a call may carry
 

@@ -111,10 +111,16 @@ def make_kernel(name: str) -> DBSKernel:
 
 
 def resolve_kernel_name(cfg) -> str:
-    """``EngineConfig`` -> registry name: an explicit ``kernel`` wins, and
-    ``"auto"`` is the hand-written entry, ``cuda``."""
+    """``EngineConfig`` -> registry name, honouring the legacy ``cow`` axis
+    as the reference does: an explicit ``kernel`` wins; ``kernel="auto"``
+    follows ``cow``: ``"pallas"`` (the hand-written kernels) and
+    ``"auto"`` pick ``cuda``, ``"ref"`` (the plain write of
+    ``dbs.apply_write_ops``, the reference's ``xla`` entry) picks
+    ``torch``."""
     kernel = getattr(cfg, "kernel", "auto")
-    return "cuda" if kernel == "auto" else kernel
+    if kernel != "auto":
+        return kernel
+    return "torch" if getattr(cfg, "cow", "auto") == "ref" else "cuda"
 
 
 # ---------------------------------------------------------------------------

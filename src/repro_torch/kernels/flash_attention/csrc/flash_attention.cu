@@ -14,8 +14,8 @@
 // Every tensor is addressed through (batch, head, sequence) strides with
 // the head dimension contiguous, so the model layout (B, S, H, hd) is read
 // and written in place, without a transposing copy. fp32 in and out, or
-// bf16 in and out (the bf16 form, below); the Pallas kernel takes either,
-// upcasts to fp32 inside and writes the output in q's dtype.
+// bf16 or fp16 in and out (the 16-bit forms, below); the Pallas kernel
+// takes any, upcasts to fp32 inside and writes the output in q's dtype.
 //
 // The TPU wrapper halves its block until it divides the sequence, down to
 // one row for an odd length. Here the tiles are fixed and the ragged last
@@ -98,7 +98,9 @@
 //   the time, the staging and the softmax with its barriers about a
 //   quarter each. Larger query tiles or multicast K/V loads come next.
 //
-// The bf16 form (flash_kernel_bf16, both instantiations' shapes; where d =
+// The 16-bit forms (flash_kernel_16<T>, T bf16 or fp16, both
+// instantiations' shapes; the text below says bf16, and fp16 is the same
+// template over __half: elt16.cuh; where d =
 // dv is 64, 128 or 256 on 16-byte aligned rows the wrapper launches the
 // warpgroup kernel of flash_attention_wgmma.cu instead): the same
 // block, warps, key tiles, softmax and masks on bf16 tiles, half the fp32
@@ -114,14 +116,19 @@
 // output by at most one bf16 step (2^-8 relative) where the two land on
 // either side of a rounding boundary. Bound at gemma2-2b's prefill: the
 // causal flops over the dense bf16 rate, 989 TFLOP/s (the P.V split counts
-// twice on the card).
+// twice on the card). The fp16 form: m16n8k16 f16 (an fp16 x fp16 product
+// is exact in fp32 too), P split into fp16 hi and lo (elt16.cuh bounds its
+// error), the output rounded to fp16 once; the scores, the running max and
+// sum and the accumulators stay fp32, so only the output can overflow, as
+// the reference's does. The dense fp16 rate is the bf16 one.
 //
 // Offsets are 64-bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "../../csrc/elt16.cuh"
 
 namespace {
 
@@ -571,11 +578,12 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 form: q, k, v and the output in bf16, the products on the bf16
-// tensor cores, the softmax and both accumulators in fp32.
+// The 16-bit forms, bf16 and fp16 (T, elt16.cuh): q, k, v and the output in
+// T, the products on T's tensor cores, the softmax and both accumulators in
+// fp32.
 // ---------------------------------------------------------------------------
 
-// S = Q.K^T on m16n8k16 (bf16 in, fp32 accumulate); narrow: d = dv <= 256,
+// S = Q.K^T on m16n8k16 (T in, fp32 accumulate); narrow: d = dv <= 256,
 // wide: d <= 576 with dv <= 512. Q's fragments are 16 head dims a chunk
 // (kChunks a warp: chunks grp + 4c), the output's 8 (kChunksV a warp)
 static_assert(kNT == 4, "P.V takes two 16-key steps a tile");
@@ -586,19 +594,10 @@ struct ShapeH {
   static constexpr int kChunksV = (kWide ? kMaxDvWide : kMaxD) / 8 / kGroups;
 };
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // four 8x8 tiles of 16-bit elements, transposed: lane i gives the address
 // of row i % 8 of tile i / 8, and register j gets tile j's elements (2t, g)
 // and (2t + 1, g): the B fragment of rows (keys) 2t, 2t + 1 at column g
-__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -606,35 +605,23 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const bf16* p) {
       : "r"(a));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+__device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// (x0, x1) = hi + lo, each a bf16 pair (x0 in the low half): hi rounded to
-// nearest, lo = the rounding error rounded again; hi + lo keeps 16
-// mantissa bits of each value
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-__device__ __forceinline__ void cp16h(bf16* dst, const bf16* src, bool in) {
+__device__ __forceinline__ void cp16h(void* dst, const void* src, bool in) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(in ? 16 : 0));
 }
 
-// Rows [r0, r0 + kRows) of an (n_rows, d) bf16 matrix into shared rows of
+// Rows [r0, r0 + kRows) of an (n_rows, d) matrix of T into shared rows of
 // stride ss, rows >= n_rows zero-filled: 16-byte cp.async copies (8
 // values) where the tensor allows them, else plain 2-byte loads and stores
 // (cp.async has no 2-byte copy), which the barrier before the tile's use
 // orders as it orders the copies
-template <int kRows>
-__device__ __forceinline__ void stage_h(bf16* dst, int ss, const bf16* base,
+template <int kRows, typename T>
+__device__ __forceinline__ void stage_h(T* dst, int ss, const T* base,
                                         int64_t rs, int r0, int n_rows, int d,
                                         bool vec) {
   if (vec) {
@@ -652,29 +639,29 @@ __device__ __forceinline__ void stage_h(bf16* dst, int ss, const bf16* base,
     const int r = i / d;
     const int c = i - r * d;
     dst[r * ss + c] = r0 + r < n_rows ? base[(int64_t)(r0 + r) * rs + c]
-                                      : __float2bfloat16(0.f);
+                                      : Elt16<T>::from_f(0.f);
   }
 }
 
-// The fp32 kernel's block, warps, key tiles, softmax and masks, on bf16
-// tiles: Q (32 rows) staged once and its fragments kept in registers, K and
+// The fp32 kernel's block, warps, key tiles, softmax and masks, on tiles
+// of T: Q (32 rows) staged once and its fragments kept in registers, K and
 // V double-buffered, rows padded to d16 = roundup(d, 16) (V's to dv8) with
 // zeros and strided d16 + 8 (dv8 + 8) values, which keeps the 32-bit
 // fragment loads of Q and K and V's ldmatrix rows free of bank conflicts at
 // head dims that are multiples of 64. P.V: the softmax warp of key step grp
-// stores its 8 keys' P as bf16 hi and lo pairs, which are already the A
+// stores its 8 keys' P as hi and lo pairs of T, which are already the A
 // fragments of m16n8k16 (keys 2t, 2t + 1 of the step in c0, c1); V's B
 // fragments come from one ldmatrix.trans of the tile's 32 rows a chunk.
-template <bool kWide>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ out, int h,
-                  int kv, int sq, int sk, int d, int dv_in, int64_t qsb,
-                  int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
-                  int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
-                  int64_t osb, int64_t osh, int64_t oss, int causal,
-                  int window, float scale, float cap, int vec_q, int vec_k,
-                  int vec_v) {
+flash_kernel_16(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ out, int h,
+                int kv, int sq, int sk, int d, int dv_in, int64_t qsb,
+                int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+                int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+                int64_t osb, int64_t osh, int64_t oss, int causal,
+                int window, float scale, float cap, int vec_q, int vec_k,
+                int vec_v) {
   using S = ShapeH<kWide>;
   constexpr int kChunks = S::kChunks;
   constexpr int kChunksV = S::kChunksV;
@@ -686,9 +673,9 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int dv8 = (dv + 7) & ~7;
   const int ssv = dv8 + 8;
   const int nkv = dv8 >> 3;             // 8-wide chunks of the output
-  bf16* qs = (bf16*)smem_h;             // (BQ, ss)
-  bf16* ks = qs + kBQ * ss;             // 2 x (BK, ss)
-  bf16* vs = ks + 2 * kBK * ss;         // 2 x (BK, ssv)
+  T* qs = (T*)smem_h;             // (BQ, ss)
+  T* ks = qs + kBQ * ss;             // 2 x (BK, ss)
+  T* vs = ks + 2 * kBK * ss;         // 2 x (BK, ssv)
   // (2, kGroups, kNT, 32)
   float4* part = (float4*)(vs + 2 * kBK * ssv);
   uint2* p_hi = (uint2*)(part + 2 * kGroups * kNT * 32);  // (2, kNT, 32)
@@ -708,13 +695,13 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  const bf16* qb = q + (int64_t)b * qsb + (int64_t)hh * qsh;
-  const bf16* kb = k + (int64_t)b * ksb + (int64_t)kh * ksh;
-  const bf16* vb = v + (int64_t)b * vsb + (int64_t)kh * vsh;
+  const T* qb = q + (int64_t)b * qsb + (int64_t)hh * qsh;
+  const T* kb = k + (int64_t)b * ksb + (int64_t)kh * ksh;
+  const T* vb = v + (int64_t)b * vsb + (int64_t)kh * vsh;
 
   // padding columns: [d, d16) of every Q and K row, [dv, dv8) of every V
   // row, zero once (the staging never writes them)
-  const bf16 zero = __float2bfloat16(0.f);
+  const T zero = Elt16<T>::from_f(0.f);
   if (d16 > d) {
     const int pad = d16 - d;
     for (int i = tid; i < (kBQ + 2 * kBK) * pad; i += kThreads) {
@@ -737,10 +724,10 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles =
       k_end > t_first * kBK ? (k_end - t_first * kBK + kBK - 1) / kBK : 0;
 
-  stage_h<kBQ>(qs, ss, qb, qss, q0, sq, d, vec_q);
+  stage_h<kBQ, T>(qs, ss, qb, qss, q0, sq, d, vec_q);
   if (n_tiles > 0) {
-    stage_h<kBK>(ks, ss, kb, kss, t_first * kBK, sk, d, vec_k);
-    stage_h<kBK>(vs, ssv, vb, vss, t_first * kBK, sk, dv, vec_v);
+    stage_h<kBK, T>(ks, ss, kb, kss, t_first * kBK, sk, d, vec_k);
+    stage_h<kBK, T>(vs, ssv, vb, vss, t_first * kBK, sk, dv, vec_v);
   }
   cp_commit();
   cp_wait_all();
@@ -753,7 +740,7 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int c = 0; c < kChunks; ++c) {
     const int kk = grp + kGroups * c;
     if (kk < nk) {
-      const bf16* qr = qs + (rg * 16 + g) * ss + kk * 16 + 2 * t;
+      const T* qr = qs + (rg * 16 + g) * ss + kk * 16 + 2 * t;
       qa[c][0] = ld32(qr);
       qa[c][1] = ld32(qr + 8 * ss);
       qa[c][2] = ld32(qr + 8);
@@ -782,16 +769,16 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (j + 1 < n_tiles) {
       const int k1 = (t_first + j + 1) * kBK;
-      stage_h<kBK>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);
-      stage_h<kBK>(vs + (cur ^ 1) * kBK * ssv, ssv, vb, vss, k1, sk, dv,
+      stage_h<kBK, T>(ks + (cur ^ 1) * kBK * ss, ss, kb, kss, k1, sk, d, vec_k);
+      stage_h<kBK, T>(vs + (cur ^ 1) * kBK * ssv, ssv, vb, vss, k1, sk, dv,
                    vec_v);
       cp_commit();
     }
-    const bf16* kt = ks + cur * kBK * ss;
-    const bf16* vt = vs + cur * kBK * ssv;
+    const T* kt = ks + cur * kBK * ss;
+    const T* vt = vs + cur * kBK * ssv;
     const int k0 = (t_first + j) * kBK;
 
-    // partial S over this warp's chunks: one bf16 product a chunk and key
+    // partial S over this warp's chunks: one product of T a chunk and key
     // step, exact products summed in fp32
     float s[kNT][4];
 #pragma unroll
@@ -805,12 +792,12 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[kNT][2];
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
-          const bf16* kr = kt + (n * 8 + g) * ss + kk * 16 + 2 * t;
+          const T* kr = kt + (n * 8 + g) * ss + kk * 16 + 2 * t;
           bk[n][0] = ld32(kr);
           bk[n][1] = ld32(kr + 8);
         }
 #pragma unroll
-        for (int n = 0; n < kNT; ++n) mma_bf16(s[n], qa[c], bk[n]);
+        for (int n = 0; n < kNT; ++n) mma16<T>(s[n], qa[c], bk[n]);
       }
     }
     float4* mine = part + (rg * kGroups + grp) * kNT * 32 + lane;
@@ -886,8 +873,8 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // register 1 row0 + 8's
     {
       uint2 hi, lo;
-      split_bf16(x[0], x[1], hi.x, lo.x);
-      split_bf16(x[2], x[3], hi.y, lo.y);
+      split2<T>(x[0], x[1], hi.x, lo.x);
+      split2<T>(x[2], x[3], hi.y, lo.y);
       p_hi[(rg * kNT + grp) * 32 + lane] = hi;
       p_lo[(rg * kNT + grp) * 32 + lane] = lo;
     }
@@ -932,10 +919,10 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (kk < nkv) {
         uint32_t bv[4];                 // keys 0-7, 8-15, 16-23, 24-31
         ldsm_x4_t(bv, vt + lane * ssv + kk * 8);
-        mma_bf16(acc[c], al[0], bv);
-        mma_bf16(acc[c], al[1], bv + 2);
-        mma_bf16(acc[c], ah[0], bv);
-        mma_bf16(acc[c], ah[1], bv + 2);
+        mma16<T>(acc[c], al[0], bv);
+        mma16<T>(acc[c], al[1], bv + 2);
+        mma16<T>(acc[c], ah[0], bv);
+        mma16<T>(acc[c], ah[1], bv + 2);
       }
     }
   }
@@ -944,22 +931,22 @@ flash_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row < sq) {
-      bf16* orow = out + (int64_t)b * osb + (int64_t)hh * osh +
+      T* orow = out + (int64_t)b * osb + (int64_t)hh * osh +
                    (int64_t)row * oss;
       const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int c = 0; c < kChunksV; ++c) {
         const int col = (grp + kGroups * c) * 8 + 2 * t;
-        if (col < dv) orow[col] = __float2bfloat16(acc[c][2 * r] / den);
+        if (col < dv) orow[col] = Elt16<T>::from_f(acc[c][2 * r] / den);
         if (col + 1 < dv)
-          orow[col + 1] = __float2bfloat16(acc[c][2 * r + 1] / den);
+          orow[col + 1] = Elt16<T>::from_f(acc[c][2 * r + 1] / den);
       }
     }
   }
 }
 
 // whether every row start of a (n0, n1, n2, d) strided tensor is 16-byte
-// aligned, with per elements to 16 bytes (4 fp32, 8 bf16; a stride of a
+// aligned, with per elements to 16 bytes (4 fp32, 8 of 16 bits; a stride of a
 // dimension of size 1 is never used)
 bool rows_aligned16(const void* p, int n0, int64_t s0, int n1, int64_t s1,
                     int n2, int64_t s2, int d, int per) {
@@ -980,11 +967,11 @@ size_t smem_bytes(int d, int dv) {
          sizeof(float) * 2 * 2 * kGroups * 16;       // row maxima and sums
 }
 
-// the bf16 form's (narrow and wide alike): Q, two stages of K and V
+// the 16-bit forms' (narrow and wide alike): Q, two stages of K and V
 size_t smem_bytes_h(int d, int dv) {
   const int ss = ((d + 15) & ~15) + 8;
   const int ssv = ((dv + 7) & ~7) + 8;
-  return sizeof(bf16) * (size_t)(kBQ + 2 * kBK) * ss +
+  return sizeof(bf16) * (size_t)(kBQ + 2 * kBK) * ss +   // 2 bytes a value
          sizeof(bf16) * (size_t)2 * kBK * ssv +
          sizeof(float4) * 2 * kGroups * kNT * 32 +   // S partials
          sizeof(uint2) * 2 * 2 * kNT * 32 +          // P fragments, hi, lo
@@ -999,8 +986,12 @@ bool dims_ok(int d, int dv) {
          (is_wide(d, dv) ? d <= kMaxDWide && dv <= kMaxDvWide : true);
 }
 
-size_t smem_of(int d, int dv, int half) {
-  if (half) return smem_bytes_h(d, dv);
+// the forms (a call's element types): fp32, and the 16-bit forms bf16 and
+// fp16, one instantiation of flash_kernel_16 each
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
+size_t smem_of(int d, int dv, int type) {
+  if (type != kF32) return smem_bytes_h(d, dv);
   return is_wide(d, dv) ? smem_bytes<true>(d, dv) : smem_bytes<false>(d, dv);
 }
 
@@ -1009,50 +1000,68 @@ using Kernel = void (*)(const float*, const float*, const float*, float*, int,
                         int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
                         int64_t, int64_t, int64_t, int, int, float, float,
                         int, int, int);
-using KernelH = void (*)(const bf16*, const bf16*, const bf16*, bf16*, int,
-                         int, int, int, int, int, int64_t, int64_t, int64_t,
-                         int64_t, int64_t, int64_t, int64_t, int64_t,
-                         int64_t, int64_t, int64_t, int64_t, int, int, float,
-                         float, int, int, int);
+template <typename T>
+using KernelH = void (*)(const T*, const T*, const T*, T*, int, int, int, int,
+                         int, int, int64_t, int64_t, int64_t, int64_t,
+                         int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
+                         int64_t, int64_t, int, int, float, float, int, int,
+                         int);
 
 Kernel pick(int wide) {
   return wide ? flash_kernel<true> : flash_kernel<false>;
 }
 
-KernelH pick_h(int wide) {
-  return wide ? flash_kernel_bf16<true> : flash_kernel_bf16<false>;
+template <typename T>
+KernelH<T> pick_h(int wide) {
+  return wide ? flash_kernel_16<T, true> : flash_kernel_16<T, false>;
 }
 
-const void* kernel_of(int wide, int half) {
-  return half ? (const void*)pick_h(wide) : (const void*)pick(wide);
+const void* kernel_of(int wide, int type) {
+  return type == kBF16  ? (const void*)pick_h<bf16>(wide)
+         : type == kF16 ? (const void*)pick_h<__half>(wide)
+                        : (const void*)pick(wide);
 }
 
 // Raise a kernel's dynamic shared-memory limit only when a larger size is
 // first asked for on the current device (the attribute is kept per device
 // and per kernel), so launches captured in a CUDA graph make no such call.
-size_t configured[kMaxDevices][4] = {};
+size_t configured[kMaxDevices][6] = {};
 
-cudaError_t configure(int wide, int half, size_t smem) {
+cudaError_t configure(int wide, int type, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t& have = configured[dev][2 * half + wide];
+  size_t& have = configured[dev][2 * type + wide];
   if (smem <= have) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel_of(wide, half),
+  err = cudaFuncSetAttribute(kernel_of(wide, type),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err == cudaSuccess) have = smem;
   return err;
 }
 
-// both dtypes' launch: half selects the bf16 form
+template <typename T>
+void launch_h(dim3 grid, size_t smem, cudaStream_t st, int wide,
+              const void* q, const void* k, const void* v, void* out, int h,
+              int kv, int sq, int sk, int d, int dv, int64_t qsb,
+              int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh,
+              int64_t kss, int64_t vsb, int64_t vsh, int64_t vss,
+              int64_t osb, int64_t osh, int64_t oss, int causal, int window,
+              float scale, float cap, int vq, int vk, int vv) {
+  pick_h<T>(wide)<<<grid, kThreads, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, h, kv, sq, sk, d, dv,
+      qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss, causal,
+      window, scale, cap, vq, vk, vv);
+}
+
+// every form's launch: type selects it
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int h, int kv, int sq, int sk, int d, int dv, int64_t qsb,
            int64_t qsh, int64_t qss, int64_t ksb, int64_t ksh, int64_t kss,
            int64_t vsb, int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
            int64_t oss, int causal, int window, float scale, float cap,
-           void* stream, int half) {
+           void* stream, int type) {
   if (!dims_ok(d, dv) || kv <= 0 || h % kv != 0)
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
@@ -1060,39 +1069,43 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   if (n_qt > 65535 || (int64_t)b * h > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const int wide = is_wide(d, dv);
-  const size_t smem = smem_of(d, dv, half);
-  const cudaError_t err = configure(wide, half, smem);
+  const size_t smem = smem_of(d, dv, type);
+  const cudaError_t err = configure(wide, type, smem);
   if (err != cudaSuccess) return (int)err;
-  const int per = half ? 8 : 4;
+  const int per = type != kF32 ? 8 : 4;
   const int vq = rows_aligned16(q, b, qsb, h, qsh, sq, qss, d, per);
   const int vk = rows_aligned16(k, b, ksb, kv, ksh, sk, kss, d, per);
   const int vv = rows_aligned16(v, b, vsb, kv, vsh, sk, vss, dv, per);
   dim3 grid((unsigned)(b * h), (unsigned)n_qt);
-  if (half)
-    pick_h(wide)<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, h, kv,
-        sq, sk, d, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh,
-        oss, causal, window, scale, cap, vq, vk, vv);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (type == kBF16)
+    launch_h<bf16>(grid, smem, st, wide, q, k, v, out, h, kv, sq, sk, d, dv,
+                   qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss,
+                   causal, window, scale, cap, vq, vk, vv);
+  else if (type == kF16)
+    launch_h<__half>(grid, smem, st, wide, q, k, v, out, h, kv, sq, sk, d,
+                     dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,
+                     osh, oss, causal, window, scale, cap, vq, vk, vv);
   else
-    pick(wide)<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+    pick(wide)<<<grid, kThreads, smem, st>>>(
         (const float*)q, (const float*)k, (const float*)v, (float*)out, h,
         kv, sq, sk, d, dv, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,
         osh, oss, causal, window, scale, cap, vq, vk, vv);
   return (int)cudaGetLastError();
 }
 
-int info_of(int d, int dv, int* info, int half) {
+int info_of(int d, int dv, int* info, int type) {
   if (!dims_ok(d, dv)) return (int)cudaErrorInvalidValue;
   const int wide = is_wide(d, dv);
-  const size_t smem = smem_of(d, dv, half);
-  cudaError_t err = configure(wide, half, smem);
+  const size_t smem = smem_of(d, dv, type);
+  cudaError_t err = configure(wide, type, smem);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, kernel_of(wide, half));
+  err = cudaFuncGetAttributes(&a, kernel_of(wide, type));
   if (err != cudaSuccess) return (int)err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel_of(wide, half), kThreads, smem);
+      &per_sm, kernel_of(wide, type), kThreads, smem);
   if (err != cudaSuccess) return (int)err;
   info[0] = a.numRegs;
   info[1] = (int)a.sharedSizeBytes;
@@ -1120,7 +1133,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out,
                     void* stream) {
   return launch(q, k, v, out, b, h, kv, sq, sk, d, dv, qsb, qsh, qss, ksb,
                 ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale,
-                cap, stream, 0);
+                cap, stream, kF32);
 }
 
 // The same with q, k, v and out bf16.
@@ -1133,19 +1146,37 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
                          float cap, void* stream) {
   return launch(q, k, v, out, b, h, kv, sq, sk, d, dv, qsb, qsh, qss, ksb,
                 ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale,
-                cap, stream, 1);
+                cap, stream, kBF16);
+}
+
+// The same with q, k, v and out fp16.
+int flash_attention_f16(const void* q, const void* k, const void* v,
+                        void* out, int b, int h, int kv, int sq, int sk,
+                        int d, int dv, int64_t qsb, int64_t qsh, int64_t qss,
+                        int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb,
+                        int64_t vsh, int64_t vss, int64_t osb, int64_t osh,
+                        int64_t oss, int causal, int window, float scale,
+                        float cap, void* stream) {
+  return launch(q, k, v, out, b, h, kv, sq, sk, d, dv, qsb, qsh, qss, ksb,
+                ksh, kss, vsb, vsh, vss, osb, osh, oss, causal, window, scale,
+                cap, stream, kF16);
 }
 
 // The kernel's resources at head dims d, dv: info[0] registers per thread,
 // [1] static and [2] dynamic shared memory per block (bytes), [3] blocks
 // resident per SM, [4] threads per block, [5] query rows per block.
 int flash_attention_info(int d, int dv, int* info) {
-  return info_of(d, dv, info, 0);
+  return info_of(d, dv, info, kF32);
 }
 
 // The same for the bf16 form.
 int flash_attention_bf16_info(int d, int dv, int* info) {
-  return info_of(d, dv, info, 1);
+  return info_of(d, dv, info, kBF16);
+}
+
+// The same for the fp16 form.
+int flash_attention_f16_info(int d, int dv, int* info) {
+  return info_of(d, dv, info, kF16);
 }
 
 }  // extern "C"

@@ -1,9 +1,15 @@
-// flash_attention_wgmma: the bf16 form of causal flash attention at narrow
+// flash_attention_wgmma: the 16-bit forms (bf16, and fp16 in a library of
+// its own: flash_attention_wgmma_f16.cu) of causal flash attention at narrow
 // head dims (d = dv in {64, 128, 256}) on Hopper's warpgroup products
 // (wgmma) fed by the Tensor Memory Accelerator (TMA), warp-specialised;
 // sm_90a, a plain C interface loaded by ctypes (kernels/_build.py, wrapper
 // in kernels/flash_attention/kernel.py, which picks this instantiation by
-// shape: flash_form).
+// shape: flash_form). The text below says bf16; the fp16 form is the same
+// source over __half (T16): wgmma's .f16 products, TMA's FLOAT16 maps, P
+// split into fp16 hi and lo (elt16.cuh bounds the error), the output
+// rounded to fp16 once; the scores, the running max and sum and the
+// accumulators stay fp32, so only the output can overflow, as the
+// reference's does.
 //
 // Replaces, for these shapes, the Pallas kernel repro/kernels/
 // flash_attention/kernel.py::flash_attention_fwd (body _kernel) in bf16:
@@ -12,7 +18,7 @@
 // at i + Sk - Sq); key j visible to position p when j <= p (causal) and
 // j > p - window (window > 0); logits q.k * scale, tanh-capped, masked; an
 // online softmax in fp32; out = acc / max(l, 1e-30) rounded to bf16. The
-// same function as flash_attention.cu's bf16 form (flash_kernel_bf16),
+// same function as flash_attention.cu's bf16 form (flash_kernel_16),
 // which keeps the other shapes: odd or unaligned head dims and rows, and
 // the wide 576 / 512 form.
 //
@@ -69,14 +75,34 @@
 
 #include <cuda.h>            // CUtensorMap and its enums; the encoder is
                              // reached through the runtime (no -lcuda)
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "../../csrc/elt16.cuh"
+
+// The library's element type T16 (elt16.cuh) and what names it: bf16 by
+// default, fp16 with FLASH_WGMMA_F16 defined (flash_attention_wgmma_f16.cu
+// includes this file), each library its own entries.
+#ifdef FLASH_WGMMA_F16
+#define WG_TY "f16"
+#define WG_TMA_TYPE CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+#define WG_ENTRY flash_attention_f16_wgmma
+#define WG_INFO flash_attention_f16_wgmma_info
+#else
+#define WG_TY "bf16"
+#define WG_TMA_TYPE CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+#define WG_ENTRY flash_attention_bf16_wgmma
+#define WG_INFO flash_attention_bf16_wgmma_info
+#endif
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+#ifdef FLASH_WGMMA_F16
+using T16 = __half;
+#else
+using T16 = __nv_bfloat16;
+#endif
 
 constexpr int kBM = 64;              // query rows a consumer warpgroup
 constexpr int kBN = 64;              // keys a K/V tile
@@ -170,7 +196,7 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." WG_TY "." WG_TY " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -197,7 +223,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." WG_TY "." WG_TY " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -225,7 +251,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." WG_TY "." WG_TY " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -265,7 +291,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a,
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." WG_TY "." WG_TY " "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
@@ -337,17 +363,6 @@ __device__ __forceinline__ float tanh_fast(float x) {
   return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
 }
 
-// (x0, x1) = hi + lo as bf16 pairs (x0 in the low half): hi rounded to
-// nearest, lo the rounding error rounded again (16 mantissa bits kept)
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // a box's coordinates in a tensor map whose dims 1-3 hold (sequence, head,
 // batch) in the order perm gives (two bits each: the sequence's slot, then
 // the head's, then the batch's)
@@ -378,7 +393,7 @@ __global__ void __launch_bounds__(3 * 128, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   bf16* __restrict__ out, int h, int kv, int sq, int sk,
+                   T16* __restrict__ out, int h, int kv, int sq, int sk,
                    int64_t osb, int64_t osh, int64_t oss, int causal,
                    int window, float scale, float cap, int n_stages,
                    int perm_q, int perm_k, int perm_v) {
@@ -533,8 +548,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int u = 0; u < 4; ++u)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          split_bf16(s[8 * u + 2 * j], s[8 * u + 2 * j + 1], ph[u][j],
-                     pl[u][j]);
+          split2<T16>(s[8 * u + 2 * j], s[8 * u + 2 * j + 1], ph[u][j],
+                      pl[u][j]);
 #pragma unroll
       for (int i = 0; i < kD / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
@@ -595,20 +610,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // out = o / max(l, 1e-30), rounded to bf16; o[4i + e]: row r_loc +
+    // out = o / max(l, 1e-30), rounded to T16; o[4i + e]: row r_loc +
     // 8 (e >> 1), column 8i + 2 (lane & 3) + (e & 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = q0 + r_loc + 8 * r;
       if (row >= sq) continue;
-      bf16* orow = out + (int64_t)b * osb + (int64_t)head * osh +
+      T16* orow = out + (int64_t)b * osb + (int64_t)head * osh +
                    (int64_t)row * oss + 2 * (lane & 3);
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
       for (int i = 0; i < kD / 8; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * i) =
-            __floats2bfloat162_rn(o[4 * i + 2 * r] * inv,
-                                  o[4 * i + 2 * r + 1] * inv);
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            pack2<T16>(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
     }
   }
 }
@@ -641,7 +655,7 @@ Encode encoder() {
   return fn;
 }
 
-// A tensor map over an (n_b, n_h, n_s, d) bf16 tensor with (batch, head,
+// A tensor map over an (n_b, n_h, n_s, d) tensor of T16 with (batch, head,
 // sequence) strides in elements and d contiguous: dims (d, then the three
 // outer ones by increasing stride, those of size 1 last), boxes of 64
 // values by 64 rows of the sequence, 128-byte swizzle, zeros past the
@@ -681,7 +695,7 @@ cudaError_t make_map(CUtensorMap* map, const void* p, int n_b, int64_t sb,
     if (o == 0) box[i + 1] = kBM;
   }
   *perm = slot[0] | slot[1] << 2 | slot[2] << 4;
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = enc(map, WG_TMA_TYPE, 4,
                          const_cast<void*>(p), dims, strides, box, unit,
                          CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B,
@@ -690,7 +704,7 @@ cudaError_t make_map(CUtensorMap* map, const void* p, int n_b, int64_t sb,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, bf16*, int,
+using Kernel = void (*)(CUtensorMap, CUtensorMap, CUtensorMap, T16*, int,
                         int, int, int, int64_t, int64_t, int64_t, int, int,
                         float, float, int, int, int, int);
 
@@ -742,11 +756,11 @@ bool aligned(const void* p, int n0, int64_t s0, int n1, int64_t s1, int n2,
 
 extern "C" {
 
-// q (b, h, sq, d), k and v (b, kv, sk, d), out (b, h, sq, d), all bf16,
+// q (b, h, sq, d), k and v (b, kv, sk, d), out (b, h, sq, d), all T16,
 // d in {64, 128, 256} contiguous, the other three dims strided (elements):
 // q, k and v 16-byte aligned with strides of multiples of 8 (dims of size
 // 1 aside), out 4-byte aligned with even strides.
-int flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
+int WG_ENTRY(const void* q, const void* k, const void* v,
                                void* out, int b, int h, int kv, int sq,
                                int sk, int d, int64_t qsb, int64_t qsh,
                                int64_t qss, int64_t ksb, int64_t ksh,
@@ -783,7 +797,7 @@ int flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
   const dim3 grid((unsigned)(b * h), (unsigned)n_qt);
   const Kernel kern = (Kernel)kernel_of(d);
   kern<<<grid, 3 * 128, smem, (cudaStream_t)stream>>>(
-      tq, tk, tv, (bf16*)out, h, kv, sq, sk, osb, osh, oss, causal, window,
+      tq, tk, tv, (T16*)out, h, kv, sq, sk, osb, osh, oss, causal, window,
       scale, cap, n_stages, pq, pk, pv);
   return (int)cudaGetLastError();
 }
@@ -792,7 +806,7 @@ int flash_attention_bf16_wgmma(const void* q, const void* k, const void* v,
 // launch: setmaxnreg moves them between the roles), [1] static and [2]
 // dynamic shared memory per block (bytes), [3] blocks resident per SM,
 // [4] threads per block, [5] query rows per block, [6] K/V stages.
-int flash_attention_bf16_wgmma_info(int d, int* info) {
+int WG_INFO(int d, int* info) {
   if (!dims_ok(d)) return (int)cudaErrorInvalidValue;
   int n_stages;
   size_t smem;

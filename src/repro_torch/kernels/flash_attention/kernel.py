@@ -14,20 +14,23 @@ base and strides allow and with 4-byte copies otherwise. It launches the
 kernel for tensors on a CUDA device and calls the plain version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error.
 ``LAUNCHES`` and ``PLAIN_CALLS`` count the two, ``LAUNCHES_BY_DTYPE``
-splits the launches by dtype (``float32``, ``bfloat16``) and
-``LAUNCHES_BY_FORM`` by instantiation: ``float32``; ``bf16_wgmma``, the
-warpgroup-product kernel of ``csrc/flash_attention_wgmma.cu`` for bf16 at
-d = dv in {64, 128, 256} with 16-byte aligned bases and strides (TMA's
-rule); ``bf16_mma``, ``csrc/flash_attention.cu``'s bf16 form, for every
-other bf16 shape (odd or unaligned head dims and rows, the wide 576 / 512
-form). ``flash_form`` makes that choice from shapes alone (no
-read-back).
-q, k and v are all fp32 or all bf16, as the TPU kernel takes either, and
-the output is in q's dtype; any other dtype raises. fp32: the kernel's
-products run on the tensor cores in 3xTF32, accurate to fp32's level.
-bf16: the kernel's bf16 form (products on the bf16 tensor cores, softmax
-and sums in fp32); no input is cast to reach a form. The plain version
-computes in fp32 and rounds its output to q's dtype. V has a width of its
+splits the launches by dtype (``float32``, ``bfloat16``, ``float16``) and
+``LAUNCHES_BY_FORM`` by instantiation: ``float32``; ``bf16_wgmma`` and
+``f16_wgmma``, the warpgroup-product kernel of
+``csrc/flash_attention_wgmma.cu`` (bf16; its fp16 library
+``flash_attention_wgmma_f16.cu``) at d = dv in {64, 128, 256} with 16-byte
+aligned bases and strides (TMA's rule); ``bf16_mma`` and ``f16_mma``,
+``csrc/flash_attention.cu``'s 16-bit forms, for every other 16-bit shape
+(odd or unaligned head dims and rows, the wide 576 / 512 form).
+``flash_form`` makes that choice from shapes alone (no read-back).
+q, k and v are all fp32, all bf16 or all fp16, as the TPU kernel takes
+any, and the output is in q's dtype; any other dtype or mix raises. fp32:
+the kernel's products run on the tensor cores in 3xTF32, accurate to
+fp32's level. bf16 and fp16: the kernel's 16-bit forms, one template over
+the two types (products on the tensor cores in the inputs' type, softmax
+and sums in fp32, the output rounded once: in fp16 only the output can
+overflow); no input is cast to reach a form. The plain version computes
+in fp32 and rounds its output to q's dtype. V has a width of its
 own: MLA's prefill (K 576, V 512) runs on the kernel's wide
 instantiation without padding V.
 
@@ -49,10 +52,14 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
-LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
+                                     "float16": 0}
 LAUNCHES_BY_FORM: Dict[str, int] = {"float32": 0, "bf16_mma": 0,
-                                    "bf16_wgmma": 0}
-DTYPES = (torch.float32, torch.bfloat16)    # the forms: fp32, bf16
+                                    "bf16_wgmma": 0, "f16_mma": 0,
+                                    "f16_wgmma": 0}
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # the forms
+# a 16-bit dtype's form prefix, and its libraries' and C entries' tag
+TAG16 = {torch.bfloat16: "bf16", torch.float16: "f16"}
 WGMMA_HEAD_DIMS = (64, 128, 256)    # the wgmma kernel's d = dv
 NARROW_HEAD_DIM = 256               # the narrow instantiation: dk, dv
 MAX_HEAD_DIM = 576                  # the wide one: dk (MLA's latent + rope)
@@ -71,33 +78,43 @@ def reset_counts() -> None:
 
 def flash_form(d: int, dv: int, dtype, strides=(), ptrs=()) -> str:
     """The instantiation a call launches (a ``LAUNCHES_BY_FORM`` key):
-    fp32 its own; bf16 the wgmma kernel where d = dv is 64, 128 or 256 and
-    every base pointer in ``ptrs`` and element stride in ``strides`` (of
-    the dims of size above 1) is 16-byte aligned, else the mma.sync one."""
+    fp32 its own; bf16 and fp16 the wgmma kernel where d = dv is 64, 128
+    or 256 and every base pointer in ``ptrs`` and element stride in
+    ``strides`` (of the dims of size above 1) is 16-byte aligned, else the
+    mma.sync one."""
     if dtype == torch.float32:
         return "float32"
     if (d == dv and d in WGMMA_HEAD_DIMS and all(s % 8 == 0 for s in strides)
             and all(p % 16 == 0 for p in ptrs)):
-        return "bf16_wgmma"
-    return "bf16_mma"
+        return f"{TAG16[dtype]}_wgmma"
+    return f"{TAG16[dtype]}_mma"
 
 
 def flash_info(d: int, dv: Optional[int] = None, dtype=torch.float32,
                form: Optional[str] = None) -> Dict[str, int]:
     """The CUDA kernel's registers, shared memory, resident blocks per SM
     and block shape at head dims ``d`` and ``dv`` (default ``d``), of the
-    form of ``dtype`` (bf16: ``form`` "bf16_mma" or "bf16_wgmma", by
-    default the wgmma form where d = dv takes it); needs the card."""
+    form of ``dtype`` (bf16 or fp16: ``form`` "<tag>_mma" or
+    "<tag>_wgmma", by default the wgmma form where d = dv takes it); needs
+    the card."""
     dv = d if dv is None else dv
-    if dtype == torch.bfloat16:
-        form = form or flash_form(d, dv, dtype)
-        if form == "bf16_wgmma":
-            return kernel_info("flash_attention_wgmma",
-                               "flash_attention_bf16_wgmma_info", (d,),
-                               WGMMA_INFO_KEYS)
-    fn = ("flash_attention_bf16_info" if dtype == torch.bfloat16
-          else "flash_attention_info")
-    return kernel_info("flash_attention", fn, (d, dv), INFO_KEYS)
+    if dtype == torch.float32:
+        return kernel_info("flash_attention", "flash_attention_info",
+                           (d, dv), INFO_KEYS)
+    tag = TAG16[dtype]
+    form = form or flash_form(d, dv, dtype)
+    if form.endswith("_wgmma"):
+        return kernel_info(_wgmma_library(dtype),
+                           f"flash_attention_{tag}_wgmma_info", (d,),
+                           WGMMA_INFO_KEYS)
+    return kernel_info("flash_attention", f"flash_attention_{tag}_info",
+                       (d, dv), INFO_KEYS)
+
+
+def _wgmma_library(dtype) -> str:
+    """The library of the wgmma form of a 16-bit ``dtype``."""
+    return ("flash_attention_wgmma" if dtype == torch.bfloat16
+            else "flash_attention_wgmma_f16")
 
 
 def check_head_dims(d: int, dv: int) -> None:
@@ -112,7 +129,7 @@ def check_head_dims(d: int, dv: int) -> None:
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
                         scale=None):
     """q: (B,H,Sq,hd); k: (B,KV,Sk,hd); v: (B,KV,Sk,hd_v) -> (B,H,Sq,hd_v)
-    in q's dtype (fp32 or bf16; k and v the same). Any strides with the
+    in q's dtype (fp32, bf16 or fp16; k and v the same). Any strides with the
     last dimension contiguous; on the card the output is laid out as
     (B,Sq,H,hd_v) in memory (the model layout) and returned as its
     (B,H,Sq,hd_v) view. The default scale is 1/sqrt(hd)."""
@@ -122,8 +139,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     dv = v.shape[-1]
     dev = q.device
     if q.dtype not in DTYPES:
-        raise TypeError(f"q: expected torch.float32 or torch.bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"q: expected torch.float32, torch.bfloat16 or "
+                        f"torch.float16, got {q.dtype}")
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, kv, sk, d)),
                            ("v", v, (b, kv, sk, dv))):
         check_tensor(name, t, q.dtype, shape, dev, contiguous=False)
@@ -166,12 +183,13 @@ def _flash(q, k, v, causal: bool, window: int, logit_cap: float,
             float(logit_cap or 0.0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if form == "bf16_wgmma":
-            err = library("flash_attention_wgmma").flash_attention_bf16_wgmma(
+        if form.endswith("_wgmma"):
+            err = getattr(library(_wgmma_library(q.dtype)),
+                          f"flash_attention_{TAG16[q.dtype]}_wgmma")(
                 *head, d, *strides, *tail, stream)
         else:
-            fn = ("flash_attention_bf16" if form == "bf16_mma"
-                  else "flash_attention")
+            fn = ("flash_attention" if form == "float32"
+                  else f"flash_attention_{TAG16[q.dtype]}")
             err = getattr(library("flash_attention"), fn)(
                 *head, d, dv, *strides, *tail, stream)
     raise_on(err, form)

@@ -22,11 +22,12 @@
 //
 // Dtypes (the Pallas kernel takes any, upcasts inside and writes q's
 // dtype): q, the pools and the output fp32; q, the pools and the output
-// bf16 (a bf16 plan's split pools); or q and the output bf16 over fp32
-// pools (a bf16 plan's q against the fp32 engine pool of zero-copy
-// serving). Loads convert to fp32; the logits, the softmax, the
+// bf16 or fp16 (a 16-bit plan's split pools); or q and the output bf16 or
+// fp16 over fp32 pools (a 16-bit plan's q against the fp32 engine pool of
+// zero-copy serving). Loads convert to fp32; the logits, the softmax, the
 // accumulators and the partials stay fp32; the output is rounded to q's
-// dtype once, at the end.
+// dtype once, at the end (so in fp16 only the output can overflow, as the
+// reference's can).
 //
 // Bound on an H100 SXM: bytes. Each live position's K and V rows of one KV
 // head are read once (2 * hd * 4 bytes; 2 * hd * 2 from bf16 pools), q
@@ -153,22 +154,40 @@
 //   layer's work, or fewer and longer shares per SM with a deeper ring,
 //   come next.
 //
-// Two libraries from this file, compiled in parallel: the fp32 form's
-// kernels and entries (paged_attention, paged_attention_info) as it is, and
-// with PAGED_ATTENTION_BF16 defined (paged_attention_bf16.cu includes this
-// file) the bf16 forms' (paged_attention_bf16, paged_attention_bf16_info):
-// one file of 48 instantiations took 78 s of nvcc, each half about 40.
+// Three libraries from this file, compiled in parallel: the fp32 form's
+// kernels and entries (paged_attention, paged_attention_info) as it is; with
+// PAGED_ATTENTION_BF16 defined (paged_attention_bf16.cu includes this file)
+// the bf16 forms' (paged_attention_bf16, paged_attention_bf16_info); with
+// PAGED_ATTENTION_F16 (paged_attention_f16.cu) the fp16 forms'
+// (paged_attention_f16, paged_attention_f16_info). Each 16-bit library
+// instantiates the same templates over its T16 (elt16.cuh: conversions by
+// the intrinsics, the hi/lo split of P, m16n8k16 over T16). One file of 48
+// instantiations took 78 s of nvcc, each half about 40.
 //
 // Offsets are 64-bit: an engine pool holds up to ~2^30 floats.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "../../csrc/elt16.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+// the 16-bit library's element type (elt16.cuh): q's and the output's, and
+// the split pools' of its k16 form
+#if defined(PAGED_ATTENTION_F16)
+#define PAGED_ATTENTION_16
+#define PAGED16_ENTRY paged_attention_f16
+#define PAGED16_INFO paged_attention_f16_info
+using T16 = __half;
+#elif defined(PAGED_ATTENTION_BF16)
+#define PAGED_ATTENTION_16
+#define PAGED16_ENTRY paged_attention_bf16
+#define PAGED16_INFO paged_attention_bf16_info
+using T16 = bf16;
+#endif
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -208,19 +227,16 @@ __device__ __forceinline__ void cp_commit() {
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ float to_f(T x) { return Elt16<T>::to_f(x); }
 
 template <typename T>
-__device__ __forceinline__ T from_f(float x);
+__device__ __forceinline__ T from_f(float x) { return Elt16<T>::from_f(x); }
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // one copy of W values of type T into shared memory: cp.async for 16, 8
-// and 4 bytes; one bf16 (2 bytes, below cp.async's smallest copy) by a
+// and 4 bytes; one 16-bit value (below cp.async's smallest copy) by a
 // plain load and store, which the lane itself reads back later, so it
 // needs no wait
 template <typename T, int W>
@@ -232,10 +248,12 @@ __device__ __forceinline__ void cp_slot(T* dst, const T* src) {
   else *dst = *src;
 }
 
-// bf16 pairs to floats: the low half first, exact
-__device__ __forceinline__ void unpack2(float* x, uint32_t u) {
-  x[0] = __uint_as_float(u << 16);
-  x[1] = __uint_as_float(u & 0xffff0000u);
+// a pair of 16-bit T to floats: the low half first, exact
+template <typename T>
+__device__ __forceinline__ void unpack_pair(float* x, uint32_t u) {
+  const float2 f = unpack2<T>(u);
+  x[0] = f.x;
+  x[1] = f.y;
 }
 
 // W values of type T from shared memory (one copy's slot) as floats
@@ -249,14 +267,14 @@ __device__ __forceinline__ void load_slot(float* x, const T* p) {
     x[3] = y.w;
   } else if constexpr (sizeof(T) == 2 && W == 8) {
     const uint4 y = *(const uint4*)p;
-    unpack2(x, y.x);
-    unpack2(x + 2, y.y);
-    unpack2(x + 4, y.z);
-    unpack2(x + 6, y.w);
+    unpack_pair<T>(x, y.x);
+    unpack_pair<T>(x + 2, y.y);
+    unpack_pair<T>(x + 4, y.z);
+    unpack_pair<T>(x + 6, y.w);
   } else if constexpr (sizeof(T) == 2 && W == 4) {
     const uint2 y = *(const uint2*)p;
-    unpack2(x, y.x);
-    unpack2(x + 2, y.y);
+    unpack_pair<T>(x, y.x);
+    unpack_pair<T>(x + 2, y.y);
   } else {
 #pragma unroll
     for (int e = 0; e < W; ++e) x[e] = to_f(p[e]);
@@ -296,9 +314,10 @@ __host__ __device__ constexpr int lane_floats(int n, int w) {
 constexpr int kLaneNarrow = kMaxD / 32;
 constexpr int kLaneWide = lane_floats(kMaxDWide, 4);
 
-// TQ: q's and the output's type, TKV: the pools' (float, float; bf16,
-// bf16; or bf16 over float pools); WK, WV: values a K / V copy (16 bytes:
-// 4 floats or 8 bf16; 8 bytes: 4 bf16 in the wide instantiation; or 1);
+// TQ: q's and the output's type, TKV: the pools' (float, float; T16, T16;
+// or T16 over float pools, T16 bf16 or fp16); WK, WV: values a K / V copy
+// (16 bytes: 4 floats or 8 16-bit values; 8 bytes: 4 16-bit values in the
+// wide instantiation; or 1);
 // G: query rows a block (1, 2 or 4;
 // rows of a smaller group are zero and never written), so the logits'
 // reductions and the softmax have no per-row branches and interleave;
@@ -680,18 +699,10 @@ __device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // two 8x8 tiles of 16-bit values, transposed: lanes 0-15 give the row
 // addresses (tile 0's rows, then tile 1's); register j gets tile j's
 // elements (2t, g) and (2t + 1, g), the B fragment of keys 2t, 2t + 1
-__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const bf16* p) {
+__device__ __forceinline__ void ldsm_x2_t(uint32_t* r, const void* p) {
   const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
@@ -727,7 +738,7 @@ __device__ __forceinline__ void cp4z(void* dst, const void* src, bool in) {
 
 // n_rows rows of n values of T (row r from src + r * rs, or zeros where
 // !in(r)) into shared rows of stride ss: a warp a row, its lanes along
-// the row, 16-byte copies where vec, else single values (a bf16 by a plain
+// the row, 16-byte copies where vec, else single values (16 bits by a plain
 // load and store, below cp.async's smallest copy)
 template <typename T, typename In>
 __device__ __forceinline__ void stage_rows(T* dst, int ss, const T* src,
@@ -756,7 +767,7 @@ __device__ __forceinline__ void stage_rows(T* dst, int ss, const T* src,
 // shared row strides (values) that keep the fragment loads free of bank
 // conflicts: fp32 rows at 4 mod 8 words (Q and K: lanes (g, t) read row
 // g, column t), fp32 V rows at 8 mod 32 (lanes read row t, column g),
-// bf16 rows at 8 values past a multiple of 16 (32-bit pairs and
+// 16-bit rows at 8 values past a multiple of 16 (32-bit pairs and
 // ldmatrix rows)
 __host__ __device__ constexpr int packed_stride(int n, int item, bool v) {
   return item == 4 ? ((n + 7) & ~7) + (v ? 8 : 4) : ((n + 15) & ~15) + 8;
@@ -777,10 +788,11 @@ __device__ __forceinline__ int packed_live(int length, int p_max, int page,
   return max(0, last - f);
 }
 
-// TQ: q's and the output's type; TKV: the pools'. bf16 pools: the bf16
-// family (m16n8k16, P split into bf16 hi and lo); fp32 pools: the TF32
-// family (m16n8k8; q.K^T in 3xTF32, or two products where q is bf16 and
-// so exact in TF32; P.V in 3xTF32). kR: query rows a block.
+// TQ: q's and the output's type; TKV: the pools'. 16-bit pools (bf16 or
+// fp16, q of the same type): the 16-bit family (m16n8k16 over TKV, P split
+// into hi and lo of TKV); fp32 pools: the TF32 family (m16n8k8; q.K^T in
+// 3xTF32, or two products where q is 16-bit and so exact in TF32; P.V in
+// 3xTF32). kR: query rows a block.
 template <typename TQ, typename TKV, int kR>
 __global__ void __launch_bounds__(kPackedThreads, 1)
 paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
@@ -800,7 +812,8 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
   constexpr int kTPR = kPackedThreads / kR;           // softmax threads a row
   constexpr int kKPT = kPackedT / kTPR;               // their keys each
   constexpr int kSS = kPackedT + 4;                   // S / P row stride
-  constexpr int kPS = kPackedT + 8;                   // bf16 P row stride
+  constexpr int kPS = kPackedT + 8;                   // 16-bit P row stride
+  using TP = typename std::conditional<kBF, TKV, bf16>::type;   // P's
   extern __shared__ __align__(16) float smem[];
   asm volatile("griddepcontrol.launch_dependents;");
   const TQ* __restrict__ q = (const TQ*)q_;
@@ -814,8 +827,8 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
   TKV* k_sm = (TKV*)(q_sm + kR * qs);    // 2 stages of K tiles
   TKV* v_sm = k_sm + 2 * kPackedT * ks;  // 1 of V
   float* s_sm = (float*)(v_sm + kPackedT * vs);       // (kDS, kR, kSS)
-  bf16* p_hi = (bf16*)(s_sm + kDS * kR * kSS);        // bf16: (kR, kPS) x 2
-  bf16* p_lo = p_hi + (kBF ? kR * kPS : 0);
+  TP* p_hi = (TP*)(s_sm + kDS * kR * kSS);            // 16-bit: (kR, kPS) x 2
+  TP* p_lo = p_hi + (kBF ? kR * kPS : 0);
   float* row_corr = (float*)(p_lo + (kBF ? kR * kPS : 0));
   float* row_m = row_corr + kR;
   float* row_l = row_m + kR;
@@ -960,13 +973,13 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
         const int n16 = (d + 15) >> 4;
         const int per = (n16 + kDS - 1) / kDS;
         const int c0 = ds * per, c1 = min(n16, c0 + per);
-        const bf16* qa = (const bf16*)q_sm + gq * qs + 2 * tq;
-        const bf16* kb = (const bf16*)kt_sm + gq * ks + 2 * tq;
+        const TKV* qa = (const TKV*)q_sm + gq * qs + 2 * tq;
+        const TKV* kb = kt_sm + gq * ks + 2 * tq;
         for (int c = c0; c < c1; ++c) {
           uint32_t a[kRT][4], bb[kKT][2];
 #pragma unroll
           for (int m = 0; m < kRT; ++m) {
-            const bf16* qr = qa + m * 16 * qs + 16 * c;
+            const TKV* qr = qa + m * 16 * qs + 16 * c;
             a[m][0] = ld_u32(qr);
             a[m][1] = ld_u32(qr + 8 * qs);
             a[m][2] = ld_u32(qr + 8);
@@ -974,14 +987,14 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
           }
 #pragma unroll
           for (int n = 0; n < kKT; ++n) {
-            const bf16* kr = kb + n * 8 * ks + 16 * c;
+            const TKV* kr = kb + n * 8 * ks + 16 * c;
             bb[n][0] = ld_u32(kr);
             bb[n][1] = ld_u32(kr + 8);
           }
 #pragma unroll
           for (int m = 0; m < kRT; ++m)
 #pragma unroll
-            for (int n = 0; n < kKT; ++n) mma_bf16(sa[m][n][0], a[m], bb[n]);
+            for (int n = 0; n < kKT; ++n) mma16<TKV>(sa[m][n][0], a[m], bb[n]);
         }
       } else {
         const int n8 = (d + 7) >> 3;
@@ -991,7 +1004,7 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
         // halves: lane (g, t) of an 8 x 8 b16 matrix gets row g's value
         // t): Q's 16 x 8 tile in one x4 (rows 0-7, 8-15 of columns 0-3,
         // then of 4-7: a0-a3), K's two 8-key tiles in another (b0, b1 of
-        // each); bf16 q by single loads
+        // each); 16-bit q by single loads
         const TQ* qa = q_sm + gq * qs + tq;
         const int lrow = lane & 7;
         const float* qm = (const float*)q_sm + (lrow + 8 * ((lane >> 3) & 1)) *
@@ -1009,7 +1022,7 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
 #pragma unroll
               for (int e = 0; e < 4; ++e)
                 split_tf32(__uint_as_float(r[e]), ah[m][e], al[m][e]);
-            } else {                      // bf16 q: exact in TF32
+            } else {                      // 16-bit q: exact in TF32
               const TQ* qr = qa + m * 16 * qs + 8 * c;
               const float x[4] = {to_f(qr[0]), to_f(qr[8 * qs]),
                                   to_f(qr[4]), to_f(qr[8 * qs + 4])};
@@ -1103,11 +1116,7 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
 #pragma unroll
         for (int e = 0; e < kKPT; e += 2) {
           uint32_t ph, pl;
-          const __nv_bfloat162 hh = __floats2bfloat162_rn(x[e], x[e + 1]);
-          const __nv_bfloat162 ll = __floats2bfloat162_rn(
-              x[e] - __low2float(hh), x[e + 1] - __high2float(hh));
-          ph = *reinterpret_cast<const uint32_t*>(&hh);
-          pl = *reinterpret_cast<const uint32_t*>(&ll);
+          split2<TKV>(x[e], x[e + 1], ph, pl);
           *reinterpret_cast<uint32_t*>(p_hi + sm_r * kPS + sm_k + e) = ph;
           *reinterpret_cast<uint32_t*>(p_lo + sm_r * kPS + sm_k + e) = pl;
         }
@@ -1141,8 +1150,8 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
       uint32_t ah[kRT][4], al[kRT][4];
 #pragma unroll
       for (int a = 0; a < kRT; ++a) {
-        const bf16* ph = p_hi + (a * 16 + gq) * kPS + 2 * tq;
-        const bf16* pl = p_lo + (a * 16 + gq) * kPS + 2 * tq;
+        const TP* ph = p_hi + (a * 16 + gq) * kPS + 2 * tq;
+        const TP* pl = p_lo + (a * 16 + gq) * kPS + 2 * tq;
         ah[a][0] = ld_u32(ph);
         ah[a][1] = ld_u32(ph + 8 * kPS);
         ah[a][2] = ld_u32(ph + 8);
@@ -1156,18 +1165,18 @@ paged_packed_kernel(const void* __restrict__ q_, const void* __restrict__ k_,
 #pragma unroll
       for (int c = 0; c < kMaxChunksV; ++c) {
         const int ch = min(warp + kPackedWarps * c, nkv - 1);
-        ldsm_x2_t(bv[c], (const bf16*)vt_sm + (lane & 15) * vs + ch * 8);
+        ldsm_x2_t(bv[c], vt_sm + (lane & 15) * vs + ch * 8);
       }
 #pragma unroll
       for (int c = 0; c < kMaxChunksV; ++c)
         if (warp + kPackedWarps * c < nkv)
 #pragma unroll
-          for (int a = 0; a < kRT; ++a) mma_bf16(acc[a][c], al[a], bv[c]);
+          for (int a = 0; a < kRT; ++a) mma16<TKV>(acc[a][c], al[a], bv[c]);
 #pragma unroll
       for (int c = 0; c < kMaxChunksV; ++c)
         if (warp + kPackedWarps * c < nkv)
 #pragma unroll
-          for (int a = 0; a < kRT; ++a) mma_bf16(acc[a][c], ah[a], bv[c]);
+          for (int a = 0; a < kRT; ++a) mma16<TKV>(acc[a][c], ah[a], bv[c]);
     } else {
 #pragma unroll
       for (int st = 0; st < kKT; ++st) {
@@ -1424,12 +1433,15 @@ using Kernel = void (*)(const void*, const void*, const void*, const int*,
                         int, int, int64_t, int64_t, int64_t, int64_t, int,
                         float, float, int, int);
 
-// the element types: q and pools fp32; q and pools bf16; q bf16 over fp32
-// pools (the zero-copy serving mix: a bf16 plan's q, the fp32 engine pool);
-// TOut, the output's (and q's) type of this library's kernels
-constexpr int kF32 = 0, kBF16 = 1, kBF16Q = 2;
-#ifdef PAGED_ATTENTION_BF16
-using TOut = bf16;
+// the element types: q and pools fp32; q and pools T16 (k16); q T16 over
+// fp32 pools (k16Q: the zero-copy serving mix, a 16-bit plan's q against
+// the fp32 engine pool; the q.K^T of the packed kernel then takes q's
+// values as TF32 with no rounding: bf16's 7 and fp16's 10 mantissa bits fit
+// TF32's 10, and every fp16 exponent, subnormals included, is a normal
+// TF32 one); TOut, the output's (and q's) type of this library's kernels
+constexpr int kF32 = 0, k16 = 1, k16Q = 2;
+#ifdef PAGED_ATTENTION_16
+using TOut = T16;
 #else
 using TOut = float;
 #endif
@@ -1441,9 +1453,9 @@ using PackedKernel = void (*)(const void*, const void*, const void*,
                               int, int);
 
 PackedKernel pick_packed(int types) {
-#ifdef PAGED_ATTENTION_BF16
-  return types == kBF16 ? paged_packed_kernel<bf16, bf16, kPackedRows>
-                        : paged_packed_kernel<bf16, float, kPackedRows>;
+#ifdef PAGED_ATTENTION_16
+  return types == k16 ? paged_packed_kernel<T16, T16, kPackedRows>
+                      : paged_packed_kernel<T16, float, kPackedRows>;
 #else
   (void)types;
   return paged_packed_kernel<float, float, kPackedRows>;
@@ -1452,14 +1464,14 @@ PackedKernel pick_packed(int types) {
 
 size_t packed_smem(int types, int d, int dv) {
   const int rows = kPackedRows;
-  const int iq = types == kF32 ? 4 : 2, ikv = types == kBF16 ? 2 : 4;
+  const int iq = types == kF32 ? 4 : 2, ikv = types == k16 ? 2 : 4;
   const size_t q = (size_t)rows * packed_stride(d, iq, false) * iq;
   const size_t stages = (size_t)kPackedT * ikv *
                         (2 * packed_stride(d, ikv, false) +
                          packed_stride(dv, ikv, true));
   const size_t s = sizeof(float) * (size_t)kPackedWarps * rows *
                    (kPackedT + 4);
-  const size_t p = types == kBF16 ? 2 * sizeof(bf16) * rows * (kPackedT + 8)
+  const size_t p = types == k16 ? 2 * sizeof(bf16) * rows * (kPackedT + 8)
                                   : 0;
   return q + stages + s + p + sizeof(float) * 3 * rows +
          sizeof(int) * (2 * (size_t)kPackedList + 1);
@@ -1471,7 +1483,7 @@ int rows_g(int g) {
   return gb <= 1 ? 1 : gb <= 2 ? 2 : 4;
 }
 
-// values a vector copy of the pools moves: 16 bytes, but 8 for bf16 in the
+// values a vector copy of the pools moves: 16 bytes, but 8 for 16 bits in the
 // wide instantiation (4 a copy keeps a lane's 20 values of a 576 row in
 // registers, as fp32's five float4 slots do; 16-byte copies would take 24)
 template <typename TKV, int LF>
@@ -1488,7 +1500,7 @@ Kernel pick_g(int vec_k, int vec_v) {
                    : paged_kernel<TQ, TKV, W, 1, G, LF>;
     return vec_v ? paged_kernel<TQ, TKV, 1, W, G, LF>
                  : paged_kernel<TQ, TKV, 1, 1, G, LF>;
-  } else {                                  // bf16 q: both or neither
+  } else {                                  // 16-bit q: both or neither
     return vec_k && vec_v ? paged_kernel<TQ, TKV, W, W, G, LF>
                           : paged_kernel<TQ, TKV, 1, 1, G, LF>;
   }
@@ -1508,11 +1520,11 @@ Kernel pick_t(int vec_k, int vec_v, int gr, int wide) {
 }
 
 // the wide instantiation where either head dim passes 256; this
-// library's element types only (the file's note on PAGED_ATTENTION_BF16)
+// library's element types only (the file's note on PAGED_ATTENTION_16)
 Kernel pick(int types, int vec_k, int vec_v, int gr, int wide) {
-#ifdef PAGED_ATTENTION_BF16
-  return types == kBF16 ? pick_t<bf16, bf16>(vec_k, vec_v, gr, wide)
-                        : pick_t<bf16, float>(vec_k, vec_v, gr, wide);
+#ifdef PAGED_ATTENTION_16
+  return types == k16 ? pick_t<T16, T16>(vec_k, vec_v, gr, wide)
+                      : pick_t<T16, float>(vec_k, vec_v, gr, wide);
 #else
   (void)types;
   return pick_t<float, float>(vec_k, vec_v, gr, wide);
@@ -1527,13 +1539,13 @@ int slot(int types, int vec_k, int vec_v, int gr, int wide) {
 // a copy's values: the vector width where vec, else 1
 int copy_values(int types, int vec, int wide) {
   if (!vec) return 1;
-  return types == kBF16 && !wide ? 8 : 4;
+  return types == k16 && !wide ? 8 : 4;
 }
 
 size_t smem_bytes(int types, int d, int dv, int vec_k, int vec_v, int p_max,
                   int n_split) {
   const int wide = is_wide(d, dv);
-  const size_t item = types == kBF16 ? sizeof(bf16) : sizeof(float);
+  const size_t item = types == k16 ? (size_t)2 : sizeof(float);
   const int fk = lane_floats(d, copy_values(types, vec_k, wide));
   const int fv = lane_floats(dv, copy_values(types, vec_v, wide));
   const size_t stages =
@@ -1622,7 +1634,7 @@ int launch_packed(const void* q, const void* k, const void* v,
       (int64_t)kv * n_rt > 0x7fffffff ||
       (int64_t)b * kv > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const int iq = types == kF32 ? 4 : 2, ikv = types == kBF16 ? 2 : 4;
+  const int iq = types == kF32 ? 4 : 2, ikv = types == k16 ? 2 : 4;
   const int vec_q = aligned16(q) && (d * iq) % 16 == 0;
   const int n = 16 / ikv;
   const int vec_kv = vec_ok(k, d, k_row, k_tok, n, ikv) &&
@@ -1686,9 +1698,9 @@ int launch(const void* q, const void* k, const void* v, const void* table,
     vec_k = aligned16(q) && aligned16(k) && d % 4 == 0 && k_row % 4 == 0 &&
             k_tok % 4 == 0;
     vec_v = aligned16(v) && dv % 4 == 0 && v_row % 4 == 0 && v_tok % 4 == 0;
-  } else {                  // bf16 q loads by value: the pools decide
+  } else {                  // 16-bit q loads by value: the pools decide
     const int n = copy_values(types, 1, wide);
-    const int item = types == kBF16 ? 2 : 4;
+    const int item = types == k16 ? 2 : 4;
     vec_k = vec_v = vec_ok(k, d, k_row, k_tok, n, item) &&
                     vec_ok(v, dv, v_row, v_tok, n, item);
   }
@@ -1769,7 +1781,7 @@ int info_of(int g, int d, int dv, int vec_k, int vec_v, int p_max,
 
 extern "C" {
 
-#ifndef PAGED_ATTENTION_BF16
+#ifndef PAGED_ATTENTION_16
 // q (b, h, d) f32 contiguous; k, v: base pointers of the K and V planes,
 // each with its row (extent) and token strides in elements, head stride d
 // (K) / dv (V); table (b, p_max) i32; lengths (b,) i32; out (b, h, dv) f32
@@ -1797,27 +1809,27 @@ int paged_attention_info(int g, int d, int dv, int vec_k, int vec_v,
   return info_of(g, d, dv, vec_k, vec_v, p_max, n_split, kF32, info);
 }
 #else
-// The same with q and out bf16, and the K and V planes bf16 (kv_bf16 1)
-// or f32 (0); the partials stay f32.
-int paged_attention_bf16(const void* q, const void* k, const void* v,
-                         const void* table, const void* lengths, void* out,
-                         void* partials, int b, int h, int kv, int d, int dv,
-                         int p_max, int page, int n_rows, int64_t k_row,
-                         int64_t k_tok, int64_t v_row, int64_t v_tok,
-                         int window, float scale, float cap, int n_split,
-                         int kv_bf16, void* stream) {
+// The same with q and out T16 (bf16 in paged_attention_bf16, fp16 in
+// paged_attention_f16), and the K and V planes T16 (kv_16 1) or f32 (0);
+// the partials stay f32.
+int PAGED16_ENTRY(const void* q, const void* k, const void* v,
+                  const void* table, const void* lengths, void* out,
+                  void* partials, int b, int h, int kv, int d, int dv,
+                  int p_max, int page, int n_rows, int64_t k_row,
+                  int64_t k_tok, int64_t v_row, int64_t v_tok, int window,
+                  float scale, float cap, int n_split, int kv_16,
+                  void* stream) {
   return launch(q, k, v, table, lengths, out, partials, b, h, kv, d, dv,
                 p_max, page, n_rows, k_row, k_tok, v_row, v_tok, window,
-                scale, cap, n_split, stream, kv_bf16 ? kBF16 : kBF16Q);
+                scale, cap, n_split, stream, kv_16 ? k16 : k16Q);
 }
 
-// paged_attention_info for the bf16 forms (kv_bf16 as in
-// paged_attention_bf16; vector loads where both vec_k and vec_v).
-int paged_attention_bf16_info(int g, int d, int dv, int vec_k, int vec_v,
-                              int p_max, int n_split, int kv_bf16,
-                              int* info) {
-  return info_of(g, d, dv, vec_k, vec_v, p_max, n_split,
-                 kv_bf16 ? kBF16 : kBF16Q, info);
+// paged_attention_info for the 16-bit forms (kv_16 as in the entry above;
+// vector loads where both vec_k and vec_v).
+int PAGED16_INFO(int g, int d, int dv, int vec_k, int vec_v, int p_max,
+                 int n_split, int kv_16, int* info) {
+  return info_of(g, d, dv, vec_k, vec_v, p_max, n_split, kv_16 ? k16 : k16Q,
+                 info);
 }
 #endif
 

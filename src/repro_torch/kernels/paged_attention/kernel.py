@@ -17,14 +17,16 @@ for tensors on the CPU; a CUDA tensor gets the kernel or an error, never
 the plain version. ``LAUNCHES`` counts wrapper calls that launched the
 kernel (its main grid and, with more than one split, the merge grid),
 ``LAUNCHES_BY_DTYPE`` splits them by form (``float32``; ``bfloat16``: q
-and pools bf16; ``bfloat16_q``: bf16 q over fp32 pools) and
-``PLAIN_CALLS`` counts the wrappers' calls of the plain version.
+and pools bf16; ``bfloat16_q``: bf16 q over fp32 pools; ``float16`` and
+``float16_q`` the same in fp16) and ``PLAIN_CALLS`` counts the wrappers'
+calls of the plain version.
 
-Dtypes, as the TPU kernel takes them: q fp32 or bf16, the split pools in
-q's dtype, the engine pool of the pool form fp32 (or q's dtype); any
-other dtype or mix raises. Both versions compute in fp32 and return the
-output in q's dtype (the log-sum-exp in fp32); no input is cast to reach
-a form.
+Dtypes, as the TPU kernel takes them: q fp32, bf16 or fp16, the split
+pools in q's dtype, the engine pool of the pool form fp32 (or q's dtype);
+any other dtype or mix raises. Both versions compute in fp32 and return
+the output in q's dtype (the log-sum-exp in fp32); no input is cast to
+reach a form. The 16-bit forms are one template over bf16 and fp16, a
+library each (``paged_attention_bf16``, ``paged_attention_f16``).
 
 The kernel splits each (sequence, KV head) over ``n_split`` blocks. The
 wrapper's choices are plain functions of shapes and the card's SM count
@@ -66,10 +68,13 @@ from repro_torch.kernels.paged_attention.ref import (paged_attention_pool_ref,
 LAUNCHES: Dict[str, int] = {"paged_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"paged_attention": 0}
 LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
-                                     "bfloat16_q": 0}
+                                     "bfloat16_q": 0, "float16": 0,
+                                     "float16_q": 0}
 LAUNCHES_BY_INSTANCE: Dict[str, int] = {"lanes": 0, "packed": 0}
-F32, BF16, I32 = torch.float32, torch.bfloat16, torch.int32
-DTYPES = (F32, BF16)                 # q's (and the split pools') forms
+F32, BF16, F16, I32 = (torch.float32, torch.bfloat16, torch.float16,
+                       torch.int32)
+DTYPES = (F32, BF16, F16)            # q's (and the split pools') forms
+TAG16 = {BF16: "bf16", F16: "f16"}   # a 16-bit q's library and entry tag
 NEG_INF = -1e30
 NARROW_HEAD_DIM = 256                # 8 floats of hd a lane (csrc kMaxD)
 MAX_HEAD_DIM = 576                   # the wide instantiation (kMaxDWide)
@@ -175,10 +180,11 @@ def paged_info(g: int, d: int, dv: int, vec_k: bool = True,
     ``dtype``; needs the card)."""
     kv_dtype = dtype if kv_dtype is None else kv_dtype
     args = (g, d, dv, int(vec_k), int(vec_v), p_max, n_split)
-    if dtype == BF16:
-        return kernel_info("paged_attention_bf16",
-                           "paged_attention_bf16_info",
-                           args + (int(kv_dtype == BF16),), INFO_KEYS)
+    if dtype in TAG16:
+        tag = TAG16[dtype]
+        return kernel_info(f"paged_attention_{tag}",
+                           f"paged_attention_{tag}_info",
+                           args + (int(kv_dtype == dtype),), INFO_KEYS)
     return kernel_info("paged_attention", "paged_attention_info", args,
                        INFO_KEYS)
 
@@ -193,8 +199,8 @@ def reset_counts() -> None:
 def _check_common(q, block_table, lengths, kv: int, dev) -> None:
     b, h, _d = q.shape
     if q.dtype not in DTYPES:
-        raise TypeError(f"q: expected torch.float32 or torch.bfloat16, got "
-                        f"{q.dtype}")
+        raise TypeError(f"q: expected torch.float32, torch.bfloat16 or "
+                        f"torch.float16, got {q.dtype}")
     check_tensor("q", q, q.dtype, q.shape, dev)
     check_tensor("block_table", block_table, I32, (b, block_table.shape[1]),
                  dev)
@@ -205,9 +211,8 @@ def _check_common(q, block_table, lengths, kv: int, dev) -> None:
 
 def _form(dtype, kv_dtype) -> str:
     """The ``LAUNCHES_BY_DTYPE`` key of a call."""
-    if dtype == F32:
-        return "float32"
-    return "bfloat16" if kv_dtype == BF16 else "bfloat16_q"
+    name = str(dtype).split(".")[1]
+    return name if dtype == F32 or kv_dtype == dtype else f"{name}_q"
 
 
 def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
@@ -237,9 +242,11 @@ def _launch(q, k_ptr: int, v_ptr: int, block_table, lengths, *, kv, dv,
             int(window or 0), float(scale), float(logit_cap or 0.0), n_split)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if q.dtype == BF16:
-            err = library("paged_attention_bf16").paged_attention_bf16(
-                *args, int(kv_dtype == BF16), stream)
+        if q.dtype in TAG16:
+            tag = TAG16[q.dtype]
+            err = getattr(library(f"paged_attention_{tag}"),
+                          f"paged_attention_{tag}")(
+                *args, int(kv_dtype == q.dtype), stream)
         else:
             err = library("paged_attention").paged_attention(*args, stream)
     raise_on(err, "paged_attention")
@@ -267,7 +274,8 @@ def _shares_lse(m, l, b: int, h: int):
 
 def paged_attention_fwd(q, pool_k, pool_v, block_table, lengths, *,
                         window=0, logit_cap=0.0, scale=None):
-    """q: (B,H,hd) fp32 or bf16; pools: (E,page,KV,hd_{k,v}) in q's dtype;
+    """q: (B,H,hd) fp32, bf16 or fp16; pools: (E,page,KV,hd_{k,v}) in q's
+    dtype;
     block_table: (B,P) int32; lengths: (B,) int32. Hole pages (extent -1)
     are skipped. Returns (B,H,hd_v) in q's dtype."""
     refuse_grad("paged_attention", q, pool_k, pool_v)
@@ -342,8 +350,8 @@ def paged_attention_pool_fwd(q, pool, block_table, lengths, *, k_plane,
                              v_plane, window=0, logit_cap=0.0, scale=None):
     """Zero-copy variant: attend straight out of ONE engine extent pool.
 
-    q: (B,H,hd) fp32 or bf16; pool: (E, page, n_planes, KV, hd) fp32 or
-    q's dtype — the fused engine's payload pool (fp32), where plane
+    q: (B,H,hd) fp32, bf16 or fp16; pool: (E, page, n_planes, KV, hd)
+    fp32 or q's dtype — the fused engine's payload pool (fp32), where plane
     ``2*l`` holds paged layer l's keys and ``2*l+1`` its values
     (serving/engine.py); block_table: (B,P) rows of the volume extent map
     (holes -1); lengths: (B,). Returns (B,H,hd) in q's dtype. The kernel

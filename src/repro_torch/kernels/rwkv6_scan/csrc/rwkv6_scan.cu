@@ -14,12 +14,14 @@
 // reads its own slice of the state before it writes it, and no other block
 // touches that slice.
 //
-// Dtypes, as the TPU kernel takes them: r, k, v, logw and y are fp32 or
-// bf16 together (the TI template argument: y in r's dtype), u fp32 or bf16
-// (a flag), s0 and the final state fp32. Both schedules load a bf16 input
-// into fp32 where they read it and compute in fp32 as the fp32 form does;
-// y is rounded to bf16 once, on its store. The prefill's bf16 staging is
-// synchronous (16-bit inputs cannot go through cp.async into the fp32
+// Dtypes, as the TPU kernel takes them: r, k, v, logw and y are fp32, bf16
+// or fp16 together (the TI template argument: y in r's dtype; the 16-bit
+// types' conversions in elt16.cuh), u fp32, bf16 or fp16 (a type code), s0
+// and the final state fp32. Both schedules load a 16-bit input into fp32
+// where they read it and compute in fp32 as the fp32 form does; y is
+// rounded to its type once, on its store (in fp16 only y can overflow: the
+// state stays fp32, as the reference's does). The prefill's 16-bit staging
+// is synchronous (16-bit inputs cannot go through cp.async into the fp32
 // tiles): a thread loads 8 bytes (4 values) where the tensor's base and
 // strides allow, else 2, and stores them converted.
 //
@@ -113,12 +115,13 @@
 //
 // Offsets are 64-bit.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "../../csrc/elt16.cuh"
 
 namespace {
 
@@ -175,19 +178,25 @@ __device__ __forceinline__ void cp4(float* dst, const float* src, bool in) {
                "l"(src), "r"(in ? 4 : 0));
 }
 
+// the type codes of the C entry (in_type, u_type)
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
 // an input element as fp32, and y's store in its dtype
 __device__ __forceinline__ float ld_in(const float* p) { return *p; }
-__device__ __forceinline__ float ld_in(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+template <typename T>
+__device__ __forceinline__ float ld_in(const T* p) {
+  return Elt16<T>::to_f(*p);
 }
 __device__ __forceinline__ void st_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+template <typename T>
+__device__ __forceinline__ void st_out(T* p, float x) {
+  *p = Elt16<T>::from_f(x);
 }
-// u[i], fp32 or (u_bf16) bf16
-__device__ __forceinline__ float ld_u(const void* u, int64_t i, int u_bf16) {
-  return u_bf16 ? __bfloat162float(((const __nv_bfloat16*)u)[i])
-                : ((const float*)u)[i];
+// u[i] of type code u_type
+__device__ __forceinline__ float ld_u(const void* u, int64_t i, int u_type) {
+  return u_type == kBF16  ? ld_in((const __nv_bfloat16*)u + i)
+         : u_type == kF16 ? ld_in((const __half*)u + i)
+                          : ((const float*)u)[i];
 }
 
 __device__ __forceinline__ void cp_commit() {
@@ -216,7 +225,7 @@ template <typename TI, int W>
 __global__ void __launch_bounds__(32)
 decode_kernel(const TI* __restrict__ r, const TI* __restrict__ k,
               const TI* __restrict__ v, const TI* __restrict__ w,
-              const void* __restrict__ u, int u_bf16, const float* s0,
+              const void* __restrict__ u, int u_type, const float* s0,
               TI* __restrict__ y, float* s_out, int seq, int h, int d,
               int64_t rsb, int64_t rss, int64_t rsh, int64_t ksb,
               int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
@@ -270,7 +279,7 @@ decode_kernel(const TI* __restrict__ r, const TI* __restrict__ k,
 #pragma unroll
   for (int it = 0; it < kMaxD / 32; ++it) {
     const int e = lane + 32 * it;
-    if (e < d) ua[it] = ld_u(u, (int64_t)hh * d + e, u_bf16);
+    if (e < d) ua[it] = ld_u(u, (int64_t)hh * d + e, u_type);
   }
 #pragma unroll
   for (int it = 0; it < kItV; ++it) {
@@ -411,12 +420,12 @@ __device__ __forceinline__ void stage(float* dst, int p, const float* src,
   }
 }
 
-// the same from a bf16 tensor, synchronously: each value converted to fp32
-// on its way into the tile (vec: 8-byte loads of 4 values)
-__device__ __forceinline__ void stage(float* dst, int p,
-                                      const __nv_bfloat16* src, int64_t rs,
-                                      int t0, int len, int rows, int ncols,
-                                      bool vec) {
+// the same from a 16-bit tensor, synchronously: each value converted to
+// fp32 on its way into the tile (vec: 8-byte loads of 4 values)
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, int p, const T* src,
+                                      int64_t rs, int t0, int len, int rows,
+                                      int ncols, bool vec) {
   const int per = vec ? ncols >> 2 : ncols;   // loads a row, <= kThreads
   const int step = kThreads / per;            // rows a pass
   const int first = threadIdx.x / per;
@@ -424,21 +433,19 @@ __device__ __forceinline__ void stage(float* dst, int p,
   const int c = (threadIdx.x - first * per) << (vec ? 2 : 0);
   for (int row = first; row < rows; row += step) {
     const bool in = row < len;
-    const __nv_bfloat16* s = src + (int64_t)(t0 + row) * rs + c;
+    const T* s = src + (int64_t)(t0 + row) * rs + c;
     float* o = dst + row * p + c;
     if (vec) {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (in) {
         const uint2 raw = *(const uint2*)s;
-        const float2 lo = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 hi = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        const float2 lo = unpack2<T>(raw.x);
+        const float2 hi = unpack2<T>(raw.y);
         x = make_float4(lo.x, lo.y, hi.x, hi.y);
       }
       *(float4*)o = x;
     } else {
-      *o = in ? __bfloat162float(*s) : 0.f;
+      *o = in ? ld_in(s) : 0.f;
     }
   }
 }
@@ -447,7 +454,7 @@ template <typename TI, int NT>   // input dtype; 8-column tiles of the slice
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 prefill_kernel(const TI* __restrict__ r, const TI* __restrict__ k,
                const TI* __restrict__ v, const TI* __restrict__ w,
-               const void* __restrict__ u, int u_bf16, const float* s0,
+               const void* __restrict__ u, int u_type, const float* s0,
                TI* __restrict__ y, float* s_out, int seq, int h, int d,
                int chunk, int n_col, int64_t rsb, int64_t rss, int64_t rsh,
                int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
@@ -515,7 +522,7 @@ prefill_kernel(const TI* __restrict__ r, const TI* __restrict__ k,
         (s0 && j < d && c < cv) ? s0[soff + (int64_t)j * d + c0 + c] : 0.f;
   }
   for (int j = tid; j < dp; j += kThreads)
-    us[j] = j < d ? ld_u(u, (int64_t)hh * d + j, u_bf16) : 0.f;
+    us[j] = j < d ? ld_u(u, (int64_t)hh * d + j, u_type) : 0.f;
 
   const int n_chunks = (seq + chunk - 1) / chunk;
   {
@@ -851,10 +858,11 @@ Prefill<TI> prefill_for(int nt) {
   }
 }
 
-// the prefill kernel of input form bf16 (else fp32) and nt tiles
-const void* prefill_fn(bool bf16, int nt) {
-  return bf16 ? (const void*)prefill_for<__nv_bfloat16>(nt)
-              : (const void*)prefill_for<float>(nt);
+// the prefill kernel of input type code `type` and nt tiles
+const void* prefill_fn(int type, int nt) {
+  return type == kBF16  ? (const void*)prefill_for<__nv_bfloat16>(nt)
+         : type == kF16 ? (const void*)prefill_for<__half>(nt)
+                        : (const void*)prefill_for<float>(nt);
 }
 
 // the prefill grid's column blocks: doubled while the slice stays a
@@ -868,24 +876,24 @@ int pick_cols(int bh, int dp, int sms) {
   return n;
 }
 
-size_t configured[kMaxDevices][2][4] = {};
+size_t configured[kMaxDevices][3][4] = {};
 
-cudaError_t configure(bool bf16, int nt, size_t smem) {
+cudaError_t configure(int type, int nt, size_t smem) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   const int slot = nt == 1 ? 0 : nt == 2 ? 1 : nt == 4 ? 2 : 3;
-  if (smem <= configured[dev][bf16][slot]) return cudaSuccess;
-  err = cudaFuncSetAttribute(prefill_fn(bf16, nt),
+  if (smem <= configured[dev][type][slot]) return cudaSuccess;
+  err = cudaFuncSetAttribute(prefill_fn(type, nt),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
-  if (err == cudaSuccess) configured[dev][bf16][slot] = smem;
+  if (err == cudaSuccess) configured[dev][type][slot] = smem;
   return err;
 }
 
 // rows of 4 elements of `size` bytes each, aligned to 4 * size: the
-// 16-byte (fp32) or 8-byte (bf16) accesses
+// 16-byte (fp32) or 8-byte (16-bit) accesses
 bool rows_aligned4(const void* p, int64_t sb, int64_t ss, int64_t sh, int d,
                    int size) {
   return (uintptr_t)p % (4 * size) == 0 && d % 4 == 0 && sb % 4 == 0 &&
@@ -894,32 +902,35 @@ bool rows_aligned4(const void* p, int64_t sb, int64_t ss, int64_t sh, int d,
 
 template <typename TI>
 cudaError_t launch(const void* r, const void* k, const void* v,
-                   const void* logw, const void* u, int u_bf16,
+                   const void* logw, const void* u, int u_type,
                    const void* s0, void* y, void* s_out, int b, int seq,
                    int h, int d, int chunk, int64_t rsb, int64_t rss,
                    int64_t rsh, int64_t ksb, int64_t kss, int64_t ksh,
                    int64_t vsb, int64_t vss, int64_t vsh, int64_t wsb,
                    int64_t wss, int64_t wsh, int64_t ysb, int64_t yss,
                    int64_t ysh, cudaStream_t st) {
-  constexpr bool kBf16 = std::is_same<TI, __nv_bfloat16>::value;
+  constexpr bool k16 = sizeof(TI) == 2;
+  constexpr int kType = std::is_same<TI, __nv_bfloat16>::value ? kBF16
+                        : k16                                    ? kF16
+                                                                 : kF32;
   constexpr int kSize = (int)sizeof(TI);
   if (seq <= kDecodeMax) {
-    // bf16 y is stored a value at a time, so only the state asks 16 bytes
+    // 16-bit y is stored a value at a time, so only the state asks 16 bytes
     const bool vec = d % 4 == 0 && (uintptr_t)s_out % 16 == 0 &&
                      (s0 == nullptr || (uintptr_t)s0 % 16 == 0) &&
-                     (kBf16 || rows_aligned4(y, ysb, yss, ysh, d, kSize));
+                     (k16 || rows_aligned4(y, ysb, yss, ysh, d, kSize));
     const int wcols = vec ? 16 : 4;
     dim3 grid(h, b, (d + wcols - 1) / wcols);
     if (vec)
       decode_kernel<TI, 4><<<grid, 32, 0, st>>>(
           (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u,
-          u_bf16, (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, rsb,
+          u_type, (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, rsb,
           rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss, wsh, ysb, yss,
           ysh);
     else
       decode_kernel<TI, 1><<<grid, 32, 0, st>>>(
           (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u,
-          u_bf16, (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, rsb,
+          u_type, (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, rsb,
           rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss, wsh, ysb, yss,
           ysh);
     return cudaGetLastError();
@@ -929,14 +940,14 @@ cudaError_t launch(const void* r, const void* k, const void* v,
   const Geo geo = geometry(d, seq, chunk, n_col);
   const int nt = geo.cw / 8;
   const size_t smem = sizeof(float) * geo.floats;
-  cudaError_t err = configure(kBf16, nt, smem);
+  cudaError_t err = configure(kType, nt, smem);
   if (err != cudaSuccess) return err;
   const int vec_in = rows_aligned4(r, rsb, rss, rsh, d, kSize) &&
                      rows_aligned4(k, ksb, kss, ksh, d, kSize) &&
                      rows_aligned4(logw, wsb, wss, wsh, d, kSize);
   const int vec_v = rows_aligned4(v, vsb, vss, vsh, d, kSize);
   prefill_for<TI>(nt)<<<dim3(h, b, n_col), kThreads, smem, st>>>(
-      (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u, u_bf16,
+      (const TI*)r, (const TI*)k, (const TI*)v, (const TI*)logw, u, u_type,
       (const float*)s0, (TI*)y, (float*)s_out, seq, h, d, chunk, n_col, rsb,
       rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb, wss, wsh, ysb, yss, ysh,
       vec_in, vec_v);
@@ -950,40 +961,41 @@ extern "C" {
 // r, k, v, logw (b, seq, h, d) with (batch, sequence, head) strides in
 // elements and d contiguous; u (h, d); s0 (b, h, d, d) or null; y
 // (b, seq, h, d) strided like the inputs; s_out (b, h, d, d). r, k, v,
-// logw and y bf16 when in_bf16, else fp32; u bf16 when u_bf16, else fp32;
-// s0 and s_out fp32.
+// logw and y of type code in_type (0 fp32, 1 bf16, 2 fp16); u of type code
+// u_type; s0 and s_out fp32.
 int rwkv6_scan(const void* r, const void* k, const void* v, const void* logw,
                const void* u, const void* s0, void* y, void* s_out, int b,
                int seq, int h, int d, int chunk, int64_t rsb, int64_t rss,
                int64_t rsh, int64_t ksb, int64_t kss, int64_t ksh,
                int64_t vsb, int64_t vss, int64_t vsh, int64_t wsb,
                int64_t wss, int64_t wsh, int64_t ysb, int64_t yss,
-               int64_t ysh, int in_bf16, int u_bf16, void* stream) {
-  if (d <= 0 || d > kMaxD || chunk <= 0 || chunk > kMaxC || seq < 0)
+               int64_t ysh, int in_type, int u_type, void* stream) {
+  if (d <= 0 || d > kMaxD || chunk <= 0 || chunk > kMaxC || seq < 0 ||
+      in_type < kF32 || in_type > kF16 || u_type < kF32 || u_type > kF16)
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || h <= 0) return (int)cudaGetLastError();
   if (b > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(in_bf16
-                   ? launch<__nv_bfloat16>(
-                         r, k, v, logw, u, u_bf16, s0, y, s_out, b, seq, h,
-                         d, chunk, rsb, rss, rsh, ksb, kss, ksh, vsb, vss,
-                         vsh, wsb, wss, wsh, ysb, yss, ysh, st)
-                   : launch<float>(r, k, v, logw, u, u_bf16, s0, y, s_out, b,
-                                   seq, h, d, chunk, rsb, rss, rsh, ksb, kss,
-                                   ksh, vsb, vss, vsh, wsb, wss, wsh, ysb,
-                                   yss, ysh, st));
+  auto go = [&](auto tag) {
+    using TI = decltype(tag);
+    return launch<TI>(r, k, v, logw, u, u_type, s0, y, s_out, b, seq, h, d,
+                      chunk, rsb, rss, rsh, ksb, kss, ksh, vsb, vss, vsh, wsb,
+                      wss, wsh, ysb, yss, ysh, st);
+  };
+  return (int)(in_type == kBF16  ? go(__nv_bfloat16{})
+               : in_type == kF16 ? go(__half{})
+                                 : go(0.f));
 }
 
 // What rwkv6_scan launches for these shapes (on the current device, with
-// 16-byte access; the bf16 form's with in_bf16): info[0] schedule (0
-// decode, 1 prefill), [1] column blocks a (batch, head), [2] blocks in the
-// grid, [3] threads per block, [4] registers per thread, [5] static and
+// 16-byte access; the 16-bit forms' with in_type 1 or 2): info[0] schedule
+// (0 decode, 1 prefill), [1] column blocks a (batch, head), [2] blocks in
+// the grid, [3] threads per block, [4] registers per thread, [5] static and
 // [6] dynamic shared memory per block (bytes), [7] blocks resident per SM.
-int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int in_bf16,
+int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int in_type,
                     int* info) {
   if (d <= 0 || d > kMaxD || chunk <= 0 || chunk > kMaxC || seq < 0 ||
-      b <= 0 || h <= 0)
+      b <= 0 || h <= 0 || in_type < kF32 || in_type > kF16)
     return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err;
@@ -991,10 +1003,13 @@ int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int in_bf16,
   if (seq <= kDecodeMax) {
     const bool vec = d % 4 == 0;
     const void* fn =
-        in_bf16 ? (vec ? (const void*)decode_kernel<__nv_bfloat16, 4>
-                       : (const void*)decode_kernel<__nv_bfloat16, 1>)
-                : (vec ? (const void*)decode_kernel<float, 4>
-                       : (const void*)decode_kernel<float, 1>);
+        in_type == kBF16
+            ? (vec ? (const void*)decode_kernel<__nv_bfloat16, 4>
+                   : (const void*)decode_kernel<__nv_bfloat16, 1>)
+        : in_type == kF16 ? (vec ? (const void*)decode_kernel<__half, 4>
+                                 : (const void*)decode_kernel<__half, 1>)
+                          : (vec ? (const void*)decode_kernel<float, 4>
+                                 : (const void*)decode_kernel<float, 1>);
     err = cudaFuncGetAttributes(&a, fn);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, 32, 0);
@@ -1011,9 +1026,9 @@ int rwkv6_scan_info(int b, int seq, int h, int d, int chunk, int in_bf16,
     const Geo geo = geometry(d, seq, chunk, n_col);
     const size_t smem = sizeof(float) * geo.floats;
     const int nt = geo.cw / 8;
-    err = configure(in_bf16 != 0, nt, smem);
+    err = configure(in_type, nt, smem);
     if (err != cudaSuccess) return (int)err;
-    const void* fn = prefill_fn(in_bf16 != 0, nt);
+    const void* fn = prefill_fn(in_type, nt);
     err = cudaFuncGetAttributes(&a, fn);
     if (err != cudaSuccess) return (int)err;
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,

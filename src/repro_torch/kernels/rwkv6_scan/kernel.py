@@ -16,9 +16,11 @@ for tensors on the CPU; a CUDA tensor gets the kernel or an error.
 launches by the inputs' dtype.
 
 Dtypes, as the TPU kernel takes them: r, k, v and logw share one dtype,
-fp32 or bf16 (a mix raises); u is fp32 or bf16; s0 and the final state are
-fp32; y is in r's dtype. The kernel loads bf16 inputs into fp32 and
-computes in fp32 as the fp32 form does, rounding y once on its store.
+fp32, bf16 or fp16 (a mix raises); u is fp32, bf16 or fp16, but not the
+other 16-bit type than r's; s0 and the final state are fp32; y is in r's
+dtype. The kernel loads 16-bit inputs into fp32 and computes in fp32 as
+the fp32 form does, rounding y once on its store (one template over bf16
+and fp16).
 
 The C entry picks its schedule and grid from shapes and the SM count
 alone; ``rwkv6_schedule`` and ``rwkv6_n_col`` are the same rules as plain
@@ -39,9 +41,12 @@ from repro_torch.kernels._build import (check_tensor, entry, kernel_info,
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_chunked_ref
 
 LAUNCHES: Dict[str, int] = {"rwkv6_scan": 0}
-LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0}
+LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
+                                     "float16": 0}
 PLAIN_CALLS: Dict[str, int] = {"rwkv6_scan": 0}
-DTYPES = (torch.float32, torch.bfloat16)   # r, k, v, logw (and u)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # r, k, v, logw, u
+# the C entry's type codes (csrc kF32, kBF16, kF16)
+TYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 64                   # the kernel's shared-memory tiles
 MAX_CHUNK = 64
 DECODE_MAX = 8                      # seq <= this: the decode schedule
@@ -74,13 +79,13 @@ def rwkv6_n_col(b: int, h: int, d: int, sms: int) -> int:
 
 
 def rwkv6_info(b: int, s: int, h: int, d: int, chunk: int = 64,
-               bf16: bool = False) -> Dict[str, int]:
+               dtype=torch.float32) -> Dict[str, int]:
     """What the kernel launches for these shapes on the current card (the
-    bf16 form's with ``bf16``): schedule (0 decode, 1 prefill), column
+    form of the inputs' ``dtype``): schedule (0 decode, 1 prefill), column
     blocks, grid, registers, shared memory and resident blocks per SM
     (needs the card)."""
     return kernel_info("rwkv6_scan", "rwkv6_scan_info",
-                       (b, s, h, d, chunk, int(bf16)), INFO_KEYS)
+                       (b, s, h, d, chunk, TYPE_CODE[dtype]), INFO_KEYS)
 
 
 def reset_counts() -> None:
@@ -90,16 +95,17 @@ def reset_counts() -> None:
 
 
 def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
-    """r,k,v,logw: (B,S,H,hd) of one dtype, fp32 or bf16, any strides
-    with hd contiguous; u: (H,hd) fp32 or bf16; s0: (B,H,hd,hd) fp32 or
+    """r,k,v,logw: (B,S,H,hd) of one dtype, fp32, bf16 or fp16, any
+    strides with hd contiguous; u: (H,hd) fp32 or a 16-bit dtype (not the
+    other one than r's); s0: (B,H,hd,hd) fp32 or
     None (zeros). Returns (y (B,S,H,hd) in r's dtype, s_final (B,H,hd,hd)
     fp32), both contiguous."""
     refuse_grad("rwkv6_scan", r, k, v, logw, u, s0)
     b, s, h, d = r.shape
     dev = r.device
     if r.dtype not in DTYPES:
-        raise TypeError(f"r: expected torch.float32 or torch.bfloat16, got "
-                        f"{r.dtype}")
+        raise TypeError(f"r: expected torch.float32, torch.bfloat16 or "
+                        f"torch.float16, got {r.dtype}")
     mixed = [f"{n} is {t.dtype}" for n, t in (("k", k), ("v", v),
                                               ("logw", logw))
              if t.dtype != r.dtype]
@@ -110,8 +116,9 @@ def rwkv6_scan_fwd(r, k, v, logw, u, *, chunk: int = 64, s0=None):
         check_tensor(name, t, r.dtype, (b, s, h, d), dev, contiguous=False)
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
-    if u.dtype not in DTYPES:
-        raise TypeError(f"u: expected torch.float32 or torch.bfloat16, got "
+    if u.dtype not in DTYPES or (r.dtype != torch.float32
+                                 and u.dtype not in (torch.float32, r.dtype)):
+        raise TypeError(f"u: expected torch.float32 or r's {r.dtype}, got "
                         f"{u.dtype}")
     check_tensor("u", u, u.dtype, (h, d), dev)
     if s0 is not None:
@@ -150,8 +157,7 @@ def _scan(r, k, v, logw, u, s0, chunk: int):
             y.data_ptr(), s_out.data_ptr(), b, s, h, d, chunk,
             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *logw.stride()[:3], *y.stride()[:3],
-            int(r.dtype == torch.bfloat16), int(u.dtype == torch.bfloat16),
-            stream)
+            TYPE_CODE[r.dtype], TYPE_CODE[u.dtype], stream)
     raise_on(err, "rwkv6_scan")
     LAUNCHES["rwkv6_scan"] += 1
     LAUNCHES_BY_DTYPE[str(r.dtype).split(".")[1]] += 1

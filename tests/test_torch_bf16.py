@@ -14,8 +14,9 @@ wrappers (their plain versions on the CPU):
 - the pool form with a bf16 q over an fp32 engine pool (zero-copy
   serving's mix) against ``paged_attention_pool_fwd``, and the striped
   read's kernel route on bf16 caches against its plain route;
-- the wrappers refuse fp16, fp64 and mixed dtypes other than the pool
-  form's.
+- the wrappers refuse fp64 and mixed dtypes other than the pool forms'
+  (fp16, a form of its own since the fp16 slice, is held in
+  ``tests/test_torch_fp16.py``).
 
 ``forward`` at bf16 with ``attn_impl="cuda"`` against the reference's
 ``attn_impl="pallas"`` (gemma2-2b, granite-3-8b, hymba-1.5b at smoke
@@ -187,28 +188,31 @@ def test_striped_kernel_route_on_bf16_caches(stripe_slice, window):
 
 
 def test_wrappers_refuse_other_dtypes():
-    """fp16 and fp64 raise, and so do mixed dtypes other than the pool
-    form's bf16 q over an fp32 pool: no input is cast to reach a form."""
+    """fp64 raises, and so do mixed dtypes other than the pool forms' 16-bit
+    q over an fp32 pool (bf16 with fp16 among them): no input is cast to
+    reach a form."""
     bf = torch.bfloat16
     q = torch.zeros((1, 2, 8, 16), dtype=bf)
-    for args in ((q.half(),) * 3, (q.double(),) * 3, (q, q.float(), q),
-                 (q, q, q.float()), (q.float(), q, q)):
+    for args in ((q.double(),) * 3, (q, q.float(), q), (q, q, q.float()),
+                 (q.float(), q, q), (q, q.half(), q), (q.half(), q, q)):
         with pytest.raises(TypeError):
             FK.flash_attention_fwd(*args)
     qd = torch.zeros((1, 2, 16), dtype=bf)
     pool = torch.zeros((3, 4, 2, 16), dtype=bf)
     table = torch.zeros((1, 2), dtype=torch.int32)
     ln = torch.ones(1, dtype=torch.int32)
-    for qq, pk_, pv_ in ((qd.half(), pool.half(), pool.half()),
+    for qq, pk_, pv_ in ((qd.double(), pool.double(), pool.double()),
                          (qd, pool.float(), pool.float()),
                          (qd, pool, pool.float()),
-                         (qd.float(), pool, pool)):
+                         (qd.float(), pool, pool),
+                         (qd, pool.half(), pool.half()),
+                         (qd.half(), pool, pool)):
         for fn in (PK.paged_attention_fwd, PK.paged_attention_lse_fwd):
             with pytest.raises(TypeError):
                 fn(qq, pk_, pv_, table, ln)
     for qq, pl in ((qd.float(), pool[:, :, None]),
                    (qd, pool[:, :, None].half()),
-                   (qd.half(), pool[:, :, None].float())):
+                   (qd.half(), pool[:, :, None])):
         with pytest.raises(TypeError):
             PK.paged_attention_pool_fwd(qq, pl, table, ln, k_plane=0,
                                         v_plane=0)

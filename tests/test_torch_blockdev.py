@@ -250,6 +250,25 @@ def test_convert_carries_mid_trace_state():
     _assert_same_replicas(jm, tm)
 
 
+@pytest.mark.parametrize("cow,jkernel,tkernel", [("pallas", "pallas", "cuda"),
+                                                 ("ref", "xla", "torch")])
+def test_legacy_cow_axis_matches_jax(cow, jkernel, tkernel):
+    """``cow=`` with ``kernel="auto"`` picks the entry the reference's
+    picks (pallas: the hand-written kernels, ``cuda``; ref: the plain
+    write, ``torch`` for the reference's ``xla``), and a seeded trace on
+    it reads back what the reference's does, replica for replica."""
+    jm = JManager(backend="fused", cow=cow, **GEOM)
+    tm = _mgr(cow=cow)
+    assert jm.engine.impl._kernel == jkernel
+    assert tm.engine.impl._kernel == tkernel
+    ops = _trace(3, 60, jm.capacity)
+    outs = ([], [])
+    for m, out in zip((jm, tm), outs):
+        _replay(m, ops, [m.create(), m.create()], out)
+    assert outs[0] == outs[1] and len(outs[1]) > 10
+    _assert_same_replicas(jm, tm)
+
+
 def test_default_device_is_cuda_without_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -264,8 +283,8 @@ def test_default_device_is_cuda_without_fallback():
     # reference refuses it
     (dict(backend="sharded", n_shards=2, tier=8), "needs comm='fused'",
      True),
-    # the legacy data-plane axis is not ported
-    (dict(cow="pallas"), "not ported", False),
+    # the legacy data-plane axis knows auto, pallas and ref alone
+    (dict(cow="bogus"), "unknown cow impl", True),
     # not a storage: the fused backend refuses it as the reference does
     (dict(storage="upstream"), "requires storage='dbs'", True),
 ])

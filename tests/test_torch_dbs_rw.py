@@ -25,6 +25,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import Engine as JEngine  # noqa: E402
+from repro.core import EngineConfig as JConfig  # noqa: E402
 from repro.core import dbs as jdbs  # noqa: E402
 from repro.kernels.dbs import dbs_rw_read_pool as j_read_pool  # noqa: E402
 from repro.kernels.dbs import dbs_rw_write_pool as j_write_pool  # noqa: E402
@@ -285,6 +287,27 @@ def test_registry_lists_resolves_and_rejects():
         register_kernel("broken", lambda *a: None)      # read= missing
     with pytest.raises(ValueError, match="duplicate"):
         register_kernel("torch", make_kernel("torch"))
+
+
+def test_resolve_kernel_name_legacy_cow():
+    """kernel= wins; kernel="auto" follows the legacy cow axis as the
+    reference's does (pallas -> cuda, ref -> torch: the reference's
+    pallas and xla), and an unknown cow raises in both packages."""
+    assert resolve_kernel_name(EngineConfig(kernel="ref")) == "ref"
+    assert resolve_kernel_name(EngineConfig(cow="pallas")) == "cuda"
+    assert resolve_kernel_name(EngineConfig(cow="ref")) == "torch"
+    assert resolve_kernel_name(EngineConfig(cow="ref",
+                                            kernel="copy")) == "copy"
+    assert resolve_kernel_name(EngineConfig()) == "cuda"
+    assert make_kernel("torch").write is not make_kernel("cuda").write
+    for cow in ("pallas", "ref"):
+        eng = Engine(EngineConfig(cow=cow, device="cpu", n_extents=16,
+                                  max_pages=8, payload_shape=(4,), batch=4))
+        assert eng.impl._kernel == resolve_kernel_name(eng.cfg)
+    with pytest.raises(ValueError, match="unknown cow impl"):
+        Engine(EngineConfig(cow="bogus", device="cpu"))
+    with pytest.raises(ValueError, match="unknown cow impl"):
+        JEngine(JConfig(cow="bogus"))
 
 
 def test_register_custom_kernel_roundtrip():

@@ -123,7 +123,14 @@ head dims padded to 16, rows that take no 16-byte copy; paged's split
 pools, pool form over an fp32 and a bf16 engine pool, one share and a
 page a share, the wide form, 2- and 4-byte copies, with holes and a lane
 of length 0; the stripe entry's fp32 log-sum-exp; and the refusal of
-fp16, fp64 and mixed dtypes on the card.
+fp64 and mixed dtypes on the card (bf16 with fp16 among them).
+
+The fp16 forms (the same templates over fp16): every bf16 flash, wgmma,
+paged (split, pool over fp32 and fp16 pools, lse, packed) and scan case
+again in fp16, within F16_TOL (rtol and atol 2e-3, the reference's own
+tolerance for a dtype other than bf16) of the plain version in the working
+type, each launch of the fp16 form; the DBS kernels on fp16 pools bit for
+bit.
 
 The DBS kernels' other dtypes: ``dbs_rw_write``, ``dbs_rw_read`` and
 ``dbs_copy`` on bf16, uint8 and int64 pools, bit for bit against their
@@ -1748,16 +1755,23 @@ BF16 = torch.bfloat16
 BF16_TOL = dict(atol=1e-4, rtol=2 ** -7)
 
 
-def _close_bf16(got, want):
-    """``got`` (a kernel's bf16 output) against the plain version's fp32
-    output rounded to bf16, in the working type (BF16_TOL)."""
-    assert got.dtype == BF16
-    torch.testing.assert_close(got.float(), want.to(BF16).float(),
-                               **BF16_TOL)
+F16 = torch.float16
+# an fp16 form against its plain version: the reference's own tolerance for
+# a dtype other than bf16 (tests/test_kernels.py _tol), which one fp16 step
+# (2^-10 of the value) fits
+F16_TOL = dict(atol=2e-3, rtol=2e-3)
+TAG16 = {BF16: "bf16", F16: "f16"}
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,sq,sk,h,kv,dk,dv,window,cap,layout", [
+def _close_bf16(got, want, dtype=BF16):
+    """``got`` (a kernel's 16-bit output) against the plain version's fp32
+    output rounded to ``dtype``, in the working type (BF16_TOL, F16_TOL)."""
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                               **(BF16_TOL if dtype == BF16 else F16_TOL))
+
+
+FLASH_16_FORMS = [
     (1, 550, 550, 8, 4, 256, 256, 0, 50.0, "model"),      # gemma2, global
     (1, 855, 855, 8, 4, 256, 256, 4096, 50.0, "model"),   # gemma2, local
     (1, 700, 700, 32, 32, 64, 64, 0, 0.0, "model"),       # G = 1, hd 64
@@ -1769,23 +1783,28 @@ def _close_bf16(got, want):
     (1, 1, 1, 4, 2, 64, 64, 0, 0.0, "contiguous"),       # Sq 1
     (1, 40, 1500, 8, 4, 256, 256, 0, 50.0, "contiguous"),    # Sk >> Sq
     (1, 200, 200, 4, 2, 64, 64, 5, 0.0, "contiguous"),   # window < a tile
-    (1, 130, 130, 4, 2, 64, 64, 0, 0.0, "pad")])         # 2-byte staging
+    (1, 130, 130, 4, 2, 64, 64, 0, 0.0, "pad")]          # 2-byte staging
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,dk,dv,window,cap,layout",
+                         FLASH_16_FORMS)
 def test_flash_attention_bf16_form(b, sq, sk, h, kv, dk, dv, window, cap,
-                                   layout):
+                                   layout, dtype=BF16):
     """The bf16 form against its plain version in the working type: the
     serving prefill's shapes (gemma2-2b global and local in the model
     layout, read through strides; G = 1 at hd 64), the wide instantiation
     at MLA's widths (K 576, V 512, scale 1/sqrt(192)), head dims padded to
     16, a single query, many key tiles, a window inside one key tile, and
     rows that take no 16-byte copy; one launch of the bf16 form a call,
-    the output bf16."""
+    the output bf16 (of ``dtype``'s form and dtype: the fp16 test below)."""
     dev = _cuda()
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(sq * 7 + dk + h)
     scale = 1.0 / np.sqrt(192.0) if dk >= 512 else None
-    q = torch.randn((b, h, sq, dk), generator=gen, device=dev).to(BF16)
-    k = torch.randn((b, kv, sk, dk), generator=gen, device=dev).to(BF16)
-    v = torch.randn((b, kv, sk, dv), generator=gen, device=dev).to(BF16)
+    q = torch.randn((b, h, sq, dk), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, kv, sk, dk), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, kv, sk, dv), generator=gen, device=dev).to(dtype)
     if layout == "model":      # (B, S, N, hd) tensors, read as views
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in (q, k, v))
@@ -1797,23 +1816,38 @@ def test_flash_attention_bf16_form(b, sq, sk, h, kv, dk, dv, window, cap,
     fk.reset_counts()
     got = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES_BY_DTYPE == {"float32": 0, "bfloat16": 1}
+    key = str(dtype).split(".")[1]
+    assert fk.LAUNCHES_BY_DTYPE == {"float32": 0, "bfloat16": 0,
+                                    "float16": 0, key: 1}
     assert got.shape == (b, h, sq, dv) and torch.isfinite(got.float()).all()
-    _close_bf16(got, attention_ref(q, k, v, **kw))
-
-
-def _bf16_paged_case(dev, b, h, kv, dk, dv, page, p_max, seed, n_planes=0,
-                     pool_dtype=BF16):
-    """``_mla_paged_case``'s pools and table with q in bf16 and the pools in
-    ``pool_dtype`` (values representable in bf16 either way)."""
-    q, pools, table, lengths = _mla_paged_case(dev, b, h, kv, dk, dv, page,
-                                               p_max, seed, n_planes)
-    return (q.to(BF16), tuple(p.to(BF16).to(pool_dtype) for p in pools),
-            table, lengths)
+    _close_bf16(got, attention_ref(q, k, v, **kw), dtype)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("entry,b,h,kv,dk,dv,page,p_max,pool_dtype", [
+@pytest.mark.parametrize("b,sq,sk,h,kv,dk,dv,window,cap,layout",
+                         FLASH_16_FORMS)
+def test_flash_attention_f16_form(b, sq, sk, h, kv, dk, dv, window, cap,
+                                  layout):
+    """The fp16 forms (the same templates over fp16: the wgmma and the
+    mma.sync kernels, narrow and wide) at the bf16 form's shapes, within
+    F16_TOL of the plain version; one launch of an fp16 form a call."""
+    test_flash_attention_bf16_form(b, sq, sk, h, kv, dk, dv, window, cap,
+                                   layout, dtype=F16)
+
+
+def _bf16_paged_case(dev, b, h, kv, dk, dv, page, p_max, seed, n_planes=0,
+                     pool_dtype=BF16, dtype=BF16):
+    """``_mla_paged_case``'s pools and table with q in ``dtype`` (bf16 or
+    fp16) and the pools in ``pool_dtype`` (``dtype`` or fp32; values
+    representable in ``dtype`` either way)."""
+    q, pools, table, lengths = _mla_paged_case(dev, b, h, kv, dk, dv, page,
+                                               p_max, seed, n_planes)
+    pool_dtype = dtype if pool_dtype == BF16 else pool_dtype
+    return (q.to(dtype), tuple(p.to(dtype).to(pool_dtype) for p in pools),
+            table, lengths)
+
+
+PAGED_16_FORMS = [
     ("split", 8, 8, 4, 256, 256, 32, 64, BF16),      # gemma2's width
     ("pool", 8, 8, 4, 256, 256, 32, 64, torch.float32),   # serving's mix
     ("pool", 8, 8, 4, 256, 256, 32, 64, BF16),
@@ -1826,22 +1860,30 @@ def _bf16_paged_case(dev, b, h, kv, dk, dv, page, p_max, seed, n_planes=0,
     ("pool", 8, 128, 1, 576, 576, 32, 32, BF16),
     ("split", 3, 12, 1, 6, 6, 4, 9, BF16),           # 2-byte copies
     ("split", 3, 4, 2, 8, 12, 4, 9, BF16),
-    ("pool", 3, 12, 4, 6, 6, 4, 9, torch.float32)])  # 4-byte copies
+    ("pool", 3, 12, 4, 6, 6, 4, 9, torch.float32)]   # 4-byte copies
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,b,h,kv,dk,dv,page,p_max,pool_dtype",
+                         PAGED_16_FORMS)
 @pytest.mark.parametrize("window,cap", [(0, 50.0), (100, 0.0)])
 def test_paged_attention_bf16_forms(entry, b, h, kv, dk, dv, page, p_max,
-                                    pool_dtype, window, cap):
+                                    pool_dtype, window, cap, dtype=BF16):
     """The bf16 forms against their plain version in the working type: q
     bf16 over bf16 split pools, over the fp32 engine pool (zero-copy
     serving's mix) and over a bf16 engine pool; at gemma2-2b's serving
     width, with one share (no merge) and with a page a share, G = 1 at hd
     64, the wide instantiation at MLA's widths (scale 1/sqrt(192)), and
     head dims that take no 16-byte copy; holes past each length and one
-    below, a lane of length 0 (zeros). One launch of the form a call."""
+    below, a lane of length 0 (zeros). One launch of the form a call (of
+    ``dtype``'s forms: the fp16 test below, where BF16 in the list stands
+    for q's dtype)."""
     dev = _cuda()
     from repro_torch.kernels.paged_attention import kernel as pk
     q, pools, table, lengths = _bf16_paged_case(
         dev, b, h, kv, dk, dv, page, p_max, dk + h + p_max,
-        n_planes=8 if entry == "pool" else 0, pool_dtype=pool_dtype)
+        n_planes=8 if entry == "pool" else 0, pool_dtype=pool_dtype,
+        dtype=dtype)
     kw = dict(window=window, logit_cap=cap,
               scale=1.0 / np.sqrt(192.0) if dk == 576 else None)
     pk.reset_counts()
@@ -1854,16 +1896,29 @@ def test_paged_attention_bf16_forms(entry, b, h, kv, dk, dv, page, p_max,
         want = paged_attention_pool_ref(q, pools[0], table, lengths,
                                         k_plane=6, v_plane=7, **kw)
     torch.cuda.synchronize()
-    form = "bfloat16" if pool_dtype == BF16 else "bfloat16_q"
+    form = str(dtype).split(".")[1] + ("" if pool_dtype == BF16 else "_q")
     assert pk.LAUNCHES_BY_DTYPE[form] == 1 == pk.LAUNCHES["paged_attention"]
     assert got.shape == (b, h, dv) and not got[0].any()
-    _close_bf16(got, want)
+    _close_bf16(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,b,h,kv,dk,dv,page,p_max,pool_dtype",
+                         PAGED_16_FORMS)
+@pytest.mark.parametrize("window,cap", [(0, 50.0), (100, 0.0)])
+def test_paged_attention_f16_forms(entry, b, h, kv, dk, dv, page, p_max,
+                                   pool_dtype, window, cap):
+    """The fp16 forms at the bf16 forms' shapes: fp16 q over fp16 split
+    pools (``float16``), over the fp32 engine pool (``float16_q``) and
+    over an fp16 engine pool, within F16_TOL; one launch a call."""
+    test_paged_attention_bf16_forms(entry, b, h, kv, dk, dv, page, p_max,
+                                    pool_dtype, window, cap, dtype=F16)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("p_max,window,cap", [(8, 0, 50.0), (64, 70, 0.0),
                                               (1, 0, 50.0)])
-def test_paged_lse_entry_bf16(p_max, window, cap):
+def test_paged_lse_entry_bf16(p_max, window, cap, dtype=BF16):
     """The stripe entry on bf16 q and pools: the output bf16 against the
     plain version in the working type, the log-sum-exp fp32 within 1e-5
     (both from the same bf16 values in fp32); a row with no live position
@@ -1873,8 +1928,8 @@ def test_paged_lse_entry_bf16(p_max, window, cap):
     b, h, kv, d, page = 5, 8, 4, 256, 32
     gen = torch.Generator(device=dev).manual_seed(p_max + window + 1)
     pools = [torch.randn((b * p_max + 1, page, kv, d), generator=gen,
-                         device=dev).to(BF16) for _ in range(2)]
-    q = torch.randn((b, h, d), generator=gen, device=dev).to(BF16)
+                         device=dev).to(dtype) for _ in range(2)]
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
     table = torch.arange(b * p_max, dtype=torch.int32,
                          device=dev).reshape(b, p_max)
     table[:, 1::3] = -1
@@ -1887,37 +1942,49 @@ def test_paged_lse_entry_bf16(p_max, window, cap):
     want_out, want_lse = paged_attention_ref(q, *pools, table, lengths,
                                              return_lse=True, **kw)
     assert lse.dtype == torch.float32
-    _close_bf16(out, want_out)
+    _close_bf16(out, want_out, dtype)
     torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
     assert bool((lse[4] == pk.NEG_INF).all()) and not bool(out[4].any())
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("p_max,window,cap", [(8, 0, 50.0), (64, 70, 0.0),
+                                              (1, 0, 50.0)])
+def test_paged_lse_entry_f16(p_max, window, cap):
+    """The stripe entry on fp16 q and pools: the output fp16 within
+    F16_TOL, the log-sum-exp fp32 within 1e-5."""
+    test_paged_lse_entry_bf16(p_max, window, cap, dtype=F16)
+
+
+@pytest.mark.gpu
 def test_bf16_forms_refuse_other_dtypes():
-    """On the card as on the CPU: fp16 and fp64 inputs, and q and pools (or
-    k, v) of mixed dtypes other than the pool form's bf16 q over an fp32
-    pool, raise before any launch; nothing is cast to reach a form."""
+    """On the card as on the CPU: fp64 inputs, and q and pools (or k, v)
+    of mixed dtypes other than the pool forms' 16-bit q over an fp32 pool
+    (bf16 with fp16 among them), raise before any launch; nothing is cast
+    to reach a form."""
     dev = _cuda()
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.paged_attention import kernel as pk
     fk.reset_counts()
     pk.reset_counts()
     q = torch.zeros((1, 2, 8, 64), device=dev, dtype=BF16)
-    for bad in ((q.half(), q.half(), q.half()), (q.double(),) * 3,
-                (q, q.float(), q), (q.float(), q, q.float())):
+    for bad in ((q.double(),) * 3, (q, q.float(), q),
+                (q.float(), q, q.float()), (q.half(), q, q),
+                (q.half(), q.half(), q.half().float())):
         with pytest.raises(TypeError):
             flash_attention_fwd(*bad)
     qd = torch.zeros((1, 2, 64), device=dev, dtype=BF16)
     pool = torch.zeros((3, 4, 2, 64), device=dev, dtype=BF16)
     table = torch.zeros((1, 2), dtype=torch.int32, device=dev)
     ln = torch.ones(1, dtype=torch.int32, device=dev)
-    for bad in ((qd.half(), pool.half()), (qd, pool.float()),
-                (qd.float(), pool)):
+    for bad in ((qd.double(), pool.double()), (qd, pool.float()),
+                (qd.float(), pool), (qd.half(), pool), (qd, pool.half())):
         with pytest.raises(TypeError):
             paged_attention_fwd(bad[0], bad[1], bad[1], table, ln)
-    with pytest.raises(TypeError):
-        paged_attention_pool_fwd(qd.float(), pool[:, :, None], table, ln,
-                                 k_plane=0, v_plane=0)
+    for bad in ((qd.float(), pool), (qd.half(), pool), (qd, pool.half())):
+        with pytest.raises(TypeError):
+            paged_attention_pool_fwd(bad[0], bad[1][:, :, None], table, ln,
+                                     k_plane=0, v_plane=0)
     assert fk.LAUNCHES["flash_attention"] == 0
     assert pk.LAUNCHES["paged_attention"] == 0
 
@@ -1925,8 +1992,7 @@ def test_bf16_forms_refuse_other_dtypes():
 # ---------------------------------------------------------------------------
 # flash's wgmma form and paged attention's packed form
 # ---------------------------------------------------------------------------
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,cap,layout", [
+WGMMA_FORMS = [
     (1, 854, 854, 8, 4, 256, 4096, 50.0, "model"),   # gemma2, local
     (1, 550, 550, 8, 4, 256, 0, 50.0, "model"),      # gemma2, global
     (1, 300, 300, 4, 2, 128, 100, 0.0, "model"),     # window > a tile
@@ -1937,9 +2003,13 @@ def test_bf16_forms_refuse_other_dtypes():
     (1, 1, 1, 4, 2, 64, 0, 0.0, "contiguous"),       # Sq 1
     (4, 854, 854, 8, 4, 256, 0, 50.0, "model"),      # past the card's SMs
     (3, 400, 400, 25, 5, 64, 1024, 0.0, "model"),    # odd groups
-    (2, 500, 500, 16, 16, 128, 0, 0.0, "contiguous")])
+    (2, 500, 500, 16, 16, 128, 0, 0.0, "contiguous")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,cap,layout", WGMMA_FORMS)
 def test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
-                                    layout):
+                                    layout, dtype=BF16):
     """The wgmma form (TMA loads, warp-specialised, P.V on wgmma with V
     transposed) against its plain version in the working type at d 64, 128
     and 256: gemma2-2b's prefill in the model layout, a window crossing
@@ -1949,9 +2019,9 @@ def test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
     dev = _cuda()
     from repro_torch.kernels.flash_attention import kernel as fk
     gen = torch.Generator(device=dev).manual_seed(sq + sk + d + h)
-    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(BF16)
-    k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(BF16)
-    v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(BF16)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev).to(dtype)
     if layout == "model":
         q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in (q, k, v))
@@ -1960,9 +2030,21 @@ def test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
     got = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fk.LAUNCHES_BY_FORM == {"float32": 0, "bf16_mma": 0,
-                                   "bf16_wgmma": 1}
+                                   "bf16_wgmma": 0, "f16_mma": 0,
+                                   "f16_wgmma": 0,
+                                   f"{TAG16[dtype]}_wgmma": 1}
     assert got.shape == (b, h, sq, d) and torch.isfinite(got.float()).all()
-    _close_bf16(got, attention_ref(q, k, v, **kw))
+    _close_bf16(got, attention_ref(q, k, v, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,cap,layout", WGMMA_FORMS)
+def test_flash_attention_wgmma_f16_form(b, sq, sk, h, kv, d, window, cap,
+                                        layout):
+    """The wgmma form's fp16 library (wgmma .f16, TMA FLOAT16 maps) at the
+    bf16 form's shapes, within F16_TOL; one launch of ``f16_wgmma``."""
+    test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
+                                    layout, dtype=F16)
 
 
 @pytest.mark.gpu
@@ -1996,7 +2078,10 @@ def test_flash_attention_wgmma_form_takes_only_its_shapes():
     ("split", 576, 512, torch.float32, torch.float32),  # the baseline's
     ("split", 576, 512, BF16, BF16),                    # bf16 split pools
     ("pool", 576, 576, BF16, torch.float32),            # bf16 q, fp32 pool
-    ("pool", 576, 576, BF16, BF16)])
+    ("pool", 576, 576, BF16, BF16),
+    ("split", 576, 512, F16, F16),                      # the fp16 forms
+    ("pool", 576, 576, F16, torch.float32),
+    ("pool", 576, 576, F16, F16)])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (100, 50.0)])
 def test_paged_attention_packed_form(g, entry, dk, dv, q_dtype, pool_dtype,
                                      window, cap):
@@ -2014,9 +2099,9 @@ def test_paged_attention_packed_form(g, entry, dk, dv, q_dtype, pool_dtype,
     q, pools, table, lengths = _mla_paged_case(
         dev, 6, g * kv, kv, dk, dv, 32, 24, g + dk + window,
         n_planes=8 if entry == "pool" else 0)
-    q = q.to(BF16).to(q_dtype)
-    pools = tuple(p.to(BF16).to(pool_dtype) if q_dtype == BF16 else p
-                  for p in pools)
+    q = q.to(F16 if q_dtype == F16 else BF16).to(q_dtype)
+    pools = tuple(p.to(q_dtype).to(pool_dtype) if q_dtype != torch.float32
+                  else p for p in pools)
     kw = dict(window=window, logit_cap=cap, scale=1.0 / np.sqrt(192.0))
     pk.reset_counts()
     if entry == "split":
@@ -2030,8 +2115,8 @@ def test_paged_attention_packed_form(g, entry, dk, dv, q_dtype, pool_dtype,
     torch.cuda.synchronize()
     assert pk.LAUNCHES_BY_INSTANCE == {"lanes": 0, "packed": 1}
     assert got.shape == (6, g * kv, dv) and not got[0].any()
-    if q_dtype == BF16:
-        _close_bf16(got, want)
+    if q_dtype != torch.float32:
+        _close_bf16(got, want, q_dtype)
     else:
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, **TOL)
@@ -2168,7 +2253,9 @@ def _pool_of(dev, gen, shape, dtype, offset=False):
 
 
 # dtype, extents, page, D, lanes, offset base, the write/read word (bytes)
-DBS_FORMS = [(torch.bfloat16, 33, 8, 16, 12, False, 16),
+DBS_FORMS = [(torch.float16, 33, 8, 16, 12, False, 16),     # fp16 pools
+             (torch.float16, 16, 32, 26624, 8, True, 2),
+             (torch.bfloat16, 33, 8, 16, 12, False, 16),
              (torch.bfloat16, 16, 4, 6, 8, False, 4),     # 12-byte blocks
              (torch.bfloat16, 16, 4, 7, 8, False, 2),
              (torch.bfloat16, 2048, 32, 4096, 64, False, 16),
@@ -2243,16 +2330,19 @@ def test_dbs_copy_kernel_other_dtypes(dtype, n_e, page, d, b, offset, _word):
 
 
 Y_BF16_TOL = dict(atol=1e-4, rtol=1e-4 + 2 ** -7)     # TOL + one bf16 step
+# fp16's y: F16_TOL (the reference's tolerance for a non-bf16 dtype)
+RWKV_16_SHAPES = [
+    (2, 128, 3, 64, 32), (2, 97, 3, 32, 64), (3, 61, 2, 16, 16),
+    (1, 513, 40, 64, 64), (8, 1, 40, 64, 64), (3, 5, 5, 40, 64),
+    (2, 9, 3, 6, 8)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,d,chunk", [
-    (2, 128, 3, 64, 32), (2, 97, 3, 32, 64), (3, 61, 2, 16, 16),
-    (1, 513, 40, 64, 64), (8, 1, 40, 64, 64), (3, 5, 5, 40, 64),
-    (2, 9, 3, 6, 8)])
+@pytest.mark.parametrize("b,s,h,d,chunk", RWKV_16_SHAPES)
 @pytest.mark.parametrize("with_state", [False, True])
 @pytest.mark.parametrize("u_dtype", [torch.float32, torch.bfloat16])
-def test_rwkv6_scan_bf16_form(b, s, h, d, chunk, with_state, u_dtype):
+def test_rwkv6_scan_bf16_form(b, s, h, d, chunk, with_state, u_dtype,
+                              dtype=BF16):
     """bf16 r, k, v and logw (views of one buffer: the model layout) in
     both schedules, rwkv6-3b's prefill and decode among them, hd 40 and 6
     (the 2-byte loads): y bf16 within Y_BF16_TOL of the plain chunked
@@ -2262,25 +2352,40 @@ def test_rwkv6_scan_bf16_form(b, s, h, d, chunk, with_state, u_dtype):
     dev = _cuda()
     r, k, v, logw, u, s0 = _rwkv_case(dev, b, s, h, d, s * 13 + d,
                                       with_state)
-    buf = torch.stack((r, k, v, logw), 2).to(torch.bfloat16)
+    buf = torch.stack((r, k, v, logw), 2).to(dtype)
     r, k, v, logw = buf.unbind(2)
     u = u.to(u_dtype)
     sk.reset_counts()
     y, st = rwkv6_scan_fwd(r, k, v, logw, u, chunk=chunk,
                            s0=s0 if with_state else None)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES_BY_DTYPE == {"float32": 0, "bfloat16": 1}
-    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    key = str(dtype).split(".")[1]
+    assert sk.LAUNCHES_BY_DTYPE == {"float32": 0, "bfloat16": 0,
+                                    "float16": 0, key: 1}
+    assert y.dtype == dtype and st.dtype == torch.float32
     want_y, want_s = rwkv6_chunked_ref(r, k, v, logw, u, s0, chunk=chunk)
-    assert want_y.dtype == torch.bfloat16
-    torch.testing.assert_close(y.float(), want_y.float(), **Y_BF16_TOL)
+    assert want_y.dtype == dtype
+    torch.testing.assert_close(y.float(), want_y.float(),
+                               **(Y_BF16_TOL if dtype == BF16 else F16_TOL))
     torch.testing.assert_close(st, want_s, **TOL)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d,chunk", RWKV_16_SHAPES)
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("u_dtype", [torch.float32, torch.float16])
+def test_rwkv6_scan_f16_form(b, s, h, d, chunk, with_state, u_dtype):
+    """The scan's fp16 form (the same template over fp16) at the bf16
+    form's shapes, u fp32 or fp16: y fp16 within F16_TOL, the state fp32
+    within TOL; one launch of the fp16 form."""
+    test_rwkv6_scan_bf16_form(b, s, h, d, chunk, with_state, u_dtype,
+                              dtype=F16)
+
+
+@pytest.mark.gpu
 def test_rwkv6_scan_refuses_mixed_dtypes_on_the_card():
-    """A mix of fp32 and bf16 among r, k, v and logw, fp16 and fp64 raise
-    on the card as on the CPU."""
+    """A mix of fp32, bf16 and fp16 among r, k, v and logw, fp64, and a u
+    of the other 16-bit dtype raise on the card as on the CPU."""
     dev = _cuda()
     r, k, v, logw, u, _ = _rwkv_case(dev, 1, 8, 2, 16, 0, False)
     bf = [t.to(torch.bfloat16) for t in (r, k, v, logw)]
@@ -2289,6 +2394,12 @@ def test_rwkv6_scan_refuses_mixed_dtypes_on_the_card():
         mixed[i] = mixed[i].float()
         with pytest.raises(TypeError, match="one dtype"):
             rwkv6_scan_fwd(*mixed, u)
-    for bad in (torch.float16, torch.float64):
-        with pytest.raises(TypeError):
-            rwkv6_scan_fwd(*(t.to(bad) for t in (r, k, v, logw)), u)
+        mixed[i] = mixed[i].half()
+        with pytest.raises(TypeError, match="one dtype"):
+            rwkv6_scan_fwd(*mixed, u)
+    with pytest.raises(TypeError):
+        rwkv6_scan_fwd(*(t.double() for t in (r, k, v, logw)), u)
+    with pytest.raises(TypeError, match="u"):
+        rwkv6_scan_fwd(*bf, u.half())
+    with pytest.raises(TypeError, match="u"):
+        rwkv6_scan_fwd(*(t.half() for t in bf), u.bfloat16())

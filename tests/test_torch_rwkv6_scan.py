@@ -136,9 +136,10 @@ def test_scan_ragged_and_prime_lengths(s, chunk):
 
 @pytest.mark.parametrize("mix", ["k", "v", "logw", "r"])
 def test_wrapper_refuses_mixed_dtypes(mix):
-    """r, k, v and logw share one dtype, fp32 or bf16, and u is fp32 or
-    bf16: a mix, fp16 or fp64 raises before any dispatch (no input is
-    cast to reach a form); bf16 inputs with an fp32 or a bf16 u pass."""
+    """r, k, v and logw share one dtype, fp32, bf16 or fp16, and u is fp32
+    or of r's 16-bit dtype: a mix (fp16 among bf16 inputs, or an fp16 u
+    over them) or fp64 raises before any dispatch (no input is cast to
+    reach a form); bf16 inputs with an fp32 or a bf16 u pass."""
     bf = [t.bfloat16() for t in _t(*_inputs(1, 8, 2, 16, seed=0)[:5])]
     args = dict(zip(("r", "k", "v", "logw", "u"), bf))
     odd = dict(args, **{mix: args[mix].float()})
