@@ -13,9 +13,10 @@ and the script exits non-zero:
 
 1. env — torch/CUDA versions, the card's name and power limit.
 2. build — compile every CUDA source of the port (csrc/*.cu: dbs_rw,
-   dbs_copy, paged_attention, paged_attention_bf16, flash_attention,
-   rwkv6_scan) with one nvcc each, all started together; seconds per
-   library. Then launch_floor —
+   dbs_copy, paged_attention and its bf16 and fp16 libraries,
+   flash_attention, flash_attention_wgmma and its fp16 and fp32
+   libraries, rwkv6_scan) with one nvcc each, all started together;
+   seconds per library. Then launch_floor —
    the time per call of a one-element ``zero_()`` in the CUDA-graph
    harness of phase 3: the least any launched node costs there (printed
    beside ``dbs_rw_read`` and ``dbs_copy`` as ``launch_floor_ms``).
@@ -240,8 +241,11 @@ and the script exits non-zero:
    ``ServeEngine(kv_backend="fused", kv_replicas=2, n_slots=8,
    max_len=2048, n_queues=2, kernel="cuda")`` with
    ``ExecutionPlan(attn_impl="cuda", compute_dtype="float32")``, so prefill
-   runs the flash-attention kernel and decode the paged-attention kernel
-   over the block device's own extent pool (one 104 KiB block per token).
+   runs the flash-attention kernel (every launch of its fp32 wgmma form,
+   ``f32_wgmma``: 3xTF32 on wgmma fed by TMA, checked from
+   ``LAUNCHES_BY_FORM``, and phase 10's kept calls report that form) and
+   decode the paged-attention kernel over the block device's own extent
+   pool (one 104 KiB block per token).
    16 requests with seeded prompt lengths in 100-1000 and 32 new tokens
    each (more requests than slots). Checked: every request ends with 32
    tokens, the replicas are consistent after a flush (the same metadata
@@ -367,8 +371,9 @@ and the script exits non-zero:
    length the reference's Mamba prefill rejects). Checked: every request
    ends with 32 tokens; the replicas agree after a flush and nothing
    leaks; ``dbs_rw_write``, ``dbs_rw_read``, ``flash_attention`` (32 a
-   prompt) and ``paged_attention`` (3 a decode step) launched and no
-   plain version ran; the last request, in a recycled slot, equals a
+   prompt, every launch ``f32_wgmma`` as in phase 9) and
+   ``paged_attention`` (3 a decode step) launched and no plain version
+   ran; the last request, in a recycled slot, equals a
    fresh engine's (the TIE_MARGIN rule); the fork check of phase 9; one
    decode step under sync-debug "error"; the copy-based baseline
    (``kv_backend="host"``) on the same prompts gives the same tokens
@@ -407,7 +412,8 @@ and the script exits non-zero:
    (1, 576): 18 KiB a token), so decode runs the paged kernel's packed
    instantiation at G = 128 (every launch checked; 32-row tiles on the
    tensor cores, 3xTF32) and prefill the flash kernel's wide one at K
-   576 / V 512; the MoE form each call took (every expert
+   576 / V 512 (every launch the mma.sync ``float32`` form); the MoE form
+   each call took (every expert
    at every decode step, grouped past 146 prompt tokens) with its device
    ms. The baseline's split-pool calls are K 576, V 512 wide
    (``mla_split_*`` keys), the engine's pool entry's 576 and 576
@@ -422,7 +428,13 @@ and the script exits non-zero:
    9.8 GB) with max_len cut to 1024 (AUDIO_MAX_LEN; 768 KiB of K/V a
    token, 13 GB an engine replica) and prompts of shape (S, 4) drawn in
    [100, 960]: the checks of phase 21 (``audio_*`` keys), the paged
-   kernel at G = 1 and the DBS kernels at 768 KiB blocks.
+   kernel at G = 1 and the DBS kernels at 768 KiB blocks, every flash
+   launch ``f32_wgmma``. Then, since no fp32 path launches flash's narrow
+   mma.sync form any more, one kept call holds it against its plain
+   version at musicgen-large's prefill shape (32 heads, d 64,
+   NARROW_MMA_PROMPT tokens) on rows of 65 fp32 values (off 16 bytes: the
+   ``float32`` form), timed beside its bound and SDPA as in phase 10
+   (``f32_narrow_mma_width_*`` keys).
 24. train_parity — gemma2-2b at full width (d_model 2304, vocab 256000)
    cut to two layers (one local, one global; 0.75 B params), a batch of
    2 x 256 tokens, the launch plan (remat a layer, fp32, chunked
@@ -650,6 +662,8 @@ PAGED_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_WGMMA_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_wgmma.cu")
+FLASH_WGMMA_F32_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention_wgmma_f32.cu")
 COPY_SRC = "src/repro_torch/kernels/dbs/csrc/dbs_copy.cu"
 RWKV_SRC = "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu"
 RWKV_MODEL, RWKV_CHUNK = "rwkv6-3b", 64
@@ -3869,6 +3883,17 @@ def _serve_traffic(torch, eng, prompts, keep_flash, keep_layers=None):
             "kept_write": kept["write"]}
 
 
+def _flash_form_is(model, res, want):
+    """Every flash launch of a serve run (``_serve_traffic``'s result) of
+    the form ``want``, as its kept calls' parity entry reports too."""
+    n = res["launches"]["flash_attention"]
+    by_form = res["launches_by_form"]["flash_attention"]
+    form = res["parity"]["flash_attention"]["form"]
+    if by_form[want] != n or form != want:
+        raise AssertionError(f"{model}: flash launches {by_form} of {n}, "
+                             f"kept calls of {form}: not {want} alone")
+
+
 def _serve_fields(lens, res):
     """The serve_path line's fields every zero-copy serving phase prints."""
     gen = len(lens) * SERVE_NEW
@@ -3927,6 +3952,7 @@ def phase_serve(torch, dev, smi):
     eng = _serve_engine(torch, cfg, params, dev)
     lens, prompts = _serve_prompts(np, cfg)
     res = _serve_traffic(torch, eng, prompts, _keep_local_global)
+    _flash_form_is(SERVE_MODEL, res, "f32_wgmma")
     # fork check: a session forked after its 4th decode step against a
     # second engine decoding the same two streams independently
     for mod in (rw_kernel, pk, fk):
@@ -4107,7 +4133,7 @@ def phase_flash_kernel(torch, kept):
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_fwd)
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_form, flash_info, flash_work)
+        flash_form, flash_info, flash_parts, flash_work)
     from repro_torch.kernels.timing import graph_ms
     calls = kept["flash"]
     if len(calls) < 2:
@@ -4146,8 +4172,12 @@ def phase_flash_kernel(torch, kept):
                       [x for t in (q0, k0, v0) for x in t.stride()[:3]],
                       [t.data_ptr() for t in (q0, k0, v0)])
     info = flash_info(q0.shape[-1], v0.shape[-1], dtype, form)
+    # the fp32 wgmma form shares a tile's keys over flash_parts blocks
     grid = [c[0].shape[0] * c[0].shape[1]
-            * -(-c[0].shape[2] // info["rows_per_block"]) for c in calls]
+            * -(-c[0].shape[2] // info["rows_per_block"])
+            * (flash_parts(*c[0].shape[:3], torch.cuda.get_device_properties(
+                0).multi_processor_count) if form == "f32_wgmma" else 1)
+            for c in calls]
     emit(phase="kernel_parity", kernel="flash_attention", calls=n,
          q_shapes=[list(c[0].shape) for c in calls],
          v_shapes=[list(c[2].shape) for c in calls],
@@ -4156,7 +4186,8 @@ def phase_flash_kernel(torch, kept):
          dtype=str(dtype), form=form)
     fp32 = dtype == torch.float32
     return {"name": "flash_attention", "route": "cuda",
-            "source": (FLASH_WGMMA_SRC if form.endswith("_wgmma")
+            "source": (FLASH_WGMMA_F32_SRC if form == "f32_wgmma"
+                       else FLASH_WGMMA_SRC if form.endswith("_wgmma")
                        else FLASH_SRC),
             "form": form,
             "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
@@ -5412,6 +5443,10 @@ def phase_serve_family(torch, dev, smi, model, seed, n_layers=None,
     if by_instance[paged_instance] != res["launches"]["paged_attention"]:
         raise AssertionError(f"{model}: paged launches {by_instance}, not "
                              f"the {paged_instance} instantiation alone")
+    # fp32 prefill: the wgmma form at d = dv 64, 128, 256; MLA's 576 / 512
+    # the mma.sync one
+    _flash_form_is(model, res, "float32" if cfg.mla is not None
+                   else "f32_wgmma")
     del q0, pool0
     moe_forms = (_moe_summary(torch, moe_calls, eng.n_slots)
                  if cfg.moe is not None else None)
@@ -5509,6 +5544,7 @@ def phase_serve_family(torch, dev, smi, model, seed, n_layers=None,
     del params
     return {"launches": res["launches"], "split": split_k,
             "paged_by_instance": by_instance,
+            "flash_by_form": res["launches_by_form"]["flash_attention"],
             "mtp_flash_launches": mtp_launches, **res["parity"]}
 
 
@@ -6827,6 +6863,34 @@ def _wide_forms16(torch, dev, dtype=None):
     return wide
 
 
+def _flash_narrow_f32(torch, dev):
+    """Flash's fp32 mma.sync form, which no fp32 path launches since the
+    wgmma form took d = dv 64, 128 and 256: one call at musicgen-large's
+    prefill shape (32 heads, d 64, NARROW_MMA_PROMPT tokens) on rows of 65
+    values (off 16 bytes) against its plain version within ATTN_TOL, timed
+    beside its bound (3xTF32's rate) and SDPA on contiguous copies."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.kernel import flash_work
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    s, h, d = NARROW_MMA_PROMPT, 32, 64
+    q, k, v = (torch.randn((1, s, h, d + 1), generator=gen,
+                           device=dev)[..., :d].transpose(1, 2)
+               for _ in range(3))
+    fk.reset_counts()
+    got = _form_parity(
+        torch, "flash_attention", "narrow mma.sync (d 64, rows of 65), fp32",
+        [((q, k, v), dict(window=0, logit_cap=0.0, scale=1.0 / 8.0))],
+        flash_attention_fwd, attention_ref,
+        lambda a, k: flash_work(*a, True, k["window"]), TF32X3_FLOPS_PER_S,
+        library=lambda a, k: _sdpa(torch, *a, **k), dtype=torch.float32)
+    if fk.LAUNCHES_BY_FORM["float32"] != fk.LAUNCHES["flash_attention"]:
+        raise AssertionError(f"the narrow fp32 call launched "
+                             f"{fk.LAUNCHES_BY_FORM}, not float32 alone")
+    return dict(got, source=FLASH_SRC, form="float32")
+
+
 def phase_serve_bf16(torch, dev, smi):
     """Phase 29 (the module docstring). Returns the bf16 forms' fields for
     the kernels line."""
@@ -7683,6 +7747,8 @@ def main() -> int:
     flash_k = serve["parity"]["flash_attention"]
     for k in (paged_k, flash_k):
         k["launches"] = serve_launches[k["name"]]
+    flash_k["launches_serve_path_by_form"] = serve["launches_by_form"][
+        "flash_attention"]
     paged_k["launches_per_decode_step"] = (serve_launches["paged_attention"]
                                            / serve["counts"]["decode_steps"])
     for k in (write_k, read_k):
@@ -7749,8 +7815,12 @@ def main() -> int:
         paged_k.update(_width_keys(f"{tag}_split", fam["split"]))
         paged_k[f"launches_{tag}_serve_path_by_instance"] = fam[
             "paged_by_instance"]
+        flash_k[f"launches_{tag}_serve_path_by_form"] = fam["flash_by_form"]
         if fam["mtp_flash_launches"] is not None:
             flash_k["launches_mtp_path"] = fam["mtp_flash_launches"]
+    flash_k.update(_width_keys("f32_narrow_mma", _flash_narrow_f32(torch,
+                                                                   dev)))
+    free()
 
     # phase 28's counts on the CPU alone, started now: they run beside the
     # training and checkpoint phases (the card's and the disk's work) and

@@ -55,6 +55,9 @@ SOURCES: Dict[str, Path] = {
     / "flash_attention_wgmma.cu",
     "flash_attention_wgmma_f16": KERNELS / "flash_attention" / "csrc"
     / "flash_attention_wgmma_f16.cu",
+    # flash's fp32 form at d = dv in {64, 128, 256}: 3xTF32 on wgmma, TMA
+    "flash_attention_wgmma_f32": KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_wgmma_f32.cu",
     "rwkv6_scan": KERNELS / "rwkv6_scan" / "csrc" / "rwkv6_scan.cu",
 }
 
@@ -139,6 +142,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "flash_attention_f16_wgmma": [_vp] * 4 + [_ci] * 6
         + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp],
         "flash_attention_f16_wgmma_info": [_ci, _vp],
+    },
+    "flash_attention_wgmma_f32": {
+        # the bf16 wgmma entry's arguments, q, k, v and out fp32, then the
+        # parts' scratch and counters (or null) and the parts a 64-row tile
+        # takes before the stream
+        "flash_attention_f32_wgmma": [_vp] * 4 + [_ci] * 6
+        + [ctypes.c_int64] * 12 + [_ci, _ci, _cf, _cf, _vp, _vp, _ci, _vp],
+        # d; int[8] out (the bf16 wgmma info's, then keys a K/V tile)
+        "flash_attention_f32_wgmma_info": [_ci, _vp],
     },
     "rwkv6_scan": {
         # r, k, v, logw, u, s0 (or null), y, s_out; b, seq, h, d, chunk;

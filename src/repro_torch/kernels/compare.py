@@ -46,12 +46,17 @@ paths' shapes:
   1024-token window layer: 25 heads over 5 KV heads of 64;
 - ``flash_moe``: granite-moe's prompts of 951 and 663 tokens: 24 heads
   over 8 KV heads of 64;
+- ``flash_audio``: musicgen-large's prompts of 768 and 923 tokens: 32
+  heads over 32 KV heads of 64, no cap;
 - ``rwkv6_decode``: one rwkv6-3b decode step's 32 layers: B 8, S 1,
   H 40, hd 64, a carried state each;
 - ``rwkv6_prefill``: 4 prompts of 497 tokens (B 1, H 40, hd 64, the
   serving traffic's mean length), from a zero state;
 - ``launch_floor``: a one-element ``zero_()`` per call.
 
+This checkout's runner sends each flash case to the form ``flash_form``
+picks for its shapes (fp32 at these shapes: the wgmma form of
+``flash_attention_wgmma_f32.cu``; bf16: ``flash_attention_wgmma.cu``).
 Each is one CUDA graph of a pass over the calls, the median of 20
 replays, per call (``timing.graph_ms``, this checkout's for every side);
 ``<case>_queued`` is the same pass launched eagerly while a spin kernel
@@ -77,13 +82,17 @@ from typing import Callable, Dict, List
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.kernel import (
+    WGMMA_TAG, data_ptr, flash_form, flash_parts, flash_scratch,
+    wgmma_library)
 from repro_torch.kernels.paged_attention.kernel import (
     paged_block_rows, paged_partial_floats, paged_row_groups, paged_splits,
     sm_count)
 
 ROOT = _build.KERNELS.parents[2]
 NAMES = ("dbs_rw", "dbs_copy", "paged_attention", "paged_attention_bf16",
-         "flash_attention", "flash_attention_wgmma", "rwkv6_scan")
+         "flash_attention", "flash_attention_wgmma",
+         "flash_attention_wgmma_f32", "rwkv6_scan")
 TURNS = 2                 # rounds of A B ... B A
 
 # runs on one checkout, through its own build, inputs and runners (what
@@ -244,6 +253,8 @@ def inputs(dev, seed: int = 0):
             "flash_hybrid": (None, flash(1369, 25, 5, 64, (0, 1024))),
             "flash_moe": (None, flash(951, 24, 8, 64, (0,))
                           + flash(663, 24, 8, 64, (0,))),
+            "flash_audio": (None, flash(768, 32, 32, 64, (0,))
+                            + flash(923, 32, 32, 64, (0,))),
             "rwkv6_decode": (None, rwkv(8, 1, 32, True)),
             "rwkv6_prefill": (None, rwkv(1, 497, 4, False))}
 
@@ -323,18 +334,35 @@ def runners(libs, cases) -> Dict[str, Callable[[], None]]:
 
     def flash(name):
         _, calls = cases[name]
-        bf16 = calls[0][0].dtype == torch.bfloat16
-        entry = (libs["flash_attention_wgmma"].flash_attention_bf16_wgmma
-                 if bf16 else fa)
+        q0, k0, v0 = calls[0][:3]
+        form = flash_form(q0.shape[-1], v0.shape[-1], q0.dtype,
+                          [x for t in (q0, k0, v0) for x in t.stride()[:3]],
+                          [t.data_ptr() for t in (q0, k0, v0)])
+        wg = form.endswith("_wgmma")
+        entry = fa
+        if wg:
+            entry = getattr(libs[wgmma_library(q0.dtype)],
+                            f"flash_attention_{WGMMA_TAG[q0.dtype]}_wgmma")
+        # the fp32 wgmma form's parts and scratch, a call's each (its
+        # counters go back to zero after every launch)
+        scratch = []
+        for q, *_ in calls:
+            b, h, sq, d = q.shape
+            parts = flash_parts(b, h, sq, sm_count(q.device))
+            scratch.append((*flash_scratch(b, h, sq, d, parts, q.device),
+                            parts))
 
         def run():
             st = stream()
-            for q, k, v, o, window, cap in calls:
+            for (q, k, v, o, window, cap), (part, count, parts) in zip(
+                    calls, scratch):
                 b, h, sq, d = q.shape
                 kv, sk = k.shape[1], k.shape[2]
-                dims = [b, h, kv, sq, sk, d] + ([] if bf16 else [d])
+                dims = [b, h, kv, sq, sk, d] + ([] if wg else [d])
                 strides = [x for t in (q, k, v, o) for x in t.stride()[:3]]
                 tail = [1, window, d ** -0.5, cap]
+                if form == "f32_wgmma":
+                    tail += [data_ptr(part), data_ptr(count), parts]
                 _build.raise_on(entry(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     *dims, *strides, *tail, st), name)

@@ -15,14 +15,19 @@ kernel for tensors on a CUDA device and calls the plain version (ref.py)
 for tensors on the CPU; a CUDA tensor gets the kernel or an error.
 ``LAUNCHES`` and ``PLAIN_CALLS`` count the two, ``LAUNCHES_BY_DTYPE``
 splits the launches by dtype (``float32``, ``bfloat16``, ``float16``) and
-``LAUNCHES_BY_FORM`` by instantiation: ``float32``; ``bf16_wgmma`` and
-``f16_wgmma``, the warpgroup-product kernel of
+``LAUNCHES_BY_FORM`` by instantiation: ``f32_wgmma``, ``bf16_wgmma`` and
+``f16_wgmma``, the warpgroup-product kernels at d = dv in {64, 128, 256}
+with 16-byte aligned bases and strides (TMA's rule, in bytes) of
+``csrc/flash_attention_wgmma_f32.cu`` (fp32, 3xTF32) and
 ``csrc/flash_attention_wgmma.cu`` (bf16; its fp16 library
-``flash_attention_wgmma_f16.cu``) at d = dv in {64, 128, 256} with 16-byte
-aligned bases and strides (TMA's rule); ``bf16_mma`` and ``f16_mma``,
-``csrc/flash_attention.cu``'s 16-bit forms, for every other 16-bit shape
-(odd or unaligned head dims and rows, the wide 576 / 512 form).
-``flash_form`` makes that choice from shapes alone (no read-back).
+``flash_attention_wgmma_f16.cu``); ``float32``, ``bf16_mma`` and
+``f16_mma``, ``csrc/flash_attention.cu``'s mma.sync forms, for every other
+shape (odd or unaligned head dims and rows, the wide 576 / 512 form).
+``flash_form`` makes that choice from shapes alone (no read-back). The
+fp32 wgmma form shares each 64-row tile's key tiles over ``flash_parts``
+blocks when the call's tiles do not fill the card (scratch from
+``flash_scratch``; the parts merge in a fixed order, so the output does
+not depend on which block finishes last).
 q, k and v are all fp32, all bf16 or all fp16, as the TPU kernel takes
 any, and the output is in q's dtype; any other dtype or mix raises. fp32:
 the kernel's products run on the tensor cores in 3xTF32, accurate to
@@ -49,24 +54,30 @@ import torch
 from repro_torch.kernels._build import (check_tensor, entry, kernel_info,
                                        library, raise_on, refuse_grad)
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.paged_attention.kernel import sm_count
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
 LAUNCHES_BY_DTYPE: Dict[str, int] = {"float32": 0, "bfloat16": 0,
                                      "float16": 0}
-LAUNCHES_BY_FORM: Dict[str, int] = {"float32": 0, "bf16_mma": 0,
-                                    "bf16_wgmma": 0, "f16_mma": 0,
-                                    "f16_wgmma": 0}
+LAUNCHES_BY_FORM: Dict[str, int] = {"float32": 0, "f32_wgmma": 0,
+                                    "bf16_mma": 0, "bf16_wgmma": 0,
+                                    "f16_mma": 0, "f16_wgmma": 0}
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)   # the forms
 # a 16-bit dtype's form prefix, and its libraries' and C entries' tag
 TAG16 = {torch.bfloat16: "bf16", torch.float16: "f16"}
+# every dtype's wgmma form prefix and C entry tag
+WGMMA_TAG = {torch.float32: "f32", **TAG16}
 WGMMA_HEAD_DIMS = (64, 128, 256)    # the wgmma kernel's d = dv
+ROWS = 64                           # the wgmma kernels' query rows a tile
+MAX_PARTS = 4                       # blocks an fp32 wgmma tile's keys take
 NARROW_HEAD_DIM = 256               # the narrow instantiation: dk, dv
 MAX_HEAD_DIM = 576                  # the wide one: dk (MLA's latent + rope)
 MAX_V_HEAD_DIM = 512                # and dv (MLA's latent)
 INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
              "blocks_per_sm", "threads", "rows_per_block")
 WGMMA_INFO_KEYS = INFO_KEYS + ("stages",)
+F32_WGMMA_INFO_KEYS = WGMMA_INFO_KEYS + ("keys_per_tile",)
 
 
 def reset_counts() -> None:
@@ -77,44 +88,54 @@ def reset_counts() -> None:
 
 
 def flash_form(d: int, dv: int, dtype, strides=(), ptrs=()) -> str:
-    """The instantiation a call launches (a ``LAUNCHES_BY_FORM`` key):
-    fp32 its own; bf16 and fp16 the wgmma kernel where d = dv is 64, 128
-    or 256 and every base pointer in ``ptrs`` and element stride in
-    ``strides`` (of the dims of size above 1) is 16-byte aligned, else the
-    mma.sync one."""
-    if dtype == torch.float32:
-        return "float32"
-    if (d == dv and d in WGMMA_HEAD_DIMS and all(s % 8 == 0 for s in strides)
+    """The instantiation a call launches (a ``LAUNCHES_BY_FORM`` key): the
+    dtype's wgmma kernel where d = dv is 64, 128 or 256 and every base
+    pointer in ``ptrs`` and element stride in ``strides`` (of the dims of
+    size above 1) is 16-byte aligned in bytes (strides of 4 fp32 or 8
+    16-bit values), else the mma.sync one ("float32" for fp32)."""
+    size = 4 if dtype == torch.float32 else 2
+    if (d == dv and d in WGMMA_HEAD_DIMS
+            and all(s * size % 16 == 0 for s in strides)
             and all(p % 16 == 0 for p in ptrs)):
-        return f"{TAG16[dtype]}_wgmma"
-    return f"{TAG16[dtype]}_mma"
+        return f"{WGMMA_TAG[dtype]}_wgmma"
+    return "float32" if dtype == torch.float32 else f"{TAG16[dtype]}_mma"
+
+
+def flash_parts(b: int, h: int, sq: int, sms: int) -> int:
+    """Blocks the fp32 wgmma form splits each 64-row query tile's key tiles
+    over (tiles p, p + n, ...; the tile's last block to finish merges the
+    parts): 1 when the call's tiles fill the card's ``sms`` SMs, else
+    enough for about one block an SM, at most MAX_PARTS. gemma2-2b's
+    prefill (8 heads, 14 tiles at 854 tokens) takes 2."""
+    n = b * h * -(-sq // ROWS)
+    return 1 if n >= sms else min(MAX_PARTS, -(-sms // n))
 
 
 def flash_info(d: int, dv: Optional[int] = None, dtype=torch.float32,
                form: Optional[str] = None) -> Dict[str, int]:
     """The CUDA kernel's registers, shared memory, resident blocks per SM
     and block shape at head dims ``d`` and ``dv`` (default ``d``), of the
-    form of ``dtype`` (bf16 or fp16: ``form`` "<tag>_mma" or
-    "<tag>_wgmma", by default the wgmma form where d = dv takes it); needs
-    the card."""
+    form of ``dtype`` (``form`` a ``LAUNCHES_BY_FORM`` key of the dtype,
+    by default the wgmma form where d = dv takes it; fp32's adds its key
+    tile); needs the card."""
     dv = d if dv is None else dv
-    if dtype == torch.float32:
-        return kernel_info("flash_attention", "flash_attention_info",
-                           (d, dv), INFO_KEYS)
-    tag = TAG16[dtype]
     form = form or flash_form(d, dv, dtype)
     if form.endswith("_wgmma"):
-        return kernel_info(_wgmma_library(dtype),
+        tag = WGMMA_TAG[dtype]
+        return kernel_info(wgmma_library(dtype),
                            f"flash_attention_{tag}_wgmma_info", (d,),
-                           WGMMA_INFO_KEYS)
-    return kernel_info("flash_attention", f"flash_attention_{tag}_info",
-                       (d, dv), INFO_KEYS)
+                           F32_WGMMA_INFO_KEYS if tag == "f32"
+                           else WGMMA_INFO_KEYS)
+    fn = ("flash_attention_info" if dtype == torch.float32
+          else f"flash_attention_{TAG16[dtype]}_info")
+    return kernel_info("flash_attention", fn, (d, dv), INFO_KEYS)
 
 
-def _wgmma_library(dtype) -> str:
-    """The library of the wgmma form of a 16-bit ``dtype``."""
-    return ("flash_attention_wgmma" if dtype == torch.bfloat16
-            else "flash_attention_wgmma_f16")
+def wgmma_library(dtype) -> str:
+    """The library of ``dtype``'s wgmma form."""
+    return {torch.float32: "flash_attention_wgmma_f32",
+            torch.bfloat16: "flash_attention_wgmma",
+            torch.float16: "flash_attention_wgmma_f16"}[dtype]
 
 
 def check_head_dims(d: int, dv: int) -> None:
@@ -183,8 +204,14 @@ def _flash(q, k, v, causal: bool, window: int, logit_cap: float,
             float(logit_cap or 0.0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if form.endswith("_wgmma"):
-            err = getattr(library(_wgmma_library(q.dtype)),
+        if form == "f32_wgmma":
+            parts = flash_parts(b, h, sq, sm_count(dev))
+            part, count = flash_scratch(b, h, sq, d, parts, dev)
+            err = library(wgmma_library(q.dtype)).flash_attention_f32_wgmma(
+                *head, d, *strides, *tail, data_ptr(part), data_ptr(count),
+                parts, stream)
+        elif form.endswith("_wgmma"):
+            err = getattr(library(wgmma_library(q.dtype)),
                           f"flash_attention_{TAG16[q.dtype]}_wgmma")(
                 *head, d, *strides, *tail, stream)
         else:
@@ -197,6 +224,23 @@ def _flash(q, k, v, causal: bool, window: int, logit_cap: float,
     LAUNCHES_BY_DTYPE[str(q.dtype).split(".")[1]] += 1
     LAUNCHES_BY_FORM[form] += 1
     return out
+
+
+def flash_scratch(b, h, sq, d, parts, dev):
+    """The fp32 wgmma form's scratch for ``parts`` > 1: each part's
+    unnormalised (o, m, l) of every 64-row tile, and the tiles' counters of
+    finished parts, zero (the kernel leaves them zero); (None, None) for
+    one part."""
+    if parts == 1:
+        return None, None
+    n_qt = -(-sq // ROWS)
+    return (torch.empty(b * h * n_qt * parts * ROWS * (d + 2), device=dev),
+            torch.zeros(b * h * n_qt, dtype=torch.int32, device=dev))
+
+
+def data_ptr(t):
+    """A tensor's address for a C entry, None for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def _outer_strides(*ts):

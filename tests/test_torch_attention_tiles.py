@@ -2,9 +2,9 @@
 packed form, and the shape rules that pick them, on the CPU (no card).
 
 - ``flash_form``: which instantiation a call of flash attention launches
-  (fp32; bf16 on wgmma where d = dv is 64, 128 or 256 with 16-byte
-  aligned bases and strides; bf16 on mma.sync otherwise), from shapes
-  alone.
+  (fp32 and bf16 on wgmma where d = dv is 64, 128 or 256 with 16-byte
+  aligned bases and strides, in bytes; on mma.sync otherwise), from
+  shapes alone.
 - ``paged_form`` / ``PACKED_ROWS`` / ``paged_block_rows`` /
   ``paged_splits``: when a KV head's group goes to the packed
   instantiation (a wide head dim, at least ``PACKED_MIN_G`` rows), its
@@ -79,7 +79,15 @@ def paged_packed_cut(n_pages, n_blocks: int):
 # the shape rules
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("d,dv,dtype,strides,ptrs,want", [
-    (256, 256, F32, (2048, 256), (0,), "float32"),
+    (256, 256, F32, (2048, 256), (0,), "f32_wgmma"),
+    (256, 256, F32, (4096, 256, 1024), (0, 16, 4096), "f32_wgmma"),  # gemma2
+    (64, 64, F32, (2240, 64), (32,), "f32_wgmma"),
+    (128, 128, F32, (4096, 128), (0, 64), "f32_wgmma"),
+    (576, 512, F32, (576,), (0,), "float32"),        # the wide form
+    (72, 72, F32, (72,), (0,), "float32"),           # d not 64/128/256
+    (64, 64, F32, (65, 64), (0,), "float32"),        # a row off 16 bytes
+    (64, 64, F32, (64,), (0, 8), "float32"),         # a base off 16 bytes
+    (64, 64, F32, (66,), (0,), "float32"),           # 16 bytes in bf16 only
     (256, 256, BF16, (4096, 256, 1024), (0, 16, 4096), "bf16_wgmma"),
     (64, 64, BF16, (2240, 64), (32,), "bf16_wgmma"),
     (128, 128, BF16, (), (), "bf16_wgmma"),

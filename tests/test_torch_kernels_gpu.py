@@ -142,6 +142,13 @@ schedules, at the serving path's shapes, through the model layout's
 strides and with a carried state: y bf16 within the fp32 tolerance plus
 one bf16 step of |y| (rtol 2^-7 more) of the plain chunked version on the
 same inputs, the state fp32 within the fp32 tolerance.
+The fp32 wgmma form (``flash_attention_wgmma_f32.cu``, 3xTF32 on wgmma
+fed by TMA): against the plain version within atol 1e-4 and rtol 1e-4 at
+d 64, 128 and 256 (ragged last tiles, a window across key tiles, Sk > Sq,
+the cap, a single query, batch 2, and the four fp32 serve paths' prefill
+shapes: gemma2-2b, hymba-1.5b, granite-moe, musicgen-large), each call one
+launch of ``f32_wgmma``; fp32 rows off 16 bytes, d 72 and the wide
+576 / 512 form launch the mma.sync ``float32`` form instead.
 Imports no JAX.
 """
 import numpy as np
@@ -2029,9 +2036,9 @@ def test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
     fk.reset_counts()
     got = flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES_BY_FORM == {"float32": 0, "bf16_mma": 0,
-                                   "bf16_wgmma": 0, "f16_mma": 0,
-                                   "f16_wgmma": 0,
+    assert fk.LAUNCHES_BY_FORM == {"float32": 0, "f32_wgmma": 0,
+                                   "bf16_mma": 0, "bf16_wgmma": 0,
+                                   "f16_mma": 0, "f16_wgmma": 0,
                                    f"{TAG16[dtype]}_wgmma": 1}
     assert got.shape == (b, h, sq, d) and torch.isfinite(got.float()).all()
     _close_bf16(got, attention_ref(q, k, v, **kw), dtype)
@@ -2045,6 +2052,72 @@ def test_flash_attention_wgmma_f16_form(b, sq, sk, h, kv, d, window, cap,
     bf16 form's shapes, within F16_TOL; one launch of ``f16_wgmma``."""
     test_flash_attention_wgmma_form(b, sq, sk, h, kv, d, window, cap,
                                     layout, dtype=F16)
+
+
+F32_WGMMA_FORMS = WGMMA_FORMS + [
+    (1, 1369, 1369, 25, 5, 64, 1024, 0.0, "model"),  # hymba, windowed
+    (1, 951, 951, 24, 8, 64, 0, 0.0, "model"),       # granite-moe
+    (1, 923, 923, 32, 32, 64, 0, 0.0, "model"),      # musicgen-large
+    (1, 200, 200, 2, 1, 128, 70, 30.0, "contiguous")]  # window and cap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,window,cap,layout", F32_WGMMA_FORMS)
+def test_flash_attention_f32_wgmma_form(b, sq, sk, h, kv, d, window, cap,
+                                        layout):
+    """The fp32 wgmma form (3xTF32 on wgmma, TMA; d 64 dealt, d 128 and 256
+    split between the consumers) against its plain version within atol =
+    rtol = 1e-4 at the bf16 form's shapes and the fp32 serve paths' prefill
+    shapes; each call one launch of ``f32_wgmma``."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(sq + sk + d + h)
+    q = torch.randn((b, h, sq, d), generator=gen, device=dev)
+    k = torch.randn((b, kv, sk, d), generator=gen, device=dev)
+    v = torch.randn((b, kv, sk, d), generator=gen, device=dev)
+    if layout == "model":
+        q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (q, k, v))
+    kw = dict(window=window, logit_cap=cap)
+    fk.reset_counts()
+    got = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES_BY_FORM == {"float32": 0, "f32_wgmma": 1,
+                                   "bf16_mma": 0, "bf16_wgmma": 0,
+                                   "f16_mma": 0, "f16_wgmma": 0}
+    assert got.shape == (b, h, sq, d) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, attention_ref(q, k, v, **kw), **TOL)
+
+
+@pytest.mark.gpu
+def test_flash_attention_f32_wgmma_form_takes_only_its_shapes():
+    """fp32 shapes outside the wgmma form launch the mma.sync ``float32``
+    form (rows one value off 16 bytes, a base one value off, d 72, d != dv,
+    the wide 576 / 512); an aligned call launches ``f32_wgmma``."""
+    dev = _cuda()
+    from repro_torch.kernels.flash_attention import kernel as fk
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    q, k, v = rand(1, 4, 130, 64), rand(1, 2, 130, 64), rand(1, 2, 130, 64)
+    pad = [torch.cat([t, t[..., :1]], -1)[..., :64] for t in (q, k, v)]
+    off = [rand(1, 4, 130, 65)[..., 1:], k, v]
+    cases = [(pad, "float32"), (off, "float32"),
+             ([rand(1, 4, 90, 72), rand(1, 2, 90, 72), rand(1, 2, 90, 72)],
+              "float32"),
+             ([rand(1, 4, 90, 256), rand(1, 2, 90, 256),
+               rand(1, 2, 90, 128)], "float32"),
+             ([rand(1, 16, 70, 576), rand(1, 1, 70, 576),
+               rand(1, 1, 70, 512)], "float32"),
+             ([q, k, v], "f32_wgmma")]
+    for (q, k, v), form in cases:
+        fk.reset_counts()
+        got = flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES_BY_FORM[form] == 1, fk.LAUNCHES_BY_FORM
+        assert fk.LAUNCHES["flash_attention"] == 1
+        torch.testing.assert_close(got, attention_ref(q, k, v), **TOL)
 
 
 @pytest.mark.gpu
